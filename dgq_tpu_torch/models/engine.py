@@ -1,0 +1,340 @@
+"""Real-quant INT8-dataflow LLaMA engine on one NVIDIA GPU.
+
+Port of ``dgq_tpu/models/engine.py`` for the configuration ``fused_decode =
+False``, rowpair weight storage and INT8 KV: every linear is K1
+(``w4a8_matmul_rp_pipe``), prompt windows of more than 8 tokens attend with
+K2 (``int8_prefill_attention``) and decode steps with K3
+(``int8_decode_attention``), with JAX's dispatch rules.  Activations enter
+the integer domain at each RMSNormQ, and requantisation happens where the
+reference puts it: post-RoPE q/k/v, pre-o_proj and pre-down_proj.
+
+Parameters keep the JAX layout (layers stacked along a leading L axis, q|k|v
+and gate|up fused along N, scales 8x row-replicated), so checkpoints and
+caches compare directly.  ``lax.scan`` over layers becomes a Python loop.
+The KV cache is written in place (JAX returns a new cache from
+``dynamic_update_slice``); ``engine_forward`` returns a cache that shares the
+input's tensors.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import List, NamedTuple, Optional, Tuple
+
+import torch
+
+from dgq_tpu_torch.models.llama import LlamaConfig, rms_norm, rope_cos_sin, rotate_half
+from dgq_tpu_torch.ops.attention import (
+    NEG,
+    _quantize_exp,
+    auto_decode_chunk,
+    f32,
+    int8_decode_attention,
+    int8_prefill_attention,
+    qk_scale,
+)
+from dgq_tpu_torch.ops.quant_matmul import int_matmul, w4a8_matmul_rp_pipe
+
+Tensor = torch.Tensor
+
+
+class EngineLinear(NamedTuple):
+    """Dual-grained W4A8 linear.  The port computes with the rowpair layout
+    ``qw_rp`` and the 8x row-replicated ``wscales``/``wzeros``; the other
+    fields are carried so checkpoints round-trip (``cs_fold`` and the compact
+    plane rows feed the fused decode kernels of a later slice)."""
+
+    qweight: Optional[Tensor]  # (K//2, N) int8 span layout, None when rowpair-only
+    wscales: Tensor  # (8G, N) int8, group g at rows 8g..8g+7
+    wzeros: Tensor  # (8G, N) int8
+    alpha: Tensor  # (N,) f32 = wscales8 * input_scale
+    bias: Optional[Tensor]  # (N,) f32 or None
+    s_hi: Optional[Tensor] = None  # (G/2, N) int8 even-group scales
+    s_lo: Optional[Tensor] = None  # (G/2, N) int8 odd-group scales
+    z_hi: Optional[Tensor] = None
+    z_lo: Optional[Tensor] = None
+    qw_rp: Optional[Tensor] = None  # (K//2, N) int8 rowpair layout
+    cs_fold: Optional[Tensor] = None  # (N,) int32
+
+
+class EngineLayer(NamedTuple):
+    """One engine layer (stacked: every tensor has a leading L axis).  q|k|v
+    split at [Nq, Nq+Nkv]; gate|up at [F]."""
+
+    ln1_weight: Tensor  # (D,) f32, pre-divided by attn_input_scale
+    ln1_bias: Optional[Tensor]
+    ln2_weight: Tensor  # (D,) f32, pre-divided by mlp_input_scale
+    ln2_bias: Optional[Tensor]
+    qkv_proj: EngineLinear
+    o_proj: EngineLinear
+    gate_up_proj: EngineLinear
+    down_proj: EngineLinear
+    q_scale: Tensor  # () f32 static post-RoPE scales
+    k_scale: Tensor
+    v_scale: Tensor
+    out_input_scale: Tensor
+    down_input_scale: Tensor
+
+
+def map_tensors(fn, tree):
+    """Apply ``fn`` to every tensor of an EngineLayer/EngineLinear tree."""
+    if tree is None:
+        return None
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    return type(tree)(*(map_tensors(fn, f) for f in tree))
+
+
+@dataclasses.dataclass
+class EngineParams:
+    embed_tokens: Tensor  # (V, D)
+    layers: EngineLayer  # stacked
+    norm_weight: Tensor  # (D,)
+    lm_head: Tensor  # (V, D)
+    rms_eps: float = 1e-5
+
+    @functools.cached_property
+    def layer_list(self) -> List[EngineLayer]:
+        """Per-layer views of the stacked layers, made once."""
+        n = self.layers.ln1_weight.shape[0]
+        return [map_tensors(lambda t, i=i: t[i], self.layers) for i in range(n)]
+
+
+class KVCache(NamedTuple):
+    k: Tensor  # (L, B, Hkv, Dh, Smax) int8, K stored transposed
+    v: Tensor  # (L, B, Hkv, Smax, Dh) int8
+    length: int  # tokens already cached
+
+
+def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int,
+                  num_layers: Optional[int] = None, kv_bits: int = 8,
+                  device="cuda") -> KVCache:
+    if kv_bits != 8:
+        raise NotImplementedError("kv_bits=4 needs K11 int4_paged_decode_attention and the "
+                                  "INT4 KV path, not yet ported")
+    n = num_layers or cfg.num_hidden_layers
+    hk, dh = cfg.num_key_value_heads, cfg.head_dim
+    return KVCache(
+        k=torch.zeros((n, batch, hk, dh, max_len), dtype=torch.int8, device=device),
+        v=torch.zeros((n, batch, hk, max_len, dh), dtype=torch.int8, device=device),
+        length=0,
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    """Static knobs of the engine forward (the JAX fields this port honours)."""
+
+    cfg: LlamaConfig
+    # flash prefill kernel (K2) for windows of more than 8 tokens when Smax %
+    # 128 == 0; the query window is padded to a multiple of 128 rows
+    flash_prefill: bool = True
+    # -1: whole-cache decode kernel up to Smax 8192, the chunked kernel (K7,
+    # not yet ported) beyond; > 0 forces chunks of that size; 0 never chunks
+    decode_attn_chunk: int = -1
+    # the fused decode kernels (K4-K6) are not ported yet: only False runs
+    fused_decode: bool = False
+    # INT8 p @ V on decode windows (ops/attention._quantize_exp)
+    quant_pv: bool = True
+    kv_bits: int = 8
+
+    def __post_init__(self):
+        if self.fused_decode:
+            raise NotImplementedError(
+                "fused_decode=True needs K4-K6 (fused_norm_gemv_rp, fused_requant_gemv_rp, "
+                "fused_mlp_decode_rp), not yet ported")
+        if self.kv_bits != 8:
+            raise NotImplementedError("kv_bits=4 needs the INT4 KV path (K11 "
+                                      "int4_paged_decode_attention), not yet ported")
+
+
+def _rms_norm_q(x: Tensor, weight_q: Tensor, eps: float, bias_q=None) -> Tensor:
+    """RMSNormQ: fp norm with pre-scaled weight, round -> int8."""
+    y = rms_norm(x.to(torch.float32), weight_q, eps)
+    if bias_q is not None:
+        y = y + bias_q
+    return torch.clamp(torch.round(y), -128, 127).to(torch.int8)
+
+
+def _requant(x: Tensor, scale: Tensor, qmin: float = -128.0) -> Tensor:
+    """round(x / scale) (half to even) clamped to int8."""
+    return torch.clamp(torch.round(x / scale), qmin, 127.0).to(torch.int8)
+
+
+def _attention_scores(q_s8, kt_s8, q_scale, k_scale, head_dim):
+    """q.k^T in the INT8 domain (exact int32), then one scalar rescale."""
+    return int_matmul(q_s8, kt_s8).to(torch.float32) * qk_scale(q_scale, k_scale, head_dim)
+
+
+def _linear_s8(lin: EngineLinear, x_s8: Tensor) -> Tensor:
+    """int8 activations (..., K) -> fp32 (..., N) through K1."""
+    if lin.qw_rp is None:
+        raise NotImplementedError("span-layout linears need K9 w4a8_matmul_packed, "
+                                  "not yet ported")
+    groupsize = (2 * lin.qw_rp.shape[0] * 8) // lin.wscales.shape[0]
+    x2 = x_s8.reshape(-1, x_s8.shape[-1]).contiguous()
+    y = w4a8_matmul_rp_pipe(x2, lin.qw_rp, lin.wscales, lin.wzeros, lin.alpha, lin.bias,
+                            groupsize=groupsize, scales_replicated=True)
+    return y.reshape(*x_s8.shape[:-1], -1)
+
+
+def _qkv_rows(ecfg: EngineConfig, layer: EngineLayer, x: Tensor) -> Tensor:
+    """(B, S, D) -> qkv projections (B, S, N): RMSNormQ + K1."""
+    x_s8 = _rms_norm_q(x, layer.ln1_weight, ecfg.cfg.rms_norm_eps, layer.ln1_bias)
+    return _linear_s8(layer.qkv_proj, x_s8)
+
+
+def _block_tail(ecfg: EngineConfig, layer: EngineLayer, x: Tensor, ctx: Tensor) -> Tensor:
+    """Attention context -> o_proj + residual -> MLP + residual."""
+    ctx_s8 = _requant(ctx, layer.out_input_scale, qmin=-127.0)
+    x = x + _linear_s8(layer.o_proj, ctx_s8)
+    x_s8 = _rms_norm_q(x, layer.ln2_weight, ecfg.cfg.rms_norm_eps, layer.ln2_bias)
+    gate, up = torch.chunk(_linear_s8(layer.gate_up_proj, x_s8), 2, dim=-1)
+    h_s8 = _requant(torch.nn.functional.silu(gate) * up, layer.down_input_scale)
+    return x + _linear_s8(layer.down_proj, h_s8)
+
+
+def _block(ecfg: EngineConfig, layer: EngineLayer, x: Tensor, k_cache: Tensor,
+           v_cache: Tensor, cache_len: int, pos_cos: Tensor, pos_sin: Tensor, mask: Tensor,
+           decode_window: bool = False) -> Tensor:
+    """One decoder block on (B, S, D) fp32 activations; writes the S new
+    tokens' int8 K/V into the caches at [cache_len, cache_len + S)."""
+    cfg = ecfg.cfg
+    b, s, _ = x.shape
+    dh = cfg.head_dim
+    hk = cfg.num_key_value_heads
+    h = cfg.num_attention_heads
+    rep = h // hk
+
+    qkv = _qkv_rows(ecfg, layer, x)
+    q, k, v = torch.split(qkv, [h * dh, hk * dh, hk * dh], dim=-1)
+    q = q.reshape(b, s, h, dh).transpose(1, 2)
+    k = k.reshape(b, s, hk, dh).transpose(1, 2)
+    v = v.reshape(b, s, hk, dh).transpose(1, 2)
+    cos, sin = pos_cos[None, None], pos_sin[None, None]
+    q = q * cos + rotate_half(q) * sin
+    k = k * cos + rotate_half(k) * sin
+
+    q_s8 = _requant(q, layer.q_scale).contiguous()
+    k_cache[:, :, :, cache_len:cache_len + s] = _requant(k, layer.k_scale).transpose(2, 3)
+    v_cache[:, :, cache_len:cache_len + s, :] = _requant(v, layer.v_scale)
+    smax = k_cache.shape[-1]
+
+    if s == 1:
+        chunk = ecfg.decode_attn_chunk
+        if chunk < 0:
+            chunk = auto_decode_chunk(smax)
+        if chunk and smax > chunk and x.device.type == "cuda":
+            raise NotImplementedError(
+                f"decode at Smax={smax} needs K7 int8_decode_attention_chunked, "
+                "not yet ported")
+        ctx = int8_decode_attention(
+            q_s8[:, :, 0, :], k_cache, v_cache, cache_len + 1,
+            layer.q_scale, layer.k_scale, layer.v_scale, quant_pv=ecfg.quant_pv,
+        ).reshape(b, 1, h * dh)
+    elif (ecfg.flash_prefill and s > 8 and not (ecfg.quant_pv and decode_window)
+          and smax % 128 == 0):
+        # the query window is padded to 128 rows; pad rows attend to valid
+        # keys only and are sliced off
+        sp = -(-s // 128) * 128
+        qp = torch.nn.functional.pad(q_s8, (0, 0, 0, sp - s)).contiguous()
+        ctx = int8_prefill_attention(
+            qp, k_cache, v_cache, cache_len + s, layer.q_scale, layer.k_scale,
+            layer.v_scale, cache_len,
+        )
+        ctx = ctx[:, :, :s].transpose(1, 2).reshape(b, s, h * dh)
+    else:
+        # plain materialised attention, as JAX runs outside its kernels
+        qg = q_s8.reshape(b, hk, rep * s, dh)
+        scores = _attention_scores(qg, k_cache, layer.q_scale, layer.k_scale, dh)
+        scores = scores.reshape(b, hk, rep, s, smax) + mask[None, None, None]
+        if ecfg.quant_pv and (s == 1 or decode_window):
+            m = torch.amax(scores, dim=-1, keepdim=True)
+            e = torch.exp(scores - m)
+            denom = torch.sum(e, dim=-1, keepdim=True)
+            acc = int_matmul(_quantize_exp(e), v_cache[:, :, None])
+            ctx = acc.to(torch.float32) * ((layer.v_scale / f32(127.0, x.device)) / denom)
+        else:
+            probs = torch.softmax(scores, dim=-1)
+            ctx = torch.matmul(probs, (v_cache.to(torch.float32) * layer.v_scale)[:, :, None])
+        ctx = ctx.permute(0, 3, 1, 2, 4).reshape(b, s, h * dh)
+
+    return _block_tail(ecfg, layer, x, ctx)
+
+
+def engine_forward(ecfg: EngineConfig, params: EngineParams, input_ids: Tensor,
+                   cache: KVCache, *, window: str = "auto") -> Tuple[Tensor, KVCache]:
+    """Prefill or decode step: runs S tokens starting at cache.length.
+
+    Returns (logits (B, S, V) f32, cache advanced by S).  ``window`` declares
+    the S > 1 window kind: "prefill" (fp p @ V whatever quant_pv says),
+    "decode" (a speculative-verification window; quant_pv applies), or
+    "auto" (S == 1 -> decode, S > 1 -> prefill).  Runs on the device of the
+    parameters."""
+    cfg = ecfg.cfg
+    dev = params.embed_tokens.device
+    input_ids = input_ids.to(dev)
+    b, s = input_ids.shape
+    smax = cache.k.shape[4]
+    if cache.length + s > smax:
+        raise ValueError(f"cache overflow: {cache.length} + {s} > {smax}")
+    decode_window = window == "decode" or (window == "auto" and s == 1)
+    x = params.embed_tokens[input_ids].to(torch.float32)
+
+    positions = cache.length + torch.arange(s, device=dev)
+    pos_cos, pos_sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    j = torch.arange(smax, device=dev)[None, :]
+    mask = torch.where(j <= positions[:, None], f32(0.0, dev), f32(NEG, dev))
+
+    for li, layer in enumerate(params.layer_list):
+        x = _block(ecfg, layer, x, cache.k[li], cache.v[li], cache.length, pos_cos, pos_sin,
+                   mask, decode_window=decode_window)
+
+    x = rms_norm(x, params.norm_weight.to(x.dtype), cfg.rms_norm_eps)
+    logits = torch.matmul(x, params.lm_head.to(x.dtype).t())
+    return logits, cache._replace(length=cache.length + s)
+
+
+def engine_decode_multi(ecfg: EngineConfig, params: EngineParams, tok: Tensor,
+                        cache: KVCache, n: int):
+    """``n`` greedy decode steps.  Returns (tokens (B, n), next_tok (B, 1),
+    cache)."""
+    toks = []
+    for _ in range(n):
+        logits, cache = engine_forward(ecfg, params, tok, cache)
+        tok = torch.argmax(logits[:, -1:, :], dim=-1).to(torch.int32)
+        toks.append(tok[:, 0])
+    return torch.stack(toks, dim=1), tok, cache
+
+
+def generate(ecfg: EngineConfig, params: EngineParams, prompt_ids: Tensor,
+             max_new_tokens: int, max_len: int, sampling=None,
+             generator: Optional[torch.Generator] = None, decode_unroll: int = 1) -> Tensor:
+    """Prefill + decode loop -> (B, max_new_tokens) int32 tokens; greedy by
+    default, or sampled with SamplingParams from ``generator``.
+    ``decode_unroll`` > 1 runs greedy steps through engine_decode_multi."""
+    from dgq_tpu_torch.serving.sampling import SamplingParams, sample_logits
+
+    sampling = sampling or SamplingParams()
+    dev = params.embed_tokens.device
+    b, _ = prompt_ids.shape
+    cache = init_kv_cache(ecfg.cfg, b, max_len, kv_bits=ecfg.kv_bits, device=dev)
+    logits, cache = engine_forward(ecfg, params, prompt_ids, cache)
+    next_tok = sample_logits(logits[:, -1, :], sampling, generator)
+    toks = [next_tok]
+    remaining = max_new_tokens - 1
+    if sampling.greedy and decode_unroll > 1:
+        cols = [next_tok[:, None]]
+        tok = next_tok[:, None]
+        while remaining > 0:
+            n = min(decode_unroll, remaining)
+            chunk, tok, cache = engine_decode_multi(ecfg, params, tok, cache, n)
+            cols.append(chunk)
+            remaining -= n
+        return torch.cat(cols, dim=1)
+    for _ in range(remaining):
+        logits, cache = engine_forward(ecfg, params, next_tok[:, None], cache)
+        next_tok = sample_logits(logits[:, -1, :], sampling, generator)
+        toks.append(next_tok)
+    return torch.stack(toks, dim=1)

@@ -1,0 +1,186 @@
+"""Engine checkpoints: ``save_engine`` / ``load_engine`` for ``arch == "llama"``.
+
+Port of ``dgq_tpu/utils/checkpoint.py:223-248`` and ``:421-511``: one
+safetensors file of flat ``/``-joined keys (``layers/qkv_proj/qw_rp``, ...)
+plus a ``<path>.json`` manifest, interchangeable with the JAX package's
+files.  The format is read and written here directly (no ``safetensors``
+package): an 8-byte little-endian header length, a JSON header naming each
+tensor's dtype, shape and byte range, then the raw little-endian bytes.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import struct
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+from dgq_tpu_torch.models.engine import EngineLayer, EngineLinear, EngineParams, map_tensors
+from dgq_tpu_torch.models.llama import LlamaConfig
+
+_DTYPES = {
+    "I8": torch.int8,
+    "I32": torch.int32,
+    "F32": torch.float32,
+    "BF16": torch.bfloat16,
+}
+_NAMES = {v: k for k, v in _DTYPES.items()}
+
+
+def _bytes(t: torch.Tensor) -> np.ndarray:
+    """The raw bytes of a contiguous CPU tensor, as a uint8 array view."""
+    return t.reshape(-1).view(torch.uint8).numpy()
+
+
+def write_safetensors(path: str, tensors: Mapping[str, torch.Tensor]) -> None:
+    """Write tensors (copied to the CPU) as one safetensors file, keys sorted."""
+    cpu = {name: tensors[name].detach().to("cpu").contiguous() for name in sorted(tensors)}
+    header: Dict[str, dict] = {}
+    offset = 0
+    for name, t in cpu.items():
+        if t.dtype not in _NAMES:
+            raise TypeError(f"{name}: dtype {t.dtype} not supported")
+        nbytes = t.numel() * t.element_size()
+        header[name] = {"dtype": _NAMES[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + nbytes]}
+        offset += nbytes
+    head = json.dumps(header, separators=(",", ":")).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)))
+        f.write(head)
+        for t in cpu.values():
+            f.write(_bytes(t))
+
+
+def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
+    """Read a safetensors file into CPU tensors."""
+    out = {}
+    with open(path, "rb") as f:
+        (n,) = struct.unpack("<Q", f.read(8))
+        header = json.loads(f.read(n))
+        for name, meta in header.items():
+            if name == "__metadata__":
+                continue
+            if meta["dtype"] not in _DTYPES:
+                raise TypeError(f"{name}: dtype {meta['dtype']} not supported")
+            t = torch.empty(meta["shape"], dtype=_DTYPES[meta["dtype"]])
+            b0, b1 = meta["data_offsets"]
+            if b1 - b0 != t.numel() * t.element_size():
+                raise ValueError(f"{name}: {b1 - b0} bytes for shape {meta['shape']}")
+            f.seek(8 + n + b0)
+            if f.readinto(_bytes(t)) != b1 - b0:
+                raise ValueError(f"{name}: file ends inside the tensor")
+            out[name] = t
+    return out
+
+
+def _flatten(prefix: str, tree, out: Dict[str, torch.Tensor]) -> None:
+    if tree is None:
+        return
+    if isinstance(tree, torch.Tensor):
+        out[prefix] = tree
+        return
+    for name, value in zip(tree._fields, tree):
+        _flatten(f"{prefix}/{name}", value, out)
+
+
+def engine_arrays(eng: EngineParams) -> Dict[str, torch.Tensor]:
+    """EngineParams -> flat ``/``-joined keys, as JAX's save_engine names them."""
+    out: Dict[str, torch.Tensor] = {"embed_tokens": eng.embed_tokens,
+                                    "norm_weight": eng.norm_weight, "lm_head": eng.lm_head}
+    _flatten("layers", eng.layers, out)
+    return out
+
+
+def save_engine(path: str, eng: EngineParams, cfg: LlamaConfig, arch: str = "llama") -> None:
+    if arch != "llama":
+        raise NotImplementedError(f"arch {arch!r}: only the llama engine is ported")
+    write_safetensors(path, engine_arrays(eng))
+    manifest = {"format_version": 1, "kind": "engine", "arch": arch,
+                "model_config": dataclasses.asdict(cfg), "rms_eps": eng.rms_eps}
+    with open(path + ".json", "w") as f:
+        json.dump(manifest, f)
+
+
+def _to_tensor(a) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a
+    a = np.array(a)  # a writable copy
+    if a.dtype.name == "bfloat16":  # ml_dtypes bf16 from JAX: reinterpret the bits
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def _linear(t: Mapping[str, torch.Tensor], prefix: str) -> EngineLinear:
+    from dgq_tpu_torch.ops.fused_decode import pack_rowpair_s4, rowpair_cs_fold
+
+    ws, wz = t[f"{prefix}/wscales"], t[f"{prefix}/wzeros"]
+    if ws.dtype != torch.int8:
+        raise NotImplementedError(f"{prefix}: fp-scale linears need K10 "
+                                  "w4a8_fpscale_matmul_packed, not yet ported")
+    # compact plane rows, derived from the 8x-replicated copies when absent
+    # (group g at rows 8g..8g+7: even groups rows 0::16, odd groups 8::16)
+    s_hi = t.get(f"{prefix}/s_hi", ws[..., 0::16, :].contiguous())
+    s_lo = t.get(f"{prefix}/s_lo", ws[..., 8::16, :].contiguous())
+    qweight, qw_rp = t.get(f"{prefix}/qweight"), t.get(f"{prefix}/qw_rp")
+    cs_fold = t.get(f"{prefix}/cs_fold")
+    if qw_rp is None:  # span-only checkpoint: derive the rowpair layout
+        if qweight is None:
+            raise KeyError(f"{prefix}: neither qw_rp nor qweight present")
+        span = 2 * (2 * qweight.shape[-2] * 8) // ws.shape[-2]
+        qw_rp = pack_rowpair_s4(qweight, span)
+        cs_fold = rowpair_cs_fold(qweight, span, s_hi, s_lo)
+    return EngineLinear(
+        qweight=qweight, wscales=ws, wzeros=wz, alpha=t[f"{prefix}/alpha"],
+        bias=t.get(f"{prefix}/bias"), s_hi=s_hi, s_lo=s_lo,
+        z_hi=t.get(f"{prefix}/z_hi", wz[..., 0::16, :].contiguous()),
+        z_lo=t.get(f"{prefix}/z_lo", wz[..., 8::16, :].contiguous()),
+        qw_rp=qw_rp, cs_fold=cs_fold,
+    )
+
+
+def engine_params_from_arrays(tensors: Mapping[str, object], rms_eps: float,
+                              device="cuda") -> EngineParams:
+    """EngineParams from arrays (numpy or torch) under save_engine's keys."""
+    t = {k: _to_tensor(v) for k, v in tensors.items()}
+    layers = EngineLayer(
+        ln1_weight=t["layers/ln1_weight"],
+        ln1_bias=t.get("layers/ln1_bias"),
+        ln2_weight=t["layers/ln2_weight"],
+        ln2_bias=t.get("layers/ln2_bias"),
+        qkv_proj=_linear(t, "layers/qkv_proj"),
+        o_proj=_linear(t, "layers/o_proj"),
+        gate_up_proj=_linear(t, "layers/gate_up_proj"),
+        down_proj=_linear(t, "layers/down_proj"),
+        q_scale=t["layers/q_scale"],
+        k_scale=t["layers/k_scale"],
+        v_scale=t["layers/v_scale"],
+        out_input_scale=t["layers/out_input_scale"],
+        down_input_scale=t["layers/down_input_scale"],
+    )
+
+    def move(x: torch.Tensor) -> torch.Tensor:
+        return x.to(device).contiguous()
+
+    return EngineParams(
+        embed_tokens=move(t["embed_tokens"]),
+        layers=map_tensors(move, layers),
+        norm_weight=move(t["norm_weight"]),
+        lm_head=move(t["lm_head"]),
+        rms_eps=float(rms_eps),
+    )
+
+
+def load_engine(path: str, device="cuda"):
+    """(EngineParams, LlamaConfig) from a save_engine checkpoint."""
+    with open(path + ".json") as f:
+        manifest = json.load(f)
+    arch = manifest.get("arch", "llama")
+    if arch != "llama":
+        raise NotImplementedError(f"arch {arch!r}: only the llama engine is ported")
+    cfg = LlamaConfig(**manifest["model_config"])
+    return engine_params_from_arrays(read_safetensors(path), manifest["rms_eps"], device), cfg

@@ -1,0 +1,130 @@
+"""The dgq_tpu_torch LLaMA engine held against dgq_tpu's on the CPU.
+
+Weights come from dgq_tpu's synthetic builder and are carried across with
+engine_params_from_arrays; prompts are numpy-seeded.  The JAX side runs as
+its own tests run it: the plain path (use_kernel=False) and the Pallas
+kernels in interpret mode with fused_decode=False, the configuration the
+port implements."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dgq_tpu.models import engine as jeng
+from dgq_tpu.models.llama import tiny_llama_config
+from dgq_tpu.models.synthetic import build_llama_engine
+from dgq_tpu_torch.models import engine as teng
+from dgq_tpu_torch.models.llama import LlamaConfig
+from dgq_tpu_torch.utils.checkpoint import engine_params_from_arrays
+
+CFG = tiny_llama_config(hidden_size=256, intermediate_size=512, num_hidden_layers=2,
+                        num_attention_heads=4, num_key_value_heads=2)
+TCFG = LlamaConfig(**{f: getattr(CFG, f) for f in CFG.__dataclass_fields__})
+SMAX = 256
+STEPS = 8
+
+
+def _jax_arrays(eng):
+    leaves, _ = jax.tree_util.tree_flatten_with_path(eng)
+    return {"/".join(str(getattr(k, "name", getattr(k, "key", getattr(k, "idx", k))))
+                     for k in path): np.asarray(leaf) for path, leaf in leaves}
+
+
+@pytest.fixture(scope="module")
+def engines():
+    j = build_llama_engine(CFG, seed=0)
+    t = engine_params_from_arrays(_jax_arrays(j), j.rms_eps, device="cpu")
+    return j, t
+
+
+JAX_MODES = {
+    "plain": dict(use_kernel=False),
+    "interpret": dict(use_kernel=True, interpret=True, fused_decode=False,
+                      bm_prefill=128, bm_decode=128),
+}
+
+
+def _run_jax(eng, mode, prompt, steps):
+    ecfg = jeng.EngineConfig(cfg=CFG, **JAX_MODES[mode])
+    cache = jeng.init_kv_cache(CFG, prompt.shape[0], SMAX)
+    logits, cache = jeng.engine_forward(ecfg, eng, jnp.asarray(prompt), cache)
+    out = [np.asarray(logits)]
+    for i in range(steps.shape[1]):
+        logits, cache = jeng.engine_forward(ecfg, eng, jnp.asarray(steps[:, i:i + 1]), cache)
+        out.append(np.asarray(logits))
+    return out, np.asarray(cache.k), np.asarray(cache.v)
+
+
+def _run_port(eng, prompt, steps):
+    ecfg = teng.EngineConfig(cfg=TCFG)
+    cache = teng.init_kv_cache(TCFG, prompt.shape[0], SMAX, device="cpu")
+    logits, cache = teng.engine_forward(ecfg, eng, torch.from_numpy(prompt), cache)
+    out = [logits.numpy()]
+    for i in range(steps.shape[1]):
+        logits, cache = teng.engine_forward(ecfg, eng, torch.from_numpy(steps[:, i:i + 1]),
+                                            cache)
+        out.append(logits.numpy())
+    assert cache.length == prompt.shape[1] + steps.shape[1]
+    return out, cache.k.numpy(), cache.v.numpy()
+
+
+def _assert_cache_close(got, ref):
+    diff = np.abs(got.astype(np.int32) - ref.astype(np.int32))
+    assert diff.max() <= 1
+    assert np.mean(diff == 0) >= 0.999
+
+
+@pytest.mark.parametrize("prompt_len", [128, 12])  # flash prefill path, plain path
+def test_engine_matches_jax(engines, prompt_len):
+    jparams, tparams = engines
+    rng = np.random.default_rng(prompt_len)
+    prompt = rng.integers(0, CFG.vocab_size, size=(2, prompt_len)).astype(np.int32)
+    steps = rng.integers(0, CFG.vocab_size, size=(2, STEPS)).astype(np.int32)
+    got, gk, gv = _run_port(tparams, prompt, steps)
+    for mode in JAX_MODES:
+        ref, rk, rv = _run_jax(jparams, mode, prompt, steps)
+        for g, r in zip(got, ref):
+            np.testing.assert_allclose(g, r, rtol=2e-3, atol=2e-3, err_msg=mode)
+        _assert_cache_close(gk, rk)
+        _assert_cache_close(gv, rv)
+
+
+def test_generate_greedy_matches_jax(engines):
+    jparams, tparams = engines
+    prompt = np.random.default_rng(3).integers(0, CFG.vocab_size, size=(2, 20)).astype(np.int32)
+    ref = np.asarray(jeng.generate(jeng.EngineConfig(cfg=CFG, **JAX_MODES["interpret"]),
+                                   jparams, jnp.asarray(prompt), 16, SMAX))
+    got = teng.generate(teng.EngineConfig(cfg=TCFG), tparams, torch.from_numpy(prompt), 16,
+                        SMAX)
+    assert got.dtype == torch.int32 and got.shape == (2, 16)
+    np.testing.assert_array_equal(got.numpy(), ref)
+    unrolled = teng.generate(teng.EngineConfig(cfg=TCFG), tparams, torch.from_numpy(prompt),
+                             16, SMAX, decode_unroll=4)
+    np.testing.assert_array_equal(unrolled.numpy(), ref)
+
+
+@pytest.mark.parametrize("top_k,top_p", [(8, 1.0), (0, 0.5), (12, 0.6)])
+def test_sampling_masks_match_jax(top_k, top_p):
+    """Top-k / top-p keep the same tokens as JAX: every token JAX draws is
+    kept by the port's mask and every kept token is drawn by both."""
+    from dgq_tpu.serving.sampling import SamplingParams as JParams, sample_logits as jsample
+    from dgq_tpu_torch.serving.sampling import SamplingParams, filter_logits, sample_logits
+
+    logits = np.random.default_rng(top_k).normal(size=(4, 64)).astype(np.float32) * 0.5
+    n = 4000
+    jdraws = np.asarray(jsample(jnp.asarray(np.tile(logits, (n, 1))),
+                                JParams(temperature=0.7, top_k=top_k, top_p=top_p),
+                                jax.random.PRNGKey(0))).reshape(n, 4)
+    params = SamplingParams(temperature=0.7, top_k=top_k, top_p=top_p)
+    kept = torch.isfinite(filter_logits(torch.from_numpy(logits), params)).numpy()
+    gen = torch.Generator().manual_seed(0)
+    tdraws = sample_logits(torch.from_numpy(np.tile(logits, (n, 1))), params,
+                           gen).numpy().reshape(n, 4)
+    for row in range(4):
+        want = set(np.flatnonzero(kept[row]))
+        assert set(jdraws[:, row]) == want
+        assert set(tdraws[:, row]) == want
+    greedy = sample_logits(torch.from_numpy(logits), SamplingParams())
+    np.testing.assert_array_equal(greedy.numpy(), np.argmax(logits, axis=-1))
