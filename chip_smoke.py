@@ -5,24 +5,36 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It imports no JAX.  Phases, each printing one JSON line with its seconds:
 
 1. device: the card's name and power limit (nvidia-smi); TF32 off.
-2. build: the three CUDA kernels, one nvcc each, started together.
-3. kernels: K1 ``w4a8_matmul_rp_pipe``, K2 ``int8_prefill_attention`` and K3
-   ``int8_decode_attention`` held against their plain PyTorch versions at the
-   main path's shapes (LLaMA-2-7B, batch 4, prompt 256, cache 2048) and timed
-   with CUDA events (median of 20 calls after warm-up, L2 flushed before each
-   call) beside the plain version, one PyTorch library call for the same
-   function, and the bound; decode at Smax 16384 must raise for K7.
+2. build: the six CUDA kernels, one nvcc each, started together.
+3. kernels: K1 ``w4a8_matmul_rp_pipe``, K2 ``int8_prefill_attention``, K3
+   ``int8_decode_attention`` and the fused decode kernels K4
+   ``fused_norm_gemv_rp``, K5 ``fused_requant_gemv_rp`` and K6
+   ``fused_mlp_decode_rp`` held against their plain PyTorch versions at the
+   main path's shapes (LLaMA-2-7B, batch 4, prompt 256, cache 2048; K4-K6
+   at 4 rows and at 40 = 8 slots x a 5-token verify window) and timed beside
+   the plain version, one PyTorch library call for the same function, and
+   the bound; decode at Smax 16384 must raise for K7.  K4-K6 make their int8
+   codes inside the kernel: their codes are compared with the plain
+   version's (at most 1 apart, >= 99.9% equal), and the int32 accumulators
+   (alpha 1, beta 0) and outputs with the plain version run on the kernel's
+   codes, which must agree exactly.
 4. main: ``build_llama_engine(LlamaConfig())`` (32 layers, full width, random
    weights from seed 0) then ``generate`` of 32 greedy tokens for 4 prompts
-   of 256 tokens, with every kernel's launches counted over that call.
-5. parity: at full width and 2 layers, the kernel path against the plain
-   path on the card (prefill logits and 8 teacher-forced decode steps).
-   With random weights at full width one int8 code that flips at a rounding
+   of 256 tokens with the default ``EngineConfig`` (fused decode), with every
+   kernel's launches counted over that call; then a timed replay and a
+   profiled decode-step breakdown.
+5. main_unfused: the same with ``fused_decode=False`` (K1 at every step, no
+   K4-K6), at full depth.
+6. parity: at full width and 2 layers, the kernel path against the plain
+   path on the card (prefill logits, 8 teacher-forced decode steps and a
+   5-token ``window="decode"`` verify window), fused and unfused.  With
+   random weights at full width one int8 code that flips at a rounding
    boundary (fp32 sums taken in another order) changes the rows after it by
    more than the tolerance, so the plain run checks each of its int8 code
    tensors against the kernel run's (at most 1 apart, >= 99.9% equal) and
-   then continues from the kernel run's codes.
-6. checkpoint: ``save_engine`` then ``load_engine`` at full width and 2
+   then continues from the kernel run's codes; the fused kernels hand their
+   codes out through ``codes_out``.
+7. checkpoint: ``save_engine`` then ``load_engine`` at full width and 2
    layers: bit-equal tensors and equal greedy tokens.
 
 Then the line ``{"kernels": [...]}``, the card's nvidia-smi line, and last
@@ -42,6 +54,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
+DEV = "cuda"  # every tensor of the run lives on the card
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 INT8_OPS_PER_S = 1979e12  # dense int8 tensor cores
 FP32_OPS_PER_S = 67e12  # fp32 outside the tensor cores
@@ -49,6 +62,9 @@ FP32_OPS_PER_S = 67e12  # fp32 outside the tensor cores
 BATCH, PROMPT, SMAX, NEW_TOKENS = 4, 256, 2048, 32
 DECODE_LEN = PROMPT + NEW_TOKENS - 1  # valid cache length at the last decode step
 K1_NAMES = ["rp_gemm_kernel", "splitk_epilogue"]  # K1 launches both when it splits K
+K4_NAMES, K5_NAMES = ["norm_gemv_rp_kernel"], ["requant_gemv_rp_kernel"]
+K6_NAMES = ["mlp_decode_rp_kernel", "mlp_decode_rp_epilogue"]
+FUSED_ROWS = (BATCH, 40)  # a decode step; 8 slots x a 5-token verify window
 # (N, K) of the four linears of a LLaMA-2-7B layer (F padded to 11264)
 LINEARS = {"qkv_proj": (12288, 4096), "o_proj": (4096, 4096),
            "gate_up_proj": (22528, 4096), "down_proj": (4096, 11264)}
@@ -68,7 +84,7 @@ class Timer:
 
     def __init__(self, torch):
         self.torch = torch
-        self.flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+        self.flush = torch.empty(128 << 20, dtype=torch.uint8, device=DEV)
 
     def __call__(self, fn, iters: int = 20, warmup: int = 3) -> float:
         torch = self.torch
@@ -138,15 +154,15 @@ def _k1_cases(torch, timer, gen):
     for m in (BATCH * PROMPT, BATCH):
         for name, (n, k) in LINEARS.items():
             def ri(lo, hi, shape):
-                return torch.randint(lo, hi, shape, generator=gen, device="cuda", dtype=torch.int8)
+                return torch.randint(lo, hi, shape, generator=gen, device=DEV, dtype=torch.int8)
 
             x = ri(-128, 128, (m, k))
             qw = ri(-128, 128, (k // 2, n))
             ws, wz = ri(1, 4, (k // gs, n)), ri(4, 12, (k // gs, n))
             ws8 = torch.repeat_interleave(ws, 8, dim=0)
             wz8 = torch.repeat_interleave(wz, 8, dim=0)
-            alpha = torch.rand((n,), generator=gen, device="cuda") * 1e-3 + 1e-5
-            one = torch.ones((n,), device="cuda")
+            alpha = torch.rand((n,), generator=gen, device=DEV) * 1e-3 + 1e-5
+            one = torch.ones((n,), device=DEV)
 
             def kern(a=alpha):
                 return w4a8_matmul_rp_pipe(x, qw, ws8, wz8, a, groupsize=gs,
@@ -163,30 +179,37 @@ def _k1_cases(torch, timer, gen):
             y_k, y_p = kern(), plain()
             torch.testing.assert_close(y_k, y_p, rtol=1e-6, atol=0)
             err = (y_k - y_p).abs().max().item()
-            lib_ms = None
-            if m > 16:
-                w8 = dequantize_rowpair(qw, ws, wz, gs)
-                try:
-                    torch._int_mm(x, w8)
-                except RuntimeError:  # this build wants the second operand column-major
-                    w8 = w8.t().contiguous().t()
-                lib_ms = timer(lambda: torch._int_mm(x, w8))
-                del w8
+            lib_ms = _int_mm_ms(torch, timer, x, dequantize_rowpair(qw, ws, wz, gs))
             nbytes = m * k + k * n // 2 + 2 * (k // gs) * n + 4 * n + 4 * m * n
             b_ms, b_by = bound_ms(nbytes, 2.0 * m * n * k / INT8_OPS_PER_S)
             cases.append({"linear": name, "M": m, "N": n, "K": k, "max_abs_err": err,
                           "ms": timer.kernel(kern, K1_NAMES), "call_ms": timer(kern),
                           "plain_ms": timer(plain, iters=10),
-                          "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by})
+                          "library_ms": lib_ms, "library_rows": max(m, 32),
+                          "bound_ms": b_ms, "bound_by": b_by})
             del x, qw, ws, wz, ws8, wz8, acc_k, acc_p, y_k, y_p
     return cases
 
 
+def _int_mm_ms(torch, timer, x, w8) -> float:
+    """Time of torch._int_mm of x against pre-dequantised int8 weights, the
+    library yardstick of K1 and K4-K6; x is padded to 32 rows, since
+    _int_mm takes more than 16."""
+    m, k = x.shape
+    if m < 32:
+        x = torch.cat([x, torch.zeros((32 - m, k), dtype=x.dtype, device=x.device)])
+    try:
+        torch._int_mm(x, w8)
+    except RuntimeError:  # this build wants the second operand column-major
+        w8 = w8.t().contiguous().t()
+    return timer(lambda: torch._int_mm(x, w8))
+
+
 def _attn_inputs(torch, gen, b, h, hk, s, dh, smax):
     def ri(shape):
-        return torch.randint(-127, 128, shape, generator=gen, device="cuda", dtype=torch.int8)
+        return torch.randint(-127, 128, shape, generator=gen, device=DEV, dtype=torch.int8)
 
-    scales = [torch.rand((), generator=gen, device="cuda") * 0.02 + 0.01 for _ in range(3)]
+    scales = [torch.rand((), generator=gen, device=DEV) * 0.02 + 0.01 for _ in range(3)]
     return ri((b, h, s, dh)), ri((b, hk, dh, smax)), ri((b, hk, smax, dh)), scales
 
 
@@ -235,7 +258,7 @@ def _k3_cases(torch, timer, gen):
         q, kt, v, (qs, ks, vs) = _attn_inputs(torch, gen, b, h, hk, 1, dh, SMAX)
         q = q[:, :, 0].contiguous()
         lengths = torch.tensor([DECODE_LEN - 3 * i for i in range(b)], dtype=torch.int32,
-                               device="cuda")
+                               device=DEV)
 
         def kern():
             return int8_decode_attention(q, kt, v, lengths, qs, ks, vs, quant_pv=quant_pv)
@@ -270,15 +293,238 @@ def _k3_cases(torch, timer, gen):
     return cases
 
 
+def _code_stats(got, ref):
+    d = (got.int() - ref.int()).abs()
+    return int(d.max().item()), (d == 0).float().mean().item()
+
+
+def _check_codes(what, stats) -> None:
+    if stats[0] > 1 or stats[1] < 0.999:
+        raise AssertionError(f"{what}: int8 codes differ by up to {stats[0]}, "
+                             f"{stats[1]} of them equal")
+
+
+def _rp_weights(torch, gen, k, n, gs=128):
+    """Random rowpair bytes (k/2, n) with compact (G, n) scales in [1, 4)
+    and zeros in [4, 12), as the synthetic engine draws them."""
+    def ri(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device=DEV, dtype=torch.int8)
+
+    return ri(-128, 128, (k // 2, n)), ri(1, 4, (k // gs, n)), ri(4, 12, (k // gs, n))
+
+
+def _plane_rows(ws, wz):
+    return (ws[0::2].contiguous(), ws[1::2].contiguous(), wz[0::2].contiguous(),
+            wz[1::2].contiguous())
+
+
+def _fused_check(torch, c):
+    """Hold a fused kernel against its plain version (a case from one of
+    the ``_k*_case`` builders).
+
+    ``kern(acc, codes_out)`` and ``plain(acc, codes)``: with ``acc`` alpha is
+    1 and beta and the residual are off, so the f32 output is the int32
+    accumulator.  The kernel's codes (``codes_out``) are compared with the
+    plain version's own (``own(kernel_codes)``), then the plain version runs
+    on the kernel's codes and must give the same accumulators and outputs
+    (rtol 1e-6, as K1)."""
+    kern, plain, what = c["kern"], c["plain"], c["what"]
+    codes = [torch.empty(sh, dtype=torch.int8, device=DEV) for sh in c["shapes"]]
+    acc_k = kern(True, codes)
+    acc_p = plain(True, codes)
+    torch.cuda.synchronize()
+    if not torch.equal(acc_k, acc_p):
+        raise AssertionError(f"{what}: {(acc_k != acc_p).sum().item()} accumulators differ")
+    stats = [_code_stats(k, o) for k, o in zip(codes, c["own"](codes))]
+    for i, st in enumerate(stats):
+        _check_codes(f"{what} codes {i}", st)
+    y_k, y_p = kern(False, None), plain(False, codes)
+    torch.testing.assert_close(y_k, y_p, rtol=1e-6, atol=0)
+    err_own = (y_k - plain(False, None)).abs().max().item()
+    return {**c["meta"], "max_abs_err": (y_k - y_p).abs().max().item(),
+            "max_abs_err_own_codes": err_own, "code_max_diff": max(st[0] for st in stats),
+            "code_min_equal_share": min(st[1] for st in stats)}
+
+
+def _k4_case(torch, gen, m, gs, extras):
+    """K4 (RMSNormQ + qkv_proj) at the main path's width; ``extras`` turns
+    on the norm bias and beta."""
+    from dgq_tpu_torch.ops import fused_decode as fd
+    from dgq_tpu_torch.ops.quant_matmul import dequantize_rowpair
+
+    eps = 1e-5
+    n, k = LINEARS["qkv_proj"]
+    qw, ws, wz = _rp_weights(torch, gen, k, n, gs)
+    planes = _plane_rows(ws, wz)
+    csf = torch.zeros((n,), dtype=torch.int32, device=DEV)  # checked, not read
+    alpha = torch.rand((n,), generator=gen, device=DEV) * 1e-3 + 1e-5
+    beta = torch.randn((n,), generator=gen, device=DEV) if extras else None
+    lnb = torch.randn((k,), generator=gen, device=DEV) if extras else None
+    one = torch.ones((n,), device=DEV)
+    x = torch.randn((m, k), generator=gen, device=DEV)
+    lnw = torch.full((k,), 10.0, device=DEV)
+
+    def kern(acc, codes_out):
+        return fd.fused_norm_gemv_rp(x, lnw, lnb, qw, *planes, csf, one if acc else alpha,
+                                     None if acc else beta, span=2 * gs, eps=eps,
+                                     codes_out=codes_out[0] if codes_out else None)
+
+    def plain(acc, codes):
+        return fd.fused_norm_gemv_rp_xla(x, lnw, lnb, qw, *planes, csf, one if acc else alpha,
+                                         None if acc else beta, span=2 * gs, eps=eps,
+                                         codes=codes[0] if codes else None)
+
+    def lib(timer):
+        return _int_mm_ms(torch, timer, fd._rmsnorm_q(x, lnw, lnb, eps),
+                          dequantize_rowpair(qw, ws, wz, gs))
+
+    return {"what": f"K4 M={m} gs={gs}", "kern": kern, "plain": plain,
+            "own": lambda codes: [fd._rmsnorm_q(x, lnw, lnb, eps)], "shapes": [(m, k)],
+            "names": K4_NAMES, "meta": {"linear": "qkv_proj", "M": m, "N": n, "K": k},
+            "nbytes": 4 * m * k + 4 * k + k * n // 2 + 2 * (k // gs) * n + 8 * n + 4 * m * n,
+            "ops": 2.0 * m * n * k, "lib": lib}
+
+
+def _k5_case(torch, gen, m, gs, extras):
+    """K5 (requant + o_proj + residual) at the main path's width; ``extras``
+    turns on beta."""
+    from dgq_tpu_torch.ops import fused_decode as fd
+    from dgq_tpu_torch.ops.quant_matmul import dequantize_rowpair
+
+    n, k = LINEARS["o_proj"]
+    qw, ws, wz = _rp_weights(torch, gen, k, n, gs)
+    planes = _plane_rows(ws, wz)
+    csf = torch.zeros((n,), dtype=torch.int32, device=DEV)
+    alpha = torch.rand((n,), generator=gen, device=DEV) * 1e-3 + 1e-5
+    beta = torch.randn((n,), generator=gen, device=DEV) if extras else None
+    one = torch.ones((n,), device=DEV)
+    x = torch.randn((m, k), generator=gen, device=DEV)
+    res = torch.randn((m, n), generator=gen, device=DEV)
+    scale = torch.full((), 0.05, device=DEV)
+
+    def kern(acc, codes_out):
+        return fd.fused_requant_gemv_rp(x, scale, qw, *planes, csf, one if acc else alpha,
+                                        None if acc else beta, None if acc else res,
+                                        span=2 * gs, qmin=-127.0, fuse_residual=not acc,
+                                        codes_out=codes_out[0] if codes_out else None)
+
+    def plain(acc, codes):
+        return fd.fused_requant_gemv_rp_xla(x, scale, qw, *planes, csf, one if acc else alpha,
+                                            None if acc else beta, None if acc else res,
+                                            span=2 * gs, qmin=-127.0, fuse_residual=not acc,
+                                            codes=codes[0] if codes else None)
+
+    def lib(timer):
+        return _int_mm_ms(torch, timer, fd._requant_q(x, scale, -127.0),
+                          dequantize_rowpair(qw, ws, wz, gs))
+
+    return {"what": f"K5 M={m} gs={gs}", "kern": kern, "plain": plain,
+            "own": lambda codes: [fd._requant_q(x, scale, -127.0)], "shapes": [(m, k)],
+            "names": K5_NAMES, "meta": {"linear": "o_proj", "M": m, "N": n, "K": k},
+            "nbytes": 4 * m * k + 4 + k * n // 2 + 2 * (k // gs) * n + 4 * n + 8 * m * n,
+            "ops": 2.0 * m * n * k, "lib": lib}
+
+
+def _k6_case(torch, gen, m, gs, extras):
+    """K6 (the MLP) at the main path's width; ``extras`` turns on the norm
+    bias and the down-proj beta."""
+    from dgq_tpu_torch.ops import fused_decode as fd
+    from dgq_tpu_torch.ops.quant_matmul import dequantize_rowpair
+
+    eps = 1e-5
+    n2f, d = LINEARS["gate_up_proj"]
+    f = n2f // 2
+    gqw, gws, gwz = _rp_weights(torch, gen, d, n2f, gs)
+    dqw, dws, dwz = _rp_weights(torch, gen, f, d, gs)
+    gplanes = _plane_rows(gws, gwz)
+    dws8, dwz8 = torch.repeat_interleave(dws, 8, dim=0), torch.repeat_interleave(dwz, 8, dim=0)
+    gcsf = torch.zeros((n2f,), dtype=torch.int32, device=DEV)
+    dcsf = torch.zeros((d,), dtype=torch.int32, device=DEV)
+    galpha = torch.rand((n2f,), generator=gen, device=DEV) * 1e-3 + 5e-4
+    dalpha = torch.rand((d,), generator=gen, device=DEV) * 1e-3 + 1e-5
+    dbeta = torch.randn((d,), generator=gen, device=DEV) if extras else None
+    lnb = torch.randn((d,), generator=gen, device=DEV) if extras else None
+    one = torch.ones((d,), device=DEV)
+    lnw = torch.full((d,), 10.0, device=DEV)
+    hscale = torch.full((), 0.5, device=DEV)
+    x = torch.randn((m, d), generator=gen, device=DEV)
+
+    def args(acc):
+        return (x, lnw, lnb, gqw, *gplanes, gcsf, galpha, hscale, dqw, dws8, dwz8, dcsf,
+                one if acc else dalpha, None if acc else dbeta)
+
+    def kern(acc, codes_out):
+        return fd.fused_mlp_decode_rp(*args(acc), span=2 * gs, bf=512, eps=eps,
+                                      fuse_residual=not acc, codes_out=codes_out)
+
+    def plain(acc, codes):
+        return fd.fused_mlp_decode_rp_xla(*args(acc), span=2 * gs, eps=eps,
+                                          fuse_residual=not acc, codes=codes)
+
+    def own(codes):
+        # the down-proj input codes from the kernel's norm codes: checks
+        # SiLU * up on its own, not a norm code flip passed on
+        gu = fd._plane_product(codes[0], gqw, *gplanes, gs)
+        return [fd._rmsnorm_q(x, lnw, lnb, eps),
+                fd._silu_mul_q(gu[:, :f], gu[:, f:], galpha[:f], galpha[f:], hscale)]
+
+    def lib(timer):
+        hq = torch.randint(-128, 128, (m, f), generator=gen, device=DEV, dtype=torch.int8)
+        return (_int_mm_ms(torch, timer, fd._rmsnorm_q(x, lnw, lnb, eps),
+                           dequantize_rowpair(gqw, gws, gwz, gs))
+                + _int_mm_ms(torch, timer, hq, dequantize_rowpair(dqw, dws, dwz, gs)))
+
+    return {"what": f"K6 M={m} gs={gs}", "kern": kern, "plain": plain, "own": own,
+            "shapes": [(m, d), (m, f)], "names": K6_NAMES, "meta": {"M": m, "D": d, "F": f},
+            "nbytes": (8 * m * d + 4 * d + d * n2f // 2 + 2 * (d // gs) * n2f + 4 * n2f
+                       + f * d // 2 + 2 * (f // gs) * d + 4 * d + 4),
+            "ops": 2.0 * m * (n2f * d + f * d), "lib": lib}
+
+
+FUSED_BUILDERS = {"k4": _k4_case, "k5": _k5_case, "k6": _k6_case}
+
+
+def _fused_cases(torch, timer, gen):
+    """K4-K6 at the main path's row counts: checked and timed."""
+    out = {key: [] for key in FUSED_BUILDERS}
+    for m in FUSED_ROWS:
+        for key, build in FUSED_BUILDERS.items():
+            c = build(torch, gen, m, 128, extras=False)
+            case = _fused_check(torch, c)
+
+            def run(c=c):
+                return c["kern"](False, None)
+
+            b_ms, b_by = bound_ms(c["nbytes"], c["ops"] / INT8_OPS_PER_S)
+            case.update({"ms": timer.kernel(run, c["names"]), "call_ms": timer(run),
+                         "plain_ms": timer(lambda c=c: c["plain"](False, None), iters=10),
+                         "bound_ms": b_ms, "bound_by": b_by, "library_ms": c["lib"](timer)})
+            out[key].append(case)
+            del c
+    return out
+
+
+def _fused_sweep(torch, gen):
+    """K4-K6 checked (not timed) off the main path's shapes: 1 row, 9 rows
+    at groupsize 64, and 64 rows (the engine's cap; two passes through
+    shared memory), with bias, beta and residual on."""
+    out = []
+    for m, gs in ((1, 128), (9, 64), (64, 128)):
+        for build in FUSED_BUILDERS.values():
+            out.append({**_fused_check(torch, build(torch, gen, m, gs, extras=True)),
+                        "groupsize": gs})
+    return out
+
+
 def _check_k7_raise(torch):
     from dgq_tpu_torch.models.engine import EngineConfig, engine_forward, init_kv_cache
     from dgq_tpu_torch.models.llama import LlamaConfig
     from dgq_tpu_torch.models.synthetic import build_llama_engine
 
     cfg = LlamaConfig(num_hidden_layers=1)
-    eng = build_llama_engine(cfg, seed=1, device="cuda")
-    cache = init_kv_cache(cfg, 1, 16384, device="cuda")
-    tok = torch.zeros((1, 1), dtype=torch.int32, device="cuda")
+    eng = build_llama_engine(cfg, seed=1, device=DEV)
+    cache = init_kv_cache(cfg, 1, 16384, device=DEV)
+    tok = torch.zeros((1, 1), dtype=torch.int32, device=DEV)
     try:
         engine_forward(EngineConfig(cfg=cfg), eng, tok, cache)
     except NotImplementedError as e:
@@ -290,33 +536,36 @@ def _check_k7_raise(torch):
 
 def phase_kernels(torch, state):
     timer = Timer(torch)
-    gen = torch.Generator(device="cuda").manual_seed(0)
+    gen = torch.Generator(device=DEV).manual_seed(0)
     state["k1"] = _k1_cases(torch, timer, gen)
     state["k2"] = _k2_cases(torch, timer, gen)
     state["k3"] = _k3_cases(torch, timer, gen)
+    state.update(_fused_cases(torch, timer, gen))
+    sweep = _fused_sweep(torch, gen)
     k7 = _check_k7_raise(torch)
     del timer
     torch.cuda.empty_cache()
-    return {"k1": state["k1"], "k2": state["k2"], "k3": state["k3"], "k7_raise": k7}
+    return {**{f"k{i}": state[f"k{i}"] for i in range(1, 7)}, "k4_k6_sweep": sweep,
+            "k7_raise": k7}
 
 
-def phase_main(torch, state):
+def _drive_main(torch, cfg, ecfg, want):
+    """build_llama_engine + generate with launch counts (must equal
+    ``want``), then a timed step-by-step replay and a profiled breakdown."""
     import numpy as np
 
-    from dgq_tpu_torch.models.engine import EngineConfig, engine_forward, generate, \
-        init_kv_cache
-    from dgq_tpu_torch.models.llama import LlamaConfig
+    from dgq_tpu_torch.models.engine import engine_forward, generate, init_kv_cache
     from dgq_tpu_torch.models.synthetic import build_llama_engine
     from dgq_tpu_torch.ops import _cuda
 
-    cfg = LlamaConfig()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    eng = build_llama_engine(cfg, seed=0, device="cuda")
+    eng = build_llama_engine(cfg, seed=0, device=DEV)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
-    ecfg = EngineConfig(cfg=cfg)
     prompts = torch.from_numpy(np.random.default_rng(0).integers(
-        0, cfg.vocab_size, size=(BATCH, PROMPT)).astype(np.int32)).cuda()
+        0, cfg.vocab_size, size=(BATCH, PROMPT)).astype(np.int32)).to(DEV)
 
     _cuda.reset_launches()
     t0 = time.perf_counter()
@@ -324,10 +573,6 @@ def phase_main(torch, state):
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
     launches = dict(_cuda.LAUNCHES)
-    state["launches"] = launches
-    layers, steps = cfg.num_hidden_layers, NEW_TOKENS - 1
-    want = {"w4a8_matmul_rp_pipe": 4 * layers * NEW_TOKENS, "int8_prefill_attention": layers,
-            "int8_decode_attention": layers * steps}
     if launches != want:
         raise AssertionError(f"launches {launches} != {want}")
     if toks.shape != (BATCH, NEW_TOKENS) or toks.dtype != torch.int32:
@@ -336,7 +581,8 @@ def phase_main(torch, state):
         raise AssertionError("token out of range")
 
     # timed replay of the same path, step by step
-    cache = init_kv_cache(cfg, BATCH, SMAX, device="cuda")
+    steps = NEW_TOKENS - 1
+    cache = init_kv_cache(cfg, BATCH, SMAX, device=DEV)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     logits, cache = engine_forward(ecfg, eng, prompts, cache)
@@ -361,17 +607,52 @@ def phase_main(torch, state):
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     del eng, cache, logits
     torch.cuda.empty_cache()
-    return {"layers": layers, "batch": BATCH, "prompt": PROMPT, "new_tokens": NEW_TOKENS,
-            "max_len": SMAX, "launches": launches, "engine_build_s": build_s,
-            "generate_s": gen_s, "prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
+    return {"layers": cfg.num_hidden_layers, "fused_decode": ecfg.fused_decode,
+            "batch": BATCH, "prompt": PROMPT, "new_tokens": NEW_TOKENS, "max_len": SMAX,
+            "launches": launches, "engine_build_s": build_s, "generate_s": gen_s,
+            "prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
             "decode_tok_per_s": BATCH * 1e3 / decode_ms,
             "generate_tok_per_s": BATCH * NEW_TOKENS / gen_s,
             "peak_gib": peak_gb, "decode_step_breakdown": breakdown,
             "tokens_row0": toks[0].tolist()}
 
 
+def _want_launches(layers: int, fused: bool):
+    steps = NEW_TOKENS - 1
+    decode_linears = 0 if fused else 4 * layers * steps
+    fused_calls = layers * steps if fused else 0
+    return {"w4a8_matmul_rp_pipe": 4 * layers + decode_linears,
+            "int8_prefill_attention": layers, "int8_decode_attention": layers * steps,
+            "fused_norm_gemv_rp": fused_calls, "fused_requant_gemv_rp": fused_calls,
+            "fused_mlp_decode_rp": fused_calls}
+
+
+def phase_main(torch, state):
+    """The default EngineConfig (fused decode) at full 7B depth."""
+    from dgq_tpu_torch.models.engine import EngineConfig
+    from dgq_tpu_torch.models.llama import LlamaConfig
+
+    cfg = LlamaConfig()
+    ecfg = EngineConfig(cfg=cfg)
+    if not ecfg.fused_decode:
+        raise AssertionError("the default EngineConfig must run fused decode")
+    out = _drive_main(torch, cfg, ecfg, _want_launches(cfg.num_hidden_layers, True))
+    state["launches"] = out["launches"]
+    return out
+
+
+def phase_main_unfused(torch, state):
+    """fused_decode=False (K1 at every decode step) at full 7B depth."""
+    from dgq_tpu_torch.models.engine import EngineConfig
+    from dgq_tpu_torch.models.llama import LlamaConfig
+
+    cfg = LlamaConfig()
+    return _drive_main(torch, cfg, EngineConfig(cfg=cfg, fused_decode=False),
+                       _want_launches(cfg.num_hidden_layers, False))
+
+
 def _profile_decode(torch, ecfg, eng, tok, cache, steps: int):
-    """Device time of ``steps`` decode steps by kernel group (K1, K3, the
+    """Device time of ``steps`` decode steps by kernel group (K1, K3-K6, the
     rest), against the wall time of the same steps."""
     from dgq_tpu_torch.models.engine import engine_forward
 
@@ -383,14 +664,15 @@ def _profile_decode(torch, ecfg, eng, tok, cache, steps: int):
             tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    groups = {"K1": 0.0, "K3": 0.0, "other": 0.0}
-    launches = {"K1": 0, "K3": 0, "other": 0}
+    names = {"K1": K1_NAMES, "K3": ["decode_attn_kernel"], "K4": K4_NAMES, "K5": K5_NAMES,
+             "K6": K6_NAMES}
+    groups = {g: 0.0 for g in [*names, "other"]}
+    launches = {g: 0 for g in groups}
     for e in prof.key_averages():
         us = getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0))
         if us <= 0:
             continue
-        g = ("K1" if any(n in e.key for n in K1_NAMES)
-             else "K3" if "decode_attn_kernel" in e.key else "other")
+        g = next((g for g, ns in names.items() if any(n in e.key for n in ns)), "other")
         groups[g] += us / steps / 1e3
         launches[g] += e.count // steps
     busy = sum(groups.values())
@@ -400,21 +682,33 @@ def _profile_decode(torch, ecfg, eng, tok, cache, steps: int):
 
 
 class _CodeRecorder:
-    """Record every int8 code tensor the engine's RMSNormQ and requant make;
-    with ``force`` (codes recorded by an earlier run), compare each new code
-    tensor with the recorded one and hand on the recorded codes, so that a
-    code that flips at a rounding boundary does not cascade through the
-    layers that follow."""
+    """Record every int8 code tensor the engine makes: RMSNormQ and requant
+    in the unfused glue, and the codes the fused kernels K4-K6 make inside
+    (through their ``codes_out``).  With ``force`` (codes recorded by an
+    earlier run) the plain run's code makers are wrapped instead: each new
+    code tensor is compared with the recorded one, which is handed on, so
+    that a code that flips at a rounding boundary does not cascade through
+    the layers that follow."""
+
+    FUSED_CODES = {"fused_norm_gemv_rp": 1, "fused_requant_gemv_rp": 1,
+                   "fused_mlp_decode_rp": 2}
 
     def __init__(self, force=None):
         self.force = force
         self.codes, self.stats = [], []
 
     def __enter__(self):
-        from dgq_tpu_torch.models import engine
+        import torch
 
-        self.engine = engine
-        self.saved = (engine._rms_norm_q, engine._requant)
+        from dgq_tpu_torch.models import engine
+        from dgq_tpu_torch.ops import fused_decode
+
+        self.saved = [(engine, n, getattr(engine, n)) for n in ("_rms_norm_q", "_requant")]
+        if self.force is None:
+            self.saved += [(engine, n, getattr(engine, n)) for n in self.FUSED_CODES]
+        else:  # the plain versions' code makers
+            self.saved += [(fused_decode, n, getattr(fused_decode, n))
+                           for n in ("_rmsnorm_q", "_requant_q", "_silu_mul_q")]
 
         def rec(fn):
             def wrapped(*a, **k):
@@ -423,17 +717,31 @@ class _CodeRecorder:
                     self.codes.append(out.clone())
                     return out
                 ref = self.force.codes[len(self.stats)]
-                d = (out.int() - ref.int()).abs()
-                self.stats.append((int(d.max().item()), (d == 0).float().mean().item()))
+                self.stats.append(_code_stats(out, ref))
                 return ref
             return wrapped
 
-        engine._rms_norm_q = rec(self.saved[0])
-        engine._requant = rec(self.saved[1])
+        def rec_fused(fn, n_codes):
+            def wrapped(x, *a, **k):
+                # (M, K) codes of x; K6 also the (M, F) down-proj input codes,
+                # F = 2 * rows of d_qw_rp (its 12th argument)
+                shapes = [x.shape] + ([(x.shape[0], 2 * a[10].shape[0])] if n_codes == 2 else [])
+                codes = [x.new_empty(sh, dtype=torch.int8) for sh in shapes]
+                out = fn(x, *a, codes_out=codes[0] if n_codes == 1 else tuple(codes), **k)
+                self.codes.extend(codes)
+                return out
+            return wrapped
+
+        for mod, name, fn in self.saved:
+            if name in self.FUSED_CODES:
+                setattr(mod, name, rec_fused(fn, self.FUSED_CODES[name]))
+            else:
+                setattr(mod, name, rec(fn))
         return self
 
     def __exit__(self, *exc):
-        self.engine._rms_norm_q, self.engine._requant = self.saved
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
 
 
 class _PlainPath:
@@ -442,20 +750,27 @@ class _PlainPath:
 
     def __enter__(self):
         from dgq_tpu_torch.models import engine
-        from dgq_tpu_torch.ops import attention, quant_matmul
+        from dgq_tpu_torch.ops import attention, fused_decode, quant_matmul
 
         self.engine = engine
         self.saved = {n: getattr(engine, n) for n in
-                      ("w4a8_matmul_rp_pipe", "int8_prefill_attention", "int8_decode_attention")}
+                      ("w4a8_matmul_rp_pipe", "int8_prefill_attention", "int8_decode_attention",
+                       "fused_norm_gemv_rp", "fused_requant_gemv_rp", "fused_mlp_decode_rp")}
 
         def k1(x, qw, ws, wz, alpha, beta=None, *, groupsize, scales_replicated):
             step = 8 if scales_replicated else 1
             return quant_matmul.w4a8_matmul_rp_xla(x, qw, ws[::step], wz[::step], alpha, beta,
                                                    groupsize=groupsize)
 
+        def k6(*a, bf, **k):  # the TPU's F block; the plain version has none
+            return fused_decode.fused_mlp_decode_rp_xla(*a, **k)
+
         engine.w4a8_matmul_rp_pipe = k1
         engine.int8_prefill_attention = attention.int8_prefill_attention_xla
         engine.int8_decode_attention = attention.int8_decode_attention_xla
+        engine.fused_norm_gemv_rp = fused_decode.fused_norm_gemv_rp_xla
+        engine.fused_requant_gemv_rp = fused_decode.fused_requant_gemv_rp_xla
+        engine.fused_mlp_decode_rp = k6
         return self
 
     def __exit__(self, *exc):
@@ -463,16 +778,45 @@ class _PlainPath:
             setattr(self.engine, n, f)
 
 
-def _teacher_forced(torch, ecfg, eng, prompts, steps):
+def _teacher_forced(torch, ecfg, eng, prompts, steps, window):
+    """Prefill, one forward per column of ``steps``, then ``window`` as one
+    decode-side (verify) window; returns every forward's logits."""
     from dgq_tpu_torch.models.engine import engine_forward, init_kv_cache
 
-    cache = init_kv_cache(ecfg.cfg, prompts.shape[0], SMAX, device="cuda")
+    cache = init_kv_cache(ecfg.cfg, prompts.shape[0], SMAX, device=DEV)
     logits, cache = engine_forward(ecfg, eng, prompts, cache)
     out = [logits]
     for i in range(steps.shape[1]):
         logits, cache = engine_forward(ecfg, eng, steps[:, i:i + 1], cache)
         out.append(logits)
+    logits, cache = engine_forward(ecfg, eng, window, cache, window="decode")
+    out.append(logits)
     return out, cache
+
+
+def _parity(torch, ecfg, eng, prompts, steps, window):
+    with _CodeRecorder() as rec_k:
+        got, gc = _teacher_forced(torch, ecfg, eng, prompts, steps, window)
+    with _PlainPath(), _CodeRecorder(force=rec_k) as rec_p:
+        ref, rc = _teacher_forced(torch, ecfg, eng, prompts, steps, window)
+    if len(rec_p.stats) != len(rec_k.codes):
+        raise AssertionError(f"{len(rec_k.codes)} code tensors in the kernel run, "
+                             f"{len(rec_p.stats)} in the plain run")
+    errs = [(g - r).abs().max().item() for g, r in zip(got, ref)]
+    code_max = max(m for m, _ in rec_p.stats)
+    code_equal = min(e for _, e in rec_p.stats)
+    _check_codes("parity", (code_max, code_equal))
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, rtol=2e-3, atol=2e-3)
+    kv = {}
+    for name, a, b in (("k", gc.k, rc.k), ("v", gc.v, rc.v)):
+        d_max, eq = _code_stats(a, b)
+        kv[name] = {"max_diff": d_max, "equal_share": eq}
+        _check_codes(f"{name} cache", (d_max, eq))
+    return {"logits_max_abs_err": errs, "verify_window_max_abs_err": errs[-1],
+            "code_tensors": len(rec_p.stats), "code_max_diff": code_max,
+            "code_min_equal_share": code_equal,
+            "code_tensors_with_flips": sum(e < 1.0 for _, e in rec_p.stats), "cache": kv}
 
 
 def phase_parity(torch, state):
@@ -483,31 +827,18 @@ def phase_parity(torch, state):
     from dgq_tpu_torch.models.synthetic import build_llama_engine
 
     cfg = LlamaConfig(num_hidden_layers=2)
-    eng = build_llama_engine(cfg, seed=2, device="cuda")
-    ecfg = EngineConfig(cfg=cfg)
+    eng = build_llama_engine(cfg, seed=2, device=DEV)
     rng = np.random.default_rng(1)
-    prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (BATCH, PROMPT)).astype(np.int32)).cuda()
-    steps = torch.from_numpy(rng.integers(0, cfg.vocab_size, (BATCH, 8)).astype(np.int32)).cuda()
-    with _CodeRecorder() as rec_k:
-        got, gc = _teacher_forced(torch, ecfg, eng, prompts, steps)
-    with _PlainPath(), _CodeRecorder(force=rec_k) as rec_p:
-        ref, rc = _teacher_forced(torch, ecfg, eng, prompts, steps)
-    errs = [(g - r).abs().max().item() for g, r in zip(got, ref)]
-    code_max = max(m for m, _ in rec_p.stats)
-    code_equal = min(e for _, e in rec_p.stats)
-    if code_max > 1 or code_equal < 0.999:
-        raise AssertionError(f"int8 codes: max diff {code_max}, min equal share {code_equal}")
-    for g, r in zip(got, ref):
-        torch.testing.assert_close(g, r, rtol=2e-3, atol=2e-3)
-    kv = {}
-    for name, a, b in (("k", gc.k, rc.k), ("v", gc.v, rc.v)):
-        d = (a.int() - b.int()).abs()
-        kv[name] = {"max_diff": int(d.max().item()), "equal_share": (d == 0).float().mean().item()}
-        if kv[name]["max_diff"] > 1 or kv[name]["equal_share"] < 0.999:
-            raise AssertionError(f"{name} cache: {kv[name]}")
-    return {"layers": 2, "logits_max_abs_err": errs, "code_tensors": len(rec_p.stats),
-            "code_max_diff": code_max, "code_min_equal_share": code_equal,
-            "code_tensors_with_flips": sum(e < 1.0 for _, e in rec_p.stats), "cache": kv}
+
+    def ids(n):
+        return torch.from_numpy(rng.integers(0, cfg.vocab_size, (BATCH, n)).astype(np.int32)
+                                ).to(DEV)
+
+    prompts, steps, window = ids(PROMPT), ids(8), ids(5)
+    return {"layers": 2, "verify_window": 5,
+            "fused": _parity(torch, EngineConfig(cfg=cfg), eng, prompts, steps, window),
+            "unfused": _parity(torch, EngineConfig(cfg=cfg, fused_decode=False), eng, prompts,
+                               steps, window)}
 
 
 def phase_checkpoint(torch, state):
@@ -519,7 +850,7 @@ def phase_checkpoint(torch, state):
     from dgq_tpu_torch.utils.checkpoint import engine_arrays, load_engine, save_engine
 
     cfg = LlamaConfig(num_hidden_layers=2)
-    eng = build_llama_engine(cfg, seed=3, device="cuda")
+    eng = build_llama_engine(cfg, seed=3, device=DEV)
     ckdir = ROOT / "dgq_tpu_torch" / "_build" / "smoke_ckpt"
     ckdir.mkdir(parents=True, exist_ok=True)
     path = str(ckdir / "engine.safetensors")
@@ -528,7 +859,7 @@ def phase_checkpoint(torch, state):
         save_engine(path, eng, cfg)
         save_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        eng2, cfg2 = load_engine(path, device="cuda")
+        eng2, cfg2 = load_engine(path, device=DEV)
         load_s = time.perf_counter() - t0
         size_mb = Path(path).stat().st_size / 2**20
     finally:
@@ -542,7 +873,7 @@ def phase_checkpoint(torch, state):
         if a[key].dtype != b[key].dtype or not torch.equal(a[key], b[key]):
             raise AssertionError(f"{key} differs after the round trip")
     prompt = torch.from_numpy(np.random.default_rng(4).integers(
-        0, cfg.vocab_size, (1, 24)).astype(np.int32)).cuda()
+        0, cfg.vocab_size, (1, 24)).astype(np.int32)).to(DEV)
     t1 = generate(EngineConfig(cfg=cfg), eng, prompt, 8, 256)
     t2 = generate(EngineConfig(cfg=cfg2), eng2, prompt, 8, 256)
     if not torch.equal(t1, t2):
@@ -557,12 +888,19 @@ SOURCES_OF = {
                                "dgq_tpu/ops/attention.py:301"),
     "int8_decode_attention": ("dgq_tpu_torch/csrc/int8_decode_attention.cu",
                               "dgq_tpu/ops/attention.py:179"),
+    "fused_norm_gemv_rp": ("dgq_tpu_torch/csrc/fused_norm_gemv_rp.cu",
+                           "dgq_tpu/ops/fused_decode.py:605"),
+    "fused_requant_gemv_rp": ("dgq_tpu_torch/csrc/fused_requant_gemv_rp.cu",
+                              "dgq_tpu/ops/fused_decode.py:701"),
+    "fused_mlp_decode_rp": ("dgq_tpu_torch/csrc/fused_mlp_decode_rp.cu",
+                            "dgq_tpu/ops/fused_decode.py:1249"),
 }
 
 
 def kernels_line(state):
     """One entry per kernel.  K1: the four linears of one layer at prefill
-    (M = 1024) summed; K2, K3: the main path's MHA case (K3 with quant_pv).
+    (M = 1024) summed, the path K1 takes under fused decode; K2, K3: the main
+    path's MHA case (K3 with quant_pv); K4-K6: the decode step (M = 4).
     Every case is listed under ``cases``."""
     k1 = state["k1"]
     pre = [c for c in k1 if c["M"] == BATCH * PROMPT]
@@ -575,7 +913,10 @@ def kernels_line(state):
     head["w4a8_matmul_rp_pipe"]["bound_by"] = "operations" if all(
         c["bound_by"] == "operations" for c in pre) else "bytes"
     cases = {"w4a8_matmul_rp_pipe": k1, "int8_prefill_attention": state["k2"],
-             "int8_decode_attention": state["k3"]}
+             "int8_decode_attention": state["k3"], "fused_norm_gemv_rp": state["k4"],
+             "fused_requant_gemv_rp": state["k5"], "fused_mlp_decode_rp": state["k6"]}
+    for name in ("fused_norm_gemv_rp", "fused_requant_gemv_rp", "fused_mlp_decode_rp"):
+        head[name] = next(c for c in cases[name] if c["M"] == BATCH)
     out = []
     for name, (source, replaces) in SOURCES_OF.items():
         h = head[name]
@@ -593,6 +934,7 @@ PHASES = {
     "build": phase_build,
     "kernels": phase_kernels,
     "main": phase_main,
+    "main_unfused": phase_main_unfused,
     "parity": phase_parity,
     "checkpoint": phase_checkpoint,
 }

@@ -1,12 +1,16 @@
 """Real-quant INT8-dataflow LLaMA engine on one NVIDIA GPU.
 
-Port of ``dgq_tpu/models/engine.py`` for the configuration ``fused_decode =
-False``, rowpair weight storage and INT8 KV: every linear is K1
-(``w4a8_matmul_rp_pipe``), prompt windows of more than 8 tokens attend with
-K2 (``int8_prefill_attention``) and decode steps with K3
-(``int8_decode_attention``), with JAX's dispatch rules.  Activations enter
-the integer domain at each RMSNormQ, and requantisation happens where the
-reference puts it: post-RoPE q/k/v, pre-o_proj and pre-down_proj.
+Port of ``dgq_tpu/models/engine.py`` for rowpair weight storage and INT8
+KV.  Prompt windows run every linear through K1 (``w4a8_matmul_rp_pipe``)
+and attend with K2 (``int8_prefill_attention``) past 8 tokens; decode steps
+attend with K3 (``int8_decode_attention``).  With ``fused_decode`` (the
+default, as in JAX) decode steps and windows of at most 8 tokens and 64
+rows run each layer's linears through the fused kernels K4
+(``fused_norm_gemv_rp``: RMSNormQ + qkv), K5 (``fused_requant_gemv_rp``:
+requant + o_proj + residual) and K6 (``fused_mlp_decode_rp``: the whole
+MLP), with JAX's dispatch rules.  Activations enter the integer domain at
+each RMSNormQ, and requantisation happens where the reference puts it:
+post-RoPE q/k/v, pre-o_proj and pre-down_proj.
 
 Parameters keep the JAX layout (layers stacked along a leading L axis, q|k|v
 and gate|up fused along N, scales 8x row-replicated), so checkpoints and
@@ -34,6 +38,11 @@ from dgq_tpu_torch.ops.attention import (
     int8_prefill_attention,
     qk_scale,
 )
+from dgq_tpu_torch.ops.fused_decode import (
+    fused_mlp_decode_rp,
+    fused_norm_gemv_rp,
+    fused_requant_gemv_rp,
+)
 from dgq_tpu_torch.ops.quant_matmul import int_matmul, w4a8_matmul_rp_pipe
 
 Tensor = torch.Tensor
@@ -42,8 +51,9 @@ Tensor = torch.Tensor
 class EngineLinear(NamedTuple):
     """Dual-grained W4A8 linear.  The port computes with the rowpair layout
     ``qw_rp`` and the 8x row-replicated ``wscales``/``wzeros``; the other
-    fields are carried so checkpoints round-trip (``cs_fold`` and the compact
-    plane rows feed the fused decode kernels of a later slice)."""
+    fields are carried so checkpoints round-trip; the compact plane rows feed
+    the fused decode kernels (K4-K6), and ``cs_fold`` is checked by them but
+    not read."""
 
     qweight: Optional[Tensor]  # (K//2, N) int8 span layout, None when rowpair-only
     wscales: Tensor  # (8G, N) int8, group g at rows 8g..8g+7
@@ -133,17 +143,14 @@ class EngineConfig:
     # -1: whole-cache decode kernel up to Smax 8192, the chunked kernel (K7,
     # not yet ported) beyond; > 0 forces chunks of that size; 0 never chunks
     decode_attn_chunk: int = -1
-    # the fused decode kernels (K4-K6) are not ported yet: only False runs
-    fused_decode: bool = False
+    # decode launch fusion: windows of at most 8 tokens and 64 rows run K4-K6
+    # (norm + qkv, requant + o_proj + residual, the whole MLP) per layer
+    fused_decode: bool = True
     # INT8 p @ V on decode windows (ops/attention._quantize_exp)
     quant_pv: bool = True
     kv_bits: int = 8
 
     def __post_init__(self):
-        if self.fused_decode:
-            raise NotImplementedError(
-                "fused_decode=True needs K4-K6 (fused_norm_gemv_rp, fused_requant_gemv_rp, "
-                "fused_mlp_decode_rp), not yet ported")
         if self.kv_bits != 8:
             raise NotImplementedError("kv_bits=4 needs the INT4 KV path (K11 "
                                       "int4_paged_decode_attention), not yet ported")
@@ -179,14 +186,95 @@ def _linear_s8(lin: EngineLinear, x_s8: Tensor) -> Tensor:
     return y.reshape(*x_s8.shape[:-1], -1)
 
 
-def _qkv_rows(ecfg: EngineConfig, layer: EngineLayer, x: Tensor) -> Tensor:
-    """(B, S, D) -> qkv projections (B, S, N): RMSNormQ + K1."""
+def _lin_qw(lin: EngineLinear) -> Tensor:
+    """Whichever packed weight exists (span, or rowpair-only) - same shape."""
+    return lin.qweight if lin.qweight is not None else lin.qw_rp
+
+
+def _lin_groupsize(lin: EngineLinear) -> int:
+    """Groupsize from the packed layout (K = 2*rows, G = scale rows / 8)."""
+    return (2 * _lin_qw(lin).shape[0] * 8) // lin.wscales.shape[0]
+
+
+def _mlp_bf(span: int, fdim: int) -> int:
+    """Intermediate-dim block of JAX's fused MLP kernel (a multiple of span,
+    ~512 columns); checked by K6's wrapper as JAX checks it."""
+    bf = span * max(1, 512 // span)
+    return min(bf, fdim)
+
+
+def _decode_fusable(layer: EngineLayer) -> bool:
+    """Static shape check for the fused decode kernels, as JAX's: False
+    falls back to the unfused per-op path."""
+    gs = _lin_groupsize(layer.qkv_proj)
+    span = 2 * gs
+    for lin in (layer.qkv_proj, layer.o_proj, layer.gate_up_proj, layer.down_proj):
+        if _lin_groupsize(lin) != gs or lin.s_hi is None:
+            return False
+        k = 2 * _lin_qw(lin).shape[0]
+        n = lin.alpha.shape[-1]
+        if k % span != 0 or (n % 512 != 0 and n % 128 != 0 and n >= 512):
+            return False
+    fdim = 2 * _lin_qw(layer.down_proj).shape[0]
+    if layer.gate_up_proj.alpha.shape[-1] != 2 * fdim:
+        return False
+    bf = _mlp_bf(span, fdim)
+    return fdim % bf == 0 and bf % span == 0
+
+
+def _use_fused_rows(ecfg: EngineConfig, layer: EngineLayer, b: int, s: int) -> bool:
+    """Gate for the fused decode kernels: they act on independent rows, so
+    windows of s <= 8 tokens (speculative verification) flatten (B, S, D)
+    -> (B*S, D) and ride the same kernels as s = 1, up to 64 rows (8 slots x
+    8 verify tokens).  JAX's gate without ``use_kernel``/``fp_scales``: on
+    CPU tensors the fused branch runs the kernels' plain versions."""
+    return s <= 8 and ecfg.fused_decode and b * s <= 64 and _decode_fusable(layer)
+
+
+def _rp_only(lin: EngineLinear) -> EngineLinear:
+    if lin.qw_rp is None:
+        raise NotImplementedError("fused decode on span-layout storage needs K12 "
+                                  "fused_norm_gemv (and fused_requant_gemv, "
+                                  "fused_mlp_decode), not yet ported")
+    return lin
+
+
+def _qkv_rows(ecfg: EngineConfig, layer: EngineLayer, x: Tensor, fused: bool) -> Tensor:
+    """(B, S, D) -> qkv projections (B, S, N): K4 on the flattened rows, or
+    RMSNormQ + K1."""
+    b, s, d = x.shape
+    if fused:
+        qp = _rp_only(layer.qkv_proj)
+        return fused_norm_gemv_rp(
+            x.reshape(b * s, d), layer.ln1_weight, layer.ln1_bias, qp.qw_rp, qp.s_hi,
+            qp.s_lo, qp.z_hi, qp.z_lo, qp.cs_fold, qp.alpha, qp.bias,
+            span=2 * _lin_groupsize(qp), eps=ecfg.cfg.rms_norm_eps,
+        ).reshape(b, s, -1)
     x_s8 = _rms_norm_q(x, layer.ln1_weight, ecfg.cfg.rms_norm_eps, layer.ln1_bias)
     return _linear_s8(layer.qkv_proj, x_s8)
 
 
-def _block_tail(ecfg: EngineConfig, layer: EngineLayer, x: Tensor, ctx: Tensor) -> Tensor:
-    """Attention context -> o_proj + residual -> MLP + residual."""
+def _block_tail(ecfg: EngineConfig, layer: EngineLayer, x: Tensor, ctx: Tensor,
+                fused: bool) -> Tensor:
+    """Attention context -> o_proj + residual -> MLP + residual: K5 and K6
+    on the flattened rows, or the unfused chain around K1."""
+    if fused:
+        b, s, d = x.shape
+        op = _rp_only(layer.o_proj)
+        x = fused_requant_gemv_rp(
+            ctx.reshape(b * s, -1), layer.out_input_scale, op.qw_rp, op.s_hi, op.s_lo,
+            op.z_hi, op.z_lo, op.cs_fold, op.alpha, op.bias, residual=x.reshape(b * s, d),
+            span=2 * _lin_groupsize(op), qmin=-127.0, fuse_residual=True,
+        )  # (B*S, D), residual added in the kernel
+        gu, dn = _rp_only(layer.gate_up_proj), _rp_only(layer.down_proj)
+        span_m = 2 * _lin_groupsize(gu)
+        fdim = 2 * _lin_qw(dn).shape[0]
+        return fused_mlp_decode_rp(
+            x, layer.ln2_weight, layer.ln2_bias, gu.qw_rp, gu.s_hi, gu.s_lo, gu.z_hi,
+            gu.z_lo, gu.cs_fold, gu.alpha, layer.down_input_scale, dn.qw_rp, dn.wscales,
+            dn.wzeros, dn.cs_fold, dn.alpha, dn.bias, span=span_m, bf=_mlp_bf(span_m, fdim),
+            eps=ecfg.cfg.rms_norm_eps, fuse_residual=True,
+        ).reshape(b, s, d)
     ctx_s8 = _requant(ctx, layer.out_input_scale, qmin=-127.0)
     x = x + _linear_s8(layer.o_proj, ctx_s8)
     x_s8 = _rms_norm_q(x, layer.ln2_weight, ecfg.cfg.rms_norm_eps, layer.ln2_bias)
@@ -207,7 +295,8 @@ def _block(ecfg: EngineConfig, layer: EngineLayer, x: Tensor, k_cache: Tensor,
     h = cfg.num_attention_heads
     rep = h // hk
 
-    qkv = _qkv_rows(ecfg, layer, x)
+    fused = _use_fused_rows(ecfg, layer, b, s)
+    qkv = _qkv_rows(ecfg, layer, x, fused)
     q, k, v = torch.split(qkv, [h * dh, hk * dh, hk * dh], dim=-1)
     q = q.reshape(b, s, h, dh).transpose(1, 2)
     k = k.reshape(b, s, hk, dh).transpose(1, 2)
@@ -260,7 +349,7 @@ def _block(ecfg: EngineConfig, layer: EngineLayer, x: Tensor, k_cache: Tensor,
             ctx = torch.matmul(probs, (v_cache.to(torch.float32) * layer.v_scale)[:, :, None])
         ctx = ctx.permute(0, 3, 1, 2, 4).reshape(b, s, h * dh)
 
-    return _block_tail(ecfg, layer, x, ctx)
+    return _block_tail(ecfg, layer, x, ctx, fused)
 
 
 def engine_forward(ecfg: EngineConfig, params: EngineParams, input_ids: Tensor,

@@ -33,6 +33,9 @@ SOURCES = {
     "w4a8_matmul_rp_pipe": "w4a8_rp_gemm",
     "int8_prefill_attention": "int8_prefill_attention",
     "int8_decode_attention": "int8_decode_attention",
+    "fused_norm_gemv_rp": "fused_norm_gemv_rp",
+    "fused_requant_gemv_rp": "fused_requant_gemv_rp",
+    "fused_mlp_decode_rp": "fused_mlp_decode_rp",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -40,7 +43,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
 
-VP, INT = ctypes.c_void_p, ctypes.c_int  # argtypes of the C entry points
+VP, INT, F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float  # argtypes of the C entry points
 
 _libs: Dict[str, ctypes.CDLL] = {}
 BUILD_SECONDS: Dict[str, float] = {}
@@ -71,8 +74,10 @@ def _nvcc() -> str:
 
 
 def _lib_path(stem: str) -> Path:
-    src = SRC_DIR / f"{stem}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    # the shared headers are hashed too: every source may include them
+    text = (SRC_DIR / f"{stem}.cu").read_bytes()
+    text += b"".join(h.read_bytes() for h in sorted(SRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{stem}-{digest}.so"
 
 
@@ -131,6 +136,8 @@ def stream(device: torch.device) -> int:
 
 
 def check(rc: int, what: str) -> None:
+    if rc == -1:  # the entry point's own argument checks (K4-K6)
+        raise ValueError(f"{what}: the kernel's entry point rejected its arguments")
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc}")
 

@@ -1,16 +1,47 @@
-"""Rowpair layout conversion helpers.
+"""Fused decode kernels K4-K6 with their plain versions, and the rowpair
+layout conversion helpers.
 
-Port of the conversion helpers of ``dgq_tpu/ops/fused_decode.py:154-229``.
-The fused decode kernels of that module (``fused_norm_gemv_rp``,
-``fused_requant_gemv_rp``, ``fused_mlp_decode_rp``) are not ported yet;
-``cs_fold`` is carried for them and is not read by the unfused engine path.
+Port of ``dgq_tpu/ops/fused_decode.py``: the conversion helpers (:154-229),
+``_rmsnorm_q`` (:340-344) and, under the JAX names, the wrappers of the
+hand-written CUDA kernels that replace the TPU kernels
+``fused_norm_gemv_rp`` (K4, ``csrc/fused_norm_gemv_rp.cu``),
+``fused_requant_gemv_rp`` (K5, ``csrc/fused_requant_gemv_rp.cu``) and
+``fused_mlp_decode_rp`` (K6, ``csrc/fused_mlp_decode_rp.cu``).  Each plain
+version (``*_xla``) makes its int8 codes, takes the exact int32 product
+with the weights dequantised to int8 as ``(c4 - (z - 8)) * s`` and applies
+the fp32 epilogue; CPU tensors take it, CUDA tensors launch the kernel.
+
+``cs_fold`` is accepted and shape-checked but never read: the TPU kernels
+split x into two s4 halves for the int4 MXU operand and add the folded
+column-sum term back; the int32 accumulator is the same without the split,
+which is how both the plain versions and the CUDA kernels compute it.
 """
 
 from __future__ import annotations
 
+from typing import Optional, Sequence
+
 import torch
 
+from dgq_tpu_torch.ops import _cuda
 from dgq_tpu_torch.quant.packing import unpack_nibbles
+
+Tensor = torch.Tensor
+
+NORM, REQUANT, MLP = "fused_norm_gemv_rp", "fused_requant_gemv_rp", "fused_mlp_decode_rp"
+_VP, _INT, _F32 = _cuda.VP, _cuda.INT, _cuda.F32
+_SIGNATURES = {
+    # x, lnw, lnb, eps, qw, s_hi, s_lo, z_hi, z_lo, alpha, beta, out, codes_out,
+    # M, N, K, gs, sms, stream
+    NORM: {NORM: [_VP] * 3 + [_F32] + [_VP] * 9 + [_INT] * 5 + [_VP]},
+    # x, in_scale, qmin, qw, s_hi, s_lo, z_hi, z_lo, alpha, beta, residual, out,
+    # codes_out, M, N, K, gs, sms, stream
+    REQUANT: {REQUANT: [_VP] * 2 + [_F32] + [_VP] * 10 + [_INT] * 5 + [_VP]},
+    # x, lnw, lnb, eps, down_scale, gu_qw, gu_s_hi, gu_s_lo, gu_z_hi, gu_z_lo,
+    # gu_alpha, d_qw, d_ws, d_wz, d_alpha, d_beta, fuse_residual, acc, out,
+    # xq_out, h_out, M, D, F, gs, sms, stream
+    MLP: {MLP: [_VP] * 3 + [_F32] + [_VP] * 12 + [_INT] + [_VP] * 4 + [_INT] * 5 + [_VP]},
+}
 
 
 def _stacked(a: torch.Tensor, trailing: int) -> torch.Tensor:
@@ -70,3 +101,312 @@ def rowpair_cs_fold_rp(qw_rp: torch.Tensor, groupsize: int,
                                      dtype=torch.int32))
     out = torch.stack(outs)
     return out.reshape(tuple(lead) + tuple(out.shape[-1:]))
+
+
+# --------------------------------------------------------------------------
+# code makers (the kernels' prologues) and plain versions
+# --------------------------------------------------------------------------
+
+def _rmsnorm_q(x: Tensor, w: Tensor, b: Optional[Tensor], eps: float) -> Tensor:
+    """RMSNormQ on (M, K) f32 rows -> int8: ``x * rsqrt(mean(x*x) + eps) * w
+    + b``, rounded half to even and clipped to [-128, 127].  Bit for bit the
+    engine's ``_rms_norm_q``: the two fp32 products commute, and the absent
+    bias (JAX adds zeros) is skipped."""
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+    y = x * torch.rsqrt(var + eps) * w
+    if b is not None:
+        y = y + b
+    return torch.clamp(torch.round(y), -128, 127).to(torch.int8)
+
+
+def _requant_q(x: Tensor, scale: Tensor, qmin: float) -> Tensor:
+    """round(x / scale) half to even (a division, as JAX writes it) clipped
+    to [qmin, 127] -> int8."""
+    return torch.clamp(torch.round(x / scale), qmin, 127.0).to(torch.int8)
+
+
+def _silu_mul_q(g32: Tensor, u32: Tensor, alpha_g: Tensor, alpha_u: Tensor,
+                scale: Tensor) -> Tensor:
+    """K6's down-proj input codes from the int32 gate/up accumulators, in
+    JAX's order: g = g32 * alpha_g, u = u32 * alpha_u, h = (g * sigmoid(g))
+    * u, then round(h / scale) clipped to [-128, 127]."""
+    g = g32.to(torch.float32) * alpha_g
+    u = u32.to(torch.float32) * alpha_u
+    h = (g * torch.sigmoid(g)) * u
+    return torch.clamp(torch.round(h / scale), -128.0, 127.0).to(torch.int8)
+
+
+def _planes(s_hi: Tensor, s_lo: Tensor) -> Tensor:
+    """Compact (G, N) rows from the even-group and odd-group plane rows."""
+    g2, n = s_hi.shape
+    return torch.stack([s_hi, s_lo], dim=1).reshape(2 * g2, n)
+
+
+def _plane_product(x_s8: Tensor, qw_rp: Tensor, s_hi: Tensor, s_lo: Tensor, z_hi: Tensor,
+                   z_lo: Tensor, gs: int) -> Tensor:
+    from dgq_tpu_torch.ops.quant_matmul import dequantize_rowpair, int_matmul
+
+    return int_matmul(x_s8, dequantize_rowpair(qw_rp, _planes(s_hi, s_lo), _planes(z_hi, z_lo),
+                                               gs))
+
+
+def _epilogue(acc: Tensor, alpha: Tensor, beta: Optional[Tensor],
+              residual: Optional[Tensor]) -> Tensor:
+    y = acc.to(torch.float32) * alpha
+    if beta is not None:
+        y = y + beta
+    if residual is not None:
+        y = y + residual
+    return y
+
+
+def _hand_out(dst: Optional[Tensor], codes: Tensor) -> None:
+    if dst is not None:
+        dst.copy_(codes)
+
+
+def _check_shapes(x: Tensor, qw_rp: Tensor, s_hi: Tensor, cs_fold: Tensor, span: int):
+    m, k = x.shape
+    k2, n = qw_rp.shape
+    gs = span // 2
+    if 2 * k2 != k or k % gs or gs % 32:
+        raise ValueError(f"shapes: x {tuple(x.shape)}, qw_rp {tuple(qw_rp.shape)}, span {span}")
+    if tuple(s_hi.shape) != (k // gs // 2, n):
+        raise ValueError(f"plane rows {tuple(s_hi.shape)} != {(k // gs // 2, n)}")
+    if tuple(cs_fold.shape) != (n,):
+        raise ValueError(f"cs_fold {tuple(cs_fold.shape)} != {(n,)}")
+    if not 1 <= m <= 64:
+        raise ValueError(f"the fused decode kernels take 1 to 64 rows, got {m}")
+    return m, k, n, gs
+
+
+def fused_norm_gemv_rp_xla(x, ln_w, ln_b, qw_rp, s_hi, s_lo, z_hi, z_lo, cs_fold, alpha,
+                           beta=None, *, span: int = 256, eps: float = 1e-6,
+                           codes: Optional[Tensor] = None,
+                           codes_out: Optional[Tensor] = None) -> Tensor:
+    """Plain K4: ``(RMSNormQ(x) @ dequant(W)) * alpha + beta``.  ``codes``
+    (M, K) int8 replaces the RMSNormQ codes; ``codes_out`` receives them."""
+    gs = span // 2
+    xq = _rmsnorm_q(x, ln_w, ln_b, eps) if codes is None else codes
+    _hand_out(codes_out, xq)
+    return _epilogue(_plane_product(xq, qw_rp, s_hi, s_lo, z_hi, z_lo, gs), alpha, beta, None)
+
+
+def fused_requant_gemv_rp_xla(x, in_scale, qw_rp, s_hi, s_lo, z_hi, z_lo, cs_fold, alpha,
+                              beta=None, residual=None, *, span: int = 256,
+                              qmin: float = -127.0, fuse_residual: bool = True,
+                              codes: Optional[Tensor] = None,
+                              codes_out: Optional[Tensor] = None) -> Tensor:
+    """Plain K5: ``(requant(x) @ dequant(W)) * alpha + beta (+ residual)``.
+    ``codes`` (M, K) int8 replaces the requant codes; ``codes_out`` receives
+    them."""
+    gs = span // 2
+    xq = _requant_q(x, in_scale, qmin) if codes is None else codes
+    _hand_out(codes_out, xq)
+    acc = _plane_product(xq, qw_rp, s_hi, s_lo, z_hi, z_lo, gs)
+    return _epilogue(acc, alpha, beta, residual if fuse_residual else None)
+
+
+def fused_mlp_decode_rp_xla(x, ln_w, ln_b, gu_qw_rp, gu_s_hi, gu_s_lo, gu_z_hi, gu_z_lo,
+                            gu_cs_fold, gu_alpha, down_scale, d_qw_rp, d_wscales, d_wzeros,
+                            d_cs_fold, d_alpha, d_beta=None, *, span: int = 256,
+                            eps: float = 1e-6, fuse_residual: bool = True,
+                            codes: Optional[Sequence[Tensor]] = None,
+                            codes_out: Optional[Sequence[Tensor]] = None) -> Tensor:
+    """Plain K6: RMSNormQ -> gate|up product -> SiLU(gate) * up -> requant
+    -> down product -> ``acc * d_alpha + d_beta (+ x)``.  ``codes`` = (xq
+    (M, D), h (M, F)) int8 replaces the norm and the down-input codes;
+    ``codes_out`` (the same pair) receives them."""
+    from dgq_tpu_torch.ops.quant_matmul import dequantize_rowpair, int_matmul
+
+    gs = span // 2
+    fdim = 2 * d_qw_rp.shape[0]
+    xq = _rmsnorm_q(x, ln_w, ln_b, eps) if codes is None else codes[0]
+    gu = _plane_product(xq, gu_qw_rp, gu_s_hi, gu_s_lo, gu_z_hi, gu_z_lo, gs)
+    h_s8 = _silu_mul_q(gu[:, :fdim], gu[:, fdim:], gu_alpha[:fdim], gu_alpha[fdim:],
+                       down_scale)
+    if codes is not None:
+        h_s8 = codes[1]
+    if codes_out is not None:
+        _hand_out(codes_out[0], xq)
+        _hand_out(codes_out[1], h_s8)
+    acc = int_matmul(h_s8, dequantize_rowpair(d_qw_rp, d_wscales[::8], d_wzeros[::8], gs))
+    return _epilogue(acc, d_alpha, d_beta, x if fuse_residual else None)
+
+
+# --------------------------------------------------------------------------
+# kernel wrappers
+# --------------------------------------------------------------------------
+
+def _sms(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _require_planes(dev, k: int, n: int, gs: int, planes, cs_fold, alpha, beta):
+    for name, t in zip(("s_hi", "s_lo", "z_hi", "z_lo"), planes):
+        _cuda.require(t, name, torch.int8, (k // gs // 2, n), dev, align=4)
+    _cuda.require(alpha, "alpha", torch.float32, (n,), dev, align=4)
+    if beta is not None:
+        _cuda.require(beta, "beta", torch.float32, (n,), dev, align=4)
+    if cs_fold.device != dev:
+        raise ValueError(f"cs_fold: expected a tensor on {dev}, got {cs_fold.device}")
+    if n % 32 or k % 128:
+        raise ValueError(f"the fused decode kernels need N % 32 == 0 and K % 128 == 0; "
+                         f"got N={n}, K={k}")
+
+
+def _require_scalar(t: Tensor, name: str, dev) -> None:
+    _cuda.require(t, name, torch.float32, None, dev, align=4)
+    if t.numel() != 1:
+        raise ValueError(f"{name}: expected one float32 value, got shape {tuple(t.shape)}")
+
+
+def fused_norm_gemv_rp(x: Tensor, ln_w: Tensor, ln_b: Optional[Tensor], qw_rp: Tensor,
+                       s_hi: Tensor, s_lo: Tensor, z_hi: Tensor, z_lo: Tensor,
+                       cs_fold: Tensor, alpha: Tensor, beta: Optional[Tensor] = None, *,
+                       span: int = 256, bn: int = 512, eps: float = 1e-6,
+                       codes_out: Optional[Tensor] = None) -> Tensor:
+    """K4: y = (RMSNormQ(x) @ dequant(W)) * alpha + beta in one launch.
+
+    x (M, K) f32 with 1 <= M <= 64; qw_rp (K//2, N) rowpair bytes; s_*/z_*
+    the compact (G//2, N) even/odd group plane rows (G = K / (span // 2));
+    ``cs_fold`` (N,) is checked and not read (see the module docstring);
+    ``bn`` is the TPU column block and is not used (the CUDA kernel tiles N
+    by 32).  ``codes_out`` (M, K) int8, when given, receives the RMSNormQ
+    codes.  CPU tensors take the plain version."""
+    m, k, n, gs = _check_shapes(x, qw_rp, s_hi, cs_fold, span)
+    if x.device.type == "cpu":
+        return fused_norm_gemv_rp_xla(x, ln_w, ln_b, qw_rp, s_hi, s_lo, z_hi, z_lo, cs_fold,
+                                      alpha, beta, span=span, eps=eps, codes_out=codes_out)
+    dev = x.device
+    _cuda.require(x, "x", torch.float32, (m, k), dev)
+    _cuda.require(ln_w, "ln_w", torch.float32, (k,), dev)
+    if ln_b is not None:
+        _cuda.require(ln_b, "ln_b", torch.float32, (k,), dev)
+    _cuda.require(qw_rp, "qw_rp", torch.int8, (k // 2, n), dev, align=4)
+    _require_planes(dev, k, n, gs, (s_hi, s_lo, z_hi, z_lo), cs_fold, alpha, beta)
+    if codes_out is not None:
+        _cuda.require(codes_out, "codes_out", torch.int8, (m, k), dev, align=4)
+    out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    lib = _cuda.library(_cuda.SOURCES[NORM], _SIGNATURES[NORM])
+    rc = lib.fused_norm_gemv_rp(
+        _cuda.ptr(x), _cuda.ptr(ln_w), _cuda.ptr(ln_b), float(eps), _cuda.ptr(qw_rp),
+        _cuda.ptr(s_hi), _cuda.ptr(s_lo), _cuda.ptr(z_hi), _cuda.ptr(z_lo), _cuda.ptr(alpha),
+        _cuda.ptr(beta), _cuda.ptr(out), _cuda.ptr(codes_out), m, n, k, gs, _sms(dev),
+        _cuda.stream(dev))
+    _cuda.check(rc, NORM)
+    _cuda.count_launch(NORM)
+    return out
+
+
+def fused_requant_gemv_rp(x: Tensor, in_scale: Tensor, qw_rp: Tensor, s_hi: Tensor,
+                          s_lo: Tensor, z_hi: Tensor, z_lo: Tensor, cs_fold: Tensor,
+                          alpha: Tensor, beta: Optional[Tensor] = None,
+                          residual: Optional[Tensor] = None, *, span: int = 256,
+                          bn: int = 512, qmin: float = -127.0, fuse_residual: bool = True,
+                          codes_out: Optional[Tensor] = None) -> Tensor:
+    """K5: y = (requant(x) @ dequant(W)) * alpha + beta (+ residual) in one
+    launch; requant is round(x / in_scale) clipped to [qmin, 127].
+
+    ``in_scale`` is a one-element float32 tensor read by the kernel on the
+    device (no host sync).  Other arguments as K4's; ``residual`` (M, N) f32
+    is added when ``fuse_residual``.  CPU tensors take the plain version."""
+    m, k, n, gs = _check_shapes(x, qw_rp, s_hi, cs_fold, span)
+    if fuse_residual and residual is None:
+        raise ValueError("fuse_residual needs a residual")
+    if x.device.type == "cpu":
+        return fused_requant_gemv_rp_xla(x, in_scale, qw_rp, s_hi, s_lo, z_hi, z_lo, cs_fold,
+                                         alpha, beta, residual, span=span, qmin=qmin,
+                                         fuse_residual=fuse_residual, codes_out=codes_out)
+    dev = x.device
+    _cuda.require(x, "x", torch.float32, (m, k), dev)
+    _require_scalar(in_scale, "in_scale", dev)
+    _cuda.require(qw_rp, "qw_rp", torch.int8, (k // 2, n), dev, align=4)
+    _require_planes(dev, k, n, gs, (s_hi, s_lo, z_hi, z_lo), cs_fold, alpha, beta)
+    res = residual if fuse_residual else None
+    if res is not None:
+        _cuda.require(res, "residual", torch.float32, (m, n), dev, align=4)
+    if codes_out is not None:
+        _cuda.require(codes_out, "codes_out", torch.int8, (m, k), dev, align=4)
+    out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    lib = _cuda.library(_cuda.SOURCES[REQUANT], _SIGNATURES[REQUANT])
+    rc = lib.fused_requant_gemv_rp(
+        _cuda.ptr(x), _cuda.ptr(in_scale), float(qmin), _cuda.ptr(qw_rp), _cuda.ptr(s_hi),
+        _cuda.ptr(s_lo), _cuda.ptr(z_hi), _cuda.ptr(z_lo), _cuda.ptr(alpha), _cuda.ptr(beta),
+        _cuda.ptr(res), _cuda.ptr(out), _cuda.ptr(codes_out), m, n, k, gs, _sms(dev),
+        _cuda.stream(dev))
+    _cuda.check(rc, REQUANT)
+    _cuda.count_launch(REQUANT)
+    return out
+
+
+def fused_mlp_decode_rp(x: Tensor, ln_w: Tensor, ln_b: Optional[Tensor], gu_qw_rp: Tensor,
+                        gu_s_hi: Tensor, gu_s_lo: Tensor, gu_z_hi: Tensor, gu_z_lo: Tensor,
+                        gu_cs_fold: Tensor, gu_alpha: Tensor, down_scale: Tensor,
+                        d_qw_rp: Tensor, d_wscales: Tensor, d_wzeros: Tensor,
+                        d_cs_fold: Tensor, d_alpha: Tensor, d_beta: Optional[Tensor] = None,
+                        *, span: int = 256, bf: int = 512, eps: float = 1e-6,
+                        fuse_residual: bool = True,
+                        codes_out: Optional[Sequence[Tensor]] = None) -> Tensor:
+    """K6: the whole LLaMA MLP of a decode step in one call: RMSNormQ, the
+    gate|up product, SiLU(gate) * up, requant by ``down_scale`` (a device
+    scalar), the down product and ``acc * d_alpha + d_beta (+ x)``.
+
+    gu_qw_rp (D//2, 2F) rowpair [gate | up] with compact plane rows;
+    d_qw_rp (F//2, D) with its scales and zeros 8x row-replicated (8*Gf, D),
+    as the engine stores them (the kernel reads row 8g of group g).  The
+    cs_folds are checked and not read; ``bf`` is the TPU's F block, checked
+    as JAX checks it: the CUDA kernel takes F blocks of 64 columns, and the
+    exact int32 result does not depend on the block.  ``codes_out`` = (xq
+    (M, D), h (M, F)) int8 tensors, when given, receive the codes.
+    The call is one K6 launch (a zero fill of the int32 accumulator and a
+    small epilogue kernel run inside it)."""
+    m, d, n2f, gs = _check_shapes(x, gu_qw_rp, gu_s_hi, gu_cs_fold, span)
+    f2, dout = d_qw_rp.shape
+    fdim = 2 * f2
+    bf = min(bf, fdim)
+    if n2f != 2 * fdim or dout != d or fdim % bf or bf % gs:
+        raise ValueError(f"shapes: gate_up {tuple(gu_qw_rp.shape)}, down "
+                         f"{tuple(d_qw_rp.shape)}, bf {bf}, groupsize {gs}")
+    if tuple(d_wscales.shape) != (8 * fdim // gs, d) or tuple(d_cs_fold.shape) != (d,):
+        raise ValueError(f"down scales {tuple(d_wscales.shape)} or cs_fold "
+                         f"{tuple(d_cs_fold.shape)} do not fit F={fdim}, D={d}")
+    if x.device.type == "cpu":
+        return fused_mlp_decode_rp_xla(x, ln_w, ln_b, gu_qw_rp, gu_s_hi, gu_s_lo, gu_z_hi,
+                                       gu_z_lo, gu_cs_fold, gu_alpha, down_scale, d_qw_rp,
+                                       d_wscales, d_wzeros, d_cs_fold, d_alpha, d_beta,
+                                       span=span, eps=eps, fuse_residual=fuse_residual,
+                                       codes_out=codes_out)
+    dev = x.device
+    _cuda.require(x, "x", torch.float32, (m, d), dev)
+    _cuda.require(ln_w, "ln_w", torch.float32, (d,), dev)
+    if ln_b is not None:
+        _cuda.require(ln_b, "ln_b", torch.float32, (d,), dev)
+    _require_scalar(down_scale, "down_scale", dev)
+    _cuda.require(gu_qw_rp, "gu_qw_rp", torch.int8, (d // 2, n2f), dev, align=4)
+    _require_planes(dev, d, n2f, gs, (gu_s_hi, gu_s_lo, gu_z_hi, gu_z_lo), gu_cs_fold,
+                    gu_alpha, None)
+    _cuda.require(d_qw_rp, "d_qw_rp", torch.int8, (f2, d), dev, align=4)
+    _cuda.require(d_wscales, "d_wscales", torch.int8, (8 * fdim // gs, d), dev, align=4)
+    _cuda.require(d_wzeros, "d_wzeros", torch.int8, (8 * fdim // gs, d), dev, align=4)
+    _require_planes(dev, fdim, d, gs, (), d_cs_fold, d_alpha, d_beta)
+    if fdim % 64:
+        raise ValueError(f"K6 needs F % 64 == 0, got F={fdim}")
+    xq_out = h_out = None
+    if codes_out is not None:
+        xq_out, h_out = codes_out
+        _cuda.require(xq_out, "codes_out[0]", torch.int8, (m, d), dev, align=4)
+        _cuda.require(h_out, "codes_out[1]", torch.int8, (m, fdim), dev, align=4)
+    acc = torch.empty((m, d), dtype=torch.int32, device=dev)
+    out = torch.empty((m, d), dtype=torch.float32, device=dev)
+    lib = _cuda.library(_cuda.SOURCES[MLP], _SIGNATURES[MLP])
+    rc = lib.fused_mlp_decode_rp(
+        _cuda.ptr(x), _cuda.ptr(ln_w), _cuda.ptr(ln_b), float(eps), _cuda.ptr(down_scale),
+        _cuda.ptr(gu_qw_rp), _cuda.ptr(gu_s_hi), _cuda.ptr(gu_s_lo), _cuda.ptr(gu_z_hi),
+        _cuda.ptr(gu_z_lo), _cuda.ptr(gu_alpha), _cuda.ptr(d_qw_rp), _cuda.ptr(d_wscales),
+        _cuda.ptr(d_wzeros), _cuda.ptr(d_alpha), _cuda.ptr(d_beta), int(fuse_residual),
+        _cuda.ptr(acc), _cuda.ptr(out), _cuda.ptr(xq_out), _cuda.ptr(h_out), m, d, fdim, gs,
+        _sms(dev), _cuda.stream(dev))
+    _cuda.check(rc, MLP)
+    _cuda.count_launch(MLP)
+    return out

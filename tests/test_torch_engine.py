@@ -3,8 +3,10 @@
 Weights come from dgq_tpu's synthetic builder and are carried across with
 engine_params_from_arrays; prompts are numpy-seeded.  The JAX side runs as
 its own tests run it: the plain path (use_kernel=False) and the Pallas
-kernels in interpret mode with fused_decode=False, the configuration the
-port implements."""
+kernels in interpret mode with fused_decode off and on (the default).  The
+port's fused default and its unfused path are each held against all three."""
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -43,6 +45,8 @@ JAX_MODES = {
     "plain": dict(use_kernel=False),
     "interpret": dict(use_kernel=True, interpret=True, fused_decode=False,
                       bm_prefill=128, bm_decode=128),
+    "interpret_fused": dict(use_kernel=True, interpret=True, fused_decode=True,
+                            bm_prefill=128, bm_decode=128),
 }
 
 
@@ -57,8 +61,8 @@ def _run_jax(eng, mode, prompt, steps):
     return out, np.asarray(cache.k), np.asarray(cache.v)
 
 
-def _run_port(eng, prompt, steps):
-    ecfg = teng.EngineConfig(cfg=TCFG)
+def _run_port(eng, prompt, steps, **overrides):
+    ecfg = teng.EngineConfig(cfg=TCFG, **overrides)
     cache = teng.init_kv_cache(TCFG, prompt.shape[0], SMAX, device="cpu")
     logits, cache = teng.engine_forward(ecfg, eng, torch.from_numpy(prompt), cache)
     out = [logits.numpy()]
@@ -82,19 +86,21 @@ def test_engine_matches_jax(engines, prompt_len):
     rng = np.random.default_rng(prompt_len)
     prompt = rng.integers(0, CFG.vocab_size, size=(2, prompt_len)).astype(np.int32)
     steps = rng.integers(0, CFG.vocab_size, size=(2, STEPS)).astype(np.int32)
-    got, gk, gv = _run_port(tparams, prompt, steps)
-    for mode in JAX_MODES:
-        ref, rk, rv = _run_jax(jparams, mode, prompt, steps)
-        for g, r in zip(got, ref):
-            np.testing.assert_allclose(g, r, rtol=2e-3, atol=2e-3, err_msg=mode)
-        _assert_cache_close(gk, rk)
-        _assert_cache_close(gv, rv)
+    refs = {mode: _run_jax(jparams, mode, prompt, steps) for mode in JAX_MODES}
+    for fused in (True, False):  # the default (fused decode) and the unfused path
+        got, gk, gv = _run_port(tparams, prompt, steps, fused_decode=fused)
+        for mode, (ref, rk, rv) in refs.items():
+            for g, r in zip(got, ref):
+                np.testing.assert_allclose(g, r, rtol=2e-3, atol=2e-3,
+                                           err_msg=f"{mode}, fused={fused}")
+            _assert_cache_close(gk, rk)
+            _assert_cache_close(gv, rv)
 
 
 def test_generate_greedy_matches_jax(engines):
     jparams, tparams = engines
     prompt = np.random.default_rng(3).integers(0, CFG.vocab_size, size=(2, 20)).astype(np.int32)
-    ref = np.asarray(jeng.generate(jeng.EngineConfig(cfg=CFG, **JAX_MODES["interpret"]),
+    ref = np.asarray(jeng.generate(jeng.EngineConfig(cfg=CFG, **JAX_MODES["interpret_fused"]),
                                    jparams, jnp.asarray(prompt), 16, SMAX))
     got = teng.generate(teng.EngineConfig(cfg=TCFG), tparams, torch.from_numpy(prompt), 16,
                         SMAX)
@@ -103,6 +109,48 @@ def test_generate_greedy_matches_jax(engines):
     unrolled = teng.generate(teng.EngineConfig(cfg=TCFG), tparams, torch.from_numpy(prompt),
                              16, SMAX, decode_unroll=4)
     np.testing.assert_array_equal(unrolled.numpy(), ref)
+    unfused = teng.generate(teng.EngineConfig(cfg=TCFG, fused_decode=False), tparams,
+                            torch.from_numpy(prompt), 16, SMAX)
+    np.testing.assert_array_equal(unfused.numpy(), ref)
+
+
+def test_verify_window_fused_matches_unfused(engines):
+    """An S = 5 decode-side window (speculative verification) rides K4-K6 on
+    its flattened rows; its logits match the unfused path's."""
+    _, tparams = engines
+    rng = np.random.default_rng(11)
+    prompt = torch.from_numpy(rng.integers(0, CFG.vocab_size, size=(2, 12)).astype(np.int32))
+    window = torch.from_numpy(rng.integers(0, CFG.vocab_size, size=(2, 5)).astype(np.int32))
+    out = {}
+    for fused in (True, False):
+        ecfg = teng.EngineConfig(cfg=TCFG, fused_decode=fused)
+        cache = teng.init_kv_cache(TCFG, 2, SMAX, device="cpu")
+        _, cache = teng.engine_forward(ecfg, tparams, prompt, cache)
+        assert teng._use_fused_rows(ecfg, tparams.layer_list[0], 2, 5) == fused
+        out[fused], _ = teng.engine_forward(ecfg, tparams, window, cache, window="decode")
+    np.testing.assert_allclose(out[True].numpy(), out[False].numpy(), rtol=2e-4, atol=2e-4)
+
+
+def _jax_layer(jparams):
+    return jax.tree_util.tree_map(lambda a: a[0], jparams.layers)
+
+
+@pytest.mark.parametrize("b,s", [(1, 1), (2, 5), (8, 8), (1, 9), (2, 8), (13, 5), (64, 1),
+                                 (65, 1)])
+def test_fused_dispatch_matches_jax(engines, b, s):
+    """The same shapes take the fused path in both packages."""
+    jparams, tparams = engines
+    jcfg = jeng.EngineConfig(cfg=CFG, **JAX_MODES["interpret_fused"])
+    tcfg = teng.EngineConfig(cfg=TCFG)
+    jl, tl = _jax_layer(jparams), tparams.layer_list[0]
+    assert teng._decode_fusable(tl) == jeng._decode_fusable(jl)
+    assert teng._use_fused_rows(tcfg, tl, b, s) == jeng._use_fused_rows(jcfg, jl, b, s)
+    off = dataclasses.replace(tcfg, fused_decode=False)
+    assert not teng._use_fused_rows(off, tl, b, s)
+    # a layer without plane rows is not fusable in either package
+    jl2 = jl._replace(o_proj=jl.o_proj._replace(s_hi=None))
+    tl2 = tl._replace(o_proj=tl.o_proj._replace(s_hi=None))
+    assert teng._decode_fusable(tl2) == jeng._decode_fusable(jl2) is False
 
 
 @pytest.mark.parametrize("top_k,top_p", [(8, 1.0), (0, 0.5), (12, 0.6)])

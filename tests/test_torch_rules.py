@@ -1,8 +1,8 @@
 """Rules of the dgq_tpu_torch package that hold without a GPU.
 
 It imports neither JAX nor dgq_tpu; its kernel wrappers take their plain
-versions on CPU tensors without counting a launch; configurations that need
-a kernel not yet ported raise NotImplementedError."""
+versions on CPU tensors without counting a launch (K1-K6); configurations
+that need a kernel not yet ported raise NotImplementedError."""
 
 import pathlib
 import re
@@ -15,8 +15,10 @@ import torch
 
 from dgq_tpu_torch.models import engine as teng
 from dgq_tpu_torch.models.llama import tiny_llama_config
+from dgq_tpu_torch.models.synthetic import build_llama_engine
 from dgq_tpu_torch.ops import _cuda
 from dgq_tpu_torch.ops import attention as tat
+from dgq_tpu_torch.ops import fused_decode as tfd
 from dgq_tpu_torch.ops import quant_matmul as tqm
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -70,13 +72,49 @@ def test_wrappers_take_plain_versions_on_cpu_without_launches():
     torch.testing.assert_close(
         out, tat.int8_decode_attention_xla(q[:, :, 0], kt, v, 50, s, s, s, quant_pv=True),
         rtol=0, atol=0)
+
+    # K4-K6 on one layer of a tiny random engine
+    layer = build_llama_engine(tiny_llama_config(hidden_size=256, intermediate_size=512),
+                               seed=0, device="cpu").layer_list[0]
+    xf = torch.from_numpy(rng.normal(size=(3, 256)).astype(np.float32))
+    qp, op, gu, dn = layer.qkv_proj, layer.o_proj, layer.gate_up_proj, layer.down_proj
+
+    def planes(lin):
+        return lin.qw_rp, lin.s_hi, lin.s_lo, lin.z_hi, lin.z_lo, lin.cs_fold
+
+    codes = torch.empty((3, 256), dtype=torch.int8)
+    y = tfd.fused_norm_gemv_rp(xf, layer.ln1_weight, None, *planes(qp), qp.alpha,
+                               codes_out=codes)
+    torch.testing.assert_close(y, tfd.fused_norm_gemv_rp_xla(xf, layer.ln1_weight, None,
+                                                             *planes(qp), qp.alpha),
+                               rtol=0, atol=0)
+    assert torch.equal(codes, tfd._rmsnorm_q(xf, layer.ln1_weight, None, 1e-6))
+    y = tfd.fused_requant_gemv_rp(xf, layer.out_input_scale, *planes(op), op.alpha,
+                                  residual=xf)
+    torch.testing.assert_close(y, tfd.fused_requant_gemv_rp_xla(
+        xf, layer.out_input_scale, *planes(op), op.alpha, residual=xf), rtol=0, atol=0)
+    args = (xf, layer.ln2_weight, None, *planes(gu), gu.alpha, layer.down_input_scale,
+            dn.qw_rp, dn.wscales, dn.wzeros, dn.cs_fold, dn.alpha)
+    torch.testing.assert_close(tfd.fused_mlp_decode_rp(*args),
+                               tfd.fused_mlp_decode_rp_xla(*args), rtol=0, atol=0)
     assert _cuda.LAUNCHES == {name: 0 for name in _cuda.SOURCES}
+    assert {"fused_norm_gemv_rp", "fused_requant_gemv_rp", "fused_mlp_decode_rp"} <= set(
+        _cuda.LAUNCHES)
 
 
 def test_unported_configurations_raise():
-    cfg = tiny_llama_config()
-    with pytest.raises(NotImplementedError, match="fused_norm_gemv_rp"):
-        teng.EngineConfig(cfg=cfg, fused_decode=True)
+    cfg = tiny_llama_config(hidden_size=256, intermediate_size=512)
+    assert teng.EngineConfig(cfg=cfg).fused_decode  # the JAX default
+    # a fused decode step on span-only storage needs K12
+    eng = build_llama_engine(cfg, seed=0, device="cpu")
+    span_only = eng.layers._replace(qkv_proj=eng.layers.qkv_proj._replace(
+        qweight=eng.layers.qkv_proj.qw_rp, qw_rp=None))
+    eng = teng.EngineParams(eng.embed_tokens, span_only, eng.norm_weight, eng.lm_head,
+                            eng.rms_eps)
+    cache = teng.init_kv_cache(cfg, 1, 64, device="cpu")
+    with pytest.raises(NotImplementedError, match="K12 fused_norm_gemv"):
+        teng.engine_forward(teng.EngineConfig(cfg=cfg), eng, torch.zeros((1, 1), dtype=torch.int32),
+                            cache)
     with pytest.raises(NotImplementedError, match="kv_bits=4"):
         teng.EngineConfig(cfg=cfg, kv_bits=4)
     with pytest.raises(NotImplementedError, match="kv_bits=4"):
