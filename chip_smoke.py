@@ -5,19 +5,22 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It imports no JAX.  Phases, each printing one JSON line with its seconds:
 
 1. device: the card's name and power limit (nvidia-smi); TF32 off.
-2. build: the six CUDA kernels, one nvcc each, started together.
+2. build: the seven CUDA sources, one nvcc each, started together.
 3. kernels: K1 ``w4a8_matmul_rp_pipe``, K2 ``int8_prefill_attention``, K3
-   ``int8_decode_attention`` and the fused decode kernels K4
+   ``int8_decode_attention``, the fused decode kernels K4
    ``fused_norm_gemv_rp``, K5 ``fused_requant_gemv_rp`` and K6
-   ``fused_mlp_decode_rp`` held against their plain PyTorch versions at the
-   main path's shapes (LLaMA-2-7B, batch 4, prompt 256, cache 2048; K4-K6
-   at 4 rows and at 40 = 8 slots x a 5-token verify window) and timed beside
-   the plain version, one PyTorch library call for the same function, and
-   the bound; decode at Smax 16384 must raise for K7.  K4-K6 make their int8
-   codes inside the kernel: their codes are compared with the plain
-   version's (at most 1 apart, >= 99.9% equal), and the int32 accumulators
-   (alpha 1, beta 0) and outputs with the plain version run on the kernel's
-   codes, which must agree exactly.
+   ``fused_mlp_decode_rp``, K7 ``int8_decode_attention_chunked`` and K8
+   ``int8_paged_decode_attention`` held against their plain PyTorch versions
+   at the main paths' shapes (LLaMA-2-7B, batch 4, prompt 256, cache 2048;
+   K4-K6 at 4 rows and at 40 = 8 slots x a 5-token verify window; K7 at
+   cache 16384 in chunks of 4096; K8 at 8 slots over a shuffled pool of
+   128-token pages) and timed beside the plain version, one PyTorch library
+   call for the same function, and the bound.  K4-K6 make their int8 codes
+   inside the kernel: their codes are compared with the plain version's (at
+   most 1 apart, >= 99.9% equal), and the int32 accumulators (alpha 1, beta
+   0) and outputs with the plain version run on the kernel's codes, which
+   must agree exactly.  K7 and K8 agree with their plain versions within
+   1e-5, and K8 on a contiguous table with K3 on the same cache.
 4. main: ``build_llama_engine(LlamaConfig())`` (32 layers, full width, random
    weights from seed 0) then ``generate`` of 32 greedy tokens for 4 prompts
    of 256 tokens with the default ``EngineConfig`` (fused decode), with every
@@ -25,16 +28,32 @@ It imports no JAX.  Phases, each printing one JSON line with its seconds:
    profiled decode-step breakdown.
 5. main_unfused: the same with ``fused_decode=False`` (K1 at every step, no
    K4-K6), at full depth.
-6. parity: at full width and 2 layers, the kernel path against the plain
+6. main_long: the same as main with a cache of 16384 positions and 8 new
+   tokens, so every decode step attends through K7 (32 x 7 launches).
+7. serve: the paged serving daemon, the slice's main path, at full 7B width
+   and depth: ``save_engine`` then ``dgq_tpu_torch.serve.build_server`` with
+   ``--paged`` and a registered 300-token prefix, driven over a socket with
+   24 requests of 100-1500 prompt tokens and 64 new tokens (12 streaming,
+   one cancelled mid-stream over a second connection, 8 under the prefix),
+   then the metrics op; latencies as the client sees them beside
+   ``metrics()``.  The served tokens must equal a direct
+   ``PagedBatcher.run()`` of the same requests, only the prefix pages may
+   stay in use, K8 must run 32 times per decode forward, and a run with a
+   pool of 48 pages must preempt and finish every request.  Also a profiled
+   paged decode step at 8 slots, and (not gated) which requests' tokens
+   equal ``generate`` of the request alone, with the first token that
+   differs.
+8. parity: at full width and 2 layers, the kernel path against the plain
    path on the card (prefill logits, 8 teacher-forced decode steps and a
-   5-token ``window="decode"`` verify window), fused and unfused.  With
-   random weights at full width one int8 code that flips at a rounding
-   boundary (fp32 sums taken in another order) changes the rows after it by
-   more than the tolerance, so the plain run checks each of its int8 code
-   tensors against the kernel run's (at most 1 apart, >= 99.9% equal) and
-   then continues from the kernel run's codes; the fused kernels hand their
-   codes out through ``codes_out``.
-7. checkpoint: ``save_engine`` then ``load_engine`` at full width and 2
+   5-token ``window="decode"`` verify window), fused and unfused, and
+   ``paged_prefill`` + 8 teacher-forced ``paged_decode_batched`` steps over
+   a shuffled page table.  With random weights at full width one int8 code
+   that flips at a rounding boundary (fp32 sums taken in another order)
+   changes the rows after it by more than the tolerance, so the plain run
+   checks each of its int8 code tensors against the kernel run's (at most 1
+   apart, >= 99.9% equal) and then continues from the kernel run's codes;
+   the fused kernels hand their codes out through ``codes_out``.
+9. checkpoint: ``save_engine`` then ``load_engine`` at full width and 2
    layers: bit-equal tensors and equal greedy tokens.
 
 Then the line ``{"kernels": [...]}``, the card's nvidia-smi line, and last
@@ -61,9 +80,15 @@ FP32_OPS_PER_S = 67e12  # fp32 outside the tensor cores
 
 BATCH, PROMPT, SMAX, NEW_TOKENS = 4, 256, 2048, 32
 DECODE_LEN = PROMPT + NEW_TOKENS - 1  # valid cache length at the last decode step
+LONG_SMAX, LONG_CHUNK, LONG_NEW = 16384, 4096, 8  # main_long: K7 (AUTO chunk of 16384)
+K7_LENGTHS = (5000, 9000, 12000, 16000)
+PS, SLOTS = 128, 8  # serving: page size and slots (the serve CLI's defaults)
+K8_LENGTHS = (1, 127, 128, 129, 700, 1000, 1536, 2048)
+SERVE_REQUESTS, SERVE_NEW, PREFIX_LEN, TIGHT_PAGES = 24, 64, 300, 49
 K1_NAMES = ["rp_gemm_kernel", "splitk_epilogue"]  # K1 launches both when it splits K
 K4_NAMES, K5_NAMES = ["norm_gemv_rp_kernel"], ["requant_gemv_rp_kernel"]
 K6_NAMES = ["mlp_decode_rp_kernel", "mlp_decode_rp_epilogue"]
+K78_NAMES = ["chunk_attn_kernel", "combine_kernel"]  # K7 and K8 share their kernels
 FUSED_ROWS = (BATCH, 40)  # a decode step; 8 slots x a 5-token verify window
 # (N, K) of the four linears of a LLaMA-2-7B layer (F padded to 11264)
 LINEARS = {"qkv_proj": (12288, 4096), "o_proj": (4096, 4096),
@@ -249,6 +274,44 @@ def _k2_cases(torch, timer, gen):
     return cases
 
 
+def _sdpa_decode_ms(torch, timer, q, kt, v, scales, lengths) -> dict:
+    """The library yardstick of K3, K7 and K8 (a different arithmetic): bf16
+    SDPA for one query token per head over each slot's valid positions of a
+    dense (B, Hkv, Dh, Smax) cache, timed two ways: one call padded to
+    max(lengths) with a per-slot mask, and one call per slot over its own
+    length, summed.  ``library_ms`` is the faster of the two."""
+    qs, ks, vs = scales
+    lens = lengths.tolist()
+    n = max(lens)
+    gqa = kt.shape[1] != q.shape[1]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qb = (q[:, :, None].float() * qs).to(torch.bfloat16)
+    kb = (kt[..., :n].transpose(2, 3).float() * ks).to(torch.bfloat16).contiguous()
+    vb = (v[:, :, :n].float() * vs).to(torch.bfloat16).contiguous()
+    mask = (torch.arange(n, device=q.device)[None] < lengths[:, None])[:, None, None]
+    padded = timer(lambda: sdpa(qb, kb, vb, attn_mask=mask, enable_gqa=gqa))
+    slots = [(qb[i:i + 1], kb[i:i + 1, :, :m].contiguous(), vb[i:i + 1, :, :m].contiguous())
+             for i, m in enumerate(lens)]
+
+    def per_slot():
+        for a, b, c in slots:
+            sdpa(a, b, c, enable_gqa=gqa)
+
+    ragged = timer(per_slot)
+    return {"library_ms": min(padded, ragged), "library_padded_ms": padded,
+            "library_per_slot_ms": ragged}
+
+
+def _decode_bound(b, h, hk, dh, keys, quant_pv, extra_bytes=0):
+    """Bound of single-token attention over ``keys`` cache positions in all:
+    K and V of those positions, q, lengths and out moved once; the QK dot in
+    int8, p @ V in int8 (quant_pv) or fp32."""
+    flops = 2.0 * dh * h * keys
+    pv_rate = INT8_OPS_PER_S if quant_pv else FP32_OPS_PER_S
+    nbytes = b * h * dh + 2 * hk * keys * dh + 4 * b + 4 * b * h * dh + extra_bytes
+    return bound_ms(nbytes, flops / INT8_OPS_PER_S + flops / pv_rate)
+
+
 def _k3_cases(torch, timer, gen):
     from dgq_tpu_torch.ops.attention import int8_decode_attention, int8_decode_attention_xla
 
@@ -274,22 +337,12 @@ def _k3_cases(torch, timer, gen):
                 raise AssertionError(f"K3 Hkv={hk} quant_pv: relative L2 error {rel}")
         else:
             torch.testing.assert_close(out_k, out_p, rtol=2e-4, atol=2e-4)
-        n = int(lengths.max().item())
-        qb = (q[:, :, None].float() * qs).to(torch.bfloat16)
-        kb = (kt[..., :n].transpose(2, 3).float() * ks).to(torch.bfloat16).contiguous()
-        vb = (v[:, :, :n].float() * vs).to(torch.bfloat16)
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        lib_ms = timer(lambda: sdpa(qb, kb, vb, enable_gqa=hk != h))
-        keys = int(lengths.sum().item())
-        flops = 2.0 * dh * h * keys
-        pv_rate = INT8_OPS_PER_S if quant_pv else FP32_OPS_PER_S
-        nbytes = b * h * dh + 2 * hk * keys * dh + 4 * b + 4 * b * h * dh
-        b_ms, b_by = bound_ms(nbytes, flops / INT8_OPS_PER_S + flops / pv_rate)
+        b_ms, b_by = _decode_bound(b, h, hk, dh, int(lengths.sum().item()), quant_pv)
         cases.append({"B": b, "H": h, "Hkv": hk, "Smax": SMAX, "lengths": lengths.tolist(),
                       "quant_pv": quant_pv, "max_abs_err": err,
                       "ms": timer.kernel(kern, ["decode_attn_kernel"]), "call_ms": timer(kern),
-                      "plain_ms": timer(plain, iters=10), "library_ms": lib_ms,
-                      "bound_ms": b_ms, "bound_by": b_by})
+                      "plain_ms": timer(plain, iters=10), "bound_ms": b_ms, "bound_by": b_by,
+                      **_sdpa_decode_ms(torch, timer, q, kt, v, (qs, ks, vs), lengths)})
     return cases
 
 
@@ -516,22 +569,114 @@ def _fused_sweep(torch, gen):
     return out
 
 
-def _check_k7_raise(torch):
-    from dgq_tpu_torch.models.engine import EngineConfig, engine_forward, init_kv_cache
-    from dgq_tpu_torch.models.llama import LlamaConfig
-    from dgq_tpu_torch.models.synthetic import build_llama_engine
+def _check_close(what, got, ref, tol=1e-5) -> float:
+    err = (got - ref).abs().max().item()
+    if not err <= tol:
+        raise AssertionError(f"{what}: max abs err {err} > {tol}")
+    return err
 
-    cfg = LlamaConfig(num_hidden_layers=1)
-    eng = build_llama_engine(cfg, seed=1, device=DEV)
-    cache = init_kv_cache(cfg, 1, 16384, device=DEV)
-    tok = torch.zeros((1, 1), dtype=torch.int32, device=DEV)
-    try:
-        engine_forward(EngineConfig(cfg=cfg), eng, tok, cache)
-    except NotImplementedError as e:
-        if "int8_decode_attention_chunked" not in str(e):
-            raise AssertionError(f"K7 raise does not name the kernel: {e}") from e
-        return str(e)
-    raise AssertionError("decode at Smax 16384 did not raise NotImplementedError")
+
+def _k7_cases(torch, timer, gen):
+    """K7 at 7B long-context shapes: Smax 16384 in AUTO chunks of 4096, the
+    slots' lengths spread over the chunks."""
+    from dgq_tpu_torch.ops.attention import int8_decode_attention_chunked, \
+        int8_decode_attention_xla
+
+    cases = []
+    b, h, dh = BATCH, 32, 128
+    lengths = torch.tensor(K7_LENGTHS, dtype=torch.int32, device=DEV)
+    for hk, quant_pv in ((32, True), (32, False), (8, True)):
+        q, kt, v, (qs, ks, vs) = _attn_inputs(torch, gen, b, h, hk, 1, dh, LONG_SMAX)
+        q = q[:, :, 0].contiguous()
+
+        def kern():
+            return int8_decode_attention_chunked(q, kt, v, lengths, qs, ks, vs, chunk=LONG_CHUNK,
+                                                 quant_pv=quant_pv)
+
+        def plain():
+            return int8_decode_attention_xla(q, kt, v, lengths, qs, ks, vs, quant_pv=quant_pv)
+
+        err = _check_close(f"K7 Hkv={hk} quant_pv={quant_pv}", kern(), plain())
+        b_ms, b_by = _decode_bound(b, h, hk, dh, sum(K7_LENGTHS), quant_pv)
+        cases.append({"B": b, "H": h, "Hkv": hk, "Smax": LONG_SMAX, "chunk": LONG_CHUNK,
+                      "lengths": list(K7_LENGTHS), "quant_pv": quant_pv, "max_abs_err": err,
+                      "ms": timer.kernel(kern, K78_NAMES), "call_ms": timer(kern),
+                      "plain_ms": timer(plain, iters=5), "bound_ms": b_ms, "bound_by": b_by,
+                      **_sdpa_decode_ms(torch, timer, q, kt, v, (qs, ks, vs), lengths)})
+        del q, kt, v
+    return cases
+
+
+def _paged_table(lengths, npg, seed):
+    """A (slots, npg) int32 table of distinct shuffled pool pages 1.. for the
+    pages each length needs; the entries past them point at null page 0."""
+    import numpy as np
+
+    need = [-(-n // PS) for n in lengths]
+    perm = np.random.default_rng(seed).permutation(np.arange(1, 1 + len(lengths) * npg))
+    table = np.zeros((len(lengths), npg), np.int32)
+    k = 0
+    for i, n in enumerate(need):
+        table[i, :n] = perm[k:k + n]
+        k += n
+    return table
+
+
+def _k8_cases(torch, timer, gen):
+    """K8 at 7B serving shapes: 8 slots, 128-token pages, a pool of 1 + 8 x
+    16 pages, a shuffled table with null-page entries, lengths 1..2048 across
+    page boundaries.  Each case also holds K8 on a contiguous table against
+    K3 on the same dense cache."""
+    from dgq_tpu_torch.ops.attention import gather_paged_kv, int8_decode_attention, \
+        int8_paged_decode_attention, int8_paged_decode_attention_xla
+
+    cases = []
+    h, dh, npg = 32, 128, SMAX // PS
+    pages = 1 + SLOTS * npg
+    lengths = torch.tensor(K8_LENGTHS, dtype=torch.int32, device=DEV)
+    table = torch.from_numpy(_paged_table(K8_LENGTHS, npg, seed=8)).to(DEV)
+    for hk, quant_pv in ((32, True), (32, False), (8, True)):
+        def ri(shape):
+            return torch.randint(-127, 128, shape, generator=gen, device=DEV, dtype=torch.int8)
+
+        q = ri((SLOTS, h, dh))
+        kt_pool, v_pool = ri((pages, hk, dh, PS)), ri((pages, hk, PS, dh))
+        qs, ks, vs = [torch.rand((), generator=gen, device=DEV) * 0.02 + 0.01 for _ in range(3)]
+
+        def kern():
+            return int8_paged_decode_attention(q, kt_pool, v_pool, table, lengths, qs, ks, vs,
+                                               quant_pv=quant_pv)
+
+        def plain():
+            return int8_paged_decode_attention_xla(q, kt_pool, v_pool, table, lengths, qs, ks,
+                                                   vs, quant_pv=quant_pv)
+
+        what = f"K8 Hkv={hk} quant_pv={quant_pv}"
+        out_k = kern()
+        err = _check_close(what, out_k, plain())
+        # the same cache dense, and as pages 1.. on an identity table
+        kt, v = [t.contiguous() for t in gather_paged_kv(kt_pool, v_pool, table)]
+        ident = (1 + torch.arange(SLOTS * npg, device=DEV, dtype=torch.int32)).reshape(SLOTS, npg)
+        kt_c = torch.cat([kt_pool[:1], kt.reshape(SLOTS, hk, dh, npg, PS).permute(
+            0, 3, 1, 2, 4).reshape(SLOTS * npg, hk, dh, PS)]).contiguous()
+        v_c = torch.cat([v_pool[:1], v.reshape(SLOTS, hk, npg, PS, dh).permute(
+            0, 2, 1, 3, 4).reshape(SLOTS * npg, hk, PS, dh)]).contiguous()
+        err_k3 = _check_close(
+            f"{what} contiguous table vs K3",
+            int8_paged_decode_attention(q, kt_c, v_c, ident, lengths, qs, ks, vs,
+                                        quant_pv=quant_pv),
+            int8_decode_attention(q, kt, v, lengths, qs, ks, vs, quant_pv=quant_pv))
+        # the valid positions' K and V, as K3 and K7 count them, plus the table
+        b_ms, b_by = _decode_bound(SLOTS, h, hk, dh, sum(K8_LENGTHS), quant_pv,
+                                   extra_bytes=4 * SLOTS * npg)
+        cases.append({"slots": SLOTS, "H": h, "Hkv": hk, "page": PS, "pool_pages": pages,
+                      "table_width": npg, "lengths": list(K8_LENGTHS), "quant_pv": quant_pv,
+                      "max_abs_err": err, "max_abs_err_vs_k3_contiguous": err_k3,
+                      "ms": timer.kernel(kern, K78_NAMES), "call_ms": timer(kern),
+                      "plain_ms": timer(plain, iters=10), "bound_ms": b_ms, "bound_by": b_by,
+                      **_sdpa_decode_ms(torch, timer, q, kt, v, (qs, ks, vs), lengths)})
+        del kt_pool, v_pool, kt, v, kt_c, v_c
+    return cases
 
 
 def phase_kernels(torch, state):
@@ -542,16 +687,18 @@ def phase_kernels(torch, state):
     state["k3"] = _k3_cases(torch, timer, gen)
     state.update(_fused_cases(torch, timer, gen))
     sweep = _fused_sweep(torch, gen)
-    k7 = _check_k7_raise(torch)
+    state["k7"] = _k7_cases(torch, timer, gen)
+    state["k8"] = _k8_cases(torch, timer, gen)
     del timer
     torch.cuda.empty_cache()
-    return {**{f"k{i}": state[f"k{i}"] for i in range(1, 7)}, "k4_k6_sweep": sweep,
-            "k7_raise": k7}
+    return {**{f"k{i}": state[f"k{i}"] for i in range(1, 9)}, "k4_k6_sweep": sweep}
 
 
-def _drive_main(torch, cfg, ecfg, want):
+def _drive_main(torch, cfg, ecfg, want, smax=SMAX, new_tokens=NEW_TOKENS,
+                attn=("K3", ["decode_attn_kernel"])):
     """build_llama_engine + generate with launch counts (must equal
-    ``want``), then a timed step-by-step replay and a profiled breakdown."""
+    ``want``), then a timed step-by-step replay and a profiled breakdown in
+    which ``attn`` names the decode attention kernel group."""
     import numpy as np
 
     from dgq_tpu_torch.models.engine import engine_forward, generate, init_kv_cache
@@ -569,20 +716,20 @@ def _drive_main(torch, cfg, ecfg, want):
 
     _cuda.reset_launches()
     t0 = time.perf_counter()
-    toks = generate(ecfg, eng, prompts, NEW_TOKENS, SMAX)
+    toks = generate(ecfg, eng, prompts, new_tokens, smax)
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
     launches = dict(_cuda.LAUNCHES)
     if launches != want:
         raise AssertionError(f"launches {launches} != {want}")
-    if toks.shape != (BATCH, NEW_TOKENS) or toks.dtype != torch.int32:
+    if toks.shape != (BATCH, new_tokens) or toks.dtype != torch.int32:
         raise AssertionError(f"tokens {tuple(toks.shape)} {toks.dtype}")
     if not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
         raise AssertionError("token out of range")
 
     # timed replay of the same path, step by step
-    steps = NEW_TOKENS - 1
-    cache = init_kv_cache(cfg, BATCH, SMAX, device=DEV)
+    steps = new_tokens - 1
+    cache = init_kv_cache(cfg, BATCH, smax, device=DEV)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     logits, cache = engine_forward(ecfg, eng, prompts, cache)
@@ -601,30 +748,33 @@ def _drive_main(torch, cfg, ecfg, want):
     decode_ms = (time.perf_counter() - t0) * 1e3 / steps
     if not finite:
         raise AssertionError("non-finite logits")
-    breakdown = _profile_decode(torch, ecfg, eng, tok, cache, steps=4)
+    breakdown = _profile_decode(torch, ecfg, eng, tok, cache, 4, attn)
     if not torch.equal(torch.stack(replay, dim=1), toks):
         raise AssertionError("replay tokens differ from generate's")
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     del eng, cache, logits
     torch.cuda.empty_cache()
     return {"layers": cfg.num_hidden_layers, "fused_decode": ecfg.fused_decode,
-            "batch": BATCH, "prompt": PROMPT, "new_tokens": NEW_TOKENS, "max_len": SMAX,
+            "batch": BATCH, "prompt": PROMPT, "new_tokens": new_tokens, "max_len": smax,
             "launches": launches, "engine_build_s": build_s, "generate_s": gen_s,
             "prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
             "decode_tok_per_s": BATCH * 1e3 / decode_ms,
-            "generate_tok_per_s": BATCH * NEW_TOKENS / gen_s,
+            "generate_tok_per_s": BATCH * new_tokens / gen_s,
             "peak_gib": peak_gb, "decode_step_breakdown": breakdown,
             "tokens_row0": toks[0].tolist()}
 
 
-def _want_launches(layers: int, fused: bool):
-    steps = NEW_TOKENS - 1
+def _want_launches(layers: int, fused: bool, new_tokens: int = NEW_TOKENS, chunked=False):
+    steps = new_tokens - 1
     decode_linears = 0 if fused else 4 * layers * steps
     fused_calls = layers * steps if fused else 0
     return {"w4a8_matmul_rp_pipe": 4 * layers + decode_linears,
-            "int8_prefill_attention": layers, "int8_decode_attention": layers * steps,
+            "int8_prefill_attention": layers,
+            "int8_decode_attention": 0 if chunked else layers * steps,
             "fused_norm_gemv_rp": fused_calls, "fused_requant_gemv_rp": fused_calls,
-            "fused_mlp_decode_rp": fused_calls}
+            "fused_mlp_decode_rp": fused_calls,
+            "int8_decode_attention_chunked": layers * steps if chunked else 0,
+            "int8_paged_decode_attention": 0}
 
 
 def phase_main(torch, state):
@@ -651,20 +801,282 @@ def phase_main_unfused(torch, state):
                        _want_launches(cfg.num_hidden_layers, False))
 
 
-def _profile_decode(torch, ecfg, eng, tok, cache, steps: int):
-    """Device time of ``steps`` decode steps by kernel group (K1, K3-K6, the
-    rest), against the wall time of the same steps."""
+def phase_main_long(torch, state):
+    """The default EngineConfig at full 7B depth with a 16384-position cache:
+    AUTO decode chunking takes K7 (chunks of 4096) at every decode step."""
+    from dgq_tpu_torch.models.engine import EngineConfig
+    from dgq_tpu_torch.models.llama import LlamaConfig
+    from dgq_tpu_torch.ops.attention import auto_decode_chunk
+
+    cfg = LlamaConfig()
+    if auto_decode_chunk(LONG_SMAX) != LONG_CHUNK:
+        raise AssertionError(f"AUTO chunk of {LONG_SMAX} is not {LONG_CHUNK}")
+    out = _drive_main(torch, cfg, EngineConfig(cfg=cfg),
+                      _want_launches(cfg.num_hidden_layers, True, LONG_NEW, chunked=True),
+                      smax=LONG_SMAX, new_tokens=LONG_NEW, attn=("K7", K78_NAMES))
+    state["launches_long"] = out["launches"]
+    return out
+
+
+def _serve_requests(cfg):
+    """The serve phase's requests, from seed 0: prompts of 100-1500 tokens,
+    every third one (8 of 24) starting with the registered prefix; every
+    second one streams."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    prefix = rng.integers(0, cfg.vocab_size, PREFIX_LEN).astype(np.int32)
+    reqs = []
+    for i in range(SERVE_REQUESTS):
+        if i % 3 == 0:
+            tail = rng.integers(0, cfg.vocab_size, int(rng.integers(1, 1501 - PREFIX_LEN)))
+            prompt = np.concatenate([prefix, tail.astype(np.int32)])
+        else:
+            prompt = rng.integers(0, cfg.vocab_size, int(rng.integers(100, 1501))).astype(np.int32)
+        reqs.append({"prompt_ids": prompt, "stream": i % 2 == 1})
+    return prefix, reqs
+
+
+def _percentiles(ms):
+    ms = sorted(ms)
+    return {"p50": ms[len(ms) // 2], "p95": ms[min(len(ms) - 1, int(len(ms) * 0.95))]}
+
+
+def _drive_socket(srv, reqs, cancel_uid):
+    """Send every request over one connection (pipelined), cancel
+    ``cancel_uid`` at its first streamed tokens over a second connection
+    (the first one's reader is still submitting the requests behind it),
+    read every reply, then the metrics op.  Requests take uids 0.. in the
+    order sent.  Also returns the latencies the client sees: e2e from the
+    send of all requests to each final reply, TTFT to each streaming
+    request's first tokens."""
+    import socket
+
+    addr = (srv.host, srv.port)
+    with socket.create_connection(addr, timeout=300) as sock, \
+            socket.create_connection(addr, timeout=300) as ctl:
+        f, cf = sock.makefile("r"), ctl.makefile("r")
+
+        def send(s, obj):
+            s.sendall((json.dumps(obj) + "\n").encode())
+
+        t0 = time.perf_counter()
+        for r in reqs:
+            send(sock, {"prompt_ids": r["prompt_ids"].tolist(), "max_new_tokens": SERVE_NEW,
+                        "stream": r["stream"]})
+        finals, streamed, acks, first_ms, e2e_ms = {}, {}, [], {}, {}
+        while len(finals) < len(reqs):
+            msg = json.loads(f.readline())
+            if "error" in msg:
+                raise AssertionError(f"server error: {msg}")
+            uid, now_ms = msg["uid"], (time.perf_counter() - t0) * 1e3
+            streamed.setdefault(uid, []).extend(msg.get("token_ids", []))
+            first_ms.setdefault(uid, now_ms)
+            if msg["done"]:
+                finals[uid], e2e_ms[uid] = msg, now_ms
+                wall = now_ms / 1e3
+            elif uid == cancel_uid and not acks:
+                send(ctl, {"op": "cancel", "uid": uid})
+                acks.append(json.loads(cf.readline()))
+        send(sock, {"op": "metrics"})
+        metrics = json.loads(f.readline())
+    client = {"e2e_ms": _percentiles([e2e_ms[u] for u in e2e_ms if u != cancel_uid]),
+              "stream_ttft_ms": _percentiles([first_ms[u] for u, r in enumerate(reqs)
+                                              if r["stream"]])}
+    return finals, streamed, acks, metrics, wall, client
+
+
+def phase_serve(torch, state):
+    """The paged serving daemon at full 7B width and depth, over a socket."""
+    import tempfile
+
+    from dgq_tpu_torch import serve
+    from dgq_tpu_torch.models.engine import EngineConfig, generate
+    from dgq_tpu_torch.models.llama import LlamaConfig
+    from dgq_tpu_torch.models.synthetic import build_llama_engine
+    from dgq_tpu_torch.ops import _cuda
+    from dgq_tpu_torch.serving import paged
+    from dgq_tpu_torch.serving.scheduler import Request
+    from dgq_tpu_torch.utils import checkpoint
+
+    cfg = LlamaConfig()
+    prefix, reqs = _serve_requests(cfg)
+    cancel_uid = 1  # a streaming request of the first wave
+    build_dir = ROOT / "dgq_tpu_torch" / "_build"
+    build_dir.mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(dir=build_dir))
+    try:
+        eng = build_llama_engine(cfg, seed=0, device=DEV)
+        ckpt = str(tmp / "engine.safetensors")
+        t0 = time.perf_counter()
+        checkpoint.save_engine(ckpt, eng, cfg)
+        save_s = time.perf_counter() - t0
+        del eng
+        torch.cuda.empty_cache()
+        (tmp / "prefix.json").write_text(json.dumps(prefix.tolist()))
+        args = serve.build_parser().parse_args(
+            [ckpt, "--paged", "--port", "0", "--prefix", str(tmp / "prefix.json"),
+             "--metrics-interval", "0"])
+        forwards, load_s = {"n": 0}, []
+        real, real_load = paged.paged_decode_batched, checkpoint.load_engine
+
+        def counted(*a, **k):
+            forwards["n"] += 1
+            return real(*a, **k)
+
+        def timed_load(*a, **k):
+            t = time.perf_counter()
+            out = real_load(*a, **k)
+            torch.cuda.synchronize()
+            load_s.append(time.perf_counter() - t)
+            return out
+
+        paged.paged_decode_batched, checkpoint.load_engine = counted, timed_load
+        try:
+            _cuda.reset_launches()
+            t0 = time.perf_counter()
+            srv = serve.build_server(args)
+            start_s = time.perf_counter() - t0
+            with srv:
+                finals, streamed, acks, metrics, wall, client = _drive_socket(srv, reqs,
+                                                                              cancel_uid)
+                torch.cuda.synchronize()
+                launches = dict(_cuda.LAUNCHES)
+                batcher = srv.batcher
+        finally:
+            paged.paged_decode_batched, checkpoint.load_engine = real, real_load
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    params, decode_forwards = batcher.params, forwards["n"]
+    layers = cfg.num_hidden_layers
+
+    # gates of the served run
+    if batcher._recoveries:
+        raise AssertionError(f"the served run recovered {batcher._recoveries} time(s)")
+    cancelled = finals[cancel_uid]
+    if not (acks and acks[0]["cancelled_ok"] and cancelled.get("cancelled")):
+        raise AssertionError(f"request {cancel_uid} was not cancelled mid-stream: {acks}")
+    served = {uid: m["output_ids"] for uid, m in finals.items() if uid != cancel_uid}
+    short = {uid: len(t) for uid, t in served.items() if len(t) != SERVE_NEW}
+    if short:
+        raise AssertionError(f"requests with other than {SERVE_NEW} tokens: {short}")
+    for uid, r in enumerate(reqs):
+        if r["stream"] and streamed[uid] != finals[uid]["output_ids"]:
+            raise AssertionError(f"request {uid}: streamed tokens differ from its output")
+    prefix_pages = -(-PREFIX_LEN // PS)
+    if metrics["pages_in_use"] != prefix_pages:
+        raise AssertionError(f"{metrics['pages_in_use']} pages in use after the run, "
+                             f"{prefix_pages} pinned by the prefix")
+    if metrics.get("prefix_hits") != sum(i % 3 == 0 for i in range(SERVE_REQUESTS)):
+        raise AssertionError(f"prefix hits {metrics.get('prefix_hits')}")
+    if launches["int8_paged_decode_attention"] != layers * decode_forwards or not decode_forwards:
+        raise AssertionError(f"K8 launches {launches['int8_paged_decode_attention']} != "
+                             f"{layers} x {decode_forwards} decode forwards")
+    for name in ("int8_decode_attention", "int8_decode_attention_chunked"):
+        if launches[name]:
+            raise AssertionError(f"{name} launched {launches[name]} times on the paged path")
+    del batcher, srv
+
+    def direct(**kw):
+        b = paged.PagedBatcher(EngineConfig(cfg=cfg), params, num_slots=args.slots,
+                               max_len=args.max_len, page_size=args.page_size,
+                               prefill_chunk=args.prefill_chunk, **kw)
+        b.register_prefix(prefix)
+        for uid, r in enumerate(reqs):
+            b.add_request(Request(uid=uid, prompt_ids=r["prompt_ids"],
+                                  max_new_tokens=SERVE_NEW))
+        t0 = time.perf_counter()
+        out = {r.uid: r.output_ids for r in b.run()}
+        torch.cuda.synchronize()
+        return b, out, time.perf_counter() - t0
+
+    b, want, direct_s = direct()
+    diff = [uid for uid, t in served.items() if t != want[uid]]
+    if diff:
+        raise AssertionError(f"served tokens differ from a direct PagedBatcher.run() for {diff}")
+    cancelled_prefix = want[cancel_uid][:len(cancelled["output_ids"])] == cancelled["output_ids"]
+    del b
+    tight, tight_out, tight_s = direct(num_pages=TIGHT_PAGES)
+    if tight.preemptions < 1:
+        raise AssertionError(f"a pool of {TIGHT_PAGES - 1} pages did not preempt")
+    if sorted(tight_out) != list(range(SERVE_REQUESTS)) or any(
+            len(t) != SERVE_NEW for t in tight_out.values()):
+        raise AssertionError("the tight pool did not finish every request")
+    tight_equal = sum(tight_out[u] == want[u] for u in want) / len(want)
+    preemptions = tight.preemptions
+    del tight
+    torch.cuda.empty_cache()
+
+    # a profiled paged decode step with all 8 slots decoding
+    prof_b = paged.PagedBatcher(EngineConfig(cfg=cfg), params, num_slots=SLOTS,
+                                max_len=args.max_len, page_size=PS,
+                                prefill_chunk=args.prefill_chunk)
+    for uid in range(SLOTS):
+        prof_b.add_request(Request(uid=uid, prompt_ids=reqs[uid]["prompt_ids"],
+                                   max_new_tokens=SERVE_NEW))
+    while prof_b.queue or prof_b.pending:
+        prof_b.step()
+    if sum(r is not None for r in prof_b.slots) != SLOTS:
+        raise AssertionError("not every slot is decoding before the profiled steps")
+    lengths = [int(n) for n in prof_b.lengths_h]
+    breakdown = _profile_steps(torch, prof_b.step, 4, ("K8", K78_NAMES))
+    del prof_b
+
+    # not gated: the dense engine on each request alone, and the index of
+    # the first token where it differs (0: the prefill's token)
+    first_diff = []
+    t0 = time.perf_counter()
+    for uid, r in enumerate(reqs):
+        prompt = torch.from_numpy(r["prompt_ids"][None]).to(DEV)
+        alone = generate(EngineConfig(cfg=cfg), params, prompt, SERVE_NEW, args.max_len)[0]
+        first_diff.append(next((i for i, (a, b) in enumerate(zip(alone.tolist(), want[uid]))
+                                if a != b), None))
+    alone_s = time.perf_counter() - t0
+    state["launches_serve"] = launches
+    served_tokens = sum(len(m["output_ids"]) for m in finals.values())
+    return {"layers": layers, "slots": args.slots, "max_len": args.max_len,
+            "page_size": args.page_size, "prefill_chunk": args.prefill_chunk,
+            "requests": SERVE_REQUESTS, "new_tokens": SERVE_NEW,
+            "prompt_tokens": sum(len(r["prompt_ids"]) for r in reqs),
+            "save_engine_s": save_s, "load_engine_s": load_s[0], "build_server_s": start_s,
+            "served_wall_s": wall,
+            "served_tokens": served_tokens, "client_tok_per_s": served_tokens / wall,
+            "client_latency": client, "metrics": metrics, "decode_forwards": decode_forwards, "launches": launches,
+            "cancelled": {"uid": cancel_uid, "tokens": len(cancelled["output_ids"]),
+                          "prefix_of_direct_run": cancelled_prefix},
+            "direct_run_s": direct_s, "served_equal_direct": True,
+            "tight_pool": {"num_pages": TIGHT_PAGES, "preemptions": preemptions,
+                           "run_s": tight_s, "share_equal_direct": tight_equal},
+            "alone_generate_share_equal": first_diff.count(None) / SERVE_REQUESTS,
+            "alone_generate_first_diff": first_diff, "alone_generate_s": alone_s,
+            "paged_decode_step": {"slots": SLOTS, "lengths": lengths, **breakdown}}
+
+
+def _profile_decode(torch, ecfg, eng, tok, cache, steps: int, attn):
+    """Device time of ``steps`` engine decode steps by kernel group."""
     from dgq_tpu_torch.models.engine import engine_forward
 
+    state = {"tok": tok, "cache": cache}
+
+    def step():
+        logits, state["cache"] = engine_forward(ecfg, eng, state["tok"][:, None], state["cache"])
+        state["tok"] = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+
+    return _profile_steps(torch, step, steps, attn)
+
+
+def _profile_steps(torch, step, steps: int, attn):
+    """Device time of ``steps`` calls of ``step`` by kernel group (K1, the
+    decode attention ``attn`` = (label, kernel names), K4-K6, the rest),
+    against the wall time of the same steps."""
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            logits, cache = engine_forward(ecfg, eng, tok[:, None], cache)
-            tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+            step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    names = {"K1": K1_NAMES, "K3": ["decode_attn_kernel"], "K4": K4_NAMES, "K5": K5_NAMES,
+    names = {"K1": K1_NAMES, attn[0]: attn[1], "K4": K4_NAMES, "K5": K5_NAMES,
              "K6": K6_NAMES}
     groups = {g: 0.0 for g in [*names, "other"]}
     launches = {g: 0 for g in groups}
@@ -702,8 +1114,11 @@ class _CodeRecorder:
 
         from dgq_tpu_torch.models import engine
         from dgq_tpu_torch.ops import fused_decode
+        from dgq_tpu_torch.serving import paged
 
+        # the paged decode block requantises q/k/v through its own binding
         self.saved = [(engine, n, getattr(engine, n)) for n in ("_rms_norm_q", "_requant")]
+        self.saved.append((paged, "_requant", paged._requant))
         if self.force is None:
             self.saved += [(engine, n, getattr(engine, n)) for n in self.FUSED_CODES]
         else:  # the plain versions' code makers
@@ -745,17 +1160,21 @@ class _CodeRecorder:
 
 
 class _PlainPath:
-    """Swap the engine's kernel wrappers for their plain versions (the
-    reference run on the card); restores them on exit."""
+    """Swap the engine's and the paged decode block's kernel wrappers for
+    their plain versions (the reference run on the card); restores them on
+    exit."""
 
     def __enter__(self):
         from dgq_tpu_torch.models import engine
         from dgq_tpu_torch.ops import attention, fused_decode, quant_matmul
+        from dgq_tpu_torch.serving import paged
 
-        self.engine = engine
-        self.saved = {n: getattr(engine, n) for n in
+        self.saved = [(engine, n, getattr(engine, n)) for n in
                       ("w4a8_matmul_rp_pipe", "int8_prefill_attention", "int8_decode_attention",
-                       "fused_norm_gemv_rp", "fused_requant_gemv_rp", "fused_mlp_decode_rp")}
+                       "int8_decode_attention_chunked", "fused_norm_gemv_rp",
+                       "fused_requant_gemv_rp", "fused_mlp_decode_rp")]
+        self.saved.append((paged, "int8_paged_decode_attention",
+                           paged.int8_paged_decode_attention))
 
         def k1(x, qw, ws, wz, alpha, beta=None, *, groupsize, scales_replicated):
             step = 8 if scales_replicated else 1
@@ -770,12 +1189,17 @@ class _PlainPath:
         engine.int8_decode_attention = attention.int8_decode_attention_xla
         engine.fused_norm_gemv_rp = fused_decode.fused_norm_gemv_rp_xla
         engine.fused_requant_gemv_rp = fused_decode.fused_requant_gemv_rp_xla
+        def k7(*a, chunk, **k):  # the plain version is the whole-cache one
+            return attention.int8_decode_attention_xla(*a, **k)
+
         engine.fused_mlp_decode_rp = k6
+        engine.int8_decode_attention_chunked = k7
+        paged.int8_paged_decode_attention = attention.int8_paged_decode_attention_xla
         return self
 
     def __exit__(self, *exc):
-        for n, f in self.saved.items():
-            setattr(self.engine, n, f)
+        for mod, n, f in self.saved:
+            setattr(mod, n, f)
 
 
 def _teacher_forced(torch, ecfg, eng, prompts, steps, window):
@@ -791,14 +1215,40 @@ def _teacher_forced(torch, ecfg, eng, prompts, steps, window):
         out.append(logits)
     logits, cache = engine_forward(ecfg, eng, window, cache, window="decode")
     out.append(logits)
-    return out, cache
+    return out, {"k": cache.k, "v": cache.v}
 
 
-def _parity(torch, ecfg, eng, prompts, steps, window):
+def _paged_teacher_forced(torch, ecfg, eng, prompts, steps):
+    """paged_prefill of each prompt into shuffled pages of a pool, then one
+    paged_decode_batched step per column of ``steps`` with every slot
+    active; returns every call's logits and the pool."""
+    from dgq_tpu_torch.serving.paged import init_paged_cache, paged_decode_batched, \
+        paged_prefill
+
+    b, npg = prompts.shape[0], SMAX // PS
+    cache = init_paged_cache(ecfg.cfg, b, 1 + b * npg, PS, device=DEV)
+    table = _paged_table([SMAX] * b, npg, seed=5)
+    out = []
+    for i in range(b):
+        logits, cache = paged_prefill(ecfg, eng, i, prompts[i], prompts.shape[1],
+                                      table[i, :prompts.shape[1] // PS].tolist(), cache)
+        out.append(logits)
+    table_dev = torch.from_numpy(table).to(DEV)
+    active = torch.ones((b,), dtype=torch.bool, device=DEV)
+    for i in range(steps.shape[1]):
+        logits, cache = paged_decode_batched(ecfg, eng, steps[:, i].contiguous(), cache,
+                                             table_dev, active)
+        out.append(logits)
+    return out, {"k": cache.kt, "v": cache.v}
+
+
+def _parity(torch, run):
+    """``run()`` -> (logits list, {name: int8 cache}) once on the kernel
+    path recording its codes, once on the plain path forced onto them."""
     with _CodeRecorder() as rec_k:
-        got, gc = _teacher_forced(torch, ecfg, eng, prompts, steps, window)
+        got, gc = run()
     with _PlainPath(), _CodeRecorder(force=rec_k) as rec_p:
-        ref, rc = _teacher_forced(torch, ecfg, eng, prompts, steps, window)
+        ref, rc = run()
     if len(rec_p.stats) != len(rec_k.codes):
         raise AssertionError(f"{len(rec_k.codes)} code tensors in the kernel run, "
                              f"{len(rec_p.stats)} in the plain run")
@@ -809,8 +1259,8 @@ def _parity(torch, ecfg, eng, prompts, steps, window):
     for g, r in zip(got, ref):
         torch.testing.assert_close(g, r, rtol=2e-3, atol=2e-3)
     kv = {}
-    for name, a, b in (("k", gc.k, rc.k), ("v", gc.v, rc.v)):
-        d_max, eq = _code_stats(a, b)
+    for name in gc:
+        d_max, eq = _code_stats(gc[name], rc[name])
         kv[name] = {"max_diff": d_max, "equal_share": eq}
         _check_codes(f"{name} cache", (d_max, eq))
     return {"logits_max_abs_err": errs, "verify_window_max_abs_err": errs[-1],
@@ -835,10 +1285,15 @@ def phase_parity(torch, state):
                                 ).to(DEV)
 
     prompts, steps, window = ids(PROMPT), ids(8), ids(5)
+    ecfg = EngineConfig(cfg=cfg)
+    unfused = EngineConfig(cfg=cfg, fused_decode=False)
     return {"layers": 2, "verify_window": 5,
-            "fused": _parity(torch, EngineConfig(cfg=cfg), eng, prompts, steps, window),
-            "unfused": _parity(torch, EngineConfig(cfg=cfg, fused_decode=False), eng, prompts,
-                               steps, window)}
+            "fused": _parity(torch, lambda: _teacher_forced(torch, ecfg, eng, prompts, steps,
+                                                            window)),
+            "unfused": _parity(torch, lambda: _teacher_forced(torch, unfused, eng, prompts, steps,
+                                                              window)),
+            "paged": _parity(torch, lambda: _paged_teacher_forced(torch, ecfg, eng, prompts,
+                                                                  steps))}
 
 
 def phase_checkpoint(torch, state):
@@ -894,14 +1349,25 @@ SOURCES_OF = {
                               "dgq_tpu/ops/fused_decode.py:701"),
     "fused_mlp_decode_rp": ("dgq_tpu_torch/csrc/fused_mlp_decode_rp.cu",
                             "dgq_tpu/ops/fused_decode.py:1249"),
+    "int8_decode_attention_chunked": ("dgq_tpu_torch/csrc/int8_chunked_decode_attention.cu",
+                                      "dgq_tpu/ops/attention.py:542"),
+    "int8_paged_decode_attention": ("dgq_tpu_torch/csrc/int8_chunked_decode_attention.cu",
+                                    "dgq_tpu/ops/attention.py:679"),
 }
+# the path whose launches each kernel's entry reports: K7 runs on main_long
+# only, K8 on the serving path only
+PATH_OF = {"int8_decode_attention_chunked": "launches_long",
+           "int8_paged_decode_attention": "launches_serve"}
+LINE_PHASES = {"kernels", "main", "main_long", "serve"}
 
 
 def kernels_line(state):
     """One entry per kernel.  K1: the four linears of one layer at prefill
     (M = 1024) summed, the path K1 takes under fused decode; K2, K3: the main
-    path's MHA case (K3 with quant_pv); K4-K6: the decode step (M = 4).
-    Every case is listed under ``cases``."""
+    path's MHA case (K3 with quant_pv); K4-K6: the decode step (M = 4); K7,
+    K8: the MHA case with quant_pv.  ``launches`` counts the kernel over the
+    path that runs it (main; K7 main_long; K8 serve), and ``launches_by_path``
+    over each.  Every case is listed under ``cases``."""
     k1 = state["k1"]
     pre = [c for c in k1 if c["M"] == BATCH * PROMPT]
     head = {
@@ -909,19 +1375,25 @@ def kernels_line(state):
                                 for key in ("ms", "plain_ms", "library_ms", "bound_ms")},
         "int8_prefill_attention": state["k2"][0],
         "int8_decode_attention": state["k3"][0],
+        "int8_decode_attention_chunked": state["k7"][0],
+        "int8_paged_decode_attention": state["k8"][0],
     }
     head["w4a8_matmul_rp_pipe"]["bound_by"] = "operations" if all(
         c["bound_by"] == "operations" for c in pre) else "bytes"
     cases = {"w4a8_matmul_rp_pipe": k1, "int8_prefill_attention": state["k2"],
              "int8_decode_attention": state["k3"], "fused_norm_gemv_rp": state["k4"],
-             "fused_requant_gemv_rp": state["k5"], "fused_mlp_decode_rp": state["k6"]}
+             "fused_requant_gemv_rp": state["k5"], "fused_mlp_decode_rp": state["k6"],
+             "int8_decode_attention_chunked": state["k7"],
+             "int8_paged_decode_attention": state["k8"]}
+    paths = {"main": "launches", "main_long": "launches_long", "serve": "launches_serve"}
     for name in ("fused_norm_gemv_rp", "fused_requant_gemv_rp", "fused_mlp_decode_rp"):
         head[name] = next(c for c in cases[name] if c["M"] == BATCH)
     out = []
     for name, (source, replaces) in SOURCES_OF.items():
         h = head[name]
         out.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                    "launches": state["launches"][name],
+                    "launches": state[PATH_OF.get(name, "launches")][name],
+                    "launches_by_path": {p: state[k][name] for p, k in paths.items()},
                     "max_abs_err": max(c["max_abs_err"] for c in cases[name]),
                     "ms": h["ms"], "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"],
                     "bound_by": h["bound_by"], "library_ms": h["library_ms"],
@@ -935,6 +1407,8 @@ PHASES = {
     "kernels": phase_kernels,
     "main": phase_main,
     "main_unfused": phase_main_unfused,
+    "main_long": phase_main_long,
+    "serve": phase_serve,
     "parity": phase_parity,
     "checkpoint": phase_checkpoint,
 }
@@ -978,7 +1452,7 @@ def main(argv=None) -> int:
         report[name] = line
         emit(line)
 
-    if {"kernels", "main"} <= set(phases) and not {"kernels", "main"} & set(failed):
+    if LINE_PHASES <= set(phases) and not LINE_PHASES & set(failed):
         report["kernels_line"] = kernels_line(state)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -3,9 +3,11 @@
 Port of ``dgq_tpu/models/engine.py`` for rowpair weight storage and INT8
 KV.  Prompt windows run every linear through K1 (``w4a8_matmul_rp_pipe``)
 and attend with K2 (``int8_prefill_attention``) past 8 tokens; decode steps
-attend with K3 (``int8_decode_attention``).  With ``fused_decode`` (the
-default, as in JAX) decode steps and windows of at most 8 tokens and 64
-rows run each layer's linears through the fused kernels K4
+attend with K3 (``int8_decode_attention``), or with K7
+(``int8_decode_attention_chunked``) once the cache outgrows 8192 positions.
+With ``fused_decode`` (the default, as in JAX) decode steps and windows of
+at most 8 tokens and 64 rows run each layer's linears through the fused
+kernels K4
 (``fused_norm_gemv_rp``: RMSNormQ + qkv), K5 (``fused_requant_gemv_rp``:
 requant + o_proj + residual) and K6 (``fused_mlp_decode_rp``: the whole
 MLP), with JAX's dispatch rules.  Activations enter the integer domain at
@@ -35,6 +37,7 @@ from dgq_tpu_torch.ops.attention import (
     auto_decode_chunk,
     f32,
     int8_decode_attention,
+    int8_decode_attention_chunked,
     int8_prefill_attention,
     qk_scale,
 )
@@ -140,8 +143,9 @@ class EngineConfig:
     # flash prefill kernel (K2) for windows of more than 8 tokens when Smax %
     # 128 == 0; the query window is padded to a multiple of 128 rows
     flash_prefill: bool = True
-    # -1: whole-cache decode kernel up to Smax 8192, the chunked kernel (K7,
-    # not yet ported) beyond; > 0 forces chunks of that size; 0 never chunks
+    # decode attention: -1 (AUTO) takes the whole-cache kernel K3 up to Smax
+    # 8192 and the chunked kernel K7 beyond (auto_decode_chunk); > 0 forces
+    # K7 with chunks of that size wherever Smax exceeds it; 0 never chunks
     decode_attn_chunk: int = -1
     # decode launch fusion: windows of at most 8 tokens and 64 rows run K4-K6
     # (norm + qkv, requant + o_proj + residual, the whole MLP) per layer
@@ -312,16 +316,20 @@ def _block(ecfg: EngineConfig, layer: EngineLayer, x: Tensor, k_cache: Tensor,
 
     if s == 1:
         chunk = ecfg.decode_attn_chunk
-        if chunk < 0:
+        if chunk < 0:  # AUTO: the chunked kernel once Smax outgrows 8k
             chunk = auto_decode_chunk(smax)
-        if chunk and smax > chunk and x.device.type == "cuda":
-            raise NotImplementedError(
-                f"decode at Smax={smax} needs K7 int8_decode_attention_chunked, "
-                "not yet ported")
-        ctx = int8_decode_attention(
-            q_s8[:, :, 0, :], k_cache, v_cache, cache_len + 1,
-            layer.q_scale, layer.k_scale, layer.v_scale, quant_pv=ecfg.quant_pv,
-        ).reshape(b, 1, h * dh)
+        if chunk and smax > chunk:
+            ctx = int8_decode_attention_chunked(
+                q_s8[:, :, 0, :], k_cache, v_cache, cache_len + 1,
+                layer.q_scale, layer.k_scale, layer.v_scale, chunk=chunk,
+                quant_pv=ecfg.quant_pv,
+            )
+        else:
+            ctx = int8_decode_attention(
+                q_s8[:, :, 0, :], k_cache, v_cache, cache_len + 1,
+                layer.q_scale, layer.k_scale, layer.v_scale, quant_pv=ecfg.quant_pv,
+            )
+        ctx = ctx.reshape(b, 1, h * dh)
     elif (ecfg.flash_prefill and s > 8 and not (ecfg.quant_pv and decode_window)
           and smax % 128 == 0):
         # the query window is padded to 128 rows; pad rows attend to valid

@@ -36,6 +36,9 @@ SOURCES = {
     "fused_norm_gemv_rp": "fused_norm_gemv_rp",
     "fused_requant_gemv_rp": "fused_requant_gemv_rp",
     "fused_mlp_decode_rp": "fused_mlp_decode_rp",
+    # K7 and K8: one block body, two addressings
+    "int8_decode_attention_chunked": "int8_chunked_decode_attention",
+    "int8_paged_decode_attention": "int8_chunked_decode_attention",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

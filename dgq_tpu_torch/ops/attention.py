@@ -1,14 +1,20 @@
-"""INT8-KV attention: K2 (flash prefill) and K3 (decode) with plain versions.
+"""INT8-KV attention: K2 (flash prefill), K3 (decode), K7 (chunked decode)
+and K8 (paged decode) with plain versions.
 
 Port of ``dgq_tpu/ops/attention.py``: ``_quantize_exp`` (:35-65),
-``auto_decode_chunk`` (:473-488), the plain ``int8_prefill_attention_xla``
-(:315-334) and ``int8_decode_attention_xla`` (:337-374), and the wrappers of
-the hand-written CUDA kernels ``csrc/int8_prefill_attention.cu`` and
-``csrc/int8_decode_attention.cu`` under the JAX names
-``int8_prefill_attention`` and ``int8_decode_attention``.
+``auto_decode_chunk`` (:473-488), ``gather_paged_kv`` (:752-761), the plain
+``int8_prefill_attention_xla`` (:315-334), ``int8_decode_attention_xla``
+(:337-374) and ``int8_paged_decode_attention_xla`` (:912-923), and the
+wrappers of the hand-written CUDA kernels under the JAX names:
+``int8_prefill_attention`` (``csrc/int8_prefill_attention.cu``),
+``int8_decode_attention`` (``csrc/int8_decode_attention.cu``), and
+``int8_decode_attention_chunked`` and ``int8_paged_decode_attention``, which
+share ``csrc/int8_chunked_decode_attention.cu``.
 
 Cache layout as in JAX: K transposed (B, Hkv, Dh, Smax), V (B, Hkv, Smax, Dh),
-both int8.  GQA folds query head h onto kv head h // (H // Hkv).
+both int8; a page pool holds (P, Hkv, Dh, ps) and (P, Hkv, ps, Dh) pages
+found through a (B, NP) int32 table.  GQA folds query head h onto kv head
+h // (H // Hkv).
 
 Every scalar handed to a kernel is a float32 tensor computed in JAX's order,
 e.g. ``(q_scale * k_scale) / sqrt(Dh)`` with the divisor a float32 tensor: a
@@ -28,10 +34,19 @@ from dgq_tpu_torch.ops.quant_matmul import int_matmul
 
 PREFILL = "int8_prefill_attention"
 DECODE = "int8_decode_attention"
+CHUNKED = "int8_decode_attention_chunked"
+PAGED = "int8_paged_decode_attention"
+_CHUNK_SIGNATURES = {  # one library, two entry points
+    CHUNKED: [_cuda.VP] * 9 + [_cuda.INT] * 7 + [_cuda.VP],
+    PAGED: [_cuda.VP] * 10 + [_cuda.INT] * 8 + [_cuda.VP],
+}
 _SIGNATURES = {
     PREFILL: {PREFILL: [_cuda.VP] * 5 + [_cuda.INT] * 8 + [_cuda.VP]},
     DECODE: {DECODE: [_cuda.VP] * 7 + [_cuda.INT] * 6 + [_cuda.VP]},
+    CHUNKED: _CHUNK_SIGNATURES,
+    PAGED: _CHUNK_SIGNATURES,
 }
+TILE = 128  # positions per block of K7/K8: the chunk or page, or 128-position slices of it
 
 NEG = torch.finfo(torch.float32).min
 
@@ -59,8 +74,8 @@ def _quantize_exp(e: torch.Tensor) -> torch.Tensor:
 
 
 def auto_decode_chunk(smax: int) -> int:
-    """0 (whole-cache decode kernel) up to 8k context, else the largest chunk
-    in {4096..128} dividing ``smax`` (the chunked kernel, not yet ported)."""
+    """0 (whole-cache decode kernel K3) up to 8k context, else the largest
+    chunk in {4096..128} dividing ``smax`` (the chunked kernel K7)."""
     if smax <= 8192:
         return 0
     for c in (4096, 2048, 1024, 512, 256, 128):
@@ -209,4 +224,127 @@ def int8_decode_attention(q_s8: torch.Tensor, kt_cache: torch.Tensor, v_cache: t
         _cuda.stream(dev))
     _cuda.check(rc, DECODE)
     _cuda.count_launch(DECODE)
+    return out
+
+
+def gather_paged_kv(kt_pool: torch.Tensor, v_pool: torch.Tensor, table: torch.Tensor):
+    """Densify a paged pool: (B, Hkv, Dh, NP*ps) K-transposed and
+    (B, Hkv, NP*ps, Dh) V, in logical-position order."""
+    b, npg = table.shape
+    _, hk, dh, ps = kt_pool.shape
+    idx = table.long()
+    kt = kt_pool[idx].permute(0, 2, 3, 1, 4).reshape(b, hk, dh, npg * ps)
+    v = v_pool[idx].permute(0, 2, 1, 3, 4).reshape(b, hk, npg * ps, dh)
+    return kt, v
+
+
+def int8_paged_decode_attention_xla(q_s8, kt_pool, v_pool, table, length, q_scale, k_scale,
+                                    v_scale, apply_sqrt_dh: bool = True,
+                                    quant_pv: bool = False) -> torch.Tensor:
+    """Plain paged decode attention: gather the slots' pages dense, then the
+    contiguous decode attention (unallocated pages are masked by length)."""
+    kt, v = gather_paged_kv(kt_pool, v_pool, table)
+    return int8_decode_attention_xla(q_s8, kt, v, length, q_scale, k_scale, v_scale,
+                                     apply_sqrt_dh=apply_sqrt_dh, quant_pv=quant_pv)
+
+
+def _tile(ch: int, what: str) -> int:
+    """Positions per block of K7/K8: the chunk (page) itself up to 128,
+    else 128-position slices of it."""
+    if ch <= 0 or ch % 4 or (ch > TILE and ch % TILE):
+        raise ValueError(f"{what} needs a chunk (page) that is a multiple of 4 and at most "
+                         f"{TILE}, or a multiple of {TILE}; got {ch}")
+    return min(ch, TILE)
+
+
+def _check_heads(what: str, h: int, hk: int, dh: int) -> None:
+    if h % hk or (h // hk) not in (1, 2, 4, 8) or dh not in (64, 128):
+        raise ValueError(f"{what} needs H / Hkv in (1, 2, 4, 8) and Dh in (64, 128); "
+                         f"got H={h}, Hkv={hk}, Dh={dh}")
+
+
+def _chunk_buffers(b: int, ntiles: int, h: int, dh: int, dev):
+    """Per-tile partials of K7/K8: row max, exp sum, and the (int32 or f32)
+    p @ V numerator, each (B, tiles, H[, Dh]); and the (B, H, Dh) output."""
+    return (torch.empty((b, ntiles, h), dtype=torch.float32, device=dev),
+            torch.empty((b, ntiles, h), dtype=torch.float32, device=dev),
+            torch.empty((b, ntiles, h, dh), dtype=torch.int32, device=dev),
+            torch.empty((b, h, dh), dtype=torch.float32, device=dev))
+
+
+def int8_decode_attention_chunked(q_s8: torch.Tensor, kt_cache: torch.Tensor,
+                                  v_cache: torch.Tensor, length: Union[int, torch.Tensor],
+                                  q_scale, k_scale, v_scale, *, chunk: int = 2048,
+                                  apply_sqrt_dh: bool = True,
+                                  quant_pv: bool = False) -> torch.Tensor:
+    """K7: single-token attention over the INT8 cache in chunks of ``chunk``
+    positions -> (B, H, Dh) f32, for long contexts.
+
+    The same function as ``int8_decode_attention_xla``, its plain version:
+    with ``quant_pv`` the codes are taken against the global row max over all
+    chunks.  ``length`` counts the valid positions per slot (each at least
+    1).  CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    b, h, dh = q_s8.shape
+    _, hk, _, smax = kt_cache.shape
+    if chunk <= 0 or smax % chunk:
+        raise ValueError(f"Smax {smax} must be a multiple of the chunk {chunk}")
+    if q_s8.device.type == "cpu":
+        return int8_decode_attention_xla(q_s8, kt_cache, v_cache, length, q_scale, k_scale,
+                                         v_scale, apply_sqrt_dh, quant_pv)
+    dev = q_s8.device
+    _cuda.require(q_s8, "q_s8", torch.int8, (b, h, dh), dev, align=4)
+    _check_cache(kt_cache, v_cache, b, dh, dev)
+    _check_heads("K7", h, hk, dh)
+    tile = _tile(chunk, "K7")
+    ntiles = smax // tile
+    lengths = _lengths(length, b, dev)
+    scales = _kernel_scales(q_scale, k_scale, v_scale, dh, apply_sqrt_dh)
+    mpart, lpart, acc, out = _chunk_buffers(b, ntiles, h, dh, dev)
+    lib = _cuda.library(_cuda.SOURCES[CHUNKED], _SIGNATURES[CHUNKED])
+    rc = lib.int8_decode_attention_chunked(
+        _cuda.ptr(q_s8), _cuda.ptr(kt_cache), _cuda.ptr(v_cache), _cuda.ptr(lengths),
+        _cuda.ptr(scales), _cuda.ptr(mpart), _cuda.ptr(lpart), _cuda.ptr(acc), _cuda.ptr(out),
+        b, h, hk, dh, smax, tile, int(quant_pv), _cuda.stream(dev))
+    _cuda.check(rc, CHUNKED)
+    _cuda.count_launch(CHUNKED)
+    return out
+
+
+def int8_paged_decode_attention(q_s8: torch.Tensor, kt_pool: torch.Tensor,
+                                v_pool: torch.Tensor, table: torch.Tensor,
+                                length: Union[int, torch.Tensor], q_scale, k_scale, v_scale, *,
+                                apply_sqrt_dh: bool = True,
+                                quant_pv: bool = False) -> torch.Tensor:
+    """K8: single-token attention over a paged INT8 pool -> (B, H, Dh) f32.
+
+    Logical page c of slot b lives at pool page ``table[b, c]``; positions at
+    or past ``length[b]`` (each at least 1) are masked, so unallocated
+    entries may point at the null page.  The same function as K7 over the
+    gathered cache (``int8_paged_decode_attention_xla``, its plain version).
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    if q_s8.device.type == "cpu":
+        return int8_paged_decode_attention_xla(q_s8, kt_pool, v_pool, table, length, q_scale,
+                                               k_scale, v_scale, apply_sqrt_dh, quant_pv)
+    b, h, dh = q_s8.shape
+    p, hk, _, ps = kt_pool.shape
+    npg = table.shape[1]
+    dev = q_s8.device
+    _cuda.require(q_s8, "q_s8", torch.int8, (b, h, dh), dev, align=4)
+    _cuda.require(kt_pool, "kt_pool", torch.int8, (p, hk, dh, ps), dev)
+    _cuda.require(v_pool, "v_pool", torch.int8, (p, hk, ps, dh), dev)
+    _cuda.require(table, "table", torch.int32, (b, npg), dev, align=4)
+    _check_heads("K8", h, hk, dh)
+    tile = _tile(ps, "K8")
+    ntiles = npg * (ps // tile)
+    lengths = _lengths(length, b, dev)
+    scales = _kernel_scales(q_scale, k_scale, v_scale, dh, apply_sqrt_dh)
+    mpart, lpart, acc, out = _chunk_buffers(b, ntiles, h, dh, dev)
+    lib = _cuda.library(_cuda.SOURCES[PAGED], _SIGNATURES[PAGED])
+    rc = lib.int8_paged_decode_attention(
+        _cuda.ptr(q_s8), _cuda.ptr(kt_pool), _cuda.ptr(v_pool), _cuda.ptr(table),
+        _cuda.ptr(lengths), _cuda.ptr(scales), _cuda.ptr(mpart), _cuda.ptr(lpart),
+        _cuda.ptr(acc), _cuda.ptr(out), b, h, hk, dh, ps, npg, tile, int(quant_pv),
+        _cuda.stream(dev))
+    _cuda.check(rc, PAGED)
+    _cuda.count_launch(PAGED)
     return out

@@ -1,7 +1,7 @@
 """Rules of the dgq_tpu_torch package that hold without a GPU.
 
 It imports neither JAX nor dgq_tpu; its kernel wrappers take their plain
-versions on CPU tensors without counting a launch (K1-K6); configurations
+versions on CPU tensors without counting a launch (K1-K8); configurations
 that need a kernel not yet ported raise NotImplementedError."""
 
 import pathlib
@@ -97,9 +97,27 @@ def test_wrappers_take_plain_versions_on_cpu_without_launches():
             dn.qw_rp, dn.wscales, dn.wzeros, dn.cs_fold, dn.alpha)
     torch.testing.assert_close(tfd.fused_mlp_decode_rp(*args),
                                tfd.fused_mlp_decode_rp_xla(*args), rtol=0, atol=0)
+
+    # K7 (chunked decode) and K8 (paged decode)
+    lengths = torch.tensor([50], dtype=torch.int32)
+    for quant_pv in (True, False):
+        out = tat.int8_decode_attention_chunked(q[:, :, 0], kt, v, lengths, s, s, s, chunk=32,
+                                                quant_pv=quant_pv)
+        torch.testing.assert_close(out, tat.int8_decode_attention_xla(
+            q[:, :, 0], kt, v, lengths, s, s, s, quant_pv=quant_pv), rtol=0, atol=0)
+        pool_k = kt.reshape(2, 64, 4, 32).permute(2, 0, 1, 3).contiguous()
+        pool_v = v.reshape(2, 4, 32, 64).permute(1, 0, 2, 3).contiguous()
+        table = torch.tensor([[2, 0, 3, 1]], dtype=torch.int32)
+        out = tat.int8_paged_decode_attention(q[:, :, 0], pool_k, pool_v, table, lengths, s, s,
+                                              s, quant_pv=quant_pv)
+        torch.testing.assert_close(out, tat.int8_paged_decode_attention_xla(
+            q[:, :, 0], pool_k, pool_v, table, lengths, s, s, s, quant_pv=quant_pv),
+            rtol=0, atol=0)
     assert _cuda.LAUNCHES == {name: 0 for name in _cuda.SOURCES}
-    assert {"fused_norm_gemv_rp", "fused_requant_gemv_rp", "fused_mlp_decode_rp"} <= set(
-        _cuda.LAUNCHES)
+    assert {"fused_norm_gemv_rp", "fused_requant_gemv_rp", "fused_mlp_decode_rp",
+            "int8_decode_attention_chunked", "int8_paged_decode_attention"} <= set(_cuda.LAUNCHES)
+    assert _cuda.SOURCES["int8_decode_attention_chunked"] == _cuda.SOURCES[
+        "int8_paged_decode_attention"]  # one CUDA source serves K7 and K8
 
 
 def test_unported_configurations_raise():
@@ -119,6 +137,13 @@ def test_unported_configurations_raise():
         teng.EngineConfig(cfg=cfg, kv_bits=4)
     with pytest.raises(NotImplementedError, match="kv_bits=4"):
         teng.init_kv_cache(cfg, 1, 64, kv_bits=4, device="cpu")
+    from dgq_tpu_torch.serving import paged
+
+    with pytest.raises(NotImplementedError, match="K11 int4_paged_decode_attention"):
+        paged.init_paged_cache(cfg, 1, 4, 16, kv_bits=4, device="cpu")
+    for kw in (dict(mesh=object()), dict(fns=object())):
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
+            paged.PagedBatcher(teng.EngineConfig(cfg=cfg), eng, max_len=64, page_size=16, **kw)
     with pytest.raises(NotImplementedError, match="ALiBi"):
         s = torch.tensor(0.02)
         tat.int8_decode_attention(torch.zeros((1, 2, 64), dtype=torch.int8),
