@@ -5,7 +5,7 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It imports no JAX.  Phases, each printing one JSON line with its seconds:
 
 1. device: the card's name and power limit (nvidia-smi); TF32 off.
-2. build: the seven CUDA sources, one nvcc each, started together.
+2. build: the eight CUDA sources, one nvcc each, started together.
 3. kernels: K1 ``w4a8_matmul_rp_pipe``, K2 ``int8_prefill_attention``, K3
    ``int8_decode_attention``, the fused decode kernels K4
    ``fused_norm_gemv_rp``, K5 ``fused_requant_gemv_rp`` and K6
@@ -20,7 +20,13 @@ It imports no JAX.  Phases, each printing one JSON line with its seconds:
    most 1 apart, >= 99.9% equal), and the int32 accumulators (alpha 1, beta
    0) and outputs with the plain version run on the kernel's codes, which
    must agree exactly.  K7 and K8 agree with their plain versions within
-   1e-5, and K8 on a contiguous table with K3 on the same cache.
+   1e-5, and K8 on a contiguous table with K3 on the same cache.  Then K9
+   ``w4a8_matmul_packed`` (which also serves K14's names) at OPT-6.7B shapes
+   (q|k|v int8 out, out_proj, fc1 and fc2 f32 out, with biases) and K10
+   ``w4a8_fpscale_matmul_packed`` at LLaMA-2-7B shapes, each at M = 4, 1024
+   and 2048: K9's int32 accumulators and outputs equal the plain version's;
+   K10 equals it where K is not split over blocks and lies within K10_TOL of
+   the largest output where it is.
 4. main: ``build_llama_engine(LlamaConfig())`` (32 layers, full width, random
    weights from seed 0) then ``generate`` of 32 greedy tokens for 4 prompts
    of 256 tokens with the default ``EngineConfig`` (fused decode), with every
@@ -43,18 +49,28 @@ It imports no JAX.  Phases, each printing one JSON line with its seconds:
    paged decode step at 8 slots, and (not gated) which requests' tokens
    equal ``generate`` of the request alone, with the first token that
    differs.
-8. parity: at full width and 2 layers, the kernel path against the plain
+8. opt: ``build_opt_engine(OPTConfig())`` (OPT-6.7B, 32 layers, random
+   weights from seed 0), prefill of 4 x 256 tokens and 32 greedy tokens
+   through ``opt_engine_forward`` in a cache of 2048, launches counted (K9
+   4,096, K3 992, nothing else); a profiled decode step; then one
+   ``ppl_eval_engine`` window of 2048 tokens (K9 128 launches at M = 2048).
+9. main_fpscale: main's run on ``build_llama_engine(..., fp_scales=True)``
+   with ``EngineConfig(fp_scales=True)``: K10 for every linear, K2 and K3,
+   nothing else (fused decode is off under fp_scales).
+10. parity: at full width and 2 layers, the kernel path against the plain
    path on the card (prefill logits, 8 teacher-forced decode steps and a
-   5-token ``window="decode"`` verify window), fused and unfused, and
-   ``paged_prefill`` + 8 teacher-forced ``paged_decode_batched`` steps over
-   a shuffled page table.  With random weights at full width one int8 code
+   5-token ``window="decode"`` verify window), fused, unfused and fp-scale
+   (K10), ``paged_prefill`` + 8 teacher-forced ``paged_decode_batched``
+   steps over a shuffled page table, and the OPT engine (K9; prefill and 8
+   decode steps).  With random weights at full width one int8 code
    that flips at a rounding boundary (fp32 sums taken in another order)
    changes the rows after it by more than the tolerance, so the plain run
    checks each of its int8 code tensors against the kernel run's (at most 1
    apart, >= 99.9% equal) and then continues from the kernel run's codes;
    the fused kernels hand their codes out through ``codes_out``.
-9. checkpoint: ``save_engine`` then ``load_engine`` at full width and 2
-   layers: bit-equal tensors and equal greedy tokens.
+11. checkpoint: ``save_engine`` then ``load_engine`` at full width and 2
+   layers, for the LLaMA and the OPT engine: bit-equal tensors and equal
+   greedy tokens.
 
 Then the line ``{"kernels": [...]}``, the card's nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero without that
@@ -89,10 +105,17 @@ K1_NAMES = ["rp_gemm_kernel", "splitk_epilogue"]  # K1 launches both when it spl
 K4_NAMES, K5_NAMES = ["norm_gemv_rp_kernel"], ["requant_gemv_rp_kernel"]
 K6_NAMES = ["mlp_decode_rp_kernel", "mlp_decode_rp_epilogue"]
 K78_NAMES = ["chunk_attn_kernel", "combine_kernel"]  # K7 and K8 share their kernels
+SPAN_NAMES = ["span_gemm_kernel", "span_splitk_combine"]  # K9 and K10 share their kernels
 FUSED_ROWS = (BATCH, 40)  # a decode step; 8 slots x a 5-token verify window
 # (N, K) of the four linears of a LLaMA-2-7B layer (F padded to 11264)
 LINEARS = {"qkv_proj": (12288, 4096), "o_proj": (4096, 4096),
            "gate_up_proj": (22528, 4096), "down_proj": (4096, 11264)}
+# (N, K) of the four linears of an OPT-6.7B layer; q|k|v writes int8
+OPT_LINEARS = {"qkv_proj": (12288, 4096), "out_proj": (4096, 4096),
+               "fc1": (16384, 4096), "fc2": (4096, 16384)}
+PPL_LEN = 2048  # one perplexity window of OPT (max_position_embeddings)
+SPAN_ROWS = (BATCH, BATCH * PROMPT, PPL_LEN)  # K9/K10: decode step, prefill, ppl window
+K10_TOL = 1e-5  # of the largest |output|, where K10 splits K (fp32 sums reassociated)
 
 
 def emit(obj) -> None:
@@ -146,8 +169,11 @@ class Timer:
         return total_us / iters / 1e3
 
 
-def bound_ms(nbytes: float, op_seconds: float):
+def bound_ms(nbytes: float, *unit_seconds: float):
+    """The larger of the byte time and the busiest unit's operation time:
+    int8 tensor cores and fp32 cores run at once, so their times overlap."""
     t_bytes = nbytes / HBM_BYTES_PER_S
+    op_seconds = max(unit_seconds)
     return max(t_bytes, op_seconds) * 1e3, ("bytes" if t_bytes >= op_seconds else "operations")
 
 
@@ -266,7 +292,7 @@ def _k2_cases(torch, timer, gen):
         pairs = sp * (sp + 1) // 2  # causal (query, key) pairs per head
         flops = 2.0 * dh * b * h * pairs
         nbytes = b * h * sp * dh + 2 * b * hk * plen * dh + 4 * b * h * sp * dh
-        b_ms, b_by = bound_ms(nbytes, flops / INT8_OPS_PER_S + flops / FP32_OPS_PER_S)
+        b_ms, b_by = bound_ms(nbytes, flops / INT8_OPS_PER_S, flops / FP32_OPS_PER_S)
         cases.append({"B": b, "H": h, "Hkv": hk, "Sp": sp, "Smax": SMAX, "plen": plen,
                       "max_abs_err": err, "ms": timer.kernel(kern, ["prefill_attn_kernel"]),
                       "call_ms": timer(kern), "plain_ms": timer(plain, iters=10),
@@ -307,9 +333,10 @@ def _decode_bound(b, h, hk, dh, keys, quant_pv, extra_bytes=0):
     K and V of those positions, q, lengths and out moved once; the QK dot in
     int8, p @ V in int8 (quant_pv) or fp32."""
     flops = 2.0 * dh * h * keys
-    pv_rate = INT8_OPS_PER_S if quant_pv else FP32_OPS_PER_S
     nbytes = b * h * dh + 2 * hk * keys * dh + 4 * b + 4 * b * h * dh + extra_bytes
-    return bound_ms(nbytes, flops / INT8_OPS_PER_S + flops / pv_rate)
+    if quant_pv:  # both dots on the int8 tensor cores
+        return bound_ms(nbytes, 2 * flops / INT8_OPS_PER_S)
+    return bound_ms(nbytes, flops / INT8_OPS_PER_S, flops / FP32_OPS_PER_S)
 
 
 def _k3_cases(torch, timer, gen):
@@ -357,13 +384,19 @@ def _check_codes(what, stats) -> None:
                              f"{stats[1]} of them equal")
 
 
-def _rp_weights(torch, gen, k, n, gs=128):
-    """Random rowpair bytes (k/2, n) with compact (G, n) scales in [1, 4)
-    and zeros in [4, 12), as the synthetic engine draws them."""
+def _q4_weights(torch, gen, k, n, gs=128, fp=False):
+    """Random packed int4 bytes (k/2, n), either layout, with compact (G, n)
+    scales in [1, 4) and zeros in [4, 12), as the synthetic engines draw
+    them; ``fp``: fp32 scales (times a per-channel factor in [0.5, 1)) and
+    zeros."""
     def ri(lo, hi, shape):
         return torch.randint(lo, hi, shape, generator=gen, device=DEV, dtype=torch.int8)
 
-    return ri(-128, 128, (k // 2, n)), ri(1, 4, (k // gs, n)), ri(4, 12, (k // gs, n))
+    qw, ws, wz = ri(-128, 128, (k // 2, n)), ri(1, 4, (k // gs, n)), ri(4, 12, (k // gs, n))
+    if fp:
+        ws = ws.float() * (torch.rand((n,), generator=gen, device=DEV) * 0.5 + 0.5)
+        wz = wz.float()
+    return qw, ws, wz
 
 
 def _plane_rows(ws, wz):
@@ -407,7 +440,7 @@ def _k4_case(torch, gen, m, gs, extras):
 
     eps = 1e-5
     n, k = LINEARS["qkv_proj"]
-    qw, ws, wz = _rp_weights(torch, gen, k, n, gs)
+    qw, ws, wz = _q4_weights(torch, gen, k, n, gs)
     planes = _plane_rows(ws, wz)
     csf = torch.zeros((n,), dtype=torch.int32, device=DEV)  # checked, not read
     alpha = torch.rand((n,), generator=gen, device=DEV) * 1e-3 + 1e-5
@@ -445,7 +478,7 @@ def _k5_case(torch, gen, m, gs, extras):
     from dgq_tpu_torch.ops.quant_matmul import dequantize_rowpair
 
     n, k = LINEARS["o_proj"]
-    qw, ws, wz = _rp_weights(torch, gen, k, n, gs)
+    qw, ws, wz = _q4_weights(torch, gen, k, n, gs)
     planes = _plane_rows(ws, wz)
     csf = torch.zeros((n,), dtype=torch.int32, device=DEV)
     alpha = torch.rand((n,), generator=gen, device=DEV) * 1e-3 + 1e-5
@@ -487,8 +520,8 @@ def _k6_case(torch, gen, m, gs, extras):
     eps = 1e-5
     n2f, d = LINEARS["gate_up_proj"]
     f = n2f // 2
-    gqw, gws, gwz = _rp_weights(torch, gen, d, n2f, gs)
-    dqw, dws, dwz = _rp_weights(torch, gen, f, d, gs)
+    gqw, gws, gwz = _q4_weights(torch, gen, d, n2f, gs)
+    dqw, dws, dwz = _q4_weights(torch, gen, f, d, gs)
     gplanes = _plane_rows(gws, gwz)
     dws8, dwz8 = torch.repeat_interleave(dws, 8, dim=0), torch.repeat_interleave(dwz, 8, dim=0)
     gcsf = torch.zeros((n2f,), dtype=torch.int32, device=DEV)
@@ -567,6 +600,109 @@ def _fused_sweep(torch, gen):
             out.append({**_fused_check(torch, build(torch, gen, m, gs, extras=True)),
                         "groupsize": gs})
     return out
+
+
+def _k9_cases(torch, timer, gen):
+    """K9 at OPT-6.7B shapes: q|k|v int8 out, the others f32 out, every one
+    with a bias, at a decode step, a prefill and a perplexity window.  The
+    int32 accumulators (alpha 1, no bias) and the outputs must equal the
+    plain version's."""
+    from dgq_tpu_torch.ops.quant_matmul import dequantize_span, w4a8_matmul_packed, \
+        w4a8_matmul_packed_xla
+
+    cases = []
+    gs = 128
+    for m in SPAN_ROWS:
+        for name, (n, k) in OPT_LINEARS.items():
+            od = torch.int8 if name == "qkv_proj" else torch.float32
+            x = torch.randint(-128, 128, (m, k), generator=gen, device=DEV, dtype=torch.int8)
+            qw, ws, wz = _q4_weights(torch, gen, k, n, gs)
+            ws8, wz8 = torch.repeat_interleave(ws, 8, dim=0), torch.repeat_interleave(wz, 8, dim=0)
+            alpha = torch.rand((n,), generator=gen, device=DEV) * 1e-3 + 1e-5
+            beta = torch.randn((n,), generator=gen, device=DEV)
+            one = torch.ones((n,), device=DEV)
+
+            def kern(a=alpha, b=beta, o=od):
+                return w4a8_matmul_packed(x, qw, ws8, wz8, a, b, groupsize=gs, out_dtype=o,
+                                          scales_replicated=True)
+
+            def plain(a=alpha, b=beta, o=od):
+                return w4a8_matmul_packed_xla(x, qw, ws, wz, a, b, groupsize=gs, out_dtype=o)
+
+            what = f"K9 {name} M={m}"
+            acc_k, acc_p = kern(one, None, torch.float32), plain(one, None, torch.float32)
+            torch.cuda.synchronize()
+            if not torch.equal(acc_k, acc_p):
+                raise AssertionError(f"{what}: {(acc_k != acc_p).sum().item()} accumulators differ")
+            y_k, y_p = kern(), plain()
+            if not torch.equal(y_k, y_p):
+                raise AssertionError(f"{what}: {(y_k != y_p).sum().item()} outputs differ")
+            lib_ms = _int_mm_ms(torch, timer, x, dequantize_span(qw, ws, wz, gs))
+            nbytes = m * k + k * n // 2 + 2 * (k // gs) * n + 8 * n + od.itemsize * m * n
+            b_ms, b_by = bound_ms(nbytes, 2.0 * m * n * k / INT8_OPS_PER_S)
+            cases.append({"linear": name, "M": m, "N": n, "K": k, "out": str(od)[6:],
+                          "max_abs_err": (y_k.float() - y_p.float()).abs().max().item(),
+                          "ms": timer.kernel(kern, SPAN_NAMES), "call_ms": timer(kern),
+                          "plain_ms": timer(plain, iters=5), "library_ms": lib_ms,
+                          "library_rows": max(m, 32), "bound_ms": b_ms, "bound_by": b_by})
+            del x, qw, ws, wz, ws8, wz8, acc_k, acc_p, y_k, y_p
+    return cases
+
+
+def _k10_cases(torch, timer, gen):
+    """K10 at LLaMA-2-7B shapes (fp32 group scales) at a decode step, a
+    prefill and 2048 rows: equal to the plain version where K is not split
+    over blocks, within K10_TOL of the largest output where it is."""
+    from dgq_tpu_torch.ops import _cuda, quant_matmul as qm
+    from dgq_tpu_torch.quant.packing import unpack_nibbles
+
+    cases = []
+    gs = 128
+    lib = _cuda.library(_cuda.SOURCES[qm.FPSCALE], qm._SPAN_SIGNATURES)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for m in SPAN_ROWS:
+        for name, (n, k) in LINEARS.items():
+            x = torch.randint(-128, 128, (m, k), generator=gen, device=DEV, dtype=torch.int8)
+            qw, ws, wz = _q4_weights(torch, gen, k, n, gs, fp=True)
+            ws8, wz8 = torch.repeat_interleave(ws, 8, dim=0), torch.repeat_interleave(wz, 8, dim=0)
+            alpha = torch.rand((n,), generator=gen, device=DEV) * 1e-3 + 1e-5
+            beta = torch.randn((n,), generator=gen, device=DEV)
+
+            def kern():
+                return qm.w4a8_fpscale_matmul_packed(x, qw, ws8, wz8, alpha, beta, groupsize=gs,
+                                                     scales_replicated=True)
+
+            def plain():
+                return qm.w4a8_fpscale_matmul_packed_xla(x, qw, ws, wz, alpha, beta,
+                                                         groupsize=gs)
+
+            splits = -(-(k // 2) // lib.w4a8_span_gemm_p_split(m, n, k, gs, 2, sms))
+            y_k, y_p = kern(), plain()
+            torch.cuda.synchronize()
+            err = (y_k - y_p).abs().max().item()
+            top = y_p.abs().max().item()
+            equal = torch.equal(y_k, y_p)
+            if not (equal or (splits > 1 and err <= K10_TOL * top)):
+                raise AssertionError(f"K10 {name} M={m} ({splits} splits): max abs err {err}, "
+                                     f"largest output {top}")
+            codes = unpack_nibbles(qw, 2 * gs).float()
+            w_fp = (codes - torch.repeat_interleave(wz, gs, dim=0)) * torch.repeat_interleave(
+                ws, gs, dim=0)
+            xf = x.float()
+            lib_ms = timer(lambda: torch.matmul(xf, w_fp))
+            del codes, w_fp, xf
+            g = k // gs
+            nbytes = m * k + k * n // 2 + 8 * g * n + 8 * n + 4 * m * n
+            flops = 4.0 * m * n * g + 2.0 * m * n  # per group s * (d - z * rowsum) + acc; epilogue
+            b_ms, b_by = bound_ms(nbytes, 2.0 * m * n * k / INT8_OPS_PER_S,
+                                  flops / FP32_OPS_PER_S)
+            cases.append({"linear": name, "M": m, "N": n, "K": k, "splits": splits,
+                          "bit_equal": equal, "max_abs_err": err, "largest_output": top,
+                          "ms": timer.kernel(kern, SPAN_NAMES), "call_ms": timer(kern),
+                          "plain_ms": timer(plain, iters=5), "library_ms": lib_ms,
+                          "bound_ms": b_ms, "bound_by": b_by})
+            del x, qw, ws, wz, ws8, wz8, y_k, y_p
+    return cases
 
 
 def _check_close(what, got, ref, tol=1e-5) -> float:
@@ -689,16 +825,20 @@ def phase_kernels(torch, state):
     sweep = _fused_sweep(torch, gen)
     state["k7"] = _k7_cases(torch, timer, gen)
     state["k8"] = _k8_cases(torch, timer, gen)
+    state["k9"] = _k9_cases(torch, timer, gen)
+    state["k10"] = _k10_cases(torch, timer, gen)
     del timer
     torch.cuda.empty_cache()
-    return {**{f"k{i}": state[f"k{i}"] for i in range(1, 9)}, "k4_k6_sweep": sweep}
+    return {**{f"k{i}": state[f"k{i}"] for i in range(1, 11)}, "k4_k6_sweep": sweep}
 
 
 def _drive_main(torch, cfg, ecfg, want, smax=SMAX, new_tokens=NEW_TOKENS,
-                attn=("K3", ["decode_attn_kernel"])):
+                attn=("K3", ["decode_attn_kernel"]), linear=("K1", K1_NAMES)):
     """build_llama_engine + generate with launch counts (must equal
     ``want``), then a timed step-by-step replay and a profiled breakdown in
-    which ``attn`` names the decode attention kernel group."""
+    which ``attn`` and ``linear`` name the decode attention and the linears'
+    kernel groups.  The engine has fp32 group scales under
+    ``ecfg.fp_scales``."""
     import numpy as np
 
     from dgq_tpu_torch.models.engine import engine_forward, generate, init_kv_cache
@@ -708,7 +848,7 @@ def _drive_main(torch, cfg, ecfg, want, smax=SMAX, new_tokens=NEW_TOKENS,
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    eng = build_llama_engine(cfg, seed=0, device=DEV)
+    eng = build_llama_engine(cfg, seed=0, device=DEV, fp_scales=ecfg.fp_scales)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     prompts = torch.from_numpy(np.random.default_rng(0).integers(
@@ -748,14 +888,14 @@ def _drive_main(torch, cfg, ecfg, want, smax=SMAX, new_tokens=NEW_TOKENS,
     decode_ms = (time.perf_counter() - t0) * 1e3 / steps
     if not finite:
         raise AssertionError("non-finite logits")
-    breakdown = _profile_decode(torch, ecfg, eng, tok, cache, 4, attn)
+    breakdown = _profile_decode(torch, ecfg, eng, tok, cache, 4, attn, linear)
     if not torch.equal(torch.stack(replay, dim=1), toks):
         raise AssertionError("replay tokens differ from generate's")
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     del eng, cache, logits
     torch.cuda.empty_cache()
     return {"layers": cfg.num_hidden_layers, "fused_decode": ecfg.fused_decode,
-            "batch": BATCH, "prompt": PROMPT, "new_tokens": new_tokens, "max_len": smax,
+            "fp_scales": ecfg.fp_scales, "batch": BATCH, "prompt": PROMPT, "new_tokens": new_tokens, "max_len": smax,
             "launches": launches, "engine_build_s": build_s, "generate_s": gen_s,
             "prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
             "decode_tok_per_s": BATCH * 1e3 / decode_ms,
@@ -764,17 +904,22 @@ def _drive_main(torch, cfg, ecfg, want, smax=SMAX, new_tokens=NEW_TOKENS,
             "tokens_row0": toks[0].tolist()}
 
 
-def _want_launches(layers: int, fused: bool, new_tokens: int = NEW_TOKENS, chunked=False):
+def _want_launches(layers: int, fused: bool, new_tokens: int = NEW_TOKENS, chunked=False,
+                   linear="w4a8_matmul_rp_pipe"):
+    """Launches of every kernel over ``generate`` on the LLaMA engine:
+    ``linear`` runs the four linears of each layer at prefill, and at every
+    decode step unless the fused kernels take them."""
     steps = new_tokens - 1
     decode_linears = 0 if fused else 4 * layers * steps
     fused_calls = layers * steps if fused else 0
-    return {"w4a8_matmul_rp_pipe": 4 * layers + decode_linears,
-            "int8_prefill_attention": layers,
-            "int8_decode_attention": 0 if chunked else layers * steps,
-            "fused_norm_gemv_rp": fused_calls, "fused_requant_gemv_rp": fused_calls,
-            "fused_mlp_decode_rp": fused_calls,
-            "int8_decode_attention_chunked": layers * steps if chunked else 0,
-            "int8_paged_decode_attention": 0}
+    want = {name: 0 for name in SOURCES_OF}
+    want.update({linear: 4 * layers + decode_linears,
+                 "int8_prefill_attention": layers,
+                 "int8_decode_attention": 0 if chunked else layers * steps,
+                 "fused_norm_gemv_rp": fused_calls, "fused_requant_gemv_rp": fused_calls,
+                 "fused_mlp_decode_rp": fused_calls,
+                 "int8_decode_attention_chunked": layers * steps if chunked else 0})
+    return want
 
 
 def phase_main(torch, state):
@@ -816,6 +961,130 @@ def phase_main_long(torch, state):
                       smax=LONG_SMAX, new_tokens=LONG_NEW, attn=("K7", K78_NAMES))
     state["launches_long"] = out["launches"]
     return out
+
+
+def phase_main_fpscale(torch, state):
+    """The LLaMA engine with fp32 group scales (EngineConfig(fp_scales=True),
+    the w4w8-fallback representation) at full 7B depth: K10 for every linear,
+    fused decode off, K2 at prefill and K3 at every decode step."""
+    from dgq_tpu_torch.models.engine import EngineConfig
+    from dgq_tpu_torch.models.llama import LlamaConfig
+
+    cfg = LlamaConfig()
+    out = _drive_main(torch, cfg, EngineConfig(cfg=cfg, fp_scales=True),
+                      _want_launches(cfg.num_hidden_layers, False,
+                                     linear="w4a8_fpscale_matmul_packed"),
+                      linear=("K10", SPAN_NAMES))
+    state["launches_fpscale"] = out["launches"]
+    return out
+
+
+def _opt_greedy(torch, ecfg, eng, prompts, new_tokens, smax):
+    """Prefill then greedy decode through opt_engine_forward: (tokens (B,
+    new_tokens), cache, finite logits, prefill ms, decode ms per step)."""
+    from dgq_tpu_torch.models.opt_engine import init_opt_kv_cache, opt_engine_forward
+
+    cache = init_opt_kv_cache(ecfg.cfg, prompts.shape[0], smax, device=DEV)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = opt_engine_forward(ecfg, eng, prompts, cache)
+    tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+    finite = bool(torch.isfinite(logits).all())
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    toks = [tok]
+    t0 = time.perf_counter()
+    for _ in range(new_tokens - 1):
+        logits, cache = opt_engine_forward(ecfg, eng, tok[:, None], cache)
+        finite &= bool(torch.isfinite(logits).all())
+        tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+        toks.append(tok)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / max(1, new_tokens - 1)
+    return torch.stack(toks, dim=1), cache, finite, prefill_ms, decode_ms
+
+
+def phase_opt(torch, state):
+    """The OPT engine at OPT-6.7B width and depth (OPTConfig(): 32 layers, D
+    4096, F 16384, MHA, vocab 50272), random weights from seed 0: prefill of
+    4 x 256 tokens and 32 greedy tokens in a cache of 2048, with every
+    kernel's launches counted (K9 for every linear, K3 at every decode step,
+    nothing else); a profiled decode-step breakdown; then one perplexity
+    window of 2048 tokens through ppl_eval_engine (K9 at M = 2048 only)."""
+    import numpy as np
+
+    from dgq_tpu_torch.models.opt import OPTConfig
+    from dgq_tpu_torch.models.opt_engine import OPTEngineConfig, init_opt_kv_cache, \
+        opt_engine_forward
+    from dgq_tpu_torch.models.synthetic import build_opt_engine
+    from dgq_tpu_torch.ops import _cuda
+    from dgq_tpu_torch.utils.evalutils import ppl_eval_engine
+
+    cfg = OPTConfig()
+    ecfg = OPTEngineConfig(cfg=cfg)
+    layers = cfg.num_hidden_layers
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = build_opt_engine(cfg, seed=0, device=DEV)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(BATCH, PROMPT)).astype(np.int32)).to(DEV)
+
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    toks, cache, finite, prefill_ms, decode_ms = _opt_greedy(torch, ecfg, eng, prompts,
+                                                             NEW_TOKENS, SMAX)
+    gen_s = time.perf_counter() - t0
+    launches = dict(_cuda.LAUNCHES)
+    want = {name: 0 for name in SOURCES_OF}
+    want.update({"w4a8_matmul_packed": 4 * layers * NEW_TOKENS,
+                 "int8_decode_attention": layers * (NEW_TOKENS - 1)})
+    if launches != want:
+        raise AssertionError(f"launches {launches} != {want}")
+    if toks.shape != (BATCH, NEW_TOKENS) or not finite:
+        raise AssertionError(f"tokens {tuple(toks.shape)}, finite logits {finite}")
+    if not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        raise AssertionError("token out of range")
+
+    prof = {"tok": toks[:, -1], "cache": cache}
+
+    def step():
+        logits, prof["cache"] = opt_engine_forward(ecfg, eng, prof["tok"][:, None],
+                                                   prof["cache"])
+        prof["tok"] = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+
+    breakdown = _profile_steps(torch, step, 4, ("K3", ["decode_attn_kernel"]),
+                               ("K9", SPAN_NAMES))
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    del cache, prof
+
+    # one perplexity window at the longest context OPT takes
+    stream = np.random.default_rng(1).integers(0, cfg.vocab_size, PPL_LEN).astype(np.int32)
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    ppl = ppl_eval_engine(ecfg, eng, stream, seqlen=PPL_LEN, forward_fn=opt_engine_forward,
+                          init_cache_fn=init_opt_kv_cache)
+    torch.cuda.synchronize()
+    ppl_s = time.perf_counter() - t0
+    ppl_launches = dict(_cuda.LAUNCHES)
+    want_ppl = {name: 0 for name in SOURCES_OF}
+    want_ppl["w4a8_matmul_packed"] = 4 * layers
+    if ppl_launches != want_ppl:
+        raise AssertionError(f"ppl window launches {ppl_launches} != {want_ppl}")
+    if not (np.isfinite(ppl) and ppl > 1.0):
+        raise AssertionError(f"perplexity {ppl}")
+    del eng
+    torch.cuda.empty_cache()
+    state["launches_opt"] = launches
+    return {"layers": layers, "batch": BATCH, "prompt": PROMPT, "new_tokens": NEW_TOKENS,
+            "max_len": SMAX, "launches": launches, "engine_build_s": build_s,
+            "generate_s": gen_s, "prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
+            "decode_tok_per_s": BATCH * 1e3 / decode_ms,
+            "generate_tok_per_s": BATCH * NEW_TOKENS / gen_s, "peak_gib": peak_gb,
+            "decode_step_breakdown": breakdown, "tokens_row0": toks[0].tolist(),
+            "ppl_window": {"seqlen": PPL_LEN, "ppl": ppl, "seconds": ppl_s,
+                           "launches": ppl_launches}}
 
 
 def _serve_requests(cfg):
@@ -1052,7 +1321,7 @@ def phase_serve(torch, state):
             "paged_decode_step": {"slots": SLOTS, "lengths": lengths, **breakdown}}
 
 
-def _profile_decode(torch, ecfg, eng, tok, cache, steps: int, attn):
+def _profile_decode(torch, ecfg, eng, tok, cache, steps: int, attn, linear=("K1", K1_NAMES)):
     """Device time of ``steps`` engine decode steps by kernel group."""
     from dgq_tpu_torch.models.engine import engine_forward
 
@@ -1062,13 +1331,14 @@ def _profile_decode(torch, ecfg, eng, tok, cache, steps: int, attn):
         logits, state["cache"] = engine_forward(ecfg, eng, state["tok"][:, None], state["cache"])
         state["tok"] = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
 
-    return _profile_steps(torch, step, steps, attn)
+    return _profile_steps(torch, step, steps, attn, linear)
 
 
-def _profile_steps(torch, step, steps: int, attn):
-    """Device time of ``steps`` calls of ``step`` by kernel group (K1, the
-    decode attention ``attn`` = (label, kernel names), K4-K6, the rest),
-    against the wall time of the same steps."""
+def _profile_steps(torch, step, steps: int, attn, linear=("K1", K1_NAMES)):
+    """Device time of ``steps`` calls of ``step`` by kernel group (the
+    linears' GEMM ``linear`` and the decode attention ``attn``, each (label,
+    kernel names), K4-K6, the rest), against the wall time of the same
+    steps."""
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1076,7 +1346,7 @@ def _profile_steps(torch, step, steps: int, attn):
             step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    names = {"K1": K1_NAMES, attn[0]: attn[1], "K4": K4_NAMES, "K5": K5_NAMES,
+    names = {linear[0]: linear[1], attn[0]: attn[1], "K4": K4_NAMES, "K5": K5_NAMES,
              "K6": K6_NAMES}
     groups = {g: 0.0 for g in [*names, "other"]}
     launches = {g: 0 for g in groups}
@@ -1112,13 +1382,17 @@ class _CodeRecorder:
     def __enter__(self):
         import torch
 
-        from dgq_tpu_torch.models import engine
+        from dgq_tpu_torch.models import engine, opt_engine
         from dgq_tpu_torch.ops import fused_decode
         from dgq_tpu_torch.serving import paged
 
-        # the paged decode block requantises q/k/v through its own binding
+        # the paged decode block requantises q/k/v through its own binding;
+        # the OPT block makes codes in LayerNormQ, in K9's int8 epilogue
+        # (q|k|v) and in its requants
         self.saved = [(engine, n, getattr(engine, n)) for n in ("_rms_norm_q", "_requant")]
         self.saved.append((paged, "_requant", paged._requant))
+        self.saved += [(opt_engine, n, getattr(opt_engine, n))
+                       for n in ("_layer_norm_q", "_linear_s8_int8out", "_requant")]
         if self.force is None:
             self.saved += [(engine, n, getattr(engine, n)) for n in self.FUSED_CODES]
         else:  # the plain versions' code makers
@@ -1165,25 +1439,42 @@ class _PlainPath:
     exit."""
 
     def __enter__(self):
-        from dgq_tpu_torch.models import engine
+        from dgq_tpu_torch.models import engine, opt_engine
         from dgq_tpu_torch.ops import attention, fused_decode, quant_matmul
         from dgq_tpu_torch.serving import paged
 
         self.saved = [(engine, n, getattr(engine, n)) for n in
                       ("w4a8_matmul_rp_pipe", "int8_prefill_attention", "int8_decode_attention",
                        "int8_decode_attention_chunked", "fused_norm_gemv_rp",
-                       "fused_requant_gemv_rp", "fused_mlp_decode_rp")]
+                       "fused_requant_gemv_rp", "fused_mlp_decode_rp", "w4a8_matmul_packed",
+                       "w4a8_fpscale_matmul_packed")]
         self.saved.append((paged, "int8_paged_decode_attention",
                            paged.int8_paged_decode_attention))
+        self.saved += [(opt_engine, n, getattr(opt_engine, n)) for n in
+                       ("w4a8_matmul_packed", "int8_decode_attention",
+                        "int8_decode_attention_chunked")]
 
         def k1(x, qw, ws, wz, alpha, beta=None, *, groupsize, scales_replicated):
             step = 8 if scales_replicated else 1
             return quant_matmul.w4a8_matmul_rp_xla(x, qw, ws[::step], wz[::step], alpha, beta,
                                                    groupsize=groupsize)
 
+        def k9(x, qw, ws, wz, alpha, beta=None, *, scales_replicated, **k):
+            step = 8 if scales_replicated else 1
+            return quant_matmul.w4a8_matmul_packed_xla(x, qw, ws[::step], wz[::step], alpha,
+                                                       beta, **k)
+
+        def k10(x, qw, ws, wz, alpha, beta=None, *, scales_replicated, **k):
+            step = 8 if scales_replicated else 1
+            return quant_matmul.w4a8_fpscale_matmul_packed_xla(x, qw, ws[::step], wz[::step],
+                                                               alpha, beta, **k)
+
         def k6(*a, bf, **k):  # the TPU's F block; the plain version has none
             return fused_decode.fused_mlp_decode_rp_xla(*a, **k)
 
+        engine.w4a8_matmul_packed = opt_engine.w4a8_matmul_packed = k9
+        engine.w4a8_fpscale_matmul_packed = k10
+        opt_engine.int8_decode_attention = attention.int8_decode_attention_xla
         engine.w4a8_matmul_rp_pipe = k1
         engine.int8_prefill_attention = attention.int8_prefill_attention_xla
         engine.int8_decode_attention = attention.int8_decode_attention_xla
@@ -1193,7 +1484,7 @@ class _PlainPath:
             return attention.int8_decode_attention_xla(*a, **k)
 
         engine.fused_mlp_decode_rp = k6
-        engine.int8_decode_attention_chunked = k7
+        engine.int8_decode_attention_chunked = opt_engine.int8_decode_attention_chunked = k7
         paged.int8_paged_decode_attention = attention.int8_paged_decode_attention_xla
         return self
 
@@ -1242,6 +1533,19 @@ def _paged_teacher_forced(torch, ecfg, eng, prompts, steps):
     return out, {"k": cache.kt, "v": cache.v}
 
 
+def _opt_teacher_forced(torch, ecfg, eng, prompts, steps):
+    """OPT: prefill, then one forward per column of ``steps``."""
+    from dgq_tpu_torch.models.opt_engine import init_opt_kv_cache, opt_engine_forward
+
+    cache = init_opt_kv_cache(ecfg.cfg, prompts.shape[0], SMAX, device=DEV)
+    logits, cache = opt_engine_forward(ecfg, eng, prompts, cache)
+    out = [logits]
+    for i in range(steps.shape[1]):
+        logits, cache = opt_engine_forward(ecfg, eng, steps[:, i:i + 1], cache)
+        out.append(logits)
+    return out, {"k": cache.k, "v": cache.v}
+
+
 def _parity(torch, run):
     """``run()`` -> (logits list, {name: int8 cache}) once on the kernel
     path recording its codes, once on the plain path forced onto them."""
@@ -1263,7 +1567,7 @@ def _parity(torch, run):
         d_max, eq = _code_stats(gc[name], rc[name])
         kv[name] = {"max_diff": d_max, "equal_share": eq}
         _check_codes(f"{name} cache", (d_max, eq))
-    return {"logits_max_abs_err": errs, "verify_window_max_abs_err": errs[-1],
+    return {"logits_max_abs_err": errs, "last_forward_max_abs_err": errs[-1],
             "code_tensors": len(rec_p.stats), "code_max_diff": code_max,
             "code_min_equal_share": code_equal,
             "code_tensors_with_flips": sum(e < 1.0 for _, e in rec_p.stats), "cache": kv}
@@ -1274,26 +1578,42 @@ def phase_parity(torch, state):
 
     from dgq_tpu_torch.models.engine import EngineConfig
     from dgq_tpu_torch.models.llama import LlamaConfig
-    from dgq_tpu_torch.models.synthetic import build_llama_engine
+    from dgq_tpu_torch.models.opt import OPTConfig
+    from dgq_tpu_torch.models.opt_engine import OPTEngineConfig
+    from dgq_tpu_torch.models.synthetic import build_llama_engine, build_opt_engine
 
     cfg = LlamaConfig(num_hidden_layers=2)
     eng = build_llama_engine(cfg, seed=2, device=DEV)
     rng = np.random.default_rng(1)
 
-    def ids(n):
-        return torch.from_numpy(rng.integers(0, cfg.vocab_size, (BATCH, n)).astype(np.int32)
-                                ).to(DEV)
+    def ids(n, vocab=cfg.vocab_size):
+        return torch.from_numpy(rng.integers(0, vocab, (BATCH, n)).astype(np.int32)).to(DEV)
 
     prompts, steps, window = ids(PROMPT), ids(8), ids(5)
     ecfg = EngineConfig(cfg=cfg)
     unfused = EngineConfig(cfg=cfg, fused_decode=False)
-    return {"layers": 2, "verify_window": 5,
-            "fused": _parity(torch, lambda: _teacher_forced(torch, ecfg, eng, prompts, steps,
-                                                            window)),
-            "unfused": _parity(torch, lambda: _teacher_forced(torch, unfused, eng, prompts, steps,
-                                                              window)),
-            "paged": _parity(torch, lambda: _paged_teacher_forced(torch, ecfg, eng, prompts,
-                                                                  steps))}
+    out = {"layers": 2, "verify_window": 5,
+           "fused": _parity(torch, lambda: _teacher_forced(torch, ecfg, eng, prompts, steps,
+                                                           window)),
+           "unfused": _parity(torch, lambda: _teacher_forced(torch, unfused, eng, prompts, steps,
+                                                             window)),
+           "paged": _parity(torch, lambda: _paged_teacher_forced(torch, ecfg, eng, prompts,
+                                                                 steps))}
+    del eng
+    # the paths of phases main_fpscale (K10) and opt (K9), at full width
+    fp_eng = build_llama_engine(cfg, seed=2, device=DEV, fp_scales=True)
+    fp_cfg = EngineConfig(cfg=cfg, fp_scales=True)
+    out["fpscale"] = _parity(torch, lambda: _teacher_forced(torch, fp_cfg, fp_eng, prompts,
+                                                            steps, window))
+    del fp_eng
+    ocfg = OPTConfig(num_hidden_layers=2)
+    opt_eng = build_opt_engine(ocfg, seed=2, device=DEV)
+    oprompts, osteps = ids(PROMPT, ocfg.vocab_size), ids(8, ocfg.vocab_size)
+    out["opt"] = _parity(torch, lambda: _opt_teacher_forced(
+        torch, OPTEngineConfig(cfg=ocfg), opt_eng, oprompts, osteps))
+    del opt_eng
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_checkpoint(torch, state):
@@ -1333,6 +1653,50 @@ def phase_checkpoint(torch, state):
     t2 = generate(EngineConfig(cfg=cfg2), eng2, prompt, 8, 256)
     if not torch.equal(t1, t2):
         raise AssertionError("greedy tokens differ after the round trip")
+    del eng, eng2
+    return {"tensors": len(a), "file_mib": size_mb, "save_s": save_s, "load_s": load_s,
+            "opt": _opt_round_trip(torch)}
+
+
+def _opt_round_trip(torch):
+    """save_engine(arch="opt") then load_engine of a 2-layer OPT-6.7B-wide
+    engine: bit-equal span-only tensors and equal greedy tokens."""
+    import numpy as np
+
+    from dgq_tpu_torch.models.opt import OPTConfig
+    from dgq_tpu_torch.models.opt_engine import OPTEngineConfig, OPTEngineParams
+    from dgq_tpu_torch.models.synthetic import build_opt_engine
+    from dgq_tpu_torch.utils.checkpoint import engine_arrays, load_engine, save_engine
+
+    cfg = OPTConfig(num_hidden_layers=2)
+    eng = build_opt_engine(cfg, seed=3, device=DEV)
+    ckdir = ROOT / "dgq_tpu_torch" / "_build" / "smoke_ckpt_opt"
+    ckdir.mkdir(parents=True, exist_ok=True)
+    path = str(ckdir / "opt_engine.safetensors")
+    try:
+        t0 = time.perf_counter()
+        save_engine(path, eng, cfg, arch="opt")
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        eng2, cfg2 = load_engine(path, device=DEV)
+        load_s = time.perf_counter() - t0
+        size_mb = Path(path).stat().st_size / 2**20
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    if cfg2 != cfg or not isinstance(eng2, OPTEngineParams):
+        raise AssertionError(f"config {cfg2} != {cfg}, or not an OPT engine")
+    a, b = engine_arrays(eng), engine_arrays(eng2)
+    if set(a) != set(b) or any(k.endswith(("/qw_rp", "/s_hi")) for k in b):
+        raise AssertionError(f"keys differ: {set(a) ^ set(b)}")
+    for key in a:
+        if a[key].dtype != b[key].dtype or not torch.equal(a[key], b[key]):
+            raise AssertionError(f"{key} differs after the round trip")
+    prompt = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (1, 24)).astype(np.int32)).to(DEV)
+    t1 = _opt_greedy(torch, OPTEngineConfig(cfg=cfg), eng, prompt, 8, 256)[0]
+    t2 = _opt_greedy(torch, OPTEngineConfig(cfg=cfg2), eng2, prompt, 8, 256)[0]
+    if not torch.equal(t1, t2):
+        raise AssertionError("OPT greedy tokens differ after the round trip")
     return {"tensors": len(a), "file_mib": size_mb, "save_s": save_s, "load_s": load_s}
 
 
@@ -1353,51 +1717,67 @@ SOURCES_OF = {
                                       "dgq_tpu/ops/attention.py:542"),
     "int8_paged_decode_attention": ("dgq_tpu_torch/csrc/int8_chunked_decode_attention.cu",
                                     "dgq_tpu/ops/attention.py:679"),
+    "w4a8_matmul_packed": ("dgq_tpu_torch/csrc/w4a8_span_gemm.cu",
+                           "dgq_tpu/ops/quant_matmul.py:173"),
+    "w4a8_fpscale_matmul_packed": ("dgq_tpu_torch/csrc/w4a8_span_gemm.cu",
+                                   "dgq_tpu/ops/quant_matmul.py:941"),
 }
+# K14 (w4a8_matmul_wres, w4a8_matmul_pipe) computes K9's function and runs it
+ALSO_REPLACES = {"w4a8_matmul_packed": ["dgq_tpu/ops/quant_matmul.py:305",
+                                        "dgq_tpu/ops/quant_matmul.py:463"]}
 # the path whose launches each kernel's entry reports: K7 runs on main_long
-# only, K8 on the serving path only
+# only, K8 on the serving path only, K9 on the OPT engine, K10 on the
+# fp-scale LLaMA engine
 PATH_OF = {"int8_decode_attention_chunked": "launches_long",
-           "int8_paged_decode_attention": "launches_serve"}
-LINE_PHASES = {"kernels", "main", "main_long", "serve"}
+           "int8_paged_decode_attention": "launches_serve",
+           "w4a8_matmul_packed": "launches_opt",
+           "w4a8_fpscale_matmul_packed": "launches_fpscale"}
+PATHS = {"main": "launches", "main_long": "launches_long", "serve": "launches_serve",
+         "opt": "launches_opt", "main_fpscale": "launches_fpscale"}
+LINE_PHASES = {"kernels", *PATHS}
 
 
 def kernels_line(state):
-    """One entry per kernel.  K1: the four linears of one layer at prefill
-    (M = 1024) summed, the path K1 takes under fused decode; K2, K3: the main
-    path's MHA case (K3 with quant_pv); K4-K6: the decode step (M = 4); K7,
-    K8: the MHA case with quant_pv.  ``launches`` counts the kernel over the
-    path that runs it (main; K7 main_long; K8 serve), and ``launches_by_path``
-    over each.  Every case is listed under ``cases``."""
-    k1 = state["k1"]
-    pre = [c for c in k1 if c["M"] == BATCH * PROMPT]
+    """One entry per kernel.  K1, K9, K10: the four linears of one layer at
+    prefill (M = 1024) summed (K1 LLaMA under fused decode, K9 OPT, K10
+    LLaMA with fp32 scales); K2, K3: the main path's MHA case (K3 with
+    quant_pv); K4-K6: the decode step (M = 4); K7, K8: the MHA case with
+    quant_pv.  ``launches`` counts the kernel over the path that runs it
+    (main; K7 main_long; K8 serve; K9 opt; K10 main_fpscale), and
+    ``launches_by_path`` over each.  Every case is listed under ``cases``."""
+    cases = {"w4a8_matmul_rp_pipe": state["k1"], "int8_prefill_attention": state["k2"],
+             "int8_decode_attention": state["k3"], "fused_norm_gemv_rp": state["k4"],
+             "fused_requant_gemv_rp": state["k5"], "fused_mlp_decode_rp": state["k6"],
+             "int8_decode_attention_chunked": state["k7"],
+             "int8_paged_decode_attention": state["k8"],
+             "w4a8_matmul_packed": state["k9"], "w4a8_fpscale_matmul_packed": state["k10"]}
     head = {
-        "w4a8_matmul_rp_pipe": {key: sum(c[key] for c in pre)
-                                for key in ("ms", "plain_ms", "library_ms", "bound_ms")},
         "int8_prefill_attention": state["k2"][0],
         "int8_decode_attention": state["k3"][0],
         "int8_decode_attention_chunked": state["k7"][0],
         "int8_paged_decode_attention": state["k8"][0],
     }
-    head["w4a8_matmul_rp_pipe"]["bound_by"] = "operations" if all(
-        c["bound_by"] == "operations" for c in pre) else "bytes"
-    cases = {"w4a8_matmul_rp_pipe": k1, "int8_prefill_attention": state["k2"],
-             "int8_decode_attention": state["k3"], "fused_norm_gemv_rp": state["k4"],
-             "fused_requant_gemv_rp": state["k5"], "fused_mlp_decode_rp": state["k6"],
-             "int8_decode_attention_chunked": state["k7"],
-             "int8_paged_decode_attention": state["k8"]}
-    paths = {"main": "launches", "main_long": "launches_long", "serve": "launches_serve"}
+    for name in ("w4a8_matmul_rp_pipe", "w4a8_matmul_packed", "w4a8_fpscale_matmul_packed"):
+        pre = [c for c in cases[name] if c["M"] == BATCH * PROMPT]
+        head[name] = {key: sum(c[key] for c in pre)
+                      for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        head[name]["bound_by"] = "operations" if all(
+            c["bound_by"] == "operations" for c in pre) else "bytes"
     for name in ("fused_norm_gemv_rp", "fused_requant_gemv_rp", "fused_mlp_decode_rp"):
         head[name] = next(c for c in cases[name] if c["M"] == BATCH)
     out = []
     for name, (source, replaces) in SOURCES_OF.items():
         h = head[name]
-        out.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                    "launches": state[PATH_OF.get(name, "launches")][name],
-                    "launches_by_path": {p: state[k][name] for p, k in paths.items()},
-                    "max_abs_err": max(c["max_abs_err"] for c in cases[name]),
-                    "ms": h["ms"], "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"],
-                    "bound_by": h["bound_by"], "library_ms": h["library_ms"],
-                    "cases": cases[name]})
+        entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                 "launches": state[PATH_OF.get(name, "launches")][name],
+                 "launches_by_path": {p: state[k][name] for p, k in PATHS.items()},
+                 "max_abs_err": max(c["max_abs_err"] for c in cases[name]),
+                 "ms": h["ms"], "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"],
+                 "bound_by": h["bound_by"], "library_ms": h["library_ms"],
+                 "cases": cases[name]}
+        if name in ALSO_REPLACES:
+            entry["also_replaces"] = ALSO_REPLACES[name]
+        out.append(entry)
     return {"kernels": out}
 
 
@@ -1409,6 +1789,8 @@ PHASES = {
     "main_unfused": phase_main_unfused,
     "main_long": phase_main_long,
     "serve": phase_serve,
+    "opt": phase_opt,
+    "main_fpscale": phase_main_fpscale,
     "parity": phase_parity,
     "checkpoint": phase_checkpoint,
 }

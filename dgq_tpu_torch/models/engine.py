@@ -1,7 +1,8 @@
 """Real-quant INT8-dataflow LLaMA engine on one NVIDIA GPU.
 
-Port of ``dgq_tpu/models/engine.py`` for rowpair weight storage and INT8
-KV.  Prompt windows run every linear through K1 (``w4a8_matmul_rp_pipe``)
+Port of ``dgq_tpu/models/engine.py`` for INT8 KV.  Prompt windows run every
+linear through K1 (``w4a8_matmul_rp_pipe``) on rowpair storage, K9
+(``w4a8_matmul_packed``) on span-only storage, or K10 (``w4a8_fpscale_matmul_packed``) under ``fp_scales``,
 and attend with K2 (``int8_prefill_attention``) past 8 tokens; decode steps
 attend with K3 (``int8_decode_attention``), or with K7
 (``int8_decode_attention_chunked``) once the cache outgrows 8192 positions.
@@ -46,21 +47,27 @@ from dgq_tpu_torch.ops.fused_decode import (
     fused_norm_gemv_rp,
     fused_requant_gemv_rp,
 )
-from dgq_tpu_torch.ops.quant_matmul import int_matmul, w4a8_matmul_rp_pipe
+from dgq_tpu_torch.ops.quant_matmul import (
+    int_matmul,
+    w4a8_fpscale_matmul_packed,
+    w4a8_matmul_packed,
+    w4a8_matmul_rp_pipe,
+)
 
 Tensor = torch.Tensor
 
 
 class EngineLinear(NamedTuple):
-    """Dual-grained W4A8 linear.  The port computes with the rowpair layout
-    ``qw_rp`` and the 8x row-replicated ``wscales``/``wzeros``; the other
-    fields are carried so checkpoints round-trip; the compact plane rows feed
-    the fused decode kernels (K4-K6), and ``cs_fold`` is checked by them but
-    not read."""
+    """Dual-grained W4A8 linear: the span layout ``qweight`` (K9, K10) and/or
+    the rowpair layout ``qw_rp`` (K1, K4-K6), with 8x row-replicated
+    ``wscales``/``wzeros``; the compact plane rows feed the fused decode
+    kernels (K4-K6), and ``cs_fold`` is checked by them but not read.  An
+    fp-scale linear (``EngineConfig.fp_scales``) has span storage with fp32
+    scales and zeros and no plane rows."""
 
     qweight: Optional[Tensor]  # (K//2, N) int8 span layout, None when rowpair-only
-    wscales: Tensor  # (8G, N) int8, group g at rows 8g..8g+7
-    wzeros: Tensor  # (8G, N) int8
+    wscales: Tensor  # (8G, N) int8 (f32 for fp-scale linears), group g at rows 8g..8g+7
+    wzeros: Tensor  # (8G, N) int8 (f32 for fp-scale linears)
     alpha: Tensor  # (N,) f32 = wscales8 * input_scale
     bias: Optional[Tensor]  # (N,) f32 or None
     s_hi: Optional[Tensor] = None  # (G/2, N) int8 even-group scales
@@ -152,6 +159,9 @@ class EngineConfig:
     fused_decode: bool = True
     # INT8 p @ V on decode windows (ops/attention._quantize_exp)
     quant_pv: bool = True
+    # fp-scale engine (w4w8-fallback linears): every linear runs K10 and the
+    # fused decode kernels are off
+    fp_scales: bool = False
     kv_bits: int = 8
 
     def __post_init__(self):
@@ -178,15 +188,25 @@ def _attention_scores(q_s8, kt_s8, q_scale, k_scale, head_dim):
     return int_matmul(q_s8, kt_s8).to(torch.float32) * qk_scale(q_scale, k_scale, head_dim)
 
 
-def _linear_s8(lin: EngineLinear, x_s8: Tensor) -> Tensor:
-    """int8 activations (..., K) -> fp32 (..., N) through K1."""
-    if lin.qw_rp is None:
-        raise NotImplementedError("span-layout linears need K9 w4a8_matmul_packed, "
-                                  "not yet ported")
-    groupsize = (2 * lin.qw_rp.shape[0] * 8) // lin.wscales.shape[0]
+def _linear_s8(lin: EngineLinear, x_s8: Tensor, *, fp_scales: bool = False) -> Tensor:
+    """int8 activations (..., K) -> fp32 (..., N), dispatched on what the
+    linear stores: K1 on the rowpair layout when it exists; else K10 under
+    ``fp_scales``; else K9 on the span layout.  The bias rides the kernels'
+    epilogue."""
+    if (lin.wscales.dtype == torch.float32) != fp_scales:
+        raise ValueError(f"{lin.wscales.dtype} group scales with fp_scales={fp_scales}: "
+                         "fp32 scales run with EngineConfig(fp_scales=True), int8 without")
+    gs = _lin_groupsize(lin)
     x2 = x_s8.reshape(-1, x_s8.shape[-1]).contiguous()
-    y = w4a8_matmul_rp_pipe(x2, lin.qw_rp, lin.wscales, lin.wzeros, lin.alpha, lin.bias,
-                            groupsize=groupsize, scales_replicated=True)
+    kw = dict(groupsize=gs, scales_replicated=True)
+    if lin.qw_rp is not None and not fp_scales:
+        y = w4a8_matmul_rp_pipe(x2, lin.qw_rp, lin.wscales, lin.wzeros, lin.alpha, lin.bias, **kw)
+    elif fp_scales:
+        y = w4a8_fpscale_matmul_packed(x2, lin.qweight, lin.wscales, lin.wzeros, lin.alpha,
+                                       lin.bias, **kw)
+    else:
+        y = w4a8_matmul_packed(x2, lin.qweight, lin.wscales, lin.wzeros, lin.alpha, lin.bias,
+                               **kw)
     return y.reshape(*x_s8.shape[:-1], -1)
 
 
@@ -230,47 +250,51 @@ def _use_fused_rows(ecfg: EngineConfig, layer: EngineLayer, b: int, s: int) -> b
     """Gate for the fused decode kernels: they act on independent rows, so
     windows of s <= 8 tokens (speculative verification) flatten (B, S, D)
     -> (B*S, D) and ride the same kernels as s = 1, up to 64 rows (8 slots x
-    8 verify tokens).  JAX's gate without ``use_kernel``/``fp_scales``: on
-    CPU tensors the fused branch runs the kernels' plain versions."""
-    return s <= 8 and ecfg.fused_decode and b * s <= 64 and _decode_fusable(layer)
+    8 verify tokens).  JAX's gate without ``use_kernel``: on CPU tensors the
+    fused branch runs the kernels' plain versions."""
+    return (s <= 8 and not ecfg.fp_scales and ecfg.fused_decode and b * s <= 64
+            and _decode_fusable(layer))
 
 
-def _rp_only(lin: EngineLinear) -> EngineLinear:
-    if lin.qw_rp is None:
+def _require_s4(layer: EngineLayer) -> None:
+    """Fused decode takes K4-K6 on the rowpair layout; span-only storage
+    would need K12."""
+    if layer.qkv_proj.qw_rp is None:
         raise NotImplementedError("fused decode on span-layout storage needs K12 "
                                   "fused_norm_gemv (and fused_requant_gemv, "
                                   "fused_mlp_decode), not yet ported")
-    return lin
 
 
 def _qkv_rows(ecfg: EngineConfig, layer: EngineLayer, x: Tensor, fused: bool) -> Tensor:
     """(B, S, D) -> qkv projections (B, S, N): K4 on the flattened rows, or
-    RMSNormQ + K1."""
+    RMSNormQ + ``_linear_s8``."""
     b, s, d = x.shape
     if fused:
-        qp = _rp_only(layer.qkv_proj)
+        _require_s4(layer)
+        qp = layer.qkv_proj
         return fused_norm_gemv_rp(
             x.reshape(b * s, d), layer.ln1_weight, layer.ln1_bias, qp.qw_rp, qp.s_hi,
             qp.s_lo, qp.z_hi, qp.z_lo, qp.cs_fold, qp.alpha, qp.bias,
             span=2 * _lin_groupsize(qp), eps=ecfg.cfg.rms_norm_eps,
         ).reshape(b, s, -1)
     x_s8 = _rms_norm_q(x, layer.ln1_weight, ecfg.cfg.rms_norm_eps, layer.ln1_bias)
-    return _linear_s8(layer.qkv_proj, x_s8)
+    return _linear_s8(layer.qkv_proj, x_s8, fp_scales=ecfg.fp_scales)
 
 
 def _block_tail(ecfg: EngineConfig, layer: EngineLayer, x: Tensor, ctx: Tensor,
                 fused: bool) -> Tensor:
     """Attention context -> o_proj + residual -> MLP + residual: K5 and K6
-    on the flattened rows, or the unfused chain around K1."""
+    on the flattened rows, or the unfused chain around ``_linear_s8``."""
     if fused:
+        _require_s4(layer)
         b, s, d = x.shape
-        op = _rp_only(layer.o_proj)
+        op = layer.o_proj
         x = fused_requant_gemv_rp(
             ctx.reshape(b * s, -1), layer.out_input_scale, op.qw_rp, op.s_hi, op.s_lo,
             op.z_hi, op.z_lo, op.cs_fold, op.alpha, op.bias, residual=x.reshape(b * s, d),
             span=2 * _lin_groupsize(op), qmin=-127.0, fuse_residual=True,
         )  # (B*S, D), residual added in the kernel
-        gu, dn = _rp_only(layer.gate_up_proj), _rp_only(layer.down_proj)
+        gu, dn = layer.gate_up_proj, layer.down_proj
         span_m = 2 * _lin_groupsize(gu)
         fdim = 2 * _lin_qw(dn).shape[0]
         return fused_mlp_decode_rp(
@@ -279,12 +303,13 @@ def _block_tail(ecfg: EngineConfig, layer: EngineLayer, x: Tensor, ctx: Tensor,
             dn.wzeros, dn.cs_fold, dn.alpha, dn.bias, span=span_m, bf=_mlp_bf(span_m, fdim),
             eps=ecfg.cfg.rms_norm_eps, fuse_residual=True,
         ).reshape(b, s, d)
+    kw = dict(fp_scales=ecfg.fp_scales)
     ctx_s8 = _requant(ctx, layer.out_input_scale, qmin=-127.0)
-    x = x + _linear_s8(layer.o_proj, ctx_s8)
+    x = x + _linear_s8(layer.o_proj, ctx_s8, **kw)
     x_s8 = _rms_norm_q(x, layer.ln2_weight, ecfg.cfg.rms_norm_eps, layer.ln2_bias)
-    gate, up = torch.chunk(_linear_s8(layer.gate_up_proj, x_s8), 2, dim=-1)
+    gate, up = torch.chunk(_linear_s8(layer.gate_up_proj, x_s8, **kw), 2, dim=-1)
     h_s8 = _requant(torch.nn.functional.silu(gate) * up, layer.down_input_scale)
-    return x + _linear_s8(layer.down_proj, h_s8)
+    return x + _linear_s8(layer.down_proj, h_s8, **kw)
 
 
 def _block(ecfg: EngineConfig, layer: EngineLayer, x: Tensor, k_cache: Tensor,

@@ -1,9 +1,14 @@
 """Synthetic (random-weight) engines at real model shapes.
 
-Port of ``dgq_tpu/models/synthetic.py:18-76``: the same value ranges and the
-same rowpair-only storage, drawn from a ``torch.Generator`` on the target
-device (so the bits differ from JAX's).  Scales are drawn from [1, 4) and
-zeros from [4, 12), so (c - z) * s fits int8 by construction.
+Port of ``dgq_tpu/models/synthetic.py:18-76`` (the LLaMA engine, rowpair-only
+storage) and of ``build_opt_engine`` in ``scripts/bench_decode_opt.py:27-75``
+(the OPT engine, span-only storage), with the same value ranges, plus an
+fp-scale LLaMA engine (span storage, fp32 group scales and zeros, the
+w4w8-fallback representation).  Every layer is drawn on its own from a
+``torch.Generator`` on the target device (so the bits differ from JAX's).
+Scales are drawn from [1, 4) and zeros from [4, 12), so (c - z) * s fits
+int8 by construction; the fp-scale engine multiplies the integer scale by a
+per-channel fp32 factor in [0.5, 1), so |(c - z) * s| stays below 128.
 """
 
 from __future__ import annotations
@@ -12,6 +17,8 @@ import torch
 
 from dgq_tpu_torch.models.engine import EngineLayer, EngineLinear, EngineParams
 from dgq_tpu_torch.models.llama import LlamaConfig
+from dgq_tpu_torch.models.opt import OPTConfig
+from dgq_tpu_torch.models.opt_engine import OPTEngineLayer, OPTEngineParams
 from dgq_tpu_torch.ops.fused_decode import rowpair_cs_fold_rp
 
 
@@ -38,16 +45,51 @@ def random_engine_linear(gen: torch.Generator, n_out: int, n_in: int, g: int = 1
     )
 
 
-def build_llama_engine(cfg: LlamaConfig, seed: int = 0, device="cuda") -> EngineParams:
+def random_span_linear(gen: torch.Generator, n_out: int, n_in: int, g: int = 128,
+                       device="cuda", fp_scales: bool = False, bias: bool = False) -> EngineLinear:
+    """Span-only storage (no rowpair copy, no plane rows): int8 group scales
+    and zeros (K9), or fp32 ones for ``fp_scales`` (K10)."""
+    def randint(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, dtype=torch.int8, device=device)
+
+    qweight = randint(-128, 128, (n_in // 2, n_out))
+    ws = randint(1, 4, (n_in // g, n_out))
+    wz = randint(4, 12, (n_in // g, n_out))
+    if fp_scales:  # int scale x per-channel fp factor, integer-valued fp zeros
+        s8 = torch.rand((n_out,), generator=gen, device=device) * 0.5 + 0.5
+        ws, wz = ws.to(torch.float32) * s8, wz.to(torch.float32)
+    return EngineLinear(
+        qweight=qweight,
+        wscales=torch.repeat_interleave(ws, 8, dim=0),
+        wzeros=torch.repeat_interleave(wz, 8, dim=0),
+        alpha=torch.full((n_out,), 1e-4, dtype=torch.float32, device=device),
+        bias=torch.zeros((n_out,), dtype=torch.float32, device=device) if bias else None,
+    )
+
+
+def _scalar(v, device):
+    return torch.full((), v, dtype=torch.float32, device=device)
+
+
+def _normal(gen, shape, device):
+    return torch.randn(shape, generator=gen, dtype=torch.float32,
+                       device=device).to(torch.bfloat16) * 0.02
+
+
+def build_llama_engine(cfg: LlamaConfig, seed: int = 0, device="cuda",
+                       fp_scales: bool = False) -> EngineParams:
     """Random engine params at cfg's exact shapes, the MLP dim padded to a
-    multiple of 1024 as engine conversion pads it."""
+    multiple of 1024 as engine conversion pads it.  ``fp_scales``: span
+    storage with fp32 group scales, run with ``EngineConfig(fp_scales=True)``."""
     d, f = cfg.hidden_size, -(-cfg.intermediate_size // 1024) * 1024
     nq = cfg.num_attention_heads * cfg.head_dim
     nkv = cfg.num_key_value_heads * cfg.head_dim
     gen = torch.Generator(device=device).manual_seed(seed)
 
-    def scalar(v):
-        return torch.full((), v, dtype=torch.float32, device=device)
+    def lin(n_out, n_in):
+        if fp_scales:
+            return random_span_linear(gen, n_out, n_in, device=device, fp_scales=True)
+        return random_engine_linear(gen, n_out, n_in, device=device)
 
     per_layer = []
     for _ in range(cfg.num_hidden_layers):
@@ -56,29 +98,64 @@ def build_llama_engine(cfg: LlamaConfig, seed: int = 0, device="cuda") -> Engine
             ln1_bias=None,
             ln2_weight=torch.full((d,), 10.0, dtype=torch.float32, device=device),
             ln2_bias=None,
-            qkv_proj=random_engine_linear(gen, nq + 2 * nkv, d, device=device),
-            o_proj=random_engine_linear(gen, d, nq, device=device),
-            gate_up_proj=random_engine_linear(gen, 2 * f, d, device=device),
-            down_proj=random_engine_linear(gen, d, f, device=device),
-            q_scale=scalar(0.05),
-            k_scale=scalar(0.05),
-            v_scale=scalar(0.05),
-            out_input_scale=scalar(0.05),
-            down_input_scale=scalar(0.05),
+            qkv_proj=lin(nq + 2 * nkv, d),
+            o_proj=lin(d, nq),
+            gate_up_proj=lin(2 * f, d),
+            down_proj=lin(d, f),
+            q_scale=_scalar(0.05, device),
+            k_scale=_scalar(0.05, device),
+            v_scale=_scalar(0.05, device),
+            out_input_scale=_scalar(0.05, device),
+            down_input_scale=_scalar(0.05, device),
         ))
     stacked = _stack(per_layer)
     del per_layer
-
-    def normal(shape):
-        return torch.randn(shape, generator=gen, dtype=torch.float32,
-                           device=device).to(torch.bfloat16) * 0.02
-
     return EngineParams(
-        embed_tokens=normal((cfg.vocab_size, d)),
+        embed_tokens=_normal(gen, (cfg.vocab_size, d), device),
         layers=stacked,
         norm_weight=torch.ones((d,), dtype=torch.float32, device=device),
-        lm_head=normal((cfg.vocab_size, d)),
+        lm_head=_normal(gen, (cfg.vocab_size, d), device),
         rms_eps=cfg.rms_norm_eps,
+    )
+
+
+def build_opt_engine(cfg: OPTConfig, seed: int = 0, device="cuda") -> OPTEngineParams:
+    """Random OPT engine params at cfg's exact shapes, every layer drawn on
+    its own: span-only linears with zero fp32 biases (so K9's epilogue adds
+    one), the LayerNorms pre-scaled by 10, static scales 0.05, and bf16
+    embeddings, positions and lm_head."""
+    d, f = cfg.hidden_size, cfg.ffn_dim
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def vec(v):
+        return torch.full((d,), v, dtype=torch.float32, device=device)
+
+    per_layer = []
+    for _ in range(cfg.num_hidden_layers):
+        per_layer.append(OPTEngineLayer(
+            ln1_weight=vec(10.0),
+            ln1_bias=vec(0.0),
+            qkv_proj=random_span_linear(gen, 3 * d, d, device=device, bias=True),
+            out_proj=random_span_linear(gen, d, d, device=device, bias=True),
+            ln2_weight=vec(10.0),
+            ln2_bias=vec(0.0),
+            fc1=random_span_linear(gen, f, d, device=device, bias=True),
+            fc2=random_span_linear(gen, d, f, device=device, bias=True),
+            q_scale=_scalar(0.05, device),
+            k_scale=_scalar(0.05, device),
+            v_scale=_scalar(0.05, device),
+            out_input_scale=_scalar(0.05, device),
+            fc2_input_scale=_scalar(0.05, device),
+        ))
+    stacked = _stack(per_layer)
+    del per_layer
+    return OPTEngineParams(
+        embed_tokens=_normal(gen, (cfg.vocab_size, d), device),
+        embed_positions=_normal(gen, (cfg.max_position_embeddings + 2, d), device),
+        layers=stacked,
+        final_ln_weight=vec(1.0),
+        final_ln_bias=vec(0.0),
+        lm_head=_normal(gen, (cfg.vocab_size, d), device),
     )
 
 

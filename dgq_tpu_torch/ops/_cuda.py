@@ -39,6 +39,9 @@ SOURCES = {
     # K7 and K8: one block body, two addressings
     "int8_decode_attention_chunked": "int8_chunked_decode_attention",
     "int8_paged_decode_attention": "int8_chunked_decode_attention",
+    # K9 (which also serves K14's names) and K10: one source, three epilogues
+    "w4a8_matmul_packed": "w4a8_span_gemm",
+    "w4a8_fpscale_matmul_packed": "w4a8_span_gemm",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -86,6 +86,10 @@ def _unported(args) -> str:
                 "serve a save_engine safetensors file")
     with open(args.checkpoint + ".json") as f:
         arch = json.load(f).get("arch", "llama")
+    if arch == "opt":
+        return ("serving the opt engine takes the dense ContinuousBatcher (opt_batch_engine), "
+                "not ported yet (ROADMAP Queue 1 item 5, after item 3); only llama "
+                "checkpoints are served")
     if arch != "llama":
         return (f"the {arch} engine is not ported yet (ROADMAP Queue 1 item 5); "
                 "only llama checkpoints are served")

@@ -1,6 +1,7 @@
-"""Engine checkpoints: ``save_engine`` / ``load_engine`` for ``arch == "llama"``.
+"""Engine checkpoints: ``save_engine`` / ``load_engine`` for ``arch`` "llama"
+and "opt".
 
-Port of ``dgq_tpu/utils/checkpoint.py:223-248`` and ``:421-511``: one
+Port of ``dgq_tpu/utils/checkpoint.py:223-248`` and ``:402-511``: one
 safetensors file of flat ``/``-joined keys (``layers/qkv_proj/qw_rp``, ...)
 plus a ``<path>.json`` manifest, interchangeable with the JAX package's
 files.  The format is read and written here directly (no ``safetensors``
@@ -20,6 +21,10 @@ import torch
 
 from dgq_tpu_torch.models.engine import EngineLayer, EngineLinear, EngineParams, map_tensors
 from dgq_tpu_torch.models.llama import LlamaConfig
+from dgq_tpu_torch.models.opt import OPTConfig
+from dgq_tpu_torch.models.opt_engine import OPTEngineLayer, OPTEngineParams
+
+ARCHS = ("llama", "opt")
 
 _DTYPES = {
     "I8": torch.int8,
@@ -88,20 +93,32 @@ def _flatten(prefix: str, tree, out: Dict[str, torch.Tensor]) -> None:
         _flatten(f"{prefix}/{name}", value, out)
 
 
-def engine_arrays(eng: EngineParams) -> Dict[str, torch.Tensor]:
-    """EngineParams -> flat ``/``-joined keys, as JAX's save_engine names them."""
-    out: Dict[str, torch.Tensor] = {"embed_tokens": eng.embed_tokens,
-                                    "norm_weight": eng.norm_weight, "lm_head": eng.lm_head}
-    _flatten("layers", eng.layers, out)
+def engine_arrays(eng) -> Dict[str, torch.Tensor]:
+    """EngineParams or OPTEngineParams -> flat ``/``-joined keys, as JAX's
+    save_engine names them (None fields are left out)."""
+    out: Dict[str, torch.Tensor] = {}
+    for f in dataclasses.fields(eng):
+        value = getattr(eng, f.name)
+        if isinstance(value, (torch.Tensor, tuple)):  # not rms_eps, a manifest entry
+            _flatten(f.name, value, out)
     return out
 
 
-def save_engine(path: str, eng: EngineParams, cfg: LlamaConfig, arch: str = "llama") -> None:
-    if arch != "llama":
-        raise NotImplementedError(f"arch {arch!r}: only the llama engine is ported")
+def _check_arch(arch: str) -> None:
+    if arch not in ARCHS:
+        raise NotImplementedError(f"arch {arch!r}: only the {' and '.join(ARCHS)} engines are "
+                                  "ported (ROADMAP Queue 1 item 5)")
+
+
+def save_engine(path: str, eng, cfg, arch: str = "llama") -> None:
+    """Write ``eng`` (EngineParams for "llama", OPTEngineParams for "opt")
+    and its ``<path>.json`` manifest, as JAX's save_engine does."""
+    _check_arch(arch)
     write_safetensors(path, engine_arrays(eng))
     manifest = {"format_version": 1, "kind": "engine", "arch": arch,
-                "model_config": dataclasses.asdict(cfg), "rms_eps": eng.rms_eps}
+                "model_config": dataclasses.asdict(cfg)}
+    if hasattr(eng, "rms_eps"):
+        manifest["rms_eps"] = eng.rms_eps
     with open(path + ".json", "w") as f:
         json.dump(manifest, f)
 
@@ -115,13 +132,17 @@ def _to_tensor(a) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
+def _stored_linear(t: Mapping[str, torch.Tensor], prefix: str) -> EngineLinear:
+    """An EngineLinear as stored: missing fields (None when saved) are None."""
+    return EngineLinear(*(t.get(f"{prefix}/{name}") for name in EngineLinear._fields))
+
+
 def _linear(t: Mapping[str, torch.Tensor], prefix: str) -> EngineLinear:
     from dgq_tpu_torch.ops.fused_decode import pack_rowpair_s4, rowpair_cs_fold
 
     ws, wz = t[f"{prefix}/wscales"], t[f"{prefix}/wzeros"]
-    if ws.dtype != torch.int8:
-        raise NotImplementedError(f"{prefix}: fp-scale linears need K10 "
-                                  "w4a8_fpscale_matmul_packed, not yet ported")
+    if ws.dtype != torch.int8:  # fp-scale linear: span storage only, no plane rows
+        return _stored_linear(t, prefix)
     # compact plane rows, derived from the 8x-replicated copies when absent
     # (group g at rows 8g..8g+7: even groups rows 0::16, odd groups 8::16)
     s_hi = t.get(f"{prefix}/s_hi", ws[..., 0::16, :].contiguous())
@@ -163,24 +184,43 @@ def engine_params_from_arrays(tensors: Mapping[str, object], rms_eps: float,
         down_input_scale=t["layers/down_input_scale"],
     )
 
-    def move(x: torch.Tensor) -> torch.Tensor:
-        return x.to(device).contiguous()
-
     return EngineParams(
-        embed_tokens=move(t["embed_tokens"]),
-        layers=map_tensors(move, layers),
-        norm_weight=move(t["norm_weight"]),
-        lm_head=move(t["lm_head"]),
+        embed_tokens=_move(t["embed_tokens"], device),
+        layers=map_tensors(lambda x: _move(x, device), layers),
+        norm_weight=_move(t["norm_weight"], device),
+        lm_head=_move(t["lm_head"], device),
         rms_eps=float(rms_eps),
     )
 
 
+def _move(x: torch.Tensor, device) -> torch.Tensor:
+    return x.to(device).contiguous()
+
+
+def opt_engine_params_from_arrays(tensors: Mapping[str, object],
+                                  device="cuda") -> OPTEngineParams:
+    """OPTEngineParams from arrays (numpy or torch) under save_engine's keys;
+    the linears keep their span-only storage, as JAX loads them."""
+    t = {k: _to_tensor(v) for k, v in tensors.items()}
+    lins = ("qkv_proj", "out_proj", "fc1", "fc2")
+    layers = OPTEngineLayer(**{
+        name: _stored_linear(t, f"layers/{name}") if name in lins else t[f"layers/{name}"]
+        for name in OPTEngineLayer._fields})
+    top = {f.name: _move(t[f.name], device) for f in dataclasses.fields(OPTEngineParams)
+           if f.name != "layers"}
+    return OPTEngineParams(layers=map_tensors(lambda x: _move(x, device), layers), **top)
+
+
 def load_engine(path: str, device="cuda"):
-    """(EngineParams, LlamaConfig) from a save_engine checkpoint."""
+    """(engine params, model config) from a save_engine checkpoint:
+    (EngineParams, LlamaConfig) or, for ``arch == "opt"``, (OPTEngineParams,
+    OPTConfig)."""
     with open(path + ".json") as f:
         manifest = json.load(f)
     arch = manifest.get("arch", "llama")
-    if arch != "llama":
-        raise NotImplementedError(f"arch {arch!r}: only the llama engine is ported")
+    _check_arch(arch)
+    if arch == "opt":
+        cfg = OPTConfig(**manifest["model_config"])
+        return opt_engine_params_from_arrays(read_safetensors(path), device), cfg
     cfg = LlamaConfig(**manifest["model_config"])
     return engine_params_from_arrays(read_safetensors(path), manifest["rms_eps"], device), cfg

@@ -51,7 +51,10 @@ JAX_MODES = {
 
 
 def _run_jax(eng, mode, prompt, steps):
-    ecfg = jeng.EngineConfig(cfg=CFG, **JAX_MODES[mode])
+    return _run_jax_cfg(eng, jeng.EngineConfig(cfg=CFG, **JAX_MODES[mode]), prompt, steps)
+
+
+def _run_jax_cfg(eng, ecfg, prompt, steps):
     cache = jeng.init_kv_cache(CFG, prompt.shape[0], SMAX)
     logits, cache = jeng.engine_forward(ecfg, eng, jnp.asarray(prompt), cache)
     out = [np.asarray(logits)]
@@ -176,3 +179,36 @@ def test_sampling_masks_match_jax(top_k, top_p):
         assert set(tdraws[:, row]) == want
     greedy = sample_logits(torch.from_numpy(logits), SamplingParams())
     np.testing.assert_array_equal(greedy.numpy(), np.argmax(logits, axis=-1))
+
+
+@pytest.mark.parametrize("mode", ["plain", "interpret"])
+def test_span_storage_unfused_matches_jax(mode):
+    """A span-only engine (no rowpair copy) runs every linear through K9 in
+    both packages (fused decode off: on span storage it would need K12)."""
+    j = build_llama_engine(CFG, seed=1, keep_span=True)
+    t = engine_params_from_arrays(_jax_arrays(j), j.rms_eps, device="cpu")
+    lins = ("qkv_proj", "o_proj", "gate_up_proj", "down_proj")
+    j = dataclasses.replace(j, layers=j.layers._replace(**{
+        n: getattr(j.layers, n)._replace(qw_rp=None, cs_fold=None) for n in lins}))
+    t = dataclasses.replace(t, layers=t.layers._replace(**{
+        n: getattr(t.layers, n)._replace(qw_rp=None, cs_fold=None) for n in lins}))
+    assert t.layers.qkv_proj.qweight is not None and t.layers.qkv_proj.qw_rp is None
+    rng = np.random.default_rng(21)
+    prompt = rng.integers(0, CFG.vocab_size, size=(2, 12)).astype(np.int32)
+    steps = rng.integers(0, CFG.vocab_size, size=(2, STEPS)).astype(np.int32)
+    jcfg = jeng.EngineConfig(cfg=CFG, fused_decode=False,
+                             **{k: v for k, v in JAX_MODES[mode].items() if k != "fused_decode"})
+    ref = _run_jax_cfg(j, jcfg, prompt, steps)
+    calls = []
+    real = teng.w4a8_matmul_packed
+    teng.w4a8_matmul_packed = lambda *a, **k: calls.append(1) or real(*a, **k)
+    try:
+        got, gk, gv = _run_port(t, prompt, steps, fused_decode=False)
+    finally:
+        teng.w4a8_matmul_packed = real
+    assert len(calls) == 4 * CFG.num_hidden_layers * (1 + STEPS)
+    for g, r in zip(got, ref[0]):
+        np.testing.assert_allclose(g, r, rtol=2e-3, atol=2e-3)
+    _assert_cache_close(gk, ref[1])
+    _assert_cache_close(gv, ref[2])
+

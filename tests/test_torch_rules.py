@@ -1,8 +1,8 @@
 """Rules of the dgq_tpu_torch package that hold without a GPU.
 
 It imports neither JAX nor dgq_tpu; its kernel wrappers take their plain
-versions on CPU tensors without counting a launch (K1-K8); configurations
-that need a kernel not yet ported raise NotImplementedError."""
+versions on CPU tensors without counting a launch (K1-K10, and K14's names);
+configurations that need a kernel not yet ported raise NotImplementedError."""
 
 import pathlib
 import re
@@ -118,6 +118,27 @@ def test_wrappers_take_plain_versions_on_cpu_without_launches():
             "int8_decode_attention_chunked", "int8_paged_decode_attention"} <= set(_cuda.LAUNCHES)
     assert _cuda.SOURCES["int8_decode_attention_chunked"] == _cuda.SOURCES[
         "int8_paged_decode_attention"]  # one CUDA source serves K7 and K8
+
+
+def test_span_wrappers_take_plain_versions_on_cpu_without_launches():
+    """K9 (with K14's names, which run it) and K10 on CPU tensors."""
+    _cuda.reset_launches()
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.integers(-128, 128, (5, 256)).astype(np.int8))
+    qw = torch.from_numpy(rng.integers(-128, 128, (128, 64)).astype(np.int8))
+    ws = torch.from_numpy(rng.integers(1, 4, (2, 64)).astype(np.int8))
+    wz = torch.from_numpy(rng.integers(4, 12, (2, 64)).astype(np.int8))
+    alpha, beta = torch.full((64,), 1e-3), torch.ones(64)
+    for out_dtype in (torch.float32, torch.int8):
+        want = tqm.w4a8_matmul_packed_xla(x, qw, ws, wz, alpha, beta, out_dtype=out_dtype)
+        for fn in (tqm.w4a8_matmul_packed, tqm.w4a8_matmul_wres, tqm.w4a8_matmul_pipe):
+            assert torch.equal(fn(x, qw, ws, wz, alpha, beta, out_dtype=out_dtype), want)
+    wsf, wzf = ws.float() * 0.7, wz.float()
+    assert torch.equal(tqm.w4a8_fpscale_matmul_packed(x, qw, wsf, wzf, alpha, beta),
+                       tqm.w4a8_fpscale_matmul_packed_xla(x, qw, wsf, wzf, alpha, beta))
+    assert _cuda.LAUNCHES == {name: 0 for name in _cuda.SOURCES}
+    assert _cuda.SOURCES["w4a8_matmul_packed"] == _cuda.SOURCES["w4a8_fpscale_matmul_packed"]
+    assert not {"w4a8_matmul_wres", "w4a8_matmul_pipe"} & set(_cuda.LAUNCHES)  # count as K9
 
 
 def test_unported_configurations_raise():
