@@ -26,7 +26,10 @@ It imports no JAX.  Phases, each printing one JSON line with its seconds:
    ``w4a8_fpscale_matmul_packed`` at LLaMA-2-7B shapes, each at M = 4, 1024
    and 2048: K9's int32 accumulators and outputs equal the plain version's;
    K10 equals it where K is not split over blocks and lies within K10_TOL of
-   the largest output where it is.
+   the largest output where it is.  Last K11 ``int4_paged_decode_attention``
+   on K8's pool, table and lengths with INT4 nibble pages, MHA and GQA:
+   within K11_TOL of the largest output of its plain version, and on a
+   contiguous table of K8 without quant_pv on the unpacked INT8 pool.
 4. main: ``build_llama_engine(LlamaConfig())`` (32 layers, full width, random
    weights from seed 0) then ``generate`` of 32 greedy tokens for 4 prompts
    of 256 tokens with the default ``EngineConfig`` (fused decode), with every
@@ -49,26 +52,43 @@ It imports no JAX.  Phases, each printing one JSON line with its seconds:
    paged decode step at 8 slots, and (not gated) which requests' tokens
    equal ``generate`` of the request alone, with the first token that
    differs.
-8. opt: ``build_opt_engine(OPTConfig())`` (OPT-6.7B, 32 layers, random
+8. serve_kv4: the paged daemon on INT4 nibble pages (``--paged --kv-bits
+   4``) on the same 7B checkpoint with the first 12 of serve's requests (one
+   streaming request cancelled): the served tokens must equal a direct
+   ``PagedBatcher(kv_bits=4).run()``, K11 must run 32 times per decode
+   forward and K8, K3, K7 and K2 never, ``kv_bytes_per_token`` must be
+   131,072 (half the INT8 pool's), and a pool of 40 pages must preempt and
+   finish every request.  Also a profiled 8-slot decode step.
+9. serve_dense: the daemon without ``--paged`` (the dense
+   ``ContinuousBatcher``, CLI defaults: 8 slots, max-len 2048, admit-batch
+   4, prefill-chunk 512) with the same 12 requests and the prefix: the
+   served tokens must equal a direct ``ContinuousBatcher.run()`` and one
+   with ``decode_steps=4``; K3 and each of K4-K6 must run 32 times per
+   decode forward.  Then a direct ``ContinuousBatcher`` run with INT4 KV,
+   reported (not gated) against serve_kv4's tokens: K11 and the plain
+   attention sum in different orders.
+10. opt: ``build_opt_engine(OPTConfig())`` (OPT-6.7B, 32 layers, random
    weights from seed 0), prefill of 4 x 256 tokens and 32 greedy tokens
    through ``opt_engine_forward`` in a cache of 2048, launches counted (K9
    4,096, K3 992, nothing else); a profiled decode step; then one
    ``ppl_eval_engine`` window of 2048 tokens (K9 128 launches at M = 2048).
-9. main_fpscale: main's run on ``build_llama_engine(..., fp_scales=True)``
+11. main_fpscale: main's run on ``build_llama_engine(..., fp_scales=True)``
    with ``EngineConfig(fp_scales=True)``: K10 for every linear, K2 and K3,
    nothing else (fused decode is off under fp_scales).
-10. parity: at full width and 2 layers, the kernel path against the plain
+12. parity: at full width and 2 layers, the kernel path against the plain
    path on the card (prefill logits, 8 teacher-forced decode steps and a
-   5-token ``window="decode"`` verify window), fused, unfused and fp-scale
-   (K10), ``paged_prefill`` + 8 teacher-forced ``paged_decode_batched``
-   steps over a shuffled page table, and the OPT engine (K9; prefill and 8
-   decode steps).  With random weights at full width one int8 code
-   that flips at a rounding boundary (fp32 sums taken in another order)
-   changes the rows after it by more than the tolerance, so the plain run
+   5-token ``window="decode"`` verify window), fused, unfused, fp-scale
+   (K10) and INT4 KV, ``paged_prefill`` + 8 teacher-forced
+   ``paged_decode_batched`` steps over a shuffled page table with INT8 (K8)
+   and INT4 (K11) pages, and the OPT engine (K9; prefill and 8 decode
+   steps); INT4 caches are compared as unpacked codes.  With random weights
+   at full width one int8 code that flips at a rounding boundary (fp32 sums
+   taken in another order) changes the rows after it by more than the
+   tolerance, so the plain run
    checks each of its int8 code tensors against the kernel run's (at most 1
    apart, >= 99.9% equal) and then continues from the kernel run's codes;
    the fused kernels hand their codes out through ``codes_out``.
-11. checkpoint: ``save_engine`` then ``load_engine`` at full width and 2
+13. checkpoint: ``save_engine`` then ``load_engine`` at full width and 2
    layers, for the LLaMA and the OPT engine: bit-equal tensors and equal
    greedy tokens.
 
@@ -101,6 +121,9 @@ K7_LENGTHS = (5000, 9000, 12000, 16000)
 PS, SLOTS = 128, 8  # serving: page size and slots (the serve CLI's defaults)
 K8_LENGTHS = (1, 127, 128, 129, 700, 1000, 1536, 2048)
 SERVE_REQUESTS, SERVE_NEW, PREFIX_LEN, TIGHT_PAGES = 24, 64, 300, 49
+# serve_kv4 and serve_dense: the first 12 requests; 40 usable pages hold the
+# prefix's 3 and less than the 46 the first 8 requests reach
+SERVE_KV4, SERVE_DENSE, TIGHT_PAGES_KV4 = 12, 12, 41
 K1_NAMES = ["rp_gemm_kernel", "splitk_epilogue"]  # K1 launches both when it splits K
 K4_NAMES, K5_NAMES = ["norm_gemv_rp_kernel"], ["requant_gemv_rp_kernel"]
 K6_NAMES = ["mlp_decode_rp_kernel", "mlp_decode_rp_epilogue"]
@@ -116,6 +139,7 @@ OPT_LINEARS = {"qkv_proj": (12288, 4096), "out_proj": (4096, 4096),
 PPL_LEN = 2048  # one perplexity window of OPT (max_position_embeddings)
 SPAN_ROWS = (BATCH, BATCH * PROMPT, PPL_LEN)  # K9/K10: decode step, prefill, ppl window
 K10_TOL = 1e-5  # of the largest |output|, where K10 splits K (fp32 sums reassociated)
+K11_TOL = 1e-5  # of the largest |output|: per-tile flash partials against one softmax
 
 
 def emit(obj) -> None:
@@ -151,22 +175,28 @@ class Timer:
         times.sort()
         return times[len(times) // 2]
 
-    def kernel(self, fn, names, iters: int = 20) -> float:
+    def kernel(self, fn, names, iters: int = 20, attempts: int = 3) -> float:
+        """A trace that records no device activity at all (seen once on the
+        card) is taken again, up to ``attempts`` times."""
         torch = self.torch
         fn()
         torch.cuda.synchronize()
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                self.flush.zero_()
-                fn()
-            torch.cuda.synchronize()
-        total_us = 0.0
-        for e in prof.key_averages():
-            if any(n in e.key for n in names):
-                total_us += getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0))
-        if total_us <= 0:
-            raise RuntimeError(f"profiler saw no device time for {names}")
-        return total_us / iters / 1e3
+        for _ in range(attempts):
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                for _ in range(iters):
+                    self.flush.zero_()
+                    fn()
+                torch.cuda.synchronize()
+            total_us, seen = 0.0, {}
+            for e in prof.key_averages():
+                us = getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0))
+                seen[e.key] = us
+                if any(n in e.key for n in names):
+                    total_us += us
+            if total_us > 0:
+                return total_us / iters / 1e3
+        raise RuntimeError(f"profiler saw no device time for {names}; it saw {seen}")
 
 
 def bound_ms(nbytes: float, *unit_seconds: float):
@@ -328,12 +358,13 @@ def _sdpa_decode_ms(torch, timer, q, kt, v, scales, lengths) -> dict:
             "library_per_slot_ms": ragged}
 
 
-def _decode_bound(b, h, hk, dh, keys, quant_pv, extra_bytes=0):
+def _decode_bound(b, h, hk, dh, keys, quant_pv, extra_bytes=0, kv_bytes=1.0):
     """Bound of single-token attention over ``keys`` cache positions in all:
-    K and V of those positions, q, lengths and out moved once; the QK dot in
-    int8, p @ V in int8 (quant_pv) or fp32."""
+    K and V of those positions (``kv_bytes`` per code: 1, or 0.5 for nibble
+    pages), q, lengths and out moved once; the QK dot in int8, p @ V in int8
+    (quant_pv) or fp32."""
     flops = 2.0 * dh * h * keys
-    nbytes = b * h * dh + 2 * hk * keys * dh + 4 * b + 4 * b * h * dh + extra_bytes
+    nbytes = b * h * dh + 2 * hk * keys * dh * kv_bytes + 4 * b + 4 * b * h * dh + extra_bytes
     if quant_pv:  # both dots on the int8 tensor cores
         return bound_ms(nbytes, 2 * flops / INT8_OPS_PER_S)
     return bound_ms(nbytes, flops / INT8_OPS_PER_S, flops / FP32_OPS_PER_S)
@@ -758,12 +789,28 @@ def _paged_table(lengths, npg, seed):
     return table
 
 
+def _contiguous_pool(torch, kt_pool, v_pool, table):
+    """The dense (B, Hkv, Dh, NP*ps) K and V of a pool's slots, and the same
+    pages laid out as pool pages 1.. in slot order behind the null page (the
+    pool of an identity table)."""
+    from dgq_tpu_torch.ops.attention import gather_paged_kv
+
+    slots, npg = table.shape
+    _, hk, dh, ps = kt_pool.shape
+    kt, v = [t.contiguous() for t in gather_paged_kv(kt_pool, v_pool, table)]
+    kt_c = torch.cat([kt_pool[:1], kt.reshape(slots, hk, dh, npg, ps).permute(
+        0, 3, 1, 2, 4).reshape(slots * npg, hk, dh, ps)]).contiguous()
+    v_c = torch.cat([v_pool[:1], v.reshape(slots, hk, npg, ps, dh).permute(
+        0, 2, 1, 3, 4).reshape(slots * npg, hk, ps, dh)]).contiguous()
+    return kt, v, kt_c, v_c
+
+
 def _k8_cases(torch, timer, gen):
     """K8 at 7B serving shapes: 8 slots, 128-token pages, a pool of 1 + 8 x
     16 pages, a shuffled table with null-page entries, lengths 1..2048 across
     page boundaries.  Each case also holds K8 on a contiguous table against
     K3 on the same dense cache."""
-    from dgq_tpu_torch.ops.attention import gather_paged_kv, int8_decode_attention, \
+    from dgq_tpu_torch.ops.attention import int8_decode_attention, \
         int8_paged_decode_attention, int8_paged_decode_attention_xla
 
     cases = []
@@ -791,12 +838,8 @@ def _k8_cases(torch, timer, gen):
         out_k = kern()
         err = _check_close(what, out_k, plain())
         # the same cache dense, and as pages 1.. on an identity table
-        kt, v = [t.contiguous() for t in gather_paged_kv(kt_pool, v_pool, table)]
+        kt, v, kt_c, v_c = _contiguous_pool(torch, kt_pool, v_pool, table)
         ident = (1 + torch.arange(SLOTS * npg, device=DEV, dtype=torch.int32)).reshape(SLOTS, npg)
-        kt_c = torch.cat([kt_pool[:1], kt.reshape(SLOTS, hk, dh, npg, PS).permute(
-            0, 3, 1, 2, 4).reshape(SLOTS * npg, hk, dh, PS)]).contiguous()
-        v_c = torch.cat([v_pool[:1], v.reshape(SLOTS, hk, npg, PS, dh).permute(
-            0, 2, 1, 3, 4).reshape(SLOTS * npg, hk, PS, dh)]).contiguous()
         err_k3 = _check_close(
             f"{what} contiguous table vs K3",
             int8_paged_decode_attention(q, kt_c, v_c, ident, lengths, qs, ks, vs,
@@ -815,6 +858,65 @@ def _k8_cases(torch, timer, gen):
     return cases
 
 
+def _k11_cases(torch, timer, gen):
+    """K11 at 7B serving shapes on INT4 nibble pages: K8's pool, table and
+    lengths with random bytes (two signed codes each), MHA and GQA.  Each
+    case also holds K11 on a contiguous table against K8 without quant_pv on
+    the unpacked INT8 pool of the same codes."""
+    from dgq_tpu_torch.ops.attention import int4_paged_decode_attention, \
+        int4_paged_decode_attention_xla, int8_paged_decode_attention
+    from dgq_tpu_torch.ops.kv4 import unpack_nibbles
+
+    cases = []
+    h, dh, npg = 32, 128, SMAX // PS
+    pages = 1 + SLOTS * npg
+    lengths = torch.tensor(K8_LENGTHS, dtype=torch.int32, device=DEV)
+    table = torch.from_numpy(_paged_table(K8_LENGTHS, npg, seed=11)).to(DEV)
+    ident = (1 + torch.arange(SLOTS * npg, device=DEV, dtype=torch.int32)).reshape(SLOTS, npg)
+    for hk in (32, 8):
+        def ri(lo, shape):
+            return torch.randint(lo, 128, shape, generator=gen, device=DEV, dtype=torch.int8)
+
+        q = ri(-127, (SLOTS, h, dh))
+        kt_pool, v_pool = ri(-128, (pages, hk, dh // 2, PS)), ri(-128, (pages, hk, PS, dh // 2))
+        # the caller's effective int4 scales (int8 scales x 127 / 7)
+        qs, ks4, vs4 = [torch.rand((), generator=gen, device=DEV) * 0.02 + 0.01 for _ in range(3)]
+        ks4, vs4 = ks4 * 127 / 7, vs4 * 127 / 7
+
+        def kern():
+            return int4_paged_decode_attention(q, kt_pool, v_pool, table, lengths, qs, ks4, vs4)
+
+        def plain():
+            return int4_paged_decode_attention_xla(q, kt_pool, v_pool, table, lengths, qs, ks4,
+                                                   vs4)
+
+        what = f"K11 Hkv={hk}"
+        out_k, out_p = kern(), plain()
+        top = out_p.abs().max().item()
+        err = _check_close(what, out_k, out_p, K11_TOL * top)
+        # on a contiguous table: the nibble pages through K11, and the same
+        # codes unpacked into an INT8 pool through K8
+        _, _, kt_c4, v_c4 = _contiguous_pool(torch, kt_pool, v_pool, table)
+        kt, v, kt_c, v_c = _contiguous_pool(torch, unpack_nibbles(kt_pool, axis=2),
+                                            unpack_nibbles(v_pool, axis=-1), table)
+        err_k8 = _check_close(
+            f"{what} contiguous table vs K8",
+            int4_paged_decode_attention(q, kt_c4, v_c4, ident, lengths, qs, ks4, vs4),
+            int8_paged_decode_attention(q, kt_c, v_c, ident, lengths, qs, ks4, vs4,
+                                        quant_pv=False), K11_TOL * top)
+        # the valid positions' nibbles, half K8's bytes, plus the table
+        b_ms, b_by = _decode_bound(SLOTS, h, hk, dh, sum(K8_LENGTHS), False,
+                                   extra_bytes=4 * SLOTS * npg, kv_bytes=0.5)
+        cases.append({"slots": SLOTS, "H": h, "Hkv": hk, "page": PS, "pool_pages": pages,
+                      "table_width": npg, "lengths": list(K8_LENGTHS), "max_abs_err": err,
+                      "largest_output": top, "max_abs_err_vs_k8_contiguous": err_k8,
+                      "ms": timer.kernel(kern, K78_NAMES), "call_ms": timer(kern),
+                      "plain_ms": timer(plain, iters=10), "bound_ms": b_ms, "bound_by": b_by,
+                      **_sdpa_decode_ms(torch, timer, q, kt, v, (qs, ks4, vs4), lengths)})
+        del kt_pool, v_pool, kt, v, kt_c, v_c, kt_c4, v_c4
+    return cases
+
+
 def phase_kernels(torch, state):
     timer = Timer(torch)
     gen = torch.Generator(device=DEV).manual_seed(0)
@@ -827,9 +929,10 @@ def phase_kernels(torch, state):
     state["k8"] = _k8_cases(torch, timer, gen)
     state["k9"] = _k9_cases(torch, timer, gen)
     state["k10"] = _k10_cases(torch, timer, gen)
+    state["k11"] = _k11_cases(torch, timer, gen)
     del timer
     torch.cuda.empty_cache()
-    return {**{f"k{i}": state[f"k{i}"] for i in range(1, 11)}, "k4_k6_sweep": sweep}
+    return {**{f"k{i}": state[f"k{i}"] for i in range(1, 12)}, "k4_k6_sweep": sweep}
 
 
 def _drive_main(torch, cfg, ecfg, want, smax=SMAX, new_tokens=NEW_TOKENS,
@@ -1155,22 +1258,21 @@ def _drive_socket(srv, reqs, cancel_uid):
     return finals, streamed, acks, metrics, wall, client
 
 
-def phase_serve(torch, state):
-    """The paged serving daemon at full 7B width and depth, over a socket."""
+def _serve_daemon(torch, cfg, flags, reqs, prefix, cancel_uid, forward):
+    """save_engine of the full-width engine of seed 0, then
+    ``dgq_tpu_torch.serve.build_server`` with ``flags`` and the registered
+    prefix, driven over a socket with ``reqs``.  ``forward`` (module, name)
+    is the decode forward whose calls are counted.  Gates what every served
+    run must show (no recovery, the cancel, SERVE_NEW tokens, streams equal
+    to outputs, the prefix hits) and returns the parsed args, the server's
+    batcher and the run's record."""
     import tempfile
 
     from dgq_tpu_torch import serve
-    from dgq_tpu_torch.models.engine import EngineConfig, generate
-    from dgq_tpu_torch.models.llama import LlamaConfig
     from dgq_tpu_torch.models.synthetic import build_llama_engine
     from dgq_tpu_torch.ops import _cuda
-    from dgq_tpu_torch.serving import paged
-    from dgq_tpu_torch.serving.scheduler import Request
     from dgq_tpu_torch.utils import checkpoint
 
-    cfg = LlamaConfig()
-    prefix, reqs = _serve_requests(cfg)
-    cancel_uid = 1  # a streaming request of the first wave
     build_dir = ROOT / "dgq_tpu_torch" / "_build"
     build_dir.mkdir(parents=True, exist_ok=True)
     tmp = Path(tempfile.mkdtemp(dir=build_dir))
@@ -1184,10 +1286,11 @@ def phase_serve(torch, state):
         torch.cuda.empty_cache()
         (tmp / "prefix.json").write_text(json.dumps(prefix.tolist()))
         args = serve.build_parser().parse_args(
-            [ckpt, "--paged", "--port", "0", "--prefix", str(tmp / "prefix.json"),
+            [ckpt, *flags, "--port", "0", "--prefix", str(tmp / "prefix.json"),
              "--metrics-interval", "0"])
         forwards, load_s = {"n": 0}, []
-        real, real_load = paged.paged_decode_batched, checkpoint.load_engine
+        mod, name = forward
+        real, real_load = getattr(mod, name), checkpoint.load_engine
 
         def counted(*a, **k):
             forwards["n"] += 1
@@ -1200,7 +1303,8 @@ def phase_serve(torch, state):
             load_s.append(time.perf_counter() - t)
             return out
 
-        paged.paged_decode_batched, checkpoint.load_engine = counted, timed_load
+        setattr(mod, name, counted)
+        checkpoint.load_engine = timed_load
         try:
             _cuda.reset_launches()
             t0 = time.perf_counter()
@@ -1213,13 +1317,11 @@ def phase_serve(torch, state):
                 launches = dict(_cuda.LAUNCHES)
                 batcher = srv.batcher
         finally:
-            paged.paged_decode_batched, checkpoint.load_engine = real, real_load
+            setattr(mod, name, real)
+            checkpoint.load_engine = real_load
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    params, decode_forwards = batcher.params, forwards["n"]
-    layers = cfg.num_hidden_layers
 
-    # gates of the served run
     if batcher._recoveries:
         raise AssertionError(f"the served run recovered {batcher._recoveries} time(s)")
     cancelled = finals[cancel_uid]
@@ -1232,54 +1334,86 @@ def phase_serve(torch, state):
     for uid, r in enumerate(reqs):
         if r["stream"] and streamed[uid] != finals[uid]["output_ids"]:
             raise AssertionError(f"request {uid}: streamed tokens differ from its output")
-    prefix_pages = -(-PREFIX_LEN // PS)
-    if metrics["pages_in_use"] != prefix_pages:
-        raise AssertionError(f"{metrics['pages_in_use']} pages in use after the run, "
-                             f"{prefix_pages} pinned by the prefix")
-    if metrics.get("prefix_hits") != sum(i % 3 == 0 for i in range(SERVE_REQUESTS)):
+    if metrics.get("prefix_hits") != sum(i % 3 == 0 for i in range(len(reqs))):
         raise AssertionError(f"prefix hits {metrics.get('prefix_hits')}")
-    if launches["int8_paged_decode_attention"] != layers * decode_forwards or not decode_forwards:
-        raise AssertionError(f"K8 launches {launches['int8_paged_decode_attention']} != "
-                             f"{layers} x {decode_forwards} decode forwards")
-    for name in ("int8_decode_attention", "int8_decode_attention_chunked"):
-        if launches[name]:
-            raise AssertionError(f"{name} launched {launches[name]} times on the paged path")
-    del batcher, srv
+    if not forwards["n"]:
+        raise AssertionError("no decode forward ran")
+    served_tokens = sum(len(m["output_ids"]) for m in finals.values())
+    record = {"layers": cfg.num_hidden_layers, "slots": args.slots, "max_len": args.max_len,
+              "prefill_chunk": args.prefill_chunk, "requests": len(reqs),
+              "new_tokens": SERVE_NEW, "prompt_tokens": sum(len(r["prompt_ids"]) for r in reqs),
+              "save_engine_s": save_s, "load_engine_s": load_s[0], "build_server_s": start_s,
+              "served_wall_s": wall, "served_tokens": served_tokens,
+              "client_tok_per_s": served_tokens / wall, "client_latency": client,
+              "metrics": metrics, "decode_forwards": forwards["n"], "launches": launches,
+              "cancelled": {"uid": cancel_uid, "tokens": len(cancelled["output_ids"])}}
+    return args, batcher, served, cancelled["output_ids"], record
 
-    def direct(**kw):
-        b = paged.PagedBatcher(EngineConfig(cfg=cfg), params, num_slots=args.slots,
-                               max_len=args.max_len, page_size=args.page_size,
-                               prefill_chunk=args.prefill_chunk, **kw)
-        b.register_prefix(prefix)
-        for uid, r in enumerate(reqs):
-            b.add_request(Request(uid=uid, prompt_ids=r["prompt_ids"],
-                                  max_new_tokens=SERVE_NEW))
-        t0 = time.perf_counter()
-        out = {r.uid: r.output_ids for r in b.run()}
-        torch.cuda.synchronize()
-        return b, out, time.perf_counter() - t0
 
-    b, want, direct_s = direct()
+def _check_attention_launches(launches, name, per_forward):
+    """``name`` ran ``per_forward`` (layers x decode forwards) times and no
+    other decode attention kernel ran."""
+    if launches[name] != per_forward:
+        raise AssertionError(f"{name} launches {launches[name]} != {per_forward}")
+    for other in ("int8_decode_attention", "int8_decode_attention_chunked",
+                  "int8_paged_decode_attention", "int4_paged_decode_attention"):
+        if other != name and launches[other]:
+            raise AssertionError(f"{other} launched {launches[other]} times beside {name}")
+
+
+def _direct_run(torch, make, prefix, reqs, **kw):
+    """A batcher made by ``make(**kw)`` with the prefix registered, running
+    ``reqs`` to the end: (batcher, {uid: tokens}, seconds)."""
+    from dgq_tpu_torch.serving.scheduler import Request
+
+    b = make(**kw)
+    b.register_prefix(prefix)
+    for uid, r in enumerate(reqs):
+        b.add_request(Request(uid=uid, prompt_ids=r["prompt_ids"], max_new_tokens=SERVE_NEW))
+    t0 = time.perf_counter()
+    out = {r.uid: r.output_ids for r in b.run()}
+    torch.cuda.synchronize()
+    return b, out, time.perf_counter() - t0
+
+
+def _check_equal(what, served, want) -> None:
     diff = [uid for uid, t in served.items() if t != want[uid]]
     if diff:
-        raise AssertionError(f"served tokens differ from a direct PagedBatcher.run() for {diff}")
-    cancelled_prefix = want[cancel_uid][:len(cancelled["output_ids"])] == cancelled["output_ids"]
+        raise AssertionError(f"served tokens differ from {what} for {diff}")
+
+
+def _paged_serve_tail(torch, cfg, args, params, prefix, reqs, served, kv_bits, tight_pages,
+                      attn):
+    """The paged phases' direct runs: the served tokens must equal a direct
+    PagedBatcher.run(); a pool of ``tight_pages`` must preempt and finish
+    every request; then a profiled decode step with all 8 slots decoding
+    (``attn`` names the decode attention's kernel group)."""
+    from dgq_tpu_torch.models.engine import EngineConfig
+    from dgq_tpu_torch.serving import paged
+    from dgq_tpu_torch.serving.scheduler import Request
+
+    ecfg = EngineConfig(cfg=cfg, kv_bits=kv_bits)
+
+    def make(**kw):
+        return paged.PagedBatcher(ecfg, params, num_slots=args.slots, max_len=args.max_len,
+                                  page_size=args.page_size, prefill_chunk=args.prefill_chunk,
+                                  **kw)
+
+    b, want, direct_s = _direct_run(torch, make, prefix, reqs)
+    _check_equal("a direct PagedBatcher.run()", served, want)
     del b
-    tight, tight_out, tight_s = direct(num_pages=TIGHT_PAGES)
+    tight, tight_out, tight_s = _direct_run(torch, make, prefix, reqs, num_pages=tight_pages)
     if tight.preemptions < 1:
-        raise AssertionError(f"a pool of {TIGHT_PAGES - 1} pages did not preempt")
-    if sorted(tight_out) != list(range(SERVE_REQUESTS)) or any(
+        raise AssertionError(f"a pool of {tight_pages - 1} pages did not preempt")
+    if sorted(tight_out) != list(range(len(reqs))) or any(
             len(t) != SERVE_NEW for t in tight_out.values()):
         raise AssertionError("the tight pool did not finish every request")
-    tight_equal = sum(tight_out[u] == want[u] for u in want) / len(want)
-    preemptions = tight.preemptions
+    tight_rec = {"num_pages": tight_pages, "preemptions": tight.preemptions, "run_s": tight_s,
+                 "share_equal_direct": sum(tight_out[u] == want[u] for u in want) / len(want)}
     del tight
     torch.cuda.empty_cache()
 
-    # a profiled paged decode step with all 8 slots decoding
-    prof_b = paged.PagedBatcher(EngineConfig(cfg=cfg), params, num_slots=SLOTS,
-                                max_len=args.max_len, page_size=PS,
-                                prefill_chunk=args.prefill_chunk)
+    prof_b = make()
     for uid in range(SLOTS):
         prof_b.add_request(Request(uid=uid, prompt_ids=reqs[uid]["prompt_ids"],
                                    max_new_tokens=SERVE_NEW))
@@ -1288,8 +1422,36 @@ def phase_serve(torch, state):
     if sum(r is not None for r in prof_b.slots) != SLOTS:
         raise AssertionError("not every slot is decoding before the profiled steps")
     lengths = [int(n) for n in prof_b.lengths_h]
-    breakdown = _profile_steps(torch, prof_b.step, 4, ("K8", K78_NAMES))
+    breakdown = _profile_steps(torch, prof_b.step, 4, attn)
     del prof_b
+    return want, {"page_size": args.page_size, "direct_run_s": direct_s,
+                  "served_equal_direct": True, "tight_pool": tight_rec,
+                  "paged_decode_step": {"slots": SLOTS, "lengths": lengths, **breakdown}}
+
+
+def phase_serve(torch, state):
+    """The paged serving daemon at full 7B width and depth, over a socket."""
+    from dgq_tpu_torch.models.engine import EngineConfig, generate
+    from dgq_tpu_torch.models.llama import LlamaConfig
+    from dgq_tpu_torch.serving import paged
+
+    cfg = LlamaConfig()
+    prefix, reqs = _serve_requests(cfg)
+    cancel_uid = 1  # a streaming request of the first wave
+    args, batcher, served, cancelled, rec = _serve_daemon(
+        torch, cfg, ["--paged"], reqs, prefix, cancel_uid, (paged, "paged_decode_batched"))
+    params, layers = batcher.params, cfg.num_hidden_layers
+    prefix_pages = -(-PREFIX_LEN // PS)
+    if rec["metrics"]["pages_in_use"] != prefix_pages:
+        raise AssertionError(f"{rec['metrics']['pages_in_use']} pages in use after the run, "
+                             f"{prefix_pages} pinned by the prefix")
+    _check_attention_launches(rec["launches"], "int8_paged_decode_attention",
+                              layers * rec["decode_forwards"])
+    del batcher
+    want, tail = _paged_serve_tail(torch, cfg, args, params, prefix, reqs, served, 8,
+                                   TIGHT_PAGES, ("K8", K78_NAMES))
+    rec["cancelled"]["prefix_of_direct_run"] = (
+        want[cancel_uid][:len(cancelled)] == cancelled)
 
     # not gated: the dense engine on each request alone, and the index of
     # the first token where it differs (0: the prefill's token)
@@ -1301,24 +1463,115 @@ def phase_serve(torch, state):
         first_diff.append(next((i for i, (a, b) in enumerate(zip(alone.tolist(), want[uid]))
                                 if a != b), None))
     alone_s = time.perf_counter() - t0
-    state["launches_serve"] = launches
-    served_tokens = sum(len(m["output_ids"]) for m in finals.values())
-    return {"layers": layers, "slots": args.slots, "max_len": args.max_len,
-            "page_size": args.page_size, "prefill_chunk": args.prefill_chunk,
-            "requests": SERVE_REQUESTS, "new_tokens": SERVE_NEW,
-            "prompt_tokens": sum(len(r["prompt_ids"]) for r in reqs),
-            "save_engine_s": save_s, "load_engine_s": load_s[0], "build_server_s": start_s,
-            "served_wall_s": wall,
-            "served_tokens": served_tokens, "client_tok_per_s": served_tokens / wall,
-            "client_latency": client, "metrics": metrics, "decode_forwards": decode_forwards, "launches": launches,
-            "cancelled": {"uid": cancel_uid, "tokens": len(cancelled["output_ids"]),
-                          "prefix_of_direct_run": cancelled_prefix},
+    state["launches_serve"] = rec["launches"]
+    return {**rec, **tail,
+            "alone_generate_share_equal": first_diff.count(None) / len(reqs),
+            "alone_generate_first_diff": first_diff, "alone_generate_s": alone_s}
+
+
+def phase_serve_kv4(torch, state):
+    """The paged daemon on INT4 nibble pages (``--paged --kv-bits 4``) at
+    full 7B width and depth, over a socket with the first SERVE_KV4 of phase
+    serve's requests: K11 at every decode forward, no other decode attention
+    and no K2 (INT4 KV prefills with the plain attention); half the INT8
+    pool's bytes per token."""
+    from dgq_tpu_torch.models.llama import LlamaConfig
+    from dgq_tpu_torch.serving import paged
+
+    cfg = LlamaConfig()
+    prefix, reqs = _serve_requests(cfg)
+    reqs = reqs[:SERVE_KV4]
+    args, batcher, served, _, rec = _serve_daemon(
+        torch, cfg, ["--paged", "--kv-bits", "4"], reqs, prefix, 1,
+        (paged, "paged_decode_batched"))
+    params, layers = batcher.params, cfg.num_hidden_layers
+    m = rec["metrics"]
+    kv8 = 2 * layers * cfg.num_key_value_heads * cfg.head_dim  # INT8 bytes per token
+    if (m["kv_bits"], m["kv_bytes_per_token"]) != (4, kv8 // 2) or batcher.kv_bytes_per_token != \
+            kv8 // 2:
+        raise AssertionError(f"kv_bits {m['kv_bits']}, {m['kv_bytes_per_token']} bytes per "
+                             f"token: not half of INT8's {kv8}")
+    if m["pages_in_use"] != -(-PREFIX_LEN // PS):
+        raise AssertionError(f"{m['pages_in_use']} pages in use after the run")
+    _check_attention_launches(rec["launches"], "int4_paged_decode_attention",
+                              layers * rec["decode_forwards"])
+    if rec["launches"]["int8_prefill_attention"]:
+        raise AssertionError("K2 ran on the INT4 KV path")
+    del batcher
+    want, tail = _paged_serve_tail(torch, cfg, args, params, prefix, reqs, served, 4,
+                                   TIGHT_PAGES_KV4, ("K11", K78_NAMES))
+    state["launches_serve_kv4"] = rec["launches"]
+    state["serve_kv4_tokens"] = want
+    return {**rec, **tail, "kv_bytes_per_token_int8": kv8}
+
+
+def phase_serve_dense(torch, state):
+    """The dense daemon (``serve`` without ``--paged``: the ContinuousBatcher
+    with the CLI's defaults, 8 slots, max-len 2048, admit-batch 4,
+    prefill-chunk 512) at full 7B width and depth over a socket with the
+    first SERVE_DENSE of phase serve's requests: K3 and K4-K6 once per layer
+    at every decode forward.  The served tokens must equal a direct
+    ContinuousBatcher.run() and one with decode_steps=4.  Then (not gated) a
+    direct INT4 KV run, against phase serve_kv4's tokens."""
+    from dgq_tpu_torch.models.engine import EngineConfig
+    from dgq_tpu_torch.models.llama import LlamaConfig
+    from dgq_tpu_torch.serving import scheduler
+
+    cfg = LlamaConfig()
+    prefix, reqs = _serve_requests(cfg)
+    reqs = reqs[:SERVE_DENSE]
+    args, batcher, served, _, rec = _serve_daemon(
+        torch, cfg, [], reqs, prefix, 1, (scheduler, "engine_decode_batched"))
+    params, layers = batcher.params, cfg.num_hidden_layers
+    if type(batcher).__name__ != "ContinuousBatcher" or batcher.admit_batch != 4:
+        raise AssertionError(f"the daemon without --paged runs {type(batcher).__name__}")
+    per_forward = layers * rec["decode_forwards"]
+    _check_attention_launches(rec["launches"], "int8_decode_attention", per_forward)
+    fused = {n: rec["launches"][n] for n in ("fused_norm_gemv_rp", "fused_requant_gemv_rp",
+                                              "fused_mlp_decode_rp")}
+    if any(n != per_forward for n in fused.values()):
+        raise AssertionError(f"K4-K6 launches {fused} != {per_forward}")
+    del batcher
+
+    def make(kv_bits=8, **kw):
+        return scheduler.ContinuousBatcher(
+            EngineConfig(cfg=cfg, kv_bits=kv_bits), params, num_slots=args.slots,
+            max_len=args.max_len, prefill_pad=args.prefill_pad,
+            prefill_chunk=args.prefill_chunk, admit_batch=args.admit_batch, **kw)
+
+    _, want, direct_s = _direct_run(torch, make, prefix, reqs)
+    _check_equal("a direct ContinuousBatcher.run()", served, want)
+    _, multi, multi_s = _direct_run(torch, make, prefix, reqs, decode_steps=4)
+    _check_equal("a direct run with decode_steps=4", served, multi)
+    _, kv4, kv4_s = _direct_run(torch, make, prefix, reqs, kv_bits=4)
+    if sorted(kv4) != list(range(len(reqs))) or any(len(t) != SERVE_NEW for t in kv4.values()):
+        raise AssertionError("the dense INT4 KV run did not finish every request")
+    paged4 = state.get("serve_kv4_tokens")
+    torch.cuda.empty_cache()
+
+    # a profiled dense decode step with all 8 slots decoding
+    prof_b = make()
+    for uid in range(SLOTS):
+        prof_b.add_request(scheduler.Request(uid=uid, prompt_ids=reqs[uid]["prompt_ids"],
+                                             max_new_tokens=SERVE_NEW))
+    while prof_b.queue or prof_b.pending:
+        prof_b.step()
+    if sum(r is not None for r in prof_b.slots) != SLOTS:
+        raise AssertionError("not every slot is decoding before the profiled steps")
+    lengths = [int(n) for n in prof_b.lengths_h]
+    breakdown = _profile_steps(torch, prof_b.step, 4, ("K3", ["decode_attn_kernel"]))
+    del prof_b
+    state["launches_serve_dense"] = rec["launches"]
+    return {**rec, "prefill_pad": args.prefill_pad, "admit_batch": args.admit_batch,
             "direct_run_s": direct_s, "served_equal_direct": True,
-            "tight_pool": {"num_pages": TIGHT_PAGES, "preemptions": preemptions,
-                           "run_s": tight_s, "share_equal_direct": tight_equal},
-            "alone_generate_share_equal": first_diff.count(None) / SERVE_REQUESTS,
-            "alone_generate_first_diff": first_diff, "alone_generate_s": alone_s,
-            "paged_decode_step": {"slots": SLOTS, "lengths": lengths, **breakdown}}
+            "decode_steps_4_run_s": multi_s, "served_equal_decode_steps_4": True,
+            "kv4_direct_run_s": kv4_s,
+            # per request, the index of the first token where the dense INT4
+            # run leaves serve_kv4's tokens (None: equal; 0: the prefill's)
+            "kv4_first_diff_vs_paged_kv4": None if paged4 is None else [
+                next((i for i, (a, b) in enumerate(zip(kv4[u], paged4[u])) if a != b), None)
+                for u in sorted(kv4)],
+            "dense_decode_step": {"slots": SLOTS, "lengths": lengths, **breakdown}}
 
 
 def _profile_decode(torch, ecfg, eng, tok, cache, steps: int, attn, linear=("K1", K1_NAMES)):
@@ -1386,11 +1639,12 @@ class _CodeRecorder:
         from dgq_tpu_torch.ops import fused_decode
         from dgq_tpu_torch.serving import paged
 
-        # the paged decode block requantises q/k/v through its own binding;
-        # the OPT block makes codes in LayerNormQ, in K9's int8 epilogue
-        # (q|k|v) and in its requants
-        self.saved = [(engine, n, getattr(engine, n)) for n in ("_rms_norm_q", "_requant")]
-        self.saved.append((paged, "_requant", paged._requant))
+        # the paged decode block requantises q/k/v (or quantises k/v to int4)
+        # through its own bindings; the OPT block makes codes in LayerNormQ,
+        # in K9's int8 epilogue (q|k|v) and in its requants
+        self.saved = [(engine, n, getattr(engine, n))
+                      for n in ("_rms_norm_q", "_requant", "quantize_kv4")]
+        self.saved += [(paged, n, getattr(paged, n)) for n in ("_requant", "quantize_kv4")]
         self.saved += [(opt_engine, n, getattr(opt_engine, n))
                        for n in ("_layer_norm_q", "_linear_s8_int8out", "_requant")]
         if self.force is None:
@@ -1448,8 +1702,8 @@ class _PlainPath:
                        "int8_decode_attention_chunked", "fused_norm_gemv_rp",
                        "fused_requant_gemv_rp", "fused_mlp_decode_rp", "w4a8_matmul_packed",
                        "w4a8_fpscale_matmul_packed")]
-        self.saved.append((paged, "int8_paged_decode_attention",
-                           paged.int8_paged_decode_attention))
+        self.saved += [(paged, n, getattr(paged, n)) for n in
+                       ("int8_paged_decode_attention", "int4_paged_decode_attention")]
         self.saved += [(opt_engine, n, getattr(opt_engine, n)) for n in
                        ("w4a8_matmul_packed", "int8_decode_attention",
                         "int8_decode_attention_chunked")]
@@ -1486,6 +1740,7 @@ class _PlainPath:
         engine.fused_mlp_decode_rp = k6
         engine.int8_decode_attention_chunked = opt_engine.int8_decode_attention_chunked = k7
         paged.int8_paged_decode_attention = attention.int8_paged_decode_attention_xla
+        paged.int4_paged_decode_attention = attention.int4_paged_decode_attention_xla
         return self
 
     def __exit__(self, *exc):
@@ -1498,7 +1753,7 @@ def _teacher_forced(torch, ecfg, eng, prompts, steps, window):
     decode-side (verify) window; returns every forward's logits."""
     from dgq_tpu_torch.models.engine import engine_forward, init_kv_cache
 
-    cache = init_kv_cache(ecfg.cfg, prompts.shape[0], SMAX, device=DEV)
+    cache = init_kv_cache(ecfg.cfg, prompts.shape[0], SMAX, kv_bits=ecfg.kv_bits, device=DEV)
     logits, cache = engine_forward(ecfg, eng, prompts, cache)
     out = [logits]
     for i in range(steps.shape[1]):
@@ -1506,7 +1761,17 @@ def _teacher_forced(torch, ecfg, eng, prompts, steps, window):
         out.append(logits)
     logits, cache = engine_forward(ecfg, eng, window, cache, window="decode")
     out.append(logits)
-    return out, {"k": cache.k, "v": cache.v}
+    return out, _codes(ecfg, cache.k, cache.v)
+
+
+def _codes(ecfg, k, v):
+    """The cache's codes by name; nibble caches unpacked, so that codes and
+    not bytes are compared."""
+    from dgq_tpu_torch.ops.kv4 import unpack_nibbles
+
+    if ecfg.kv_bits == 4:
+        k, v = unpack_nibbles(k, axis=-2), unpack_nibbles(v, axis=-1)
+    return {"k": k, "v": v}
 
 
 def _paged_teacher_forced(torch, ecfg, eng, prompts, steps):
@@ -1517,7 +1782,7 @@ def _paged_teacher_forced(torch, ecfg, eng, prompts, steps):
         paged_prefill
 
     b, npg = prompts.shape[0], SMAX // PS
-    cache = init_paged_cache(ecfg.cfg, b, 1 + b * npg, PS, device=DEV)
+    cache = init_paged_cache(ecfg.cfg, b, 1 + b * npg, PS, kv_bits=ecfg.kv_bits, device=DEV)
     table = _paged_table([SMAX] * b, npg, seed=5)
     out = []
     for i in range(b):
@@ -1530,7 +1795,7 @@ def _paged_teacher_forced(torch, ecfg, eng, prompts, steps):
         logits, cache = paged_decode_batched(ecfg, eng, steps[:, i].contiguous(), cache,
                                              table_dev, active)
         out.append(logits)
-    return out, {"k": cache.kt, "v": cache.v}
+    return out, _codes(ecfg, cache.kt, cache.v)
 
 
 def _opt_teacher_forced(torch, ecfg, eng, prompts, steps):
@@ -1599,6 +1864,12 @@ def phase_parity(torch, state):
                                                              window)),
            "paged": _parity(torch, lambda: _paged_teacher_forced(torch, ecfg, eng, prompts,
                                                                  steps))}
+    # INT4 KV: the dense engine (plain attention, K1 and K4-K6 around it) and
+    # the paged batcher's functions (K11)
+    kv4 = EngineConfig(cfg=cfg, kv_bits=4)
+    out["kv4"] = _parity(torch, lambda: _teacher_forced(torch, kv4, eng, prompts, steps, window))
+    out["paged_kv4"] = _parity(torch, lambda: _paged_teacher_forced(torch, kv4, eng, prompts,
+                                                                    steps))
     del eng
     # the paths of phases main_fpscale (K10) and opt (K9), at full width
     fp_eng = build_llama_engine(cfg, seed=2, device=DEV, fp_scales=True)
@@ -1717,6 +1988,8 @@ SOURCES_OF = {
                                       "dgq_tpu/ops/attention.py:542"),
     "int8_paged_decode_attention": ("dgq_tpu_torch/csrc/int8_chunked_decode_attention.cu",
                                     "dgq_tpu/ops/attention.py:679"),
+    "int4_paged_decode_attention": ("dgq_tpu_torch/csrc/int8_chunked_decode_attention.cu",
+                                    "dgq_tpu/ops/attention.py:887"),
     "w4a8_matmul_packed": ("dgq_tpu_torch/csrc/w4a8_span_gemm.cu",
                            "dgq_tpu/ops/quant_matmul.py:173"),
     "w4a8_fpscale_matmul_packed": ("dgq_tpu_torch/csrc/w4a8_span_gemm.cu",
@@ -1726,14 +1999,16 @@ SOURCES_OF = {
 ALSO_REPLACES = {"w4a8_matmul_packed": ["dgq_tpu/ops/quant_matmul.py:305",
                                         "dgq_tpu/ops/quant_matmul.py:463"]}
 # the path whose launches each kernel's entry reports: K7 runs on main_long
-# only, K8 on the serving path only, K9 on the OPT engine, K10 on the
-# fp-scale LLaMA engine
+# only, K8 on the paged serving path only, K9 on the OPT engine, K10 on the
+# fp-scale LLaMA engine, K11 on paged serving with INT4 KV
 PATH_OF = {"int8_decode_attention_chunked": "launches_long",
            "int8_paged_decode_attention": "launches_serve",
            "w4a8_matmul_packed": "launches_opt",
-           "w4a8_fpscale_matmul_packed": "launches_fpscale"}
+           "w4a8_fpscale_matmul_packed": "launches_fpscale",
+           "int4_paged_decode_attention": "launches_serve_kv4"}
 PATHS = {"main": "launches", "main_long": "launches_long", "serve": "launches_serve",
-         "opt": "launches_opt", "main_fpscale": "launches_fpscale"}
+         "opt": "launches_opt", "main_fpscale": "launches_fpscale",
+         "serve_kv4": "launches_serve_kv4", "serve_dense": "launches_serve_dense"}
 LINE_PHASES = {"kernels", *PATHS}
 
 
@@ -1742,20 +2017,23 @@ def kernels_line(state):
     prefill (M = 1024) summed (K1 LLaMA under fused decode, K9 OPT, K10
     LLaMA with fp32 scales); K2, K3: the main path's MHA case (K3 with
     quant_pv); K4-K6: the decode step (M = 4); K7, K8: the MHA case with
-    quant_pv.  ``launches`` counts the kernel over the path that runs it
-    (main; K7 main_long; K8 serve; K9 opt; K10 main_fpscale), and
-    ``launches_by_path`` over each.  Every case is listed under ``cases``."""
+    quant_pv; K11: the MHA case.  ``launches`` counts the kernel over the
+    path that runs it (main; K7 main_long; K8 serve; K9 opt; K10
+    main_fpscale; K11 serve_kv4), and ``launches_by_path`` over each.  Every
+    case is listed under ``cases``."""
     cases = {"w4a8_matmul_rp_pipe": state["k1"], "int8_prefill_attention": state["k2"],
              "int8_decode_attention": state["k3"], "fused_norm_gemv_rp": state["k4"],
              "fused_requant_gemv_rp": state["k5"], "fused_mlp_decode_rp": state["k6"],
              "int8_decode_attention_chunked": state["k7"],
              "int8_paged_decode_attention": state["k8"],
-             "w4a8_matmul_packed": state["k9"], "w4a8_fpscale_matmul_packed": state["k10"]}
+             "w4a8_matmul_packed": state["k9"], "w4a8_fpscale_matmul_packed": state["k10"],
+             "int4_paged_decode_attention": state["k11"]}
     head = {
         "int8_prefill_attention": state["k2"][0],
         "int8_decode_attention": state["k3"][0],
         "int8_decode_attention_chunked": state["k7"][0],
         "int8_paged_decode_attention": state["k8"][0],
+        "int4_paged_decode_attention": state["k11"][0],
     }
     for name in ("w4a8_matmul_rp_pipe", "w4a8_matmul_packed", "w4a8_fpscale_matmul_packed"):
         pre = [c for c in cases[name] if c["M"] == BATCH * PROMPT]
@@ -1789,6 +2067,8 @@ PHASES = {
     "main_unfused": phase_main_unfused,
     "main_long": phase_main_long,
     "serve": phase_serve,
+    "serve_kv4": phase_serve_kv4,
+    "serve_dense": phase_serve_dense,
     "opt": phase_opt,
     "main_fpscale": phase_main_fpscale,
     "parity": phase_parity,

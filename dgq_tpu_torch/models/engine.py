@@ -1,11 +1,15 @@
 """Real-quant INT8-dataflow LLaMA engine on one NVIDIA GPU.
 
-Port of ``dgq_tpu/models/engine.py`` for INT8 KV.  Prompt windows run every
+Port of ``dgq_tpu/models/engine.py``.  Prompt windows run every
 linear through K1 (``w4a8_matmul_rp_pipe``) on rowpair storage, K9
 (``w4a8_matmul_packed``) on span-only storage, or K10 (``w4a8_fpscale_matmul_packed``) under ``fp_scales``,
 and attend with K2 (``int8_prefill_attention``) past 8 tokens; decode steps
 attend with K3 (``int8_decode_attention``), or with K7
 (``int8_decode_attention_chunked``) once the cache outgrows 8192 positions.
+With ``kv_bits=4`` the cache holds INT4 codes packed two per byte along Dh
+(``ops/kv4.py``) and every window attends, as JAX's does, with plain
+materialised attention over the unpacked cache and fp p @ V (no K2, K3 or
+K7; the paged batcher's decode takes K11).
 With ``fused_decode`` (the default, as in JAX) decode steps and windows of
 at most 8 tokens and 64 rows run each layer's linears through the fused
 kernels K4
@@ -47,6 +51,7 @@ from dgq_tpu_torch.ops.fused_decode import (
     fused_norm_gemv_rp,
     fused_requant_gemv_rp,
 )
+from dgq_tpu_torch.ops.kv4 import kv4_scale, pack_nibbles, quantize_kv4, unpack_nibbles
 from dgq_tpu_torch.ops.quant_matmul import (
     int_matmul,
     w4a8_fpscale_matmul_packed,
@@ -122,19 +127,27 @@ class EngineParams:
 
 
 class KVCache(NamedTuple):
-    k: Tensor  # (L, B, Hkv, Dh, Smax) int8, K stored transposed
-    v: Tensor  # (L, B, Hkv, Smax, Dh) int8
+    k: Tensor  # (L, B, Hkv, Dh, Smax) int8, K stored transposed (Dh/2 packed under kv_bits=4)
+    v: Tensor  # (L, B, Hkv, Smax, Dh) int8 (Dh/2 packed under kv_bits=4)
     length: int  # tokens already cached
+
+
+def check_kv_bits(kv_bits: int) -> None:
+    if kv_bits not in (8, 4):
+        raise ValueError(f"kv_bits must be 8 or 4, got {kv_bits}")
+
+
+def kv_head_bytes(cfg: LlamaConfig, kv_bits: int) -> int:
+    """Bytes of one cached head vector: Dh, or Dh/2 nibble-packed."""
+    check_kv_bits(kv_bits)
+    return cfg.head_dim if kv_bits == 8 else cfg.head_dim // 2
 
 
 def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int,
                   num_layers: Optional[int] = None, kv_bits: int = 8,
                   device="cuda") -> KVCache:
-    if kv_bits != 8:
-        raise NotImplementedError("kv_bits=4 needs K11 int4_paged_decode_attention and the "
-                                  "INT4 KV path, not yet ported")
     n = num_layers or cfg.num_hidden_layers
-    hk, dh = cfg.num_key_value_heads, cfg.head_dim
+    hk, dh = cfg.num_key_value_heads, kv_head_bytes(cfg, kv_bits)
     return KVCache(
         k=torch.zeros((n, batch, hk, dh, max_len), dtype=torch.int8, device=device),
         v=torch.zeros((n, batch, hk, max_len, dh), dtype=torch.int8, device=device),
@@ -162,12 +175,13 @@ class EngineConfig:
     # fp-scale engine (w4w8-fallback linears): every linear runs K10 and the
     # fused decode kernels are off
     fp_scales: bool = False
+    # KV-cache precision: 8 (INT8) or 4 (symmetric INT4 packed two per byte
+    # along Dh, ops/kv4.py: half the cache memory; plain attention, and K11
+    # in the paged batcher's decode)
     kv_bits: int = 8
 
     def __post_init__(self):
-        if self.kv_bits != 8:
-            raise NotImplementedError("kv_bits=4 needs the INT4 KV path (K11 "
-                                      "int4_paged_decode_attention), not yet ported")
+        check_kv_bits(self.kv_bits)
 
 
 def _rms_norm_q(x: Tensor, weight_q: Tensor, eps: float, bias_q=None) -> Tensor:
@@ -312,11 +326,29 @@ def _block_tail(ecfg: EngineConfig, layer: EngineLayer, x: Tensor, ctx: Tensor,
     return x + _linear_s8(layer.down_proj, h_s8, **kw)
 
 
+def _kv4_attention(layer: EngineLayer, q_s8: Tensor, k_cache: Tensor, v_cache: Tensor,
+                   mask: Tensor, hk: int) -> Tensor:
+    """Plain attention of (B, H, S, Dh) int8 queries over nibble-packed
+    caches (unpacked whole, as JAX's kv4 branch): int32 scores with the
+    effective int4 scales, additive ``mask`` (S, Smax), softmax and fp p @ V
+    -> (B, S, H * Dh) f32."""
+    b, h, s, dh = q_s8.shape
+    k_all = unpack_nibbles(k_cache, axis=2)  # (B, Hkv, Dh, Smax)
+    v_all = unpack_nibbles(v_cache, axis=-1)  # (B, Hkv, Smax, Dh)
+    scores = _attention_scores(q_s8.reshape(b, hk, (h // hk) * s, dh), k_all, layer.q_scale,
+                               kv4_scale(layer.k_scale), dh)
+    scores = scores.reshape(b, hk, h // hk, s, -1) + mask[None, None, None]
+    probs = torch.softmax(scores, dim=-1)
+    ctx = torch.matmul(probs, (v_all.to(torch.float32) * kv4_scale(layer.v_scale))[:, :, None])
+    return ctx.permute(0, 3, 1, 2, 4).reshape(b, s, h * dh)
+
+
 def _block(ecfg: EngineConfig, layer: EngineLayer, x: Tensor, k_cache: Tensor,
            v_cache: Tensor, cache_len: int, pos_cos: Tensor, pos_sin: Tensor, mask: Tensor,
            decode_window: bool = False) -> Tensor:
     """One decoder block on (B, S, D) fp32 activations; writes the S new
-    tokens' int8 K/V into the caches at [cache_len, cache_len + S)."""
+    tokens' int8 K/V (int4 nibbles under kv_bits=4) into the caches at
+    [cache_len, cache_len + S)."""
     cfg = ecfg.cfg
     b, s, _ = x.shape
     dh = cfg.head_dim
@@ -335,6 +367,14 @@ def _block(ecfg: EngineConfig, layer: EngineLayer, x: Tensor, k_cache: Tensor,
     k = k * cos + rotate_half(k) * sin
 
     q_s8 = _requant(q, layer.q_scale).contiguous()
+    if ecfg.kv_bits == 4:
+        # INT4 KV: quantise to [-7, 7], pack along Dh, write, then plain
+        # attention over the unpacked cache for every window (JAX's branch)
+        k_cache[:, :, :, cache_len:cache_len + s] = pack_nibbles(
+            quantize_kv4(k, layer.k_scale)).transpose(2, 3)
+        v_cache[:, :, cache_len:cache_len + s, :] = pack_nibbles(quantize_kv4(v, layer.v_scale))
+        ctx = _kv4_attention(layer, q_s8, k_cache, v_cache, mask, hk)
+        return _block_tail(ecfg, layer, x, ctx, fused)
     k_cache[:, :, :, cache_len:cache_len + s] = _requant(k, layer.k_scale).transpose(2, 3)
     v_cache[:, :, cache_len:cache_len + s, :] = _requant(v, layer.v_scale)
     smax = k_cache.shape[-1]

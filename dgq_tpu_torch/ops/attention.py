@@ -1,5 +1,6 @@
-"""INT8-KV attention: K2 (flash prefill), K3 (decode), K7 (chunked decode)
-and K8 (paged decode) with plain versions.
+"""KV-cache attention: K2 (flash prefill), K3 (decode), K7 (chunked decode),
+K8 (paged decode) and K11 (paged decode over INT4 nibble pages) with plain
+versions.
 
 Port of ``dgq_tpu/ops/attention.py``: ``_quantize_exp`` (:35-65),
 ``auto_decode_chunk`` (:473-488), ``gather_paged_kv`` (:752-761), the plain
@@ -8,12 +9,17 @@ Port of ``dgq_tpu/ops/attention.py``: ``_quantize_exp`` (:35-65),
 wrappers of the hand-written CUDA kernels under the JAX names:
 ``int8_prefill_attention`` (``csrc/int8_prefill_attention.cu``),
 ``int8_decode_attention`` (``csrc/int8_decode_attention.cu``), and
-``int8_decode_attention_chunked`` and ``int8_paged_decode_attention``, which
-share ``csrc/int8_chunked_decode_attention.cu``.
+``int8_decode_attention_chunked``, ``int8_paged_decode_attention`` and
+``int4_paged_decode_attention``, which share
+``csrc/int8_chunked_decode_attention.cu``.  K11's plain version,
+``int4_paged_decode_attention_xla``, is what JAX runs off its kernel
+(``dgq_tpu/serving/paged.py:259-270``): unpack both pools, then K8's plain
+version without quant_pv.
 
 Cache layout as in JAX: K transposed (B, Hkv, Dh, Smax), V (B, Hkv, Smax, Dh),
 both int8; a page pool holds (P, Hkv, Dh, ps) and (P, Hkv, ps, Dh) pages
-found through a (B, NP) int32 table.  GQA folds query head h onto kv head
+found through a (B, NP) int32 table, or (P, Hkv, Dh/2, ps) and (P, Hkv, ps,
+Dh/2) nibble pages (``ops/kv4.py``).  GQA folds query head h onto kv head
 h // (H // Hkv).
 
 Every scalar handed to a kernel is a float32 tensor computed in JAX's order,
@@ -30,23 +36,27 @@ from typing import Optional, Union
 import torch
 
 from dgq_tpu_torch.ops import _cuda
+from dgq_tpu_torch.ops.kv4 import unpack_nibbles
 from dgq_tpu_torch.ops.quant_matmul import int_matmul
 
 PREFILL = "int8_prefill_attention"
 DECODE = "int8_decode_attention"
 CHUNKED = "int8_decode_attention_chunked"
 PAGED = "int8_paged_decode_attention"
-_CHUNK_SIGNATURES = {  # one library, two entry points
+PAGED_KV4 = "int4_paged_decode_attention"
+_CHUNK_SIGNATURES = {  # one library, three entry points
     CHUNKED: [_cuda.VP] * 9 + [_cuda.INT] * 7 + [_cuda.VP],
     PAGED: [_cuda.VP] * 10 + [_cuda.INT] * 8 + [_cuda.VP],
+    PAGED_KV4: [_cuda.VP] * 10 + [_cuda.INT] * 7 + [_cuda.VP],
 }
 _SIGNATURES = {
     PREFILL: {PREFILL: [_cuda.VP] * 5 + [_cuda.INT] * 8 + [_cuda.VP]},
     DECODE: {DECODE: [_cuda.VP] * 7 + [_cuda.INT] * 6 + [_cuda.VP]},
     CHUNKED: _CHUNK_SIGNATURES,
     PAGED: _CHUNK_SIGNATURES,
+    PAGED_KV4: _CHUNK_SIGNATURES,
 }
-TILE = 128  # positions per block of K7/K8: the chunk or page, or 128-position slices of it
+TILE = 128  # positions per block of K7/K8/K11: the chunk or page, or 128-position slices of it
 
 NEG = torch.finfo(torch.float32).min
 
@@ -249,7 +259,7 @@ def int8_paged_decode_attention_xla(q_s8, kt_pool, v_pool, table, length, q_scal
 
 
 def _tile(ch: int, what: str) -> int:
-    """Positions per block of K7/K8: the chunk (page) itself up to 128,
+    """Positions per block of K7/K8/K11: the chunk (page) itself up to 128,
     else 128-position slices of it."""
     if ch <= 0 or ch % 4 or (ch > TILE and ch % TILE):
         raise ValueError(f"{what} needs a chunk (page) that is a multiple of 4 and at most "
@@ -347,4 +357,58 @@ def int8_paged_decode_attention(q_s8: torch.Tensor, kt_pool: torch.Tensor,
         _cuda.stream(dev))
     _cuda.check(rc, PAGED)
     _cuda.count_launch(PAGED)
+    return out
+
+
+def int4_paged_decode_attention_xla(q_s8, kt_pool, v_pool, table, length, q_scale, k_scale4,
+                                   v_scale4, apply_sqrt_dh: bool = True) -> torch.Tensor:
+    """Plain paged decode attention over INT4 nibble pages: unpack both
+    pools, then K8's plain version with fp p @ V (INT4 KV never takes
+    quant_pv).  ``k_scale4``/``v_scale4`` are the effective int4 scales."""
+    return int8_paged_decode_attention_xla(q_s8, unpack_nibbles(kt_pool, axis=2),
+                                           unpack_nibbles(v_pool, axis=-1), table, length,
+                                           q_scale, k_scale4, v_scale4,
+                                           apply_sqrt_dh=apply_sqrt_dh, quant_pv=False)
+
+
+def int4_paged_decode_attention(q_s8: torch.Tensor, kt_pool: torch.Tensor,
+                                v_pool: torch.Tensor, table: torch.Tensor,
+                                length: Union[int, torch.Tensor], q_scale, k_scale4, v_scale4, *,
+                                apply_sqrt_dh: bool = True) -> torch.Tensor:
+    """K11: single-token attention over a paged pool of INT4 nibble pages ->
+    (B, H, Dh) f32.
+
+    ``kt_pool`` (P, Hkv, Dh/2, ps) and ``v_pool`` (P, Hkv, ps, Dh/2) hold two
+    signed int4 codes per byte along Dh, the even dim in the low nibble;
+    ``k_scale4``/``v_scale4`` are the effective int4 scales (int8 scale x
+    127/7, ``ops/kv4.kv4_scale``).  Table and lengths as K8.  The int32 q.k
+    and the fp32 softmax and p @ V of ``int4_paged_decode_attention_xla``, its
+    plain version.  CPU tensors take the plain version; CUDA tensors launch
+    the kernel."""
+    if q_s8.device.type == "cpu":
+        return int4_paged_decode_attention_xla(q_s8, kt_pool, v_pool, table, length, q_scale,
+                                               k_scale4, v_scale4, apply_sqrt_dh)
+    b, h, dh = q_s8.shape
+    p, hk, dh2, ps = kt_pool.shape
+    npg = table.shape[1]
+    dev = q_s8.device
+    if 2 * dh2 != dh:
+        raise ValueError(f"K11 needs nibble pages of Dh / 2 = {dh // 2} bytes, got {dh2}")
+    _cuda.require(q_s8, "q_s8", torch.int8, (b, h, dh), dev, align=4)
+    _cuda.require(kt_pool, "kt_pool", torch.int8, (p, hk, dh2, ps), dev)
+    _cuda.require(v_pool, "v_pool", torch.int8, (p, hk, ps, dh2), dev)
+    _cuda.require(table, "table", torch.int32, (b, npg), dev, align=4)
+    _check_heads("K11", h, hk, dh)
+    tile = _tile(ps, "K11")
+    ntiles = npg * (ps // tile)
+    lengths = _lengths(length, b, dev)
+    scales = _kernel_scales(q_scale, k_scale4, v_scale4, dh, apply_sqrt_dh)
+    mpart, lpart, acc, out = _chunk_buffers(b, ntiles, h, dh, dev)
+    lib = _cuda.library(_cuda.SOURCES[PAGED_KV4], _SIGNATURES[PAGED_KV4])
+    rc = lib.int4_paged_decode_attention(
+        _cuda.ptr(q_s8), _cuda.ptr(kt_pool), _cuda.ptr(v_pool), _cuda.ptr(table),
+        _cuda.ptr(lengths), _cuda.ptr(scales), _cuda.ptr(mpart), _cuda.ptr(lpart),
+        _cuda.ptr(acc), _cuda.ptr(out), b, h, hk, dh, ps, npg, tile, _cuda.stream(dev))
+    _cuda.check(rc, PAGED_KV4)
+    _cuda.count_launch(PAGED_KV4)
     return out

@@ -1,17 +1,20 @@
-"""Serving daemon CLI: ``python -m dgq_tpu_torch.serve ENGINE_CKPT --paged [flags]``.
+"""Serving daemon CLI: ``python -m dgq_tpu_torch.serve ENGINE_CKPT [flags]``.
 
 Port of ``dgq_tpu/serve.py``: the JSON-lines TCP server
-(``serving/server.py``) over a ``PagedBatcher`` (``serving/paged.py``)
-loaded straight from a ``save_engine`` checkpoint (the port's or
-``dgq_tpu``'s: the files are the same).  The flags are ``dgq_tpu.serve``'s;
-those of paths not ported yet (the dense batcher without ``--paged``,
-``--tp``/``--pp``/``--dp`` > 1, ``--kv-bits 4``, non-LLaMA checkpoints,
-orbax directories) exit with a message naming the ROADMAP item.  As with
-JAX's ``--paged``, ``--spec-k`` and ``--admit-batch`` are ignored.  Runs on
-the GPU; ``--cpu`` runs the plain versions on the CPU.
+(``serving/server.py``) over the dense ``ContinuousBatcher``
+(``serving/scheduler.py``), or with ``--paged`` over a ``PagedBatcher``
+(``serving/paged.py``), loaded straight from a ``save_engine`` checkpoint
+(the port's or ``dgq_tpu``'s: the files are the same).  ``--kv-bits 4``
+serves either on the INT4 cache.  The flags are ``dgq_tpu.serve``'s; those
+of paths not ported yet (``--spec-k`` > 0 without ``--paged``,
+``--tp``/``--pp``/``--dp`` > 1, non-LLaMA checkpoints, orbax directories)
+exit with a message naming the ROADMAP item.  As with JAX's ``--paged``,
+``--spec-k`` and ``--admit-batch`` are ignored there.  Runs on the GPU;
+``--cpu`` runs the plain versions on the CPU.
 
 Example:
-    python -m dgq_tpu_torch.serve eng.safetensors --paged --port 8471 --slots 8
+    python -m dgq_tpu_torch.serve eng.safetensors --port 8471 --slots 8
+    python -m dgq_tpu_torch.serve eng.safetensors --paged --kv-bits 4
 """
 
 from __future__ import annotations
@@ -73,8 +76,8 @@ def build_parser():
                    help="run on the CPU (the kernels' plain PyTorch versions)")
     p.add_argument("--kv-bits", type=int, default=8, choices=[4, 8],
                    help="KV-cache precision: 8 (INT8, reference parity) or "
-                        "4 (packed INT4 — half the cache memory, XLA "
-                        "attention; dense batcher only)")
+                        "4 (packed INT4: half the cache memory; paged decode "
+                        "through K11 with --paged, plain attention without)")
     return p
 
 
@@ -96,12 +99,9 @@ def _unported(args) -> str:
     if args.tp > 1 or args.pp > 1 or args.dp > 1:
         return ("--tp/--pp/--dp > 1 (parallel serving) are not ported yet "
                 "(ROADMAP Queue 1 item 7)")
-    if args.kv_bits != 8:
-        return ("--kv-bits 4 needs K11 int4_paged_decode_attention and the INT4 KV path, "
-                "not ported yet (ROADMAP Queue 1 item 6, Queue 2 K11)")
-    if not args.paged:
-        return ("the dense ContinuousBatcher (serving without --paged) is not ported yet "
-                "(ROADMAP Queue 1 item 3); pass --paged")
+    if args.spec_k > 0 and not args.paged:
+        return ("--spec-k > 0 (speculative decoding, serving/speculative.py) is not ported yet "
+                "(ROADMAP Queue 1 item 3)")
     return ""
 
 
@@ -112,10 +112,12 @@ def _read_prefix(path: str):
 
 
 def build_server(args):
-    """The BatcherServer over a PagedBatcher of ``args.checkpoint``; exits
-    with the ROADMAP item for options not ported yet."""
+    """The BatcherServer over a ContinuousBatcher, or a PagedBatcher with
+    ``--paged``, of ``args.checkpoint``; exits with the ROADMAP item for
+    options not ported yet."""
     from dgq_tpu_torch.models.engine import EngineConfig
     from dgq_tpu_torch.serving.paged import PagedBatcher
+    from dgq_tpu_torch.serving.scheduler import ContinuousBatcher
     from dgq_tpu_torch.serving.server import BatcherServer
     from dgq_tpu_torch.utils.checkpoint import load_engine
 
@@ -123,12 +125,21 @@ def build_server(args):
     if why:
         raise SystemExit(f"dgq_tpu_torch.serve: {why}")
     eng, cfg = load_engine(args.checkpoint, device="cpu" if args.cpu else "cuda")
-    chunk = (args.prefill_chunk // args.page_size) * args.page_size  # page-align
-    batcher = PagedBatcher(
-        EngineConfig(cfg=cfg), eng, num_slots=args.slots, max_len=args.max_len,
-        page_size=args.page_size, num_pages=args.num_pages or None,
-        decode_steps=args.decode_steps, prefill_chunk=chunk,
-    )
+    ecfg = EngineConfig(cfg=cfg, kv_bits=args.kv_bits)
+    if args.paged:
+        chunk = (args.prefill_chunk // args.page_size) * args.page_size  # page-align
+        batcher = PagedBatcher(
+            ecfg, eng, num_slots=args.slots, max_len=args.max_len,
+            page_size=args.page_size, num_pages=args.num_pages or None,
+            decode_steps=args.decode_steps, prefill_chunk=chunk,
+        )
+    else:
+        batcher = ContinuousBatcher(
+            ecfg, eng, num_slots=args.slots, max_len=args.max_len,
+            prefill_pad=min(args.prefill_pad, args.max_len),
+            prefill_chunk=args.prefill_chunk, admit_batch=args.admit_batch,
+            decode_steps=args.decode_steps,
+        )
     for path in args.prefix or ():
         ids = _read_prefix(path)
         batcher.register_prefix(ids)
@@ -139,8 +150,9 @@ def build_server(args):
 def main(argv=None):
     args = build_parser().parse_args(argv)
     srv = build_server(args)
+    layout = f"paged, page_size={args.page_size}" if args.paged else "dense"
     print(f"[dgq_tpu_torch.serve] listening on {srv.host}:{srv.port} "
-          f"(slots={args.slots}, max_len={args.max_len}, paged, page_size={args.page_size})",
+          f"(slots={args.slots}, max_len={args.max_len}, {layout}, kv_bits={args.kv_bits})",
           flush=True)
     try:
         while True:

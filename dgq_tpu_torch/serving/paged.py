@@ -1,4 +1,4 @@
-"""Paged INT8 KV cache serving (vLLM-style) on one GPU.
+"""Paged KV cache serving (vLLM-style) on one GPU.
 
 Port of ``dgq_tpu/serving/paged.py``.  KV lives in fixed-size pages (default
 128 tokens) shared by all slots; a per-slot page table maps logical pages to
@@ -8,8 +8,10 @@ the prefix's pool pages (refcounted on the host) and copy only a partial
 tail page.
 
   * The page table is a (B, NP) int32 tensor handed to every decode step;
-    the decode attention is K8 (``ops/attention.int8_paged_decode_attention``),
-    which reads each slot's pages through it on the device.
+    the decode attention is K8 (``ops/attention.int8_paged_decode_attention``)
+    on INT8 pages, or K11 (``int4_paged_decode_attention``) on the INT4
+    nibble pages of ``kv_bits=4`` (half the bytes per token), which read
+    each slot's pages through it on the device.
   * Pool page 0 is the reserved null page: unallocated table entries and
     inactive slots read and write it harmlessly (reads are masked by length).
   * Page allocation, freeing and refcounts live on the host in
@@ -38,9 +40,12 @@ from dgq_tpu_torch.models.engine import (
     _qkv_rows,
     _requant,
     _use_fused_rows,
+    kv_head_bytes,
 )
 from dgq_tpu_torch.models.llama import rms_norm, rope_cos_sin, rotate_half
-from dgq_tpu_torch.ops.attention import NEG, f32, int8_paged_decode_attention
+from dgq_tpu_torch.ops.attention import int4_paged_decode_attention, int8_paged_decode_attention
+from dgq_tpu_torch.ops.kv4 import kv4_scale, pack_nibbles, quantize_kv4
+from dgq_tpu_torch.serving.batch_engine import _causal_mask, _last_logits
 from dgq_tpu_torch.serving.sampling import SamplingParams, sample_logits
 from dgq_tpu_torch.serving.scheduler import _hit_stop
 
@@ -52,39 +57,22 @@ class PagedKVCache(NamedTuple):
     """Device state of the paged pool.  The page table is not part of it:
     the host owns it (PagedBatcher) and passes it per call."""
 
-    kt: Tensor  # (L, P, Hkv, Dh, ps) int8, K transposed within the page
-    v: Tensor  # (L, P, Hkv, ps, Dh) int8
+    kt: Tensor  # (L, P, Hkv, Dh, ps) int8, K transposed within the page (Dh/2 under kv_bits=4)
+    v: Tensor  # (L, P, Hkv, ps, Dh) int8 (Dh/2 under kv_bits=4)
     lengths: Tensor  # (B,) int32 per-slot token counts
 
 
 def init_paged_cache(cfg, batch: int, num_pages: int, page_size: int = 128,
                      kv_bits: int = 8, device="cuda") -> PagedKVCache:
     """``num_pages`` includes the reserved null page 0; usable pages are
-    1..num_pages-1."""
-    if kv_bits != 8:
-        raise NotImplementedError("kv_bits=4 paged serving needs K11 int4_paged_decode_attention "
-                                  "and the INT4 KV path, not yet ported (ROADMAP Queue 1 item 6)")
-    n, hk, dh = cfg.num_hidden_layers, cfg.num_key_value_heads, cfg.head_dim
+    1..num_pages-1.  ``kv_bits=4`` packs two codes per byte along Dh
+    (``ops/kv4.py``)."""
+    n, hk, dh = cfg.num_hidden_layers, cfg.num_key_value_heads, kv_head_bytes(cfg, kv_bits)
     return PagedKVCache(
         kt=torch.zeros((n, num_pages, hk, dh, page_size), dtype=torch.int8, device=device),
         v=torch.zeros((n, num_pages, hk, page_size, dh), dtype=torch.int8, device=device),
         lengths=torch.zeros((batch,), dtype=torch.int32, device=device),
     )
-
-
-def _causal_mask(positions: Tensor, smax: int, limit: Optional[int] = None) -> Tensor:
-    """(S, smax) additive mask: 0 where key j <= query position (and j < limit)."""
-    dev = positions.device
-    j = torch.arange(smax, device=dev)[None, :]
-    ok = j <= positions[:, None]
-    if limit is not None:
-        ok = ok & (j < limit)
-    return torch.where(ok, f32(0.0, dev), f32(NEG, dev))
-
-
-def _last_logits(ecfg: EngineConfig, params: EngineParams, x: Tensor, row: int) -> Tensor:
-    x = rms_norm(x, params.norm_weight.to(x.dtype), ecfg.cfg.rms_norm_eps)
-    return torch.matmul(params.lm_head.to(x.dtype), x[0, row])
 
 
 def paged_prefill(ecfg: EngineConfig, params: EngineParams, slot_idx: int, input_ids: Tensor,
@@ -94,7 +82,8 @@ def paged_prefill(ecfg: EngineConfig, params: EngineParams, slot_idx: int, input
 
     ``input_ids`` (S,) with S a multiple of the page size; ``pages`` the S /
     ps distinct pool pages to fill.  Each layer runs the engine block on a
-    dense (1, Hkv, Dh, S) scratch, which is then cut into pages.
+    dense (1, Hkv, Dh, S) scratch (Dh taken from the pool, so nibble pages
+    get a packed scratch), which is then cut into pages.
     ``write_slot=False`` fills pages without touching any slot's length (the
     prefix template of register_prefix).  Returns the last prompt token's
     logits (V,)."""
@@ -160,7 +149,9 @@ def _paged_decode_block(ecfg: EngineConfig, layer, x: Tensor, kt_pool: Tensor, v
                         table: Tensor, lengths: Tensor, active: Tensor, pos_cos: Tensor,
                         pos_sin: Tensor) -> Tensor:
     """One decoder block, one decode token per slot, over the paged pool
-    (written in place): the engine's decode block with a page append and K8."""
+    (written in place): the engine's decode block with a page append and K8,
+    or with a nibble append and K11 under kv_bits=4 (fp p @ V: INT4 KV
+    never takes quant_pv)."""
     cfg = ecfg.cfg
     b = x.shape[0]
     dh, h, hk = cfg.head_dim, cfg.num_attention_heads, cfg.num_key_value_heads
@@ -185,6 +176,14 @@ def _paged_decode_block(ecfg: EngineConfig, layer, x: Tensor, kt_pool: Tensor, v
     lp = torch.clamp(lengths // ps, max=table.shape[1] - 1)
     phys = torch.where(active, table[torch.arange(b, device=x.device), lp].long(), NULL_PAGE)
     off = lengths % ps
+    if ecfg.kv_bits == 4:
+        kt_pool[phys, :, :, off] = pack_nibbles(quantize_kv4(k, layer.k_scale))[:, :, 0, :]
+        v_pool[phys, :, off, :] = pack_nibbles(quantize_kv4(v, layer.v_scale))[:, :, 0, :]
+        ctx = int4_paged_decode_attention(
+            q_s8[:, :, 0, :].contiguous(), kt_pool, v_pool, table, lengths + 1,
+            layer.q_scale, kv4_scale(layer.k_scale), kv4_scale(layer.v_scale),
+        ).reshape(b, 1, h * dh)
+        return _block_tail(ecfg, layer, x, ctx, fused)
     kt_pool[phys, :, :, off] = _requant(k, layer.k_scale)[:, :, 0, :]
     v_pool[phys, :, off, :] = _requant(v, layer.v_scale)[:, :, 0, :]
 
@@ -260,8 +259,9 @@ class PagedBatcher:
       * a failing step rebuilds the pool from host history and retries, up
         to ``max_recoveries`` times.
 
-    Decode runs 1 or ``decode_steps`` tokens per call.  Runs on the device
-    of the parameters."""
+    Decode runs 1 or ``decode_steps`` tokens per call.  The pages hold INT8
+    or, under ``ecfg.kv_bits == 4``, INT4 nibbles.  Runs on the device of
+    the parameters."""
 
     def __init__(self, ecfg: EngineConfig, params: EngineParams, *, num_slots: int = 8,
                  max_len: int = 2048, page_size: int = 128, num_pages: Optional[int] = None,
@@ -270,9 +270,6 @@ class PagedBatcher:
         if mesh is not None or fns is not None:
             raise NotImplementedError("tensor- and pipeline-parallel paged serving (mesh, fns) is "
                                       "not ported yet (ROADMAP Queue 1 item 7)")
-        if ecfg.kv_bits != 8:
-            raise NotImplementedError("kv_bits=4 paged serving needs K11 "
-                                      "int4_paged_decode_attention, not yet ported")
         if max_len % page_size != 0:
             raise ValueError(f"max_len {max_len} must be a multiple of page_size {page_size}")
         if prefill_chunk and prefill_chunk % page_size != 0:
@@ -322,12 +319,13 @@ class PagedBatcher:
         self._t0 = time.time()
 
     @classmethod
-    def from_checkpoint(cls, path: str, *, device="cuda", **kw):
-        """Serving startup straight from a ``save_engine`` checkpoint."""
+    def from_checkpoint(cls, path: str, *, device="cuda", kv_bits: int = 8, **kw):
+        """Serving startup straight from a ``save_engine`` checkpoint;
+        ``kv_bits=4`` serves on INT4 nibble pages."""
         from dgq_tpu_torch.utils.checkpoint import load_engine
 
         eng, cfg = load_engine(path, device=device)
-        return cls(EngineConfig(cfg=cfg), eng, **kw)
+        return cls(EngineConfig(cfg=cfg, kv_bits=kv_bits), eng, **kw)
 
     def _new_cache(self) -> PagedKVCache:
         return init_paged_cache(self.ecfg.cfg, self.num_slots, self.num_pages, self.ps,
@@ -369,7 +367,7 @@ class PagedBatcher:
     @property
     def kv_bytes_per_token(self) -> int:
         """Resident pool bytes per cached token (K + V, all layers):
-        L * Hkv * Dh * 2."""
+        L * Hkv * Dh * 2 for INT8; kv_bits=4 halves it (nibble pages)."""
         n, _, hk, dh, _ = self.cache.kt.shape
         return int(2 * n * hk * dh)
 

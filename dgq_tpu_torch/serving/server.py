@@ -1,10 +1,13 @@
 """Serving daemon: a JSON-lines TCP front end over a batcher.
 
 Port of ``dgq_tpu/serving/server.py`` (``BatcherServer``, host-only code:
-stdlib sockets and threads).  In the port it fronts the paged batcher
-(``serving/paged.PagedBatcher``); the dense ``ContinuousBatcher`` is not
-ported yet.  One change from JAX's server: ``submit`` queues the request
-for the scheduler loop, as ``cancel`` does, instead of waiting for the
+stdlib sockets and threads).  It fronts any batcher with
+``check_request``, ``add_request``, ``step``, ``cancel``, ``metrics`` and
+the ``queue``/``slots``/``finished``/``has_work`` state: the dense
+``serving/scheduler.ContinuousBatcher`` or the paged
+``serving/paged.PagedBatcher``.  One change from JAX's server: ``submit``
+queues the request for the scheduler loop, as ``cancel`` does, instead of
+waiting for the
 loop's lock, which the loop holds for nearly all of every step; a
 connection that pipelines requests would otherwise hand them over one per
 several steps (on one H100, 24 pipelined requests to a 7B-shaped engine

@@ -28,6 +28,17 @@ SMAX = 256
 STEPS = 8
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch intra-op thread for this module: the test workers share the
+    CPU cores, and torch's spinning thread pools oversubscribe them (the
+    port's CPU paths ran ~10x slower beside five other workers)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _jax_arrays(eng):
     leaves, _ = jax.tree_util.tree_flatten_with_path(eng)
     return {"/".join(str(getattr(k, "name", getattr(k, "key", getattr(k, "idx", k))))

@@ -1,8 +1,9 @@
 """Rules of the dgq_tpu_torch package that hold without a GPU.
 
 It imports neither JAX nor dgq_tpu; its kernel wrappers take their plain
-versions on CPU tensors without counting a launch (K1-K10, and K14's names);
-configurations that need a kernel not yet ported raise NotImplementedError."""
+versions on CPU tensors without counting a launch (K1-K11, and K14's names);
+configurations that need a kernel not yet ported raise NotImplementedError,
+and a KV precision other than 8 or 4 bits raises ValueError."""
 
 import pathlib
 import re
@@ -113,11 +114,20 @@ def test_wrappers_take_plain_versions_on_cpu_without_launches():
         torch.testing.assert_close(out, tat.int8_paged_decode_attention_xla(
             q[:, :, 0], pool_k, pool_v, table, lengths, s, s, s, quant_pv=quant_pv),
             rtol=0, atol=0)
+    # K11 (paged decode over INT4 nibble pages)
+    pool_k4 = torch.from_numpy(rng.integers(-128, 128, (4, 2, 32, 32)).astype(np.int8))
+    pool_v4 = torch.from_numpy(rng.integers(-128, 128, (4, 2, 32, 32)).astype(np.int8))
+    out = tat.int4_paged_decode_attention(q[:, :, 0], pool_k4, pool_v4, table, lengths, s, s, s)
+    torch.testing.assert_close(out, tat.int4_paged_decode_attention_xla(
+        q[:, :, 0], pool_k4, pool_v4, table, lengths, s, s, s), rtol=0, atol=0)
     assert _cuda.LAUNCHES == {name: 0 for name in _cuda.SOURCES}
     assert {"fused_norm_gemv_rp", "fused_requant_gemv_rp", "fused_mlp_decode_rp",
-            "int8_decode_attention_chunked", "int8_paged_decode_attention"} <= set(_cuda.LAUNCHES)
-    assert _cuda.SOURCES["int8_decode_attention_chunked"] == _cuda.SOURCES[
-        "int8_paged_decode_attention"]  # one CUDA source serves K7 and K8
+            "int8_decode_attention_chunked", "int8_paged_decode_attention",
+            "int4_paged_decode_attention"} <= set(_cuda.LAUNCHES)
+    # one CUDA source serves K7, K8 and K11
+    assert len({_cuda.SOURCES[n] for n in ("int8_decode_attention_chunked",
+                                            "int8_paged_decode_attention",
+                                            "int4_paged_decode_attention")}) == 1
 
 
 def test_span_wrappers_take_plain_versions_on_cpu_without_launches():
@@ -154,14 +164,15 @@ def test_unported_configurations_raise():
     with pytest.raises(NotImplementedError, match="K12 fused_norm_gemv"):
         teng.engine_forward(teng.EngineConfig(cfg=cfg), eng, torch.zeros((1, 1), dtype=torch.int32),
                             cache)
-    with pytest.raises(NotImplementedError, match="kv_bits=4"):
-        teng.EngineConfig(cfg=cfg, kv_bits=4)
-    with pytest.raises(NotImplementedError, match="kv_bits=4"):
-        teng.init_kv_cache(cfg, 1, 64, kv_bits=4, device="cpu")
+    # the KV precision is 8 or 4 bits
+    with pytest.raises(ValueError, match="kv_bits must be 8 or 4"):
+        teng.EngineConfig(cfg=cfg, kv_bits=3)
+    with pytest.raises(ValueError, match="kv_bits must be 8 or 4"):
+        teng.init_kv_cache(cfg, 1, 64, kv_bits=3, device="cpu")
     from dgq_tpu_torch.serving import paged
 
-    with pytest.raises(NotImplementedError, match="K11 int4_paged_decode_attention"):
-        paged.init_paged_cache(cfg, 1, 4, 16, kv_bits=4, device="cpu")
+    with pytest.raises(ValueError, match="kv_bits must be 8 or 4"):
+        paged.init_paged_cache(cfg, 1, 4, 16, kv_bits=3, device="cpu")
     for kw in (dict(mesh=object()), dict(fns=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
             paged.PagedBatcher(teng.EngineConfig(cfg=cfg), eng, max_len=64, page_size=16, **kw)

@@ -1,6 +1,7 @@
 """The dgq_tpu_torch serving daemon on the CPU: its CLI against dgq_tpu's,
-a live socket over a checkpoint that dgq_tpu's save_engine wrote, and the
-exits of the options not ported yet."""
+a live socket over a checkpoint that dgq_tpu's save_engine wrote (the paged
+batcher; the dense and INT4 daemons in tests/test_torch_serve_batchers.py),
+and the exits of the options not ported yet."""
 
 import json
 import socket
@@ -9,6 +10,7 @@ import threading
 
 import numpy as np
 import pytest
+import torch
 
 from dgq_tpu import serve as jserve
 from dgq_tpu.models import engine as jeng
@@ -23,6 +25,17 @@ CFG = tiny_llama_config(hidden_size=256, intermediate_size=512, num_hidden_layer
                         num_attention_heads=4, num_key_value_heads=2)
 FLAGS = ["--cpu", "--paged", "--port", "0", "--page-size", "16", "--max-len", "64",
          "--slots", "2", "--metrics-interval", "0"]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch intra-op thread for this module: the test workers share the
+    CPU cores, and torch's spinning thread pools oversubscribe them (the
+    port's CPU paths ran ~10x slower beside five other workers)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -150,17 +163,23 @@ def test_prefix_flag_registers_prefix(ckpt, tmp_path):
 
 @pytest.mark.parametrize("extra,item", [
     (["--paged"], None),  # ported: no exit
-    ([], "Queue 1 item 3"),  # the dense batcher
+    ([], None),  # the dense batcher
+    (["--paged", "--kv-bits", "4"], None),  # INT4 KV
+    (["--spec-k", "2"], "Queue 1 item 3"),  # speculative decoding
+    (["--paged", "--spec-k", "2"], None),  # ignored with --paged, as JAX's
     (["--paged", "--tp", "2"], "Queue 1 item 7"),
-    (["--paged", "--pp", "2"], "Queue 1 item 7"),
+    (["--pp", "2"], "Queue 1 item 7"),
     (["--paged", "--dp", "2"], "Queue 1 item 7"),
-    (["--paged", "--kv-bits", "4"], "Queue 1 item 6"),
 ])
 def test_unported_options_exit_with_roadmap_item(ckpt, extra, item):
     path, _ = ckpt
     args = tserve.build_parser().parse_args([path, "--cpu", "--port", "0", *extra])
-    if item is None:
+    if item is None:  # a ported option starts a server over the batcher it names
         assert tserve._unported(args) == ""
+        with tserve.build_server(args) as srv:
+            assert type(srv.batcher).__name__ == (
+                "PagedBatcher" if args.paged else "ContinuousBatcher")
+            assert srv.batcher.ecfg.kv_bits == args.kv_bits
         return
     with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
         tserve.build_server(args)
