@@ -5,7 +5,7 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It imports no JAX.  Phases, each printing one JSON line with its seconds:
 
 1. device: the card's name and power limit (nvidia-smi); TF32 off.
-2. build: the eight CUDA sources, one nvcc each, started together.
+2. build: the nine CUDA sources, one nvcc each, started together.
 3. kernels: K1 ``w4a8_matmul_rp_pipe``, K2 ``int8_prefill_attention``, K3
    ``int8_decode_attention``, the fused decode kernels K4
    ``fused_norm_gemv_rp``, K5 ``fused_requant_gemv_rp`` and K6
@@ -29,7 +29,12 @@ It imports no JAX.  Phases, each printing one JSON line with its seconds:
    the largest output where it is.  Last K11 ``int4_paged_decode_attention``
    on K8's pool, table and lengths with INT4 nibble pages, MHA and GQA:
    within K11_TOL of the largest output of its plain version, and on a
-   contiguous table of K8 without quant_pv on the unpacked INT8 pool.
+   contiguous table of K8 without quant_pv on the unpacked INT8 pool.  Then
+   K12 ``fused_norm_gemv``, ``fused_requant_gemv`` and ``fused_mlp_decode``
+   (which also serve K13's names) on span weights at K4-K6's shapes and row
+   counts, held as K4-K6 are against their plain versions and, by their
+   int32 accumulators, against K4-K6 on ``pack_rowpair_s4`` of the same
+   weights (equal), with a sweep at 1, 9 and 64 rows and groupsize 64.
 4. main: ``build_llama_engine(LlamaConfig())`` (32 layers, full width, random
    weights from seed 0) then ``generate`` of 32 greedy tokens for 4 prompts
    of 256 tokens with the default ``EngineConfig`` (fused decode), with every
@@ -75,20 +80,36 @@ It imports no JAX.  Phases, each printing one JSON line with its seconds:
 11. main_fpscale: main's run on ``build_llama_engine(..., fp_scales=True)``
    with ``EngineConfig(fp_scales=True)``: K10 for every linear, K2 and K3,
    nothing else (fused decode is off under fp_scales).
-12. parity: at full width and 2 layers, the kernel path against the plain
+12. main_span: main's run on span-only storage (``keep_span=True``, every
+   ``qw_rp`` and ``cs_fold`` dropped): K9 128, K2 32, K3 992 and each K12
+   entry 992 launches, no K1 and no K4-K6; then ``generate_speculative`` of
+   one prompt (spec_k 4, 32 tokens), host loop and ``ondevice=True``: K12
+   on every verify window and plain step; its tokens against ``generate``'s
+   are reported, not gated.
+13. serve_spec: the dense daemon with ``--spec-k 4`` on serve_dense's
+   checkpoint, 12 requests and prefix, all queued before its first step:
+   the served tokens must equal a direct ``ContinuousBatcher(spec_k=4).run()``
+   (and its speculation counts), K3 must run once per layer of every plain
+   decode forward and K4-K6 of every forward, verify windows (8 slots x 5
+   rows) included.  Reported: the speculation metrics, client numbers and
+   tokens against serve_dense's, direct runs with ``decode_steps=4`` and with
+   ``spec_adaptive=False``, and a profiled 8-slot verify step (its plain
+   attention also timed alone at the step's shapes).
+14. parity: at full width and 2 layers, the kernel path against the plain
    path on the card (prefill logits, 8 teacher-forced decode steps and a
    5-token ``window="decode"`` verify window), fused, unfused, fp-scale
    (K10) and INT4 KV, ``paged_prefill`` + 8 teacher-forced
    ``paged_decode_batched`` steps over a shuffled page table with INT8 (K8)
    and INT4 (K11) pages, and the OPT engine (K9; prefill and 8 decode
-   steps); INT4 caches are compared as unpacked codes.  With random weights
+   steps) and span-only fused decode (K9 and K12; prefill, 8 steps and the
+   window); INT4 caches are compared as unpacked codes.  With random weights
    at full width one int8 code that flips at a rounding boundary (fp32 sums
    taken in another order) changes the rows after it by more than the
    tolerance, so the plain run
    checks each of its int8 code tensors against the kernel run's (at most 1
    apart, >= 99.9% equal) and then continues from the kernel run's codes;
    the fused kernels hand their codes out through ``codes_out``.
-13. checkpoint: ``save_engine`` then ``load_engine`` at full width and 2
+15. checkpoint: ``save_engine`` then ``load_engine`` at full width and 2
    layers, for the LLaMA and the OPT engine: bit-equal tensors and equal
    greedy tokens.
 
@@ -124,9 +145,15 @@ SERVE_REQUESTS, SERVE_NEW, PREFIX_LEN, TIGHT_PAGES = 24, 64, 300, 49
 # serve_kv4 and serve_dense: the first 12 requests; 40 usable pages hold the
 # prefix's 3 and less than the 46 the first 8 requests reach
 SERVE_KV4, SERVE_DENSE, TIGHT_PAGES_KV4 = 12, 12, 41
+SPEC_K = 4  # speculative drafts per step (main_span, serve_spec)
 K1_NAMES = ["rp_gemm_kernel", "splitk_epilogue"]  # K1 launches both when it splits K
 K4_NAMES, K5_NAMES = ["norm_gemv_rp_kernel"], ["requant_gemv_rp_kernel"]
 K6_NAMES = ["mlp_decode_rp_kernel", "mlp_decode_rp_epilogue"]
+# K12's three entry points (one source)
+K12_NAMES = {"fused_norm_gemv": ["norm_gemv_span_kernel"],
+             "fused_requant_gemv": ["requant_gemv_span_kernel"],
+             "fused_mlp_decode": ["mlp_decode_span_kernel", "mlp_decode_span_epilogue"]}
+K12_ALL = [n for names in K12_NAMES.values() for n in names]
 K78_NAMES = ["chunk_attn_kernel", "combine_kernel"]  # K7 and K8 share their kernels
 SPAN_NAMES = ["span_gemm_kernel", "span_splitk_combine"]  # K9 and K10 share their kernels
 FUSED_ROWS = (BATCH, 40)  # a decode step; 8 slots x a 5-token verify window
@@ -437,14 +464,16 @@ def _plane_rows(ws, wz):
 
 def _fused_check(torch, c):
     """Hold a fused kernel against its plain version (a case from one of
-    the ``_k*_case`` builders).
+    the ``_k*_case`` makers).
 
     ``kern(acc, codes_out)`` and ``plain(acc, codes)``: with ``acc`` alpha is
     1 and beta and the residual are off, so the f32 output is the int32
     accumulator.  The kernel's codes (``codes_out``) are compared with the
     plain version's own (``own(kernel_codes)``), then the plain version runs
     on the kernel's codes and must give the same accumulators and outputs
-    (rtol 1e-6, as K1)."""
+    (rtol 1e-6, as K1).  A K12 case also holds its accumulators against
+    K4-K6's kernel on ``pack_rowpair_s4`` of the same weights
+    (``rowpair(codes_out)``): equal."""
     kern, plain, what = c["kern"], c["plain"], c["what"]
     codes = [torch.empty(sh, dtype=torch.int8, device=DEV) for sh in c["shapes"]]
     acc_k = kern(True, codes)
@@ -452,6 +481,15 @@ def _fused_check(torch, c):
     torch.cuda.synchronize()
     if not torch.equal(acc_k, acc_p):
         raise AssertionError(f"{what}: {(acc_k != acc_p).sum().item()} accumulators differ")
+    extra = {}
+    if "rowpair" in c:
+        rp_codes = [torch.empty_like(t) for t in codes]
+        acc_rp = c["rowpair"](rp_codes)
+        torch.cuda.synchronize()
+        if not torch.equal(acc_k, acc_rp):
+            raise AssertionError(f"{what}: {(acc_k != acc_rp).sum().item()} accumulators "
+                                 "differ from K4-K6's on the rowpair copy")
+        extra["int32_equal_rowpair_kernel"] = True
     stats = [_code_stats(k, o) for k, o in zip(codes, c["own"](codes))]
     for i, st in enumerate(stats):
         _check_codes(f"{what} codes {i}", st)
@@ -460,18 +498,30 @@ def _fused_check(torch, c):
     err_own = (y_k - plain(False, None)).abs().max().item()
     return {**c["meta"], "max_abs_err": (y_k - y_p).abs().max().item(),
             "max_abs_err_own_codes": err_own, "code_max_diff": max(st[0] for st in stats),
-            "code_min_equal_share": min(st[1] for st in stats)}
+            "code_min_equal_share": min(st[1] for st in stats), **extra}
 
 
-def _k4_case(torch, gen, m, gs, extras):
-    """K4 (RMSNormQ + qkv_proj) at the main path's width; ``extras`` turns
-    on the norm bias and beta."""
+def _layout(torch, qw, gs, span):
+    """The packed bytes a fused case hands its kernel: span codes as drawn
+    (K12), or read as rowpair bytes (K4-K6); with ``span``, also their
+    rowpair copy and the dequantiser of the span layout."""
     from dgq_tpu_torch.ops import fused_decode as fd
-    from dgq_tpu_torch.ops.quant_matmul import dequantize_rowpair
+    from dgq_tpu_torch.ops.quant_matmul import dequantize_rowpair, dequantize_span
+
+    if span:
+        return qw, fd.pack_rowpair_s4(qw, 2 * gs), dequantize_span
+    return qw, None, dequantize_rowpair
+
+
+def _k4_case(torch, gen, m, gs, extras, span=False):
+    """K4 (RMSNormQ + qkv_proj), or with ``span`` K12's norm entry, at the
+    main path's width; ``extras`` turns on the norm bias and beta."""
+    from dgq_tpu_torch.ops import fused_decode as fd
 
     eps = 1e-5
     n, k = LINEARS["qkv_proj"]
     qw, ws, wz = _q4_weights(torch, gen, k, n, gs)
+    qw, qw_rp, deq = _layout(torch, qw, gs, span)
     planes = _plane_rows(ws, wz)
     csf = torch.zeros((n,), dtype=torch.int32, device=DEV)  # checked, not read
     alpha = torch.rand((n,), generator=gen, device=DEV) * 1e-3 + 1e-5
@@ -480,36 +530,41 @@ def _k4_case(torch, gen, m, gs, extras):
     one = torch.ones((n,), device=DEV)
     x = torch.randn((m, k), generator=gen, device=DEV)
     lnw = torch.full((k,), 10.0, device=DEV)
+    fn, plain_fn = ((fd.fused_norm_gemv, fd.fused_norm_gemv_xla) if span
+                    else (fd.fused_norm_gemv_rp, fd.fused_norm_gemv_rp_xla))
+    w = (qw, *planes) if span else (qw, *planes, csf)
 
     def kern(acc, codes_out):
-        return fd.fused_norm_gemv_rp(x, lnw, lnb, qw, *planes, csf, one if acc else alpha,
-                                     None if acc else beta, span=2 * gs, eps=eps,
-                                     codes_out=codes_out[0] if codes_out else None)
+        return fn(x, lnw, lnb, *w, one if acc else alpha, None if acc else beta, span=2 * gs,
+                  eps=eps, codes_out=codes_out[0] if codes_out else None)
 
     def plain(acc, codes):
-        return fd.fused_norm_gemv_rp_xla(x, lnw, lnb, qw, *planes, csf, one if acc else alpha,
-                                         None if acc else beta, span=2 * gs, eps=eps,
-                                         codes=codes[0] if codes else None)
+        return plain_fn(x, lnw, lnb, *w, one if acc else alpha, None if acc else beta,
+                        span=2 * gs, eps=eps, codes=codes[0] if codes else None)
 
     def lib(timer):
-        return _int_mm_ms(torch, timer, fd._rmsnorm_q(x, lnw, lnb, eps),
-                          dequantize_rowpair(qw, ws, wz, gs))
+        return _int_mm_ms(torch, timer, fd._rmsnorm_q(x, lnw, lnb, eps), deq(qw, ws, wz, gs))
 
-    return {"what": f"K4 M={m} gs={gs}", "kern": kern, "plain": plain,
-            "own": lambda codes: [fd._rmsnorm_q(x, lnw, lnb, eps)], "shapes": [(m, k)],
-            "names": K4_NAMES, "meta": {"linear": "qkv_proj", "M": m, "N": n, "K": k},
-            "nbytes": 4 * m * k + 4 * k + k * n // 2 + 2 * (k // gs) * n + 8 * n + 4 * m * n,
-            "ops": 2.0 * m * n * k, "lib": lib}
+    c = {"what": f"{'K12 norm' if span else 'K4'} M={m} gs={gs}", "kern": kern, "plain": plain,
+         "own": lambda codes: [fd._rmsnorm_q(x, lnw, lnb, eps)], "shapes": [(m, k)],
+         "names": K12_NAMES["fused_norm_gemv"] if span else K4_NAMES,
+         "meta": {"linear": "qkv_proj", "M": m, "N": n, "K": k},
+         "nbytes": 4 * m * k + 4 * k + k * n // 2 + 2 * (k // gs) * n + 8 * n + 4 * m * n,
+         "ops": 2.0 * m * n * k, "lib": lib}
+    if span:
+        c["rowpair"] = lambda codes_out: fd.fused_norm_gemv_rp(
+            x, lnw, lnb, qw_rp, *planes, csf, one, span=2 * gs, eps=eps, codes_out=codes_out[0])
+    return c
 
 
-def _k5_case(torch, gen, m, gs, extras):
-    """K5 (requant + o_proj + residual) at the main path's width; ``extras``
-    turns on beta."""
+def _k5_case(torch, gen, m, gs, extras, span=False):
+    """K5 (requant + o_proj + residual), or with ``span`` K12's requant
+    entry, at the main path's width; ``extras`` turns on beta."""
     from dgq_tpu_torch.ops import fused_decode as fd
-    from dgq_tpu_torch.ops.quant_matmul import dequantize_rowpair
 
     n, k = LINEARS["o_proj"]
     qw, ws, wz = _q4_weights(torch, gen, k, n, gs)
+    qw, qw_rp, deq = _layout(torch, qw, gs, span)
     planes = _plane_rows(ws, wz)
     csf = torch.zeros((n,), dtype=torch.int32, device=DEV)
     alpha = torch.rand((n,), generator=gen, device=DEV) * 1e-3 + 1e-5
@@ -518,41 +573,48 @@ def _k5_case(torch, gen, m, gs, extras):
     x = torch.randn((m, k), generator=gen, device=DEV)
     res = torch.randn((m, n), generator=gen, device=DEV)
     scale = torch.full((), 0.05, device=DEV)
+    fn, plain_fn = ((fd.fused_requant_gemv, fd.fused_requant_gemv_xla) if span
+                    else (fd.fused_requant_gemv_rp, fd.fused_requant_gemv_rp_xla))
+    w = (qw, *planes) if span else (qw, *planes, csf)
 
     def kern(acc, codes_out):
-        return fd.fused_requant_gemv_rp(x, scale, qw, *planes, csf, one if acc else alpha,
-                                        None if acc else beta, None if acc else res,
-                                        span=2 * gs, qmin=-127.0, fuse_residual=not acc,
-                                        codes_out=codes_out[0] if codes_out else None)
+        return fn(x, scale, *w, one if acc else alpha, None if acc else beta,
+                  None if acc else res, span=2 * gs, qmin=-127.0, fuse_residual=not acc,
+                  codes_out=codes_out[0] if codes_out else None)
 
     def plain(acc, codes):
-        return fd.fused_requant_gemv_rp_xla(x, scale, qw, *planes, csf, one if acc else alpha,
-                                            None if acc else beta, None if acc else res,
-                                            span=2 * gs, qmin=-127.0, fuse_residual=not acc,
-                                            codes=codes[0] if codes else None)
+        return plain_fn(x, scale, *w, one if acc else alpha, None if acc else beta,
+                        None if acc else res, span=2 * gs, qmin=-127.0, fuse_residual=not acc,
+                        codes=codes[0] if codes else None)
 
     def lib(timer):
-        return _int_mm_ms(torch, timer, fd._requant_q(x, scale, -127.0),
-                          dequantize_rowpair(qw, ws, wz, gs))
+        return _int_mm_ms(torch, timer, fd._requant_q(x, scale, -127.0), deq(qw, ws, wz, gs))
 
-    return {"what": f"K5 M={m} gs={gs}", "kern": kern, "plain": plain,
-            "own": lambda codes: [fd._requant_q(x, scale, -127.0)], "shapes": [(m, k)],
-            "names": K5_NAMES, "meta": {"linear": "o_proj", "M": m, "N": n, "K": k},
-            "nbytes": 4 * m * k + 4 + k * n // 2 + 2 * (k // gs) * n + 4 * n + 8 * m * n,
-            "ops": 2.0 * m * n * k, "lib": lib}
+    c = {"what": f"{'K12 requant' if span else 'K5'} M={m} gs={gs}", "kern": kern,
+         "plain": plain, "own": lambda codes: [fd._requant_q(x, scale, -127.0)],
+         "shapes": [(m, k)], "names": K12_NAMES["fused_requant_gemv"] if span else K5_NAMES,
+         "meta": {"linear": "o_proj", "M": m, "N": n, "K": k},
+         "nbytes": 4 * m * k + 4 + k * n // 2 + 2 * (k // gs) * n + 4 * n + 8 * m * n,
+         "ops": 2.0 * m * n * k, "lib": lib}
+    if span:
+        c["rowpair"] = lambda codes_out: fd.fused_requant_gemv_rp(
+            x, scale, qw_rp, *planes, csf, one, span=2 * gs, qmin=-127.0, fuse_residual=False,
+            codes_out=codes_out[0])
+    return c
 
 
-def _k6_case(torch, gen, m, gs, extras):
-    """K6 (the MLP) at the main path's width; ``extras`` turns on the norm
-    bias and the down-proj beta."""
+def _k6_case(torch, gen, m, gs, extras, span=False):
+    """K6 (the MLP), or with ``span`` K12's MLP entry, at the main path's
+    width; ``extras`` turns on the norm bias and the down-proj beta."""
     from dgq_tpu_torch.ops import fused_decode as fd
-    from dgq_tpu_torch.ops.quant_matmul import dequantize_rowpair
 
     eps = 1e-5
     n2f, d = LINEARS["gate_up_proj"]
     f = n2f // 2
     gqw, gws, gwz = _q4_weights(torch, gen, d, n2f, gs)
     dqw, dws, dwz = _q4_weights(torch, gen, f, d, gs)
+    gqw, gqw_rp, deq = _layout(torch, gqw, gs, span)
+    dqw, dqw_rp, _ = _layout(torch, dqw, gs, span)
     gplanes = _plane_rows(gws, gwz)
     dws8, dwz8 = torch.repeat_interleave(dws, 8, dim=0), torch.repeat_interleave(dwz, 8, dim=0)
     gcsf = torch.zeros((n2f,), dtype=torch.int32, device=DEV)
@@ -566,47 +628,65 @@ def _k6_case(torch, gen, m, gs, extras):
     hscale = torch.full((), 0.5, device=DEV)
     x = torch.randn((m, d), generator=gen, device=DEV)
 
-    def args(acc):
-        return (x, lnw, lnb, gqw, *gplanes, gcsf, galpha, hscale, dqw, dws8, dwz8, dcsf,
+    def args(acc, gq=gqw, dq=dqw, rowpair=not span):
+        if rowpair:
+            return (x, lnw, lnb, gq, *gplanes, gcsf, galpha, hscale, dq, dws8, dwz8, dcsf,
+                    one if acc else dalpha, None if acc else dbeta)
+        return (x, lnw, lnb, gq, *gplanes, galpha, hscale, dq, dws8, dwz8,
                 one if acc else dalpha, None if acc else dbeta)
 
+    fn, plain_fn = ((fd.fused_mlp_decode, fd.fused_mlp_decode_xla) if span
+                    else (fd.fused_mlp_decode_rp, fd.fused_mlp_decode_rp_xla))
+
     def kern(acc, codes_out):
-        return fd.fused_mlp_decode_rp(*args(acc), span=2 * gs, bf=512, eps=eps,
-                                      fuse_residual=not acc, codes_out=codes_out)
+        return fn(*args(acc), span=2 * gs, bf=512, eps=eps, fuse_residual=not acc,
+                  codes_out=codes_out)
 
     def plain(acc, codes):
-        return fd.fused_mlp_decode_rp_xla(*args(acc), span=2 * gs, eps=eps,
-                                          fuse_residual=not acc, codes=codes)
+        return plain_fn(*args(acc), span=2 * gs, eps=eps, fuse_residual=not acc, codes=codes)
 
     def own(codes):
         # the down-proj input codes from the kernel's norm codes: checks
         # SiLU * up on its own, not a norm code flip passed on
-        gu = fd._plane_product(codes[0], gqw, *gplanes, gs)
+        product = fd._span_product if span else fd._plane_product
+        gu = product(codes[0], gqw, *gplanes, gs)
         return [fd._rmsnorm_q(x, lnw, lnb, eps),
                 fd._silu_mul_q(gu[:, :f], gu[:, f:], galpha[:f], galpha[f:], hscale)]
 
     def lib(timer):
         hq = torch.randint(-128, 128, (m, f), generator=gen, device=DEV, dtype=torch.int8)
         return (_int_mm_ms(torch, timer, fd._rmsnorm_q(x, lnw, lnb, eps),
-                           dequantize_rowpair(gqw, gws, gwz, gs))
-                + _int_mm_ms(torch, timer, hq, dequantize_rowpair(dqw, dws, dwz, gs)))
+                           deq(gqw, gws, gwz, gs))
+                + _int_mm_ms(torch, timer, hq, deq(dqw, dws, dwz, gs)))
 
-    return {"what": f"K6 M={m} gs={gs}", "kern": kern, "plain": plain, "own": own,
-            "shapes": [(m, d), (m, f)], "names": K6_NAMES, "meta": {"M": m, "D": d, "F": f},
-            "nbytes": (8 * m * d + 4 * d + d * n2f // 2 + 2 * (d // gs) * n2f + 4 * n2f
-                       + f * d // 2 + 2 * (f // gs) * d + 4 * d + 4),
-            "ops": 2.0 * m * (n2f * d + f * d), "lib": lib}
+    c = {"what": f"{'K12 mlp' if span else 'K6'} M={m} gs={gs}", "kern": kern, "plain": plain,
+         "own": own, "shapes": [(m, d), (m, f)],
+         "names": K12_NAMES["fused_mlp_decode"] if span else K6_NAMES,
+         "meta": {"M": m, "D": d, "F": f},
+         "nbytes": (8 * m * d + 4 * d + d * n2f // 2 + 2 * (d // gs) * n2f + 4 * n2f
+                    + f * d // 2 + 2 * (f // gs) * d + 4 * d + 4),
+         "ops": 2.0 * m * (n2f * d + f * d), "lib": lib}
+    if span:
+        c["rowpair"] = lambda codes_out: fd.fused_mlp_decode_rp(
+            *args(True, gqw_rp, dqw_rp, rowpair=True), span=2 * gs, bf=512, eps=eps,
+            fuse_residual=False, codes_out=codes_out)
+    return c
 
 
-FUSED_BUILDERS = {"k4": _k4_case, "k5": _k5_case, "k6": _k6_case}
+FUSED_CASES = {"k4": _k4_case, "k5": _k5_case, "k6": _k6_case}
+# K12's entries: K4-K6's case makers on span weights
+SPAN_CASES = {"fused_norm_gemv": _k4_case, "fused_requant_gemv": _k5_case,
+                 "fused_mlp_decode": _k6_case}
 
 
-def _fused_cases(torch, timer, gen):
-    """K4-K6 at the main path's row counts: checked and timed."""
-    out = {key: [] for key in FUSED_BUILDERS}
+def _fused_cases(torch, timer, gen, span=False):
+    """K4-K6, or with ``span`` K12's three entries, at the main path's row
+    counts: checked and timed."""
+    makers = SPAN_CASES if span else FUSED_CASES
+    out = {key: [] for key in makers}
     for m in FUSED_ROWS:
-        for key, build in FUSED_BUILDERS.items():
-            c = build(torch, gen, m, 128, extras=False)
+        for key, build in makers.items():
+            c = build(torch, gen, m, 128, extras=False, span=span)
             case = _fused_check(torch, c)
 
             def run(c=c):
@@ -621,14 +701,15 @@ def _fused_cases(torch, timer, gen):
     return out
 
 
-def _fused_sweep(torch, gen):
+def _fused_sweep(torch, gen, span=False):
     """K4-K6 checked (not timed) off the main path's shapes: 1 row, 9 rows
     at groupsize 64, and 64 rows (the engine's cap; two passes through
-    shared memory), with bias, beta and residual on."""
+    shared memory), with bias, beta and residual on; K12 at 1, 9 and 64 rows
+    at groupsize 64 (spans of 128)."""
     out = []
-    for m, gs in ((1, 128), (9, 64), (64, 128)):
-        for build in FUSED_BUILDERS.values():
-            out.append({**_fused_check(torch, build(torch, gen, m, gs, extras=True)),
+    for m, gs in (((1, 64), (9, 64), (64, 64)) if span else ((1, 128), (9, 64), (64, 128))):
+        for build in (SPAN_CASES if span else FUSED_CASES).values():
+            out.append({**_fused_check(torch, build(torch, gen, m, gs, extras=True, span=span)),
                         "groupsize": gs})
     return out
 
@@ -930,18 +1011,25 @@ def phase_kernels(torch, state):
     state["k9"] = _k9_cases(torch, timer, gen)
     state["k10"] = _k10_cases(torch, timer, gen)
     state["k11"] = _k11_cases(torch, timer, gen)
+    state["k12"] = _fused_cases(torch, timer, gen, span=True)
+    sweep12 = _fused_sweep(torch, gen, span=True)
     del timer
     torch.cuda.empty_cache()
-    return {**{f"k{i}": state[f"k{i}"] for i in range(1, 12)}, "k4_k6_sweep": sweep}
+    return {**{f"k{i}": state[f"k{i}"] for i in range(1, 13)}, "k4_k6_sweep": sweep,
+            "k12_sweep": sweep12}
 
 
 def _drive_main(torch, cfg, ecfg, want, smax=SMAX, new_tokens=NEW_TOKENS,
-                attn=("K3", ["decode_attn_kernel"]), linear=("K1", K1_NAMES)):
+                attn=("K3", ["decode_attn_kernel"]), linear=("K1", K1_NAMES), span_only=False,
+                extra=None):
     """build_llama_engine + generate with launch counts (must equal
     ``want``), then a timed step-by-step replay and a profiled breakdown in
     which ``attn`` and ``linear`` name the decode attention and the linears'
     kernel groups.  The engine has fp32 group scales under
-    ``ecfg.fp_scales``."""
+    ``ecfg.fp_scales``; ``span_only``: span codes with plane rows and no
+    rowpair copy (``keep_span``, then ``qw_rp`` and ``cs_fold`` dropped).
+    ``extra(eng, prompts, toks)`` runs before the engine is freed and its
+    dict is reported under "extra"."""
     import numpy as np
 
     from dgq_tpu_torch.models.engine import engine_forward, generate, init_kv_cache
@@ -951,7 +1039,10 @@ def _drive_main(torch, cfg, ecfg, want, smax=SMAX, new_tokens=NEW_TOKENS,
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    eng = build_llama_engine(cfg, seed=0, device=DEV, fp_scales=ecfg.fp_scales)
+    eng = build_llama_engine(cfg, seed=0, device=DEV, fp_scales=ecfg.fp_scales,
+                             keep_span=span_only)
+    if span_only:
+        eng = _drop_rowpair(eng)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     prompts = torch.from_numpy(np.random.default_rng(0).integers(
@@ -995,7 +1086,9 @@ def _drive_main(torch, cfg, ecfg, want, smax=SMAX, new_tokens=NEW_TOKENS,
     if not torch.equal(torch.stack(replay, dim=1), toks):
         raise AssertionError("replay tokens differ from generate's")
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
-    del eng, cache, logits
+    del cache, logits
+    extra_out = extra(eng, prompts, toks) if extra is not None else None
+    del eng
     torch.cuda.empty_cache()
     return {"layers": cfg.num_hidden_layers, "fused_decode": ecfg.fused_decode,
             "fp_scales": ecfg.fp_scales, "batch": BATCH, "prompt": PROMPT, "new_tokens": new_tokens, "max_len": smax,
@@ -1004,14 +1097,27 @@ def _drive_main(torch, cfg, ecfg, want, smax=SMAX, new_tokens=NEW_TOKENS,
             "decode_tok_per_s": BATCH * 1e3 / decode_ms,
             "generate_tok_per_s": BATCH * new_tokens / gen_s,
             "peak_gib": peak_gb, "decode_step_breakdown": breakdown,
-            "tokens_row0": toks[0].tolist()}
+            "tokens_row0": toks[0].tolist(), **({"extra": extra_out} if extra else {})}
+
+
+def _drop_rowpair(eng):
+    """Span-only params: every linear's ``qw_rp`` and ``cs_fold`` set to None."""
+    import dataclasses
+
+    lins = ("qkv_proj", "o_proj", "gate_up_proj", "down_proj")
+    return dataclasses.replace(eng, layers=eng.layers._replace(**{
+        n: getattr(eng.layers, n)._replace(qw_rp=None, cs_fold=None) for n in lins}))
+
+
+ROWPAIR_FUSED = ("fused_norm_gemv_rp", "fused_requant_gemv_rp", "fused_mlp_decode_rp")
 
 
 def _want_launches(layers: int, fused: bool, new_tokens: int = NEW_TOKENS, chunked=False,
-                   linear="w4a8_matmul_rp_pipe"):
+                   linear="w4a8_matmul_rp_pipe", fused_kernels=ROWPAIR_FUSED):
     """Launches of every kernel over ``generate`` on the LLaMA engine:
     ``linear`` runs the four linears of each layer at prefill, and at every
-    decode step unless the fused kernels take them."""
+    decode step unless the fused kernels (``fused_kernels``: K4-K6, or K12
+    on span-only storage) take them."""
     steps = new_tokens - 1
     decode_linears = 0 if fused else 4 * layers * steps
     fused_calls = layers * steps if fused else 0
@@ -1019,8 +1125,7 @@ def _want_launches(layers: int, fused: bool, new_tokens: int = NEW_TOKENS, chunk
     want.update({linear: 4 * layers + decode_linears,
                  "int8_prefill_attention": layers,
                  "int8_decode_attention": 0 if chunked else layers * steps,
-                 "fused_norm_gemv_rp": fused_calls, "fused_requant_gemv_rp": fused_calls,
-                 "fused_mlp_decode_rp": fused_calls,
+                 **{name: fused_calls for name in fused_kernels},
                  "int8_decode_attention_chunked": layers * steps if chunked else 0})
     return want
 
@@ -1080,6 +1185,79 @@ def phase_main_fpscale(torch, state):
                       linear=("K10", SPAN_NAMES))
     state["launches_fpscale"] = out["launches"]
     return out
+
+
+def phase_main_span(torch, state):
+    """Span-only storage at full 7B depth (``build_llama_engine(keep_span=
+    True)`` with every ``qw_rp`` and ``cs_fold`` dropped): main's generate
+    with K9 at prefill and K12 at every decode step (K1 and K4-K6 never);
+    then ``generate_speculative`` of one prompt, host loop and on device,
+    with K12 on every verify window."""
+    from dgq_tpu_torch.models.engine import EngineConfig
+    from dgq_tpu_torch.models.llama import LlamaConfig
+
+    cfg = LlamaConfig()
+    ecfg = EngineConfig(cfg=cfg)
+    layers = cfg.num_hidden_layers
+    out = _drive_main(torch, cfg, ecfg,
+                      _want_launches(layers, True, linear="w4a8_matmul_packed",
+                                     fused_kernels=tuple(K12_NAMES)),
+                      linear=("K9", SPAN_NAMES), span_only=True,
+                      extra=lambda eng, prompts, toks: _span_speculative(torch, ecfg, eng,
+                                                                         prompts[:1]))
+    state["launches_span"] = out["launches"]
+    return out
+
+
+def _span_speculative(torch, ecfg, eng, prompt):
+    """generate_speculative (spec_k SPEC_K, NEW_TOKENS tokens) on the
+    span-only engine, host loop and on device, its forwards counted by
+    kind: K12 must run once per layer on every verify window and every
+    plain step, K3 on the plain steps only, K9 and K2 at the prefill only.
+    Reported, not gated: its tokens against ``generate``'s of the same
+    prompt (decode steps and verify windows round differently)."""
+    from dgq_tpu_torch.models.engine import engine_forward, generate
+    from dgq_tpu_torch.ops import _cuda
+    from dgq_tpu_torch.serving.speculative import generate_speculative
+
+    layers = ecfg.cfg.num_hidden_layers
+    ref = generate(ecfg, eng, prompt, NEW_TOKENS, SMAX)[0].tolist()
+    runs = {}
+    for ondevice in (False, True):
+        forwards = {"prefill": 0, "verify": 0, "plain": 0}
+
+        def forward(ecfg_, params, ids, cache, window="auto"):
+            kind = ("verify" if window == "decode" else
+                    "plain" if ids.shape[1] == 1 else "prefill")
+            forwards[kind] += 1
+            return engine_forward(ecfg_, params, ids, cache, window=window)
+
+        _cuda.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks, stats = generate_speculative(ecfg, eng, prompt, NEW_TOKENS, SMAX, spec_k=SPEC_K,
+                                           ondevice=ondevice, forward_fn=forward)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = dict(_cuda.LAUNCHES)
+        want = {name: 0 for name in SOURCES_OF}
+        want.update({name: layers * (forwards["verify"] + forwards["plain"])
+                     for name in K12_NAMES})
+        want.update({"w4a8_matmul_packed": 4 * layers, "int8_prefill_attention": layers,
+                     "int8_decode_attention": layers * forwards["plain"]})
+        if launches != want or forwards["verify"] < 1 or forwards["prefill"] != 1:
+            raise AssertionError(f"speculative (ondevice={ondevice}): launches {launches} != "
+                                 f"{want}, forwards {forwards}")
+        got = toks[0].tolist()
+        if len(got) != NEW_TOKENS:
+            raise AssertionError(f"{len(got)} speculative tokens")
+        runs["ondevice" if ondevice else "host"] = {
+            "seconds": secs, "tok_per_s": NEW_TOKENS / secs, "stats": stats,
+            "forwards": forwards, "k12_launches_each": want["fused_norm_gemv"],
+            "tokens_equal_generate": got == ref,
+            "first_diff_vs_generate": next((i for i, (a, b) in enumerate(zip(got, ref))
+                                            if a != b), None)}
+    return {"spec_k": SPEC_K, "prompt": prompt.shape[1], "new_tokens": NEW_TOKENS, **runs}
 
 
 def _opt_greedy(torch, ecfg, eng, prompts, new_tokens, smax):
@@ -1214,14 +1392,16 @@ def _percentiles(ms):
     return {"p50": ms[len(ms) // 2], "p95": ms[min(len(ms) - 1, int(len(ms) * 0.95))]}
 
 
-def _drive_socket(srv, reqs, cancel_uid):
+def _drive_socket(srv, reqs, cancel_uid, hold=False):
     """Send every request over one connection (pipelined), cancel
-    ``cancel_uid`` at its first streamed tokens over a second connection
-    (the first one's reader is still submitting the requests behind it),
-    read every reply, then the metrics op.  Requests take uids 0.. in the
-    order sent.  Also returns the latencies the client sees: e2e from the
-    send of all requests to each final reply, TTFT to each streaming
-    request's first tokens."""
+    ``cancel_uid`` (None: no cancel) at its first streamed tokens over a
+    second connection (the first one's reader is still submitting the
+    requests behind it), read every reply, then the metrics op.  Requests
+    take uids 0.. in the order sent.  ``hold``: the scheduler loop waits,
+    behind its lock, until every request is queued, so that the daemon steps
+    through the schedule of a direct run.  Also returns the latencies the
+    client sees: e2e from the send of all requests to each final reply, TTFT
+    to each streaming request's first tokens."""
     import socket
 
     addr = (srv.host, srv.port)
@@ -1233,9 +1413,17 @@ def _drive_socket(srv, reqs, cancel_uid):
             s.sendall((json.dumps(obj) + "\n").encode())
 
         t0 = time.perf_counter()
-        for r in reqs:
-            send(sock, {"prompt_ids": r["prompt_ids"].tolist(), "max_new_tokens": SERVE_NEW,
-                        "stream": r["stream"]})
+        if hold:
+            srv._locks[0].acquire()
+        try:
+            for r in reqs:
+                send(sock, {"prompt_ids": r["prompt_ids"].tolist(),
+                            "max_new_tokens": SERVE_NEW, "stream": r["stream"]})
+            while hold and srv._submit_qs[0].qsize() < len(reqs):
+                time.sleep(0.001)
+        finally:
+            if hold:
+                srv._locks[0].release()
         finals, streamed, acks, first_ms, e2e_ms = {}, {}, [], {}, {}
         while len(finals) < len(reqs):
             msg = json.loads(f.readline())
@@ -1258,14 +1446,17 @@ def _drive_socket(srv, reqs, cancel_uid):
     return finals, streamed, acks, metrics, wall, client
 
 
-def _serve_daemon(torch, cfg, flags, reqs, prefix, cancel_uid, forward):
+def _serve_daemon(torch, cfg, flags, reqs, prefix, cancel_uid, forward, verify=None,
+                  hold=False):
     """save_engine of the full-width engine of seed 0, then
     ``dgq_tpu_torch.serve.build_server`` with ``flags`` and the registered
-    prefix, driven over a socket with ``reqs``.  ``forward`` (module, name)
-    is the decode forward whose calls are counted.  Gates what every served
-    run must show (no recovery, the cancel, SERVE_NEW tokens, streams equal
-    to outputs, the prefix hits) and returns the parsed args, the server's
-    batcher and the run's record."""
+    prefix, driven over a socket with ``reqs`` (``cancel_uid`` and ``hold``
+    as ``_drive_socket``'s).  ``forward`` (module, name) is the decode
+    forward whose calls are counted, and ``verify`` the speculative
+    verification forward, if any.  Gates what every served run must show (no
+    recovery, the cancel, SERVE_NEW tokens, streams equal to outputs, the
+    prefix hits) and returns the parsed args, the server's batcher and the
+    run's record."""
     import tempfile
 
     from dgq_tpu_torch import serve
@@ -1288,13 +1479,16 @@ def _serve_daemon(torch, cfg, flags, reqs, prefix, cancel_uid, forward):
         args = serve.build_parser().parse_args(
             [ckpt, *flags, "--port", "0", "--prefix", str(tmp / "prefix.json"),
              "--metrics-interval", "0"])
-        forwards, load_s = {"n": 0}, []
-        mod, name = forward
-        real, real_load = getattr(mod, name), checkpoint.load_engine
+        forwards, load_s = {"n": 0, "verify": 0}, []
+        counted_fns = [(forward, "n")] + ([(verify, "verify")] if verify else [])
+        saved = [(mod, name, getattr(mod, name)) for (mod, name), _ in counted_fns]
+        real_load = checkpoint.load_engine
 
-        def counted(*a, **k):
-            forwards["n"] += 1
-            return real(*a, **k)
+        def counter(fn, key):
+            def counted(*a, **k):
+                forwards[key] += 1
+                return fn(*a, **k)
+            return counted
 
         def timed_load(*a, **k):
             t = time.perf_counter()
@@ -1303,7 +1497,8 @@ def _serve_daemon(torch, cfg, flags, reqs, prefix, cancel_uid, forward):
             load_s.append(time.perf_counter() - t)
             return out
 
-        setattr(mod, name, counted)
+        for ((mod, name), key), (_, _, fn) in zip(counted_fns, saved):
+            setattr(mod, name, counter(fn, key))
         checkpoint.load_engine = timed_load
         try:
             _cuda.reset_launches()
@@ -1311,21 +1506,23 @@ def _serve_daemon(torch, cfg, flags, reqs, prefix, cancel_uid, forward):
             srv = serve.build_server(args)
             start_s = time.perf_counter() - t0
             with srv:
-                finals, streamed, acks, metrics, wall, client = _drive_socket(srv, reqs,
-                                                                              cancel_uid)
+                finals, streamed, acks, metrics, wall, client = _drive_socket(
+                    srv, reqs, cancel_uid, hold=hold)
                 torch.cuda.synchronize()
                 launches = dict(_cuda.LAUNCHES)
                 batcher = srv.batcher
         finally:
-            setattr(mod, name, real)
+            for mod, name, fn in saved:
+                setattr(mod, name, fn)
             checkpoint.load_engine = real_load
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
     if batcher._recoveries:
         raise AssertionError(f"the served run recovered {batcher._recoveries} time(s)")
-    cancelled = finals[cancel_uid]
-    if not (acks and acks[0]["cancelled_ok"] and cancelled.get("cancelled")):
+    cancelled = finals.get(cancel_uid, {"output_ids": None})
+    if cancel_uid is not None and not (acks and acks[0]["cancelled_ok"]
+                                       and cancelled.get("cancelled")):
         raise AssertionError(f"request {cancel_uid} was not cancelled mid-stream: {acks}")
     served = {uid: m["output_ids"] for uid, m in finals.items() if uid != cancel_uid}
     short = {uid: len(t) for uid, t in served.items() if len(t) != SERVE_NEW}
@@ -1346,7 +1543,10 @@ def _serve_daemon(torch, cfg, flags, reqs, prefix, cancel_uid, forward):
               "served_wall_s": wall, "served_tokens": served_tokens,
               "client_tok_per_s": served_tokens / wall, "client_latency": client,
               "metrics": metrics, "decode_forwards": forwards["n"], "launches": launches,
-              "cancelled": {"uid": cancel_uid, "tokens": len(cancelled["output_ids"])}}
+              "cancelled": None if cancel_uid is None else {
+                  "uid": cancel_uid, "tokens": len(cancelled["output_ids"])}}
+    if verify:
+        record["verify_forwards"] = forwards["verify"]
     return args, batcher, served, cancelled["output_ids"], record
 
 
@@ -1562,6 +1762,8 @@ def phase_serve_dense(torch, state):
     breakdown = _profile_steps(torch, prof_b.step, 4, ("K3", ["decode_attn_kernel"]))
     del prof_b
     state["launches_serve_dense"] = rec["launches"]
+    state["serve_dense"] = {"tokens": want, "client_tok_per_s": rec["client_tok_per_s"],
+                            "client_latency": rec["client_latency"]}
     return {**rec, "prefill_pad": args.prefill_pad, "admit_batch": args.admit_batch,
             "direct_run_s": direct_s, "served_equal_direct": True,
             "decode_steps_4_run_s": multi_s, "served_equal_decode_steps_4": True,
@@ -1572,6 +1774,107 @@ def phase_serve_dense(torch, state):
                 next((i for i, (a, b) in enumerate(zip(kv4[u], paged4[u])) if a != b), None)
                 for u in sorted(kv4)],
             "dense_decode_step": {"slots": SLOTS, "lengths": lengths, **breakdown}}
+
+
+def phase_serve_spec(torch, state):
+    """The dense daemon with ``--spec-k SPEC_K`` (speculative decoding in the
+    ContinuousBatcher, CLI defaults otherwise) at full 7B width and depth on
+    serve_dense's checkpoint, requests and prefix, all queued before the
+    daemon's first step: verify windows of 8 slots x 5 tokens through K4-K6
+    with plain attention, K3 on plain steps.  The served tokens must equal a
+    direct ``ContinuousBatcher(spec_k=SPEC_K).run()``.  Reported: the
+    speculation metrics, client numbers and tokens against serve_dense's
+    (verify windows and K3 round differently), direct runs with
+    decode_steps=4 and with speculation never suspended, and a profiled
+    8-slot verify step."""
+    from dgq_tpu_torch.models.engine import EngineConfig
+    from dgq_tpu_torch.models.llama import LlamaConfig
+    from dgq_tpu_torch.serving import scheduler
+
+    cfg = LlamaConfig()
+    prefix, reqs = _serve_requests(cfg)
+    reqs = reqs[:SERVE_DENSE]
+    args, batcher, served, _, rec = _serve_daemon(
+        torch, cfg, ["--spec-k", str(SPEC_K)], reqs, prefix, None,
+        (scheduler, "engine_decode_batched"), verify=(scheduler, "engine_verify_batched"),
+        hold=True)
+    params, layers = batcher.params, cfg.num_hidden_layers
+    if type(batcher).__name__ != "ContinuousBatcher" or batcher.spec_k != SPEC_K:
+        raise AssertionError(f"the daemon with --spec-k runs {type(batcher).__name__}")
+    decode_calls = layers * rec["decode_forwards"]
+    fused_calls = layers * (rec["decode_forwards"] + rec["verify_forwards"])
+    _check_attention_launches(rec["launches"], "int8_decode_attention", decode_calls)
+    fused = {n: rec["launches"][n] for n in ROWPAIR_FUSED}
+    if rec["verify_forwards"] < 1 or any(n != fused_calls for n in fused.values()):
+        raise AssertionError(f"K4-K6 launches {fused} != {fused_calls}, or no verify window")
+    spec_stats = dict(batcher.spec_stats)
+    del batcher
+
+    def make(**kw):
+        return scheduler.ContinuousBatcher(
+            EngineConfig(cfg=cfg), params, num_slots=args.slots, max_len=args.max_len,
+            prefill_pad=args.prefill_pad, prefill_chunk=args.prefill_chunk,
+            admit_batch=args.admit_batch, spec_k=SPEC_K, **kw)
+
+    direct_b, want, direct_s = _direct_run(torch, make, prefix, reqs)
+    _check_equal(f"a direct ContinuousBatcher(spec_k={SPEC_K}).run()", served, want)
+    if direct_b.spec_stats != spec_stats:
+        raise AssertionError(f"spec stats {spec_stats} != the direct run's "
+                             f"{direct_b.spec_stats}")
+    del direct_b
+    multi_b, multi, multi_s = _direct_run(torch, make, prefix, reqs, decode_steps=4)
+    multi_rec = {"run_s": multi_s, "spec_stats": dict(multi_b.spec_stats),
+                 "spec_multi_calls": multi_b.timings.get("dispatch:spec_multi", [0])[0],
+                 "share_equal_served": sum(multi[u] == want[u] for u in want) / len(want)}
+    del multi_b
+    # speculation never suspended: the verify path's own cost and yield
+    always_b, always, always_s = _direct_run(torch, make, prefix, reqs, spec_adaptive=False)
+    always_rec = {"run_s": always_s, "spec_stats": dict(always_b.spec_stats),
+                  "verify_calls": always_b.timings.get("dispatch:spec_verify", [0])[0],
+                  "share_equal_served": sum(always[u] == want[u] for u in want) / len(want)}
+    del always_b
+    torch.cuda.empty_cache()
+
+    # a profiled verify step: all 8 slots decoding, speculation always on
+    prof_b = make(spec_adaptive=False)
+    for uid in range(SLOTS):
+        prof_b.add_request(scheduler.Request(uid=uid, prompt_ids=reqs[uid]["prompt_ids"],
+                                             max_new_tokens=SERVE_NEW))
+    while prof_b.queue or prof_b.pending:
+        prof_b.step()
+    if sum(r is not None for r in prof_b.slots) != SLOTS:
+        raise AssertionError("not every slot is decoding before the profiled steps")
+    lengths = [int(n) for n in prof_b.lengths_h]
+    n0 = prof_b.timings.get("dispatch:spec_verify", [0])[0]
+    breakdown = _profile_steps(torch, prof_b.step, 4, ("K3", ["decode_attn_kernel"]))
+    if prof_b.timings["dispatch:spec_verify"][0] - n0 != 4:
+        raise AssertionError("the profiled steps were not all verify steps")
+    del prof_b
+    attn_ms = _verify_attention_ms(torch, cfg, lengths)
+
+    dense = state.get("serve_dense")
+    m = rec["metrics"]
+    out = {**rec, "spec_k": SPEC_K, "spec_stats": spec_stats,
+           "spec_tokens_per_step": m.get("spec_tokens_per_step"),
+           "spec_suspensions": m.get("spec_suspensions"), "direct_run_s": direct_s,
+           "served_equal_direct": True, "decode_steps_4": multi_rec,
+           "spec_always_on": always_rec,
+           "verify_step": {"slots": SLOTS, "rows": SLOTS * (SPEC_K + 1), "lengths": lengths,
+                           **breakdown,
+                           # of "other": the plain attention, timed alone per layer
+                           "verify_attention_ms_per_layer": attn_ms,
+                           "verify_attention_ms_per_step": attn_ms * layers}}
+    if dense is not None:
+        out["vs_serve_dense"] = {
+            "client_tok_per_s": dense["client_tok_per_s"],
+            "client_latency": dense["client_latency"],
+            "share_equal_tokens": sum(want[u] == dense["tokens"][u] for u in want) / len(want),
+            # per request, the first token where speculation leaves the plain
+            # batcher's tokens (None: equal)
+            "first_diff": [next((i for i, (a, b) in enumerate(zip(want[u], dense["tokens"][u]))
+                                 if a != b), None) for u in sorted(want)]}
+    state["launches_serve_spec"] = rec["launches"]
+    return out
 
 
 def _profile_decode(torch, ecfg, eng, tok, cache, steps: int, attn, linear=("K1", K1_NAMES)):
@@ -1590,7 +1893,7 @@ def _profile_decode(torch, ecfg, eng, tok, cache, steps: int, attn, linear=("K1"
 def _profile_steps(torch, step, steps: int, attn, linear=("K1", K1_NAMES)):
     """Device time of ``steps`` calls of ``step`` by kernel group (the
     linears' GEMM ``linear`` and the decode attention ``attn``, each (label,
-    kernel names), K4-K6, the rest), against the wall time of the same
+    kernel names), K4-K6, K12, the rest), against the wall time of the same
     steps."""
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -1600,7 +1903,7 @@ def _profile_steps(torch, step, steps: int, attn, linear=("K1", K1_NAMES)):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     names = {linear[0]: linear[1], attn[0]: attn[1], "K4": K4_NAMES, "K5": K5_NAMES,
-             "K6": K6_NAMES}
+             "K6": K6_NAMES, "K12": K12_ALL}
     groups = {g: 0.0 for g in [*names, "other"]}
     launches = {g: 0 for g in groups}
     for e in prof.key_averages():
@@ -1616,6 +1919,37 @@ def _profile_steps(torch, step, steps: int, attn, linear=("K1", K1_NAMES)):
             "device_idle_share": max(0.0, 1.0 - busy / wall_ms)}
 
 
+def _verify_attention_ms(torch, cfg, lengths, iters: int = 10):
+    """Device time of one layer's plain verify attention
+    (``batch_engine.verify_attention`` with quant_pv) at a verify step's
+    shapes: SLOTS slots at ``lengths``, SPEC_K + 1 queries each, a cache of
+    SMAX, random int8 codes; every kernel of the call, from the profiler."""
+    from dgq_tpu_torch.serving.batch_engine import verify_attention
+
+    gen = torch.Generator(device=DEV).manual_seed(7)
+    h, hk, dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+
+    def ri(shape):
+        return torch.randint(-127, 128, shape, generator=gen, device=DEV, dtype=torch.int8)
+
+    q, kt, v = ri((SLOTS, h, SPEC_K + 1, dh)), ri((SLOTS, hk, dh, SMAX)), ri((SLOTS, hk, SMAX, dh))
+    lens = torch.tensor(lengths, dtype=torch.int32, device=DEV)
+    scale = torch.full((), 0.05, device=DEV)
+
+    def call():
+        return verify_attention(q, kt, v, lens, scale, scale, scale, quant_pv=True)
+
+    call()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            call()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0))
+             for e in prof.key_averages())
+    return us / iters / 1e3
+
+
 class _CodeRecorder:
     """Record every int8 code tensor the engine makes: RMSNormQ and requant
     in the unfused glue, and the codes the fused kernels K4-K6 make inside
@@ -1625,8 +1959,12 @@ class _CodeRecorder:
     that a code that flips at a rounding boundary does not cascade through
     the layers that follow."""
 
+    # name -> code tensors it hands out; the MLPs' down weight (F/2 rows) is
+    # argument DOWN_ARG[name] after x
     FUSED_CODES = {"fused_norm_gemv_rp": 1, "fused_requant_gemv_rp": 1,
-                   "fused_mlp_decode_rp": 2}
+                   "fused_mlp_decode_rp": 2, "fused_norm_gemv": 1, "fused_requant_gemv": 1,
+                   "fused_mlp_decode": 2}
+    DOWN_ARG = {"fused_mlp_decode_rp": 10, "fused_mlp_decode": 9}
 
     def __init__(self, force=None):
         self.force = force
@@ -1664,11 +2002,12 @@ class _CodeRecorder:
                 return ref
             return wrapped
 
-        def rec_fused(fn, n_codes):
+        def rec_fused(fn, n_codes, down_arg):
             def wrapped(x, *a, **k):
-                # (M, K) codes of x; K6 also the (M, F) down-proj input codes,
-                # F = 2 * rows of d_qw_rp (its 12th argument)
-                shapes = [x.shape] + ([(x.shape[0], 2 * a[10].shape[0])] if n_codes == 2 else [])
+                # (M, K) codes of x; an MLP also the (M, F) down-proj input
+                # codes, F = 2 * rows of its down weight
+                shapes = [x.shape] + ([(x.shape[0], 2 * a[down_arg].shape[0])]
+                                      if n_codes == 2 else [])
                 codes = [x.new_empty(sh, dtype=torch.int8) for sh in shapes]
                 out = fn(x, *a, codes_out=codes[0] if n_codes == 1 else tuple(codes), **k)
                 self.codes.extend(codes)
@@ -1677,7 +2016,8 @@ class _CodeRecorder:
 
         for mod, name, fn in self.saved:
             if name in self.FUSED_CODES:
-                setattr(mod, name, rec_fused(fn, self.FUSED_CODES[name]))
+                setattr(mod, name, rec_fused(fn, self.FUSED_CODES[name],
+                                             self.DOWN_ARG.get(name)))
             else:
                 setattr(mod, name, rec(fn))
         return self
@@ -1701,7 +2041,8 @@ class _PlainPath:
                       ("w4a8_matmul_rp_pipe", "int8_prefill_attention", "int8_decode_attention",
                        "int8_decode_attention_chunked", "fused_norm_gemv_rp",
                        "fused_requant_gemv_rp", "fused_mlp_decode_rp", "w4a8_matmul_packed",
-                       "w4a8_fpscale_matmul_packed")]
+                       "w4a8_fpscale_matmul_packed", "fused_norm_gemv", "fused_requant_gemv",
+                       "fused_mlp_decode")]
         self.saved += [(paged, n, getattr(paged, n)) for n in
                        ("int8_paged_decode_attention", "int4_paged_decode_attention")]
         self.saved += [(opt_engine, n, getattr(opt_engine, n)) for n in
@@ -1726,6 +2067,9 @@ class _PlainPath:
         def k6(*a, bf, **k):  # the TPU's F block; the plain version has none
             return fused_decode.fused_mlp_decode_rp_xla(*a, **k)
 
+        def k12_mlp(*a, bf, **k):
+            return fused_decode.fused_mlp_decode_xla(*a, **k)
+
         engine.w4a8_matmul_packed = opt_engine.w4a8_matmul_packed = k9
         engine.w4a8_fpscale_matmul_packed = k10
         opt_engine.int8_decode_attention = attention.int8_decode_attention_xla
@@ -1738,6 +2082,9 @@ class _PlainPath:
             return attention.int8_decode_attention_xla(*a, **k)
 
         engine.fused_mlp_decode_rp = k6
+        engine.fused_norm_gemv = fused_decode.fused_norm_gemv_xla
+        engine.fused_requant_gemv = fused_decode.fused_requant_gemv_xla
+        engine.fused_mlp_decode = k12_mlp
         engine.int8_decode_attention_chunked = opt_engine.int8_decode_attention_chunked = k7
         paged.int8_paged_decode_attention = attention.int8_paged_decode_attention_xla
         paged.int4_paged_decode_attention = attention.int4_paged_decode_attention_xla
@@ -1871,6 +2218,11 @@ def phase_parity(torch, state):
     out["paged_kv4"] = _parity(torch, lambda: _paged_teacher_forced(torch, kv4, eng, prompts,
                                                                     steps))
     del eng
+    # span-only storage: K9 at prefill, K12 at the decode steps and the window
+    span_eng = _drop_rowpair(build_llama_engine(cfg, seed=2, device=DEV, keep_span=True))
+    out["span_fused"] = _parity(torch, lambda: _teacher_forced(torch, ecfg, span_eng, prompts,
+                                                               steps, window))
+    del span_eng
     # the paths of phases main_fpscale (K10) and opt (K9), at full width
     fp_eng = build_llama_engine(cfg, seed=2, device=DEV, fp_scales=True)
     fp_cfg = EngineConfig(cfg=cfg, fp_scales=True)
@@ -1994,21 +2346,35 @@ SOURCES_OF = {
                            "dgq_tpu/ops/quant_matmul.py:173"),
     "w4a8_fpscale_matmul_packed": ("dgq_tpu_torch/csrc/w4a8_span_gemm.cu",
                                    "dgq_tpu/ops/quant_matmul.py:941"),
+    "fused_norm_gemv": ("dgq_tpu_torch/csrc/fused_decode_span.cu",
+                        "dgq_tpu/ops/fused_decode.py:423"),
+    "fused_requant_gemv": ("dgq_tpu_torch/csrc/fused_decode_span.cu",
+                           "dgq_tpu/ops/fused_decode.py:916"),
+    "fused_mlp_decode": ("dgq_tpu_torch/csrc/fused_decode_span.cu",
+                         "dgq_tpu/ops/fused_decode.py:1071"),
 }
-# K14 (w4a8_matmul_wres, w4a8_matmul_pipe) computes K9's function and runs it
+# K14 (w4a8_matmul_wres, w4a8_matmul_pipe) computes K9's function and runs it.
+# K13 (fused_norm_gemv_s4, fused_requant_gemv_s4) computes K12's first two
+# functions bit for bit with both operands split to s4 for the TPU's int4
+# MXU; Hopper's tensor cores take no int4 operand, so the names run K12.
 ALSO_REPLACES = {"w4a8_matmul_packed": ["dgq_tpu/ops/quant_matmul.py:305",
-                                        "dgq_tpu/ops/quant_matmul.py:463"]}
+                                        "dgq_tpu/ops/quant_matmul.py:463"],
+                 "fused_norm_gemv": ["dgq_tpu/ops/fused_decode.py:513"],
+                 "fused_requant_gemv": ["dgq_tpu/ops/fused_decode.py:841"]}
 # the path whose launches each kernel's entry reports: K7 runs on main_long
 # only, K8 on the paged serving path only, K9 on the OPT engine, K10 on the
-# fp-scale LLaMA engine, K11 on paged serving with INT4 KV
+# fp-scale LLaMA engine, K11 on paged serving with INT4 KV, K12 on span-only
+# storage
 PATH_OF = {"int8_decode_attention_chunked": "launches_long",
            "int8_paged_decode_attention": "launches_serve",
            "w4a8_matmul_packed": "launches_opt",
            "w4a8_fpscale_matmul_packed": "launches_fpscale",
-           "int4_paged_decode_attention": "launches_serve_kv4"}
+           "int4_paged_decode_attention": "launches_serve_kv4",
+           **{name: "launches_span" for name in K12_NAMES}}
 PATHS = {"main": "launches", "main_long": "launches_long", "serve": "launches_serve",
          "opt": "launches_opt", "main_fpscale": "launches_fpscale",
-         "serve_kv4": "launches_serve_kv4", "serve_dense": "launches_serve_dense"}
+         "serve_kv4": "launches_serve_kv4", "serve_dense": "launches_serve_dense",
+         "main_span": "launches_span", "serve_spec": "launches_serve_spec"}
 LINE_PHASES = {"kernels", *PATHS}
 
 
@@ -2017,17 +2383,17 @@ def kernels_line(state):
     prefill (M = 1024) summed (K1 LLaMA under fused decode, K9 OPT, K10
     LLaMA with fp32 scales); K2, K3: the main path's MHA case (K3 with
     quant_pv); K4-K6: the decode step (M = 4); K7, K8: the MHA case with
-    quant_pv; K11: the MHA case.  ``launches`` counts the kernel over the
-    path that runs it (main; K7 main_long; K8 serve; K9 opt; K10
-    main_fpscale; K11 serve_kv4), and ``launches_by_path`` over each.  Every
-    case is listed under ``cases``."""
+    quant_pv; K11: the MHA case; K12: the decode step (M = 4).  ``launches``
+    counts the kernel over the path that runs it (main; K7 main_long; K8
+    serve; K9 opt; K10 main_fpscale; K11 serve_kv4; K12 main_span), and
+    ``launches_by_path`` over each.  Every case is listed under ``cases``."""
     cases = {"w4a8_matmul_rp_pipe": state["k1"], "int8_prefill_attention": state["k2"],
              "int8_decode_attention": state["k3"], "fused_norm_gemv_rp": state["k4"],
              "fused_requant_gemv_rp": state["k5"], "fused_mlp_decode_rp": state["k6"],
              "int8_decode_attention_chunked": state["k7"],
              "int8_paged_decode_attention": state["k8"],
              "w4a8_matmul_packed": state["k9"], "w4a8_fpscale_matmul_packed": state["k10"],
-             "int4_paged_decode_attention": state["k11"]}
+             "int4_paged_decode_attention": state["k11"], **state["k12"]}
     head = {
         "int8_prefill_attention": state["k2"][0],
         "int8_decode_attention": state["k3"][0],
@@ -2041,7 +2407,7 @@ def kernels_line(state):
                       for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
         head[name]["bound_by"] = "operations" if all(
             c["bound_by"] == "operations" for c in pre) else "bytes"
-    for name in ("fused_norm_gemv_rp", "fused_requant_gemv_rp", "fused_mlp_decode_rp"):
+    for name in (*ROWPAIR_FUSED, *K12_NAMES):
         head[name] = next(c for c in cases[name] if c["M"] == BATCH)
     out = []
     for name, (source, replaces) in SOURCES_OF.items():
@@ -2071,6 +2437,8 @@ PHASES = {
     "serve_dense": phase_serve_dense,
     "opt": phase_opt,
     "main_fpscale": phase_main_fpscale,
+    "main_span": phase_main_span,
+    "serve_spec": phase_serve_spec,
     "parity": phase_parity,
     "checkpoint": phase_checkpoint,
 }

@@ -1,11 +1,15 @@
-// Shared pieces of the fused decode kernels K4-K6 (Hopper, sm_90a): the
-// prologues that make int8 codes from fp32 rows, and the warp-level product
-// of 8 code rows with 32 columns of rowpair-packed int4 weights.
+// Shared pieces of the fused decode kernels K4-K6 (rowpair weights) and K12
+// (span weights), for Hopper (sm_90a): the prologues that make int8 codes
+// from fp32 rows, the warp-level product of 8 code rows with 32 weight
+// columns, the K4/K5 GEMV body and the K6/K12 MLP body, each templated on a
+// weight loader (Rowpair or Span).
 //
-// Weights: byte r of column n holds the shifted code (c - 8) & 0xF of row 2r
-// in its low nibble and of row 2r+1 in its high one, so nib ^ 8 is the
-// unsigned code c in [0, 15].  A group g of `gs` rows dequantises to int8 as
-// (c - z) * s (= (c4 - (z - 8)) * s with c4 = c - 8), and for any run of rows
+// Rowpair weights: byte r of column n holds the shifted code (c - 8) & 0xF of
+// row 2r in its low nibble and of row 2r+1 in its high one, so nib ^ 8 is the
+// unsigned code c in [0, 15].  Span weights (span = 2 gs): byte row t gs + i
+// holds the code c of row t span + i (group 2t) in its high nibble and of row
+// t span + gs + i (group 2t+1) in its low one, unshifted.  Either way a group
+// g of `gs` rows dequantises to int8 as (c - z) * s, and for any run of rows
 // inside one group
 //     sum_k x[k] * (c[k] - z) * s = s * (sum_k x[k] * c[k] - z * sum_k x[k]),
 // exactly, in int32.  So the kernels multiply raw codes c on the tensor cores
@@ -15,9 +19,12 @@
 //
 // The mma runs transposed: its 16 "rows" are weight columns and its 8
 // "columns" are activation rows, so a decode step of 4 rows pads to 8, not
-// 16.  A lane loads one 32-bit word (4 columns) from each of 4 byte rows of a
-// 32-row k step and rearranges the nibbles with byte permutes into the A
-// fragments (4 consecutive k of one column per register).
+// 16.  A lane loads 32-bit words (4 columns each) of the byte rows of a
+// 32-deep k step and rearranges the nibbles with byte permutes into the A
+// fragments (4 consecutive k of one column per register).  A rowpair k step
+// reads 16 byte rows for 32 rows of one group; a span k step reads 32 byte
+// rows for 32 rows of group 2t and 32 rows of group 2t+1 at once, whose
+// activation codes lie gs apart along K.
 
 #pragma once
 
@@ -60,60 +67,137 @@ struct GroupRows {
   }
 };
 
-// Words A (byte row r) and B (row r + 1), 4 columns each -> q[j] = the codes
-// c of rows 2r, 2r+1, 2r+2, 2r+3 of column j, one per byte.
-__device__ __forceinline__ void quads(uint32_t A, uint32_t B, uint32_t (&q)[4]) {
-  const uint32_t a = A ^ 0x88888888u, b = B ^ 0x88888888u;
-  const uint32_t la = a & 0x0F0F0F0Fu, ha = (a >> 4) & 0x0F0F0F0Fu;
-  const uint32_t lb = b & 0x0F0F0F0Fu, hb = (b >> 4) & 0x0F0F0F0Fu;
-  const uint32_t pa = __byte_perm(la, ha, 0x5140), qa = __byte_perm(la, ha, 0x7362);
-  const uint32_t pb = __byte_perm(lb, hb, 0x5140), qb = __byte_perm(lb, hb, 0x7362);
-  q[0] = __byte_perm(pa, pb, 0x5410);
-  q[1] = __byte_perm(pa, pb, 0x7632);
-  q[2] = __byte_perm(qa, qb, 0x5410);
-  q[3] = __byte_perm(qa, qb, 0x7632);
+// r0..r3: 4 columns of 4 rows, one byte each (row i in word i) -> q[j] = the
+// 4 rows of column j, one per byte.
+__device__ __forceinline__ void transpose4(uint32_t r0, uint32_t r1, uint32_t r2, uint32_t r3,
+                                           uint32_t (&q)[4]) {
+  const uint32_t p01 = __byte_perm(r0, r1, 0x5140), q01 = __byte_perm(r0, r1, 0x7362);
+  const uint32_t p23 = __byte_perm(r2, r3, 0x5140), q23 = __byte_perm(r2, r3, 0x7362);
+  q[0] = __byte_perm(p01, p23, 0x5410);
+  q[1] = __byte_perm(p01, p23, 0x7632);
+  q[2] = __byte_perm(q01, q23, 0x5410);
+  q[3] = __byte_perm(q01, q23, 0x7632);
 }
 
+constexpr uint32_t LO4 = 0x0F0F0F0Fu;
+
+// Rowpair words A (byte row r) and B (row r + 1), 4 columns each -> q[j] =
+// the codes c of rows 2r, 2r+1, 2r+2, 2r+3 of column j, one per byte.
+__device__ __forceinline__ void quads(uint32_t A, uint32_t B, uint32_t (&q)[4]) {
+  const uint32_t a = A ^ 0x88888888u, b = B ^ 0x88888888u;
+  transpose4(a & LO4, (a >> 4) & LO4, b & LO4, (b >> 4) & LO4, q);
+}
+
+// A weight loader gives, for one 32-deep k step starting at byte row rb, the
+// A fragments a[p][h][j] of each of its PLANES groups p: column col + j, rows
+// 4t..4t+3 (h = 0) and 16+4t..16+4t+3 (h = 1) of the step.  STEP_BYTES byte
+// rows make one k step.
+struct Rowpair {
+  static constexpr int PLANES = 1;
+  static constexpr int STEP_BYTES = 16;
+  __device__ __forceinline__ static void frags(const uint8_t* __restrict__ qw, int N, size_t rb,
+                                               int col, int t, uint32_t (&a)[1][2][4]) {
+    const uint8_t* w = qw + (rb + 2 * t) * N + col;
+    quads(ld32(w), ld32(w + N), a[0][0]);
+    quads(ld32(w + 8 * N), ld32(w + 9 * N), a[0][1]);
+  }
+};
+
+// Span: 32 byte rows hold 32 rows of the even group (high nibbles, plane 0)
+// and 32 rows of the odd group (low nibbles, plane 1) of one span.
+struct Span {
+  static constexpr int PLANES = 2;
+  static constexpr int STEP_BYTES = 32;
+  __device__ __forceinline__ static void frags(const uint8_t* __restrict__ qw, int N, size_t rb,
+                                               int col, int t, uint32_t (&a)[2][2][4]) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const uint8_t* w = qw + (rb + 16 * h + 4 * t) * N + col;
+      const uint32_t r0 = ld32(w), r1 = ld32(w + N), r2 = ld32(w + 2 * N), r3 = ld32(w + 3 * N);
+      transpose4((r0 >> 4) & LO4, (r1 >> 4) & LO4, (r2 >> 4) & LO4, (r3 >> 4) & LO4, a[0][h]);
+      transpose4(r0 & LO4, r1 & LO4, r2 & LO4, r3 & LO4, a[1][h]);
+    }
+  }
+};
+
+// Where segment s of a warp unit's walk lies, for plane p: its first byte row
+// rb, its group grp, the column xc of its first activation code and the index
+// sxc of its row sums.
+struct SegPos {
+  size_t rb;
+  int grp, xc, sxc;
+};
+
+// Rowpair: segment s = rows [k0 + s seg, + seg) of one group, activation
+// codes from column s seg.
+struct RowpairRun {
+  int k0, seg, gs;
+  __device__ __forceinline__ SegPos operator()(int s, int) const {
+    const int k = k0 + s * seg;
+    return {static_cast<size_t>(k / 2), k / gs, s * seg, s};
+  }
+};
+
+// Span over the whole K walk (activation codes in K order, row sums per
+// group): segment s = span s, plane p = its group 2s + p.
+struct SpanWalk {
+  int gs;
+  __device__ __forceinline__ SegPos operator()(int s, int p) const {
+    const int g = 2 * s + p;
+    return {static_cast<size_t>(s) * gs, g, g * gs, g};
+  }
+};
+
 // One warp unit: 8 activation rows (codes in shared memory at xs, row stride
-// ldx, column 0 = weight row k0) times the 32 weight columns [n0, n0 + 32) of
-// qw (row stride N bytes), over segments s0, s0 + ds, ... < nseg of `seg`
-// rows each (seg % 32 == 0, each segment inside one group of gs rows).
-// sx[r * ldsx + s] is the sum of row r's codes over segment s.  Adds into
-// tot[p][e] the result of column n0 + 4 (lane / 4) + 2p + e / 2 and row
-// 2 (lane % 4) + e % 2.
-__device__ __forceinline__ void warp_unit(const uint8_t* __restrict__ qw, int N, int n0, int k0,
-                                          int gs, GroupRows sr, GroupRows zr,
-                                          const int8_t* xs, int ldx, const int* sx, int ldsx,
-                                          int seg, int s0, int nseg, int ds, int (&tot)[2][4]) {
+// ldx) times the 32 weight columns [n0, n0 + 32) of qw (row stride N bytes),
+// over segments s0, s0 + ds, ... < nseg of `seg` rows per plane (seg % 32 ==
+// 0, each plane's segment inside one group) placed by `at`.  sx[r * ldsx + i]
+// is the sum of row r's codes over the run with index i.  Adds into tot[p][e]
+// the result of column n0 + 4 (lane / 4) + 2p + e / 2 and row 2 (lane % 4) +
+// e % 2.
+template <class L, class At>
+__device__ __forceinline__ void warp_unit(const uint8_t* __restrict__ qw, int N, int n0, At at,
+                                          GroupRows sr, GroupRows zr, const int8_t* xs, int ldx,
+                                          const int* sx, int ldsx, int seg, int s0, int nseg,
+                                          int ds, int (&tot)[2][4]) {
+  constexpr int P = L::PLANES;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int col = n0 + 4 * g;
   for (int s = s0; s < nseg; s += ds) {
-    const int kseg = k0 + s * seg;
-    const int grp = kseg / gs;
-    const uint32_t sw = ld32(sr.row(grp) + col), zw = ld32(zr.row(grp) + col);
-    int d[2][4] = {{0, 0, 0, 0}, {0, 0, 0, 0}};
+    SegPos pos[P];
+    uint32_t sw[P], zw[P];
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      pos[p] = at(s, p);
+      sw[p] = ld32(sr.row(pos[p].grp) + col);
+      zw[p] = ld32(zr.row(pos[p].grp) + col);
+    }
+    int d[P][2][4] = {};
 #pragma unroll 4
     for (int kk = 0; kk < seg; kk += 32) {
-      const uint8_t* w = qw + static_cast<size_t>((kseg + kk) / 2 + 2 * t) * N + col;
-      const uint32_t A = ld32(w), B = ld32(w + N), C = ld32(w + 8 * N), D = ld32(w + 9 * N);
-      uint32_t lo[4], hi[4];
-      quads(A, B, lo);
-      quads(C, D, hi);
-      const int8_t* xp = xs + g * ldx + s * seg + kk + 4 * t;
-      const uint32_t b0 = ld32(xp), b1 = ld32(xp + 16);
-      mma_s8(d[0], lo[0], lo[1], hi[0], hi[1], b0, b1);
-      mma_s8(d[1], lo[2], lo[3], hi[2], hi[3], b0, b1);
-    }
-    const int sx0 = sx[(2 * t) * ldsx + s], sx1 = sx[(2 * t + 1) * ldsx + s];
+      uint32_t a[P][2][4];
+      L::frags(qw, N, pos[0].rb + kk / 32 * L::STEP_BYTES, col, t, a);
 #pragma unroll
-    for (int p = 0; p < 2; ++p)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int j = 2 * p + (e >> 1);
-        const int sc = static_cast<int8_t>(sw >> (8 * j));
-        const int z = static_cast<int8_t>(zw >> (8 * j));
-        tot[p][e] += sc * (d[p][e] - z * ((e & 1) ? sx1 : sx0));
+      for (int p = 0; p < P; ++p) {
+        const int8_t* xp = xs + g * ldx + pos[p].xc + kk + 4 * t;
+        const uint32_t b0 = ld32(xp), b1 = ld32(xp + 16);
+        mma_s8(d[p][0], a[p][0][0], a[p][0][1], a[p][1][0], a[p][1][1], b0, b1);
+        mma_s8(d[p][1], a[p][0][2], a[p][0][3], a[p][1][2], a[p][1][3], b0, b1);
       }
+    }
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      const int sx0 = sx[(2 * t) * ldsx + pos[p].sxc], sx1 = sx[(2 * t + 1) * ldsx + pos[p].sxc];
+#pragma unroll
+      for (int q = 0; q < 2; ++q)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = 2 * q + (e >> 1);
+          const int sc = static_cast<int8_t>(sw[p] >> (8 * j));
+          const int z = static_cast<int8_t>(zw[p] >> (8 * j));
+          tot[q][e] += sc * (d[p][q][e] - z * ((e & 1) ? sx1 : sx0));
+        }
+    }
   }
 }
 
@@ -231,9 +315,10 @@ __device__ __forceinline__ float epilogue(int acc, float alpha, const float* bet
 }
 
 // ---------------------------------------------------------------------------
-// K4 / K5 body: codes of all rows -> (M, N) f32, one block per group of
-// 32-column tiles (persistent over tiles), the K walk split over the block's
-// warps and summed exactly in shared memory.
+// K4 / K5 (rowpair) and K12's first two (span) body: codes of all rows ->
+// (M, N) f32, one block per group of 32-column tiles (persistent over tiles),
+// the K walk (groups, or spans of two groups) split over the block's warps
+// and summed exactly in shared memory.
 // ---------------------------------------------------------------------------
 
 inline size_t gemv_smem(int rows, int K, int gs) {
@@ -260,7 +345,7 @@ struct GemvArgs {
   float eps;
   const float* in_scale;  // K5: device scalar
   float qmin;             // K5
-  const uint8_t* qw;      // (K/2, N) rowpair bytes
+  const uint8_t* qw;      // (K/2, N) rowpair or span bytes
   GroupRows sr, zr;
   const float* alpha;     // (N,)
   const float* beta;      // (N,) or null
@@ -270,9 +355,9 @@ struct GemvArgs {
   int M, N, K, gs, rows_pass;
 };
 
-template <bool NORM>
+template <bool NORM, class L>
 __device__ __forceinline__ void gemv_body(const GemvArgs& a, uint8_t* smem) {
-  const int ldx = a.K + XPAD, G = a.K / a.gs;
+  const int ldx = a.K + XPAD, G = a.K / a.gs, nseg = G / L::PLANES;
   int8_t* xs = reinterpret_cast<int8_t*>(smem);
   int* sx = reinterpret_cast<int*>(smem + static_cast<size_t>(a.rows_pass) * ldx);
   int* red = sx + a.rows_pass * G;
@@ -287,14 +372,19 @@ __device__ __forceinline__ void gemv_body(const GemvArgs& a, uint8_t* smem) {
     segment_sums(xs, ldx, rows_pad, a.gs, G, sx);
     if (a.codes_out && blockIdx.x == 0) copy_codes(xs, ldx, rows, a.K, r0, a.codes_out);
     __syncthreads();
-    const int ks = min(max(1, WARPS / mt), G);  // K slices per m tile
+    const int ks = min(max(1, WARPS / mt), nseg);  // K slices per m tile
     for (int jt = blockIdx.x; jt < ntiles; jt += gridDim.x) {
       const int n0 = jt * TILE_N;
       if (warp < mt * ks) {
         const int mtile = warp % mt, kslice = warp / mt;
         int tot[2][4] = {{0, 0, 0, 0}, {0, 0, 0, 0}};
-        warp_unit(a.qw, a.N, n0, 0, a.gs, a.sr, a.zr, xs + mtile * 8 * ldx, ldx,
-                  sx + mtile * 8 * G, G, a.gs, kslice, G, ks, tot);
+        if constexpr (L::PLANES == 1)
+          warp_unit<L>(a.qw, a.N, n0, RowpairRun{0, a.gs, a.gs}, a.sr, a.zr,
+                       xs + mtile * 8 * ldx, ldx, sx + mtile * 8 * G, G, a.gs, kslice, nseg, ks,
+                       tot);
+        else
+          warp_unit<L>(a.qw, a.N, n0, SpanWalk{a.gs}, a.sr, a.zr, xs + mtile * 8 * ldx, ldx,
+                       sx + mtile * 8 * G, G, a.gs, kslice, nseg, ks, tot);
         store_unit(red + warp * RED, tot);
       }
       __syncthreads();
@@ -346,6 +436,248 @@ constexpr int BAD_ARGS = -1;
 
 inline bool gemv_shapes_ok(int M, int N, int K, int gs) {
   return M >= 1 && M <= 64 && N % TILE_N == 0 && K % 128 == 0 && gs % 32 == 0 && K % gs == 0;
+}
+
+// ---------------------------------------------------------------------------
+// K6 (rowpair) and K12's MLP (span) body: the whole LLaMA MLP of M <= 64 rows.
+// Each block takes 64 columns of F: the RMSNormQ codes of all rows, its gate
+// and up columns, the SiLU * up codes of its columns, and the (M, D) int32
+// partial of the down product over its 64 rows of Wd, added into an int32
+// accumulator with atomics (exact in any order); a second small kernel
+// applies the fp32 epilogue once.  A rowpair block takes F columns [64 b, 64 b
+// + 64); a span block the 32 byte rows [32 b, 32 b + 32) of Wd, that is F
+// columns f0 .. f0 + 31 of an even group and f0 + gs .. f0 + gs + 31 of the
+// odd group beside it (f0 = 2 gs t + o for byte row 32 b = gs t + o), so that
+// its down leg reads both nibbles of the bytes it loads.
+// ---------------------------------------------------------------------------
+
+constexpr int BF = 64;                // F columns per block
+constexpr int NCT = 2 * BF / TILE_N;  // gate and up column tiles of a block
+
+struct MlpArgs {
+  const float* x;           // (M, D) f32 residual stream
+  const float* lnw;         // (D,)
+  const float* lnb;         // (D,) or null
+  float eps;
+  const float* down_scale;  // device scalar
+  const uint8_t* gu_qw;     // (D/2, 2F) bytes, [gate | up]
+  GroupRows gu_s, gu_z;
+  const float* gu_alpha;    // (2F,)
+  const uint8_t* d_qw;      // (F/2, D) bytes
+  GroupRows d_s, d_z;
+  int* acc;                 // (M, D) int32, zeroed
+  int8_t* xq_out;           // (M, D) or null
+  int8_t* h_out;            // (M, F) or null
+  int M, D, F, gs, rows_pass;
+};
+
+// rows of one down-leg segment: one group's part of the block
+template <class L>
+__host__ __device__ inline int seg_down(int gs) {
+  return L::PLANES == 2 ? BF / 2 : (gs < BF ? gs : BF);
+}
+
+struct MlpLayout {
+  size_t xs, sx, red, hs, sxh, total;
+};
+
+template <class L>
+__host__ __device__ inline MlpLayout mlp_layout(int rows, int D, int gs) {
+  const int mt = rows / 8;
+  const int units = mt * NCT > WARPS ? mt * NCT : WARPS;
+  MlpLayout l;
+  l.xs = 0;
+  l.sx = l.xs + static_cast<size_t>(rows) * (D + XPAD);
+  l.red = l.sx + static_cast<size_t>(rows) * (D / gs) * 4;
+  l.hs = l.red + static_cast<size_t>(units) * RED * 4;
+  l.sxh = l.hs + static_cast<size_t>(rows) * (BF + XPAD);
+  l.total = l.sxh + static_cast<size_t>(rows) * (BF / seg_down<L>(gs)) * 4;
+  return l;
+}
+
+// F index of column c (0 <= c < BF) of block b
+template <class L>
+__device__ __forceinline__ int block_col(int b, int c, int gs) {
+  if constexpr (L::PLANES == 1) {
+    return b * BF + c;
+  } else {
+    const int rb = b * (BF / 2), f0 = 2 * gs * (rb / gs) + rb % gs;
+    return c < BF / 2 ? f0 + c : f0 + gs + c - BF / 2;
+  }
+}
+
+// Span, the down leg: one segment, byte rows [rb, rb + 32) holding the even
+// group ge's rows (codes in hs columns [0, 32)) and group ge + 1's ([32, 64)).
+struct SpanDown {
+  size_t rb;
+  int ge;
+  __device__ __forceinline__ SegPos operator()(int, int p) const {
+    return {rb, ge + p, p * (BF / 2), p};
+  }
+};
+
+// The block body of the MLP kernel (each .cu wraps it in a named kernel)
+template <class L>
+__device__ __forceinline__ void mlp_body(const MlpArgs& a, uint8_t* smem) {
+  const MlpLayout l = mlp_layout<L>(a.rows_pass, a.D, a.gs);
+  int8_t* xs = reinterpret_cast<int8_t*>(smem + l.xs);
+  int* sx = reinterpret_cast<int*>(smem + l.sx);
+  int* red = reinterpret_cast<int*>(smem + l.red);
+  int8_t* hs = reinterpret_cast<int8_t*>(smem + l.hs);
+  int* sxh = reinterpret_cast<int*>(smem + l.sxh);
+  const int ldx = a.D + XPAD, ldh = BF + XPAD, Gd = a.D / a.gs, nsegd = Gd / L::PLANES;
+  const int segd = seg_down<L>(a.gs), nsegh = BF / segd;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int b = blockIdx.x;
+  const float hscale = *a.down_scale;
+
+  for (int r0 = 0; r0 < a.M; r0 += a.rows_pass) {
+    const int rows = min(a.rows_pass, a.M - r0), rows_pad = (rows + 7) & ~7, mt = rows_pad / 8;
+    rmsnorm_codes(a.x, a.lnw, a.lnb, a.eps, a.M, a.D, r0, rows_pad, xs, ldx);
+    __syncthreads();
+    segment_sums(xs, ldx, rows_pad, a.gs, Gd, sx);
+    if (a.xq_out && blockIdx.x == 0) copy_codes(xs, ldx, rows, a.D, r0, a.xq_out);
+    __syncthreads();
+
+    // gate and up columns of this block: units (m tile, column tile, K slice)
+    const int ks = min(max(1, WARPS / (mt * NCT)), nsegd);
+    const int units = mt * NCT * ks;
+    for (int u = warp; u < units; u += WARPS) {
+      const int mtile = u % mt, ct = (u / mt) % NCT, kslice = u / (mt * NCT);
+      const int n0 = (ct < NCT / 2 ? 0 : a.F) + block_col<L>(b, (ct % (NCT / 2)) * TILE_N, a.gs);
+      int tot[2][4] = {{0, 0, 0, 0}, {0, 0, 0, 0}};
+      if constexpr (L::PLANES == 1)
+        warp_unit<L>(a.gu_qw, 2 * a.F, n0, RowpairRun{0, a.gs, a.gs}, a.gu_s, a.gu_z,
+                     xs + mtile * 8 * ldx, ldx, sx + mtile * 8 * Gd, Gd, a.gs, kslice, nsegd, ks,
+                     tot);
+      else
+        warp_unit<L>(a.gu_qw, 2 * a.F, n0, SpanWalk{a.gs}, a.gu_s, a.gu_z, xs + mtile * 8 * ldx,
+                     ldx, sx + mtile * 8 * Gd, Gd, a.gs, kslice, nsegd, ks, tot);
+      store_unit(red + u * RED, tot);
+    }
+    __syncthreads();
+
+    // SiLU(gate) * up -> down-proj input codes of this block
+    for (int i = threadIdx.x; i < rows_pad * BF; i += THREADS) {
+      const int r = i / BF, c = i % BF, m = r0 + r;
+      int code = 0;
+      if (m < a.M) {
+        const int mtile = r / 8, ctg = c / TILE_N, ctu = NCT / 2 + c / TILE_N;
+        const int off = (r % 8) * TILE_N + c % TILE_N, f = block_col<L>(b, c, a.gs);
+        int ag = 0, au = 0;
+        for (int q = 0; q < ks; ++q) {
+          ag += red[(mtile + mt * (ctg + NCT * q)) * RED + off];
+          au += red[(mtile + mt * (ctu + NCT * q)) * RED + off];
+        }
+        const float g = __fmul_rn(static_cast<float>(ag), a.gu_alpha[f]);
+        const float up = __fmul_rn(static_cast<float>(au), a.gu_alpha[a.F + f]);
+        const float sig = __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-g)));
+        const float h = __fmul_rn(__fmul_rn(g, sig), up);
+        code = clamp_code(__fdiv_rn(h, hscale), -128.0f);
+        if (a.h_out) a.h_out[static_cast<size_t>(m) * a.F + f] = static_cast<int8_t>(code);
+      }
+      hs[r * ldh + c] = static_cast<int8_t>(code);
+    }
+    __syncthreads();
+    segment_sums(hs, ldh, rows_pad, segd, nsegh, sxh);
+    __syncthreads();
+
+    // down product over this block's BF rows of Wd, all D columns
+    const int g4 = lane >> 2, t = lane & 3;
+    for (int u = warp; u < mt * (a.D / TILE_N); u += WARPS) {
+      const int mtile = u % mt, n0 = (u / mt) * TILE_N;
+      int tot[2][4] = {{0, 0, 0, 0}, {0, 0, 0, 0}};
+      if constexpr (L::PLANES == 1) {
+        warp_unit<L>(a.d_qw, a.D, n0, RowpairRun{b * BF, segd, a.gs}, a.d_s, a.d_z,
+                     hs + mtile * 8 * ldh, ldh, sxh + mtile * 8 * nsegh, nsegh, segd, 0, nsegh, 1,
+                     tot);
+      } else {
+        // one segment: byte rows [32 b, 32 b + 32), the even group's codes in
+        // columns [0, 32) of hs and the odd group's in [32, 64)
+        const SpanDown at{static_cast<size_t>(b) * (BF / 2), block_col<L>(b, 0, a.gs) / a.gs};
+        warp_unit<L>(a.d_qw, a.D, n0, at, a.d_s, a.d_z, hs + mtile * 8 * ldh, ldh,
+                     sxh + mtile * 8 * nsegh, nsegh, segd, 0, 1, 1, tot);
+      }
+#pragma unroll
+      for (int p = 0; p < 2; ++p)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int m = r0 + mtile * 8 + 2 * t + (e & 1);
+          if (m < a.M)
+            atomicAdd(a.acc + static_cast<size_t>(m) * a.D + n0 + 4 * g4 + 2 * p + (e >> 1),
+                      tot[p][e]);
+        }
+    }
+    __syncthreads();
+  }
+}
+
+// The body of the MLP's epilogue kernel: acc * alpha (+ beta) (+ x) -> out
+__device__ __forceinline__ void mlp_epilogue_body(const int* __restrict__ acc, int M, int D,
+                                                  const float* __restrict__ alpha,
+                                                  const float* __restrict__ beta,
+                                                  const float* __restrict__ x, int fuse_residual,
+                                                  float* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= M * D) return;
+  float y = epilogue(acc[i], alpha[i % D], beta, i % D);
+  if (fuse_residual) y = __fadd_rn(y, x[i]);
+  out[i] = y;
+}
+
+// The host side of both MLP entry points (arguments as their C signatures):
+// `kernel` runs mlp_body<L>, `epi` mlp_epilogue_body.  Returns a cudaError_t,
+// or BAD_ARGS.
+template <class L, typename Kernel, typename Epilogue>
+int launch_mlp(Kernel kernel, Epilogue epi, const void* x, const void* ln_w, const void* ln_b,
+               float eps, const void* down_scale, const void* gu_qw, const void* gu_s_hi,
+               const void* gu_s_lo, const void* gu_z_hi, const void* gu_z_lo,
+               const void* gu_alpha, const void* d_qw, const void* d_ws, const void* d_wz,
+               const void* d_alpha, const void* d_beta, int fuse_residual, void* acc, void* out,
+               void* xq_out, void* h_out, int M, int D, int F, int gs, void* stream) {
+  if (!gemv_shapes_ok(M, 2 * F, D, gs) || F % BF || !down_scale || D % TILE_N) return BAD_ARGS;
+  if (L::PLANES == 1 ? (gs % BF && BF % gs) : (D % (2 * gs) || F % (2 * gs)))
+    return BAD_ARGS;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  MlpArgs a{};
+  a.x = static_cast<const float*>(x);
+  a.lnw = static_cast<const float*>(ln_w);
+  a.lnb = static_cast<const float*>(ln_b);
+  a.eps = eps;
+  a.down_scale = static_cast<const float*>(down_scale);
+  a.gu_qw = static_cast<const uint8_t*>(gu_qw);
+  const size_t n2f = 2 * static_cast<size_t>(F);
+  a.gu_s = {static_cast<const int8_t*>(gu_s_hi), static_cast<const int8_t*>(gu_s_lo), n2f};
+  a.gu_z = {static_cast<const int8_t*>(gu_z_hi), static_cast<const int8_t*>(gu_z_lo), n2f};
+  a.gu_alpha = static_cast<const float*>(gu_alpha);
+  a.d_qw = static_cast<const uint8_t*>(d_qw);
+  const int8_t* ws = static_cast<const int8_t*>(d_ws);
+  const int8_t* wz = static_cast<const int8_t*>(d_wz);
+  a.d_s = {ws, ws + 8 * static_cast<size_t>(D), 16 * static_cast<size_t>(D)};
+  a.d_z = {wz, wz + 8 * static_cast<size_t>(D), 16 * static_cast<size_t>(D)};
+  a.acc = static_cast<int*>(acc);
+  a.xq_out = static_cast<int8_t*>(xq_out);
+  a.h_out = static_cast<int8_t*>(h_out);
+  a.M = M;
+  a.D = D;
+  a.F = F;
+  a.gs = gs;
+  a.rows_pass = rows_per_pass(M, [=](int r) { return mlp_layout<L>(r, D, gs).total; });
+  if (a.rows_pass == 0) return BAD_ARGS;
+  cudaError_t err = cudaMemsetAsync(acc, 0, static_cast<size_t>(M) * D * sizeof(int), st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem = mlp_layout<L>(a.rows_pass, D, gs).total;
+  err = allow_smem(kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<F / BF, THREADS, smem, st>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int total = M * D;
+  epi<<<(total + 255) / 256, 256, 0, st>>>(
+      static_cast<const int*>(acc), M, D, static_cast<const float*>(d_alpha),
+      static_cast<const float*>(d_beta), static_cast<const float*>(x), fuse_residual,
+      static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace fgemv

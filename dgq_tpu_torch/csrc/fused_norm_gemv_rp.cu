@@ -24,7 +24,7 @@ namespace {
 
 __global__ void __launch_bounds__(fgemv::THREADS) norm_gemv_rp_kernel(fgemv::GemvArgs a) {
   extern __shared__ __align__(16) uint8_t smem[];
-  fgemv::gemv_body<true>(a, smem);
+  fgemv::gemv_body<true, fgemv::Rowpair>(a, smem);
 }
 
 }  // namespace

@@ -21,7 +21,7 @@ namespace {
 
 __global__ void __launch_bounds__(fgemv::THREADS) requant_gemv_rp_kernel(fgemv::GemvArgs a) {
   extern __shared__ __align__(16) uint8_t smem[];
-  fgemv::gemv_body<false>(a, smem);
+  fgemv::gemv_body<false, fgemv::Rowpair>(a, smem);
 }
 
 }  // namespace

@@ -15,7 +15,9 @@ at most 8 tokens and 64 rows run each layer's linears through the fused
 kernels K4
 (``fused_norm_gemv_rp``: RMSNormQ + qkv), K5 (``fused_requant_gemv_rp``:
 requant + o_proj + residual) and K6 (``fused_mlp_decode_rp``: the whole
-MLP), with JAX's dispatch rules.  Activations enter the integer domain at
+MLP) on rowpair storage, or through K12 (``fused_norm_gemv``,
+``fused_requant_gemv``, ``fused_mlp_decode``: the same three) on span-only
+storage, with JAX's dispatch rules.  Activations enter the integer domain at
 each RMSNormQ, and requantisation happens where the reference puts it:
 post-RoPE q/k/v, pre-o_proj and pre-down_proj.
 
@@ -24,7 +26,10 @@ and gate|up fused along N, scales 8x row-replicated), so checkpoints and
 caches compare directly.  ``lax.scan`` over layers becomes a Python loop.
 The KV cache is written in place (JAX returns a new cache from
 ``dynamic_update_slice``); ``engine_forward`` returns a cache that shares the
-input's tensors.
+input's tensors.  ``KVCache.length`` is a Python int, or a 0-d int tensor on
+the device when the caller must not read the host between forwards
+(``serving/speculative.spec_decode_scan``); the forward then trusts the
+caller to keep the window inside the cache.
 """
 
 from __future__ import annotations
@@ -47,8 +52,11 @@ from dgq_tpu_torch.ops.attention import (
     qk_scale,
 )
 from dgq_tpu_torch.ops.fused_decode import (
+    fused_mlp_decode,
     fused_mlp_decode_rp,
+    fused_norm_gemv,
     fused_norm_gemv_rp,
+    fused_requant_gemv,
     fused_requant_gemv_rp,
 )
 from dgq_tpu_torch.ops.kv4 import kv4_scale, pack_nibbles, quantize_kv4, unpack_nibbles
@@ -63,10 +71,10 @@ Tensor = torch.Tensor
 
 
 class EngineLinear(NamedTuple):
-    """Dual-grained W4A8 linear: the span layout ``qweight`` (K9, K10) and/or
-    the rowpair layout ``qw_rp`` (K1, K4-K6), with 8x row-replicated
+    """Dual-grained W4A8 linear: the span layout ``qweight`` (K9, K10, K12)
+    and/or the rowpair layout ``qw_rp`` (K1, K4-K6), with 8x row-replicated
     ``wscales``/``wzeros``; the compact plane rows feed the fused decode
-    kernels (K4-K6), and ``cs_fold`` is checked by them but not read.  An
+    kernels (K4-K6, K12), and ``cs_fold`` is checked by K4-K6 but not read.  An
     fp-scale linear (``EngineConfig.fp_scales``) has span storage with fp32
     scales and zeros and no plane rows."""
 
@@ -129,7 +137,7 @@ class EngineParams:
 class KVCache(NamedTuple):
     k: Tensor  # (L, B, Hkv, Dh, Smax) int8, K stored transposed (Dh/2 packed under kv_bits=4)
     v: Tensor  # (L, B, Hkv, Smax, Dh) int8 (Dh/2 packed under kv_bits=4)
-    length: int  # tokens already cached
+    length: "int | Tensor"  # tokens already cached (a 0-d device tensor inside a device loop)
 
 
 def check_kv_bits(kv_bits: int) -> None:
@@ -270,13 +278,11 @@ def _use_fused_rows(ecfg: EngineConfig, layer: EngineLayer, b: int, s: int) -> b
             and _decode_fusable(layer))
 
 
-def _require_s4(layer: EngineLayer) -> None:
-    """Fused decode takes K4-K6 on the rowpair layout; span-only storage
-    would need K12."""
-    if layer.qkv_proj.qw_rp is None:
-        raise NotImplementedError("fused decode on span-layout storage needs K12 "
-                                  "fused_norm_gemv (and fused_requant_gemv, "
-                                  "fused_mlp_decode), not yet ported")
+def _rowpair_rows(layer: EngineLayer) -> bool:
+    """Which fused kernels a layer takes: K4-K6 where it stores the rowpair
+    layout, K12 on span-only storage (JAX's ``_use_s4`` without the
+    ``int4_mxu`` switch, whose TPU path Hopper has no operand for)."""
+    return layer.qkv_proj.qw_rp is not None
 
 
 def _qkv_rows(ecfg: EngineConfig, layer: EngineLayer, x: Tensor, fused: bool) -> Tensor:
@@ -284,13 +290,17 @@ def _qkv_rows(ecfg: EngineConfig, layer: EngineLayer, x: Tensor, fused: bool) ->
     RMSNormQ + ``_linear_s8``."""
     b, s, d = x.shape
     if fused:
-        _require_s4(layer)
         qp = layer.qkv_proj
-        return fused_norm_gemv_rp(
-            x.reshape(b * s, d), layer.ln1_weight, layer.ln1_bias, qp.qw_rp, qp.s_hi,
-            qp.s_lo, qp.z_hi, qp.z_lo, qp.cs_fold, qp.alpha, qp.bias,
-            span=2 * _lin_groupsize(qp), eps=ecfg.cfg.rms_norm_eps,
-        ).reshape(b, s, -1)
+        kw = dict(span=2 * _lin_groupsize(qp), eps=ecfg.cfg.rms_norm_eps)
+        if _rowpair_rows(layer):
+            y = fused_norm_gemv_rp(x.reshape(b * s, d), layer.ln1_weight, layer.ln1_bias,
+                                   qp.qw_rp, qp.s_hi, qp.s_lo, qp.z_hi, qp.z_lo, qp.cs_fold,
+                                   qp.alpha, qp.bias, **kw)
+        else:
+            y = fused_norm_gemv(x.reshape(b * s, d), layer.ln1_weight, layer.ln1_bias,
+                                qp.qweight, qp.s_hi, qp.s_lo, qp.z_hi, qp.z_lo, qp.alpha,
+                                qp.bias, **kw)
+        return y.reshape(b, s, -1)
     x_s8 = _rms_norm_q(x, layer.ln1_weight, ecfg.cfg.rms_norm_eps, layer.ln1_bias)
     return _linear_s8(layer.qkv_proj, x_s8, fp_scales=ecfg.fp_scales)
 
@@ -298,25 +308,32 @@ def _qkv_rows(ecfg: EngineConfig, layer: EngineLayer, x: Tensor, fused: bool) ->
 def _block_tail(ecfg: EngineConfig, layer: EngineLayer, x: Tensor, ctx: Tensor,
                 fused: bool) -> Tensor:
     """Attention context -> o_proj + residual -> MLP + residual: K5 and K6
-    on the flattened rows, or the unfused chain around ``_linear_s8``."""
+    (rowpair) or K12 (span-only) on the flattened rows, or the unfused chain
+    around ``_linear_s8``."""
     if fused:
-        _require_s4(layer)
         b, s, d = x.shape
-        op = layer.o_proj
-        x = fused_requant_gemv_rp(
-            ctx.reshape(b * s, -1), layer.out_input_scale, op.qw_rp, op.s_hi, op.s_lo,
-            op.z_hi, op.z_lo, op.cs_fold, op.alpha, op.bias, residual=x.reshape(b * s, d),
-            span=2 * _lin_groupsize(op), qmin=-127.0, fuse_residual=True,
-        )  # (B*S, D), residual added in the kernel
-        gu, dn = layer.gate_up_proj, layer.down_proj
+        op, gu, dn = layer.o_proj, layer.gate_up_proj, layer.down_proj
+        kw = dict(residual=x.reshape(b * s, d), span=2 * _lin_groupsize(op), qmin=-127.0,
+                  fuse_residual=True)
         span_m = 2 * _lin_groupsize(gu)
-        fdim = 2 * _lin_qw(dn).shape[0]
-        return fused_mlp_decode_rp(
-            x, layer.ln2_weight, layer.ln2_bias, gu.qw_rp, gu.s_hi, gu.s_lo, gu.z_hi,
-            gu.z_lo, gu.cs_fold, gu.alpha, layer.down_input_scale, dn.qw_rp, dn.wscales,
-            dn.wzeros, dn.cs_fold, dn.alpha, dn.bias, span=span_m, bf=_mlp_bf(span_m, fdim),
-            eps=ecfg.cfg.rms_norm_eps, fuse_residual=True,
-        ).reshape(b, s, d)
+        kw_m = dict(span=span_m, bf=_mlp_bf(span_m, 2 * _lin_qw(dn).shape[0]),
+                    eps=ecfg.cfg.rms_norm_eps, fuse_residual=True)
+        # (B*S, D) each, residuals added in the kernels
+        if _rowpair_rows(layer):
+            x = fused_requant_gemv_rp(ctx.reshape(b * s, -1), layer.out_input_scale, op.qw_rp,
+                                      op.s_hi, op.s_lo, op.z_hi, op.z_lo, op.cs_fold, op.alpha,
+                                      op.bias, **kw)
+            y = fused_mlp_decode_rp(x, layer.ln2_weight, layer.ln2_bias, gu.qw_rp, gu.s_hi,
+                                    gu.s_lo, gu.z_hi, gu.z_lo, gu.cs_fold, gu.alpha,
+                                    layer.down_input_scale, dn.qw_rp, dn.wscales, dn.wzeros,
+                                    dn.cs_fold, dn.alpha, dn.bias, **kw_m)
+        else:
+            x = fused_requant_gemv(ctx.reshape(b * s, -1), layer.out_input_scale, op.qweight,
+                                   op.s_hi, op.s_lo, op.z_hi, op.z_lo, op.alpha, op.bias, **kw)
+            y = fused_mlp_decode(x, layer.ln2_weight, layer.ln2_bias, gu.qweight, gu.s_hi,
+                                 gu.s_lo, gu.z_hi, gu.z_lo, gu.alpha, layer.down_input_scale,
+                                 dn.qweight, dn.wscales, dn.wzeros, dn.alpha, dn.bias, **kw_m)
+        return y.reshape(b, s, d)
     kw = dict(fp_scales=ecfg.fp_scales)
     ctx_s8 = _requant(ctx, layer.out_input_scale, qmin=-127.0)
     x = x + _linear_s8(layer.o_proj, ctx_s8, **kw)
@@ -324,6 +341,18 @@ def _block_tail(ecfg: EngineConfig, layer: EngineLayer, x: Tensor, ctx: Tensor,
     gate, up = torch.chunk(_linear_s8(layer.gate_up_proj, x_s8, **kw), 2, dim=-1)
     h_s8 = _requant(torch.nn.functional.silu(gate) * up, layer.down_input_scale)
     return x + _linear_s8(layer.down_proj, h_s8, **kw)
+
+
+def write_window(cache: Tensor, new: Tensor, start, dim: int) -> None:
+    """Write ``new`` into ``cache`` along ``dim`` at [start, start + S).
+    ``start`` is an int, or a 0-d device tensor (no host read), which is
+    clamped to the cache as JAX's dynamic_update_slice clamps it."""
+    s = new.shape[dim]
+    if isinstance(start, torch.Tensor):
+        first = torch.clamp(start.long(), max=cache.shape[dim] - s)
+        cache.index_copy_(dim, first + torch.arange(s, device=cache.device), new)
+    else:
+        cache.narrow(dim, start, s).copy_(new)
 
 
 def _kv4_attention(layer: EngineLayer, q_s8: Tensor, k_cache: Tensor, v_cache: Tensor,
@@ -344,11 +373,12 @@ def _kv4_attention(layer: EngineLayer, q_s8: Tensor, k_cache: Tensor, v_cache: T
 
 
 def _block(ecfg: EngineConfig, layer: EngineLayer, x: Tensor, k_cache: Tensor,
-           v_cache: Tensor, cache_len: int, pos_cos: Tensor, pos_sin: Tensor, mask: Tensor,
+           v_cache: Tensor, cache_len, pos_cos: Tensor, pos_sin: Tensor, mask: Tensor,
            decode_window: bool = False) -> Tensor:
     """One decoder block on (B, S, D) fp32 activations; writes the S new
     tokens' int8 K/V (int4 nibbles under kv_bits=4) into the caches at
-    [cache_len, cache_len + S)."""
+    [cache_len, cache_len + S) (``cache_len`` an int or a 0-d device
+    tensor)."""
     cfg = ecfg.cfg
     b, s, _ = x.shape
     dh = cfg.head_dim
@@ -370,13 +400,13 @@ def _block(ecfg: EngineConfig, layer: EngineLayer, x: Tensor, k_cache: Tensor,
     if ecfg.kv_bits == 4:
         # INT4 KV: quantise to [-7, 7], pack along Dh, write, then plain
         # attention over the unpacked cache for every window (JAX's branch)
-        k_cache[:, :, :, cache_len:cache_len + s] = pack_nibbles(
-            quantize_kv4(k, layer.k_scale)).transpose(2, 3)
-        v_cache[:, :, cache_len:cache_len + s, :] = pack_nibbles(quantize_kv4(v, layer.v_scale))
+        write_window(k_cache, pack_nibbles(quantize_kv4(k, layer.k_scale)).transpose(2, 3),
+                     cache_len, 3)
+        write_window(v_cache, pack_nibbles(quantize_kv4(v, layer.v_scale)), cache_len, 2)
         ctx = _kv4_attention(layer, q_s8, k_cache, v_cache, mask, hk)
         return _block_tail(ecfg, layer, x, ctx, fused)
-    k_cache[:, :, :, cache_len:cache_len + s] = _requant(k, layer.k_scale).transpose(2, 3)
-    v_cache[:, :, cache_len:cache_len + s, :] = _requant(v, layer.v_scale)
+    write_window(k_cache, _requant(k, layer.k_scale).transpose(2, 3), cache_len, 3)
+    write_window(v_cache, _requant(v, layer.v_scale), cache_len, 2)
     smax = k_cache.shape[-1]
 
     if s == 1:
@@ -401,9 +431,10 @@ def _block(ecfg: EngineConfig, layer: EngineLayer, x: Tensor, k_cache: Tensor,
         # keys only and are sliced off
         sp = -(-s // 128) * 128
         qp = torch.nn.functional.pad(q_s8, (0, 0, 0, sp - s)).contiguous()
+        start = int(cache_len)  # K2 takes its window on the host
         ctx = int8_prefill_attention(
-            qp, k_cache, v_cache, cache_len + s, layer.q_scale, layer.k_scale,
-            layer.v_scale, cache_len,
+            qp, k_cache, v_cache, start + s, layer.q_scale, layer.k_scale,
+            layer.v_scale, start,
         )
         ctx = ctx[:, :, :s].transpose(1, 2).reshape(b, s, h * dh)
     else:
@@ -439,7 +470,7 @@ def engine_forward(ecfg: EngineConfig, params: EngineParams, input_ids: Tensor,
     input_ids = input_ids.to(dev)
     b, s = input_ids.shape
     smax = cache.k.shape[4]
-    if cache.length + s > smax:
+    if not isinstance(cache.length, torch.Tensor) and cache.length + s > smax:
         raise ValueError(f"cache overflow: {cache.length} + {s} > {smax}")
     decode_window = window == "decode" or (window == "auto" and s == 1)
     x = params.embed_tokens[input_ids].to(torch.float32)

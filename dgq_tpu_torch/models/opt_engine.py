@@ -31,6 +31,7 @@ from dgq_tpu_torch.models.engine import (
     _linear_s8,
     _requant,
     map_tensors,
+    write_window,
 )
 from dgq_tpu_torch.models.opt import OPTConfig
 from dgq_tpu_torch.ops.attention import (
@@ -82,7 +83,7 @@ class OPTEngineParams:
 class OPTKVCache(NamedTuple):
     k: Tensor  # (L, B, H, Dh, Smax) int8, K stored transposed
     v: Tensor  # (L, B, H, Smax, Dh) int8
-    length: int  # tokens already cached
+    length: "int | Tensor"  # tokens already cached (a 0-d device tensor inside a device loop)
 
 
 def init_opt_kv_cache(cfg: OPTConfig, batch: int, max_len: int, device="cuda") -> OPTKVCache:
@@ -136,7 +137,7 @@ def _linear_s8_int8out(lin: EngineLinear, x_s8: Tensor) -> Tensor:
 
 
 def _opt_block(ecfg: OPTEngineConfig, layer: OPTEngineLayer, x: Tensor, k_cache: Tensor,
-               v_cache: Tensor, cache_len: int, mask: Optional[Tensor]) -> Tensor:
+               v_cache: Tensor, cache_len, mask: Optional[Tensor]) -> Tensor:
     """One decoder block on (B, S, D) fp32 activations; writes the S new
     tokens' int8 K/V into the caches at [cache_len, cache_len + S)."""
     cfg = ecfg.cfg
@@ -147,8 +148,8 @@ def _opt_block(ecfg: OPTEngineConfig, layer: OPTEngineLayer, x: Tensor, k_cache:
     q, k, v = torch.chunk(_linear_s8_int8out(layer.qkv_proj, x_s8), 3, dim=-1)
     h = q.shape[-1] // dh
     q_s8 = q.reshape(b, s, h, dh).transpose(1, 2).contiguous()
-    k_cache[:, :, :, cache_len:cache_len + s] = k.reshape(b, s, h, dh).permute(0, 2, 3, 1)
-    v_cache[:, :, cache_len:cache_len + s, :] = v.reshape(b, s, h, dh).transpose(1, 2)
+    write_window(k_cache, k.reshape(b, s, h, dh).permute(0, 2, 3, 1), cache_len, 3)
+    write_window(v_cache, v.reshape(b, s, h, dh).transpose(1, 2), cache_len, 2)
 
     if s == 1:
         smax = k_cache.shape[-1]
@@ -193,7 +194,7 @@ def opt_engine_forward(ecfg: OPTEngineConfig, params: OPTEngineParams, input_ids
     input_ids = input_ids.to(dev)
     b, s = input_ids.shape
     smax = cache.k.shape[4]
-    if cache.length + s > smax:
+    if not isinstance(cache.length, torch.Tensor) and cache.length + s > smax:
         raise ValueError(f"cache overflow: {cache.length} + {s} > {smax}")
     positions = cache.length + torch.arange(s, device=dev)
     x = (params.embed_tokens[input_ids] + params.embed_positions[positions + 2][None]).to(

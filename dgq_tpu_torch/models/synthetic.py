@@ -1,7 +1,8 @@
 """Synthetic (random-weight) engines at real model shapes.
 
-Port of ``dgq_tpu/models/synthetic.py:18-76`` (the LLaMA engine, rowpair-only
-storage) and of ``build_opt_engine`` in ``scripts/bench_decode_opt.py:27-75``
+Port of ``dgq_tpu/models/synthetic.py:18-76`` (the LLaMA engine: rowpair-only
+storage, or with ``keep_span`` span codes beside the rowpair copy derived
+from them) and of ``build_opt_engine`` in ``scripts/bench_decode_opt.py:27-75``
 (the OPT engine, span-only storage), with the same value ranges, plus an
 fp-scale LLaMA engine (span storage, fp32 group scales and zeros, the
 w4w8-fallback representation).  Every layer is drawn on its own from a
@@ -19,19 +20,27 @@ from dgq_tpu_torch.models.engine import EngineLayer, EngineLinear, EngineParams
 from dgq_tpu_torch.models.llama import LlamaConfig
 from dgq_tpu_torch.models.opt import OPTConfig
 from dgq_tpu_torch.models.opt_engine import OPTEngineLayer, OPTEngineParams
-from dgq_tpu_torch.ops.fused_decode import rowpair_cs_fold_rp
+from dgq_tpu_torch.ops.fused_decode import pack_rowpair_s4, rowpair_cs_fold, rowpair_cs_fold_rp
 
 
 def random_engine_linear(gen: torch.Generator, n_out: int, n_in: int, g: int = 128,
-                         device="cuda") -> EngineLinear:
+                         device="cuda", keep_span: bool = False) -> EngineLinear:
+    """Rowpair codes with compact plane rows; ``keep_span``: the drawn bytes
+    are span codes, kept, and the rowpair copy is derived from them."""
     def randint(lo, hi, shape):
         return torch.randint(lo, hi, shape, generator=gen, dtype=torch.int8, device=device)
 
-    qw_rp = randint(-128, 128, (n_in // 2, n_out))
+    packed = randint(-128, 128, (n_in // 2, n_out))
     ws = randint(1, 4, (n_in // g, n_out))
     wz = randint(4, 12, (n_in // g, n_out))
+    if keep_span:
+        qweight, qw_rp = packed, pack_rowpair_s4(packed, 2 * g)
+        cs_fold = rowpair_cs_fold(packed, 2 * g, ws[0::2], ws[1::2])
+    else:
+        qweight, qw_rp = None, packed
+        cs_fold = rowpair_cs_fold_rp(qw_rp, g, ws[0::2], ws[1::2])
     return EngineLinear(
-        qweight=None,
+        qweight=qweight,
         wscales=torch.repeat_interleave(ws, 8, dim=0),
         wzeros=torch.repeat_interleave(wz, 8, dim=0),
         alpha=torch.full((n_out,), 1e-4, dtype=torch.float32, device=device),
@@ -41,7 +50,7 @@ def random_engine_linear(gen: torch.Generator, n_out: int, n_in: int, g: int = 1
         z_hi=wz[0::2].contiguous(),
         z_lo=wz[1::2].contiguous(),
         qw_rp=qw_rp,
-        cs_fold=rowpair_cs_fold_rp(qw_rp, g, ws[0::2], ws[1::2]),
+        cs_fold=cs_fold,
     )
 
 
@@ -77,10 +86,13 @@ def _normal(gen, shape, device):
 
 
 def build_llama_engine(cfg: LlamaConfig, seed: int = 0, device="cuda",
-                       fp_scales: bool = False) -> EngineParams:
+                       fp_scales: bool = False, keep_span: bool = False) -> EngineParams:
     """Random engine params at cfg's exact shapes, the MLP dim padded to a
     multiple of 1024 as engine conversion pads it.  ``fp_scales``: span
-    storage with fp32 group scales, run with ``EngineConfig(fp_scales=True)``."""
+    storage with fp32 group scales, run with ``EngineConfig(fp_scales=True)``.
+    ``keep_span`` (JAX's argument): span codes and plane rows beside the
+    rowpair copy derived from them; with ``qw_rp`` and ``cs_fold`` set to
+    None the engine is span-only and fused decode runs K12."""
     d, f = cfg.hidden_size, -(-cfg.intermediate_size // 1024) * 1024
     nq = cfg.num_attention_heads * cfg.head_dim
     nkv = cfg.num_key_value_heads * cfg.head_dim
@@ -89,7 +101,7 @@ def build_llama_engine(cfg: LlamaConfig, seed: int = 0, device="cuda",
     def lin(n_out, n_in):
         if fp_scales:
             return random_span_linear(gen, n_out, n_in, device=device, fp_scales=True)
-        return random_engine_linear(gen, n_out, n_in, device=device)
+        return random_engine_linear(gen, n_out, n_in, device=device, keep_span=keep_span)
 
     per_layer = []
     for _ in range(cfg.num_hidden_layers):

@@ -36,6 +36,11 @@ SOURCES = {
     "fused_norm_gemv_rp": "fused_norm_gemv_rp",
     "fused_requant_gemv_rp": "fused_requant_gemv_rp",
     "fused_mlp_decode_rp": "fused_mlp_decode_rp",
+    # K12 (which also serves K13's names): the three fused decode entry points
+    # on span weights, one source
+    "fused_norm_gemv": "fused_decode_span",
+    "fused_requant_gemv": "fused_decode_span",
+    "fused_mlp_decode": "fused_decode_span",
     # K7, K8 and K11: one block body, dense or paged addressing, INT8 or nibble codes
     "int8_decode_attention_chunked": "int8_chunked_decode_attention",
     "int8_paged_decode_attention": "int8_chunked_decode_attention",
@@ -143,7 +148,7 @@ def stream(device: torch.device) -> int:
 
 
 def check(rc: int, what: str) -> None:
-    if rc == -1:  # the entry point's own argument checks (K4-K6)
+    if rc == -1:  # the entry point's own argument checks (K4-K6, K12)
         raise ValueError(f"{what}: the kernel's entry point rejected its arguments")
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc}")

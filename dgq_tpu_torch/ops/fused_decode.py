@@ -1,20 +1,27 @@
-"""Fused decode kernels K4-K6 with their plain versions, and the rowpair
-layout conversion helpers.
+"""Fused decode kernels K4-K6 (rowpair weights) and K12 (span weights) with
+their plain versions, K13's names, and the rowpair layout conversion helpers.
 
 Port of ``dgq_tpu/ops/fused_decode.py``: the conversion helpers (:154-229),
-``_rmsnorm_q`` (:340-344) and, under the JAX names, the wrappers of the
-hand-written CUDA kernels that replace the TPU kernels
-``fused_norm_gemv_rp`` (K4, ``csrc/fused_norm_gemv_rp.cu``),
-``fused_requant_gemv_rp`` (K5, ``csrc/fused_requant_gemv_rp.cu``) and
-``fused_mlp_decode_rp`` (K6, ``csrc/fused_mlp_decode_rp.cu``).  Each plain
-version (``*_xla``) makes its int8 codes, takes the exact int32 product
-with the weights dequantised to int8 as ``(c4 - (z - 8)) * s`` and applies
+``plane_colsums`` (:304), ``_rmsnorm_q`` (:340-344) and, under the JAX
+names, the wrappers of the hand-written CUDA kernels that replace the TPU
+kernels ``fused_norm_gemv_rp`` (K4, ``csrc/fused_norm_gemv_rp.cu``),
+``fused_requant_gemv_rp`` (K5, ``csrc/fused_requant_gemv_rp.cu``),
+``fused_mlp_decode_rp`` (K6, ``csrc/fused_mlp_decode_rp.cu``) and
+``fused_norm_gemv``, ``fused_requant_gemv``, ``fused_mlp_decode`` (K12, one
+source ``csrc/fused_decode_span.cu``).  Each plain version (``*_xla``) makes
+its int8 codes, takes the exact int32 product with the weights dequantised
+to int8 (``(c4 - (z - 8)) * s`` rowpair, ``(c - z) * s`` span) and applies
 the fp32 epilogue; CPU tensors take it, CUDA tensors launch the kernel.
 
 ``cs_fold`` is accepted and shape-checked but never read: the TPU kernels
 split x into two s4 halves for the int4 MXU operand and add the folded
 column-sum term back; the int32 accumulator is the same without the split,
-which is how both the plain versions and the CUDA kernels compute it.
+which is how both the plain versions and the CUDA kernels compute it.  For
+the same reason K13 (``fused_norm_gemv_s4``, ``fused_requant_gemv_s4``: K12's
+first two functions with both operands split to s4 for the v5e int4 MXU,
+bit-identical by construction) runs K12's kernel and counts under K12:
+Hopper's tensor cores take no int4 operand, and ``plane_colsums``, the s4
+path's pack-time constant, is checked but not read.
 """
 
 from __future__ import annotations
@@ -29,18 +36,24 @@ from dgq_tpu_torch.quant.packing import unpack_nibbles
 Tensor = torch.Tensor
 
 NORM, REQUANT, MLP = "fused_norm_gemv_rp", "fused_requant_gemv_rp", "fused_mlp_decode_rp"
+NORM_SPAN, REQUANT_SPAN, MLP_SPAN = "fused_norm_gemv", "fused_requant_gemv", "fused_mlp_decode"
 _VP, _INT, _F32 = _cuda.VP, _cuda.INT, _cuda.F32
+# x, lnw, lnb, eps, qw, s_hi, s_lo, z_hi, z_lo, alpha, beta, out, codes_out,
+# M, N, K, gs, sms, stream
+_NORM_ARGS = [_VP] * 3 + [_F32] + [_VP] * 9 + [_INT] * 5 + [_VP]
+# x, in_scale, qmin, qw, s_hi, s_lo, z_hi, z_lo, alpha, beta, residual, out,
+# codes_out, M, N, K, gs, sms, stream
+_REQUANT_ARGS = [_VP] * 2 + [_F32] + [_VP] * 10 + [_INT] * 5 + [_VP]
+# x, lnw, lnb, eps, down_scale, gu_qw, gu_s_hi, gu_s_lo, gu_z_hi, gu_z_lo,
+# gu_alpha, d_qw, d_ws, d_wz, d_alpha, d_beta, fuse_residual, acc, out,
+# xq_out, h_out, M, D, F, gs, sms, stream
+_MLP_ARGS = [_VP] * 3 + [_F32] + [_VP] * 12 + [_INT] + [_VP] * 4 + [_INT] * 5 + [_VP]
 _SIGNATURES = {
-    # x, lnw, lnb, eps, qw, s_hi, s_lo, z_hi, z_lo, alpha, beta, out, codes_out,
-    # M, N, K, gs, sms, stream
-    NORM: {NORM: [_VP] * 3 + [_F32] + [_VP] * 9 + [_INT] * 5 + [_VP]},
-    # x, in_scale, qmin, qw, s_hi, s_lo, z_hi, z_lo, alpha, beta, residual, out,
-    # codes_out, M, N, K, gs, sms, stream
-    REQUANT: {REQUANT: [_VP] * 2 + [_F32] + [_VP] * 10 + [_INT] * 5 + [_VP]},
-    # x, lnw, lnb, eps, down_scale, gu_qw, gu_s_hi, gu_s_lo, gu_z_hi, gu_z_lo,
-    # gu_alpha, d_qw, d_ws, d_wz, d_alpha, d_beta, fuse_residual, acc, out,
-    # xq_out, h_out, M, D, F, gs, sms, stream
-    MLP: {MLP: [_VP] * 3 + [_F32] + [_VP] * 12 + [_INT] + [_VP] * 4 + [_INT] * 5 + [_VP]},
+    NORM: {NORM: _NORM_ARGS},
+    REQUANT: {REQUANT: _REQUANT_ARGS},
+    MLP: {MLP: _MLP_ARGS},
+    # K12: one library, three entry points
+    "span": {NORM_SPAN: _NORM_ARGS, REQUANT_SPAN: _REQUANT_ARGS, MLP_SPAN: _MLP_ARGS},
 }
 
 
@@ -248,7 +261,7 @@ def _require_planes(dev, k: int, n: int, gs: int, planes, cs_fold, alpha, beta):
     _cuda.require(alpha, "alpha", torch.float32, (n,), dev, align=4)
     if beta is not None:
         _cuda.require(beta, "beta", torch.float32, (n,), dev, align=4)
-    if cs_fold.device != dev:
+    if cs_fold is not None and cs_fold.device != dev:
         raise ValueError(f"cs_fold: expected a tensor on {dev}, got {cs_fold.device}")
     if n % 32 or k % 128:
         raise ValueError(f"the fused decode kernels need N % 32 == 0 and K % 128 == 0; "
@@ -410,3 +423,263 @@ def fused_mlp_decode_rp(x: Tensor, ln_w: Tensor, ln_b: Optional[Tensor], gu_qw_r
     _cuda.check(rc, MLP)
     _cuda.count_launch(MLP)
     return out
+
+
+# --------------------------------------------------------------------------
+# K12: the same three functions on span-layout weights, and K13's names
+# --------------------------------------------------------------------------
+
+def _span_product(x_s8: Tensor, qweight: Tensor, s_hi: Tensor, s_lo: Tensor, z_hi: Tensor,
+                  z_lo: Tensor, gs: int) -> Tensor:
+    from dgq_tpu_torch.ops.quant_matmul import dequantize_span, int_matmul
+
+    return int_matmul(x_s8, dequantize_span(qweight, _planes(s_hi, s_lo), _planes(z_hi, z_lo),
+                                            gs))
+
+
+def _check_span_shapes(x: Tensor, qweight: Tensor, s_hi: Tensor, span: int):
+    m, k = x.shape
+    k2, n = qweight.shape
+    gs = span // 2
+    if 2 * k2 != k or k % span or gs % 32:
+        raise ValueError(f"shapes: x {tuple(x.shape)}, qweight {tuple(qweight.shape)}, "
+                         f"span {span}")
+    if tuple(s_hi.shape) != (k // span, n):
+        raise ValueError(f"plane rows {tuple(s_hi.shape)} != {(k // span, n)}")
+    if not 1 <= m <= 64:
+        raise ValueError(f"the fused decode kernels take 1 to 64 rows, got {m}")
+    return m, k, n, gs
+
+
+def fused_norm_gemv_xla(x, ln_w, ln_b, qweight, s_hi, s_lo, z_hi, z_lo, alpha, beta=None, *,
+                        span: int = 256, eps: float = 1e-6, codes: Optional[Tensor] = None,
+                        codes_out: Optional[Tensor] = None) -> Tensor:
+    """Plain K12 norm: ``(RMSNormQ(x) @ dequant(W)) * alpha + beta`` on span
+    weights.  ``codes`` (M, K) int8 replaces the RMSNormQ codes;
+    ``codes_out`` receives them."""
+    xq = _rmsnorm_q(x, ln_w, ln_b, eps) if codes is None else codes
+    _hand_out(codes_out, xq)
+    acc = _span_product(xq, qweight, s_hi, s_lo, z_hi, z_lo, span // 2)
+    return _epilogue(acc, alpha, beta, None)
+
+
+def fused_requant_gemv_xla(x, in_scale, qweight, s_hi, s_lo, z_hi, z_lo, alpha, beta=None,
+                           residual=None, *, span: int = 256, qmin: float = -127.0,
+                           fuse_residual: bool = True, codes: Optional[Tensor] = None,
+                           codes_out: Optional[Tensor] = None) -> Tensor:
+    """Plain K12 requant: ``(requant(x) @ dequant(W)) * alpha + beta (+
+    residual)`` on span weights; ``codes`` and ``codes_out`` as the norm's."""
+    xq = _requant_q(x, in_scale, qmin) if codes is None else codes
+    _hand_out(codes_out, xq)
+    acc = _span_product(xq, qweight, s_hi, s_lo, z_hi, z_lo, span // 2)
+    return _epilogue(acc, alpha, beta, residual if fuse_residual else None)
+
+
+def fused_mlp_decode_xla(x, ln_w, ln_b, gu_qweight, gu_s_hi, gu_s_lo, gu_z_hi, gu_z_lo,
+                         gu_alpha, down_scale, d_qweight, d_wscales, d_wzeros, d_alpha,
+                         d_beta=None, *, span: int = 256, eps: float = 1e-6,
+                         fuse_residual: bool = True,
+                         codes: Optional[Sequence[Tensor]] = None,
+                         codes_out: Optional[Sequence[Tensor]] = None) -> Tensor:
+    """Plain K12 MLP: K6's chain on span weights.  ``codes`` = (xq (M, D), h
+    (M, F)) int8 replaces the norm and the down-input codes; ``codes_out``
+    (the same pair) receives them."""
+    from dgq_tpu_torch.ops.quant_matmul import dequantize_span, int_matmul
+
+    gs = span // 2
+    fdim = 2 * d_qweight.shape[0]
+    xq = _rmsnorm_q(x, ln_w, ln_b, eps) if codes is None else codes[0]
+    gu = _span_product(xq, gu_qweight, gu_s_hi, gu_s_lo, gu_z_hi, gu_z_lo, gs)
+    h_s8 = _silu_mul_q(gu[:, :fdim], gu[:, fdim:], gu_alpha[:fdim], gu_alpha[fdim:],
+                       down_scale)
+    if codes is not None:
+        h_s8 = codes[1]
+    if codes_out is not None:
+        _hand_out(codes_out[0], xq)
+        _hand_out(codes_out[1], h_s8)
+    acc = int_matmul(h_s8, dequantize_span(d_qweight, d_wscales[::8], d_wzeros[::8], gs))
+    return _epilogue(acc, d_alpha, d_beta, x if fuse_residual else None)
+
+
+def _span_lib():
+    return _cuda.library(_cuda.SOURCES[NORM_SPAN], _SIGNATURES["span"])
+
+
+def fused_norm_gemv(x: Tensor, ln_w: Tensor, ln_b: Optional[Tensor], qweight: Tensor,
+                    s_hi: Tensor, s_lo: Tensor, z_hi: Tensor, z_lo: Tensor, alpha: Tensor,
+                    beta: Optional[Tensor] = None, *, span: int = 256, bn: int = 512,
+                    eps: float = 1e-6, codes_out: Optional[Tensor] = None) -> Tensor:
+    """K12: y = (RMSNormQ(x) @ dequant(W)) * alpha + beta in one launch, on
+    span weights.
+
+    x (M, K) f32 with 1 <= M <= 64; qweight (K//2, N) span bytes (span = 2 *
+    groupsize); s_*/z_* the compact (K // span, N) even/odd group plane rows;
+    ``bn`` is the TPU column block and is not used.  ``codes_out`` (M, K)
+    int8, when given, receives the RMSNormQ codes.  CPU tensors take the
+    plain version."""
+    m, k, n, gs = _check_span_shapes(x, qweight, s_hi, span)
+    if x.device.type == "cpu":
+        return fused_norm_gemv_xla(x, ln_w, ln_b, qweight, s_hi, s_lo, z_hi, z_lo, alpha, beta,
+                                   span=span, eps=eps, codes_out=codes_out)
+    dev = x.device
+    _cuda.require(x, "x", torch.float32, (m, k), dev)
+    _cuda.require(ln_w, "ln_w", torch.float32, (k,), dev)
+    if ln_b is not None:
+        _cuda.require(ln_b, "ln_b", torch.float32, (k,), dev)
+    _cuda.require(qweight, "qweight", torch.int8, (k // 2, n), dev, align=4)
+    _require_planes(dev, k, n, gs, (s_hi, s_lo, z_hi, z_lo), None, alpha, beta)
+    if codes_out is not None:
+        _cuda.require(codes_out, "codes_out", torch.int8, (m, k), dev, align=4)
+    out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    rc = _span_lib().fused_norm_gemv(
+        _cuda.ptr(x), _cuda.ptr(ln_w), _cuda.ptr(ln_b), float(eps), _cuda.ptr(qweight),
+        _cuda.ptr(s_hi), _cuda.ptr(s_lo), _cuda.ptr(z_hi), _cuda.ptr(z_lo), _cuda.ptr(alpha),
+        _cuda.ptr(beta), _cuda.ptr(out), _cuda.ptr(codes_out), m, n, k, gs, _sms(dev),
+        _cuda.stream(dev))
+    _cuda.check(rc, NORM_SPAN)
+    _cuda.count_launch(NORM_SPAN)
+    return out
+
+
+def fused_requant_gemv(x: Tensor, in_scale: Tensor, qweight: Tensor, s_hi: Tensor,
+                       s_lo: Tensor, z_hi: Tensor, z_lo: Tensor, alpha: Tensor,
+                       beta: Optional[Tensor] = None, residual: Optional[Tensor] = None, *,
+                       span: int = 256, bn: int = 512, qmin: float = -127.0,
+                       fuse_residual: bool = True,
+                       codes_out: Optional[Tensor] = None) -> Tensor:
+    """K12: y = (requant(x) @ dequant(W)) * alpha + beta (+ residual) in one
+    launch, on span weights; ``in_scale`` a one-element float32 tensor read on
+    the device.  Other arguments as ``fused_norm_gemv``'s.  CPU tensors take
+    the plain version."""
+    m, k, n, gs = _check_span_shapes(x, qweight, s_hi, span)
+    if fuse_residual and residual is None:
+        raise ValueError("fuse_residual needs a residual")
+    if x.device.type == "cpu":
+        return fused_requant_gemv_xla(x, in_scale, qweight, s_hi, s_lo, z_hi, z_lo, alpha, beta,
+                                      residual, span=span, qmin=qmin,
+                                      fuse_residual=fuse_residual, codes_out=codes_out)
+    dev = x.device
+    _cuda.require(x, "x", torch.float32, (m, k), dev)
+    _require_scalar(in_scale, "in_scale", dev)
+    _cuda.require(qweight, "qweight", torch.int8, (k // 2, n), dev, align=4)
+    _require_planes(dev, k, n, gs, (s_hi, s_lo, z_hi, z_lo), None, alpha, beta)
+    res = residual if fuse_residual else None
+    if res is not None:
+        _cuda.require(res, "residual", torch.float32, (m, n), dev, align=4)
+    if codes_out is not None:
+        _cuda.require(codes_out, "codes_out", torch.int8, (m, k), dev, align=4)
+    out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    rc = _span_lib().fused_requant_gemv(
+        _cuda.ptr(x), _cuda.ptr(in_scale), float(qmin), _cuda.ptr(qweight), _cuda.ptr(s_hi),
+        _cuda.ptr(s_lo), _cuda.ptr(z_hi), _cuda.ptr(z_lo), _cuda.ptr(alpha), _cuda.ptr(beta),
+        _cuda.ptr(res), _cuda.ptr(out), _cuda.ptr(codes_out), m, n, k, gs, _sms(dev),
+        _cuda.stream(dev))
+    _cuda.check(rc, REQUANT_SPAN)
+    _cuda.count_launch(REQUANT_SPAN)
+    return out
+
+
+def fused_mlp_decode(x: Tensor, ln_w: Tensor, ln_b: Optional[Tensor], gu_qweight: Tensor,
+                     gu_s_hi: Tensor, gu_s_lo: Tensor, gu_z_hi: Tensor, gu_z_lo: Tensor,
+                     gu_alpha: Tensor, down_scale: Tensor, d_qweight: Tensor,
+                     d_wscales: Tensor, d_wzeros: Tensor, d_alpha: Tensor,
+                     d_beta: Optional[Tensor] = None, *, span: int = 256, bf: int = 512,
+                     eps: float = 1e-6, fuse_residual: bool = True,
+                     codes_out: Optional[Sequence[Tensor]] = None) -> Tensor:
+    """K12: the whole LLaMA MLP of a decode step in one call on span weights
+    (K6's chain).  gu_qweight (D//2, 2F) span [gate | up] with compact plane
+    rows; d_qweight (F//2, D) with 8x row-replicated (8*Gf, D) scales and
+    zeros (the kernel reads row 8g of group g).  ``bf`` is the TPU's F block,
+    checked as JAX checks it; the CUDA kernel's blocks take 32 F columns of an
+    even group and the 32 beside them in the odd group.  ``codes_out`` = (xq
+    (M, D), h (M, F)) int8, when given, receive the codes.  The call is one
+    launch (a zero fill and a small epilogue kernel run inside it)."""
+    m, d, n2f, gs = _check_span_shapes(x, gu_qweight, gu_s_hi, span)
+    f2, dout = d_qweight.shape
+    fdim = 2 * f2
+    bf = min(bf, fdim)
+    if n2f != 2 * fdim or dout != d or fdim % bf or bf % span:
+        raise ValueError(f"shapes: gate_up {tuple(gu_qweight.shape)}, down "
+                         f"{tuple(d_qweight.shape)}, bf {bf}, span {span}")
+    if tuple(d_wscales.shape) != (8 * fdim // gs, d):
+        raise ValueError(f"down scales {tuple(d_wscales.shape)} do not fit F={fdim}, D={d}")
+    if x.device.type == "cpu":
+        return fused_mlp_decode_xla(x, ln_w, ln_b, gu_qweight, gu_s_hi, gu_s_lo, gu_z_hi,
+                                    gu_z_lo, gu_alpha, down_scale, d_qweight, d_wscales,
+                                    d_wzeros, d_alpha, d_beta, span=span, eps=eps,
+                                    fuse_residual=fuse_residual, codes_out=codes_out)
+    dev = x.device
+    _cuda.require(x, "x", torch.float32, (m, d), dev)
+    _cuda.require(ln_w, "ln_w", torch.float32, (d,), dev)
+    if ln_b is not None:
+        _cuda.require(ln_b, "ln_b", torch.float32, (d,), dev)
+    _require_scalar(down_scale, "down_scale", dev)
+    _cuda.require(gu_qweight, "gu_qweight", torch.int8, (d // 2, n2f), dev, align=4)
+    _require_planes(dev, d, n2f, gs, (gu_s_hi, gu_s_lo, gu_z_hi, gu_z_lo), None, gu_alpha,
+                    None)
+    _cuda.require(d_qweight, "d_qweight", torch.int8, (f2, d), dev, align=4)
+    _cuda.require(d_wscales, "d_wscales", torch.int8, (8 * fdim // gs, d), dev, align=4)
+    _cuda.require(d_wzeros, "d_wzeros", torch.int8, (8 * fdim // gs, d), dev, align=4)
+    _require_planes(dev, fdim, d, gs, (), None, d_alpha, d_beta)
+    xq_out = h_out = None
+    if codes_out is not None:
+        xq_out, h_out = codes_out
+        _cuda.require(xq_out, "codes_out[0]", torch.int8, (m, d), dev, align=4)
+        _cuda.require(h_out, "codes_out[1]", torch.int8, (m, fdim), dev, align=4)
+    acc = torch.empty((m, d), dtype=torch.int32, device=dev)
+    out = torch.empty((m, d), dtype=torch.float32, device=dev)
+    rc = _span_lib().fused_mlp_decode(
+        _cuda.ptr(x), _cuda.ptr(ln_w), _cuda.ptr(ln_b), float(eps), _cuda.ptr(down_scale),
+        _cuda.ptr(gu_qweight), _cuda.ptr(gu_s_hi), _cuda.ptr(gu_s_lo), _cuda.ptr(gu_z_hi),
+        _cuda.ptr(gu_z_lo), _cuda.ptr(gu_alpha), _cuda.ptr(d_qweight), _cuda.ptr(d_wscales),
+        _cuda.ptr(d_wzeros), _cuda.ptr(d_alpha), _cuda.ptr(d_beta), int(fuse_residual),
+        _cuda.ptr(acc), _cuda.ptr(out), _cuda.ptr(xq_out), _cuda.ptr(h_out), m, d, fdim, gs,
+        _sms(dev), _cuda.stream(dev))
+    _cuda.check(rc, MLP_SPAN)
+    _cuda.count_launch(MLP_SPAN)
+    return out
+
+
+def plane_colsums(qweight: Tensor, span: int = 256):
+    """Per-plane column sums of the zero-shifted codes (c - 8), int32: the
+    pack-time constant of K13's s4 path.  qweight (K//2, N) span bytes ->
+    (csum_hi, csum_lo), each (K // span, N)."""
+    k2, n = qweight.shape
+    u = qweight.view(torch.uint8).to(torch.int32).reshape(2 * k2 // span, span // 2, n)
+    return (((u >> 4) - 8).sum(dim=1, dtype=torch.int32),
+            ((u & 0xF) - 8).sum(dim=1, dtype=torch.int32))
+
+
+def _check_colsums(qweight: Tensor, span: int, csum_hi, csum_lo) -> None:
+    want = (2 * qweight.shape[0] // span, qweight.shape[1])
+    for name, c in (("csum_hi", csum_hi), ("csum_lo", csum_lo)):
+        if c is not None and tuple(c.shape) != want:
+            raise ValueError(f"{name} {tuple(c.shape)} != {want}")
+
+
+def fused_norm_gemv_s4(x: Tensor, ln_w: Tensor, ln_b: Optional[Tensor], qweight: Tensor,
+                       s_hi: Tensor, s_lo: Tensor, z_hi: Tensor, z_lo: Tensor, alpha: Tensor,
+                       beta: Optional[Tensor] = None, csum_hi: Optional[Tensor] = None,
+                       csum_lo: Optional[Tensor] = None, *, span: int = 256, bn: int = 512,
+                       eps: float = 1e-6, codes_out: Optional[Tensor] = None) -> Tensor:
+    """K13: ``fused_norm_gemv`` computed on the TPU's int4 MXU path, the same
+    result bit for bit; runs K12 (see the module docstring).  ``csum_hi`` and
+    ``csum_lo`` (``plane_colsums``) are checked and not read."""
+    _check_colsums(qweight, span, csum_hi, csum_lo)
+    return fused_norm_gemv(x, ln_w, ln_b, qweight, s_hi, s_lo, z_hi, z_lo, alpha, beta,
+                           span=span, bn=bn, eps=eps, codes_out=codes_out)
+
+
+def fused_requant_gemv_s4(x: Tensor, in_scale: Tensor, qweight: Tensor, s_hi: Tensor,
+                          s_lo: Tensor, z_hi: Tensor, z_lo: Tensor, alpha: Tensor,
+                          beta: Optional[Tensor] = None, residual: Optional[Tensor] = None,
+                          csum_hi: Optional[Tensor] = None, csum_lo: Optional[Tensor] = None,
+                          *, span: int = 256, bn: int = 512, qmin: float = -127.0,
+                          fuse_residual: bool = True,
+                          codes_out: Optional[Tensor] = None) -> Tensor:
+    """K13: ``fused_requant_gemv`` on the TPU's int4 MXU path; runs K12 as
+    ``fused_norm_gemv_s4`` does."""
+    _check_colsums(qweight, span, csum_hi, csum_lo)
+    return fused_requant_gemv(x, in_scale, qweight, s_hi, s_lo, z_hi, z_lo, alpha, beta,
+                              residual, span=span, bn=bn, qmin=qmin,
+                              fuse_residual=fuse_residual, codes_out=codes_out)

@@ -5,15 +5,16 @@ Port of ``dgq_tpu/serve.py``: the JSON-lines TCP server
 (``serving/scheduler.py``), or with ``--paged`` over a ``PagedBatcher``
 (``serving/paged.py``), loaded straight from a ``save_engine`` checkpoint
 (the port's or ``dgq_tpu``'s: the files are the same).  ``--kv-bits 4``
-serves either on the INT4 cache.  The flags are ``dgq_tpu.serve``'s; those
-of paths not ported yet (``--spec-k`` > 0 without ``--paged``,
-``--tp``/``--pp``/``--dp`` > 1, non-LLaMA checkpoints, orbax directories)
-exit with a message naming the ROADMAP item.  As with JAX's ``--paged``,
-``--spec-k`` and ``--admit-batch`` are ignored there.  Runs on the GPU;
+serves either on the INT4 cache; ``--spec-k`` > 0 turns on prompt-lookup
+speculative decoding in the dense batcher.  The flags are
+``dgq_tpu.serve``'s; those of paths not ported yet (``--tp``/``--pp``/``--dp``
+> 1, non-LLaMA checkpoints, orbax directories) exit with a message naming
+the ROADMAP item.  As with JAX's ``--paged``, ``--spec-k`` and
+``--admit-batch`` are ignored there.  Runs on the GPU;
 ``--cpu`` runs the plain versions on the CPU.
 
 Example:
-    python -m dgq_tpu_torch.serve eng.safetensors --port 8471 --slots 8
+    python -m dgq_tpu_torch.serve eng.safetensors --port 8471 --slots 8 --spec-k 4
     python -m dgq_tpu_torch.serve eng.safetensors --paged --kv-bits 4
 """
 
@@ -91,17 +92,13 @@ def _unported(args) -> str:
         arch = json.load(f).get("arch", "llama")
     if arch == "opt":
         return ("serving the opt engine takes the dense ContinuousBatcher (opt_batch_engine), "
-                "not ported yet (ROADMAP Queue 1 item 5, after item 3); only llama "
-                "checkpoints are served")
+                "not ported yet (ROADMAP Queue 1 item 5); only llama checkpoints are served")
     if arch != "llama":
         return (f"the {arch} engine is not ported yet (ROADMAP Queue 1 item 5); "
                 "only llama checkpoints are served")
     if args.tp > 1 or args.pp > 1 or args.dp > 1:
         return ("--tp/--pp/--dp > 1 (parallel serving) are not ported yet "
                 "(ROADMAP Queue 1 item 7)")
-    if args.spec_k > 0 and not args.paged:
-        return ("--spec-k > 0 (speculative decoding, serving/speculative.py) is not ported yet "
-                "(ROADMAP Queue 1 item 3)")
     return ""
 
 
@@ -138,7 +135,7 @@ def build_server(args):
             ecfg, eng, num_slots=args.slots, max_len=args.max_len,
             prefill_pad=min(args.prefill_pad, args.max_len),
             prefill_chunk=args.prefill_chunk, admit_batch=args.admit_batch,
-            decode_steps=args.decode_steps,
+            decode_steps=args.decode_steps, spec_k=args.spec_k,
         )
     for path in args.prefix or ():
         ids = _read_prefix(path)
@@ -152,7 +149,8 @@ def main(argv=None):
     srv = build_server(args)
     layout = f"paged, page_size={args.page_size}" if args.paged else "dense"
     print(f"[dgq_tpu_torch.serve] listening on {srv.host}:{srv.port} "
-          f"(slots={args.slots}, max_len={args.max_len}, {layout}, kv_bits={args.kv_bits})",
+          f"(slots={args.slots}, max_len={args.max_len}, {layout}, kv_bits={args.kv_bits}, "
+          f"spec_k={0 if args.paged else args.spec_k})",
           flush=True)
     try:
         while True:

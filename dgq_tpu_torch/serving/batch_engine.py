@@ -1,9 +1,7 @@
 """Slot-based batched engine execution for continuous batching.
 
-Port of ``dgq_tpu/serving/batch_engine.py`` without speculative verification
-(``_verify_block_batched``, ``engine_verify_batched`` and
-``engine_spec_decode_multi`` come with ``serving/speculative.py``).  The
-dense KV cache holds B independent slots, each with its own length:
+Port of ``dgq_tpu/serving/batch_engine.py``.  The dense KV cache holds B
+independent slots, each with its own length:
 
   * ``engine_prefill_slot``, ``engine_prefill_batched`` and
     ``engine_prefill_chunk`` run the engine's own block stack
@@ -15,7 +13,16 @@ dense KV cache holds B independent slots, each with its own length:
     (``int8_decode_attention_chunked``), both reading the lengths on the
     device; under ``kv_bits=4`` the plain attention over the unpacked cache,
     as JAX's;
-  * ``engine_decode_multi`` runs several greedy steps in one call.
+  * ``engine_decode_multi`` runs several greedy steps in one call;
+  * ``engine_verify_batched`` runs a speculative-verification window of
+    K+1 tokens per slot at the slot's own offset (lengths unchanged), and
+    ``engine_spec_decode_multi`` several speculative steps with drafting,
+    acceptance and the appends on the device, one host read per call.  The
+    window's linears take the fused kernels (K4-K6, or K12 on span-only
+    storage) on its flattened rows; its attention is plain torch ops over
+    the slot's cache, as JAX's is XLA (the reference's choice for a window
+    of ~5 queries, not a missing kernel), with quant_pv's INT8 p @ V on
+    INT8 caches as the decode kernels compute it.
 
 Inactive slots decode garbage at a fixed position that the scheduler
 ignores.  JAX's ``jit``/``scan``/``vmap`` become Python loops over layers
@@ -33,6 +40,7 @@ import torch
 from dgq_tpu_torch.models.engine import (
     EngineConfig,
     EngineParams,
+    _attention_scores,
     _block,
     _block_tail,
     _qkv_rows,
@@ -43,6 +51,7 @@ from dgq_tpu_torch.models.engine import (
 from dgq_tpu_torch.models.llama import rms_norm, rope_cos_sin, rotate_half
 from dgq_tpu_torch.ops.attention import (
     NEG,
+    _quantize_exp,
     auto_decode_chunk,
     f32,
     int8_decode_attention,
@@ -50,6 +59,7 @@ from dgq_tpu_torch.ops.attention import (
     int8_decode_attention_xla,
 )
 from dgq_tpu_torch.ops.kv4 import kv4_scale, pack_nibbles, quantize_kv4, unpack_nibbles
+from dgq_tpu_torch.ops.quant_matmul import int_matmul
 
 Tensor = torch.Tensor
 
@@ -254,3 +264,131 @@ def engine_decode_multi(ecfg: EngineConfig, params: EngineParams, tokens: Tensor
         t = torch.where(active, torch.argmax(logits, dim=-1).to(torch.int32), t)
         toks.append(t)
     return torch.stack(toks), cache
+
+
+def _verify_block_batched(ecfg: EngineConfig, layer, x: Tensor, k_cache: Tensor,
+                          v_cache: Tensor, lengths: Tensor, pos_cos: Tensor,
+                          pos_sin: Tensor) -> Tensor:
+    """One decoder block for a K+1-token verification window per slot: x (B,
+    K1, D), caches (B, Hkv, ...) written in place at each slot's offset,
+    lengths (B,) on the device.  Query i of a slot attends its history and
+    window tokens 0..i.  The projections and the tail are the engine's own
+    (``_qkv_rows``, ``_block_tail``), so verification rounds as the engine
+    does; the attention is plain, as JAX's."""
+    cfg = ecfg.cfg
+    b, k1, _ = x.shape
+    dh, h, hk = cfg.head_dim, cfg.num_attention_heads, cfg.num_key_value_heads
+
+    fused = _use_fused_rows(ecfg, layer, b, k1)
+    qkv = _qkv_rows(ecfg, layer, x, fused)
+    q, k, v = torch.split(qkv, [h * dh, hk * dh, hk * dh], dim=-1)
+    q = q.reshape(b, k1, h, dh).transpose(1, 2)
+    k = k.reshape(b, k1, hk, dh).transpose(1, 2)
+    v = v.reshape(b, k1, hk, dh).transpose(1, 2)
+    cos, sin = pos_cos[:, None], pos_sin[:, None]  # (B, 1, K1, Dh)
+    q = q * cos + rotate_half(q) * sin
+    k = k * cos + rotate_half(k) * sin
+    q_s8 = _requant(q, layer.q_scale)
+
+    # per-slot append of the window, its start clamped to the cache as JAX's
+    # dynamic_update_slice clamps it
+    smax = k_cache.shape[-1]
+    lengths = lengths.long()
+    bi = torch.arange(b, device=x.device)[:, None]
+    pos = torch.clamp(lengths, max=smax - k1)[:, None] + torch.arange(k1, device=x.device)
+    if ecfg.kv_bits == 4:
+        k_cache[bi, :, :, pos] = pack_nibbles(quantize_kv4(k, layer.k_scale)).transpose(1, 2)
+        v_cache[bi, :, pos, :] = pack_nibbles(quantize_kv4(v, layer.v_scale)).transpose(1, 2)
+        kt_att, v_att = unpack_nibbles(k_cache, axis=2), unpack_nibbles(v_cache, axis=-1)
+        k_eff, v_eff = kv4_scale(layer.k_scale), kv4_scale(layer.v_scale)
+    else:
+        k_cache[bi, :, :, pos] = _requant(k, layer.k_scale).transpose(1, 2)
+        v_cache[bi, :, pos, :] = _requant(v, layer.v_scale).transpose(1, 2)
+        kt_att, v_att = k_cache, v_cache
+        k_eff, v_eff = layer.k_scale, layer.v_scale
+
+    ctx = verify_attention(q_s8, kt_att, v_att, lengths, layer.q_scale, k_eff, v_eff,
+                           quant_pv=ecfg.quant_pv and ecfg.kv_bits == 8)
+    return _block_tail(ecfg, layer, x, ctx, fused)
+
+
+def verify_attention(q_s8: Tensor, kt: Tensor, v: Tensor, lengths: Tensor, q_scale: Tensor,
+                     k_scale: Tensor, v_scale: Tensor, quant_pv: bool) -> Tensor:
+    """Plain attention of a verification window: q_s8 (B, H, K1, Dh) int8
+    over the unpacked int8 caches kt (B, Hkv, Dh, Smax) and v (B, Hkv, Smax,
+    Dh); query i of slot b attends positions <= lengths[b] + i.  With
+    ``quant_pv`` the decode kernels' INT8 p @ V (exp weights coded against
+    the global row max), so accepted drafts reproduce a decode step's
+    arithmetic; else fp p @ V.  -> ctx (B, K1, H * Dh) f32."""
+    b, h, k1, dh = q_s8.shape
+    hk, smax = kt.shape[1], kt.shape[-1]
+    dev = q_s8.device
+    scores = _attention_scores(q_s8.reshape(b, hk, (h // hk) * k1, dh), kt, q_scale, k_scale,
+                               dh).reshape(b, hk, h // hk, k1, smax)
+    qpos = lengths[:, None] + torch.arange(k1, device=dev)  # (B, K1)
+    ok = torch.arange(smax, device=dev)[None, None, :] <= qpos[:, :, None]  # (B, K1, Smax)
+    scores = torch.where(ok[:, None, None], scores, f32(NEG, dev))
+    if quant_pv:
+        m = torch.amax(scores, dim=-1, keepdim=True)
+        e = torch.exp(scores - m)
+        denom = torch.sum(e, dim=-1, keepdim=True)
+        acc = int_matmul(_quantize_exp(e), v[:, :, None])
+        ctx = acc.to(torch.float32) * ((v_scale / f32(127.0, dev)) / denom)
+    else:  # INT4 KV keeps fp p @ V everywhere
+        probs = torch.softmax(scores, dim=-1)
+        ctx = torch.matmul(probs, (v.to(torch.float32) * v_scale)[:, :, None])
+    return ctx.permute(0, 3, 1, 2, 4).reshape(b, k1, h * dh)
+
+
+def engine_verify_batched(ecfg: EngineConfig, params: EngineParams, tokens: Tensor,
+                          cache: BatchedKVCache) -> Tuple[Tensor, BatchedKVCache]:
+    """Speculative verification for every slot: tokens (B, K1) = [pending
+    token, K drafts] per slot -> (logits (B, K1, V), cache with the window's
+    K/V written at each slot's offset and the lengths unchanged: the caller
+    sets them after acceptance; entries past a slot's length are masked and
+    later overwritten)."""
+    cfg = ecfg.cfg
+    b, k1 = tokens.shape
+    x = _embed(params, tokens)
+    positions = cache.lengths.long()[:, None] + torch.arange(k1, device=x.device)
+    pos_cos, pos_sin = rope_cos_sin(positions.reshape(-1), cfg.head_dim, cfg.rope_theta)
+    pos_cos, pos_sin = pos_cos.reshape(b, k1, -1), pos_sin.reshape(b, k1, -1)
+    for li, layer in enumerate(params.layer_list):
+        x = _verify_block_batched(ecfg, layer, x, cache.k[li], cache.v[li], cache.lengths,
+                                  pos_cos, pos_sin)
+    x = rms_norm(x, params.norm_weight.to(x.dtype), cfg.rms_norm_eps)
+    return torch.matmul(x, params.lm_head.to(x.dtype).t()), cache
+
+
+def engine_spec_decode_multi(ecfg: EngineConfig, params: EngineParams, bufs: Tensor,
+                             buf_lens: Tensor, tokens: Tensor, cache: BatchedKVCache,
+                             active: Tensor, steps: int, spec_k: int = 4, max_ngram: int = 3):
+    """``steps`` speculative steps for every active slot, queued on the device
+    with no host read: per-slot prompt-lookup drafts (``ngram_rows``), one
+    batched verification, acceptance and the append to each slot's token
+    buffer (bufs (B, L) int32, prompt + emitted with the pending token
+    last, first buf_lens (B,) valid).
+
+    Returns (bufs, buf_lens, tokens, cache, outs (steps, B, K+1), n_outs
+    (steps, B)).  Inactive slots never advance.  Tokens past a finish are
+    discarded by the scheduler, which guarantees room for the worst case
+    steps * (K+1)."""
+    from dgq_tpu_torch.serving.speculative import accept, ngram_rows, write_rows
+
+    outs, n_outs = [], []
+    for _ in range(steps):
+        drafts = ngram_rows(bufs, buf_lens, spec_k, max_ngram)
+        logits, cache = engine_verify_batched(
+            ecfg, params, torch.cat([tokens[:, None], drafts], dim=1), cache)
+        out, n_acc, corr = accept(drafts, torch.argmax(logits, dim=-1).to(torch.int32))
+        n_out = torch.where(active, n_acc + 1, 0).to(torch.int32)
+        bufs = torch.where(active[:, None], write_rows(bufs, out, buf_lens), bufs)
+        buf_lens = buf_lens + n_out
+        tokens = torch.where(active, corr, tokens)
+        # the window left the lengths alone: active slots advance by the
+        # consumed prefix (the pending token and the accepted drafts)
+        cache = cache._replace(lengths=cache.lengths + torch.where(active, n_acc + 1, 0).to(
+            torch.int32))
+        outs.append(out)
+        n_outs.append(n_out)
+    return bufs, buf_lens, tokens, cache, torch.stack(outs), torch.stack(n_outs)

@@ -1,13 +1,13 @@
 """Continuous batching scheduler over the dense slot cache.
 
 Port of ``dgq_tpu/serving/scheduler.py``: ``Request``, its stop test and the
-``ContinuousBatcher``, without speculative decoding (``spec_k > 0`` waits for
-``serving/speculative.py``).  A fixed pool of B cache slots: queued requests
-are prefilled into free slots (one at a time, or ``admit_batch`` short ones
-in one batched prefill; long prompts in ``prefill_chunk`` pieces, one per
-step; prompts under a registered prefix from its cached KV), one batched
-decode step (or a multi-step window) advances every active slot, and a
-finished request frees its slot at once.
+``ContinuousBatcher``.  A fixed pool of B cache slots: queued requests are
+prefilled into free slots (one at a time, or ``admit_batch`` short ones in
+one batched prefill; long prompts in ``prefill_chunk`` pieces, one per step;
+prompts under a registered prefix from its cached KV), one batched decode
+step (a multi-step window, or with ``spec_k`` a speculative verify step or
+window) advances every active slot, and a finished request frees its slot
+at once.
 
 A host-side control loop around the device functions of
 ``serving/batch_engine.py``.  Every scheduling decision reads the host
@@ -32,9 +32,12 @@ from dgq_tpu_torch.serving.batch_engine import (
     engine_prefill_batched,
     engine_prefill_chunk,
     engine_prefill_slot,
+    engine_spec_decode_multi,
+    engine_verify_batched,
     init_batched_cache,
 )
 from dgq_tpu_torch.serving.sampling import SamplingParams, sample_logits
+from dgq_tpu_torch.serving.speculative import ngram_propose
 
 
 @dataclasses.dataclass
@@ -82,18 +85,25 @@ class ContinuousBatcher:
     every active request is greedy; cache capacity and queued stop-capable
     requests clamp the window, tokens past a finish are discarded, and a
     window that cannot finish any request is left unread so that the next
-    window is queued on the device before the host reads this one.  A
-    failing step rebuilds the cache from host history and retries, up to
-    ``max_recoveries`` times.  The cache precision follows
+    window is queued on the device before the host reads this one.
+    ``spec_k`` > 0 turns on prompt-lookup speculative decoding: a step feeds
+    [pending token, K drafts] per slot through one batched verification
+    (``engine_verify_batched``), or with ``decode_steps`` > 1 runs that many
+    speculative steps on the device (``engine_spec_decode_multi``), while
+    every active request is greedy and has room; otherwise the step is a
+    plain one.  With ``spec_adaptive`` speculation suspends for
+    ``spec_probe_every`` steps when the accepted tokens per verify step
+    (an EWMA) fall below ``spec_cost_ratio``, a verify step's cost in plain
+    steps.  A failing step rebuilds the cache from host history and
+    retries, up to ``max_recoveries`` times.  The cache precision follows
     ``ecfg.kv_bits``.  Runs on the device of the parameters."""
 
     def __init__(self, ecfg: EngineConfig, params: EngineParams, *, num_slots: int = 8,
                  max_len: int = 2048, prefill_pad: int = 128, prefill_chunk: int = 0,
                  admit_batch: int = 1, decode_steps: int = 1, spec_k: int = 0,
+                 spec_max_ngram: int = 3, spec_adaptive: bool = True,
+                 spec_cost_ratio: float = 1.35, spec_probe_every: int = 256,
                  max_recoveries: int = 3, mesh=None, fns=None):
-        if spec_k > 0:
-            raise NotImplementedError("speculative decoding (spec_k > 0) is not ported yet "
-                                      "(ROADMAP Queue 1 item 3)")
         if mesh is not None or fns is not None:
             raise NotImplementedError("tensor- and pipeline-parallel serving (mesh, fns) is not "
                                       "ported yet (ROADMAP Queue 1 item 7)")
@@ -106,6 +116,16 @@ class ContinuousBatcher:
         self.prefill_chunk = prefill_chunk
         self.admit_batch = max(1, admit_batch)
         self.decode_steps = max(1, decode_steps)
+        self.spec_k = max(0, spec_k)
+        self.spec_max_ngram = spec_max_ngram
+        self.spec_stats = {"steps": 0, "tokens": 0}
+        self.spec_adaptive = spec_adaptive
+        self.spec_cost_ratio = spec_cost_ratio
+        self.spec_probe_every = max(1, spec_probe_every)
+        self._spec_ewma: Optional[float] = None
+        self._spec_ewma_n = 0
+        self._spec_suspended = 0  # steps left in a suspension
+        self._spec_suspensions = 0  # suspensions so far
         self.max_recoveries = max_recoveries
         self._recoveries = 0
         self.cache = self._new_cache()
@@ -332,6 +352,16 @@ class ContinuousBatcher:
                 out["ttft_ms_p50"] = round(ttft[len(ttft) // 2] * 1e3, 1)
                 out["ttft_ms_p95"] = round(ttft[min(len(ttft) - 1, int(len(ttft) * 0.95))] * 1e3,
                                            1)
+        if self.spec_k > 0:
+            st = self.spec_stats
+            out["spec_steps"] = st["steps"]
+            out["spec_tokens"] = st["tokens"]
+            out["spec_tokens_per_step"] = round(st["tokens"] / max(st["steps"], 1), 3)
+            if self.spec_adaptive:
+                out["spec_suspended_steps"] = self._spec_suspended
+                out["spec_suspensions"] = self._spec_suspensions
+                if self._spec_ewma is not None:
+                    out["spec_rate_ewma"] = round(self._spec_ewma, 3)
         if self._prefix is not None:
             out["prefix_hits"] = self.prefix_hits
         if self.timings:
@@ -363,11 +393,17 @@ class ContinuousBatcher:
         self._admit()
         self._advance_pending()
         if any(r is not None and s not in self.pending for s, r in enumerate(self.slots)):
-            n = self._multi_window_steps()
-            if n > 1:
-                self._decode_multi(n)
+            spec_ok = self.spec_k > 0 and self._spec_paying()
+            if spec_ok and self._can_decode_spec_multi():
+                self._decode_spec_multi()
+            elif spec_ok and self._can_decode_spec():
+                self._decode_spec()
             else:
-                self._decode_step()
+                n = self._multi_window_steps()
+                if n > 1:
+                    self._decode_multi(n)
+                else:
+                    self._decode_step()
 
     def _recover(self) -> None:
         """Rebuild device state from host history: a fresh cache holding,
@@ -417,6 +453,163 @@ class ContinuousBatcher:
         if n <= 1:
             return 1
         return 1 << (n.bit_length() - 1)
+
+    # -- speculative decoding ------------------------------------------------
+
+    def _queue_blocks_multi(self) -> bool:
+        """Speculative windows keep JAX's conservative gate: queued work with
+        a free slot, or a request that finishes inside the window, forces
+        single speculative steps so that a freed slot is admitted at once."""
+        if not self.queue:
+            return False
+        if any(s is None for s in self.slots):
+            return True
+        return any(r.max_new_tokens - len(r.output_ids) < self.decode_steps
+                   for r in self.slots if r is not None)
+
+    def _spec_active(self):
+        """The active slots when speculation may run now: nothing mid-prefill,
+        every active request greedy and wanting at least 2 more tokens; else
+        None."""
+        if self.spec_k <= 0 or self.pending:
+            return None
+        active = [(s, r) for s, r in enumerate(self.slots) if r is not None]
+        if not active or any(r.sampling is not None and not r.sampling.greedy
+                             for _, r in active):
+            return None  # verification is greedy: a sampling slot opts the batch out
+        if any(r.max_new_tokens - len(r.output_ids) < 2 for _, r in active):
+            return None
+        return active
+
+    def _can_decode_spec_multi(self) -> bool:
+        """``decode_steps`` speculative steps in one device call, when the
+        worst case of every active slot, decode_steps * (K+1) tokens, fits."""
+        if self.decode_steps <= 1 or self._queue_blocks_multi():
+            return False
+        active = self._spec_active()
+        worst = self.decode_steps * (self.spec_k + 1)
+        return active is not None and all(int(self.lengths_h[s]) + worst <= self.max_len
+                                          for s, _ in active)
+
+    def _can_decode_spec(self) -> bool:
+        """One speculative step, when every active slot has room for its
+        K+1-token window below the cache's end."""
+        active = self._spec_active()
+        return active is not None and all(
+            int(self.lengths_h[s]) + self.spec_k + 1 < self.max_len for s, _ in active)
+
+    def _spec_paying(self) -> bool:
+        """The adaptive gate: False while suspended (one tick per step)."""
+        if not self.spec_adaptive:
+            return True
+        if self._spec_suspended > 0:
+            self._spec_suspended -= 1
+            return False
+        return True
+
+    def _spec_note(self, tokens: int, steps: int) -> None:
+        """Record a speculative call's yield; suspend speculation when the
+        tokens-per-step EWMA no longer covers a verify step's cost."""
+        if not self.spec_adaptive or steps <= 0:
+            return
+        rate = tokens / steps
+        self._spec_ewma = rate if self._spec_ewma is None else 0.8 * self._spec_ewma + 0.2 * rate
+        self._spec_ewma_n += steps
+        if self._spec_ewma_n >= 8 and self._spec_ewma < self.spec_cost_ratio:
+            self._spec_suspended = self.spec_probe_every
+            self._spec_suspensions += 1
+            self._spec_ewma = None
+            self._spec_ewma_n = 0
+
+    def _emit_spec(self, slot: int, tokens) -> bool:
+        """Append one speculative step's tokens to a slot's request, stopping at
+        its stop condition or max_new; True when it finished (the slot is
+        then freed)."""
+        req = self.slots[slot]
+        self.spec_stats["steps"] += 1
+        for tok in tokens:
+            req.output_ids.append(int(tok))
+            self.next_tokens[slot] = int(tok)
+            self.spec_stats["tokens"] += 1
+            if _hit_stop(req) or len(req.output_ids) >= req.max_new_tokens:
+                self._finish_req(req)
+                self.slots[slot] = None  # the next admission re-prefills from 0
+                return True
+        if req.t_first is None and req.output_ids:
+            req.t_first = time.time()
+        return False
+
+    def _decode_spec(self) -> None:
+        """One speculative step for every active slot: prompt-lookup drafts on
+        the host, one batched verification, acceptance per slot."""
+        k = self.spec_k
+        ids = np.zeros((self.num_slots, k + 1), np.int32)
+        for s, r in enumerate(self.slots):
+            if r is None:
+                continue
+            hist = np.concatenate([np.asarray(r.prompt_ids, np.int64),
+                                   np.asarray(r.output_ids, np.int64)])
+            ids[s, 0] = self.next_tokens[s]
+            ids[s, 1:] = ngram_propose(hist, k, max_ngram=self.spec_max_ngram)
+        t0 = time.time()
+        logits, self.cache = engine_verify_batched(self.ecfg, self.params, self._dev(ids),
+                                                   self.cache)
+        self._t("dispatch:spec_verify", t0)
+        self._next_dev_ok = False
+        t0 = time.time()
+        greedy = torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()  # (B, K+1)
+        self._t("sync:spec_verify", t0)
+        tok0, step0 = self.spec_stats["tokens"], self.spec_stats["steps"]
+        for s in range(self.num_slots):
+            if self.slots[s] is None:
+                continue
+            n_acc = 0
+            while n_acc < k and ids[s, 1 + n_acc] == greedy[s, n_acc]:
+                n_acc += 1
+            if not self._emit_spec(s, list(ids[s, 1:1 + n_acc]) + [greedy[s, n_acc]]):
+                # the pending token and the accepted drafts were fed; the
+                # correction is the new pending token
+                self.lengths_h[s] += 1 + n_acc
+        self._spec_note(self.spec_stats["tokens"] - tok0, self.spec_stats["steps"] - step0)
+        self.cache = self.cache._replace(lengths=self._dev(self.lengths_h))
+
+    def _decode_spec_multi(self) -> None:
+        """decode_steps speculative steps in one call with one host read;
+        tokens past a slot's finish are discarded (its cache advanced
+        harmlessly: the next admission re-prefills from 0)."""
+        k, n = self.spec_k, self.decode_steps
+        bufs = np.zeros((self.num_slots, self.max_len), np.int32)
+        lens = np.zeros((self.num_slots,), np.int32)
+        active = np.zeros((self.num_slots,), bool)
+        for s, r in enumerate(self.slots):
+            if r is None:
+                continue
+            hist = np.concatenate([np.asarray(r.prompt_ids, np.int32),
+                                   np.asarray(r.output_ids, np.int32)])
+            bufs[s, :len(hist)] = hist
+            lens[s] = len(hist)
+            active[s] = True
+        tok0, step0 = self.spec_stats["tokens"], self.spec_stats["steps"]
+        t0 = time.time()
+        _, _, _, self.cache, outs, n_outs = engine_spec_decode_multi(
+            self.ecfg, self.params, self._dev(bufs), self._dev(lens), self._dev(self.next_tokens),
+            self.cache, self._dev(active), n, spec_k=k, max_ngram=self.spec_max_ngram)
+        self._t("dispatch:spec_multi", t0)
+        self._next_dev_ok = False
+        t0 = time.time()
+        got = torch.cat([outs.flatten(), n_outs.flatten()]).cpu().numpy()  # one read
+        self._t("sync:spec_multi", t0)
+        outs_h = got[:outs.numel()].reshape(tuple(outs.shape))  # (n, B, K+1)
+        n_h = got[outs.numel():].reshape(tuple(n_outs.shape))  # (n, B)
+        # the device advanced each active slot by its consumed prefix per step
+        self.lengths_h += n_h.sum(axis=0).astype(np.int32)
+        for s in range(self.num_slots):
+            if self.slots[s] is None:
+                continue
+            for i in range(n):
+                if self._emit_spec(s, outs_h[i, s, :int(n_h[i, s])]):
+                    break
+        self._spec_note(self.spec_stats["tokens"] - tok0, self.spec_stats["steps"] - step0)
 
     def run(self) -> List[Request]:
         while self.has_work:
@@ -515,14 +708,16 @@ class ContinuousBatcher:
         chunk[:end - pos] = padded[pos:end]
         true_len = len(req.prompt_ids)
         valid = min(true_len, end) - pos
-        assert valid >= 1, (pos, end, true_len)  # the chunk re-pad guarantees it
+        assert valid >= 1, (pos, end, true_len)  # the walk stops at the prompt's end
         t0 = time.time()
         logits, self.cache = engine_prefill_chunk(self.ecfg, self.params, slot,
                                                   torch.from_numpy(chunk), pos, valid, self.cache)
         self._t("dispatch:prefill_chunk", t0)
         st["pos"] = end
         self.lengths_h[slot] = pos + valid
-        if end >= len(padded):
+        # a walk from a prefix length off the chunk grid can pass the prompt's
+        # end before the padded end (JAX's goes on to an empty chunk and fails)
+        if end >= min(len(padded), true_len):
             del self.pending[slot]
             tok = self._pick_token(req, logits[None, :])
             req.output_ids.append(tok)

@@ -3,7 +3,8 @@
 The same requests through JAX's ContinuousBatcher (use_kernel=False) and the
 port's give the same greedy tokens: a queue longer than the slots,
 multi-step decode windows, chunked prefill, batched admission, a registered
-prefix, cancel, recovery from a failed step, and INT4 KV; and the port's
+prefix, cancel, recovery from a failed step, INT4 KV and speculative
+decoding; and the port's
 dense INT4 batcher gives its own paged INT4 batcher's tokens, as JAX's
 tests/test_kv4.py asserts for JAX's.  Weights come from dgq_tpu's synthetic
 builder and are carried across with engine_params_from_arrays; prompts are
@@ -63,8 +64,8 @@ def _prompts(seed, lens):
 
 def _port(tparams, kv_bits=8, **kw):
     return ContinuousBatcher(teng.EngineConfig(cfg=TCFG, kv_bits=kv_bits), tparams,
-                             num_slots=kw.pop("num_slots", 2), max_len=MAX_LEN, prefill_pad=PAD,
-                             **kw)
+                             num_slots=kw.pop("num_slots", 2), max_len=kw.pop("max_len", MAX_LEN),
+                             prefill_pad=PAD, **kw)
 
 
 def _run_both(engines, prompts, max_new, prefix=None, kv_bits=8, setup=None, **kw):
@@ -196,9 +197,14 @@ def test_dense_kv4_matches_paged_kv4(engines):
 
 
 def test_unported_options_raise(engines):
+    # spec_k > 0 is ported: a speculative batcher gives JAX's tokens (the
+    # scenarios are in tests/test_torch_serving_spec.py)
+    prompts = [np.asarray([3, 5, 3, 5, 3, 5], np.int32), _prompts(9, (7,))[0]]
+    out = _run_both(engines, prompts, 8, spec_k=2)
+    (jb, want), (tb, got) = out["jax"], out["port"]
+    assert got == want and tb.spec_k == 2 and tb.spec_stats == jb.spec_stats
+    assert tb.spec_stats["steps"] > 0
     _, tparams = engines
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"):
-        _port(tparams, spec_k=2)
     for kw in (dict(mesh=object()), dict(fns=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
             _port(tparams, **kw)
@@ -227,4 +233,28 @@ def test_prefix_chunk_at_cache_end(engines):
             b.register_prefix(prefix)
         b.add_request(Request(uid=0, prompt_ids=prompt.copy(), max_new_tokens=3))
         got.append(b.run()[0].output_ids)
+    assert got == [want, want]
+
+
+def test_prefix_chunk_ending_short_of_padding(engines):
+    """A prefix remainder chunked from a prefix length off the chunk grid
+    reaches the prompt's end before the padded end (prefix 20, chunk 32, a
+    70-token prompt: chunks end at 52, 84; padded to 96): the walk stops
+    there and gives the tokens of the prompt without the prefix, which are
+    JAX's.  (JAX's walk goes on to a chunk with no real token and fails its
+    assert; ROADMAP Queue 3.)"""
+    jparams, tparams = engines
+    prompt = np.random.default_rng(1).integers(0, CFG.vocab_size, 70).astype(np.int32)
+    ref = JBatcher(jeng.EngineConfig(cfg=CFG, use_kernel=False), jparams, num_slots=1,
+                   max_len=MAX_LEN * 2, prefill_pad=PAD, prefill_chunk=32)
+    ref.add_request(JRequest(uid=0, prompt_ids=prompt.copy(), max_new_tokens=3))
+    want = ref.run()[0].output_ids
+    got = []
+    for prefix in (None, prompt[:20]):
+        b = _port(tparams, num_slots=1, prefill_chunk=32, max_len=MAX_LEN * 2)
+        if prefix is not None:
+            b.register_prefix(prefix)
+        b.add_request(Request(uid=0, prompt_ids=prompt.copy(), max_new_tokens=3))
+        got.append(b.run()[0].output_ids)
+        assert b._recoveries == 0
     assert got == [want, want]

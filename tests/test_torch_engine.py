@@ -223,3 +223,84 @@ def test_span_storage_unfused_matches_jax(mode):
     _assert_cache_close(gk, ref[1])
     _assert_cache_close(gv, ref[2])
 
+
+
+def _span_only(seed):
+    """The same span-only params in both packages: build_llama_engine's
+    keep_span storage with the rowpair copy dropped."""
+    j = build_llama_engine(CFG, seed=seed, keep_span=True)
+    t = engine_params_from_arrays(_jax_arrays(j), j.rms_eps, device="cpu")
+    lins = ("qkv_proj", "o_proj", "gate_up_proj", "down_proj")
+    j = dataclasses.replace(j, layers=j.layers._replace(**{
+        n: getattr(j.layers, n)._replace(qw_rp=None, cs_fold=None) for n in lins}))
+    t = dataclasses.replace(t, layers=t.layers._replace(**{
+        n: getattr(t.layers, n)._replace(qw_rp=None, cs_fold=None) for n in lins}))
+    return j, t
+
+
+def test_span_storage_fused_matches_jax():
+    """Fused decode on a span-only engine takes K12 (its plain versions on
+    CPU tensors) in the port and JAX's K12 kernels in interpret mode: the
+    prefill, 8 teacher-forced steps and a 5-token verify window give JAX's
+    logits and int8 caches, with K12's three entries once per layer of every
+    fused forward, and greedy generation JAX's 16 tokens."""
+    j, t = _span_only(4)
+    assert t.layers.qkv_proj.qweight is not None and t.layers.qkv_proj.s_hi is not None
+    tl = t.layer_list[0]
+    assert teng._use_fused_rows(teng.EngineConfig(cfg=TCFG), tl, 2, 5)
+    rng = np.random.default_rng(22)
+    prompt = rng.integers(0, CFG.vocab_size, size=(2, 12)).astype(np.int32)
+    steps = rng.integers(0, CFG.vocab_size, size=(2, STEPS)).astype(np.int32)
+    window = rng.integers(0, CFG.vocab_size, size=(2, 5)).astype(np.int32)
+    jcfg = jeng.EngineConfig(cfg=CFG, **JAX_MODES["interpret_fused"])
+    jcache = jeng.init_kv_cache(CFG, 2, SMAX)
+    logits, jcache = jeng.engine_forward(jcfg, j, jnp.asarray(prompt), jcache)
+    ref = [np.asarray(logits)]
+    for i in range(STEPS):
+        logits, jcache = jeng.engine_forward(jcfg, j, jnp.asarray(steps[:, i:i + 1]), jcache)
+        ref.append(np.asarray(logits))
+    logits, jcache = jeng.engine_forward(jcfg, j, jnp.asarray(window), jcache, window="decode")
+    ref.append(np.asarray(logits))
+
+    calls = {name: 0 for name in ("fused_norm_gemv", "fused_requant_gemv", "fused_mlp_decode",
+                                  "fused_norm_gemv_rp")}
+    real = {name: getattr(teng, name) for name in calls}
+
+    def counted(name):
+        def fn(*a, **k):
+            calls[name] += 1
+            return real[name](*a, **k)
+        return fn
+
+    tcfg = teng.EngineConfig(cfg=TCFG)
+    try:
+        for name in calls:
+            setattr(teng, name, counted(name))
+        cache = teng.init_kv_cache(TCFG, 2, SMAX, device="cpu")
+        logits, cache = teng.engine_forward(tcfg, t, torch.from_numpy(prompt), cache)
+        got = [logits.numpy()]
+        for i in range(STEPS):
+            logits, cache = teng.engine_forward(tcfg, t, torch.from_numpy(steps[:, i:i + 1]),
+                                                cache)
+            got.append(logits.numpy())
+        logits, cache = teng.engine_forward(tcfg, t, torch.from_numpy(window), cache,
+                                            window="decode")
+        got.append(logits.numpy())
+    finally:
+        for name, fn in real.items():
+            setattr(teng, name, fn)
+    fused_forwards = STEPS + 1
+    assert calls == {"fused_norm_gemv": CFG.num_hidden_layers * fused_forwards,
+                     "fused_requant_gemv": CFG.num_hidden_layers * fused_forwards,
+                     "fused_mlp_decode": CFG.num_hidden_layers * fused_forwards,
+                     "fused_norm_gemv_rp": 0}
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g, r, rtol=2e-3, atol=2e-3)
+    _assert_cache_close(cache.k.numpy(), np.asarray(jcache.k))
+    _assert_cache_close(cache.v.numpy(), np.asarray(jcache.v))
+
+    gen_prompt = np.random.default_rng(23).integers(0, CFG.vocab_size, (2, 20)).astype(np.int32)
+    want = np.asarray(jeng.generate(jcfg, j, jnp.asarray(gen_prompt), 16, SMAX))
+    np.testing.assert_array_equal(
+        teng.generate(tcfg, t, torch.from_numpy(gen_prompt), 16, SMAX).numpy(), want)
+    assert len(set(want.ravel().tolist())) > 2

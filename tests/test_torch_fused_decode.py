@@ -170,3 +170,189 @@ def test_wrappers_check_shapes(rows):
         tfd.fused_norm_gemv_rp(torch.zeros((65, D)), _t(lnw), None, *tw)
     with pytest.raises(ValueError, match="residual"):
         tfd.fused_requant_gemv_rp(_t(x), torch.tensor(0.1), *tw)
+
+
+# --------------------------------------------------------------------------
+# K12 (span weights) and K13's names, at tests/test_fused_decode.py's shapes
+# --------------------------------------------------------------------------
+
+KD, KN, KF, KB = 512, 768, 1024, 2
+
+
+def _mk_span(k, n, gs, seed):
+    """Span weights of a (k, n) linear: (jax args, port args) = (qweight,
+    s_hi, s_lo, z_hi, z_lo, alpha), the 8x-replicated scales and zeros (port),
+    and the port's rowpair args (qw_rp, planes, cs_fold) of the same codes."""
+    r = np.random.default_rng(seed)
+    codes = r.integers(0, 16, size=(k, n)).astype(np.int8)
+    qw = np.asarray(pack_nibbles(jnp.asarray(codes), span=2 * gs))
+    sc = r.integers(1, 4, size=(k // gs, n)).astype(np.int8)
+    zr = r.integers(0, 16, size=(k // gs, n)).astype(np.int8)
+    al = (r.random(n) * 0.01).astype(np.float32)
+    arrays = (qw, sc[0::2], sc[1::2], zr[0::2], zr[1::2], al)
+    tq = _t(qw)
+    rp = (tfd.pack_rowpair_s4(tq, 2 * gs), *[_t(a) for a in arrays[1:5]],
+          tfd.rowpair_cs_fold(tq, 2 * gs, _t(sc[0::2]), _t(sc[1::2])))
+    repl = (_t(np.repeat(sc, 8, 0)), _t(np.repeat(zr, 8, 0)))
+    return [jnp.asarray(a) for a in arrays], [_t(a) for a in arrays], repl, rp
+
+
+@pytest.fixture(scope="module")
+def span_rows():
+    rng = np.random.default_rng(0)
+    x = (rng.normal(size=(KB, KD)) * 3).astype(np.float32)
+    lnw = (rng.random(KD) + 0.5).astype(np.float32)
+    lnb = (rng.normal(size=(KD,)) * 0.1).astype(np.float32)
+    beta = rng.normal(size=(KN,)).astype(np.float32)
+    resid = rng.normal(size=(KB, KN)).astype(np.float32)
+    return x, lnw, lnb, beta, resid
+
+
+def _close_to_largest(got, ref):
+    """Within 1e-6 of the largest |output| (JAX's interpret mode may fuse the
+    epilogue's multiply and add)."""
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-6 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("gs", [64, 128])
+def test_k12_norm_requant_plain_match_jax_kernel(span_rows, gs):
+    """K12's first two plain versions against JAX's kernels in interpret
+    mode: the int32 accumulators (alpha 1, no beta) equal, the outputs
+    within 1e-6 of the largest; and the accumulators equal K4/K5's plain
+    versions on pack_rowpair_s4 of the same weights."""
+    x, lnw, lnb, beta, resid = span_rows
+    jw, tw, _, rp = _mk_span(KD, KN, gs, 11 + gs)
+    one_j, one_t = jnp.ones((KN,), jnp.float32), torch.ones(KN)
+    span, eps, scale = 2 * gs, 1e-6, np.float32(0.07)
+    acc_j = np.asarray(jfd.fused_norm_gemv(jnp.asarray(x), jnp.asarray(lnw), jnp.asarray(lnb),
+                                           *jw[:5], one_j, span=span, bn=256, eps=eps,
+                                           interpret=True))
+    acc_t = tfd.fused_norm_gemv(_t(x), _t(lnw), _t(lnb), *tw[:5], one_t, span=span, eps=eps)
+    np.testing.assert_array_equal(acc_t.numpy(), acc_j)
+    assert np.abs(acc_j).max() > 100 and np.all(acc_j == np.round(acc_j))
+    rp_acc = tfd.fused_norm_gemv_rp(_t(x), _t(lnw), _t(lnb), *rp, one_t, span=span, eps=eps)
+    assert torch.equal(acc_t, rp_acc)
+    y_j = np.asarray(jfd.fused_norm_gemv(jnp.asarray(x), jnp.asarray(lnw), jnp.asarray(lnb),
+                                         *jw, jnp.asarray(beta), span=span, bn=256, eps=eps,
+                                         interpret=True))
+    _close_to_largest(tfd.fused_norm_gemv(_t(x), _t(lnw), _t(lnb), *tw, _t(beta), span=span,
+                                          eps=eps).numpy(), y_j)
+
+    acc_j = np.asarray(jfd.fused_requant_gemv(jnp.asarray(x), jnp.asarray(scale), *jw[:5], one_j,
+                                              span=span, bn=256, fuse_residual=False,
+                                              interpret=True))
+    acc_t = tfd.fused_requant_gemv(_t(x), torch.tensor(scale), *tw[:5], one_t, span=span,
+                                   fuse_residual=False)
+    np.testing.assert_array_equal(acc_t.numpy(), acc_j)
+    rp_acc = tfd.fused_requant_gemv_rp(_t(x), torch.tensor(scale), *rp, one_t, span=span,
+                                       fuse_residual=False)
+    assert torch.equal(acc_t, rp_acc)
+    for fuse in (True, False):
+        y_j = np.asarray(jfd.fused_requant_gemv(
+            jnp.asarray(x), jnp.asarray(scale), *jw, jnp.asarray(beta),
+            jnp.asarray(resid) if fuse else None, span=span, bn=256, qmin=-127.0,
+            fuse_residual=fuse, interpret=True))
+        y_t = tfd.fused_requant_gemv(_t(x), torch.tensor(scale), *tw, _t(beta),
+                                     _t(resid) if fuse else None, span=span, qmin=-127.0,
+                                     fuse_residual=fuse)
+        _close_to_largest(y_t.numpy(), y_j)
+
+
+@pytest.mark.parametrize("gs", [64, 128])
+def test_k12_mlp_plain_matches_jax_kernel(span_rows, gs):
+    """K12's MLP plain version against JAX's kernel in interpret mode (down
+    accumulators equal with alpha 1; outputs within 1e-6 of the largest, the
+    residual on and off), and its accumulators against K6's plain version on
+    pack_rowpair_s4 of the same weights; its down-input codes span the int8
+    range."""
+    x, lnw, lnb, _, _ = span_rows
+    jg, tg, _, rpg = _mk_span(KD, 2 * KF, gs, 21 + gs)
+    jd, td, trep, rpd = _mk_span(KF, KD, gs, 31 + gs)
+    span, eps, hscale = 2 * gs, 1e-6, np.float32(0.05)
+    jrep = [jnp.asarray(a.numpy()) for a in trep]
+    one = np.ones((KD,), np.float32)
+
+    def jax_mlp(alpha, fuse):
+        return np.asarray(jfd.fused_mlp_decode(
+            jnp.asarray(x), jnp.asarray(lnw), jnp.asarray(lnb), *jg, jnp.asarray(hscale), jd[0],
+            *jrep, jnp.asarray(alpha), None, span=span, bf=512, eps=eps, fuse_residual=fuse,
+            interpret=True))
+
+    def port_mlp(alpha, fuse, codes_out=None):
+        return tfd.fused_mlp_decode(_t(x), _t(lnw), _t(lnb), *tg, torch.tensor(hscale), td[0],
+                                    *trep, _t(alpha), None, span=span, bf=512, eps=eps,
+                                    fuse_residual=fuse, codes_out=codes_out)
+
+    h = torch.empty((KB, KF), dtype=torch.int8)
+    acc_t = port_mlp(one, False, (torch.empty((KB, KD), dtype=torch.int8), h))
+    np.testing.assert_array_equal(acc_t.numpy(), jax_mlp(one, False))
+    assert len(np.unique(h.numpy())) > 100
+    rp_acc = tfd.fused_mlp_decode_rp(_t(x), _t(lnw), _t(lnb), *rpg, tg[5],
+                                     torch.tensor(hscale), rpd[0], *trep, rpd[5], torch.ones(KD),
+                                     span=span, bf=512, eps=eps, fuse_residual=False)
+    assert torch.equal(acc_t, rp_acc)
+    for fuse in (True, False):
+        _close_to_largest(port_mlp(jd[5], fuse).numpy(), jax_mlp(np.asarray(jd[5]), fuse))
+
+
+def test_k12_plain_versions_take_forced_codes(span_rows):
+    """``codes`` replaces a K12 plain version's own codes, as K4-K6's."""
+    x, lnw, lnb, beta, resid = span_rows
+    gs = 128
+    _, tw, _, _ = _mk_span(KD, KN, gs, 41)
+    codes = torch.from_numpy(np.random.default_rng(7).integers(-128, 128, (KB, KD)).astype(
+        np.int8))
+    want = tfd._epilogue(tfd._span_product(codes, *tw[:5], gs), tw[5], _t(beta), None)
+    got = tfd.fused_norm_gemv_xla(_t(x), _t(lnw), _t(lnb), *tw, _t(beta), codes=codes)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    got = tfd.fused_requant_gemv_xla(_t(x), torch.tensor(0.1), *tw, _t(beta), _t(resid),
+                                     codes=codes)
+    torch.testing.assert_close(got, want + _t(resid), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("span", [128, 256])
+def test_k13_names_and_plane_colsums_match_jax(span_rows, span):
+    """plane_colsums equals JAX's; the K13 names equal K12 (they run it) and
+    JAX's K13 kernels in interpret mode, with the colsums passed or not;
+    wrong colsum shapes are refused."""
+    x, lnw, lnb, beta, resid = span_rows
+    gs = span // 2
+    jw, tw, _, _ = _mk_span(KD, KN, gs, 51 + gs)
+    csh_j, csl_j = jfd.plane_colsums(jw[0], span)
+    csh, csl = tfd.plane_colsums(tw[0], span)
+    assert csh.dtype == torch.int32 and csh.shape == (KD // span, KN)
+    np.testing.assert_array_equal(csh.numpy(), np.asarray(csh_j))
+    np.testing.assert_array_equal(csl.numpy(), np.asarray(csl_j))
+    scale = np.float32(0.07)
+    for cs in ((csh, csl), (None, None)):
+        got = tfd.fused_norm_gemv_s4(_t(x), _t(lnw), _t(lnb), *tw, _t(beta), *cs, span=span)
+        assert torch.equal(got, tfd.fused_norm_gemv(_t(x), _t(lnw), _t(lnb), *tw, _t(beta),
+                                                    span=span))
+        want = np.asarray(jfd.fused_norm_gemv_s4(
+            jnp.asarray(x), jnp.asarray(lnw), jnp.asarray(lnb), *jw, jnp.asarray(beta), csh_j,
+            csl_j, span=span, bn=256, interpret=True))
+        _close_to_largest(got.numpy(), want)
+        got = tfd.fused_requant_gemv_s4(_t(x), torch.tensor(scale), *tw, _t(beta), _t(resid),
+                                        *cs, span=span)
+        assert torch.equal(got, tfd.fused_requant_gemv(_t(x), torch.tensor(scale), *tw,
+                                                       _t(beta), _t(resid), span=span))
+        want = np.asarray(jfd.fused_requant_gemv_s4(
+            jnp.asarray(x), jnp.asarray(scale), *jw, jnp.asarray(beta), jnp.asarray(resid),
+            csh_j, csl_j, span=span, bn=256, interpret=True))
+        _close_to_largest(got.numpy(), want)
+    with pytest.raises(ValueError, match="csum_hi"):
+        tfd.fused_norm_gemv_s4(_t(x), _t(lnw), None, *tw, None, csh[:-1], csl, span=span)
+
+
+def test_k12_wrappers_check_shapes(span_rows):
+    x, lnw, _, _, _ = span_rows
+    _, tw, _, _ = _mk_span(KD, KN, 128, 61)
+    with pytest.raises(ValueError, match="plane rows"):
+        tfd.fused_norm_gemv(_t(x), _t(lnw), None, tw[0], tw[1][:-1], *tw[2:])
+    with pytest.raises(ValueError, match="1 to 64 rows"):
+        tfd.fused_norm_gemv(torch.zeros((65, KD)), _t(lnw), None, *tw)
+    with pytest.raises(ValueError, match="residual"):
+        tfd.fused_requant_gemv(_t(x), torch.tensor(0.1), *tw)
+    with pytest.raises(ValueError, match="shapes"):  # K not a multiple of the span
+        tfd.fused_norm_gemv(torch.zeros((1, 384)), torch.ones(384), None,
+                            torch.zeros((192, KN), dtype=torch.int8), *tw[1:], span=256)

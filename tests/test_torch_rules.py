@@ -1,9 +1,10 @@
 """Rules of the dgq_tpu_torch package that hold without a GPU.
 
 It imports neither JAX nor dgq_tpu; its kernel wrappers take their plain
-versions on CPU tensors without counting a launch (K1-K11, and K14's names);
-configurations that need a kernel not yet ported raise NotImplementedError,
-and a KV precision other than 8 or 4 bits raises ValueError."""
+versions on CPU tensors without counting a launch (K1-K12, and K13's and
+K14's names); fused decode on span-only storage takes K12; configurations
+that need a module not yet ported raise NotImplementedError, and a KV
+precision other than 8 or 4 bits raises ValueError."""
 
 import pathlib
 import re
@@ -151,19 +152,59 @@ def test_span_wrappers_take_plain_versions_on_cpu_without_launches():
     assert not {"w4a8_matmul_wres", "w4a8_matmul_pipe"} & set(_cuda.LAUNCHES)  # count as K9
 
 
+def test_k12_wrappers_take_plain_versions_on_cpu_without_launches():
+    """K12 and K13's names on CPU tensors: the plain versions, no launch; the
+    three K12 entries share one CUDA source, and K13's names count as K12."""
+    _cuda.reset_launches()
+    layer = build_llama_engine(tiny_llama_config(hidden_size=256, intermediate_size=512),
+                               seed=0, device="cpu", keep_span=True).layer_list[0]
+    xf = torch.from_numpy(np.random.default_rng(2).normal(size=(3, 256)).astype(np.float32))
+    qp, op, gu, dn = layer.qkv_proj, layer.o_proj, layer.gate_up_proj, layer.down_proj
+
+    def planes(lin):
+        return lin.qweight, lin.s_hi, lin.s_lo, lin.z_hi, lin.z_lo
+
+    y = tfd.fused_norm_gemv(xf, layer.ln1_weight, None, *planes(qp), qp.alpha)
+    assert torch.equal(y, tfd.fused_norm_gemv_xla(xf, layer.ln1_weight, None, *planes(qp),
+                                                  qp.alpha))
+    assert torch.equal(y, tfd.fused_norm_gemv_rp(xf, layer.ln1_weight, None, qp.qw_rp,
+                                                 *planes(qp)[1:], qp.cs_fold, qp.alpha))
+    assert torch.equal(y, tfd.fused_norm_gemv_s4(xf, layer.ln1_weight, None, *planes(qp),
+                                                 qp.alpha))
+    y = tfd.fused_requant_gemv(xf, layer.out_input_scale, *planes(op), op.alpha, residual=xf)
+    assert torch.equal(y, tfd.fused_requant_gemv_xla(xf, layer.out_input_scale, *planes(op),
+                                                     op.alpha, residual=xf))
+    assert torch.equal(y, tfd.fused_requant_gemv_s4(xf, layer.out_input_scale, *planes(op),
+                                                    op.alpha, residual=xf))
+    args = (xf, layer.ln2_weight, None, *planes(gu), gu.alpha, layer.down_input_scale,
+            dn.qweight, dn.wscales, dn.wzeros, dn.alpha)
+    assert torch.equal(tfd.fused_mlp_decode(*args), tfd.fused_mlp_decode_xla(*args))
+    assert _cuda.LAUNCHES == {name: 0 for name in _cuda.SOURCES}
+    assert len({_cuda.SOURCES[n] for n in ("fused_norm_gemv", "fused_requant_gemv",
+                                            "fused_mlp_decode")}) == 1
+    assert not {"fused_norm_gemv_s4", "fused_requant_gemv_s4"} & set(_cuda.LAUNCHES)
+
+
 def test_unported_configurations_raise():
     cfg = tiny_llama_config(hidden_size=256, intermediate_size=512)
     assert teng.EngineConfig(cfg=cfg).fused_decode  # the JAX default
-    # a fused decode step on span-only storage needs K12
-    eng = build_llama_engine(cfg, seed=0, device="cpu")
-    span_only = eng.layers._replace(qkv_proj=eng.layers.qkv_proj._replace(
-        qweight=eng.layers.qkv_proj.qw_rp, qw_rp=None))
-    eng = teng.EngineParams(eng.embed_tokens, span_only, eng.norm_weight, eng.lm_head,
-                            eng.rms_eps)
-    cache = teng.init_kv_cache(cfg, 1, 64, device="cpu")
-    with pytest.raises(NotImplementedError, match="K12 fused_norm_gemv"):
-        teng.engine_forward(teng.EngineConfig(cfg=cfg), eng, torch.zeros((1, 1), dtype=torch.int32),
-                            cache)
+    # a fused decode step on span-only storage takes K12 (its plain versions
+    # here) and gives the logits of the rowpair copy's K4-K6
+    both = build_llama_engine(cfg, seed=0, device="cpu", keep_span=True)
+    lins = ("qkv_proj", "o_proj", "gate_up_proj", "down_proj")
+    span_only = both.layers._replace(**{n: getattr(both.layers, n)._replace(
+        qw_rp=None, cs_fold=None) for n in lins})
+    eng = teng.EngineParams(both.embed_tokens, span_only, both.norm_weight, both.lm_head,
+                            both.rms_eps)
+    prompt = torch.arange(1, 9, dtype=torch.int32)[None]
+    out = []
+    for params in (eng, both):
+        cache = teng.init_kv_cache(cfg, 1, 64, device="cpu")
+        _, cache = teng.engine_forward(teng.EngineConfig(cfg=cfg), params, prompt, cache)
+        out.append(teng.engine_forward(teng.EngineConfig(cfg=cfg), params,
+                                       torch.zeros((1, 1), dtype=torch.int32), cache)[0])
+    assert torch.equal(out[0], out[1])
+    eng = both
     # the KV precision is 8 or 4 bits
     with pytest.raises(ValueError, match="kv_bits must be 8 or 4"):
         teng.EngineConfig(cfg=cfg, kv_bits=3)

@@ -1,7 +1,8 @@
 """The dgq_tpu_torch serving daemon on the CPU: its CLI against dgq_tpu's,
 a live socket over a checkpoint that dgq_tpu's save_engine wrote (the paged
-batcher; the dense and INT4 daemons in tests/test_torch_serve_batchers.py),
-and the exits of the options not ported yet."""
+batcher; the dense, speculative and INT4 daemons in
+tests/test_torch_serve_batchers.py), and the exits of the options not ported
+yet."""
 
 import json
 import socket
@@ -165,7 +166,7 @@ def test_prefix_flag_registers_prefix(ckpt, tmp_path):
     (["--paged"], None),  # ported: no exit
     ([], None),  # the dense batcher
     (["--paged", "--kv-bits", "4"], None),  # INT4 KV
-    (["--spec-k", "2"], "Queue 1 item 3"),  # speculative decoding
+    (["--spec-k", "2"], None),  # speculative decoding in the dense batcher
     (["--paged", "--spec-k", "2"], None),  # ignored with --paged, as JAX's
     (["--paged", "--tp", "2"], "Queue 1 item 7"),
     (["--pp", "2"], "Queue 1 item 7"),
@@ -180,6 +181,8 @@ def test_unported_options_exit_with_roadmap_item(ckpt, extra, item):
             assert type(srv.batcher).__name__ == (
                 "PagedBatcher" if args.paged else "ContinuousBatcher")
             assert srv.batcher.ecfg.kv_bits == args.kv_bits
+            if not args.paged:
+                assert srv.batcher.spec_k == args.spec_k
         return
     with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
         tserve.build_server(args)

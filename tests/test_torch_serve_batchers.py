@@ -1,8 +1,9 @@
 """The dgq_tpu_torch serving daemon over its other batchers on the CPU: the
-dense ContinuousBatcher (``serve`` without ``--paged``) and the paged batcher
-on INT4 nibble pages (``--paged --kv-bits 4``), each over a live localhost
-socket on a checkpoint that dgq_tpu's save_engine wrote, against JAX's
-batcher on the same checkpoint."""
+dense ContinuousBatcher (``serve`` without ``--paged``), with speculative
+decoding (``--spec-k 2``), and the paged batcher on INT4 nibble pages
+(``--paged --kv-bits 4``), each over a live localhost socket on a checkpoint
+that dgq_tpu's save_engine wrote, against JAX's batcher on the same
+checkpoint."""
 
 import json
 import socket
@@ -65,7 +66,7 @@ def _round_trip(srv, prompts, max_new):
         return finals, streamed, json.loads(f.readline())
 
 
-@pytest.mark.parametrize("mode", ["dense", "paged_kv4"])
+@pytest.mark.parametrize("mode", ["dense", "dense_spec", "paged_kv4"])
 def test_server_round_trip_matches_jax(ckpt, mode):
     """Served tokens equal JAX's batcher of the same kind on the same
     checkpoint: the dense ContinuousBatcher (batched admission, chunked
@@ -77,6 +78,11 @@ def test_server_round_trip_matches_jax(ckpt, mode):
         flags = ["--prefill-pad", "8", "--prefill-chunk", "16", "--admit-batch", "2"]
         ref = JBatcher(jeng.EngineConfig(cfg=CFG, use_kernel=False), jparams, num_slots=2,
                        max_len=64, prefill_pad=8, prefill_chunk=16, admit_batch=2)
+    elif mode == "dense_spec":
+        flags = ["--prefill-pad", "8", "--spec-k", "2"]
+        ref = JBatcher(jeng.EngineConfig(cfg=CFG, use_kernel=False), jparams, num_slots=2,
+                       max_len=64, prefill_pad=8, spec_k=2)
+        prompts = [np.asarray([3, 5, 3, 5, 3, 5, 3], np.int32)] + prompts[1:]
     else:
         flags = ["--paged", "--kv-bits", "4", "--page-size", "16"]
         ref = JPagedBatcher(jeng.EngineConfig(cfg=CFG, use_kernel=False, kv_bits=4), jparams,
@@ -95,6 +101,10 @@ def test_server_round_trip_matches_jax(ckpt, mode):
     assert metrics["tokens_generated"] == 6 * len(prompts)
     if mode == "dense":
         assert type(batcher).__name__ == "ContinuousBatcher" and batcher.admit_batch == 2
+    elif mode == "dense_spec":
+        # requests reach the daemon's loop over time, so its speculative
+        # steps may fall otherwise than the direct run's; its tokens may not
+        assert batcher.spec_k == 2 and metrics["spec_steps"] > 0
     else:
         assert metrics["kv_bits"] == 4 and metrics["pages_in_use"] == 0
         assert metrics["kv_bytes_per_token"] == (
