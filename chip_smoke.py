@@ -5,7 +5,7 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It imports no JAX.  Phases, each printing one JSON line with its seconds:
 
 1. device: the card's name and power limit (nvidia-smi); TF32 off.
-2. build: the nine CUDA sources, one nvcc each, started together.
+2. build: the thirteen CUDA sources, one nvcc each, started together.
 3. kernels: K1 ``w4a8_matmul_rp_pipe``, K2 ``int8_prefill_attention``, K3
    ``int8_decode_attention``, the fused decode kernels K4
    ``fused_norm_gemv_rp``, K5 ``fused_requant_gemv_rp`` and K6
@@ -112,6 +112,27 @@ It imports no JAX.  Phases, each printing one JSON line with its seconds:
 15. checkpoint: ``save_engine`` then ``load_engine`` at full width and 2
    layers, for the LLaMA and the OPT engine: bit-equal tensors and equal
    greedy tokens.
+16. probes (run right after kernels): the tools' path.  Each probe's main (``dgq_tpu_torch/scripts``:
+   P1 ``roofline_probe``, P2 ``probe_gemv_engines``, P3
+   ``probe_native_s4``, P4 ``probe_s4_bitcast_numerics``, P5
+   ``probe_quant_pv_parts``) at a cut depth (PROBE_ARGS), with launches
+   counted over those calls (every probe kernel at least once), P4's
+   numerics matching the [low | high] halves and P3 reading element 0 from
+   the low nibble; their printout goes to ``chiprun_out/probes.txt``.  Then
+   each probe kernel against its plain version at the probe's shapes and
+   timed as K1-K12 are: P1 ``s8_matmul`` (M 2048, N = K = 4096, both
+   tilings), P2 ``mxu_gemv``, ``vpu_gemv``, ``mix_gemv`` (8 rows, K 4096, N
+   12288), P3 ``pallas_s4``, ``pallas_s4_bitcast`` (16 rows of int4 codes;
+   P4's ``kern`` at K 256 and one 256-column block) with int32 results (P1:
+   the f32 of int32) equal; P5 ``attn`` in its six modes at 32 heads and a
+   cache of 2048 (MHA, full length; GQA 4:1 at 1707 positions) within
+   PV_TOL of the largest output.  Beside the profiler's kernel time each
+   case records ``events_ms``, the same time from CUDA events alone
+   (``Timer.events``).
+17. bench: ``python -m dgq_tpu_torch.bench`` (BENCH_ARGS) in a subprocess:
+   exactly one line on stdout, a numeric value, no ``degraded``, the card's
+   name, K9 and K1 launched by its GEMM round; its launches summed over its
+   stages are the bench path's.
 
 Then the line ``{"kernels": [...]}``, the card's nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero without that
@@ -201,6 +222,28 @@ class Timer:
             times.append(start.elapsed_time(end))
         times.sort()
         return times[len(times) // 2]
+
+    def events(self, fn, iters: int = 50) -> float:
+        """Device time of ``fn`` from CUDA events alone: ``iters`` calls,
+        each after an L2 flush, less the same flushes without the calls.
+        The flushes keep the card busier than the host's launches, so host
+        gaps stay out of the difference."""
+        torch = self.torch
+        fn()
+
+        def run(call):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(iters):
+                self.flush.zero_()
+                if call:
+                    fn()
+            end.record()
+            end.synchronize()
+            return start.elapsed_time(end)
+
+        return (run(True) - run(False)) / iters
 
     def kernel(self, fn, names, iters: int = 20, attempts: int = 3) -> float:
         """A trace that records no device activity at all (seen once on the
@@ -301,16 +344,21 @@ def _k1_cases(torch, timer, gen):
 
 def _int_mm_ms(torch, timer, x, w8) -> float:
     """Time of torch._int_mm of x against pre-dequantised int8 weights, the
-    library yardstick of K1 and K4-K6; x is padded to 32 rows, since
-    _int_mm takes more than 16."""
+    library yardstick of K1, K4-K6, K9, K12 and the probes P1-P3; x is padded
+    to 32 rows, since _int_mm takes more than 16.  The faster of the second
+    operand as it is (row-major) and column-major, the layout cuBLASLt's
+    int8 kernels take (a build may refuse the row-major one)."""
     m, k = x.shape
     if m < 32:
         x = torch.cat([x, torch.zeros((32 - m, k), dtype=x.dtype, device=x.device)])
-    try:
-        torch._int_mm(x, w8)
-    except RuntimeError:  # this build wants the second operand column-major
-        w8 = w8.t().contiguous().t()
-    return timer(lambda: torch._int_mm(x, w8))
+    times = []
+    for w in (w8, w8.t().contiguous().t()):
+        try:
+            torch._int_mm(x, w)
+        except RuntimeError:
+            continue
+        times.append(timer(lambda w=w: torch._int_mm(x, w)))
+    return min(times)
 
 
 def _attn_inputs(torch, gen, b, h, hk, s, dh, smax):
@@ -2323,6 +2371,219 @@ def _opt_round_trip(torch):
     return {"tensors": len(a), "file_mib": size_mb, "save_s": save_s, "load_s": load_s}
 
 
+PROBE_MODULES = ("roofline_probe", "probe_gemv_engines", "probe_native_s4",
+                 "probe_s4_bitcast_numerics", "probe_quant_pv_parts")
+# each probe's main at a cut depth: one round of its candidates, short chains
+PROBE_ARGS = {"roofline_probe": ["--pairs", "1", "--iters", "24"],
+              "probe_gemv_engines": ["--reps", "1", "--iters", "24"],
+              "probe_native_s4": ["--reps", "1", "--iters", "24"],
+              "probe_s4_bitcast_numerics": ["--reps", "2", "--iters", "24"],
+              "probe_quant_pv_parts": ["--cycles", "1", "--iters", "24"]}
+PROBE_KERNELS = ("s8_matmul", "mxu_gemv", "vpu_gemv", "mix_gemv", "pallas_s4",
+                 "pallas_s4_bitcast", "quant_pv_parts_attn")
+PV_TOL = 1e-5  # of the largest |output|: P5's f32 sums (denom, p @ V) in another order
+
+
+def _probe_gemm_cases(torch, timer, gen):
+    """P1 at its shape and both tilings; P2's three engines and P3's two
+    column maps at theirs (P4's numerics shape too): int32 results (P1's
+    f32 of int32) equal to the plain versions'."""
+    from dgq_tpu_torch.scripts import probe_gemv_engines as p2
+    from dgq_tpu_torch.scripts import probe_native_s4 as p3
+    from dgq_tpu_torch.scripts import probe_s4_bitcast_numerics as p4
+    from dgq_tpu_torch.scripts import roofline_probe as p1
+
+    def ri(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device=DEV, dtype=torch.int8)
+
+    def check_equal(what, got, want):
+        for a, b in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{what}: {(a != b).sum().item()} outputs differ")
+
+    def case(name, names, kern, plain, nbytes, ops, library, **info):
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        check_equal(f"{name} {info}", got, want)
+        b_ms, b_by = bound_ms(nbytes, ops / INT8_OPS_PER_S)
+        return {**info, "max_abs_err": 0.0, "ms": timer.kernel(kern, names),
+                "events_ms": timer.events(kern), "call_ms": timer(kern),
+                "plain_ms": timer(plain, iters=5),
+                "library_ms": library(), "bound_ms": b_ms, "bound_by": b_by}
+
+    cases = {}
+    m, n, k = p1.M, p1.N, p1.K
+    x, w = ri(-127, 128, (m, k)), ri(-127, 128, (k, n))
+    lib_ms = _int_mm_ms(torch, timer, x, w)
+    cases["s8_matmul"] = [
+        case("P1", ["s8_gemm_kernel"], lambda t=t: p1.s8_matmul(x, w, bm=t[0], bn=t[1]),
+             lambda: p1.s8_matmul_plain(x, w), m * k + k * n + 4 * m * n, 2.0 * m * n * k,
+             lambda: lib_ms, M=m, N=n, K=k, tile=list(t), library_rows=m)
+        for t in p1.TILINGS]
+    del x, w
+    k, n, b = p2.K, p2.N, p2.B
+    x, w = ri(-127, 127, (b, k)), ri(-127, 127, (k, n))
+    lib_ms = _int_mm_ms(torch, timer, x, w)
+    nm = p2.mix_split(n, 0.5)
+    cases["mxu_gemv"] = [case("P2 mxu", ["mxu_gemv_kernel"], lambda: p2.mxu_gemv(x, w),
+                              lambda: p2.mxu_gemv_plain(x, w), b * k + k * n + 4 * b * n,
+                              2.0 * b * n * k, lambda: lib_ms, M=b, N=n, K=k, library_rows=32)]
+    cases["vpu_gemv"] = [case("P2 vpu", ["vpu_gemv_kernel"], lambda: p2.vpu_gemv(x, w),
+                              lambda: p2.vpu_gemv_plain(x, w), k + k * n + 4 * n,
+                              2.0 * n * k, lambda: _int_mm_ms(torch, timer, x[:1], w),
+                              M=1, N=n, K=k, library_rows=32)]
+    cases["mix_gemv"] = [case("P2 mix", ["mix_gemv_kernel"], lambda: p2.mix_gemv(x, w),
+                              lambda: p2.mix_gemv_plain(x, w),
+                              b * k + k * n + 4 * b * nm + 4 * (n - nm),
+                              2.0 * k * (b * nm + n - nm), lambda: lib_ms, M=b, N=n, K=k,
+                              nm=nm, library_rows=32)]
+    del x, w
+    k, n, b = p3.K, p3.N, 2 * p3.B
+    x, wb = ri(-8, 8, (b, k)), ri(-128, 128, (k, n // 2))
+    lib_ms = _int_mm_ms(torch, timer, x, p3.unpack_s4_pairs(wb))
+    common = dict(nbytes=b * k + k * n // 2 + 4 * b * n, ops=2.0 * b * n * k)
+    cases["pallas_s4"] = [case("P3 pairs", ["s4_gemv_kernel"], lambda: p3.pallas_s4(x, wb),
+                               lambda: p3.pallas_s4_plain(x, wb), library=lambda: lib_ms,
+                               M=b, N=n, K=k, library_rows=32, **common)]
+    cases["pallas_s4_bitcast"] = [case(
+        "P3 bitcast", ["s4_gemv_kernel"], lambda: p3.pallas_s4_bitcast(x, wb),
+        lambda: p3.pallas_s4_bitcast_plain(x, wb), library=lambda: lib_ms, M=b, N=n, K=k,
+        bn=p3.BN, library_rows=32, **common)]
+    del x, wb
+    k, n2 = p4.NUM_K, p4.NUM_N2
+    x, wb = ri(-8, 8, (8, k)), ri(-128, 128, (k, n2))
+    cases["pallas_s4_bitcast"].append(case(
+        "P4 kern", ["s4_gemv_kernel"], lambda: p4.kern(x, wb),
+        lambda: p3.pallas_s4_bitcast_plain(x, wb, 2 * n2), 8 * k + k * n2 + 4 * 8 * 2 * n2,
+        2.0 * 8 * 2 * n2 * k, lambda: _int_mm_ms(torch, timer, x, p3.unpack_s4_halves(wb, 2 * n2)),
+        M=8, N=2 * n2, K=k, bn=2 * n2, routed="kern", library_rows=32))
+    return cases
+
+
+def _probe_pv_cases(torch, timer, gen):
+    """P5's six modes at its shape (MHA, full cache), and at GQA with
+    shorter lengths: within PV_TOL of the largest output of the plain
+    version; s32dot's equality (float of the int32 sums) reported."""
+    from dgq_tpu_torch.scripts import probe_quant_pv_parts as p5
+
+    cases = []
+    b, h, dh, smax = p5.B, p5.H, p5.DH, p5.SMAX
+    for hk, length in ((p5.HK, smax), (8, smax - smax // 6)):
+        q, kt, v, _ = _attn_inputs(torch, gen, b, h, hk, 1, dh, smax)
+        q = q[:, :, 0].contiguous()
+        lengths = torch.full((b,), length, dtype=torch.int32, device=DEV)
+        qb = (q[:, :, None].float() * p5.QK_SCALE).to(torch.bfloat16)
+        kb = kt[..., :length].transpose(2, 3).to(torch.bfloat16).contiguous()
+        vb = (v[:, :, :length].float() * p5.V_SCALE).to(torch.bfloat16).contiguous()
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        lib_ms = timer(lambda: sdpa(qb, kb, vb, scale=1.0, enable_gqa=hk != h))
+        for mode in p5.MODES:
+            def kern(mode=mode):
+                return p5.attn(q, kt, v, lengths, mode)
+
+            def plain(mode=mode):
+                return p5.attn_plain(q, kt, v, lengths, mode)
+
+            out_k, out_p = kern(), plain()
+            err = (out_k - out_p).abs().max().item()
+            top = out_p.abs().max().item()
+            if not err <= PV_TOL * top:
+                raise AssertionError(f"P5 {mode} Hkv={hk}: max abs err {err} > {PV_TOL} * {top}")
+            b_ms, b_by = _decode_bound(b, h, hk, dh, b * length, mode not in ("fp", "nodeq"))
+            cases.append({"mode": mode, "B": b, "H": h, "Hkv": hk, "Smax": smax,
+                          "length": length, "max_abs_err": err, "largest_output": top,
+                          "equal": bool(torch.equal(out_k, out_p)),
+                          "ms": timer.kernel(kern, ["pv_parts_kernel"]),
+                          "events_ms": timer.events(kern), "call_ms": timer(kern),
+                          "plain_ms": timer(plain, iters=10), "bound_ms": b_ms,
+                          "bound_by": b_by, "library_ms": lib_ms if mode == "fp" else None})
+        del q, kt, v
+    return cases
+
+
+def _drive_probes(torch):
+    """The tools' main path: each probe's main, at PROBE_ARGS' depth, with
+    its printout kept for chiprun_out/probes.txt."""
+    import contextlib
+    import importlib
+    import io
+
+    results, buf = {}, io.StringIO()
+    for name in PROBE_MODULES:
+        mod = importlib.import_module(f"dgq_tpu_torch.scripts.{name}")
+        buf.write(f"== python -m dgq_tpu_torch.scripts.{name} {' '.join(PROBE_ARGS[name])}\n")
+        with contextlib.redirect_stdout(buf):
+            results[name] = mod.main(PROBE_ARGS[name])
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "probes.txt").write_text(buf.getvalue())
+    return results
+
+
+def phase_probes(torch, state):
+    from dgq_tpu_torch.ops import _cuda
+
+    _cuda.reset_launches()
+    results = _drive_probes(torch)
+    torch.cuda.synchronize()
+    state["launches_probes"] = dict(_cuda.LAUNCHES)
+    missing = [n for n in PROBE_KERNELS if not state["launches_probes"][n]]
+    if missing:
+        raise AssertionError(f"the probes' mains launched no {missing}")
+    num = results["probe_s4_bitcast_numerics"]
+    if not (num["halves"] and not num["interleaved"]):
+        raise AssertionError(f"P4 numerics: the bitcast map matched {num}, not the halves")
+    if results["probe_native_s4"]["order"] != "elem0=LO nibble":
+        raise AssertionError(f"P3 pairs: {results['probe_native_s4']['order']}")
+    timer = Timer(torch)
+    gen = torch.Generator(device=DEV).manual_seed(7)
+    state["probes"] = _probe_gemm_cases(torch, timer, gen)
+    state["probes"]["quant_pv_parts_attn"] = _probe_pv_cases(torch, timer, gen)
+    del timer
+    torch.cuda.empty_cache()
+    return {"launches": {n: state["launches_probes"][n] for n in PROBE_KERNELS},
+            "mains": results, "cases": state["probes"]}
+
+
+BENCH_ARGS = ["--deadline", "480", "--rounds", "1"]
+
+
+def phase_bench(torch, state):
+    """``python -m dgq_tpu_torch.bench`` in a subprocess: exactly one line on
+    stdout, parseable, with a numeric value, no ``degraded``, the card's name,
+    and K9 and K1 launched by the GEMM round.  Its launches, summed over its
+    stages, are the bench path's."""
+    from dgq_tpu_torch.ops import _cuda
+
+    torch.cuda.empty_cache()  # the bench's stages allocate in processes of their own
+    cmd = [sys.executable, "-m", "dgq_tpu_torch.bench", *BENCH_ARGS]
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=float(BENCH_ARGS[1]) + 120)
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "bench.txt").write_text(f"$ {' '.join(cmd[1:])}\n{proc.stdout}\n{proc.stderr}")
+    lines = proc.stdout.splitlines()
+    if proc.returncode != 0 or len(lines) != 1:
+        raise AssertionError(f"bench: rc {proc.returncode}, {len(lines)} stdout lines; stderr "
+                             f"{proc.stderr[-1500:]}")
+    res = json.loads(lines[0])
+    extra = res.get("extra", {})
+    if not isinstance(res.get("value"), (int, float)) or res.get("degraded"):
+        raise AssertionError(f"bench: value {res.get('value')!r}, errors {extra.get('errors')}")
+    if extra.get("device") != state["kind"]:
+        raise AssertionError(f"bench: device {extra.get('device')!r}, the card is "
+                             f"{state['kind']!r}")
+    rnd = extra.get("launches", {}).get("round", {})
+    if not (rnd.get("w4a8_matmul_packed") and rnd.get("w4a8_matmul_rp_pipe")):
+        raise AssertionError(f"bench: the GEMM round launched {rnd}, not K9 and K1")
+    state["launches_bench"] = {name: 0 for name in _cuda.SOURCES}
+    for part in extra["launches"].values():
+        for name, n in part.items():
+            state["launches_bench"][name] += n
+    return {"line": res}
+
+
 SOURCES_OF = {
     "w4a8_matmul_rp_pipe": ("dgq_tpu_torch/csrc/w4a8_rp_gemm.cu",
                             "dgq_tpu/ops/quant_matmul.py:639"),
@@ -2352,6 +2613,14 @@ SOURCES_OF = {
                            "dgq_tpu/ops/fused_decode.py:916"),
     "fused_mlp_decode": ("dgq_tpu_torch/csrc/fused_decode_span.cu",
                          "dgq_tpu/ops/fused_decode.py:1071"),
+    "s8_matmul": ("dgq_tpu_torch/csrc/s8_gemm.cu", "scripts/roofline_probe.py:55"),
+    "mxu_gemv": ("dgq_tpu_torch/csrc/int8_gemv_engines.cu", "scripts/probe_gemv_engines.py:51"),
+    "vpu_gemv": ("dgq_tpu_torch/csrc/int8_gemv_engines.cu", "scripts/probe_gemv_engines.py:64"),
+    "mix_gemv": ("dgq_tpu_torch/csrc/int8_gemv_engines.cu", "scripts/probe_gemv_engines.py:111"),
+    "pallas_s4": ("dgq_tpu_torch/csrc/s4_gemv.cu", "scripts/probe_native_s4.py:111"),
+    "pallas_s4_bitcast": ("dgq_tpu_torch/csrc/s4_gemv.cu", "scripts/probe_native_s4.py:147"),
+    "quant_pv_parts_attn": ("dgq_tpu_torch/csrc/quant_pv_parts_attention.cu",
+                            "scripts/probe_quant_pv_parts.py:91"),
 }
 # K14 (w4a8_matmul_wres, w4a8_matmul_pipe) computes K9's function and runs it.
 # K13 (fused_norm_gemv_s4, fused_requant_gemv_s4) computes K12's first two
@@ -2360,21 +2629,27 @@ SOURCES_OF = {
 ALSO_REPLACES = {"w4a8_matmul_packed": ["dgq_tpu/ops/quant_matmul.py:305",
                                         "dgq_tpu/ops/quant_matmul.py:463"],
                  "fused_norm_gemv": ["dgq_tpu/ops/fused_decode.py:513"],
-                 "fused_requant_gemv": ["dgq_tpu/ops/fused_decode.py:841"]}
+                 "fused_requant_gemv": ["dgq_tpu/ops/fused_decode.py:841"],
+                 # P4's kern (numerics, :37 and :66) and pl_bitcast (:104)
+                 "pallas_s4_bitcast": ["scripts/probe_s4_bitcast_numerics.py:37",
+                                       "scripts/probe_s4_bitcast_numerics.py:66",
+                                       "scripts/probe_s4_bitcast_numerics.py:104"]}
 # the path whose launches each kernel's entry reports: K7 runs on main_long
 # only, K8 on the paged serving path only, K9 on the OPT engine, K10 on the
 # fp-scale LLaMA engine, K11 on paged serving with INT4 KV, K12 on span-only
-# storage
+# storage, the probes' kernels on the probes' mains
 PATH_OF = {"int8_decode_attention_chunked": "launches_long",
            "int8_paged_decode_attention": "launches_serve",
            "w4a8_matmul_packed": "launches_opt",
            "w4a8_fpscale_matmul_packed": "launches_fpscale",
            "int4_paged_decode_attention": "launches_serve_kv4",
-           **{name: "launches_span" for name in K12_NAMES}}
+           **{name: "launches_span" for name in K12_NAMES},
+           **{name: "launches_probes" for name in PROBE_KERNELS}}
 PATHS = {"main": "launches", "main_long": "launches_long", "serve": "launches_serve",
          "opt": "launches_opt", "main_fpscale": "launches_fpscale",
          "serve_kv4": "launches_serve_kv4", "serve_dense": "launches_serve_dense",
-         "main_span": "launches_span", "serve_spec": "launches_serve_spec"}
+         "main_span": "launches_span", "serve_spec": "launches_serve_spec",
+         "probes": "launches_probes", "bench": "launches_bench"}
 LINE_PHASES = {"kernels", *PATHS}
 
 
@@ -2383,9 +2658,11 @@ def kernels_line(state):
     prefill (M = 1024) summed (K1 LLaMA under fused decode, K9 OPT, K10
     LLaMA with fp32 scales); K2, K3: the main path's MHA case (K3 with
     quant_pv); K4-K6: the decode step (M = 4); K7, K8: the MHA case with
-    quant_pv; K11: the MHA case; K12: the decode step (M = 4).  ``launches``
-    counts the kernel over the path that runs it (main; K7 main_long; K8
-    serve; K9 opt; K10 main_fpscale; K11 serve_kv4; K12 main_span), and
+    quant_pv; K11: the MHA case; K12: the decode step (M = 4); the probes:
+    their own shapes (P1 with 128 x 128 tiles, P5 in fp mode, MHA).
+    ``launches`` counts the kernel over the path that runs it (main; K7
+    main_long; K8 serve; K9 opt; K10 main_fpscale; K11 serve_kv4; K12
+    main_span; the probes' kernels the probes' mains), and
     ``launches_by_path`` over each.  Every case is listed under ``cases``."""
     cases = {"w4a8_matmul_rp_pipe": state["k1"], "int8_prefill_attention": state["k2"],
              "int8_decode_attention": state["k3"], "fused_norm_gemv_rp": state["k4"],
@@ -2393,7 +2670,7 @@ def kernels_line(state):
              "int8_decode_attention_chunked": state["k7"],
              "int8_paged_decode_attention": state["k8"],
              "w4a8_matmul_packed": state["k9"], "w4a8_fpscale_matmul_packed": state["k10"],
-             "int4_paged_decode_attention": state["k11"], **state["k12"]}
+             "int4_paged_decode_attention": state["k11"], **state["k12"], **state["probes"]}
     head = {
         "int8_prefill_attention": state["k2"][0],
         "int8_decode_attention": state["k3"][0],
@@ -2409,6 +2686,8 @@ def kernels_line(state):
             c["bound_by"] == "operations" for c in pre) else "bytes"
     for name in (*ROWPAIR_FUSED, *K12_NAMES):
         head[name] = next(c for c in cases[name] if c["M"] == BATCH)
+    for name in PROBE_KERNELS:  # the probe's own shape (P1 128 x 128 tiles, P5 fp MHA)
+        head[name] = cases[name][0]
     out = []
     for name, (source, replaces) in SOURCES_OF.items():
         h = head[name]
@@ -2429,6 +2708,7 @@ PHASES = {
     "device": phase_device,
     "build": phase_build,
     "kernels": phase_kernels,
+    "probes": phase_probes,
     "main": phase_main,
     "main_unfused": phase_main_unfused,
     "main_long": phase_main_long,
@@ -2441,6 +2721,7 @@ PHASES = {
     "serve_spec": phase_serve_spec,
     "parity": phase_parity,
     "checkpoint": phase_checkpoint,
+    "bench": phase_bench,
 }
 
 

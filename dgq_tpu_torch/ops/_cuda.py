@@ -48,6 +48,16 @@ SOURCES = {
     # K9 (which also serves K14's names) and K10: one source, three epilogues
     "w4a8_matmul_packed": "w4a8_span_gemm",
     "w4a8_fpscale_matmul_packed": "w4a8_span_gemm",
+    # the probes of dgq_tpu_torch/scripts/: P1 the pure s8 GEMM; P2 the three
+    # GEMV engines, one source; P3 the two s4 column maps, one source (P4's
+    # names run the bitcast map); P5 decode attention in six p @ V modes
+    "s8_matmul": "s8_gemm",
+    "mxu_gemv": "int8_gemv_engines",
+    "vpu_gemv": "int8_gemv_engines",
+    "mix_gemv": "int8_gemv_engines",
+    "pallas_s4": "s4_gemv",
+    "pallas_s4_bitcast": "s4_gemv",
+    "quant_pv_parts_attn": "quant_pv_parts_attention",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

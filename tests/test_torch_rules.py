@@ -2,9 +2,10 @@
 
 It imports neither JAX nor dgq_tpu; its kernel wrappers take their plain
 versions on CPU tensors without counting a launch (K1-K12, and K13's and
-K14's names); fused decode on span-only storage takes K12; configurations
-that need a module not yet ported raise NotImplementedError, and a KV
-precision other than 8 or 4 bits raises ValueError."""
+K14's names; the probes P1-P5, and P4's names); fused decode on span-only
+storage takes K12; configurations that need a module not yet ported raise
+NotImplementedError, and a KV precision other than 8 or 4 bits raises
+ValueError."""
 
 import pathlib
 import re
@@ -223,3 +224,44 @@ def test_unported_configurations_raise():
                                   torch.zeros((1, 2, 64, 8), dtype=torch.int8),
                                   torch.zeros((1, 2, 8, 64), dtype=torch.int8), 1, s, s, s,
                                   alibi_slopes=torch.ones(2))
+
+
+def test_probe_wrappers_take_plain_versions_on_cpu_without_launches():
+    """P1-P5 on CPU tensors: the plain versions, no launch; P2's three
+    engines share a source, P3's two column maps another, and P4's names
+    (kern, pl_bitcast) run the bitcast map and count under it."""
+    from dgq_tpu_torch.scripts import probe_gemv_engines as p2
+    from dgq_tpu_torch.scripts import probe_native_s4 as p3
+    from dgq_tpu_torch.scripts import probe_quant_pv_parts as p5
+    from dgq_tpu_torch.scripts import probe_s4_bitcast_numerics as p4
+    from dgq_tpu_torch.scripts import roofline_probe as p1
+
+    _cuda.reset_launches()
+    rng = np.random.default_rng(5)
+
+    def ri(lo, hi, shape):
+        return torch.from_numpy(rng.integers(lo, hi, shape).astype(np.int8))
+
+    x, w = ri(-127, 128, (128, 256)), ri(-127, 128, (256, 128))
+    assert torch.equal(p1.s8_matmul(x, w), p1.s8_matmul_plain(x, w))
+    x8 = x[:8]
+    assert torch.equal(p2.mxu_gemv(x8, w), p2.mxu_gemv_plain(x8, w))
+    assert torch.equal(p2.vpu_gemv(x8, w), p2.vpu_gemv_plain(x8, w))
+    for a, b in zip(p2.mix_gemv(x8, w), p2.mix_gemv_plain(x8, w)):
+        assert torch.equal(a, b)
+    x4, wb = ri(-8, 8, (16, 256)), ri(-128, 128, (256, 256))
+    assert torch.equal(p3.pallas_s4(x4, wb), p3.pallas_s4_plain(x4, wb))
+    assert torch.equal(p3.pallas_s4_bitcast(x4, wb), p3.pallas_s4_bitcast_plain(x4, wb))
+    assert torch.equal(p4.pl_bitcast(x4, wb), p3.pallas_s4_bitcast_plain(x4, wb))
+    assert torch.equal(p4.kern(x4, wb), p3.pallas_s4_bitcast_plain(x4, wb, 512))
+    q, kt, v = ri(-127, 128, (1, 4, 128)), ri(-127, 128, (1, 2, 128, 64)), ri(-127, 128,
+                                                                          (1, 2, 64, 128))
+    length = torch.tensor([50], dtype=torch.int32)
+    for mode in p5.MODES:
+        assert torch.equal(p5.attn(q, kt, v, length, mode), p5.attn_plain(q, kt, v, length, mode))
+    with pytest.raises(ValueError, match="mode"):
+        p5.attn(q, kt, v, length, "fast")
+    assert _cuda.LAUNCHES == {name: 0 for name in _cuda.SOURCES}
+    assert len({_cuda.SOURCES[n] for n in ("mxu_gemv", "vpu_gemv", "mix_gemv")}) == 1
+    assert _cuda.SOURCES["pallas_s4"] == _cuda.SOURCES["pallas_s4_bitcast"]
+    assert not {"kern", "pl_bitcast", "attn"} & set(_cuda.LAUNCHES)
