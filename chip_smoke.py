@@ -12,10 +12,13 @@ It imports no JAX.  Phases, each printing one JSON line with its seconds:
    ``fused_mlp_decode_rp``, K7 ``int8_decode_attention_chunked`` and K8
    ``int8_paged_decode_attention`` held against their plain PyTorch versions
    at the main paths' shapes (LLaMA-2-7B, batch 4, prompt 256, cache 2048;
-   K4-K6 at 4 rows and at 40 = 8 slots x a 5-token verify window; K7 at
-   cache 16384 in chunks of 4096; K8 at 8 slots over a shuffled pool of
-   128-token pages) and timed beside the plain version, one PyTorch library
-   call for the same function, and the bound.  K4-K6 make their int8 codes
+   K1 at M = 4, 1024 and 2048; K4-K6 at 4 rows and at 40 = 8 slots x a
+   5-token verify window; K7 at cache 16384 in chunks of 4096; K8 at 8 slots
+   over a shuffled pool of 128-token pages) and timed beside the plain
+   version, one PyTorch library call for the same function, and the bound.
+   K1's int32 accumulators (alpha 1) and outputs equal the plain version's,
+   also at EXTRA_GEMMS (rows that fill no tile, a width that is no multiple
+   of the tile's, groupsize 64; not timed).  K4-K6 make their int8 codes
    inside the kernel: their codes are compared with the plain version's (at
    most 1 apart, >= 99.9% equal), and the int32 accumulators (alpha 1, beta
    0) and outputs with the plain version run on the kernel's codes, which
@@ -24,7 +27,8 @@ It imports no JAX.  Phases, each printing one JSON line with its seconds:
    ``w4a8_matmul_packed`` (which also serves K14's names) at OPT-6.7B shapes
    (q|k|v int8 out, out_proj, fc1 and fc2 f32 out, with biases) and K10
    ``w4a8_fpscale_matmul_packed`` at LLaMA-2-7B shapes, each at M = 4, 1024
-   and 2048: K9's int32 accumulators and outputs equal the plain version's;
+   and 2048: K9's int32 accumulators and outputs equal the plain version's,
+   also at EXTRA_GEMMS and EXTRA_SPAN_GEMMS (groupsize 32);
    K10 equals it where K is not split over blocks and lies within K10_TOL of
    the largest output where it is.  Last K11 ``int4_paged_decode_attention``
    on K8's pool, table and lengths with INT4 nibble pages, MHA and GQA:
@@ -121,7 +125,8 @@ It imports no JAX.  Phases, each printing one JSON line with its seconds:
    the low nibble; their printout goes to ``chiprun_out/probes.txt``.  Then
    each probe kernel against its plain version at the probe's shapes and
    timed as K1-K12 are: P1 ``s8_matmul`` (M 2048, N = K = 4096, both
-   tilings), P2 ``mxu_gemv``, ``vpu_gemv``, ``mix_gemv`` (8 rows, K 4096, N
+   tilings: K1's and K9's prefill block of 256 rows x 128 columns, and 128 x
+   128), P2 ``mxu_gemv``, ``vpu_gemv``, ``mix_gemv`` (8 rows, K 4096, N
    12288), P3 ``pallas_s4``, ``pallas_s4_bitcast`` (16 rows of int4 codes;
    P4's ``kern`` at K 256 and one 256-column block) with int32 results (P1:
    the f32 of int32) equal; P5 ``attn`` in its six modes at 32 heads and a
@@ -167,7 +172,9 @@ SERVE_REQUESTS, SERVE_NEW, PREFIX_LEN, TIGHT_PAGES = 24, 64, 300, 49
 # prefix's 3 and less than the 46 the first 8 requests reach
 SERVE_KV4, SERVE_DENSE, TIGHT_PAGES_KV4 = 12, 12, 41
 SPEC_K = 4  # speculative drafts per step (main_span, serve_spec)
-K1_NAMES = ["rp_gemm_kernel", "splitk_epilogue"]  # K1 launches both when it splits K
+# K1 and K9 run the shared main loop (gemm_sm90) and, when K is split, splitk_combine; each
+# instantiation names its loader
+K1_NAMES = ["RowpairLoader"]
 K4_NAMES, K5_NAMES = ["norm_gemv_rp_kernel"], ["requant_gemv_rp_kernel"]
 K6_NAMES = ["mlp_decode_rp_kernel", "mlp_decode_rp_epilogue"]
 # K12's three entry points (one source)
@@ -176,7 +183,8 @@ K12_NAMES = {"fused_norm_gemv": ["norm_gemv_span_kernel"],
              "fused_mlp_decode": ["mlp_decode_span_kernel", "mlp_decode_span_epilogue"]}
 K12_ALL = [n for names in K12_NAMES.values() for n in names]
 K78_NAMES = ["chunk_attn_kernel", "combine_kernel"]  # K7 and K8 share their kernels
-SPAN_NAMES = ["span_gemm_kernel", "span_splitk_combine"]  # K9 and K10 share their kernels
+K9_NAMES = ["SpanLoader"]
+K10_NAMES = ["fpscale_gemm_kernel", "fpscale_splitk_combine"]
 FUSED_ROWS = (BATCH, 40)  # a decode step; 8 slots x a 5-token verify window
 # (N, K) of the four linears of a LLaMA-2-7B layer (F padded to 11264)
 LINEARS = {"qkv_proj": (12288, 4096), "o_proj": (4096, 4096),
@@ -302,7 +310,7 @@ def _k1_cases(torch, timer, gen):
 
     cases = []
     gs = 128
-    for m in (BATCH * PROMPT, BATCH):
+    for m in SPAN_ROWS:
         for name, (n, k) in LINEARS.items():
             def ri(lo, hi, shape):
                 return torch.randint(lo, hi, shape, generator=gen, device=DEV, dtype=torch.int8)
@@ -328,7 +336,8 @@ def _k1_cases(torch, timer, gen):
                 bad = (acc_k != acc_p).sum().item()
                 raise AssertionError(f"K1 {name} M={m}: {bad} accumulators differ")
             y_k, y_p = kern(), plain()
-            torch.testing.assert_close(y_k, y_p, rtol=1e-6, atol=0)
+            if not torch.equal(y_k, y_p):
+                raise AssertionError(f"K1 {name} M={m}: {(y_k != y_p).sum().item()} outputs differ")
             err = (y_k - y_p).abs().max().item()
             lib_ms = _int_mm_ms(torch, timer, x, dequantize_rowpair(qw, ws, wz, gs))
             nbytes = m * k + k * n // 2 + 2 * (k // gs) * n + 4 * n + 4 * m * n
@@ -339,6 +348,63 @@ def _k1_cases(torch, timer, gen):
                           "library_ms": lib_ms, "library_rows": max(m, 32),
                           "bound_ms": b_ms, "bound_by": b_by})
             del x, qw, ws, wz, ws8, wz8, acc_k, acc_p, y_k, y_p
+    return cases + _gemm_extra_cases(torch, gen, span=False)
+
+
+# K1's and K9's shapes beside the main paths', held bit-equal and not timed: rows that
+# fill no tile (M = 1, 17, 100, 1000) and a width that is a multiple of 16 but not of the
+# tiles' 256 columns (N = 4112), at groupsize 128; the qkv linear at groupsize 64 (both)
+# and 32 (K9) at a decode step and a prefill.  (M, N, K, groupsize)
+EXTRA_GEMMS = ([(m, 4112, 4096, 128) for m in (1, 17, 100, 1000)]
+               + [(m, 12288, 4096, 64) for m in (BATCH, BATCH * PROMPT)])
+EXTRA_SPAN_GEMMS = [(m, 12288, 4096, 32) for m in (BATCH, BATCH * PROMPT)]
+
+
+def _gemm_extra_cases(torch, gen, span):
+    """K1 (``span`` false) or K9 at EXTRA_GEMMS (K9 also EXTRA_SPAN_GEMMS): the
+    int32 accumulators (alpha 1, no bias) and the outputs (K9: f32 and int8,
+    with a bias) equal the plain version's."""
+    from dgq_tpu_torch.ops import quant_matmul as qm
+
+    cases = []
+    for m, n, k, gs in EXTRA_GEMMS + (EXTRA_SPAN_GEMMS if span else []):
+        x = torch.randint(-128, 128, (m, k), generator=gen, device=DEV, dtype=torch.int8)
+        qw, ws, wz = _q4_weights(torch, gen, k, n, gs)
+        ws8, wz8 = torch.repeat_interleave(ws, 8, dim=0), torch.repeat_interleave(wz, 8, dim=0)
+        alpha = torch.rand((n,), generator=gen, device=DEV) * 1e-3 + 1e-5
+        beta = torch.randn((n,), generator=gen, device=DEV)
+        one = torch.ones((n,), device=DEV)
+        if span:
+            runs = [(one, None, torch.float32), (alpha, beta, torch.float32),
+                    (alpha, beta, torch.int8)]
+
+            def kern(a, b, o):
+                return qm.w4a8_matmul_packed(x, qw, ws8, wz8, a, b, groupsize=gs, out_dtype=o,
+                                             scales_replicated=True)
+
+            def plain(a, b, o):
+                return qm.w4a8_matmul_packed_xla(x, qw, ws, wz, a, b, groupsize=gs, out_dtype=o)
+        else:
+            runs = [(one, None, torch.float32), (alpha, None, torch.float32)]
+
+            def kern(a, b, o):
+                return qm.w4a8_matmul_rp_pipe(x, qw, ws8, wz8, a, groupsize=gs,
+                                              scales_replicated=True)
+
+            def plain(a, b, o):
+                return qm.w4a8_matmul_rp_xla(x, qw, ws, wz, a, groupsize=gs)
+        for a, b, o in runs:
+            got, want = kern(a, b, o), plain(a, b, o)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                what = "accumulators" if b is None and a is one else f"{str(o)[6:]} outputs"
+                raise AssertionError(f"{'K9' if span else 'K1'} M={m} N={n} K={k} gs={gs}: "
+                                     f"{(got != want).sum().item()} {what} differ")
+        plan = qm.gemm_plan(m, n, k, gs, "span" if span else "rowpair",
+                            torch.cuda.get_device_properties(0).multi_processor_count)
+        cases.append({"linear": "extra", "M": m, "N": n, "K": k, "groupsize": gs, "extra": True,
+                      "bit_equal": True, "max_abs_err": 0.0, "plan": plan._asdict()})
+        del x, qw, ws, wz, ws8, wz8
     return cases
 
 
@@ -802,23 +868,22 @@ def _k9_cases(torch, timer, gen):
             b_ms, b_by = bound_ms(nbytes, 2.0 * m * n * k / INT8_OPS_PER_S)
             cases.append({"linear": name, "M": m, "N": n, "K": k, "out": str(od)[6:],
                           "max_abs_err": (y_k.float() - y_p.float()).abs().max().item(),
-                          "ms": timer.kernel(kern, SPAN_NAMES), "call_ms": timer(kern),
+                          "ms": timer.kernel(kern, K9_NAMES), "call_ms": timer(kern),
                           "plain_ms": timer(plain, iters=5), "library_ms": lib_ms,
                           "library_rows": max(m, 32), "bound_ms": b_ms, "bound_by": b_by})
             del x, qw, ws, wz, ws8, wz8, acc_k, acc_p, y_k, y_p
-    return cases
+    return cases + _gemm_extra_cases(torch, gen, span=True)
 
 
 def _k10_cases(torch, timer, gen):
     """K10 at LLaMA-2-7B shapes (fp32 group scales) at a decode step, a
     prefill and 2048 rows: equal to the plain version where K is not split
     over blocks, within K10_TOL of the largest output where it is."""
-    from dgq_tpu_torch.ops import _cuda, quant_matmul as qm
+    from dgq_tpu_torch.ops import quant_matmul as qm
     from dgq_tpu_torch.quant.packing import unpack_nibbles
 
     cases = []
     gs = 128
-    lib = _cuda.library(_cuda.SOURCES[qm.FPSCALE], qm._SPAN_SIGNATURES)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for m in SPAN_ROWS:
         for name, (n, k) in LINEARS.items():
@@ -836,7 +901,7 @@ def _k10_cases(torch, timer, gen):
                 return qm.w4a8_fpscale_matmul_packed_xla(x, qw, ws, wz, alpha, beta,
                                                          groupsize=gs)
 
-            splits = -(-(k // 2) // lib.w4a8_span_gemm_p_split(m, n, k, gs, 2, sms))
+            splits = -(-(k // 2) // qm.fpscale_plan(m, n, k, gs, sms)[1])
             y_k, y_p = kern(), plain()
             torch.cuda.synchronize()
             err = (y_k - y_p).abs().max().item()
@@ -858,7 +923,7 @@ def _k10_cases(torch, timer, gen):
                                   flops / FP32_OPS_PER_S)
             cases.append({"linear": name, "M": m, "N": n, "K": k, "splits": splits,
                           "bit_equal": equal, "max_abs_err": err, "largest_output": top,
-                          "ms": timer.kernel(kern, SPAN_NAMES), "call_ms": timer(kern),
+                          "ms": timer.kernel(kern, K10_NAMES), "call_ms": timer(kern),
                           "plain_ms": timer(plain, iters=5), "library_ms": lib_ms,
                           "bound_ms": b_ms, "bound_by": b_by})
             del x, qw, ws, wz, ws8, wz8, y_k, y_p
@@ -1230,7 +1295,7 @@ def phase_main_fpscale(torch, state):
     out = _drive_main(torch, cfg, EngineConfig(cfg=cfg, fp_scales=True),
                       _want_launches(cfg.num_hidden_layers, False,
                                      linear="w4a8_fpscale_matmul_packed"),
-                      linear=("K10", SPAN_NAMES))
+                      linear=("K10", K10_NAMES))
     state["launches_fpscale"] = out["launches"]
     return out
 
@@ -1250,7 +1315,7 @@ def phase_main_span(torch, state):
     out = _drive_main(torch, cfg, ecfg,
                       _want_launches(layers, True, linear="w4a8_matmul_packed",
                                      fused_kernels=tuple(K12_NAMES)),
-                      linear=("K9", SPAN_NAMES), span_only=True,
+                      linear=("K9", K9_NAMES), span_only=True,
                       extra=lambda eng, prompts, toks: _span_speculative(torch, ecfg, eng,
                                                                          prompts[:1]))
     state["launches_span"] = out["launches"]
@@ -1384,7 +1449,7 @@ def phase_opt(torch, state):
         prof["tok"] = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
 
     breakdown = _profile_steps(torch, step, 4, ("K3", ["decode_attn_kernel"]),
-                               ("K9", SPAN_NAMES))
+                               ("K9", K9_NAMES))
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     del cache, prof
 
@@ -2417,7 +2482,7 @@ def _probe_gemm_cases(torch, timer, gen):
     x, w = ri(-127, 128, (m, k)), ri(-127, 128, (k, n))
     lib_ms = _int_mm_ms(torch, timer, x, w)
     cases["s8_matmul"] = [
-        case("P1", ["s8_gemm_kernel"], lambda t=t: p1.s8_matmul(x, w, bm=t[0], bn=t[1]),
+        case("P1", ["S8Loader"], lambda t=t: p1.s8_matmul(x, w, bm=t[0], bn=t[1]),
              lambda: p1.s8_matmul_plain(x, w), m * k + k * n + 4 * m * n, 2.0 * m * n * k,
              lambda: lib_ms, M=m, N=n, K=k, tile=list(t), library_rows=m)
         for t in p1.TILINGS]
@@ -2659,7 +2724,7 @@ def kernels_line(state):
     LLaMA with fp32 scales); K2, K3: the main path's MHA case (K3 with
     quant_pv); K4-K6: the decode step (M = 4); K7, K8: the MHA case with
     quant_pv; K11: the MHA case; K12: the decode step (M = 4); the probes:
-    their own shapes (P1 with 128 x 128 tiles, P5 in fp mode, MHA).
+    their own shapes (P1 with 256 x 128 tiles, P5 in fp mode, MHA).
     ``launches`` counts the kernel over the path that runs it (main; K7
     main_long; K8 serve; K9 opt; K10 main_fpscale; K11 serve_kv4; K12
     main_span; the probes' kernels the probes' mains), and
@@ -2679,14 +2744,14 @@ def kernels_line(state):
         "int4_paged_decode_attention": state["k11"][0],
     }
     for name in ("w4a8_matmul_rp_pipe", "w4a8_matmul_packed", "w4a8_fpscale_matmul_packed"):
-        pre = [c for c in cases[name] if c["M"] == BATCH * PROMPT]
+        pre = [c for c in cases[name] if c["M"] == BATCH * PROMPT and not c.get("extra")]
         head[name] = {key: sum(c[key] for c in pre)
                       for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
         head[name]["bound_by"] = "operations" if all(
             c["bound_by"] == "operations" for c in pre) else "bytes"
     for name in (*ROWPAIR_FUSED, *K12_NAMES):
         head[name] = next(c for c in cases[name] if c["M"] == BATCH)
-    for name in PROBE_KERNELS:  # the probe's own shape (P1 128 x 128 tiles, P5 fp MHA)
+    for name in PROBE_KERNELS:  # the probe's own shape (P1 256 x 128 tiles, P5 fp MHA)
         head[name] = cases[name][0]
     out = []
     for name, (source, replaces) in SOURCES_OF.items():

@@ -1,8 +1,8 @@
-// Pieces shared by the probe kernels P1-P3 (s8_gemm.cu, int8_gemv_engines.cu,
-// s4_gemv.cu): the s8 tensor-core step, the byte transpose that turns
-// n-contiguous weight rows into the k-contiguous columns mma.sync reads, the
-// sign extension of packed nibbles, and the skinny (M <= 16) GEMV bodies on
-// the tensor cores and on the CUDA cores.
+// Pieces shared by the probe kernels P2 and P3 (int8_gemv_engines.cu,
+// s4_gemv.cu) and K10 (w4a8_span_gemm.cu): the s8 tensor-core step, the byte
+// transpose that turns n-contiguous weight rows into the k-contiguous columns
+// mma.sync reads, the sign extension of packed nibbles, and the skinny
+// (M <= 16) GEMV bodies on the tensor cores and on the CUDA cores.
 //
 // Everything here has internal linkage: each source is its own shared
 // library, and the dynamic linker would merge weak symbols across them.

@@ -1,0 +1,546 @@
+// The main loop shared by the W4A8 GEMMs K1 (w4a8_rp_gemm.cu) and K9
+// (w4a8_span_gemm.cu) and by the probe P1 (s8_gemm.cu), for Hopper (sm_90a).
+//
+//   acc[m, n] = sum_k x[m, k] * w8[k, n]   (exact int32)
+//
+// x is int8 (M, K), row-major, so already K-major for wgmma.  w8 is the int8
+// weight matrix that a Loader makes from its own storage, read from device
+// memory as it is: K1's rowpair nibbles, K9's span nibbles, P1's plain int8.
+// The epilogue writes __fmul_rn(float(acc), alpha[n]) (+ __fadd_rn beta[n])
+// as f32 (OUT_F32) or as __float2int_rn clamped to int8 (OUT_S8), or P1's
+// float(acc) (OUT_RAW); a K split writes int32 partials that splitk_combine
+// sums exactly and finishes the same way.
+//
+// What bounds it: at prefill the int8 tensor-core rate and the unpack beside
+// it, at decode the weight bytes.  The design:
+//   * one block = a producer warpgroup, in which one thread issues TMA, and two
+//     consumer warpgroups (setmaxnreg 40 / 232); a block owns 128 weight
+//     columns (one 64-row wgmma tile a consumer warpgroup) and BM token rows;
+//   * a ring of STAGES stages in dynamic shared memory, each filled by TMA and
+//     signalled by an mbarrier (full, with the byte count; empty, one arrival
+//     per consumer warp).  A stage holds 2 HB logical k as two halves: two x
+//     boxes [BM][HB], swizzled HB bytes (64 or 32), at the k the Loader names
+//     (K9's span layout takes its two nibble planes from two places of x),
+//     SRC_ROWS rows of the weight storage as a box [SRC_ROWS][128 bytes]
+//     swizzled 128 bytes, and for a SCALED Loader the int8 scale and zero rows
+//     of each half's group;
+//   * wgmma.mma_async m64nBMk32 s8.s8 -> s32 with the weights as the A operand
+//     in registers and the x box as the B operand in shared memory: int8 wgmma
+//     takes both operands K-major, and the weights are n-contiguous, so they
+//     are turned into K-major A fragments in registers and never written back.
+//     A thread of consumer warp w holds the fragment rows g and g + 8 (g = lane
+//     / 4) of its warpgroup's 64-row tile, and they are the 2 columns of one
+//     2-byte column pair; its k are 4t .. 4t + 3 and 16 + 4t .. + 3 (t = lane
+//     % 4) of each 32-k step.  So per stage it loads the rows its k need of
+//     that pair (16-bit shared loads), turns each 4 rows into 2 column words
+//     (byte permutes), and the Loader unpacks them straight into fragments.
+//     Fragments are built for one 32-k step of both halves at a time, in two
+//     register sets: the tensor cores run one set while the next is built, and
+//     each warpgroup runs on its own (no shared tile, no barrier between the
+//     warpgroups).  The unpack, not the tensor cores, bounds a stage, and it
+//     is done once per block and weight tile, so the prefill tile is as tall
+//     as wgmma allows: N = BM = 256 token rows, 128 accumulators a thread.  Decode (BM = 16) and prefill
+//     are one code path: the weights are always the 64-row side;
+//   * the tile and the K split come from the caller (the plan in
+//     ops/quant_matmul.py); a split takes whole stages.
+//
+// Everything here has internal linkage: each source is its own shared
+// library, and the dynamic linker would merge weak symbols across them.
+
+#pragma once
+
+#include <cuda.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <mutex>
+
+namespace {
+
+enum Out { OUT_F32 = 0, OUT_S8 = 1, OUT_RAW = 2 };
+
+constexpr int CONSUMERS = 256;  // two consumer warpgroups
+constexpr int THREADS = 384;    // and the producer warpgroup
+constexpr int BN = 128;         // weight columns a block owns
+
+struct GemmArgs {
+  const int8_t* scales;  // group g at row g * srep of (G * srep, N) int8; unused by P1
+  const int8_t* zeros;
+  int srep, gs;
+  int M, N, K;
+  int nst;  // stages over all of K
+  int sps;  // stages per split (blockIdx.z)
+  const float* alpha;
+  const float* beta;  // or null
+  void* out;
+  int* part;  // (splits, M, N) int32 when K is split, else null
+};
+
+// ---- PTX wrappers -----------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// wait for the completion of the barrier's phase of parity `parity`
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keeps the compiler from moving registers that the async wgmma reads or
+// writes (fragments, accumulators) across its issue and its wait
+template <class T, int N>
+__device__ __forceinline__ void fence_regs(T (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// K-major B operand in shared memory (an x box), rows of HB bytes swizzled HB
+// bytes (64 or 32), 8-row groups 8 HB bytes apart; LBO is unused for swizzled
+// K-major
+__device__ __forceinline__ uint64_t gmma_desc(const void* p, int hb) {
+  const uint64_t addr = smem_u32(p);
+  const uint64_t sbo = (8 * hb) >> 4;
+  const uint64_t layout = hb == 64 ? 2 : 3;  // B64, B32
+  return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | (sbo << 32) | (layout << 62);
+}
+
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<16> {
+  static __device__ __forceinline__ void mma(int (&d)[8], const uint32_t (&a)[4], uint64_t b,
+                                         int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  static __device__ __forceinline__ void mma(int (&d)[64], const uint32_t (&a)[4], uint64_t b,
+                                         int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<256> {
+  static __device__ __forceinline__ void mma(int (&d)[128], const uint32_t (&a)[4], uint64_t b,
+                                         int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
+        "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
+        "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
+        "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]),
+        "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]),
+        "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+        "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+// ---- the fragment helpers the Loaders use -------------------------------------
+
+// Fragments of one 32-k step of both halves: a[h][i] is register i of half h
+// (i: rows g / g + 8 at k 4t.., then at k 16 + 4t..).
+typedef uint32_t Frags[2][4];
+
+// The 2 bytes of column pair cp (0..63) in row r of a stage's weight rows: a
+// TMA box [SRC_ROWS][128 bytes] swizzled 128 bytes (the 16-byte chunk index
+// XORed with r % 8, so that the 4 lanes t, which read 4 rows of one pair,
+// mostly hit different banks)
+__device__ __forceinline__ uint32_t ldw(const uint8_t* rows, int r, int cp) {
+  return *reinterpret_cast<const uint16_t*>(rows + r * 128 + ((((cp >> 3) ^ (r & 7)) << 4) |
+                                                              ((cp & 7) << 1)));
+}
+
+// Rows r0, r0 + d1, r0 + d2, r0 + d3 of column pair cp: c[j] holds column j's
+// bytes of the four rows, in that order.
+__device__ __forceinline__ void quad(const uint8_t* rows, int cp, int r0, int d1, int d2, int d3,
+                                     uint32_t (&c)[2]) {
+  const uint32_t t01 = __byte_perm(ldw(rows, r0, cp), ldw(rows, r0 + d1, cp), 0x5410);
+  const uint32_t t23 = __byte_perm(ldw(rows, r0 + d2, cp), ldw(rows, r0 + d3, cp), 0x5410);
+  c[0] = __byte_perm(t01, t23, 0x6420);
+  c[1] = __byte_perm(t01, t23, 0x7531);
+}
+
+// Column j of the pair is row g + 8 j: fragment registers j (k 4t..) and 2 + j
+// (k 16 + 4t..).
+__device__ __forceinline__ void put_col(uint32_t (&a)[4], int j, uint32_t k0, uint32_t k16) {
+  a[j] = k0;
+  a[2 + j] = k16;
+}
+
+// int8 (c - z) * s of the four codes in the low 16 bits of the two 16-bit
+// lanes of e (bytes 0, 2 of the result) and o (bytes 1, 3).  Each lane holds
+// 0x8000 + (c - z) * s in [0, 0xFFFF] (|(c - z) * s| <= 143 * 128), so the
+// lanes never carry and each low byte is the int8 wrap of (c - z) * s.
+__device__ __forceinline__ uint32_t deq4(uint32_t e, uint32_t o, uint32_t s, uint32_t bias) {
+  return __byte_perm(e * s + bias, o * s + bias, 0x6240);
+}
+
+// Per column j of column pair cp of a stage's scale rows [4][BN] (row 2h: the
+// scales of half h's group, row 2h + 1 its zeros): the sign-extended scale
+// and the bias (0x8000 - z * s) in both 16-bit lanes.
+__device__ __forceinline__ void col_scales(const uint8_t* scl, int h, int cp, uint32_t (&s)[2],
+                                           uint32_t (&bias)[2]) {
+  const uint32_t sw = *reinterpret_cast<const uint16_t*>(scl + 2 * h * BN + 2 * cp);
+  const uint32_t zw = *reinterpret_cast<const uint16_t*>(scl + (2 * h + 1) * BN + 2 * cp);
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int sj = static_cast<int8_t>(sw >> (8 * j)), zj = static_cast<int8_t>(zw >> (8 * j));
+    s[j] = static_cast<uint32_t>(sj);
+    bias[j] = static_cast<uint32_t>(0x8000 - zj * sj) * 0x10001u;
+  }
+}
+
+// ---- shared memory ------------------------------------------------------------
+
+constexpr int round1k(int b) { return (b + 1023) / 1024 * 1024; }
+
+template <class L, int BM, int STAGES>
+struct Smem {
+  static constexpr int A_HALF = BM * L::HB;                  // one x box
+  static constexpr int W_OFF = round1k(2 * A_HALF);          // the weight rows
+  static constexpr int W_BYTES = L::SRC_ROWS * BN;
+  static constexpr int SCL_OFF = W_OFF + W_BYTES;            // scale and zero rows
+  static constexpr int SCL_BYTES = L::SCALED ? 4 * BN : 0;
+  static constexpr int STAGE = round1k(SCL_OFF + SCL_BYTES);
+  static constexpr int BAR_OFF = STAGES * STAGE;
+  static constexpr int TOTAL = BAR_OFF + 2 * STAGES * 8 + 1024;  // + alignment slack
+  static constexpr uint32_t TX = 2 * A_HALF + W_BYTES + SCL_BYTES;  // bytes TMA brings per stage
+  static_assert(TOTAL <= 232448, "shared memory");
+};
+
+// ---- the kernel -----------------------------------------------------------------
+
+template <int OUT>
+__device__ __forceinline__ float finish(int acc, const GemmArgs& a, int n) {
+  if constexpr (OUT == OUT_RAW) return __int2float_rn(acc);
+  const float y = __fmul_rn(static_cast<float>(acc), a.alpha[n]);
+  return a.beta ? __fadd_rn(y, a.beta[n]) : y;
+}
+
+__device__ __forceinline__ int8_t sat8(float y) {
+  return static_cast<int8_t>(min(127, max(-128, __float2int_rn(y))));
+}
+
+// columns n and n + 1 of row m
+template <int OUT>
+__device__ __forceinline__ void store2(const GemmArgs& a, int m, int n, int v0, int v1) {
+  const size_t o = (size_t)m * a.N + n;
+  if (a.part) {
+    *reinterpret_cast<int2*>(a.part + (size_t)blockIdx.z * a.M * a.N + o) = make_int2(v0, v1);
+  } else if constexpr (OUT == OUT_S8) {
+    char2 c;
+    c.x = sat8(finish<OUT>(v0, a, n));
+    c.y = sat8(finish<OUT>(v1, a, n + 1));
+    *reinterpret_cast<char2*>(static_cast<int8_t*>(a.out) + o) = c;
+  } else {
+    *reinterpret_cast<float2*>(static_cast<float*>(a.out) + o) =
+        make_float2(finish<OUT>(v0, a, n), finish<OUT>(v1, a, n + 1));
+  }
+}
+
+template <class L, int BM, int STAGES, int OUT>
+__global__ void __launch_bounds__(THREADS, 1)
+gemm_sm90(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_w,
+          const __grid_constant__ CUtensorMap tm_s, const __grid_constant__ CUtensorMap tm_z,
+          const __grid_constant__ GemmArgs args) {
+  using S = Smem<L, BM, STAGES>;
+  constexpr int HB = L::HB, KK = HB / 32;  // 32-k steps per half
+  constexpr int NA = BM / 2;                // accumulators a thread
+  static_assert(BM % 16 == 0 && BM <= 256, "tile");
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::BAR_OFF);
+  uint64_t* empty = full + STAGES;
+
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int st0 = blockIdx.z * args.sps;
+  const int n_it = min(args.nst - st0, args.sps);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMERS / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= CONSUMERS) {
+    // ---- producer ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == CONSUMERS) {
+      for (int i = 0; i < n_it; ++i) {
+        const int s = i % STAGES, st = st0 + i;
+        if (i >= STAGES) mbar_wait(&empty[s], ((i / STAGES) + 1) & 1);
+        uint8_t* base = smem + s * S::STAGE;
+        mbar_expect_tx(&full[s], S::TX);
+        tma_load_2d(base, &tm_x, &full[s], L::x_k(args, st, 0), m0);
+        tma_load_2d(base + S::A_HALF, &tm_x, &full[s], L::x_k(args, st, 1), m0);
+        tma_load_2d(base + S::W_OFF, &tm_w, &full[s], n0, L::SRC_ROWS * st);
+        if constexpr (L::SCALED) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int row = L::group(args, st, h) * args.srep;
+            tma_load_2d(base + S::SCL_OFF + 2 * h * BN, &tm_s, &full[s], n0, row);
+            tma_load_2d(base + S::SCL_OFF + (2 * h + 1) * BN, &tm_z, &full[s], n0, row);
+          }
+        }
+      }
+    }
+  } else {
+    // ---- consumers ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int ct = threadIdx.x, wg = ct >> 7, warp = (ct >> 5) & 3, lane = ct & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int cp = 32 * wg + 8 * warp + g;  // this thread's column pair of the block's 64
+    // the accumulators: the first product of the block writes them (scale-d 0),
+    // so no other instruction defines them; one that did inside the pipeline
+    // would make ptxas serialise the wgmmas
+    int acc[NA];
+    // two fragment sets (one per 32-k step of a 64-k half): the tensor cores read
+    // one while the next is built; a 32-k half has one step and one set
+    Frags fa[KK];
+
+    for (int i = 0; i < n_it; ++i) {
+      const int s = i % STAGES;
+      mbar_wait(&full[s], (i / STAGES) & 1);
+      const uint8_t* xa = smem + s * S::STAGE;
+      const uint8_t* rows = xa + S::W_OFF;
+      typename L::Scales sc;
+      L::scales(xa + S::SCL_OFF, cp, sc);
+#pragma unroll
+      for (int kk = 0; kk < KK; ++kk) {
+        Frags& f = fa[kk];
+        L::frags(rows, sc, cp, t, kk, f);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) fence_regs(f[h]);
+        fence_regs(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          Wgmma<BM>::mma(acc, f[h], gmma_desc(xa + h * S::A_HALF + 32 * kk, HB), (i | kk | h) != 0);
+        wgmma_commit();
+        wgmma_wait<KK - 1>();  // the step before is done: its fragment set is free
+        fence_regs(acc);
+        // the last step of stage i - 1 is done: release its slot
+        if (kk == 0 && i > 0 && lane == 0) mbar_arrive(&empty[(i - 1) % STAGES]);
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+
+    // ---- epilogue: accumulator e is row g + 8 ((e >> 1) & 1), i.e. column
+    // 2 cp + ((e >> 1) & 1), and token 8 (e >> 2) + 2t + (e & 1) ----
+    const int n = n0 + 2 * cp;
+    if (n < args.N) {
+#pragma unroll
+      for (int j = 0; j < BM / 8; ++j)
+#pragma unroll
+        for (int e0 = 0; e0 < 2; ++e0) {
+          const int m = m0 + 8 * j + 2 * t + e0;
+          if (m < args.M) store2<OUT>(args, m, n, acc[4 * j + e0], acc[4 * j + 2 + e0]);
+        }
+    }
+  }
+}
+
+// Sums the splits' int32 partials in split order and finishes as the kernel.
+template <int OUT, class L>
+__global__ void splitk_combine(const GemmArgs a, int splits) {
+  const size_t total = (size_t)a.M * a.N;
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  int s = 0;
+  for (int z = 0; z < splits; ++z) s += a.part[z * total + i];
+  const int n = static_cast<int>(i % a.N);
+  if constexpr (OUT == OUT_S8)
+    static_cast<int8_t*>(a.out)[i] = sat8(finish<OUT>(s, a, n));
+  else
+    static_cast<float*>(a.out)[i] = finish<OUT>(s, a, n);
+}
+
+// ---- host side: TMA descriptors and the launch -------------------------------
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// Descriptors cached by (pointer, shape, box, swizzle): the weights' are built
+// once, an activation's whenever the allocator hands out a new address.
+struct MapEntry {
+  const void* ptr;
+  uint64_t d0, d1;
+  uint32_t b0, b1;
+  int swizzle;
+  CUtensorMap map;
+};
+constexpr int MAP_SLOTS = 256;
+MapEntry g_maps[MAP_SLOTS];
+int g_map_count = 0, g_map_next = 0;
+std::mutex g_map_mu;
+EncodeTiledFn g_encode = nullptr;
+
+// A 2-D uint8 tensor map over (d1 rows, d0 bytes a row), box b0 x b1.
+int tensor_map(CUtensorMap* out, const void* p, uint64_t d0, uint64_t d1, uint32_t b0,
+               uint32_t b1, CUtensorMapSwizzle swizzle) {
+  std::lock_guard<std::mutex> lock(g_map_mu);
+  for (int i = 0; i < g_map_count; ++i) {
+    const MapEntry& e = g_maps[i];
+    if (e.ptr == p && e.d0 == d0 && e.d1 == d1 && e.b0 == b0 && e.b1 == b1 && e.swizzle == swizzle) {
+      *out = e.map;
+      return 0;
+    }
+  }
+  if (!g_encode) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &q);
+#endif
+    if (e != cudaSuccess || q != cudaDriverEntryPointSuccess || !fn)
+      return static_cast<int>(cudaErrorInvalidDeviceFunction);
+    g_encode = reinterpret_cast<EncodeTiledFn>(fn);
+  }
+  const cuuint64_t dims[2] = {d0, d1}, strides[1] = {d0};
+  const cuuint32_t box[2] = {b0, b1}, elem[2] = {1, 1};
+  MapEntry e{p, d0, d1, b0, b1, static_cast<int>(swizzle), {}};
+  if (g_encode(&e.map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(p), dims, strides, box,
+               elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int slot = g_map_count < MAP_SLOTS ? g_map_count++ : g_map_next++ % MAP_SLOTS;
+  g_maps[slot] = e;
+  *out = e.map;
+  return 0;
+}
+
+// x (M, K) int8 and the weight storage (w_rows, N) bytes; args.part set when
+// `splits` > 1.  Returns a cudaError_t.
+template <class L, int BM, int STAGES, int OUT>
+int launch_gemm(const void* x, const void* w, int w_rows, const GemmArgs& a, int splits,
+                cudaStream_t st) {
+  using S = Smem<L, BM, STAGES>;
+  CUtensorMap tx, tw;
+  int rc = tensor_map(&tx, x, a.K, a.M, L::HB, BM,
+                      L::HB == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B);
+  if (!rc) rc = tensor_map(&tw, w, a.N, w_rows, BN, L::SRC_ROWS, CU_TENSOR_MAP_SWIZZLE_128B);
+  CUtensorMap ts = tw, tz = tw;  // unused unless the Loader is SCALED
+  if (L::SCALED && !rc) {
+    const int rows = a.K / a.gs * a.srep;
+    rc = tensor_map(&ts, a.scales, a.N, rows, BN, 1, CU_TENSOR_MAP_SWIZZLE_NONE);
+    if (!rc) rc = tensor_map(&tz, a.zeros, a.N, rows, BN, 1, CU_TENSOR_MAP_SWIZZLE_NONE);
+  }
+  if (rc) return rc;
+  auto kernel = gemm_sm90<L, BM, STAGES, OUT>;
+  static uint64_t sized = 0;  // devices whose limit is raised, one set per instantiation
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (!(sized >> (dev & 63) & 1)) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::TOTAL);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    sized |= 1ull << (dev & 63);
+  }
+  const dim3 grid((a.M + BM - 1) / BM, (a.N + BN - 1) / BN, splits);
+  kernel<<<grid, THREADS, S::TOTAL, st>>>(tx, tw, ts, tz, a);
+  if (splits > 1) {
+    const size_t total = (size_t)a.M * a.N;
+    splitk_combine<OUT, L><<<(unsigned)((total + 255) / 256), 256, 0, st>>>(a, splits);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace

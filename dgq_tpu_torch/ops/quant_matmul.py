@@ -10,11 +10,16 @@ wrappers of the hand-written CUDA kernels that replace the TPU kernels:
 (K14) compute K9's function with other TPU tilings (dequantise once per
 weight block, dequantise one block ahead); on Hopper both are tiling choices
 inside one kernel, so they launch K9's kernel and count under K9.
+
+K1 and K9 share one main loop (``csrc/w4a8_gemm_sm90.cuh``: a TMA ring and
+wgmma with the weights as register fragments); ``gemm_plan`` chooses its
+tile and K split, ``fpscale_plan`` K10's.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -24,16 +29,88 @@ from dgq_tpu_torch.quant.packing import unpack_nibbles
 KERNEL = "w4a8_matmul_rp_pipe"
 SPAN = "w4a8_matmul_packed"  # K9 (and K14's names)
 FPSCALE = "w4a8_fpscale_matmul_packed"  # K10
-_SIGNATURES = {
-    "w4a8_rp_gemm_k_split": [_cuda.INT] * 4,
-    "w4a8_rp_gemm": [_cuda.VP] * 4 + [_cuda.INT] * 6 + [_cuda.VP] * 5,
-}
+# x, qw, scales, zeros, srep, M, N, K, gs, tile, splits, sps, alpha, beta, out, part, stream
+_SIGNATURES = {"w4a8_rp_gemm": [_cuda.VP] * 4 + [_cuda.INT] * 8 + [_cuda.VP] * 5}
 _SPAN_SIGNATURES = {
-    "w4a8_span_gemm_p_split": [_cuda.INT] * 6,
-    # x, qw, scales, zeros, srep, M, N, K, gs, p_split, alpha, beta, out, part, mode, stream
-    "w4a8_span_gemm": [_cuda.VP] * 4 + [_cuda.INT] * 6 + [_cuda.VP] * 4 + [_cuda.INT, _cuda.VP],
+    # as K1's, then out_s8 before the stream
+    "w4a8_span_gemm": [_cuda.VP] * 4 + [_cuda.INT] * 8 + [_cuda.VP] * 4 + [_cuda.INT, _cuda.VP],
+    # x, qw, scales, zeros, srep, M, N, K, gs, tile, p_split, alpha, beta, out, part, stream
+    "w4a8_fpscale_gemm": [_cuda.VP] * 4 + [_cuda.INT] * 7 + [_cuda.VP] * 5,
 }
-_F32_OUT, _S8_OUT, _FP_MODE = 0, 1, 2  # the span kernel's modes
+
+PREFILL_TILE, DECODE_TILE = 0, 1  # the main loop's tiles: 256 or 16 token rows
+PREFILL_ROWS, DECODE_ROWS = 256, 16  # DECODE_ROWS: M at or below which the decode tile runs
+TILE_N = 128  # weight columns a block owns
+MAX_SPLITS = 16
+_FILL_STAGES = 6  # a block's start and finish, in stages, for the split choice
+
+
+class GemmPlan(NamedTuple):
+    """How K1 or K9 runs an (M, N, K) call: ``tile`` (``PREFILL_TILE`` or
+    ``DECODE_TILE``) of ``bm`` x ``bn`` outputs; K in ``stages`` stages of
+    ``stage_k`` logical k, split into ``splits`` ranges of ``sps`` whole
+    stages (the last may be shorter), summed exactly in int32."""
+    tile: int
+    bm: int
+    bn: int
+    stage_k: int
+    stages: int
+    splits: int
+    sps: int
+
+    def grid(self, m: int, n: int):
+        """The launch grid: row tiles, column tiles, K splits."""
+        return -(-m // self.bm), -(-n // self.bn), self.splits
+
+
+@functools.lru_cache(maxsize=4096)
+def gemm_plan(m: int, n: int, k: int, groupsize: int, layout: str, sms: int) -> GemmPlan:
+    """The tile and K split of K1 (``layout="rowpair"``) or K9 (``"span"``)
+    for an (m, n, k) call with this group size on a card with ``sms`` SMs.
+
+    Up to DECODE_ROWS rows take the decode tile (16 token rows), more the
+    prefill tile (256); both hold 128 weight columns.  A stage is 128
+    logical k (64 packed rows), or 64 for span weights whose groupsize is not
+    a multiple of 64, so that a stage lies inside one span.  The split is the
+    one that minimises waves x (stages per split + a block's start and
+    finish), which spreads the weight stream of a decode step over the card;
+    the prefill tile is not split once its tiles fill the SMs, where the
+    int32 partials would cost as much as they save."""
+    if layout not in ("rowpair", "span"):
+        raise ValueError(f"layout {layout!r}: 'rowpair' (K1) or 'span' (K9)")
+    stage_k = 128 if layout == "rowpair" or groupsize % 64 == 0 else 64
+    stages = -(-k // stage_k)
+    tile, bm = (DECODE_TILE, DECODE_ROWS) if m <= DECODE_ROWS else (PREFILL_TILE, PREFILL_ROWS)
+    tiles = -(-m // bm) * -(-n // TILE_N)
+    if tile == PREFILL_TILE and tiles >= sms:
+        return GemmPlan(tile, bm, TILE_N, stage_k, stages, 1, stages)
+    best = None
+    for s in range(1, min(stages, MAX_SPLITS) + 1):
+        sps = -(-stages // s)
+        splits = -(-stages // sps)
+        cost = -(-tiles * splits // sms) * (sps + _FILL_STAGES)
+        if best is None or cost < best[0]:
+            best = (cost, splits, sps)
+    return GemmPlan(tile, bm, TILE_N, stage_k, stages, best[1], best[2])
+
+
+@functools.lru_cache(maxsize=4096)
+def fpscale_plan(m: int, n: int, k: int, groupsize: int, sms: int):
+    """K10's (tile, packed rows per split): tile 0 is 16 x 64 (M <= 16), 1 is
+    64 x 128; all K / 2 packed rows unless the output tiles alone leave SMs
+    idle, else whole spans (gs packed rows) split ~2 blocks an SM."""
+    tile, bm, bn = (0, 16, 64) if m <= 16 else (1, 64, 128)
+    blocks = -(-m // bm) * -(-n // bn)
+    kp = k // 2
+    if blocks >= sms:
+        return tile, kp
+    units = kp // groupsize
+    splits = min(-(-2 * sms // blocks), units)
+    return tile, -(-units // splits) * groupsize
+
+
+def _sms(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -127,15 +204,14 @@ def w4a8_matmul_rp_pipe(x_s8: torch.Tensor, qw_rp: torch.Tensor, wscales: torch.
         raise ValueError(f"K1 needs N % 16 == 0, K % 64 == 0 and groupsize % 64 == 0; "
                          f"got N={n}, K={k}, groupsize={groupsize}")
     lib = _cuda.library(_cuda.SOURCES[KERNEL], _SIGNATURES)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    k_split = lib.w4a8_rp_gemm_k_split(m, n, k, sms)
-    splits = -(-k // k_split)
+    plan = gemm_plan(m, n, k, groupsize, "rowpair", _sms(dev))
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
-    part = torch.empty((splits, m, n), dtype=torch.int32, device=dev) if splits > 1 else None
+    part = (torch.empty((plan.splits, m, n), dtype=torch.int32, device=dev)
+            if plan.splits > 1 else None)
     rc = lib.w4a8_rp_gemm(
         _cuda.ptr(x_s8), _cuda.ptr(qw_rp), _cuda.ptr(wscales), _cuda.ptr(wzeros), srep,
-        m, n, k, groupsize, k_split, _cuda.ptr(alpha), _cuda.ptr(beta), _cuda.ptr(out),
-        _cuda.ptr(part), _cuda.stream(dev))
+        m, n, k, groupsize, plan.tile, plan.splits, plan.sps, _cuda.ptr(alpha), _cuda.ptr(beta),
+        _cuda.ptr(out), _cuda.ptr(part), _cuda.stream(dev))
     _cuda.check(rc, KERNEL)
     _cuda.count_launch(KERNEL)
     return out
@@ -163,14 +239,16 @@ def w4a8_matmul_packed_xla(x_s8: torch.Tensor, qweight: torch.Tensor, wscales: t
     return _epilogue(acc.to(torch.float32), alpha, beta, out_dtype)
 
 
-def _span_launch(mode: int, name: str, x_s8, qweight, wscales, wzeros, alpha, beta,
-                 groupsize: int, scales_replicated: bool, out_dtype: torch.dtype):
-    """Check the operands of the span kernel and launch it in ``mode``."""
+def _span_launch(name: str, x_s8, qweight, wscales, wzeros, alpha, beta, groupsize: int,
+                 scales_replicated: bool, out_dtype: torch.dtype):
+    """Check the operands of K9 (int8 scales) or K10 (``name == FPSCALE``,
+    f32 scales) and launch it."""
+    fp = name == FPSCALE
     m, k = x_s8.shape
     k2, n = qweight.shape
     srep = 8 if scales_replicated else 1
     g = k // groupsize
-    sdt = torch.float32 if mode == _FP_MODE else torch.int8
+    sdt = torch.float32 if fp else torch.int8
     dev = x_s8.device
     _cuda.require(x_s8, "x_s8", torch.int8, (m, k), dev)
     _cuda.require(qweight, "qweight", torch.int8, (k2, n), dev)
@@ -183,18 +261,23 @@ def _span_launch(mode: int, name: str, x_s8, qweight, wscales, wzeros, alpha, be
         raise ValueError(f"{name} needs N % 16 == 0 and groupsize % 32 == 0; "
                          f"got N={n}, groupsize={groupsize}")
     lib = _cuda.library(_cuda.SOURCES[name], _SPAN_SIGNATURES)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    p_split = lib.w4a8_span_gemm_p_split(m, n, k, groupsize, mode, sms)
-    splits = -(-k2 // p_split)
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
-    part = None
-    if splits > 1:
-        pdt = torch.float32 if mode == _FP_MODE else torch.int32
-        part = torch.empty((splits, m, n), dtype=pdt, device=dev)
-    rc = lib.w4a8_span_gemm(
-        _cuda.ptr(x_s8), _cuda.ptr(qweight), _cuda.ptr(wscales), _cuda.ptr(wzeros), srep,
-        m, n, k, groupsize, p_split, _cuda.ptr(alpha), _cuda.ptr(beta), _cuda.ptr(out),
-        _cuda.ptr(part), mode, _cuda.stream(dev))
+    args = (_cuda.ptr(x_s8), _cuda.ptr(qweight), _cuda.ptr(wscales), _cuda.ptr(wzeros), srep,
+            m, n, k, groupsize)
+    if fp:
+        tile, p_split = fpscale_plan(m, n, k, groupsize, _sms(dev))
+        splits = -(-k2 // p_split)
+        part = (torch.empty((splits, m, n), dtype=torch.float32, device=dev)
+                if splits > 1 else None)
+        rc = lib.w4a8_fpscale_gemm(*args, tile, p_split, _cuda.ptr(alpha), _cuda.ptr(beta),
+                                   _cuda.ptr(out), _cuda.ptr(part), _cuda.stream(dev))
+    else:
+        plan = gemm_plan(m, n, k, groupsize, "span", _sms(dev))
+        part = (torch.empty((plan.splits, m, n), dtype=torch.int32, device=dev)
+                if plan.splits > 1 else None)
+        rc = lib.w4a8_span_gemm(*args, plan.tile, plan.splits, plan.sps, _cuda.ptr(alpha),
+                                _cuda.ptr(beta), _cuda.ptr(out), _cuda.ptr(part),
+                                int(out_dtype == torch.int8), _cuda.stream(dev))
     _cuda.check(rc, name)
     _cuda.count_launch(name)
     return out
@@ -225,8 +308,7 @@ def w4a8_matmul_packed(x_s8: torch.Tensor, qweight: torch.Tensor, wscales: torch
         srep = 8 if scales_replicated else 1
         return w4a8_matmul_packed_xla(x_s8, qweight, wscales[::srep], wzeros[::srep], alpha,
                                       beta, groupsize=groupsize, out_dtype=out_dtype)
-    mode = _S8_OUT if out_dtype == torch.int8 else _F32_OUT
-    return _span_launch(mode, SPAN, x_s8, qweight, wscales, wzeros, alpha, beta, groupsize,
+    return _span_launch(SPAN, x_s8, qweight, wscales, wzeros, alpha, beta, groupsize,
                         scales_replicated, out_dtype)
 
 
@@ -273,5 +355,5 @@ def w4a8_fpscale_matmul_packed(x_s8: torch.Tensor, qweight: torch.Tensor,
         srep = 8 if scales_replicated else 1
         return w4a8_fpscale_matmul_packed_xla(x_s8, qweight, wscales[::srep], wzeros[::srep],
                                               alpha, beta, groupsize=groupsize)
-    return _span_launch(_FP_MODE, FPSCALE, x_s8, qweight, wscales, wzeros, alpha, beta,
-                        groupsize, scales_replicated, torch.float32)
+    return _span_launch(FPSCALE, x_s8, qweight, wscales, wzeros, alpha, beta, groupsize,
+                        scales_replicated, torch.float32)
