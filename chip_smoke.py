@@ -5,7 +5,12 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It imports no JAX.  Phases, each printing one JSON line with its seconds:
 
 1. device: the card's name and power limit (nvidia-smi); TF32 off.
-2. build: the thirteen CUDA sources, one nvcc each, started together.
+2. build: the thirteen CUDA sources, one nvcc each, started together; the
+   logs of the sources on the TMA + wgmma loop (K1, K4, K5, K9, P1) must not
+   hold ptxas warning C7515 (wgmma serialised), nor may their libraries'
+   SASS (``cuobjdump -sass``) hold a kernel whose every IGMMA is waited for
+   at once (serialised with no warning); K4's and K5's registers and spills
+   are recorded.
 3. kernels: K1 ``w4a8_matmul_rp_pipe``, K2 ``int8_prefill_attention``, K3
    ``int8_decode_attention``, the fused decode kernels K4
    ``fused_norm_gemv_rp``, K5 ``fused_requant_gemv_rp`` and K6
@@ -15,14 +20,23 @@ It imports no JAX.  Phases, each printing one JSON line with its seconds:
    K1 at M = 4, 1024 and 2048; K4-K6 at 4 rows and at 40 = 8 slots x a
    5-token verify window; K7 at cache 16384 in chunks of 4096; K8 at 8 slots
    over a shuffled pool of 128-token pages) and timed beside the plain
-   version, one PyTorch library call for the same function, and the bound.
+   version, one PyTorch library call for the same function (CUDA events
+   around the call, and its kernels' device time from the profiler), and
+   the bound.
    K1's int32 accumulators (alpha 1) and outputs equal the plain version's,
    also at EXTRA_GEMMS (rows that fill no tile, a width that is no multiple
    of the tile's, groupsize 64; not timed).  K4-K6 make their int8 codes
    inside the kernel: their codes are compared with the plain version's (at
    most 1 apart, >= 99.9% equal), and the int32 accumulators (alpha 1, beta
    0) and outputs with the plain version run on the kernel's codes, which
-   must agree exactly.  K7 and K8 agree with their plain versions within
+   must agree exactly.  K4 and K5 are also held at FUSED_CHECK_ROWS rows
+   (every token-row tile, with and without clusters), groupsize 64 and 128
+   and a ragged width, then at groupsize 32 (one scale row a 32-k step, the
+   kernels' other instantiation, after the first in the same process): the codes they hand out equal K5's plain requant and
+   K4's RMSNormQ summed in the kernel's order (and the plain version's
+   within 1), the int32 accumulators and the outputs equal the plain
+   version's on them, with beta, the residual (K5), the norm bias (K4) and
+   ``codes_out`` each on and off.  K7 and K8 agree with their plain versions within
    1e-5, and K8 on a contiguous table with K3 on the same cache.  Then K9
    ``w4a8_matmul_packed`` (which also serves K14's names) at OPT-6.7B shapes
    (q|k|v int8 out, out_proj, fc1 and fc2 f32 out, with biases) and K10
@@ -175,7 +189,9 @@ SPEC_K = 4  # speculative drafts per step (main_span, serve_spec)
 # K1 and K9 run the shared main loop (gemm_sm90) and, when K is split, splitk_combine; each
 # instantiation names its loader
 K1_NAMES = ["RowpairLoader"]
-K4_NAMES, K5_NAMES = ["norm_gemv_rp_kernel"], ["requant_gemv_rp_kernel"]
+# K4 and K5: the TMA + wgmma kernel and, when K is split, the kernel that sums the splits
+K4_NAMES = ["norm_gemv_rp_sm90", "norm_gemv_rp_combine"]
+K5_NAMES = ["requant_gemv_rp_sm90", "requant_gemv_rp_combine"]
 K6_NAMES = ["mlp_decode_rp_kernel", "mlp_decode_rp_epilogue"]
 # K12's three entry points (one source)
 K12_NAMES = {"fused_norm_gemv": ["norm_gemv_span_kernel"],
@@ -208,11 +224,13 @@ class Timer:
     ``timer(fn)``: CUDA events around one call (host launch gaps included),
     median over ``iters`` calls after warm-up.  ``timer.kernel(fn, names)``:
     the device time of the kernels whose names contain one of ``names``,
-    from torch.profiler, averaged over ``iters`` calls."""
+    from torch.profiler, averaged over ``iters`` calls; ``timer.device(fn)``
+    that of all of ``fn``'s kernels."""
 
     def __init__(self, torch):
         self.torch = torch
         self.flush = torch.empty(128 << 20, dtype=torch.uint8, device=DEV)
+        self.flush_keys = None  # the flush's kernel names, learned by the first ``device``
 
     def __call__(self, fn, iters: int = 20, warmup: int = 3) -> float:
         torch = self.torch
@@ -253,28 +271,50 @@ class Timer:
 
         return (run(True) - run(False)) / iters
 
+    def _profile(self, fn, iters: int) -> dict:
+        """Device microseconds by kernel name over ``iters`` calls of ``fn``,
+        each after an L2 flush."""
+        torch = self.torch
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                self.flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        return {e.key: getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0))
+                for e in prof.key_averages()}
+
     def kernel(self, fn, names, iters: int = 20, attempts: int = 3) -> float:
         """A trace that records no device activity at all (seen once on the
         card) is taken again, up to ``attempts`` times."""
-        torch = self.torch
         fn()
-        torch.cuda.synchronize()
+        self.torch.cuda.synchronize()
         for _ in range(attempts):
-            with torch.profiler.profile(
-                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-                for _ in range(iters):
-                    self.flush.zero_()
-                    fn()
-                torch.cuda.synchronize()
-            total_us, seen = 0.0, {}
-            for e in prof.key_averages():
-                us = getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0))
-                seen[e.key] = us
-                if any(n in e.key for n in names):
-                    total_us += us
+            seen = self._profile(fn, iters)
+            total_us = sum(us for key, us in seen.items() if any(n in key for n in names))
             if total_us > 0:
                 return total_us / iters / 1e3
         raise RuntimeError(f"profiler saw no device time for {names}; it saw {seen}")
+
+    def device(self, fn, iters: int = 20, attempts: int = 3) -> float:
+        """Device time of every kernel that ``fn`` launches, whatever its
+        name (a library call's own kernels), from torch.profiler, averaged
+        over ``iters`` calls; the L2 flush's kernels are left out."""
+        if self.flush_keys is None:
+            self.flush_keys = set(self._profile(lambda: None, 3))
+        fn()
+        self.torch.cuda.synchronize()
+        for _ in range(attempts):
+            seen = self._profile(fn, iters)
+            total_us = sum(us for key, us in seen.items() if key not in self.flush_keys)
+            if total_us > 0:
+                return total_us / iters / 1e3
+        raise RuntimeError(f"profiler saw no device time besides the flush; it saw {seen}")
+
+    def library(self, fn) -> dict:
+        """A library yardstick: ``library_ms``, CUDA events around one call
+        (host dispatch included), and ``library_device_ms``, its kernels'
+        device time."""
+        return {"library_ms": self(fn), "library_device_ms": self.device(fn)}
 
 
 def bound_ms(nbytes: float, *unit_seconds: float):
@@ -298,10 +338,90 @@ def phase_device(torch, state):
             "torch": torch.__version__, "cuda": torch.version.cuda}
 
 
+# the sources on the TMA + wgmma loop (w4a8_gemm_sm90.cuh), whose nvcc logs must not
+# hold ptxas warning C7515 (wgmma serialised: right, but slower)
+WGMMA_SOURCES = ("w4a8_rp_gemm", "w4a8_span_gemm", "s8_gemm", "fused_norm_gemv_rp",
+                 "fused_requant_gemv_rp")
+
+
+def _ptxas_entries(log: str, marker: str) -> dict:
+    """Registers and spills of the entry functions whose names hold
+    ``marker``, from an nvcc log with ``-Xptxas -v``."""
+    import re
+
+    out, entry = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1) if marker in m.group(1) else None
+            continue
+        if entry is None:
+            continue
+        args = re.findall(r"Li(\d+)E", entry)  # the template's int arguments
+        name = re.search(r"[a-z_]*" + marker, entry).group(0)
+        key = name + (f"<{', '.join(args)}>" if args else "")
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out.setdefault(key, {})["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.setdefault(key, {})["registers"] = int(m.group(1))
+    return out
+
+
+def _serialised_wgmma(sass: str) -> dict:
+    """From a ``cuobjdump -sass`` listing: per function that holds IGMMA
+    (int8 wgmma), whether every IGMMA is waited for at once, i.e. the next
+    IGMMA or WARPGROUP.DEPBAR after it is ``WARPGROUP.DEPBAR.LE gsb0, 0x0``.
+    That is how ptxas serialises wgmmas, also when it prints no C7515 (two
+    fragment sets given the same registers); a pipelined loop issues two
+    IGMMAs back to back and then waits for all but the last group."""
+    import re
+
+    events, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            events[fn] = []
+        elif fn is not None and "IGMMA" in line:
+            events[fn].append("mma")
+        elif fn is not None and "WARPGROUP.DEPBAR" in line:
+            events[fn].append("wait0" if re.search(r"gsb0, 0x0\s*;", line) else "wait")
+    return {f: all(e[i + 1:i + 2] == ["wait0"] for i, x in enumerate(e) if x == "mma")
+            for f, e in events.items() if "mma" in e}
+
+
 def phase_build(torch, state):
     from dgq_tpu_torch.ops import _cuda
 
-    return {"nvcc_seconds": _cuda.build()}
+    seconds = _cuda.build()
+    version = subprocess.run([_cuda._nvcc(), "--version"], capture_output=True, text=True,
+                             timeout=60).stdout
+    nvcc = next((line for line in version.splitlines() if "release" in line), version.strip())
+    ptxas, igmma_kernels = {}, {}
+    for stem in WGMMA_SOURCES:
+        log = (_cuda.BUILD_DIR / f"{stem}.log").read_text()
+        if "C7515" in log:
+            raise AssertionError(f"csrc/{stem}.cu: ptxas serialised the wgmmas (C7515)")
+        if stem.startswith("fused_"):
+            ptxas[stem] = _ptxas_entries(log, "gemv_rp_sm90")
+            # fused_plan lets two blocks of 288 threads share an SM: 113 registers a thread
+            for name, e in ptxas[stem].items():
+                if e.get("registers", 0) > 65536 // (2 * 288) or e.get("spill_bytes", 0):
+                    raise AssertionError(f"csrc/{stem}.cu: {name} takes {e}")
+        sass = subprocess.run([str(Path(_cuda._nvcc()).with_name("cuobjdump")), "-sass",
+                               str(_cuda._lib_path(stem))], capture_output=True, text=True,
+                              timeout=300, check=True).stdout
+        serial = _serialised_wgmma(sass)
+        if not serial:
+            raise AssertionError(f"csrc/{stem}.cu: no IGMMA in its SASS")
+        if any(serial.values()):
+            raise AssertionError(f"csrc/{stem}.cu: wgmmas serialised in "
+                                 f"{[f for f, bad in serial.items() if bad]}")
+        igmma_kernels[stem] = len(serial)
+    return {"nvcc_seconds": seconds, "nvcc": nvcc, "no_c7515": list(WGMMA_SOURCES),
+            "igmma_kernels_pipelined": igmma_kernels, "ptxas": ptxas}
 
 
 def _k1_cases(torch, timer, gen):
@@ -339,13 +459,13 @@ def _k1_cases(torch, timer, gen):
             if not torch.equal(y_k, y_p):
                 raise AssertionError(f"K1 {name} M={m}: {(y_k != y_p).sum().item()} outputs differ")
             err = (y_k - y_p).abs().max().item()
-            lib_ms = _int_mm_ms(torch, timer, x, dequantize_rowpair(qw, ws, wz, gs))
+            lib = _int_mm_times(torch, timer, x, dequantize_rowpair(qw, ws, wz, gs))
             nbytes = m * k + k * n // 2 + 2 * (k // gs) * n + 4 * n + 4 * m * n
             b_ms, b_by = bound_ms(nbytes, 2.0 * m * n * k / INT8_OPS_PER_S)
             cases.append({"linear": name, "M": m, "N": n, "K": k, "max_abs_err": err,
                           "ms": timer.kernel(kern, K1_NAMES), "call_ms": timer(kern),
                           "plain_ms": timer(plain, iters=10),
-                          "library_ms": lib_ms, "library_rows": max(m, 32),
+                          **lib, "library_rows": max(m, 32),
                           "bound_ms": b_ms, "bound_by": b_by})
             del x, qw, ws, wz, ws8, wz8, acc_k, acc_p, y_k, y_p
     return cases + _gemm_extra_cases(torch, gen, span=False)
@@ -408,12 +528,13 @@ def _gemm_extra_cases(torch, gen, span):
     return cases
 
 
-def _int_mm_ms(torch, timer, x, w8) -> float:
-    """Time of torch._int_mm of x against pre-dequantised int8 weights, the
-    library yardstick of K1, K4-K6, K9, K12 and the probes P1-P3; x is padded
-    to 32 rows, since _int_mm takes more than 16.  The faster of the second
-    operand as it is (row-major) and column-major, the layout cuBLASLt's
-    int8 kernels take (a build may refuse the row-major one)."""
+def _int_mm_times(torch, timer, x, w8) -> dict:
+    """Times of torch._int_mm of x against pre-dequantised int8 weights, the
+    library yardstick of K1, K4-K6, K9, K12 and the probes P1-P3
+    (``Timer.library``); x is padded to 32 rows, since _int_mm takes more
+    than 16.  The faster of the second operand as it is (row-major) and
+    column-major, the layout cuBLASLt's int8 kernels take (a build may
+    refuse the row-major one), by events and by device time each."""
     m, k = x.shape
     if m < 32:
         x = torch.cat([x, torch.zeros((32 - m, k), dtype=x.dtype, device=x.device)])
@@ -423,8 +544,12 @@ def _int_mm_ms(torch, timer, x, w8) -> float:
             torch._int_mm(x, w)
         except RuntimeError:
             continue
-        times.append(timer(lambda w=w: torch._int_mm(x, w)))
-    return min(times)
+        times.append(timer.library(lambda w=w: torch._int_mm(x, w)))
+    return {key: min(t[key] for t in times) for key in times[0]}
+
+
+def _sum_times(*times) -> dict:
+    return {key: sum(t[key] for t in times) for key in times[0]}
 
 
 def _attn_inputs(torch, gen, b, h, hk, s, dh, smax):
@@ -459,7 +584,7 @@ def _k2_cases(torch, timer, gen):
         kb = (kt[..., :plen].transpose(2, 3).float() * ks).to(torch.bfloat16).contiguous()
         vb = (v[:, :, :plen].float() * vs).to(torch.bfloat16)
         sdpa = torch.nn.functional.scaled_dot_product_attention
-        lib_ms = timer(lambda: sdpa(qb, kb, vb, is_causal=True, enable_gqa=hk != h))
+        lib = timer.library(lambda: sdpa(qb, kb, vb, is_causal=True, enable_gqa=hk != h))
         pairs = sp * (sp + 1) // 2  # causal (query, key) pairs per head
         flops = 2.0 * dh * b * h * pairs
         nbytes = b * h * sp * dh + 2 * b * hk * plen * dh + 4 * b * h * sp * dh
@@ -467,7 +592,7 @@ def _k2_cases(torch, timer, gen):
         cases.append({"B": b, "H": h, "Hkv": hk, "Sp": sp, "Smax": SMAX, "plen": plen,
                       "max_abs_err": err, "ms": timer.kernel(kern, ["prefill_attn_kernel"]),
                       "call_ms": timer(kern), "plain_ms": timer(plain, iters=10),
-                      "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by})
+                      **lib, "bound_ms": b_ms, "bound_by": b_by})
     return cases
 
 
@@ -476,7 +601,8 @@ def _sdpa_decode_ms(torch, timer, q, kt, v, scales, lengths) -> dict:
     SDPA for one query token per head over each slot's valid positions of a
     dense (B, Hkv, Dh, Smax) cache, timed two ways: one call padded to
     max(lengths) with a per-slot mask, and one call per slot over its own
-    length, summed.  ``library_ms`` is the faster of the two."""
+    length, summed.  ``library_ms`` and ``library_device_ms``
+    (``Timer.library``) are the faster of the two."""
     qs, ks, vs = scales
     lens = lengths.tolist()
     n = max(lens)
@@ -486,7 +612,7 @@ def _sdpa_decode_ms(torch, timer, q, kt, v, scales, lengths) -> dict:
     kb = (kt[..., :n].transpose(2, 3).float() * ks).to(torch.bfloat16).contiguous()
     vb = (v[:, :, :n].float() * vs).to(torch.bfloat16).contiguous()
     mask = (torch.arange(n, device=q.device)[None] < lengths[:, None])[:, None, None]
-    padded = timer(lambda: sdpa(qb, kb, vb, attn_mask=mask, enable_gqa=gqa))
+    padded = timer.library(lambda: sdpa(qb, kb, vb, attn_mask=mask, enable_gqa=gqa))
     slots = [(qb[i:i + 1], kb[i:i + 1, :, :m].contiguous(), vb[i:i + 1, :, :m].contiguous())
              for i, m in enumerate(lens)]
 
@@ -494,9 +620,13 @@ def _sdpa_decode_ms(torch, timer, q, kt, v, scales, lengths) -> dict:
         for a, b, c in slots:
             sdpa(a, b, c, enable_gqa=gqa)
 
-    ragged = timer(per_slot)
-    return {"library_ms": min(padded, ragged), "library_padded_ms": padded,
-            "library_per_slot_ms": ragged}
+    ragged = timer.library(per_slot)
+    return {"library_ms": min(padded["library_ms"], ragged["library_ms"]),
+            "library_device_ms": min(padded["library_device_ms"], ragged["library_device_ms"]),
+            "library_padded_ms": padded["library_ms"],
+            "library_per_slot_ms": ragged["library_ms"],
+            "library_padded_device_ms": padded["library_device_ms"],
+            "library_per_slot_device_ms": ragged["library_device_ms"]}
 
 
 def _decode_bound(b, h, hk, dh, keys, quant_pv, extra_bytes=0, kv_bytes=1.0):
@@ -657,7 +787,7 @@ def _k4_case(torch, gen, m, gs, extras, span=False):
                         span=2 * gs, eps=eps, codes=codes[0] if codes else None)
 
     def lib(timer):
-        return _int_mm_ms(torch, timer, fd._rmsnorm_q(x, lnw, lnb, eps), deq(qw, ws, wz, gs))
+        return _int_mm_times(torch, timer, fd._rmsnorm_q(x, lnw, lnb, eps), deq(qw, ws, wz, gs))
 
     c = {"what": f"{'K12 norm' if span else 'K4'} M={m} gs={gs}", "kern": kern, "plain": plain,
          "own": lambda codes: [fd._rmsnorm_q(x, lnw, lnb, eps)], "shapes": [(m, k)],
@@ -702,7 +832,8 @@ def _k5_case(torch, gen, m, gs, extras, span=False):
                         codes=codes[0] if codes else None)
 
     def lib(timer):
-        return _int_mm_ms(torch, timer, fd._requant_q(x, scale, -127.0), deq(qw, ws, wz, gs))
+        return _int_mm_times(torch, timer, fd._requant_q(x, scale, -127.0),
+                             deq(qw, ws, wz, gs))
 
     c = {"what": f"{'K12 requant' if span else 'K5'} M={m} gs={gs}", "kern": kern,
          "plain": plain, "own": lambda codes: [fd._requant_q(x, scale, -127.0)],
@@ -769,9 +900,9 @@ def _k6_case(torch, gen, m, gs, extras, span=False):
 
     def lib(timer):
         hq = torch.randint(-128, 128, (m, f), generator=gen, device=DEV, dtype=torch.int8)
-        return (_int_mm_ms(torch, timer, fd._rmsnorm_q(x, lnw, lnb, eps),
-                           deq(gqw, gws, gwz, gs))
-                + _int_mm_ms(torch, timer, hq, deq(dqw, dws, dwz, gs)))
+        return _sum_times(_int_mm_times(torch, timer, fd._rmsnorm_q(x, lnw, lnb, eps),
+                                        deq(gqw, gws, gwz, gs)),
+                          _int_mm_times(torch, timer, hq, deq(dqw, dws, dwz, gs)))
 
     c = {"what": f"{'K12 mlp' if span else 'K6'} M={m} gs={gs}", "kern": kern, "plain": plain,
          "own": own, "shapes": [(m, d), (m, f)],
@@ -809,22 +940,129 @@ def _fused_cases(torch, timer, gen, span=False):
             b_ms, b_by = bound_ms(c["nbytes"], c["ops"] / INT8_OPS_PER_S)
             case.update({"ms": timer.kernel(run, c["names"]), "call_ms": timer(run),
                          "plain_ms": timer(lambda c=c: c["plain"](False, None), iters=10),
-                         "bound_ms": b_ms, "bound_by": b_by, "library_ms": c["lib"](timer)})
+                         "bound_ms": b_ms, "bound_by": b_by, **c["lib"](timer)})
             out[key].append(case)
             del c
     return out
 
 
 def _fused_sweep(torch, gen, span=False):
-    """K4-K6 checked (not timed) off the main path's shapes: 1 row, 9 rows
-    at groupsize 64, and 64 rows (the engine's cap; two passes through
-    shared memory), with bias, beta and residual on; K12 at 1, 9 and 64 rows
-    at groupsize 64 (spans of 128)."""
+    """K6 checked (not timed) off the main path's shapes: 1 row, 9 rows at
+    groupsize 64, and 64 rows (the engine's cap; two passes through shared
+    memory), with bias, beta and residual on; K12 at 1, 9 and 64 rows at
+    groupsize 64 (spans of 128).  (K4 and K5: ``_rowpair_gemv_checks``.)"""
     out = []
     for m, gs in (((1, 64), (9, 64), (64, 64)) if span else ((1, 128), (9, 64), (64, 128))):
-        for build in (SPAN_CASES if span else FUSED_CASES).values():
+        for build in (SPAN_CASES.values() if span else (_k6_case,)):
             out.append({**_fused_check(torch, build(torch, gen, m, gs, extras=True, span=span)),
                         "groupsize": gs})
+    return out
+
+
+# K4 and K5 held bit-equal, not timed: every token-row tile, clusters or none, groupsize 64
+# and 128, and (at 9 and 40 rows) RAGGED_N columns past the main path's width, which a
+# 128-column block covers in part; then at FUSED_GS32_ROWS rows groupsize 32, whose
+# kernels (a scale row a 32-k step) run after the others' in one process
+FUSED_CHECK_ROWS = (1, 4, 8, 9, 17, 40, 64)
+RAGGED_N = 96
+FUSED_GS32_ROWS = (1, 4, 17, 40, 64)
+
+
+def _rmsnorm_q_ordered(torch, x, w, b, eps):
+    """RMSNormQ codes summed in the CUDA kernels' fixed order
+    (``fgemv::rmsnorm_codes``, ``row_rsqrt`` in csrc/fused_gemv_sm90.cuh):
+    lane l of a warp adds the squares of x[4l + 128j + c] for j = 0, 1, ...
+    and c = 0..3 in turn, then an xor butterfly adds the 32 lane sums; each
+    step one fp32 operation rounded on its own.  The plain version's
+    torch.mean sums in another order, so one code in ~10^5 lands 1 apart."""
+    m, k = x.shape
+    sq = (x * x).reshape(m, k // 128, 32, 4)
+    ss = torch.zeros((m, 32), dtype=torch.float32, device=x.device)
+    for j in range(k // 128):
+        for c in range(4):
+            ss = ss + sq[:, j, :, c]
+    lanes = torch.arange(32, device=x.device)
+    for o in (16, 8, 4, 2, 1):
+        ss = ss + ss[:, lanes ^ o]
+    y = x * torch.rsqrt(ss[:, :1] / k + eps) * w
+    if b is not None:
+        y = y + b
+    return torch.clamp(torch.round(y), -128, 127).to(torch.int8)
+
+
+def _rowpair_gemv_checks(torch, gen):
+    """K4 and K5 against their plain versions: the codes they hand out
+    (``codes_out``) equal K5's plain requant and, for K4, the RMSNormQ codes
+    summed in the kernel's fixed order (``_rmsnorm_q_ordered``; the plain
+    version's within 1 and >= 99.9% equal); the int32 accumulators (alpha 1,
+    no beta, no residual) equal the plain version's on those codes, and so
+    do the outputs with beta, K5's residual, K4's norm bias and
+    ``codes_out`` each on and off (the handed-out codes again equal)."""
+    import itertools
+
+    from dgq_tpu_torch.ops import fused_decode as fd
+
+    eps, sms = 1e-5, torch.cuda.get_device_properties(0).multi_processor_count
+    shapes = ([(m, gs, 0) for gs in (64, 128) for m in FUSED_CHECK_ROWS]
+              + [(m, 64, RAGGED_N) for m in (9, 40)]
+              + [(m, 32, 0) for m in FUSED_GS32_ROWS] + [(9, 32, RAGGED_N)])
+    out = []
+    for (m, gs, extra), norm in itertools.product(shapes, (True, False)):
+        n, k = LINEARS["qkv_proj" if norm else "o_proj"]
+        n += extra
+        qw, ws, wz = _q4_weights(torch, gen, k, n, gs)
+        w = (qw, *_plane_rows(ws, wz), torch.zeros((n,), dtype=torch.int32, device=DEV))
+        alpha = torch.rand((n,), generator=gen, device=DEV) * 1e-3 + 1e-5
+        beta = torch.randn((n,), generator=gen, device=DEV)
+        one = torch.ones((n,), device=DEV)
+        x = torch.randn((m, k), generator=gen, device=DEV)
+        lnw = torch.full((k,), 10.0, device=DEV)
+        scale = torch.full((), 0.05, device=DEV)
+        # K4: without and with the norm bias (it moves the codes); K5: without and with the
+        # residual (it does not)
+        sides = (None, torch.randn((k,) if norm else (m, n), generator=gen, device=DEV))
+        what = f"{'K4' if norm else 'K5'} M={m} N={n} gs={gs}"
+
+        def run(a, b, side, codes_out=None, codes=None):
+            if norm:
+                fn = fd.fused_norm_gemv_rp if codes is None else fd.fused_norm_gemv_rp_xla
+                kw = {"codes_out": codes_out} if codes is None else {"codes": codes}
+                return fn(x, lnw, side, *w, a, b, span=2 * gs, eps=eps, **kw)
+            fn = fd.fused_requant_gemv_rp if codes is None else fd.fused_requant_gemv_rp_xla
+            kw = {"codes_out": codes_out} if codes is None else {"codes": codes}
+            return fn(x, scale, *w, a, b, side, span=2 * gs, qmin=-127.0,
+                      fuse_residual=side is not None, **kw)
+
+        def check_equal(tag, got, want):
+            if not torch.equal(got, want):
+                raise AssertionError(f"{what} {tag}: {(got != want).sum().item()} differ")
+
+        runs, plain_stats = 0, []
+        for side in (sides if norm else sides[:1]):
+            codes = torch.empty((m, k), dtype=torch.int8, device=DEV)
+            acc = run(one, None, side, codes_out=codes)
+            if norm:
+                check_equal("codes", codes, _rmsnorm_q_ordered(torch, x, lnw, side, eps))
+                plain_stats.append(_code_stats(codes, fd._rmsnorm_q(x, lnw, side, eps)))
+                _check_codes(f"{what} codes against the plain version", plain_stats[-1])
+            else:
+                check_equal("codes", codes, fd._requant_q(x, scale, -127.0))
+            check_equal("accumulators", acc, run(one, None, side, codes=codes))
+            for b, s2, co in itertools.product((None, beta), sides if not norm else (side,),
+                                               (False, True)):
+                got = torch.empty_like(codes) if co else None
+                check_equal(f"outputs (beta {b is not None}, side {s2 is not None}, "
+                            f"codes_out {co})", run(alpha, b, s2, codes_out=got),
+                            run(alpha, b, s2, codes=codes))
+                if co:
+                    check_equal("handed-out codes", got, codes)
+                runs += 1
+        plan = fd.fused_plan(m, n, k, gs, sms, norm)
+        out.append({"kernel": "K4" if norm else "K5", "M": m, "N": n, "K": k, "groupsize": gs,
+                    "plan": plan._asdict(), "output_runs": runs, "bit_equal": True,
+                    "codes_equal": True, "max_abs_err": 0.0,
+                    "codes_vs_plain": [{"max_diff": d, "equal_share": e} for d, e in plain_stats]})
+        del qw, ws, wz, w, x
     return out
 
 
@@ -863,13 +1101,13 @@ def _k9_cases(torch, timer, gen):
             y_k, y_p = kern(), plain()
             if not torch.equal(y_k, y_p):
                 raise AssertionError(f"{what}: {(y_k != y_p).sum().item()} outputs differ")
-            lib_ms = _int_mm_ms(torch, timer, x, dequantize_span(qw, ws, wz, gs))
+            lib = _int_mm_times(torch, timer, x, dequantize_span(qw, ws, wz, gs))
             nbytes = m * k + k * n // 2 + 2 * (k // gs) * n + 8 * n + od.itemsize * m * n
             b_ms, b_by = bound_ms(nbytes, 2.0 * m * n * k / INT8_OPS_PER_S)
             cases.append({"linear": name, "M": m, "N": n, "K": k, "out": str(od)[6:],
                           "max_abs_err": (y_k.float() - y_p.float()).abs().max().item(),
                           "ms": timer.kernel(kern, K9_NAMES), "call_ms": timer(kern),
-                          "plain_ms": timer(plain, iters=5), "library_ms": lib_ms,
+                          "plain_ms": timer(plain, iters=5), **lib,
                           "library_rows": max(m, 32), "bound_ms": b_ms, "bound_by": b_by})
             del x, qw, ws, wz, ws8, wz8, acc_k, acc_p, y_k, y_p
     return cases + _gemm_extra_cases(torch, gen, span=True)
@@ -914,7 +1152,7 @@ def _k10_cases(torch, timer, gen):
             w_fp = (codes - torch.repeat_interleave(wz, gs, dim=0)) * torch.repeat_interleave(
                 ws, gs, dim=0)
             xf = x.float()
-            lib_ms = timer(lambda: torch.matmul(xf, w_fp))
+            lib = timer.library(lambda: torch.matmul(xf, w_fp))
             del codes, w_fp, xf
             g = k // gs
             nbytes = m * k + k * n // 2 + 8 * g * n + 8 * n + 4 * m * n
@@ -924,7 +1162,7 @@ def _k10_cases(torch, timer, gen):
             cases.append({"linear": name, "M": m, "N": n, "K": k, "splits": splits,
                           "bit_equal": equal, "max_abs_err": err, "largest_output": top,
                           "ms": timer.kernel(kern, K10_NAMES), "call_ms": timer(kern),
-                          "plain_ms": timer(plain, iters=5), "library_ms": lib_ms,
+                          "plain_ms": timer(plain, iters=5), **lib,
                           "bound_ms": b_ms, "bound_by": b_by})
             del x, qw, ws, wz, ws8, wz8, y_k, y_p
     return cases
@@ -1118,6 +1356,7 @@ def phase_kernels(torch, state):
     state["k2"] = _k2_cases(torch, timer, gen)
     state["k3"] = _k3_cases(torch, timer, gen)
     state.update(_fused_cases(torch, timer, gen))
+    k45 = _rowpair_gemv_checks(torch, gen)
     sweep = _fused_sweep(torch, gen)
     state["k7"] = _k7_cases(torch, timer, gen)
     state["k8"] = _k8_cases(torch, timer, gen)
@@ -1128,8 +1367,8 @@ def phase_kernels(torch, state):
     sweep12 = _fused_sweep(torch, gen, span=True)
     del timer
     torch.cuda.empty_cache()
-    return {**{f"k{i}": state[f"k{i}"] for i in range(1, 13)}, "k4_k6_sweep": sweep,
-            "k12_sweep": sweep12}
+    return {**{f"k{i}": state[f"k{i}"] for i in range(1, 13)}, "k4_k5_checks": k45,
+            "k6_sweep": sweep, "k12_sweep": sweep12}
 
 
 def _drive_main(torch, cfg, ecfg, want, smax=SMAX, new_tokens=NEW_TOKENS,
@@ -2475,45 +2714,45 @@ def _probe_gemm_cases(torch, timer, gen):
         return {**info, "max_abs_err": 0.0, "ms": timer.kernel(kern, names),
                 "events_ms": timer.events(kern), "call_ms": timer(kern),
                 "plain_ms": timer(plain, iters=5),
-                "library_ms": library(), "bound_ms": b_ms, "bound_by": b_by}
+                **library(), "bound_ms": b_ms, "bound_by": b_by}
 
     cases = {}
     m, n, k = p1.M, p1.N, p1.K
     x, w = ri(-127, 128, (m, k)), ri(-127, 128, (k, n))
-    lib_ms = _int_mm_ms(torch, timer, x, w)
+    lib = _int_mm_times(torch, timer, x, w)
     cases["s8_matmul"] = [
         case("P1", ["S8Loader"], lambda t=t: p1.s8_matmul(x, w, bm=t[0], bn=t[1]),
              lambda: p1.s8_matmul_plain(x, w), m * k + k * n + 4 * m * n, 2.0 * m * n * k,
-             lambda: lib_ms, M=m, N=n, K=k, tile=list(t), library_rows=m)
+             lambda: lib, M=m, N=n, K=k, tile=list(t), library_rows=m)
         for t in p1.TILINGS]
     del x, w
     k, n, b = p2.K, p2.N, p2.B
     x, w = ri(-127, 127, (b, k)), ri(-127, 127, (k, n))
-    lib_ms = _int_mm_ms(torch, timer, x, w)
+    lib = _int_mm_times(torch, timer, x, w)
     nm = p2.mix_split(n, 0.5)
     cases["mxu_gemv"] = [case("P2 mxu", ["mxu_gemv_kernel"], lambda: p2.mxu_gemv(x, w),
                               lambda: p2.mxu_gemv_plain(x, w), b * k + k * n + 4 * b * n,
-                              2.0 * b * n * k, lambda: lib_ms, M=b, N=n, K=k, library_rows=32)]
+                              2.0 * b * n * k, lambda: lib, M=b, N=n, K=k, library_rows=32)]
     cases["vpu_gemv"] = [case("P2 vpu", ["vpu_gemv_kernel"], lambda: p2.vpu_gemv(x, w),
                               lambda: p2.vpu_gemv_plain(x, w), k + k * n + 4 * n,
-                              2.0 * n * k, lambda: _int_mm_ms(torch, timer, x[:1], w),
+                              2.0 * n * k, lambda: _int_mm_times(torch, timer, x[:1], w),
                               M=1, N=n, K=k, library_rows=32)]
     cases["mix_gemv"] = [case("P2 mix", ["mix_gemv_kernel"], lambda: p2.mix_gemv(x, w),
                               lambda: p2.mix_gemv_plain(x, w),
                               b * k + k * n + 4 * b * nm + 4 * (n - nm),
-                              2.0 * k * (b * nm + n - nm), lambda: lib_ms, M=b, N=n, K=k,
+                              2.0 * k * (b * nm + n - nm), lambda: lib, M=b, N=n, K=k,
                               nm=nm, library_rows=32)]
     del x, w
     k, n, b = p3.K, p3.N, 2 * p3.B
     x, wb = ri(-8, 8, (b, k)), ri(-128, 128, (k, n // 2))
-    lib_ms = _int_mm_ms(torch, timer, x, p3.unpack_s4_pairs(wb))
+    lib = _int_mm_times(torch, timer, x, p3.unpack_s4_pairs(wb))
     common = dict(nbytes=b * k + k * n // 2 + 4 * b * n, ops=2.0 * b * n * k)
     cases["pallas_s4"] = [case("P3 pairs", ["s4_gemv_kernel"], lambda: p3.pallas_s4(x, wb),
-                               lambda: p3.pallas_s4_plain(x, wb), library=lambda: lib_ms,
+                               lambda: p3.pallas_s4_plain(x, wb), library=lambda: lib,
                                M=b, N=n, K=k, library_rows=32, **common)]
     cases["pallas_s4_bitcast"] = [case(
         "P3 bitcast", ["s4_gemv_kernel"], lambda: p3.pallas_s4_bitcast(x, wb),
-        lambda: p3.pallas_s4_bitcast_plain(x, wb), library=lambda: lib_ms, M=b, N=n, K=k,
+        lambda: p3.pallas_s4_bitcast_plain(x, wb), library=lambda: lib, M=b, N=n, K=k,
         bn=p3.BN, library_rows=32, **common)]
     del x, wb
     k, n2 = p4.NUM_K, p4.NUM_N2
@@ -2521,7 +2760,8 @@ def _probe_gemm_cases(torch, timer, gen):
     cases["pallas_s4_bitcast"].append(case(
         "P4 kern", ["s4_gemv_kernel"], lambda: p4.kern(x, wb),
         lambda: p3.pallas_s4_bitcast_plain(x, wb, 2 * n2), 8 * k + k * n2 + 4 * 8 * 2 * n2,
-        2.0 * 8 * 2 * n2 * k, lambda: _int_mm_ms(torch, timer, x, p3.unpack_s4_halves(wb, 2 * n2)),
+        2.0 * 8 * 2 * n2 * k,
+        lambda: _int_mm_times(torch, timer, x, p3.unpack_s4_halves(wb, 2 * n2)),
         M=8, N=2 * n2, K=k, bn=2 * n2, routed="kern", library_rows=32))
     return cases
 
@@ -2542,7 +2782,7 @@ def _probe_pv_cases(torch, timer, gen):
         kb = kt[..., :length].transpose(2, 3).to(torch.bfloat16).contiguous()
         vb = (v[:, :, :length].float() * p5.V_SCALE).to(torch.bfloat16).contiguous()
         sdpa = torch.nn.functional.scaled_dot_product_attention
-        lib_ms = timer(lambda: sdpa(qb, kb, vb, scale=1.0, enable_gqa=hk != h))
+        lib = timer.library(lambda: sdpa(qb, kb, vb, scale=1.0, enable_gqa=hk != h))
         for mode in p5.MODES:
             def kern(mode=mode):
                 return p5.attn(q, kt, v, lengths, mode)
@@ -2562,7 +2802,8 @@ def _probe_pv_cases(torch, timer, gen):
                           "ms": timer.kernel(kern, ["pv_parts_kernel"]),
                           "events_ms": timer.events(kern), "call_ms": timer(kern),
                           "plain_ms": timer(plain, iters=10), "bound_ms": b_ms,
-                          "bound_by": b_by, "library_ms": lib_ms if mode == "fp" else None})
+                          "bound_by": b_by,
+                          **(lib if mode == "fp" else dict.fromkeys(lib))})
         del q, kt, v
     return cases
 
@@ -2746,7 +2987,8 @@ def kernels_line(state):
     for name in ("w4a8_matmul_rp_pipe", "w4a8_matmul_packed", "w4a8_fpscale_matmul_packed"):
         pre = [c for c in cases[name] if c["M"] == BATCH * PROMPT and not c.get("extra")]
         head[name] = {key: sum(c[key] for c in pre)
-                      for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+                      for key in ("ms", "plain_ms", "library_ms", "library_device_ms",
+                                  "bound_ms")}
         head[name]["bound_by"] = "operations" if all(
             c["bound_by"] == "operations" for c in pre) else "bytes"
     for name in (*ROWPAIR_FUSED, *K12_NAMES):
@@ -2762,6 +3004,7 @@ def kernels_line(state):
                  "max_abs_err": max(c["max_abs_err"] for c in cases[name]),
                  "ms": h["ms"], "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"],
                  "bound_by": h["bound_by"], "library_ms": h["library_ms"],
+                 "library_device_ms": h["library_device_ms"],
                  "cases": cases[name]}
         if name in ALSO_REPLACES:
             entry["also_replaces"] = ALSO_REPLACES[name]

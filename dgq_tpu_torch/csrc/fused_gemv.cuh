@@ -1,8 +1,11 @@
-// Shared pieces of the fused decode kernels K4-K6 (rowpair weights) and K12
+// Shared pieces of the fused decode kernels K6 (rowpair weights) and K12
 // (span weights), for Hopper (sm_90a): the prologues that make int8 codes
 // from fp32 rows, the warp-level product of 8 code rows with 32 weight
-// columns, the K4/K5 GEMV body and the K6/K12 MLP body, each templated on a
-// weight loader (Rowpair or Span).
+// columns, K12's norm and requant GEMV body (gemv_body, span weights only)
+// and the MLP body of K6 and K12 (mlp_body, templated on a weight loader:
+// Rowpair or Span).  K4 and K5, the rowpair GEMVs, run on the TMA + wgmma
+// loop of the W4A8 GEMMs instead (fused_gemv_sm90.cuh); they take clamp_code,
+// pack4 and gemv_shapes_ok from here.
 //
 // Rowpair weights: byte r of column n holds the shifted code (c - 8) & 0xF of
 // row 2r in its low nibble and of row 2r+1 in its high one, so nib ^ 8 is the
@@ -315,10 +318,10 @@ __device__ __forceinline__ float epilogue(int acc, float alpha, const float* bet
 }
 
 // ---------------------------------------------------------------------------
-// K4 / K5 (rowpair) and K12's first two (span) body: codes of all rows ->
-// (M, N) f32, one block per group of 32-column tiles (persistent over tiles),
-// the K walk (groups, or spans of two groups) split over the block's warps
-// and summed exactly in shared memory.
+// K12's norm and requant body (span weights): codes of all rows -> (M, N)
+// f32, one block per group of 32-column tiles (persistent over tiles), the K
+// walk (spans of two groups) split over the block's warps and summed exactly
+// in shared memory.
 // ---------------------------------------------------------------------------
 
 inline size_t gemv_smem(int rows, int K, int gs) {
@@ -340,16 +343,16 @@ inline int gemv_rows_per_pass(int M, int K, int gs) {
 
 struct GemvArgs {
   const float* x;         // (M, K) f32
-  const float* lnw;       // K4: (K,) norm weight
-  const float* lnb;       // K4: (K,) norm bias or null
+  const float* lnw;       // norm: (K,) norm weight
+  const float* lnb;       // norm: (K,) norm bias or null
   float eps;
-  const float* in_scale;  // K5: device scalar
-  float qmin;             // K5
-  const uint8_t* qw;      // (K/2, N) rowpair or span bytes
+  const float* in_scale;  // requant: device scalar
+  float qmin;             // requant
+  const uint8_t* qw;      // (K/2, N) span bytes
   GroupRows sr, zr;
   const float* alpha;     // (N,)
   const float* beta;      // (N,) or null
-  const float* residual;  // K5: (M, N) or null
+  const float* residual;  // requant: (M, N) or null
   float* out;             // (M, N)
   int8_t* codes_out;      // (M, K) or null
   int M, N, K, gs, rows_pass;
@@ -357,6 +360,7 @@ struct GemvArgs {
 
 template <bool NORM, class L>
 __device__ __forceinline__ void gemv_body(const GemvArgs& a, uint8_t* smem) {
+  static_assert(L::PLANES == 2, "span weights (the rowpair GEMVs run fused_gemv_sm90.cuh)");
   const int ldx = a.K + XPAD, G = a.K / a.gs, nseg = G / L::PLANES;
   int8_t* xs = reinterpret_cast<int8_t*>(smem);
   int* sx = reinterpret_cast<int*>(smem + static_cast<size_t>(a.rows_pass) * ldx);
@@ -378,13 +382,8 @@ __device__ __forceinline__ void gemv_body(const GemvArgs& a, uint8_t* smem) {
       if (warp < mt * ks) {
         const int mtile = warp % mt, kslice = warp / mt;
         int tot[2][4] = {{0, 0, 0, 0}, {0, 0, 0, 0}};
-        if constexpr (L::PLANES == 1)
-          warp_unit<L>(a.qw, a.N, n0, RowpairRun{0, a.gs, a.gs}, a.sr, a.zr,
-                       xs + mtile * 8 * ldx, ldx, sx + mtile * 8 * G, G, a.gs, kslice, nseg, ks,
-                       tot);
-        else
-          warp_unit<L>(a.qw, a.N, n0, SpanWalk{a.gs}, a.sr, a.zr, xs + mtile * 8 * ldx, ldx,
-                       sx + mtile * 8 * G, G, a.gs, kslice, nseg, ks, tot);
+        warp_unit<L>(a.qw, a.N, n0, SpanWalk{a.gs}, a.sr, a.zr, xs + mtile * 8 * ldx, ldx,
+                     sx + mtile * 8 * G, G, a.gs, kslice, nseg, ks, tot);
         store_unit(red + warp * RED, tot);
       }
       __syncthreads();

@@ -1,0 +1,494 @@
+// The fused decode GEMVs K4 (fused_norm_gemv_rp.cu) and K5
+// (fused_requant_gemv_rp.cu) on rowpair int4 weights, for Hopper (sm_90a),
+// on the main loop of the W4A8 GEMMs (w4a8_gemm_sm90.cuh):
+//
+//   out[m, n] = float(sum_k q[m, k] * w[k, n]) * alpha[n] (+ beta[n]) (+ res[m, n])
+//
+// for the M <= 64 rows of a decode step or a verify window, with q the int8
+// codes the kernel makes from the fp32 rows x itself (K4: RMSNormQ, K5:
+// requant) and w the int8 dequantisation (c4 - (z - 8)) * s of the rowpair
+// nibbles with the compact even/odd group plane rows s_hi/s_lo/z_hi/z_lo
+// (group g at (g odd ? lo : hi) + (g / 2) N).  Each fp32 step of the epilogue
+// is rounded on its own (__fmul_rn, __fadd_rn), as the plain versions round.
+//
+// What bounds it on this card: the weight bytes, K*N/2, over the 3.35 TB/s of
+// device memory; the rows are few.  The design:
+//   * the weights stream through K1's TMA ring: one producer thread keeps
+//     F_RING stages of 64 packed rows x 128 columns (128 logical k) in
+//     flight, each with the scale and zero rows of its two 64-k halves
+//     (RowpairLoader<1>, groupsize % 64 == 0) or four 32-k steps
+//     (RowpairLoader<2>, any groupsize % 32 == 0), signalled by mbarriers;
+//     two consumer warpgroups unpack their column pair straight into wgmma A
+//     fragments (addresses precomputed, RowpairLoader::frags_at) and release
+//     a stage as soon as its bytes are in registers; the products of one
+//     32-k step run while the next step's fragments are built (two fragment
+//     sets, as K1);
+//   * the codes are the wgmma B operand.  Before its first product a block
+//     makes them for its own K range only, once, into shared memory in the
+//     layout a TMA box [BM][64 bytes] swizzled 64 bytes has (one box per 64-k
+//     half), while the producer's first stages are already in flight.  K4's
+//     sum of squares runs over the whole row in rmsnorm_codes' fixed order
+//     (lane-strided float4 partials, then the xor butterfly), so every block
+//     makes the same codes;
+//   * one tile of BM token rows (wgmma N = 8, 16, 32, 48 or 64) holds all M
+//     rows: each weight byte is read and unpacked once per call;
+//   * K is split over blocks by the plan in Python (ops/fused_decode.py
+//     fused_plan); the int32 partials of the splits are summed exactly, in
+//     split order, by a second small kernel that also applies the epilogue,
+//     launched by the same C entry point;
+//   * blocks form clusters of C = 1, 2, 4 or 8 column tiles (same K range).
+//     A block makes the codes of the rows r with r % C == its rank (K4: their
+//     sums of squares too) and stores them into its peers' shared memory as
+//     well (remote stores do not wait; loading from the peers did), so the
+//     fp32 rows are read from L2 C times fewer;
+//   * a ring of four stages leaves room for the codes of two blocks an SM,
+//     which more stages in flight did not repay.
+//
+// Everything here has internal linkage (w4a8_gemm_sm90.cuh's rule).
+
+#pragma once
+
+#include "fused_gemv.cuh"
+#include "w4a8_gemm_sm90.cuh"
+
+namespace {
+
+constexpr int F_CONSUMERS = 256;            // two consumer warpgroups
+constexpr int F_THREADS = F_CONSUMERS + 32;  // and the producer warp
+constexpr int F_RING = 4;                    // stages in flight
+constexpr int F_W_BYTES = 64 * BN;           // a stage's packed weight rows
+constexpr int F_SCL_ROWS = 8;                // room for the scale and zero rows of four 32-k steps
+constexpr int F_STAGE = F_W_BYTES + F_SCL_ROWS * BN;  // 9216, 1024-aligned
+constexpr int F_HB = 64;                     // bytes of a code box row: one 64-k half
+constexpr size_t F_SMEM_LIMIT = 232448;      // dynamic shared memory a block may take
+
+// Dynamic shared memory of a block of bm rows and sps stages: the codes, the
+// ring, its barriers, K4's 64 row scales and the alignment slack
+// (ops/fused_decode.py fused_smem).
+constexpr size_t fused_smem(int bm, int sps) {
+  return static_cast<size_t>(bm) * 128 * sps + F_RING * F_STAGE + 2 * F_RING * 8 + 256 + 1024;
+}
+
+struct FusedArgs {
+  const float* x;         // (M, K) f32
+  const float* lnw;       // K4: (K,) norm weight
+  const float* lnb;       // K4: (K,) norm bias or null
+  float eps;
+  const float* in_scale;  // K5: device scalar
+  float qmin;             // K5
+  const float* alpha;     // (N,)
+  const float* beta;      // (N,) or null
+  const float* residual;  // K5: (M, N) or null
+  float* out;             // (M, N)
+  int8_t* codes_out;      // (M, K) or null
+  int* part;              // (splits, M, N) int32 when K is split, else null
+  int M, N, K, gs;
+  int nst, sps;           // stages of 128 k over K; stages per split (blockIdx.y)
+};
+
+// ---- clusters and barriers ---------------------------------------------------
+
+// this block's rank in its cluster of column tiles, and the cluster's size
+struct ClusterPos {
+  uint32_t rank, size;
+};
+
+__device__ __forceinline__ ClusterPos cluster_pos() {
+  ClusterPos c;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(c.rank));
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(c.size));
+  return c;
+}
+
+// every thread of every block of the cluster; orders shared memory writes
+// before it against reads after it, across the cluster
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// the consumer warpgroups alone
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(F_CONSUMERS) : "memory");
+}
+
+// the address of `local`'s offset in the shared memory of block `rank` of the cluster
+__device__ __forceinline__ uint32_t peer_addr(const void* local, uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(smem_u32(local)), "r"(rank));
+  return remote;
+}
+
+__device__ __forceinline__ void st_peer(uint32_t remote, uint32_t v) {
+  asm volatile("st.shared::cluster.u32 [%0], %1;\n" ::"r"(remote), "r"(v) : "memory");
+}
+
+// generic-proxy writes to shared memory before this, visible to wgmma's reads after it
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---- the codes ---------------------------------------------------------------
+
+// Byte offset of code k (local to the block's K range, a multiple of 4) of row
+// r: box k / 64 of [BM][64 bytes], swizzled 64 bytes (16-byte chunk index
+// XOR bits 7-8 of the offset), as TMA would write it and wgmma reads it.
+template <int BM>
+__device__ __forceinline__ int code_offset(int r, int k) {
+  const int off = r * F_HB + (k & 63);
+  return (k >> 6) * BM * F_HB + (off ^ ((off >> 3) & 0x30));
+}
+
+// rsqrt(mean(x * x) + eps) of one row, by one warp, in fgemv::rmsnorm_codes'
+// order: lane l sums the squares of x[4l + 128j .. + 3] for j = 0, 1, ... in
+// turn, then an xor butterfly; the loads run U float4 ahead.
+__device__ __forceinline__ float row_rsqrt(const float* __restrict__ xr, int K, float eps,
+                                           int lane) {
+  constexpr int U = 16;
+  float ss = 0.0f;
+  for (int k0 = 4 * lane; k0 < K; k0 += 128 * U) {
+    float4 v[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (k0 + 128 * u < K) v[u] = *reinterpret_cast<const float4*>(xr + k0 + 128 * u);
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (k0 + 128 * u < K) {
+        ss = __fadd_rn(ss, __fmul_rn(v[u].x, v[u].x));
+        ss = __fadd_rn(ss, __fmul_rn(v[u].y, v[u].y));
+        ss = __fadd_rn(ss, __fmul_rn(v[u].z, v[u].z));
+        ss = __fadd_rn(ss, __fmul_rn(v[u].w, v[u].w));
+      }
+  }
+#pragma unroll
+  for (int o = 16; o; o >>= 1) ss = __fadd_rn(ss, __shfl_xor_sync(0xFFFFFFFFu, ss, o));
+  return rsqrtf(__fadd_rn(__fdiv_rn(ss, static_cast<float>(K)), eps));
+}
+
+// The codes of this block's rows (r < M, r % size == rank; the j-th is row
+// rank + size j) over k in [kb, kb + klen), stored at the same offset of
+// `codes` in every block of the cluster (remote stores do not wait); the
+// first cluster along N also hands them out.  K4 first takes each row's
+// rsqrt over all of K, one warp a row, into rs[j].  Then all consumer threads
+// make codes, 4 a word, loading U words before they convert any (stores to
+// codes_out could alias x, so the compiler would not hoist the loads).
+// Rounding as the plain versions: no fma, IEEE division, half-to-even
+// rounding.
+template <bool NORM, int BM>
+__device__ __forceinline__ void make_codes(const FusedArgs& a, uint8_t* codes, float* rs, int kb,
+                                           int klen, ClusterPos c) {
+  const int cs = static_cast<int>(c.size), r0 = static_cast<int>(c.rank);
+  const int own = (a.M - r0 + cs - 1) / cs;  // rows of this block
+  if (NORM) {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    for (int j = warp; j < own; j += F_CONSUMERS / 32) {
+      const float v = row_rsqrt(a.x + static_cast<size_t>(r0 + cs * j) * a.K, a.K, a.eps, lane);
+      if (lane == 0) rs[j] = v;
+    }
+    consumers_sync();
+  }
+  const bool hand_out = a.codes_out && blockIdx.x < c.size;
+  const float scale = NORM ? 1.0f : *a.in_scale;
+  uint32_t peer[8];  // `codes` in each block of the cluster
+  for (int p = 0; p < cs; ++p) peer[p] = peer_addr(codes, p);
+  const int words = klen / 4, total = own * words;
+  constexpr int U = 4;  // words a thread loads before it converts any
+  for (int i0 = threadIdx.x; i0 < total; i0 += U * F_CONSUMERS) {
+    float4 v[U], wv[U], bv[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = i0 + u * F_CONSUMERS;
+      if (i >= total) break;
+      const int k = kb + 4 * (i % words);
+      const size_t row = static_cast<size_t>(r0 + cs * (i / words));
+      v[u] = *reinterpret_cast<const float4*>(a.x + row * a.K + k);
+      if (NORM) {
+        wv[u] = *reinterpret_cast<const float4*>(a.lnw + k);
+        if (a.lnb) bv[u] = *reinterpret_cast<const float4*>(a.lnb + k);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = i0 + u * F_CONSUMERS;
+      if (i >= total) break;
+      const int j = i / words, k = 4 * (i % words), r = r0 + cs * j;
+      uint32_t word;
+      if (NORM) {
+        const float rsj = rs[j];
+        float y[4] = {__fmul_rn(__fmul_rn(v[u].x, rsj), wv[u].x),
+                      __fmul_rn(__fmul_rn(v[u].y, rsj), wv[u].y),
+                      __fmul_rn(__fmul_rn(v[u].z, rsj), wv[u].z),
+                      __fmul_rn(__fmul_rn(v[u].w, rsj), wv[u].w)};
+        if (a.lnb) {
+          y[0] = __fadd_rn(y[0], bv[u].x);
+          y[1] = __fadd_rn(y[1], bv[u].y);
+          y[2] = __fadd_rn(y[2], bv[u].z);
+          y[3] = __fadd_rn(y[3], bv[u].w);
+        }
+        word = fgemv::pack4(fgemv::clamp_code(y[0], -128.0f), fgemv::clamp_code(y[1], -128.0f),
+                            fgemv::clamp_code(y[2], -128.0f), fgemv::clamp_code(y[3], -128.0f));
+      } else {
+        word = fgemv::pack4(fgemv::clamp_code(__fdiv_rn(v[u].x, scale), a.qmin),
+                            fgemv::clamp_code(__fdiv_rn(v[u].y, scale), a.qmin),
+                            fgemv::clamp_code(__fdiv_rn(v[u].z, scale), a.qmin),
+                            fgemv::clamp_code(__fdiv_rn(v[u].w, scale), a.qmin));
+      }
+      const int off = code_offset<BM>(r, k);
+      *reinterpret_cast<uint32_t*>(codes + off) = word;
+      for (int p = 0; p < cs; ++p)
+        if (p != r0) st_peer(peer[p] + off, word);
+      if (hand_out)
+        *reinterpret_cast<uint32_t*>(a.codes_out + static_cast<size_t>(r) * a.K + kb + k) = word;
+    }
+  }
+}
+
+// ---- the kernel body -----------------------------------------------------------
+
+__device__ __forceinline__ float fused_epilogue(int acc, const FusedArgs& a, int m, int n) {
+  float y = __fmul_rn(static_cast<float>(acc), a.alpha[n]);
+  if (a.beta) y = __fadd_rn(y, a.beta[n]);
+  if (a.residual) y = __fadd_rn(y, a.residual[static_cast<size_t>(m) * a.N + n]);
+  return y;
+}
+
+// One block: the 128 weight columns [128 blockIdx.x, + 128) over the stages
+// [sps blockIdx.y, + sps) of K, all M rows, with QS scale rows per 64-k half
+// (RowpairLoader<QS>).  Each .cu wraps it in a named kernel.
+template <bool NORM, int BM, int QS>
+__device__ __forceinline__ void fused_gemv_body(const CUtensorMap& tm_w, const CUtensorMap& tm_shi,
+                                                const CUtensorMap& tm_slo,
+                                                const CUtensorMap& tm_zhi,
+                                                const CUtensorMap& tm_zlo, const FusedArgs& a) {
+  using L = RowpairLoader<QS>;
+  constexpr int R = 2 * QS;   // scale rows a stage
+  constexpr int NA = BM / 2;  // accumulators a thread
+  static_assert(BM % 8 == 0 && BM <= 64, "tile");
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* codes = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint8_t* ring = codes + static_cast<size_t>(BM) * 128 * a.sps;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + F_RING * F_STAGE);
+  uint64_t* empty = full + F_RING;
+  float* rs = reinterpret_cast<float*>(empty + F_RING);  // K4: rsqrt of this block's rows
+
+  const int n0 = blockIdx.x * BN;
+  const int st0 = blockIdx.y * a.sps, n_it = min(a.nst - st0, a.sps);
+  const int kb = 128 * st0, klen = 128 * n_it;  // this block's K range
+  const ClusterPos c = cluster_pos();
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < F_RING; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], F_CONSUMERS / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= F_CONSUMERS) {
+    // ---- producer: one thread issues, the warp joins the cluster barriers ----
+    const bool issuer = threadIdx.x == F_CONSUMERS;
+    auto issue = [&](int i) {
+      const int s = i % F_RING, st = st0 + i;
+      uint8_t* base = ring + s * F_STAGE;
+      mbar_expect_tx(&full[s], F_W_BYTES + 2 * R * BN);
+      tma_load_2d(base, &tm_w, &full[s], n0, 64 * st);
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+        const int g = (128 * st + 128 / R * q) / a.gs;
+        uint8_t* scl = base + F_W_BYTES + 2 * q * BN;
+        tma_load_2d(scl, (g & 1) ? &tm_slo : &tm_shi, &full[s], n0, g >> 1);
+        tma_load_2d(scl + BN, (g & 1) ? &tm_zlo : &tm_zhi, &full[s], n0, g >> 1);
+      }
+    };
+    if (issuer)
+      for (int i = 0; i < min(n_it, F_RING); ++i) issue(i);
+    __syncwarp();
+    cluster_sync();  // the consumers': the codes are made
+
+    if (issuer)
+      for (int i = F_RING; i < n_it; ++i) {
+        mbar_wait(&empty[i % F_RING], ((i / F_RING) + 1) & 1);
+        issue(i);
+      }
+    return;
+  }
+
+  // ---- consumers: the codes ----
+  make_codes<NORM, BM>(a, codes, rs, kb, klen, c);
+  fence_async_smem();
+  cluster_sync();     // every block's codes are in every block
+  fence_async_smem();  // the peers' stores too, for wgmma
+
+  // ---- the main loop ----
+  const int ct = threadIdx.x, wg = ct >> 7, warp = (ct >> 5) & 3, lane = ct & 31;
+  const int t = lane & 3;
+  const int cp = 32 * wg + 8 * warp + (lane >> 2);  // this thread's column pair of the block's 64
+  uint32_t off[2];
+  L::pair_offsets(cp, t, off);
+  // the first product writes the accumulators (scale-d 0): no other
+  // instruction defines them, which would make ptxas serialise the wgmmas
+  int acc[NA];
+  // two fragment sets, one per 32-k step of a half: the tensor cores run one
+  // step's products while the next step's fragments are built
+  Frags fk[2];
+  for (int i = 0; i < n_it; ++i) {
+    const int s = i % F_RING;
+    mbar_wait(&full[s], (i / F_RING) & 1);
+    const uint8_t* rows = ring + s * F_STAGE;
+    typename L::Scales sc;
+    L::scales(rows + F_W_BYTES, cp, sc);
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      L::frags_at(rows + 2 * t * 128, off, sc, kk, fk[kk]);
+      // the stage's bytes are all in registers: release its slot
+      if (kk == 1 && lane == 0) mbar_arrive(&empty[s]);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) fence_regs(fk[kk][h]);
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        Wgmma<BM>::mma(acc, fk[kk][h], gmma_desc(codes + (2 * i + h) * BM * F_HB + 32 * kk, F_HB),
+                       (i | kk | h) != 0);
+      wgmma_commit();
+      wgmma_wait<1>();  // the step before is done: its fragment set is free
+      fence_regs(acc);
+    }
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+  // ---- epilogue: accumulator e is column 2 cp + ((e >> 1) & 1) and token row
+  // 8 (e >> 2) + 2t + (e & 1); a K split leaves int32 partials ----
+  const int n = n0 + 2 * cp;
+  if (n >= a.N) return;
+#pragma unroll
+  for (int j = 0; j < BM / 8; ++j)
+#pragma unroll
+    for (int e0 = 0; e0 < 2; ++e0) {
+      const int m = 8 * j + 2 * t + e0;
+      if (m >= a.M) continue;
+      const int v0 = acc[4 * j + e0], v1 = acc[4 * j + 2 + e0];
+      const size_t o = static_cast<size_t>(m) * a.N + n;
+      if (a.part)
+        *reinterpret_cast<int2*>(a.part + static_cast<size_t>(blockIdx.y) * a.M * a.N + o) =
+            make_int2(v0, v1);
+      else
+        *reinterpret_cast<float2*>(a.out + o) =
+            make_float2(fused_epilogue(v0, a, m, n), fused_epilogue(v1, a, m, n + 1));
+    }
+}
+
+// The K splits' int32 partials summed in split order, then the epilogue.
+__device__ __forceinline__ void fused_combine_body(const FusedArgs& a, int splits) {
+  const size_t total = static_cast<size_t>(a.M) * a.N;
+  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  int s = 0;
+  for (int z = 0; z < splits; ++z) s += a.part[z * total + i];
+  a.out[i] = fused_epilogue(s, a, static_cast<int>(i / a.N), static_cast<int>(i % a.N));
+}
+
+// ---- host side ------------------------------------------------------------------
+
+constexpr int F_BAD_ARGS = -1;  // an entry point's own argument checks
+
+// The plan's arguments, checked: bm one of the tiles and >= M; splits of sps
+// stages covering K; clusters of 1, 2, 4 or 8 column tiles; the shapes the plain
+// versions take (M 1..64, N % 32, K % 128, groupsize % 32 dividing K / 2).
+inline bool fused_args_ok(const FusedArgs& a, int bm, int splits, int cluster) {
+  return fgemv::gemv_shapes_ok(a.M, a.N, a.K, a.gs) && a.K % (2 * a.gs) == 0 &&
+         (bm == 8 || bm == 16 || bm == 32 || bm == 48 || bm == 64) && bm >= a.M && a.sps >= 1 &&
+         splits == (a.nst + a.sps - 1) / a.sps && (splits == 1) == (a.part == nullptr) &&
+         (cluster == 1 || cluster == 2 || cluster == 4 || cluster == 8) &&
+         fused_smem(bm, a.sps) <= F_SMEM_LIMIT;
+}
+
+// Launches kernel (the .cu's kernel of tile BM and QS scale rows a half)
+// over the grid (column tiles rounded up to the cluster, splits) in
+// clusters of `cluster` column tiles and, when K is split, combine.
+// Returns a cudaError_t.
+template <int BM, int QS, typename Kernel, typename Combine>
+int launch_fused_tile(Kernel kernel, Combine combine, const FusedArgs& a, int splits, int cluster,
+                      const void* qw, const void* const (&planes)[4], cudaStream_t st) {
+  CUtensorMap tw, tp[4];
+  int rc = tensor_map(&tw, qw, a.N, a.K / 2, BN, 64, CU_TENSOR_MAP_SWIZZLE_128B);
+  for (int i = 0; i < 4 && !rc; ++i)
+    rc = tensor_map(&tp[i], planes[i], a.N, a.K / a.gs / 2, BN, 1, CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (rc) return rc;
+  // devices whose limit is raised: one set per instantiation, so per kernel
+  // (Kernel is a function pointer type, the same for every BM and QS)
+  static uint64_t sized = 0;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (!(sized >> (dev & 63) & 1)) {
+    // the most shared memory a block may take, and an SM's carveout all
+    // shared memory, so that two blocks share an SM where the plan says so
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(F_SMEM_LIMIT));
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    sized |= 1ull << (dev & 63);
+  }
+  const int tiles = ((a.N + BN - 1) / BN + cluster - 1) / cluster * cluster;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(tiles, splits, 1);
+  cfg.blockDim = dim3(F_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = fused_smem(BM, a.sps);
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, tw, tp[0], tp[1], tp[2], tp[3], a);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (splits > 1) {
+    const size_t total = static_cast<size_t>(a.M) * a.N;
+    combine<<<static_cast<unsigned>((total + 255) / 256), 256, 0, st>>>(a, splits);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class Kern, int QS>
+int launch_fused_qs(const FusedArgs& a, int bm, int splits, int cluster, const void* qw,
+                    const void* const (&planes)[4], cudaStream_t st) {
+  switch (bm) {
+    case 8:
+      return launch_fused_tile<8, QS>(Kern::template gemv<8, QS>(), Kern::combine(), a, splits,
+                                      cluster, qw, planes, st);
+    case 16:
+      return launch_fused_tile<16, QS>(Kern::template gemv<16, QS>(), Kern::combine(), a, splits,
+                                       cluster, qw, planes, st);
+    case 32:
+      return launch_fused_tile<32, QS>(Kern::template gemv<32, QS>(), Kern::combine(), a, splits,
+                                       cluster, qw, planes, st);
+    case 48:
+      return launch_fused_tile<48, QS>(Kern::template gemv<48, QS>(), Kern::combine(), a, splits,
+                                       cluster, qw, planes, st);
+    default:
+      return launch_fused_tile<64, QS>(Kern::template gemv<64, QS>(), Kern::combine(), a, splits,
+                                       cluster, qw, planes, st);
+  }
+}
+
+// The host side of both entry points: Kern (a struct with `template <int BM,
+// int QS> static auto gemv()` and `static auto combine()`, the .cu's
+// kernels) at the plan's tile, with one scale row per 64-k half when the
+// groupsize allows it.  Returns a cudaError_t, or F_BAD_ARGS.
+template <class Kern>
+int launch_fused(const FusedArgs& a, int bm, int splits, int cluster, const void* qw,
+                 const void* const (&planes)[4], cudaStream_t st) {
+  if (!fused_args_ok(a, bm, splits, cluster)) return F_BAD_ARGS;
+  if (a.gs % 64 == 0) return launch_fused_qs<Kern, 1>(a, bm, splits, cluster, qw, planes, st);
+  return launch_fused_qs<Kern, 2>(a, bm, splits, cluster, qw, planes, st);
+}
+
+}  // namespace

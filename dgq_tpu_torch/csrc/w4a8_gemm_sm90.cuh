@@ -1,5 +1,8 @@
 // The main loop shared by the W4A8 GEMMs K1 (w4a8_rp_gemm.cu) and K9
 // (w4a8_span_gemm.cu) and by the probe P1 (s8_gemm.cu), for Hopper (sm_90a).
+// The fused decode GEMVs K4 and K5 (fused_gemv_sm90.cuh) run its TMA ring,
+// wgmma wrappers, rowpair loader and descriptor cache in a kernel of their
+// own, with codes they make in shared memory as the B operand.
 //
 //   acc[m, n] = sum_k x[m, k] * w8[k, n]   (exact int32)
 //
@@ -150,6 +153,20 @@ template <int N>
 struct Wgmma;
 
 template <>
+struct Wgmma<8> {
+  static __device__ __forceinline__ void mma(int (&d)[4], const uint32_t (&a)[4], uint64_t b,
+                                         int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k32.s32.s8.s8 {"
+      "%0, %1, %2, %3"
+      "}, {%4, %5, %6, %7}, %8, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
 struct Wgmma<16> {
   static __device__ __forceinline__ void mma(int (&d)[8], const uint32_t (&a)[4], uint64_t b,
                                          int scale_d) {
@@ -159,6 +176,56 @@ struct Wgmma<16> {
       "%0, %1, %2, %3, %4, %5, %6, %7"
       "}, {%8, %9, %10, %11}, %12, p;\n}\n"
       : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<32> {
+  static __device__ __forceinline__ void mma(int (&d)[16], const uint32_t (&a)[4], uint64_t b,
+                                         int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<48> {
+  static __device__ __forceinline__ void mma(int (&d)[24], const uint32_t (&a)[4], uint64_t b,
+                                         int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23"
+      "}, {%24, %25, %26, %27}, %28, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<64> {
+  static __device__ __forceinline__ void mma(int (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                                         int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
   }
 };
@@ -277,6 +344,86 @@ __device__ __forceinline__ void col_scales(const uint8_t* scl, int h, int cp, ui
     bias[j] = static_cast<uint32_t>(0x8000 - zj * sj) * 0x10001u;
   }
 }
+
+// ---- the rowpair loader (K1, K4, K5) -------------------------------------------
+
+// Rowpair weights: stage st is packed rows 64 st .. 64 st + 63, logical k
+// 128 st .. 128 st + 127 in order (row r: k 2r low nibble, 2r + 1 high
+// nibble, each the shifted code (c - 8) & 0xF); half h is x's k 128 st + 64 h
+// .. + 63.  The 32-k step kk of half h is packed rows 32 h + 16 kk .. + 15,
+// and a thread's k 4t .. 4t + 3 and 16 + 4t .. + 3 of it are rows 2t, 2t + 1
+// and 8 + 2t, 9 + 2t: one permute of 4 rows gives both fragment words of
+// each column.  QS scale rows per half: 1 when each 64-k half lies in one
+// group (K1: groupsize % 64 == 0), 2 when each 32-k step has its own (K4,
+// K5: any groupsize % 32 == 0).  Scale row r of a stage is the stage's rows
+// 2r (scales) and 2r + 1 (zeros) of [4 QS][BN] bytes; it serves half r (QS
+// 1) or the 32-k step r = 2 h + kk (QS 2).
+template <int QS>
+struct RowpairLoader {
+  static constexpr int HB = 64, SRC_ROWS = 64;
+  static constexpr bool SCALED = true;
+  struct Scales {
+    uint32_t s[2 * QS][2], b[2 * QS][2];  // per scale row, per column of the pair
+  };
+
+  static __device__ __forceinline__ int x_k(const GemmArgs&, int st, int h) { return 128 * st + 64 * h; }
+  // past K (a last stage of 64 k) the group is past the scale rows: TMA fills zeros
+  static __device__ __forceinline__ int group(const GemmArgs& a, int st, int h) {
+    return (128 * st + 64 * h) / a.gs;
+  }
+
+  static __device__ __forceinline__ void scales(const uint8_t* scl, int cp, Scales& sc) {
+#pragma unroll
+    for (int r = 0; r < 2 * QS; ++r) col_scales(scl, r, cp, sc.s[r], sc.b[r]);
+  }
+
+  // the column words c of a 32-k step (rows 2t, 2t + 1, 8 + 2t, 9 + 2t) ->
+  // the fragment registers of one half, with scale row r
+  static __device__ __forceinline__ void unpack(const uint32_t (&c)[2], const Scales& sc, int r,
+                                                uint32_t (&a)[4]) {
+    constexpr uint32_t M4 = 0x000F000F;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const uint32_t w = c[j] ^ 0x88888888u;  // codes c4 + 8 in 0..15
+      // low nibbles: k 4t, 4t + 2, 16 + 4t, 16 + 4t + 2; high nibbles one further
+      const uint32_t lo = deq4(w & M4, (w >> 8) & M4, sc.s[r][j], sc.b[r][j]);
+      const uint32_t hi = deq4((w >> 4) & M4, (w >> 12) & M4, sc.s[r][j], sc.b[r][j]);
+      put_col(a, j, __byte_perm(lo, hi, 0x5140), __byte_perm(lo, hi, 0x7362));
+    }
+  }
+
+  // the swizzled offsets of column pair cp in even and odd rows (off[0],
+  // off[1]): the four rows a thread reads of a step are 2t, 2t + 1, 8 + 2t,
+  // 9 + 2t past a multiple of 16, so their row % 8 is 2t or 2t + 1 (ldw's
+  // swizzle), and all other address terms are constant
+  static __device__ __forceinline__ void pair_offsets(int cp, int t, uint32_t (&off)[2]) {
+#pragma unroll
+    for (int p = 0; p < 2; ++p) off[p] = (((cp >> 3) ^ (2 * t + p)) << 4) | ((cp & 7) << 1);
+  }
+
+  // the fragments of 32-k step kk from a thread's row base rows + 2t * 128
+  // and its pair_offsets (K4 and K5 keep the offsets across their loop)
+  static __device__ __forceinline__ void frags_at(const uint8_t* rows_t, const uint32_t (&off)[2],
+                                                  const Scales& sc, int kk, Frags& a) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const uint8_t* b = rows_t + (32 * h + 16 * kk) * 128;
+      auto ld = [&](int d) { return *reinterpret_cast<const uint16_t*>(b + d * 128 + off[d & 1]); };
+      const uint32_t t01 = __byte_perm(ld(0), ld(1), 0x5410);
+      const uint32_t t23 = __byte_perm(ld(8), ld(9), 0x5410);
+      const uint32_t c[2] = {__byte_perm(t01, t23, 0x6420), __byte_perm(t01, t23, 0x7531)};
+      unpack(c, sc, QS == 1 ? h : 2 * h + kk, a[h]);
+    }
+  }
+
+  // frags_at for the loop of gemm_sm90 (K1), which passes cp and t
+  static __device__ __forceinline__ void frags(const uint8_t* rows, const Scales& sc, int cp, int t,
+                                               int kk, Frags& a) {
+    uint32_t off[2];
+    pair_offsets(cp, t, off);
+    frags_at(rows + 2 * t * 128, off, sc, kk, a);
+  }
+};
 
 // ---- shared memory ------------------------------------------------------------
 

@@ -5,8 +5,9 @@ Port of ``dgq_tpu/ops/fused_decode.py``: the conversion helpers (:154-229),
 ``plane_colsums`` (:304), ``_rmsnorm_q`` (:340-344) and, under the JAX
 names, the wrappers of the hand-written CUDA kernels that replace the TPU
 kernels ``fused_norm_gemv_rp`` (K4, ``csrc/fused_norm_gemv_rp.cu``),
-``fused_requant_gemv_rp`` (K5, ``csrc/fused_requant_gemv_rp.cu``),
-``fused_mlp_decode_rp`` (K6, ``csrc/fused_mlp_decode_rp.cu``) and
+``fused_requant_gemv_rp`` (K5, ``csrc/fused_requant_gemv_rp.cu``; both on
+the TMA + wgmma loop of ``csrc/fused_gemv_sm90.cuh``, tiled by
+``fused_plan``), ``fused_mlp_decode_rp`` (K6, ``csrc/fused_mlp_decode_rp.cu``) and
 ``fused_norm_gemv``, ``fused_requant_gemv``, ``fused_mlp_decode`` (K12, one
 source ``csrc/fused_decode_span.cu``).  Each plain version (``*_xla``) makes
 its int8 codes, takes the exact int32 product with the weights dequantised
@@ -26,7 +27,8 @@ path's pack-time constant, is checked but not read.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+import functools
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
@@ -44,13 +46,17 @@ _NORM_ARGS = [_VP] * 3 + [_F32] + [_VP] * 9 + [_INT] * 5 + [_VP]
 # x, in_scale, qmin, qw, s_hi, s_lo, z_hi, z_lo, alpha, beta, residual, out,
 # codes_out, M, N, K, gs, sms, stream
 _REQUANT_ARGS = [_VP] * 2 + [_F32] + [_VP] * 10 + [_INT] * 5 + [_VP]
+# K4 and K5: as K12's first two up to gs, then the plan (bm, splits, sps,
+# cluster), the int32 partials of a K split and the stream
+_NORM_RP_ARGS = [_VP] * 3 + [_F32] + [_VP] * 9 + [_INT] * 8 + [_VP] * 2
+_REQUANT_RP_ARGS = [_VP] * 2 + [_F32] + [_VP] * 10 + [_INT] * 8 + [_VP] * 2
 # x, lnw, lnb, eps, down_scale, gu_qw, gu_s_hi, gu_s_lo, gu_z_hi, gu_z_lo,
 # gu_alpha, d_qw, d_ws, d_wz, d_alpha, d_beta, fuse_residual, acc, out,
 # xq_out, h_out, M, D, F, gs, sms, stream
 _MLP_ARGS = [_VP] * 3 + [_F32] + [_VP] * 12 + [_INT] + [_VP] * 4 + [_INT] * 5 + [_VP]
 _SIGNATURES = {
-    NORM: {NORM: _NORM_ARGS},
-    REQUANT: {REQUANT: _REQUANT_ARGS},
+    NORM: {NORM: _NORM_RP_ARGS},
+    REQUANT: {REQUANT: _REQUANT_RP_ARGS},
     MLP: {MLP: _MLP_ARGS},
     # K12: one library, three entry points
     "span": {NORM_SPAN: _NORM_ARGS, REQUANT_SPAN: _REQUANT_ARGS, MLP_SPAN: _MLP_ARGS},
@@ -255,9 +261,9 @@ def _sms(dev: torch.device) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
-def _require_planes(dev, k: int, n: int, gs: int, planes, cs_fold, alpha, beta):
+def _require_planes(dev, k: int, n: int, gs: int, planes, cs_fold, alpha, beta, align=4):
     for name, t in zip(("s_hi", "s_lo", "z_hi", "z_lo"), planes):
-        _cuda.require(t, name, torch.int8, (k // gs // 2, n), dev, align=4)
+        _cuda.require(t, name, torch.int8, (k // gs // 2, n), dev, align=align)
     _cuda.require(alpha, "alpha", torch.float32, (n,), dev, align=4)
     if beta is not None:
         _cuda.require(beta, "beta", torch.float32, (n,), dev, align=4)
@@ -274,19 +280,147 @@ def _require_scalar(t: Tensor, name: str, dev) -> None:
         raise ValueError(f"{name}: expected one float32 value, got shape {tuple(t.shape)}")
 
 
+# K4 and K5 run on the main loop of the W4A8 GEMMs (csrc/fused_gemv_sm90.cuh):
+# a block owns FUSED_BN weight columns and one tile of bm token rows, streams
+# its K range in stages of FUSED_STAGE_K logical k through a ring of
+# FUSED_RING stages and keeps the codes of its K range in shared memory.
+FUSED_TILES = (8, 16, 32, 48, 64)  # token-row tiles (wgmma N)
+FUSED_BN, FUSED_STAGE_K, FUSED_RING = 128, 128, 4
+FUSED_STAGE_BYTES = 64 * 128 + 8 * 128  # packed weight rows; four 32-k steps' scale and zero rows
+SMEM_LIMIT = 232448  # dynamic shared memory a block may take
+SMEM_PER_SM = 233472  # an SM's, of which each block's share takes 1 KB more
+FUSED_CLUSTERS = (1, 2, 4, 8)  # column tiles that share their codes (8: the portable limit)
+FUSED_SPLITS = (1, 2, 4, 8, 16)
+# the split choice's costs, in stages of one block, fitted to the times of
+# every candidate plan (python -m dgq_tpu_torch.scripts.fused_plan_sweep): a block's
+# start and finish; a batch of K4's row loads (U = 16 float4 a lane) and of
+# code-making loads (4 a thread); each block a cluster adds; the kernel that
+# sums the splits
+_FILL, _NORM_BATCH, _CODE_BATCH, _CLUSTER_BLOCK, _COMBINE = 6, 2, 2, 1, 3
+
+
+class FusedPlan(NamedTuple):
+    """How K4 or K5 runs an (M, N, K) call: ``bm`` token rows (one tile for
+    all M rows) by ``bn`` weight columns a block; clusters of ``cluster``
+    column tiles, which share their codes; K in ``stages`` stages of
+    ``stage_k``, split into ``splits`` ranges of ``sps`` whole stages (the
+    last may be shorter), whose int32 partials a second kernel sums;
+    ``smem`` bytes of dynamic shared memory a block, ``per_sm`` blocks an
+    SM."""
+    bm: int
+    bn: int
+    cluster: int
+    stage_k: int
+    stages: int
+    splits: int
+    sps: int
+    smem: int
+    per_sm: int
+
+    def grid(self, n: int):
+        """The launch grid: column tiles (a whole number of clusters), K splits."""
+        tiles = -(-n // self.bn)
+        return -(-tiles // self.cluster) * self.cluster, self.splits
+
+
+def fused_smem(bm: int, sps: int) -> int:
+    """A K4/K5 block's dynamic shared memory: the codes of its K range, the
+    ring, its barriers, K4's row scales and 1 KB of alignment slack
+    (``fused_smem`` in csrc/fused_gemv_sm90.cuh)."""
+    return (bm * FUSED_STAGE_K * sps + FUSED_RING * FUSED_STAGE_BYTES + 16 * FUSED_RING + 256
+            + 1024)
+
+
+def _prologue(m: int, k: int, cluster: int, sps: int, norm: bool) -> float:
+    """What a block does before its first product, in stages: K4's sums of
+    squares of its own rows (a warp a row; fewer rows, fewer bytes from L2)
+    and the codes of those rows over its K range."""
+    rows = -(-m // cluster)
+    cost = _NORM_BATCH * rows / 8 * -(-k // 2048) if norm else 0.0
+    return cost + _CODE_BATCH * -(-rows * sps * FUSED_STAGE_K // 4 // 1024)
+
+
+def fused_candidates(m: int, n: int, k: int, groupsize: int) -> list:
+    """Every plan K4 and K5 can run an (m, n, k) call with at this group
+    size: the smallest of FUSED_TILES that holds all m rows, under each
+    cluster of FUSED_CLUSTERS and K split of FUSED_SPLITS whose shared
+    memory fits (splits that give the same stages once), in that order."""
+    if not 1 <= m <= FUSED_TILES[-1]:
+        raise ValueError(f"the fused decode kernels take 1 to {FUSED_TILES[-1]} rows, got {m}")
+    if n % 32 or k % FUSED_STAGE_K or groupsize % 32 or k % (2 * groupsize):
+        raise ValueError(f"K4/K5 need N % 32 == 0, K % 128 == 0 and a groupsize % 32 == 0 "
+                         f"that divides K / 2; got N={n}, K={k}, groupsize={groupsize}")
+    bm = next(t for t in FUSED_TILES if t >= m)
+    stages = k // FUSED_STAGE_K
+    plans = []
+    for cx in FUSED_CLUSTERS:
+        for s in FUSED_SPLITS:
+            sps = -(-stages // s)
+            smem = fused_smem(bm, sps)
+            if smem > SMEM_LIMIT:
+                continue
+            per_sm = 2 if 2 * (smem + 1024) <= SMEM_PER_SM else 1
+            plan = FusedPlan(bm, FUSED_BN, cx, FUSED_STAGE_K, stages, -(-stages // sps), sps,
+                             smem, per_sm)
+            if plan not in plans:
+                plans.append(plan)
+    if not plans:
+        raise ValueError(f"K4/K5: no K split of K={k} fits {m} rows in shared memory")
+    return plans
+
+
+def _plan_cost(plan: FusedPlan, m: int, n: int, k: int, sms: int, norm: bool) -> float:
+    """The stages of the busiest SM, wave by wave (``per_sm`` blocks share
+    an SM), plus each wave's start, finish and prologue, plus the cluster's
+    and the sum of the splits' costs."""
+    tiles, splits = plan.grid(n)
+    blocks, cost = tiles * splits, 0.0
+    while blocks > 0:
+        wave = min(blocks, sms * plan.per_sm)
+        cost += -(-wave // sms) * plan.sps + _FILL + _prologue(m, k, plan.cluster, plan.sps, norm)
+        blocks -= wave
+    return cost + _CLUSTER_BLOCK * (plan.cluster - 1) + (_COMBINE if splits > 1 else 0.0)
+
+
+@functools.lru_cache(maxsize=4096)
+def fused_plan(m: int, n: int, k: int, groupsize: int, sms: int, norm: bool = True) -> FusedPlan:
+    """The tile, cluster and K split of K4 (``norm``) or K5 for an (m, n, k)
+    call with this group size on a card with ``sms`` SMs: of
+    ``fused_candidates``, the first of least ``_plan_cost``."""
+    return min(fused_candidates(m, n, k, groupsize),
+               key=lambda p: _plan_cost(p, m, n, k, sms, norm))
+
+
+def launch_rowpair(name: str, plan: FusedPlan, args_head, m: int, n: int, k: int, gs: int,
+                    dev) -> None:
+    """Launch K4 or K5 (``name``) with ``plan``: the C entry point's
+    arguments up to ``codes_out`` (``args_head``), then the shapes, the plan
+    and the int32 scratch of a K split."""
+    part = (torch.empty((plan.splits, m, n), dtype=torch.int32, device=dev)
+            if plan.splits > 1 else None)
+    lib = _cuda.library(_cuda.SOURCES[name], _SIGNATURES[name])
+    rc = getattr(lib, name)(*args_head, m, n, k, gs, plan.bm, plan.splits, plan.sps,
+                            plan.cluster, _cuda.ptr(part), _cuda.stream(dev))
+    _cuda.check(rc, name)
+
+
 def fused_norm_gemv_rp(x: Tensor, ln_w: Tensor, ln_b: Optional[Tensor], qw_rp: Tensor,
                        s_hi: Tensor, s_lo: Tensor, z_hi: Tensor, z_lo: Tensor,
                        cs_fold: Tensor, alpha: Tensor, beta: Optional[Tensor] = None, *,
                        span: int = 256, bn: int = 512, eps: float = 1e-6,
                        codes_out: Optional[Tensor] = None) -> Tensor:
-    """K4: y = (RMSNormQ(x) @ dequant(W)) * alpha + beta in one launch.
+    """K4: y = (RMSNormQ(x) @ dequant(W)) * alpha + beta in one call.
 
     x (M, K) f32 with 1 <= M <= 64; qw_rp (K//2, N) rowpair bytes; s_*/z_*
     the compact (G//2, N) even/odd group plane rows (G = K / (span // 2));
     ``cs_fold`` (N,) is checked and not read (see the module docstring);
-    ``bn`` is the TPU column block and is not used (the CUDA kernel tiles N
-    by 32).  ``codes_out`` (M, K) int8, when given, receives the RMSNormQ
-    codes.  CPU tensors take the plain version."""
+    ``bn`` is the TPU column block and is not used: the CUDA kernel gives a
+    block 128 columns (the last one padded inside the kernel when N % 128),
+    all M rows in one tile of 8-64 token rows and a K range split by
+    ``fused_plan``.  ``codes_out`` (M, K) int8, when given, receives the
+    RMSNormQ codes.  CPU tensors take the plain version; on the card the
+    call is one launch of the kernel and, when K is split, one of the kernel
+    that sums the splits."""
     m, k, n, gs = _check_shapes(x, qw_rp, s_hi, cs_fold, span)
     if x.device.type == "cpu":
         return fused_norm_gemv_rp_xla(x, ln_w, ln_b, qw_rp, s_hi, s_lo, z_hi, z_lo, cs_fold,
@@ -296,18 +430,16 @@ def fused_norm_gemv_rp(x: Tensor, ln_w: Tensor, ln_b: Optional[Tensor], qw_rp: T
     _cuda.require(ln_w, "ln_w", torch.float32, (k,), dev)
     if ln_b is not None:
         _cuda.require(ln_b, "ln_b", torch.float32, (k,), dev)
-    _cuda.require(qw_rp, "qw_rp", torch.int8, (k // 2, n), dev, align=4)
-    _require_planes(dev, k, n, gs, (s_hi, s_lo, z_hi, z_lo), cs_fold, alpha, beta)
+    _cuda.require(qw_rp, "qw_rp", torch.int8, (k // 2, n), dev)
+    _require_planes(dev, k, n, gs, (s_hi, s_lo, z_hi, z_lo), cs_fold, alpha, beta, align=16)
     if codes_out is not None:
         _cuda.require(codes_out, "codes_out", torch.int8, (m, k), dev, align=4)
+    plan = fused_plan(m, n, k, gs, _sms(dev), True)
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
-    lib = _cuda.library(_cuda.SOURCES[NORM], _SIGNATURES[NORM])
-    rc = lib.fused_norm_gemv_rp(
+    launch_rowpair(NORM, plan, (
         _cuda.ptr(x), _cuda.ptr(ln_w), _cuda.ptr(ln_b), float(eps), _cuda.ptr(qw_rp),
         _cuda.ptr(s_hi), _cuda.ptr(s_lo), _cuda.ptr(z_hi), _cuda.ptr(z_lo), _cuda.ptr(alpha),
-        _cuda.ptr(beta), _cuda.ptr(out), _cuda.ptr(codes_out), m, n, k, gs, _sms(dev),
-        _cuda.stream(dev))
-    _cuda.check(rc, NORM)
+        _cuda.ptr(beta), _cuda.ptr(out), _cuda.ptr(codes_out)), m, n, k, gs, dev)
     _cuda.count_launch(NORM)
     return out
 
@@ -319,11 +451,12 @@ def fused_requant_gemv_rp(x: Tensor, in_scale: Tensor, qw_rp: Tensor, s_hi: Tens
                           bn: int = 512, qmin: float = -127.0, fuse_residual: bool = True,
                           codes_out: Optional[Tensor] = None) -> Tensor:
     """K5: y = (requant(x) @ dequant(W)) * alpha + beta (+ residual) in one
-    launch; requant is round(x / in_scale) clipped to [qmin, 127].
+    call; requant is round(x / in_scale) clipped to [qmin, 127].
 
     ``in_scale`` is a one-element float32 tensor read by the kernel on the
-    device (no host sync).  Other arguments as K4's; ``residual`` (M, N) f32
-    is added when ``fuse_residual``.  CPU tensors take the plain version."""
+    device (no host sync).  Other arguments, the tiling and the launches as
+    K4's; ``residual`` (M, N) f32 is added when ``fuse_residual``.  CPU
+    tensors take the plain version."""
     m, k, n, gs = _check_shapes(x, qw_rp, s_hi, cs_fold, span)
     if fuse_residual and residual is None:
         raise ValueError("fuse_residual needs a residual")
@@ -334,21 +467,19 @@ def fused_requant_gemv_rp(x: Tensor, in_scale: Tensor, qw_rp: Tensor, s_hi: Tens
     dev = x.device
     _cuda.require(x, "x", torch.float32, (m, k), dev)
     _require_scalar(in_scale, "in_scale", dev)
-    _cuda.require(qw_rp, "qw_rp", torch.int8, (k // 2, n), dev, align=4)
-    _require_planes(dev, k, n, gs, (s_hi, s_lo, z_hi, z_lo), cs_fold, alpha, beta)
+    _cuda.require(qw_rp, "qw_rp", torch.int8, (k // 2, n), dev)
+    _require_planes(dev, k, n, gs, (s_hi, s_lo, z_hi, z_lo), cs_fold, alpha, beta, align=16)
     res = residual if fuse_residual else None
     if res is not None:
         _cuda.require(res, "residual", torch.float32, (m, n), dev, align=4)
     if codes_out is not None:
         _cuda.require(codes_out, "codes_out", torch.int8, (m, k), dev, align=4)
+    plan = fused_plan(m, n, k, gs, _sms(dev), False)
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
-    lib = _cuda.library(_cuda.SOURCES[REQUANT], _SIGNATURES[REQUANT])
-    rc = lib.fused_requant_gemv_rp(
+    launch_rowpair(REQUANT, plan, (
         _cuda.ptr(x), _cuda.ptr(in_scale), float(qmin), _cuda.ptr(qw_rp), _cuda.ptr(s_hi),
         _cuda.ptr(s_lo), _cuda.ptr(z_hi), _cuda.ptr(z_lo), _cuda.ptr(alpha), _cuda.ptr(beta),
-        _cuda.ptr(res), _cuda.ptr(out), _cuda.ptr(codes_out), m, n, k, gs, _sms(dev),
-        _cuda.stream(dev))
-    _cuda.check(rc, REQUANT)
+        _cuda.ptr(res), _cuda.ptr(out), _cuda.ptr(codes_out)), m, n, k, gs, dev)
     _cuda.count_launch(REQUANT)
     return out
 
