@@ -6,11 +6,11 @@ It imports no JAX.  Phases, each printing one JSON line with its seconds:
 
 1. device: the card's name and power limit (nvidia-smi); TF32 off.
 2. build: the thirteen CUDA sources, one nvcc each, started together; the
-   logs of the sources on the TMA + wgmma loop (K1, K4, K5, K9, P1) must not
-   hold ptxas warning C7515 (wgmma serialised), nor may their libraries'
-   SASS (``cuobjdump -sass``) hold a kernel whose every IGMMA is waited for
-   at once (serialised with no warning); K4's and K5's registers and spills
-   are recorded.
+   logs of the sources on wgmma (K1, K4-K6, K9, P1 on the TMA + wgmma loop,
+   and K2) must not hold ptxas warnings C7515 or C7520 (wgmma serialised),
+   nor may their libraries' SASS (``cuobjdump -sass``) hold a kernel whose
+   every IGMMA or HGMMA is waited for at once (serialised with no warning);
+   K4's, K5's, K6's and K2's registers and spills are recorded.
 3. kernels: K1 ``w4a8_matmul_rp_pipe``, K2 ``int8_prefill_attention``, K3
    ``int8_decode_attention``, the fused decode kernels K4
    ``fused_norm_gemv_rp``, K5 ``fused_requant_gemv_rp`` and K6
@@ -22,14 +22,19 @@ It imports no JAX.  Phases, each printing one JSON line with its seconds:
    over a shuffled pool of 128-token pages) and timed beside the plain
    version, one PyTorch library call for the same function (CUDA events
    around the call, and its kernels' device time from the profiler), and
-   the bound.
+   the bound.  K2 is also held (not timed) at K2_EXTRA: query windows at
+   offsets off the 64-row grid, several blocks a head, Dh 64 with GQA and
+   an odd count of query tiles.
    K1's int32 accumulators (alpha 1) and outputs equal the plain version's,
    also at EXTRA_GEMMS (rows that fill no tile, a width that is no multiple
    of the tile's, groupsize 64; not timed).  K4-K6 make their int8 codes
    inside the kernel: their codes are compared with the plain version's (at
    most 1 apart, >= 99.9% equal), and the int32 accumulators (alpha 1, beta
    0) and outputs with the plain version run on the kernel's codes, which
-   must agree exactly.  K4 and K5 are also held at FUSED_CHECK_ROWS rows
+   must agree exactly; K6's norm codes must equal RMSNormQ in the kernels'
+   order and its h codes ``_silu_mul_q`` of the plain gate/up sums on them,
+   bit for bit, also in the sweep (1, 9 and 64 rows, then 4 and 40 rows at
+   groupsize 32).  K4 and K5 are also held at FUSED_CHECK_ROWS rows
    (every token-row tile, with and without clusters), groupsize 64 and 128
    and a ragged width, then at groupsize 32 (one scale row a 32-k step, the
    kernels' other instantiation, after the first in the same process): the codes they hand out equal K5's plain requant and
@@ -173,6 +178,7 @@ ROOT = Path(__file__).resolve().parent
 DEV = "cuda"  # every tensor of the run lives on the card
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 INT8_OPS_PER_S = 1979e12  # dense int8 tensor cores
+FP16_OPS_PER_S = 989e12  # dense fp16 / bf16 tensor cores
 FP32_OPS_PER_S = 67e12  # fp32 outside the tensor cores
 
 BATCH, PROMPT, SMAX, NEW_TOKENS = 4, 256, 2048, 32
@@ -192,7 +198,8 @@ K1_NAMES = ["RowpairLoader"]
 # K4 and K5: the TMA + wgmma kernel and, when K is split, the kernel that sums the splits
 K4_NAMES = ["norm_gemv_rp_sm90", "norm_gemv_rp_combine"]
 K5_NAMES = ["requant_gemv_rp_sm90", "requant_gemv_rp_combine"]
-K6_NAMES = ["mlp_decode_rp_kernel", "mlp_decode_rp_epilogue"]
+# K6: its gate|up leg and its down leg, each with the kernel that sums its K splits
+K6_NAMES = ["mlp_gate_up_rp", "mlp_down_rp"]
 # K12's three entry points (one source)
 K12_NAMES = {"fused_norm_gemv": ["norm_gemv_span_kernel"],
              "fused_requant_gemv": ["requant_gemv_span_kernel"],
@@ -338,10 +345,11 @@ def phase_device(torch, state):
             "torch": torch.__version__, "cuda": torch.version.cuda}
 
 
-# the sources on the TMA + wgmma loop (w4a8_gemm_sm90.cuh), whose nvcc logs must not
-# hold ptxas warning C7515 (wgmma serialised: right, but slower)
+# the sources on wgmma (K1, K9, P1, K4-K6 on the TMA + wgmma loop of
+# w4a8_gemm_sm90.cuh; K2), whose nvcc logs must not hold ptxas warning C7515
+# (wgmma serialised: right, but slower)
 WGMMA_SOURCES = ("w4a8_rp_gemm", "w4a8_span_gemm", "s8_gemm", "fused_norm_gemv_rp",
-                 "fused_requant_gemv_rp")
+                 "fused_requant_gemv_rp", "fused_mlp_decode_rp", "int8_prefill_attention")
 
 
 def _ptxas_entries(log: str, marker: str) -> dict:
@@ -370,9 +378,10 @@ def _ptxas_entries(log: str, marker: str) -> dict:
 
 
 def _serialised_wgmma(sass: str) -> dict:
-    """From a ``cuobjdump -sass`` listing: per function that holds IGMMA
-    (int8 wgmma), whether every IGMMA is waited for at once, i.e. the next
-    IGMMA or WARPGROUP.DEPBAR after it is ``WARPGROUP.DEPBAR.LE gsb0, 0x0``.
+    """From a ``cuobjdump -sass`` listing: per function that holds IGMMA or
+    HGMMA (int8 or 16-bit wgmma), whether every one is waited for at once,
+    i.e. the next GMMA or WARPGROUP.DEPBAR after it is
+    ``WARPGROUP.DEPBAR.LE gsb0, 0x0``.
     That is how ptxas serialises wgmmas, also when it prints no C7515 (two
     fragment sets given the same registers); a pipelined loop issues two
     IGMMAs back to back and then waits for all but the last group."""
@@ -384,7 +393,7 @@ def _serialised_wgmma(sass: str) -> dict:
         if m:
             fn = m.group(1)
             events[fn] = []
-        elif fn is not None and "IGMMA" in line:
+        elif fn is not None and re.search(r"\b[IH]GMMA\b", line):
             events[fn].append("mma")
         elif fn is not None and "WARPGROUP.DEPBAR" in line:
             events[fn].append("wait0" if re.search(r"gsb0, 0x0\s*;", line) else "wait")
@@ -402,20 +411,23 @@ def phase_build(torch, state):
     ptxas, igmma_kernels = {}, {}
     for stem in WGMMA_SOURCES:
         log = (_cuda.BUILD_DIR / f"{stem}.log").read_text()
-        if "C7515" in log:
-            raise AssertionError(f"csrc/{stem}.cu: ptxas serialised the wgmmas (C7515)")
+        for code in ("C7515", "C7520"):
+            if code in log:
+                raise AssertionError(f"csrc/{stem}.cu: ptxas serialised the wgmmas ({code})")
         if stem.startswith("fused_"):
-            ptxas[stem] = _ptxas_entries(log, "gemv_rp_sm90")
+            ptxas[stem] = _ptxas_entries(log, "_rp_sm90")
             # fused_plan lets two blocks of 288 threads share an SM: 113 registers a thread
             for name, e in ptxas[stem].items():
                 if e.get("registers", 0) > 65536 // (2 * 288) or e.get("spill_bytes", 0):
                     raise AssertionError(f"csrc/{stem}.cu: {name} takes {e}")
+        elif stem == "int8_prefill_attention":
+            ptxas[stem] = _ptxas_entries(log, "prefill_attn_sm90")
         sass = subprocess.run([str(Path(_cuda._nvcc()).with_name("cuobjdump")), "-sass",
                                str(_cuda._lib_path(stem))], capture_output=True, text=True,
                               timeout=300, check=True).stdout
         serial = _serialised_wgmma(sass)
         if not serial:
-            raise AssertionError(f"csrc/{stem}.cu: no IGMMA in its SASS")
+            raise AssertionError(f"csrc/{stem}.cu: no IGMMA or HGMMA in its SASS")
         if any(serial.values()):
             raise AssertionError(f"csrc/{stem}.cu: wgmmas serialised in "
                                  f"{[f for f, bad in serial.items() if bad]}")
@@ -588,12 +600,40 @@ def _k2_cases(torch, timer, gen):
         pairs = sp * (sp + 1) // 2  # causal (query, key) pairs per head
         flops = 2.0 * dh * b * h * pairs
         nbytes = b * h * sp * dh + 2 * b * hk * plen * dh + 4 * b * h * sp * dh
-        b_ms, b_by = bound_ms(nbytes, flops / INT8_OPS_PER_S, flops / FP32_OPS_PER_S)
+        # the score product on int8 tensor cores; p @ V as two fp16 products (p_hi,
+        # p_lo) with fp32 sums on the 16-bit tensor cores
+        b_ms, b_by = bound_ms(nbytes, flops / INT8_OPS_PER_S, 2 * flops / FP16_OPS_PER_S)
         cases.append({"B": b, "H": h, "Hkv": hk, "Sp": sp, "Smax": SMAX, "plen": plen,
-                      "max_abs_err": err, "ms": timer.kernel(kern, ["prefill_attn_kernel"]),
+                      "max_abs_err": err, "ms": timer.kernel(kern, ["prefill_attn_sm90"]),
                       "call_ms": timer(kern), "plain_ms": timer(plain, iters=10),
                       **lib, "bound_ms": b_ms, "bound_by": b_by})
     return cases
+
+
+# K2 held (not timed) where the main path's shape does not take it: (B, H, Hkv, Sp, Dh,
+# Smax, prompt_len, q_offset): one request's chunk at an offset off the 64-row grid (several
+# blocks a head), a long chunk far into the cache, Dh 64 with 4 query heads a kv head, and a
+# perplexity window (33 query tiles a head, an odd count)
+K2_EXTRA = ((1, 32, 32, 512, 128, 2048, 700, 300), (1, 32, 8, 1024, 128, 4096, 3000, 1976),
+            (2, 8, 2, 192, 64, 512, 300, 77), (1, 32, 32, 2112, 128, 2112, 2100, 0))
+
+
+def _k2_extra_cases(torch, gen):
+    from dgq_tpu_torch.ops.attention import int8_prefill_attention, int8_prefill_attention_xla
+
+    out = []
+    for b, h, hk, sp, dh, smax, plen, off in K2_EXTRA:
+        q, kt, v, (qs, ks, vs) = _attn_inputs(torch, gen, b, h, hk, sp, dh, smax)
+        got = int8_prefill_attention(q, kt, v, plen, qs, ks, vs, off)
+        want = int8_prefill_attention_xla(q, kt, v, plen, qs, ks, vs, off)
+        err, ref_max = (got - want).abs().max().item(), want.abs().max().item()
+        if not err <= 3e-4 * ref_max:
+            raise AssertionError(f"K2 {(b, h, hk, sp, dh, smax, plen, off)}: max abs err {err} "
+                                 f"> 3e-4 * {ref_max}")
+        out.append({"B": b, "H": h, "Hkv": hk, "Sp": sp, "Dh": dh, "Smax": smax, "plen": plen,
+                    "q_offset": off, "max_abs_err": err, "ref_max": ref_max})
+        del q, kt, v, got, want
+    return out
 
 
 def _sdpa_decode_ms(torch, timer, q, kt, v, scales, lengths) -> dict:
@@ -734,6 +774,12 @@ def _fused_check(torch, c):
             raise AssertionError(f"{what}: {(acc_k != acc_rp).sum().item()} accumulators "
                                  "differ from K4-K6's on the rowpair copy")
         extra["int32_equal_rowpair_kernel"] = True
+    if "exact" in c:
+        for i, (got, want) in enumerate(zip(codes, c["exact"](codes))):
+            if not torch.equal(got, want):
+                raise AssertionError(f"{what}: {(got != want).sum().item()} of codes {i} "
+                                     "differ from the plain version's in the kernel's order")
+        extra["codes_bit_equal"] = True
     stats = [_code_stats(k, o) for k, o in zip(codes, c["own"](codes))]
     for i, st in enumerate(stats):
         _check_codes(f"{what} codes {i}", st)
@@ -915,6 +961,12 @@ def _k6_case(torch, gen, m, gs, extras, span=False):
         c["rowpair"] = lambda codes_out: fd.fused_mlp_decode_rp(
             *args(True, gqw_rp, dqw_rp, rowpair=True), span=2 * gs, bf=512, eps=eps,
             fuse_residual=False, codes_out=codes_out)
+    else:
+        # K6's codes exactly: the norm codes are K4's (RMSNormQ in the kernel's order),
+        # the h codes _silu_mul_q of the plain gate/up sums on them
+        c["exact"] = lambda codes: [_rmsnorm_q_ordered(torch, x, lnw, lnb, eps), own(codes)[1]]
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        c["meta"]["plans"] = [p._asdict() for p in fd.mlp_plan(m, d, f, gs, sms)]
     return c
 
 
@@ -948,11 +1000,14 @@ def _fused_cases(torch, timer, gen, span=False):
 
 def _fused_sweep(torch, gen, span=False):
     """K6 checked (not timed) off the main path's shapes: 1 row, 9 rows at
-    groupsize 64, and 64 rows (the engine's cap; two passes through shared
-    memory), with bias, beta and residual on; K12 at 1, 9 and 64 rows at
-    groupsize 64 (spans of 128).  (K4 and K5: ``_rowpair_gemv_checks``.)"""
+    groupsize 64, and 64 rows (the engine's cap), then 4 and 40 rows at
+    groupsize 32 (one scale row a 32-k step: the legs' other instantiation,
+    after the first in the same process), with bias, beta and residual on;
+    K12 at 1, 9 and 64 rows at groupsize 64 (spans of 128).  (K4 and K5:
+    ``_rowpair_gemv_checks``.)"""
     out = []
-    for m, gs in (((1, 64), (9, 64), (64, 64)) if span else ((1, 128), (9, 64), (64, 128))):
+    for m, gs in (((1, 64), (9, 64), (64, 64)) if span
+                  else ((1, 128), (9, 64), (64, 128), (4, 32), (40, 32))):
         for build in (SPAN_CASES.values() if span else (_k6_case,)):
             out.append({**_fused_check(torch, build(torch, gen, m, gs, extras=True, span=span)),
                         "groupsize": gs})
@@ -1354,6 +1409,7 @@ def phase_kernels(torch, state):
     gen = torch.Generator(device=DEV).manual_seed(0)
     state["k1"] = _k1_cases(torch, timer, gen)
     state["k2"] = _k2_cases(torch, timer, gen)
+    k2_extra = _k2_extra_cases(torch, gen)
     state["k3"] = _k3_cases(torch, timer, gen)
     state.update(_fused_cases(torch, timer, gen))
     k45 = _rowpair_gemv_checks(torch, gen)
@@ -1367,8 +1423,8 @@ def phase_kernels(torch, state):
     sweep12 = _fused_sweep(torch, gen, span=True)
     del timer
     torch.cuda.empty_cache()
-    return {**{f"k{i}": state[f"k{i}"] for i in range(1, 13)}, "k4_k5_checks": k45,
-            "k6_sweep": sweep, "k12_sweep": sweep12}
+    return {**{f"k{i}": state[f"k{i}"] for i in range(1, 13)}, "k2_checks": k2_extra,
+            "k4_k5_checks": k45, "k6_sweep": sweep, "k12_sweep": sweep12}
 
 
 def _drive_main(torch, cfg, ecfg, want, smax=SMAX, new_tokens=NEW_TOKENS,

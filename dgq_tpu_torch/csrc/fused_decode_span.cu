@@ -21,10 +21,11 @@
 //
 // What bounds it on this card: the weight bytes (K*N/2; 25 MB for LLaMA-7B's
 // qkv, 69 MB for its MLP) over the 3.35 TB/s of device memory; the rows are
-// few.  The design is K4-K6's (fused_gemv.cuh): every block makes the codes
-// of all rows in the same fixed order, then its warps stream 32-column
-// weight tiles through mma.sync on raw codes with the scale and zero applied
-// once per group.  Only the weight loader differs: a span k step loads 32
+// few.  The design is the first one of K4-K6 (fused_gemv.cuh; they have
+// since moved to TMA + wgmma): every block makes the codes of all rows in
+// the same fixed order, then its warps stream 32-column weight tiles through
+// mma.sync on raw codes with the scale and zero applied once per group.  A
+// span k step loads 32
 // byte rows and feeds both nibbles to two mma streams, one per group of the
 // span, whose activation codes and row sums lie gs apart along K; the MLP's
 // blocks take the 32 byte rows of Wd that hold 32 columns of F of an even

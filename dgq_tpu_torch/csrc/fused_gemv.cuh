@@ -1,19 +1,15 @@
-// Shared pieces of the fused decode kernels K6 (rowpair weights) and K12
-// (span weights), for Hopper (sm_90a): the prologues that make int8 codes
-// from fp32 rows, the warp-level product of 8 code rows with 32 weight
-// columns, K12's norm and requant GEMV body (gemv_body, span weights only)
-// and the MLP body of K6 and K12 (mlp_body, templated on a weight loader:
-// Rowpair or Span).  K4 and K5, the rowpair GEMVs, run on the TMA + wgmma
-// loop of the W4A8 GEMMs instead (fused_gemv_sm90.cuh); they take clamp_code,
-// pack4 and gemv_shapes_ok from here.
+// The fused decode kernels K12 on span weights, for Hopper (sm_90a): the
+// prologues that make int8 codes from fp32 rows, the warp-level product of 8
+// code rows with 32 weight columns, K12's norm and requant GEMV body
+// (gemv_body) and its MLP body (mlp_body), both templated on the weight
+// loader Span.  K4-K6, the rowpair kernels, run on the TMA + wgmma loop of
+// the W4A8 GEMMs instead (fused_gemv_sm90.cuh); they take clamp_code, pack4
+// and gemv_shapes_ok from here.
 //
-// Rowpair weights: byte r of column n holds the shifted code (c - 8) & 0xF of
-// row 2r in its low nibble and of row 2r+1 in its high one, so nib ^ 8 is the
-// unsigned code c in [0, 15].  Span weights (span = 2 gs): byte row t gs + i
-// holds the code c of row t span + i (group 2t) in its high nibble and of row
-// t span + gs + i (group 2t+1) in its low one, unshifted.  Either way a group
-// g of `gs` rows dequantises to int8 as (c - z) * s, and for any run of rows
-// inside one group
+// Span weights (span = 2 gs): byte row t gs + i holds the code c of row t
+// span + i (group 2t) in its high nibble and of row t span + gs + i (group
+// 2t+1) in its low one, unshifted.  A group g of `gs` rows dequantises to
+// int8 as (c - z) * s, and for any run of rows inside one group
 //     sum_k x[k] * (c[k] - z) * s = s * (sum_k x[k] * c[k] - z * sum_k x[k]),
 // exactly, in int32.  So the kernels multiply raw codes c on the tensor cores
 // (mma.sync m16n8k32 s8, c <= 15 fits s8) and apply s and z once per group
@@ -24,10 +20,9 @@
 // "columns" are activation rows, so a decode step of 4 rows pads to 8, not
 // 16.  A lane loads 32-bit words (4 columns each) of the byte rows of a
 // 32-deep k step and rearranges the nibbles with byte permutes into the A
-// fragments (4 consecutive k of one column per register).  A rowpair k step
-// reads 16 byte rows for 32 rows of one group; a span k step reads 32 byte
-// rows for 32 rows of group 2t and 32 rows of group 2t+1 at once, whose
-// activation codes lie gs apart along K.
+// fragments (4 consecutive k of one column per register).  A span k step
+// reads 32 byte rows for 32 rows of group 2t and 32 rows of group 2t+1 at
+// once, whose activation codes lie gs apart along K.
 
 #pragma once
 
@@ -84,30 +79,12 @@ __device__ __forceinline__ void transpose4(uint32_t r0, uint32_t r1, uint32_t r2
 
 constexpr uint32_t LO4 = 0x0F0F0F0Fu;
 
-// Rowpair words A (byte row r) and B (row r + 1), 4 columns each -> q[j] =
-// the codes c of rows 2r, 2r+1, 2r+2, 2r+3 of column j, one per byte.
-__device__ __forceinline__ void quads(uint32_t A, uint32_t B, uint32_t (&q)[4]) {
-  const uint32_t a = A ^ 0x88888888u, b = B ^ 0x88888888u;
-  transpose4(a & LO4, (a >> 4) & LO4, b & LO4, (b >> 4) & LO4, q);
-}
-
 // A weight loader gives, for one 32-deep k step starting at byte row rb, the
 // A fragments a[p][h][j] of each of its PLANES groups p: column col + j, rows
 // 4t..4t+3 (h = 0) and 16+4t..16+4t+3 (h = 1) of the step.  STEP_BYTES byte
-// rows make one k step.
-struct Rowpair {
-  static constexpr int PLANES = 1;
-  static constexpr int STEP_BYTES = 16;
-  __device__ __forceinline__ static void frags(const uint8_t* __restrict__ qw, int N, size_t rb,
-                                               int col, int t, uint32_t (&a)[1][2][4]) {
-    const uint8_t* w = qw + (rb + 2 * t) * N + col;
-    quads(ld32(w), ld32(w + N), a[0][0]);
-    quads(ld32(w + 8 * N), ld32(w + 9 * N), a[0][1]);
-  }
-};
-
-// Span: 32 byte rows hold 32 rows of the even group (high nibbles, plane 0)
-// and 32 rows of the odd group (low nibbles, plane 1) of one span.
+// rows make one k step.  Span: 32 byte rows hold 32 rows of the even group
+// (high nibbles, plane 0) and 32 rows of the odd group (low nibbles, plane 1)
+// of one span.
 struct Span {
   static constexpr int PLANES = 2;
   static constexpr int STEP_BYTES = 32;
@@ -129,16 +106,6 @@ struct Span {
 struct SegPos {
   size_t rb;
   int grp, xc, sxc;
-};
-
-// Rowpair: segment s = rows [k0 + s seg, + seg) of one group, activation
-// codes from column s seg.
-struct RowpairRun {
-  int k0, seg, gs;
-  __device__ __forceinline__ SegPos operator()(int s, int) const {
-    const int k = k0 + s * seg;
-    return {static_cast<size_t>(k / 2), k / gs, s * seg, s};
-  }
 };
 
 // Span over the whole K walk (activation codes in K order, row sums per
@@ -438,16 +405,16 @@ inline bool gemv_shapes_ok(int M, int N, int K, int gs) {
 }
 
 // ---------------------------------------------------------------------------
-// K6 (rowpair) and K12's MLP (span) body: the whole LLaMA MLP of M <= 64 rows.
-// Each block takes 64 columns of F: the RMSNormQ codes of all rows, its gate
-// and up columns, the SiLU * up codes of its columns, and the (M, D) int32
+// K12's MLP body: the whole LLaMA MLP of M <= 64 rows on span weights.  Each
+// block takes 64 columns of F: the RMSNormQ codes of all rows, its gate and
+// up columns, the SiLU * up codes of its columns, and the (M, D) int32
 // partial of the down product over its 64 rows of Wd, added into an int32
 // accumulator with atomics (exact in any order); a second small kernel
-// applies the fp32 epilogue once.  A rowpair block takes F columns [64 b, 64 b
-// + 64); a span block the 32 byte rows [32 b, 32 b + 32) of Wd, that is F
-// columns f0 .. f0 + 31 of an even group and f0 + gs .. f0 + gs + 31 of the
-// odd group beside it (f0 = 2 gs t + o for byte row 32 b = gs t + o), so that
-// its down leg reads both nibbles of the bytes it loads.
+// applies the fp32 epilogue once.  A block takes the 32 byte rows [32 b, 32 b
+// + 32) of Wd, that is F columns f0 .. f0 + 31 of an even group and f0 + gs
+// .. f0 + gs + 31 of the odd group beside it (f0 = 2 gs t + o for byte row
+// 32 b = gs t + o), so that its down leg reads both nibbles of the bytes it
+// loads.
 // ---------------------------------------------------------------------------
 
 constexpr int BF = 64;                // F columns per block
@@ -472,8 +439,9 @@ struct MlpArgs {
 
 // rows of one down-leg segment: one group's part of the block
 template <class L>
-__host__ __device__ inline int seg_down(int gs) {
-  return L::PLANES == 2 ? BF / 2 : (gs < BF ? gs : BF);
+__host__ __device__ inline int seg_down(int) {
+  static_assert(L::PLANES == 2, "span weights");
+  return BF / 2;
 }
 
 struct MlpLayout {
@@ -497,15 +465,11 @@ __host__ __device__ inline MlpLayout mlp_layout(int rows, int D, int gs) {
 // F index of column c (0 <= c < BF) of block b
 template <class L>
 __device__ __forceinline__ int block_col(int b, int c, int gs) {
-  if constexpr (L::PLANES == 1) {
-    return b * BF + c;
-  } else {
-    const int rb = b * (BF / 2), f0 = 2 * gs * (rb / gs) + rb % gs;
-    return c < BF / 2 ? f0 + c : f0 + gs + c - BF / 2;
-  }
+  const int rb = b * (BF / 2), f0 = 2 * gs * (rb / gs) + rb % gs;
+  return c < BF / 2 ? f0 + c : f0 + gs + c - BF / 2;
 }
 
-// Span, the down leg: one segment, byte rows [rb, rb + 32) holding the even
+// The down leg: one segment, byte rows [rb, rb + 32) holding the even
 // group ge's rows (codes in hs columns [0, 32)) and group ge + 1's ([32, 64)).
 struct SpanDown {
   size_t rb;
@@ -545,13 +509,8 @@ __device__ __forceinline__ void mlp_body(const MlpArgs& a, uint8_t* smem) {
       const int mtile = u % mt, ct = (u / mt) % NCT, kslice = u / (mt * NCT);
       const int n0 = (ct < NCT / 2 ? 0 : a.F) + block_col<L>(b, (ct % (NCT / 2)) * TILE_N, a.gs);
       int tot[2][4] = {{0, 0, 0, 0}, {0, 0, 0, 0}};
-      if constexpr (L::PLANES == 1)
-        warp_unit<L>(a.gu_qw, 2 * a.F, n0, RowpairRun{0, a.gs, a.gs}, a.gu_s, a.gu_z,
-                     xs + mtile * 8 * ldx, ldx, sx + mtile * 8 * Gd, Gd, a.gs, kslice, nsegd, ks,
-                     tot);
-      else
-        warp_unit<L>(a.gu_qw, 2 * a.F, n0, SpanWalk{a.gs}, a.gu_s, a.gu_z, xs + mtile * 8 * ldx,
-                     ldx, sx + mtile * 8 * Gd, Gd, a.gs, kslice, nsegd, ks, tot);
+      warp_unit<L>(a.gu_qw, 2 * a.F, n0, SpanWalk{a.gs}, a.gu_s, a.gu_z, xs + mtile * 8 * ldx,
+                   ldx, sx + mtile * 8 * Gd, Gd, a.gs, kslice, nsegd, ks, tot);
       store_unit(red + u * RED, tot);
     }
     __syncthreads();
@@ -586,17 +545,11 @@ __device__ __forceinline__ void mlp_body(const MlpArgs& a, uint8_t* smem) {
     for (int u = warp; u < mt * (a.D / TILE_N); u += WARPS) {
       const int mtile = u % mt, n0 = (u / mt) * TILE_N;
       int tot[2][4] = {{0, 0, 0, 0}, {0, 0, 0, 0}};
-      if constexpr (L::PLANES == 1) {
-        warp_unit<L>(a.d_qw, a.D, n0, RowpairRun{b * BF, segd, a.gs}, a.d_s, a.d_z,
-                     hs + mtile * 8 * ldh, ldh, sxh + mtile * 8 * nsegh, nsegh, segd, 0, nsegh, 1,
-                     tot);
-      } else {
-        // one segment: byte rows [32 b, 32 b + 32), the even group's codes in
-        // columns [0, 32) of hs and the odd group's in [32, 64)
-        const SpanDown at{static_cast<size_t>(b) * (BF / 2), block_col<L>(b, 0, a.gs) / a.gs};
-        warp_unit<L>(a.d_qw, a.D, n0, at, a.d_s, a.d_z, hs + mtile * 8 * ldh, ldh,
-                     sxh + mtile * 8 * nsegh, nsegh, segd, 0, 1, 1, tot);
-      }
+      // one segment: byte rows [32 b, 32 b + 32), the even group's codes in
+      // columns [0, 32) of hs and the odd group's in [32, 64)
+      const SpanDown at{static_cast<size_t>(b) * (BF / 2), block_col<L>(b, 0, a.gs) / a.gs};
+      warp_unit<L>(a.d_qw, a.D, n0, at, a.d_s, a.d_z, hs + mtile * 8 * ldh, ldh,
+                   sxh + mtile * 8 * nsegh, nsegh, segd, 0, 1, 1, tot);
 #pragma unroll
       for (int p = 0; p < 2; ++p)
 #pragma unroll
@@ -624,7 +577,7 @@ __device__ __forceinline__ void mlp_epilogue_body(const int* __restrict__ acc, i
   out[i] = y;
 }
 
-// The host side of both MLP entry points (arguments as their C signatures):
+// The host side of K12's MLP entry point (arguments as its C signature):
 // `kernel` runs mlp_body<L>, `epi` mlp_epilogue_body.  Returns a cudaError_t,
 // or BAD_ARGS.
 template <class L, typename Kernel, typename Epilogue>
@@ -635,8 +588,7 @@ int launch_mlp(Kernel kernel, Epilogue epi, const void* x, const void* ln_w, con
                const void* d_alpha, const void* d_beta, int fuse_residual, void* acc, void* out,
                void* xq_out, void* h_out, int M, int D, int F, int gs, void* stream) {
   if (!gemv_shapes_ok(M, 2 * F, D, gs) || F % BF || !down_scale || D % TILE_N) return BAD_ARGS;
-  if (L::PLANES == 1 ? (gs % BF && BF % gs) : (D % (2 * gs) || F % (2 * gs)))
-    return BAD_ARGS;
+  if (D % (2 * gs) || F % (2 * gs)) return BAD_ARGS;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   MlpArgs a{};
   a.x = static_cast<const float*>(x);

@@ -1,15 +1,23 @@
 // The fused decode GEMVs K4 (fused_norm_gemv_rp.cu) and K5
-// (fused_requant_gemv_rp.cu) on rowpair int4 weights, for Hopper (sm_90a),
-// on the main loop of the W4A8 GEMMs (w4a8_gemm_sm90.cuh):
+// (fused_requant_gemv_rp.cu) and the two legs of the fused MLP K6
+// (fused_mlp_decode_rp.cu) on rowpair int4 weights, for Hopper (sm_90a), on
+// the main loop of the W4A8 GEMMs (w4a8_gemm_sm90.cuh):
 //
 //   out[m, n] = float(sum_k q[m, k] * w[k, n]) * alpha[n] (+ beta[n]) (+ res[m, n])
 //
 // for the M <= 64 rows of a decode step or a verify window, with q the int8
-// codes the kernel makes from the fp32 rows x itself (K4: RMSNormQ, K5:
-// requant) and w the int8 dequantisation (c4 - (z - 8)) * s of the rowpair
-// nibbles with the compact even/odd group plane rows s_hi/s_lo/z_hi/z_lo
-// (group g at (g odd ? lo : hi) + (g / 2) N).  Each fp32 step of the epilogue
-// is rounded on its own (__fmul_rn, __fadd_rn), as the plain versions round.
+// codes the kernel makes itself (K4 and K6's gate|up leg: RMSNormQ of the
+// fp32 rows x; K5: requant of x; K6's down leg: the int8 h codes its first
+// leg wrote, copied) and w the int8 dequantisation (c4 - (z - 8)) * s of the
+// rowpair nibbles with the compact even/odd group plane rows
+// s_hi/s_lo/z_hi/z_lo (group g at (g odd ? lo : hi) + (g / 2) N), or, for
+// K6's down leg, with 8x-replicated scale and zero rows (group g at row 8g).
+// Each fp32 step of the epilogue is rounded on its own (__fmul_rn,
+// __fadd_rn), as the plain versions round.  K6's gate|up leg ends in
+// h = clip(round(SiLU(g) * u / down_scale)) instead: a block's 128 columns
+// are 64 gate columns f and the same 64 up columns F + f (two TMA boxes a
+// stage), so it pairs them in shared memory and writes the (M, F) int8 h
+// codes that its down leg reads.
 //
 // What bounds it on this card: the weight bytes, K*N/2, over the 3.35 TB/s of
 // device memory; the rows are few.  The design:
@@ -42,7 +50,10 @@
 //     well (remote stores do not wait; loading from the peers did), so the
 //     fp32 rows are read from L2 C times fewer;
 //   * a ring of four stages leaves room for the codes of two blocks an SM,
-//     which more stages in flight did not repay.
+//     which more stages in flight did not repay;
+//   * K6 is two launches of this body (and a combine each when the plan
+//     splits K): every weight byte is read once a call, and no block adds
+//     into another's sums (no atomics).
 //
 // Everything here has internal linkage (w4a8_gemm_sm90.cuh's rule).
 
@@ -69,6 +80,18 @@ constexpr size_t fused_smem(int bm, int sps) {
   return static_cast<size_t>(bm) * 128 * sps + F_RING * F_STAGE + 2 * F_RING * 8 + 256 + 1024;
 }
 
+// What a block computes: its codes, weight boxes, scale rows and epilogue.
+enum FusedMode {
+  F_NORM = 0,     // K4: RMSNormQ codes; fp32 out
+  F_REQUANT = 1,  // K5: requant codes; fp32 out (+ residual)
+  F_GATE_UP = 2,  // K6 leg 1: RMSNormQ codes; gate and up boxes; h codes out
+  F_DOWN = 3,     // K6 leg 2: the h codes; replicated scale rows; fp32 out (+ x)
+};
+
+__host__ __device__ constexpr bool norm_codes(int mode) {
+  return mode == F_NORM || mode == F_GATE_UP;
+}
+
 struct FusedArgs {
   const float* x;         // (M, K) f32
   const float* lnw;       // K4: (K,) norm weight
@@ -81,6 +104,9 @@ struct FusedArgs {
   const float* residual;  // K5: (M, N) or null
   float* out;             // (M, N)
   int8_t* codes_out;      // (M, K) or null
+  const int8_t* h_in;     // K6 leg 2: (M, K) int8 codes
+  const float* down_scale;  // K6 leg 1: device scalar
+  int8_t* h_out;          // K6 leg 1: (M, N / 2) int8 h codes
   int* part;              // (splits, M, N) int32 when K is split, else null
   int M, N, K, gs;
   int nst, sps;           // stages of 128 k over K; stages per split (blockIdx.y)
@@ -124,11 +150,6 @@ __device__ __forceinline__ void st_peer(uint32_t remote, uint32_t v) {
   asm volatile("st.shared::cluster.u32 [%0], %1;\n" ::"r"(remote), "r"(v) : "memory");
 }
 
-// generic-proxy writes to shared memory before this, visible to wgmma's reads after it
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
 // ---- the codes ---------------------------------------------------------------
 
 // Byte offset of code k (local to the block's K range, a multiple of 4) of row
@@ -169,15 +190,16 @@ __device__ __forceinline__ float row_rsqrt(const float* __restrict__ xr, int K, 
 // The codes of this block's rows (r < M, r % size == rank; the j-th is row
 // rank + size j) over k in [kb, kb + klen), stored at the same offset of
 // `codes` in every block of the cluster (remote stores do not wait); the
-// first cluster along N also hands them out.  K4 first takes each row's
-// rsqrt over all of K, one warp a row, into rs[j].  Then all consumer threads
-// make codes, 4 a word, loading U words before they convert any (stores to
-// codes_out could alias x, so the compiler would not hoist the loads).
-// Rounding as the plain versions: no fma, IEEE division, half-to-even
-// rounding.
-template <bool NORM, int BM>
+// first cluster along N also hands them out.  RMSNormQ first takes each
+// row's rsqrt over all of K, one warp a row, into rs[j].  Then all consumer
+// threads make codes, 4 a word, loading U words before they convert any
+// (stores to codes_out could alias x, so the compiler would not hoist the
+// loads); K6's down leg copies the words of its h codes.  Rounding as the
+// plain versions: no fma, IEEE division, half-to-even rounding.
+template <int MODE, int BM>
 __device__ __forceinline__ void make_codes(const FusedArgs& a, uint8_t* codes, float* rs, int kb,
                                            int klen, ClusterPos c) {
+  constexpr bool NORM = norm_codes(MODE), COPY = MODE == F_DOWN;
   const int cs = static_cast<int>(c.size), r0 = static_cast<int>(c.rank);
   const int own = (a.M - r0 + cs - 1) / cs;  // rows of this block
   if (NORM) {
@@ -189,19 +211,24 @@ __device__ __forceinline__ void make_codes(const FusedArgs& a, uint8_t* codes, f
     consumers_sync();
   }
   const bool hand_out = a.codes_out && blockIdx.x < c.size;
-  const float scale = NORM ? 1.0f : *a.in_scale;
+  const float scale = NORM || COPY ? 1.0f : *a.in_scale;
   uint32_t peer[8];  // `codes` in each block of the cluster
   for (int p = 0; p < cs; ++p) peer[p] = peer_addr(codes, p);
   const int words = klen / 4, total = own * words;
   constexpr int U = 4;  // words a thread loads before it converts any
   for (int i0 = threadIdx.x; i0 < total; i0 += U * F_CONSUMERS) {
     float4 v[U], wv[U], bv[U];
+    uint32_t hw[U];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int i = i0 + u * F_CONSUMERS;
       if (i >= total) break;
       const int k = kb + 4 * (i % words);
       const size_t row = static_cast<size_t>(r0 + cs * (i / words));
+      if constexpr (COPY) {
+        hw[u] = *reinterpret_cast<const uint32_t*>(a.h_in + row * a.K + k);
+        continue;
+      }
       v[u] = *reinterpret_cast<const float4*>(a.x + row * a.K + k);
       if (NORM) {
         wv[u] = *reinterpret_cast<const float4*>(a.lnw + k);
@@ -214,7 +241,9 @@ __device__ __forceinline__ void make_codes(const FusedArgs& a, uint8_t* codes, f
       if (i >= total) break;
       const int j = i / words, k = 4 * (i % words), r = r0 + cs * j;
       uint32_t word;
-      if (NORM) {
+      if constexpr (COPY) {
+        word = hw[u];
+      } else if (NORM) {
         const float rsj = rs[j];
         float y[4] = {__fmul_rn(__fmul_rn(v[u].x, rsj), wv[u].x),
                       __fmul_rn(__fmul_rn(v[u].y, rsj), wv[u].y),
@@ -253,15 +282,57 @@ __device__ __forceinline__ float fused_epilogue(int acc, const FusedArgs& a, int
   return y;
 }
 
-// One block: the 128 weight columns [128 blockIdx.x, + 128) over the stages
-// [sps blockIdx.y, + sps) of K, all M rows, with QS scale rows per 64-k half
-// (RowpairLoader<QS>).  Each .cu wraps it in a named kernel.
-template <bool NORM, int BM, int QS>
+// K6's down-input code of gate accumulator ag and up accumulator au of
+// column f (F = N / 2), rounded as the plain version rounds: g = ag *
+// alpha[f], u = au * alpha[F + f], h = (g * sigmoid(g)) * u with sigmoid
+// 1 / (1 + expf(-g)) and IEEE division, then clip(round(h / down_scale)).
+__device__ __forceinline__ int silu_code(int ag, int au, const FusedArgs& a, int f, float hscale) {
+  const float g = __fmul_rn(static_cast<float>(ag), a.alpha[f]);
+  const float up = __fmul_rn(static_cast<float>(au), a.alpha[a.N / 2 + f]);
+  const float sig = __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-g)));
+  const float h = __fmul_rn(__fmul_rn(g, sig), up);
+  return fgemv::clamp_code(__fdiv_rn(h, hscale), -128.0f);
+}
+
+// K6's gate|up stage holds two boxes [64 rows][64 bytes] swizzled 64 bytes
+// (the 16-byte chunk index XOR bits 7-8 of the offset), gate at 0 and up at
+// GU_BOX.  The rows a thread reads of a 32-k step (2t, 2t + 1, 8 + 2t, 9 + 2t
+// past a multiple of 16) all swizzle by t, so one offset serves them:
+// that of column pair cp (0..31) of its warpgroup's box.
+constexpr int GU_BOX = 64 * 64;
+
+__device__ __forceinline__ uint32_t box64_offset(int cp, int t) {
+  return (((cp >> 3) ^ t) << 4) | ((cp & 7) << 1);
+}
+
+// RowpairLoader::frags_at on a box of 64-byte rows: rows_t = box + 2t * 64
+template <int QS>
+__device__ __forceinline__ void frags_box64(const uint8_t* rows_t, uint32_t off,
+                                            const typename RowpairLoader<QS>::Scales& sc, int kk,
+                                            Frags& a) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const uint8_t* b = rows_t + (32 * h + 16 * kk) * 64 + off;
+    auto ld = [&](int d) { return *reinterpret_cast<const uint16_t*>(b + d * 64); };
+    const uint32_t t01 = __byte_perm(ld(0), ld(1), 0x5410);
+    const uint32_t t23 = __byte_perm(ld(8), ld(9), 0x5410);
+    const uint32_t c[2] = {__byte_perm(t01, t23, 0x6420), __byte_perm(t01, t23, 0x7531)};
+    RowpairLoader<QS>::unpack(c, sc, QS == 1 ? h : 2 * h + kk, a[h]);
+  }
+}
+
+// One block: 128 weight columns over the stages [sps blockIdx.y, + sps) of
+// K, all M rows, with QS scale rows per 64-k half (RowpairLoader<QS>): for
+// K4, K5 and K6's down leg the columns [128 blockIdx.x, + 128), for K6's
+// gate|up leg the gate columns [64 blockIdx.x, + 64) and the up columns F
+// + the same.  Each .cu wraps it in a named kernel.
+template <int MODE, int BM, int QS>
 __device__ __forceinline__ void fused_gemv_body(const CUtensorMap& tm_w, const CUtensorMap& tm_shi,
                                                 const CUtensorMap& tm_slo,
                                                 const CUtensorMap& tm_zhi,
                                                 const CUtensorMap& tm_zlo, const FusedArgs& a) {
   using L = RowpairLoader<QS>;
+  constexpr bool GU = MODE == F_GATE_UP;
   constexpr int R = 2 * QS;   // scale rows a stage
   constexpr int NA = BM / 2;  // accumulators a thread
   static_assert(BM % 8 == 0 && BM <= 64, "tile");
@@ -271,9 +342,10 @@ __device__ __forceinline__ void fused_gemv_body(const CUtensorMap& tm_w, const C
   uint8_t* ring = codes + static_cast<size_t>(BM) * 128 * a.sps;
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + F_RING * F_STAGE);
   uint64_t* empty = full + F_RING;
-  float* rs = reinterpret_cast<float*>(empty + F_RING);  // K4: rsqrt of this block's rows
+  float* rs = reinterpret_cast<float*>(empty + F_RING);  // RMSNormQ: rsqrt of this block's rows
 
-  const int n0 = blockIdx.x * BN;
+  // the block's first weight column: of the gate half and of the up half (GU)
+  const int n0 = blockIdx.x * (GU ? BN / 2 : BN), n_up = a.N / 2 + n0;
   const int st0 = blockIdx.y * a.sps, n_it = min(a.nst - st0, a.sps);
   const int kb = 128 * st0, klen = 128 * n_it;  // this block's K range
   const ClusterPos c = cluster_pos();
@@ -295,12 +367,24 @@ __device__ __forceinline__ void fused_gemv_body(const CUtensorMap& tm_w, const C
       uint8_t* base = ring + s * F_STAGE;
       mbar_expect_tx(&full[s], F_W_BYTES + 2 * R * BN);
       tma_load_2d(base, &tm_w, &full[s], n0, 64 * st);
+      if constexpr (GU) tma_load_2d(base + GU_BOX, &tm_w, &full[s], n_up, 64 * st);
 #pragma unroll
       for (int q = 0; q < R; ++q) {
         const int g = (128 * st + 128 / R * q) / a.gs;
+        // compact plane rows, or (K6's down leg) row 8g of the replicated ones
+        const int row = MODE == F_DOWN ? 8 * g : g >> 1;
+        const CUtensorMap* ms = (g & 1) ? &tm_slo : &tm_shi;
+        const CUtensorMap* mz = (g & 1) ? &tm_zlo : &tm_zhi;
         uint8_t* scl = base + F_W_BYTES + 2 * q * BN;
-        tma_load_2d(scl, (g & 1) ? &tm_slo : &tm_shi, &full[s], n0, g >> 1);
-        tma_load_2d(scl + BN, (g & 1) ? &tm_zlo : &tm_zhi, &full[s], n0, g >> 1);
+        if constexpr (GU) {
+          // the gate and the up columns' 64 bytes side by side in one 128-byte
+          // row (TMA writes to 128-byte aligned shared memory only)
+          tma_load_3d(scl, ms, &full[s], n0, 0, row);
+          tma_load_3d(scl + BN, mz, &full[s], n0, 0, row);
+        } else {
+          tma_load_2d(scl, ms, &full[s], n0, row);
+          tma_load_2d(scl + BN, mz, &full[s], n0, row);
+        }
       }
     };
     if (issuer)
@@ -317,7 +401,7 @@ __device__ __forceinline__ void fused_gemv_body(const CUtensorMap& tm_w, const C
   }
 
   // ---- consumers: the codes ----
-  make_codes<NORM, BM>(a, codes, rs, kb, klen, c);
+  make_codes<MODE, BM>(a, codes, rs, kb, klen, c);
   fence_async_smem();
   cluster_sync();     // every block's codes are in every block
   fence_async_smem();  // the peers' stores too, for wgmma
@@ -327,7 +411,10 @@ __device__ __forceinline__ void fused_gemv_body(const CUtensorMap& tm_w, const C
   const int t = lane & 3;
   const int cp = 32 * wg + 8 * warp + (lane >> 2);  // this thread's column pair of the block's 64
   uint32_t off[2];
-  L::pair_offsets(cp, t, off);
+  if constexpr (GU)
+    off[0] = box64_offset(cp & 31, t);  // of its warpgroup's box: gate (0) or up (1)
+  else
+    L::pair_offsets(cp, t, off);
   // the first product writes the accumulators (scale-d 0): no other
   // instruction defines them, which would make ptxas serialise the wgmmas
   int acc[NA];
@@ -342,7 +429,10 @@ __device__ __forceinline__ void fused_gemv_body(const CUtensorMap& tm_w, const C
     L::scales(rows + F_W_BYTES, cp, sc);
 #pragma unroll
     for (int kk = 0; kk < 2; ++kk) {
-      L::frags_at(rows + 2 * t * 128, off, sc, kk, fk[kk]);
+      if constexpr (GU)
+        frags_box64<QS>(rows + wg * GU_BOX + 2 * t * 64, off[0], sc, kk, fk[kk]);
+      else
+        L::frags_at(rows + 2 * t * 128, off, sc, kk, fk[kk]);
       // the stage's bytes are all in registers: release its slot
       if (kk == 1 && lane == 0) mbar_arrive(&empty[s]);
 #pragma unroll
@@ -363,6 +453,49 @@ __device__ __forceinline__ void fused_gemv_body(const CUtensorMap& tm_w, const C
 
   // ---- epilogue: accumulator e is column 2 cp + ((e >> 1) & 1) and token row
   // 8 (e >> 2) + 2t + (e & 1); a K split leaves int32 partials ----
+  if constexpr (GU) {
+    // column f = n0 + 2 (cp % 32) (+ 1) of the gate half (warpgroup 0) or of
+    // the up half (warpgroup 1); the same thread of each holds the same f
+    const int f = n0 + 2 * (cp & 31);
+    if (a.part) {
+      int* pz = a.part + static_cast<size_t>(blockIdx.y) * a.M * a.N + (wg ? n_up - n0 : 0) + f;
+#pragma unroll
+      for (int j = 0; j < BM / 8; ++j)
+#pragma unroll
+        for (int e0 = 0; e0 < 2; ++e0) {
+          const int m = 8 * j + 2 * t + e0;
+          if (m < a.M)
+            *reinterpret_cast<int2*>(pz + static_cast<size_t>(m) * a.N) =
+                make_int2(acc[4 * j + e0], acc[4 * j + 2 + e0]);
+        }
+      return;
+    }
+    // warpgroup 1 hands its up sums to warpgroup 0 through the ring, which
+    // every consumer has finished reading
+    consumers_sync();
+    int* ups = reinterpret_cast<int*>(ring) + (ct & 127);
+    if (wg == 1) {
+#pragma unroll
+      for (int e = 0; e < NA; ++e) ups[e * 128] = acc[e];
+    }
+    consumers_sync();
+    if (wg == 1) return;
+    const float hscale = *a.down_scale;
+    const int F = a.N / 2;
+#pragma unroll
+    for (int j = 0; j < BM / 8; ++j)
+#pragma unroll
+      for (int e0 = 0; e0 < 2; ++e0) {
+        const int m = 8 * j + 2 * t + e0;
+        if (m >= a.M) continue;
+        const int e = 4 * j + e0;
+        char2 h;
+        h.x = static_cast<int8_t>(silu_code(acc[e], ups[e * 128], a, f, hscale));
+        h.y = static_cast<int8_t>(silu_code(acc[e + 2], ups[(e + 2) * 128], a, f + 1, hscale));
+        *reinterpret_cast<char2*>(a.h_out + static_cast<size_t>(m) * F + f) = h;
+      }
+    return;
+  }
   const int n = n0 + 2 * cp;
   if (n >= a.N) return;
 #pragma unroll
@@ -392,6 +525,23 @@ __device__ __forceinline__ void fused_combine_body(const FusedArgs& a, int split
   a.out[i] = fused_epilogue(s, a, static_cast<int>(i / a.N), static_cast<int>(i % a.N));
 }
 
+// K6's gate|up leg: the splits' gate and up partials of (m, f) summed in
+// split order, then its h code.
+__device__ __forceinline__ void gate_up_combine_body(const FusedArgs& a, int splits) {
+  const int F = a.N / 2;
+  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= static_cast<size_t>(a.M) * F) return;
+  const size_t total = static_cast<size_t>(a.M) * a.N;
+  const int m = static_cast<int>(i / F), f = static_cast<int>(i % F);
+  const int* p = a.part + static_cast<size_t>(m) * a.N + f;
+  int g = 0, u = 0;
+  for (int z = 0; z < splits; ++z) {
+    g += p[z * total];
+    u += p[z * total + F];
+  }
+  a.h_out[i] = static_cast<int8_t>(silu_code(g, u, a, f, *a.down_scale));
+}
+
 // ---- host side ------------------------------------------------------------------
 
 constexpr int F_BAD_ARGS = -1;  // an entry point's own argument checks
@@ -407,20 +557,29 @@ inline bool fused_args_ok(const FusedArgs& a, int bm, int splits, int cluster) {
          fused_smem(bm, a.sps) <= F_SMEM_LIMIT;
 }
 
-// Launches kernel (the .cu's kernel of tile BM and QS scale rows a half)
-// over the grid (column tiles rounded up to the cluster, splits) in
-// clusters of `cluster` column tiles and, when K is split, combine.
-// Returns a cudaError_t.
-template <int BM, int QS, typename Kernel, typename Combine>
-int launch_fused_tile(Kernel kernel, Combine combine, const FusedArgs& a, int splits, int cluster,
-                      const void* qw, const void* const (&planes)[4], cudaStream_t st) {
+// Launches Kern's kernel of tile BM and QS scale rows a half over the grid
+// (column tiles rounded up to the cluster, splits) in clusters of `cluster`
+// column tiles and, when K is split, Kern's combine.  The weight box is
+// [64 rows][128 columns] swizzled 128 bytes, or K6's gate|up pair of
+// [64][64] boxes swizzled 64 bytes; the scale rows are compact planes
+// (G / 2 rows each), or K6's down leg's 8x-replicated rows (8 G; planes =
+// {s, s, z, z}).  Returns a cudaError_t.
+template <class Kern, int BM, int QS>
+int launch_fused_tile(const FusedArgs& a, int splits, int cluster, const void* qw,
+                      const void* const (&planes)[4], cudaStream_t st) {
+  constexpr int MODE = Kern::MODE;
+  constexpr uint32_t box = MODE == F_GATE_UP ? BN / 2 : BN;
+  const uint64_t scale_rows = MODE == F_DOWN ? 8ull * (a.K / a.gs) : a.K / a.gs / 2;
   CUtensorMap tw, tp[4];
-  int rc = tensor_map(&tw, qw, a.N, a.K / 2, BN, 64, CU_TENSOR_MAP_SWIZZLE_128B);
+  int rc = tensor_map(&tw, qw, a.N, a.K / 2, box, 64,
+                      MODE == F_GATE_UP ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B);
+  // K6's gate|up: a row's gate half and up half in one box (see tensor_map)
   for (int i = 0; i < 4 && !rc; ++i)
-    rc = tensor_map(&tp[i], planes[i], a.N, a.K / a.gs / 2, BN, 1, CU_TENSOR_MAP_SWIZZLE_NONE);
+    rc = tensor_map(&tp[i], planes[i], a.N, scale_rows, box, 1, CU_TENSOR_MAP_SWIZZLE_NONE,
+                    MODE == F_GATE_UP ? a.N / 2 : 0);
   if (rc) return rc;
+  auto kernel = Kern::template gemv<BM, QS>();
   // devices whose limit is raised: one set per instantiation, so per kernel
-  // (Kernel is a function pointer type, the same for every BM and QS)
   static uint64_t sized = 0;
   int dev = 0;
   cudaGetDevice(&dev);
@@ -451,8 +610,9 @@ int launch_fused_tile(Kernel kernel, Combine combine, const FusedArgs& a, int sp
   const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, tw, tp[0], tp[1], tp[2], tp[3], a);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (splits > 1) {
-    const size_t total = static_cast<size_t>(a.M) * a.N;
-    combine<<<static_cast<unsigned>((total + 255) / 256), 256, 0, st>>>(a, splits);
+    // an output a thread: (M, N) sums, or the gate|up leg's (M, N / 2) h codes
+    const size_t total = static_cast<size_t>(a.M) * (MODE == F_GATE_UP ? a.N / 2 : a.N);
+    Kern::combine()<<<static_cast<unsigned>((total + 255) / 256), 256, 0, st>>>(a, splits);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -462,27 +622,23 @@ int launch_fused_qs(const FusedArgs& a, int bm, int splits, int cluster, const v
                     const void* const (&planes)[4], cudaStream_t st) {
   switch (bm) {
     case 8:
-      return launch_fused_tile<8, QS>(Kern::template gemv<8, QS>(), Kern::combine(), a, splits,
-                                      cluster, qw, planes, st);
+      return launch_fused_tile<Kern, 8, QS>(a, splits, cluster, qw, planes, st);
     case 16:
-      return launch_fused_tile<16, QS>(Kern::template gemv<16, QS>(), Kern::combine(), a, splits,
-                                       cluster, qw, planes, st);
+      return launch_fused_tile<Kern, 16, QS>(a, splits, cluster, qw, planes, st);
     case 32:
-      return launch_fused_tile<32, QS>(Kern::template gemv<32, QS>(), Kern::combine(), a, splits,
-                                       cluster, qw, planes, st);
+      return launch_fused_tile<Kern, 32, QS>(a, splits, cluster, qw, planes, st);
     case 48:
-      return launch_fused_tile<48, QS>(Kern::template gemv<48, QS>(), Kern::combine(), a, splits,
-                                       cluster, qw, planes, st);
+      return launch_fused_tile<Kern, 48, QS>(a, splits, cluster, qw, planes, st);
     default:
-      return launch_fused_tile<64, QS>(Kern::template gemv<64, QS>(), Kern::combine(), a, splits,
-                                       cluster, qw, planes, st);
+      return launch_fused_tile<Kern, 64, QS>(a, splits, cluster, qw, planes, st);
   }
 }
 
-// The host side of both entry points: Kern (a struct with `template <int BM,
-// int QS> static auto gemv()` and `static auto combine()`, the .cu's
-// kernels) at the plan's tile, with one scale row per 64-k half when the
-// groupsize allows it.  Returns a cudaError_t, or F_BAD_ARGS.
+// The host side of the entry points: Kern (a struct with its FusedMode
+// `MODE`, `template <int BM, int QS> static auto gemv()` and `static auto
+// combine()`, the .cu's kernels) at the plan's tile, with one scale row per
+// 64-k half when the groupsize allows it.  Returns a cudaError_t, or
+// F_BAD_ARGS.
 template <class Kern>
 int launch_fused(const FusedArgs& a, int bm, int splits, int cluster, const void* qw,
                  const void* const (&planes)[4], cudaStream_t st) {

@@ -1,8 +1,10 @@
 // The main loop shared by the W4A8 GEMMs K1 (w4a8_rp_gemm.cu) and K9
 // (w4a8_span_gemm.cu) and by the probe P1 (s8_gemm.cu), for Hopper (sm_90a).
-// The fused decode GEMVs K4 and K5 (fused_gemv_sm90.cuh) run its TMA ring,
+// The fused decode kernels K4-K6 (fused_gemv_sm90.cuh) run its TMA ring,
 // wgmma wrappers, rowpair loader and descriptor cache in a kernel of their
-// own, with codes they make in shared memory as the B operand.
+// own, with codes they make in shared memory as the B operand; the prefill
+// attention K2 (int8_prefill_attention.cu) takes its TMA, mbarrier and
+// wgmma helpers.
 //
 //   acc[m, n] = sum_k x[m, k] * w8[k, n]   (exact int32)
 //
@@ -122,6 +124,22 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// the 3-d form, for a map whose rows are two halves (tensor_map's `half`)
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// generic-proxy shared memory accesses before this, ordered before the async
+// proxy's after it (wgmma's reads, TMA's writes)
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
 __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
@@ -139,13 +157,13 @@ __device__ __forceinline__ void fence_regs(T (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
-// K-major B operand in shared memory (an x box), rows of HB bytes swizzled HB
-// bytes (64 or 32), 8-row groups 8 HB bytes apart; LBO is unused for swizzled
-// K-major
+// K-major operand in shared memory (an x box), rows of HB bytes swizzled HB
+// bytes (128, 64 or 32), 8-row groups 8 HB bytes apart; LBO is unused for
+// swizzled K-major
 __device__ __forceinline__ uint64_t gmma_desc(const void* p, int hb) {
   const uint64_t addr = smem_u32(p);
   const uint64_t sbo = (8 * hb) >> 4;
-  const uint64_t layout = hb == 64 ? 2 : 3;  // B64, B32
+  const uint64_t layout = hb == 128 ? 1 : hb == 64 ? 2 : 3;  // B128, B64, B32
   return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | (sbo << 32) | (layout << 62);
 }
 
@@ -606,7 +624,7 @@ typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
 // once, an activation's whenever the allocator hands out a new address.
 struct MapEntry {
   const void* ptr;
-  uint64_t d0, d1;
+  uint64_t d0, d1, half;
   uint32_t b0, b1;
   int swizzle;
   CUtensorMap map;
@@ -617,13 +635,17 @@ int g_map_count = 0, g_map_next = 0;
 std::mutex g_map_mu;
 EncodeTiledFn g_encode = nullptr;
 
-// A 2-D uint8 tensor map over (d1 rows, d0 bytes a row), box b0 x b1.
+// A 2-D uint8 tensor map over (d1 rows, d0 bytes a row), box b0 x b1; with
+// `half`, a 3-D one that sees each row as two halves of `half` bytes (d0 = 2
+// half), box b0 x 2 x b1: one box brings b0 bytes at the same place of both
+// halves, side by side.
 int tensor_map(CUtensorMap* out, const void* p, uint64_t d0, uint64_t d1, uint32_t b0,
-               uint32_t b1, CUtensorMapSwizzle swizzle) {
+               uint32_t b1, CUtensorMapSwizzle swizzle, uint64_t half = 0) {
   std::lock_guard<std::mutex> lock(g_map_mu);
   for (int i = 0; i < g_map_count; ++i) {
     const MapEntry& e = g_maps[i];
-    if (e.ptr == p && e.d0 == d0 && e.d1 == d1 && e.b0 == b0 && e.b1 == b1 && e.swizzle == swizzle) {
+    if (e.ptr == p && e.d0 == d0 && e.d1 == d1 && e.half == half && e.b0 == b0 && e.b1 == b1 &&
+        e.swizzle == swizzle) {
       *out = e.map;
       return 0;
     }
@@ -641,11 +663,14 @@ int tensor_map(CUtensorMap* out, const void* p, uint64_t d0, uint64_t d1, uint32
       return static_cast<int>(cudaErrorInvalidDeviceFunction);
     g_encode = reinterpret_cast<EncodeTiledFn>(fn);
   }
-  const cuuint64_t dims[2] = {d0, d1}, strides[1] = {d0};
-  const cuuint32_t box[2] = {b0, b1}, elem[2] = {1, 1};
-  MapEntry e{p, d0, d1, b0, b1, static_cast<int>(swizzle), {}};
-  if (g_encode(&e.map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(p), dims, strides, box,
-               elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  const cuuint32_t rank = half ? 3 : 2;
+  const cuuint64_t dims2[2] = {d0, d1}, strides2[1] = {d0};
+  const cuuint64_t dims3[3] = {half, 2, d1}, strides3[2] = {half, d0};
+  const cuuint32_t box2[2] = {b0, b1}, box3[3] = {b0, 2, b1}, elem[3] = {1, 1, 1};
+  MapEntry e{p, d0, d1, half, b0, b1, static_cast<int>(swizzle), {}};
+  if (g_encode(&e.map, CU_TENSOR_MAP_DATA_TYPE_UINT8, rank, const_cast<void*>(p),
+               half ? dims3 : dims2, half ? strides3 : strides2, half ? box3 : box2, elem,
+               CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return static_cast<int>(cudaErrorInvalidValue);
   const int slot = g_map_count < MAP_SLOTS ? g_map_count++ : g_map_next++ % MAP_SLOTS;

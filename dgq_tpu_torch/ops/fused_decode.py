@@ -5,9 +5,11 @@ Port of ``dgq_tpu/ops/fused_decode.py``: the conversion helpers (:154-229),
 ``plane_colsums`` (:304), ``_rmsnorm_q`` (:340-344) and, under the JAX
 names, the wrappers of the hand-written CUDA kernels that replace the TPU
 kernels ``fused_norm_gemv_rp`` (K4, ``csrc/fused_norm_gemv_rp.cu``),
-``fused_requant_gemv_rp`` (K5, ``csrc/fused_requant_gemv_rp.cu``; both on
-the TMA + wgmma loop of ``csrc/fused_gemv_sm90.cuh``, tiled by
-``fused_plan``), ``fused_mlp_decode_rp`` (K6, ``csrc/fused_mlp_decode_rp.cu``) and
+``fused_requant_gemv_rp`` (K5, ``csrc/fused_requant_gemv_rp.cu``),
+``fused_mlp_decode_rp`` (K6, ``csrc/fused_mlp_decode_rp.cu``: two legs, the
+gate|up product with its SiLU codes and the down product; all three on the
+TMA + wgmma loop of ``csrc/fused_gemv_sm90.cuh``, tiled by ``fused_plan``
+and, for K6's legs, ``mlp_plan``) and
 ``fused_norm_gemv``, ``fused_requant_gemv``, ``fused_mlp_decode`` (K12, one
 source ``csrc/fused_decode_span.cu``).  Each plain version (``*_xla``) makes
 its int8 codes, takes the exact int32 product with the weights dequantised
@@ -52,12 +54,17 @@ _NORM_RP_ARGS = [_VP] * 3 + [_F32] + [_VP] * 9 + [_INT] * 8 + [_VP] * 2
 _REQUANT_RP_ARGS = [_VP] * 2 + [_F32] + [_VP] * 10 + [_INT] * 8 + [_VP] * 2
 # x, lnw, lnb, eps, down_scale, gu_qw, gu_s_hi, gu_s_lo, gu_z_hi, gu_z_lo,
 # gu_alpha, d_qw, d_ws, d_wz, d_alpha, d_beta, fuse_residual, acc, out,
-# xq_out, h_out, M, D, F, gs, sms, stream
+# xq_out, h_out, M, D, F, gs, sms, stream (K12's MLP)
 _MLP_ARGS = [_VP] * 3 + [_F32] + [_VP] * 12 + [_INT] + [_VP] * 4 + [_INT] * 5 + [_VP]
+# K6: as K12's MLP up to fuse_residual, then out, xq_out, h_out, M, D, F, gs
+# and each leg's plan (bm, splits, sps, cluster) with its int32 scratch, and
+# the stream
+_MLP_RP_ARGS = ([_VP] * 3 + [_F32] + [_VP] * 12 + [_INT] + [_VP] * 3 + [_INT] * 4
+                + ([_INT] * 4 + [_VP]) * 2 + [_VP])
 _SIGNATURES = {
     NORM: {NORM: _NORM_RP_ARGS},
     REQUANT: {REQUANT: _REQUANT_RP_ARGS},
-    MLP: {MLP: _MLP_ARGS},
+    MLP: {MLP: _MLP_RP_ARGS},
     # K12: one library, three entry points
     "span": {NORM_SPAN: _NORM_ARGS, REQUANT_SPAN: _REQUANT_ARGS, MLP_SPAN: _MLP_ARGS},
 }
@@ -391,17 +398,47 @@ def fused_plan(m: int, n: int, k: int, groupsize: int, sms: int, norm: bool = Tr
                key=lambda p: _plan_cost(p, m, n, k, sms, norm))
 
 
+def mlp_plan(m: int, d: int, f: int, groupsize: int, sms: int):
+    """The plans of K6's two legs for an (m, D, F) MLP on a card with
+    ``sms`` SMs: the gate|up leg is K4's product, (m, 2F, D) with the
+    RMSNormQ codes; the down leg K5's, (m, D, F) with codes it copies.  Each
+    leg's block reads 128 columns of its weights a stage, so
+    ``fused_plan``'s tiles, clusters, splits and costs hold for both."""
+    return (fused_plan(m, 2 * f, d, groupsize, sms, True),
+            fused_plan(m, d, f, groupsize, sms, False))
+
+
+def _split_scratch(plan: FusedPlan, m: int, n: int, dev) -> Optional[Tensor]:
+    """The (splits, m, n) int32 partials of a K split, or None."""
+    return (torch.empty((plan.splits, m, n), dtype=torch.int32, device=dev)
+            if plan.splits > 1 else None)
+
+
 def launch_rowpair(name: str, plan: FusedPlan, args_head, m: int, n: int, k: int, gs: int,
-                    dev) -> None:
+                   dev) -> None:
     """Launch K4 or K5 (``name``) with ``plan``: the C entry point's
     arguments up to ``codes_out`` (``args_head``), then the shapes, the plan
     and the int32 scratch of a K split."""
-    part = (torch.empty((plan.splits, m, n), dtype=torch.int32, device=dev)
-            if plan.splits > 1 else None)
+    part = _split_scratch(plan, m, n, dev)
     lib = _cuda.library(_cuda.SOURCES[name], _SIGNATURES[name])
     rc = getattr(lib, name)(*args_head, m, n, k, gs, plan.bm, plan.splits, plan.sps,
                             plan.cluster, _cuda.ptr(part), _cuda.stream(dev))
     _cuda.check(rc, name)
+
+
+def launch_mlp_rp(plans, args_head, m: int, d: int, f: int, gs: int, dev) -> None:
+    """Launch K6 with its legs' ``plans`` (gate|up, down): the C entry
+    point's arguments up to ``h_out`` (``args_head``), then the shapes and
+    each leg's plan with the int32 scratch of its K split."""
+    gate_up, down = plans
+    part_gu = _split_scratch(gate_up, m, 2 * f, dev)
+    part_d = _split_scratch(down, m, d, dev)
+    lib = _cuda.library(_cuda.SOURCES[MLP], _SIGNATURES[MLP])
+    rc = lib.fused_mlp_decode_rp(
+        *args_head, m, d, f, gs, gate_up.bm, gate_up.splits, gate_up.sps, gate_up.cluster,
+        _cuda.ptr(part_gu), down.bm, down.splits, down.sps, down.cluster, _cuda.ptr(part_d),
+        _cuda.stream(dev))
+    _cuda.check(rc, MLP)
 
 
 def fused_norm_gemv_rp(x: Tensor, ln_w: Tensor, ln_b: Optional[Tensor], qw_rp: Tensor,
@@ -500,11 +537,13 @@ def fused_mlp_decode_rp(x: Tensor, ln_w: Tensor, ln_b: Optional[Tensor], gu_qw_r
     d_qw_rp (F//2, D) with its scales and zeros 8x row-replicated (8*Gf, D),
     as the engine stores them (the kernel reads row 8g of group g).  The
     cs_folds are checked and not read; ``bf`` is the TPU's F block, checked
-    as JAX checks it: the CUDA kernel takes F blocks of 64 columns, and the
-    exact int32 result does not depend on the block.  ``codes_out`` = (xq
-    (M, D), h (M, F)) int8 tensors, when given, receive the codes.
-    The call is one K6 launch (a zero fill of the int32 accumulator and a
-    small epilogue kernel run inside it)."""
+    as JAX checks it: the CUDA kernel's gate|up blocks take 64 columns of F
+    and its down blocks 128 rows of Wd a stage, and the exact int32 result
+    does not depend on the block.  ``codes_out`` = (xq (M, D), h (M, F))
+    int8 tensors, when given, receive the codes.  On the card the call is
+    one K6 launch: its two legs (gate|up with the SiLU codes, then down),
+    each followed by the kernel that sums its K splits where ``mlp_plan``
+    splits K."""
     m, d, n2f, gs = _check_shapes(x, gu_qw_rp, gu_s_hi, gu_cs_fold, span)
     f2, dout = d_qw_rp.shape
     fdim = 2 * f2
@@ -527,31 +566,29 @@ def fused_mlp_decode_rp(x: Tensor, ln_w: Tensor, ln_b: Optional[Tensor], gu_qw_r
     if ln_b is not None:
         _cuda.require(ln_b, "ln_b", torch.float32, (d,), dev)
     _require_scalar(down_scale, "down_scale", dev)
-    _cuda.require(gu_qw_rp, "gu_qw_rp", torch.int8, (d // 2, n2f), dev, align=4)
+    _cuda.require(gu_qw_rp, "gu_qw_rp", torch.int8, (d // 2, n2f), dev)
     _require_planes(dev, d, n2f, gs, (gu_s_hi, gu_s_lo, gu_z_hi, gu_z_lo), gu_cs_fold,
-                    gu_alpha, None)
-    _cuda.require(d_qw_rp, "d_qw_rp", torch.int8, (f2, d), dev, align=4)
-    _cuda.require(d_wscales, "d_wscales", torch.int8, (8 * fdim // gs, d), dev, align=4)
-    _cuda.require(d_wzeros, "d_wzeros", torch.int8, (8 * fdim // gs, d), dev, align=4)
+                    gu_alpha, None, align=16)
+    _cuda.require(d_qw_rp, "d_qw_rp", torch.int8, (f2, d), dev)
+    _cuda.require(d_wscales, "d_wscales", torch.int8, (8 * fdim // gs, d), dev)
+    _cuda.require(d_wzeros, "d_wzeros", torch.int8, (8 * fdim // gs, d), dev)
     _require_planes(dev, fdim, d, gs, (), d_cs_fold, d_alpha, d_beta)
-    if fdim % 64:
-        raise ValueError(f"K6 needs F % 64 == 0, got F={fdim}")
+    # the two legs' K (D and F) and N (2F and D) as K4's and K5's
+    plans = mlp_plan(m, d, fdim, gs, _sms(dev))
     xq_out = h_out = None
     if codes_out is not None:
         xq_out, h_out = codes_out
         _cuda.require(xq_out, "codes_out[0]", torch.int8, (m, d), dev, align=4)
         _cuda.require(h_out, "codes_out[1]", torch.int8, (m, fdim), dev, align=4)
-    acc = torch.empty((m, d), dtype=torch.int32, device=dev)
+    if h_out is None:  # the down leg's input
+        h_out = torch.empty((m, fdim), dtype=torch.int8, device=dev)
     out = torch.empty((m, d), dtype=torch.float32, device=dev)
-    lib = _cuda.library(_cuda.SOURCES[MLP], _SIGNATURES[MLP])
-    rc = lib.fused_mlp_decode_rp(
+    launch_mlp_rp(plans, (
         _cuda.ptr(x), _cuda.ptr(ln_w), _cuda.ptr(ln_b), float(eps), _cuda.ptr(down_scale),
         _cuda.ptr(gu_qw_rp), _cuda.ptr(gu_s_hi), _cuda.ptr(gu_s_lo), _cuda.ptr(gu_z_hi),
         _cuda.ptr(gu_z_lo), _cuda.ptr(gu_alpha), _cuda.ptr(d_qw_rp), _cuda.ptr(d_wscales),
         _cuda.ptr(d_wzeros), _cuda.ptr(d_alpha), _cuda.ptr(d_beta), int(fuse_residual),
-        _cuda.ptr(acc), _cuda.ptr(out), _cuda.ptr(xq_out), _cuda.ptr(h_out), m, d, fdim, gs,
-        _sms(dev), _cuda.stream(dev))
-    _cuda.check(rc, MLP)
+        _cuda.ptr(out), _cuda.ptr(xq_out), _cuda.ptr(h_out)), m, d, fdim, gs, dev)
     _cuda.count_launch(MLP)
     return out
 
