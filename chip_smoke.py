@@ -6,11 +6,12 @@ It imports no JAX.  Phases, each printing one JSON line with its seconds:
 
 1. device: the card's name and power limit (nvidia-smi); TF32 off.
 2. build: the thirteen CUDA sources, one nvcc each, started together; the
-   logs of the sources on wgmma (K1, K4-K6, K9, P1 on the TMA + wgmma loop,
-   and K2) must not hold ptxas warnings C7515 or C7520 (wgmma serialised),
-   nor may their libraries' SASS (``cuobjdump -sass``) hold a kernel whose
-   every IGMMA or HGMMA is waited for at once (serialised with no warning);
-   K4's, K5's, K6's and K2's registers and spills are recorded.
+   logs of the sources on wgmma (K1, K4-K6, K9, K10, P1 on the TMA + wgmma
+   loop, and K2) must not hold ptxas warnings C7514, C7515 or C7520 (wgmma
+   serialised), nor may their libraries' SASS (``cuobjdump -sass``) hold a
+   kernel whose every IGMMA or HGMMA is waited for at once (serialised with
+   no warning); K2's, K3's, K4's, K5's, K6's and K10's registers and spills
+   are recorded.
 3. kernels: K1 ``w4a8_matmul_rp_pipe``, K2 ``int8_prefill_attention``, K3
    ``int8_decode_attention``, the fused decode kernels K4
    ``fused_norm_gemv_rp``, K5 ``fused_requant_gemv_rp`` and K6
@@ -49,7 +50,14 @@ It imports no JAX.  Phases, each printing one JSON line with its seconds:
    and 2048: K9's int32 accumulators and outputs equal the plain version's,
    also at EXTRA_GEMMS and EXTRA_SPAN_GEMMS (groupsize 32);
    K10 equals it where K is not split over blocks and lies within K10_TOL of
-   the largest output where it is.  Last K11 ``int4_paged_decode_attention``
+   the largest output where it is, also at K10_EXTRA (1, 16 and 17 rows,
+   groupsizes 64 and 32, no bias), timed at 1024 and 2048 rows beside K9
+   on int8 scales of the same shapes.  K3 is held at
+   K3_TIMED (the main decode step, MHA and GQA, quant_pv on and off, and
+   serve_dense's 8 slots), each also at every cluster size (held) and beside
+   K7's tiled body on the same cache (timed), and at K3_EXTRA (lengths 1, off
+   the ranks' grid and Smax, Dh 64, Smax % 16 == 4, Smax 8192).  Last K11
+   ``int4_paged_decode_attention``
    on K8's pool, table and lengths with INT4 nibble pages, MHA and GQA:
    within K11_TOL of the largest output of its plain version, and on a
    contiguous table of K8 without quant_pv on the unpacked INT8 pool.  Then
@@ -118,7 +126,14 @@ It imports no JAX.  Phases, each printing one JSON line with its seconds:
    tokens against serve_dense's, direct runs with ``decode_steps=4`` and with
    ``spec_adaptive=False``, and a profiled 8-slot verify step (its plain
    attention also timed alone at the step's shapes).
-14. parity: at full width and 2 layers, the kernel path against the plain
+14. serve_fpscale: the dense daemon on an fp-scale checkpoint
+   (``save_engine`` of ``build_llama_engine(fp_scales=True)``, 7B width
+   and depth) with the first 4 of serve_dense's requests, all queued before
+   its first step: ``serve`` takes ``fp_scales`` from the stored scales; the
+   served tokens must equal a direct ``ContinuousBatcher.run()`` with
+   ``EngineConfig(fp_scales=True)``; K10 and K2 run, K3 once per layer of
+   every decode forward, and no K1 or K4-K6.
+15. parity: at full width and 2 layers, the kernel path against the plain
    path on the card (prefill logits, 8 teacher-forced decode steps and a
    5-token ``window="decode"`` verify window), fused, unfused, fp-scale
    (K10) and INT4 KV, ``paged_prefill`` + 8 teacher-forced
@@ -132,10 +147,10 @@ It imports no JAX.  Phases, each printing one JSON line with its seconds:
    checks each of its int8 code tensors against the kernel run's (at most 1
    apart, >= 99.9% equal) and then continues from the kernel run's codes;
    the fused kernels hand their codes out through ``codes_out``.
-15. checkpoint: ``save_engine`` then ``load_engine`` at full width and 2
+16. checkpoint: ``save_engine`` then ``load_engine`` at full width and 2
    layers, for the LLaMA and the OPT engine: bit-equal tensors and equal
    greedy tokens.
-16. probes (run right after kernels): the tools' path.  Each probe's main (``dgq_tpu_torch/scripts``:
+17. probes (run right after kernels): the tools' path.  Each probe's main (``dgq_tpu_torch/scripts``:
    P1 ``roofline_probe``, P2 ``probe_gemv_engines``, P3
    ``probe_native_s4``, P4 ``probe_s4_bitcast_numerics``, P5
    ``probe_quant_pv_parts``) at a cut depth (PROBE_ARGS), with launches
@@ -153,7 +168,7 @@ It imports no JAX.  Phases, each printing one JSON line with its seconds:
    PV_TOL of the largest output.  Beside the profiler's kernel time each
    case records ``events_ms``, the same time from CUDA events alone
    (``Timer.events``).
-17. bench: ``python -m dgq_tpu_torch.bench`` (BENCH_ARGS) in a subprocess:
+18. bench: ``python -m dgq_tpu_torch.bench`` (BENCH_ARGS) in a subprocess:
    exactly one line on stdout, a numeric value, no ``degraded``, the card's
    name, K9 and K1 launched by its GEMM round; its launches summed over its
    stages are the bench path's.
@@ -205,9 +220,10 @@ K12_NAMES = {"fused_norm_gemv": ["norm_gemv_span_kernel"],
              "fused_requant_gemv": ["requant_gemv_span_kernel"],
              "fused_mlp_decode": ["mlp_decode_span_kernel", "mlp_decode_span_epilogue"]}
 K12_ALL = [n for names in K12_NAMES.values() for n in names]
+K3_NAMES = ["decode_attn_cluster"]
 K78_NAMES = ["chunk_attn_kernel", "combine_kernel"]  # K7 and K8 share their kernels
 K9_NAMES = ["SpanLoader"]
-K10_NAMES = ["fpscale_gemm_kernel", "fpscale_splitk_combine"]
+K10_NAMES = ["SpanCodesLoader"]  # the shared loop and its split combine, K10's loader
 FUSED_ROWS = (BATCH, 40)  # a decode step; 8 slots x a 5-token verify window
 # (N, K) of the four linears of a LLaMA-2-7B layer (F padded to 11264)
 LINEARS = {"qkv_proj": (12288, 4096), "o_proj": (4096, 4096),
@@ -238,6 +254,7 @@ class Timer:
         self.torch = torch
         self.flush = torch.empty(128 << 20, dtype=torch.uint8, device=DEV)
         self.flush_keys = None  # the flush's kernel names, learned by the first ``device``
+        self.last_kernels = []  # the kernel names the last ``device`` call counted
 
     def __call__(self, fn, iters: int = 20, warmup: int = 3) -> float:
         torch = self.torch
@@ -312,6 +329,7 @@ class Timer:
         self.torch.cuda.synchronize()
         for _ in range(attempts):
             seen = self._profile(fn, iters)
+            self.last_kernels = sorted(key for key in seen if key not in self.flush_keys)
             total_us = sum(us for key, us in seen.items() if key not in self.flush_keys)
             if total_us > 0:
                 return total_us / iters / 1e3
@@ -345,9 +363,9 @@ def phase_device(torch, state):
             "torch": torch.__version__, "cuda": torch.version.cuda}
 
 
-# the sources on wgmma (K1, K9, P1, K4-K6 on the TMA + wgmma loop of
-# w4a8_gemm_sm90.cuh; K2), whose nvcc logs must not hold ptxas warning C7515
-# (wgmma serialised: right, but slower)
+# the sources on wgmma (K1, K9, K10, P1, K4-K6 on the TMA + wgmma loop of
+# w4a8_gemm_sm90.cuh; K2), whose nvcc logs must not hold ptxas warnings C7514,
+# C7515 or C7520 (wgmma serialised: right, but slower)
 WGMMA_SOURCES = ("w4a8_rp_gemm", "w4a8_span_gemm", "s8_gemm", "fused_norm_gemv_rp",
                  "fused_requant_gemv_rp", "fused_mlp_decode_rp", "int8_prefill_attention")
 
@@ -411,7 +429,7 @@ def phase_build(torch, state):
     ptxas, igmma_kernels = {}, {}
     for stem in WGMMA_SOURCES:
         log = (_cuda.BUILD_DIR / f"{stem}.log").read_text()
-        for code in ("C7515", "C7520"):
+        for code in ("C7514", "C7515", "C7520"):
             if code in log:
                 raise AssertionError(f"csrc/{stem}.cu: ptxas serialised the wgmmas ({code})")
         if stem.startswith("fused_"):
@@ -422,6 +440,8 @@ def phase_build(torch, state):
                     raise AssertionError(f"csrc/{stem}.cu: {name} takes {e}")
         elif stem == "int8_prefill_attention":
             ptxas[stem] = _ptxas_entries(log, "prefill_attn_sm90")
+        elif stem == "w4a8_span_gemm":  # K10: three accumulator sets a consumer thread
+            ptxas[stem] = _ptxas_entries(log, "SpanCodesLoader")
         sass = subprocess.run([str(Path(_cuda._nvcc()).with_name("cuobjdump")), "-sass",
                                str(_cuda._lib_path(stem))], capture_output=True, text=True,
                               timeout=300, check=True).stdout
@@ -432,6 +452,8 @@ def phase_build(torch, state):
             raise AssertionError(f"csrc/{stem}.cu: wgmmas serialised in "
                                  f"{[f for f, bad in serial.items() if bad]}")
         igmma_kernels[stem] = len(serial)
+    k3_log = (_cuda.BUILD_DIR / "int8_decode_attention.log").read_text()
+    ptxas["int8_decode_attention"] = _ptxas_entries(k3_log, "decode_attn_cluster")
     return {"nvcc_seconds": seconds, "nvcc": nvcc, "no_c7515": list(WGMMA_SOURCES),
             "igmma_kernels_pipelined": igmma_kernels, "ptxas": ptxas}
 
@@ -596,7 +618,15 @@ def _k2_cases(torch, timer, gen):
         kb = (kt[..., :plen].transpose(2, 3).float() * ks).to(torch.bfloat16).contiguous()
         vb = (v[:, :, :plen].float() * vs).to(torch.bfloat16)
         sdpa = torch.nn.functional.scaled_dot_product_attention
-        lib = timer.library(lambda: sdpa(qb, kb, vb, is_causal=True, enable_gqa=hk != h))
+
+        def lib_call():
+            return sdpa(qb, kb, vb, is_causal=True, enable_gqa=hk != h)
+
+        lib = timer.library(lib_call)
+        # the yardstick's kernels (SDPA picks its backend) and its device time by
+        # CUDA events, a second reading beside the profiler's
+        lib["library_kernels"] = [key[:100] for key in timer.last_kernels]
+        lib["library_events_ms"] = timer.events(lib_call)
         pairs = sp * (sp + 1) // 2  # causal (query, key) pairs per head
         flops = 2.0 * dh * b * h * pairs
         nbytes = b * h * sp * dh + 2 * b * hk * plen * dh + 4 * b * h * sp * dh
@@ -681,37 +711,87 @@ def _decode_bound(b, h, hk, dh, keys, quant_pv, extra_bytes=0, kv_bytes=1.0):
     return bound_ms(nbytes, flops / INT8_OPS_PER_S, flops / FP32_OPS_PER_S)
 
 
+def _check_k3(torch, what, got, ref, quant_pv) -> float:
+    """K3's gates: a relative L2 error under 1e-3 with quant_pv (an exp
+    rounded otherwise moves a code by one), else rtol = atol = 2e-4."""
+    if quant_pv:
+        rel = ((got - ref).norm() / ref.norm()).item()
+        if not rel < 1e-3:
+            raise AssertionError(f"{what}: relative L2 error {rel}")
+    else:
+        torch.testing.assert_close(got, ref, rtol=2e-4, atol=2e-4, msg=what)
+    return (got - ref).abs().max().item()
+
+
+# K3 timed: (B, Hkv, lengths, quant_pv): the main path's decode step at its last
+# step's lengths, MHA and GQA, and serve_dense's 8 slots (lengths of 299-1398)
+SERVE_DENSE_LENGTHS = (299, 1398, 650, 1020, 812, 455, 1203, 977)
+K3_TIMED = ((BATCH, 32, tuple(DECODE_LEN - 3 * i for i in range(BATCH)), True),
+            (BATCH, 32, tuple(DECODE_LEN - 3 * i for i in range(BATCH)), False),
+            (BATCH, 8, tuple(DECODE_LEN - 3 * i for i in range(BATCH)), True),
+            (SLOTS, 32, SERVE_DENSE_LENGTHS, True))
+# K3 held (not timed): (B, H, Hkv, Dh, Smax, lengths): one position, lengths off the
+# ranks' 16-position grid and the whole cache, at Hkv 32 and 8; Dh 64 with 4 query heads a kv
+# head; a cache whose rows are not 16-byte aligned (Smax % 16 == 4: 4-byte copies); K3's
+# largest cache (8192) with 8 query heads a kv head
+K3_EXTRA = ((3, 32, 32, 128, SMAX, (1, 1001, SMAX)), (3, 32, 8, 128, SMAX, (SMAX, 37, 1)),
+            (2, 8, 2, 64, 512, (511, 2)), (2, 8, 8, 128, 2052, (2052, 77)),
+            (2, 64, 8, 128, 8192, (8192, 5003)))
+
+
 def _k3_cases(torch, timer, gen):
-    from dgq_tpu_torch.ops.attention import int8_decode_attention, int8_decode_attention_xla
+    """K3 against its plain version at K3_TIMED (timed beside K7's tiled
+    body at the same shapes and bf16 SDPA; held at every cluster size) and
+    at K3_EXTRA (quant_pv on and off, not timed)."""
+    from dgq_tpu_torch.ops import attention as att
 
     cases = []
-    b, h, dh = BATCH, 32, 128
-    for hk, quant_pv in ((32, True), (32, False), (8, True)):
+    h, dh = 32, 128
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for b, hk, lens, quant_pv in K3_TIMED:
         q, kt, v, (qs, ks, vs) = _attn_inputs(torch, gen, b, h, hk, 1, dh, SMAX)
         q = q[:, :, 0].contiguous()
-        lengths = torch.tensor([DECODE_LEN - 3 * i for i in range(b)], dtype=torch.int32,
-                               device=DEV)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=DEV)
 
         def kern():
-            return int8_decode_attention(q, kt, v, lengths, qs, ks, vs, quant_pv=quant_pv)
+            return att.int8_decode_attention(q, kt, v, lengths, qs, ks, vs, quant_pv=quant_pv)
 
         def plain():
-            return int8_decode_attention_xla(q, kt, v, lengths, qs, ks, vs, quant_pv=quant_pv)
+            return att.int8_decode_attention_xla(q, kt, v, lengths, qs, ks, vs, quant_pv=quant_pv)
 
-        out_k, out_p = kern(), plain()
-        err = (out_k - out_p).abs().max().item()
-        if quant_pv:
-            rel = ((out_k - out_p).norm() / out_p.norm()).item()
-            if not rel < 1e-3:
-                raise AssertionError(f"K3 Hkv={hk} quant_pv: relative L2 error {rel}")
-        else:
-            torch.testing.assert_close(out_k, out_p, rtol=2e-4, atol=2e-4)
+        def k7_body():  # K7's tiled body on the dense cache: tile max, codes, combine
+            return att.int8_decode_attention_chunked(q, kt, v, lengths, qs, ks, vs,
+                                                     chunk=att.TILE, quant_pv=quant_pv)
+
+        what = f"K3 B={b} Hkv={hk} quant_pv={quant_pv}"
+        out_p = plain()
+        err = _check_k3(torch, what, kern(), out_p, quant_pv)
+        _check_k3(torch, f"K7's body at {what}", k7_body(), out_p, quant_pv)
+        scales = att._kernel_scales(qs, ks, vs, dh, True)
+        for c in att.DECODE_CLUSTERS:  # every cluster the plan chooses among, held
+            got = att._decode_launch(q, kt, v, lengths, scales, quant_pv, c)
+            _check_k3(torch, f"{what} cluster {c}", got, out_p, quant_pv)
         b_ms, b_by = _decode_bound(b, h, hk, dh, int(lengths.sum().item()), quant_pv)
-        cases.append({"B": b, "H": h, "Hkv": hk, "Smax": SMAX, "lengths": lengths.tolist(),
+        cases.append({"B": b, "H": h, "Hkv": hk, "Smax": SMAX, "lengths": list(lens),
                       "quant_pv": quant_pv, "max_abs_err": err,
-                      "ms": timer.kernel(kern, ["decode_attn_kernel"]), "call_ms": timer(kern),
+                      "cluster": att.decode_plan(b, hk, h // hk, dh, SMAX, sms),
+                      "ms": timer.kernel(kern, K3_NAMES), "call_ms": timer(kern),
+                      "k7_body_ms": timer.kernel(k7_body, K78_NAMES),
                       "plain_ms": timer(plain, iters=10), "bound_ms": b_ms, "bound_by": b_by,
                       **_sdpa_decode_ms(torch, timer, q, kt, v, (qs, ks, vs), lengths)})
+        del q, kt, v
+    for b, hq, hk, dhx, smax, lens in K3_EXTRA:
+        q, kt, v, (qs, ks, vs) = _attn_inputs(torch, gen, b, hq, hk, 1, dhx, smax)
+        q = q[:, :, 0].contiguous()
+        lengths = torch.tensor(lens, dtype=torch.int32, device=DEV)
+        for quant_pv in (True, False):
+            got = att.int8_decode_attention(q, kt, v, lengths, qs, ks, vs, quant_pv=quant_pv)
+            ref = att.int8_decode_attention_xla(q, kt, v, lengths, qs, ks, vs, quant_pv=quant_pv)
+            what = f"K3 {(b, hq, hk, dhx, smax, lens)} quant_pv={quant_pv}"
+            cases.append({"B": b, "H": hq, "Hkv": hk, "Dh": dhx, "Smax": smax,
+                          "lengths": list(lens), "quant_pv": quant_pv, "extra": True,
+                          "max_abs_err": _check_k3(torch, what, got, ref, quant_pv)})
+        del q, kt, v
     return cases
 
 
@@ -1168,58 +1248,96 @@ def _k9_cases(torch, timer, gen):
     return cases + _gemm_extra_cases(torch, gen, span=True)
 
 
-def _k10_cases(torch, timer, gen):
-    """K10 at LLaMA-2-7B shapes (fp32 group scales) at a decode step, a
-    prefill and 2048 rows: equal to the plain version where K is not split
-    over blocks, within K10_TOL of the largest output where it is."""
+# K10 held (not timed) off the timed cases: (M, linear, groupsize, beta): a lone row, the
+# decode tile's last and the prefill tile's first row count, groupsize 64 (stages of 64 packed
+# rows, two a span at 128) and 32 (stages of 32 packed rows, one group a plane), no bias
+K10_EXTRA = ((1, "o_proj", 128, True), (16, "qkv_proj", 128, True), (17, "down_proj", 128, True),
+             (16, "gate_up_proj", 128, False), (4, "o_proj", 64, False),
+             (1024, "o_proj", 64, True), (4, "qkv_proj", 32, True), (17, "o_proj", 32, False),
+             (1024, "down_proj", 32, False))
+
+
+def _k10_case(torch, gen, m, n, k, gs, beta_on):
+    """K10 on random operands against its plain version: equal unsplit,
+    within K10_TOL of the largest output split.  Returns the check's record
+    and the (kern, plain, x, w_fp) the timed cases use."""
     from dgq_tpu_torch.ops import quant_matmul as qm
     from dgq_tpu_torch.quant.packing import unpack_nibbles
 
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    x = torch.randint(-128, 128, (m, k), generator=gen, device=DEV, dtype=torch.int8)
+    qw, ws, wz = _q4_weights(torch, gen, k, n, gs, fp=True)
+    ws8, wz8 = torch.repeat_interleave(ws, 8, dim=0), torch.repeat_interleave(wz, 8, dim=0)
+    alpha = torch.rand((n,), generator=gen, device=DEV) * 1e-3 + 1e-5
+    beta = torch.randn((n,), generator=gen, device=DEV) if beta_on else None
+    plan = qm.fpscale_plan(m, n, k, gs, sms)
+
+    def kern():
+        return qm.w4a8_fpscale_matmul_packed(x, qw, ws8, wz8, alpha, beta, groupsize=gs,
+                                             scales_replicated=True)
+
+    def plain():
+        return qm.w4a8_fpscale_matmul_packed_xla(x, qw, ws, wz, alpha, beta, groupsize=gs)
+
+    splits = -(-(k // 2) // plan[1])
+    y_k, y_p = kern(), plain()
+    torch.cuda.synchronize()
+    err = (y_k - y_p).abs().max().item()
+    top = y_p.abs().max().item()
+    equal = torch.equal(y_k, y_p)
+    if not (equal or (splits > 1 and err <= K10_TOL * top)):
+        raise AssertionError(f"K10 M={m} N={n} K={k} gs={gs} plan {plan} ({splits} splits): "
+                             f"max abs err {err}, largest output {top}")
+
+    def w_fp():
+        codes = unpack_nibbles(qw, 2 * gs).float()
+        return (codes - torch.repeat_interleave(wz, gs, dim=0)) * torch.repeat_interleave(
+            ws, gs, dim=0)
+
+    rec = {"M": m, "N": n, "K": k, "groupsize": gs, "beta": beta_on, "tile": plan[0],
+           "splits": splits, "bit_equal": equal, "max_abs_err": err, "largest_output": top}
+    return rec, (kern, plain, x, w_fp)
+
+
+def _k10_cases(torch, timer, gen):
+    """K10 at LLaMA-2-7B shapes (fp32 group scales) at a decode step, a
+    prefill and 2048 rows, timed (at 1024 and 2048 rows beside K9 on int8
+    scales of the same shapes), then at K10_EXTRA, held only: equal to the plain version where K is not
+    split over blocks, within K10_TOL of the largest output where it is."""
+    from dgq_tpu_torch.ops import quant_matmul as qm
+
+    def alpha_one(n):
+        return torch.ones((n,), device=DEV)
+
     cases = []
     gs = 128
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for m in SPAN_ROWS:
         for name, (n, k) in LINEARS.items():
-            x = torch.randint(-128, 128, (m, k), generator=gen, device=DEV, dtype=torch.int8)
-            qw, ws, wz = _q4_weights(torch, gen, k, n, gs, fp=True)
-            ws8, wz8 = torch.repeat_interleave(ws, 8, dim=0), torch.repeat_interleave(wz, 8, dim=0)
-            alpha = torch.rand((n,), generator=gen, device=DEV) * 1e-3 + 1e-5
-            beta = torch.randn((n,), generator=gen, device=DEV)
-
-            def kern():
-                return qm.w4a8_fpscale_matmul_packed(x, qw, ws8, wz8, alpha, beta, groupsize=gs,
-                                                     scales_replicated=True)
-
-            def plain():
-                return qm.w4a8_fpscale_matmul_packed_xla(x, qw, ws, wz, alpha, beta,
-                                                         groupsize=gs)
-
-            splits = -(-(k // 2) // qm.fpscale_plan(m, n, k, gs, sms)[1])
-            y_k, y_p = kern(), plain()
-            torch.cuda.synchronize()
-            err = (y_k - y_p).abs().max().item()
-            top = y_p.abs().max().item()
-            equal = torch.equal(y_k, y_p)
-            if not (equal or (splits > 1 and err <= K10_TOL * top)):
-                raise AssertionError(f"K10 {name} M={m} ({splits} splits): max abs err {err}, "
-                                     f"largest output {top}")
-            codes = unpack_nibbles(qw, 2 * gs).float()
-            w_fp = (codes - torch.repeat_interleave(wz, gs, dim=0)) * torch.repeat_interleave(
-                ws, gs, dim=0)
-            xf = x.float()
-            lib = timer.library(lambda: torch.matmul(xf, w_fp))
-            del codes, w_fp, xf
+            rec, (kern, plain, x, w_fp) = _k10_case(torch, gen, m, n, k, gs, True)
+            xf, wf = x.float(), w_fp()
+            lib = timer.library(lambda: torch.matmul(xf, wf))
+            del xf, wf
             g = k // gs
             nbytes = m * k + k * n // 2 + 8 * g * n + 8 * n + 4 * m * n
             flops = 4.0 * m * n * g + 2.0 * m * n  # per group s * (d - z * rowsum) + acc; epilogue
             b_ms, b_by = bound_ms(nbytes, 2.0 * m * n * k / INT8_OPS_PER_S,
                                   flops / FP32_OPS_PER_S)
-            cases.append({"linear": name, "M": m, "N": n, "K": k, "splits": splits,
-                          "bit_equal": equal, "max_abs_err": err, "largest_output": top,
-                          "ms": timer.kernel(kern, K10_NAMES), "call_ms": timer(kern),
-                          "plain_ms": timer(plain, iters=5), **lib,
-                          "bound_ms": b_ms, "bound_by": b_by})
-            del x, qw, ws, wz, ws8, wz8, y_k, y_p
+            case = {"linear": name, **rec, "ms": timer.kernel(kern, K10_NAMES),
+                    "call_ms": timer(kern), "plain_ms": timer(plain, iters=5), **lib,
+                    "bound_ms": b_ms, "bound_by": b_by}
+            if m > qm.DECODE_ROWS:
+                # the yardstick of the same shapes: K9 on int8 scales
+                qw9, ws9, wz9 = (torch.repeat_interleave(t, 8, dim=0) if i else t
+                                 for i, t in enumerate(_q4_weights(torch, gen, k, n, gs)))
+                case["k9_same_shape_ms"] = timer.kernel(
+                    lambda: qm.w4a8_matmul_packed(x, qw9, ws9, wz9, alpha_one(n), None,
+                                                  groupsize=gs, scales_replicated=True), K9_NAMES)
+                del qw9, ws9, wz9
+            cases.append(case)
+    for m, name, gsx, beta_on in K10_EXTRA:
+        n, k = LINEARS[name]
+        rec, _ = _k10_case(torch, gen, m, n, k, gsx, beta_on)
+        cases.append({"linear": name, **rec, "extra": True})
     return cases
 
 
@@ -1428,7 +1546,7 @@ def phase_kernels(torch, state):
 
 
 def _drive_main(torch, cfg, ecfg, want, smax=SMAX, new_tokens=NEW_TOKENS,
-                attn=("K3", ["decode_attn_kernel"]), linear=("K1", K1_NAMES), span_only=False,
+                attn=("K3", K3_NAMES), linear=("K1", K1_NAMES), span_only=False,
                 extra=None):
     """build_llama_engine + generate with launch counts (must equal
     ``want``), then a timed step-by-step replay and a profiled breakdown in
@@ -1743,7 +1861,7 @@ def phase_opt(torch, state):
                                                    prof["cache"])
         prof["tok"] = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
 
-    breakdown = _profile_steps(torch, step, 4, ("K3", ["decode_attn_kernel"]),
+    breakdown = _profile_steps(torch, step, 4, ("K3", K3_NAMES),
                                ("K9", K9_NAMES))
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     del cache, prof
@@ -1855,8 +1973,9 @@ def _drive_socket(srv, reqs, cancel_uid, hold=False):
 
 
 def _serve_daemon(torch, cfg, flags, reqs, prefix, cancel_uid, forward, verify=None,
-                  hold=False):
-    """save_engine of the full-width engine of seed 0, then
+                  hold=False, fp_scales=False):
+    """save_engine of the full-width engine of seed 0 (with fp32 group scales
+    under ``fp_scales``), then
     ``dgq_tpu_torch.serve.build_server`` with ``flags`` and the registered
     prefix, driven over a socket with ``reqs`` (``cancel_uid`` and ``hold``
     as ``_drive_socket``'s).  ``forward`` (module, name) is the decode
@@ -1876,7 +1995,7 @@ def _serve_daemon(torch, cfg, flags, reqs, prefix, cancel_uid, forward, verify=N
     build_dir.mkdir(parents=True, exist_ok=True)
     tmp = Path(tempfile.mkdtemp(dir=build_dir))
     try:
-        eng = build_llama_engine(cfg, seed=0, device=DEV)
+        eng = build_llama_engine(cfg, seed=0, device=DEV, fp_scales=fp_scales)
         ckpt = str(tmp / "engine.safetensors")
         t0 = time.perf_counter()
         checkpoint.save_engine(ckpt, eng, cfg)
@@ -2167,7 +2286,7 @@ def phase_serve_dense(torch, state):
     if sum(r is not None for r in prof_b.slots) != SLOTS:
         raise AssertionError("not every slot is decoding before the profiled steps")
     lengths = [int(n) for n in prof_b.lengths_h]
-    breakdown = _profile_steps(torch, prof_b.step, 4, ("K3", ["decode_attn_kernel"]))
+    breakdown = _profile_steps(torch, prof_b.step, 4, ("K3", K3_NAMES))
     del prof_b
     state["launches_serve_dense"] = rec["launches"]
     state["serve_dense"] = {"tokens": want, "client_tok_per_s": rec["client_tok_per_s"],
@@ -2182,6 +2301,52 @@ def phase_serve_dense(torch, state):
                 next((i for i, (a, b) in enumerate(zip(kv4[u], paged4[u])) if a != b), None)
                 for u in sorted(kv4)],
             "dense_decode_step": {"slots": SLOTS, "lengths": lengths, **breakdown}}
+
+
+SERVE_FPSCALE = 4  # serve_fpscale: the first 4 of serve_dense's requests
+
+
+def phase_serve_fpscale(torch, state):
+    """The dense daemon on an fp-scale checkpoint (fp32 group scales, the
+    w4w8-fallback representation) at full 7B width and depth: ``serve``
+    takes ``fp_scales`` from the stored scales, so every linear runs K10, K2
+    at prefill and K3 at every decode forward, and no K1 or K4-K6.  The first
+    SERVE_FPSCALE of serve_dense's requests, all queued before the daemon's
+    first step; the served tokens must equal a direct ContinuousBatcher.run()
+    with EngineConfig(fp_scales=True)."""
+    from dgq_tpu_torch.models.engine import EngineConfig
+    from dgq_tpu_torch.models.llama import LlamaConfig
+    from dgq_tpu_torch.serving import scheduler
+
+    cfg = LlamaConfig()
+    prefix, reqs = _serve_requests(cfg)
+    reqs = reqs[:SERVE_FPSCALE]
+    args, batcher, served, _, rec = _serve_daemon(
+        torch, cfg, [], reqs, prefix, None, (scheduler, "engine_decode_batched"), hold=True,
+        fp_scales=True)
+    params, layers = batcher.params, cfg.num_hidden_layers
+    if not batcher.ecfg.fp_scales:
+        raise AssertionError("serve did not take fp_scales from the fp-scale checkpoint")
+    launches = rec["launches"]
+    _check_attention_launches(launches, "int8_decode_attention", layers * rec["decode_forwards"])
+    others = {n: launches[n] for n in ("w4a8_matmul_rp_pipe", *ROWPAIR_FUSED) if launches[n]}
+    if others or not launches["w4a8_fpscale_matmul_packed"] or not launches[
+            "int8_prefill_attention"]:
+        raise AssertionError(f"the fp-scale daemon's launches: {launches}")
+    del batcher
+
+    def make(**kw):
+        return scheduler.ContinuousBatcher(
+            EngineConfig(cfg=cfg, fp_scales=True), params, num_slots=args.slots,
+            max_len=args.max_len, prefill_pad=args.prefill_pad,
+            prefill_chunk=args.prefill_chunk, admit_batch=args.admit_batch, **kw)
+
+    _, want, direct_s = _direct_run(torch, make, prefix, reqs)
+    _check_equal("a direct ContinuousBatcher(fp_scales=True).run()", served, want)
+    del params
+    torch.cuda.empty_cache()
+    state["launches_serve_fpscale"] = launches
+    return {**rec, "direct_run_s": direct_s, "served_equal_direct": True}
 
 
 def phase_serve_spec(torch, state):
@@ -2254,7 +2419,7 @@ def phase_serve_spec(torch, state):
         raise AssertionError("not every slot is decoding before the profiled steps")
     lengths = [int(n) for n in prof_b.lengths_h]
     n0 = prof_b.timings.get("dispatch:spec_verify", [0])[0]
-    breakdown = _profile_steps(torch, prof_b.step, 4, ("K3", ["decode_attn_kernel"]))
+    breakdown = _profile_steps(torch, prof_b.step, 4, ("K3", K3_NAMES))
     if prof_b.timings["dispatch:spec_verify"][0] - n0 != 4:
         raise AssertionError("the profiled steps were not all verify steps")
     del prof_b
@@ -3011,7 +3176,8 @@ PATHS = {"main": "launches", "main_long": "launches_long", "serve": "launches_se
          "opt": "launches_opt", "main_fpscale": "launches_fpscale",
          "serve_kv4": "launches_serve_kv4", "serve_dense": "launches_serve_dense",
          "main_span": "launches_span", "serve_spec": "launches_serve_spec",
-         "probes": "launches_probes", "bench": "launches_bench"}
+         "serve_fpscale": "launches_serve_fpscale", "probes": "launches_probes",
+         "bench": "launches_bench"}
 LINE_PHASES = {"kernels", *PATHS}
 
 
@@ -3083,6 +3249,7 @@ PHASES = {
     "main_fpscale": phase_main_fpscale,
     "main_span": phase_main_span,
     "serve_spec": phase_serve_spec,
+    "serve_fpscale": phase_serve_fpscale,
     "parity": phase_parity,
     "checkpoint": phase_checkpoint,
     "bench": phase_bench,

@@ -23,7 +23,7 @@ namespace {
 // the 32-k step kk of half h is rows 64 h + 32 kk .. + 31.
 struct S8Loader {
   static constexpr int HB = 64, SRC_ROWS = 128;
-  static constexpr bool SCALED = false;
+  static constexpr bool SCALED = false, FP = false;
   struct Scales {};
 
   static __device__ __forceinline__ int x_k(const GemmArgs&, int st, int h) { return 128 * st + 64 * h; }

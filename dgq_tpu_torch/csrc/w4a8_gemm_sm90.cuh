@@ -1,10 +1,10 @@
-// The main loop shared by the W4A8 GEMMs K1 (w4a8_rp_gemm.cu) and K9
+// The main loop shared by the W4A8 GEMMs K1 (w4a8_rp_gemm.cu), K9 and K10
 // (w4a8_span_gemm.cu) and by the probe P1 (s8_gemm.cu), for Hopper (sm_90a).
 // The fused decode kernels K4-K6 (fused_gemv_sm90.cuh) run its TMA ring,
 // wgmma wrappers, rowpair loader and descriptor cache in a kernel of their
 // own, with codes they make in shared memory as the B operand; the prefill
-// attention K2 (int8_prefill_attention.cu) takes its TMA, mbarrier and
-// wgmma helpers.
+// attention K2 (int8_prefill_attention.cu) takes its TMA, mbarrier and wgmma
+// helpers.
 //
 //   acc[m, n] = sum_k x[m, k] * w8[k, n]   (exact int32)
 //
@@ -15,6 +15,24 @@
 // as f32 (OUT_F32) or as __float2int_rn clamped to int8 (OUT_S8), or P1's
 // float(acc) (OUT_RAW); a K split writes int32 partials that splitk_combine
 // sums exactly and finishes the same way.
+//
+// A Loader with FP set (K10's, fp32 group scales and zeros) keeps its int32
+// sums per group instead: one accumulator set per half (the two halves of a
+// stage are two groups), which each span's first product writes (scale-d 0),
+// and after a span's last stage (gs / HB stages) a flush into one fp32 sum
+// per output, half 0's group then half 1's:
+//   facc += s_g * (float(d_g) - z_g * rowsum_g(x)),
+// with __fmul_rn / __fsub_rn / __fadd_rn.  The groups' fp32 scale and zero
+// rows come by TMA on the span's last stage; the row sums from the producer
+// warpgroup's three idle warps (dp4a of each x row of both boxes against
+// 0x01010101, exact integers in any order), handed over on a third mbarrier
+// a stage, so that the consumers keep their issue slots for the unpack and
+// the flush.  A K split holds whole spans and writes fp32 partials, which
+// splitk_combine adds in split order before the epilogue.  The flush reads
+// the plane sums, so it waits for every product in flight: ptxas serialises
+// the wgmmas if any instruction reads an accumulator register while one is
+// in flight (C7514), even one of a finished second set, so a span's flush
+// cannot overlap its successor's products in the same warpgroup.
 //
 // What bounds it: at prefill the int8 tensor-core rate and the unpack beside
 // it, at decode the weight bytes.  The design:
@@ -69,8 +87,8 @@ constexpr int THREADS = 384;    // and the producer warpgroup
 constexpr int BN = 128;         // weight columns a block owns
 
 struct GemmArgs {
-  const int8_t* scales;  // group g at row g * srep of (G * srep, N) int8; unused by P1
-  const int8_t* zeros;
+  const void* scales;  // group g at row g * srep of (G * srep, N), int8 (f32: FP); unused by P1
+  const void* zeros;
   int srep, gs;
   int M, N, K;
   int nst;  // stages over all of K
@@ -78,7 +96,7 @@ struct GemmArgs {
   const float* alpha;
   const float* beta;  // or null
   void* out;
-  int* part;  // (splits, M, N) int32 when K is split, else null
+  void* part;  // (splits, M, N) int32 (f32: FP) when K is split, else null
 };
 
 // ---- PTX wrappers -----------------------------------------------------------
@@ -379,7 +397,7 @@ __device__ __forceinline__ void col_scales(const uint8_t* scl, int h, int cp, ui
 template <int QS>
 struct RowpairLoader {
   static constexpr int HB = 64, SRC_ROWS = 64;
-  static constexpr bool SCALED = true;
+  static constexpr bool SCALED = true, FP = false;
   struct Scales {
     uint32_t s[2 * QS][2], b[2 * QS][2];  // per scale row, per column of the pair
   };
@@ -452,22 +470,32 @@ struct Smem {
   static constexpr int A_HALF = BM * L::HB;                  // one x box
   static constexpr int W_OFF = round1k(2 * A_HALF);          // the weight rows
   static constexpr int W_BYTES = L::SRC_ROWS * BN;
-  static constexpr int SCL_OFF = W_OFF + W_BYTES;            // scale and zero rows
-  static constexpr int SCL_BYTES = L::SCALED ? 4 * BN : 0;
-  static constexpr int STAGE = round1k(SCL_OFF + SCL_BYTES);
+  // scale and zero rows: int8 [s 0 | z 0 | s 1 | z 1][BN] of the halves'
+  // groups every stage, or (FP) f32 [s 0 | s 1 | z 0 | z 1][BN] on a span's
+  // last stage
+  static constexpr int SCL_OFF = W_OFF + W_BYTES;
+  static constexpr int SCL_BYTES = L::SCALED ? 4 * BN : L::FP ? 16 * BN : 0;
+  static constexpr int CS_OFF = SCL_OFF + SCL_BYTES;         // FP: row sums [2][BM] f32
+  static constexpr int STAGE = round1k(CS_OFF + (L::FP ? 8 * BM : 0));
   static constexpr int BAR_OFF = STAGES * STAGE;
-  static constexpr int TOTAL = BAR_OFF + 2 * STAGES * 8 + 1024;  // + alignment slack
-  static constexpr uint32_t TX = 2 * A_HALF + W_BYTES + SCL_BYTES;  // bytes TMA brings per stage
+  static constexpr int BARS = L::FP ? 3 : 2;                 // full, empty (and FP's row sums)
+  static constexpr int TOTAL = BAR_OFF + BARS * STAGES * 8 + 1024;  // + alignment slack
+  // bytes TMA brings per stage (FP: + SCL_BYTES on a span's last stage)
+  static constexpr uint32_t TX = 2 * A_HALF + W_BYTES + (L::SCALED ? SCL_BYTES : 0);
   static_assert(TOTAL <= 232448, "shared memory");
 };
 
 // ---- the kernel -----------------------------------------------------------------
 
+__device__ __forceinline__ float finish_f32(float acc, const GemmArgs& a, int n) {
+  const float y = __fmul_rn(acc, a.alpha[n]);
+  return a.beta ? __fadd_rn(y, a.beta[n]) : y;
+}
+
 template <int OUT>
 __device__ __forceinline__ float finish(int acc, const GemmArgs& a, int n) {
   if constexpr (OUT == OUT_RAW) return __int2float_rn(acc);
-  const float y = __fmul_rn(static_cast<float>(acc), a.alpha[n]);
-  return a.beta ? __fadd_rn(y, a.beta[n]) : y;
+  return finish_f32(static_cast<float>(acc), a, n);
 }
 
 __device__ __forceinline__ int8_t sat8(float y) {
@@ -479,7 +507,8 @@ template <int OUT>
 __device__ __forceinline__ void store2(const GemmArgs& a, int m, int n, int v0, int v1) {
   const size_t o = (size_t)m * a.N + n;
   if (a.part) {
-    *reinterpret_cast<int2*>(a.part + (size_t)blockIdx.z * a.M * a.N + o) = make_int2(v0, v1);
+    *reinterpret_cast<int2*>(static_cast<int*>(a.part) + (size_t)blockIdx.z * a.M * a.N + o) =
+        make_int2(v0, v1);
   } else if constexpr (OUT == OUT_S8) {
     char2 c;
     c.x = sat8(finish<OUT>(v0, a, n));
@@ -491,6 +520,43 @@ __device__ __forceinline__ void store2(const GemmArgs& a, int m, int n, int v0, 
   }
 }
 
+// FP: the flush of a span's group sums (hi: half 0's group, lo: half 1's)
+// into facc, in the reference's order, from the span's last stage's scale
+// rows scl and row sums cs.  Accumulator e is column 2 cp + ((e >> 1) & 1) and
+// token 8 (e >> 2) + 2t + (e & 1).
+template <int BM>
+__device__ __forceinline__ void fp_flush(const uint8_t* scl, const uint8_t* cs_b,
+                                         const int (&hi)[BM / 2], const int (&lo)[BM / 2], int cp,
+                                         int t, float (&facc)[BM / 2]) {
+  const float* sz = reinterpret_cast<const float*>(scl);
+  const float* cs = reinterpret_cast<const float*>(cs_b);
+  float2 sc[2], zc[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    sc[h] = *reinterpret_cast<const float2*>(sz + h * BN + 2 * cp);
+    zc[h] = *reinterpret_cast<const float2*>(sz + (2 + h) * BN + 2 * cp);
+  }
+#pragma unroll
+  for (int j = 0; j < BM / 8; ++j) {
+    const float2 r_hi = *reinterpret_cast<const float2*>(cs + 8 * j + 2 * t);
+    const float2 r_lo = *reinterpret_cast<const float2*>(cs + BM + 8 * j + 2 * t);
+#pragma unroll
+    for (int k = 0; k < 2; ++k)
+#pragma unroll
+      for (int e0 = 0; e0 < 2; ++e0) {
+        const int e = 4 * j + 2 * k + e0;
+        const float s_hi = k ? sc[0].y : sc[0].x, z_hi = k ? zc[0].y : zc[0].x;
+        const float s_lo = k ? sc[1].y : sc[1].x, z_lo = k ? zc[1].y : zc[1].x;
+        const float x_hi = e0 ? r_hi.y : r_hi.x, x_lo = e0 ? r_lo.y : r_lo.x;
+        const float a = __fadd_rn(facc[e], __fmul_rn(s_hi, __fsub_rn(static_cast<float>(hi[e]),
+                                                                     __fmul_rn(z_hi, x_hi))));
+        facc[e] = __fadd_rn(a, __fmul_rn(s_lo, __fsub_rn(static_cast<float>(lo[e]), __fmul_rn(z_lo, x_lo))));
+      }
+  }
+}
+
+constexpr int RS_THREADS = THREADS - CONSUMERS - 32;  // FP: the producer warpgroup's row-sum warps
+
 template <class L, int BM, int STAGES, int OUT>
 __global__ void __launch_bounds__(THREADS, 1)
 gemm_sm90(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_w,
@@ -498,36 +564,42 @@ gemm_sm90(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUte
           const __grid_constant__ GemmArgs args) {
   using S = Smem<L, BM, STAGES>;
   constexpr int HB = L::HB, KK = HB / 32;  // 32-k steps per half
-  constexpr int NA = BM / 2;                // accumulators a thread
+  constexpr int NA = BM / 2;                // accumulators a thread (a set)
   static_assert(BM % 16 == 0 && BM <= 256, "tile");
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* smem = reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  // 1024-byte aligned by an offset from smem_raw, so that the compiler keeps
+  // every access in the shared window (LDS; a pointer made from an integer
+  // takes generic loads and 64-bit address arithmetic)
+  uint8_t* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::BAR_OFF);
   uint64_t* empty = full + STAGES;
+  uint64_t* csfull = empty + STAGES;  // FP: a stage's row sums are written
 
   const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
   const int st0 = blockIdx.z * args.sps;
   const int n_it = min(args.nst - st0, args.sps);
+  const int spst = L::FP ? args.gs / HB : 0;  // FP: stages a span
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], CONSUMERS / 32);
+      mbar_init(&empty[s], CONSUMERS / 32 + (L::FP ? RS_THREADS : 0));
+      if constexpr (L::FP) mbar_init(&csfull[s], RS_THREADS);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
   if (threadIdx.x >= CONSUMERS) {
-    // ---- producer ----
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (threadIdx.x == CONSUMERS) {
-      for (int i = 0; i < n_it; ++i) {
+      // ---- producer ----
+      for (int i = 0, j = 0; i < n_it; ++i) {  // j: FP's stage of the span
         const int s = i % STAGES, st = st0 + i;
         if (i >= STAGES) mbar_wait(&empty[s], ((i / STAGES) + 1) & 1);
         uint8_t* base = smem + s * S::STAGE;
-        mbar_expect_tx(&full[s], S::TX);
+        const bool span_end = L::FP && j == spst - 1;
+        mbar_expect_tx(&full[s], S::TX + (span_end ? S::SCL_BYTES : 0));
         tma_load_2d(base, &tm_x, &full[s], L::x_k(args, st, 0), m0);
         tma_load_2d(base + S::A_HALF, &tm_x, &full[s], L::x_k(args, st, 1), m0);
         tma_load_2d(base + S::W_OFF, &tm_w, &full[s], n0, L::SRC_ROWS * st);
@@ -539,6 +611,57 @@ gemm_sm90(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUte
             tma_load_2d(base + S::SCL_OFF + (2 * h + 1) * BN, &tm_z, &full[s], n0, row);
           }
         }
+        if constexpr (L::FP) {
+          if (span_end) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int row = L::group(args, st, h) * args.srep;
+              tma_load_2d(base + S::SCL_OFF + h * BN * 4, &tm_s, &full[s], n0, row);
+              tma_load_2d(base + S::SCL_OFF + (2 + h) * BN * 4, &tm_z, &full[s], n0, row);
+            }
+          }
+          j = span_end ? 0 : j + 1;
+        }
+      }
+    } else if constexpr (L::FP) {
+      if (threadIdx.x >= CONSUMERS + 32) {
+        // ---- row sums: pair p is row p % BM of x box p / BM ----
+        constexpr int NP = (2 * BM + RS_THREADS - 1) / RS_THREADS;
+        const int rs = threadIdx.x - CONSUMERS - 32;
+        int sum[NP];
+#pragma unroll
+        for (int k = 0; k < NP; ++k) sum[k] = 0;
+        for (int i = 0, j = 0; i < n_it; ++i, j = j == spst - 1 ? 0 : j + 1) {
+          const int s = i % STAGES;
+          mbar_wait(&full[s], (i / STAGES) & 1);
+          uint8_t* base = smem + s * S::STAGE;
+#pragma unroll
+          for (int k = 0; k < NP; ++k) {
+            const int p = rs + RS_THREADS * k;
+            if (p < 2 * BM) {  // a swizzle permutes the 16-byte chunks inside a row only
+              const uint4* row = reinterpret_cast<const uint4*>(base + p * HB);
+#pragma unroll
+              for (int c = 0; c < HB / 16; ++c) {
+                const uint4 w = row[c];
+                sum[k] = __dp4a(static_cast<int>(w.x), 0x01010101, sum[k]);
+                sum[k] = __dp4a(static_cast<int>(w.y), 0x01010101, sum[k]);
+                sum[k] = __dp4a(static_cast<int>(w.z), 0x01010101, sum[k]);
+                sum[k] = __dp4a(static_cast<int>(w.w), 0x01010101, sum[k]);
+              }
+            }
+          }
+          if (j == spst - 1) {  // the span's last stage
+            float* cs = reinterpret_cast<float*>(base + S::CS_OFF);
+#pragma unroll
+            for (int k = 0; k < NP; ++k) {
+              const int p = rs + RS_THREADS * k;
+              if (p < 2 * BM) cs[p] = static_cast<float>(sum[k]);  // exact: |sum| <= gs * 128
+              sum[k] = 0;
+            }
+          }
+          mbar_arrive(&csfull[s]);
+          mbar_arrive(&empty[s]);
+        }
       }
     }
   } else {
@@ -547,15 +670,22 @@ gemm_sm90(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUte
     const int ct = threadIdx.x, wg = ct >> 7, warp = (ct >> 5) & 3, lane = ct & 31;
     const int g = lane >> 2, t = lane & 3;
     const int cp = 32 * wg + 8 * warp + g;  // this thread's column pair of the block's 64
-    // the accumulators: the first product of the block writes them (scale-d 0),
-    // so no other instruction defines them; one that did inside the pipeline
-    // would make ptxas serialise the wgmmas
+    // the accumulators: the first product of the block (FP: of each span)
+    // writes them (scale-d 0), so no other instruction defines them; one that
+    // did inside the pipeline would make ptxas serialise the wgmmas.  FP: acc
+    // holds half 0's group, acc_lo half 1's, facc the fp32 sum
     int acc[NA];
+    int acc_lo[L::FP ? NA : 1];
+    float facc[L::FP ? NA : 1];
+    if constexpr (L::FP) {
+#pragma unroll
+      for (int e = 0; e < NA; ++e) facc[e] = 0.0f;
+    }
     // two fragment sets (one per 32-k step of a 64-k half): the tensor cores read
     // one while the next is built; a 32-k half has one step and one set
     Frags fa[KK];
 
-    for (int i = 0; i < n_it; ++i) {
+    for (int i = 0, j = 0; i < n_it; ++i) {  // j: FP's stage of the span
       const int s = i % STAGES;
       mbar_wait(&full[s], (i / STAGES) & 1);
       const uint8_t* xa = smem + s * S::STAGE;
@@ -569,15 +699,35 @@ gemm_sm90(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUte
 #pragma unroll
         for (int h = 0; h < 2; ++h) fence_regs(f[h]);
         fence_regs(acc);
+        if constexpr (L::FP) fence_regs(acc_lo);
         wgmma_fence();
+        if constexpr (L::FP) {
+          const int scale_d = j != 0 || kk != 0;
+          Wgmma<BM>::mma(acc, f[0], gmma_desc(xa + 32 * kk, HB), scale_d);
+          Wgmma<BM>::mma(acc_lo, f[1], gmma_desc(xa + S::A_HALF + 32 * kk, HB), scale_d);
+        } else {
 #pragma unroll
-        for (int h = 0; h < 2; ++h)
-          Wgmma<BM>::mma(acc, f[h], gmma_desc(xa + h * S::A_HALF + 32 * kk, HB), (i | kk | h) != 0);
+          for (int h = 0; h < 2; ++h)
+            Wgmma<BM>::mma(acc, f[h], gmma_desc(xa + h * S::A_HALF + 32 * kk, HB), (i | kk | h) != 0);
+        }
         wgmma_commit();
         wgmma_wait<KK - 1>();  // the step before is done: its fragment set is free
         fence_regs(acc);
+        if constexpr (L::FP) fence_regs(acc_lo);
         // the last step of stage i - 1 is done: release its slot
         if (kk == 0 && i > 0 && lane == 0) mbar_arrive(&empty[(i - 1) % STAGES]);
+      }
+      if constexpr (L::FP) {
+        if (j == spst - 1) {  // the span's products, then its flush (this slot's rows)
+          wgmma_wait<0>();
+          fence_regs(acc);
+          fence_regs(acc_lo);
+          mbar_wait(&csfull[s], (i / STAGES) & 1);
+          fp_flush<BM>(xa + S::SCL_OFF, xa + S::CS_OFF, acc, acc_lo, cp, t, facc);
+          j = 0;
+        } else {
+          ++j;
+        }
       }
     }
     wgmma_wait<0>();
@@ -592,25 +742,46 @@ gemm_sm90(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUte
 #pragma unroll
         for (int e0 = 0; e0 < 2; ++e0) {
           const int m = m0 + 8 * j + 2 * t + e0;
-          if (m < args.M) store2<OUT>(args, m, n, acc[4 * j + e0], acc[4 * j + 2 + e0]);
+          if (m >= args.M) continue;
+          if constexpr (L::FP) {  // the split's fp32 sums, or y = facc * alpha (+ beta)
+            const float v0 = facc[4 * j + e0], v1 = facc[4 * j + 2 + e0];
+            const size_t o = (size_t)m * args.N + n;
+            if (args.part)
+              *reinterpret_cast<float2*>(static_cast<float*>(args.part) +
+                                         (size_t)blockIdx.z * args.M * args.N + o) = make_float2(v0, v1);
+            else
+              *reinterpret_cast<float2*>(static_cast<float*>(args.out) + o) =
+                  make_float2(finish_f32(v0, args, n), finish_f32(v1, args, n + 1));
+          } else {
+            store2<OUT>(args, m, n, acc[4 * j + e0], acc[4 * j + 2 + e0]);
+          }
         }
     }
   }
 }
 
-// Sums the splits' int32 partials in split order and finishes as the kernel.
+// Sums the splits' partials in split order (int32, exact; FP: fp32 with
+// __fadd_rn) and finishes as the kernel.
 template <int OUT, class L>
 __global__ void splitk_combine(const GemmArgs a, int splits) {
   const size_t total = (size_t)a.M * a.N;
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= total) return;
-  int s = 0;
-  for (int z = 0; z < splits; ++z) s += a.part[z * total + i];
   const int n = static_cast<int>(i % a.N);
-  if constexpr (OUT == OUT_S8)
-    static_cast<int8_t*>(a.out)[i] = sat8(finish<OUT>(s, a, n));
-  else
-    static_cast<float*>(a.out)[i] = finish<OUT>(s, a, n);
+  if constexpr (L::FP) {
+    const float* part = static_cast<const float*>(a.part);
+    float s = part[i];
+    for (int z = 1; z < splits; ++z) s = __fadd_rn(s, part[z * total + i]);
+    static_cast<float*>(a.out)[i] = finish_f32(s, a, n);
+  } else {
+    const int* part = static_cast<const int*>(a.part);
+    int s = 0;
+    for (int z = 0; z < splits; ++z) s += part[z * total + i];
+    if constexpr (OUT == OUT_S8)
+      static_cast<int8_t*>(a.out)[i] = sat8(finish<OUT>(s, a, n));
+    else
+      static_cast<float*>(a.out)[i] = finish<OUT>(s, a, n);
+  }
 }
 
 // ---- host side: TMA descriptors and the launch -------------------------------
@@ -627,6 +798,7 @@ struct MapEntry {
   uint64_t d0, d1, half;
   uint32_t b0, b1;
   int swizzle;
+  bool f32;
   CUtensorMap map;
 };
 constexpr int MAP_SLOTS = 256;
@@ -638,14 +810,15 @@ EncodeTiledFn g_encode = nullptr;
 // A 2-D uint8 tensor map over (d1 rows, d0 bytes a row), box b0 x b1; with
 // `half`, a 3-D one that sees each row as two halves of `half` bytes (d0 = 2
 // half), box b0 x 2 x b1: one box brings b0 bytes at the same place of both
-// halves, side by side.
+// halves, side by side.  With f32, the elements are float32 (K10's scale
+// rows) and d0, b0 and half count them.
 int tensor_map(CUtensorMap* out, const void* p, uint64_t d0, uint64_t d1, uint32_t b0,
-               uint32_t b1, CUtensorMapSwizzle swizzle, uint64_t half = 0) {
+               uint32_t b1, CUtensorMapSwizzle swizzle, uint64_t half = 0, bool f32 = false) {
   std::lock_guard<std::mutex> lock(g_map_mu);
   for (int i = 0; i < g_map_count; ++i) {
     const MapEntry& e = g_maps[i];
     if (e.ptr == p && e.d0 == d0 && e.d1 == d1 && e.half == half && e.b0 == b0 && e.b1 == b1 &&
-        e.swizzle == swizzle) {
+        e.swizzle == swizzle && e.f32 == f32) {
       *out = e.map;
       return 0;
     }
@@ -664,11 +837,13 @@ int tensor_map(CUtensorMap* out, const void* p, uint64_t d0, uint64_t d1, uint32
     g_encode = reinterpret_cast<EncodeTiledFn>(fn);
   }
   const cuuint32_t rank = half ? 3 : 2;
-  const cuuint64_t dims2[2] = {d0, d1}, strides2[1] = {d0};
-  const cuuint64_t dims3[3] = {half, 2, d1}, strides3[2] = {half, d0};
+  const uint64_t es = f32 ? 4 : 1;  // bytes an element
+  const cuuint64_t dims2[2] = {d0, d1}, strides2[1] = {d0 * es};
+  const cuuint64_t dims3[3] = {half, 2, d1}, strides3[2] = {half * es, d0 * es};
   const cuuint32_t box2[2] = {b0, b1}, box3[3] = {b0, 2, b1}, elem[3] = {1, 1, 1};
-  MapEntry e{p, d0, d1, half, b0, b1, static_cast<int>(swizzle), {}};
-  if (g_encode(&e.map, CU_TENSOR_MAP_DATA_TYPE_UINT8, rank, const_cast<void*>(p),
+  MapEntry e{p, d0, d1, half, b0, b1, static_cast<int>(swizzle), f32, {}};
+  if (g_encode(&e.map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_UINT8, rank,
+               const_cast<void*>(p),
                half ? dims3 : dims2, half ? strides3 : strides2, half ? box3 : box2, elem,
                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
@@ -680,7 +855,7 @@ int tensor_map(CUtensorMap* out, const void* p, uint64_t d0, uint64_t d1, uint32
 }
 
 // x (M, K) int8 and the weight storage (w_rows, N) bytes; args.part set when
-// `splits` > 1.  Returns a cudaError_t.
+// `splits` > 1 (FP: whole spans a split).  Returns a cudaError_t.
 template <class L, int BM, int STAGES, int OUT>
 int launch_gemm(const void* x, const void* w, int w_rows, const GemmArgs& a, int splits,
                 cudaStream_t st) {
@@ -689,11 +864,11 @@ int launch_gemm(const void* x, const void* w, int w_rows, const GemmArgs& a, int
   int rc = tensor_map(&tx, x, a.K, a.M, L::HB, BM,
                       L::HB == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B);
   if (!rc) rc = tensor_map(&tw, w, a.N, w_rows, BN, L::SRC_ROWS, CU_TENSOR_MAP_SWIZZLE_128B);
-  CUtensorMap ts = tw, tz = tw;  // unused unless the Loader is SCALED
-  if (L::SCALED && !rc) {
+  CUtensorMap ts = tw, tz = tw;  // unused unless the Loader is SCALED or FP
+  if ((L::SCALED || L::FP) && !rc) {
     const int rows = a.K / a.gs * a.srep;
-    rc = tensor_map(&ts, a.scales, a.N, rows, BN, 1, CU_TENSOR_MAP_SWIZZLE_NONE);
-    if (!rc) rc = tensor_map(&tz, a.zeros, a.N, rows, BN, 1, CU_TENSOR_MAP_SWIZZLE_NONE);
+    rc = tensor_map(&ts, a.scales, a.N, rows, BN, 1, CU_TENSOR_MAP_SWIZZLE_NONE, 0, L::FP);
+    if (!rc) rc = tensor_map(&tz, a.zeros, a.N, rows, BN, 1, CU_TENSOR_MAP_SWIZZLE_NONE, 0, L::FP);
   }
   if (rc) return rc;
   auto kernel = gemm_sm90<L, BM, STAGES, OUT>;

@@ -30,6 +30,7 @@ scalar into multiplication by its reciprocal).
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Union
 
@@ -51,12 +52,19 @@ _CHUNK_SIGNATURES = {  # one library, three entry points
 }
 _SIGNATURES = {
     PREFILL: {PREFILL: [_cuda.VP] * 5 + [_cuda.INT] * 8 + [_cuda.VP]},
-    DECODE: {DECODE: [_cuda.VP] * 7 + [_cuda.INT] * 6 + [_cuda.VP]},
+    DECODE: {DECODE: [_cuda.VP] * 6 + [_cuda.INT] * 7 + [_cuda.VP]},
     CHUNKED: _CHUNK_SIGNATURES,
     PAGED: _CHUNK_SIGNATURES,
     PAGED_KV4: _CHUNK_SIGNATURES,
 }
 TILE = 128  # positions per block of K7/K8/K11: the chunk or page, or 128-position slices of it
+# K3: a cluster of DECODE_CLUSTERS[i] blocks per (slot, kv head), each taking a
+# contiguous share of the valid positions through a ring of DECODE_RING tiles
+# of DECODE_TILE positions (csrc/int8_decode_attention.cu)
+DECODE_CLUSTERS = (2, 4, 8)
+DECODE_TILE, DECODE_RING, DECODE_THREADS = 64, 4, 128
+DECODE_SMEM_LIMIT = 232448  # an H100 block's shared memory
+DECODE_BLOCKS_PER_SM = 2  # the cluster plan's aim: a wave of at most two blocks an SM
 
 NEG = torch.finfo(torch.float32).min
 
@@ -203,6 +211,40 @@ def int8_prefill_attention(q_s8: torch.Tensor, kt_cache: torch.Tensor, v_cache: 
     return out
 
 
+def decode_rank_positions(length: int, cluster: int) -> int:
+    """K3's positions per cluster rank for a slot of ``length`` valid
+    positions: ceil(length / cluster) rounded up to 16 (16-byte copies);
+    rank r takes [r * per, (r + 1) * per) of the valid positions."""
+    return -(-(-(-length // cluster)) // 16) * 16
+
+
+def decode_smem_bytes(dh: int, rep: int, smax: int, cluster: int) -> int:
+    """K3's dynamic shared memory a block (the kernel's ``Layout``): the ring
+    of tiles, the scores and codes of the most positions a rank can take,
+    rank 0's gathering area of every rank's sums, the q.k partial sums."""
+    chmax = -(-(-(-smax // cluster)) // DECODE_TILE) * DECODE_TILE
+    return (DECODE_RING * dh * (DECODE_TILE + 16) + 5 * rep * chmax
+            + 4 * cluster * rep * (dh + 1) + 4 * (DECODE_THREADS // 32) * rep * DECODE_TILE)
+
+
+@functools.lru_cache(maxsize=1024)
+def decode_plan(b: int, hk: int, rep: int, dh: int, smax: int, sms: int) -> int:
+    """K3's cluster size: the largest in DECODE_CLUSTERS whose B x Hkv x
+    cluster blocks fit DECODE_BLOCKS_PER_SM blocks an SM, else the smallest
+    (a rank then streams at most half of a slot's positions); larger when
+    the shared memory of the positions a rank can take (Smax / cluster)
+    would not fit a block.  Fitted on an H100
+    (``python -m dgq_tpu_torch.scripts.decode_plan_sweep``, ``PERF.md``): a
+    call is a few microseconds of serial steps, so more blocks than the card
+    runs at once only add waves."""
+    fits = [c for c in DECODE_CLUSTERS if decode_smem_bytes(dh, rep, smax, c) <= DECODE_SMEM_LIMIT]
+    if not fits:
+        raise ValueError(f"K3: Smax {smax} at Dh {dh} and rep {rep} fits no cluster of "
+                         f"{DECODE_CLUSTERS}")
+    wave = [c for c in fits if b * hk * c <= DECODE_BLOCKS_PER_SM * sms]
+    return max(wave) if wave else fits[0]
+
+
 def int8_decode_attention(q_s8: torch.Tensor, kt_cache: torch.Tensor, v_cache: torch.Tensor,
                           length: Union[int, torch.Tensor], q_scale, k_scale, v_scale, *,
                           apply_sqrt_dh: bool = True, quant_pv: bool = False,
@@ -225,12 +267,23 @@ def int8_decode_attention(q_s8: torch.Tensor, kt_cache: torch.Tensor, v_cache: t
                          f"got H={h}, Hkv={hk}, Smax={smax}, Dh={dh}")
     lengths = _lengths(length, b, dev)
     scales = _kernel_scales(q_scale, k_scale, v_scale, dh, apply_sqrt_dh)
-    sbuf = torch.empty((b, h, smax), dtype=torch.float32, device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return _decode_launch(q_s8, kt_cache, v_cache, lengths, scales, quant_pv,
+                          decode_plan(b, hk, h // hk, dh, smax, sms))
+
+
+def _decode_launch(q_s8, kt_cache, v_cache, lengths, scales, quant_pv: bool,
+                   cluster: int) -> torch.Tensor:
+    """Launch K3 in clusters of ``cluster`` blocks on checked operands
+    (``lengths`` (B,) int32 and the kernel's scales on the card)."""
+    b, h, dh = q_s8.shape
+    hk, smax = kt_cache.shape[1], kt_cache.shape[3]
+    dev = q_s8.device
     out = torch.empty((b, h, dh), dtype=torch.float32, device=dev)
     lib = _cuda.library(_cuda.SOURCES[DECODE], _SIGNATURES[DECODE])
     rc = lib.int8_decode_attention(
         _cuda.ptr(q_s8), _cuda.ptr(kt_cache), _cuda.ptr(v_cache), _cuda.ptr(lengths),
-        _cuda.ptr(scales), _cuda.ptr(sbuf), _cuda.ptr(out), b, h, hk, dh, smax, int(quant_pv),
+        _cuda.ptr(scales), _cuda.ptr(out), b, h, hk, dh, smax, int(quant_pv), cluster,
         _cuda.stream(dev))
     _cuda.check(rc, DECODE)
     _cuda.count_launch(DECODE)

@@ -11,9 +11,11 @@ wrappers of the hand-written CUDA kernels that replace the TPU kernels:
 weight block, dequantise one block ahead); on Hopper both are tiling choices
 inside one kernel, so they launch K9's kernel and count under K9.
 
-K1 and K9 share one main loop (``csrc/w4a8_gemm_sm90.cuh``: a TMA ring and
-wgmma with the weights as register fragments); ``gemm_plan`` chooses its
-tile and K split, ``fpscale_plan`` K10's.
+K1, K9 and K10 share one main loop (``csrc/w4a8_gemm_sm90.cuh``: a TMA ring
+and wgmma with the weights as register fragments; K10 keeps one int32
+accumulator set per nibble plane and flushes them into fp32 per span).
+``gemm_plan`` chooses K1's and K9's tile and K split, ``fpscale_plan``
+K10's.
 """
 
 from __future__ import annotations
@@ -84,29 +86,48 @@ def gemm_plan(m: int, n: int, k: int, groupsize: int, layout: str, sms: int) -> 
     tiles = -(-m // bm) * -(-n // TILE_N)
     if tile == PREFILL_TILE and tiles >= sms:
         return GemmPlan(tile, bm, TILE_N, stage_k, stages, 1, stages)
+    splits, sps = _split(stages, 1, tiles, sms)
+    return GemmPlan(tile, bm, TILE_N, stage_k, stages, splits, sps)
+
+
+def _split(units: int, unit_stages: int, tiles: int, sms: int):
+    """(splits, units a split) of K in whole units of ``unit_stages`` stages
+    (K1 and K9: a stage; K10: a span) over ``tiles`` output tiles: the split
+    that minimises waves x (stages a split + a block's start and finish)."""
     best = None
-    for s in range(1, min(stages, MAX_SPLITS) + 1):
-        sps = -(-stages // s)
-        splits = -(-stages // sps)
-        cost = -(-tiles * splits // sms) * (sps + _FILL_STAGES)
+    for s in range(1, min(units, MAX_SPLITS) + 1):
+        per = -(-units // s)
+        splits = -(-units // per)
+        cost = -(-tiles * splits // sms) * (per * unit_stages + _FILL_STAGES)
         if best is None or cost < best[0]:
-            best = (cost, splits, sps)
-    return GemmPlan(tile, bm, TILE_N, stage_k, stages, best[1], best[2])
+            best = (cost, splits, per)
+    return best[1], best[2]
+
+
+# K10's tiles (token rows x 128 columns): decode and prefill (each thread
+# holds three accumulator sets, two int32 planes and the fp32 sum)
+FP_DECODE_TILE, FP_PREFILL_TILE = 0, 1
+FP_TILE_ROWS = {FP_DECODE_TILE: 16, FP_PREFILL_TILE: 128}
 
 
 @functools.lru_cache(maxsize=4096)
 def fpscale_plan(m: int, n: int, k: int, groupsize: int, sms: int):
-    """K10's (tile, packed rows per split): tile 0 is 16 x 64 (M <= 16), 1 is
-    64 x 128; all K / 2 packed rows unless the output tiles alone leave SMs
-    idle, else whole spans (gs packed rows) split ~2 blocks an SM."""
-    tile, bm, bn = (0, 16, 64) if m <= 16 else (1, 64, 128)
-    blocks = -(-m // bm) * -(-n // bn)
+    """K10's (tile, packed rows per split) for an (m, n, k) call on a card
+    with ``sms`` SMs.
+
+    Up to DECODE_ROWS rows take the decode tile (16 token rows), more the
+    prefill tile (128); both hold 128 weight columns.  A split holds whole
+    spans (gs packed rows), as the kernel flushes its fp32 sum per span; the
+    split is ``gemm_plan``'s choice (``_split``) in whole spans, and the
+    prefill tile is not split once its tiles fill the SMs."""
+    tile = FP_DECODE_TILE if m <= DECODE_ROWS else FP_PREFILL_TILE
+    tiles = -(-m // FP_TILE_ROWS[tile]) * -(-n // TILE_N)
     kp = k // 2
-    if blocks >= sms:
+    if tile != FP_DECODE_TILE and tiles >= sms:
         return tile, kp
-    units = kp // groupsize
-    splits = min(-(-2 * sms // blocks), units)
-    return tile, -(-units // splits) * groupsize
+    span_stages = groupsize // (64 if groupsize % 64 == 0 else 32)
+    _, per = _split(kp // groupsize, span_stages, tiles, sms)
+    return tile, per * groupsize
 
 
 def _sms(dev: torch.device) -> int:

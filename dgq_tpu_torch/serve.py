@@ -116,13 +116,13 @@ def build_server(args):
     from dgq_tpu_torch.serving.paged import PagedBatcher
     from dgq_tpu_torch.serving.scheduler import ContinuousBatcher
     from dgq_tpu_torch.serving.server import BatcherServer
-    from dgq_tpu_torch.utils.checkpoint import load_engine
+    from dgq_tpu_torch.utils.checkpoint import fp_scales_of, load_engine
 
     why = _unported(args)
     if why:
         raise SystemExit(f"dgq_tpu_torch.serve: {why}")
     eng, cfg = load_engine(args.checkpoint, device="cpu" if args.cpu else "cuda")
-    ecfg = EngineConfig(cfg=cfg, kv_bits=args.kv_bits)
+    ecfg = EngineConfig(cfg=cfg, kv_bits=args.kv_bits, fp_scales=fp_scales_of(eng))
     if args.paged:
         chunk = (args.prefill_chunk // args.page_size) * args.page_size  # page-align
         batcher = PagedBatcher(

@@ -160,12 +160,14 @@ class ContinuousBatcher:
 
     @classmethod
     def from_checkpoint(cls, path: str, *, device="cuda", kv_bits: int = 8, **kw):
-        """Serving startup straight from a ``save_engine`` checkpoint;
-        ``kv_bits=4`` serves on the packed INT4 cache."""
-        from dgq_tpu_torch.utils.checkpoint import load_engine
+        """Serving startup straight from a ``save_engine`` checkpoint, with
+        ``fp_scales`` taken from the stored group scales; ``kv_bits=4``
+        serves on the packed INT4 cache."""
+        from dgq_tpu_torch.utils.checkpoint import fp_scales_of, load_engine
 
         eng, cfg = load_engine(path, device=device)
-        return cls(EngineConfig(cfg=cfg, kv_bits=kv_bits), eng, **kw)
+        ecfg = EngineConfig(cfg=cfg, kv_bits=kv_bits, fp_scales=fp_scales_of(eng))
+        return cls(ecfg, eng, **kw)
 
     def _new_cache(self):
         return init_batched_cache(self.ecfg.cfg, self.num_slots, self.max_len,

@@ -211,6 +211,23 @@ def opt_engine_params_from_arrays(tensors: Mapping[str, object],
     return OPTEngineParams(layers=map_tensors(lambda x: _move(x, device), layers), **top)
 
 
+LINEARS = ("qkv_proj", "o_proj", "gate_up_proj", "down_proj")
+
+
+def fp_scales_of(eng: EngineParams) -> bool:
+    """``EngineConfig.fp_scales`` for a loaded LLaMA engine: True when every
+    linear stores fp32 group scales (the w4w8-fallback representation),
+    False when every one stores int8 scales; an engine that mixes the two
+    raises, naming the linears of each kind."""
+    kinds = {name: getattr(eng.layers, name).wscales.dtype == torch.float32 for name in LINEARS}
+    if len(set(kinds.values())) > 1:
+        fp = [f"layers/{n}" for n, k in kinds.items() if k]
+        s8 = [f"layers/{n}" for n, k in kinds.items() if not k]
+        raise ValueError(f"engine mixes fp32 group scales ({', '.join(fp)}) with int8 ones "
+                         f"({', '.join(s8)}): one EngineConfig(fp_scales=...) cannot run both")
+    return kinds["qkv_proj"]
+
+
 def load_engine(path: str, device="cuda"):
     """(engine params, model config) from a save_engine checkpoint:
     (EngineParams, LlamaConfig) or, for ``arch == "opt"``, (OPTEngineParams,

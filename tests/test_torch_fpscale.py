@@ -12,6 +12,10 @@ by the port's ``load_engine``; both engines prefill and decode 16 greedy
 tokens, JAX plain (``use_kernel=False``, whose fp-scale branch multiplies
 dequantised fp32 weights instead) and with its kernels in interpret mode."""
 
+import dataclasses
+import json
+import socket
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,11 +24,16 @@ import torch
 from dgq_tpu.models import engine as jeng
 from dgq_tpu.models.llama import tiny_llama_config
 from dgq_tpu.ops import quant_matmul as jqm
+from dgq_tpu.serving.scheduler import ContinuousBatcher as JBatcher
+from dgq_tpu.serving.scheduler import Request as JRequest
 from dgq_tpu.utils import checkpoint as jck
 from dgq_tpu.utils.evalutils import ppl_eval_engine as jax_ppl
+from dgq_tpu_torch import serve as tserve
 from dgq_tpu_torch.models import engine as teng
 from dgq_tpu_torch.models.llama import LlamaConfig
 from dgq_tpu_torch.ops import quant_matmul as tqm
+from dgq_tpu_torch.serving.paged import PagedBatcher
+from dgq_tpu_torch.serving.scheduler import ContinuousBatcher, Request
 from dgq_tpu_torch.utils import checkpoint as tck
 from dgq_tpu_torch.utils.evalutils import ppl_eval_engine
 
@@ -91,6 +100,39 @@ def test_k10_plain_matches_jax(m, gs):
     np.testing.assert_array_equal(exact, x.astype(np.int64) @ codes)
 
 
+def _split_emulated(x, qw, ws, wz, alpha, beta, gs, p_split):
+    """K10 with K split as the plan splits it: each split sums its own groups
+    from 0 in the plain version's steps, then the splits are added in split
+    order and the epilogue applied (``splitk_combine``)."""
+    m, k = x.shape
+    acc = None
+    for p0 in range(0, k // 2, p_split):
+        p1 = min(p0 + p_split, k // 2)
+        g0, g1 = 2 * p0 // gs, 2 * p1 // gs
+        part = tqm.w4a8_fpscale_matmul_packed(
+            x[:, 2 * p0:2 * p1].contiguous(), qw[p0:p1].contiguous(), ws[g0:g1], wz[g0:g1],
+            torch.ones_like(alpha), groupsize=gs)
+        acc = part if acc is None else acc + part
+    return tqm._epilogue(acc, alpha, beta, torch.float32)
+
+
+@pytest.mark.parametrize("k,m", [(4096, 4), (11264, 1), (4096, 16)])
+def test_k10_split_in_plan_order_matches_jax(k, m):
+    """The split sum in the order of the plan's splits at a LLaMA-2-7B K (the
+    plan of o_proj / down_proj at that M on 132 SMs, on 256 columns): within
+    1e-5 of the largest output of JAX's kernel in interpret mode, as the card
+    holds a split K10."""
+    gs, n = 128, 256
+    tile, p_split = tqm.fpscale_plan(m, 4096, k, gs, 132)
+    assert tile == tqm.FP_DECODE_TILE and p_split < k // 2  # the plan splits K
+    x, qw, ws, wz, alpha, beta = fp_inputs(m, k, n, gs, seed=k + m)
+    ref = np.asarray(jqm.w4a8_fpscale_matmul_packed(
+        jnp.asarray(x), jnp.asarray(qw), jnp.asarray(ws), jnp.asarray(wz), jnp.asarray(alpha),
+        jnp.asarray(beta), groupsize=gs, span=2 * gs, bm=128, bn=128, interpret=True))
+    got = _split_emulated(*(_t(a) for a in (x, qw, ws, wz, alpha, beta)), gs, p_split).numpy()
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5 * np.abs(ref).max())
+
+
 def _fp_arrays(seed=0):
     """A numpy-seeded fp-scale LLaMA engine under save_engine's keys, as
     JAX's from_ptq converts a mixed model: span storage, fp32 group scales
@@ -128,7 +170,9 @@ def _fp_arrays(seed=0):
 
 
 @pytest.fixture(scope="module")
-def engines(tmp_path_factory):
+def fp_ckpt(tmp_path_factory):
+    """The fp-scale engine in JAX, written by JAX's save_engine: (path, JAX
+    params)."""
     arrays = _fp_arrays()
     layers = jck._rebuild_namedtuple(
         jeng.EngineLayer, {k[len("layers/"):]: jnp.asarray(v) for k, v in arrays.items()
@@ -138,6 +182,12 @@ def engines(tmp_path_factory):
                           lm_head=jnp.asarray(arrays["lm_head"]), rms_eps=CFG.rms_norm_eps)
     path = str(tmp_path_factory.mktemp("fp") / "fp_engine.safetensors")
     jck.save_engine(path, j, CFG)
+    return path, j, arrays
+
+
+@pytest.fixture(scope="module")
+def engines(fp_ckpt):
+    path, j, arrays = fp_ckpt
     t, tcfg = tck.load_engine(path, device="cpu")
     assert tcfg == TCFG
     got = tck.engine_arrays(t)
@@ -211,3 +261,82 @@ def test_fpscale_ppl_matches_jax(engines):
                   seqlen=32)
     got = ppl_eval_engine(teng.EngineConfig(cfg=TCFG, fp_scales=True), t, stream, seqlen=32)
     np.testing.assert_allclose(got, ref, rtol=1e-4)
+
+
+# serving an fp-scale checkpoint: the batchers take fp_scales from the stored
+# group scales (JAX's from_checkpoint and serve leave it off and run the
+# int8-scale branch on fp32 scales; the port matches JAX's batcher built with
+# EngineConfig(fp_scales=True))
+SERVE_PROMPTS = (20, 9, 14)
+SERVE_NEW = 8
+
+
+@pytest.fixture(scope="module")
+def served_want(fp_ckpt):
+    """{uid: greedy tokens} of JAX's ContinuousBatcher with fp_scales=True."""
+    _, j, _ = fp_ckpt
+    ref = JBatcher(jeng.EngineConfig(cfg=CFG, use_kernel=False, fp_scales=True), j,
+                   num_slots=2, max_len=SMAX, prefill_pad=8)
+    for uid, p in enumerate(_serve_prompts()):
+        ref.add_request(JRequest(uid=uid, prompt_ids=p, max_new_tokens=SERVE_NEW))
+    want = {r.uid: r.output_ids for r in ref.run()}
+    assert len({t for toks in want.values() for t in toks}) > 2  # not degenerate
+    return want
+
+
+def _serve_prompts():
+    rng = np.random.default_rng(7)
+    return [rng.integers(0, CFG.vocab_size, n).astype(np.int32) for n in SERVE_PROMPTS]
+
+
+@pytest.mark.parametrize("kind", ["dense", "paged"])
+def test_fpscale_checkpoint_from_checkpoint_matches_jax(fp_ckpt, served_want, kind):
+    """Both batchers' ``from_checkpoint`` turn fp_scales on for fp32 group
+    scales, and serve JAX's fp_scales=True tokens."""
+    path = fp_ckpt[0]
+    if kind == "dense":
+        b = ContinuousBatcher.from_checkpoint(path, device="cpu", num_slots=2, max_len=SMAX,
+                                              prefill_pad=8)
+    else:
+        b = PagedBatcher.from_checkpoint(path, device="cpu", num_slots=2, max_len=SMAX,
+                                         page_size=16)
+    assert b.ecfg.fp_scales
+    for uid, p in enumerate(_serve_prompts()):
+        b.add_request(Request(uid=uid, prompt_ids=p, max_new_tokens=SERVE_NEW))
+    assert {r.uid: r.output_ids for r in b.run()} == served_want
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_fpscale_checkpoint_serves_over_the_daemon(fp_ckpt, served_want, paged):
+    """``serve.build_server`` on the fp-scale checkpoint, over a localhost
+    socket: the served tokens are JAX's fp_scales=True batcher's."""
+    flags = ["--cpu", "--port", "0", "--max-len", str(SMAX), "--slots", "2",
+             "--metrics-interval", "0", "--prefill-pad", "8"]
+    if paged:
+        flags += ["--paged", "--page-size", "16"]
+    args = tserve.build_parser().parse_args([fp_ckpt[0], *flags])
+    with tserve.build_server(args) as srv:
+        assert srv.batcher.ecfg.fp_scales
+        with socket.create_connection((srv.host, srv.port), timeout=120) as sock:
+            f = sock.makefile("r")
+            for p in _serve_prompts():
+                sock.sendall((json.dumps({"prompt_ids": p.tolist(),
+                                          "max_new_tokens": SERVE_NEW}) + "\n").encode())
+            finals = {}
+            while len(finals) < len(SERVE_PROMPTS):
+                msg = json.loads(f.readline())
+                if msg["done"]:
+                    finals[msg["uid"]] = msg["output_ids"]
+    assert finals == served_want
+
+
+def test_fp_scales_of_rejects_a_mixed_engine(engines):
+    """fp32 scales in some linears and int8 in others raise, naming both
+    kinds; one kind gives fp_scales directly."""
+    _, t = engines
+    assert tck.fp_scales_of(t)
+    o = t.layers.o_proj
+    mixed = dataclasses.replace(t, layers=t.layers._replace(
+        o_proj=o._replace(wscales=o.wscales.to(torch.int8))))
+    with pytest.raises(ValueError, match=r"layers/qkv_proj.*layers/o_proj"):
+        tck.fp_scales_of(mixed)

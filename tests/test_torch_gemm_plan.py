@@ -107,14 +107,33 @@ def test_gemm_plan_rejects_an_unknown_layout():
         qm.gemm_plan(4, 4096, 4096, 128, "s4", SMS)
 
 
+LLAMA_7B = _llama_linears(LlamaConfig())
+
+
 @pytest.mark.parametrize("n,k", LINEARS)
 def test_fpscale_plan_splits_whole_spans(n, k):
+    """K10's splits tile K/2 in whole spans (its kernel flushes per span),
+    at most MAX_SPLITS, the prefill tile unsplit once its tiles fill the
+    SMs; at LLaMA-2-7B's shapes for every M from 1 to 2048."""
+    rows = range(1, 2049) if (n, k) in LLAMA_7B else ROWS
     for gs in (32, 64, 128):
         if k % (2 * gs):
             continue
-        for m in ROWS:
+        for m in rows:
             tile, p_split = qm.fpscale_plan(m, n, k, gs, SMS)
-            assert tile == (0 if m <= 16 else 1)
-            assert p_split > 0 and p_split % gs == 0 and p_split <= k // 2
+            what = f"M={m} N={n} K={k} gs={gs}: {(tile, p_split)}"
+            assert tile == (qm.FP_DECODE_TILE if m <= qm.DECODE_ROWS else qm.FP_PREFILL_TILE)
+            assert p_split > 0 and p_split % gs == 0 and p_split <= k // 2, what
             splits = -(-(k // 2) // p_split)
-            assert (splits - 1) * p_split < k // 2 <= splits * p_split
+            assert (splits - 1) * p_split < k // 2 <= splits * p_split, what
+            assert splits <= qm.MAX_SPLITS, what
+            tiles = -(-m // qm.FP_TILE_ROWS[tile]) * -(-n // qm.TILE_N)
+            assert tile == qm.FP_DECODE_TILE or splits == 1 or tiles < SMS, what
+
+
+def test_fpscale_plan_spreads_a_decode_step_over_the_card():
+    # the 7B o_proj at batch 4: 32 column tiles, so K is split in whole spans
+    tile, p_split = qm.fpscale_plan(4, 4096, 4096, 128, SMS)
+    assert tile == qm.FP_DECODE_TILE and 2048 // p_split >= 2
+    # prefill: 8 x 96 tiles fill the card unsplit
+    assert qm.fpscale_plan(1024, 12288, 4096, 128, SMS) == (qm.FP_PREFILL_TILE, 2048)
