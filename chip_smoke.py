@@ -5,13 +5,14 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It imports no JAX.  Phases, each printing one JSON line with its seconds:
 
 1. device: the card's name and power limit (nvidia-smi); TF32 off.
-2. build: the thirteen CUDA sources, one nvcc each, started together; the
-   logs of the sources on wgmma (K1, K4-K6, K9, K10, P1 on the TMA + wgmma
-   loop, and K2) must not hold ptxas warnings C7514, C7515 or C7520 (wgmma
-   serialised), nor may their libraries' SASS (``cuobjdump -sass``) hold a
-   kernel whose every IGMMA or HGMMA is waited for at once (serialised with
-   no warning); K2's, K3's, K4's, K5's, K6's and K10's registers and spills
-   are recorded.
+2. build: the fourteen CUDA sources, one nvcc each, started together; the
+   logs of the sources on wgmma (K1, K4-K6, K9, K10, K12's norm and requant
+   entries, P1 on the TMA + wgmma loop, and K2) must not hold ptxas warnings
+   C7514, C7515 or C7520 (wgmma serialised), nor may their libraries' SASS
+   (``cuobjdump -sass``) hold a kernel whose every IGMMA or HGMMA is waited
+   for at once (serialised with no warning); K2's, K3's, K4's, K5's, K6's,
+   K10's and K12's (norm, requant) registers and spills are recorded, and
+   K4-K6's and K12's must hold no spill and at most 113 registers.
 3. kernels: K1 ``w4a8_matmul_rp_pipe``, K2 ``int8_prefill_attention``, K3
    ``int8_decode_attention``, the fused decode kernels K4
    ``fused_norm_gemv_rp``, K5 ``fused_requant_gemv_rp`` and K6
@@ -65,7 +66,18 @@ It imports no JAX.  Phases, each printing one JSON line with its seconds:
    (which also serve K13's names) on span weights at K4-K6's shapes and row
    counts, held as K4-K6 are against their plain versions and, by their
    int32 accumulators, against K4-K6 on ``pack_rowpair_s4`` of the same
-   weights (equal), with a sweep at 1, 9 and 64 rows and groupsize 64.
+   weights (equal), and timed beside them; the MLP also at 1, 9 and 64 rows
+   and groupsize 64; the norm and requant entries also at SPAN_SWEEP_ROWS
+   x SPAN_SWEEP_GS (1-64 rows, groupsizes 32, 64, 128) under every plan of
+   ``fused_candidates(..., "span")``: codes equal to the plain requant and
+   RMSNormQ in the kernels' order, accumulators equal to the plain
+   version's and to K4's/K5's, outputs within rtol 1e-6.  Last the plan
+   hold (``fused_plan_sweep --repeat``, PLAN_HOLD): K4, K5, both legs of K6
+   and K12's norm and requant entries at 9, 40 and 64 rows, every plan
+   HOLD_ROUNDS times in shuffled order with an L2 flush before each call,
+   each call's outputs equal to the chosen plan's (a race between plans
+   shows here, not in one call a plan); its lines go to
+   ``chiprun_out/plan_hold.txt``.
 4. main: ``build_llama_engine(LlamaConfig())`` (32 layers, full width, random
    weights from seed 0) then ``generate`` of 32 greedy tokens for 4 prompts
    of 256 tokens with the default ``EngineConfig`` (fused decode), with every
@@ -181,6 +193,8 @@ last line.  Details go to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import argparse
+import functools
+import itertools
 import json
 import shutil
 import subprocess
@@ -215,9 +229,10 @@ K4_NAMES = ["norm_gemv_rp_sm90", "norm_gemv_rp_combine"]
 K5_NAMES = ["requant_gemv_rp_sm90", "requant_gemv_rp_combine"]
 # K6: its gate|up leg and its down leg, each with the kernel that sums its K splits
 K6_NAMES = ["mlp_gate_up_rp", "mlp_down_rp"]
-# K12's three entry points (one source)
-K12_NAMES = {"fused_norm_gemv": ["norm_gemv_span_kernel"],
-             "fused_requant_gemv": ["requant_gemv_span_kernel"],
+# K12's three entry points: the norm and requant ones on K4's and K5's TMA + wgmma kernel (one
+# source; each with the kernel that sums its K splits), the MLP on its mma.sync body
+K12_NAMES = {"fused_norm_gemv": ["norm_gemv_span_sm90", "norm_gemv_span_combine"],
+             "fused_requant_gemv": ["requant_gemv_span_sm90", "requant_gemv_span_combine"],
              "fused_mlp_decode": ["mlp_decode_span_kernel", "mlp_decode_span_epilogue"]}
 K12_ALL = [n for names in K12_NAMES.values() for n in names]
 K3_NAMES = ["decode_attn_cluster"]
@@ -363,11 +378,12 @@ def phase_device(torch, state):
             "torch": torch.__version__, "cuda": torch.version.cuda}
 
 
-# the sources on wgmma (K1, K9, K10, P1, K4-K6 on the TMA + wgmma loop of
-# w4a8_gemm_sm90.cuh; K2), whose nvcc logs must not hold ptxas warnings C7514,
+# the sources on wgmma (K1, K9, K10, P1, K4-K6 and K12's norm and requant entries on the TMA +
+# wgmma loop of w4a8_gemm_sm90.cuh; K2), whose nvcc logs must not hold ptxas warnings C7514,
 # C7515 or C7520 (wgmma serialised: right, but slower)
 WGMMA_SOURCES = ("w4a8_rp_gemm", "w4a8_span_gemm", "s8_gemm", "fused_norm_gemv_rp",
-                 "fused_requant_gemv_rp", "fused_mlp_decode_rp", "int8_prefill_attention")
+                 "fused_requant_gemv_rp", "fused_mlp_decode_rp", "fused_gemv_span_sm90",
+                 "int8_prefill_attention")
 
 
 def _ptxas_entries(log: str, marker: str) -> dict:
@@ -379,7 +395,9 @@ def _ptxas_entries(log: str, marker: str) -> dict:
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            entry = m.group(1) if marker in m.group(1) else None
+            # the anonymous namespace's mangled name holds the source's name: leave it out
+            name = re.sub(r"_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "", m.group(1))
+            entry = name if marker in name else None
             continue
         if entry is None:
             continue
@@ -433,7 +451,7 @@ def phase_build(torch, state):
             if code in log:
                 raise AssertionError(f"csrc/{stem}.cu: ptxas serialised the wgmmas ({code})")
         if stem.startswith("fused_"):
-            ptxas[stem] = _ptxas_entries(log, "_rp_sm90")
+            ptxas[stem] = _ptxas_entries(log, "_span_sm90" if "span" in stem else "_rp_sm90")
             # fused_plan lets two blocks of 288 threads share an SM: 113 registers a thread
             for name, e in ptxas[stem].items():
                 if e.get("registers", 0) > 65536 // (2 * 288) or e.get("spill_bytes", 0):
@@ -837,7 +855,7 @@ def _fused_check(torch, c):
     on the kernel's codes and must give the same accumulators and outputs
     (rtol 1e-6, as K1).  A K12 case also holds its accumulators against
     K4-K6's kernel on ``pack_rowpair_s4`` of the same weights
-    (``rowpair(codes_out)``): equal."""
+    (``twin(acc, codes_out)``): equal."""
     kern, plain, what = c["kern"], c["plain"], c["what"]
     codes = [torch.empty(sh, dtype=torch.int8, device=DEV) for sh in c["shapes"]]
     acc_k = kern(True, codes)
@@ -846,9 +864,9 @@ def _fused_check(torch, c):
     if not torch.equal(acc_k, acc_p):
         raise AssertionError(f"{what}: {(acc_k != acc_p).sum().item()} accumulators differ")
     extra = {}
-    if "rowpair" in c:
+    if "twin" in c:
         rp_codes = [torch.empty_like(t) for t in codes]
-        acc_rp = c["rowpair"](rp_codes)
+        acc_rp = c["twin"](True, rp_codes)
         torch.cuda.synchronize()
         if not torch.equal(acc_k, acc_rp):
             raise AssertionError(f"{what}: {(acc_k != acc_rp).sum().item()} accumulators "
@@ -886,6 +904,7 @@ def _layout(torch, qw, gs, span):
 def _k4_case(torch, gen, m, gs, extras, span=False):
     """K4 (RMSNormQ + qkv_proj), or with ``span`` K12's norm entry, at the
     main path's width; ``extras`` turns on the norm bias and beta."""
+    from dgq_tpu_torch.ops import _cuda
     from dgq_tpu_torch.ops import fused_decode as fd
 
     eps = 1e-5
@@ -904,7 +923,7 @@ def _k4_case(torch, gen, m, gs, extras, span=False):
                     else (fd.fused_norm_gemv_rp, fd.fused_norm_gemv_rp_xla))
     w = (qw, *planes) if span else (qw, *planes, csf)
 
-    def kern(acc, codes_out):
+    def kern(acc, codes_out, fn=fn, w=w):
         return fn(x, lnw, lnb, *w, one if acc else alpha, None if acc else beta, span=2 * gs,
                   eps=eps, codes_out=codes_out[0] if codes_out else None)
 
@@ -917,19 +936,32 @@ def _k4_case(torch, gen, m, gs, extras, span=False):
 
     c = {"what": f"{'K12 norm' if span else 'K4'} M={m} gs={gs}", "kern": kern, "plain": plain,
          "own": lambda codes: [fd._rmsnorm_q(x, lnw, lnb, eps)], "shapes": [(m, k)],
+         "exact": lambda codes: [_rmsnorm_q_ordered(torch, x, lnw, lnb, eps)],
          "names": K12_NAMES["fused_norm_gemv"] if span else K4_NAMES,
          "meta": {"linear": "qkv_proj", "M": m, "N": n, "K": k},
          "nbytes": 4 * m * k + 4 * k + k * n // 2 + 2 * (k // gs) * n + 8 * n + 4 * m * n,
          "ops": 2.0 * m * n * k, "lib": lib}
-    if span:
-        c["rowpair"] = lambda codes_out: fd.fused_norm_gemv_rp(
-            x, lnw, lnb, qw_rp, *planes, csf, one, span=2 * gs, eps=eps, codes_out=codes_out[0])
+    if span:  # K4 on the rowpair copy of the same bytes
+        c["twin"] = functools.partial(kern, fn=fd.fused_norm_gemv_rp, w=(qw_rp, *planes, csf))
+        c["twin_names"] = K4_NAMES
+
+        def at_plan(acc, codes_out, plan):
+            y = torch.empty((m, n), dtype=torch.float32, device=DEV)
+            p = _cuda.ptr
+            fd.launch_gemv(fd.NORM_SPAN, plan, (
+                p(x), p(lnw), p(lnb), eps, p(qw), *map(p, planes), p(one if acc else alpha),
+                p(None if acc else beta), p(y), p(codes_out[0] if codes_out else None)),
+                m, n, k, gs, DEV)
+            return y
+
+        c["at_plan"] = at_plan
     return c
 
 
 def _k5_case(torch, gen, m, gs, extras, span=False):
     """K5 (requant + o_proj + residual), or with ``span`` K12's requant
     entry, at the main path's width; ``extras`` turns on beta."""
+    from dgq_tpu_torch.ops import _cuda
     from dgq_tpu_torch.ops import fused_decode as fd
 
     n, k = LINEARS["o_proj"]
@@ -947,7 +979,7 @@ def _k5_case(torch, gen, m, gs, extras, span=False):
                     else (fd.fused_requant_gemv_rp, fd.fused_requant_gemv_rp_xla))
     w = (qw, *planes) if span else (qw, *planes, csf)
 
-    def kern(acc, codes_out):
+    def kern(acc, codes_out, fn=fn, w=w):
         return fn(x, scale, *w, one if acc else alpha, None if acc else beta,
                   None if acc else res, span=2 * gs, qmin=-127.0, fuse_residual=not acc,
                   codes_out=codes_out[0] if codes_out else None)
@@ -961,16 +993,30 @@ def _k5_case(torch, gen, m, gs, extras, span=False):
         return _int_mm_times(torch, timer, fd._requant_q(x, scale, -127.0),
                              deq(qw, ws, wz, gs))
 
+    def own(codes):
+        return [fd._requant_q(x, scale, -127.0)]
+
     c = {"what": f"{'K12 requant' if span else 'K5'} M={m} gs={gs}", "kern": kern,
-         "plain": plain, "own": lambda codes: [fd._requant_q(x, scale, -127.0)],
+         "plain": plain, "own": own, "exact": own,
          "shapes": [(m, k)], "names": K12_NAMES["fused_requant_gemv"] if span else K5_NAMES,
          "meta": {"linear": "o_proj", "M": m, "N": n, "K": k},
          "nbytes": 4 * m * k + 4 + k * n // 2 + 2 * (k // gs) * n + 4 * n + 8 * m * n,
          "ops": 2.0 * m * n * k, "lib": lib}
-    if span:
-        c["rowpair"] = lambda codes_out: fd.fused_requant_gemv_rp(
-            x, scale, qw_rp, *planes, csf, one, span=2 * gs, qmin=-127.0, fuse_residual=False,
-            codes_out=codes_out[0])
+    if span:  # K5 on the rowpair copy of the same bytes
+        c["twin"] = functools.partial(kern, fn=fd.fused_requant_gemv_rp,
+                                      w=(qw_rp, *planes, csf))
+        c["twin_names"] = K5_NAMES
+
+        def at_plan(acc, codes_out, plan):
+            y = torch.empty((m, n), dtype=torch.float32, device=DEV)
+            p = _cuda.ptr
+            fd.launch_gemv(fd.REQUANT_SPAN, plan, (
+                p(x), p(scale), -127.0, p(qw), *map(p, planes), p(one if acc else alpha),
+                p(None if acc else beta), p(None if acc else res), p(y),
+                p(codes_out[0] if codes_out else None)), m, n, k, gs, DEV)
+            return y
+
+        c["at_plan"] = at_plan
     return c
 
 
@@ -1037,10 +1083,11 @@ def _k6_case(torch, gen, m, gs, extras, span=False):
          "nbytes": (8 * m * d + 4 * d + d * n2f // 2 + 2 * (d // gs) * n2f + 4 * n2f
                     + f * d // 2 + 2 * (f // gs) * d + 4 * d + 4),
          "ops": 2.0 * m * (n2f * d + f * d), "lib": lib}
-    if span:
-        c["rowpair"] = lambda codes_out: fd.fused_mlp_decode_rp(
-            *args(True, gqw_rp, dqw_rp, rowpair=True), span=2 * gs, bf=512, eps=eps,
-            fuse_residual=False, codes_out=codes_out)
+    if span:  # K6 on the rowpair copies of the same bytes
+        c["twin"] = lambda acc, codes_out: fd.fused_mlp_decode_rp(
+            *args(acc, gqw_rp, dqw_rp, rowpair=True), span=2 * gs, bf=512, eps=eps,
+            fuse_residual=not acc, codes_out=codes_out)
+        c["twin_names"] = K6_NAMES
     else:
         # K6's codes exactly: the norm codes are K4's (RMSNormQ in the kernel's order),
         # the h codes _silu_mul_q of the plain gate/up sums on them
@@ -1058,7 +1105,8 @@ SPAN_CASES = {"fused_norm_gemv": _k4_case, "fused_requant_gemv": _k5_case,
 
 def _fused_cases(torch, timer, gen, span=False):
     """K4-K6, or with ``span`` K12's three entries, at the main path's row
-    counts: checked and timed."""
+    counts: checked and timed (K12 beside its K4-K6 twin on the rowpair
+    copy of the same bytes, ``twin_ms``)."""
     makers = SPAN_CASES if span else FUSED_CASES
     out = {key: [] for key in makers}
     for m in FUSED_ROWS:
@@ -1073,7 +1121,61 @@ def _fused_cases(torch, timer, gen, span=False):
             case.update({"ms": timer.kernel(run, c["names"]), "call_ms": timer(run),
                          "plain_ms": timer(lambda c=c: c["plain"](False, None), iters=10),
                          "bound_ms": b_ms, "bound_by": b_by, **c["lib"](timer)})
+            if "twin" in c:
+                case["twin_ms"] = timer.kernel(lambda c=c: c["twin"](False, None),
+                                               c["twin_names"])
             out[key].append(case)
+            del c
+    return out
+
+
+# K12's norm and requant entries held under every plan of fused_candidates(..., "span"): rows
+# (every token-row tile, ragged and full) by group size (QS 2 at 32; 1 at 64; whole spans of
+# two stages at 128)
+SPAN_SWEEP_ROWS, SPAN_SWEEP_GS = (1, 4, 5, 9, 40, 64), (32, 64, 128)
+
+
+def _span_gemv_sweep(torch, gen):
+    """K12's norm and requant entries at SPAN_SWEEP_ROWS x SPAN_SWEEP_GS
+    with beta, the residual (requant) and the norm bias on, under every plan
+    of ``fused_candidates(..., "span")``, each launched as the sweep script
+    launches it (``launch_gemv``; the wrappers take ``fused_plan``'s plan,
+    which the kernels phase holds): the codes they hand out equal the
+    plain requant and RMSNormQ summed in the kernels' order, the int32
+    accumulators equal the plain version's on them and K4's or K5's on the
+    rowpair copy, and the outputs lie within rtol 1e-6 of the plain
+    version's.  (Not timed here: CUDA events would time the host;
+    ``python -m dgq_tpu_torch.scripts.fused_plan_sweep
+    --span`` times every plan.)"""
+    from dgq_tpu_torch.ops import fused_decode as fd
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = []
+    for m, gs in itertools.product(SPAN_SWEEP_ROWS, SPAN_SWEEP_GS):
+        for key in ("fused_norm_gemv", "fused_requant_gemv"):
+            c = SPAN_CASES[key](torch, gen, m, gs, extras=True, span=True)
+            norm, (n, k) = key == "fused_norm_gemv", (c["meta"]["N"], c["meta"]["K"])
+            want = c["exact"](None)
+            acc_p, y_p = c["plain"](True, want), c["plain"](False, want)
+            twin_codes = [torch.empty_like(t) for t in want]
+            acc_twin = c["twin"](True, twin_codes)
+            if not torch.equal(twin_codes[0], want[0]):
+                raise AssertionError(f"{c['what']}: the twin's codes differ")
+            chosen = fd.fused_plan(m, n, k, gs, sms, norm, "span")
+            plans = fd.fused_candidates(m, n, k, gs, "span")
+            for plan in plans:
+                what = f"{c['what']} {plan}"
+                codes = [torch.empty_like(t) for t in want]
+                acc = c["at_plan"](True, codes, plan)
+                for tag, got, ref in (("codes", codes[0], want[0]), ("accumulators", acc, acc_p),
+                                      ("accumulators against the twin", acc, acc_twin)):
+                    if not torch.equal(got, ref):
+                        raise AssertionError(f"{what}: {(got != ref).sum().item()} {tag} differ")
+                torch.testing.assert_close(c["at_plan"](False, None, plan), y_p, rtol=1e-6,
+                                           atol=0)
+            out.append({**c["meta"], "kernel": key, "groupsize": gs, "plans": len(plans),
+                        "chosen": chosen._asdict(), "bit_equal": True, "codes_equal": True,
+                        "int32_equal_rowpair_kernel": True})
             del c
     return out
 
@@ -1083,15 +1185,15 @@ def _fused_sweep(torch, gen, span=False):
     groupsize 64, and 64 rows (the engine's cap), then 4 and 40 rows at
     groupsize 32 (one scale row a 32-k step: the legs' other instantiation,
     after the first in the same process), with bias, beta and residual on;
-    K12 at 1, 9 and 64 rows at groupsize 64 (spans of 128).  (K4 and K5:
-    ``_rowpair_gemv_checks``.)"""
+    K12's MLP at 1, 9 and 64 rows at groupsize 64 (spans of 128), then its
+    norm and requant entries under every plan (``_span_gemv_sweep``).  (K4
+    and K5: ``_rowpair_gemv_checks``.)"""
     out = []
     for m, gs in (((1, 64), (9, 64), (64, 64)) if span
                   else ((1, 128), (9, 64), (64, 128), (4, 32), (40, 32))):
-        for build in (SPAN_CASES.values() if span else (_k6_case,)):
-            out.append({**_fused_check(torch, build(torch, gen, m, gs, extras=True, span=span)),
-                        "groupsize": gs})
-    return out
+        out.append({**_fused_check(torch, _k6_case(torch, gen, m, gs, extras=True, span=span)),
+                    "groupsize": gs})
+    return out + (_span_gemv_sweep(torch, gen) if span else [])
 
 
 # K4 and K5 held bit-equal, not timed: every token-row tile, clusters or none, groupsize 64
@@ -1133,8 +1235,6 @@ def _rowpair_gemv_checks(torch, gen):
     no beta, no residual) equal the plain version's on those codes, and so
     do the outputs with beta, K5's residual, K4's norm bias and
     ``codes_out`` each on and off (the handed-out codes again equal)."""
-    import itertools
-
     from dgq_tpu_torch.ops import fused_decode as fd
 
     eps, sms = 1e-5, torch.cuda.get_device_properties(0).multi_processor_count
@@ -1541,8 +1641,37 @@ def phase_kernels(torch, state):
     sweep12 = _fused_sweep(torch, gen, span=True)
     del timer
     torch.cuda.empty_cache()
+    hold = _plan_hold()
     return {**{f"k{i}": state[f"k{i}"] for i in range(1, 13)}, "k2_checks": k2_extra,
-            "k4_k5_checks": k45, "k6_sweep": sweep, "k12_sweep": sweep12}
+            "k4_k5_checks": k45, "k6_sweep": sweep, "k12_sweep": sweep12, "plan_hold": hold}
+
+
+# the plan hold: the rows at which a stage released before its loads returned once gave
+# another result under some plans (K splits of more stages than the ring holds), rounds a plan
+PLAN_HOLD, HOLD_ROUNDS = ("--rows", "9", "40", "64", "--groupsize", "128", "--no-time"), 100
+
+
+def _plan_hold():
+    """K4, K5, K6's legs (and with ``--span`` K12's norm and requant
+    entries) held under every plan HOLD_ROUNDS times against the chosen
+    plan by ``fused_plan_sweep``, its printout kept for
+    chiprun_out/plan_hold.txt: the calls held per cell."""
+    import contextlib
+    import io
+
+    from dgq_tpu_torch.scripts import fused_plan_sweep
+
+    buf, rows = io.StringIO(), []
+    try:
+        for extra in ((), ("--span",)):
+            with contextlib.redirect_stdout(buf):
+                rows += fused_plan_sweep.main([*PLAN_HOLD, "--repeat", str(HOLD_ROUNDS), *extra])
+    finally:
+        out_dir = ROOT / "chiprun_out"
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / "plan_hold.txt").write_text(buf.getvalue())
+    return [{k: r[k] for k in ("kernel", "leg", "M") if k in r}
+            | {"calls": HOLD_ROUNDS * len(r["mismatches"]), "mismatches": 0} for r in rows]
 
 
 def _drive_main(torch, cfg, ecfg, want, smax=SMAX, new_tokens=NEW_TOKENS,
@@ -3134,9 +3263,9 @@ SOURCES_OF = {
                            "dgq_tpu/ops/quant_matmul.py:173"),
     "w4a8_fpscale_matmul_packed": ("dgq_tpu_torch/csrc/w4a8_span_gemm.cu",
                                    "dgq_tpu/ops/quant_matmul.py:941"),
-    "fused_norm_gemv": ("dgq_tpu_torch/csrc/fused_decode_span.cu",
+    "fused_norm_gemv": ("dgq_tpu_torch/csrc/fused_gemv_span_sm90.cu",
                         "dgq_tpu/ops/fused_decode.py:423"),
-    "fused_requant_gemv": ("dgq_tpu_torch/csrc/fused_decode_span.cu",
+    "fused_requant_gemv": ("dgq_tpu_torch/csrc/fused_gemv_span_sm90.cu",
                            "dgq_tpu/ops/fused_decode.py:916"),
     "fused_mlp_decode": ("dgq_tpu_torch/csrc/fused_decode_span.cu",
                          "dgq_tpu/ops/fused_decode.py:1071"),
@@ -3228,6 +3357,8 @@ def kernels_line(state):
                  "bound_by": h["bound_by"], "library_ms": h["library_ms"],
                  "library_device_ms": h["library_device_ms"],
                  "cases": cases[name]}
+        if "twin_ms" in h:  # K12: K4-K6 on the rowpair copy of the same bytes
+            entry["twin_ms"] = h["twin_ms"]
         if name in ALSO_REPLACES:
             entry["also_replaces"] = ALSO_REPLACES[name]
         out.append(entry)

@@ -1,10 +1,9 @@
-// The fused decode kernels K12 on span weights, for Hopper (sm_90a): the
-// prologues that make int8 codes from fp32 rows, the warp-level product of 8
-// code rows with 32 weight columns, K12's norm and requant GEMV body
-// (gemv_body) and its MLP body (mlp_body), both templated on the weight
-// loader Span.  K4-K6, the rowpair kernels, run on the TMA + wgmma loop of
-// the W4A8 GEMMs instead (fused_gemv_sm90.cuh); they take clamp_code, pack4
-// and gemv_shapes_ok from here.
+// K12's MLP entry on span weights, for Hopper (sm_90a): the RMSNormQ
+// prologue that makes int8 codes from fp32 rows, the warp-level product of 8
+// code rows with 32 weight columns, and the MLP body (mlp_body), templated on
+// the weight loader Span.  K4-K6 and K12's norm and requant entries run on
+// the TMA + wgmma loop of the W4A8 GEMMs instead (fused_gemv_sm90.cuh); they
+// take clamp_code, pack4 and gemv_shapes_ok from here.
 //
 // Span weights (span = 2 gs): byte row t gs + i holds the code c of row t
 // span + i (group 2t) in its high nibble and of row t span + gs + i (group
@@ -28,8 +27,6 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include <algorithm>
 
 namespace fgemv {
 
@@ -237,26 +234,6 @@ __device__ __forceinline__ void rmsnorm_codes(const float* __restrict__ x,
   }
 }
 
-// Requant codes round(x / scale) clipped to [qmin, 127] of rows [r0, r0 +
-// rows_pad) of x (M, K) into xs; rows past M get zeros.
-__device__ __forceinline__ void requant_codes(const float* __restrict__ x, float scale,
-                                              float qmin, int M, int K, int r0, int rows_pad,
-                                              int8_t* xs, int ldx) {
-  const int words = K / 4;
-  for (int i = threadIdx.x; i < rows_pad * words; i += THREADS) {
-    const int r = i / words, k = 4 * (i % words), m = r0 + r;
-    uint32_t code = 0;
-    if (m < M) {
-      const float4 v = *reinterpret_cast<const float4*>(x + static_cast<size_t>(m) * K + k);
-      code = pack4(clamp_code(__fdiv_rn(v.x, scale), qmin),
-                   clamp_code(__fdiv_rn(v.y, scale), qmin),
-                   clamp_code(__fdiv_rn(v.z, scale), qmin),
-                   clamp_code(__fdiv_rn(v.w, scale), qmin));
-    }
-    *reinterpret_cast<uint32_t*>(xs + r * ldx + k) = code;
-  }
-}
-
 // sx[r * nseg + s] = sum of row r's codes over segment s (seg bytes each).
 __device__ __forceinline__ void segment_sums(const int8_t* xs, int ldx, int rows, int seg,
                                              int nseg, int* sx) {
@@ -284,18 +261,6 @@ __device__ __forceinline__ float epilogue(int acc, float alpha, const float* bet
   return beta ? __fadd_rn(y, beta[n]) : y;
 }
 
-// ---------------------------------------------------------------------------
-// K12's norm and requant body (span weights): codes of all rows -> (M, N)
-// f32, one block per group of 32-column tiles (persistent over tiles), the K
-// walk (spans of two groups) split over the block's warps and summed exactly
-// in shared memory.
-// ---------------------------------------------------------------------------
-
-inline size_t gemv_smem(int rows, int K, int gs) {
-  return static_cast<size_t>(rows) * (K + XPAD) + static_cast<size_t>(rows) * (K / gs) * 4 +
-         static_cast<size_t>(WARPS) * RED * 4;
-}
-
 // rows per pass (a multiple of 8) whose shared memory smem(rows) fits; 0 if none
 template <typename Smem>
 int rows_per_pass(int M, Smem smem) {
@@ -304,97 +269,12 @@ int rows_per_pass(int M, Smem smem) {
   return smem(r) <= SMEM_LIMIT ? r : 0;
 }
 
-inline int gemv_rows_per_pass(int M, int K, int gs) {
-  return rows_per_pass(M, [=](int r) { return gemv_smem(r, K, gs); });
-}
-
-struct GemvArgs {
-  const float* x;         // (M, K) f32
-  const float* lnw;       // norm: (K,) norm weight
-  const float* lnb;       // norm: (K,) norm bias or null
-  float eps;
-  const float* in_scale;  // requant: device scalar
-  float qmin;             // requant
-  const uint8_t* qw;      // (K/2, N) span bytes
-  GroupRows sr, zr;
-  const float* alpha;     // (N,)
-  const float* beta;      // (N,) or null
-  const float* residual;  // requant: (M, N) or null
-  float* out;             // (M, N)
-  int8_t* codes_out;      // (M, K) or null
-  int M, N, K, gs, rows_pass;
-};
-
-template <bool NORM, class L>
-__device__ __forceinline__ void gemv_body(const GemvArgs& a, uint8_t* smem) {
-  static_assert(L::PLANES == 2, "span weights (the rowpair GEMVs run fused_gemv_sm90.cuh)");
-  const int ldx = a.K + XPAD, G = a.K / a.gs, nseg = G / L::PLANES;
-  int8_t* xs = reinterpret_cast<int8_t*>(smem);
-  int* sx = reinterpret_cast<int*>(smem + static_cast<size_t>(a.rows_pass) * ldx);
-  int* red = sx + a.rows_pass * G;
-  const int warp = threadIdx.x >> 5, ntiles = a.N / TILE_N;
-  for (int r0 = 0; r0 < a.M; r0 += a.rows_pass) {
-    const int rows = min(a.rows_pass, a.M - r0), rows_pad = (rows + 7) & ~7, mt = rows_pad / 8;
-    if (NORM)
-      rmsnorm_codes(a.x, a.lnw, a.lnb, a.eps, a.M, a.K, r0, rows_pad, xs, ldx);
-    else
-      requant_codes(a.x, *a.in_scale, a.qmin, a.M, a.K, r0, rows_pad, xs, ldx);
-    __syncthreads();
-    segment_sums(xs, ldx, rows_pad, a.gs, G, sx);
-    if (a.codes_out && blockIdx.x == 0) copy_codes(xs, ldx, rows, a.K, r0, a.codes_out);
-    __syncthreads();
-    const int ks = min(max(1, WARPS / mt), nseg);  // K slices per m tile
-    for (int jt = blockIdx.x; jt < ntiles; jt += gridDim.x) {
-      const int n0 = jt * TILE_N;
-      if (warp < mt * ks) {
-        const int mtile = warp % mt, kslice = warp / mt;
-        int tot[2][4] = {{0, 0, 0, 0}, {0, 0, 0, 0}};
-        warp_unit<L>(a.qw, a.N, n0, SpanWalk{a.gs}, a.sr, a.zr, xs + mtile * 8 * ldx, ldx,
-                     sx + mtile * 8 * G, G, a.gs, kslice, nseg, ks, tot);
-        store_unit(red + warp * RED, tot);
-      }
-      __syncthreads();
-      for (int i = threadIdx.x; i < rows * TILE_N; i += THREADS) {
-        const int r = i / TILE_N, c = i % TILE_N, mtile = r / 8;
-        int acc = 0;
-        for (int q = 0; q < ks; ++q) acc += red[(mtile + q * mt) * RED + (r % 8) * TILE_N + c];
-        const int n = n0 + c;
-        const size_t o = static_cast<size_t>(r0 + r) * a.N + n;
-        float y = epilogue(acc, a.alpha[n], a.beta, n);
-        if (a.residual) y = __fadd_rn(y, a.residual[o]);
-        a.out[o] = y;
-      }
-      __syncthreads();
-    }
-  }
-}
-
-// Blocks for `tiles` units of work: at most `per_sm` per SM, spread evenly.
-inline int balanced_grid(int tiles, int sms, int per_sm) {
-  const int cap = std::max(1, sms * per_sm);
-  const int per_block = (tiles + cap - 1) / cap;
-  return (tiles + per_block - 1) / per_block;
-}
-
 // Lets `kernel` take up to SMEM_LIMIT bytes of dynamic shared memory (the
 // default is 48 KB).
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(SMEM_LIMIT));
-}
-
-template <typename Kernel>
-cudaError_t launch_gemv(Kernel kernel, const GemvArgs& a, int sms, cudaStream_t st) {
-  const size_t smem = gemv_smem(a.rows_pass, a.K, a.gs);
-  cudaError_t err = allow_smem(kernel);
-  if (err != cudaSuccess) return err;
-  int per_sm = 0;  // blocks that fit on one SM, used up to 4
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, smem);
-  if (err != cudaSuccess) return err;
-  const int grid = balanced_grid(a.N / TILE_N, sms, std::max(1, std::min(per_sm, 4)));
-  kernel<<<grid, THREADS, smem, st>>>(a);
-  return cudaGetLastError();
 }
 
 // returned by an entry point that rejects its arguments (no CUDA error)

@@ -1,7 +1,8 @@
 // The fused decode GEMVs K4 (fused_norm_gemv_rp.cu) and K5
 // (fused_requant_gemv_rp.cu) and the two legs of the fused MLP K6
-// (fused_mlp_decode_rp.cu) on rowpair int4 weights, for Hopper (sm_90a), on
-// the main loop of the W4A8 GEMMs (w4a8_gemm_sm90.cuh):
+// (fused_mlp_decode_rp.cu) on rowpair int4 weights, and K12's norm and
+// requant entries on span weights (fused_gemv_span_sm90.cu), for Hopper
+// (sm_90a), on the main loop of the W4A8 GEMMs (w4a8_gemm_sm90.cuh):
 //
 //   out[m, n] = float(sum_k q[m, k] * w[k, n]) * alpha[n] (+ beta[n]) (+ res[m, n])
 //
@@ -9,9 +10,11 @@
 // codes the kernel makes itself (K4 and K6's gate|up leg: RMSNormQ of the
 // fp32 rows x; K5: requant of x; K6's down leg: the int8 h codes its first
 // leg wrote, copied) and w the int8 dequantisation (c4 - (z - 8)) * s of the
-// rowpair nibbles with the compact even/odd group plane rows
-// s_hi/s_lo/z_hi/z_lo (group g at (g odd ? lo : hi) + (g / 2) N), or, for
-// K6's down leg, with 8x-replicated scale and zero rows (group g at row 8g).
+// rowpair nibbles (K12: (c - z) * s of the span nibbles) with the compact
+// even/odd group plane rows s_hi/s_lo/z_hi/z_lo (group g at (g odd ? lo : hi)
+// + (g / 2) N), or, for K6's down leg, with 8x-replicated scale and zero rows
+// (group g at row 8g).  The body takes the order of k in its stages from a
+// Loader (FusedRowpair, FusedSpan below).
 // Each fp32 step of the epilogue is rounded on its own (__fmul_rn,
 // __fadd_rn), as the plain versions round.  K6's gate|up leg ends in
 // h = clip(round(SiLU(g) * u / down_scale)) instead: a block's 128 columns
@@ -24,11 +27,11 @@
 //   * the weights stream through K1's TMA ring: one producer thread keeps
 //     F_RING stages of 64 packed rows x 128 columns (128 logical k) in
 //     flight, each with the scale and zero rows of its two 64-k halves
-//     (RowpairLoader<1>, groupsize % 64 == 0) or four 32-k steps
-//     (RowpairLoader<2>, any groupsize % 32 == 0), signalled by mbarriers;
-//     two consumer warpgroups unpack their column pair straight into wgmma A
-//     fragments (addresses precomputed, RowpairLoader::frags_at) and release
-//     a stage as soon as its bytes are in registers; the products of one
+//     (QS = 1, groupsize % 64 == 0) or four 32-k steps (QS = 2, any
+//     groupsize % 32 == 0), signalled by mbarriers; two consumer warpgroups
+//     unpack their column pair straight into wgmma A fragments (addresses
+//     precomputed, the Loader's frags_at) and release a stage once the
+//     products of its last step are issued; the products of one
 //     32-k step run while the next step's fragments are built (two fragment
 //     sets, as K1);
 //   * the codes are the wgmma B operand.  Before its first product a block
@@ -273,6 +276,108 @@ __device__ __forceinline__ void make_codes(const FusedArgs& a, uint8_t* codes, f
   }
 }
 
+// ---- the order of k in a stage: the Loaders ------------------------------------
+//
+// A stage is 64 packed weight rows of 128 columns: 128 logical k, as two
+// halves h of two 32-k steps kk.  The body asks its Loader L for
+//   L::scale_group(st, q, a, gsm): the group of scale row q (of R = 2 QS) of
+//     stage st, whose plane row the producer brings;
+//   L::code_off<BM>(i, st, kk, h, a, kb, gsm): the byte offset in the codes
+//     of the 32 k of product (kk, h) of stage st, the block's i-th (their
+//     logical k less kb, the block's first, in boxes of 64 k);
+// gsm = gs_magic(a.gs) makes a division by the groupsize one multiply-high.
+//   L::offsets / L::frags_at: step kk's fragments of both halves, from the
+//     thread's rows (rows + T_ROWS t 128) and its precomputed offsets.
+
+// 0xFFFFFFFF / gs + 1: p / gs == umulhi(p, gs_magic(gs)) for p < 2^32 / gs
+__device__ __forceinline__ uint32_t gs_magic(int gs) {
+  return 0xFFFFFFFFu / static_cast<uint32_t>(gs) + 1;
+}
+
+// Rowpair bytes (K4-K6): stage st is logical k 128 st .. + 127 in order; half h
+// is k 128 st + 64 h .. + 63 (RowpairLoader).
+template <int QS_>
+struct FusedRowpair : RowpairLoader<QS_> {
+  static constexpr int QS = QS_, T_ROWS = 2, OFFS = 2;
+
+  static __device__ __forceinline__ int scale_group(int st, int q, const FusedArgs& a, uint32_t) {
+    return (128 * st + 64 / QS * q) / a.gs;
+  }
+  template <int BM>
+  static __device__ __forceinline__ int code_off(int i, int, int kk, int h, const FusedArgs&, int,
+                                                 uint32_t) {
+    return (2 * i + h) * BM * F_HB + 32 * kk;
+  }
+  static __device__ __forceinline__ void offsets(int cp, int t, uint32_t (&off)[OFFS]) {
+    RowpairLoader<QS>::pair_offsets(cp, t, off);
+  }
+};
+
+// Span bytes (K12): step kk of stage st is packed rows p = 64 st + 32 kk ..
+// + 31, rows r = p - t gs .. of span t = p / gs (a 32-row step lies inside
+// one span, as gs % 32 == 0).  Its high nibbles (half 0) are logical k
+// p + t gs .. + 31 of group 2t, its low nibbles (half 1) those k + gs of
+// group 2t + 1: plane row t of s_hi/z_hi and of s_lo/z_lo.  This is
+// ops/fused_decode.py span_stage_map, which the CPU tests hold against the
+// plain version's dequantisation.  QS 1 (groupsize % 64 == 0): both steps lie
+// in one span, scale row h; QS 2: scale row 2 kk + h.  A block's K range
+// holds whole spans (the plan splits K so), so every k of its stages lies in
+// it.  The fragments: rows 4t .. 4t + 3 and 16 + 4t .. + 3 of the step
+// (SpanLoader's, whose span_unpack they take), whose swizzle is that of row
+// 4t + d, d = 0..3.  (Lanes t and t + 2 read one 16-byte chunk of two rows,
+// a 2-way bank conflict; reading in an order rotated by t / 2 removed it
+// and moved no time on the card, so the reads stay plain.)  At small M the
+// offsets' arithmetic is not hidden behind the products: with QS 1 it is
+// done once a stage.
+template <int QS_>
+struct FusedSpan {
+  static constexpr int QS = QS_, T_ROWS = 4, OFFS = 4;
+  using Scales = typename RowpairLoader<QS>::Scales;
+
+  static __device__ __forceinline__ void scales(const uint8_t* scl, int cp, Scales& sc) {
+    RowpairLoader<QS>::scales(scl, cp, sc);
+  }
+  // the span of packed row p
+  static __device__ __forceinline__ int span_of(int p, uint32_t gsm) {
+    return static_cast<int>(__umulhi(static_cast<uint32_t>(p), gsm));
+  }
+  static __device__ __forceinline__ int scale_group(int st, int q, const FusedArgs&, uint32_t gsm) {
+    const int kk = QS == 1 ? 0 : q >> 1, h = QS == 1 ? q : q & 1;
+    return 2 * span_of(64 * st + 32 * kk, gsm) + h;
+  }
+  template <int BM>
+  static __device__ __forceinline__ int code_off(int, int st, int kk, int h, const FusedArgs& a,
+                                                 int kb, uint32_t gsm) {
+    if constexpr (QS == 1) {  // gs % 64 == 0: both steps in one span, runs 64-k aligned
+      const int p0 = 64 * st;
+      const int k0 = p0 + (span_of(p0, gsm) + h) * a.gs - kb;
+      return (k0 >> 6) * BM * F_HB + 32 * kk;
+    }
+    const int p = 64 * st + 32 * kk;
+    const int k = p + (span_of(p, gsm) + h) * a.gs - kb;
+    return (k >> 6) * BM * F_HB + (k & 63);
+  }
+  static __device__ __forceinline__ void offsets(int cp, int t, uint32_t (&off)[OFFS]) {
+#pragma unroll
+    for (int d = 0; d < 4; ++d) off[d] = (((cp >> 3) ^ ((4 * t + d) & 7)) << 4) | ((cp & 7) << 1);
+  }
+  static __device__ __forceinline__ void frags_at(const uint8_t* rows_t, const uint32_t (&off)[OFFS],
+                                                  const Scales& sc, int kk, Frags& a) {
+    uint32_t c[2][2];  // the column words of rows 4t.. and 16 + 4t..
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const uint8_t* b = rows_t + (32 * kk + 16 * u) * 128;
+      auto ld = [&](int d) { return *reinterpret_cast<const uint16_t*>(b + d * 128 + off[d]); };
+      const uint32_t t01 = __byte_perm(ld(0), ld(1), 0x5410);
+      const uint32_t t23 = __byte_perm(ld(2), ld(3), 0x5410);
+      c[u][0] = __byte_perm(t01, t23, 0x6420);
+      c[u][1] = __byte_perm(t01, t23, 0x7531);
+    }
+    const int r = QS == 1 ? 0 : 2 * kk;  // the scale rows of the high and the low plane
+    span_unpack(c[0], c[1], sc.s[r], sc.b[r], sc.s[r + 1], sc.b[r + 1], a);
+  }
+};
+
 // ---- the kernel body -----------------------------------------------------------
 
 __device__ __forceinline__ float fused_epilogue(int acc, const FusedArgs& a, int m, int n) {
@@ -322,16 +427,17 @@ __device__ __forceinline__ void frags_box64(const uint8_t* rows_t, uint32_t off,
 }
 
 // One block: 128 weight columns over the stages [sps blockIdx.y, + sps) of
-// K, all M rows, with QS scale rows per 64-k half (RowpairLoader<QS>): for
-// K4, K5 and K6's down leg the columns [128 blockIdx.x, + 128), for K6's
-// gate|up leg the gate columns [64 blockIdx.x, + 64) and the up columns F
-// + the same.  Each .cu wraps it in a named kernel.
-template <int MODE, int BM, int QS>
+// K, all M rows, with L::QS scale rows per 64-k half and the order of k of
+// the Loader L (FusedRowpair<QS> or FusedSpan<QS>): for K4, K5, K12 and K6's
+// down leg the columns [128 blockIdx.x, + 128), for K6's gate|up leg the
+// gate columns [64 blockIdx.x, + 64) and the up columns F + the same.  Each
+// .cu wraps it in a named kernel.
+template <int MODE, int BM, class L>
 __device__ __forceinline__ void fused_gemv_body(const CUtensorMap& tm_w, const CUtensorMap& tm_shi,
                                                 const CUtensorMap& tm_slo,
                                                 const CUtensorMap& tm_zhi,
                                                 const CUtensorMap& tm_zlo, const FusedArgs& a) {
-  using L = RowpairLoader<QS>;
+  constexpr int QS = L::QS;
   constexpr bool GU = MODE == F_GATE_UP;
   constexpr int R = 2 * QS;   // scale rows a stage
   constexpr int NA = BM / 2;  // accumulators a thread
@@ -348,6 +454,7 @@ __device__ __forceinline__ void fused_gemv_body(const CUtensorMap& tm_w, const C
   const int n0 = blockIdx.x * (GU ? BN / 2 : BN), n_up = a.N / 2 + n0;
   const int st0 = blockIdx.y * a.sps, n_it = min(a.nst - st0, a.sps);
   const int kb = 128 * st0, klen = 128 * n_it;  // this block's K range
+  const uint32_t gsm = gs_magic(a.gs);           // FusedSpan's division (FusedRowpair: unused)
   const ClusterPos c = cluster_pos();
 
   if (threadIdx.x == 0) {
@@ -370,7 +477,7 @@ __device__ __forceinline__ void fused_gemv_body(const CUtensorMap& tm_w, const C
       if constexpr (GU) tma_load_2d(base + GU_BOX, &tm_w, &full[s], n_up, 64 * st);
 #pragma unroll
       for (int q = 0; q < R; ++q) {
-        const int g = (128 * st + 128 / R * q) / a.gs;
+        const int g = L::scale_group(st, q, a, gsm);
         // compact plane rows, or (K6's down leg) row 8g of the replicated ones
         const int row = MODE == F_DOWN ? 8 * g : g >> 1;
         const CUtensorMap* ms = (g & 1) ? &tm_slo : &tm_shi;
@@ -410,11 +517,11 @@ __device__ __forceinline__ void fused_gemv_body(const CUtensorMap& tm_w, const C
   const int ct = threadIdx.x, wg = ct >> 7, warp = (ct >> 5) & 3, lane = ct & 31;
   const int t = lane & 3;
   const int cp = 32 * wg + 8 * warp + (lane >> 2);  // this thread's column pair of the block's 64
-  uint32_t off[2];
+  uint32_t off[L::OFFS];
   if constexpr (GU)
     off[0] = box64_offset(cp & 31, t);  // of its warpgroup's box: gate (0) or up (1)
   else
-    L::pair_offsets(cp, t, off);
+    L::offsets(cp, t, off);
   // the first product writes the accumulators (scale-d 0): no other
   // instruction defines them, which would make ptxas serialise the wgmmas
   int acc[NA];
@@ -432,20 +539,26 @@ __device__ __forceinline__ void fused_gemv_body(const CUtensorMap& tm_w, const C
       if constexpr (GU)
         frags_box64<QS>(rows + wg * GU_BOX + 2 * t * 64, off[0], sc, kk, fk[kk]);
       else
-        L::frags_at(rows + 2 * t * 128, off, sc, kk, fk[kk]);
-      // the stage's bytes are all in registers: release its slot
-      if (kk == 1 && lane == 0) mbar_arrive(&empty[s]);
+        L::frags_at(rows + L::T_ROWS * t * 128, off, sc, kk, fk[kk]);
 #pragma unroll
       for (int h = 0; h < 2; ++h) fence_regs(fk[kk][h]);
       fence_regs(acc);
       wgmma_fence();
 #pragma unroll
       for (int h = 0; h < 2; ++h)
-        Wgmma<BM>::mma(acc, fk[kk][h], gmma_desc(codes + (2 * i + h) * BM * F_HB + 32 * kk, F_HB),
+        Wgmma<BM>::mma(acc, fk[kk][h],
+                       gmma_desc(codes + L::template code_off<BM>(i, st0 + i, kk, h, a, kb, gsm),
+                                 F_HB),
                        (i | kk | h) != 0);
       wgmma_commit();
       wgmma_wait<1>();  // the step before is done: its fragment set is free
       fence_regs(acc);
+      // the stage's last products are issued, so the loads that built their
+      // fragments have returned: release its slot.  (Released right after
+      // the fragments were built, ptxas issued the arrive with the generic
+      // loads still in flight, and a load queued behind another block's
+      // global loads could return the bytes of the stage refilled over it.)
+      if (kk == 1 && lane == 0) mbar_arrive(&empty[s]);
     }
   }
   wgmma_wait<0>();
@@ -454,6 +567,9 @@ __device__ __forceinline__ void fused_gemv_body(const CUtensorMap& tm_w, const C
   // ---- epilogue: accumulator e is column 2 cp + ((e >> 1) & 1) and token row
   // 8 (e >> 2) + 2t + (e & 1); a K split leaves int32 partials ----
   if constexpr (GU) {
+    // a tile past F, which rounds the grid up to whole clusters, writes
+    // nothing (its gate box holds up columns)
+    if (n0 >= a.N / 2) return;
     // column f = n0 + 2 (cp % 32) (+ 1) of the gate half (warpgroup 0) or of
     // the up half (warpgroup 1); the same thread of each holds the same f
     const int f = n0 + 2 * (cp & 31);

@@ -44,7 +44,7 @@ mlp_gate_up_rp_sm90(const __grid_constant__ CUtensorMap tm_w,
                     const __grid_constant__ CUtensorMap tm_zhi,
                     const __grid_constant__ CUtensorMap tm_zlo,
                     const __grid_constant__ FusedArgs a) {
-  fused_gemv_body<F_GATE_UP, BM, QS>(tm_w, tm_shi, tm_slo, tm_zhi, tm_zlo, a);
+  fused_gemv_body<F_GATE_UP, BM, FusedRowpair<QS>>(tm_w, tm_shi, tm_slo, tm_zhi, tm_zlo, a);
 }
 
 __global__ void mlp_gate_up_rp_combine(const FusedArgs a, int splits) {
@@ -59,7 +59,7 @@ mlp_down_rp_sm90(const __grid_constant__ CUtensorMap tm_w,
                  const __grid_constant__ CUtensorMap tm_zhi,
                  const __grid_constant__ CUtensorMap tm_zlo,
                  const __grid_constant__ FusedArgs a) {
-  fused_gemv_body<F_DOWN, BM, QS>(tm_w, tm_shi, tm_slo, tm_zhi, tm_zlo, a);
+  fused_gemv_body<F_DOWN, BM, FusedRowpair<QS>>(tm_w, tm_shi, tm_slo, tm_zhi, tm_zlo, a);
 }
 
 __global__ void mlp_down_rp_combine(const FusedArgs a, int splits) {

@@ -29,7 +29,7 @@ requant_gemv_rp_sm90(const __grid_constant__ CUtensorMap tm_w,
                      const __grid_constant__ CUtensorMap tm_zhi,
                      const __grid_constant__ CUtensorMap tm_zlo,
                      const __grid_constant__ FusedArgs a) {
-  fused_gemv_body<F_REQUANT, BM, QS>(tm_w, tm_shi, tm_slo, tm_zhi, tm_zlo, a);
+  fused_gemv_body<F_REQUANT, BM, FusedRowpair<QS>>(tm_w, tm_shi, tm_slo, tm_zhi, tm_zlo, a);
 }
 
 __global__ void requant_gemv_rp_combine(const FusedArgs a, int splits) {

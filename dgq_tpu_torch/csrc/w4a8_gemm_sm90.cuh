@@ -1,8 +1,9 @@
 // The main loop shared by the W4A8 GEMMs K1 (w4a8_rp_gemm.cu), K9 and K10
 // (w4a8_span_gemm.cu) and by the probe P1 (s8_gemm.cu), for Hopper (sm_90a).
-// The fused decode kernels K4-K6 (fused_gemv_sm90.cuh) run its TMA ring,
-// wgmma wrappers, rowpair loader and descriptor cache in a kernel of their
-// own, with codes they make in shared memory as the B operand; the prefill
+// The fused decode kernels K4-K6 and K12's norm and requant entries
+// (fused_gemv_sm90.cuh) run its TMA ring, wgmma wrappers, rowpair loader (K12:
+// the span unpack) and descriptor cache in a kernel of their own, with codes
+// they make in shared memory as the B operand; the prefill
 // attention K2 (int8_prefill_attention.cu) takes its TMA, mbarrier and wgmma
 // helpers.
 //
@@ -458,6 +459,69 @@ struct RowpairLoader {
     uint32_t off[2];
     pair_offsets(cp, t, off);
     frags_at(rows + 2 * t * 128, off, sc, kk, a);
+  }
+};
+
+// ---- the span loader (K9; K12's norm and requant entries take its unpack) ----------
+
+// The span unpack: the column words of one 32-row step of span bytes, rows 4t
+// .. 4t + 3 (c0) and 16 + 4t .. + 3 (c16), -> the fragments of both planes:
+// half 0 from the high nibbles with scale (s_hi, b_hi), half 1 from the low
+// nibbles with (s_lo, b_lo), each per column of the pair.
+__device__ __forceinline__ void span_unpack(const uint32_t (&c0)[2], const uint32_t (&c16)[2],
+                                            const uint32_t (&s_hi)[2], const uint32_t (&b_hi)[2],
+                                            const uint32_t (&s_lo)[2], const uint32_t (&b_lo)[2],
+                                            Frags& a) {
+  constexpr uint32_t M4 = 0x000F000F;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    put_col(a[0], j, deq4((c0[j] >> 4) & M4, (c0[j] >> 12) & M4, s_hi[j], b_hi[j]),
+            deq4((c16[j] >> 4) & M4, (c16[j] >> 12) & M4, s_hi[j], b_hi[j]));
+    put_col(a[1], j, deq4(c0[j] & M4, (c0[j] >> 8) & M4, s_lo[j], b_lo[j]),
+            deq4(c16[j] & M4, (c16[j] >> 8) & M4, s_lo[j], b_lo[j]));
+  }
+}
+
+// Span layout, span = 2 * gs: packed row p = t * gs + r (span t, row r of its
+// gs packed rows) holds in its high nibble the code of logical row
+// t * span + r (group 2t) and in its low nibble the code of logical row
+// t * span + gs + r (group 2t + 1).  Codes are unsigned 0..15 and the zeros
+// are not shifted (the rowpair layout of K1 stores c - 8).
+//
+// K9's stage st: packed rows PR st .. PR st + PR - 1, inside span t at row
+// r0 (PR = 64 when groupsize % 64 == 0, else 32: a stage lies inside one
+// span).  Half 0 is the high plane, x's k 2 t gs + r0 .. + PR - 1 (group
+// 2t); half 1 the low plane, gs further (group 2t + 1).  The 32-k step kk of
+// both halves is packed rows 32 kk .. + 31, and a thread's k 4t .. 4t + 3
+// and 16 + 4t .. + 3 are rows 32 kk + 4t .. and 32 kk + 16 + 4t ..: two
+// permutes of 4 rows give both planes' fragment words of each column.
+template <int PR>
+struct SpanLoader {
+  static constexpr int HB = PR, SRC_ROWS = PR;
+  static constexpr bool SCALED = true, FP = false;
+  struct Scales {
+    uint32_t s[2][2], b[2][2];  // per plane, per column of the pair
+  };
+
+  static __device__ __forceinline__ int x_k(const GemmArgs& a, int st, int h) {
+    const int p0 = PR * st, t = p0 / a.gs;
+    return 2 * t * a.gs + (p0 - t * a.gs) + h * a.gs;
+  }
+  static __device__ __forceinline__ int group(const GemmArgs& a, int st, int h) {
+    return 2 * (PR * st / a.gs) + h;
+  }
+
+  static __device__ __forceinline__ void scales(const uint8_t* scl, int cp, Scales& sc) {
+    col_scales(scl, 0, cp, sc.s[0], sc.b[0]);
+    col_scales(scl, 1, cp, sc.s[1], sc.b[1]);
+  }
+
+  static __device__ __forceinline__ void frags(const uint8_t* rows, const Scales& sc, int cp, int t,
+                                               int kk, Frags& a) {
+    uint32_t c0[2], c16[2];
+    quad(rows, cp, 32 * kk + 4 * t, 1, 2, 3, c0);
+    quad(rows, cp, 32 * kk + 16 + 4 * t, 1, 2, 3, c16);
+    span_unpack(c0, c16, sc.s[0], sc.b[0], sc.s[1], sc.b[1], a);
   }
 };
 

@@ -6,11 +6,8 @@
 //       (dequantise once per weight block; dequantise one block ahead);
 //   K10 w4a8_fpscale_matmul_packed (body _fpscale_kernel).
 //
-// Span layout, span = 2 * gs: packed row p = t * gs + r (span t, row r of its
-// gs packed rows) holds in its high nibble the code of logical row
-// t * span + r (group 2t) and in its low nibble the code of logical row
-// t * span + gs + r (group 2t + 1).  Codes are unsigned 0..15 and the zeros
-// are not shifted (the rowpair layout of K1 stores c - 8).
+// The span layout (span = 2 * gs, unsigned codes, zeros not shifted) is
+// described beside SpanLoader in w4a8_gemm_sm90.cuh.
 //
 // K9:  acc[m, n] = sum_k x[m, k] * w[k, n] in exact int32, w the int8
 //      dequantisation (c - z) * s with int8 group scale s and zero z; then
@@ -18,7 +15,7 @@
 //      contraction), stored as f32 or rounded half to even (__float2int_rn, as
 //      torch.round) and clamped to int8.  Bit-equal to the plain version.
 //      The main loop is w4a8_gemm_sm90.cuh's (TMA ring, wgmma with the weights
-//      as register fragments, the K split); SpanLoader below turns a stage of
+//      as register fragments, the K split); its SpanLoader turns a stage of
 //      PR packed rows into two halves of PR logical k: the high plane (one
 //      group) and the low plane (the next), each with its own x box, gs rows
 //      apart in x.  int32 sums do not depend on the order of k, so the
@@ -56,50 +53,7 @@
 
 namespace {
 
-// ---- K9 ----------------------------------------------------------------------
-
-// Stage st: packed rows PR st .. + PR - 1, inside span t at row r0.  Half 0
-// is the high plane, x's k 2 t gs + r0 .. + PR - 1 (group 2t); half 1 the low
-// plane, gs further (group 2t + 1).  The 32-k step kk of both halves is packed
-// rows 32 kk .. + 31, and a thread's k 4t .. 4t + 3 and 16 + 4t .. + 3 are
-// rows 32 kk + 4t .. and 32 kk + 16 + 4t ..: two permutes of 4 rows give
-// both planes' fragment words of each column.
-template <int PR>
-struct SpanLoader {
-  static constexpr int HB = PR, SRC_ROWS = PR;
-  static constexpr bool SCALED = true, FP = false;
-  struct Scales {
-    uint32_t s[2][2], b[2][2];  // per plane, per column of the pair
-  };
-
-  static __device__ __forceinline__ int x_k(const GemmArgs& a, int st, int h) {
-    const int p0 = PR * st, t = p0 / a.gs;
-    return 2 * t * a.gs + (p0 - t * a.gs) + h * a.gs;
-  }
-  static __device__ __forceinline__ int group(const GemmArgs& a, int st, int h) {
-    return 2 * (PR * st / a.gs) + h;
-  }
-
-  static __device__ __forceinline__ void scales(const uint8_t* scl, int cp, Scales& sc) {
-    col_scales(scl, 0, cp, sc.s[0], sc.b[0]);
-    col_scales(scl, 1, cp, sc.s[1], sc.b[1]);
-  }
-
-  static __device__ __forceinline__ void frags(const uint8_t* rows, const Scales& sc, int cp, int t,
-                                               int kk, Frags& a) {
-    constexpr uint32_t M4 = 0x000F000F;
-    uint32_t c0[2], c16[2];
-    quad(rows, cp, 32 * kk + 4 * t, 1, 2, 3, c0);
-    quad(rows, cp, 32 * kk + 16 + 4 * t, 1, 2, 3, c16);
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      put_col(a[0], j, deq4((c0[j] >> 4) & M4, (c0[j] >> 12) & M4, sc.s[0][j], sc.b[0][j]),
-              deq4((c16[j] >> 4) & M4, (c16[j] >> 12) & M4, sc.s[0][j], sc.b[0][j]));
-      put_col(a[1], j, deq4(c0[j] & M4, (c0[j] >> 8) & M4, sc.s[1][j], sc.b[1][j]),
-              deq4(c16[j] & M4, (c16[j] >> 8) & M4, sc.s[1][j], sc.b[1][j]));
-    }
-  }
-};
+// ---- K9: SpanLoader (w4a8_gemm_sm90.cuh, beside the rowpair loader) -----------
 
 template <int PR, int OUT>
 int launch_span(const void* x, const void* qw, int K, const GemmArgs& a, int tile, int splits,

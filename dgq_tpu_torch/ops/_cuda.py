@@ -36,10 +36,11 @@ SOURCES = {
     "fused_norm_gemv_rp": "fused_norm_gemv_rp",
     "fused_requant_gemv_rp": "fused_requant_gemv_rp",
     "fused_mlp_decode_rp": "fused_mlp_decode_rp",
-    # K12 (which also serves K13's names): the three fused decode entry points
-    # on span weights, one source
-    "fused_norm_gemv": "fused_decode_span",
-    "fused_requant_gemv": "fused_decode_span",
+    # K12 (which also serves K13's names): the fused decode entry points on
+    # span weights, the norm and requant ones on K4's and K5's TMA + wgmma
+    # loop (one source), the MLP its own
+    "fused_norm_gemv": "fused_gemv_span_sm90",
+    "fused_requant_gemv": "fused_gemv_span_sm90",
     "fused_mlp_decode": "fused_decode_span",
     # K7, K8 and K11: one block body, dense or paged addressing, INT8 or nibble codes
     "int8_decode_attention_chunked": "int8_chunked_decode_attention",

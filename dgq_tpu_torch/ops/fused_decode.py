@@ -9,9 +9,12 @@ kernels ``fused_norm_gemv_rp`` (K4, ``csrc/fused_norm_gemv_rp.cu``),
 ``fused_mlp_decode_rp`` (K6, ``csrc/fused_mlp_decode_rp.cu``: two legs, the
 gate|up product with its SiLU codes and the down product; all three on the
 TMA + wgmma loop of ``csrc/fused_gemv_sm90.cuh``, tiled by ``fused_plan``
-and, for K6's legs, ``mlp_plan``) and
-``fused_norm_gemv``, ``fused_requant_gemv``, ``fused_mlp_decode`` (K12, one
-source ``csrc/fused_decode_span.cu``).  Each plain version (``*_xla``) makes
+and, for K6's legs, ``mlp_plan``) and ``fused_norm_gemv``,
+``fused_requant_gemv`` (K12's norm and requant entries,
+``csrc/fused_gemv_span_sm90.cu``: K4's and K5's loop on span bytes, tiled by
+``fused_plan`` with ``layout="span"``; ``span_stage_map`` is its order of
+k), ``fused_mlp_decode`` (K12's MLP entry, ``csrc/fused_decode_span.cu``).
+Each plain version (``*_xla``) makes
 its int8 codes, takes the exact int32 product with the weights dequantised
 to int8 (``(c4 - (z - 8)) * s`` rowpair, ``(c - z) * s`` span) and applies
 the fp32 epilogue; CPU tensors take it, CUDA tensors launch the kernel.
@@ -30,6 +33,7 @@ path's pack-time constant, is checked but not read.
 from __future__ import annotations
 
 import functools
+import math
 from typing import NamedTuple, Optional, Sequence
 
 import torch
@@ -42,16 +46,13 @@ Tensor = torch.Tensor
 NORM, REQUANT, MLP = "fused_norm_gemv_rp", "fused_requant_gemv_rp", "fused_mlp_decode_rp"
 NORM_SPAN, REQUANT_SPAN, MLP_SPAN = "fused_norm_gemv", "fused_requant_gemv", "fused_mlp_decode"
 _VP, _INT, _F32 = _cuda.VP, _cuda.INT, _cuda.F32
-# x, lnw, lnb, eps, qw, s_hi, s_lo, z_hi, z_lo, alpha, beta, out, codes_out,
-# M, N, K, gs, sms, stream
-_NORM_ARGS = [_VP] * 3 + [_F32] + [_VP] * 9 + [_INT] * 5 + [_VP]
-# x, in_scale, qmin, qw, s_hi, s_lo, z_hi, z_lo, alpha, beta, residual, out,
-# codes_out, M, N, K, gs, sms, stream
-_REQUANT_ARGS = [_VP] * 2 + [_F32] + [_VP] * 10 + [_INT] * 5 + [_VP]
-# K4 and K5: as K12's first two up to gs, then the plan (bm, splits, sps,
+# K4 and K12's norm entry: x, lnw, lnb, eps, qw, s_hi, s_lo, z_hi, z_lo,
+# alpha, beta, out, codes_out, M, N, K, gs, the plan (bm, splits, sps,
 # cluster), the int32 partials of a K split and the stream
-_NORM_RP_ARGS = [_VP] * 3 + [_F32] + [_VP] * 9 + [_INT] * 8 + [_VP] * 2
-_REQUANT_RP_ARGS = [_VP] * 2 + [_F32] + [_VP] * 10 + [_INT] * 8 + [_VP] * 2
+_NORM_ARGS = [_VP] * 3 + [_F32] + [_VP] * 9 + [_INT] * 8 + [_VP] * 2
+# K5 and K12's requant entry: x, in_scale, qmin, qw, s_hi, s_lo, z_hi, z_lo,
+# alpha, beta, residual, out, codes_out, then as the norm's from M
+_REQUANT_ARGS = [_VP] * 2 + [_F32] + [_VP] * 10 + [_INT] * 8 + [_VP] * 2
 # x, lnw, lnb, eps, down_scale, gu_qw, gu_s_hi, gu_s_lo, gu_z_hi, gu_z_lo,
 # gu_alpha, d_qw, d_ws, d_wz, d_alpha, d_beta, fuse_residual, acc, out,
 # xq_out, h_out, M, D, F, gs, sms, stream (K12's MLP)
@@ -61,13 +62,20 @@ _MLP_ARGS = [_VP] * 3 + [_F32] + [_VP] * 12 + [_INT] + [_VP] * 4 + [_INT] * 5 + 
 # the stream
 _MLP_RP_ARGS = ([_VP] * 3 + [_F32] + [_VP] * 12 + [_INT] + [_VP] * 3 + [_INT] * 4
                 + ([_INT] * 4 + [_VP]) * 2 + [_VP])
+# the C entry points of each source (a library's argtypes are set when it loads)
 _SIGNATURES = {
-    NORM: {NORM: _NORM_RP_ARGS},
-    REQUANT: {REQUANT: _REQUANT_RP_ARGS},
-    MLP: {MLP: _MLP_RP_ARGS},
-    # K12: one library, three entry points
-    "span": {NORM_SPAN: _NORM_ARGS, REQUANT_SPAN: _REQUANT_ARGS, MLP_SPAN: _MLP_ARGS},
+    "fused_norm_gemv_rp": {NORM: _NORM_ARGS},
+    "fused_requant_gemv_rp": {REQUANT: _REQUANT_ARGS},
+    "fused_mlp_decode_rp": {MLP: _MLP_RP_ARGS},
+    "fused_gemv_span_sm90": {NORM_SPAN: _NORM_ARGS, REQUANT_SPAN: _REQUANT_ARGS},
+    "fused_decode_span": {MLP_SPAN: _MLP_ARGS},
 }
+
+
+def _lib(name: str):
+    """The loaded library of kernel ``name``, its entry points typed."""
+    stem = _cuda.SOURCES[name]
+    return _cuda.library(stem, _SIGNATURES[stem])
 
 
 def _stacked(a: torch.Tensor, trailing: int) -> torch.Tensor:
@@ -287,10 +295,11 @@ def _require_scalar(t: Tensor, name: str, dev) -> None:
         raise ValueError(f"{name}: expected one float32 value, got shape {tuple(t.shape)}")
 
 
-# K4 and K5 run on the main loop of the W4A8 GEMMs (csrc/fused_gemv_sm90.cuh):
-# a block owns FUSED_BN weight columns and one tile of bm token rows, streams
-# its K range in stages of FUSED_STAGE_K logical k through a ring of
-# FUSED_RING stages and keeps the codes of its K range in shared memory.
+# K4, K5 and K12's norm and requant entries run on the main loop of the W4A8
+# GEMMs (csrc/fused_gemv_sm90.cuh): a block owns FUSED_BN weight columns and
+# one tile of bm token rows, streams its K range in stages of FUSED_STAGE_K
+# logical k (64 packed rows) through a ring of FUSED_RING stages and keeps
+# the codes of its K range in shared memory.
 FUSED_TILES = (8, 16, 32, 48, 64)  # token-row tiles (wgmma N)
 FUSED_BN, FUSED_STAGE_K, FUSED_RING = 128, 128, 4
 FUSED_STAGE_BYTES = 64 * 128 + 8 * 128  # packed weight rows; four 32-k steps' scale and zero rows
@@ -304,16 +313,17 @@ FUSED_SPLITS = (1, 2, 4, 8, 16)
 # code-making loads (4 a thread); each block a cluster adds; the kernel that
 # sums the splits
 _FILL, _NORM_BATCH, _CODE_BATCH, _CLUSTER_BLOCK, _COMBINE = 6, 2, 2, 1, 3
+LAYOUTS = ("rowpair", "span")  # the packed bytes: K4 and K5's, K12's
 
 
 class FusedPlan(NamedTuple):
-    """How K4 or K5 runs an (M, N, K) call: ``bm`` token rows (one tile for
-    all M rows) by ``bn`` weight columns a block; clusters of ``cluster``
-    column tiles, which share their codes; K in ``stages`` stages of
-    ``stage_k``, split into ``splits`` ranges of ``sps`` whole stages (the
-    last may be shorter), whose int32 partials a second kernel sums;
-    ``smem`` bytes of dynamic shared memory a block, ``per_sm`` blocks an
-    SM."""
+    """How K4, K5 or K12's norm or requant entry runs an (M, N, K) call:
+    ``bm`` token rows (one tile for all M rows) by ``bn`` weight columns a
+    block; clusters of ``cluster`` column tiles, which share their codes; K
+    in ``stages`` stages of ``stage_k``, split into ``splits`` ranges of
+    ``sps`` whole stages (the last may be shorter), whose int32 partials a
+    second kernel sums; ``smem`` bytes of dynamic shared memory a block,
+    ``per_sm`` blocks an SM."""
     bm: int
     bn: int
     cluster: int
@@ -331,8 +341,8 @@ class FusedPlan(NamedTuple):
 
 
 def fused_smem(bm: int, sps: int) -> int:
-    """A K4/K5 block's dynamic shared memory: the codes of its K range, the
-    ring, its barriers, K4's row scales and 1 KB of alignment slack
+    """A K4/K5/K12 block's dynamic shared memory: the codes of its K range,
+    the ring, its barriers, K4's row scales and 1 KB of alignment slack
     (``fused_smem`` in csrc/fused_gemv_sm90.cuh)."""
     return (bm * FUSED_STAGE_K * sps + FUSED_RING * FUSED_STAGE_BYTES + 16 * FUSED_RING + 256
             + 1024)
@@ -347,15 +357,46 @@ def _prologue(m: int, k: int, cluster: int, sps: int, norm: bool) -> float:
     return cost + _CODE_BATCH * -(-rows * sps * FUSED_STAGE_K // 4 // 1024)
 
 
-def fused_candidates(m: int, n: int, k: int, groupsize: int) -> list:
-    """Every plan K4 and K5 can run an (m, n, k) call with at this group
-    size: the smallest of FUSED_TILES that holds all m rows, under each
-    cluster of FUSED_CLUSTERS and K split of FUSED_SPLITS whose shared
-    memory fits (splits that give the same stages once), in that order."""
+def split_unit(groupsize: int, layout: str = "rowpair") -> int:
+    """The stages a K split's length is a multiple of: 1 for rowpair bytes;
+    for span bytes the fewest stages (64 packed rows each) that hold whole
+    spans (``groupsize`` packed rows), since a stage's two nibble planes lie
+    ``groupsize`` apart in K and a block makes the codes of its own K range
+    only."""
+    if layout not in LAYOUTS:
+        raise ValueError(f"layout {layout!r} is none of {LAYOUTS}")
+    return 1 if layout == "rowpair" else groupsize // math.gcd(groupsize, 64)
+
+
+def span_stage_map(st: int, groupsize: int) -> dict:
+    """K12's order of k in stage ``st`` of span bytes (64 packed rows, 128
+    logical k), as ``FusedSpan`` in csrc/fused_gemv_sm90.cuh computes it:
+    ``{(kk, h): (k, group, plane_row)}`` for the 32-row step kk (packed rows
+    p = 64 st + 32 kk .. + 31, of span t = p // groupsize) and the nibble
+    half h (0 high, 1 low): the first of its 32 consecutive logical k, their
+    group and that group's row in the compact planes (``s_hi``/``z_hi`` for
+    h = 0, ``s_lo``/``z_lo`` for h = 1)."""
+    out = {}
+    for kk in (0, 1):
+        p = 64 * st + 32 * kk
+        t = p // groupsize
+        for h in (0, 1):
+            out[(kk, h)] = (p + (t + h) * groupsize, 2 * t + h, t)
+    return out
+
+
+def fused_candidates(m: int, n: int, k: int, groupsize: int, layout: str = "rowpair") -> list:
+    """Every plan K4 and K5 (``layout="rowpair"``) or K12's norm and requant
+    entries (``"span"``) can run an (m, n, k) call with at this group size:
+    the smallest of FUSED_TILES that holds all m rows, under each cluster of
+    FUSED_CLUSTERS and K split of FUSED_SPLITS whose shared memory fits, its
+    length rounded up to ``split_unit`` stages (splits that give the same
+    stages once), in that order."""
+    unit = split_unit(groupsize, layout)
     if not 1 <= m <= FUSED_TILES[-1]:
         raise ValueError(f"the fused decode kernels take 1 to {FUSED_TILES[-1]} rows, got {m}")
     if n % 32 or k % FUSED_STAGE_K or groupsize % 32 or k % (2 * groupsize):
-        raise ValueError(f"K4/K5 need N % 32 == 0, K % 128 == 0 and a groupsize % 32 == 0 "
+        raise ValueError(f"K4/K5/K12 need N % 32 == 0, K % 128 == 0 and a groupsize % 32 == 0 "
                          f"that divides K / 2; got N={n}, K={k}, groupsize={groupsize}")
     bm = next(t for t in FUSED_TILES if t >= m)
     stages = k // FUSED_STAGE_K
@@ -363,6 +404,7 @@ def fused_candidates(m: int, n: int, k: int, groupsize: int) -> list:
     for cx in FUSED_CLUSTERS:
         for s in FUSED_SPLITS:
             sps = -(-stages // s)
+            sps = -(-sps // unit) * unit
             smem = fused_smem(bm, sps)
             if smem > SMEM_LIMIT:
                 continue
@@ -372,7 +414,7 @@ def fused_candidates(m: int, n: int, k: int, groupsize: int) -> list:
             if plan not in plans:
                 plans.append(plan)
     if not plans:
-        raise ValueError(f"K4/K5: no K split of K={k} fits {m} rows in shared memory")
+        raise ValueError(f"K4/K5/K12: no K split of K={k} fits {m} rows in shared memory")
     return plans
 
 
@@ -390,11 +432,14 @@ def _plan_cost(plan: FusedPlan, m: int, n: int, k: int, sms: int, norm: bool) ->
 
 
 @functools.lru_cache(maxsize=4096)
-def fused_plan(m: int, n: int, k: int, groupsize: int, sms: int, norm: bool = True) -> FusedPlan:
-    """The tile, cluster and K split of K4 (``norm``) or K5 for an (m, n, k)
-    call with this group size on a card with ``sms`` SMs: of
-    ``fused_candidates``, the first of least ``_plan_cost``."""
-    return min(fused_candidates(m, n, k, groupsize),
+def fused_plan(m: int, n: int, k: int, groupsize: int, sms: int, norm: bool = True,
+               layout: str = "rowpair") -> FusedPlan:
+    """The tile, cluster and K split of K4 (``norm``) or K5, or on span
+    bytes (``layout="span"``) of K12's norm or requant entry, for an (m, n,
+    k) call with this group size on a card with ``sms`` SMs: of
+    ``fused_candidates``, the first of least ``_plan_cost`` (one cost model:
+    both layouts stream the same bytes a stage)."""
+    return min(fused_candidates(m, n, k, groupsize, layout),
                key=lambda p: _plan_cost(p, m, n, k, sms, norm))
 
 
@@ -414,15 +459,15 @@ def _split_scratch(plan: FusedPlan, m: int, n: int, dev) -> Optional[Tensor]:
             if plan.splits > 1 else None)
 
 
-def launch_rowpair(name: str, plan: FusedPlan, args_head, m: int, n: int, k: int, gs: int,
-                   dev) -> None:
-    """Launch K4 or K5 (``name``) with ``plan``: the C entry point's
-    arguments up to ``codes_out`` (``args_head``), then the shapes, the plan
-    and the int32 scratch of a K split."""
+def launch_gemv(name: str, plan: FusedPlan, args_head, m: int, n: int, k: int, gs: int,
+                dev) -> None:
+    """Launch K4, K5 or K12's norm or requant entry (``name``) with
+    ``plan``: the C entry point's arguments up to ``codes_out``
+    (``args_head``), then the shapes, the plan and the int32 scratch of a K
+    split."""
     part = _split_scratch(plan, m, n, dev)
-    lib = _cuda.library(_cuda.SOURCES[name], _SIGNATURES[name])
-    rc = getattr(lib, name)(*args_head, m, n, k, gs, plan.bm, plan.splits, plan.sps,
-                            plan.cluster, _cuda.ptr(part), _cuda.stream(dev))
+    rc = getattr(_lib(name), name)(*args_head, m, n, k, gs, plan.bm, plan.splits, plan.sps,
+                                   plan.cluster, _cuda.ptr(part), _cuda.stream(dev))
     _cuda.check(rc, name)
 
 
@@ -433,8 +478,7 @@ def launch_mlp_rp(plans, args_head, m: int, d: int, f: int, gs: int, dev) -> Non
     gate_up, down = plans
     part_gu = _split_scratch(gate_up, m, 2 * f, dev)
     part_d = _split_scratch(down, m, d, dev)
-    lib = _cuda.library(_cuda.SOURCES[MLP], _SIGNATURES[MLP])
-    rc = lib.fused_mlp_decode_rp(
+    rc = _lib(MLP).fused_mlp_decode_rp(
         *args_head, m, d, f, gs, gate_up.bm, gate_up.splits, gate_up.sps, gate_up.cluster,
         _cuda.ptr(part_gu), down.bm, down.splits, down.sps, down.cluster, _cuda.ptr(part_d),
         _cuda.stream(dev))
@@ -473,7 +517,7 @@ def fused_norm_gemv_rp(x: Tensor, ln_w: Tensor, ln_b: Optional[Tensor], qw_rp: T
         _cuda.require(codes_out, "codes_out", torch.int8, (m, k), dev, align=4)
     plan = fused_plan(m, n, k, gs, _sms(dev), True)
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
-    launch_rowpair(NORM, plan, (
+    launch_gemv(NORM, plan, (
         _cuda.ptr(x), _cuda.ptr(ln_w), _cuda.ptr(ln_b), float(eps), _cuda.ptr(qw_rp),
         _cuda.ptr(s_hi), _cuda.ptr(s_lo), _cuda.ptr(z_hi), _cuda.ptr(z_lo), _cuda.ptr(alpha),
         _cuda.ptr(beta), _cuda.ptr(out), _cuda.ptr(codes_out)), m, n, k, gs, dev)
@@ -513,7 +557,7 @@ def fused_requant_gemv_rp(x: Tensor, in_scale: Tensor, qw_rp: Tensor, s_hi: Tens
         _cuda.require(codes_out, "codes_out", torch.int8, (m, k), dev, align=4)
     plan = fused_plan(m, n, k, gs, _sms(dev), False)
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
-    launch_rowpair(REQUANT, plan, (
+    launch_gemv(REQUANT, plan, (
         _cuda.ptr(x), _cuda.ptr(in_scale), float(qmin), _cuda.ptr(qw_rp), _cuda.ptr(s_hi),
         _cuda.ptr(s_lo), _cuda.ptr(z_hi), _cuda.ptr(z_lo), _cuda.ptr(alpha), _cuda.ptr(beta),
         _cuda.ptr(res), _cuda.ptr(out), _cuda.ptr(codes_out)), m, n, k, gs, dev)
@@ -669,22 +713,21 @@ def fused_mlp_decode_xla(x, ln_w, ln_b, gu_qweight, gu_s_hi, gu_s_lo, gu_z_hi, g
     return _epilogue(acc, d_alpha, d_beta, x if fuse_residual else None)
 
 
-def _span_lib():
-    return _cuda.library(_cuda.SOURCES[NORM_SPAN], _SIGNATURES["span"])
-
-
 def fused_norm_gemv(x: Tensor, ln_w: Tensor, ln_b: Optional[Tensor], qweight: Tensor,
                     s_hi: Tensor, s_lo: Tensor, z_hi: Tensor, z_lo: Tensor, alpha: Tensor,
                     beta: Optional[Tensor] = None, *, span: int = 256, bn: int = 512,
                     eps: float = 1e-6, codes_out: Optional[Tensor] = None) -> Tensor:
-    """K12: y = (RMSNormQ(x) @ dequant(W)) * alpha + beta in one launch, on
+    """K12: y = (RMSNormQ(x) @ dequant(W)) * alpha + beta in one call, on
     span weights.
 
     x (M, K) f32 with 1 <= M <= 64; qweight (K//2, N) span bytes (span = 2 *
     groupsize); s_*/z_* the compact (K // span, N) even/odd group plane rows;
-    ``bn`` is the TPU column block and is not used.  ``codes_out`` (M, K)
-    int8, when given, receives the RMSNormQ codes.  CPU tensors take the
-    plain version."""
+    ``bn`` is the TPU column block and is not used: the CUDA kernel is K4's
+    on span bytes, tiled by ``fused_plan(..., layout="span")``.
+    ``codes_out`` (M, K) int8, when given, receives the RMSNormQ codes.  CPU
+    tensors take the plain version; on the card the call is one launch of
+    the kernel and, when K is split, one of the kernel that sums the
+    splits."""
     m, k, n, gs = _check_span_shapes(x, qweight, s_hi, span)
     if x.device.type == "cpu":
         return fused_norm_gemv_xla(x, ln_w, ln_b, qweight, s_hi, s_lo, z_hi, z_lo, alpha, beta,
@@ -694,17 +737,16 @@ def fused_norm_gemv(x: Tensor, ln_w: Tensor, ln_b: Optional[Tensor], qweight: Te
     _cuda.require(ln_w, "ln_w", torch.float32, (k,), dev)
     if ln_b is not None:
         _cuda.require(ln_b, "ln_b", torch.float32, (k,), dev)
-    _cuda.require(qweight, "qweight", torch.int8, (k // 2, n), dev, align=4)
-    _require_planes(dev, k, n, gs, (s_hi, s_lo, z_hi, z_lo), None, alpha, beta)
+    _cuda.require(qweight, "qweight", torch.int8, (k // 2, n), dev)
+    _require_planes(dev, k, n, gs, (s_hi, s_lo, z_hi, z_lo), None, alpha, beta, align=16)
     if codes_out is not None:
         _cuda.require(codes_out, "codes_out", torch.int8, (m, k), dev, align=4)
+    plan = fused_plan(m, n, k, gs, _sms(dev), True, "span")
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
-    rc = _span_lib().fused_norm_gemv(
+    launch_gemv(NORM_SPAN, plan, (
         _cuda.ptr(x), _cuda.ptr(ln_w), _cuda.ptr(ln_b), float(eps), _cuda.ptr(qweight),
         _cuda.ptr(s_hi), _cuda.ptr(s_lo), _cuda.ptr(z_hi), _cuda.ptr(z_lo), _cuda.ptr(alpha),
-        _cuda.ptr(beta), _cuda.ptr(out), _cuda.ptr(codes_out), m, n, k, gs, _sms(dev),
-        _cuda.stream(dev))
-    _cuda.check(rc, NORM_SPAN)
+        _cuda.ptr(beta), _cuda.ptr(out), _cuda.ptr(codes_out)), m, n, k, gs, dev)
     _cuda.count_launch(NORM_SPAN)
     return out
 
@@ -716,9 +758,10 @@ def fused_requant_gemv(x: Tensor, in_scale: Tensor, qweight: Tensor, s_hi: Tenso
                        fuse_residual: bool = True,
                        codes_out: Optional[Tensor] = None) -> Tensor:
     """K12: y = (requant(x) @ dequant(W)) * alpha + beta (+ residual) in one
-    launch, on span weights; ``in_scale`` a one-element float32 tensor read on
-    the device.  Other arguments as ``fused_norm_gemv``'s.  CPU tensors take
-    the plain version."""
+    call, on span weights; ``in_scale`` a one-element float32 tensor read on
+    the device.  Other arguments, the tiling and the launches as
+    ``fused_norm_gemv``'s (the kernel is K5's on span bytes).  CPU tensors
+    take the plain version."""
     m, k, n, gs = _check_span_shapes(x, qweight, s_hi, span)
     if fuse_residual and residual is None:
         raise ValueError("fuse_residual needs a residual")
@@ -729,20 +772,19 @@ def fused_requant_gemv(x: Tensor, in_scale: Tensor, qweight: Tensor, s_hi: Tenso
     dev = x.device
     _cuda.require(x, "x", torch.float32, (m, k), dev)
     _require_scalar(in_scale, "in_scale", dev)
-    _cuda.require(qweight, "qweight", torch.int8, (k // 2, n), dev, align=4)
-    _require_planes(dev, k, n, gs, (s_hi, s_lo, z_hi, z_lo), None, alpha, beta)
+    _cuda.require(qweight, "qweight", torch.int8, (k // 2, n), dev)
+    _require_planes(dev, k, n, gs, (s_hi, s_lo, z_hi, z_lo), None, alpha, beta, align=16)
     res = residual if fuse_residual else None
     if res is not None:
         _cuda.require(res, "residual", torch.float32, (m, n), dev, align=4)
     if codes_out is not None:
         _cuda.require(codes_out, "codes_out", torch.int8, (m, k), dev, align=4)
+    plan = fused_plan(m, n, k, gs, _sms(dev), False, "span")
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
-    rc = _span_lib().fused_requant_gemv(
+    launch_gemv(REQUANT_SPAN, plan, (
         _cuda.ptr(x), _cuda.ptr(in_scale), float(qmin), _cuda.ptr(qweight), _cuda.ptr(s_hi),
         _cuda.ptr(s_lo), _cuda.ptr(z_hi), _cuda.ptr(z_lo), _cuda.ptr(alpha), _cuda.ptr(beta),
-        _cuda.ptr(res), _cuda.ptr(out), _cuda.ptr(codes_out), m, n, k, gs, _sms(dev),
-        _cuda.stream(dev))
-    _cuda.check(rc, REQUANT_SPAN)
+        _cuda.ptr(res), _cuda.ptr(out), _cuda.ptr(codes_out)), m, n, k, gs, dev)
     _cuda.count_launch(REQUANT_SPAN)
     return out
 
@@ -796,7 +838,7 @@ def fused_mlp_decode(x: Tensor, ln_w: Tensor, ln_b: Optional[Tensor], gu_qweight
         _cuda.require(h_out, "codes_out[1]", torch.int8, (m, fdim), dev, align=4)
     acc = torch.empty((m, d), dtype=torch.int32, device=dev)
     out = torch.empty((m, d), dtype=torch.float32, device=dev)
-    rc = _span_lib().fused_mlp_decode(
+    rc = _lib(MLP_SPAN).fused_mlp_decode(
         _cuda.ptr(x), _cuda.ptr(ln_w), _cuda.ptr(ln_b), float(eps), _cuda.ptr(down_scale),
         _cuda.ptr(gu_qweight), _cuda.ptr(gu_s_hi), _cuda.ptr(gu_s_lo), _cuda.ptr(gu_z_hi),
         _cuda.ptr(gu_z_lo), _cuda.ptr(gu_alpha), _cuda.ptr(d_qweight), _cuda.ptr(d_wscales),

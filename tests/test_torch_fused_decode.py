@@ -197,6 +197,44 @@ def _mk_span(k, n, gs, seed):
     return [jnp.asarray(a) for a in arrays], [_t(a) for a in arrays], repl, rp
 
 
+@pytest.mark.parametrize("gs", [32, 64, 128, 96])
+def test_span_stage_map_names_every_k_once(gs):
+    """``span_stage_map``, the order of k in K12's stages of 64 packed rows
+    (``FusedSpan`` in csrc/fused_gemv_sm90.cuh), over every stage of K: its
+    32-k runs name each logical k once; each run's codes are nibble h of its
+    32 packed rows, as JAX's ``pack_nibbles`` put them there and the port's
+    ``unpack_nibbles`` reads them; and its group and plane row give the
+    scale and zero that ``dequantize_span`` applies to those k."""
+    from dgq_tpu_torch.ops.quant_matmul import dequantize_span
+    from dgq_tpu_torch.quant.packing import unpack_nibbles
+
+    k, n = 768, 64
+    r = np.random.default_rng(gs)
+    codes = r.integers(0, 16, size=(k, n)).astype(np.int8)
+    qw = _t(np.asarray(pack_nibbles(jnp.asarray(codes), span=2 * gs)))
+    sc = _t(r.integers(1, 4, size=(k // gs, n)).astype(np.int8))
+    zr = _t(r.integers(0, 16, size=(k // gs, n)).astype(np.int8))
+    planes = {0: (sc[0::2], zr[0::2]), 1: (sc[1::2], zr[1::2])}  # (s, z) of s_hi/z_hi, s_lo/z_lo
+    w8 = dequantize_span(qw, sc, zr, gs).to(torch.int32)
+    unpacked = unpack_nibbles(qw, 2 * gs)
+    byte = qw.view(torch.uint8).to(torch.int32)
+    seen = []
+    for st in range(k // 128):
+        stage = tfd.span_stage_map(st, gs)
+        assert sorted(stage) == [(0, 0), (0, 1), (1, 0), (1, 1)]
+        for (kk, h), (k0, group, row) in stage.items():
+            ks = list(range(k0, k0 + 32))
+            seen += ks
+            rows = byte[64 * st + 32 * kk: 64 * st + 32 * kk + 32]
+            nib = (rows >> 4) if h == 0 else (rows & 0xF)
+            assert torch.equal(nib, _t(codes[k0:k0 + 32]).to(torch.int32))
+            assert torch.equal(unpacked[k0:k0 + 32].to(torch.int32), nib)
+            assert all(kx // gs == group for kx in ks) and group % 2 == h and row == group // 2
+            s_row, z_row = (p[row].to(torch.int32) for p in planes[h])
+            assert torch.equal(w8[k0:k0 + 32], ((nib - z_row) * s_row).to(torch.int8).int())
+    assert sorted(seen) == list(range(k))
+
+
 @pytest.fixture(scope="module")
 def span_rows():
     rng = np.random.default_rng(0)

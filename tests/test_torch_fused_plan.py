@@ -14,6 +14,10 @@ and 128 that the shape allows, and the H100's 132 SMs:
 - the column tiles cover N, in whole clusters;
 - the shared memory fits a block (and two, where the plan lets two share an
   SM), and is what the kernel's layout takes.
+
+The same plan on span bytes (``layout="span"``: K12's norm and requant
+entries) splits K in whole spans only, and refuses what the rowpair plan
+refuses.
 """
 
 import pytest
@@ -97,3 +101,68 @@ def test_fused_plan_forced_choices_and_the_tiny_config():
     for n, k in _fused_linears(cfg):
         with pytest.raises(ValueError):
             fd.fused_plan(4, n, k, 32, SMS, True)
+
+
+# K12's norm and requant entries: K4's and K5's kernel on span bytes, whose K
+# splits hold whole spans (a stage's two nibble planes lie groupsize apart in K)
+@pytest.mark.parametrize("norm", [True, False], ids=["norm", "requant"])
+@pytest.mark.parametrize("n,k,gs", CASES)
+def test_span_plan_candidates_cover_k_once_in_whole_spans(n, k, gs, norm):
+    unit = fd.split_unit(gs, "span")
+    assert (64 * unit) % gs == 0 and all((64 * u) % gs for u in range(1, unit))
+    for m in ROWS:
+        plans = fd.fused_candidates(m, n, k, gs, "span")
+        assert fd.fused_plan(m, n, k, gs, SMS, norm, "span") in plans
+        assert len(set(plans)) == len(plans)
+        for plan in plans:
+            what = f"M={m} N={n} K={k} gs={gs}: {plan}"
+            # the splits' logical k ranges [128 sps z, 128 sps (z + 1)) tile [0, K) ...
+            edges = [min(z * plan.sps, plan.stages) * plan.stage_k for z in range(plan.splits + 1)]
+            assert edges[0] == 0 and edges[-1] == k, what
+            assert all(b > a for a, b in zip(edges, edges[1:])), what
+            # ... and start and end on whole spans (2 gs logical k, gs packed rows)
+            assert all(e % (2 * gs) == 0 for e in edges), what
+            assert plan.splits == 1 or plan.sps % unit == 0, what
+            assert plan.smem == fd.fused_smem(plan.bm, plan.sps) <= fd.SMEM_LIMIT, what
+            tiles, splits = plan.grid(n)
+            assert tiles % plan.cluster == 0 and tiles * plan.bn >= n and splits == plan.splits
+
+
+def test_span_plan_matches_the_rowpair_plan_where_spans_allow():
+    # at groupsize 32 and 64 every stage holds whole spans: the same candidates and choice
+    for gs in (32, 64):
+        for m, n, k in ((4, 12288, 4096), (40, 4096, 4096), (1, 512, 256)):
+            assert fd.fused_candidates(m, n, k, gs, "span") == fd.fused_candidates(m, n, k, gs)
+            for norm in (True, False):
+                assert (fd.fused_plan(m, n, k, gs, SMS, norm, "span")
+                        == fd.fused_plan(m, n, k, gs, SMS, norm))
+    # at 128 a split is an even number of stages
+    assert all(p.sps % 2 == 0 for p in fd.fused_candidates(4, 4096, 4096, 128, "span"))
+    with pytest.raises(ValueError, match="layout"):
+        fd.fused_candidates(4, 4096, 4096, 128, "columns")
+
+
+@pytest.mark.parametrize("m,n,k,gs", [(0, 4096, 4096, 128), (65, 4096, 4096, 128),
+                                      (4, 4100, 4096, 128), (4, 4096, 4000, 128),
+                                      (4, 4096, 4096, 48), (4, 4096, 4096, 4096)])
+def test_span_plan_refuses_what_the_rowpair_plan_refuses(m, n, k, gs):
+    with pytest.raises(ValueError):
+        fd.fused_plan(m, n, k, gs, SMS, True, "span")
+    with pytest.raises(ValueError):
+        fd.fused_candidates(m, n, k, gs, "span")
+
+
+@pytest.mark.parametrize("gs", [32, 64, 96, 128])
+def test_span_plan_blocks_read_only_codes_of_their_own_k_range(gs):
+    """The kernel makes the codes of a block's K range only: under every
+    span candidate, each stage of a split reads (``span_stage_map``) 32-k
+    runs that lie inside that split's range of logical k."""
+    k = 3 * 2 * gs * 4 if gs == 96 else 4096
+    for m in (1, 9, 64):
+        for plan in fd.fused_candidates(m, 4096, k, gs, "span"):
+            for z in range(plan.splits):
+                first, end = z * plan.sps, min((z + 1) * plan.sps, plan.stages)
+                lo, hi = first * plan.stage_k, end * plan.stage_k
+                for st in range(first, end):
+                    for kk_h, (k0, _, _) in fd.span_stage_map(st, gs).items():
+                        assert lo <= k0 and k0 + 32 <= hi, (m, plan, st, kk_h)

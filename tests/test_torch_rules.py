@@ -154,8 +154,10 @@ def test_span_wrappers_take_plain_versions_on_cpu_without_launches():
 
 
 def test_k12_wrappers_take_plain_versions_on_cpu_without_launches():
-    """K12 and K13's names on CPU tensors: the plain versions, no launch; the
-    three K12 entries share one CUDA source, and K13's names count as K12."""
+    """K12 and K13's names on CPU tensors: the plain versions, no launch;
+    K12's norm and requant entries share one CUDA source (K4's and K5's
+    TMA + wgmma kernel on span bytes), its MLP entry has its own, and K13's
+    names count as K12."""
     _cuda.reset_launches()
     layer = build_llama_engine(tiny_llama_config(hidden_size=256, intermediate_size=512),
                                seed=0, device="cpu", keep_span=True).layer_list[0]
@@ -181,8 +183,9 @@ def test_k12_wrappers_take_plain_versions_on_cpu_without_launches():
             dn.qweight, dn.wscales, dn.wzeros, dn.alpha)
     assert torch.equal(tfd.fused_mlp_decode(*args), tfd.fused_mlp_decode_xla(*args))
     assert _cuda.LAUNCHES == {name: 0 for name in _cuda.SOURCES}
-    assert len({_cuda.SOURCES[n] for n in ("fused_norm_gemv", "fused_requant_gemv",
-                                            "fused_mlp_decode")}) == 1
+    assert _cuda.SOURCES["fused_norm_gemv"] == _cuda.SOURCES["fused_requant_gemv"] == \
+        "fused_gemv_span_sm90"
+    assert _cuda.SOURCES["fused_mlp_decode"] == "fused_decode_span"
     assert not {"fused_norm_gemv_s4", "fused_requant_gemv_s4"} & set(_cuda.LAUNCHES)
 
 
