@@ -5,14 +5,14 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It imports no JAX.  Phases, each printing one JSON line with its seconds:
 
 1. device: the card's name and power limit (nvidia-smi); TF32 off.
-2. build: the fourteen CUDA sources, one nvcc each, started together; the
-   logs of the sources on wgmma (K1, K4-K6, K9, K10, K12's norm and requant
-   entries, P1 on the TMA + wgmma loop, and K2) must not hold ptxas warnings
+2. build: the thirteen CUDA sources, one nvcc each, started together; the
+   logs of the sources on wgmma (K1, K4-K6, K9, K10, K12, P1 on the TMA +
+   wgmma loop, and K2) must not hold ptxas warnings
    C7514, C7515 or C7520 (wgmma serialised), nor may their libraries' SASS
    (``cuobjdump -sass``) hold a kernel whose every IGMMA or HGMMA is waited
    for at once (serialised with no warning); K2's, K3's, K4's, K5's, K6's,
-   K10's and K12's (norm, requant) registers and spills are recorded, and
-   K4-K6's and K12's must hold no spill and at most 113 registers.
+   K10's, K12's and P5's registers and spills are recorded, and K4-K6's
+   and K12's must hold no spill and at most 113 registers.
 3. kernels: K1 ``w4a8_matmul_rp_pipe``, K2 ``int8_prefill_attention``, K3
    ``int8_decode_attention``, the fused decode kernels K4
    ``fused_norm_gemv_rp``, K5 ``fused_requant_gemv_rp`` and K6
@@ -66,18 +66,21 @@ It imports no JAX.  Phases, each printing one JSON line with its seconds:
    (which also serve K13's names) on span weights at K4-K6's shapes and row
    counts, held as K4-K6 are against their plain versions and, by their
    int32 accumulators, against K4-K6 on ``pack_rowpair_s4`` of the same
-   weights (equal), and timed beside them; the MLP also at 1, 9 and 64 rows
-   and groupsize 64; the norm and requant entries also at SPAN_SWEEP_ROWS
-   x SPAN_SWEEP_GS (1-64 rows, groupsizes 32, 64, 128) under every plan of
-   ``fused_candidates(..., "span")``: codes equal to the plain requant and
-   RMSNormQ in the kernels' order, accumulators equal to the plain
-   version's and to K4's/K5's, outputs within rtol 1e-6.  Last the plan
-   hold (``fused_plan_sweep --repeat``, PLAN_HOLD): K4, K5, both legs of K6
-   and K12's norm and requant entries at 9, 40 and 64 rows, every plan
-   HOLD_ROUNDS times in shuffled order with an L2 flush before each call,
-   each call's outputs equal to the chosen plan's (a race between plans
-   shows here, not in one call a plan); its lines go to
-   ``chiprun_out/plan_hold.txt``.
+   weights (equal), and timed beside them; all three also at
+   SPAN_SWEEP_ROWS x SPAN_SWEEP_GS (1-64 rows, groupsizes 32, 64, 128)
+   under every plan of ``fused_candidates(..., "span")`` (the MLP: every
+   plan of each leg, the other leg at ``mlp_plan``'s): codes equal to the
+   plain requant, RMSNormQ in the kernels' order and (the MLP's h)
+   ``_silu_mul_q`` of the plain gate/up sums on them, accumulators equal to
+   the plain version's and to K4's/K5's/K6's, outputs within rtol 1e-6.
+   Last the plan hold (``fused_plan_sweep --repeat``, PLAN_HOLD): K4, K5,
+   both legs of K6, and K12's three entries (the MLP's two legs) at 9, 40
+   and 64 rows, every plan HOLD_ROUNDS times in shuffled order with an L2
+   flush before each call, each call's outputs equal to the chosen plan's
+   (a race between plans shows here, not in one call a plan); then K10's
+   (``_k10_plan_hold``): every ``fpscale_candidates`` plan at 1, 4, 40 and
+   1024 rows K10_HOLD_ROUNDS times, each call equal to its plan's first
+   output; the lines go to ``chiprun_out/plan_hold.txt``.
 4. main: ``build_llama_engine(LlamaConfig())`` (32 layers, full width, random
    weights from seed 0) then ``generate`` of 32 greedy tokens for 4 prompts
    of 256 tokens with the default ``EngineConfig`` (fused decode), with every
@@ -175,11 +178,12 @@ It imports no JAX.  Phases, each printing one JSON line with its seconds:
    128), P2 ``mxu_gemv``, ``vpu_gemv``, ``mix_gemv`` (8 rows, K 4096, N
    12288), P3 ``pallas_s4``, ``pallas_s4_bitcast`` (16 rows of int4 codes;
    P4's ``kern`` at K 256 and one 256-column block) with int32 results (P1:
-   the f32 of int32) equal; P5 ``attn`` in its six modes at 32 heads and a
-   cache of 2048 (MHA, full length; GQA 4:1 at 1707 positions) within
-   PV_TOL of the largest output.  Beside the profiler's kernel time each
-   case records ``events_ms``, the same time from CUDA events alone
-   (``Timer.events``).
+   the f32 of int32) equal; P5 ``attn`` (K3's body) in its six modes at 32
+   heads and a cache of 2048 (MHA, full length; GQA 4:1 at 1707 positions;
+   both also at 3 slots of lengths 0, 1 and 2048), under every cluster of
+   DECODE_CLUSTERS, each slot within PV_TOL of its largest output.  Beside
+   the profiler's kernel time each case records ``events_ms``, the same
+   time from CUDA events alone (``Timer.events``).
 18. bench: ``python -m dgq_tpu_torch.bench`` (BENCH_ARGS) in a subprocess:
    exactly one line on stdout, a numeric value, no ``degraded``, the card's
    name, K9 and K1 launched by its GEMM round; its launches summed over its
@@ -229,11 +233,11 @@ K4_NAMES = ["norm_gemv_rp_sm90", "norm_gemv_rp_combine"]
 K5_NAMES = ["requant_gemv_rp_sm90", "requant_gemv_rp_combine"]
 # K6: its gate|up leg and its down leg, each with the kernel that sums its K splits
 K6_NAMES = ["mlp_gate_up_rp", "mlp_down_rp"]
-# K12's three entry points: the norm and requant ones on K4's and K5's TMA + wgmma kernel (one
-# source; each with the kernel that sums its K splits), the MLP on its mma.sync body
+# K12's three entry points on K4's, K5's and K6's TMA + wgmma kernels (one source; each kernel
+# with the kernel that sums its K splits; the MLP's two legs)
 K12_NAMES = {"fused_norm_gemv": ["norm_gemv_span_sm90", "norm_gemv_span_combine"],
              "fused_requant_gemv": ["requant_gemv_span_sm90", "requant_gemv_span_combine"],
-             "fused_mlp_decode": ["mlp_decode_span_kernel", "mlp_decode_span_epilogue"]}
+             "fused_mlp_decode": ["mlp_gate_up_span", "mlp_down_span"]}
 K12_ALL = [n for names in K12_NAMES.values() for n in names]
 K3_NAMES = ["decode_attn_cluster"]
 K78_NAMES = ["chunk_attn_kernel", "combine_kernel"]  # K7 and K8 share their kernels
@@ -472,6 +476,8 @@ def phase_build(torch, state):
         igmma_kernels[stem] = len(serial)
     k3_log = (_cuda.BUILD_DIR / "int8_decode_attention.log").read_text()
     ptxas["int8_decode_attention"] = _ptxas_entries(k3_log, "decode_attn_cluster")
+    p5_log = (_cuda.BUILD_DIR / "quant_pv_parts_attention.log").read_text()
+    ptxas["quant_pv_parts_attention"] = _ptxas_entries(p5_log, "pv_parts_cluster")
     return {"nvcc_seconds": seconds, "nvcc": nvcc, "no_c7515": list(WGMMA_SOURCES),
             "igmma_kernels_pipelined": igmma_kernels, "ptxas": ptxas}
 
@@ -1023,6 +1029,7 @@ def _k5_case(torch, gen, m, gs, extras, span=False):
 def _k6_case(torch, gen, m, gs, extras, span=False):
     """K6 (the MLP), or with ``span`` K12's MLP entry, at the main path's
     width; ``extras`` turns on the norm bias and the down-proj beta."""
+    from dgq_tpu_torch.ops import _cuda
     from dgq_tpu_torch.ops import fused_decode as fd
 
     eps = 1e-5
@@ -1083,17 +1090,32 @@ def _k6_case(torch, gen, m, gs, extras, span=False):
          "nbytes": (8 * m * d + 4 * d + d * n2f // 2 + 2 * (d // gs) * n2f + 4 * n2f
                     + f * d // 2 + 2 * (f // gs) * d + 4 * d + 4),
          "ops": 2.0 * m * (n2f * d + f * d), "lib": lib}
+    # the codes exactly: the norm codes are K4's (RMSNormQ in the kernel's order), the h
+    # codes _silu_mul_q of the plain gate/up sums on them
+    c["exact"] = lambda codes: [_rmsnorm_q_ordered(torch, x, lnw, lnb, eps), own(codes)[1]]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    layout = "span" if span else "rowpair"
+    c["meta"]["plans"] = [p._asdict() for p in fd.mlp_plan(m, d, f, gs, sms, layout)]
     if span:  # K6 on the rowpair copies of the same bytes
         c["twin"] = lambda acc, codes_out: fd.fused_mlp_decode_rp(
             *args(acc, gqw_rp, dqw_rp, rowpair=True), span=2 * gs, bf=512, eps=eps,
             fuse_residual=not acc, codes_out=codes_out)
         c["twin_names"] = K6_NAMES
-    else:
-        # K6's codes exactly: the norm codes are K4's (RMSNormQ in the kernel's order),
-        # the h codes _silu_mul_q of the plain gate/up sums on them
-        c["exact"] = lambda codes: [_rmsnorm_q_ordered(torch, x, lnw, lnb, eps), own(codes)[1]]
-        sms = torch.cuda.get_device_properties(0).multi_processor_count
-        c["meta"]["plans"] = [p._asdict() for p in fd.mlp_plan(m, d, f, gs, sms)]
+
+        def at_plan(acc, codes_out, plans):
+            """K12's MLP under the legs' ``plans`` (gate|up, down), launched as
+            ``fused_plan_sweep`` launches it; ``codes_out`` = (xq, h)."""
+            y = torch.empty((m, d), dtype=torch.float32, device=DEV)
+            xq, h = codes_out if codes_out else (None, torch.empty((m, f), dtype=torch.int8,
+                                                                   device=DEV))
+            p = _cuda.ptr
+            fd.launch_mlp(fd.MLP_SPAN, plans, (
+                p(x), p(lnw), p(lnb), eps, p(hscale), p(gqw), *map(p, gplanes), p(galpha),
+                p(dqw), p(dws8), p(dwz8), p(one if acc else dalpha), p(None if acc else dbeta),
+                int(not acc), p(y), p(xq), p(h)), m, d, f, gs, DEV)
+            return y
+
+        c["at_plan"] = at_plan
     return c
 
 
@@ -1180,20 +1202,71 @@ def _span_gemv_sweep(torch, gen):
     return out
 
 
+def _span_mlp_sweep(torch, gen):
+    """K12's MLP at SPAN_SWEEP_ROWS x SPAN_SWEEP_GS with the norm bias, the
+    down-proj beta and the residual on, under every plan of each leg
+    (``fused_candidates(..., "span")`` of its product) with the other leg at
+    ``mlp_plan``'s, each launched as the sweep script launches it
+    (``launch_mlp``): the xq and h codes equal RMSNormQ in the kernels'
+    order and ``_silu_mul_q`` of the plain gate/up sums on those codes, the
+    int32 sums of the down leg equal the plain version's on them and K6's
+    on the rowpair copy, and the outputs lie within rtol 1e-6 of the plain
+    version's.  (Not timed here; ``fused_plan_sweep --span`` times every
+    plan.)"""
+    from dgq_tpu_torch.ops import fused_decode as fd
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = []
+    for m, gs in itertools.product(SPAN_SWEEP_ROWS, SPAN_SWEEP_GS):
+        c = _k6_case(torch, gen, m, gs, extras=True, span=True)
+        d, f = c["meta"]["D"], c["meta"]["F"]
+        # the ordered norm codes, then h from the plain gate/up sums on them
+        want = c["exact"](c["exact"]([torch.zeros((m, d), dtype=torch.int8, device=DEV)]))
+        acc_p, y_p = c["plain"](True, want), c["plain"](False, want)
+        twin_codes = [torch.empty_like(t) for t in want]
+        acc_twin = c["twin"](True, twin_codes)
+        for tag, got, ref in (("xq", twin_codes[0], want[0]), ("h", twin_codes[1], want[1])):
+            if not torch.equal(got, ref):
+                raise AssertionError(f"{c['what']}: the twin's {tag} codes differ")
+        chosen = fd.mlp_plan(m, d, f, gs, sms, "span")
+        calls = 0
+        for leg, (n, k) in enumerate(((2 * f, d), (d, f))):
+            for plan in fd.fused_candidates(m, n, k, gs, "span"):
+                plans = (plan, chosen[1]) if leg == 0 else (chosen[0], plan)
+                what = f"{c['what']} leg {leg} {plan}"
+                codes = [torch.empty_like(t) for t in want]
+                acc = c["at_plan"](True, codes, plans)
+                for tag, got, ref in (("xq codes", codes[0], want[0]),
+                                      ("h codes", codes[1], want[1]),
+                                      ("accumulators", acc, acc_p),
+                                      ("accumulators against the twin", acc, acc_twin)):
+                    if not torch.equal(got, ref):
+                        raise AssertionError(f"{what}: {(got != ref).sum().item()} {tag} differ")
+                torch.testing.assert_close(c["at_plan"](False, None, plans), y_p, rtol=1e-6,
+                                           atol=0)
+                calls += 1
+        out.append({**c["meta"], "kernel": "fused_mlp_decode", "groupsize": gs,
+                    "plans": calls, "bit_equal": True, "codes_equal": True,
+                    "int32_equal_rowpair_kernel": True})
+        del c
+    return out
+
+
 def _fused_sweep(torch, gen, span=False):
     """K6 checked (not timed) off the main path's shapes: 1 row, 9 rows at
     groupsize 64, and 64 rows (the engine's cap), then 4 and 40 rows at
     groupsize 32 (one scale row a 32-k step: the legs' other instantiation,
     after the first in the same process), with bias, beta and residual on;
-    K12's MLP at 1, 9 and 64 rows at groupsize 64 (spans of 128), then its
-    norm and requant entries under every plan (``_span_gemv_sweep``).  (K4
-    and K5: ``_rowpair_gemv_checks``.)"""
+    with ``span`` K12's MLP and its norm and requant entries under every
+    plan (``_span_mlp_sweep``, ``_span_gemv_sweep``).  (K4 and K5:
+    ``_rowpair_gemv_checks``.)"""
+    if span:
+        return _span_mlp_sweep(torch, gen) + _span_gemv_sweep(torch, gen)
     out = []
-    for m, gs in (((1, 64), (9, 64), (64, 64)) if span
-                  else ((1, 128), (9, 64), (64, 128), (4, 32), (40, 32))):
-        out.append({**_fused_check(torch, _k6_case(torch, gen, m, gs, extras=True, span=span)),
+    for m, gs in ((1, 128), (9, 64), (64, 128), (4, 32), (40, 32)):
+        out.append({**_fused_check(torch, _k6_case(torch, gen, m, gs, extras=True)),
                     "groupsize": gs})
-    return out + (_span_gemv_sweep(torch, gen) if span else [])
+    return out
 
 
 # K4 and K5 held bit-equal, not timed: every token-row tile, clusters or none, groupsize 64
@@ -1641,7 +1714,7 @@ def phase_kernels(torch, state):
     sweep12 = _fused_sweep(torch, gen, span=True)
     del timer
     torch.cuda.empty_cache()
-    hold = _plan_hold()
+    hold = _plan_hold(torch)
     return {**{f"k{i}": state[f"k{i}"] for i in range(1, 13)}, "k2_checks": k2_extra,
             "k4_k5_checks": k45, "k6_sweep": sweep, "k12_sweep": sweep12, "plan_hold": hold}
 
@@ -1651,11 +1724,12 @@ def phase_kernels(torch, state):
 PLAN_HOLD, HOLD_ROUNDS = ("--rows", "9", "40", "64", "--groupsize", "128", "--no-time"), 100
 
 
-def _plan_hold():
+def _plan_hold(torch):
     """K4, K5, K6's legs (and with ``--span`` K12's norm and requant
-    entries) held under every plan HOLD_ROUNDS times against the chosen
-    plan by ``fused_plan_sweep``, its printout kept for
-    chiprun_out/plan_hold.txt: the calls held per cell."""
+    entries and its MLP's legs) held under every plan HOLD_ROUNDS times
+    against the chosen plan by ``fused_plan_sweep``, then K10's plans
+    (``_k10_plan_hold``), the printout kept for chiprun_out/plan_hold.txt:
+    the calls held per cell."""
     import contextlib
     import io
 
@@ -1666,12 +1740,85 @@ def _plan_hold():
         for extra in ((), ("--span",)):
             with contextlib.redirect_stdout(buf):
                 rows += fused_plan_sweep.main([*PLAN_HOLD, "--repeat", str(HOLD_ROUNDS), *extra])
+        rows = [{k: r[k] for k in ("kernel", "leg", "M") if k in r}
+                | {"calls": HOLD_ROUNDS * len(r["mismatches"]), "mismatches": 0} for r in rows]
+        for r in _k10_plan_hold(torch, lambda r: buf.write(json.dumps(r) + "\n")):
+            rows.append({"kernel": r["kernel"], "M": r["M"],
+                         "calls": r["repeat"] * len(r["mismatches"]), "mismatches": 0})
     finally:
         out_dir = ROOT / "chiprun_out"
         out_dir.mkdir(exist_ok=True)
         (out_dir / "plan_hold.txt").write_text(buf.getvalue())
-    return [{k: r[k] for k in ("kernel", "leg", "M") if k in r}
-            | {"calls": HOLD_ROUNDS * len(r["mismatches"]), "mismatches": 0} for r in rows]
+    return rows
+
+
+# K10's plan hold: every plan fpscale_plan weighs at these rows, N = K = 4096, groupsize 128;
+# its row-sum warps release a ring stage right after their shared loads and dp4a sums
+K10_HOLD_ROWS, K10_HOLD_ROUNDS = (1, 4, 40, 1024), 300
+
+
+def _k10_plan_hold(torch, log):
+    """K10 under every plan of ``fpscale_candidates`` at K10_HOLD_ROWS,
+    K10_HOLD_ROUNDS rounds, each in a new random order with an L2 flush
+    before each call.  Every call must equal its own plan's first output
+    bit for bit (a race shows so); that output must equal the chosen plan's
+    where neither splits K, and lie within K10_TOL of the largest output
+    where one does.  One record a row count (the calls a plan that
+    differed), each handed to ``log`` first; an AssertionError after the
+    record if any did."""
+    import random
+
+    from dgq_tpu_torch.ops import quant_matmul as qm
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    gen = torch.Generator(device=DEV).manual_seed(10)
+    rng = random.Random(0)
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=DEV)
+    n = k = 4096
+    gs = 128
+    out = []
+    for m in K10_HOLD_ROWS:
+        x = torch.randint(-128, 128, (m, k), generator=gen, device=DEV, dtype=torch.int8)
+        qw, ws, wz = _q4_weights(torch, gen, k, n, gs, fp=True)
+        ws8, wz8 = torch.repeat_interleave(ws, 8, dim=0), torch.repeat_interleave(wz, 8, dim=0)
+        alpha = torch.rand((n,), generator=gen, device=DEV) * 1e-3 + 1e-5
+        beta = torch.randn((n,), generator=gen, device=DEV)
+
+        def call(plan):
+            return qm._span_launch(qm.FPSCALE, x, qw, ws8, wz8, alpha, beta, gs, True,
+                                   torch.float32, fp_plan=plan)
+
+        chosen = qm.fpscale_plan(m, n, k, gs, sms)
+        plans = qm.fpscale_candidates(m, n, k, gs, sms)
+        want = call(chosen)
+        top = want.abs().max().item()
+        refs = {plan: call(plan) for plan in plans}
+        errs = {}
+        for plan, y in refs.items():
+            errs[plan] = (y - want).abs().max().item()
+            split = plan[1] < k // 2 or chosen[1] < k // 2
+            if not (errs[plan] <= K10_TOL * top if split else torch.equal(y, want)):
+                raise AssertionError(f"K10 M={m} plan {plan}: max abs err {errs[plan]} against "
+                                     f"the chosen {chosen} (largest output {top})")
+        bad = {plan: torch.zeros((), dtype=torch.int64, device=DEV) for plan in plans}
+        for _ in range(K10_HOLD_ROUNDS):
+            order = list(plans)
+            rng.shuffle(order)
+            for plan in order:
+                flush.zero_()
+                bad[plan] += (call(plan) != refs[plan]).any()
+        rec = {"kernel": qm.FPSCALE, "M": m, "N": n, "K": k, "groupsize": gs,
+               "chosen": list(chosen), "repeat": K10_HOLD_ROUNDS,
+               "mismatches": {f"t{t}p{p}": int(v) for (t, p), v in bad.items()},
+               "max_abs_err_vs_chosen": {f"t{t}p{p}": e for (t, p), e in errs.items()},
+               "largest_output": top}
+        out.append(rec)
+        log(rec)
+        if any(rec["mismatches"].values()):
+            raise AssertionError(f"K10 M={m}: calls differ from their plan's first output: "
+                                 f"{rec['mismatches']}")
+        del x, qw, ws, wz, ws8, wz8
+    return out
 
 
 def _drive_main(torch, cfg, ecfg, want, smax=SMAX, new_tokens=NEW_TOKENS,
@@ -3116,44 +3263,66 @@ def _probe_gemm_cases(torch, timer, gen):
     return cases
 
 
+# P5's cases: (kv heads, the slots' lengths, timed); the hold-only slots take K3's edge cases
+P5_CASES = ((32, (2048,), True), (8, (2048 - 2048 // 6,), True), (32, (0, 1, 2048), False),
+            (8, (0, 1, 2048), False))
+
+
 def _probe_pv_cases(torch, timer, gen):
-    """P5's six modes at its shape (MHA, full cache), and at GQA with
-    shorter lengths: within PV_TOL of the largest output of the plain
-    version; s32dot's equality (float of the int32 sums) reported."""
+    """P5's six modes at its shape (MHA, one slot, full cache) and at GQA
+    4:1 with a shorter length, timed at ``decode_plan``'s cluster, and at
+    three slots of lengths 0, 1 and Smax (MHA and GQA): each slot's output
+    under every cluster of DECODE_CLUSTERS within PV_TOL of the largest
+    output of the plain version's; s32dot's equality reported."""
+    from dgq_tpu_torch.ops.attention import DECODE_CLUSTERS
     from dgq_tpu_torch.scripts import probe_quant_pv_parts as p5
 
     cases = []
-    b, h, dh, smax = p5.B, p5.H, p5.DH, p5.SMAX
-    for hk, length in ((p5.HK, smax), (8, smax - smax // 6)):
+    h, dh, smax = p5.H, p5.DH, p5.SMAX
+    for hk, lens, timed in P5_CASES:
+        b = len(lens)
         q, kt, v, _ = _attn_inputs(torch, gen, b, h, hk, 1, dh, smax)
         q = q[:, :, 0].contiguous()
-        lengths = torch.full((b,), length, dtype=torch.int32, device=DEV)
-        qb = (q[:, :, None].float() * p5.QK_SCALE).to(torch.bfloat16)
-        kb = kt[..., :length].transpose(2, 3).to(torch.bfloat16).contiguous()
-        vb = (v[:, :, :length].float() * p5.V_SCALE).to(torch.bfloat16).contiguous()
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        lib = timer.library(lambda: sdpa(qb, kb, vb, scale=1.0, enable_gqa=hk != h))
+        lengths = torch.tensor(lens, dtype=torch.int32, device=DEV)
+        lib = {}
+        if timed:
+            length = lens[0]
+            qb = (q[:, :, None].float() * p5.QK_SCALE).to(torch.bfloat16)
+            kb = kt[..., :length].transpose(2, 3).to(torch.bfloat16).contiguous()
+            vb = (v[:, :, :length].float() * p5.V_SCALE).to(torch.bfloat16).contiguous()
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            lib = timer.library(lambda: sdpa(qb, kb, vb, scale=1.0, enable_gqa=hk != h))
         for mode in p5.MODES:
-            def kern(mode=mode):
-                return p5.attn(q, kt, v, lengths, mode)
+            def kern(mode=mode, cluster=None):
+                return p5.attn(q, kt, v, lengths, mode, cluster=cluster)
 
             def plain(mode=mode):
                 return p5.attn_plain(q, kt, v, lengths, mode)
 
-            out_k, out_p = kern(), plain()
-            err = (out_k - out_p).abs().max().item()
-            top = out_p.abs().max().item()
-            if not err <= PV_TOL * top:
-                raise AssertionError(f"P5 {mode} Hkv={hk}: max abs err {err} > {PV_TOL} * {top}")
-            b_ms, b_by = _decode_bound(b, h, hk, dh, b * length, mode not in ("fp", "nodeq"))
-            cases.append({"mode": mode, "B": b, "H": h, "Hkv": hk, "Smax": smax,
-                          "length": length, "max_abs_err": err, "largest_output": top,
-                          "equal": bool(torch.equal(out_k, out_p)),
-                          "ms": timer.kernel(kern, ["pv_parts_kernel"]),
-                          "events_ms": timer.events(kern), "call_ms": timer(kern),
-                          "plain_ms": timer(plain, iters=10), "bound_ms": b_ms,
-                          "bound_by": b_by,
-                          **(lib if mode == "fp" else dict.fromkeys(lib))})
+            out_p = plain()
+            top = out_p.abs().amax(dim=(1, 2))  # a slot's largest output
+            errs, equal = {}, True
+            for cluster in DECODE_CLUSTERS:
+                out_k = kern(cluster=cluster)
+                err = (out_k - out_p).abs().amax(dim=(1, 2))
+                if not bool((err <= PV_TOL * top).all()):
+                    raise AssertionError(f"P5 {mode} Hkv={hk} lengths {lens} cluster {cluster}: "
+                                         f"max abs err {err.tolist()} > {PV_TOL} * "
+                                         f"{top.tolist()}")
+                errs[cluster] = err.max().item()
+                equal &= bool(torch.equal(out_k, out_p))
+            case = {"mode": mode, "B": b, "H": h, "Hkv": hk, "Smax": smax, "lengths": list(lens),
+                    "clusters": list(DECODE_CLUSTERS), "max_abs_err": max(errs.values()),
+                    "max_abs_err_by_cluster": errs, "largest_output": top.max().item(),
+                    "equal": equal}
+            if timed:
+                b_ms, b_by = _decode_bound(b, h, hk, dh, b * lens[0],
+                                           mode not in ("fp", "nodeq"))
+                case.update({"ms": timer.kernel(kern, ["pv_parts_cluster"]),
+                             "events_ms": timer.events(kern), "call_ms": timer(kern),
+                             "plain_ms": timer(plain, iters=10), "bound_ms": b_ms,
+                             "bound_by": b_by, **(lib if mode == "fp" else dict.fromkeys(lib))})
+            cases.append(case)
         del q, kt, v
     return cases
 
@@ -3267,7 +3436,7 @@ SOURCES_OF = {
                         "dgq_tpu/ops/fused_decode.py:423"),
     "fused_requant_gemv": ("dgq_tpu_torch/csrc/fused_gemv_span_sm90.cu",
                            "dgq_tpu/ops/fused_decode.py:916"),
-    "fused_mlp_decode": ("dgq_tpu_torch/csrc/fused_decode_span.cu",
+    "fused_mlp_decode": ("dgq_tpu_torch/csrc/fused_gemv_span_sm90.cu",
                          "dgq_tpu/ops/fused_decode.py:1071"),
     "s8_matmul": ("dgq_tpu_torch/csrc/s8_gemm.cu", "scripts/roofline_probe.py:55"),
     "mxu_gemv": ("dgq_tpu_torch/csrc/int8_gemv_engines.cu", "scripts/probe_gemv_engines.py:51"),

@@ -1,26 +1,27 @@
 // The fused decode GEMVs K4 (fused_norm_gemv_rp.cu) and K5
 // (fused_requant_gemv_rp.cu) and the two legs of the fused MLP K6
 // (fused_mlp_decode_rp.cu) on rowpair int4 weights, and K12's norm and
-// requant entries on span weights (fused_gemv_span_sm90.cu), for Hopper
-// (sm_90a), on the main loop of the W4A8 GEMMs (w4a8_gemm_sm90.cuh):
+// requant entries and the two legs of its MLP on span weights
+// (fused_gemv_span_sm90.cu), for Hopper (sm_90a), on the main loop of the
+// W4A8 GEMMs (w4a8_gemm_sm90.cuh):
 //
 //   out[m, n] = float(sum_k q[m, k] * w[k, n]) * alpha[n] (+ beta[n]) (+ res[m, n])
 //
 // for the M <= 64 rows of a decode step or a verify window, with q the int8
-// codes the kernel makes itself (K4 and K6's gate|up leg: RMSNormQ of the
-// fp32 rows x; K5: requant of x; K6's down leg: the int8 h codes its first
-// leg wrote, copied) and w the int8 dequantisation (c4 - (z - 8)) * s of the
-// rowpair nibbles (K12: (c - z) * s of the span nibbles) with the compact
-// even/odd group plane rows s_hi/s_lo/z_hi/z_lo (group g at (g odd ? lo : hi)
-// + (g / 2) N), or, for K6's down leg, with 8x-replicated scale and zero rows
-// (group g at row 8g).  The body takes the order of k in its stages from a
-// Loader (FusedRowpair, FusedSpan below).
-// Each fp32 step of the epilogue is rounded on its own (__fmul_rn,
-// __fadd_rn), as the plain versions round.  K6's gate|up leg ends in
-// h = clip(round(SiLU(g) * u / down_scale)) instead: a block's 128 columns
-// are 64 gate columns f and the same 64 up columns F + f (two TMA boxes a
-// stage), so it pairs them in shared memory and writes the (M, F) int8 h
-// codes that its down leg reads.
+// codes the kernel makes itself (K4 and the MLPs' gate|up legs: RMSNormQ of
+// the fp32 rows x; K5: requant of x; the MLPs' down legs: the int8 h codes
+// their first leg wrote, copied) and w the int8 dequantisation
+// (c4 - (z - 8)) * s of the rowpair nibbles (K12: (c - z) * s of the span
+// nibbles) with the compact even/odd group plane rows s_hi/s_lo/z_hi/z_lo
+// (group g at (g odd ? lo : hi) + (g / 2) N), or, for the down legs, with
+// 8x-replicated scale and zero rows (group g at row 8g).  The body takes
+// the order of k in its stages from a Loader (FusedRowpair, FusedSpan
+// below).  Each fp32 step of the epilogue is rounded on its own
+// (__fmul_rn, __fadd_rn), as the plain versions round.  The gate|up legs
+// end in h = clip(round(SiLU(g) * u / down_scale)) instead: a block's 128
+// columns are 64 gate columns f and the same 64 up columns F + f (two TMA
+// boxes a stage), so it pairs them in shared memory and writes the (M, F)
+// int8 h codes that its down leg reads.
 //
 // What bounds it on this card: the weight bytes, K*N/2, over the 3.35 TB/s of
 // device memory; the rows are few.  The design:
@@ -54,15 +55,14 @@
 //     fp32 rows are read from L2 C times fewer;
 //   * a ring of four stages leaves room for the codes of two blocks an SM,
 //     which more stages in flight did not repay;
-//   * K6 is two launches of this body (and a combine each when the plan
-//     splits K): every weight byte is read once a call, and no block adds
-//     into another's sums (no atomics).
+//   * K6 and K12's MLP are two launches of this body (and a combine each
+//     when the plan splits K): every weight byte is read once a call, and
+//     no block adds into another's sums (no atomics).
 //
 // Everything here has internal linkage (w4a8_gemm_sm90.cuh's rule).
 
 #pragma once
 
-#include "fused_gemv.cuh"
 #include "w4a8_gemm_sm90.cuh"
 
 namespace {
@@ -155,6 +155,15 @@ __device__ __forceinline__ void st_peer(uint32_t remote, uint32_t v) {
 
 // ---- the codes ---------------------------------------------------------------
 
+// clip(round(v), lo, 127), rounded half to even as the plain versions round
+__device__ __forceinline__ int clamp_code(float v, float lo) {
+  return static_cast<int>(fminf(fmaxf(rintf(v), lo), 127.0f));
+}
+
+__device__ __forceinline__ uint32_t pack4(int a, int b, int c, int d) {
+  return (a & 0xFF) | ((b & 0xFF) << 8) | ((c & 0xFF) << 16) | (static_cast<uint32_t>(d) << 24);
+}
+
 // Byte offset of code k (local to the block's K range, a multiple of 4) of row
 // r: box k / 64 of [BM][64 bytes], swizzled 64 bytes (16-byte chunk index
 // XOR bits 7-8 of the offset), as TMA would write it and wgmma reads it.
@@ -164,9 +173,10 @@ __device__ __forceinline__ int code_offset(int r, int k) {
   return (k >> 6) * BM * F_HB + (off ^ ((off >> 3) & 0x30));
 }
 
-// rsqrt(mean(x * x) + eps) of one row, by one warp, in fgemv::rmsnorm_codes'
-// order: lane l sums the squares of x[4l + 128j .. + 3] for j = 0, 1, ... in
-// turn, then an xor butterfly; the loads run U float4 ahead.
+// rsqrt(mean(x * x) + eps) of one row, by one warp, in a fixed order
+// (chip_smoke.py's _rmsnorm_q_ordered): lane l sums the squares of
+// x[4l + 128j .. + 3] for j = 0, 1, ... in turn, then an xor butterfly; the
+// loads run U float4 ahead.
 __device__ __forceinline__ float row_rsqrt(const float* __restrict__ xr, int K, float eps,
                                            int lane) {
   constexpr int U = 16;
@@ -258,13 +268,13 @@ __device__ __forceinline__ void make_codes(const FusedArgs& a, uint8_t* codes, f
           y[2] = __fadd_rn(y[2], bv[u].z);
           y[3] = __fadd_rn(y[3], bv[u].w);
         }
-        word = fgemv::pack4(fgemv::clamp_code(y[0], -128.0f), fgemv::clamp_code(y[1], -128.0f),
-                            fgemv::clamp_code(y[2], -128.0f), fgemv::clamp_code(y[3], -128.0f));
+        word = pack4(clamp_code(y[0], -128.0f), clamp_code(y[1], -128.0f),
+                     clamp_code(y[2], -128.0f), clamp_code(y[3], -128.0f));
       } else {
-        word = fgemv::pack4(fgemv::clamp_code(__fdiv_rn(v[u].x, scale), a.qmin),
-                            fgemv::clamp_code(__fdiv_rn(v[u].y, scale), a.qmin),
-                            fgemv::clamp_code(__fdiv_rn(v[u].z, scale), a.qmin),
-                            fgemv::clamp_code(__fdiv_rn(v[u].w, scale), a.qmin));
+        word = pack4(clamp_code(__fdiv_rn(v[u].x, scale), a.qmin),
+                     clamp_code(__fdiv_rn(v[u].y, scale), a.qmin),
+                     clamp_code(__fdiv_rn(v[u].z, scale), a.qmin),
+                     clamp_code(__fdiv_rn(v[u].w, scale), a.qmin));
       }
       const int off = code_offset<BM>(r, k);
       *reinterpret_cast<uint32_t*>(codes + off) = word;
@@ -287,7 +297,14 @@ __device__ __forceinline__ void make_codes(const FusedArgs& a, uint8_t* codes, f
 //     logical k less kb, the block's first, in boxes of 64 k);
 // gsm = gs_magic(a.gs) makes a division by the groupsize one multiply-high.
 //   L::offsets / L::frags_at: step kk's fragments of both halves, from the
-//     thread's rows (rows + T_ROWS t 128) and its precomputed offsets.
+//     thread's rows (rows + T_ROWS t 128) and its precomputed offsets;
+//   L::offsets_box64 / L::frags_box64: the same in the gate|up legs' boxes
+//     of 64-byte rows (rows_t = box + T_ROWS t 64).
+// A gate|up stage holds two boxes [64 rows][64 bytes] swizzled 64 bytes
+// (the 16-byte chunk index XOR bits 7-8 of the offset: (row >> 1) & 3),
+// gate at 0 and up at GU_BOX; a thread reads column pair cp (0..31) of its
+// warpgroup's box.
+constexpr int GU_BOX = 64 * 64;
 
 // 0xFFFFFFFF / gs + 1: p / gs == umulhi(p, gs_magic(gs)) for p < 2^32 / gs
 __device__ __forceinline__ uint32_t gs_magic(int gs) {
@@ -311,6 +328,26 @@ struct FusedRowpair : RowpairLoader<QS_> {
   static __device__ __forceinline__ void offsets(int cp, int t, uint32_t (&off)[OFFS]) {
     RowpairLoader<QS>::pair_offsets(cp, t, off);
   }
+  // The rows a thread reads of a 32-k step (2t, 2t + 1, 8 + 2t, 9 + 2t past
+  // a multiple of 16) all swizzle by t in a box of 64-byte rows, so one
+  // offset serves them.
+  static __device__ __forceinline__ void offsets_box64(int cp, int t, uint32_t (&off)[OFFS]) {
+    off[0] = (((cp >> 3) ^ t) << 4) | ((cp & 7) << 1);
+  }
+  // RowpairLoader::frags_at on a box of 64-byte rows: rows_t = box + 2t * 64
+  static __device__ __forceinline__ void frags_box64(
+      const uint8_t* rows_t, const uint32_t (&off)[OFFS],
+      const typename RowpairLoader<QS_>::Scales& sc, int kk, Frags& a) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const uint8_t* b = rows_t + (32 * h + 16 * kk) * 64 + off[0];
+      auto ld = [&](int d) { return *reinterpret_cast<const uint16_t*>(b + d * 64); };
+      const uint32_t t01 = __byte_perm(ld(0), ld(1), 0x5410);
+      const uint32_t t23 = __byte_perm(ld(8), ld(9), 0x5410);
+      const uint32_t c[2] = {__byte_perm(t01, t23, 0x6420), __byte_perm(t01, t23, 0x7531)};
+      RowpairLoader<QS>::unpack(c, sc, QS == 1 ? h : 2 * h + kk, a[h]);
+    }
+  }
 };
 
 // Span bytes (K12): step kk of stage st is packed rows p = 64 st + 32 kk ..
@@ -324,11 +361,14 @@ struct FusedRowpair : RowpairLoader<QS_> {
 // holds whole spans (the plan splits K so), so every k of its stages lies in
 // it.  The fragments: rows 4t .. 4t + 3 and 16 + 4t .. + 3 of the step
 // (SpanLoader's, whose span_unpack they take), whose swizzle is that of row
-// 4t + d, d = 0..3.  (Lanes t and t + 2 read one 16-byte chunk of two rows,
-// a 2-way bank conflict; reading in an order rotated by t / 2 removed it
-// and moved no time on the card, so the reads stay plain.)  At small M the
-// offsets' arithmetic is not hidden behind the products: with QS 1 it is
-// done once a stage.
+// 4t + d, d = 0..3: row & 7 in a stage's 128-byte rows swizzled 128 bytes,
+// (row >> 1) & 3 in a gate|up box's 64-byte rows swizzled 64 bytes, where
+// d = 0, 1 and d = 2, 3 take two XOR values (a rowpair thread's rows take
+// one).  (Lanes t and t + 2 read one 16-byte chunk of two rows, a 2-way
+// bank conflict; reading in an order rotated by t / 2 removed it and moved
+// no time on the card, so the reads stay plain.)  At small M the offsets'
+// arithmetic is not hidden behind the products: with QS 1 it is done once a
+// stage.
 template <int QS_>
 struct FusedSpan {
   static constexpr int QS = QS_, T_ROWS = 4, OFFS = 4;
@@ -361,13 +401,30 @@ struct FusedSpan {
 #pragma unroll
     for (int d = 0; d < 4; ++d) off[d] = (((cp >> 3) ^ ((4 * t + d) & 7)) << 4) | ((cp & 7) << 1);
   }
+  static __device__ __forceinline__ void offsets_box64(int cp, int t, uint32_t (&off)[OFFS]) {
+#pragma unroll
+    for (int d = 0; d < 4; ++d)
+      off[d] = (((cp >> 3) ^ (((4 * t + d) >> 1) & 3)) << 4) | ((cp & 7) << 1);
+  }
   static __device__ __forceinline__ void frags_at(const uint8_t* rows_t, const uint32_t (&off)[OFFS],
                                                   const Scales& sc, int kk, Frags& a) {
+    frags_rows<128>(rows_t, off, sc, kk, a);
+  }
+  static __device__ __forceinline__ void frags_box64(const uint8_t* rows_t,
+                                                     const uint32_t (&off)[OFFS],
+                                                     const Scales& sc, int kk, Frags& a) {
+    frags_rows<64>(rows_t, off, sc, kk, a);
+  }
+  // step kk's fragments from rows of RB bytes
+  template <int RB>
+  static __device__ __forceinline__ void frags_rows(const uint8_t* rows_t,
+                                                    const uint32_t (&off)[OFFS], const Scales& sc,
+                                                    int kk, Frags& a) {
     uint32_t c[2][2];  // the column words of rows 4t.. and 16 + 4t..
 #pragma unroll
     for (int u = 0; u < 2; ++u) {
-      const uint8_t* b = rows_t + (32 * kk + 16 * u) * 128;
-      auto ld = [&](int d) { return *reinterpret_cast<const uint16_t*>(b + d * 128 + off[d]); };
+      const uint8_t* b = rows_t + (32 * kk + 16 * u) * RB;
+      auto ld = [&](int d) { return *reinterpret_cast<const uint16_t*>(b + d * RB + off[d]); };
       const uint32_t t01 = __byte_perm(ld(0), ld(1), 0x5410);
       const uint32_t t23 = __byte_perm(ld(2), ld(3), 0x5410);
       c[u][0] = __byte_perm(t01, t23, 0x6420);
@@ -396,34 +453,7 @@ __device__ __forceinline__ int silu_code(int ag, int au, const FusedArgs& a, int
   const float up = __fmul_rn(static_cast<float>(au), a.alpha[a.N / 2 + f]);
   const float sig = __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-g)));
   const float h = __fmul_rn(__fmul_rn(g, sig), up);
-  return fgemv::clamp_code(__fdiv_rn(h, hscale), -128.0f);
-}
-
-// K6's gate|up stage holds two boxes [64 rows][64 bytes] swizzled 64 bytes
-// (the 16-byte chunk index XOR bits 7-8 of the offset), gate at 0 and up at
-// GU_BOX.  The rows a thread reads of a 32-k step (2t, 2t + 1, 8 + 2t, 9 + 2t
-// past a multiple of 16) all swizzle by t, so one offset serves them:
-// that of column pair cp (0..31) of its warpgroup's box.
-constexpr int GU_BOX = 64 * 64;
-
-__device__ __forceinline__ uint32_t box64_offset(int cp, int t) {
-  return (((cp >> 3) ^ t) << 4) | ((cp & 7) << 1);
-}
-
-// RowpairLoader::frags_at on a box of 64-byte rows: rows_t = box + 2t * 64
-template <int QS>
-__device__ __forceinline__ void frags_box64(const uint8_t* rows_t, uint32_t off,
-                                            const typename RowpairLoader<QS>::Scales& sc, int kk,
-                                            Frags& a) {
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const uint8_t* b = rows_t + (32 * h + 16 * kk) * 64 + off;
-    auto ld = [&](int d) { return *reinterpret_cast<const uint16_t*>(b + d * 64); };
-    const uint32_t t01 = __byte_perm(ld(0), ld(1), 0x5410);
-    const uint32_t t23 = __byte_perm(ld(8), ld(9), 0x5410);
-    const uint32_t c[2] = {__byte_perm(t01, t23, 0x6420), __byte_perm(t01, t23, 0x7531)};
-    RowpairLoader<QS>::unpack(c, sc, QS == 1 ? h : 2 * h + kk, a[h]);
-  }
+  return clamp_code(__fdiv_rn(h, hscale), -128.0f);
 }
 
 // One block: 128 weight columns over the stages [sps blockIdx.y, + sps) of
@@ -519,7 +549,7 @@ __device__ __forceinline__ void fused_gemv_body(const CUtensorMap& tm_w, const C
   const int cp = 32 * wg + 8 * warp + (lane >> 2);  // this thread's column pair of the block's 64
   uint32_t off[L::OFFS];
   if constexpr (GU)
-    off[0] = box64_offset(cp & 31, t);  // of its warpgroup's box: gate (0) or up (1)
+    L::offsets_box64(cp & 31, t, off);  // of its warpgroup's box: gate (0) or up (1)
   else
     L::offsets(cp, t, off);
   // the first product writes the accumulators (scale-d 0): no other
@@ -537,7 +567,7 @@ __device__ __forceinline__ void fused_gemv_body(const CUtensorMap& tm_w, const C
 #pragma unroll
     for (int kk = 0; kk < 2; ++kk) {
       if constexpr (GU)
-        frags_box64<QS>(rows + wg * GU_BOX + 2 * t * 64, off[0], sc, kk, fk[kk]);
+        L::frags_box64(rows + wg * GU_BOX + L::T_ROWS * t * 64, off, sc, kk, fk[kk]);
       else
         L::frags_at(rows + L::T_ROWS * t * 128, off, sc, kk, fk[kk]);
 #pragma unroll
@@ -666,7 +696,8 @@ constexpr int F_BAD_ARGS = -1;  // an entry point's own argument checks
 // stages covering K; clusters of 1, 2, 4 or 8 column tiles; the shapes the plain
 // versions take (M 1..64, N % 32, K % 128, groupsize % 32 dividing K / 2).
 inline bool fused_args_ok(const FusedArgs& a, int bm, int splits, int cluster) {
-  return fgemv::gemv_shapes_ok(a.M, a.N, a.K, a.gs) && a.K % (2 * a.gs) == 0 &&
+  return a.M >= 1 && a.M <= 64 && a.N % 32 == 0 && a.K % 128 == 0 && a.gs > 0 &&
+         a.gs % 32 == 0 && a.K % (2 * a.gs) == 0 &&
          (bm == 8 || bm == 16 || bm == 32 || bm == 48 || bm == 64) && bm >= a.M && a.sps >= 1 &&
          splits == (a.nst + a.sps - 1) / a.sps && (splits == 1) == (a.part == nullptr) &&
          (cluster == 1 || cluster == 2 || cluster == 4 || cluster == 8) &&
@@ -761,6 +792,64 @@ int launch_fused(const FusedArgs& a, int bm, int splits, int cluster, const void
   if (!fused_args_ok(a, bm, splits, cluster)) return F_BAD_ARGS;
   if (a.gs % 64 == 0) return launch_fused_qs<Kern, 1>(a, bm, splits, cluster, qw, planes, st);
   return launch_fused_qs<Kern, 2>(a, bm, splits, cluster, qw, planes, st);
+}
+
+// A plan of one leg of an MLP: token rows, K splits, stages a split,
+// cluster, and the int32 partials of a K split (null unsplit).
+struct LegPlan {
+  int bm, splits, sps, cluster;
+  void* part;
+};
+
+// K6's and K12's MLP (fused_mlp_decode_rp.cu, fused_gemv_span_sm90.cu):
+// the gate|up leg GU, (M, 2F) over K = D on RMSNormQ codes, writes the
+// (M, F) h codes; then the down leg DN, (M, D) over K = F on those codes,
+// writes acc * alpha_d (+ beta_d) (+ x).  Both legs' arguments and plans
+// pass `ok` (the layout's checks) before either launches.  Returns a
+// cudaError_t, or F_BAD_ARGS.
+template <class GU, class DN, class Ok>
+int launch_mlp(Ok ok, const void* x, const void* ln_w, const void* ln_b, float eps,
+               const void* down_scale, const void* gu_qw, const void* const (&gu_planes)[4],
+               const void* gu_alpha, const void* d_qw, const void* d_ws, const void* d_wz,
+               const void* d_alpha, const void* d_beta, int fuse_residual, void* out,
+               void* xq_out, void* h_out, int M, int D, int F, int gs, const LegPlan& p1,
+               const LegPlan& p2, cudaStream_t st) {
+  if (!ln_w || !down_scale || !h_out || F % 64) return F_BAD_ARGS;
+  FusedArgs g{};
+  g.x = static_cast<const float*>(x);
+  g.lnw = static_cast<const float*>(ln_w);
+  g.lnb = static_cast<const float*>(ln_b);
+  g.eps = eps;
+  g.alpha = static_cast<const float*>(gu_alpha);
+  g.codes_out = static_cast<int8_t*>(xq_out);
+  g.down_scale = static_cast<const float*>(down_scale);
+  g.h_out = static_cast<int8_t*>(h_out);
+  g.part = static_cast<int*>(p1.part);
+  g.M = M;
+  g.N = 2 * F;
+  g.K = D;
+  g.gs = gs;
+  g.nst = D / 128;
+  g.sps = p1.sps;
+  FusedArgs d{};
+  d.h_in = static_cast<const int8_t*>(h_out);
+  d.alpha = static_cast<const float*>(d_alpha);
+  d.beta = static_cast<const float*>(d_beta);
+  d.residual = fuse_residual ? static_cast<const float*>(x) : nullptr;
+  d.out = static_cast<float*>(out);
+  d.part = static_cast<int*>(p2.part);
+  d.M = M;
+  d.N = D;
+  d.K = F;
+  d.gs = gs;
+  d.nst = F / 128;
+  d.sps = p2.sps;
+  if (!ok(g, p1.bm, p1.splits, p1.cluster) || !ok(d, p2.bm, p2.splits, p2.cluster))
+    return F_BAD_ARGS;
+  const void* const d_planes[4] = {d_ws, d_ws, d_wz, d_wz};
+  const int rc = launch_fused<GU>(g, p1.bm, p1.splits, p1.cluster, gu_qw, gu_planes, st);
+  if (rc) return rc;
+  return launch_fused<DN>(d, p2.bm, p2.splits, p2.cluster, d_qw, d_planes, st);
 }
 
 }  // namespace

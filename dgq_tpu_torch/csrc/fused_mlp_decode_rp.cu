@@ -104,44 +104,13 @@ int fused_mlp_decode_rp(const void* x, const void* ln_w, const void* ln_b, float
                         int F, int gs, int bm1, int splits1, int sps1, int cluster1, void* part1,
                         int bm2, int splits2, int sps2, int cluster2, void* part2,
                         void* stream) {
-  if (!ln_w || !down_scale || !h_out || F % 64) return F_BAD_ARGS;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  FusedArgs g{};
-  g.x = static_cast<const float*>(x);
-  g.lnw = static_cast<const float*>(ln_w);
-  g.lnb = static_cast<const float*>(ln_b);
-  g.eps = eps;
-  g.alpha = static_cast<const float*>(gu_alpha);
-  g.codes_out = static_cast<int8_t*>(xq_out);
-  g.down_scale = static_cast<const float*>(down_scale);
-  g.h_out = static_cast<int8_t*>(h_out);
-  g.part = static_cast<int*>(part1);
-  g.M = M;
-  g.N = 2 * F;
-  g.K = D;
-  g.gs = gs;
-  g.nst = D / 128;
-  g.sps = sps1;
-  FusedArgs d{};
-  d.h_in = static_cast<const int8_t*>(h_out);
-  d.alpha = static_cast<const float*>(d_alpha);
-  d.beta = static_cast<const float*>(d_beta);
-  d.residual = fuse_residual ? static_cast<const float*>(x) : nullptr;
-  d.out = static_cast<float*>(out);
-  d.part = static_cast<int*>(part2);
-  d.M = M;
-  d.N = D;
-  d.K = F;
-  d.gs = gs;
-  d.nst = F / 128;
-  d.sps = sps2;
-  if (!fused_args_ok(g, bm1, splits1, cluster1) || !fused_args_ok(d, bm2, splits2, cluster2))
-    return F_BAD_ARGS;
   const void* const gu_planes[4] = {gu_s_hi, gu_s_lo, gu_z_hi, gu_z_lo};
-  const void* const d_planes[4] = {d_ws, d_ws, d_wz, d_wz};
-  const int rc = launch_fused<GateUp>(g, bm1, splits1, cluster1, gu_qw, gu_planes, st);
-  if (rc) return rc;
-  return launch_fused<Down>(d, bm2, splits2, cluster2, d_qw, d_planes, st);
+  return launch_mlp<GateUp, Down>(fused_args_ok, x, ln_w, ln_b, eps, down_scale, gu_qw,
+                                  gu_planes, gu_alpha, d_qw, d_ws, d_wz, d_alpha, d_beta,
+                                  fuse_residual, out, xq_out, h_out, M, D, F, gs,
+                                  {bm1, splits1, sps1, cluster1, part1},
+                                  {bm2, splits2, sps2, cluster2, part2},
+                                  static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -37,11 +37,11 @@ SOURCES = {
     "fused_requant_gemv_rp": "fused_requant_gemv_rp",
     "fused_mlp_decode_rp": "fused_mlp_decode_rp",
     # K12 (which also serves K13's names): the fused decode entry points on
-    # span weights, the norm and requant ones on K4's and K5's TMA + wgmma
-    # loop (one source), the MLP its own
+    # span weights, K4's, K5's and K6's TMA + wgmma loop on span bytes (one
+    # source)
     "fused_norm_gemv": "fused_gemv_span_sm90",
     "fused_requant_gemv": "fused_gemv_span_sm90",
-    "fused_mlp_decode": "fused_decode_span",
+    "fused_mlp_decode": "fused_gemv_span_sm90",
     # K7, K8 and K11: one block body, dense or paged addressing, INT8 or nibble codes
     "int8_decode_attention_chunked": "int8_chunked_decode_attention",
     "int8_paged_decode_attention": "int8_chunked_decode_attention",
@@ -51,7 +51,8 @@ SOURCES = {
     "w4a8_fpscale_matmul_packed": "w4a8_span_gemm",
     # the probes of dgq_tpu_torch/scripts/: P1 the pure s8 GEMM; P2 the three
     # GEMV engines, one source; P3 the two s4 column maps, one source (P4's
-    # names run the bitcast map); P5 decode attention in six p @ V modes
+    # names run the bitcast map); P5 decode attention in six p @ V modes, on
+    # K3's body (csrc/decode_attention.cuh)
     "s8_matmul": "s8_gemm",
     "mxu_gemv": "int8_gemv_engines",
     "vpu_gemv": "int8_gemv_engines",

@@ -10,10 +10,10 @@ kernels ``fused_norm_gemv_rp`` (K4, ``csrc/fused_norm_gemv_rp.cu``),
 gate|up product with its SiLU codes and the down product; all three on the
 TMA + wgmma loop of ``csrc/fused_gemv_sm90.cuh``, tiled by ``fused_plan``
 and, for K6's legs, ``mlp_plan``) and ``fused_norm_gemv``,
-``fused_requant_gemv`` (K12's norm and requant entries,
-``csrc/fused_gemv_span_sm90.cu``: K4's and K5's loop on span bytes, tiled by
-``fused_plan`` with ``layout="span"``; ``span_stage_map`` is its order of
-k), ``fused_mlp_decode`` (K12's MLP entry, ``csrc/fused_decode_span.cu``).
+``fused_requant_gemv`` and ``fused_mlp_decode`` (K12's norm, requant and
+MLP entries, ``csrc/fused_gemv_span_sm90.cu``: K4's and K5's loop and K6's
+two legs on span bytes, tiled by ``fused_plan`` and ``mlp_plan`` with
+``layout="span"``; ``span_stage_map`` is their order of k).
 Each plain version (``*_xla``) makes
 its int8 codes, takes the exact int32 product with the weights dequantised
 to int8 (``(c4 - (z - 8)) * s`` rowpair, ``(c - z) * s`` span) and applies
@@ -53,22 +53,19 @@ _NORM_ARGS = [_VP] * 3 + [_F32] + [_VP] * 9 + [_INT] * 8 + [_VP] * 2
 # K5 and K12's requant entry: x, in_scale, qmin, qw, s_hi, s_lo, z_hi, z_lo,
 # alpha, beta, residual, out, codes_out, then as the norm's from M
 _REQUANT_ARGS = [_VP] * 2 + [_F32] + [_VP] * 10 + [_INT] * 8 + [_VP] * 2
-# x, lnw, lnb, eps, down_scale, gu_qw, gu_s_hi, gu_s_lo, gu_z_hi, gu_z_lo,
-# gu_alpha, d_qw, d_ws, d_wz, d_alpha, d_beta, fuse_residual, acc, out,
-# xq_out, h_out, M, D, F, gs, sms, stream (K12's MLP)
-_MLP_ARGS = [_VP] * 3 + [_F32] + [_VP] * 12 + [_INT] + [_VP] * 4 + [_INT] * 5 + [_VP]
-# K6: as K12's MLP up to fuse_residual, then out, xq_out, h_out, M, D, F, gs
-# and each leg's plan (bm, splits, sps, cluster) with its int32 scratch, and
-# the stream
-_MLP_RP_ARGS = ([_VP] * 3 + [_F32] + [_VP] * 12 + [_INT] + [_VP] * 3 + [_INT] * 4
-                + ([_INT] * 4 + [_VP]) * 2 + [_VP])
+# K6 and K12's MLP: x, lnw, lnb, eps, down_scale, gu_qw, gu_s_hi, gu_s_lo,
+# gu_z_hi, gu_z_lo, gu_alpha, d_qw, d_ws, d_wz, d_alpha, d_beta,
+# fuse_residual, out, xq_out, h_out, M, D, F, gs and each leg's plan (bm,
+# splits, sps, cluster) with its int32 scratch, and the stream
+_MLP_ARGS = ([_VP] * 3 + [_F32] + [_VP] * 12 + [_INT] + [_VP] * 3 + [_INT] * 4
+             + ([_INT] * 4 + [_VP]) * 2 + [_VP])
 # the C entry points of each source (a library's argtypes are set when it loads)
 _SIGNATURES = {
     "fused_norm_gemv_rp": {NORM: _NORM_ARGS},
     "fused_requant_gemv_rp": {REQUANT: _REQUANT_ARGS},
-    "fused_mlp_decode_rp": {MLP: _MLP_RP_ARGS},
-    "fused_gemv_span_sm90": {NORM_SPAN: _NORM_ARGS, REQUANT_SPAN: _REQUANT_ARGS},
-    "fused_decode_span": {MLP_SPAN: _MLP_ARGS},
+    "fused_mlp_decode_rp": {MLP: _MLP_ARGS},
+    "fused_gemv_span_sm90": {NORM_SPAN: _NORM_ARGS, REQUANT_SPAN: _REQUANT_ARGS,
+                             MLP_SPAN: _MLP_ARGS},
 }
 
 
@@ -398,6 +395,9 @@ def fused_candidates(m: int, n: int, k: int, groupsize: int, layout: str = "rowp
     if n % 32 or k % FUSED_STAGE_K or groupsize % 32 or k % (2 * groupsize):
         raise ValueError(f"K4/K5/K12 need N % 32 == 0, K % 128 == 0 and a groupsize % 32 == 0 "
                          f"that divides K / 2; got N={n}, K={k}, groupsize={groupsize}")
+    if layout == "span" and k // 2 * groupsize >= 2 ** 32:  # the kernel's division by gs
+        raise ValueError(f"K12 needs K / 2 * groupsize < 2**32; got K={k}, "
+                         f"groupsize={groupsize}")
     bm = next(t for t in FUSED_TILES if t >= m)
     stages = k // FUSED_STAGE_K
     plans = []
@@ -443,14 +443,15 @@ def fused_plan(m: int, n: int, k: int, groupsize: int, sms: int, norm: bool = Tr
                key=lambda p: _plan_cost(p, m, n, k, sms, norm))
 
 
-def mlp_plan(m: int, d: int, f: int, groupsize: int, sms: int):
-    """The plans of K6's two legs for an (m, D, F) MLP on a card with
-    ``sms`` SMs: the gate|up leg is K4's product, (m, 2F, D) with the
-    RMSNormQ codes; the down leg K5's, (m, D, F) with codes it copies.  Each
-    leg's block reads 128 columns of its weights a stage, so
+def mlp_plan(m: int, d: int, f: int, groupsize: int, sms: int, layout: str = "rowpair"):
+    """The plans of K6's two legs (``layout="rowpair"``), or of K12's MLP's
+    on span bytes (``"span"``: K splits in whole spans), for an (m, D, F)
+    MLP on a card with ``sms`` SMs: the gate|up leg is K4's product, (m, 2F,
+    D) with the RMSNormQ codes; the down leg K5's, (m, D, F) with codes it
+    copies.  Each leg's block reads 128 columns of its weights a stage, so
     ``fused_plan``'s tiles, clusters, splits and costs hold for both."""
-    return (fused_plan(m, 2 * f, d, groupsize, sms, True),
-            fused_plan(m, d, f, groupsize, sms, False))
+    return (fused_plan(m, 2 * f, d, groupsize, sms, True, layout),
+            fused_plan(m, d, f, groupsize, sms, False, layout))
 
 
 def _split_scratch(plan: FusedPlan, m: int, n: int, dev) -> Optional[Tensor]:
@@ -471,18 +472,19 @@ def launch_gemv(name: str, plan: FusedPlan, args_head, m: int, n: int, k: int, g
     _cuda.check(rc, name)
 
 
-def launch_mlp_rp(plans, args_head, m: int, d: int, f: int, gs: int, dev) -> None:
-    """Launch K6 with its legs' ``plans`` (gate|up, down): the C entry
-    point's arguments up to ``h_out`` (``args_head``), then the shapes and
-    each leg's plan with the int32 scratch of its K split."""
+def launch_mlp(name: str, plans, args_head, m: int, d: int, f: int, gs: int, dev) -> None:
+    """Launch K6 or K12's MLP (``name``) with its legs' ``plans`` (gate|up,
+    down): the C entry point's arguments up to ``h_out`` (``args_head``),
+    then the shapes and each leg's plan with the int32 scratch of its K
+    split."""
     gate_up, down = plans
     part_gu = _split_scratch(gate_up, m, 2 * f, dev)
     part_d = _split_scratch(down, m, d, dev)
-    rc = _lib(MLP).fused_mlp_decode_rp(
+    rc = getattr(_lib(name), name)(
         *args_head, m, d, f, gs, gate_up.bm, gate_up.splits, gate_up.sps, gate_up.cluster,
         _cuda.ptr(part_gu), down.bm, down.splits, down.sps, down.cluster, _cuda.ptr(part_d),
         _cuda.stream(dev))
-    _cuda.check(rc, MLP)
+    _cuda.check(rc, name)
 
 
 def fused_norm_gemv_rp(x: Tensor, ln_w: Tensor, ln_b: Optional[Tensor], qw_rp: Tensor,
@@ -627,7 +629,7 @@ def fused_mlp_decode_rp(x: Tensor, ln_w: Tensor, ln_b: Optional[Tensor], gu_qw_r
     if h_out is None:  # the down leg's input
         h_out = torch.empty((m, fdim), dtype=torch.int8, device=dev)
     out = torch.empty((m, d), dtype=torch.float32, device=dev)
-    launch_mlp_rp(plans, (
+    launch_mlp(MLP, plans, (
         _cuda.ptr(x), _cuda.ptr(ln_w), _cuda.ptr(ln_b), float(eps), _cuda.ptr(down_scale),
         _cuda.ptr(gu_qw_rp), _cuda.ptr(gu_s_hi), _cuda.ptr(gu_s_lo), _cuda.ptr(gu_z_hi),
         _cuda.ptr(gu_z_lo), _cuda.ptr(gu_alpha), _cuda.ptr(d_qw_rp), _cuda.ptr(d_wscales),
@@ -800,10 +802,15 @@ def fused_mlp_decode(x: Tensor, ln_w: Tensor, ln_b: Optional[Tensor], gu_qweight
     (K6's chain).  gu_qweight (D//2, 2F) span [gate | up] with compact plane
     rows; d_qweight (F//2, D) with 8x row-replicated (8*Gf, D) scales and
     zeros (the kernel reads row 8g of group g).  ``bf`` is the TPU's F block,
-    checked as JAX checks it; the CUDA kernel's blocks take 32 F columns of an
-    even group and the 32 beside them in the odd group.  ``codes_out`` = (xq
-    (M, D), h (M, F)) int8, when given, receive the codes.  The call is one
-    launch (a zero fill and a small epilogue kernel run inside it)."""
+    checked as JAX checks it; the CUDA kernel is K6's two legs on span bytes
+    (gate|up blocks of 64 columns of F, down blocks of 128 rows of Wd a
+    stage), tiled by ``mlp_plan(..., layout="span")``, which also refuses
+    the widths the legs do not take (D and F multiples of 128).
+    ``codes_out`` = (xq (M, D), h (M, F)) int8, when given, receive the
+    codes.  CPU tensors take the plain version; on the card the call is one
+    launch: the gate|up leg with the SiLU codes, then the down leg, each
+    followed by the kernel that sums its K splits where the plan splits
+    K."""
     m, d, n2f, gs = _check_span_shapes(x, gu_qweight, gu_s_hi, span)
     f2, dout = d_qweight.shape
     fdim = 2 * f2
@@ -824,28 +831,29 @@ def fused_mlp_decode(x: Tensor, ln_w: Tensor, ln_b: Optional[Tensor], gu_qweight
     if ln_b is not None:
         _cuda.require(ln_b, "ln_b", torch.float32, (d,), dev)
     _require_scalar(down_scale, "down_scale", dev)
-    _cuda.require(gu_qweight, "gu_qweight", torch.int8, (d // 2, n2f), dev, align=4)
+    # TMA reads the weights and the scale rows: 16-byte aligned
+    _cuda.require(gu_qweight, "gu_qweight", torch.int8, (d // 2, n2f), dev)
     _require_planes(dev, d, n2f, gs, (gu_s_hi, gu_s_lo, gu_z_hi, gu_z_lo), None, gu_alpha,
-                    None)
-    _cuda.require(d_qweight, "d_qweight", torch.int8, (f2, d), dev, align=4)
-    _cuda.require(d_wscales, "d_wscales", torch.int8, (8 * fdim // gs, d), dev, align=4)
-    _cuda.require(d_wzeros, "d_wzeros", torch.int8, (8 * fdim // gs, d), dev, align=4)
+                    None, align=16)
+    _cuda.require(d_qweight, "d_qweight", torch.int8, (f2, d), dev)
+    _cuda.require(d_wscales, "d_wscales", torch.int8, (8 * fdim // gs, d), dev)
+    _cuda.require(d_wzeros, "d_wzeros", torch.int8, (8 * fdim // gs, d), dev)
     _require_planes(dev, fdim, d, gs, (), None, d_alpha, d_beta)
+    plans = mlp_plan(m, d, fdim, gs, _sms(dev), "span")
     xq_out = h_out = None
     if codes_out is not None:
         xq_out, h_out = codes_out
         _cuda.require(xq_out, "codes_out[0]", torch.int8, (m, d), dev, align=4)
         _cuda.require(h_out, "codes_out[1]", torch.int8, (m, fdim), dev, align=4)
-    acc = torch.empty((m, d), dtype=torch.int32, device=dev)
+    if h_out is None:  # the down leg's input
+        h_out = torch.empty((m, fdim), dtype=torch.int8, device=dev)
     out = torch.empty((m, d), dtype=torch.float32, device=dev)
-    rc = _lib(MLP_SPAN).fused_mlp_decode(
+    launch_mlp(MLP_SPAN, plans, (
         _cuda.ptr(x), _cuda.ptr(ln_w), _cuda.ptr(ln_b), float(eps), _cuda.ptr(down_scale),
         _cuda.ptr(gu_qweight), _cuda.ptr(gu_s_hi), _cuda.ptr(gu_s_lo), _cuda.ptr(gu_z_hi),
         _cuda.ptr(gu_z_lo), _cuda.ptr(gu_alpha), _cuda.ptr(d_qweight), _cuda.ptr(d_wscales),
         _cuda.ptr(d_wzeros), _cuda.ptr(d_alpha), _cuda.ptr(d_beta), int(fuse_residual),
-        _cuda.ptr(acc), _cuda.ptr(out), _cuda.ptr(xq_out), _cuda.ptr(h_out), m, d, fdim, gs,
-        _sms(dev), _cuda.stream(dev))
-    _cuda.check(rc, MLP_SPAN)
+        _cuda.ptr(out), _cuda.ptr(xq_out), _cuda.ptr(h_out)), m, d, fdim, gs, dev)
     _cuda.count_launch(MLP_SPAN)
     return out
 

@@ -130,6 +130,16 @@ def fpscale_plan(m: int, n: int, k: int, groupsize: int, sms: int):
     return tile, per * groupsize
 
 
+def fpscale_candidates(m: int, n: int, k: int, groupsize: int, sms: int) -> list:
+    """Every K10 plan ``fpscale_plan`` weighs for an (m, n, k) call: its
+    tile with each split ``_split`` can pick (whole spans a split, from one
+    split up to MAX_SPLITS), the unsplit one first."""
+    tile, _ = fpscale_plan(m, n, k, groupsize, sms)
+    spans = k // 2 // groupsize
+    pers = sorted({-(-spans // s) for s in range(1, min(spans, MAX_SPLITS) + 1)}, reverse=True)
+    return [(tile, per * groupsize) for per in pers]
+
+
 def _sms(dev: torch.device) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
@@ -261,9 +271,10 @@ def w4a8_matmul_packed_xla(x_s8: torch.Tensor, qweight: torch.Tensor, wscales: t
 
 
 def _span_launch(name: str, x_s8, qweight, wscales, wzeros, alpha, beta, groupsize: int,
-                 scales_replicated: bool, out_dtype: torch.dtype):
+                 scales_replicated: bool, out_dtype: torch.dtype, fp_plan=None):
     """Check the operands of K9 (int8 scales) or K10 (``name == FPSCALE``,
-    f32 scales) and launch it."""
+    f32 scales) and launch it; K10 with ``fp_plan`` (one of
+    ``fpscale_candidates``) in place of ``fpscale_plan``'s."""
     fp = name == FPSCALE
     m, k = x_s8.shape
     k2, n = qweight.shape
@@ -286,7 +297,7 @@ def _span_launch(name: str, x_s8, qweight, wscales, wzeros, alpha, beta, groupsi
     args = (_cuda.ptr(x_s8), _cuda.ptr(qweight), _cuda.ptr(wscales), _cuda.ptr(wzeros), srep,
             m, n, k, groupsize)
     if fp:
-        tile, p_split = fpscale_plan(m, n, k, groupsize, _sms(dev))
+        tile, p_split = fp_plan or fpscale_plan(m, n, k, groupsize, _sms(dev))
         splits = -(-k2 // p_split)
         part = (torch.empty((splits, m, n), dtype=torch.float32, device=dev)
                 if splits > 1 else None)

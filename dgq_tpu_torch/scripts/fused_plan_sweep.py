@@ -1,5 +1,6 @@
-"""K4, K5 and K6's two legs, or K12's norm and requant entries, under every
-plan that ``fused_plan`` chooses among, timed on the card.
+"""K4, K5 and K6's two legs, or K12's norm and requant entries and its MLP's
+two legs, under every plan that ``fused_plan`` chooses among, timed on the
+card.
 
 ``fused_plan`` (``ops/fused_decode.py``) gives the fused decode GEMVs K4
 (``fused_norm_gemv_rp``, the q|k|v linear) and K5 (``fused_requant_gemv_rp``,
@@ -7,20 +8,20 @@ o_proj and its residual) a cluster of column tiles and a K split by a cost
 model whose constants were fitted to these times; ``mlp_plan`` gives K6
 (``fused_mlp_decode_rp``) the same model's plans for its gate|up leg (K4's
 product at N = 2F) and its down leg (K5's at K = F); with ``--span``, K12's
-norm and requant entries (``fused_norm_gemv``, ``fused_requant_gemv``: K4's
-and K5's kernel on span bytes, whose K splits hold whole spans) take the
-same model's plans among ``fused_candidates(..., "span")``.  For each row
-count, at LLaMA-2-7B's widths and one group size, this script launches
-every plan of ``fused_candidates`` through ``launch_gemv`` (K6: every plan
-of one leg with the other leg's chosen plan, through ``launch_mlp_rp``),
-holds its
-output equal bit for bit to the chosen plan's (the splits are summed in
-int32 before the epilogue, so the plan moves no bit), and prints one JSON
-line a plan: the plan, its device time from CUDA events (every kernel of
-the call, each call after FLUSHES passes of an L2 flush, less the flushes
-alone; the median of READINGS readings) and whether the plan functions
-chose it.  With ``--repeat R`` each cell first holds every plan R times
-against the chosen plan (each round in a new random order, an L2 flush
+entries (``fused_norm_gemv``, ``fused_requant_gemv``, ``fused_mlp_decode``:
+K4's, K5's and K6's kernels on span bytes, whose K splits hold whole spans)
+take the same model's plans among ``fused_candidates(..., "span")``.  For
+each row count, at LLaMA-2-7B's widths and one group size, this script
+launches every plan of ``fused_candidates`` through ``launch_gemv`` (the
+MLPs: every plan of one leg with the other leg's chosen plan, through
+``launch_mlp``), holds its output equal bit for bit to the chosen plan's
+(the splits are summed in int32 before the epilogue, so the plan moves no
+bit), and prints one JSON line a plan: the plan, its device time from CUDA
+events (every kernel of the call, each after an L2 flush that keeps the
+card busier than the host: ``flushed_seconds`` in
+``utils/benchmarking.py``) and whether the plan functions chose it.  With
+``--repeat R`` each cell first holds every plan R times against the chosen
+plan (each round in a new random order, an L2 flush
 before each call, every call's outputs compared; one JSON line a cell with
 the calls per plan that differed, then an AssertionError if any did), which
 is how a race between plans shows; ``--no-time`` stops there.  Then the
@@ -43,14 +44,9 @@ import torch
 
 from dgq_tpu_torch.ops import _cuda
 from dgq_tpu_torch.ops import fused_decode as fd
+from dgq_tpu_torch.utils.benchmarking import flushed_seconds
 
 D, QKV, F = 4096, 12288, 11264  # LLaMA-2-7B: hidden width, q|k|v outputs, padded MLP width
-# passes of the 128 MB flush before each call: enough card time (~40 us a pass on an H100)
-# that the host's launch of the next call (~40 us of Python) never leaves the card idle; with
-# one pass the host's gaps entered the 12 us o_proj calls' times (up to 1.3x the profiler's)
-FLUSHES = 3
-# readings a plan, of which the median is kept: one reading gave outliers both ways (2-3x)
-READINGS = 3
 
 
 def _inputs(name: str, m: int, gs: int, gen: torch.Generator, dev):
@@ -86,8 +82,9 @@ def _inputs(name: str, m: int, gs: int, gen: torch.Generator, dev):
 
 def _mlp_inputs(m: int, gs: int, gen: torch.Generator, dev):
     """(the C entry point's arguments up to h_out, out, the tensors they
-    point into) of K6 at m rows: gate|up and down weights drawn as
-    ``_inputs`` draws them, the down scales 8x row-replicated."""
+    point into) of K6 or K12's MLP at m rows: gate|up and down weights drawn
+    as ``_inputs`` draws them (random bytes, either layout), the down scales
+    8x row-replicated."""
     def ri(lo, hi, shape):
         return torch.randint(lo, hi, shape, generator=gen, device=dev, dtype=torch.int8)
 
@@ -107,32 +104,6 @@ def _mlp_inputs(m: int, gs: int, gen: torch.Generator, dev):
     head = (p(x), p(lnw), None, 1e-5, p(hscale), p(gqw), *map(p, gplanes), p(galpha), p(dqw),
             p(dws), p(dwz), p(dalpha), None, 1, p(out), None, p(h))
     return head, out, (gqw, gplanes, galpha, dqw, dws, dwz, dalpha, x, lnw, hscale, h)
-
-
-def _device_ms(fn, flush: torch.Tensor, iters: int) -> float:
-    """Device milliseconds a call of ``fn``, from CUDA events alone:
-    ``iters`` calls, each after FLUSHES passes of an L2 flush, less the same
-    flushes without the calls, the median of READINGS such readings.  The
-    flushes keep the card busier than the host's launches, so host gaps stay
-    out of the difference.  (torch.profiler loses its records after some
-    tens of traces in one process.)"""
-    fn()
-
-    def run(call: bool) -> float:
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            for _ in range(FLUSHES):
-                flush.zero_()
-            if call:
-                fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end)
-
-    readings = sorted((run(True) - run(False)) / iters for _ in range(READINGS))
-    return readings[READINGS // 2]
 
 
 def _hold(calls: dict, outs, wants, rounds: int, flush: torch.Tensor, rng) -> dict:
@@ -160,7 +131,7 @@ def main(argv=None) -> list:
     ap.add_argument("--groupsize", type=int, default=128)
     ap.add_argument("--iters", type=int, default=50)
     ap.add_argument("--span", action="store_true",
-                    help="K12's norm and requant entries on span bytes (no K6)")
+                    help="K12's entries on span bytes (no K4-K6)")
     ap.add_argument("--repeat", type=int, default=0,
                     help="first hold every plan this many times against the chosen plan")
     ap.add_argument("--no-time", action="store_true", help="hold the plans, time none")
@@ -203,31 +174,31 @@ def main(argv=None) -> list:
                 if not torch.equal(out, want):
                     raise AssertionError(f"{name} M={m}: {plan} differs from {chosen}")
                 emit({"kernel": name, "M": m, "N": n, "K": k, "groupsize": gs,
-                      **plan._asdict(), "ms": _device_ms(call, flush, args.iters),
+                      **plan._asdict(), "ms": 1e3 * flushed_seconds(call, flush, args.iters),
                       "chosen": plan == chosen})
-        if args.span:
-            continue
-        # K6: each leg's every plan, the other leg at its chosen plan
+        # the MLP: each leg's every plan, the other leg at its chosen plan
+        mlp = fd.MLP_SPAN if args.span else fd.MLP
         head, out, alive = _mlp_inputs(m, gs, gen, dev)
         h = alive[-1]
-        chosen = fd.mlp_plan(m, D, F, gs, sms)
-        fd.launch_mlp_rp(chosen, head, m, D, F, gs, dev)
+        chosen = fd.mlp_plan(m, D, F, gs, sms, layout)
+        fd.launch_mlp(mlp, chosen, head, m, D, F, gs, dev)
         want, want_h = out.clone(), h.clone()
         for leg, (n, k) in enumerate(((2 * F, D), (D, F))):
-            calls = {plan: functools.partial(fd.launch_mlp_rp,
+            calls = {plan: functools.partial(fd.launch_mlp, mlp,
                                              (plan, chosen[1]) if leg == 0 else (chosen[0], plan),
                                              head, m, D, F, gs, dev)
-                     for plan in fd.fused_candidates(m, n, k, gs)}
+                     for plan in fd.fused_candidates(m, n, k, gs, layout)}
             leg_name = ("gate_up", "down")[leg]
-            hold({"kernel": fd.MLP, "leg": leg_name, "M": m, "groupsize": gs}, calls, [h, out],
+            hold({"kernel": mlp, "leg": leg_name, "M": m, "groupsize": gs}, calls, [h, out],
                  [want_h, want])
             for plan, call in calls.items() if not args.no_time else ():
                 out.zero_()
                 call()
                 if not torch.equal(out, want):
-                    raise AssertionError(f"K6 M={m} leg {leg}: {plan} differs from {chosen}")
-                emit({"kernel": fd.MLP, "leg": leg_name, "M": m, "N": n, "K": k,
-                      "groupsize": gs, **plan._asdict(), "ms": _device_ms(call, flush, args.iters),
+                    raise AssertionError(f"{mlp} M={m} leg {leg}: {plan} differs from {chosen}")
+                emit({"kernel": mlp, "leg": leg_name, "M": m, "N": n, "K": k,
+                      "groupsize": gs, **plan._asdict(),
+                      "ms": 1e3 * flushed_seconds(call, flush, args.iters),
                       "chosen": plan == chosen[leg]})
         del alive
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -11,7 +11,9 @@ first call and after its last, read after the end event completes: device
 time, host launch gaps included where the host falls behind.  On CPU
 tensors the caller asked for the CPU: the chains run on the host clock, and
 the result says so (``Seconds.clock`` is ``"host"``; on the card it is
-``"cuda-events"``).
+``"cuda-events"``).  ``flushed_seconds`` times single calls on the card
+instead, each after an L2 flush: for a call shorter than the host's launch
+of it, where a chain would time the host.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
-CUDA_EVENTS, HOST = "cuda-events", "host"
+CUDA_EVENTS, HOST, FLUSHED = "cuda-events", "host", "cuda-events, L2 flushed"
 
 
 class Seconds(float):
@@ -86,6 +88,42 @@ def device_time(
     if dt <= min_dt:
         dt = max(min(longs) / iters, min_dt)
     return Seconds(dt, CUDA_EVENTS if on_card else HOST)
+
+
+# passes of a 128 MB L2 flush before each call: enough card time (~40 us a pass on an H100)
+# that the host's launch of the next call (~40 us of Python) never leaves the card idle; with
+# one pass the host's gaps entered 12 us calls' times (up to 1.3x the profiler's)
+FLUSHES = 3
+# readings, of which the median is kept: one reading gave outliers both ways (2-3x)
+READINGS = 3
+
+
+def flushed_seconds(fn: Callable, flush: torch.Tensor, iters: int) -> Seconds:
+    """Device seconds a call of ``fn()`` on the card, from CUDA events
+    alone: ``iters`` calls, each after FLUSHES passes of an L2 flush (``flush``
+    a 128 MB uint8 tensor on the card), less the same flushes without the
+    calls, the median of READINGS such readings.  The flushes keep the card
+    busier than the host's launches, so host gaps stay out of the
+    difference, and every call finds its operands in device memory, not in
+    L2.  (torch.profiler loses its records after some tens of traces in one
+    process.)"""
+    fn()
+
+    def run(call: bool) -> float:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            for _ in range(FLUSHES):
+                flush.zero_()
+            if call:
+                fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / 1e3
+
+    readings = sorted((run(True) - run(False)) / iters for _ in range(READINGS))
+    return Seconds(readings[READINGS // 2], FLUSHED)
 
 
 def int8_gemm_feedback(m: int, k: int):

@@ -167,3 +167,36 @@ def test_bench_without_a_card_exits_nonzero_naming_it():
     assert proc.returncode != 0
     d = _one_line(proc.stdout)
     assert d["degraded"] and "no CUDA device" in d["extra"]["errors"][0]
+
+
+SASS = """
+\t\tFunction : _ZN50_GLOBAL__N__d6001200_17_w4a8_span_gemm_cu_3b27619f9gemm_sm90ILi16EEEvv
+        /*0000*/                   LDC R1, c[0x0][0x28] ;                  /* 0x00000a00ff017b82 */
+        /*0010*/                   S2R R0, SR_TID.X ;                      /* 0x0000000000007919 */
+\t\tFunction : _ZN50_GLOBAL__N__d6001200_17_w4a8_span_gemm_cu_3b27619f7combineEv
+        /*0000*/                   EXIT ;                                  /* 0x000000000000794d */
+"""
+
+
+def test_sass_diff_strips_the_namespace_hash_and_compares_by_function():
+    """``scripts/sass_diff``: a kernel keeps its name when the source's path
+    (which the anonymous namespace's mangled name holds) changes, and a
+    changed instruction, a new and a removed function are each reported."""
+    from dgq_tpu_torch.scripts import sass_diff
+
+    mine = sass_diff.functions(SASS)
+    assert mine == {"_ZN9gemm_sm90ILi16EEEvv": ["LDC R1, c[0x0][0x28]", "S2R R0, SR_TID.X"],
+                    "_ZN7combineEv": ["EXIT"]}
+    moved = SASS.replace("d6001200_17_w4a8_span_gemm_cu_3b27619f",
+                         "0badf00d_19_decode_attention_cuh_cu_12345678")
+    assert sass_diff.functions(moved) == mine
+    row = sass_diff.compare("w4a8_span_gemm", mine, mine)
+    assert row["same"] == 2 and not (row["differ"] or row["only_this"] or row["only_other"])
+    theirs = {"_ZN9gemm_sm90ILi16EEEvv": ["LDC R1, c[0x0][0x28]", "S2R R0, SR_TID.Y"],
+              "_ZN3oldEv": ["EXIT"]}
+    row = sass_diff.compare("w4a8_span_gemm", mine, theirs)
+    assert row["same"] == 0 and row["only_this"] == ["_ZN7combineEv"]
+    assert row["only_other"] == ["_ZN3oldEv"]
+    assert row["differ"] == [{"function": "_ZN9gemm_sm90ILi16EEEvv", "instructions": [2, 2],
+                              "first": 1, "this": "S2R R0, SR_TID.X",
+                              "other": "S2R R0, SR_TID.Y"}]

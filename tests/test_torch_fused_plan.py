@@ -166,3 +166,47 @@ def test_span_plan_blocks_read_only_codes_of_their_own_k_range(gs):
                 for st in range(first, end):
                     for kk_h, (k0, _, _) in fd.span_stage_map(st, gs).items():
                         assert lo <= k0 and k0 + 32 <= hi, (m, plan, st, kk_h)
+
+
+# K12's MLP: K6's two legs on span bytes (``mlp_plan(..., layout="span")``); (D, F) of
+# LLaMA-2-7B (F padded to 11264) and widths that groupsize 96's spans of 192 k divide
+SPAN_MLPS = [(4096, 11264, gs) for gs in (32, 64, 128)] + [(768, 1536, 96), (3072, 8448, 96)]
+
+
+@pytest.mark.parametrize("d,f,gs", SPAN_MLPS)
+def test_span_mlp_plan_splits_both_legs_in_whole_spans(d, f, gs):
+    unit = fd.split_unit(gs, "span")
+    for m in ROWS:
+        gate_up, down = fd.mlp_plan(m, d, f, gs, SMS, "span")
+        what = f"M={m} D={d} F={f} gs={gs}: {gate_up} {down}"
+        # each leg is the span plan of its own product: gate|up K4's, down K5's
+        assert gate_up == fd.fused_plan(m, 2 * f, d, gs, SMS, True, "span"), what
+        assert down == fd.fused_plan(m, d, f, gs, SMS, False, "span"), what
+        for plan, n, k in ((gate_up, 2 * f, d), (down, d, f)):
+            assert plan in fd.fused_candidates(m, n, k, gs, "span"), what
+            edges = [min(z * plan.sps, plan.stages) * plan.stage_k for z in range(plan.splits + 1)]
+            assert edges[0] == 0 and edges[-1] == k, what
+            # every split starts and ends on a whole span: 2 gs logical k, gs packed rows
+            assert all(e % (2 * gs) == 0 for e in edges), what
+            assert plan.splits == 1 or plan.sps % unit == 0, what
+            assert plan.bm >= m and plan.smem <= fd.SMEM_LIMIT, what
+
+
+def test_span_mlp_plan_equals_the_rowpair_plan_where_stages_hold_whole_spans():
+    # groupsize 32 and 64: one stage (64 packed rows) holds whole spans, so the legs' plans
+    # are K6's; groupsize 128 needs pairs of stages
+    for gs in (32, 64):
+        for m in (1, 4, 40, 64):
+            assert fd.mlp_plan(m, 4096, 11264, gs, SMS, "span") == fd.mlp_plan(
+                m, 4096, 11264, gs, SMS)
+    for plan in fd.mlp_plan(4, 4096, 11264, 128, SMS, "span"):
+        assert plan.splits == 1 or plan.sps % 2 == 0
+
+
+@pytest.mark.parametrize("d,f,gs", [(4096, 11264, 96), (4096, 11264 + 64, 32),
+                                    (4096 + 32, 11264, 32), (768, 1536 + 192, 96)])
+def test_span_mlp_plan_refuses_widths_the_legs_do_not_take(d, f, gs):
+    # D and F must be multiples of 128 (a stage) and of 2 gs (a span): what the C entry
+    # rejects, fused_mlp_decode refuses through its plan before any launch
+    with pytest.raises(ValueError):
+        fd.mlp_plan(4, d, f, gs, SMS, "span")

@@ -137,3 +137,22 @@ def test_fpscale_plan_spreads_a_decode_step_over_the_card():
     assert tile == qm.FP_DECODE_TILE and 2048 // p_split >= 2
     # prefill: 8 x 96 tiles fill the card unsplit
     assert qm.fpscale_plan(1024, 12288, 4096, 128, SMS) == (qm.FP_PREFILL_TILE, 2048)
+
+
+@pytest.mark.parametrize("m", [1, 4, 40, 1024])
+def test_fpscale_candidates_are_every_split_the_plan_weighs(m):
+    """K10's plan hold (chip_smoke.py) runs every ``fpscale_candidates``
+    plan: fpscale_plan's tile with each whole-span split ``_split`` can
+    pick, unsplit first, the chosen one among them, none empty."""
+    n = k = 4096
+    for gs in (32, 64, 128):
+        spans = k // 2 // gs
+        plans = qm.fpscale_candidates(m, n, k, gs, SMS)
+        chosen = qm.fpscale_plan(m, n, k, gs, SMS)
+        assert chosen in plans and plans[0] == (chosen[0], k // 2)
+        assert len(set(plans)) == len(plans) and all(t == chosen[0] for t, _ in plans)
+        want = {-(-spans // s) * gs for s in range(1, min(spans, qm.MAX_SPLITS) + 1)}
+        assert {p for _, p in plans} == want
+        for _, p_split in plans:
+            splits = -(-(k // 2) // p_split)
+            assert p_split % gs == 0 and (splits - 1) * p_split < k // 2 <= splits * p_split

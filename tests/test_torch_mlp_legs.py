@@ -15,6 +15,7 @@ within tests/test_torch_fused_decode.py's tolerance.  Then the plan itself,
 in the manner of tests/test_torch_fused_plan.py, at LLaMA-2-7B's MLP and the
 tests' widths."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -190,3 +191,127 @@ def test_mlp_plan_refuses_widths_the_legs_do_not_take(d, f):
     # F % 128 (the down leg's stages), D % 128 (the gate|up leg's); the tiny config's D = 64
     with pytest.raises(ValueError):
         tfd.mlp_plan(4, d, f, 32, SMS)
+
+
+# ---- K12's MLP: the same two legs on span bytes --------------------------------
+
+
+def _span_weights(k, n, gs, seed):
+    """Span weights of a (k, n) linear for both packages: (jax, port) =
+    (qweight, s_hi, s_lo, z_hi, z_lo, alpha), the 8x-replicated scales and
+    zeros (port), and the compact (G, n) scales and zeros (port)."""
+    r = np.random.default_rng(seed)
+    qw = np.asarray(pack_nibbles(jnp.asarray(r.integers(0, 16, size=(k, n)).astype(np.int8)),
+                                 span=2 * gs))
+    sc = r.integers(1, 4, size=(k // gs, n)).astype(np.int8)
+    zr = r.integers(0, 16, size=(k // gs, n)).astype(np.int8)
+    arrays = (qw, sc[0::2], sc[1::2], zr[0::2], zr[1::2], (r.random(n) * 0.01).astype(np.float32))
+    return ([jnp.asarray(a) for a in arrays], [_t(a) for a in arrays],
+            (_t(np.repeat(sc, 8, 0)), _t(np.repeat(zr, 8, 0))), (_t(sc), _t(zr)))
+
+
+@pytest.fixture(scope="module", params=[32, 64, 128])
+def span_mlp(request):
+    """K12's MLP at the CPU widths and groupsize ``param``: JAX's kernel in
+    interpret mode with the norm bias, the down bias and the residual (the
+    output), and with alpha 1 and neither (the down leg's int32 sums)."""
+    gs = request.param
+    rng = np.random.default_rng(21 + gs)
+    x = (rng.normal(size=(M, D)) * 3).astype(np.float32)
+    lnw = (rng.random(D) + 0.5).astype(np.float32) * 20
+    lnb = (rng.normal(size=(D,)) * 0.1).astype(np.float32)
+    dbias = (rng.normal(size=(D,)) * 0.1).astype(np.float32)
+    jg, tg, _, gc = _span_weights(D, 2 * F, gs, 22 + gs)
+    jd, td, trep, dc = _span_weights(F, D, gs, 23 + gs)
+    hscale, eps = np.float32(0.05), 1e-5
+    jrep = [jnp.asarray(a.numpy()) for a in trep]
+
+    def jax_mlp(alpha, bias, fuse):
+        return np.asarray(jfd.fused_mlp_decode(
+            jnp.asarray(x), jnp.asarray(lnw), jnp.asarray(lnb), *jg, jnp.asarray(hscale), jd[0],
+            *jrep, alpha, bias, span=2 * gs, bf=512, eps=eps, fuse_residual=fuse,
+            interpret=True))
+
+    return dict(gs=gs, x=_t(x), lnw=_t(lnw), lnb=_t(lnb), dbias=_t(dbias), tg=tg, td=td,
+                trep=trep, gc=gc, dc=dc, hscale=torch.tensor(hscale), eps=eps,
+                ref=jax_mlp(jd[5], jnp.asarray(dbias), True),
+                ref_acc=jax_mlp(jnp.ones((D,), jnp.float32), None, False),
+                xq_jax=np.asarray(jfd._rmsnorm_q(jnp.asarray(x), jnp.asarray(lnw),
+                                                 jnp.asarray(lnb), eps)))
+
+
+def test_span_gate_up_boxes_dequantise_to_dequantize_span(span_mlp):
+    """The gate|up leg's order of k on span bytes: a block's stage holds two
+    boxes of 64 packed rows x 64 columns, gate columns [64 b, 64 b + 64) and
+    the same up columns F + 64 b ..; ``span_stage_map`` names each 32-k run
+    of a stage, nibble h of its 32 packed rows, and its plane row.  Every
+    run of every box, dequantised with that plane row of s_hi/z_hi (h = 0)
+    or s_lo/z_lo (h = 1), equals ``dequantize_span``'s weights there, and
+    the runs name each logical k of D once."""
+    from dgq_tpu_torch.ops.quant_matmul import dequantize_span
+
+    gs, tg = span_mlp["gs"], span_mlp["tg"]
+    sc, zr = span_mlp["gc"]
+    w8 = dequantize_span(tg[0], sc, zr, gs).to(torch.int32)
+    byte = tg[0].view(torch.uint8).to(torch.int32)
+    planes = {0: (tg[1], tg[3]), 1: (tg[2], tg[4])}
+    for b in range(F // 64):
+        gate = torch.arange(64 * b, 64 * b + 64)
+        cols = torch.cat([gate, F + gate])
+        seen = []
+        for st in range(D // 128):
+            for (kk, h), (k0, group, row) in tfd.span_stage_map(st, gs).items():
+                rows = byte[64 * st + 32 * kk: 64 * st + 32 * kk + 32][:, cols]
+                nib = (rows >> 4) if h == 0 else (rows & 0xF)
+                s_row, z_row = (p[row][cols].to(torch.int32) for p in planes[h])
+                assert group // 2 == row and group % 2 == h
+                assert torch.equal(((nib - z_row) * s_row).to(torch.int8).int(),
+                                   w8[k0:k0 + 32][:, cols]), (b, st, kk, h)
+                seen += range(k0, k0 + 32)
+        assert sorted(seen) == list(range(D))
+
+
+def _span_leg_plans(n, k, gs):
+    return tfd.fused_candidates(M, n, k, gs, "span")
+
+
+def test_span_legs_under_every_plan_match_jax_kernel(span_mlp):
+    """K12's MLP as the card runs it: under every span plan of either leg
+    (K splits of whole spans, their int32 partials summed in split order)
+    the gate|up sums equal the unsplit product, the xq codes equal JAX's
+    RMSNormQ and the plain version's, the h codes JAX's SiLU * up rule on
+    those sums and the plain version's, the down leg's sums JAX's kernel's
+    (alpha 1), and the output equals the plain version's and lies within
+    1e-6 of the largest of JAX's."""
+    from dgq_tpu_torch.ops.quant_matmul import dequantize_span
+
+    gs, tg, td, trep = span_mlp["gs"], span_mlp["tg"], span_mlp["td"], span_mlp["trep"]
+    x, lnw, lnb, eps, hscale = (span_mlp[k] for k in ("x", "lnw", "lnb", "eps", "hscale"))
+    xq = tfd._rmsnorm_q(x, lnw, lnb, eps)
+    np.testing.assert_array_equal(xq.numpy(), span_mlp["xq_jax"])
+    wg = dequantize_span(tg[0], *span_mlp["gc"], gs)
+    wd = dequantize_span(td[0], *span_mlp["dc"], gs)
+    gu_full = int_matmul(xq, wg)
+    g_j = np.asarray(gu_full[:, :F].numpy(), np.float32) * np.asarray(tg[5][:F].numpy())
+    u_j = np.asarray(gu_full[:, F:].numpy(), np.float32) * np.asarray(tg[5][F:].numpy())
+    hj = (jnp.asarray(g_j) * jax.nn.sigmoid(jnp.asarray(g_j))) * jnp.asarray(u_j)
+    h_jax = np.asarray(jnp.clip(jnp.round(hj / np.float32(0.05)), -128.0, 127.0).astype(jnp.int8))
+    codes = (torch.empty((M, D), dtype=torch.int8), torch.empty((M, F), dtype=torch.int8))
+    plain = tfd.fused_mlp_decode(x, lnw, lnb, *tg, hscale, td[0], *trep, td[5],
+                                 span_mlp["dbias"], span=2 * gs, eps=eps, codes_out=codes)
+    assert torch.equal(codes[0], xq)
+    np.testing.assert_array_equal(codes[1].numpy(), h_jax)
+    assert len(torch.unique(codes[1])) > 100  # the codes span the int8 range
+    for plan in _span_leg_plans(2 * F, D, gs):
+        gu = _split_sum(xq, wg, plan)
+        assert torch.equal(gu, gu_full), plan
+        h = tfd._silu_mul_q(gu[:, :F], gu[:, F:], tg[5][:F], tg[5][F:], hscale)
+        assert torch.equal(h, codes[1]), plan
+    want_acc = torch.tensor(span_mlp["ref_acc"])
+    for plan in _span_leg_plans(D, F, gs):
+        acc = _split_sum(codes[1], wd, plan)
+        assert torch.equal(acc.to(torch.float32), want_acc), plan
+        got = tfd._epilogue(acc, td[5], span_mlp["dbias"], x)
+        torch.testing.assert_close(got, plain, rtol=0, atol=0)
+    ref = span_mlp["ref"]
+    np.testing.assert_allclose(plain.numpy(), ref, rtol=0, atol=1e-6 * np.abs(ref).max())

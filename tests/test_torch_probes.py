@@ -138,6 +138,66 @@ def test_p5_quant_pv_parts_match_jax(j5, monkeypatch):
     assert not torch.equal(longer, t5.attn(*args_t, "fp"))
 
 
+@pytest.mark.parametrize("hk", [4, 1], ids=["mha", "gqa"])
+def test_p5_matches_jax_at_k3_edge_lengths(j5, monkeypatch, hk):
+    """P5's six plain modes against JAX's probe at the lengths K3's body is
+    held at on the card: 0 (no valid position: every score is finfo.min, so
+    every e is 1 over all Smax positions), 1 and Smax, MHA and GQA."""
+    smax, h = 256, 4
+    monkeypatch.setattr(j5, "SMAX", smax)
+    rng = np.random.default_rng(3 + hk)
+    q = _ints(rng, -127, 128, (3, h, 128))
+    kt = _ints(rng, -127, 128, (3, hk, 128, smax))
+    v = _ints(rng, -127, 128, (3, hk, smax, 128))
+    length = np.array([0, 1, smax], np.int32)
+    args_t = [torch.from_numpy(a) for a in (q, kt, v, length)]
+    with pltpu.force_tpu_interpret_mode():
+        want = {m: np.asarray(j5.attn(*(jnp.asarray(a) for a in (q, kt, v, length)), mode=m))
+                for m in MODES}
+    for mode in MODES:
+        got = t5.attn(*args_t, mode).numpy()
+        assert got.shape == (3, h, 128) and np.isfinite(got).all()
+        for b in range(3):  # each slot against its own largest output
+            top = np.abs(want[mode][b]).max()
+            np.testing.assert_allclose(got[b], want[mode][b], rtol=1e-5, atol=1e-5 * top)
+        if mode == "s32dot":
+            assert np.array_equal(got, want[mode])
+    # length 0 weighs every position alike: s32dot is 127 x the sum of v over the cache
+    v_sum = v[0].astype(np.int64).sum(axis=1)  # (Hkv, Dh)
+    np.testing.assert_array_equal(t5.attn(*args_t, "s32dot").numpy()[0],
+                                  127.0 * np.repeat(v_sum, h // hk, axis=0))
+
+
+def test_p5_launch_shape_checks_and_decode_plan_cluster():
+    """P5's C entry's integer arguments, as its wrapper makes them: the
+    cluster is K3's ``decode_plan``, the mode's index is its place in the C
+    entry's rule enum (csrc/decode_attention.cuh), and what the entry
+    rejects raises first."""
+    from dgq_tpu_torch.ops.attention import DECODE_CLUSTERS, decode_plan
+
+    src = (ROOT / "dgq_tpu_torch" / "csrc" / "decode_attention.cuh").read_text()
+    enum = src[src.index("enum PvRule {"):].split("}")[0]
+    for i, mode in enumerate(MODES):
+        assert f"PV_{mode.upper()} = {i}" in enum
+        args = t5.launch_shape((1, 32, 128), (1, 32, 128, 2048), mode, 132)
+        assert args == (1, 32, 32, 128, 2048, i, decode_plan(1, 32, 1, 128, 2048, 132))
+    # one slot of 32 heads: 32 x 8 blocks fill two an SM
+    assert t5.launch_shape((1, 32, 128), (1, 32, 128, 2048), "fp", 132)[-1] == 8
+    assert t5.launch_shape((4, 32, 128), (4, 8, 128, 1707 + 1), "fp", 132)[2] == 8
+    for cluster in DECODE_CLUSTERS:
+        assert t5.launch_shape((1, 32, 128), (1, 32, 128, 2048), "quant", 132,
+                               cluster)[-1] == cluster
+    bad = [((1, 32, 64), (1, 32, 64, 2048)), ((1, 32, 128), (1, 3, 128, 2048)),
+           ((1, 24, 128), (1, 8, 128, 2048)), ((1, 32, 128), (1, 32, 128, 2046))]
+    for q_shape, kt_shape in bad:
+        with pytest.raises(ValueError):
+            t5.launch_shape(q_shape, kt_shape, "fp", 132)
+    with pytest.raises(ValueError, match="cluster"):
+        t5.launch_shape((1, 32, 128), (1, 32, 128, 2048), "fp", 132, 16)
+    with pytest.raises(ValueError, match="mode"):
+        t5.launch_shape((1, 32, 128), (1, 32, 128, 2048), "fast", 132)
+
+
 def test_p5_codes_at_exact_ties():
     """quant (half to even) and quant_fast (trunc(127 e + 0.5)) part exactly
     where 127 e is x.5 in f32: codes as JAX's expressions give them."""

@@ -184,8 +184,7 @@ def test_k12_wrappers_take_plain_versions_on_cpu_without_launches():
     assert torch.equal(tfd.fused_mlp_decode(*args), tfd.fused_mlp_decode_xla(*args))
     assert _cuda.LAUNCHES == {name: 0 for name in _cuda.SOURCES}
     assert _cuda.SOURCES["fused_norm_gemv"] == _cuda.SOURCES["fused_requant_gemv"] == \
-        "fused_gemv_span_sm90"
-    assert _cuda.SOURCES["fused_mlp_decode"] == "fused_decode_span"
+        _cuda.SOURCES["fused_mlp_decode"] == "fused_gemv_span_sm90"
     assert not {"fused_norm_gemv_s4", "fused_requant_gemv_s4"} & set(_cuda.LAUNCHES)
 
 
