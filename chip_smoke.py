@@ -6,13 +6,14 @@ It imports no JAX.  Phases, each printing one JSON line with its seconds:
 
 1. device: the card's name and power limit (nvidia-smi); TF32 off.
 2. build: the thirteen CUDA sources, one nvcc each, started together; the
-   logs of the sources on wgmma (K1, K4-K6, K9, K10, K12, P1 on the TMA +
-   wgmma loop, and K2) must not hold ptxas warnings
+   logs of the sources on wgmma (K1, K4-K6, K9, K10, K12, P1 and P2 on the
+   TMA + wgmma loop, and K2) must not hold ptxas warnings
    C7514, C7515 or C7520 (wgmma serialised), nor may their libraries' SASS
    (``cuobjdump -sass``) hold a kernel whose every IGMMA or HGMMA is waited
    for at once (serialised with no warning); K2's, K3's, K4's, K5's, K6's,
-   K10's, K12's and P5's registers and spills are recorded, and K4-K6's
-   and K12's must hold no spill and at most 113 registers.
+   K10's, K12's, P2's and P5's registers and spills are recorded, K4-K6's
+   and K12's must hold no spill and at most 113 registers, P2's no spill
+   and at most 75 (three blocks an SM).
 3. kernels: K1 ``w4a8_matmul_rp_pipe``, K2 ``int8_prefill_attention``, K3
    ``int8_decode_attention``, the fused decode kernels K4
    ``fused_norm_gemv_rp``, K5 ``fused_requant_gemv_rp`` and K6
@@ -176,7 +177,15 @@ It imports no JAX.  Phases, each printing one JSON line with its seconds:
    timed as K1-K12 are: P1 ``s8_matmul`` (M 2048, N = K = 4096, both
    tilings: K1's and K9's prefill block of 256 rows x 128 columns, and 128 x
    128), P2 ``mxu_gemv``, ``vpu_gemv``, ``mix_gemv`` (8 rows, K 4096, N
-   12288), P3 ``pallas_s4``, ``pallas_s4_bitcast`` (16 rows of int4 codes;
+   12288; the mix at 50% and 67% tensor-core columns), each bit-equal under
+   every plan of ``gemv_candidates`` (each plan's time from CUDA events:
+   the sweep that ``gemv_plan``'s rule is held to), every plan then held
+   P2_HOLD_ROUNDS times in shuffled order with an L2 flush before each call
+   against its first output, and timed at the chosen plan also after a
+   flush that leaves the L2 clean (with the library call, and
+   ``torch.amax`` reading the same weight bytes in order: the card's
+   streaming rate); ``mxu_gemv`` also at K4's bytes (N 6144), P3
+   ``pallas_s4``, ``pallas_s4_bitcast`` (16 rows of int4 codes;
    P4's ``kern`` at K 256 and one 256-column block) with int32 results (P1:
    the f32 of int32) equal; P5 ``attn`` (K3's body) in its six modes at 32
    heads and a cache of 2048 (MHA, full length; GQA 4:1 at 1707 positions;
@@ -292,7 +301,7 @@ class Timer:
         times.sort()
         return times[len(times) // 2]
 
-    def events(self, fn, iters: int = 50) -> float:
+    def events(self, fn, iters: int = 50, clean: bool = False) -> float:
         """Device time of ``fn`` from CUDA events alone: ``iters`` calls,
         each after an L2 flush, less the same flushes without the calls.
         The flushes keep the card busier than the host's launches, so host
@@ -305,7 +314,7 @@ class Timer:
             end = torch.cuda.Event(enable_timing=True)
             start.record()
             for _ in range(iters):
-                self.flush.zero_()
+                self._flush(clean)
                 if call:
                     fn()
             end.record()
@@ -313,6 +322,15 @@ class Timer:
             return start.elapsed_time(end)
 
         return (run(True) - run(False)) / iters
+
+    def _flush(self, clean: bool) -> None:
+        """The L2 flush: 128 MB of zeros written, so that the L2 holds dirty
+        lines which the next call's misses write back, or (``clean``) 128 MB
+        read, which leaves it clean."""
+        if clean:
+            self.flush.view(self.torch.int64).sum()
+        else:
+            self.flush.zero_()
 
     def _profile(self, fn, iters: int) -> dict:
         """Device microseconds by kernel name over ``iters`` calls of ``fn``,
@@ -382,12 +400,12 @@ def phase_device(torch, state):
             "torch": torch.__version__, "cuda": torch.version.cuda}
 
 
-# the sources on wgmma (K1, K9, K10, P1, K4-K6 and K12's norm and requant entries on the TMA +
-# wgmma loop of w4a8_gemm_sm90.cuh; K2), whose nvcc logs must not hold ptxas warnings C7514,
-# C7515 or C7520 (wgmma serialised: right, but slower)
+# the sources on wgmma (K1, K9, K10, P1, K4-K6, K12 and P2 on the TMA + wgmma loop of
+# w4a8_gemm_sm90.cuh; K2), whose nvcc logs must not hold ptxas warnings C7514, C7515 or C7520
+# (wgmma serialised: right, but slower)
 WGMMA_SOURCES = ("w4a8_rp_gemm", "w4a8_span_gemm", "s8_gemm", "fused_norm_gemv_rp",
                  "fused_requant_gemv_rp", "fused_mlp_decode_rp", "fused_gemv_span_sm90",
-                 "int8_prefill_attention")
+                 "int8_gemv_engines", "int8_prefill_attention")
 
 
 def _ptxas_entries(log: str, marker: str) -> dict:
@@ -459,6 +477,12 @@ def phase_build(torch, state):
             # fused_plan lets two blocks of 288 threads share an SM: 113 registers a thread
             for name, e in ptxas[stem].items():
                 if e.get("registers", 0) > 65536 // (2 * 288) or e.get("spill_bytes", 0):
+                    raise AssertionError(f"csrc/{stem}.cu: {name} takes {e}")
+        elif stem == "int8_gemv_engines":
+            # gemv_plan lets three blocks of 288 threads share an SM: 75 registers a thread
+            ptxas[stem] = _ptxas_entries(log, "gemv_sm90")
+            for name, e in ptxas[stem].items():
+                if e.get("registers", 0) > 65536 // (3 * 288) or e.get("spill_bytes", 0):
                     raise AssertionError(f"csrc/{stem}.cu: {name} takes {e}")
         elif stem == "int8_prefill_attention":
             ptxas[stem] = _ptxas_entries(log, "prefill_attn_sm90")
@@ -3225,20 +3249,7 @@ def _probe_gemm_cases(torch, timer, gen):
     del x, w
     k, n, b = p2.K, p2.N, p2.B
     x, w = ri(-127, 127, (b, k)), ri(-127, 127, (k, n))
-    lib = _int_mm_times(torch, timer, x, w)
-    nm = p2.mix_split(n, 0.5)
-    cases["mxu_gemv"] = [case("P2 mxu", ["mxu_gemv_kernel"], lambda: p2.mxu_gemv(x, w),
-                              lambda: p2.mxu_gemv_plain(x, w), b * k + k * n + 4 * b * n,
-                              2.0 * b * n * k, lambda: lib, M=b, N=n, K=k, library_rows=32)]
-    cases["vpu_gemv"] = [case("P2 vpu", ["vpu_gemv_kernel"], lambda: p2.vpu_gemv(x, w),
-                              lambda: p2.vpu_gemv_plain(x, w), k + k * n + 4 * n,
-                              2.0 * n * k, lambda: _int_mm_times(torch, timer, x[:1], w),
-                              M=1, N=n, K=k, library_rows=32)]
-    cases["mix_gemv"] = [case("P2 mix", ["mix_gemv_kernel"], lambda: p2.mix_gemv(x, w),
-                              lambda: p2.mix_gemv_plain(x, w),
-                              b * k + k * n + 4 * b * nm + 4 * (n - nm),
-                              2.0 * k * (b * nm + n - nm), lambda: lib, M=b, N=n, K=k,
-                              nm=nm, library_rows=32)]
+    cases.update(_p2_cases(torch, timer, p2, x, w, case, check_equal))
     del x, w
     k, n, b = p3.K, p3.N, 2 * p3.B
     x, wb = ri(-8, 8, (b, k)), ri(-128, 128, (k, n // 2))
@@ -3261,6 +3272,114 @@ def _probe_gemm_cases(torch, timer, gen):
         lambda: _int_mm_times(torch, timer, x, p3.unpack_s4_halves(wb, 2 * n2)),
         M=8, N=2 * n2, K=k, bn=2 * n2, routed="kern", library_rows=32))
     return cases
+
+
+# P2's engines (each kernel a call launches: the engine's and, when K is split, the sum of
+# the splits), its cases (entry, the mix's tensor-core share) and its plan hold's rounds
+P2_NAMES = {"mxu_gemv": ["mxu_gemv_sm90", "gemv_engines_combine"],
+            "vpu_gemv": ["vpu_gemv_sm90", "gemv_engines_combine"],
+            "mix_gemv": ["mix_gemv_sm90", "gemv_engines_combine"]}
+P2_CASES = (("mxu_gemv", None), ("vpu_gemv", None), ("mix_gemv", 0.5), ("mix_gemv", 0.67))
+P2_HOLD_ROUNDS = 100
+
+
+def _p2_cases(torch, timer, p2, x, w, case, check_equal):
+    """P2's engines at the probe's shape (P2_CASES): each under every plan
+    of ``gemv_candidates`` bit-equal to its plain version and timed alone
+    after an L2 flush (``flushed_seconds``: CUDA events around the call,
+    its kernels and the gap between them); every plan then called
+    P2_HOLD_ROUNDS times, each round in a new random order with an L2 flush
+    before each call, every call equal to its plan's first output (a race
+    shows so); the case at ``gemv_plan``'s plan timed as the other probes
+    are, every kernel of the call counted, and by CUDA events again (with
+    the library call and, for the card's streaming rate, ``torch.amax``
+    over the same weight bytes) after a flush that leaves the L2 clean
+    (``*_clean_l2``: no dirty lines to write back).  The tensor-core engine
+    also at K4's bytes (``at_k4_bytes``: half the columns, 25.2 MB, about
+    what K4 streams at M = 4), bit-equal and timed as the cases are, for
+    the loop's rate at that size beside K4's."""
+    import random
+
+    from dgq_tpu_torch.utils.benchmarking import flushed_seconds
+
+    b, k = x.shape
+    n = w.shape[1]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    chosen, plans = p2.gemv_plan(n, k, sms), p2.gemv_candidates(n, k)
+    rng = random.Random(0)
+    wc = w.t().contiguous().t()
+    # _int_mm_times' padding to 32 rows, made outside the timed call
+    pads = {rows: torch.cat([x[:rows], x.new_zeros((32 - rows, k))]) for rows in (1, b)}
+    libs = {rows: {**_int_mm_times(torch, timer, x[:rows], w), "library_events_ms_clean_l2":
+                   timer.events(lambda xp=pads[rows]: torch._int_mm(xp, wc), clean=True)}
+            for rows in (1, b)}
+    # the same bytes read in order by one library reduction: the card's streaming rate
+    wi = w.view(torch.int32)
+    read = {"read_events_ms": timer.events(lambda: torch.amax(wi)),
+            "read_events_ms_clean_l2": timer.events(lambda: torch.amax(wi), clean=True)}
+    def outs(o):
+        return o if isinstance(o, tuple) else (o,)
+
+    out = {}
+    for name, frac in P2_CASES:
+        info = {}
+        if name == "mxu_gemv":
+            def call(plan):
+                return p2.mxu_gemv(x, w, plan=plan)
+            plain, rows, nbytes = (lambda: p2.mxu_gemv_plain(x, w)), b, b * k + k * n + 4 * b * n
+            ops = 2.0 * b * n * k
+        elif name == "vpu_gemv":
+            def call(plan):
+                return p2.vpu_gemv(x, w, plan=plan)
+            plain, rows, nbytes = (lambda: p2.vpu_gemv_plain(x, w)), 1, k + k * n + 4 * n
+            ops = 2.0 * n * k
+        else:
+            nm = p2.mix_split(n, frac)
+
+            def call(plan, frac=frac):
+                return p2.mix_gemv(x, w, frac, plan=plan)
+            plain = functools.partial(p2.mix_gemv_plain, x, w, frac)
+            rows, nbytes = b, b * k + k * n + 4 * b * nm + 4 * (n - nm)
+            ops, info = 2.0 * k * (b * nm + n - nm), {"frac": frac, "nm": nm}
+        library = libs[rows]
+        want = plain()
+        refs, sweep = {}, {}
+        for plan in plans:
+            tag = f"s{plan.splits}"
+            refs[plan] = call(plan)
+            torch.cuda.synchronize()
+            check_equal(f"P2 {name} {info} plan {plan}", refs[plan], want)
+            # CUDA events: each profiler trace costs the process (some tens lose records)
+            sweep[tag] = 1e3 * flushed_seconds(lambda plan=plan: call(plan), timer.flush, 20)
+        bad = {plan: torch.zeros((), dtype=torch.int64, device=DEV) for plan in plans}
+        for _ in range(P2_HOLD_ROUNDS):
+            order = list(plans)
+            rng.shuffle(order)
+            for plan in order:
+                timer.flush.zero_()
+                for got, ref in zip(outs(call(plan)), outs(refs[plan])):
+                    bad[plan] += (got != ref).any()
+        hold = {f"s{p.splits}": int(v) for p, v in bad.items()}
+        if any(hold.values()):
+            raise AssertionError(f"P2 {name} {info}: calls differ from their plan's first "
+                                 f"output: {hold}")
+        if name == "mxu_gemv":
+            wh = w[:, :n // 2].contiguous()
+            half = p2.gemv_plan(n // 2, k, sms)
+            check_equal("P2 mxu_gemv at K4's bytes", p2.mxu_gemv(x, wh), p2.mxu_gemv_plain(x, wh))
+            info["at_k4_bytes"] = {
+                "N": n // 2, "bytes": b * k + k * n // 2 + 4 * b * n // 2,
+                "plan": half._asdict(),
+                "ms": timer.kernel(lambda: p2.mxu_gemv(x, wh), P2_NAMES[name])}
+            del wh
+        out.setdefault(name, []).append(case(
+            f"P2 {name}", P2_NAMES[name], lambda: call(chosen), plain, nbytes, ops,
+            lambda library=library: library, M=rows, N=n, K=k, **info, library_rows=32,
+            events_ms_clean_l2=timer.events(lambda: call(chosen), clean=True), **read,
+            plan=chosen._asdict(), plans=len(plans), plan_ms=sweep,
+            hold={"rounds": P2_HOLD_ROUNDS, "calls": P2_HOLD_ROUNDS * len(plans),
+                  "mismatches": 0}))
+    return out
 
 
 # P5's cases: (kv heads, the slots' lengths, timed); the hold-only slots take K3's edge cases

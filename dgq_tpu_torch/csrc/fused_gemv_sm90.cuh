@@ -2,8 +2,9 @@
 // (fused_requant_gemv_rp.cu) and the two legs of the fused MLP K6
 // (fused_mlp_decode_rp.cu) on rowpair int4 weights, and K12's norm and
 // requant entries and the two legs of its MLP on span weights
-// (fused_gemv_span_sm90.cu), for Hopper (sm_90a), on the main loop of the
-// W4A8 GEMMs (w4a8_gemm_sm90.cuh):
+// (fused_gemv_span_sm90.cu), and the raw int8 GEMV engines of the probe P2
+// (int8_gemv_engines.cu, F_RAW below), for Hopper (sm_90a), on the main loop
+// of the W4A8 GEMMs (w4a8_gemm_sm90.cuh):
 //
 //   out[m, n] = float(sum_k q[m, k] * w[k, n]) * alpha[n] (+ beta[n]) (+ res[m, n])
 //
@@ -59,6 +60,12 @@
 //     when the plan splits K): every weight byte is read once a call, and
 //     no block adds into another's sums (no atomics).
 //
+// P2 runs the body on plain int8 weights (the Loader FusedS8: stages of 128
+// rows x 128 columns, no unpack, no scale rows) in its raw mode F_RAW: the
+// codes are x's int8 rows, which the producer brings by TMA into the code
+// boxes, and the int32 sums are the output.  (Its dp4a engine is a kernel of
+// its own over the same ring, in int8_gemv_engines.cu.)
+//
 // Everything here has internal linkage (w4a8_gemm_sm90.cuh's rule).
 
 #pragma once
@@ -76,11 +83,12 @@ constexpr int F_STAGE = F_W_BYTES + F_SCL_ROWS * BN;  // 9216, 1024-aligned
 constexpr int F_HB = 64;                     // bytes of a code box row: one 64-k half
 constexpr size_t F_SMEM_LIMIT = 232448;      // dynamic shared memory a block may take
 
-// Dynamic shared memory of a block of bm rows and sps stages: the codes, the
-// ring, its barriers, K4's 64 row scales and the alignment slack
+// Dynamic shared memory of a block of bm rows and sps stages, with ring
+// stages of `stage` bytes (the Loader's): the codes, the ring, its barriers,
+// K4's 64 row scales (F_RAW: the codes' barrier) and the alignment slack
 // (ops/fused_decode.py fused_smem).
-constexpr size_t fused_smem(int bm, int sps) {
-  return static_cast<size_t>(bm) * 128 * sps + F_RING * F_STAGE + 2 * F_RING * 8 + 256 + 1024;
+constexpr size_t fused_smem(int bm, int sps, int stage = F_STAGE) {
+  return static_cast<size_t>(bm) * 128 * sps + F_RING * stage + 2 * F_RING * 8 + 256 + 1024;
 }
 
 // What a block computes: its codes, weight boxes, scale rows and epilogue.
@@ -89,6 +97,7 @@ enum FusedMode {
   F_REQUANT = 1,  // K5: requant codes; fp32 out (+ residual)
   F_GATE_UP = 2,  // K6 leg 1: RMSNormQ codes; gate and up boxes; h codes out
   F_DOWN = 3,     // K6 leg 2: the h codes; replicated scale rows; fp32 out (+ x)
+  F_RAW = 4,      // P2: x's int8 rows by TMA (the map in tm_shi's place); int32 out
 };
 
 __host__ __device__ constexpr bool norm_codes(int mode) {
@@ -105,7 +114,10 @@ struct FusedArgs {
   const float* alpha;     // (N,)
   const float* beta;      // (N,) or null
   const float* residual;  // K5: (M, N) or null
-  float* out;             // (M, N)
+  union {
+    float* out;           // (M, N)
+    int* out_s32;         // F_RAW: (M, N) int32 sums
+  };
   int8_t* codes_out;      // (M, K) or null
   const int8_t* h_in;     // K6 leg 2: (M, K) int8 codes
   const float* down_scale;  // K6 leg 1: device scalar
@@ -288,8 +300,11 @@ __device__ __forceinline__ void make_codes(const FusedArgs& a, uint8_t* codes, f
 
 // ---- the order of k in a stage: the Loaders ------------------------------------
 //
-// A stage is 64 packed weight rows of 128 columns: 128 logical k, as two
-// halves h of two 32-k steps kk.  The body asks its Loader L for
+// A stage is 128 logical k of 128 columns, as two halves h of two 32-k steps
+// kk: W_ROWS rows of the weight storage (W_BYTES bytes; the packed Loaders:
+// 64 rows of nibble pairs, FusedS8: 128 int8 rows) and room for R scale rows
+// (each a scale and a zero row), STAGE bytes in all, in a ring of F_RING
+// stages.  The body asks its Loader L for
 //   L::scale_group(st, q, a, gsm): the group of scale row q (of R = 2 QS) of
 //     stage st, whose plane row the producer brings;
 //   L::code_off<BM>(i, st, kk, h, a, kb, gsm): the byte offset in the codes
@@ -316,6 +331,7 @@ __device__ __forceinline__ uint32_t gs_magic(int gs) {
 template <int QS_>
 struct FusedRowpair : RowpairLoader<QS_> {
   static constexpr int QS = QS_, T_ROWS = 2, OFFS = 2;
+  static constexpr int W_ROWS = 64, W_BYTES = F_W_BYTES, R = 2 * QS, STAGE = F_STAGE;
 
   static __device__ __forceinline__ int scale_group(int st, int q, const FusedArgs& a, uint32_t) {
     return (128 * st + 64 / QS * q) / a.gs;
@@ -372,6 +388,7 @@ struct FusedRowpair : RowpairLoader<QS_> {
 template <int QS_>
 struct FusedSpan {
   static constexpr int QS = QS_, T_ROWS = 4, OFFS = 4;
+  static constexpr int W_ROWS = 64, W_BYTES = F_W_BYTES, R = 2 * QS, STAGE = F_STAGE;
   using Scales = typename RowpairLoader<QS>::Scales;
 
   static __device__ __forceinline__ void scales(const uint8_t* scl, int cp, Scales& sc) {
@@ -435,6 +452,64 @@ struct FusedSpan {
   }
 };
 
+// Plain int8 weights (P2, after P1's S8Loader): stage st is rows 128 st ..
+// + 127 of w (K, N) in order, a box [128 rows][128 bytes] swizzled 128
+// bytes; half h is k 128 st + 64 h .. + 63, one code box, and its step kk
+// rows 64 h + 32 kk .. + 31.  A warp's 8 column pairs are one 16-byte
+// chunk of each row, so one ldmatrix.x4.trans of 16-bit pairs reads a step
+// of a half: lane l gives row l's chunk, and thread (g, t) gets its pair's
+// rows 2t, 2t + 1 of each 8 rows (no bank conflict under the swizzle).  The
+// fragment slot 4t + j of each 16 k then holds row 2t, 2t + 1, 8 + 2t, 9 +
+// 2t for j = 0..3, so order_codes puts the codes of those k in that order
+// (the slot order of the B operand; the dot is the same).  No unpack, no
+// scale rows; a ring of F_RING stages of 16 KB.
+struct FusedS8 {
+  static constexpr int T_ROWS = 0, OFFS = 1;
+  static constexpr int W_ROWS = 128, W_BYTES = 128 * BN, R = 0, STAGE = W_BYTES;
+  struct Scales {};
+
+  static __device__ __forceinline__ void scales(const uint8_t*, int, Scales&) {}
+  static __device__ __forceinline__ int scale_group(int, int, const FusedArgs&, uint32_t) {
+    return 0;
+  }
+  template <int BM>
+  static __device__ __forceinline__ int code_off(int i, int, int kk, int h, const FusedArgs&, int,
+                                                 uint32_t) {
+    return (2 * i + h) * BM * F_HB + 32 * kk;
+  }
+  // the lane's row of a step (lane = 4 (cp % 8) + t) and its swizzled chunk
+  static __device__ __forceinline__ void offsets(int cp, int t, uint32_t (&off)[OFFS]) {
+    const int lane = 4 * (cp & 7) + t;
+    off[0] = lane * 128 + (((cp >> 3) ^ (lane & 7)) << 4);
+  }
+  static __device__ __forceinline__ void frags_at(const uint8_t* rows, const uint32_t (&off)[OFFS],
+                                                  const Scales&, int kk, Frags& a) {
+    const uint32_t base = smem_u32(rows) + off[0];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      uint32_t r[4];  // rows 8 m + 2t, 8 m + 2t + 1 of the step, m = 0..3
+      asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                   : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                   : "r"(base + (64 * h + 32 * kk) * 128));
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        put_col(a[h], j, __byte_perm(r[0], r[1], j ? 0x7531 : 0x6420),
+                __byte_perm(r[2], r[3], j ? 0x7531 : 0x6420));
+    }
+  }
+  // Each 16 codes k0 .. k0 + 15 of a row (a 16-byte chunk, whatever the
+  // swizzle) into the slot order of the fragments: slot 4t + j holds k0 +
+  // 2t, + 2t + 1, + 8 + 2t, + 9 + 2t.
+  static __device__ __forceinline__ void order_codes(uint8_t* codes, int bytes) {
+    for (int i = 16 * threadIdx.x; i < bytes; i += 16 * F_CONSUMERS) {
+      uint4* p = reinterpret_cast<uint4*>(codes + i);
+      const uint4 v = *p;
+      *p = make_uint4(__byte_perm(v.x, v.z, 0x5410), __byte_perm(v.x, v.z, 0x7632),
+                      __byte_perm(v.y, v.w, 0x5410), __byte_perm(v.y, v.w, 0x7632));
+    }
+  }
+};
+
 // ---- the kernel body -----------------------------------------------------------
 
 __device__ __forceinline__ float fused_epilogue(int acc, const FusedArgs& a, int m, int n) {
@@ -457,28 +532,28 @@ __device__ __forceinline__ int silu_code(int ag, int au, const FusedArgs& a, int
 }
 
 // One block: 128 weight columns over the stages [sps blockIdx.y, + sps) of
-// K, all M rows, with L::QS scale rows per 64-k half and the order of k of
-// the Loader L (FusedRowpair<QS> or FusedSpan<QS>): for K4, K5, K12 and K6's
-// down leg the columns [128 blockIdx.x, + 128), for K6's gate|up leg the
-// gate columns [64 blockIdx.x, + 64) and the up columns F + the same.  Each
-// .cu wraps it in a named kernel.
+// K, all M rows, with L::R scale rows a stage and the order of k of the
+// Loader L (FusedRowpair<QS>, FusedSpan<QS> or FusedS8): for K4, K5, K12,
+// K6's down leg and P2 the columns [128 blockIdx.x, + 128), for K6's gate|up
+// leg the gate columns [64 blockIdx.x, + 64) and the up columns F + the
+// same.  Each .cu wraps it in a named kernel.
 template <int MODE, int BM, class L>
 __device__ __forceinline__ void fused_gemv_body(const CUtensorMap& tm_w, const CUtensorMap& tm_shi,
                                                 const CUtensorMap& tm_slo,
                                                 const CUtensorMap& tm_zhi,
                                                 const CUtensorMap& tm_zlo, const FusedArgs& a) {
-  constexpr int QS = L::QS;
-  constexpr bool GU = MODE == F_GATE_UP;
-  constexpr int R = 2 * QS;   // scale rows a stage
+  constexpr bool GU = MODE == F_GATE_UP, RAW = MODE == F_RAW;
+  constexpr int R = L::R;     // scale rows a stage
   constexpr int NA = BM / 2;  // accumulators a thread
   static_assert(BM % 8 == 0 && BM <= 64, "tile");
   extern __shared__ uint8_t smem_raw[];
   uint8_t* codes = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
   uint8_t* ring = codes + static_cast<size_t>(BM) * 128 * a.sps;
-  uint64_t* full = reinterpret_cast<uint64_t*>(ring + F_RING * F_STAGE);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + F_RING * L::STAGE);
   uint64_t* empty = full + F_RING;
   float* rs = reinterpret_cast<float*>(empty + F_RING);  // RMSNormQ: rsqrt of this block's rows
+  uint64_t* coded = reinterpret_cast<uint64_t*>(rs);      // F_RAW: the codes have come
 
   // the block's first weight column: of the gate half and of the up half (GU)
   const int n0 = blockIdx.x * (GU ? BN / 2 : BN), n_up = a.N / 2 + n0;
@@ -492,6 +567,7 @@ __device__ __forceinline__ void fused_gemv_body(const CUtensorMap& tm_w, const C
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], F_CONSUMERS / 32);
     }
+    if constexpr (RAW) mbar_init(coded, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -501,9 +577,9 @@ __device__ __forceinline__ void fused_gemv_body(const CUtensorMap& tm_w, const C
     const bool issuer = threadIdx.x == F_CONSUMERS;
     auto issue = [&](int i) {
       const int s = i % F_RING, st = st0 + i;
-      uint8_t* base = ring + s * F_STAGE;
-      mbar_expect_tx(&full[s], F_W_BYTES + 2 * R * BN);
-      tma_load_2d(base, &tm_w, &full[s], n0, 64 * st);
+      uint8_t* base = ring + s * L::STAGE;
+      mbar_expect_tx(&full[s], L::W_BYTES + 2 * R * BN);
+      tma_load_2d(base, &tm_w, &full[s], n0, L::W_ROWS * st);
       if constexpr (GU) tma_load_2d(base + GU_BOX, &tm_w, &full[s], n_up, 64 * st);
 #pragma unroll
       for (int q = 0; q < R; ++q) {
@@ -512,7 +588,7 @@ __device__ __forceinline__ void fused_gemv_body(const CUtensorMap& tm_w, const C
         const int row = MODE == F_DOWN ? 8 * g : g >> 1;
         const CUtensorMap* ms = (g & 1) ? &tm_slo : &tm_shi;
         const CUtensorMap* mz = (g & 1) ? &tm_zlo : &tm_zhi;
-        uint8_t* scl = base + F_W_BYTES + 2 * q * BN;
+        uint8_t* scl = base + L::W_BYTES + 2 * q * BN;
         if constexpr (GU) {
           // the gate and the up columns' 64 bytes side by side in one 128-byte
           // row (TMA writes to 128-byte aligned shared memory only)
@@ -524,6 +600,15 @@ __device__ __forceinline__ void fused_gemv_body(const CUtensorMap& tm_w, const C
         }
       }
     };
+    if constexpr (RAW) {
+      // x's rows over the block's K range, one box [BM][64] swizzled 64 bytes
+      // a 64-k half, as code_offset lays the codes out (rows past M: zeros)
+      if (issuer) {
+        mbar_expect_tx(coded, BM * klen);
+        for (int h = 0; h < klen / 64; ++h)
+          tma_load_2d(codes + h * BM * F_HB, &tm_shi, coded, kb + 64 * h, 0);
+      }
+    }
     if (issuer)
       for (int i = 0; i < min(n_it, F_RING); ++i) issue(i);
     __syncwarp();
@@ -538,7 +623,12 @@ __device__ __forceinline__ void fused_gemv_body(const CUtensorMap& tm_w, const C
   }
 
   // ---- consumers: the codes ----
-  make_codes<MODE, BM>(a, codes, rs, kb, klen, c);
+  if constexpr (RAW) {
+    mbar_wait(coded, 0);  // x's rows, put in the fragments' slot order
+    L::order_codes(codes, BM * klen);
+  } else {
+    make_codes<MODE, BM>(a, codes, rs, kb, klen, c);
+  }
   fence_async_smem();
   cluster_sync();     // every block's codes are in every block
   fence_async_smem();  // the peers' stores too, for wgmma
@@ -561,9 +651,9 @@ __device__ __forceinline__ void fused_gemv_body(const CUtensorMap& tm_w, const C
   for (int i = 0; i < n_it; ++i) {
     const int s = i % F_RING;
     mbar_wait(&full[s], (i / F_RING) & 1);
-    const uint8_t* rows = ring + s * F_STAGE;
+    const uint8_t* rows = ring + s * L::STAGE;
     typename L::Scales sc;
-    L::scales(rows + F_W_BYTES, cp, sc);
+    L::scales(rows + L::W_BYTES, cp, sc);
 #pragma unroll
     for (int kk = 0; kk < 2; ++kk) {
       if constexpr (GU)
@@ -655,6 +745,8 @@ __device__ __forceinline__ void fused_gemv_body(const CUtensorMap& tm_w, const C
       if (a.part)
         *reinterpret_cast<int2*>(a.part + static_cast<size_t>(blockIdx.y) * a.M * a.N + o) =
             make_int2(v0, v1);
+      else if constexpr (RAW)
+        *reinterpret_cast<int2*>(a.out_s32 + o) = make_int2(v0, v1);
       else
         *reinterpret_cast<float2*>(a.out + o) =
             make_float2(fused_epilogue(v0, a, m, n), fused_epilogue(v1, a, m, n + 1));

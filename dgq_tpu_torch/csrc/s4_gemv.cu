@@ -23,7 +23,7 @@
 // weights.  What bounds it on this card: the K * N / 2 weight bytes (25.2 MB
 // at K 4096, N 12288) over the 3.35 TB/s of device memory.  One body for
 // both column maps (s8_mma.cuh's skinny tensor-core block, K split over
-// blocks as in P2).
+// blocks that add into a zeroed output).
 
 #include "s8_mma.cuh"
 

@@ -1,8 +1,7 @@
-// Pieces shared by the probe kernels P2 and P3 (int8_gemv_engines.cu,
-// s4_gemv.cu) and K10 (w4a8_span_gemm.cu): the s8 tensor-core step, the byte
-// transpose that turns n-contiguous weight rows into the k-contiguous columns
-// mma.sync reads, the sign extension of packed nibbles, and the skinny
-// (M <= 16) GEMV bodies on the tensor cores and on the CUDA cores.
+// The skinny (M <= 16) s4 GEMV body of the probe kernel P3 (s4_gemv.cu) on
+// mma.sync: the s8 tensor-core step, the byte transpose that turns
+// n-contiguous weight rows into the k-contiguous columns mma.sync reads, and
+// the sign extension of packed nibbles.
 //
 // Everything here has internal linkage: each source is its own shared
 // library, and the dynamic linker would merge weak symbols across them.
@@ -24,11 +23,6 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], cons
 
 __device__ __forceinline__ uint32_t ld32(const int8_t* p) { return *reinterpret_cast<const uint32_t*>(p); }
 
-// 32-bit word q of a 16-byte vector (q known at compile time after unrolling)
-__device__ __forceinline__ uint32_t u4_word(const uint4& v, int q) {
-  return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
-}
-
 // rows r0..r3 of 4 bytes (4 columns each) -> c[j] = the 4 rows' bytes of column j
 __device__ __forceinline__ void transpose4x4(uint32_t r0, uint32_t r1, uint32_t r2, uint32_t r3,
                                              uint32_t (&c)[4]) {
@@ -48,7 +42,7 @@ __device__ __forceinline__ uint32_t hi_s4(uint32_t w) {
   return __vsub4(((w >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u);
 }
 
-// ---- skinny GEMV: out (M, cols) int32 = x (M, K) int8 . W (K, cols), M <= 16 ----
+// ---- skinny GEMV: out (M, cols) int32 = x (M, K) int8 . W (K, cols), M <= 16, W int4 ----
 //
 // A block takes 64 columns of W and walks its share of K, [kb, ke), in chunks
 // of 128 rows.  Each of its 128 threads loads one unit per chunk, 4 rows of
@@ -59,13 +53,12 @@ __device__ __forceinline__ uint32_t hi_s4(uint32_t w) {
 // its int32 sums into the zeroed output with atomicAdd: integer sums, so
 // the result is exact in any order.
 
-enum WMode { W_S8 = 0, W_S4_PAIRS = 1, W_S4_HALVES = 2 };
+enum WMode { W_S4_PAIRS = 1, W_S4_HALVES = 2 };
 
 constexpr int SK_BN = 64, SK_BK = 128, SK_THREADS = 128;
 constexpr int SK_LDS = SK_BK + 16;  // shared row stride: 36 words, conflict-free fragments
 
-// The unit of thread (kr, cg) of block `blk` at chunk k0, in one of three weight formats:
-//   W_S8        W (K, ldw) int8; the unit is 16 bytes of each row at column 64 blk + 16 cg.
+// The unit of thread (kr, cg) of block `blk` at chunk k0, in one of two weight formats:
 //   W_S4_PAIRS  bytes (K, ldw); W[k, 2j] = low nibble of byte j, W[k, 2j+1] = its high
 //               nibble (XLA's int4 packing).  8 bytes of each row give 16 columns.
 //   W_S4_HALVES bytes (K, ldw); each `bn` columns of W are [low nibbles | high nibbles] of
@@ -74,29 +67,22 @@ constexpr int SK_LDS = SK_BK + 16;  // shared row stride: 36 words, conflict-fre
 //               columns of the low half and the 8 columns bn/2 further on.
 template <int MODE>
 struct Unit {
-  static constexpr int WORDS = MODE == W_S8 ? 4 : 2;  // 32-bit words per row
+  static constexpr int WORDS = 2;  // 32-bit words per row
   uint32_t raw[4][WORDS];
 
   __device__ __forceinline__ void fetch(const uint8_t* __restrict__ w, size_t ldw, int k,
                                         int blk, int cg) {
-    const uint8_t* p = w + (size_t)k * ldw + (MODE == W_S8 ? blk * 64 + cg * 16 : blk * 32 + cg * 8);
+    const uint8_t* p = w + (size_t)k * ldw + (blk * 32 + cg * 8);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      if constexpr (MODE == W_S8) {
-        const uint4 v = *reinterpret_cast<const uint4*>(p + i * ldw);
-        raw[i][0] = v.x; raw[i][1] = v.y; raw[i][2] = v.z; raw[i][3] = v.w;
-      } else {
-        const uint2 v = *reinterpret_cast<const uint2*>(p + i * ldw);
-        raw[i][0] = v.x; raw[i][1] = v.y;
-      }
+      const uint2 v = *reinterpret_cast<const uint2*>(p + i * ldw);
+      raw[i][0] = v.x; raw[i][1] = v.y;
     }
   }
 
   // word q (4 columns) of row i, as int8 lanes
   __device__ __forceinline__ uint32_t word(int i, int q) const {
-    if constexpr (MODE == W_S8) {
-      return raw[i][q];
-    } else if constexpr (MODE == W_S4_PAIRS) {
+    if constexpr (MODE == W_S4_PAIRS) {
       const uint32_t u = raw[i][q >> 1];
       return __byte_perm(lo_s4(u), hi_s4(u), (q & 1) ? 0x7362 : 0x5140);
     } else {
@@ -206,52 +192,6 @@ __device__ __forceinline__ void skinny_mma_block(const int8_t* __restrict__ x, i
         put(out + (size_t)row * ldo + out_col<MODE>(blk, warp * 16 + j * 8 + t * 2 + (e & 1), bn),
             acc[j][e]);
     }
-}
-
-// CUDA cores: row 0 of x against int8 W with __dp4a, no shared weight tile:
-// each thread keeps 16 column sums over its rows, reduced over the block.
-__device__ __forceinline__ void skinny_dp4a_block(const int8_t* __restrict__ x, int K,
-                                                  const uint8_t* __restrict__ w, size_t ldw,
-                                                  int blk, int* __restrict__ out,
-                                                  int (&red)[SK_THREADS / 32][SK_BN]) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int kr = tid >> 2, cg = tid & 3;
-  Unit<W_S8> u;
-  int acc[16];
-#pragma unroll
-  for (int i = 0; i < 16; ++i) acc[i] = 0;
-  int kb, ke;
-  k_range(K, kb, ke);
-  u.fetch(w, ldw, kb + 4 * kr, blk, cg);
-  for (int k0 = kb; k0 < ke; k0 += SK_BK) {
-    const int xw = static_cast<int>(ld32(x + k0 + 4 * kr));
-    Unit<W_S8> cur = u;
-    if (k0 + SK_BK < ke) u.fetch(w, ldw, k0 + SK_BK + 4 * kr, blk, cg);
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      uint32_t c[4];
-      cur.columns(q, c);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[q * 4 + j] = __dp4a(static_cast<int>(c[j]), xw, acc[q * 4 + j]);
-    }
-  }
-  // sum over kr: lanes 4 apart in the warp, then the block's 4 warps
-#pragma unroll
-  for (int i = 0; i < 16; ++i) {
-#pragma unroll
-    for (int off = 4; off < 32; off <<= 1) acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], off);
-  }
-  if (lane < 4) {
-#pragma unroll
-    for (int i = 0; i < 16; ++i) red[warp][cg * 16 + i] = acc[i];
-  }
-  __syncthreads();
-  if (tid < SK_BN) {
-    int s = 0;
-#pragma unroll
-    for (int wi = 0; wi < SK_THREADS / 32; ++wi) s += red[wi][tid];
-    put(out + blk * SK_BN + tid, s);
-  }
 }
 
 }  // namespace

@@ -337,11 +337,12 @@ class FusedPlan(NamedTuple):
         return -(-tiles // self.cluster) * self.cluster, self.splits
 
 
-def fused_smem(bm: int, sps: int) -> int:
+def fused_smem(bm: int, sps: int, stage_bytes: int = FUSED_STAGE_BYTES) -> int:
     """A K4/K5/K12 block's dynamic shared memory: the codes of its K range,
-    the ring, its barriers, K4's row scales and 1 KB of alignment slack
+    the ring (stages of ``stage_bytes``, the Loader's: P2's int8 stages are
+    larger), its barriers, K4's row scales and 1 KB of alignment slack
     (``fused_smem`` in csrc/fused_gemv_sm90.cuh)."""
-    return (bm * FUSED_STAGE_K * sps + FUSED_RING * FUSED_STAGE_BYTES + 16 * FUSED_RING + 256
+    return (bm * FUSED_STAGE_K * sps + FUSED_RING * stage_bytes + 16 * FUSED_RING + 256
             + 1024)
 
 

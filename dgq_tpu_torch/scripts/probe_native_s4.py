@@ -37,7 +37,7 @@ import torch
 from dgq_tpu_torch.ops import _cuda
 from dgq_tpu_torch.ops.fused_decode import fused_norm_gemv
 from dgq_tpu_torch.ops.quant_matmul import int_matmul
-from dgq_tpu_torch.scripts.probe_gemv_engines import int_mm_rows32, k_split
+from dgq_tpu_torch.scripts.probe_gemv_engines import int_mm_rows32
 from dgq_tpu_torch.scripts.roofline_probe import column_major
 from dgq_tpu_torch.utils.benchmarking import device_time
 
@@ -46,6 +46,14 @@ B = 8  # decode rows; the int4 paths run 2B stacked rows of codes
 BN = 512  # the TPU probe's column block: the bitcast map's period
 PAIRS, HALVES = "pallas_s4", "pallas_s4_bitcast"
 _SIGNATURES = {"s4_gemv": [_cuda.VP] * 3 + [_cuda.INT] * 6 + [_cuda.VP]}
+BLOCKS_PER_SM = 8  # the K split's target: enough weight loads in flight
+
+
+def k_split(n: int, k: int, device) -> int:
+    """Blocks over K per 64-column block: about BLOCKS_PER_SM blocks an SM,
+    at most one per 128-row chunk."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(k // 128, -(-BLOCKS_PER_SM * sms // (n // 64))))
 
 
 def _nibbles(wb: torch.Tensor):

@@ -27,7 +27,9 @@ from pathlib import Path
 
 from dgq_tpu_torch.ops import _cuda
 
-_NAMESPACE = re.compile(r"\d*_GLOBAL__N__\w+?_cu_[0-9a-f]{8}")
+# the anonymous namespace: a hash, the source's name and "_cu_", then a hex hash or (seen for
+# s8_gemm.cu and s4_gemv.cu) the source's name again
+_NAMESPACE = re.compile(r"\d*_GLOBAL__N__[0-9a-f]{8}_\d+_(\w+?)_cu_(?:[0-9a-f]{8}|\1)")
 
 
 def functions(sass: str) -> dict:

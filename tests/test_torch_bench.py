@@ -200,3 +200,20 @@ def test_sass_diff_strips_the_namespace_hash_and_compares_by_function():
     assert row["differ"] == [{"function": "_ZN9gemm_sm90ILi16EEEvv", "instructions": [2, 2],
                               "first": 1, "this": "S2R R0, SR_TID.X",
                               "other": "S2R R0, SR_TID.Y"}]
+
+
+def test_sass_diff_strips_a_namespace_that_ends_in_the_source_name():
+    """The anonymous namespace of some sources (s8_gemm.cu, s4_gemv.cu, as
+    cuobjdump printed them) ends in the source's name instead of a hex hash:
+    their kernels keep their names across two trees too."""
+    from dgq_tpu_torch.scripts import sass_diff
+
+    names = ["_ZN42_GLOBAL__N__3f92f9f8_10_s8_gemm_cu_s8_gemm9gemm_sm90INS_8S8LoaderELi128ELi5E"
+             "Li2EEEv14CUtensorMap_stS2_S2_S2_NS_8GemmArgsE",
+             "_ZN42_GLOBAL__N__6274fef9_10_s8_gemm_cu_s8_gemm9gemm_sm90INS_8S8LoaderELi128ELi5E"
+             "Li2EEEv14CUtensorMap_stS2_S2_S2_NS_8GemmArgsE"]
+    listings = [f"\t\tFunction : {n}\n        /*0000*/                   EXIT ;\n" for n in names]
+    mine, theirs = (sass_diff.functions(t) for t in listings)
+    assert mine == theirs == {"_ZN9gemm_sm90INS_8S8LoaderELi128ELi5ELi2EEEv14CUtensorMap_stS2_"
+                              "S2_S2_NS_8GemmArgsE": ["EXIT"]}
+    assert sass_diff.compare("s8_gemm", mine, theirs)["same"] == 1
