@@ -5,13 +5,14 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It imports no JAX.  Phases, each printing one JSON line with its seconds:
 
 1. device: the card's name and power limit (nvidia-smi); TF32 off.
-2. build: the thirteen CUDA sources, one nvcc each, started together; the
+2. build: the fourteen CUDA sources, one nvcc each, started together; the
    logs of the sources on wgmma (K1, K4-K6, K9, K10, K12, P1 and P2 on the
    TMA + wgmma loop, and K2) must not hold ptxas warnings
    C7514, C7515 or C7520 (wgmma serialised), nor may their libraries' SASS
    (``cuobjdump -sass``) hold a kernel whose every IGMMA or HGMMA is waited
    for at once (serialised with no warning); K2's, K3's, K4's, K5's, K6's,
-   K10's, K12's, P2's and P5's registers and spills are recorded, K4-K6's
+   K8's and K11's (``paged_decode_attention.cu``), K10's, K12's, P2's and
+   P5's registers and spills are recorded, K4-K6's
    and K12's must hold no spill and at most 113 registers, P2's no spill
    and at most 75 (three blocks an SM).
 3. kernels: K1 ``w4a8_matmul_rp_pipe``, K2 ``int8_prefill_attention``, K3
@@ -22,7 +23,9 @@ It imports no JAX.  Phases, each printing one JSON line with its seconds:
    at the main paths' shapes (LLaMA-2-7B, batch 4, prompt 256, cache 2048;
    K1 at M = 4, 1024 and 2048; K4-K6 at 4 rows and at 40 = 8 slots x a
    5-token verify window; K7 at cache 16384 in chunks of 4096; K8 at 8 slots
-   over a shuffled pool of 128-token pages) and timed beside the plain
+   over a shuffled pool of 128-token pages, lengths 1-2048 and serve's step
+   lengths, each also beside K3's body at every cluster on the same cache
+   gathered dense) and timed beside the plain
    version, one PyTorch library call for the same function (CUDA events
    around the call, and its kernels' device time from the profiler), and
    the bound.  K2 is also held (not timed) at K2_EXTRA: query windows at
@@ -62,7 +65,9 @@ It imports no JAX.  Phases, each printing one JSON line with its seconds:
    ``int4_paged_decode_attention``
    on K8's pool, table and lengths with INT4 nibble pages, MHA and GQA:
    within K11_TOL of the largest output of its plain version, and on a
-   contiguous table of K8 without quant_pv on the unpacked INT8 pool.  Then
+   contiguous table of K8 without quant_pv on the unpacked INT8 pool; K8
+   and K11 also held (not timed) at PAGE_CHECKS (pages of 20 and 48
+   positions, Dh 128 and 64, every cluster).  Then
    K12 ``fused_norm_gemv``, ``fused_requant_gemv`` and ``fused_mlp_decode``
    (which also serve K13's names) on span weights at K4-K6's shapes and row
    counts, held as K4-K6 are against their plain versions and, by their
@@ -81,7 +86,10 @@ It imports no JAX.  Phases, each printing one JSON line with its seconds:
    (a race between plans shows here, not in one call a plan); then K10's
    (``_k10_plan_hold``): every ``fpscale_candidates`` plan at 1, 4, 40 and
    1024 rows K10_HOLD_ROUNDS times, each call equal to its plan's first
-   output; the lines go to ``chiprun_out/plan_hold.txt``.
+   output; then K8's and K11's (``paged_plan_sweep --repeat``): every
+   cluster of DECODE_CLUSTERS HOLD_ROUNDS times at each of the sweep's
+   shapes, each call equal to that cluster's first output; the lines go to
+   ``chiprun_out/plan_hold.txt``.
 4. main: ``build_llama_engine(LlamaConfig())`` (32 layers, full width, random
    weights from seed 0) then ``generate`` of 32 greedy tokens for 4 prompts
    of 256 tokens with the default ``EngineConfig`` (fused decode), with every
@@ -249,7 +257,10 @@ K12_NAMES = {"fused_norm_gemv": ["norm_gemv_span_sm90", "norm_gemv_span_combine"
              "fused_mlp_decode": ["mlp_gate_up_span", "mlp_down_span"]}
 K12_ALL = [n for names in K12_NAMES.values() for n in names]
 K3_NAMES = ["decode_attn_cluster"]
-K78_NAMES = ["chunk_attn_kernel", "combine_kernel"]  # K7 and K8 share their kernels
+K7_NAMES = ["chunk_attn_kernel", "combine_kernel"]
+# K8 and K11: K3's body over the page pool (csrc/paged_decode_attention.cu), one kernel each
+# (INT8 or nibble pages: its KV4 template argument)
+K8_NAMES = K11_NAMES = ["paged_attn_cluster"]
 K9_NAMES = ["SpanLoader"]
 K10_NAMES = ["SpanCodesLoader"]  # the shared loop and its split combine, K10's loader
 FUSED_ROWS = (BATCH, 40)  # a decode step; 8 slots x a 5-token verify window
@@ -334,27 +345,34 @@ class Timer:
 
     def _profile(self, fn, iters: int) -> dict:
         """Device microseconds by kernel name over ``iters`` calls of ``fn``,
-        each after an L2 flush."""
+        each after an L2 flush; ``last_counts`` holds each name's launches."""
         torch = self.torch
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 self.flush.zero_()
                 fn()
             torch.cuda.synchronize()
+        events = prof.key_averages()
+        self.last_counts = {e.key: e.count for e in events}
         return {e.key: getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0))
-                for e in prof.key_averages()}
+                for e in events}
 
     def kernel(self, fn, names, iters: int = 20, attempts: int = 3) -> float:
-        """A trace that records no device activity at all (seen once on the
-        card) is taken again, up to ``attempts`` times."""
+        """A trace that records fewer launches of the named kernels than
+        calls (none at all was seen once on the card, a part of them once)
+        is taken again, up to ``attempts`` times: every call launches at
+        least one of them."""
         fn()
         self.torch.cuda.synchronize()
         for _ in range(attempts):
             seen = self._profile(fn, iters)
             total_us = sum(us for key, us in seen.items() if any(n in key for n in names))
-            if total_us > 0:
+            launches = sum(n for key, n in self.last_counts.items()
+                           if any(name in key for name in names))
+            if total_us > 0 and launches >= iters:
                 return total_us / iters / 1e3
-        raise RuntimeError(f"profiler saw no device time for {names}; it saw {seen}")
+        raise RuntimeError(f"profiler saw {launches} launches of {names} in {iters} calls; it "
+                           f"saw {seen}")
 
     def device(self, fn, iters: int = 20, attempts: int = 3) -> float:
         """Device time of every kernel that ``fn`` launches, whatever its
@@ -408,9 +426,10 @@ WGMMA_SOURCES = ("w4a8_rp_gemm", "w4a8_span_gemm", "s8_gemm", "fused_norm_gemv_r
                  "int8_gemv_engines", "int8_prefill_attention")
 
 
-def _ptxas_entries(log: str, marker: str) -> dict:
+def _ptxas_entries(log: str, marker: str, bools: bool = False) -> dict:
     """Registers and spills of the entry functions whose names hold
-    ``marker``, from an nvcc log with ``-Xptxas -v``."""
+    ``marker``, from an nvcc log with ``-Xptxas -v``; the template's int
+    arguments name each (``bools``: its bool arguments too, as 0 or 1)."""
     import re
 
     out, entry = {}, None
@@ -423,7 +442,7 @@ def _ptxas_entries(log: str, marker: str) -> dict:
             continue
         if entry is None:
             continue
-        args = re.findall(r"Li(\d+)E", entry)  # the template's int arguments
+        args = re.findall(r"L[ib](\d+)E" if bools else r"Li(\d+)E", entry)
         name = re.search(r"[a-z_]*" + marker, entry).group(0)
         key = name + (f"<{', '.join(args)}>" if args else "")
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
@@ -502,6 +521,8 @@ def phase_build(torch, state):
     ptxas["int8_decode_attention"] = _ptxas_entries(k3_log, "decode_attn_cluster")
     p5_log = (_cuda.BUILD_DIR / "quant_pv_parts_attention.log").read_text()
     ptxas["quant_pv_parts_attention"] = _ptxas_entries(p5_log, "pv_parts_cluster")
+    paged_log = (_cuda.BUILD_DIR / "paged_decode_attention.log").read_text()
+    ptxas["paged_decode_attention"] = _ptxas_entries(paged_log, "paged_attn_cluster", bools=True)
     return {"nvcc_seconds": seconds, "nvcc": nvcc, "no_c7515": list(WGMMA_SOURCES),
             "igmma_kernels_pipelined": igmma_kernels, "ptxas": ptxas}
 
@@ -824,7 +845,7 @@ def _k3_cases(torch, timer, gen):
                       "quant_pv": quant_pv, "max_abs_err": err,
                       "cluster": att.decode_plan(b, hk, h // hk, dh, SMAX, sms),
                       "ms": timer.kernel(kern, K3_NAMES), "call_ms": timer(kern),
-                      "k7_body_ms": timer.kernel(k7_body, K78_NAMES),
+                      "k7_body_ms": timer.kernel(k7_body, K7_NAMES),
                       "plain_ms": timer(plain, iters=10), "bound_ms": b_ms, "bound_by": b_by,
                       **_sdpa_decode_ms(torch, timer, q, kt, v, (qs, ks, vs), lengths)})
         del q, kt, v
@@ -1569,7 +1590,7 @@ def _k7_cases(torch, timer, gen):
         b_ms, b_by = _decode_bound(b, h, hk, dh, sum(K7_LENGTHS), quant_pv)
         cases.append({"B": b, "H": h, "Hkv": hk, "Smax": LONG_SMAX, "chunk": LONG_CHUNK,
                       "lengths": list(K7_LENGTHS), "quant_pv": quant_pv, "max_abs_err": err,
-                      "ms": timer.kernel(kern, K78_NAMES), "call_ms": timer(kern),
+                      "ms": timer.kernel(kern, K7_NAMES), "call_ms": timer(kern),
                       "plain_ms": timer(plain, iters=5), "bound_ms": b_ms, "bound_by": b_by,
                       **_sdpa_decode_ms(torch, timer, q, kt, v, (qs, ks, vs), lengths)})
         del q, kt, v
@@ -1607,20 +1628,30 @@ def _contiguous_pool(torch, kt_pool, v_pool, table):
     return kt, v, kt_c, v_c
 
 
+# K8's cases: (lengths, Hkv, quant_pv): lengths 1-2048 across page boundaries, MHA with and
+# without quant_pv and GQA, then serve's step lengths (MHA, quant_pv)
+K8_CASES = ((K8_LENGTHS, 32, True), (K8_LENGTHS, 32, False), (K8_LENGTHS, 8, True),
+            (SERVE_DENSE_LENGTHS, 32, True))
+
+
 def _k8_cases(torch, timer, gen):
-    """K8 at 7B serving shapes: 8 slots, 128-token pages, a pool of 1 + 8 x
-    16 pages, a shuffled table with null-page entries, lengths 1..2048 across
-    page boundaries.  Each case also holds K8 on a contiguous table against
-    K3 on the same dense cache."""
+    """K8 at 7B serving shapes (K8_CASES): 8 slots, 128-token pages, a pool
+    of 1 + 8 x 16 pages, a shuffled table with null-page entries.  Each case
+    also holds K8 on a contiguous table against K3 on the same dense cache,
+    and times K3's body on that cache at every cluster of DECODE_CLUSTERS
+    (held within K3's gates against K8's plain version)."""
+    from dgq_tpu_torch.ops import attention as att
     from dgq_tpu_torch.ops.attention import int8_decode_attention, \
         int8_paged_decode_attention, int8_paged_decode_attention_xla
 
     cases = []
     h, dh, npg = 32, 128, SMAX // PS
     pages = 1 + SLOTS * npg
-    lengths = torch.tensor(K8_LENGTHS, dtype=torch.int32, device=DEV)
-    table = torch.from_numpy(_paged_table(K8_LENGTHS, npg, seed=8)).to(DEV)
-    for hk, quant_pv in ((32, True), (32, False), (8, True)):
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for lens, hk, quant_pv in K8_CASES:
+        lengths = torch.tensor(lens, dtype=torch.int32, device=DEV)
+        table = torch.from_numpy(_paged_table(lens, npg, seed=8)).to(DEV)
+
         def ri(shape):
             return torch.randint(-127, 128, shape, generator=gen, device=DEV, dtype=torch.int8)
 
@@ -1636,9 +1667,9 @@ def _k8_cases(torch, timer, gen):
             return int8_paged_decode_attention_xla(q, kt_pool, v_pool, table, lengths, qs, ks,
                                                    vs, quant_pv=quant_pv)
 
-        what = f"K8 Hkv={hk} quant_pv={quant_pv}"
-        out_k = kern()
-        err = _check_close(what, out_k, plain())
+        what = f"K8 lengths={lens} Hkv={hk} quant_pv={quant_pv}"
+        out_k, out_p = kern(), plain()
+        err = _check_close(what, out_k, out_p)
         # the same cache dense, and as pages 1.. on an identity table
         kt, v, kt_c, v_c = _contiguous_pool(torch, kt_pool, v_pool, table)
         ident = (1 + torch.arange(SLOTS * npg, device=DEV, dtype=torch.int32)).reshape(SLOTS, npg)
@@ -1647,17 +1678,84 @@ def _k8_cases(torch, timer, gen):
             int8_paged_decode_attention(q, kt_c, v_c, ident, lengths, qs, ks, vs,
                                         quant_pv=quant_pv),
             int8_decode_attention(q, kt, v, lengths, qs, ks, vs, quant_pv=quant_pv))
+        # K3's body on the same cache dense, at every cluster
+        scales = att._kernel_scales(qs, ks, vs, dh, True)
+        k3_body_ms = {}
+        for c in att.DECODE_CLUSTERS:
+            def k3(c=c):
+                return att._decode_launch(q, kt, v, lengths, scales, quant_pv, c)
+
+            _check_k3(torch, f"{what}: K3's body at cluster {c}", k3(), out_p, quant_pv)
+            k3_body_ms[c] = timer.kernel(k3, K3_NAMES)
         # the valid positions' K and V, as K3 and K7 count them, plus the table
-        b_ms, b_by = _decode_bound(SLOTS, h, hk, dh, sum(K8_LENGTHS), quant_pv,
+        b_ms, b_by = _decode_bound(SLOTS, h, hk, dh, sum(lens), quant_pv,
                                    extra_bytes=4 * SLOTS * npg)
         cases.append({"slots": SLOTS, "H": h, "Hkv": hk, "page": PS, "pool_pages": pages,
-                      "table_width": npg, "lengths": list(K8_LENGTHS), "quant_pv": quant_pv,
+                      "table_width": npg, "lengths": list(lens), "quant_pv": quant_pv,
+                      "cluster": att.paged_plan(SLOTS, hk, h // hk, dh, npg, PS, sms),
                       "max_abs_err": err, "max_abs_err_vs_k3_contiguous": err_k3,
-                      "ms": timer.kernel(kern, K78_NAMES), "call_ms": timer(kern),
+                      "ms": timer.kernel(kern, K8_NAMES), "call_ms": timer(kern),
+                      "k3_body_ms": k3_body_ms,
                       "plain_ms": timer(plain, iters=10), "bound_ms": b_ms, "bound_by": b_by,
                       **_sdpa_decode_ms(torch, timer, q, kt, v, (qs, ks, vs), lengths)})
         del kt_pool, v_pool, kt, v, kt_c, v_c
     return cases
+
+
+# K8 and K11 held (not timed) at page sizes off the 128 grid: 20 (no multiple of 16: 4-byte K
+# copies) and 48 (not a power of two), Dh 128 and 64, MHA and GQA, a table of about 2048
+# positions whose tiles cross pages
+PAGE_CHECKS = ((20, 128, 32), (48, 128, 8), (48, 64, 8))
+
+
+def _paged_page_checks(torch, gen):
+    """K8 (quant_pv on and off) and K11 at PAGE_CHECKS under every cluster
+    of DECODE_CLUSTERS and through the wrappers' plan: 3 slots at lengths
+    1, ps + 1 and an inactive slot's NP * ps + 5, over a shuffled pool;
+    K8 within 1e-5 of its plain version, K11 within K11_TOL of its largest
+    output."""
+    from dgq_tpu_torch.ops import attention as att
+    from dgq_tpu_torch.scripts.paged_plan_sweep import paged_table
+
+    out = []
+    h = 32
+    for ps, dh, hk in PAGE_CHECKS:
+        npg = -(-SMAX // ps)
+        lens = (1, ps + 1, npg * ps + 5)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=DEV)
+        table = torch.from_numpy(paged_table(lens, npg, ps, seed=ps)).to(DEV)
+        pages = 1 + len(lens) * npg
+        q = torch.randint(-127, 128, (len(lens), h, dh), generator=gen, device=DEV,
+                          dtype=torch.int8)
+        qs, ks, vs = [torch.rand((), generator=gen, device=DEV) * 0.02 + 0.01 for _ in range(3)]
+        for kv4, quant_pv in ((False, True), (False, False), (True, False)):
+            rows, lo = (dh // 2, -128) if kv4 else (dh, -127)
+            kt_pool = torch.randint(lo, 128, (pages, hk, rows, ps), generator=gen, device=DEV,
+                                    dtype=torch.int8)
+            v_pool = torch.randint(lo, 128, (pages, hk, ps, rows), generator=gen, device=DEV,
+                                   dtype=torch.int8)
+            if kv4:
+                ref = att.int4_paged_decode_attention_xla(q, kt_pool, v_pool, table, lengths, qs,
+                                                          ks, vs)
+                got = att.int4_paged_decode_attention(q, kt_pool, v_pool, table, lengths, qs, ks,
+                                                      vs)
+                tol = K11_TOL * ref.abs().max().item()
+            else:
+                ref = att.int8_paged_decode_attention_xla(q, kt_pool, v_pool, table, lengths, qs,
+                                                          ks, vs, quant_pv=quant_pv)
+                got = att.int8_paged_decode_attention(q, kt_pool, v_pool, table, lengths, qs, ks,
+                                                      vs, quant_pv=quant_pv)
+                tol = 1e-5
+            what = f"{'K11' if kv4 else 'K8'} ps={ps} Dh={dh} Hkv={hk} quant_pv={quant_pv}"
+            errs = {"plan": _check_close(what, got, ref, tol)}
+            scales = att._kernel_scales(qs, ks, vs, dh, True)
+            for c in att.DECODE_CLUSTERS:
+                errs[c] = _check_close(f"{what} cluster {c}", att._paged_launch(
+                    q, kt_pool, v_pool, table, lengths, scales, quant_pv, kv4, c), ref, tol)
+            out.append({"page": ps, "Dh": dh, "Hkv": hk, "kv4": kv4, "quant_pv": quant_pv,
+                        "lengths": list(lens), "max_abs_err": errs})
+            del kt_pool, v_pool
+    return out
 
 
 def _k11_cases(torch, timer, gen):
@@ -1666,11 +1764,12 @@ def _k11_cases(torch, timer, gen):
     case also holds K11 on a contiguous table against K8 without quant_pv on
     the unpacked INT8 pool of the same codes."""
     from dgq_tpu_torch.ops.attention import int4_paged_decode_attention, \
-        int4_paged_decode_attention_xla, int8_paged_decode_attention
+        int4_paged_decode_attention_xla, int8_paged_decode_attention, paged_plan
     from dgq_tpu_torch.ops.kv4 import unpack_nibbles
 
     cases = []
     h, dh, npg = 32, 128, SMAX // PS
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     pages = 1 + SLOTS * npg
     lengths = torch.tensor(K8_LENGTHS, dtype=torch.int32, device=DEV)
     table = torch.from_numpy(_paged_table(K8_LENGTHS, npg, seed=11)).to(DEV)
@@ -1712,7 +1811,8 @@ def _k11_cases(torch, timer, gen):
         cases.append({"slots": SLOTS, "H": h, "Hkv": hk, "page": PS, "pool_pages": pages,
                       "table_width": npg, "lengths": list(K8_LENGTHS), "max_abs_err": err,
                       "largest_output": top, "max_abs_err_vs_k8_contiguous": err_k8,
-                      "ms": timer.kernel(kern, K78_NAMES), "call_ms": timer(kern),
+                      "cluster": paged_plan(SLOTS, hk, h // hk, dh, npg, PS, sms, True),
+                      "ms": timer.kernel(kern, K11_NAMES), "call_ms": timer(kern),
                       "plain_ms": timer(plain, iters=10), "bound_ms": b_ms, "bound_by": b_by,
                       **_sdpa_decode_ms(torch, timer, q, kt, v, (qs, ks4, vs4), lengths)})
         del kt_pool, v_pool, kt, v, kt_c, v_c, kt_c4, v_c4
@@ -1734,13 +1834,15 @@ def phase_kernels(torch, state):
     state["k9"] = _k9_cases(torch, timer, gen)
     state["k10"] = _k10_cases(torch, timer, gen)
     state["k11"] = _k11_cases(torch, timer, gen)
+    page_checks = _paged_page_checks(torch, gen)
     state["k12"] = _fused_cases(torch, timer, gen, span=True)
     sweep12 = _fused_sweep(torch, gen, span=True)
     del timer
     torch.cuda.empty_cache()
     hold = _plan_hold(torch)
     return {**{f"k{i}": state[f"k{i}"] for i in range(1, 13)}, "k2_checks": k2_extra,
-            "k4_k5_checks": k45, "k6_sweep": sweep, "k12_sweep": sweep12, "plan_hold": hold}
+            "k4_k5_checks": k45, "k6_sweep": sweep, "k12_sweep": sweep12, "plan_hold": hold,
+            "k8_k11_page_checks": page_checks}
 
 
 # the plan hold: the rows at which a stage released before its loads returned once gave
@@ -1752,12 +1854,14 @@ def _plan_hold(torch):
     """K4, K5, K6's legs (and with ``--span`` K12's norm and requant
     entries and its MLP's legs) held under every plan HOLD_ROUNDS times
     against the chosen plan by ``fused_plan_sweep``, then K10's plans
-    (``_k10_plan_hold``), the printout kept for chiprun_out/plan_hold.txt:
-    the calls held per cell."""
+    (``_k10_plan_hold``), then K8's and K11's clusters by ``paged_plan_sweep``
+    (every cluster HOLD_ROUNDS times at each of its shapes, against that
+    cluster's first output), the printout kept for chiprun_out/plan_hold.txt: the
+    calls held per cell."""
     import contextlib
     import io
 
-    from dgq_tpu_torch.scripts import fused_plan_sweep
+    from dgq_tpu_torch.scripts import fused_plan_sweep, paged_plan_sweep
 
     buf, rows = io.StringIO(), []
     try:
@@ -1769,6 +1873,11 @@ def _plan_hold(torch):
         for r in _k10_plan_hold(torch, lambda r: buf.write(json.dumps(r) + "\n")):
             rows.append({"kernel": r["kernel"], "M": r["M"],
                          "calls": r["repeat"] * len(r["mismatches"]), "mismatches": 0})
+        with contextlib.redirect_stdout(buf):
+            paged = paged_plan_sweep.main(["--repeat", str(HOLD_ROUNDS), "--no-time"])
+        rows += [{"kernel": "int4_paged_decode_attention" if r["kv4"] else
+                  "int8_paged_decode_attention", "shape": r["shape"],
+                  "calls": r["repeat"] * len(r["mismatches"]), "mismatches": 0} for r in paged]
     finally:
         out_dir = ROOT / "chiprun_out"
         out_dir.mkdir(exist_ok=True)
@@ -1992,7 +2101,7 @@ def phase_main_long(torch, state):
         raise AssertionError(f"AUTO chunk of {LONG_SMAX} is not {LONG_CHUNK}")
     out = _drive_main(torch, cfg, EngineConfig(cfg=cfg),
                       _want_launches(cfg.num_hidden_layers, True, LONG_NEW, chunked=True),
-                      smax=LONG_SMAX, new_tokens=LONG_NEW, attn=("K7", K78_NAMES))
+                      smax=LONG_SMAX, new_tokens=LONG_NEW, attn=("K7", K7_NAMES))
     state["launches_long"] = out["launches"]
     return out
 
@@ -2476,7 +2585,7 @@ def phase_serve(torch, state):
                               layers * rec["decode_forwards"])
     del batcher
     want, tail = _paged_serve_tail(torch, cfg, args, params, prefix, reqs, served, 8,
-                                   TIGHT_PAGES, ("K8", K78_NAMES))
+                                   TIGHT_PAGES, ("K8", K8_NAMES))
     rec["cancelled"]["prefix_of_direct_run"] = (
         want[cancel_uid][:len(cancelled)] == cancelled)
 
@@ -2526,7 +2635,7 @@ def phase_serve_kv4(torch, state):
         raise AssertionError("K2 ran on the INT4 KV path")
     del batcher
     want, tail = _paged_serve_tail(torch, cfg, args, params, prefix, reqs, served, 4,
-                                   TIGHT_PAGES_KV4, ("K11", K78_NAMES))
+                                   TIGHT_PAGES_KV4, ("K11", K11_NAMES))
     state["launches_serve_kv4"] = rec["launches"]
     state["serve_kv4_tokens"] = want
     return {**rec, **tail, "kv_bytes_per_token_int8": kv8}
@@ -3543,9 +3652,9 @@ SOURCES_OF = {
                             "dgq_tpu/ops/fused_decode.py:1249"),
     "int8_decode_attention_chunked": ("dgq_tpu_torch/csrc/int8_chunked_decode_attention.cu",
                                       "dgq_tpu/ops/attention.py:542"),
-    "int8_paged_decode_attention": ("dgq_tpu_torch/csrc/int8_chunked_decode_attention.cu",
+    "int8_paged_decode_attention": ("dgq_tpu_torch/csrc/paged_decode_attention.cu",
                                     "dgq_tpu/ops/attention.py:679"),
-    "int4_paged_decode_attention": ("dgq_tpu_torch/csrc/int8_chunked_decode_attention.cu",
+    "int4_paged_decode_attention": ("dgq_tpu_torch/csrc/paged_decode_attention.cu",
                                     "dgq_tpu/ops/attention.py:887"),
     "w4a8_matmul_packed": ("dgq_tpu_torch/csrc/w4a8_span_gemm.cu",
                            "dgq_tpu/ops/quant_matmul.py:173"),

@@ -1,7 +1,8 @@
 // K3's block body, decode attention over the INT8 KV cache, for Hopper
 // (sm_90a): int8_decode_attention.cu (K3) and quant_pv_parts_attention.cu
 // (P5, the quant_pv parts probe, in six p @ V rules) wrap it in kernels of
-// their own.
+// their own over the dense cache (DenseKV), and paged_decode_attention.cu
+// (K8, K11) over a page pool (PagedKV), INT8 or INT4 nibble pages.
 //
 #pragma once
 
@@ -18,21 +19,28 @@ constexpr int T = 64;       // positions a tile
 constexpr int KS = T + 16;  // bytes a K tile row: the q.k loop's two half-warps read rows
                             // 4 apart, which the 16 spare bytes put on different banks
 constexpr int RING = 4;     // tiles in flight
+constexpr int KS4 = 2 * T + 32;  // bytes a nibble K tile row (2 T positions; dh / 2 rows of
+                                 // them fill a slot): rows 2 apart land 16 banks apart
 constexpr int SMEM_LIMIT = 232448;
 constexpr float NEG = -3.4028234663852886e38f;  // finfo(float32).min
 
 // Byte offsets of a block's dynamic shared memory, on the host (its size) and
-// in the kernel.  chmax is the most positions a rank takes (a multiple of T).
+// in the kernel.  chmax is the most positions a rank takes (a multiple of the
+// tile); npages the entries of a rank's page cache and tile the positions of
+// a tile (paged pools only: 2 T for nibble pages).
 struct Layout {
-  int slot, scores, codes, part, kpart, total;
-  __host__ __device__ Layout(int dh, int rep, int chmax, int cluster) {
-    slot = dh * KS;                              // a K tile [dh][KS], or a V tile [T][dh]
+  int slot, scores, codes, part, kpart, pages, total;
+  __host__ __device__ Layout(int dh, int rep, int chmax, int cluster, int npages = 0,
+                             int tile = T) {
+    // a K tile [dh][KS], or a V tile [T][dh]; nibble tiles [dh / 2][KS4], [2 T][dh / 2]
+    slot = dh * KS;
     scores = RING * slot;                        // f32 [rep][chmax]: scores, then exp-weights
     codes = scores + 4 * rep * chmax;            // u8 [rep][chmax]: the int8 codes (quant_pv)
     part = codes + rep * chmax;                  // u32 [cluster][rep][dh + 1]: rank 0 gathers
                                                  // every rank's p @ V sums and exp sum
-    kpart = part + 4 * cluster * rep * (dh + 1); // int [NWARPS][rep][T]: q.k partial sums
-    total = kpart + 4 * NWARPS * rep * T;
+    kpart = part + 4 * cluster * rep * (dh + 1); // int [NWARPS][rep][tile]: q.k partial sums
+    pages = kpart + 4 * NWARPS * rep * tile;     // int [npages]: the rank's pages
+    total = pages + 4 * npages;
   }
 };
 
@@ -119,6 +127,100 @@ __device__ __forceinline__ void block_reduce(float (&val)[REP], float (*red)[REP
   __syncthreads();
 }
 
+// sign-extend the 4-bit code in the low nibble of each byte (0..15) to int8,
+// four at once without a carry between the bytes
+__device__ __forceinline__ uint32_t sext_nibbles(uint32_t x) {
+  return ((x ^ 0x08080808u) + 0x78787878u) ^ 0x80808080u;
+}
+
+// nibble rows r0 (dims 4 dq, 4 dq + 1 a byte, low nibble first) and r1 (dims
+// 4 dq + 2, 4 dq + 3) of 4 positions -> c[e] = position e's four int8 codes
+// in dim order
+__device__ __forceinline__ void unpack_nibble_rows(uint32_t r0, uint32_t r1, uint32_t (&c)[4]) {
+  transpose4x4(sext_nibbles(r0 & 0x0F0F0F0Fu), sext_nibbles((r0 >> 4) & 0x0F0F0F0Fu),
+               sext_nibbles(r1 & 0x0F0F0F0Fu), sext_nibbles((r1 >> 4) & 0x0F0F0F0Fu), c);
+}
+
+// Where a rank's tiles live.  start() takes the rank's (slot, kv head) and
+// first position p0; k(row, t0, off) is the address of K row `row` (a dim,
+// or a pair of dims in nibble pages) at the rank's position t0 + off (a
+// copy of 16 or 4 bytes never leaves the row's page); v(t0, off) that of
+// byte `off` of the rank's V from position t0 on (a 16-byte copy never
+// leaves one position's row).
+// K3's dense cache: (B, Hkv, Dh, Smax) K rows Smax apart, (B, Hkv, Smax, Dh) V.
+template <int DH>
+struct DenseKV {
+  static constexpr bool PAGED = false;
+  static constexpr bool NIBBLES = false;
+  static constexpr bool FAST_FP = false;
+  const int8_t* kt;
+  const int8_t* vc;
+  int smax;
+  const int8_t* kg;
+  const int8_t* vg;
+  __device__ __forceinline__ void start(int b, int g, int Hkv, int p0, int, uint8_t*) {
+    const size_t bg = (size_t)b * Hkv + g;
+    kg = kt + bg * DH * smax + p0;
+    vg = vc + (bg * smax + p0) * DH;
+  }
+  __device__ __forceinline__ const int8_t* k(int row, int t0, int off) const {
+    return kg + (size_t)row * smax + t0 + off;
+  }
+  __device__ __forceinline__ const int8_t* v(int t0, int off) const {
+    return vg + (size_t)t0 * DH + off;
+  }
+};
+
+// K8's and K11's page pool: logical position p of slot b at pool page
+// table[b, p / ps], offset p % ps; (P, Hkv, ROWB, ps) K pages and (P, Hkv,
+// ps, ROWB) V pages, ROWB = Dh, or Dh / 2 nibble bytes (KV4).  start() puts
+// the rank's pages (pool page x Hkv + kv head) in shared memory at `spare`
+// once, so a copy's address takes a shared load; p / ps is a multiply-high
+// by ceil(2^32 / ps), exact while p ps < 2^32.  A thread's K copies of a
+// tile share one column, so it looks its page up once a tile.  Its fp p @ V
+// turns codes into floats through the exponent bits (FAST_FP: a byte
+// permute and an add; the int-to-float unit runs at a sixteenth of the fma
+// rate), the same values.
+template <int DH, bool KV4>
+struct PagedKV {
+  static constexpr bool PAGED = true;
+  static constexpr bool NIBBLES = KV4;
+  static constexpr bool FAST_FP = true;
+  static constexpr int ROWB = KV4 ? DH / 2 : DH;
+  const int8_t* kt;
+  const int8_t* vc;
+  const int* table;
+  int ps, np;
+  const int* pg;  // the rank's pages, from logical page lo on
+  int p0, lo;     // the rank's first position and page
+  uint32_t mg;    // ceil(2^32 / ps)
+  __device__ __forceinline__ int page_of(int p) const { return static_cast<int>(__umulhi(p, mg)); }
+  __device__ __forceinline__ int in_page(int p) const { return p - page_of(p) * ps; }
+  __device__ __forceinline__ void start(int b, int g, int Hkv, int p0_, int n, uint8_t* spare) {
+    p0 = p0_;
+    mg = 0xFFFFFFFFu / static_cast<uint32_t>(ps) + 1u;
+    lo = page_of(p0);
+    const int cnt = n > 0 ? page_of(p0 + n - 1) - lo + 1 : 0;
+    int* s = reinterpret_cast<int*>(spare);
+    const int* trow = table + (size_t)b * np + lo;
+    for (int i = threadIdx.x; i < cnt; i += NT) s[i] = __ldg(trow + i) * Hkv + g;
+    pg = s;
+    __syncthreads();
+  }
+  __device__ __forceinline__ const int8_t* k(int row, int t0, int off) const {
+    const int p = p0 + t0 + off;
+    return kt + ((size_t)pg[page_of(p) - lo] * ROWB + row) * ps + in_page(p);
+  }
+  __device__ __forceinline__ const int8_t* v(int t0, int off) const {
+    const int p = p0 + t0 + off / ROWB;
+    return vc + ((size_t)pg[page_of(p) - lo] * ps + in_page(p)) * ROWB + off % ROWB;
+  }
+};
+
+// the most entries of a rank's page cache: its positions (at most chmax) over
+// pages of ps, and one more where they start inside a page
+__host__ __device__ inline int rank_pages(int chmax, int ps) { return (chmax + ps - 1) / ps + 1; }
+
 template <class A>
 __device__ __forceinline__ uint32_t bits(A a) {
   if constexpr (std::is_same<A, float>::value) return __float_as_uint(a);
@@ -156,19 +258,28 @@ __device__ __forceinline__ int exp_code(float e) {
 }
 
 // One block of the grid (C, Hkv, B) in clusters of C along x, under p @ V
-// rule RULE; K16: Smax % 16 == 0.  PROBE (P5): a slot's length may be 0,
-// and then every position scores finfo.min, so every e is 1 over all Smax
-// positions, and no K is read (K3's lengths are at least 1).  Each .cu wraps
-// it in a named kernel.
-template <int DH, int REP, int RULE, bool K16, bool PROBE>
-__device__ __forceinline__ void decode_attn_body(const int8_t* __restrict__ q,
-                                                 const int8_t* __restrict__ kt,
-                                                 const int8_t* __restrict__ v,
+// rule RULE, its tiles found through `addr` (a DenseKV or a PagedKV; Smax is
+// the slot's positions, NP * ps for pages); K16: K copies of 16 bytes
+// (Smax % 16 == 0 dense, ps % 16 == 0 paged), else of 4.  PROBE (P5): a
+// slot's length may be 0, and then every position scores finfo.min, so
+// every e is 1 over all Smax positions, and no K is read (K3's lengths are
+// at least 1).  Nibble pages (K11): K rows 2 dq and 2 dq + 1 sign-extended
+// into dims 4 dq .. 4 dq + 3, so q needs no permutation and the int32
+// scores equal the plain version's; fp p @ V only.  Each .cu wraps it in a
+// named kernel.
+template <int DH, int REP, int RULE, bool K16, bool PROBE, class Addr>
+__device__ __forceinline__ void decode_attn_core(Addr addr, const int8_t* __restrict__ q,
                                                  const int* __restrict__ lengths,
                                                  const float* __restrict__ scales,
                                                  float* __restrict__ out, int Hkv, int Smax,
                                                  int chmax) {
   constexpr bool QPV = int_rule(RULE);
+  constexpr bool NIB = Addr::NIBBLES;
+  static_assert(!NIB || RULE == PV_FP, "nibble pages take fp p @ V only");
+  constexpr int KROWS = NIB ? DH / 2 : DH;  // rows of a K tile
+  constexpr int KROW = NIB ? KS4 : KS;      // their stride in the ring
+  constexpr int VROWB = NIB ? DH / 2 : DH;  // bytes of a V row
+  constexpr int TT = NIB ? 2 * T : T;       // positions a tile: a slot's bytes either way
   using acc_t = typename std::conditional<QPV, int, float>::type;
   constexpr int DQ = DH / 4;    // d quads
   constexpr int KDS = NT / 16;  // d slices of the q.k loop (16 position quads of a tile each)
@@ -181,7 +292,7 @@ __device__ __forceinline__ void decode_attn_body(const int8_t* __restrict__ q,
   const uint32_t rank = cluster_rank(), ncl = cluster_size();
   const int g = blockIdx.y, b = blockIdx.z, tid = threadIdx.x, warp = tid >> 5;
   const int H = Hkv * REP;
-  const Layout lay(DH, REP, chmax, ncl);
+  const Layout lay(DH, REP, chmax, ncl, 0, TT);
   uint8_t* ring = smem;
   float* sS = reinterpret_cast<float*>(smem + lay.scores);
   uint8_t* sC = smem + lay.codes;
@@ -198,10 +309,8 @@ __device__ __forceinline__ void decode_attn_body(const int8_t* __restrict__ q,
   const int per = ((len + ncl - 1) / ncl + 15) & ~15;  // positions a rank
   const int p0 = rank * per;
   const int n = max(0, min(per, len - p0));  // this rank's valid positions
-  const int ntile = (n + T - 1) / T;
-  const size_t bg = (size_t)b * Hkv + g;
-  const int8_t* kg = kt + bg * DH * Smax + p0;
-  const int8_t* vg = v + (bg * Smax + p0) * DH;
+  const int ntile = (n + TT - 1) / TT;
+  addr.start(b, g, Hkv, p0, n, smem + lay.pages);
   const float qk_scale = scales[0], v_scale = scales[1], vs127 = scales[2];
 
   // item u of the rank's stream: K tile u, then V tile u - ntile; one copy
@@ -209,20 +318,34 @@ __device__ __forceinline__ void decode_attn_body(const int8_t* __restrict__ q,
   auto issue = [&](int u) {
     if (u < 2 * ntile) {
       uint8_t* dst = ring + (u % RING) * lay.slot;
-      const int t0 = (u < ntile ? u : u - ntile) * T, nt = min(T, n - t0);
+      const int t0 = (u < ntile ? u : u - ntile) * TT, nt = min(TT, n - t0);
       if (u < ntile) {  // K^T rows d: nt bytes at d * Smax (rounded up, inside the row)
         if (PROBE && empty) {
+        } else if constexpr (Addr::PAGED) {  // column c of W >= w: one page lookup a tile
+          constexpr int CW = K16 ? 16 : 4;
+          const int w = (nt + CW - 1) / CW;
+          const int W = w <= 1 ? 1 : w <= 2 ? 2 : w <= 4 ? 4 : w <= 8 ? 8 : w <= 16 ? 16 : 32;
+          const int c = tid & (W - 1);
+          if (c < w) {
+            const int8_t* src = addr.k(0, t0, CW * c);
+            for (int row = tid / W; row < KROWS; row += NT / W) {
+              if (K16)
+                cp_async16(dst + row * KROW + CW * c, src + (size_t)row * addr.ps);
+              else
+                cp_async4(dst + row * KROW + CW * c, src + (size_t)row * addr.ps);
+            }
+          }
         } else if (K16) {
           const int w = (nt + 15) >> 4;
-          for (int i = tid; i < DH * w; i += NT)
-            cp_async16(dst + (i / w) * KS + 16 * (i % w), kg + (size_t)(i / w) * Smax + t0 + 16 * (i % w));
+          for (int i = tid; i < KROWS * w; i += NT)
+            cp_async16(dst + (i / w) * KROW + 16 * (i % w), addr.k(i / w, t0, 16 * (i % w)));
         } else {
           const int w = (nt + 3) >> 2;
-          for (int i = tid; i < DH * w; i += NT)
-            cp_async4(dst + (i / w) * KS + 4 * (i % w), kg + (size_t)(i / w) * Smax + t0 + 4 * (i % w));
+          for (int i = tid; i < KROWS * w; i += NT)
+            cp_async4(dst + (i / w) * KROW + 4 * (i % w), addr.k(i / w, t0, 4 * (i % w)));
         }
-      } else {  // V rows t0 .. t0 + nt - 1: one contiguous range
-        for (int i = tid; i < nt * DH / 16; i += NT) cp_async16(dst + 16 * i, vg + (size_t)t0 * DH + 16 * i);
+      } else {  // V rows t0 .. t0 + nt - 1: one contiguous range (dense), a row a page
+        for (int i = tid; i < nt * VROWB / 16; i += NT) cp_async16(dst + 16 * i, addr.v(t0, 16 * i));
       }
     }
     cp_async_commit();
@@ -239,40 +362,49 @@ __device__ __forceinline__ void decode_attn_body(const int8_t* __restrict__ q,
     cp_async_wait<RING - 1>();
     __syncthreads();  // tile u has landed for every thread; sQ is written
     const uint8_t* ktile = ring + (u % RING) * lay.slot;
-    int acc[REP][4];
 #pragma unroll
-    for (int r = 0; r < REP; ++r) acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0;
+    for (int hf = 0; hf < TT / T; ++hf) {  // the tile's T-position halves (nibble tiles: two)
+      int acc[REP][4];
 #pragma unroll
-    for (int i = 0; i < DQ / KDS; ++i) {
-      const int dq = ds + KDS * i;
-      const uint8_t* src = ktile + 4 * dq * KS + 4 * pq;
-      uint32_t c[4];
-      transpose4x4(lds32(src), lds32(src + KS), lds32(src + 2 * KS), lds32(src + 3 * KS), c);
+      for (int r = 0; r < REP; ++r) acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0;
 #pragma unroll
-      for (int r = 0; r < REP; ++r) {
-        const int qw = static_cast<int>(sQ[r][dq]);
+      for (int i = 0; i < DQ / KDS; ++i) {
+        const int dq = ds + KDS * i;
+        uint32_t c[4];
+        if constexpr (NIB) {
+          const uint8_t* src = ktile + 2 * dq * KROW + T * hf + 4 * pq;
+          unpack_nibble_rows(lds32(src), lds32(src + KROW), c);
+        } else {
+          const uint8_t* src = ktile + 4 * dq * KS + 4 * pq;
+          transpose4x4(lds32(src), lds32(src + KS), lds32(src + 2 * KS), lds32(src + 3 * KS), c);
+        }
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[r][e] = __dp4a(static_cast<int>(c[e]), qw, acc[r][e]);
+        for (int r = 0; r < REP; ++r) {
+          const int qw = static_cast<int>(sQ[r][dq]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[r][e] = __dp4a(static_cast<int>(c[e]), qw, acc[r][e]);
+        }
       }
-    }
-    // the warp's two d slices, then the four warps' through shared memory
-#pragma unroll
-    for (int r = 0; r < REP; ++r)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[r][e] += __shfl_xor_sync(0xffffffffu, acc[r][e], 16);
-    if ((tid & 16) == 0)
+      // the warp's two d slices, then the four warps' through shared memory
 #pragma unroll
       for (int r = 0; r < REP; ++r)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) sKP[(warp * REP + r) * T + 4 * pq + e] = acc[r][e];
+        for (int e = 0; e < 4; ++e) acc[r][e] += __shfl_xor_sync(0xffffffffu, acc[r][e], 16);
+      if ((tid & 16) == 0)
+#pragma unroll
+        for (int r = 0; r < REP; ++r)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            sKP[(warp * REP + r) * TT + T * hf + 4 * pq + e] = acc[r][e];
+    }
     __syncthreads();  // also: every thread is done with tile u's slot
-    const int t0 = u * T, nt = min(T, n - t0);
-    for (int i = tid; i < REP * T; i += NT) {
-      const int r = i / T, j = i % T;
+    const int t0 = u * TT, nt = min(TT, n - t0);
+    for (int i = tid; i < REP * TT; i += NT) {
+      const int r = i / TT, j = i % TT;
       if (j < nt) {
         int s = 0;
 #pragma unroll
-        for (int w = 0; w < NWARPS; ++w) s += sKP[(w * REP + r) * T + j];
+        for (int w = 0; w < NWARPS; ++w) s += sKP[(w * REP + r) * TT + j];
         sS[r * chmax + t0 + j] = PROBE && empty ? NEG : __fmul_rn(static_cast<float>(s), qk_scale);
       }
     }
@@ -300,7 +432,7 @@ __device__ __forceinline__ void decode_attn_body(const int8_t* __restrict__ q,
   float den[REP];
 #pragma unroll
   for (int r = 0; r < REP; ++r) den[r] = 0.f;
-  for (int j = tid; j < ntile * T; j += NT) {
+  for (int j = tid; j < ntile * TT; j += NT) {
 #pragma unroll
     for (int r = 0; r < REP; ++r) {
       const float e = j < n ? expf(__fsub_rn(sS[r * chmax + j], sM[r])) : 0.f;
@@ -323,9 +455,29 @@ __device__ __forceinline__ void decode_attn_body(const int8_t* __restrict__ q,
     cp_async_wait<RING - 1>();
     __syncthreads();
     const uint8_t* vtile = ring + (u % RING) * lay.slot;
-    const int t0 = (u - ntile) * T;
-    const int nq = (min(T, n - t0) + 3) / 4;
+    const int t0 = (u - ntile) * TT;
+    const int nq = (min(TT, n - t0) + 3) / 4;
     for (int p = js; p < nq; p += JS) {
+      if constexpr (NIB) {  // d 4 dq .. 4 dq + 3: two bytes of each position's row
+        uint32_t h[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          h[k] = *reinterpret_cast<const uint16_t*>(vtile + (4 * p + k) * VROWB + 2 * dq);
+#pragma unroll
+        for (int r = 0; r < REP; ++r) {
+          const float4 w = *reinterpret_cast<const float4*>(sS + r * chmax + t0 + 4 * p);
+          const float ws[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {  // 2^23 + (nibble ^ 8) - (2^23 + 8): the signed code
+              const float vf =
+                  __int_as_float(0x4B000000u | (((h[k] >> (4 * e)) & 0xFu) ^ 8u)) - 8388616.0f;
+              acc[r][e] = fmaf(ws[k], __fmul_rn(vf, v_scale), acc[r][e]);
+            }
+        }
+        continue;
+      }
       const uint8_t* src = vtile + 4 * p * DH + 4 * dq;
       uint32_t c[4];  // c[e]: the 4 positions' bytes of d = 4 dq + e
       transpose4x4(lds32(src), lds32(src + DH), lds32(src + 2 * DH), lds32(src + 3 * DH), c);
@@ -342,7 +494,12 @@ __device__ __forceinline__ void decode_attn_body(const int8_t* __restrict__ q,
           for (int e = 0; e < 4; ++e)
 #pragma unroll
             for (int k = 0; k < 4; ++k) {
-              const float vf = static_cast<float>(static_cast<int8_t>(c[e] >> (8 * k)));
+              float vf;
+              if constexpr (Addr::FAST_FP)  // 2^23 + (byte ^ 0x80) - (2^23 + 128): the code
+                vf = __int_as_float(__byte_perm(c[e] ^ 0x80808080u, 0x4B000000u, 0x7540 + k)) -
+                     8388736.0f;
+              else
+                vf = static_cast<float>(static_cast<int8_t>(c[e] >> (8 * k)));
               acc[r][e] = fmaf(ws[k], RULE == PV_NODEQ ? vf : __fmul_rn(vf, v_scale), acc[r][e]);
             }
         }
@@ -392,20 +549,37 @@ __device__ __forceinline__ void decode_attn_body(const int8_t* __restrict__ q,
   }
 }
 
+// K3's and P5's body over the dense cache
+template <int DH, int REP, int RULE, bool K16, bool PROBE>
+__device__ __forceinline__ void decode_attn_body(const int8_t* __restrict__ q,
+                                                 const int8_t* __restrict__ kt,
+                                                 const int8_t* __restrict__ v,
+                                                 const int* __restrict__ lengths,
+                                                 const float* __restrict__ scales,
+                                                 float* __restrict__ out, int Hkv, int Smax,
+                                                 int chmax) {
+  decode_attn_core<DH, REP, RULE, K16, PROBE>(DenseKV<DH>{kt, v, Smax, nullptr, nullptr}, q,
+                                              lengths, scales, out, Hkv, Smax, chmax);
+}
+
 struct Call {
   const int8_t *q, *kt, *v;
   const int* lengths;
   const float* scales;
   float* out;
   int B, Hkv, Smax, cluster, chmax;
+  int pages = 0;  // a rank's page cache (paged pools)
+  int tile = T;   // positions a tile (2 T for nibble pages)
 };
 
-// Launches `kernel`, a wrapper of decode_attn_body<DH, REP, ...>, over the
-// grid (C, Hkv, B) in clusters of C; `sized` holds the dynamic shared memory
-// limit set so far, per device (one array per kernel).
-template <int DH, int REP, class Kernel>
-int launch_cluster(Kernel kernel, int (&sized)[64], const Call& c, cudaStream_t st) {
-  const Layout lay(DH, REP, c.chmax, c.cluster);
+// Launches `kernel`, a wrapper of decode_attn_core<DH, REP, ...>, over the
+// grid (C, Hkv, B) in clusters of C, with the arguments of Call and then
+// `extra`; `sized` holds the dynamic shared memory limit set so far, per
+// device (one array per kernel).
+template <int DH, int REP, class Kernel, class... Extra>
+int launch_cluster(Kernel kernel, int (&sized)[64], const Call& c, cudaStream_t st,
+                   Extra... extra) {
+  const Layout lay(DH, REP, c.chmax, c.cluster, c.pages, c.tile);
   if (lay.total > SMEM_LIMIT) return cudaErrorInvalidValue;
   int dev = 0;
   cudaGetDevice(&dev);
@@ -427,7 +601,7 @@ int launch_cluster(Kernel kernel, int (&sized)[64], const Call& c, cudaStream_t 
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, c.q, c.kt, c.v, c.lengths, c.scales, c.out,
-                                           c.Hkv, c.Smax, c.chmax);
+                                           c.Hkv, c.Smax, c.chmax, extra...);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

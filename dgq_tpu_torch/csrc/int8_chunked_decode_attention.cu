@@ -1,38 +1,27 @@
-// K7, K8 and K11: single-token decode attention over chunks of the KV cache,
-// for Hopper (sm_90a).
+// K7: single-token decode attention over chunks of the KV cache, for Hopper
+// (sm_90a).
 //
-// Replaces three TPU kernels that run four Pallas bodies (_chunk_max_kernel,
-// _chunk_pv_kernel, _decode_chunk_kernel, _decode_chunk_kernel_kv4):
-//   K7  dgq_tpu/ops/attention.py::int8_decode_attention_chunked, over a dense
-//       (B, Hkv, Dh, Smax) K / (B, Hkv, Smax, Dh) V INT8 cache in chunks;
-//   K8  dgq_tpu/ops/attention.py::int8_paged_decode_attention, over a
-//       (P, Hkv, Dh, ps) / (P, Hkv, ps, Dh) INT8 page pool whose logical page
-//       c of slot b is pool page table[b, c];
-//   K11 dgq_tpu/ops/attention.py::int4_paged_decode_attention, over INT4
-//       nibble pages (P, Hkv, Dh/2, ps) / (P, Hkv, ps, Dh/2): two signed codes
-//       per byte along Dh, the even dim in the low nibble (ops/kv4.py).
-// The three compute one function and differ only in where a tile of
-// positions lives and how its bytes hold the codes, so the block body is
-// written once, templated on the address (DenseAddr, PagedAddr) and on the
-// packing (KV4), with one C entry point for each.
+// Replaces the TPU kernel dgq_tpu/ops/attention.py::int8_decode_attention_chunked
+// (bodies _chunk_max_kernel, _chunk_pv_kernel, _decode_chunk_kernel), over a
+// dense (B, Hkv, Dh, Smax) K / (B, Hkv, Smax, Dh) V INT8 cache in chunks.
+// The block body is templated on the address (DenseAddr); K8 and K11, which
+// ran it over page pools until the page-span body took them
+// (paged_decode_attention.cu), computed the same function.
 //
 // Work: one block per (tile, kv head, slot); a tile is TILE <= 128
-// consecutive logical positions (the chunk or page itself, or 128-position
-// slices of a longer one), one thread per position.  A tile that starts at or
-// past the slot's valid length exits at once and reads nothing; lengths and
-// the table are read on the device, so a call needs no host sync.  A block
-// stages its (Dh, TILE) K tile transposed into shared memory (4x4 byte
-// permutes, as K3 does; K11 sign-extends two packed rows into one row of four
-// int8 codes per position instead, in natural dim order, so q needs no
-// permutation and the int32 scores equal the plain version's), scores the
-// rep = H / Hkv query heads of its kv head with dp4a, scales by qk_scale and
-// masks positions past the length, then:
+// consecutive logical positions (the chunk itself, or 128-position slices of
+// a longer one), one thread per position.  A tile that starts at or
+// past the slot's valid length exits at once and reads nothing; lengths are
+// read on the device, so a call needs no host sync.  A block stages its (Dh,
+// TILE) K tile transposed into shared memory (4x4 byte permutes, as K3
+// does), scores the rep = H / Hkv query heads of its kv head with dp4a,
+// scales by qk_scale and masks positions past the length, then:
 //   quant_pv, pass 1 (MAXPASS): the tile's raw row max;
 //   quant_pv, pass 2 (QPV): the GLOBAL row max M over all valid tiles of the
 //     slot (JAX's gmax), e = exp(s - M), codes trunc(127 e + 0.5) made with
 //     __fmul_rn/__fadd_rn (an fma would move codes across .5), the exact
 //     int32 codes . V and l = sum e;
-//   quant_pv off (FP; always for K11): flash partials acc = sum e (v * v_scale),
+//   quant_pv off (FP): flash partials acc = sum e (v * v_scale),
 //     m, l with e = exp(s - m) against the tile's own max.
 // A third small kernel (COMBINE) merges the tiles per (slot, head): the int32
 // partials summed in int32 (equal to the plain version's single int32
@@ -43,11 +32,9 @@
 // downstream may flip.
 //
 // What bounds it on this card: the valid K and V bytes, 2 * len * Dh per
-// (slot, kv head) for INT8 and half that for K11, over the 3.35 TB/s of
-// device memory (quant_pv reads K twice, the price of the global max).  Tiles
-// of 128 positions give the card many blocks (8 slots x 32 heads x 16 pages =
-// 4,096 at 7B serving shapes); K11 unpacks in shared memory, so every packed
-// byte is read from device memory once.
+// (slot, kv head), over the 3.35 TB/s of device memory (quant_pv reads K
+// twice, the price of the global max).  Tiles of 128 positions give the card
+// many blocks (4 slots x 32 heads x 128 tiles at 7B and a cache of 16384).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -64,17 +51,6 @@ constexpr float NEG = -3.4028234663852886e38f;  // finfo(float32).min
 enum Mode { MAXPASS = 0, QPV = 1, FP = 2 };
 
 __device__ __forceinline__ uint32_t ld32(const int8_t* p) { return *reinterpret_cast<const uint32_t*>(p); }
-__device__ __forceinline__ uint32_t ld16(const int8_t* p) { return *reinterpret_cast<const uint16_t*>(p); }
-
-// a 4-bit two's-complement code (0..15) as a signed int: 15 -> -1, 8 -> -8
-__device__ __forceinline__ int sext4(uint32_t nib) { return static_cast<int>(nib ^ 8u) - 8; }
-
-// four int8 codes in one word from nibble bytes b0 (dims 0, 1) and b1 (dims 2, 3)
-__device__ __forceinline__ uint32_t unpack_word(uint32_t b0, uint32_t b1) {
-  const uint32_t c0 = sext4(b0 & 0xFu) & 0xFFu, c1 = sext4((b0 >> 4) & 0xFu) & 0xFFu;
-  const uint32_t c2 = sext4(b1 & 0xFu) & 0xFFu, c3 = sext4((b1 >> 4) & 0xFu) & 0xFFu;
-  return c0 | (c1 << 8) | (c2 << 16) | (c3 << 24);
-}
 
 __device__ __forceinline__ void transpose4x4(uint32_t r0, uint32_t r1, uint32_t r2, uint32_t r3,
                                              uint32_t (&c)[4]) {
@@ -122,25 +98,6 @@ struct DenseAddr {
   }
 };
 
-// K8 and K11: tile t of slot b is slice t % per of logical page t / per, at
-// pool page table[b, t / per] (per = ps / tile tiles per page); ``dh`` is the
-// bytes of one position's row (Dh, or Dh / 2 for nibble pages)
-struct PagedAddr {
-  const int8_t* kt;
-  const int8_t* v;
-  const int* table;
-  int ps, np;
-  __device__ __forceinline__ void locate(int b, int g, int hkv, int t, int tile, int dh,
-                                         const int8_t*& kp, const int8_t*& vp, int& kstride) const {
-    const int per = ps / tile;
-    const int off = (t % per) * tile;
-    const size_t pg = (size_t)table[(size_t)b * np + t / per] * hkv + g;
-    kp = kt + pg * dh * ps + off;
-    vp = v + (pg * ps + off) * dh;
-    kstride = ps;
-  }
-};
-
 struct Args {
   const int8_t* q;       // (B, H, Dh)
   const int* lengths;    // (B,) valid positions, each >= 1
@@ -152,9 +109,8 @@ struct Args {
   int hkv, tile, ntiles;
 };
 
-template <int DH, int REP, int MODE, class Addr, bool KV4>
+template <int DH, int REP, int MODE, class Addr>
 __global__ void __launch_bounds__(NT) chunk_attn_kernel(Addr addr, Args a) {
-  static_assert(!KV4 || MODE == FP, "nibble pages take fp p @ V only");
   using acc_t = typename std::conditional<MODE == QPV, int, float>::type;
   constexpr int DQ = DH / 4;   // d quads
   constexpr int JS = NT / DQ;  // position slices in p @ V
@@ -177,30 +133,20 @@ __global__ void __launch_bounds__(NT) chunk_attn_kernel(Addr addr, Args a) {
   const float qk_scale = a.scales[0], v_scale = a.scales[1];
   const int8_t *kp, *vp;
   int ks;
-  constexpr int ROWB = KV4 ? DH / 2 : DH;  // bytes of one position's K column / V row
-  addr.locate(b, g, a.hkv, t, tile, ROWB, kp, vp, ks);
+  addr.locate(b, g, a.hkv, t, tile, DH, kp, vp, ks);
 
   const int8_t* qg = a.q + ((size_t)b * H + g * REP) * DH;
   for (int i = tid; i < REP * DQ; i += NT) sQ[i / DQ][i % DQ] = ld32(qg + i * 4);
   // stage the K tile, transposed 4x4 bytes at a time (whole quads: tiles are
-  // multiples of 4 positions, so the quad holding position n-1 lies in the tile);
-  // nibble pages: packed rows 2 dq and 2 dq + 1 hold dims 4 dq .. 4 dq + 3
+  // multiples of 4 positions, so the quad holding position n-1 lies in the tile)
   const int nq = (n + 3) / 4;
   for (int i = tid; i < DQ * nq; i += NT) {
     const int dq = i / nq, j0 = (i % nq) * 4;
-    if (KV4) {
-      const int8_t* src = kp + (size_t)(dq * 2) * ks + j0;
-      const uint32_t r0 = ld32(src), r1 = ld32(src + ks);
+    const int8_t* src = kp + (size_t)(dq * 4) * ks + j0;
+    uint32_t c[4];
+    transpose4x4(ld32(src), ld32(src + ks), ld32(src + 2 * ks), ld32(src + 3 * ks), c);
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        sm.k[j0 + e][dq] = unpack_word((r0 >> (8 * e)) & 0xFFu, (r1 >> (8 * e)) & 0xFFu);
-    } else {
-      const int8_t* src = kp + (size_t)(dq * 4) * ks + j0;
-      uint32_t c[4];
-      transpose4x4(ld32(src), ld32(src + ks), ld32(src + 2 * ks), ld32(src + 3 * ks), c);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sm.k[j0 + e][dq] = c[e];
-    }
+    for (int e = 0; e < 4; ++e) sm.k[j0 + e][dq] = c[e];
   }
   __syncthreads();
 
@@ -256,15 +202,9 @@ __global__ void __launch_bounds__(NT) chunk_attn_kernel(Addr addr, Args a) {
   for (int r = 0; r < REP; ++r) acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0;
   for (int jj = js; jj < n; jj += JS) {
     int vb[4];
-    if (KV4) {  // two packed bytes: dims 4 dcol .. 4 dcol + 3, low nibble first
-      const uint32_t vw = ld16(vp + (size_t)jj * ROWB + dcol * 2);
+    const uint32_t vw = ld32(vp + (size_t)jj * DH + dcol * 4);
 #pragma unroll
-      for (int q = 0; q < 4; ++q) vb[q] = sext4((vw >> (4 * q)) & 0xFu);
-    } else {
-      const uint32_t vw = ld32(vp + (size_t)jj * DH + dcol * 4);
-#pragma unroll
-      for (int q = 0; q < 4; ++q) vb[q] = static_cast<int8_t>((vw >> (8 * q)) & 0xFF);
-    }
+    for (int q = 0; q < 4; ++q) vb[q] = static_cast<int8_t>((vw >> (8 * q)) & 0xFF);
 #pragma unroll
     for (int r = 0; r < REP; ++r) {
       const float w = sW[r][jj];
@@ -329,30 +269,29 @@ __global__ void combine_kernel(Args a, int H, int DH) {
   }
 }
 
-template <int DH, int REP, bool KV4, class Addr>
+template <int DH, int REP, class Addr>
 int run(const Addr& addr, const Args& a, int B, bool qpv, cudaStream_t st) {
   const dim3 grid(a.ntiles, a.hkv, B), cgrid(a.hkv * REP, B);
   cudaError_t err;
   if (qpv) {
-    if (KV4) return cudaErrorInvalidValue;  // nibble pages have no quant_pv pass
-    chunk_attn_kernel<DH, REP, MAXPASS, Addr, false><<<grid, NT, 0, st>>>(addr, a);
+    chunk_attn_kernel<DH, REP, MAXPASS, Addr><<<grid, NT, 0, st>>>(addr, a);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    chunk_attn_kernel<DH, REP, QPV, Addr, false><<<grid, NT, 0, st>>>(addr, a);
+    chunk_attn_kernel<DH, REP, QPV, Addr><<<grid, NT, 0, st>>>(addr, a);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
     combine_kernel<true><<<cgrid, DH, 0, st>>>(a, a.hkv * REP, DH);
   } else {
-    chunk_attn_kernel<DH, REP, FP, Addr, KV4><<<grid, NT, 0, st>>>(addr, a);
+    chunk_attn_kernel<DH, REP, FP, Addr><<<grid, NT, 0, st>>>(addr, a);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
     combine_kernel<false><<<cgrid, DH, 0, st>>>(a, a.hkv * REP, DH);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool KV4, class Addr>
+template <class Addr>
 int dispatch(const Addr& addr, const Args& a, int B, int H, int Dh, bool qpv, cudaStream_t st) {
   const int rep = H / a.hkv;
 #define DGQ_REP(D, R) \
-  if (Dh == D && rep == R) return run<D, R, KV4>(addr, a, B, qpv, st);
+  if (Dh == D && rep == R) return run<D, R>(addr, a, B, qpv, st);
   DGQ_REP(128, 1) DGQ_REP(128, 2) DGQ_REP(128, 4) DGQ_REP(128, 8)
   DGQ_REP(64, 1) DGQ_REP(64, 2) DGQ_REP(64, 4) DGQ_REP(64, 8)
 #undef DGQ_REP
@@ -382,49 +321,7 @@ int int8_decode_attention_chunked(const void* q, const void* kt, const void* v,
                static_cast<const float*>(scales), static_cast<float*>(mpart),
                static_cast<float*>(lpart), accpart, static_cast<float*>(out), Hkv, tile,
                Smax / tile};
-  return dispatch<false>(addr, a, B, H, Dh, quant_pv != 0, static_cast<cudaStream_t>(stream));
-}
-
-// K8.  q (B, H, Dh) int8; kt_pool (P, Hkv, Dh, ps) and v_pool (P, Hkv, ps, Dh)
-// int8; table (B, NP) int32 pool page of each logical page (entries at or
-// past a slot's length are not read); lengths (B,) int32, each >= 1 (clamped
-// to NP * ps); scales as K7; mpart, lpart (B, NP * ps / tile, H) f32, accpart
-// (B, NP * ps / tile, H, Dh) int32 scratch; out (B, H, Dh) f32.  tile divides
-// ps: the page up to 128, else 128.
-int int8_paged_decode_attention(const void* q, const void* kt_pool, const void* v_pool,
-                                const void* table, const void* lengths, const void* scales,
-                                void* mpart, void* lpart, void* accpart, void* out, int B, int H,
-                                int Hkv, int Dh, int ps, int np, int tile, int quant_pv,
-                                void* stream) {
-  if (tile <= 0 || ps % tile || np <= 0 || bad_shape(B, H, Hkv, tile, np * (ps / tile)))
-    return cudaErrorInvalidValue;
-  const PagedAddr addr{static_cast<const int8_t*>(kt_pool), static_cast<const int8_t*>(v_pool),
-                       static_cast<const int*>(table), ps, np};
-  const Args a{static_cast<const int8_t*>(q), static_cast<const int*>(lengths),
-               static_cast<const float*>(scales), static_cast<float*>(mpart),
-               static_cast<float*>(lpart), accpart, static_cast<float*>(out), Hkv, tile,
-               np * (ps / tile)};
-  return dispatch<false>(addr, a, B, H, Dh, quant_pv != 0, static_cast<cudaStream_t>(stream));
-}
-
-// K11.  q (B, H, Dh) int8; kt_pool (P, Hkv, Dh / 2, ps) and v_pool (P, Hkv,
-// ps, Dh / 2) int8 nibble pages; table, lengths, mpart, lpart as K8; scales
-// [qk_scale, v_scale, unused] with the effective int4 scales (int8 scales x
-// 127 / 7) folded in by the caller; accpart (B, NP * ps / tile, H, Dh) f32
-// scratch; out (B, H, Dh) f32.  fp p @ V (no quant_pv), as JAX's kernel.
-int int4_paged_decode_attention(const void* q, const void* kt_pool, const void* v_pool,
-                                const void* table, const void* lengths, const void* scales,
-                                void* mpart, void* lpart, void* accpart, void* out, int B, int H,
-                                int Hkv, int Dh, int ps, int np, int tile, void* stream) {
-  if (tile <= 0 || ps % tile || np <= 0 || bad_shape(B, H, Hkv, tile, np * (ps / tile)))
-    return cudaErrorInvalidValue;
-  const PagedAddr addr{static_cast<const int8_t*>(kt_pool), static_cast<const int8_t*>(v_pool),
-                       static_cast<const int*>(table), ps, np};
-  const Args a{static_cast<const int8_t*>(q), static_cast<const int*>(lengths),
-               static_cast<const float*>(scales), static_cast<float*>(mpart),
-               static_cast<float*>(lpart), accpart, static_cast<float*>(out), Hkv, tile,
-               np * (ps / tile)};
-  return dispatch<true>(addr, a, B, H, Dh, false, static_cast<cudaStream_t>(stream));
+  return dispatch(addr, a, B, H, Dh, quant_pv != 0, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -42,10 +42,10 @@ SOURCES = {
     "fused_norm_gemv": "fused_gemv_span_sm90",
     "fused_requant_gemv": "fused_gemv_span_sm90",
     "fused_mlp_decode": "fused_gemv_span_sm90",
-    # K7, K8 and K11: one block body, dense or paged addressing, INT8 or nibble codes
     "int8_decode_attention_chunked": "int8_chunked_decode_attention",
-    "int8_paged_decode_attention": "int8_chunked_decode_attention",
-    "int4_paged_decode_attention": "int8_chunked_decode_attention",
+    # K8 and K11: K3's body over the page pool (csrc/decode_attention.cuh), INT8 or nibble codes
+    "int8_paged_decode_attention": "paged_decode_attention",
+    "int4_paged_decode_attention": "paged_decode_attention",
     # K9 (which also serves K14's names) and K10: one source, three epilogues
     "w4a8_matmul_packed": "w4a8_span_gemm",
     "w4a8_fpscale_matmul_packed": "w4a8_span_gemm",

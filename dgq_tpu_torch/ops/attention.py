@@ -8,10 +8,11 @@ Port of ``dgq_tpu/ops/attention.py``: ``_quantize_exp`` (:35-65),
 (:337-374) and ``int8_paged_decode_attention_xla`` (:912-923), and the
 wrappers of the hand-written CUDA kernels under the JAX names:
 ``int8_prefill_attention`` (``csrc/int8_prefill_attention.cu``),
-``int8_decode_attention`` (``csrc/int8_decode_attention.cu``), and
-``int8_decode_attention_chunked``, ``int8_paged_decode_attention`` and
-``int4_paged_decode_attention``, which share
-``csrc/int8_chunked_decode_attention.cu``.  K11's plain version,
+``int8_decode_attention`` (``csrc/int8_decode_attention.cu``),
+``int8_decode_attention_chunked`` (``csrc/int8_chunked_decode_attention.cu``),
+and ``int8_paged_decode_attention`` and ``int4_paged_decode_attention``,
+which share ``csrc/paged_decode_attention.cu`` (K3's body over the page
+pool, its cluster from ``paged_plan``).  K11's plain version,
 ``int4_paged_decode_attention_xla``, is what JAX runs off its kernel
 (``dgq_tpu/serving/paged.py:259-270``): unpack both pools, then K8's plain
 version without quant_pv.
@@ -45,19 +46,18 @@ DECODE = "int8_decode_attention"
 CHUNKED = "int8_decode_attention_chunked"
 PAGED = "int8_paged_decode_attention"
 PAGED_KV4 = "int4_paged_decode_attention"
-_CHUNK_SIGNATURES = {  # one library, three entry points
-    CHUNKED: [_cuda.VP] * 9 + [_cuda.INT] * 7 + [_cuda.VP],
-    PAGED: [_cuda.VP] * 10 + [_cuda.INT] * 8 + [_cuda.VP],
-    PAGED_KV4: [_cuda.VP] * 10 + [_cuda.INT] * 7 + [_cuda.VP],
+_PAGED_SIGNATURES = {  # one library, two entry points
+    PAGED: [_cuda.VP] * 7 + [_cuda.INT] * 8 + [_cuda.VP],
+    PAGED_KV4: [_cuda.VP] * 7 + [_cuda.INT] * 7 + [_cuda.VP],
 }
 _SIGNATURES = {
     PREFILL: {PREFILL: [_cuda.VP] * 5 + [_cuda.INT] * 8 + [_cuda.VP]},
     DECODE: {DECODE: [_cuda.VP] * 6 + [_cuda.INT] * 7 + [_cuda.VP]},
-    CHUNKED: _CHUNK_SIGNATURES,
-    PAGED: _CHUNK_SIGNATURES,
-    PAGED_KV4: _CHUNK_SIGNATURES,
+    CHUNKED: {CHUNKED: [_cuda.VP] * 9 + [_cuda.INT] * 7 + [_cuda.VP]},
+    PAGED: _PAGED_SIGNATURES,
+    PAGED_KV4: _PAGED_SIGNATURES,
 }
-TILE = 128  # positions per block of K7/K8/K11: the chunk or page, or 128-position slices of it
+TILE = 128  # positions per block of K7: the chunk, or 128-position slices of it
 # K3: a cluster of DECODE_CLUSTERS[i] blocks per (slot, kv head), each taking a
 # contiguous share of the valid positions through a ring of DECODE_RING tiles
 # of DECODE_TILE positions (csrc/int8_decode_attention.cu)
@@ -241,6 +241,12 @@ def decode_plan(b: int, hk: int, rep: int, dh: int, smax: int, sms: int) -> int:
     if not fits:
         raise ValueError(f"K3: Smax {smax} at Dh {dh} and rep {rep} fits no cluster of "
                          f"{DECODE_CLUSTERS}")
+    return _wave_cluster(b, hk, sms, fits)
+
+
+def _wave_cluster(b: int, hk: int, sms: int, fits) -> int:
+    """The largest of the clusters ``fits`` whose B x Hkv x cluster blocks fit
+    DECODE_BLOCKS_PER_SM blocks an SM, else the smallest."""
     wave = [c for c in fits if b * hk * c <= DECODE_BLOCKS_PER_SM * sms]
     return max(wave) if wave else fits[0]
 
@@ -312,8 +318,9 @@ def int8_paged_decode_attention_xla(q_s8, kt_pool, v_pool, table, length, q_scal
 
 
 def _tile(ch: int, what: str) -> int:
-    """Positions per block of K7/K8/K11: the chunk (page) itself up to 128,
-    else 128-position slices of it."""
+    """Positions per block of K7: the chunk itself up to 128, else
+    128-position slices of it.  K8 and K11 check their page size with it
+    too (the chunks and pages every kernel of the three took so far)."""
     if ch <= 0 or ch % 4 or (ch > TILE and ch % TILE):
         raise ValueError(f"{what} needs a chunk (page) that is a multiple of 4 and at most "
                          f"{TILE}, or a multiple of {TILE}; got {ch}")
@@ -327,7 +334,7 @@ def _check_heads(what: str, h: int, hk: int, dh: int) -> None:
 
 
 def _chunk_buffers(b: int, ntiles: int, h: int, dh: int, dev):
-    """Per-tile partials of K7/K8: row max, exp sum, and the (int32 or f32)
+    """Per-tile partials of K7: row max, exp sum, and the (int32 or f32)
     p @ V numerator, each (B, tiles, H[, Dh]); and the (B, H, Dh) output."""
     return (torch.empty((b, ntiles, h), dtype=torch.float32, device=dev),
             torch.empty((b, ntiles, h), dtype=torch.float32, device=dev),
@@ -373,6 +380,59 @@ def int8_decode_attention_chunked(q_s8: torch.Tensor, kt_cache: torch.Tensor,
     return out
 
 
+def paged_smem_bytes(dh: int, rep: int, npg: int, ps: int, cluster: int,
+                     kv4: bool = False) -> int:
+    """K8's and K11's dynamic shared memory a block (the kernel's ``Layout``
+    over the table's NP * ps positions): K3's, with K11's tiles of twice the
+    positions (nibbles: the same bytes) and the rank's page cache
+    (``rank_pages``, ``csrc/decode_attention.cuh``)."""
+    tile = 2 * DECODE_TILE if kv4 else DECODE_TILE
+    chmax = -(-(-(-(npg * ps) // cluster)) // tile) * tile
+    return (DECODE_RING * dh * (DECODE_TILE + 16) + 5 * rep * chmax
+            + 4 * cluster * rep * (dh + 1) + 4 * (DECODE_THREADS // 32) * rep * tile
+            + 4 * (-(-chmax // ps) + 1))
+
+
+@functools.lru_cache(maxsize=1024)
+def paged_plan(b: int, hk: int, rep: int, dh: int, npg: int, ps: int, sms: int,
+               kv4: bool = False) -> int:
+    """K8's and K11's cluster size: K3's rule (``decode_plan``) for a cache
+    of the table's NP * ps positions, among the clusters whose block with
+    its page cache fits.  Held on an H100 at K8's and K11's shapes
+    (``python -m dgq_tpu_torch.scripts.paged_plan_sweep``, ``PERF.md``)."""
+    if ps <= 0 or ps % 4:
+        raise ValueError(f"K8/K11 need a page size that is a multiple of 4; got {ps}")
+    fits = [c for c in DECODE_CLUSTERS
+            if paged_smem_bytes(dh, rep, npg, ps, c, kv4) <= DECODE_SMEM_LIMIT]
+    if not fits:
+        raise ValueError(f"K8/K11: a table of {npg} pages of {ps} positions at Dh {dh} and rep "
+                         f"{rep} fits no cluster of {DECODE_CLUSTERS}")
+    return _wave_cluster(b, hk, sms, fits)
+
+
+def _paged_launch(q_s8, kt_pool, v_pool, table, lengths, scales, quant_pv: bool, kv4: bool,
+                  cluster: int) -> torch.Tensor:
+    """Launch K8 (or, ``kv4``, K11 on nibble pages) in clusters of
+    ``cluster`` blocks on checked operands (``lengths`` (B,) int32 and the
+    kernel's scales on the card)."""
+    b, h, dh = q_s8.shape
+    hk, ps = kt_pool.shape[1], kt_pool.shape[3]
+    npg = table.shape[1]
+    dev = q_s8.device
+    out = torch.empty((b, h, dh), dtype=torch.float32, device=dev)
+    name = PAGED_KV4 if kv4 else PAGED
+    lib = _cuda.library(_cuda.SOURCES[name], _SIGNATURES[name])
+    head = (_cuda.ptr(q_s8), _cuda.ptr(kt_pool), _cuda.ptr(v_pool), _cuda.ptr(table),
+            _cuda.ptr(lengths), _cuda.ptr(scales), _cuda.ptr(out), b, h, hk, dh, ps, npg, cluster)
+    if kv4:
+        rc = lib.int4_paged_decode_attention(*head, _cuda.stream(dev))
+    else:
+        rc = lib.int8_paged_decode_attention(*head, int(quant_pv), _cuda.stream(dev))
+    _cuda.check(rc, name)
+    _cuda.count_launch(name)
+    return out
+
+
 def int8_paged_decode_attention(q_s8: torch.Tensor, kt_pool: torch.Tensor,
                                 v_pool: torch.Tensor, table: torch.Tensor,
                                 length: Union[int, torch.Tensor], q_scale, k_scale, v_scale, *,
@@ -397,20 +457,12 @@ def int8_paged_decode_attention(q_s8: torch.Tensor, kt_pool: torch.Tensor,
     _cuda.require(v_pool, "v_pool", torch.int8, (p, hk, ps, dh), dev)
     _cuda.require(table, "table", torch.int32, (b, npg), dev, align=4)
     _check_heads("K8", h, hk, dh)
-    tile = _tile(ps, "K8")
-    ntiles = npg * (ps // tile)
+    _tile(ps, "K8")
     lengths = _lengths(length, b, dev)
     scales = _kernel_scales(q_scale, k_scale, v_scale, dh, apply_sqrt_dh)
-    mpart, lpart, acc, out = _chunk_buffers(b, ntiles, h, dh, dev)
-    lib = _cuda.library(_cuda.SOURCES[PAGED], _SIGNATURES[PAGED])
-    rc = lib.int8_paged_decode_attention(
-        _cuda.ptr(q_s8), _cuda.ptr(kt_pool), _cuda.ptr(v_pool), _cuda.ptr(table),
-        _cuda.ptr(lengths), _cuda.ptr(scales), _cuda.ptr(mpart), _cuda.ptr(lpart),
-        _cuda.ptr(acc), _cuda.ptr(out), b, h, hk, dh, ps, npg, tile, int(quant_pv),
-        _cuda.stream(dev))
-    _cuda.check(rc, PAGED)
-    _cuda.count_launch(PAGED)
-    return out
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return _paged_launch(q_s8, kt_pool, v_pool, table, lengths, scales, quant_pv, False,
+                         paged_plan(b, hk, h // hk, dh, npg, ps, sms))
 
 
 def int4_paged_decode_attention_xla(q_s8, kt_pool, v_pool, table, length, q_scale, k_scale4,
@@ -452,16 +504,9 @@ def int4_paged_decode_attention(q_s8: torch.Tensor, kt_pool: torch.Tensor,
     _cuda.require(v_pool, "v_pool", torch.int8, (p, hk, ps, dh2), dev)
     _cuda.require(table, "table", torch.int32, (b, npg), dev, align=4)
     _check_heads("K11", h, hk, dh)
-    tile = _tile(ps, "K11")
-    ntiles = npg * (ps // tile)
+    _tile(ps, "K11")
     lengths = _lengths(length, b, dev)
     scales = _kernel_scales(q_scale, k_scale4, v_scale4, dh, apply_sqrt_dh)
-    mpart, lpart, acc, out = _chunk_buffers(b, ntiles, h, dh, dev)
-    lib = _cuda.library(_cuda.SOURCES[PAGED_KV4], _SIGNATURES[PAGED_KV4])
-    rc = lib.int4_paged_decode_attention(
-        _cuda.ptr(q_s8), _cuda.ptr(kt_pool), _cuda.ptr(v_pool), _cuda.ptr(table),
-        _cuda.ptr(lengths), _cuda.ptr(scales), _cuda.ptr(mpart), _cuda.ptr(lpart),
-        _cuda.ptr(acc), _cuda.ptr(out), b, h, hk, dh, ps, npg, tile, _cuda.stream(dev))
-    _cuda.check(rc, PAGED_KV4)
-    _cuda.count_launch(PAGED_KV4)
-    return out
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return _paged_launch(q_s8, kt_pool, v_pool, table, lengths, scales, False, True,
+                         paged_plan(b, hk, h // hk, dh, npg, ps, sms, True))

@@ -9,8 +9,12 @@ follows the source's path, so a kernel whose body moved to a header keeps
 its name) and the addresses in front of the instructions, and prints one
 JSON line a source: the functions found in only one tree, and those whose
 instructions differ (with the first differing instruction).  A change that
-should leave a kernel alone shows it here: ``"differ": []``.  Then the
-card's name and power limit, as nvidia-smi gives them.
+should leave a kernel alone shows it here: ``"differ": []``.  ``--rename
+PATTERN REPL`` (repeatable) rewrites the other tree's function names
+before they are matched, for a change that renames a kernel without
+touching its code (e.g. a template argument it no longer takes, such as
+``--rename 'ENS_9DenseAddrELb0EE' 'ENS_9DenseAddrEE'``).  Then the card's
+name and power limit, as nvidia-smi gives them.
 
 Run, on a machine with the CUDA toolkit: ``python -m
 dgq_tpu_torch.scripts.sass_diff --other DIR [--sources STEM ...]``.
@@ -32,14 +36,17 @@ from dgq_tpu_torch.ops import _cuda
 _NAMESPACE = re.compile(r"\d*_GLOBAL__N__[0-9a-f]{8}_\d+_(\w+?)_cu_(?:[0-9a-f]{8}|\1)")
 
 
-def functions(sass: str) -> dict:
-    """{function name without the namespace hash: its instructions} of a
+def functions(sass: str, renames=()) -> dict:
+    """{function name without the namespace hash (then each ``(pattern,
+    replacement)`` of ``renames`` applied): its instructions} of a
     ``cuobjdump -sass`` listing."""
     out, fn = {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             fn = _NAMESPACE.sub("", m.group(1))
+            for pattern, repl in renames:
+                fn = re.sub(pattern, repl, fn)
             out[fn] = []
             continue
         m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s*(.*?)\s*;", line)
@@ -85,12 +92,16 @@ def main(argv=None) -> list:
     ap.add_argument("--other", required=True, help="the root of the other tree")
     ap.add_argument("--sources", nargs="+", default=sorted(set(_cuda.SOURCES.values())),
                     help="csrc stems (default: every source of this tree)")
+    ap.add_argument("--rename", nargs=2, action="append", default=[],
+                    metavar=("PATTERN", "REPL"),
+                    help="rewrite the other tree's function names before matching")
     args = ap.parse_args(argv)
     here, other = _cuda.PKG_DIR.parent, Path(args.other).resolve()
     rows = []
     mine, theirs = _libraries(here, args.sources), _libraries(other, args.sources)
     for stem in args.sources:
-        rows.append(compare(stem, functions(_sass(mine[stem])), functions(_sass(theirs[stem]))))
+        rows.append(compare(stem, functions(_sass(mine[stem])),
+                            functions(_sass(theirs[stem]), args.rename)))
         print(json.dumps(rows[-1]), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
