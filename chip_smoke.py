@@ -6,15 +6,16 @@ It imports no JAX.  Phases, each printing one JSON line with its seconds:
 
 1. device: the card's name and power limit (nvidia-smi); TF32 off.
 2. build: the fourteen CUDA sources, one nvcc each, started together; the
-   logs of the sources on wgmma (K1, K4-K6, K9, K10, K12, P1 and P2 on the
-   TMA + wgmma loop, and K2) must not hold ptxas warnings
+   logs of the sources on wgmma (K1, K4-K6, K9, K10, K12, P1, P2 and P3 on
+   the TMA + wgmma loop, and K2) must not hold ptxas warnings
    C7514, C7515 or C7520 (wgmma serialised), nor may their libraries' SASS
    (``cuobjdump -sass``) hold a kernel whose every IGMMA or HGMMA is waited
    for at once (serialised with no warning); K2's, K3's, K4's, K5's, K6's,
-   K8's and K11's (``paged_decode_attention.cu``), K10's, K12's, P2's and
-   P5's registers and spills are recorded, K4-K6's
-   and K12's must hold no spill and at most 113 registers, P2's no spill
-   and at most 75 (three blocks an SM).
+   K7's (``long_decode_attention.cu``), K8's and K11's
+   (``paged_decode_attention.cu``), K10's, K12's, P2's, P3's and P5's
+   registers and spills are recorded, K4-K6's and K12's must hold no spill
+   and at most 113 registers, P2's and P3's no spill and at most 75 (three
+   blocks an SM).
 3. kernels: K1 ``w4a8_matmul_rp_pipe``, K2 ``int8_prefill_attention``, K3
    ``int8_decode_attention``, the fused decode kernels K4
    ``fused_norm_gemv_rp``, K5 ``fused_requant_gemv_rp`` and K6
@@ -22,7 +23,9 @@ It imports no JAX.  Phases, each printing one JSON line with its seconds:
    ``int8_paged_decode_attention`` held against their plain PyTorch versions
    at the main paths' shapes (LLaMA-2-7B, batch 4, prompt 256, cache 2048;
    K1 at M = 4, 1024 and 2048; K4-K6 at 4 rows and at 40 = 8 slots x a
-   5-token verify window; K7 at cache 16384 in chunks of 4096; K8 at 8 slots
+   5-token verify window; K7 at K7_CASES (main_long's cache of 16384 at 4
+   slots, the bench's 32,768 and 8 query heads a kv head at 32,768 and
+   65,536), held at every plan of ``chunked_candidates``; K8 at 8 slots
    over a shuffled pool of 128-token pages, lengths 1-2048 and serve's step
    lengths, each also beside K3's body at every cluster on the same cache
    gathered dense) and timed beside the plain
@@ -60,7 +63,7 @@ It imports no JAX.  Phases, each printing one JSON line with its seconds:
    on int8 scales of the same shapes.  K3 is held at
    K3_TIMED (the main decode step, MHA and GQA, quant_pv on and off, and
    serve_dense's 8 slots), each also at every cluster size (held) and beside
-   K7's tiled body on the same cache (timed), and at K3_EXTRA (lengths 1, off
+   K7 on the same cache (held and timed), and at K3_EXTRA (lengths 1, off
    the ranks' grid and Smax, Dh 64, Smax % 16 == 4, Smax 8192).  Last K11
    ``int4_paged_decode_attention``
    on K8's pool, table and lengths with INT4 nibble pages, MHA and GQA:
@@ -193,9 +196,11 @@ It imports no JAX.  Phases, each printing one JSON line with its seconds:
    flush that leaves the L2 clean (with the library call, and
    ``torch.amax`` reading the same weight bytes in order: the card's
    streaming rate); ``mxu_gemv`` also at K4's bytes (N 6144), P3
-   ``pallas_s4``, ``pallas_s4_bitcast`` (16 rows of int4 codes;
-   P4's ``kern`` at K 256 and one 256-column block) with int32 results (P1:
-   the f32 of int32) equal; P5 ``attn`` (K3's body) in its six modes at 32
+   ``pallas_s4``, ``pallas_s4_bitcast`` (16 rows of int4 codes, under
+   every plan of ``gemv_candidates`` at P3's stage, timed at ``s4_plan``'s
+   also after a clean flush; P4's ``kern`` at K 256 and one 256-column
+   block) with int32 results (P1: the f32 of int32) equal; P5 ``attn``
+   (K3's body) in its six modes at 32
    heads and a cache of 2048 (MHA, full length; GQA 4:1 at 1707 positions;
    both also at 3 slots of lengths 0, 1 and 2048), under every cluster of
    DECODE_CLUSTERS, each slot within PV_TOL of its largest output.  Beside
@@ -257,7 +262,7 @@ K12_NAMES = {"fused_norm_gemv": ["norm_gemv_span_sm90", "norm_gemv_span_combine"
              "fused_mlp_decode": ["mlp_gate_up_span", "mlp_down_span"]}
 K12_ALL = [n for names in K12_NAMES.values() for n in names]
 K3_NAMES = ["decode_attn_cluster"]
-K7_NAMES = ["chunk_attn_kernel", "combine_kernel"]
+K7_NAMES = ["long_attn_cluster"]  # K3's body on long caches (csrc/long_decode_attention.cu)
 # K8 and K11: K3's body over the page pool (csrc/paged_decode_attention.cu), one kernel each
 # (INT8 or nibble pages: its KV4 template argument)
 K8_NAMES = K11_NAMES = ["paged_attn_cluster"]
@@ -423,7 +428,7 @@ def phase_device(torch, state):
 # (wgmma serialised: right, but slower)
 WGMMA_SOURCES = ("w4a8_rp_gemm", "w4a8_span_gemm", "s8_gemm", "fused_norm_gemv_rp",
                  "fused_requant_gemv_rp", "fused_mlp_decode_rp", "fused_gemv_span_sm90",
-                 "int8_gemv_engines", "int8_prefill_attention")
+                 "int8_gemv_engines", "s4_gemv", "int8_prefill_attention")
 
 
 def _ptxas_entries(log: str, marker: str, bools: bool = False) -> dict:
@@ -497,9 +502,10 @@ def phase_build(torch, state):
             for name, e in ptxas[stem].items():
                 if e.get("registers", 0) > 65536 // (2 * 288) or e.get("spill_bytes", 0):
                     raise AssertionError(f"csrc/{stem}.cu: {name} takes {e}")
-        elif stem == "int8_gemv_engines":
+        elif stem in ("int8_gemv_engines", "s4_gemv"):
             # gemv_plan lets three blocks of 288 threads share an SM: 75 registers a thread
-            ptxas[stem] = _ptxas_entries(log, "gemv_sm90")
+            ptxas[stem] = (_ptxas_entries(log, "s4_gemv_sm90", bools=True) if stem == "s4_gemv"
+                           else _ptxas_entries(log, "gemv_sm90"))
             for name, e in ptxas[stem].items():
                 if e.get("registers", 0) > 65536 // (3 * 288) or e.get("spill_bytes", 0):
                     raise AssertionError(f"csrc/{stem}.cu: {name} takes {e}")
@@ -523,6 +529,8 @@ def phase_build(torch, state):
     ptxas["quant_pv_parts_attention"] = _ptxas_entries(p5_log, "pv_parts_cluster")
     paged_log = (_cuda.BUILD_DIR / "paged_decode_attention.log").read_text()
     ptxas["paged_decode_attention"] = _ptxas_entries(paged_log, "paged_attn_cluster", bools=True)
+    long_log = (_cuda.BUILD_DIR / "long_decode_attention.log").read_text()
+    ptxas["long_decode_attention"] = _ptxas_entries(long_log, "long_attn_cluster", bools=True)
     return {"nvcc_seconds": seconds, "nvcc": nvcc, "no_c7515": list(WGMMA_SOURCES),
             "igmma_kernels_pipelined": igmma_kernels, "ptxas": ptxas}
 
@@ -809,9 +817,9 @@ K3_EXTRA = ((3, 32, 32, 128, SMAX, (1, 1001, SMAX)), (3, 32, 8, 128, SMAX, (SMAX
 
 
 def _k3_cases(torch, timer, gen):
-    """K3 against its plain version at K3_TIMED (timed beside K7's tiled
-    body at the same shapes and bf16 SDPA; held at every cluster size) and
-    at K3_EXTRA (quant_pv on and off, not timed)."""
+    """K3 against its plain version at K3_TIMED (timed beside K7 on the same
+    cache, K3's body under ``chunked_plan``, and bf16 SDPA; held at every
+    cluster size) and at K3_EXTRA (quant_pv on and off, not timed)."""
     from dgq_tpu_torch.ops import attention as att
 
     cases = []
@@ -828,14 +836,14 @@ def _k3_cases(torch, timer, gen):
         def plain():
             return att.int8_decode_attention_xla(q, kt, v, lengths, qs, ks, vs, quant_pv=quant_pv)
 
-        def k7_body():  # K7's tiled body on the dense cache: tile max, codes, combine
+        def k7():  # K7 on K3's cache: K3's body under chunked_plan
             return att.int8_decode_attention_chunked(q, kt, v, lengths, qs, ks, vs,
-                                                     chunk=att.TILE, quant_pv=quant_pv)
+                                                     chunk=SMAX, quant_pv=quant_pv)
 
         what = f"K3 B={b} Hkv={hk} quant_pv={quant_pv}"
         out_p = plain()
         err = _check_k3(torch, what, kern(), out_p, quant_pv)
-        _check_k3(torch, f"K7's body at {what}", k7_body(), out_p, quant_pv)
+        _check_k3(torch, f"K7 at {what}", k7(), out_p, quant_pv)
         scales = att._kernel_scales(qs, ks, vs, dh, True)
         for c in att.DECODE_CLUSTERS:  # every cluster the plan chooses among, held
             got = att._decode_launch(q, kt, v, lengths, scales, quant_pv, c)
@@ -845,7 +853,8 @@ def _k3_cases(torch, timer, gen):
                       "quant_pv": quant_pv, "max_abs_err": err,
                       "cluster": att.decode_plan(b, hk, h // hk, dh, SMAX, sms),
                       "ms": timer.kernel(kern, K3_NAMES), "call_ms": timer(kern),
-                      "k7_body_ms": timer.kernel(k7_body, K7_NAMES),
+                      "k7_ms": timer.kernel(k7, K7_NAMES),
+                      "k7_plan": att.chunked_plan(b, hk, h // hk, dh, SMAX, sms)._asdict(),
                       "plain_ms": timer(plain, iters=10), "bound_ms": b_ms, "bound_by": b_by,
                       **_sdpa_decode_ms(torch, timer, q, kt, v, (qs, ks, vs), lengths)})
         del q, kt, v
@@ -1566,32 +1575,60 @@ def _check_close(what, got, ref, tol=1e-5) -> float:
     return err
 
 
+# K7: (B, H, Hkv, Smax, lengths, quant_pv) at 7B's head width: main_long's cache at 4 slots
+# (MHA with and without quant_pv, GQA 4:1), the bench's longctx at 32,768 (one slot, a nearly
+# full cache), and one slot at 8 query heads a kv head (LLaMA-2-70B's 64 of 8) at 32,768 (no
+# cluster of 8 blocks holds a rank's scores) and at 65,536 (not even 16 blocks do)
+K7_CASES = ((BATCH, 32, 32, LONG_SMAX, K7_LENGTHS, True),
+            (BATCH, 32, 32, LONG_SMAX, K7_LENGTHS, False),
+            (BATCH, 32, 8, LONG_SMAX, K7_LENGTHS, True),
+            (1, 32, 32, 32768, (32758,), True),
+            (1, 64, 8, 32768, (32758,), True),
+            (1, 64, 8, 65536, (65526,), True))
+
+
 def _k7_cases(torch, timer, gen):
-    """K7 at 7B long-context shapes: Smax 16384 in AUTO chunks of 4096, the
-    slots' lengths spread over the chunks."""
-    from dgq_tpu_torch.ops.attention import int8_decode_attention_chunked, \
-        int8_decode_attention_xla
+    """K7 at K7_CASES (AUTO chunks of 4096): held against its plain version
+    within 1e-5 at every plan of ``chunked_candidates`` (the plan's cluster
+    and the others, scores in shared memory and in the scratch), timed at
+    ``chunked_plan``'s beside the plain version, bf16 SDPA and the bound,
+    also after a clean flush (``Timer.events(clean=True)``)."""
+    from dgq_tpu_torch.ops import attention as att
 
     cases = []
-    b, h, dh = BATCH, 32, 128
-    lengths = torch.tensor(K7_LENGTHS, dtype=torch.int32, device=DEV)
-    for hk, quant_pv in ((32, True), (32, False), (8, True)):
-        q, kt, v, (qs, ks, vs) = _attn_inputs(torch, gen, b, h, hk, 1, dh, LONG_SMAX)
+    dh = 128
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for b, h, hk, smax, lens, quant_pv in K7_CASES:
+        q, kt, v, (qs, ks, vs) = _attn_inputs(torch, gen, b, h, hk, 1, dh, smax)
         q = q[:, :, 0].contiguous()
+        lengths = torch.tensor(lens, dtype=torch.int32, device=DEV)
+        chunk = att.auto_decode_chunk(smax)
 
         def kern():
-            return int8_decode_attention_chunked(q, kt, v, lengths, qs, ks, vs, chunk=LONG_CHUNK,
-                                                 quant_pv=quant_pv)
+            return att.int8_decode_attention_chunked(q, kt, v, lengths, qs, ks, vs, chunk=chunk,
+                                                     quant_pv=quant_pv)
 
         def plain():
-            return int8_decode_attention_xla(q, kt, v, lengths, qs, ks, vs, quant_pv=quant_pv)
+            return att.int8_decode_attention_xla(q, kt, v, lengths, qs, ks, vs,
+                                                 quant_pv=quant_pv)
 
-        err = _check_close(f"K7 Hkv={hk} quant_pv={quant_pv}", kern(), plain())
-        b_ms, b_by = _decode_bound(b, h, hk, dh, sum(K7_LENGTHS), quant_pv)
-        cases.append({"B": b, "H": h, "Hkv": hk, "Smax": LONG_SMAX, "chunk": LONG_CHUNK,
-                      "lengths": list(K7_LENGTHS), "quant_pv": quant_pv, "max_abs_err": err,
-                      "ms": timer.kernel(kern, K7_NAMES), "call_ms": timer(kern),
-                      "plain_ms": timer(plain, iters=5), "bound_ms": b_ms, "bound_by": b_by,
+        what = f"K7 B={b} H={h} Hkv={hk} Smax={smax} quant_pv={quant_pv}"
+        out_p = plain()
+        err = _check_close(what, kern(), out_p)
+        scales = att._kernel_scales(qs, ks, vs, dh, True)
+        plans = att.chunked_candidates(hk, h // hk, dh, smax)
+        for plan in plans:  # every plan the kernel can run this cache with, held
+            _check_close(f"{what} {plan}", att._chunked_launch(q, kt, v, lengths, scales,
+                                                               quant_pv, plan), out_p)
+        b_ms, b_by = _decode_bound(b, h, hk, dh, sum(lens), quant_pv)
+        cases.append({"B": b, "H": h, "Hkv": hk, "Smax": smax, "chunk": chunk,
+                      "lengths": list(lens), "quant_pv": quant_pv, "max_abs_err": err,
+                      "plan": att.chunked_plan(b, hk, h // hk, dh, smax, sms)._asdict(),
+                      "plans_held": [p._asdict() for p in plans],
+                      "ms": timer.kernel(kern, K7_NAMES), "events_ms": timer.events(kern),
+                      "clean_events_ms": timer.events(kern, clean=True),
+                      "call_ms": timer(kern), "plain_ms": timer(plain, iters=5),
+                      "bound_ms": b_ms, "bound_by": b_by,
                       **_sdpa_decode_ms(torch, timer, q, kt, v, (qs, ks, vs), lengths)})
         del q, kt, v
     return cases
@@ -3321,11 +3358,15 @@ PV_TOL = 1e-5  # of the largest |output|: P5's f32 sums (denom, p @ V) in anothe
 def _probe_gemm_cases(torch, timer, gen):
     """P1 at its shape and both tilings; P2's three engines and P3's two
     column maps at theirs (P4's numerics shape too): int32 results (P1's
-    f32 of int32) equal to the plain versions'."""
+    f32 of int32) equal to the plain versions'; P3's maps under every plan
+    of ``gemv_candidates`` at P3's tile and stage (the chosen split and the
+    others), each timed alone after an L2 flush (``flushed_seconds``), and
+    at ``s4_plan``'s also after a clean flush."""
     from dgq_tpu_torch.scripts import probe_gemv_engines as p2
     from dgq_tpu_torch.scripts import probe_native_s4 as p3
     from dgq_tpu_torch.scripts import probe_s4_bitcast_numerics as p4
     from dgq_tpu_torch.scripts import roofline_probe as p1
+    from dgq_tpu_torch.utils.benchmarking import flushed_seconds
 
     def ri(lo, hi, shape):
         return torch.randint(lo, hi, shape, generator=gen, device=DEV, dtype=torch.int8)
@@ -3364,23 +3405,39 @@ def _probe_gemm_cases(torch, timer, gen):
     x, wb = ri(-8, 8, (b, k)), ri(-128, 128, (k, n // 2))
     lib = _int_mm_times(torch, timer, x, p3.unpack_s4_pairs(wb))
     common = dict(nbytes=b * k + k * n // 2 + 4 * b * n, ops=2.0 * b * n * k)
-    cases["pallas_s4"] = [case("P3 pairs", ["s4_gemv_kernel"], lambda: p3.pallas_s4(x, wb),
-                               lambda: p3.pallas_s4_plain(x, wb), library=lambda: lib,
-                               M=b, N=n, K=k, library_rows=32, **common)]
-    cases["pallas_s4_bitcast"] = [case(
-        "P3 bitcast", ["s4_gemv_kernel"], lambda: p3.pallas_s4_bitcast(x, wb),
-        lambda: p3.pallas_s4_bitcast_plain(x, wb), library=lambda: lib, M=b, N=n, K=k,
-        bn=p3.BN, library_rows=32, **common)]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    maps = {"pallas_s4": (p3.pallas_s4, p3.pallas_s4_plain, {}),
+            "pallas_s4_bitcast": (p3.pallas_s4_bitcast, p3.pallas_s4_bitcast_plain,
+                                  {"bn": p3.BN})}
+    for name, (kern, plain, info) in maps.items():
+        want = plain(x, wb)
+        plans = p2.gemv_candidates(n, k, p3.S4_BM, p3.S4_STAGE_BYTES)
+        plan_ms = {}
+        for plan in plans:  # every plan, the chosen one's splits and the others', held and timed
+            check_equal(f"{name} {plan}", kern(x, wb, plan=plan), want)
+            plan_ms[f"s{plan.splits}"] = 1e3 * flushed_seconds(
+                lambda kern=kern, plan=plan: kern(x, wb, plan=plan), timer.flush, 20)
+        cases[name] = [case(f"P3 {name}", P3_NAMES, lambda kern=kern: kern(x, wb),
+                            lambda plain=plain: plain(x, wb), library=lambda: lib, M=b, N=n,
+                            K=k, library_rows=32, plan=p3.s4_plan(n, k, sms)._asdict(),
+                            plan_ms=plan_ms, **info, **common)]
+        cases[name][0]["clean_events_ms"] = timer.events(lambda kern=kern: kern(x, wb),
+                                                         clean=True)
     del x, wb
     k, n2 = p4.NUM_K, p4.NUM_N2
     x, wb = ri(-8, 8, (8, k)), ri(-128, 128, (k, n2))
     cases["pallas_s4_bitcast"].append(case(
-        "P4 kern", ["s4_gemv_kernel"], lambda: p4.kern(x, wb),
+        "P4 kern", P3_NAMES, lambda: p4.kern(x, wb),
         lambda: p3.pallas_s4_bitcast_plain(x, wb, 2 * n2), 8 * k + k * n2 + 4 * 8 * 2 * n2,
         2.0 * 8 * 2 * n2 * k,
         lambda: _int_mm_times(torch, timer, x, p3.unpack_s4_halves(wb, 2 * n2)),
         M=8, N=2 * n2, K=k, bn=2 * n2, routed="kern", library_rows=32))
     return cases
+
+
+# P3's kernel (both maps: its HALVES template argument) and, when K is split, P2's sum of
+# the splits
+P3_NAMES = ["s4_gemv_sm90", "gemv_engines_combine"]
 
 
 # P2's engines (each kernel a call launches: the engine's and, when K is split, the sum of
@@ -3650,7 +3707,7 @@ SOURCES_OF = {
                               "dgq_tpu/ops/fused_decode.py:701"),
     "fused_mlp_decode_rp": ("dgq_tpu_torch/csrc/fused_mlp_decode_rp.cu",
                             "dgq_tpu/ops/fused_decode.py:1249"),
-    "int8_decode_attention_chunked": ("dgq_tpu_torch/csrc/int8_chunked_decode_attention.cu",
+    "int8_decode_attention_chunked": ("dgq_tpu_torch/csrc/long_decode_attention.cu",
                                       "dgq_tpu/ops/attention.py:542"),
     "int8_paged_decode_attention": ("dgq_tpu_torch/csrc/paged_decode_attention.cu",
                                     "dgq_tpu/ops/attention.py:679"),

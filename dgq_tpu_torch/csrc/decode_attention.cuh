@@ -1,8 +1,11 @@
 // K3's block body, decode attention over the INT8 KV cache, for Hopper
-// (sm_90a): int8_decode_attention.cu (K3) and quant_pv_parts_attention.cu
-// (P5, the quant_pv parts probe, in six p @ V rules) wrap it in kernels of
-// their own over the dense cache (DenseKV), and paged_decode_attention.cu
-// (K8, K11) over a page pool (PagedKV), INT8 or INT4 nibble pages.
+// (sm_90a): int8_decode_attention.cu (K3), long_decode_attention.cu (K7)
+// and quant_pv_parts_attention.cu (P5, the quant_pv parts probe, in six
+// p @ V rules) wrap it in kernels of their own over the dense cache
+// (DenseKV), and paged_decode_attention.cu (K8, K11) over a page pool
+// (PagedKV), INT8 or INT4 nibble pages.  A rank keeps its scores and codes
+// in its block's shared memory, or (K7, where its plan says so) in a
+// device-memory scratch: the scores policy.
 //
 #pragma once
 
@@ -147,12 +150,13 @@ __device__ __forceinline__ void unpack_nibble_rows(uint32_t r0, uint32_t r1, uin
 // copy of 16 or 4 bytes never leaves the row's page); v(t0, off) that of
 // byte `off` of the rank's V from position t0 on (a 16-byte copy never
 // leaves one position's row).
-// K3's dense cache: (B, Hkv, Dh, Smax) K rows Smax apart, (B, Hkv, Smax, Dh) V.
-template <int DH>
+// K3's dense cache: (B, Hkv, Dh, Smax) K rows Smax apart, (B, Hkv, Smax, Dh) V;
+// FAST: PagedKV's fp p @ V conversion (K7).
+template <int DH, bool FAST = false>
 struct DenseKV {
   static constexpr bool PAGED = false;
   static constexpr bool NIBBLES = false;
-  static constexpr bool FAST_FP = false;
+  static constexpr bool FAST_FP = FAST;
   const int8_t* kt;
   const int8_t* vc;
   int smax;
@@ -217,6 +221,58 @@ struct PagedKV {
   }
 };
 
+// Where a rank keeps its scores (f32 [rep][chmax], then its exp-weights) and
+// codes (u8 [rep][chmax], quant_pv), and which slot a block serves.
+// SmemScores (K3, P5, K8, K11): in its block's shared memory at the Layout's
+// `scores` and `codes`; slot blockIdx.z.  LongScores<SMEM> (K7): in shared
+// memory too, or (SMEM false: where even a cluster of 16 blocks cannot hold
+// a rank's positions, or where a smaller block lets more blocks share an
+// SM) at the rank's own 5 rep chmax bytes of a device-memory scratch of
+// (B, Hkv, cluster) such runs, which the block's Layout then leaves out;
+// the scratch is written and read by the rank's block alone, between its
+// barriers, so it stays in L1 and L2.  And the
+// slots longest first: blockIdx.z is the rank of a slot in the order of
+// its length (descending, ties by index), so that the blocks of the
+// longest slot, which set the call's time, are scheduled first.
+struct SmemScores {
+  static constexpr bool SMEM = true, LONGEST_FIRST = false;
+};
+template <bool SMEM_>
+struct LongScores {
+  static constexpr bool SMEM = SMEM_, LONGEST_FIRST = true;
+  uint8_t* scratch;
+  __device__ __forceinline__ uint8_t* rank_scores(int b, int g, int Hkv, uint32_t rank,
+                                                  uint32_t ncl, int bytes) const {
+    return scratch + (((size_t)b * Hkv + g) * ncl + rank) * bytes;
+  }
+};
+
+// The slot of rank z in the order of the B slots' lengths, longest first
+// (ties: the lower index first), found by every block for itself.
+__device__ __forceinline__ int longest_first(const int* __restrict__ lengths, int z, int B) {
+  __shared__ int slot;
+  for (int s = threadIdx.x; s < B; s += NT) {
+    const int ls = lengths[s];
+    int r = 0;
+    for (int j = 0; j < B; ++j) {
+      const int lj = lengths[j];
+      r += lj > ls || (lj == ls && j < s);
+    }
+    if (r == z) slot = s;
+  }
+  __syncthreads();
+  return slot;
+}
+
+// the slot this block serves under the scores policy Sc
+template <class Sc>
+__device__ __forceinline__ int slot_of(const int* __restrict__ lengths) {
+  if constexpr (Sc::LONGEST_FIRST)
+    return longest_first(lengths, blockIdx.z, gridDim.z);
+  else
+    return blockIdx.z;
+}
+
 // the most entries of a rank's page cache: its positions (at most chmax) over
 // pages of ps, and one more where they start inside a page
 __host__ __device__ inline int rank_pages(int chmax, int ps) { return (chmax + ps - 1) / ps + 1; }
@@ -259,7 +315,8 @@ __device__ __forceinline__ int exp_code(float e) {
 
 // One block of the grid (C, Hkv, B) in clusters of C along x, under p @ V
 // rule RULE, its tiles found through `addr` (a DenseKV or a PagedKV; Smax is
-// the slot's positions, NP * ps for pages); K16: K copies of 16 bytes
+// the slot's positions, NP * ps for pages), its scores kept and its slot
+// chosen by `sc` (a SmemScores or a LongScores); K16: K copies of 16 bytes
 // (Smax % 16 == 0 dense, ps % 16 == 0 paged), else of 4.  PROBE (P5): a
 // slot's length may be 0, and then every position scores finfo.min, so
 // every e is 1 over all Smax positions, and no K is read (K3's lengths are
@@ -267,12 +324,12 @@ __device__ __forceinline__ int exp_code(float e) {
 // into dims 4 dq .. 4 dq + 3, so q needs no permutation and the int32
 // scores equal the plain version's; fp p @ V only.  Each .cu wraps it in a
 // named kernel.
-template <int DH, int REP, int RULE, bool K16, bool PROBE, class Addr>
+template <int DH, int REP, int RULE, bool K16, bool PROBE, class Addr, class Sc = SmemScores>
 __device__ __forceinline__ void decode_attn_core(Addr addr, const int8_t* __restrict__ q,
                                                  const int* __restrict__ lengths,
                                                  const float* __restrict__ scales,
                                                  float* __restrict__ out, int Hkv, int Smax,
-                                                 int chmax) {
+                                                 int chmax, Sc sc = Sc{}) {
   constexpr bool QPV = int_rule(RULE);
   constexpr bool NIB = Addr::NIBBLES;
   static_assert(!NIB || RULE == PV_FP, "nibble pages take fp p @ V only");
@@ -290,12 +347,21 @@ __device__ __forceinline__ void decode_attn_core(Addr addr, const int8_t* __rest
   __shared__ float sMax[REP], sM[REP], sDen[REP];
 
   const uint32_t rank = cluster_rank(), ncl = cluster_size();
-  const int g = blockIdx.y, b = blockIdx.z, tid = threadIdx.x, warp = tid >> 5;
+  const int g = blockIdx.y, tid = threadIdx.x, warp = tid >> 5;
+  const int b = slot_of<Sc>(lengths);
   const int H = Hkv * REP;
-  const Layout lay(DH, REP, chmax, ncl, 0, TT);
+  const Layout lay(DH, REP, Sc::SMEM ? chmax : 0, ncl, 0, TT);
   uint8_t* ring = smem;
-  float* sS = reinterpret_cast<float*>(smem + lay.scores);
-  uint8_t* sC = smem + lay.codes;
+  float* sS;
+  uint8_t* sC;
+  if constexpr (Sc::SMEM) {
+    sS = reinterpret_cast<float*>(smem + lay.scores);
+    sC = smem + lay.codes;
+  } else {
+    uint8_t* mine = sc.rank_scores(b, g, Hkv, rank, ncl, 5 * REP * chmax);
+    sS = reinterpret_cast<float*>(mine);
+    sC = mine + 4 * REP * chmax;
+  }
   uint32_t* sPart = reinterpret_cast<uint32_t*>(smem + lay.part);
   int* sKP = reinterpret_cast<int*>(smem + lay.kpart);
 
@@ -568,25 +634,38 @@ struct Call {
   const float* scales;
   float* out;
   int B, Hkv, Smax, cluster, chmax;
-  int pages = 0;  // a rank's page cache (paged pools)
-  int tile = T;   // positions a tile (2 T for nibble pages)
+  int pages = 0;         // a rank's page cache (paged pools)
+  int tile = T;          // positions a tile (2 T for nibble pages)
+  bool scratch = false;  // the scores in a device-memory scratch (LongScores<false>)
+};
+
+// What a kernel's launches have set so far, per device: the dynamic shared
+// memory limit, and whether it may run in clusters of 16 (Hopper's
+// non-portable cluster size).  One per kernel.
+struct Sized {
+  int smem[64];
+  bool wide[64];
 };
 
 // Launches `kernel`, a wrapper of decode_attn_core<DH, REP, ...>, over the
 // grid (C, Hkv, B) in clusters of C, with the arguments of Call and then
-// `extra`; `sized` holds the dynamic shared memory limit set so far, per
-// device (one array per kernel).
+// `extra`.
 template <int DH, int REP, class Kernel, class... Extra>
-int launch_cluster(Kernel kernel, int (&sized)[64], const Call& c, cudaStream_t st,
+int launch_cluster(Kernel kernel, Sized& sized, const Call& c, cudaStream_t st,
                    Extra... extra) {
-  const Layout lay(DH, REP, c.chmax, c.cluster, c.pages, c.tile);
+  const Layout lay(DH, REP, c.scratch ? 0 : c.chmax, c.cluster, c.pages, c.tile);
   if (lay.total > SMEM_LIMIT) return cudaErrorInvalidValue;
   int dev = 0;
   cudaGetDevice(&dev);
-  if (lay.total > 48 * 1024 && lay.total > sized[dev & 63]) {
+  if (lay.total > 48 * 1024 && lay.total > sized.smem[dev & 63]) {
     const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, lay.total);
     if (e != cudaSuccess) return static_cast<int>(e);
-    sized[dev & 63] = lay.total;
+    sized.smem[dev & 63] = lay.total;
+  }
+  if (c.cluster > 8 && !sized.wide[dev & 63]) {
+    const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    sized.wide[dev & 63] = true;
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(c.cluster, c.Hkv, c.B);
@@ -607,12 +686,12 @@ int launch_cluster(Kernel kernel, int (&sized)[64], const Call& c, cudaStream_t 
 }
 
 // The call's checks and the most positions a rank takes (a multiple of T);
-// false when it rejects them.
+// false when it rejects them.  Clusters of 2, 4 or 8 blocks, or 16 (K7).
 inline bool make_call(Call& c, const void* q, const void* kt, const void* v, const void* lengths,
                       const void* scales, void* out, int B, int H, int Hkv, int Smax,
                       int cluster) {
   if (B <= 0 || Hkv <= 0 || H % Hkv || Smax <= 0 || Smax % 4 ||
-      (cluster != 2 && cluster != 4 && cluster != 8))
+      (cluster != 2 && cluster != 4 && cluster != 8 && cluster != 16))
     return false;
   c = Call{static_cast<const int8_t*>(q), static_cast<const int8_t*>(kt),
            static_cast<const int8_t*>(v), static_cast<const int*>(lengths),

@@ -64,7 +64,10 @@
 // rows x 128 columns, no unpack, no scale rows) in its raw mode F_RAW: the
 // codes are x's int8 rows, which the producer brings by TMA into the code
 // boxes, and the int32 sums are the output.  (Its dp4a engine is a kernel of
-// its own over the same ring, in int8_gemv_engines.cu.)
+// its own over the same ring, in int8_gemv_engines.cu.)  P3 (s4_gemv.cu)
+// runs F_RAW on int4 weights two a byte (the Loader FusedS4: stages of 128
+// rows x 64 bytes, the nibbles sign-extended in registers), in two column
+// maps.  Both sum their K splits with raw_gemv.cuh's gemv_engines_combine.
 //
 // Everything here has internal linkage (w4a8_gemm_sm90.cuh's rule).
 
@@ -332,6 +335,7 @@ template <int QS_>
 struct FusedRowpair : RowpairLoader<QS_> {
   static constexpr int QS = QS_, T_ROWS = 2, OFFS = 2;
   static constexpr int W_ROWS = 64, W_BYTES = F_W_BYTES, R = 2 * QS, STAGE = F_STAGE;
+  static constexpr bool NIBBLES = false;  // a weight column a byte column (FusedS4: two)
 
   static __device__ __forceinline__ int scale_group(int st, int q, const FusedArgs& a, uint32_t) {
     return (128 * st + 64 / QS * q) / a.gs;
@@ -389,6 +393,7 @@ template <int QS_>
 struct FusedSpan {
   static constexpr int QS = QS_, T_ROWS = 4, OFFS = 4;
   static constexpr int W_ROWS = 64, W_BYTES = F_W_BYTES, R = 2 * QS, STAGE = F_STAGE;
+  static constexpr bool NIBBLES = false;
   using Scales = typename RowpairLoader<QS>::Scales;
 
   static __device__ __forceinline__ void scales(const uint8_t* scl, int cp, Scales& sc) {
@@ -466,6 +471,7 @@ struct FusedSpan {
 struct FusedS8 {
   static constexpr int T_ROWS = 0, OFFS = 1;
   static constexpr int W_ROWS = 128, W_BYTES = 128 * BN, R = 0, STAGE = W_BYTES;
+  static constexpr bool NIBBLES = false;
   struct Scales {};
 
   static __device__ __forceinline__ void scales(const uint8_t*, int, Scales&) {}
@@ -507,6 +513,83 @@ struct FusedS8 {
       *p = make_uint4(__byte_perm(v.x, v.z, 0x5410), __byte_perm(v.x, v.z, 0x7632),
                       __byte_perm(v.y, v.w, 0x5410), __byte_perm(v.y, v.w, 0x7632));
     }
+  }
+};
+
+// int8 of the signed 4-bit code in the low nibble of each byte (0..15), four
+// at once without a carry between the bytes
+__device__ __forceinline__ uint32_t s4_to_s8(uint32_t x) {
+  return ((x ^ 0x08080808u) + 0x78787878u) ^ 0x80808080u;
+}
+
+// a byte of shared memory at a shared address (the ring's base is aligned
+// through an integer, which would make a pointer's loads generic)
+__device__ __forceinline__ uint32_t lds_u8(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.u8 %0, [%1];\n" : "=r"(v) : "r"(addr));
+  return v;
+}
+
+// Int4 weights two a byte (P3): the (K, N / 2) bytes' stage st is rows 128
+// st .. + 127, a box [128 rows][64 bytes] swizzled 64 bytes (the 16-byte
+// chunk index XOR (row >> 1) & 3): the block's 64 byte columns, its 128
+// weight columns, at half FusedS8's bytes.  Thread (cp, t) owns byte column
+// cp: its low nibble is the pair's column 0, its high nibble column 1, so
+// each byte is read once; the weight map's columns are bytes (n0 / 2).
+// Its k slots are FusedS8's (rows 2t, 2t + 1, 8 + 2t, 9 + 2t of each 16, so
+// order_codes serves), read a byte at a time: the 8 rows of a step all
+// swizzle by t, and the 4 lanes t of one byte column land on 4 chunks, no
+// bank conflict.  Hopper's tensor cores take no int4 operand: the nibbles
+// become int8 in registers (s4_to_s8).  The columns of byte B (block byte
+// n0 / 2 + cp): HALVES 0 (XLA's int4 order, pallas_s4) 2 B and 2 B + 1;
+// HALVES 1 (pallas_s4_bitcast) each bn = a.gs columns [low | high] nibbles
+// of their bn / 2 bytes, so B's are bn (B / (bn / 2)) + B % (bn / 2) and
+// bn / 2 further (F_RAW takes no groupsize; P3 gives bn in its place).
+template <bool HALVES>
+struct FusedS4 {
+  static constexpr int T_ROWS = 0, OFFS = 1;
+  static constexpr int W_ROWS = 128, W_BYTES = 128 * 64, R = 0, STAGE = W_BYTES;
+  static constexpr bool NIBBLES = true;
+  using Scales = FusedS8::Scales;
+
+  static __device__ __forceinline__ void scales(const uint8_t*, int, Scales&) {}
+  static __device__ __forceinline__ int scale_group(int, int, const FusedArgs&, uint32_t) {
+    return 0;
+  }
+  template <int BM>
+  static __device__ __forceinline__ int code_off(int i, int st, int kk, int h, const FusedArgs& a,
+                                                 int kb, uint32_t gsm) {
+    return FusedS8::code_off<BM>(i, st, kk, h, a, kb, gsm);
+  }
+  // byte column cp of row 2t: every row the thread reads is 64 (d + 64 h + 32 kk) further
+  static __device__ __forceinline__ void offsets(int cp, int t, uint32_t (&off)[OFFS]) {
+    off[0] = 2 * t * 64 + ((((cp >> 4) ^ t) << 4) | (cp & 15));
+  }
+  static __device__ __forceinline__ void frags_at(const uint8_t* rows, const uint32_t (&off)[OFFS],
+                                                  const Scales&, int kk, Frags& a) {
+    const uint32_t base = smem_u32(rows) + off[0];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const uint32_t b = base + (64 * h + 32 * kk) * 64;
+      auto word = [&](int d) {  // rows d, d + 1, d + 8, d + 9 past the thread's row 2t
+        const uint32_t r0 = lds_u8(b + d * 64), r1 = lds_u8(b + (d + 1) * 64),
+                       r2 = lds_u8(b + (d + 8) * 64), r3 = lds_u8(b + (d + 9) * 64);
+        return __byte_perm(__byte_perm(r0, r1, 0x0040), __byte_perm(r2, r3, 0x0040), 0x5410);
+      };
+      const uint32_t w0 = word(0), w16 = word(16);
+      put_col(a[h], 0, s4_to_s8(w0 & 0x0F0F0F0Fu), s4_to_s8(w16 & 0x0F0F0F0Fu));
+      put_col(a[h], 1, s4_to_s8((w0 >> 4) & 0x0F0F0F0Fu), s4_to_s8((w16 >> 4) & 0x0F0F0F0Fu));
+    }
+  }
+  static __device__ __forceinline__ void order_codes(uint8_t* codes, int bytes) {
+    FusedS8::order_codes(codes, bytes);
+  }
+  // the weight column of nibble j of the block's byte column cp
+  static __device__ __forceinline__ int column(int n0, int cp, int j, const FusedArgs& a) {
+    const int byte = n0 / 2 + cp;
+    if constexpr (!HALVES) return 2 * byte + j;
+    const int half = a.gs / 2, blk = byte / half;
+    return blk * a.gs + j * half + (byte - blk * half);
   }
 };
 
@@ -579,7 +662,7 @@ __device__ __forceinline__ void fused_gemv_body(const CUtensorMap& tm_w, const C
       const int s = i % F_RING, st = st0 + i;
       uint8_t* base = ring + s * L::STAGE;
       mbar_expect_tx(&full[s], L::W_BYTES + 2 * R * BN);
-      tma_load_2d(base, &tm_w, &full[s], n0, L::W_ROWS * st);
+      tma_load_2d(base, &tm_w, &full[s], L::NIBBLES ? n0 / 2 : n0, L::W_ROWS * st);
       if constexpr (GU) tma_load_2d(base + GU_BOX, &tm_w, &full[s], n_up, 64 * st);
 #pragma unroll
       for (int q = 0; q < R; ++q) {
@@ -729,6 +812,21 @@ __device__ __forceinline__ void fused_gemv_body(const CUtensorMap& tm_w, const C
         h.x = static_cast<int8_t>(silu_code(acc[e], ups[e * 128], a, f, hscale));
         h.y = static_cast<int8_t>(silu_code(acc[e + 2], ups[(e + 2) * 128], a, f + 1, hscale));
         *reinterpret_cast<char2*>(a.h_out + static_cast<size_t>(m) * F + f) = h;
+      }
+    return;
+  }
+  if constexpr (L::NIBBLES) {  // int32 sums to the columns of the byte's two nibbles
+    if (n0 / 2 + cp >= a.N / 2) return;
+    const int c0 = L::column(n0, cp, 0, a), c1 = L::column(n0, cp, 1, a);
+    int* dst = a.part ? a.part + static_cast<size_t>(blockIdx.y) * a.M * a.N : a.out_s32;
+#pragma unroll
+    for (int j = 0; j < BM / 8; ++j)
+#pragma unroll
+      for (int e0 = 0; e0 < 2; ++e0) {
+        const int m = 8 * j + 2 * t + e0;
+        if (m >= a.M) continue;
+        dst[static_cast<size_t>(m) * a.N + c0] = acc[4 * j + e0];
+        dst[static_cast<size_t>(m) * a.N + c1] = acc[4 * j + 2 + e0];
       }
     return;
   }

@@ -67,7 +67,7 @@ decode_attn_cluster(const int8_t* __restrict__ q, const int8_t* __restrict__ kt,
 
 template <int DH, int REP, bool QPV, bool K16>
 int launch(const Call& c, cudaStream_t st) {
-  static int sized[64] = {};  // the dynamic shared memory limit set, per device
+  static Sized sized = {};  // what its launches have set, per device
   return launch_cluster<DH, REP>(decode_attn_cluster<DH, REP, QPV, K16>, sized, c, st);
 }
 

@@ -34,19 +34,12 @@
 // card, every engine streams the weights about as fast as the library's
 // int8 GEMM (torch._int_mm) reads the same bytes.
 
-#include "fused_gemv_sm90.cuh"
+#include "raw_gemv.cuh"
 
 namespace {
 
 constexpr int G_BM = 8;  // the token-row tile: wgmma N = 8
 constexpr int G_MXU = 0, G_VPU = 1, G_MIX = 2;
-
-// The sum of a K split's partials is launched as the engines' dependent
-// (programmatic stream serialisation): each block lets it start once its
-// first thread is done, and it waits for the whole grid and its memory.
-__device__ __forceinline__ void let_dependents_start() {
-  if (threadIdx.x == 0) asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
-}
 
 __device__ __forceinline__ uint32_t lds_u32(uint32_t addr) {
   uint32_t v;
@@ -189,38 +182,6 @@ mix_gemv_sm90(const __grid_constant__ CUtensorMap tm_w, const __grid_constant__ 
   let_dependents_start();
 }
 
-// The K splits: outputs 4 i .. 4 i + 3 of `total` (a multiple of 4)
-// summed over the int32 partials (splits <= 8, total) of `part` in split
-// order, every split's load issued before the first add.
-__device__ __forceinline__ void sum_splits(const int* part, int* out, size_t total, int splits,
-                                           size_t i) {
-  int4 v[8];
-#pragma unroll
-  for (int z = 0; z < 8; ++z)
-    v[z] = z < splits ? reinterpret_cast<const int4*>(part + z * total)[i] : make_int4(0, 0, 0, 0);
-  int4 s = v[0];
-#pragma unroll
-  for (int z = 1; z < 8; ++z) {
-    s.x += v[z].x;
-    s.y += v[z].y;
-    s.z += v[z].z;
-    s.w += v[z].w;
-  }
-  reinterpret_cast<int4*>(out)[i] = s;
-}
-
-// the K splits of both engines' outputs: the tensor-core engine's tm sums,
-// then the dp4a engine's tv (each a multiple of 4), 4 a thread
-__global__ void gemv_engines_combine(const int* pm, int* om, int tm, const int* pv, int* ov,
-                                     int tv, int splits) {
-  asm volatile("griddepcontrol.wait;\n" ::: "memory");  // the engines' grid and its stores
-  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i < static_cast<size_t>(tm / 4))
-    sum_splits(pm, om, tm, splits, i);
-  else if (i < static_cast<size_t>(tm / 4 + tv / 4))
-    sum_splits(pv, ov, tv, splits, i - tm / 4);
-}
-
 struct GemvCall {
   const void* x;
   const void* w;
@@ -272,48 +233,10 @@ int launch(int engine, const GemvCall& g, void* stream) {
   av.part = g.pv;
   // kernels whose limits are raised, per device (P2 runs on one)
   static uint64_t sized[3] = {0, 0, 0};
-  int dev = 0;
-  cudaGetDevice(&dev);
-  if (!(sized[engine] >> (dev & 63) & 1)) {
-    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(F_SMEM_LIMIT));
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                               cudaSharedmemCarveoutMaxShared);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    sized[engine] |= 1ull << (dev & 63);
-  }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(g.N / BN, g.splits, 1);
-  cfg.blockDim = dim3(F_THREADS, 1, 1);
-  cfg.dynamicSmemBytes = fused_smem(G_BM, g.sps, FusedS8::STAGE);
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;  // the body's cluster barriers: one block
-  attr[0].val.clusterDim.x = 1;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
   // the last argument, 0, is the dp4a blocks' `zero`
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, tw, tx, am, av, g.nm / BN, g.nm, 0);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (g.splits > 1) {
-    const int tm = g.M * g.nm, tv = g.N - g.nm;
-    cudaLaunchConfig_t cc = {};
-    cc.gridDim = dim3(static_cast<unsigned>((tm / 4 + tv / 4 + 255) / 256), 1, 1);
-    cc.blockDim = dim3(256, 1, 1);
-    cc.stream = st;
-    cudaLaunchAttribute pdl[1];
-    pdl[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-    pdl[0].val.programmaticStreamSerializationAllowed = 1;
-    cc.attrs = pdl;
-    cc.numAttrs = 1;
-    const cudaError_t ec = cudaLaunchKernelEx(&cc, gemv_engines_combine, g.pm, g.om, tm, g.pv,
-                                              g.ov, tv, g.splits);
-    if (ec != cudaSuccess) return static_cast<int>(ec);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_raw_gemv(kernel, sized[engine], dim3(g.N / BN, g.splits, 1),
+                         fused_smem(G_BM, g.sps, FusedS8::STAGE), st, g.pm, g.om, g.M * g.nm,
+                         g.pv, g.ov, g.N - g.nm, g.splits, tw, tx, am, av, g.nm / BN, g.nm, 0);
 }
 
 }  // namespace

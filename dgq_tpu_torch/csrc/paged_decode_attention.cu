@@ -58,7 +58,7 @@ struct Pages {
 
 template <int DH, int REP, bool QPV, bool K16, bool KV4>
 int launch(const Call& c, const Pages& p, cudaStream_t st) {
-  static int sized[64] = {};  // the dynamic shared memory limit set, per device
+  static Sized sized = {};  // what its launches have set, per device
   return launch_cluster<DH, REP>(paged_attn_cluster<DH, REP, QPV, K16, KV4>, sized, c, st,
                                  p.table, p.ps, p.np);
 }

@@ -46,7 +46,7 @@ pv_parts_cluster(const int8_t* __restrict__ q, const int8_t* __restrict__ kt,
 
 template <int REP, int RULE, bool K16>
 int launch(const Call& c, cudaStream_t st) {
-  static int sized[64] = {};  // the dynamic shared memory limit set, per device
+  static Sized sized = {};  // what its launches have set, per device
   return launch_cluster<128, REP>(pv_parts_cluster<REP, RULE, K16>, sized, c, st);
 }
 

@@ -18,49 +18,77 @@
 // [-8, 8) as int8.
 //
 // Hopper's tensor cores take no int4 operand, so the kernel reads the packed
-// bytes, sign-extends the nibbles to int8 in registers and runs s8 mma.sync:
+// bytes, sign-extends the nibbles to int8 in registers and runs s8 wgmma:
 // it measures the nibble-unpack cost that K1, K4-K6 and K12 pay on their
 // weights.  What bounds it on this card: the K * N / 2 weight bytes (25.2 MB
-// at K 4096, N 12288) over the 3.35 TB/s of device memory.  One body for
-// both column maps (s8_mma.cuh's skinny tensor-core block, K split over
-// blocks that add into a zeroed output).
+// at K 4096, N 12288) over the 3.35 TB/s of device memory.  So it runs the
+// loop of P2 (int8_gemv_engines.cu) and of K4-K6 and K12
+// (fused_gemv_sm90.cuh's body in its raw mode: one producer thread keeps
+// four stages in flight by TMA, x's 16 rows by TMA as the wgmma B operand)
+// with the nibble Loader FusedS4: a block owns 128 columns, 64 bytes of
+// each weight row, in stages of 128 rows x 64 bytes (8 KB); a thread owns a
+// byte column, whose low nibble and high nibble are its two columns, so
+// each byte is read once in both column maps (the bitcast map's two
+// columns of a byte lie bn / 2 apart, which only the epilogue's addresses
+// see).  K is split over blockIdx.y by the plan (probe_gemv_engines.gemv_plan
+// at this stage's bytes), the int32 partials summed in split order by
+// raw_gemv.cuh's second kernel, as P2's.
 
-#include "s8_mma.cuh"
+#include "raw_gemv.cuh"
 
 namespace {
 
-template <int MODE>
-__global__ void __launch_bounds__(SK_THREADS)
-s4_gemv_kernel(const int8_t* __restrict__ x, const uint8_t* __restrict__ wb, int* __restrict__ out,
-               int M, int N, int K, int bn) {
-  __shared__ __align__(16) SkinnySmem sm;
-  skinny_mma_block<MODE>(x, M, K, wb, N / 2, blockIdx.x, bn, out, N, sm);
+constexpr int S4_BM = 16;  // the token-row tile: wgmma N = 16, the probe's 16 rows of codes
+
+// grid (ceil(N / 128), splits); HALVES: the bitcast map, bn in a.gs
+template <bool HALVES>
+__global__ void __launch_bounds__(F_THREADS, 3)
+s4_gemv_sm90(const __grid_constant__ CUtensorMap tm_w, const __grid_constant__ CUtensorMap tm_x,
+             const __grid_constant__ FusedArgs a) {
+  fused_gemv_body<F_RAW, S4_BM, FusedS4<HALVES>>(tm_w, tm_x, tm_x, tm_x, tm_x, a);
+  let_dependents_start();
 }
 
 }  // namespace
 
 extern "C" {
 
-// x (M, K) int8 codes with M <= 16; wb (K, N / 2) bytes; out (M, N) int32
-// (zeroed when ksplit > 1).  halves 0: XLA's pair order (pallas_s4); 1: [low |
-// high] per bn columns (pallas_s4_bitcast), bn a multiple of 64 dividing N.
-// N % 64 == 0, K % 128 == 0, 1 <= ksplit <= K / 128.
-int s4_gemv(const void* x, const void* wb, void* out, int M, int N, int K, int halves, int bn,
-            int ksplit, void* stream) {
-  if (M <= 0 || M > 16 || N <= 0 || N % SK_BN || K <= 0 || K % SK_BK || ksplit < 1 ||
-      ksplit > K / SK_BK)
-    return cudaErrorInvalidValue;
-  if (halves && (bn <= 0 || bn % 64 || N % bn)) return cudaErrorInvalidValue;
+// x (M, K) int8 codes with M <= 16; wb (K, N / 2) bytes; out (M, N) int32;
+// the plan: `splits` (at most 8) K splits of `sps` stages of 128 k, part
+// (splits, M, N) int32 scratch when splits > 1 (summed by a second launch),
+// else null.  halves 0: XLA's pair order (pallas_s4); 1: [low | high] per
+// bn columns (pallas_s4_bitcast), bn a multiple of 64 dividing N.  N % 64
+// == 0, K % 128 == 0.  Returns a cudaError_t, or -1 when it rejects its
+// arguments.
+int s4_gemv(const void* x, const void* wb, void* out, void* part, int M, int N, int K,
+            int halves, int bn, int splits, int sps, void* stream) {
+  if (M < 1 || M > S4_BM || N <= 0 || N % 64 || K <= 0 || K % 128 || splits < 1 || splits > 8 || sps < 1 || splits * sps != K / 128 ||
+      (splits > 1) != (part != nullptr) ||
+      fused_smem(S4_BM, sps, FusedS4<false>::STAGE) > F_SMEM_LIMIT ||
+      (halves && (bn <= 0 || bn % 64 || N % bn)))
+    return F_BAD_ARGS;
+  CUtensorMap tw, tx;
+  int rc = tensor_map(&tw, wb, N / 2, K, 64, 128, CU_TENSOR_MAP_SWIZZLE_64B);
+  if (!rc) rc = tensor_map(&tx, x, K, M, F_HB, S4_BM, CU_TENSOR_MAP_SWIZZLE_64B);
+  if (rc) return rc;
+  FusedArgs a{};
+  a.M = M;
+  a.N = N;
+  a.K = K;
+  a.gs = halves ? bn : 0;
+  a.nst = K / 128;
+  a.sps = sps;
+  a.out_s32 = static_cast<int*>(out);
+  a.part = static_cast<int*>(part);
+  static uint64_t sized[2] = {0, 0};  // devices whose limits are raised, per map
+  const dim3 grid((N + BN - 1) / BN, splits, 1);
+  const size_t smem = fused_smem(S4_BM, sps, FusedS4<false>::STAGE);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto xs = static_cast<const int8_t*>(x);
-  auto ws = static_cast<const uint8_t*>(wb);
-  auto o = static_cast<int*>(out);
-  const dim3 grid(N / SK_BN, ksplit);
   if (halves)
-    s4_gemv_kernel<W_S4_HALVES><<<grid, SK_THREADS, 0, st>>>(xs, ws, o, M, N, K, bn);
-  else
-    s4_gemv_kernel<W_S4_PAIRS><<<grid, SK_THREADS, 0, st>>>(xs, ws, o, M, N, K, bn);
-  return static_cast<int>(cudaGetLastError());
+    return launch_raw_gemv(s4_gemv_sm90<true>, sized[1], grid, smem, st, a.part, a.out_s32, M * N,
+                           nullptr, nullptr, 0, splits, tw, tx, a);
+  return launch_raw_gemv(s4_gemv_sm90<false>, sized[0], grid, smem, st, a.part, a.out_s32, M * N,
+                         nullptr, nullptr, 0, splits, tw, tx, a);
 }
 
 }  // extern "C"

@@ -42,7 +42,8 @@ SOURCES = {
     "fused_norm_gemv": "fused_gemv_span_sm90",
     "fused_requant_gemv": "fused_gemv_span_sm90",
     "fused_mlp_decode": "fused_gemv_span_sm90",
-    "int8_decode_attention_chunked": "int8_chunked_decode_attention",
+    # K7: K3's body on long caches, clusters up to 16 and scores in device memory
+    "int8_decode_attention_chunked": "long_decode_attention",
     # K8 and K11: K3's body over the page pool (csrc/decode_attention.cuh), INT8 or nibble codes
     "int8_paged_decode_attention": "paged_decode_attention",
     "int4_paged_decode_attention": "paged_decode_attention",

@@ -1,6 +1,6 @@
-"""KV-cache attention: K2 (flash prefill), K3 (decode), K7 (chunked decode),
-K8 (paged decode) and K11 (paged decode over INT4 nibble pages) with plain
-versions.
+"""KV-cache attention: K2 (flash prefill), K3 (decode), K7 (long-context
+decode), K8 (paged decode) and K11 (paged decode over INT4 nibble pages)
+with plain versions.
 
 Port of ``dgq_tpu/ops/attention.py``: ``_quantize_exp`` (:35-65),
 ``auto_decode_chunk`` (:473-488), ``gather_paged_kv`` (:752-761), the plain
@@ -8,11 +8,14 @@ Port of ``dgq_tpu/ops/attention.py``: ``_quantize_exp`` (:35-65),
 (:337-374) and ``int8_paged_decode_attention_xla`` (:912-923), and the
 wrappers of the hand-written CUDA kernels under the JAX names:
 ``int8_prefill_attention`` (``csrc/int8_prefill_attention.cu``),
-``int8_decode_attention`` (``csrc/int8_decode_attention.cu``),
-``int8_decode_attention_chunked`` (``csrc/int8_chunked_decode_attention.cu``),
-and ``int8_paged_decode_attention`` and ``int4_paged_decode_attention``,
-which share ``csrc/paged_decode_attention.cu`` (K3's body over the page
-pool, its cluster from ``paged_plan``).  K11's plain version,
+``int8_decode_attention`` (``csrc/int8_decode_attention.cu``, a cluster of
+blocks per (slot, kv head), its cluster from ``decode_plan``),
+``int8_decode_attention_chunked`` (``csrc/long_decode_attention.cu``, K3's
+body on long caches, its cluster and scores from ``chunked_plan``), and
+``int8_paged_decode_attention``
+and ``int4_paged_decode_attention``, which share
+``csrc/paged_decode_attention.cu`` (K3's body over the page pool, its
+cluster from ``paged_plan``).  K11's plain version,
 ``int4_paged_decode_attention_xla``, is what JAX runs off its kernel
 (``dgq_tpu/serving/paged.py:259-270``): unpack both pools, then K8's plain
 version without quant_pv.
@@ -33,7 +36,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Optional, Union
+from typing import NamedTuple, Optional, Union
 
 import torch
 
@@ -53,18 +56,24 @@ _PAGED_SIGNATURES = {  # one library, two entry points
 _SIGNATURES = {
     PREFILL: {PREFILL: [_cuda.VP] * 5 + [_cuda.INT] * 8 + [_cuda.VP]},
     DECODE: {DECODE: [_cuda.VP] * 6 + [_cuda.INT] * 7 + [_cuda.VP]},
-    CHUNKED: {CHUNKED: [_cuda.VP] * 9 + [_cuda.INT] * 7 + [_cuda.VP]},
+    CHUNKED: {CHUNKED: [_cuda.VP] * 7 + [_cuda.INT] * 8 + [_cuda.VP]},
     PAGED: _PAGED_SIGNATURES,
     PAGED_KV4: _PAGED_SIGNATURES,
 }
-TILE = 128  # positions per block of K7: the chunk, or 128-position slices of it
 # K3: a cluster of DECODE_CLUSTERS[i] blocks per (slot, kv head), each taking a
 # contiguous share of the valid positions through a ring of DECODE_RING tiles
-# of DECODE_TILE positions (csrc/int8_decode_attention.cu)
+# of DECODE_TILE positions (csrc/int8_decode_attention.cu); K7 also clusters of
+# 16, Hopper's non-portable size, a rank's scores in a device-memory scratch,
+# and a kv head's query heads split over CHUNKED_SPLITS[i] virtual kv heads
 DECODE_CLUSTERS = (2, 4, 8)
+CHUNKED_CLUSTERS = (2, 4, 8, 16)
+CHUNKED_SPLITS = (1, 2, 4, 8)
 DECODE_TILE, DECODE_RING, DECODE_THREADS = 64, 4, 128
 DECODE_SMEM_LIMIT = 232448  # an H100 block's shared memory
+DECODE_SM_SMEM = 233472  # an H100 SM's (228 KB)
+CHUNKED_BLOCKS_PER_SM = 3  # K7's aim for its head split: blocks an SM at clusters of 16
 DECODE_BLOCKS_PER_SM = 2  # the cluster plan's aim: a wave of at most two blocks an SM
+DECODE_SHORT_SMAX = 8192  # the caches K3 takes (auto_decode_chunk), and K7 with K3's plan
 
 NEG = torch.finfo(torch.float32).min
 
@@ -93,8 +102,9 @@ def _quantize_exp(e: torch.Tensor) -> torch.Tensor:
 
 def auto_decode_chunk(smax: int) -> int:
     """0 (whole-cache decode kernel K3) up to 8k context, else the largest
-    chunk in {4096..128} dividing ``smax`` (the chunked kernel K7)."""
-    if smax <= 8192:
+    chunk in {4096..128} dividing ``smax`` (JAX's chunked kernel; here K7,
+    K3's body under ``chunked_plan``)."""
+    if smax <= DECODE_SHORT_SMAX:
         return 0
     for c in (4096, 2048, 1024, 512, 256, 128):
         if smax % c == 0:
@@ -218,12 +228,19 @@ def decode_rank_positions(length: int, cluster: int) -> int:
     return -(-(-(-length // cluster)) // 16) * 16
 
 
-def decode_smem_bytes(dh: int, rep: int, smax: int, cluster: int) -> int:
+def decode_chmax(smax: int, cluster: int) -> int:
+    """The most positions a rank can take: ceil(Smax / cluster) rounded up
+    to the tile (the kernel's ``chmax``, its scores' row stride)."""
+    return -(-(-(-smax // cluster)) // DECODE_TILE) * DECODE_TILE
+
+
+def decode_smem_bytes(dh: int, rep: int, smax: int, cluster: int, scratch: bool = False) -> int:
     """K3's dynamic shared memory a block (the kernel's ``Layout``): the ring
-    of tiles, the scores and codes of the most positions a rank can take,
-    rank 0's gathering area of every rank's sums, the q.k partial sums."""
-    chmax = -(-(-(-smax // cluster)) // DECODE_TILE) * DECODE_TILE
-    return (DECODE_RING * dh * (DECODE_TILE + 16) + 5 * rep * chmax
+    of tiles, the scores and codes of the most positions a rank can take
+    (none with ``scratch``: K7's device-memory scores), rank 0's gathering
+    area of every rank's sums, the q.k partial sums."""
+    scores = 0 if scratch else 5 * rep * decode_chmax(smax, cluster)
+    return (DECODE_RING * dh * (DECODE_TILE + 16) + scores
             + 4 * cluster * rep * (dh + 1) + 4 * (DECODE_THREADS // 32) * rep * DECODE_TILE)
 
 
@@ -249,6 +266,78 @@ def _wave_cluster(b: int, hk: int, sms: int, fits) -> int:
     DECODE_BLOCKS_PER_SM blocks an SM, else the smallest."""
     wave = [c for c in fits if b * hk * c <= DECODE_BLOCKS_PER_SM * sms]
     return max(wave) if wave else fits[0]
+
+
+class ChunkedPlan(NamedTuple):
+    """How K7 runs: each kv head's query heads in ``split`` groups (virtual
+    kv heads of rep / split query heads each, reading the same K and V),
+    clusters of ``cluster`` blocks a (slot, virtual kv head), each rank's
+    scores and codes in its block's shared memory, or (``scratch``) in a
+    device-memory scratch of the wrapper's."""
+    cluster: int
+    scratch: bool
+    split: int = 1
+
+
+
+def decode_static_bytes(dh: int, rep: int) -> int:
+    """The body's static shared memory a block: q's words, the block
+    reduction's, the row maxima and exp sums, K7's slot (which shares the
+    block's DECODE_SMEM_LIMIT with the dynamic)."""
+    return 4 * rep * (dh // 4) + 4 * (DECODE_THREADS // 32) * rep + 3 * 4 * rep + 4
+
+
+def chunked_candidates(hk: int, rep: int, dh: int, smax: int) -> list:
+    """Every plan K7 can run a (Hkv, rep, Dh, Smax) cache with: for each
+    split of CHUNKED_SPLITS that divides rep, each cluster of
+    CHUNKED_CLUSTERS whose block holds its rank's scores, then each whose
+    block fits with the scores in the scratch."""
+    plans = []
+    for split in (s for s in CHUNKED_SPLITS if rep % s == 0):
+        r = rep // split
+        room = DECODE_SMEM_LIMIT - decode_static_bytes(dh, r)
+        plans += [ChunkedPlan(c, False, split) for c in CHUNKED_CLUSTERS
+                  if decode_smem_bytes(dh, r, smax, c) <= room]
+        plans += [ChunkedPlan(c, True, split) for c in CHUNKED_CLUSTERS
+                  if decode_smem_bytes(dh, r, smax, c, True) <= room]
+    return plans
+
+
+def _blocks_per_sm(smem: int) -> int:
+    """Blocks of ``smem`` dynamic bytes (and the body's static ones, within
+    1 KB) that share an SM's 228 KB, each with the 1 KB the card reserves."""
+    return DECODE_SM_SMEM // (smem + 2048)
+
+
+@functools.lru_cache(maxsize=1024)
+def chunked_plan(b: int, hk: int, rep: int, dh: int, smax: int, sms: int) -> ChunkedPlan:
+    """K7's plan, fitted on an H100 at K7's shapes
+    (``python -m dgq_tpu_torch.scripts.decode_plan_sweep --k7``, ``PERF.md``):
+    K3's (``decode_plan``) for the caches K3 takes (up to DECODE_SHORT_SMAX
+    positions), where a rank's few tiles make the launch's waves the cost;
+    past them:
+    - the smallest split of a kv head's rep query heads whose clusters of
+      16 give at least CHUNKED_BLOCKS_PER_SM blocks an SM (one slot at 8
+      query heads a kv head: 4 groups of 2);
+    - clusters of 16, the largest: a long rank's serial tiles set the time;
+    - each rank's scores in its block's shared memory where they fit,
+      unless the block serves several query heads and the scratch lets more
+      blocks share an SM (with one query head a block, the scratch's
+      latency in the rank's serial loops cost more than a block an SM
+      saved)."""
+    if smax <= DECODE_SHORT_SMAX:
+        return ChunkedPlan(decode_plan(b, hk, rep, dh, smax, sms), False)
+    plans = chunked_candidates(hk, rep, dh, smax)
+    if not plans:
+        raise ValueError(f"K7: Dh {dh} at rep {rep} fits no block")
+    split = next((s for s in CHUNKED_SPLITS if rep % s == 0
+                  and b * hk * s * CHUNKED_CLUSTERS[-1] >= CHUNKED_BLOCKS_PER_SM * sms), rep)
+    c = max(p.cluster for p in plans if p.split == split)
+    r = rep // split
+    held = ChunkedPlan(c, False, split) in plans
+    more = (_blocks_per_sm(decode_smem_bytes(dh, r, smax, c, True))
+            > _blocks_per_sm(decode_smem_bytes(dh, r, smax, c)))
+    return ChunkedPlan(c, not held or (r > 1 and more), split)
 
 
 def int8_decode_attention(q_s8: torch.Tensor, kt_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -296,6 +385,30 @@ def _decode_launch(q_s8, kt_cache, v_cache, lengths, scales, quant_pv: bool,
     return out
 
 
+def _chunked_launch(q_s8, kt_cache, v_cache, lengths, scales, quant_pv: bool,
+                    plan: ChunkedPlan) -> torch.Tensor:
+    """Launch K7 under ``plan`` on checked operands (``lengths`` (B,) int32
+    and the kernel's scales on the card), with the ranks' scratch of
+    (B, Hkv split, cluster, 5 (rep / split) chmax) bytes where the plan
+    keeps the scores there."""
+    b, h, dh = q_s8.shape
+    hk, smax = kt_cache.shape[1], kt_cache.shape[3]
+    dev = q_s8.device
+    out = torch.empty((b, h, dh), dtype=torch.float32, device=dev)
+    scratch = None
+    if plan.scratch:  # B Hkv split cluster runs of 5 (rep / split) chmax bytes
+        scratch = torch.empty((b * hk * plan.cluster * 5 * (h // hk)
+                               * decode_chmax(smax, plan.cluster),), dtype=torch.uint8, device=dev)
+    lib = _cuda.library(_cuda.SOURCES[CHUNKED], _SIGNATURES[CHUNKED])
+    rc = lib.int8_decode_attention_chunked(
+        _cuda.ptr(q_s8), _cuda.ptr(kt_cache), _cuda.ptr(v_cache), _cuda.ptr(lengths),
+        _cuda.ptr(scales), _cuda.ptr(out), _cuda.ptr(scratch), b, h, hk, dh, smax,
+        int(quant_pv), plan.cluster, plan.split, _cuda.stream(dev))
+    _cuda.check(rc, CHUNKED)
+    _cuda.count_launch(CHUNKED)
+    return out
+
+
 def gather_paged_kv(kt_pool: torch.Tensor, v_pool: torch.Tensor, table: torch.Tensor):
     """Densify a paged pool: (B, Hkv, Dh, NP*ps) K-transposed and
     (B, Hkv, NP*ps, Dh) V, in logical-position order."""
@@ -317,29 +430,10 @@ def int8_paged_decode_attention_xla(q_s8, kt_pool, v_pool, table, length, q_scal
                                      apply_sqrt_dh=apply_sqrt_dh, quant_pv=quant_pv)
 
 
-def _tile(ch: int, what: str) -> int:
-    """Positions per block of K7: the chunk itself up to 128, else
-    128-position slices of it.  K8 and K11 check their page size with it
-    too (the chunks and pages every kernel of the three took so far)."""
-    if ch <= 0 or ch % 4 or (ch > TILE and ch % TILE):
-        raise ValueError(f"{what} needs a chunk (page) that is a multiple of 4 and at most "
-                         f"{TILE}, or a multiple of {TILE}; got {ch}")
-    return min(ch, TILE)
-
-
 def _check_heads(what: str, h: int, hk: int, dh: int) -> None:
     if h % hk or (h // hk) not in (1, 2, 4, 8) or dh not in (64, 128):
         raise ValueError(f"{what} needs H / Hkv in (1, 2, 4, 8) and Dh in (64, 128); "
                          f"got H={h}, Hkv={hk}, Dh={dh}")
-
-
-def _chunk_buffers(b: int, ntiles: int, h: int, dh: int, dev):
-    """Per-tile partials of K7: row max, exp sum, and the (int32 or f32)
-    p @ V numerator, each (B, tiles, H[, Dh]); and the (B, H, Dh) output."""
-    return (torch.empty((b, ntiles, h), dtype=torch.float32, device=dev),
-            torch.empty((b, ntiles, h), dtype=torch.float32, device=dev),
-            torch.empty((b, ntiles, h, dh), dtype=torch.int32, device=dev),
-            torch.empty((b, h, dh), dtype=torch.float32, device=dev))
 
 
 def int8_decode_attention_chunked(q_s8: torch.Tensor, kt_cache: torch.Tensor,
@@ -347,13 +441,14 @@ def int8_decode_attention_chunked(q_s8: torch.Tensor, kt_cache: torch.Tensor,
                                   q_scale, k_scale, v_scale, *, chunk: int = 2048,
                                   apply_sqrt_dh: bool = True,
                                   quant_pv: bool = False) -> torch.Tensor:
-    """K7: single-token attention over the INT8 cache in chunks of ``chunk``
-    positions -> (B, H, Dh) f32, for long contexts.
+    """K7: single-token attention over a long INT8 cache -> (B, H, Dh) f32.
 
     The same function as ``int8_decode_attention_xla``, its plain version:
-    with ``quant_pv`` the codes are taken against the global row max over all
-    chunks.  ``length`` counts the valid positions per slot (each at least
-    1).  CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    with ``quant_pv`` the codes are taken against the global row max over
+    all positions.  ``chunk`` is JAX's chunk, which must divide Smax; the
+    kernel (K3's body under ``chunked_plan``) does not walk chunks.
+    ``length`` counts the valid positions per slot (each at least 1).  CPU
+    tensors take the plain version; CUDA tensors launch the kernel."""
     b, h, dh = q_s8.shape
     _, hk, _, smax = kt_cache.shape
     if chunk <= 0 or smax % chunk:
@@ -365,19 +460,13 @@ def int8_decode_attention_chunked(q_s8: torch.Tensor, kt_cache: torch.Tensor,
     _cuda.require(q_s8, "q_s8", torch.int8, (b, h, dh), dev, align=4)
     _check_cache(kt_cache, v_cache, b, dh, dev)
     _check_heads("K7", h, hk, dh)
-    tile = _tile(chunk, "K7")
-    ntiles = smax // tile
+    if smax % 4:
+        raise ValueError(f"K7 needs Smax % 4 == 0; got Smax={smax}")
     lengths = _lengths(length, b, dev)
     scales = _kernel_scales(q_scale, k_scale, v_scale, dh, apply_sqrt_dh)
-    mpart, lpart, acc, out = _chunk_buffers(b, ntiles, h, dh, dev)
-    lib = _cuda.library(_cuda.SOURCES[CHUNKED], _SIGNATURES[CHUNKED])
-    rc = lib.int8_decode_attention_chunked(
-        _cuda.ptr(q_s8), _cuda.ptr(kt_cache), _cuda.ptr(v_cache), _cuda.ptr(lengths),
-        _cuda.ptr(scales), _cuda.ptr(mpart), _cuda.ptr(lpart), _cuda.ptr(acc), _cuda.ptr(out),
-        b, h, hk, dh, smax, tile, int(quant_pv), _cuda.stream(dev))
-    _cuda.check(rc, CHUNKED)
-    _cuda.count_launch(CHUNKED)
-    return out
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return _chunked_launch(q_s8, kt_cache, v_cache, lengths, scales, quant_pv,
+                           chunked_plan(b, hk, h // hk, dh, smax, sms))
 
 
 def paged_smem_bytes(dh: int, rep: int, npg: int, ps: int, cluster: int,
@@ -457,7 +546,6 @@ def int8_paged_decode_attention(q_s8: torch.Tensor, kt_pool: torch.Tensor,
     _cuda.require(v_pool, "v_pool", torch.int8, (p, hk, ps, dh), dev)
     _cuda.require(table, "table", torch.int32, (b, npg), dev, align=4)
     _check_heads("K8", h, hk, dh)
-    _tile(ps, "K8")
     lengths = _lengths(length, b, dev)
     scales = _kernel_scales(q_scale, k_scale, v_scale, dh, apply_sqrt_dh)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -504,7 +592,6 @@ def int4_paged_decode_attention(q_s8: torch.Tensor, kt_pool: torch.Tensor,
     _cuda.require(v_pool, "v_pool", torch.int8, (p, hk, ps, dh2), dev)
     _cuda.require(table, "table", torch.int32, (b, npg), dev, align=4)
     _check_heads("K11", h, hk, dh)
-    _tile(ps, "K11")
     lengths = _lengths(length, b, dev)
     scales = _kernel_scales(q_scale, k_scale4, v_scale4, dh, apply_sqrt_dh)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count

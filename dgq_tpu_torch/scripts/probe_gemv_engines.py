@@ -71,16 +71,17 @@ class GemvPlan(NamedTuple):
     per_sm: int
 
 
-def gemv_smem(sps: int) -> int:
+def gemv_smem(sps: int, bm: int = GEMV_BM, stage: int = GEMV_STAGE_BYTES) -> int:
     """A P2 block's dynamic shared memory (``fused_smem`` with FusedS8's
-    stage)."""
-    return fused_smem(GEMV_BM, sps, GEMV_STAGE_BYTES)
+    stage), or P3's (``bm`` 16 token rows, FusedS4's ``stage`` of 8 KB)."""
+    return fused_smem(bm, sps, stage)
 
 
-def gemv_candidates(n: int, k: int) -> list:
-    """Every plan P2 can run an (N, K) call with: each K split of
-    GEMV_SPLITS that divides the stages of K, whose shared memory fits, in
-    that order."""
+def gemv_candidates(n: int, k: int, bm: int = GEMV_BM,
+                    stage: int = GEMV_STAGE_BYTES) -> list:
+    """Every plan P2 (or, at its ``bm`` and ``stage`` bytes, P3) can run an
+    (N, K) call with: each K split of GEMV_SPLITS that divides the stages of
+    K, whose shared memory fits, in that order."""
     if n <= 0 or k <= 0 or n % GEMV_BN or k % GEMV_STAGE_K:
         raise ValueError(f"P2 needs N % {GEMV_BN} == 0 and K % {GEMV_STAGE_K} == 0; "
                          f"got N={n}, K={k}")
@@ -90,7 +91,7 @@ def gemv_candidates(n: int, k: int) -> list:
         if stages % splits:
             continue
         sps = stages // splits
-        smem = gemv_smem(sps)
+        smem = gemv_smem(sps, bm, stage)
         per_sm = min(GEMV_MAX_PER_SM, SMEM_PER_SM // (smem + 1024))
         if smem <= SMEM_LIMIT and per_sm:
             plans.append(GemvPlan(splits, sps, smem, per_sm))
@@ -98,11 +99,13 @@ def gemv_candidates(n: int, k: int) -> list:
 
 
 @functools.lru_cache(maxsize=256)
-def gemv_plan(n: int, k: int, sms: int) -> GemvPlan:
-    """P2's plan for an (N, K) call on a card with ``sms`` SMs: of
-    ``gemv_candidates``, the most splits whose blocks all run at once (one
-    wave of ``per_sm`` blocks an SM), else the fewest."""
-    plans = gemv_candidates(n, k)
+def gemv_plan(n: int, k: int, sms: int, bm: int = GEMV_BM,
+              stage: int = GEMV_STAGE_BYTES) -> GemvPlan:
+    """P2's plan for an (N, K) call on a card with ``sms`` SMs (P3's at its
+    ``bm`` and ``stage``): of ``gemv_candidates``, the most splits whose
+    blocks all run at once (one wave of ``per_sm`` blocks an SM), else the
+    fewest."""
+    plans = gemv_candidates(n, k, bm, stage)
     one_wave = [p for p in plans if n // GEMV_BN * p.splits <= sms * p.per_sm]
     return one_wave[-1] if one_wave else plans[0]
 

@@ -4,8 +4,9 @@ shape (16 rows of int4 codes, K 4096, N 12288).
 Port of ``scripts/probe_native_s4.py``.  The TPU's matrix unit takes int4
 operands, so the JAX probe asks whether int4 weights stream to it with no
 unpack.  Hopper's tensor cores take no int4 operand: here the kernel
-(``csrc/s4_gemv.cu``) reads the packed bytes, sign-extends the nibbles to
-int8 in registers and runs s8 mma.sync, so the probe measures the
+(``csrc/s4_gemv.cu``: P2's loop, K4's TMA ring and wgmma, with the nibble
+Loader ``FusedS4``) reads the packed bytes, sign-extends the nibbles to
+int8 in registers and runs s8 wgmma, so the probe measures the
 nibble-unpack cost that K1, K4-K6 and K12 pay on their weights, in two
 column maps:
 
@@ -30,6 +31,7 @@ with ``--cpu`` at K 256, N 1024 on the plain versions (host times).
 from __future__ import annotations
 
 import argparse
+from typing import Optional
 
 import numpy as np
 import torch
@@ -37,7 +39,8 @@ import torch
 from dgq_tpu_torch.ops import _cuda
 from dgq_tpu_torch.ops.fused_decode import fused_norm_gemv
 from dgq_tpu_torch.ops.quant_matmul import int_matmul
-from dgq_tpu_torch.scripts.probe_gemv_engines import int_mm_rows32
+from dgq_tpu_torch.scripts.probe_gemv_engines import (GEMV_BN, GemvPlan, _sms, gemv_plan,
+                                                       int_mm_rows32)
 from dgq_tpu_torch.scripts.roofline_probe import column_major
 from dgq_tpu_torch.utils.benchmarking import device_time
 
@@ -45,15 +48,16 @@ K, N = 4096, 12288
 B = 8  # decode rows; the int4 paths run 2B stacked rows of codes
 BN = 512  # the TPU probe's column block: the bitcast map's period
 PAIRS, HALVES = "pallas_s4", "pallas_s4_bitcast"
-_SIGNATURES = {"s4_gemv": [_cuda.VP] * 3 + [_cuda.INT] * 6 + [_cuda.VP]}
-BLOCKS_PER_SM = 8  # the K split's target: enough weight loads in flight
+_SIGNATURES = {"s4_gemv": [_cuda.VP] * 4 + [_cuda.INT] * 7 + [_cuda.VP]}
+# the kernel's shape: one tile of 16 token rows (wgmma N), 128 columns a block,
+# stages of 128 rows x 64 bytes (``FusedS4``'s 8 KB)
+S4_BM, S4_STAGE_BYTES = 16, 128 * 64
 
 
-def k_split(n: int, k: int, device) -> int:
-    """Blocks over K per 64-column block: about BLOCKS_PER_SM blocks an SM,
-    at most one per 128-row chunk."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(k // 128, -(-BLOCKS_PER_SM * sms // (n // 64))))
+def s4_plan(n: int, k: int, sms: int) -> GemvPlan:
+    """P3's plan for an (N, K) call: P2's rule (``gemv_plan``) at P3's tile
+    and stage bytes, over the 128-column blocks that cover N."""
+    return gemv_plan(-(-n // GEMV_BN) * GEMV_BN, k, sms, S4_BM, S4_STAGE_BYTES)
 
 
 def _nibbles(wb: torch.Tensor):
@@ -86,12 +90,13 @@ def pallas_s4_bitcast_plain(x: torch.Tensor, wb: torch.Tensor, bn: int = BN) -> 
     return int_matmul(x, unpack_s4_halves(wb, bn))
 
 
-def _launch(name: str, x: torch.Tensor, wb: torch.Tensor, halves: bool, bn: int) -> torch.Tensor:
+def _launch(name: str, x: torch.Tensor, wb: torch.Tensor, halves: bool, bn: int,
+            plan: Optional[GemvPlan]) -> torch.Tensor:
     m, k = x.shape
     k2, n2 = wb.shape
     n = 2 * n2
-    if k2 != k or m > 16:
-        raise ValueError(f"{name}: x {tuple(x.shape)} (at most 16 rows), wb {tuple(wb.shape)}")
+    if k2 != k or not 1 <= m <= S4_BM:
+        raise ValueError(f"{name}: x {tuple(x.shape)} (1 to {S4_BM} rows), wb {tuple(wb.shape)}")
     dev = x.device
     _cuda.require(x, "x", torch.int8, (m, k), dev)
     _cuda.require(wb, "wb", torch.int8, (k, n2), dev)
@@ -99,30 +104,35 @@ def _launch(name: str, x: torch.Tensor, wb: torch.Tensor, halves: bool, bn: int)
         raise ValueError(f"{name} needs N % 64 == 0, K % 128 == 0 (and N % bn == 0, bn % 64 "
                          f"== 0); got N={n}, K={k}, bn={bn}")
     lib = _cuda.library(_cuda.SOURCES[name], _SIGNATURES)
-    ks = k_split(n, k, dev)
-    out = (torch.zeros if ks > 1 else torch.empty)((m, n), dtype=torch.int32, device=dev)
-    _cuda.check(lib.s4_gemv(_cuda.ptr(x), _cuda.ptr(wb), _cuda.ptr(out), m, n, k, int(halves),
-                            bn, ks, _cuda.stream(dev)), name)
+    plan = plan or s4_plan(n, k, _sms(dev))
+    out = torch.empty((m, n), dtype=torch.int32, device=dev)
+    part = None
+    if plan.splits > 1:
+        part = torch.empty((plan.splits, m, n), dtype=torch.int32, device=dev)
+    _cuda.check(lib.s4_gemv(_cuda.ptr(x), _cuda.ptr(wb), _cuda.ptr(out), _cuda.ptr(part), m, n,
+                            k, int(halves), bn, plan.splits, plan.sps, _cuda.stream(dev)), name)
     _cuda.count_launch(name)
     return out
 
 
-def pallas_s4(x: torch.Tensor, wb: torch.Tensor) -> torch.Tensor:
+def pallas_s4(x: torch.Tensor, wb: torch.Tensor, plan: Optional[GemvPlan] = None) -> torch.Tensor:
     """(M <= 16, K) int8 codes . W -> (M, N) int32, W from (K, N/2) bytes in
-    XLA's int4 order.  CPU tensors take the plain version; CUDA tensors
-    launch the kernel."""
+    XLA's int4 order, under ``plan`` (default ``s4_plan``).  CPU tensors take
+    the plain version; CUDA tensors launch the kernel."""
     if x.device.type == "cpu":
         return pallas_s4_plain(x, wb)
-    return _launch(PAIRS, x, wb, False, 0)
+    return _launch(PAIRS, x, wb, False, 0, plan)
 
 
-def pallas_s4_bitcast(x: torch.Tensor, wb: torch.Tensor, bn: int = BN) -> torch.Tensor:
+def pallas_s4_bitcast(x: torch.Tensor, wb: torch.Tensor, bn: int = BN,
+                      plan: Optional[GemvPlan] = None) -> torch.Tensor:
     """(M <= 16, K) int8 codes . W -> (M, N) int32, each bn columns of W
-    [low | high] nibbles of (K, bn/2) bytes.  CPU tensors take the plain
-    version; CUDA tensors launch the kernel."""
+    [low | high] nibbles of (K, bn/2) bytes, under ``plan`` (default
+    ``s4_plan``).  CPU tensors take the plain version; CUDA tensors launch
+    the kernel."""
     if x.device.type == "cpu":
         return pallas_s4_bitcast_plain(x, wb, bn)
-    return _launch(HALVES, x, wb, True, bn)
+    return _launch(HALVES, x, wb, True, bn, plan)
 
 
 def check_bitcast_order(dev) -> str:

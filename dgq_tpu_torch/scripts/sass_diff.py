@@ -31,9 +31,16 @@ from pathlib import Path
 
 from dgq_tpu_torch.ops import _cuda
 
-# the anonymous namespace: a hash, the source's name and "_cu_", then a hex hash or (seen for
-# s8_gemm.cu and s4_gemv.cu) the source's name again
-_NAMESPACE = re.compile(r"\d*_GLOBAL__N__[0-9a-f]{8}_\d+_(\w+?)_cu_(?:[0-9a-f]{8}|\1)")
+# the anonymous namespace: a hash, the source's name and "_cu_", then a hex hash or a name
+# (the source's again for s8_gemm.cu and s4_gemv.cu, mxu_gemv for int8_gemv_engines.cu), up to
+# the length of the next name in the mangling
+_NAMESPACE = re.compile(
+    r"\d*_GLOBAL__N__[0-9a-f]{8}_\d+_(\w+?)_cu_(?:[0-9a-f]{8}|\1|[A-Za-z_]\w*?(?=\d))")
+
+
+def strip_namespace(name: str) -> str:
+    """``name`` without its anonymous namespaces."""
+    return _NAMESPACE.sub("", name)
 
 
 def functions(sass: str, renames=()) -> dict:
@@ -44,7 +51,7 @@ def functions(sass: str, renames=()) -> dict:
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            fn = _NAMESPACE.sub("", m.group(1))
+            fn = strip_namespace(m.group(1))
             for pattern, repl in renames:
                 fn = re.sub(pattern, repl, fn)
             out[fn] = []

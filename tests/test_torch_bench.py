@@ -217,3 +217,18 @@ def test_sass_diff_strips_a_namespace_that_ends_in_the_source_name():
     assert mine == theirs == {"_ZN9gemm_sm90INS_8S8LoaderELi128ELi5ELi2EEEv14CUtensorMap_stS2_"
                               "S2_S2_NS_8GemmArgsE": ["EXIT"]}
     assert sass_diff.compare("s8_gemm", mine, theirs)["same"] == 1
+
+
+def test_sass_diff_strips_a_namespace_that_ends_in_another_name():
+    """int8_gemv_engines.cu's anonymous namespace ends in one of its entry
+    points' names (``mxu_gemv``), after the hash that follows the source's
+    path: the namespace goes by its length prefix, whatever it ends in."""
+    from dgq_tpu_torch.scripts import sass_diff
+
+    names = [f"_ZN53_GLOBAL__N__{h}_20_int8_gemv_engines_cu_mxu_gemv13mxu_gemv_sm90E14CUtensor"
+             "Map_stS0_NS_9FusedArgsES1_iii" for h in ("311c323e", "bd029058")]
+    listings = [f"\t\tFunction : {n}\n        /*0000*/                   EXIT ;\n" for n in names]
+    mine, theirs = (sass_diff.functions(t) for t in listings)
+    assert mine == theirs == {"_ZN13mxu_gemv_sm90E14CUtensorMap_stS0_NS_9FusedArgsES1_iii":
+                              ["EXIT"]}
+    assert sass_diff.strip_namespace("_Z3foov") == "_Z3foov"

@@ -254,6 +254,126 @@ def test_p3_p4_nibble_maps_match_jax():
     assert t4.numerics("cpu") == {"view": [256, 256], "interleaved": False, "halves": True}
 
 
+def _s4_column(byte, j, halves, bn):
+    """FusedS4::column: the weight column of nibble j (0 low, 1 high) of byte
+    column ``byte`` of the (K, N / 2) bytes."""
+    if not halves:
+        return 2 * byte + j
+    half = bn // 2
+    return (byte // half) * bn + j * half + byte % half
+
+
+def _s4_kernel_emulated(x, wb, halves, bn):
+    """(M, N) int64 as P3's kernel computes it: per block of 128 columns
+    (64 byte columns), each stage of 128 rows x 64 bytes laid out as TMA
+    writes it swizzled 64 bytes (bytes past N / 2 zero), each thread (cp,
+    t) reading its byte column at FusedS4's offsets, rows 2t, 2t + 1, 8 +
+    2t, 9 + 2t of each 16 of a 32-k step (FusedS8's k slots), the nibbles
+    sign-extended, and the two sums written to the Loader's columns."""
+    m, k = x.shape
+    n2 = wb.shape[1]
+    n = 2 * n2
+    u = wb.view(np.uint8)
+    xi = x.astype(np.int64)
+    out = np.zeros((m, n), np.int64)
+    written = np.zeros(n, np.int64)
+    rows, cols = np.meshgrid(np.arange(128), np.arange(64), indexing="ij")
+    swz = rows * 64 + ((((cols >> 4) ^ ((rows >> 1) & 3)) << 4) | (cols & 15))
+    slots = (0, 1, 8, 9, 16, 17, 24, 25)  # past the thread's row 2t of the step
+    assert sorted(2 * t + d for t in range(4) for d in slots) == list(range(32))
+    for bx in range(-(-n // 128)):
+        acc = np.zeros((m, 64, 2), np.int64)
+        for st in range(k // 128):
+            src = np.zeros((128, 64), np.uint8)
+            hi = min(64, n2 - 64 * bx)
+            src[:, :hi] = u[128 * st:128 * st + 128, 64 * bx:64 * bx + hi]
+            box = np.zeros(128 * 64, np.uint8)
+            box[swz] = src
+            for cp in range(64):
+                for t in range(4):
+                    off = 2 * t * 64 + ((((cp >> 4) ^ t) << 4) | (cp & 15))
+                    for h in range(2):
+                        for kk in range(2):
+                            step = 64 * h + 32 * kk
+                            for d in slots:
+                                byte = int(box[off + (step + d) * 64])
+                                kr = 128 * st + step + 2 * t + d
+                                for j in range(2):
+                                    code = (((byte >> (4 * j)) & 0xF) ^ 8) - 8
+                                    acc[:, cp, j] += xi[:, kr] * code
+        for cp in range(64):
+            byte = 64 * bx + cp
+            if byte >= n2:
+                continue
+            for j in range(2):
+                c = _s4_column(byte, j, halves, bn)
+                out[:, c] = acc[:, cp, j]
+                written[c] += 1
+    assert (written == 1).all()
+    return out
+
+
+@pytest.mark.parametrize("n,bn", [(1024, t3.BN), (256, 256), (1024 - 64, 64)])
+def test_p3_nibble_loader_maps_match_unpack_and_jax(n, bn):
+    """FusedS4's addresses and column maps, both maps, against the plain
+    versions' unpack and JAX's nibble orders (a width of 960: a block past
+    N / 2)."""
+    k = 256
+    rng = np.random.default_rng(n + bn)
+    wb = _ints(rng, -128, 128, (k, n // 2))
+    x = _ints(rng, -8, 8, (16, k))
+    wbt = torch.from_numpy(wb)
+    pairs = t3.unpack_s4_pairs(wbt).numpy().astype(np.int64)
+    xla = np.asarray(jax.lax.bitcast_convert_type(jnp.asarray(wb), jnp.int4)
+                     .astype(jnp.int32)).reshape(k, n)
+    assert np.array_equal(pairs, xla)
+    assert np.array_equal(_s4_kernel_emulated(x, wb, False, 0), x.astype(np.int64) @ pairs)
+    halves = t3.unpack_s4_halves(wbt, bn).numpy().astype(np.int64)
+    h = bn // 2
+    chip = np.concatenate(
+        [np.asarray(_bitcast_rows_s4(jnp.asarray(wb[:, j:j + h]), interpret=True)).reshape(k, -1)
+         for j in range(0, n // 2, h)], axis=1)
+    assert np.array_equal(halves, chip)
+    assert np.array_equal(_s4_kernel_emulated(x, wb, True, bn), x.astype(np.int64) @ halves)
+
+
+@pytest.mark.parametrize("n,k", [(t3.N, t3.K), (1024, 256), (256, 256), (960, 256),
+                                 (4096, 11264)])
+def test_p3_plan_at_its_stage_bytes(n, k):
+    """``s4_plan``: P2's rule at P3's 16-row tile and 8 KB stage, over the
+    128-column blocks that cover N: its splits divide K's stages, its block
+    fits shared memory and the blocks an SM it assumes; four splits at the
+    probe's shape on an H100 (96 column blocks, three an SM)."""
+    import dgq_tpu_torch.ops.fused_decode as fd
+
+    stages = k // t2.GEMV_STAGE_K
+    for sms in (132, 78):
+        plan = t3.s4_plan(n, k, sms)
+        assert stages % plan.splits == 0 and plan.splits * plan.sps == stages
+        assert plan.smem == fd.fused_smem(t3.S4_BM, plan.sps, t3.S4_STAGE_BYTES) <= fd.SMEM_LIMIT
+        assert plan.per_sm * (plan.smem + 1024) <= fd.SMEM_PER_SM
+        assert plan in t2.gemv_candidates(-(-n // 128) * 128, k, t3.S4_BM, t3.S4_STAGE_BYTES)
+    if (n, k) == (t3.N, t3.K):
+        assert t3.s4_plan(n, k, 132).splits == 4
+    cu = (ROOT / "dgq_tpu_torch" / "csrc" / "s4_gemv.cu").read_text()
+    hdr = (ROOT / "dgq_tpu_torch" / "csrc" / "fused_gemv_sm90.cuh").read_text()
+    assert f"constexpr int S4_BM = {t3.S4_BM};" in cu
+    assert "fused_smem(S4_BM, sps, FusedS4<false>::STAGE)" in cu
+    assert "W_ROWS = 128, W_BYTES = 128 * 64, R = 0, STAGE = W_BYTES;" in hdr
+    assert t3.S4_STAGE_BYTES == 128 * 64
+    assert cu.count(f"__launch_bounds__(F_THREADS, {t2.GEMV_MAX_PER_SM})") == 1
+
+
+def test_p3_wrappers_take_a_plan_and_the_plain_version_on_cpu():
+    rng = np.random.default_rng(4)
+    wb = torch.from_numpy(_ints(rng, -128, 128, (256, 512)))
+    x = torch.from_numpy(_ints(rng, -8, 8, (16, 256)))
+    for plan in t2.gemv_candidates(1024, 256, t3.S4_BM, t3.S4_STAGE_BYTES):
+        assert torch.equal(t3.pallas_s4(x, wb, plan=plan), t3.pallas_s4_plain(x, wb))
+        assert torch.equal(t3.pallas_s4_bitcast(x, wb, plan=plan),
+                           t3.pallas_s4_bitcast_plain(x, wb))
+
+
 @pytest.mark.parametrize("name", ["roofline_probe", "probe_gemv_engines", "probe_native_s4",
                                   "probe_s4_bitcast_numerics", "probe_quant_pv_parts"])
 def test_probe_main_runs_on_the_cpu(name, capsys):

@@ -126,10 +126,11 @@ def test_wrappers_take_plain_versions_on_cpu_without_launches():
     assert {"fused_norm_gemv_rp", "fused_requant_gemv_rp", "fused_mlp_decode_rp",
             "int8_decode_attention_chunked", "int8_paged_decode_attention",
             "int4_paged_decode_attention"} <= set(_cuda.LAUNCHES)
-    # one CUDA source serves K8 and K11 (K3's body over the page pool), another K7
+    # one CUDA source serves K8 and K11 (K3's body over the page pool), another K7 (K3's body
+    # on long caches)
     assert _cuda.SOURCES["int8_paged_decode_attention"] == \
         _cuda.SOURCES["int4_paged_decode_attention"] == "paged_decode_attention"
-    assert _cuda.SOURCES["int8_decode_attention_chunked"] == "int8_chunked_decode_attention"
+    assert _cuda.SOURCES["int8_decode_attention_chunked"] == "long_decode_attention"
 
 
 def test_span_wrappers_take_plain_versions_on_cpu_without_launches():
