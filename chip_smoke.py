@@ -5,7 +5,7 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It imports no JAX.  Phases, each printing one JSON line with its seconds:
 
 1. device: the card's name and power limit (nvidia-smi); TF32 off.
-2. build: the fourteen CUDA sources, one nvcc each, started together; the
+2. build: the fifteen CUDA sources, one nvcc each, started together; the
    logs of the sources on wgmma (K1, K4-K6, K9, K10, K12, P1, P2 and P3 on
    the TMA + wgmma loop, and K2) must not hold ptxas warnings
    C7514, C7515 or C7520 (wgmma serialised), nor may their libraries' SASS
@@ -13,7 +13,8 @@ It imports no JAX.  Phases, each printing one JSON line with its seconds:
    for at once (serialised with no warning); K2's, K3's, K4's, K5's, K6's,
    K7's (``long_decode_attention.cu``), K8's and K11's
    (``paged_decode_attention.cu``), K10's, K12's, P2's, P3's and P5's
-   registers and spills are recorded, K4-K6's and K12's must hold no spill
+   registers and spills are recorded (K2's, K3's and K7's ALiBi
+   instantiations too), K4-K6's and K12's must hold no spill
    and at most 113 registers, P2's and P3's no spill and at most 75 (three
    blocks an SM).
 3. kernels: K1 ``w4a8_matmul_rp_pipe``, K2 ``int8_prefill_attention``, K3
@@ -71,6 +72,14 @@ It imports no JAX.  Phases, each printing one JSON line with its seconds:
    contiguous table of K8 without quant_pv on the unpacked INT8 pool; K8
    and K11 also held (not timed) at PAGE_CHECKS (pages of 20 and 48
    positions, Dh 128 and 64, every cluster).  Then
+   the ALiBi instantiations: K2 at BLOOM-7B1's prefill (32 heads, batch 4,
+   prompt 256, cache 2048; also at offsets and 40 heads, K2_ALIBI_EXTRA), K3
+   at batch 4, cache 2048, lengths 1-2048, MHA and GQA 4:1, both p @ V rules,
+   every cluster of DECODE_CLUSTERS, and K7 at 16,384 under every plan of
+   ``chunked_candidates``, each held against its plain version at K2's, K3's
+   and K7's tolerances and timed beside the same kernel without ALiBi on
+   the same inputs (``twin_ms``) and bf16 SDPA with the bias as an additive
+   mask.  Then
    K12 ``fused_norm_gemv``, ``fused_requant_gemv`` and ``fused_mlp_decode``
    (which also serve K13's names) on span weights at K4-K6's shapes and row
    counts, held as K4-K6 are against their plain versions and, by their
@@ -112,9 +121,9 @@ It imports no JAX.  Phases, each printing one JSON line with its seconds:
    ``PagedBatcher.run()`` of the same requests, only the prefix pages may
    stay in use, K8 must run 32 times per decode forward, and a run with a
    pool of 48 pages must preempt and finish every request.  Also a profiled
-   paged decode step at 8 slots, and (not gated) which requests' tokens
-   equal ``generate`` of the request alone, with the first token that
-   differs.
+   paged decode step at 8 slots, and (not gated) which of the first 8
+   requests' tokens equal ``generate`` of the request alone, with the first
+   token that differs.
 8. serve_kv4: the paged daemon on INT4 nibble pages (``--paged --kv-bits
    4``) on the same 7B checkpoint with the first 12 of serve's requests (one
    streaming request cancelled): the served tokens must equal a direct
@@ -206,7 +215,27 @@ It imports no JAX.  Phases, each printing one JSON line with its seconds:
    DECODE_CLUSTERS, each slot within PV_TOL of its largest output.  Beside
    the profiler's kernel time each case records ``events_ms``, the same
    time from CUDA events alone (``Timer.events``).
-18. bench: ``python -m dgq_tpu_torch.bench`` (BENCH_ARGS) in a subprocess:
+18. main_bloom: ``build_bloom_engine(BloomConfig())`` (BLOOM-7B1: 30 layers,
+   hidden 4096, 32 heads, vocab 250880; random weights from seed 0), prefill
+   of 4 x 256 tokens and 32 greedy tokens through ``bloom_engine_forward``
+   in a cache of 2048, every kernel's launches counted (K9 for every linear,
+   K2 with ALiBi 30, K3 with ALiBi 930 = 30 layers x 31 decode steps,
+   nothing else), the ALiBi kernels also by the profiler's names; a timed
+   replay, a profiled decode step, the peak memory; then the kernel path
+   against the plain path at full depth under teacher forcing with the
+   run's own tokens (8 steps): the parity phase's code agreement, logits
+   within 2e-3 and equal greedy tokens outside near-ties.
+19. main_mpt: the same on ``MPTConfig()`` (MPT-7B: 32 layers, d_model 4096,
+   32 heads, ffn 16384, vocab 50368), then prefill and 8 tokens in a cache
+   of 16384: K7 with ALiBi at every decode step (32 x 7 launches).
+20. serve_family: the dense daemon with ``--admit-batch 1`` on a
+   ``save_engine`` checkpoint of OPT-6.7B, then one of MPT-7B (the
+   ``ContinuousBatcher`` over the family's ``fns``), 8 slots, serve_dense's
+   12 requests and the prefix, one streaming request cancelled: the served
+   tokens must equal a direct ``batcher_from_checkpoint(...).run()`` on the
+   same checkpoint; K3 (OPT) or K3 with ALiBi (MPT) once per layer of every
+   decode forward; client tok/s, TTFT and e2e p50/p95.
+21. bench: ``python -m dgq_tpu_torch.bench`` (BENCH_ARGS) in a subprocess:
    exactly one line on stdout, a numeric value, no ``degraded``, the card's
    name, K9 and K1 launched by its GEMM round; its launches summed over its
    stages are the bench path's.
@@ -247,6 +276,9 @@ SERVE_REQUESTS, SERVE_NEW, PREFIX_LEN, TIGHT_PAGES = 24, 64, 300, 49
 # prefix's 3 and less than the 46 the first 8 requests reach
 SERVE_KV4, SERVE_DENSE, TIGHT_PAGES_KV4 = 12, 12, 41
 SPEC_K = 4  # speculative drafts per step (main_span, serve_spec)
+# serve's report of each request's tokens against ``generate`` of it alone: the first 8 (all
+# 24 took 82 s of a run on a slow host)
+ALONE_REQUESTS = 8
 # K1 and K9 run the shared main loop (gemm_sm90) and, when K is split, splitk_combine; each
 # instantiation names its loader
 K1_NAMES = ["RowpairLoader"]
@@ -263,6 +295,12 @@ K12_NAMES = {"fused_norm_gemv": ["norm_gemv_span_sm90", "norm_gemv_span_combine"
 K12_ALL = [n for names in K12_NAMES.values() for n in names]
 K3_NAMES = ["decode_attn_cluster"]
 K7_NAMES = ["long_attn_cluster"]  # K3's body on long caches (csrc/long_decode_attention.cu)
+# the ALiBi instantiations (BLOOM, MPT): K2's ALIBI template argument, K3's and K7's kernels
+# on the body's bias policy Alibi
+K2_ALIBI_NAMES = ["prefill_attn_sm90<128, true>", "prefill_attn_sm90<64, true>"]
+K2_PLAIN_NAMES = ["prefill_attn_sm90<128, false>", "prefill_attn_sm90<64, false>"]
+K3_ALIBI_NAMES = ["decode_attn_alibi_cluster"]
+K7_ALIBI_NAMES = ["long_attn_alibi_cluster"]
 # K8 and K11: K3's body over the page pool (csrc/paged_decode_attention.cu), one kernel each
 # (INT8 or nibble pages: its KV4 template argument)
 K8_NAMES = K11_NAMES = ["paged_attn_cluster"]
@@ -299,6 +337,9 @@ class Timer:
         self.flush = torch.empty(128 << 20, dtype=torch.uint8, device=DEV)
         self.flush_keys = None  # the flush's kernel names, learned by the first ``device``
         self.last_kernels = []  # the kernel names the last ``device`` call counted
+        # one trace before any that is read: a process's first traces lost records once (a K1
+        # case's 40 launches read as 19 in each of three traces)
+        self._profile(lambda: None, 3)
 
     def __call__(self, fn, iters: int = 20, warmup: int = 3) -> float:
         torch = self.torch
@@ -362,11 +403,11 @@ class Timer:
         return {e.key: getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0))
                 for e in events}
 
-    def kernel(self, fn, names, iters: int = 20, attempts: int = 3) -> float:
+    def kernel(self, fn, names, iters: int = 20, attempts: int = 5) -> float:
         """A trace that records fewer launches of the named kernels than
-        calls (none at all was seen once on the card, a part of them once)
-        is taken again, up to ``attempts`` times: every call launches at
-        least one of them."""
+        calls (none at all was seen once on the card, a part of them in
+        three traces running) is taken again, up to ``attempts`` times:
+        every call launches at least one of them."""
         fn()
         self.torch.cuda.synchronize()
         for _ in range(attempts):
@@ -509,8 +550,8 @@ def phase_build(torch, state):
             for name, e in ptxas[stem].items():
                 if e.get("registers", 0) > 65536 // (3 * 288) or e.get("spill_bytes", 0):
                     raise AssertionError(f"csrc/{stem}.cu: {name} takes {e}")
-        elif stem == "int8_prefill_attention":
-            ptxas[stem] = _ptxas_entries(log, "prefill_attn_sm90")
+        elif stem == "int8_prefill_attention":  # <Dh, ALiBi>
+            ptxas[stem] = _ptxas_entries(log, "prefill_attn_sm90", bools=True)
         elif stem == "w4a8_span_gemm":  # K10: three accumulator sets a consumer thread
             ptxas[stem] = _ptxas_entries(log, "SpanCodesLoader")
         sass = subprocess.run([str(Path(_cuda._nvcc()).with_name("cuobjdump")), "-sass",
@@ -525,12 +566,16 @@ def phase_build(torch, state):
         igmma_kernels[stem] = len(serial)
     k3_log = (_cuda.BUILD_DIR / "int8_decode_attention.log").read_text()
     ptxas["int8_decode_attention"] = _ptxas_entries(k3_log, "decode_attn_cluster")
+    ptxas["int8_decode_attention_alibi"] = _ptxas_entries(k3_log, "decode_attn_alibi_cluster")
     p5_log = (_cuda.BUILD_DIR / "quant_pv_parts_attention.log").read_text()
     ptxas["quant_pv_parts_attention"] = _ptxas_entries(p5_log, "pv_parts_cluster")
     paged_log = (_cuda.BUILD_DIR / "paged_decode_attention.log").read_text()
     ptxas["paged_decode_attention"] = _ptxas_entries(paged_log, "paged_attn_cluster", bools=True)
     long_log = (_cuda.BUILD_DIR / "long_decode_attention.log").read_text()
     ptxas["long_decode_attention"] = _ptxas_entries(long_log, "long_attn_cluster", bools=True)
+    long_alibi_log = (_cuda.BUILD_DIR / "long_decode_attention_alibi.log").read_text()
+    ptxas["long_decode_attention_alibi"] = _ptxas_entries(long_alibi_log,
+                                                          "long_attn_alibi_cluster", bools=True)
     return {"nvcc_seconds": seconds, "nvcc": nvcc, "no_c7515": list(WGMMA_SOURCES),
             "igmma_kernels_pipelined": igmma_kernels, "ptxas": ptxas}
 
@@ -869,6 +914,154 @@ def _k3_cases(torch, timer, gen):
             cases.append({"B": b, "H": hq, "Hkv": hk, "Dh": dhx, "Smax": smax,
                           "lengths": list(lens), "quant_pv": quant_pv, "extra": True,
                           "max_abs_err": _check_k3(torch, what, got, ref, quant_pv)})
+        del q, kt, v
+    return cases
+
+
+def _alibi_slopes(h):
+    from dgq_tpu_torch.models.bloom import alibi_slopes
+
+    return alibi_slopes(h, DEV)
+
+
+def _sdpa_bias_ms(torch, timer, q, kt, v, scales, qpos, kpos, valid, slopes) -> dict:
+    """The ALiBi kernels' library yardstick (a different arithmetic): one bf16
+    SDPA call over the first n = kpos.numel() positions of a dense (B, Hkv,
+    Dh, Smax) cache for q (B, H, S, Dh), ALiBi and the mask given as one
+    additive bf16 mask slope x kpos (-inf where ``valid`` (B or 1, S, n) is
+    false)."""
+    qs, ks, vs = scales
+    n = kpos.numel()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qb = (q.float() * qs).to(torch.bfloat16)
+    kb = (kt[..., :n].transpose(2, 3).float() * ks).to(torch.bfloat16).contiguous()
+    vb = (v[:, :, :n].float() * vs).to(torch.bfloat16).contiguous()
+    bias = slopes[None, :, None, None] * kpos.float()[None, None, None, :]
+    mask = torch.where(valid[:, None], bias, torch.tensor(float("-inf"), device=DEV)).to(
+        torch.bfloat16)
+    gqa = kt.shape[1] != q.shape[1]
+    return timer.library(lambda: sdpa(qb, kb, vb, attn_mask=mask, enable_gqa=gqa))
+
+
+def _k2_alibi_cases(torch, timer, gen):
+    """K2's ALiBi instantiation at BLOOM-7B1's prefill (32 heads, Dh 128,
+    batch 4, prompt 256, cache 2048): held against its plain version within
+    3e-4 of the largest output, timed beside K2 without ALiBi on the same
+    inputs (``twin_ms``), the plain version, bf16 SDPA with the bias as an
+    additive mask and the bound; then held (not timed) at K2_ALIBI_EXTRA:
+    windows at offsets and 40 heads (the slopes' non-power-of-two branch)."""
+    from dgq_tpu_torch.ops.attention import int8_prefill_attention, int8_prefill_attention_xla
+
+    b, h, sp, dh, plen = BATCH, 32, PROMPT, 128, PROMPT
+    q, kt, v, (qs, ks, vs) = _attn_inputs(torch, gen, b, h, h, sp, dh, SMAX)
+    slopes = _alibi_slopes(h)
+
+    def kern():
+        return int8_prefill_attention(q, kt, v, plen, qs, ks, vs, 0, alibi_slopes=slopes)
+
+    def twin():
+        return int8_prefill_attention(q, kt, v, plen, qs, ks, vs, 0)
+
+    def plain():
+        return int8_prefill_attention_xla(q, kt, v, plen, qs, ks, vs, 0, alibi_slopes=slopes)
+
+    out_p = plain()
+    err, ref_max = (kern() - out_p).abs().max().item(), out_p.abs().max().item()
+    if not err <= 3e-4 * ref_max:
+        raise AssertionError(f"K2 ALiBi: max abs err {err} > 3e-4 * {ref_max}")
+    pos = torch.arange(plen, device=DEV)
+    lib = _sdpa_bias_ms(torch, timer, q, kt, v, (qs, ks, vs), pos, pos,
+                        (pos[None, :] <= pos[:, None])[None], slopes)
+    pairs = sp * (sp + 1) // 2
+    flops = 2.0 * dh * b * h * pairs
+    nbytes = b * h * sp * dh + 2 * b * h * plen * dh + 4 * b * h * sp * dh + 4 * h
+    b_ms, b_by = bound_ms(nbytes, flops / INT8_OPS_PER_S, 2 * flops / FP16_OPS_PER_S)
+    cases = [{"B": b, "H": h, "Hkv": h, "Sp": sp, "Smax": SMAX, "plen": plen, "alibi": True,
+              "max_abs_err": err, "ref_max": ref_max,
+              "ms": timer.kernel(kern, K2_ALIBI_NAMES), "twin_ms": timer.kernel(twin,
+                                                                                K2_PLAIN_NAMES),
+              "events_ms": timer.events(kern), "twin_events_ms": timer.events(twin),
+              "call_ms": timer(kern), "plain_ms": timer(plain, iters=10), **lib,
+              "bound_ms": b_ms, "bound_by": b_by}]
+    del q, kt, v
+    for bx, hx, sx, smax, plen_x, off in K2_ALIBI_EXTRA:
+        q, kt, v, (qs, ks, vs) = _attn_inputs(torch, gen, bx, hx, hx, sx, dh, smax)
+        sl = _alibi_slopes(hx)
+        got = int8_prefill_attention(q, kt, v, plen_x, qs, ks, vs, off, alibi_slopes=sl)
+        want = int8_prefill_attention_xla(q, kt, v, plen_x, qs, ks, vs, off, alibi_slopes=sl)
+        rows = slice(0, plen_x - off)  # rows past the window's end are padding
+        err = (got[:, :, rows] - want[:, :, rows]).abs().max().item()
+        ref_max = want[:, :, rows].abs().max().item()
+        if not err <= 3e-4 * ref_max:
+            raise AssertionError(f"K2 ALiBi {(bx, hx, sx, smax, plen_x, off)}: max abs err {err} "
+                                 f"> 3e-4 * {ref_max}")
+        cases.append({"B": bx, "H": hx, "Sp": sx, "Smax": smax, "plen": plen_x, "q_offset": off,
+                      "alibi": True, "extra": True, "max_abs_err": err, "ref_max": ref_max})
+        del q, kt, v, got, want
+    return cases
+
+
+# K2 with ALiBi held (not timed): (B, H, Sp, Smax, prompt_len, q_offset), MHA at Dh 128: a
+# serving chunk at an offset off the 64-row grid, a chunk far into the cache, and 40 heads
+# (slopes past the largest power of two) from position 0 and at an offset
+K2_ALIBI_EXTRA = ((1, 32, 512, 2048, 700, 300), (1, 32, 256, 2048, 1900, 1700),
+                  (2, 40, 256, 2048, 256, 0), (1, 40, 512, 2048, 1500, 1000))
+# K3 with ALiBi: lengths of 1 to the whole cache at batch 4
+K3_ALIBI_LENGTHS = (1, 700, 1501, SMAX)
+
+
+def _k3_alibi_cases(torch, timer, gen):
+    """K3's ALiBi kernel at batch 4, cache 2048, lengths K3_ALIBI_LENGTHS,
+    MHA and GQA 4:1 (BLOOM's slopes of 32 heads), fp p @ V (the ALiBi
+    engines') and quant_pv: held against its plain version within K3's gates
+    at the plan's cluster and at every cluster of DECODE_CLUSTERS, timed
+    beside K3 without ALiBi on the same inputs (``twin_ms``), the plain
+    version, bf16 SDPA with the bias as an additive mask and the bound."""
+    from dgq_tpu_torch.ops import attention as att
+
+    cases = []
+    h, dh = 32, 128
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    slopes = _alibi_slopes(h)
+    for hk in (32, 8):
+        q, kt, v, (qs, ks, vs) = _attn_inputs(torch, gen, BATCH, h, hk, 1, dh, SMAX)
+        q = q[:, :, 0].contiguous()
+        lengths = torch.tensor(K3_ALIBI_LENGTHS, dtype=torch.int32, device=DEV)
+        scales = att._kernel_scales(qs, ks, vs, dh, True)
+        for quant_pv in (False, True):
+            def kern():
+                return att.int8_decode_attention(q, kt, v, lengths, qs, ks, vs,
+                                                 quant_pv=quant_pv, alibi_slopes=slopes)
+
+            def twin():
+                return att.int8_decode_attention(q, kt, v, lengths, qs, ks, vs,
+                                                 quant_pv=quant_pv)
+
+            def plain():
+                return att.int8_decode_attention_xla(q, kt, v, lengths, qs, ks, vs,
+                                                     quant_pv=quant_pv, alibi_slopes=slopes)
+
+            what = f"K3 ALiBi Hkv={hk} quant_pv={quant_pv}"
+            out_p = plain()
+            err = _check_k3(torch, what, kern(), out_p, quant_pv)
+            for c in att.DECODE_CLUSTERS:
+                _check_k3(torch, f"{what} cluster {c}",
+                          att._decode_launch(q, kt, v, lengths, scales, quant_pv, c, slopes),
+                          out_p, quant_pv)
+            pos = torch.arange(SMAX, device=DEV)
+            lib = _sdpa_bias_ms(torch, timer, q[:, :, None], kt, v, (qs, ks, vs), pos, pos,
+                                (pos[None, :] < lengths[:, None])[:, None], slopes)
+            b_ms, b_by = _decode_bound(BATCH, h, hk, dh, int(lengths.sum().item()), quant_pv,
+                                       extra_bytes=4 * h)
+            cases.append({"B": BATCH, "H": h, "Hkv": hk, "Smax": SMAX,
+                          "lengths": list(K3_ALIBI_LENGTHS), "quant_pv": quant_pv,
+                          "alibi": True, "max_abs_err": err,
+                          "cluster": att.decode_plan(BATCH, hk, h // hk, dh, SMAX, sms),
+                          "clusters_held": list(att.DECODE_CLUSTERS),
+                          "ms": timer.kernel(kern, K3_ALIBI_NAMES),
+                          "twin_ms": timer.kernel(twin, K3_NAMES), "call_ms": timer(kern),
+                          "plain_ms": timer(plain, iters=10), **lib, "bound_ms": b_ms,
+                          "bound_by": b_by})
         del q, kt, v
     return cases
 
@@ -1634,6 +1827,68 @@ def _k7_cases(torch, timer, gen):
     return cases
 
 
+# K7 with ALiBi: (B, H, Hkv, lengths, quant_pv) at main_long's cache of 16384 positions
+K7_ALIBI_CASES = ((BATCH, 32, 32, K7_LENGTHS, False), (BATCH, 32, 32, K7_LENGTHS, True),
+                  (BATCH, 32, 8, K7_LENGTHS, False))
+
+
+def _k7_alibi_cases(torch, timer, gen):
+    """K7's ALiBi kernel (K3's body with the bias policy Alibi) at a cache of
+    LONG_SMAX positions: held against its plain version within 1e-5 at every
+    plan of ``chunked_candidates``, timed at ``chunked_plan``'s beside K7
+    without ALiBi on the same inputs (``twin_ms``), the plain version, bf16
+    SDPA with the bias as an additive mask and the bound."""
+    from dgq_tpu_torch.ops import attention as att
+
+    cases = []
+    dh = 128
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for b, h, hk, lens, quant_pv in K7_ALIBI_CASES:
+        q, kt, v, (qs, ks, vs) = _attn_inputs(torch, gen, b, h, hk, 1, dh, LONG_SMAX)
+        q = q[:, :, 0].contiguous()
+        lengths = torch.tensor(lens, dtype=torch.int32, device=DEV)
+        slopes = _alibi_slopes(h)
+        chunk = att.auto_decode_chunk(LONG_SMAX)
+
+        def kern():
+            return att.int8_decode_attention_chunked(q, kt, v, lengths, qs, ks, vs, chunk=chunk,
+                                                     quant_pv=quant_pv, alibi_slopes=slopes)
+
+        def twin():
+            return att.int8_decode_attention_chunked(q, kt, v, lengths, qs, ks, vs, chunk=chunk,
+                                                     quant_pv=quant_pv)
+
+        def plain():
+            return att.int8_decode_attention_xla(q, kt, v, lengths, qs, ks, vs,
+                                                 quant_pv=quant_pv, alibi_slopes=slopes)
+
+        what = f"K7 ALiBi B={b} Hkv={hk} quant_pv={quant_pv}"
+        out_p = plain()
+        err = _check_close(what, kern(), out_p)
+        scales = att._kernel_scales(qs, ks, vs, dh, True)
+        plans = att.chunked_candidates(hk, h // hk, dh, LONG_SMAX)
+        for plan in plans:
+            _check_close(f"{what} {plan}", att._chunked_launch(q, kt, v, lengths, scales,
+                                                               quant_pv, plan, slopes), out_p)
+        n = max(lens)
+        pos = torch.arange(n, device=DEV)
+        lib = _sdpa_bias_ms(torch, timer, q[:, :, None], kt, v, (qs, ks, vs), pos, pos,
+                            (pos[None, :] < lengths[:, None])[:, None], slopes)
+        b_ms, b_by = _decode_bound(b, h, hk, dh, sum(lens), quant_pv, extra_bytes=4 * h)
+        cases.append({"B": b, "H": h, "Hkv": hk, "Smax": LONG_SMAX, "chunk": chunk,
+                      "lengths": list(lens), "quant_pv": quant_pv, "alibi": True,
+                      "max_abs_err": err,
+                      "plan": att.chunked_plan(b, hk, h // hk, dh, LONG_SMAX, sms)._asdict(),
+                      "plans_held": [p._asdict() for p in plans],
+                      "ms": timer.kernel(kern, K7_ALIBI_NAMES),
+                      "twin_ms": timer.kernel(twin, K7_NAMES), "events_ms": timer.events(kern),
+                      "twin_events_ms": timer.events(twin), "call_ms": timer(kern),
+                      "plain_ms": timer(plain, iters=5), **lib, "bound_ms": b_ms,
+                      "bound_by": b_by})
+        del q, kt, v
+    return cases
+
+
 def _paged_table(lengths, npg, seed):
     """A (slots, npg) int32 table of distinct shuffled pool pages 1.. for the
     pages each length needs; the entries past them point at null page 0."""
@@ -1863,10 +2118,13 @@ def phase_kernels(torch, state):
     state["k2"] = _k2_cases(torch, timer, gen)
     k2_extra = _k2_extra_cases(torch, gen)
     state["k3"] = _k3_cases(torch, timer, gen)
+    state["k2_alibi"] = _k2_alibi_cases(torch, timer, gen)
+    state["k3_alibi"] = _k3_alibi_cases(torch, timer, gen)
     state.update(_fused_cases(torch, timer, gen))
     k45 = _rowpair_gemv_checks(torch, gen)
     sweep = _fused_sweep(torch, gen)
     state["k7"] = _k7_cases(torch, timer, gen)
+    state["k7_alibi"] = _k7_alibi_cases(torch, timer, gen)
     state["k8"] = _k8_cases(torch, timer, gen)
     state["k9"] = _k9_cases(torch, timer, gen)
     state["k10"] = _k10_cases(torch, timer, gen)
@@ -1877,7 +2135,9 @@ def phase_kernels(torch, state):
     del timer
     torch.cuda.empty_cache()
     hold = _plan_hold(torch)
-    return {**{f"k{i}": state[f"k{i}"] for i in range(1, 13)}, "k2_checks": k2_extra,
+    return {**{f"k{i}": state[f"k{i}"] for i in range(1, 13)},
+            **{k: state[k] for k in ("k2_alibi", "k3_alibi", "k7_alibi")},
+            "k2_checks": k2_extra,
             "k4_k5_checks": k45, "k6_sweep": sweep, "k12_sweep": sweep12, "plan_hold": hold,
             "k8_k11_page_checks": page_checks}
 
@@ -2233,27 +2493,11 @@ def _span_speculative(torch, ecfg, eng, prompt):
 
 
 def _opt_greedy(torch, ecfg, eng, prompts, new_tokens, smax):
-    """Prefill then greedy decode through opt_engine_forward: (tokens (B,
-    new_tokens), cache, finite logits, prefill ms, decode ms per step)."""
+    """``_greedy`` through opt_engine_forward in a cache of ``smax``."""
     from dgq_tpu_torch.models.opt_engine import init_opt_kv_cache, opt_engine_forward
 
-    cache = init_opt_kv_cache(ecfg.cfg, prompts.shape[0], smax, device=DEV)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    logits, cache = opt_engine_forward(ecfg, eng, prompts, cache)
-    tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
-    finite = bool(torch.isfinite(logits).all())
-    prefill_ms = (time.perf_counter() - t0) * 1e3
-    toks = [tok]
-    t0 = time.perf_counter()
-    for _ in range(new_tokens - 1):
-        logits, cache = opt_engine_forward(ecfg, eng, tok[:, None], cache)
-        finite &= bool(torch.isfinite(logits).all())
-        tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
-        toks.append(tok)
-    torch.cuda.synchronize()
-    decode_ms = (time.perf_counter() - t0) * 1e3 / max(1, new_tokens - 1)
-    return torch.stack(toks, dim=1), cache, finite, prefill_ms, decode_ms
+    return _greedy(torch, opt_engine_forward, ecfg, eng, prompts,
+                   init_opt_kv_cache(ecfg.cfg, prompts.shape[0], smax, device=DEV), new_tokens)
 
 
 def phase_opt(torch, state):
@@ -2340,6 +2584,193 @@ def phase_opt(torch, state):
                            "launches": ppl_launches}}
 
 
+def _family(arch):
+    """(config, engine config, builder, forward, cache init) of the ALiBi
+    engine ``arch`` at its published widths: BLOOM-7B1 or MPT-7B."""
+    from dgq_tpu_torch.models import bloom_engine, mpt_engine, synthetic
+    from dgq_tpu_torch.models.bloom import BloomConfig
+    from dgq_tpu_torch.models.mpt import MPTConfig
+
+    if arch == "bloom":
+        cfg = BloomConfig()
+        return (cfg, bloom_engine.BloomEngineConfig(cfg=cfg), synthetic.build_bloom_engine,
+                bloom_engine.bloom_engine_forward, bloom_engine.init_bloom_kv_cache)
+    cfg = MPTConfig()
+    return (cfg, mpt_engine.MPTEngineConfig(cfg=cfg), synthetic.build_mpt_engine,
+            mpt_engine.mpt_engine_forward, mpt_engine.init_mpt_kv_cache)
+
+
+def _greedy(torch, forward, ecfg, eng, prompts, cache, new_tokens):
+    """Prefill then greedy decode through ``forward``: (tokens (B,
+    new_tokens), cache, finite logits, prefill ms, decode ms per step)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = forward(ecfg, eng, prompts, cache)
+    tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+    finite = bool(torch.isfinite(logits).all())
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    toks = [tok]
+    t0 = time.perf_counter()
+    for _ in range(new_tokens - 1):
+        logits, cache = forward(ecfg, eng, tok[:, None], cache)
+        finite &= bool(torch.isfinite(logits).all())
+        tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+        toks.append(tok)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / max(1, new_tokens - 1)
+    return torch.stack(toks, dim=1), cache, finite, prefill_ms, decode_ms
+
+
+def _profiled_launches(torch, run, groups, want, attempts: int = 4):
+    """``run()`` under torch.profiler: its result and each group's kernel
+    launches by the profiler's names (``groups`` {label: names}), the most
+    of each group over the traces taken, which must equal ``want`` {label:
+    n}.  A trace loses records now and then (once one K2 launch of 32 in
+    each of three traces), never adds one: a group short of its
+    count is traced again, up to ``attempts`` runs; one over it fails."""
+    best = {g: 0 for g in groups}
+    for _ in range(attempts):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            out = run()
+            torch.cuda.synchronize()
+        seen = {g: 0 for g in groups}
+        for e in prof.key_averages():
+            for g, names in groups.items():
+                if any(n in e.key for n in names):
+                    seen[g] += e.count
+        best = {g: max(best[g], seen[g]) for g in groups}
+        if any(best[g] > want[g] for g in groups):
+            break
+        if best == want:
+            return out, best
+    raise AssertionError(f"the profiler saw launches {best}, not {want}")
+
+
+def _family_teacher_forced(torch, forward, init_cache, ecfg, eng, prompts, steps):
+    """Prefill, then one forward per column of ``steps``."""
+    cache = init_cache(ecfg.cfg, prompts.shape[0], SMAX, device=DEV)
+    logits, cache = forward(ecfg, eng, prompts, cache)
+    out = [logits]
+    for i in range(steps.shape[1]):
+        logits, cache = forward(ecfg, eng, steps[:, i:i + 1], cache)
+        out.append(logits)
+    return out, {"k": cache.k, "v": cache.v}
+
+
+def _drive_family(torch, state, arch):
+    """An ALiBi engine at its published width and depth, random weights from
+    seed 0: prefill of BATCH x PROMPT tokens and NEW_TOKENS greedy tokens in
+    a cache of SMAX, every kernel's launches counted (K9 for every linear, K2
+    with ALiBi at the prefill, K3 with ALiBi at every decode step, nothing
+    else), the ALiBi kernels also by the profiler's names; a timed replay
+    (prefill ms, decode ms a step), a profiled decode step, the peak
+    memory; then the kernel path against the plain path under teacher
+    forcing with the run's own tokens (8 steps, full depth, the parity
+    phase's code agreement)."""
+    import numpy as np
+
+    from dgq_tpu_torch.ops import _cuda
+
+    cfg, ecfg, build, forward, init_cache = _family(arch)
+    layers = cfg.num_hidden_layers
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = build(cfg, seed=0, device=DEV)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(BATCH, PROMPT)).astype(np.int32)).to(DEV)
+
+    def run():
+        return _greedy(torch, forward, ecfg, eng, prompts, init_cache(cfg, BATCH, SMAX, DEV),
+                       NEW_TOKENS)
+
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    (toks, _, finite, _, _), seen = _profiled_launches(
+        torch, run, {"K2": K2_ALIBI_NAMES, "K3": K3_ALIBI_NAMES},
+        {"K2": layers, "K3": layers * (NEW_TOKENS - 1)})
+    gen_s = time.perf_counter() - t0
+    launches = dict(_cuda.LAUNCHES)
+    want = {name: 0 for name in SOURCES_OF}
+    # the launch-counted run went through the profiler up to three times
+    runs = launches["int8_prefill_attention_alibi"] // layers
+    want.update({"w4a8_matmul_packed": 4 * layers * NEW_TOKENS * runs,
+                 "int8_prefill_attention_alibi": layers * runs,
+                 "int8_decode_attention_alibi": layers * (NEW_TOKENS - 1) * runs})
+    if launches != want or runs < 1:
+        raise AssertionError(f"launches {launches} != {want}")
+    launches = {k: v // runs for k, v in launches.items()}
+    if toks.shape != (BATCH, NEW_TOKENS) or not finite:
+        raise AssertionError(f"tokens {tuple(toks.shape)}, finite logits {finite}")
+    if not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        raise AssertionError("token out of range")
+
+    replay, cache, finite, prefill_ms, decode_ms = run()  # the same path, timed
+    if not torch.equal(replay, toks) or not finite:
+        raise AssertionError("the timed replay's tokens differ from the counted run's")
+    prof = {"tok": toks[:, -1], "cache": cache}
+
+    def step():
+        logits, prof["cache"] = forward(ecfg, eng, prof["tok"][:, None], prof["cache"])
+        prof["tok"] = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+
+    breakdown = _profile_steps(torch, step, 4, ("K3", K3_ALIBI_NAMES), ("K9", K9_NAMES))
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    del cache, prof
+    torch.cuda.empty_cache()
+    parity = _parity(torch, lambda: _family_teacher_forced(
+        torch, forward, init_cache, ecfg, eng, prompts, toks[:, :8]), tokens=True)
+    out = {"arch": arch, "layers": layers, "hidden": cfg.hidden_size,
+           "heads": cfg.num_attention_heads, "vocab": cfg.vocab_size, "batch": BATCH,
+           "prompt": PROMPT, "new_tokens": NEW_TOKENS, "max_len": SMAX, "launches": launches,
+           "profiler_launches": seen, "engine_build_s": build_s, "generate_s": gen_s,
+           "prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
+           "decode_tok_per_s": BATCH * 1e3 / decode_ms, "peak_gib": peak_gb,
+           "decode_step_breakdown": breakdown, "tokens_row0": toks[0].tolist(),
+           "teacher_forced_parity": {"steps": 8, **parity}}
+    if arch == "mpt":  # past DECODE_SHORT_SMAX: K7 with ALiBi at every decode step
+        def long_run():
+            return _greedy(torch, forward, ecfg, eng, prompts,
+                           init_cache(cfg, BATCH, LONG_SMAX, DEV), LONG_NEW)
+
+        _cuda.reset_launches()
+        (ltoks, _, lfinite, lprefill, ldecode), lseen = _profiled_launches(
+            torch, long_run, {"K2": K2_ALIBI_NAMES, "K7": K7_ALIBI_NAMES},
+            {"K2": layers, "K7": layers * (LONG_NEW - 1)})
+        long_launches = dict(_cuda.LAUNCHES)
+        lruns = long_launches["int8_prefill_attention_alibi"] // layers
+        lwant = {name: 0 for name in SOURCES_OF}
+        lwant.update({"w4a8_matmul_packed": 4 * layers * LONG_NEW * lruns,
+                      "int8_prefill_attention_alibi": layers * lruns,
+                      "int8_decode_attention_chunked_alibi": layers * (LONG_NEW - 1) * lruns})
+        if long_launches != lwant or not lfinite or lruns < 1:
+            raise AssertionError(f"long-context launches {long_launches} != {lwant}")
+        long_launches = {k: v // lruns for k, v in long_launches.items()}
+        state["launches_mpt_long"] = long_launches
+        out["long"] = {"max_len": LONG_SMAX, "new_tokens": LONG_NEW, "launches": long_launches,
+                       "profiler_launches": lseen, "prefill_ms": lprefill,
+                       "decode_ms_per_step": ldecode, "tokens_row0": ltoks[0].tolist()}
+    del eng
+    torch.cuda.empty_cache()
+    state[f"launches_{arch}"] = launches
+    return out
+
+
+def phase_main_bloom(torch, state):
+    """BLOOM-7B1 (``BloomConfig()``: 30 layers, hidden 4096, 32 heads, vocab
+    250880) at full width and depth: ``_drive_family``."""
+    return _drive_family(torch, state, "bloom")
+
+
+def phase_main_mpt(torch, state):
+    """MPT-7B (``MPTConfig()``: 32 layers, d_model 4096, 32 heads, ffn 16384,
+    vocab 50368) at full width and depth: ``_drive_family``, then a cache of
+    LONG_SMAX positions (K7 with ALiBi at every decode step)."""
+    return _drive_family(torch, state, "mpt")
+
+
 def _serve_requests(cfg):
     """The serve phase's requests, from seed 0: prompts of 100-1500 tokens,
     every third one (8 of 24) starting with the registered prefix; every
@@ -2419,7 +2850,7 @@ def _drive_socket(srv, reqs, cancel_uid, hold=False):
 
 
 def _serve_daemon(torch, cfg, flags, reqs, prefix, cancel_uid, forward, verify=None,
-                  hold=False, fp_scales=False):
+                  hold=False, fp_scales=False, build=None, arch="llama", direct=None):
     """save_engine of the full-width engine of seed 0 (with fp32 group scales
     under ``fp_scales``), then
     ``dgq_tpu_torch.serve.build_server`` with ``flags`` and the registered
@@ -2429,7 +2860,10 @@ def _serve_daemon(torch, cfg, flags, reqs, prefix, cancel_uid, forward, verify=N
     verification forward, if any.  Gates what every served run must show (no
     recovery, the cancel, SERVE_NEW tokens, streams equal to outputs, the
     prefix hits) and returns the parsed args, the server's batcher and the
-    run's record."""
+    run's record.  ``build(cfg, seed, device)`` makes another family's
+    engine, saved under ``arch``; ``direct(ckpt, args)`` runs after the
+    server has closed, on the checkpoint, and its result is the record's
+    "direct"."""
     import tempfile
 
     from dgq_tpu_torch import serve
@@ -2441,10 +2875,13 @@ def _serve_daemon(torch, cfg, flags, reqs, prefix, cancel_uid, forward, verify=N
     build_dir.mkdir(parents=True, exist_ok=True)
     tmp = Path(tempfile.mkdtemp(dir=build_dir))
     try:
-        eng = build_llama_engine(cfg, seed=0, device=DEV, fp_scales=fp_scales)
+        if build is None:
+            eng = build_llama_engine(cfg, seed=0, device=DEV, fp_scales=fp_scales)
+        else:
+            eng = build(cfg, seed=0, device=DEV)
         ckpt = str(tmp / "engine.safetensors")
         t0 = time.perf_counter()
-        checkpoint.save_engine(ckpt, eng, cfg)
+        checkpoint.save_engine(ckpt, eng, cfg, arch=arch)
         save_s = time.perf_counter() - t0
         del eng
         torch.cuda.empty_cache()
@@ -2488,6 +2925,7 @@ def _serve_daemon(torch, cfg, flags, reqs, prefix, cancel_uid, forward, verify=N
             for mod, name, fn in saved:
                 setattr(mod, name, fn)
             checkpoint.load_engine = real_load
+        direct_out = direct(ckpt, args) if direct is not None else None
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2520,6 +2958,8 @@ def _serve_daemon(torch, cfg, flags, reqs, prefix, cancel_uid, forward, verify=N
                   "uid": cancel_uid, "tokens": len(cancelled["output_ids"])}}
     if verify:
         record["verify_forwards"] = forwards["verify"]
+    if direct is not None:
+        record["direct"] = direct_out
     return args, batcher, served, cancelled["output_ids"], record
 
 
@@ -2529,7 +2969,8 @@ def _check_attention_launches(launches, name, per_forward):
     if launches[name] != per_forward:
         raise AssertionError(f"{name} launches {launches[name]} != {per_forward}")
     for other in ("int8_decode_attention", "int8_decode_attention_chunked",
-                  "int8_paged_decode_attention", "int4_paged_decode_attention"):
+                  "int8_paged_decode_attention", "int4_paged_decode_attention",
+                  "int8_decode_attention_alibi", "int8_decode_attention_chunked_alibi"):
         if other != name and launches[other]:
             raise AssertionError(f"{other} launched {launches[other]} times beside {name}")
 
@@ -2626,11 +3067,11 @@ def phase_serve(torch, state):
     rec["cancelled"]["prefix_of_direct_run"] = (
         want[cancel_uid][:len(cancelled)] == cancelled)
 
-    # not gated: the dense engine on each request alone, and the index of
-    # the first token where it differs (0: the prefill's token)
+    # not gated: the dense engine on each of the first ALONE_REQUESTS requests alone, and
+    # the index of the first token where it differs (0: the prefill's token)
     first_diff = []
     t0 = time.perf_counter()
-    for uid, r in enumerate(reqs):
+    for uid, r in enumerate(reqs[:ALONE_REQUESTS]):
         prompt = torch.from_numpy(r["prompt_ids"][None]).to(DEV)
         alone = generate(EngineConfig(cfg=cfg), params, prompt, SERVE_NEW, args.max_len)[0]
         first_diff.append(next((i for i, (a, b) in enumerate(zip(alone.tolist(), want[uid]))
@@ -2638,7 +3079,7 @@ def phase_serve(torch, state):
     alone_s = time.perf_counter() - t0
     state["launches_serve"] = rec["launches"]
     return {**rec, **tail,
-            "alone_generate_share_equal": first_diff.count(None) / len(reqs),
+            "alone_generate_share_equal": first_diff.count(None) / len(first_diff),
             "alone_generate_first_diff": first_diff, "alone_generate_s": alone_s}
 
 
@@ -2793,6 +3234,65 @@ def phase_serve_fpscale(torch, state):
     torch.cuda.empty_cache()
     state["launches_serve_fpscale"] = launches
     return {**rec, "direct_run_s": direct_s, "served_equal_direct": True}
+
+
+def phase_serve_family(torch, state):
+    """The dense daemon (``serve`` with ``--admit-batch 1``: OPT's and the
+    ALiBi families' batchers take one prompt a prefill, as JAX's) on a
+    ``save_engine`` checkpoint of OPT-6.7B, then of MPT-7B, at full width
+    and depth: 8 slots, the first SERVE_DENSE of phase serve's requests, the
+    registered prefix, one streaming request cancelled.  The served tokens
+    must equal a direct ``batcher_from_checkpoint(...).run()`` of the same
+    requests on the same checkpoint; the decode attention (K3 for OPT, K3
+    with ALiBi for MPT) runs once per layer of every decode forward, K9 for
+    every linear, K2 with ALiBi at MPT's prefill chunks."""
+    from dgq_tpu_torch.models.mpt import MPTConfig
+    from dgq_tpu_torch.models.opt import OPTConfig
+    from dgq_tpu_torch.models.synthetic import build_mpt_engine, build_opt_engine
+    from dgq_tpu_torch.serving import family_batch_engine, opt_batch_engine
+
+    out, total = {}, {name: 0 for name in SOURCES_OF}
+    for arch, cfg, build, forward, attn in (
+            ("opt", OPTConfig(), build_opt_engine, (opt_batch_engine, "opt_decode_batched"),
+             "int8_decode_attention"),
+            ("mpt", MPTConfig(), build_mpt_engine,
+             (family_batch_engine, "_family_decode_batched"), "int8_decode_attention_alibi")):
+        prefix, reqs = _serve_requests(cfg)
+        reqs = reqs[:SERVE_DENSE]
+
+        def direct(ckpt, args):
+            def make():
+                return family_batch_engine.batcher_from_checkpoint(
+                    ckpt, device=DEV, num_slots=args.slots, max_len=args.max_len,
+                    prefill_pad=min(args.prefill_pad, args.max_len),
+                    prefill_chunk=args.prefill_chunk)[1]
+
+            b, want, seconds = _direct_run(torch, make, prefix, reqs)
+            del b
+            torch.cuda.empty_cache()
+            return want, seconds
+
+        args, batcher, served, _, rec = _serve_daemon(
+            torch, cfg, ["--admit-batch", "1"], reqs, prefix, 1, forward, build=build,
+            arch=arch, direct=direct)
+        if type(batcher).__name__ != "ContinuousBatcher" or batcher._f is None:
+            raise AssertionError(f"the {arch} daemon runs {type(batcher).__name__} without fns")
+        del batcher
+        torch.cuda.empty_cache()
+        want, direct_s = rec.pop("direct")
+        _check_equal(f"a direct batcher_from_checkpoint(...).run() of {arch}", served, want)
+        launches = rec["launches"]
+        _check_attention_launches(launches, attn, cfg.num_hidden_layers * rec["decode_forwards"])
+        prefill_k2 = launches["int8_prefill_attention_alibi"]
+        if not launches["w4a8_matmul_packed"] or (prefill_k2 > 0) != (arch == "mpt") or any(
+                launches[n] for n in ("int8_prefill_attention", "w4a8_matmul_rp_pipe",
+                                      *ROWPAIR_FUSED, *K12_NAMES)):
+            raise AssertionError(f"the {arch} daemon's launches: {launches}")
+        for name, n in launches.items():
+            total[name] += n
+        out[arch] = {**rec, "direct_run_s": direct_s, "served_equal_direct": True}
+    state["launches_serve_family"] = total
+    return out
 
 
 def phase_serve_spec(torch, state):
@@ -2992,7 +3492,7 @@ class _CodeRecorder:
     def __enter__(self):
         import torch
 
-        from dgq_tpu_torch.models import engine, opt_engine
+        from dgq_tpu_torch.models import bloom_engine, engine, mpt_engine, opt_engine
         from dgq_tpu_torch.ops import fused_decode
         from dgq_tpu_torch.serving import paged
 
@@ -3002,7 +3502,7 @@ class _CodeRecorder:
         self.saved = [(engine, n, getattr(engine, n))
                       for n in ("_rms_norm_q", "_requant", "quantize_kv4")]
         self.saved += [(paged, n, getattr(paged, n)) for n in ("_requant", "quantize_kv4")]
-        self.saved += [(opt_engine, n, getattr(opt_engine, n))
+        self.saved += [(mod, n, getattr(mod, n)) for mod in (opt_engine, bloom_engine, mpt_engine)
                        for n in ("_layer_norm_q", "_linear_s8_int8out", "_requant")]
         if self.force is None:
             self.saved += [(engine, n, getattr(engine, n)) for n in self.FUSED_CODES]
@@ -3052,7 +3552,7 @@ class _PlainPath:
     exit."""
 
     def __enter__(self):
-        from dgq_tpu_torch.models import engine, opt_engine
+        from dgq_tpu_torch.models import bloom_engine, engine, opt_engine
         from dgq_tpu_torch.ops import attention, fused_decode, quant_matmul
         from dgq_tpu_torch.serving import paged
 
@@ -3066,6 +3566,10 @@ class _PlainPath:
                        ("int8_paged_decode_attention", "int4_paged_decode_attention")]
         self.saved += [(opt_engine, n, getattr(opt_engine, n)) for n in
                        ("w4a8_matmul_packed", "int8_decode_attention",
+                        "int8_decode_attention_chunked")]
+        # the ALiBi engines' attention (MPT's runs through bloom_engine's)
+        self.saved += [(bloom_engine, n, getattr(bloom_engine, n)) for n in
+                       ("int8_prefill_attention", "int8_decode_attention",
                         "int8_decode_attention_chunked")]
 
         def k1(x, qw, ws, wz, alpha, beta=None, *, groupsize, scales_replicated):
@@ -3105,6 +3609,9 @@ class _PlainPath:
         engine.fused_requant_gemv = fused_decode.fused_requant_gemv_xla
         engine.fused_mlp_decode = k12_mlp
         engine.int8_decode_attention_chunked = opt_engine.int8_decode_attention_chunked = k7
+        bloom_engine.int8_prefill_attention = attention.int8_prefill_attention_xla
+        bloom_engine.int8_decode_attention = attention.int8_decode_attention_xla
+        bloom_engine.int8_decode_attention_chunked = k7
         paged.int8_paged_decode_attention = attention.int8_paged_decode_attention_xla
         paged.int4_paged_decode_attention = attention.int4_paged_decode_attention_xla
         return self
@@ -3164,22 +3671,13 @@ def _paged_teacher_forced(torch, ecfg, eng, prompts, steps):
     return out, _codes(ecfg, cache.kt, cache.v)
 
 
-def _opt_teacher_forced(torch, ecfg, eng, prompts, steps):
-    """OPT: prefill, then one forward per column of ``steps``."""
-    from dgq_tpu_torch.models.opt_engine import init_opt_kv_cache, opt_engine_forward
-
-    cache = init_opt_kv_cache(ecfg.cfg, prompts.shape[0], SMAX, device=DEV)
-    logits, cache = opt_engine_forward(ecfg, eng, prompts, cache)
-    out = [logits]
-    for i in range(steps.shape[1]):
-        logits, cache = opt_engine_forward(ecfg, eng, steps[:, i:i + 1], cache)
-        out.append(logits)
-    return out, {"k": cache.k, "v": cache.v}
-
-
-def _parity(torch, run):
+def _parity(torch, run, tokens=False):
     """``run()`` -> (logits list, {name: int8 cache}) once on the kernel
-    path recording its codes, once on the plain path forced onto them."""
+    path recording its codes, once on the plain path forced onto them.
+    ``tokens``: also the greedy tokens of each forward's last position,
+    equal wherever the kernel path's top-two margin exceeds twice that
+    forward's largest logit difference (a near-tie is reported, not
+    gated)."""
     with _CodeRecorder() as rec_k:
         got, gc = run()
     with _PlainPath(), _CodeRecorder(force=rec_k) as rec_p:
@@ -3198,7 +3696,20 @@ def _parity(torch, run):
         d_max, eq = _code_stats(gc[name], rc[name])
         kv[name] = {"max_diff": d_max, "equal_share": eq}
         _check_codes(f"{name} cache", (d_max, eq))
-    return {"logits_max_abs_err": errs, "last_forward_max_abs_err": errs[-1],
+    tok = {}
+    if tokens:
+        same, ties = 0, 0
+        for g, r, e in zip(got, ref, errs):
+            top = torch.topk(g[:, -1], 2, dim=-1).values
+            near = (top[:, 0] - top[:, 1]) <= 2 * e
+            eq_tok = torch.argmax(g[:, -1], -1) == torch.argmax(r[:, -1], -1)
+            if bool((~eq_tok & ~near).any()):
+                raise AssertionError("the plain path's greedy tokens differ from the kernel "
+                                     "path's outside a near-tie")
+            same += int(eq_tok.sum())
+            ties += int((~eq_tok).sum())
+        tok = {"tokens_equal": same, "tokens_differ_at_near_ties": ties}
+    return {**tok, "logits_max_abs_err": errs, "last_forward_max_abs_err": errs[-1],
             "code_tensors": len(rec_p.stats), "code_max_diff": code_max,
             "code_min_equal_share": code_equal,
             "code_tensors_with_flips": sum(e < 1.0 for _, e in rec_p.stats), "cache": kv}
@@ -3210,7 +3721,8 @@ def phase_parity(torch, state):
     from dgq_tpu_torch.models.engine import EngineConfig
     from dgq_tpu_torch.models.llama import LlamaConfig
     from dgq_tpu_torch.models.opt import OPTConfig
-    from dgq_tpu_torch.models.opt_engine import OPTEngineConfig
+    from dgq_tpu_torch.models.opt_engine import OPTEngineConfig, init_opt_kv_cache, \
+        opt_engine_forward
     from dgq_tpu_torch.models.synthetic import build_llama_engine, build_opt_engine
 
     cfg = LlamaConfig(num_hidden_layers=2)
@@ -3251,8 +3763,9 @@ def phase_parity(torch, state):
     ocfg = OPTConfig(num_hidden_layers=2)
     opt_eng = build_opt_engine(ocfg, seed=2, device=DEV)
     oprompts, osteps = ids(PROMPT, ocfg.vocab_size), ids(8, ocfg.vocab_size)
-    out["opt"] = _parity(torch, lambda: _opt_teacher_forced(
-        torch, OPTEngineConfig(cfg=ocfg), opt_eng, oprompts, osteps))
+    out["opt"] = _parity(torch, lambda: _family_teacher_forced(
+        torch, opt_engine_forward, init_opt_kv_cache, OPTEngineConfig(cfg=ocfg), opt_eng,
+        oprompts, osteps))
     del opt_eng
     torch.cuda.empty_cache()
     return out
@@ -3701,6 +4214,13 @@ SOURCES_OF = {
                                "dgq_tpu/ops/attention.py:301"),
     "int8_decode_attention": ("dgq_tpu_torch/csrc/int8_decode_attention.cu",
                               "dgq_tpu/ops/attention.py:179"),
+    # K2's, K3's and K7's ALiBi instantiations (the TPU kernels' alibi_slopes operand)
+    "int8_prefill_attention_alibi": ("dgq_tpu_torch/csrc/int8_prefill_attention.cu",
+                                     "dgq_tpu/ops/attention.py:301"),
+    "int8_decode_attention_alibi": ("dgq_tpu_torch/csrc/int8_decode_attention.cu",
+                                    "dgq_tpu/ops/attention.py:179"),
+    "int8_decode_attention_chunked_alibi": (
+        "dgq_tpu_torch/csrc/long_decode_attention_alibi.cu", "dgq_tpu/ops/attention.py:542"),
     "fused_norm_gemv_rp": ("dgq_tpu_torch/csrc/fused_norm_gemv_rp.cu",
                            "dgq_tpu/ops/fused_decode.py:605"),
     "fused_requant_gemv_rp": ("dgq_tpu_torch/csrc/fused_requant_gemv_rp.cu",
@@ -3747,8 +4267,13 @@ ALSO_REPLACES = {"w4a8_matmul_packed": ["dgq_tpu/ops/quant_matmul.py:305",
 # the path whose launches each kernel's entry reports: K7 runs on main_long
 # only, K8 on the paged serving path only, K9 on the OPT engine, K10 on the
 # fp-scale LLaMA engine, K11 on paged serving with INT4 KV, K12 on span-only
-# storage, the probes' kernels on the probes' mains
+# storage, the probes' kernels on the probes' mains; K2's and K3's ALiBi
+# instantiations on BLOOM (main_bloom), K7's on MPT's cache of LONG_SMAX
+# (main_mpt)
 PATH_OF = {"int8_decode_attention_chunked": "launches_long",
+           "int8_prefill_attention_alibi": "launches_bloom",
+           "int8_decode_attention_alibi": "launches_bloom",
+           "int8_decode_attention_chunked_alibi": "launches_mpt_long",
            "int8_paged_decode_attention": "launches_serve",
            "w4a8_matmul_packed": "launches_opt",
            "w4a8_fpscale_matmul_packed": "launches_fpscale",
@@ -3760,7 +4285,8 @@ PATHS = {"main": "launches", "main_long": "launches_long", "serve": "launches_se
          "serve_kv4": "launches_serve_kv4", "serve_dense": "launches_serve_dense",
          "main_span": "launches_span", "serve_spec": "launches_serve_spec",
          "serve_fpscale": "launches_serve_fpscale", "probes": "launches_probes",
-         "bench": "launches_bench"}
+         "bench": "launches_bench", "main_bloom": "launches_bloom", "main_mpt": "launches_mpt",
+         "serve_family": "launches_serve_family"}
 LINE_PHASES = {"kernels", *PATHS}
 
 
@@ -3774,20 +4300,31 @@ def kernels_line(state):
     ``launches`` counts the kernel over the path that runs it (main; K7
     main_long; K8 serve; K9 opt; K10 main_fpscale; K11 serve_kv4; K12
     main_span; the probes' kernels the probes' mains), and
-    ``launches_by_path`` over each.  Every case is listed under ``cases``."""
+    ``launches_by_path`` over each.  K2's, K3's and K7's ALiBi instantiations
+    under their own names (``<name>_alibi``): BLOOM-7B1's prefill, K3 and K7
+    MHA with fp p @ V, each with ``twin_ms``, the kernel without ALiBi on
+    the same inputs; their launches over main_bloom (K2, K3) and main_mpt's
+    cache of LONG_SMAX (K7).  Every case is listed under ``cases``."""
     cases = {"w4a8_matmul_rp_pipe": state["k1"], "int8_prefill_attention": state["k2"],
              "int8_decode_attention": state["k3"], "fused_norm_gemv_rp": state["k4"],
              "fused_requant_gemv_rp": state["k5"], "fused_mlp_decode_rp": state["k6"],
              "int8_decode_attention_chunked": state["k7"],
              "int8_paged_decode_attention": state["k8"],
              "w4a8_matmul_packed": state["k9"], "w4a8_fpscale_matmul_packed": state["k10"],
-             "int4_paged_decode_attention": state["k11"], **state["k12"], **state["probes"]}
+             "int4_paged_decode_attention": state["k11"], **state["k12"], **state["probes"],
+             "int8_prefill_attention_alibi": state["k2_alibi"],
+             "int8_decode_attention_alibi": state["k3_alibi"],
+             "int8_decode_attention_chunked_alibi": state["k7_alibi"]}
     head = {
         "int8_prefill_attention": state["k2"][0],
         "int8_decode_attention": state["k3"][0],
         "int8_decode_attention_chunked": state["k7"][0],
         "int8_paged_decode_attention": state["k8"][0],
         "int4_paged_decode_attention": state["k11"][0],
+        # the ALiBi engines' cases: BLOOM-7B1's prefill, K3 and K7 MHA with fp p @ V
+        "int8_prefill_attention_alibi": state["k2_alibi"][0],
+        "int8_decode_attention_alibi": state["k3_alibi"][0],
+        "int8_decode_attention_chunked_alibi": state["k7_alibi"][0],
     }
     for name in ("w4a8_matmul_rp_pipe", "w4a8_matmul_packed", "w4a8_fpscale_matmul_packed"):
         pre = [c for c in cases[name] if c["M"] == BATCH * PROMPT and not c.get("extra")]
@@ -3811,7 +4348,7 @@ def kernels_line(state):
                  "bound_by": h["bound_by"], "library_ms": h["library_ms"],
                  "library_device_ms": h["library_device_ms"],
                  "cases": cases[name]}
-        if "twin_ms" in h:  # K12: K4-K6 on the rowpair copy of the same bytes
+        if "twin_ms" in h:  # K12: K4-K6 on the rowpair copy; ALiBi: the kernel without it
             entry["twin_ms"] = h["twin_ms"]
         if name in ALSO_REPLACES:
             entry["also_replaces"] = ALSO_REPLACES[name]
@@ -3835,6 +4372,9 @@ PHASES = {
     "main_span": phase_main_span,
     "serve_spec": phase_serve_spec,
     "serve_fpscale": phase_serve_fpscale,
+    "main_bloom": phase_main_bloom,
+    "main_mpt": phase_main_mpt,
+    "serve_family": phase_serve_family,
     "parity": phase_parity,
     "checkpoint": phase_checkpoint,
     "bench": phase_bench,

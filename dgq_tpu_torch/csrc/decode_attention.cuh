@@ -5,7 +5,8 @@
 // (DenseKV), and paged_decode_attention.cu (K8, K11) over a page pool
 // (PagedKV), INT8 or INT4 nibble pages.  A rank keeps its scores and codes
 // in its block's shared memory, or (K7, where its plan says so) in a
-// device-memory scratch: the scores policy.
+// device-memory scratch: the scores policy.  K3's and K7's ALiBi kernels
+// add slope x position to the scaled scores: the bias policy.
 //
 #pragma once
 
@@ -247,6 +248,33 @@ struct LongScores {
   }
 };
 
+// K7's address (long_decode_attention.cu and its ALiBi kernels): the dense cache, with the grid's Hkv * split virtual kv
+// heads, virtual head g serving query heads g (rep / split) .. of kv head
+// g / split
+template <int DH>
+struct SplitKV : DenseKV<DH, true> {
+  int split;
+  __device__ __forceinline__ void start(int b, int g, int Hkv, int p0, int n, uint8_t* spare) {
+    DenseKV<DH, true>::start(b, g / split, Hkv / split, p0, n, spare);
+  }
+};
+
+// What a rank adds to its scaled scores: nothing (NoBias: K3, K7, K8, K11,
+// P5), or ALiBi (Alibi: K3's and K7's ALiBi kernels, BLOOM and MPT), the
+// slope of query head h times the absolute position, h = g REP + r for row
+// r of (virtual) kv head g: a virtual head of K7's split serves the query
+// heads g REP .. g REP + REP - 1, as the q and out rows it reads and writes.
+// The product and the sum are rounded one at a time, as the plain version
+// computes them (an fma would round once), so the scores are the plain
+// version's bit for bit.
+struct NoBias {
+  static constexpr bool ON = false;
+};
+struct Alibi {
+  static constexpr bool ON = true;
+  const float* slopes;  // (H,) f32, a slope a query head
+};
+
 // The slot of rank z in the order of the B slots' lengths, longest first
 // (ties: the lower index first), found by every block for itself.
 __device__ __forceinline__ int longest_first(const int* __restrict__ lengths, int z, int B) {
@@ -316,7 +344,8 @@ __device__ __forceinline__ int exp_code(float e) {
 // One block of the grid (C, Hkv, B) in clusters of C along x, under p @ V
 // rule RULE, its tiles found through `addr` (a DenseKV or a PagedKV; Smax is
 // the slot's positions, NP * ps for pages), its scores kept and its slot
-// chosen by `sc` (a SmemScores or a LongScores); K16: K copies of 16 bytes
+// chosen by `sc` (a SmemScores or a LongScores), its scores' bias by `bias` (a
+// NoBias or an Alibi); K16: K copies of 16 bytes
 // (Smax % 16 == 0 dense, ps % 16 == 0 paged), else of 4.  PROBE (P5): a
 // slot's length may be 0, and then every position scores finfo.min, so
 // every e is 1 over all Smax positions, and no K is read (K3's lengths are
@@ -324,12 +353,14 @@ __device__ __forceinline__ int exp_code(float e) {
 // into dims 4 dq .. 4 dq + 3, so q needs no permutation and the int32
 // scores equal the plain version's; fp p @ V only.  Each .cu wraps it in a
 // named kernel.
-template <int DH, int REP, int RULE, bool K16, bool PROBE, class Addr, class Sc = SmemScores>
+template <int DH, int REP, int RULE, bool K16, bool PROBE, class Addr, class Sc = SmemScores,
+          class Bias = NoBias>
 __device__ __forceinline__ void decode_attn_core(Addr addr, const int8_t* __restrict__ q,
                                                  const int* __restrict__ lengths,
                                                  const float* __restrict__ scales,
                                                  float* __restrict__ out, int Hkv, int Smax,
-                                                 int chmax, Sc sc = Sc{}) {
+                                                 int chmax, Sc sc = Sc{}, Bias bias = Bias{}) {
+  static_assert(!(PROBE && Bias::ON), "the probe takes no bias");
   constexpr bool QPV = int_rule(RULE);
   constexpr bool NIB = Addr::NIBBLES;
   static_assert(!NIB || RULE == PV_FP, "nibble pages take fp p @ V only");
@@ -471,7 +502,12 @@ __device__ __forceinline__ void decode_attn_core(Addr addr, const int8_t* __rest
         int s = 0;
 #pragma unroll
         for (int w = 0; w < NWARPS; ++w) s += sKP[(w * REP + r) * TT + j];
-        sS[r * chmax + t0 + j] = PROBE && empty ? NEG : __fmul_rn(static_cast<float>(s), qk_scale);
+        if constexpr (Bias::ON)
+          sS[r * chmax + t0 + j] =
+              __fadd_rn(__fmul_rn(static_cast<float>(s), qk_scale),
+                        __fmul_rn(__ldg(bias.slopes + g * REP + r), static_cast<float>(p0 + t0 + j)));
+        else
+          sS[r * chmax + t0 + j] = PROBE && empty ? NEG : __fmul_rn(static_cast<float>(s), qk_scale);
       }
     }
     issue(u + RING);

@@ -8,6 +8,10 @@
 // trunc(127 e + 0.5) (__fmul_rn/__fadd_rn: an fma would move codes across
 // the .5 boundary), p @ V is an exact integer sum and out = acc * ((v_scale
 // / 127) / denom); without it, out = sum e (v * v_scale) / denom in fp32.
+// With ALiBi (BLOOM, MPT: the kernel decode_attn_alibi_cluster), slopes[h]
+// times the position is added to query head h's scaled scores before the
+// mask, as the TPU kernel's slope_ref gathers it (h = g rep + r, right under
+// GQA): the body's bias policy Alibi.
 //
 // What bounds it on this card: the valid K and V bytes, 2 * len * Dh per
 // (slot, kv head), over the 3.35 TB/s of device memory: 9.4 MB, 2.8 us, at
@@ -65,26 +69,44 @@ decode_attn_cluster(const int8_t* __restrict__ q, const int8_t* __restrict__ kt,
                                                                      out, Hkv, Smax, chmax);
 }
 
+// K3 with ALiBi: slopes (H,) f32, a slope a query head
 template <int DH, int REP, bool QPV, bool K16>
-int launch(const Call& c, cudaStream_t st) {
+__global__ void __launch_bounds__(NT)
+decode_attn_alibi_cluster(const int8_t* __restrict__ q, const int8_t* __restrict__ kt,
+                          const int8_t* __restrict__ v, const int* __restrict__ lengths,
+                          const float* __restrict__ scales, float* __restrict__ out, int Hkv,
+                          int Smax, int chmax, const float* __restrict__ slopes) {
+  decode_attn_core<DH, REP, QPV ? PV_QUANT_FAST : PV_FP, K16, false>(
+      DenseKV<DH>{kt, v, Smax, nullptr, nullptr}, q, lengths, scales, out, Hkv, Smax, chmax,
+      SmemScores{}, Alibi{slopes});
+}
+
+template <int DH, int REP, bool QPV, bool K16>
+int launch(const Call& c, const float* slopes, cudaStream_t st) {
+  if (slopes) {
+    static Sized sized_alibi = {};
+    return launch_cluster<DH, REP>(decode_attn_alibi_cluster<DH, REP, QPV, K16>, sized_alibi, c,
+                                   st, slopes);
+  }
   static Sized sized = {};  // what its launches have set, per device
   return launch_cluster<DH, REP>(decode_attn_cluster<DH, REP, QPV, K16>, sized, c, st);
 }
 
 template <int DH, int REP>
-int launch_mode(const Call& c, bool qpv, cudaStream_t st) {
+int launch_mode(const Call& c, bool qpv, const float* sl, cudaStream_t st) {
   const bool k16 = c.Smax % 16 == 0;
-  if (qpv) return k16 ? launch<DH, REP, true, true>(c, st) : launch<DH, REP, true, false>(c, st);
-  return k16 ? launch<DH, REP, false, true>(c, st) : launch<DH, REP, false, false>(c, st);
+  if (qpv)
+    return k16 ? launch<DH, REP, true, true>(c, sl, st) : launch<DH, REP, true, false>(c, sl, st);
+  return k16 ? launch<DH, REP, false, true>(c, sl, st) : launch<DH, REP, false, false>(c, sl, st);
 }
 
 template <int DH>
-int launch_rep(int rep, const Call& c, bool qpv, cudaStream_t st) {
+int launch_rep(int rep, const Call& c, bool qpv, const float* sl, cudaStream_t st) {
   switch (rep) {
-    case 1: return launch_mode<DH, 1>(c, qpv, st);
-    case 2: return launch_mode<DH, 2>(c, qpv, st);
-    case 4: return launch_mode<DH, 4>(c, qpv, st);
-    case 8: return launch_mode<DH, 8>(c, qpv, st);
+    case 1: return launch_mode<DH, 1>(c, qpv, sl, st);
+    case 2: return launch_mode<DH, 2>(c, qpv, sl, st);
+    case 4: return launch_mode<DH, 4>(c, qpv, sl, st);
+    case 8: return launch_mode<DH, 8>(c, qpv, sl, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -95,17 +117,19 @@ extern "C" {
 
 // q (B, H, Dh) int8; kt (B, Hkv, Dh, Smax) int8; v (B, Hkv, Smax, Dh) int8;
 // lengths (B,) int32 valid positions per slot, each in [1, Smax]; scales f32
-// [qk_scale, v_scale, v_scale / 127] on the device; out (B, H, Dh) f32;
-// cluster (2, 4 or 8) blocks per (slot, kv head), the caller's plan.
+// [qk_scale, v_scale, v_scale / 127] on the device; slopes (H,) f32 ALiBi
+// slopes on the device, or null (no ALiBi); out (B, H, Dh) f32; cluster (2, 4
+// or 8) blocks per (slot, kv head), the caller's plan.
 int int8_decode_attention(const void* q, const void* kt, const void* v, const void* lengths,
-                          const void* scales, void* out, int B, int H, int Hkv, int Dh, int Smax,
-                          int quant_pv, int cluster, void* stream) {
+                          const void* scales, const void* slopes, void* out, int B, int H,
+                          int Hkv, int Dh, int Smax, int quant_pv, int cluster, void* stream) {
   Call c;
   if (!make_call(c, q, kt, v, lengths, scales, out, B, H, Hkv, Smax, cluster))
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (Dh == 128) return launch_rep<128>(H / Hkv, c, quant_pv != 0, st);
-  if (Dh == 64) return launch_rep<64>(H / Hkv, c, quant_pv != 0, st);
+  auto sl = static_cast<const float*>(slopes);
+  if (Dh == 128) return launch_rep<128>(H / Hkv, c, quant_pv != 0, sl, st);
+  if (Dh == 64) return launch_rep<64>(H / Hkv, c, quant_pv != 0, sl, st);
   return cudaErrorInvalidValue;
 }
 

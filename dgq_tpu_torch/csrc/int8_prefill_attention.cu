@@ -2,7 +2,11 @@
 //
 // Replaces the TPU kernel dgq_tpu/ops/attention.py::int8_prefill_attention
 // (body _prefill_kernel).  For each query row: scores s8 q.k^T -> s32, times
-// scales[0] = (q_scale * k_scale) / sqrt(Dh); mask kpos <= q_offset + row and
+// scales[0] = (q_scale * k_scale) / sqrt(Dh); with ALiBi (BLOOM, MPT: the
+// kernel's ALIBI instantiation, prefill_attn_sm90<DH, true>) plus slopes[h]
+// kpos, taken as slopes[h] (kpos - qpos), the same softmax (a row's bias
+// moves by a constant) with the bias near 0 where the row's weights are, so
+// that its rounding stays far below the scores'; mask kpos <= q_offset + row and
 // kpos < plen (masked scores are finfo(f32).min, not -inf); online fp32
 // softmax; p @ (v * v_scale) with fp32 sums; out = acc / max(l, 1e-20).  GQA:
 // kv head = h / (H / Hkv).  The K cache is stored transposed, (B, Hkv, Dh,
@@ -184,6 +188,7 @@ struct AttnArgs {
   float* out;            // (B, H, Sp, DH)
   int H, Hkv, Sp, Smax, plen, q_offset;
   int G;                 // blocks a head
+  const float* slopes;   // (H,) ALiBi slopes, a query head each (the ALIBI instantiation)
 };
 
 // The query tiles of block g of a head's G: tile k of the block is the one
@@ -262,7 +267,7 @@ __device__ __forceinline__ void turn_tile(const uint8_t* raw, uint8_t* st, int p
   }
 }
 
-template <int DH>
+template <int DH, bool ALIBI>
 __global__ void __launch_bounds__(A_THREADS, 1)
 prefill_attn_sm90(const __grid_constant__ CUtensorMap tm_kt,
                   const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ AttnArgs a) {
@@ -338,6 +343,8 @@ prefill_attn_sm90(const __grid_constant__ CUtensorMap tm_kt,
   const int ct = threadIdx.x, wg = __shfl_sync(0xFFFFFFFFu, ct >> 7, 0);
   const int warp = (ct >> 5) & 3, lane = ct & 31, gq = lane >> 2, t = lane & 3;
   const float qkl = a.scales[0] * LOG2E;  // scores in log2 units
+  float sl = 0.0f;                         // ALiBi: the head's slope in log2 units
+  if constexpr (ALIBI) sl = a.slopes[h] * LOG2E;
   const int8_t* qh = a.q + (static_cast<size_t>(b) * a.H + h) * a.Sp * DH;
   float* oh = a.out + (static_cast<size_t>(b) * a.H + h) * a.Sp * DH;
   auto stage = [&](int s) { return smem + S::KV_BASE + s * S::STAGE; };
@@ -425,10 +432,17 @@ prefill_attn_sm90(const __grid_constant__ CUtensorMap tm_kt,
       for (int n = 0; n < 8; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          float y = static_cast<float>(sc[4 * n + e]) * qkl;
-          if (edge) {
-            const int kpos = kv0 + 8 * n + 2 * t + (e & 1);
-            y = (kpos <= a.q_offset + row + 8 * (e >> 1) && kpos < a.plen) ? y : NEG;
+          float y;
+          if constexpr (ALIBI) {  // every tile: the bias is on every position
+            const int kpos = kv0 + 8 * n + 2 * t + (e & 1), qpos = a.q_offset + row + 8 * (e >> 1);
+            y = fmaf(static_cast<float>(sc[4 * n + e]), qkl, sl * static_cast<float>(kpos - qpos));
+            if (edge) y = (kpos <= qpos && kpos < a.plen) ? y : NEG;
+          } else {
+            y = static_cast<float>(sc[4 * n + e]) * qkl;
+            if (edge) {
+              const int kpos = kv0 + 8 * n + 2 * t + (e & 1);
+              y = (kpos <= a.q_offset + row + 8 * (e >> 1) && kpos < a.plen) ? y : NEG;
+            }
           }
           p[4 * n + e] = y;
           mx[e >> 1] = fmaxf(mx[e >> 1], y);
@@ -506,7 +520,7 @@ prefill_attn_sm90(const __grid_constant__ CUtensorMap tm_kt,
   }
 }
 
-template <int DH>
+template <int DH, bool ALIBI>
 int launch_prefill(const void* kt, const void* v, const AttnArgs& a, int B, cudaStream_t st) {
   using S = AttnSmem<DH>;
   CUtensorMap tk, tv;
@@ -518,8 +532,8 @@ int launch_prefill(const void* kt, const void* v, const AttnArgs& a, int B, cuda
     rc = tensor_map(&tv, v, DH, static_cast<uint64_t>(B) * a.Hkv * a.Smax, DH, BKV,
                     CU_TENSOR_MAP_SWIZZLE_NONE);
   if (rc) return rc;
-  auto kernel = prefill_attn_sm90<DH>;
-  static uint64_t sized = 0;  // devices whose limit is raised, one set per DH
+  auto kernel = prefill_attn_sm90<DH, ALIBI>;
+  static uint64_t sized = 0;  // devices whose limit is raised, one set per instantiation
   int dev = 0;
   cudaGetDevice(&dev);
   if (!(sized >> (dev & 63) & 1)) {
@@ -537,10 +551,11 @@ int launch_prefill(const void* kt, const void* v, const AttnArgs& a, int B, cuda
 extern "C" {
 
 // q (B, H, Sp, Dh) int8; kt (B, Hkv, Dh, Smax) int8; v (B, Hkv, Smax, Dh) int8;
-// scales f32 [qk_scale, v_scale] on the device; out (B, H, Sp, Dh) f32.
+// scales f32 [qk_scale, v_scale] on the device; slopes (H,) f32 ALiBi slopes on
+// the device, or null (no ALiBi); out (B, H, Sp, Dh) f32.
 int int8_prefill_attention(const void* q, const void* kt, const void* v, const void* scales,
-                           void* out, int B, int H, int Hkv, int Sp, int Dh, int Smax, int plen,
-                           int q_offset, void* stream) {
+                           const void* slopes, void* out, int B, int H, int Hkv, int Sp, int Dh,
+                           int Smax, int plen, int q_offset, void* stream) {
   if (B <= 0 || Hkv <= 0 || H % Hkv || Sp % BQ || Smax % BKV || plen < 1 || plen > Smax ||
       q_offset < 0 || (Dh != 64 && Dh != 128))
     return cudaErrorInvalidValue;
@@ -558,11 +573,16 @@ int int8_prefill_attention(const void* q, const void* kt, const void* v, const v
   a.Smax = Smax;
   a.plen = plen;
   a.q_offset = q_offset;
+  a.slopes = static_cast<const float*>(slopes);
   // the fewest blocks a head that fill the SMs, each with at least two tiles
   const int nq = Sp / BQ;
   a.G = max(1, min((nq + 1) / 2, sms / (B * H)));
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return Dh == 128 ? launch_prefill<128>(kt, v, a, B, st) : launch_prefill<64>(kt, v, a, B, st);
+  if (slopes)
+    return Dh == 128 ? launch_prefill<128, true>(kt, v, a, B, st)
+                     : launch_prefill<64, true>(kt, v, a, B, st);
+  return Dh == 128 ? launch_prefill<128, false>(kt, v, a, B, st)
+                   : launch_prefill<64, false>(kt, v, a, B, st);
 }
 
 }  // extern "C"

@@ -37,21 +37,12 @@
 //     blocks, which set the call's time, start first;
 //   * fp p @ V converts the V codes through the exponent bits (DenseKV's
 //     FAST), as K8 does.
+// Its ALiBi kernels, which the BLOOM and MPT engines take past 8192
+// positions, are built from long_decode_attention_alibi.cu.
 
 #include "decode_attention.cuh"
 
 namespace {
-
-// K7's address: the dense cache, with the grid's Hkv * split virtual kv
-// heads, virtual head g serving query heads g (rep / split) .. of kv head
-// g / split
-template <int DH>
-struct SplitKV : DenseKV<DH, true> {
-  int split;
-  __device__ __forceinline__ void start(int b, int g, int Hkv, int p0, int n, uint8_t* spare) {
-    DenseKV<DH, true>::start(b, g / split, Hkv / split, p0, n, spare);
-  }
-};
 
 // grid (C, Hkv split, B) in clusters of C along x, REP the query heads of a
 // virtual kv head; K16: Smax % 16 == 0; SCR: the scores in `scratch` (else

@@ -117,13 +117,18 @@ class OPTEngineConfig:
                                       "(ROADMAP Queue 1 item 7)")
 
 
+def layer_norm(x: Tensor, weight: Tensor, bias: Tensor, eps: float) -> Tensor:
+    """fp32 LayerNorm."""
+    x = x.to(torch.float32)
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
+    return (x - mu) * torch.rsqrt(var + eps) * weight + bias
+
+
 def _layer_norm_q(x: Tensor, weight_q: Tensor, bias_q: Tensor, eps: float) -> Tensor:
     """LayerNormQ: fp LN with scale-folded weight and bias, round -> int8."""
-    xf = x.to(torch.float32)
-    mu = torch.mean(xf, dim=-1, keepdim=True)
-    var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
-    y = (xf - mu) * torch.rsqrt(var + eps) * weight_q + bias_q
-    return torch.clamp(torch.round(y), -128, 127).to(torch.int8)
+    return torch.clamp(torch.round(layer_norm(x, weight_q, bias_q, eps)), -128, 127).to(
+        torch.int8)
 
 
 def _linear_s8_int8out(lin: EngineLinear, x_s8: Tensor) -> Tensor:
@@ -136,49 +141,69 @@ def _linear_s8_int8out(lin: EngineLinear, x_s8: Tensor) -> Tensor:
     return y.reshape(*x_s8.shape[:-1], -1)
 
 
-def _opt_block(ecfg: OPTEngineConfig, layer: OPTEngineLayer, x: Tensor, k_cache: Tensor,
-               v_cache: Tensor, cache_len, mask: Optional[Tensor]) -> Tensor:
-    """One decoder block on (B, S, D) fp32 activations; writes the S new
-    tokens' int8 K/V into the caches at [cache_len, cache_len + S)."""
+def _opt_qkv(ecfg: OPTEngineConfig, layer: OPTEngineLayer, x: Tensor):
+    """LayerNormQ and the int8-out q|k|v of (B, S, D) activations -> q, k, v
+    int8 (B, H, S, Dh)."""
     cfg = ecfg.cfg
     b, s, _ = x.shape
     dh = cfg.head_dim
-
     x_s8 = _layer_norm_q(x, layer.ln1_weight, layer.ln1_bias, cfg.layer_norm_eps)
     q, k, v = torch.chunk(_linear_s8_int8out(layer.qkv_proj, x_s8), 3, dim=-1)
     h = q.shape[-1] // dh
-    q_s8 = q.reshape(b, s, h, dh).transpose(1, 2).contiguous()
-    write_window(k_cache, k.reshape(b, s, h, dh).permute(0, 2, 3, 1), cache_len, 3)
-    write_window(v_cache, v.reshape(b, s, h, dh).transpose(1, 2), cache_len, 2)
+    return tuple(t.reshape(b, s, h, dh).transpose(1, 2) for t in (q, k, v))
 
-    if s == 1:
-        smax = k_cache.shape[-1]
-        chunk = ecfg.decode_attn_chunk
-        if chunk < 0:  # AUTO
-            chunk = auto_decode_chunk(smax)
-        # scaling absorbed into q: no 1/sqrt(Dh); JAX's OPT path keeps fp p @ V
-        if chunk and smax > chunk:
-            ctx = int8_decode_attention_chunked(
-                q_s8[:, :, 0, :], k_cache, v_cache, cache_len + 1, layer.q_scale,
-                layer.k_scale, layer.v_scale, chunk=chunk, apply_sqrt_dh=False)
-        else:
-            ctx = int8_decode_attention(
-                q_s8[:, :, 0, :], k_cache, v_cache, cache_len + 1, layer.q_scale,
-                layer.k_scale, layer.v_scale, apply_sqrt_dh=False)
-        ctx = ctx.reshape(b, 1, h * dh)
-    else:
-        # INT8 q.k^T over Dh (exact in float32), alpha = q_scale * k_scale
-        scores = short_int_matmul(q_s8, k_cache) * (layer.q_scale * layer.k_scale)
-        probs = torch.softmax(scores + mask[None, None], dim=-1)
-        ctx = torch.matmul(probs, v_cache.to(torch.float32) * layer.v_scale)
-        ctx = ctx.transpose(1, 2).reshape(b, s, h * dh)
 
+def opt_decode_ctx(ecfg: OPTEngineConfig, layer: OPTEngineLayer, q_s8: Tensor, k_cache: Tensor,
+                   v_cache: Tensor, lengths) -> Tensor:
+    """One decode token per slot: q_s8 (B, H, Dh) over the slots' valid
+    ``lengths`` (int or (B,)) -> (B, H, Dh) f32.  K3, or K7 past the AUTO
+    chunk; the scaling is absorbed into q (no 1/sqrt(Dh)) and JAX's OPT path
+    keeps fp p @ V."""
+    smax = k_cache.shape[-1]
+    chunk = ecfg.decode_attn_chunk
+    if chunk < 0:  # AUTO
+        chunk = auto_decode_chunk(smax)
+    if chunk and smax > chunk:
+        return int8_decode_attention_chunked(q_s8, k_cache, v_cache, lengths, layer.q_scale,
+                                             layer.k_scale, layer.v_scale, chunk=chunk,
+                                             apply_sqrt_dh=False)
+    return int8_decode_attention(q_s8, k_cache, v_cache, lengths, layer.q_scale, layer.k_scale,
+                                 layer.v_scale, apply_sqrt_dh=False)
+
+
+def _opt_tail(ecfg: OPTEngineConfig, layer: OPTEngineLayer, x: Tensor, ctx: Tensor) -> Tensor:
+    """The block after attention: requant (clamp -127) -> out_proj ->
+    residual -> LayerNormQ -> fc1 -> ReLU -> requant -> fc2 -> residual."""
+    cfg = ecfg.cfg
     ctx_s8 = _requant(ctx, layer.out_input_scale, qmin=-127.0)
     x = x + _linear_s8(layer.out_proj, ctx_s8)
     x_s8 = _layer_norm_q(x, layer.ln2_weight, layer.ln2_bias, cfg.layer_norm_eps)
     h1 = torch.relu(_linear_s8(layer.fc1, x_s8))
     h_s8 = _requant(h1, layer.fc2_input_scale)
     return x + _linear_s8(layer.fc2, h_s8)
+
+
+def _opt_block(ecfg: OPTEngineConfig, layer: OPTEngineLayer, x: Tensor, k_cache: Tensor,
+               v_cache: Tensor, cache_len, mask: Optional[Tensor]) -> Tensor:
+    """One decoder block on (B, S, D) fp32 activations; writes the S new
+    tokens' int8 K/V into the caches at [cache_len, cache_len + S)."""
+    b, s, _ = x.shape
+    q, k, v = _opt_qkv(ecfg, layer, x)
+    h, dh = q.shape[1], q.shape[3]
+    q_s8 = q.contiguous()
+    write_window(k_cache, k.transpose(2, 3), cache_len, 3)
+    write_window(v_cache, v, cache_len, 2)
+
+    if s == 1:
+        ctx = opt_decode_ctx(ecfg, layer, q_s8[:, :, 0, :], k_cache, v_cache,
+                             cache_len + 1).reshape(b, 1, h * dh)
+    else:
+        # INT8 q.k^T over Dh (exact in float32), alpha = q_scale * k_scale
+        scores = short_int_matmul(q_s8, k_cache) * (layer.q_scale * layer.k_scale)
+        probs = torch.softmax(scores + mask[None, None], dim=-1)
+        ctx = torch.matmul(probs, v_cache.to(torch.float32) * layer.v_scale)
+        ctx = ctx.transpose(1, 2).reshape(b, s, h * dh)
+    return _opt_tail(ecfg, layer, x, ctx)
 
 
 def opt_engine_forward(ecfg: OPTEngineConfig, params: OPTEngineParams, input_ids: Tensor,
@@ -207,9 +232,6 @@ def opt_engine_forward(ecfg: OPTEngineConfig, params: OPTEngineParams, input_ids
     for li, layer in enumerate(params.layer_list):
         x = _opt_block(ecfg, layer, x, cache.k[li], cache.v[li], cache.length, mask)
 
-    mu = torch.mean(x, dim=-1, keepdim=True)
-    var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
-    x = (x - mu) * torch.rsqrt(var + cfg.layer_norm_eps) * params.final_ln_weight \
-        + params.final_ln_bias
+    x = layer_norm(x, params.final_ln_weight, params.final_ln_bias, cfg.layer_norm_eps)
     logits = torch.matmul(x, params.lm_head.to(x.dtype).t())
     return logits, cache._replace(length=cache.length + s)

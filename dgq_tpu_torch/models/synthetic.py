@@ -5,7 +5,9 @@ storage, or with ``keep_span`` span codes beside the rowpair copy derived
 from them) and of ``build_opt_engine`` in ``scripts/bench_decode_opt.py:27-75``
 (the OPT engine, span-only storage), with the same value ranges, plus an
 fp-scale LLaMA engine (span storage, fp32 group scales and zeros, the
-w4w8-fallback representation).  Every layer is drawn on its own from a
+w4w8-fallback representation) and the BLOOM and MPT engines (span-only
+storage as OPT's, their fused q|k|v's alpha carrying each part's own output
+scale as ``from_ptq_bloom``/``from_ptq_mpt`` fold it).  Every layer is drawn on its own from a
 ``torch.Generator`` on the target device (so the bits differ from JAX's).
 Scales are drawn from [1, 4) and zeros from [4, 12), so (c - z) * s fits
 int8 by construction; the fp-scale engine multiplies the integer scale by a
@@ -17,7 +19,11 @@ from __future__ import annotations
 import torch
 
 from dgq_tpu_torch.models.engine import EngineLayer, EngineLinear, EngineParams
+from dgq_tpu_torch.models.bloom import BloomConfig
+from dgq_tpu_torch.models.bloom_engine import BloomEngineLayer, BloomEngineParams
 from dgq_tpu_torch.models.llama import LlamaConfig
+from dgq_tpu_torch.models.mpt import MPTConfig
+from dgq_tpu_torch.models.mpt_engine import MPTEngineLayer, MPTEngineParams
 from dgq_tpu_torch.models.opt import OPTConfig
 from dgq_tpu_torch.models.opt_engine import OPTEngineLayer, OPTEngineParams
 from dgq_tpu_torch.ops.fused_decode import pack_rowpair_s4, rowpair_cs_fold, rowpair_cs_fold_rp
@@ -167,6 +173,72 @@ def build_opt_engine(cfg: OPTConfig, seed: int = 0, device="cuda") -> OPTEngineP
         layers=stacked,
         final_ln_weight=vec(1.0),
         final_ln_bias=vec(0.0),
+        lm_head=_normal(gen, (cfg.vocab_size, d), device),
+    )
+
+
+# the ALiBi engines' static q, k and v scales: three values, so that the fused q|k|v's alpha
+# differs by part
+QKV_SCALES = (0.05, 0.04, 0.06)
+
+
+def _qkv_alpha(h: int, dh: int, interleaved: bool, device) -> torch.Tensor:
+    """A fused q|k|v's alpha, 5e-6 (input scale x weight scale) over each
+    channel's output scale: interleaved (h, 3, dh) channels (BLOOM) or
+    concatenated [q | k | v] (MPT)."""
+    parts = torch.tensor(QKV_SCALES, dtype=torch.float32, device=device)
+    per_channel = (parts.repeat_interleave(dh).repeat(h) if interleaved
+                   else parts.repeat_interleave(h * dh))
+    return torch.full_like(per_channel, 5e-6) / per_channel
+
+
+def _family_layer(cls, gen, d: int, f: int, h: int, dh: int, interleaved: bool, bias: bool,
+                  device):
+    """One BLOOM or MPT layer (``cls``'s fields in order): LayerNorms pre-scaled
+    by 10, span-only linears (zero fp32 biases where ``bias``), static
+    scales QKV_SCALES and 0.05."""
+    def vec(v):
+        return torch.full((d,), v, dtype=torch.float32, device=device)
+
+    qkv = random_span_linear(gen, 3 * d, d, device=device, bias=bias)
+    qkv = qkv._replace(alpha=_qkv_alpha(h, dh, interleaved, device))
+    q, k, v = (_scalar(x, device) for x in QKV_SCALES)
+    return cls(vec(10.0), vec(0.0), qkv, random_span_linear(gen, d, d, device=device, bias=bias),
+               vec(10.0), vec(0.0), random_span_linear(gen, f, d, device=device, bias=bias),
+               random_span_linear(gen, d, f, device=device, bias=bias), q, k, v,
+               _scalar(0.05, device), _scalar(0.05, device))
+
+
+def build_bloom_engine(cfg: BloomConfig, seed: int = 0, device="cuda") -> BloomEngineParams:
+    """Random BLOOM engine params at cfg's exact shapes (the MLP 4 x hidden),
+    every layer drawn on its own, as ``build_opt_engine``'s: linears with
+    zero biases, bf16 embeddings and lm_head, unit embedding and final
+    LayerNorms."""
+    d, h, dh = cfg.hidden_size, cfg.num_attention_heads, cfg.head_dim
+    gen = torch.Generator(device=device).manual_seed(seed)
+    layers = _stack([_family_layer(BloomEngineLayer, gen, d, 4 * d, h, dh, True, True, device)
+                     for _ in range(cfg.num_hidden_layers)])
+    ones = torch.ones((d,), dtype=torch.float32, device=device)
+    return BloomEngineParams(
+        embed_tokens=_normal(gen, (cfg.vocab_size, d), device),
+        emb_ln_weight=ones, emb_ln_bias=torch.zeros_like(ones), layers=layers,
+        ln_f_weight=ones.clone(), ln_f_bias=torch.zeros_like(ones),
+        lm_head=_normal(gen, (cfg.vocab_size, d), device),
+    )
+
+
+def build_mpt_engine(cfg: MPTConfig, seed: int = 0, device="cuda") -> MPTEngineParams:
+    """Random MPT engine params at cfg's exact shapes, as ``build_bloom_engine``
+    draws them, with bias-free linears (MPT's no_bias) and no embedding
+    LayerNorm."""
+    d, h, dh = cfg.d_model, cfg.n_heads, cfg.head_dim
+    gen = torch.Generator(device=device).manual_seed(seed)
+    layers = _stack([_family_layer(MPTEngineLayer, gen, d, cfg.ffn_dim, h, dh, False,
+                                   not cfg.no_bias, device) for _ in range(cfg.n_layers)])
+    ones = torch.ones((d,), dtype=torch.float32, device=device)
+    return MPTEngineParams(
+        embed_tokens=_normal(gen, (cfg.vocab_size, d), device), layers=layers,
+        norm_f_weight=ones, norm_f_bias=torch.zeros_like(ones),
         lm_head=_normal(gen, (cfg.vocab_size, d), device),
     )
 

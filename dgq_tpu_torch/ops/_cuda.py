@@ -33,6 +33,11 @@ SOURCES = {
     "w4a8_matmul_rp_pipe": "w4a8_rp_gemm",
     "int8_prefill_attention": "int8_prefill_attention",
     "int8_decode_attention": "int8_decode_attention",
+    # K2's, K3's and K7's ALiBi instantiations (BLOOM, MPT), counted apart; K7's
+    # in a source of its own, built beside K7's
+    "int8_prefill_attention_alibi": "int8_prefill_attention",
+    "int8_decode_attention_alibi": "int8_decode_attention",
+    "int8_decode_attention_chunked_alibi": "long_decode_attention_alibi",
     "fused_norm_gemv_rp": "fused_norm_gemv_rp",
     "fused_requant_gemv_rp": "fused_requant_gemv_rp",
     "fused_mlp_decode_rp": "fused_mlp_decode_rp",

@@ -11,7 +11,8 @@ wrappers of the hand-written CUDA kernels under the JAX names:
 ``int8_decode_attention`` (``csrc/int8_decode_attention.cu``, a cluster of
 blocks per (slot, kv head), its cluster from ``decode_plan``),
 ``int8_decode_attention_chunked`` (``csrc/long_decode_attention.cu``, K3's
-body on long caches, its cluster and scores from ``chunked_plan``), and
+body on long caches, its cluster and scores from ``chunked_plan``; with
+ALiBi ``csrc/long_decode_attention_alibi.cu``), and
 ``int8_paged_decode_attention``
 and ``int4_paged_decode_attention``, which share
 ``csrc/paged_decode_attention.cu`` (K3's body over the page pool, its
@@ -25,6 +26,11 @@ both int8; a page pool holds (P, Hkv, Dh, ps) and (P, Hkv, ps, Dh) pages
 found through a (B, NP) int32 table, or (P, Hkv, Dh/2, ps) and (P, Hkv, ps,
 Dh/2) nibble pages (``ops/kv4.py``).  GQA folds query head h onto kv head
 h // (H // Hkv).
+
+K2, K3 and K7 take ``alibi_slopes`` (H,), a slope a query head (BLOOM, MPT):
+slope x key position is added to the scaled scores before the mask, as
+JAX's kernels add it (``dgq_tpu/ops/attention.py:92-102``, ``:286-287``);
+those launches count under ``<name>_alibi``.
 
 Every scalar handed to a kernel is a float32 tensor computed in JAX's order,
 e.g. ``(q_scale * k_scale) / sqrt(Dh)`` with the divisor a float32 tensor: a
@@ -47,6 +53,7 @@ from dgq_tpu_torch.ops.quant_matmul import int_matmul
 PREFILL = "int8_prefill_attention"
 DECODE = "int8_decode_attention"
 CHUNKED = "int8_decode_attention_chunked"
+ALIBI = "_alibi"  # the launch count of a kernel's ALiBi instantiation: its name + ALIBI
 PAGED = "int8_paged_decode_attention"
 PAGED_KV4 = "int4_paged_decode_attention"
 _PAGED_SIGNATURES = {  # one library, two entry points
@@ -54,9 +61,10 @@ _PAGED_SIGNATURES = {  # one library, two entry points
     PAGED_KV4: [_cuda.VP] * 7 + [_cuda.INT] * 7 + [_cuda.VP],
 }
 _SIGNATURES = {
-    PREFILL: {PREFILL: [_cuda.VP] * 5 + [_cuda.INT] * 8 + [_cuda.VP]},
-    DECODE: {DECODE: [_cuda.VP] * 6 + [_cuda.INT] * 7 + [_cuda.VP]},
+    PREFILL: {PREFILL: [_cuda.VP] * 6 + [_cuda.INT] * 8 + [_cuda.VP]},
+    DECODE: {DECODE: [_cuda.VP] * 7 + [_cuda.INT] * 7 + [_cuda.VP]},
     CHUNKED: {CHUNKED: [_cuda.VP] * 7 + [_cuda.INT] * 8 + [_cuda.VP]},
+    CHUNKED + ALIBI: {CHUNKED + ALIBI: [_cuda.VP] * 8 + [_cuda.INT] * 8 + [_cuda.VP]},
     PAGED: _PAGED_SIGNATURES,
     PAGED_KV4: _PAGED_SIGNATURES,
 }
@@ -112,16 +120,21 @@ def auto_decode_chunk(smax: int) -> int:
     return 0
 
 
-def _no_alibi(alibi_slopes) -> None:
-    if alibi_slopes is not None:
-        raise NotImplementedError("ALiBi attention is not ported yet (BLOOM/MPT slice)")
+def _alibi_bias(alibi_slopes, hk: int, rep: int, smax: int, device) -> torch.Tensor:
+    """(Hkv, rep, 1, Smax) slope x key position, query head g rep + r at
+    [g, r] (JAX's ``slopes.reshape(hk, rep)``): the product rounded once, as
+    the kernels compute it."""
+    sl = torch.as_tensor(alibi_slopes, dtype=torch.float32).to(device).reshape(hk, rep, 1, 1)
+    return sl * torch.arange(smax, device=device, dtype=torch.float32)
 
 
 def int8_prefill_attention_xla(q_s8, kt_cache, v_cache, prompt_len, q_scale, k_scale, v_scale,
-                               q_offset=None, apply_sqrt_dh: bool = True) -> torch.Tensor:
+                               q_offset=None, apply_sqrt_dh: bool = True,
+                               alibi_slopes=None) -> torch.Tensor:
     """Plain causal attention over the INT8 cache -> (B, H, S, Dh) f32;
     materialises the (S, Smax) scores.  Query row i sits at absolute
-    position ``q_offset + i``."""
+    position ``q_offset + i``; ``alibi_slopes`` (H,) adds slope[h] x key
+    position to query head h's scores."""
     b, h, s, dh = q_s8.shape
     _, hk, _, smax = kt_cache.shape
     rep = h // hk
@@ -129,6 +142,8 @@ def int8_prefill_attention_xla(q_s8, kt_cache, v_cache, prompt_len, q_scale, k_s
     qk = qk_scale(q_scale, k_scale, dh, apply_sqrt_dh)
     s32 = int_matmul(q_s8.reshape(b, hk, rep * s, dh), kt_cache)
     scores = s32.to(torch.float32).reshape(b, hk, rep, s, smax) * qk
+    if alibi_slopes is not None:
+        scores = scores + _alibi_bias(alibi_slopes, hk, rep, smax, dev)
     off = 0 if q_offset is None else int(q_offset)
     qpos = (off + torch.arange(s, device=dev))[:, None]
     kpos = torch.arange(smax, device=dev)[None, :]
@@ -151,8 +166,8 @@ def int8_decode_attention_xla(q_s8, kt_cache, v_cache, length, q_scale, k_scale,
                               alibi_slopes=None) -> torch.Tensor:
     """Plain single-token attention over the INT8 cache -> (B, H, Dh) f32;
     ``quant_pv`` quantises the exp-weights to int8 codes for an exact
-    integer p @ V with 1/denom in the epilogue."""
-    _no_alibi(alibi_slopes)
+    integer p @ V with 1/denom in the epilogue; ``alibi_slopes`` (H,) adds
+    slope[h] x position to query head h's scores before the mask."""
     b, h, dh = q_s8.shape
     _, hk, _, smax = kt_cache.shape
     rep = h // hk
@@ -161,6 +176,8 @@ def int8_decode_attention_xla(q_s8, kt_cache, v_cache, length, q_scale, k_scale,
     qk = qk_scale(q_scale, k_scale, dh, apply_sqrt_dh)
     s32 = int_matmul(q_s8.reshape(b, hk, rep, dh), kt_cache)
     s = s32.to(torch.float32) * qk
+    if alibi_slopes is not None:
+        s = s + _alibi_bias(alibi_slopes, hk, rep, smax, dev)[:, :, 0]
     pos = torch.arange(smax, device=dev)[None, None, None, :]
     s = torch.where(pos < lengths[:, None, None, None], s, f32(NEG, dev))
     if quant_pv:
@@ -181,6 +198,15 @@ def _kernel_scales(q_scale, k_scale, v_scale, dh: int, apply_sqrt_dh: bool) -> t
                         vs / f32(127.0, vs.device)]).contiguous()
 
 
+def _slopes(alibi_slopes, h: int, dev) -> Optional[torch.Tensor]:
+    """The kernels' ALiBi operand: (H,) f32 on the card, or None."""
+    if alibi_slopes is None:
+        return None
+    sl = torch.as_tensor(alibi_slopes).to(device=dev, dtype=torch.float32).contiguous()
+    _cuda.require(sl, "alibi_slopes", torch.float32, (h,), dev, align=4)
+    return sl
+
+
 def _check_cache(kt_cache, v_cache, b: int, dh: int, dev):
     _, hk, _, smax = kt_cache.shape
     _cuda.require(kt_cache, "kt_cache", torch.int8, (b, hk, dh, smax), dev)
@@ -196,11 +222,13 @@ def int8_prefill_attention(q_s8: torch.Tensor, kt_cache: torch.Tensor, v_cache: 
 
     q (B, H, S, Dh) int8 with S a multiple of 64 on CUDA; ``prompt_len`` is
     the total valid length, ``q_offset`` the absolute position of query row
-    0.  CPU tensors take the plain version; CUDA tensors launch the kernel."""
-    _no_alibi(alibi_slopes)
+    0; ``alibi_slopes`` (H,) f32 adds slope[h] x key position (the kernel's
+    ALiBi instantiation).  CPU tensors take the plain version; CUDA tensors
+    launch the kernel."""
     if q_s8.device.type == "cpu":
         return int8_prefill_attention_xla(q_s8, kt_cache, v_cache, prompt_len, q_scale,
-                                          k_scale, v_scale, q_offset, apply_sqrt_dh)
+                                          k_scale, v_scale, q_offset, apply_sqrt_dh,
+                                          alibi_slopes)
     b, h, s, dh = q_s8.shape
     dev = q_s8.device
     _cuda.require(q_s8, "q_s8", torch.int8, (b, h, s, dh), dev)
@@ -211,13 +239,14 @@ def int8_prefill_attention(q_s8: torch.Tensor, kt_cache: torch.Tensor, v_cache: 
                          f"1 <= prompt_len <= Smax, q_offset >= 0; got H={h}, Hkv={hk}, S={s}, "
                          f"Smax={smax}, Dh={dh}, prompt_len={plen}, q_offset={off}")
     scales = _kernel_scales(q_scale, k_scale, v_scale, dh, apply_sqrt_dh)
+    slopes = _slopes(alibi_slopes, h, dev)
     out = torch.empty((b, h, s, dh), dtype=torch.float32, device=dev)
     lib = _cuda.library(_cuda.SOURCES[PREFILL], _SIGNATURES[PREFILL])
     rc = lib.int8_prefill_attention(
         _cuda.ptr(q_s8), _cuda.ptr(kt_cache), _cuda.ptr(v_cache), _cuda.ptr(scales),
-        _cuda.ptr(out), b, h, hk, s, dh, smax, plen, off, _cuda.stream(dev))
+        _cuda.ptr(slopes), _cuda.ptr(out), b, h, hk, s, dh, smax, plen, off, _cuda.stream(dev))
     _cuda.check(rc, PREFILL)
-    _cuda.count_launch(PREFILL)
+    _cuda.count_launch(PREFILL if slopes is None else PREFILL + ALIBI)
     return out
 
 
@@ -347,12 +376,12 @@ def int8_decode_attention(q_s8: torch.Tensor, kt_cache: torch.Tensor, v_cache: t
     """K3: single-token attention over the INT8 cache -> (B, H, Dh) f32.
 
     ``length`` (int, () or (B,)) counts the valid cache positions per slot,
-    the current token included; each must be at least 1.  CPU tensors take
-    the plain version; CUDA tensors launch the kernel."""
-    _no_alibi(alibi_slopes)
+    the current token included; each must be at least 1.  ``alibi_slopes``
+    (H,) f32 adds slope[h] x position (the kernel's ALiBi instantiation).
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
     if q_s8.device.type == "cpu":
         return int8_decode_attention_xla(q_s8, kt_cache, v_cache, length, q_scale, k_scale,
-                                         v_scale, apply_sqrt_dh, quant_pv)
+                                         v_scale, apply_sqrt_dh, quant_pv, alibi_slopes)
     b, h, dh = q_s8.shape
     dev = q_s8.device
     _cuda.require(q_s8, "q_s8", torch.int8, (b, h, dh), dev, align=4)
@@ -364,13 +393,15 @@ def int8_decode_attention(q_s8: torch.Tensor, kt_cache: torch.Tensor, v_cache: t
     scales = _kernel_scales(q_scale, k_scale, v_scale, dh, apply_sqrt_dh)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     return _decode_launch(q_s8, kt_cache, v_cache, lengths, scales, quant_pv,
-                          decode_plan(b, hk, h // hk, dh, smax, sms))
+                          decode_plan(b, hk, h // hk, dh, smax, sms),
+                          _slopes(alibi_slopes, h, dev))
 
 
 def _decode_launch(q_s8, kt_cache, v_cache, lengths, scales, quant_pv: bool,
-                   cluster: int) -> torch.Tensor:
+                   cluster: int, slopes: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch K3 in clusters of ``cluster`` blocks on checked operands
-    (``lengths`` (B,) int32 and the kernel's scales on the card)."""
+    (``lengths`` (B,) int32, the kernel's scales and, for ALiBi, the (H,)
+    slopes on the card)."""
     b, h, dh = q_s8.shape
     hk, smax = kt_cache.shape[1], kt_cache.shape[3]
     dev = q_s8.device
@@ -378,19 +409,19 @@ def _decode_launch(q_s8, kt_cache, v_cache, lengths, scales, quant_pv: bool,
     lib = _cuda.library(_cuda.SOURCES[DECODE], _SIGNATURES[DECODE])
     rc = lib.int8_decode_attention(
         _cuda.ptr(q_s8), _cuda.ptr(kt_cache), _cuda.ptr(v_cache), _cuda.ptr(lengths),
-        _cuda.ptr(scales), _cuda.ptr(out), b, h, hk, dh, smax, int(quant_pv), cluster,
-        _cuda.stream(dev))
+        _cuda.ptr(scales), _cuda.ptr(slopes), _cuda.ptr(out), b, h, hk, dh, smax,
+        int(quant_pv), cluster, _cuda.stream(dev))
     _cuda.check(rc, DECODE)
-    _cuda.count_launch(DECODE)
+    _cuda.count_launch(DECODE if slopes is None else DECODE + ALIBI)
     return out
 
 
 def _chunked_launch(q_s8, kt_cache, v_cache, lengths, scales, quant_pv: bool,
-                    plan: ChunkedPlan) -> torch.Tensor:
-    """Launch K7 under ``plan`` on checked operands (``lengths`` (B,) int32
-    and the kernel's scales on the card), with the ranks' scratch of
-    (B, Hkv split, cluster, 5 (rep / split) chmax) bytes where the plan
-    keeps the scores there."""
+                    plan: ChunkedPlan, slopes: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch K7 under ``plan`` on checked operands (``lengths`` (B,) int32,
+    the kernel's scales and, for ALiBi, the (H,) slopes on the card), with
+    the ranks' scratch of (B, Hkv split, cluster, 5 (rep / split) chmax)
+    bytes where the plan keeps the scores there."""
     b, h, dh = q_s8.shape
     hk, smax = kt_cache.shape[1], kt_cache.shape[3]
     dev = q_s8.device
@@ -399,13 +430,18 @@ def _chunked_launch(q_s8, kt_cache, v_cache, lengths, scales, quant_pv: bool,
     if plan.scratch:  # B Hkv split cluster runs of 5 (rep / split) chmax bytes
         scratch = torch.empty((b * hk * plan.cluster * 5 * (h // hk)
                                * decode_chmax(smax, plan.cluster),), dtype=torch.uint8, device=dev)
-    lib = _cuda.library(_cuda.SOURCES[CHUNKED], _SIGNATURES[CHUNKED])
-    rc = lib.int8_decode_attention_chunked(
-        _cuda.ptr(q_s8), _cuda.ptr(kt_cache), _cuda.ptr(v_cache), _cuda.ptr(lengths),
-        _cuda.ptr(scales), _cuda.ptr(out), _cuda.ptr(scratch), b, h, hk, dh, smax,
-        int(quant_pv), plan.cluster, plan.split, _cuda.stream(dev))
-    _cuda.check(rc, CHUNKED)
-    _cuda.count_launch(CHUNKED)
+    name = CHUNKED if slopes is None else CHUNKED + ALIBI
+    lib = _cuda.library(_cuda.SOURCES[name], _SIGNATURES[name])
+    head = (_cuda.ptr(q_s8), _cuda.ptr(kt_cache), _cuda.ptr(v_cache), _cuda.ptr(lengths),
+            _cuda.ptr(scales))
+    tail = (_cuda.ptr(out), _cuda.ptr(scratch), b, h, hk, dh, smax, int(quant_pv),
+            plan.cluster, plan.split, _cuda.stream(dev))
+    if slopes is None:
+        rc = lib.int8_decode_attention_chunked(*head, *tail)
+    else:
+        rc = lib.int8_decode_attention_chunked_alibi(*head, _cuda.ptr(slopes), *tail)
+    _cuda.check(rc, name)
+    _cuda.count_launch(name)
     return out
 
 
@@ -439,15 +475,17 @@ def _check_heads(what: str, h: int, hk: int, dh: int) -> None:
 def int8_decode_attention_chunked(q_s8: torch.Tensor, kt_cache: torch.Tensor,
                                   v_cache: torch.Tensor, length: Union[int, torch.Tensor],
                                   q_scale, k_scale, v_scale, *, chunk: int = 2048,
-                                  apply_sqrt_dh: bool = True,
-                                  quant_pv: bool = False) -> torch.Tensor:
+                                  apply_sqrt_dh: bool = True, quant_pv: bool = False,
+                                  alibi_slopes=None) -> torch.Tensor:
     """K7: single-token attention over a long INT8 cache -> (B, H, Dh) f32.
 
     The same function as ``int8_decode_attention_xla``, its plain version:
     with ``quant_pv`` the codes are taken against the global row max over
     all positions.  ``chunk`` is JAX's chunk, which must divide Smax; the
     kernel (K3's body under ``chunked_plan``) does not walk chunks.
-    ``length`` counts the valid positions per slot (each at least 1).  CPU
+    ``length`` counts the valid positions per slot (each at least 1).
+    ``alibi_slopes`` (H,) f32 adds slope[h] x position, as K3's (the ALiBi
+    engines route caches past DECODE_SHORT_SMAX here, JAX's to its K3).  CPU
     tensors take the plain version; CUDA tensors launch the kernel."""
     b, h, dh = q_s8.shape
     _, hk, _, smax = kt_cache.shape
@@ -455,7 +493,7 @@ def int8_decode_attention_chunked(q_s8: torch.Tensor, kt_cache: torch.Tensor,
         raise ValueError(f"Smax {smax} must be a multiple of the chunk {chunk}")
     if q_s8.device.type == "cpu":
         return int8_decode_attention_xla(q_s8, kt_cache, v_cache, length, q_scale, k_scale,
-                                         v_scale, apply_sqrt_dh, quant_pv)
+                                         v_scale, apply_sqrt_dh, quant_pv, alibi_slopes)
     dev = q_s8.device
     _cuda.require(q_s8, "q_s8", torch.int8, (b, h, dh), dev, align=4)
     _check_cache(kt_cache, v_cache, b, dh, dev)
@@ -466,7 +504,8 @@ def int8_decode_attention_chunked(q_s8: torch.Tensor, kt_cache: torch.Tensor,
     scales = _kernel_scales(q_scale, k_scale, v_scale, dh, apply_sqrt_dh)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     return _chunked_launch(q_s8, kt_cache, v_cache, lengths, scales, quant_pv,
-                           chunked_plan(b, hk, h // hk, dh, smax, sms))
+                           chunked_plan(b, hk, h // hk, dh, smax, sms),
+                           _slopes(alibi_slopes, h, dev))
 
 
 def paged_smem_bytes(dh: int, rep: int, npg: int, ps: int, cluster: int,

@@ -6,16 +6,21 @@ Port of ``dgq_tpu/serve.py``: the JSON-lines TCP server
 (``serving/paged.py``), loaded straight from a ``save_engine`` checkpoint
 (the port's or ``dgq_tpu``'s: the files are the same).  ``--kv-bits 4``
 serves either on the INT4 cache; ``--spec-k`` > 0 turns on prompt-lookup
-speculative decoding in the dense batcher.  The flags are
+speculative decoding in the dense batcher.  OPT, BLOOM and MPT checkpoints
+are served by the dense batcher over their family's device functions
+(``serving/family_batch_engine.batcher_from_checkpoint``); ``--paged``,
+``--tp``/``--pp``/``--dp`` > 1, ``--spec-k``, ``--admit-batch`` > 1 and
+``--kv-bits 4`` are LLaMA's and exit for them.  The flags are
 ``dgq_tpu.serve``'s; those of paths not ported yet (``--tp``/``--pp``/``--dp``
-> 1, non-LLaMA checkpoints, orbax directories) exit with a message naming
-the ROADMAP item.  As with JAX's ``--paged``, ``--spec-k`` and
-``--admit-batch`` are ignored there.  Runs on the GPU;
-``--cpu`` runs the plain versions on the CPU.
+> 1, Falcon and Mixtral checkpoints, orbax directories) exit with a message
+naming the ROADMAP item.  As with JAX's ``--paged``, ``--spec-k`` and
+``--admit-batch`` are ignored there.  Runs on the GPU; ``--cpu`` runs the
+plain versions on the CPU.
 
 Example:
     python -m dgq_tpu_torch.serve eng.safetensors --port 8471 --slots 8 --spec-k 4
     python -m dgq_tpu_torch.serve eng.safetensors --paged --kv-bits 4
+    python -m dgq_tpu_torch.serve mpt.safetensors --admit-batch 1
 """
 
 from __future__ import annotations
@@ -88,18 +93,28 @@ def _unported(args) -> str:
     if os.path.isdir(args.checkpoint):
         return ("orbax (sharded) engine checkpoints are not ported yet (ROADMAP Queue 1 item 1); "
                 "serve a save_engine safetensors file")
-    with open(args.checkpoint + ".json") as f:
-        arch = json.load(f).get("arch", "llama")
-    if arch == "opt":
-        return ("serving the opt engine takes the dense ContinuousBatcher (opt_batch_engine), "
-                "not ported yet (ROADMAP Queue 1 item 5); only llama checkpoints are served")
-    if arch != "llama":
-        return (f"the {arch} engine is not ported yet (ROADMAP Queue 1 item 5); "
-                "only llama checkpoints are served")
-    if args.tp > 1 or args.pp > 1 or args.dp > 1:
+    arch = _arch(args)
+    if arch in ("falcon", "mixtral"):
+        return (f"the {arch} engine is not ported yet (ROADMAP Queue 1 item 5); llama, opt, "
+                "bloom and mpt checkpoints are served")
+    if arch == "llama" and (args.tp > 1 or args.pp > 1 or args.dp > 1):
         return ("--tp/--pp/--dp > 1 (parallel serving) are not ported yet "
                 "(ROADMAP Queue 1 item 7)")
     return ""
+
+
+def _arch(args) -> str:
+    with open(args.checkpoint + ".json") as f:
+        return json.load(f).get("arch", "llama")
+
+
+# the options only the LLaMA engine serves, as JAX's serve rejects them for the other
+# families (and --kv-bits 4: their caches are INT8 only)
+def _llama_only(args) -> list:
+    flags = {"--paged": args.paged, "--tp": args.tp > 1, "--pp": args.pp > 1,
+             "--dp": args.dp > 1, "--spec-k": args.spec_k > 0,
+             "--admit-batch > 1": args.admit_batch > 1, "--kv-bits 4": args.kv_bits != 8}
+    return [flag for flag, on in flags.items() if on]
 
 
 def _read_prefix(path: str):
@@ -110,18 +125,32 @@ def _read_prefix(path: str):
 
 def build_server(args):
     """The BatcherServer over a ContinuousBatcher, or a PagedBatcher with
-    ``--paged``, of ``args.checkpoint``; exits with the ROADMAP item for
-    options not ported yet."""
+    ``--paged``, of ``args.checkpoint``; an OPT, BLOOM or MPT checkpoint
+    over the ContinuousBatcher with its family's device functions.  Exits
+    with the ROADMAP item for options not ported yet, and for LLaMA-only
+    options on another family's checkpoint."""
     from dgq_tpu_torch.models.engine import EngineConfig
+    from dgq_tpu_torch.serving.family_batch_engine import batcher_from_checkpoint
     from dgq_tpu_torch.serving.paged import PagedBatcher
     from dgq_tpu_torch.serving.scheduler import ContinuousBatcher
-    from dgq_tpu_torch.serving.server import BatcherServer
     from dgq_tpu_torch.utils.checkpoint import fp_scales_of, load_engine
 
     why = _unported(args)
     if why:
         raise SystemExit(f"dgq_tpu_torch.serve: {why}")
-    eng, cfg = load_engine(args.checkpoint, device="cpu" if args.cpu else "cuda")
+    device = "cpu" if args.cpu else "cuda"
+    arch = _arch(args)
+    if arch != "llama":
+        llama_only = _llama_only(args)
+        if llama_only:
+            raise SystemExit(f"dgq_tpu_torch.serve: {', '.join(llama_only)} are LLaMA-only; "
+                             f"checkpoint is {arch}")
+        _, batcher = batcher_from_checkpoint(
+            args.checkpoint, device=device, num_slots=args.slots, max_len=args.max_len,
+            prefill_pad=min(args.prefill_pad, args.max_len), prefill_chunk=args.prefill_chunk,
+            decode_steps=args.decode_steps)
+        return _serve(args, batcher)
+    eng, cfg = load_engine(args.checkpoint, device=device)
     ecfg = EngineConfig(cfg=cfg, kv_bits=args.kv_bits, fp_scales=fp_scales_of(eng))
     if args.paged:
         chunk = (args.prefill_chunk // args.page_size) * args.page_size  # page-align
@@ -137,6 +166,14 @@ def build_server(args):
             prefill_chunk=args.prefill_chunk, admit_batch=args.admit_batch,
             decode_steps=args.decode_steps, spec_k=args.spec_k,
         )
+    return _serve(args, batcher)
+
+
+def _serve(args, batcher):
+    """The BatcherServer over ``batcher``, with the ``--prefix`` files
+    registered."""
+    from dgq_tpu_torch.serving.server import BatcherServer
+
     for path in args.prefix or ():
         ids = _read_prefix(path)
         batcher.register_prefix(ids)

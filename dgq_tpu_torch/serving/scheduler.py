@@ -10,8 +10,10 @@ window) advances every active slot, and a finished request frees its slot
 at once.
 
 A host-side control loop around the device functions of
-``serving/batch_engine.py``.  Every scheduling decision reads the host
-mirror ``lengths_h`` of the device lengths, never the device tensor.
+``serving/batch_engine.py``, or of another engine family's namespace handed
+in as ``fns`` (``serving/opt_batch_engine.opt_serving_fns``,
+``serving/family_batch_engine``'s).  Every scheduling decision reads the
+host mirror ``lengths_h`` of the device lengths, never the device tensor.
 """
 
 from __future__ import annotations
@@ -96,7 +98,13 @@ class ContinuousBatcher:
     (an EWMA) fall below ``spec_cost_ratio``, a verify step's cost in plain
     steps.  A failing step rebuilds the cache from host history and
     retries, up to ``max_recoveries`` times.  The cache precision follows
-    ``ecfg.kv_bits``.  Runs on the device of the parameters."""
+    ``ecfg.kv_bits``.  ``fns`` makes the scheduler family-generic, as JAX's:
+    a namespace of the device functions ``engine_prefill_slot``,
+    ``engine_prefill_chunk``, ``engine_decode_batched``,
+    ``engine_decode_multi``, ``copy_prefix_into_slot`` and
+    ``init_batched_cache`` of another engine family (the batched prefill and
+    the speculative functions only where it has them: keep ``admit_batch=1``
+    and ``spec_k=0`` otherwise).  Runs on the device of the parameters."""
 
     def __init__(self, ecfg: EngineConfig, params: EngineParams, *, num_slots: int = 8,
                  max_len: int = 2048, prefill_pad: int = 128, prefill_chunk: int = 0,
@@ -104,9 +112,12 @@ class ContinuousBatcher:
                  spec_max_ngram: int = 3, spec_adaptive: bool = True,
                  spec_cost_ratio: float = 1.35, spec_probe_every: int = 256,
                  max_recoveries: int = 3, mesh=None, fns=None):
-        if mesh is not None or fns is not None:
-            raise NotImplementedError("tensor- and pipeline-parallel serving (mesh, fns) is not "
+        if mesh is not None:
+            raise NotImplementedError("tensor- and pipeline-parallel serving (mesh) is not "
                                       "ported yet (ROADMAP Queue 1 item 7)")
+        # the device functions' namespace: another family's, or (None) this
+        # module's globals, looked up at each call (tests monkeypatch them)
+        self._f = fns
         self.ecfg = ecfg
         self.params = params
         self.device = params.embed_tokens.device
@@ -169,9 +180,16 @@ class ContinuousBatcher:
         ecfg = EngineConfig(cfg=cfg, kv_bits=kv_bits, fp_scales=fp_scales_of(eng))
         return cls(ecfg, eng, **kw)
 
+    def _fn(self, name: str):
+        """Device function by name: from ``fns`` when given, else this
+        module's global (late-bound, as JAX's)."""
+        if self._f is not None:
+            return getattr(self._f, name)
+        return globals()[name]
+
     def _new_cache(self):
-        return init_batched_cache(self.ecfg.cfg, self.num_slots, self.max_len,
-                                  kv_bits=self.ecfg.kv_bits, device=self.device)
+        return self._fn("init_batched_cache")(self.ecfg.cfg, self.num_slots, self.max_len,
+                                              kv_bits=self.ecfg.kv_bits, device=self.device)
 
     def _t(self, kind: str, t0: float) -> None:
         """Add the host time since ``t0`` to ``kind``: dispatch:* queues
@@ -241,9 +259,9 @@ class ContinuousBatcher:
         if len(ids) + 1 >= self.max_len or padded_len > self.max_len:
             raise ValueError(f"prefix of {len(ids)} tokens (padded {padded_len}) leaves no room "
                              f"in max_len={self.max_len}")
-        tmp = init_batched_cache(self.ecfg.cfg, 1, self.max_len, kv_bits=self.ecfg.kv_bits,
-                                 device=self.device)
-        _, tmp = engine_prefill_slot(self.ecfg, self.params, 0,
+        tmp = self._fn("init_batched_cache")(self.ecfg.cfg, 1, self.max_len,
+                                             kv_bits=self.ecfg.kv_bits, device=self.device)
+        _, tmp = self._fn("engine_prefill_slot")(self.ecfg, self.params, 0,
                                      torch.from_numpy(self._pad_prompt(ids)), len(ids), tmp)
         if self._prefix is None:
             self._prefix = []
@@ -282,7 +300,7 @@ class ContinuousBatcher:
         if n + len(padded) > self.max_len:
             return False  # the remainder's padding would overrun: the normal path
         try:
-            self.cache = copy_prefix_into_slot(self.cache, slot, pre["k"], pre["v"], n)
+            self.cache = self._fn("copy_prefix_into_slot")(self.cache, slot, pre["k"], pre["v"], n)
             if self.prefill_chunk and len(padded) > self.prefill_chunk:
                 # long remainder: the rest goes through the chunk machinery,
                 # at absolute positions from the prefix length
@@ -291,9 +309,8 @@ class ContinuousBatcher:
                 self.lengths_h[slot] = n
                 self.prefix_hits += 1
                 return True
-            logits, self.cache = engine_prefill_chunk(self.ecfg, self.params, slot,
-                                                      torch.from_numpy(padded), n, len(rem),
-                                                      self.cache)
+            logits, self.cache = self._fn("engine_prefill_chunk")(
+                self.ecfg, self.params, slot, torch.from_numpy(padded), n, len(rem), self.cache)
             tok = self._pick_token(req, logits[None, :])
         except Exception:
             self.slots[slot] = None
@@ -428,9 +445,9 @@ class ContinuousBatcher:
             assert req.output_ids, "live non-pending slot must have a token"
             hist = np.concatenate([np.asarray(req.prompt_ids, np.int32),
                                    np.asarray(req.output_ids[:-1], np.int32)])
-            _, self.cache = engine_prefill_slot(self.ecfg, self.params, slot,
-                                                torch.from_numpy(self._pad_prompt(hist)),
-                                                len(hist), self.cache)
+            _, self.cache = self._fn("engine_prefill_slot")(
+                self.ecfg, self.params, slot, torch.from_numpy(self._pad_prompt(hist)), len(hist),
+                self.cache)
             self.next_tokens[slot] = req.output_ids[-1]
             self.lengths_h[slot] = len(hist)
 
@@ -554,8 +571,8 @@ class ContinuousBatcher:
             ids[s, 0] = self.next_tokens[s]
             ids[s, 1:] = ngram_propose(hist, k, max_ngram=self.spec_max_ngram)
         t0 = time.time()
-        logits, self.cache = engine_verify_batched(self.ecfg, self.params, self._dev(ids),
-                                                   self.cache)
+        logits, self.cache = self._fn("engine_verify_batched")(self.ecfg, self.params,
+                                                               self._dev(ids), self.cache)
         self._t("dispatch:spec_verify", t0)
         self._next_dev_ok = False
         t0 = time.time()
@@ -593,7 +610,7 @@ class ContinuousBatcher:
             active[s] = True
         tok0, step0 = self.spec_stats["tokens"], self.spec_stats["steps"]
         t0 = time.time()
-        _, _, _, self.cache, outs, n_outs = engine_spec_decode_multi(
+        _, _, _, self.cache, outs, n_outs = self._fn("engine_spec_decode_multi")(
             self.ecfg, self.params, self._dev(bufs), self._dev(lens), self._dev(self.next_tokens),
             self.cache, self._dev(active), n, spec_k=k, max_ngram=self.spec_max_ngram)
         self._t("dispatch:spec_multi", t0)
@@ -668,16 +685,16 @@ class ContinuousBatcher:
         t0 = time.time()
         if len(group) == 1:
             slot, req, padded = group[0]
-            logits, self.cache = engine_prefill_slot(self.ecfg, self.params, slot,
-                                                     torch.from_numpy(padded),
-                                                     len(req.prompt_ids), self.cache)
+            logits, self.cache = self._fn("engine_prefill_slot")(
+                self.ecfg, self.params, slot, torch.from_numpy(padded), len(req.prompt_ids),
+                self.cache)
             rows = logits[None, :]
         else:
             s_max = max(len(p) for _, _, p in group)
             ids = np.zeros((len(group), s_max), np.int32)
             for i, (_, _, p) in enumerate(group):
                 ids[i, :len(p)] = p
-            rows, self.cache = engine_prefill_batched(
+            rows, self.cache = self._fn("engine_prefill_batched")(
                 self.ecfg, self.params, [s for s, _, _ in group], torch.from_numpy(ids),
                 [len(r.prompt_ids) for _, r, _ in group], self.cache)
         self._t("dispatch:prefill", t0)
@@ -712,8 +729,8 @@ class ContinuousBatcher:
         valid = min(true_len, end) - pos
         assert valid >= 1, (pos, end, true_len)  # the walk stops at the prompt's end
         t0 = time.time()
-        logits, self.cache = engine_prefill_chunk(self.ecfg, self.params, slot,
-                                                  torch.from_numpy(chunk), pos, valid, self.cache)
+        logits, self.cache = self._fn("engine_prefill_chunk")(
+            self.ecfg, self.params, slot, torch.from_numpy(chunk), pos, valid, self.cache)
         self._t("dispatch:prefill_chunk", t0)
         st["pos"] = end
         self.lengths_h[slot] = pos + valid
@@ -732,9 +749,8 @@ class ContinuousBatcher:
         active = np.asarray([r is not None and s not in self.pending
                              for s, r in enumerate(self.slots)])
         t0 = time.time()
-        logits, self.cache = engine_decode_batched(self.ecfg, self.params,
-                                                   self._dev(self.next_tokens), self.cache,
-                                                   self._dev(active))
+        logits, self.cache = self._fn("engine_decode_batched")(
+            self.ecfg, self.params, self._dev(self.next_tokens), self.cache, self._dev(active))
         self._t("dispatch:decode", t0)
         self._next_dev_ok = False
         self.lengths_h += active.astype(np.int32)
@@ -780,8 +796,8 @@ class ContinuousBatcher:
         chained through the device token vector, before reading window N)."""
         active_mask = np.asarray([r is not None for r in self.slots])
         t0 = time.time()
-        toks, self.cache = engine_decode_multi(self.ecfg, self.params, self._next_tokens_dev(),
-                                               self.cache, self._dev(active_mask), n)
+        toks, self.cache = self._fn("engine_decode_multi")(
+            self.ecfg, self.params, self._next_tokens_dev(), self.cache, self._dev(active_mask), n)
         self._t("dispatch:decode_multi", t0)
         self.lengths_h += np.where(active_mask, n, 0).astype(np.int32)
         # inactive rows carry their token through: toks[-1] is the whole vector

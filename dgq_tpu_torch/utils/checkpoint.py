@@ -1,5 +1,5 @@
-"""Engine checkpoints: ``save_engine`` / ``load_engine`` for ``arch`` "llama"
-and "opt".
+"""Engine checkpoints: ``save_engine`` / ``load_engine`` for ``arch`` "llama",
+"opt", "bloom" and "mpt", and ``load_engine_any``.
 
 Port of ``dgq_tpu/utils/checkpoint.py:223-248`` and ``:402-511``: one
 safetensors file of flat ``/``-joined keys (``layers/qkv_proj/qw_rp``, ...)
@@ -19,12 +19,16 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
+from dgq_tpu_torch.models.bloom import BloomConfig
+from dgq_tpu_torch.models.bloom_engine import BloomEngineLayer, BloomEngineParams
 from dgq_tpu_torch.models.engine import EngineLayer, EngineLinear, EngineParams, map_tensors
 from dgq_tpu_torch.models.llama import LlamaConfig
+from dgq_tpu_torch.models.mpt import MPTConfig
+from dgq_tpu_torch.models.mpt_engine import MPTEngineLayer, MPTEngineParams
 from dgq_tpu_torch.models.opt import OPTConfig
 from dgq_tpu_torch.models.opt_engine import OPTEngineLayer, OPTEngineParams
 
-ARCHS = ("llama", "opt")
+ARCHS = ("llama", "opt", "bloom", "mpt")
 
 _DTYPES = {
     "I8": torch.int8,
@@ -94,8 +98,9 @@ def _flatten(prefix: str, tree, out: Dict[str, torch.Tensor]) -> None:
 
 
 def engine_arrays(eng) -> Dict[str, torch.Tensor]:
-    """EngineParams or OPTEngineParams -> flat ``/``-joined keys, as JAX's
-    save_engine names them (None fields are left out)."""
+    """EngineParams, OPTEngineParams, BloomEngineParams or MPTEngineParams ->
+    flat ``/``-joined keys, as JAX's save_engine names them (None fields are
+    left out)."""
     out: Dict[str, torch.Tensor] = {}
     for f in dataclasses.fields(eng):
         value = getattr(eng, f.name)
@@ -105,14 +110,17 @@ def engine_arrays(eng) -> Dict[str, torch.Tensor]:
 
 
 def _check_arch(arch: str) -> None:
+    if arch in ("falcon", "mixtral"):
+        raise NotImplementedError(f"arch {arch!r}: the falcon and mixtral engines are not "
+                                  "ported yet (ROADMAP Queue 1 item 5)")
     if arch not in ARCHS:
-        raise NotImplementedError(f"arch {arch!r}: only the {' and '.join(ARCHS)} engines are "
-                                  "ported (ROADMAP Queue 1 item 5)")
+        raise ValueError(f"unknown arch {arch!r}")
 
 
 def save_engine(path: str, eng, cfg, arch: str = "llama") -> None:
-    """Write ``eng`` (EngineParams for "llama", OPTEngineParams for "opt")
-    and its ``<path>.json`` manifest, as JAX's save_engine does."""
+    """Write ``eng`` (EngineParams for "llama", OPTEngineParams for "opt",
+    BloomEngineParams for "bloom", MPTEngineParams for "mpt") and its
+    ``<path>.json`` manifest, as JAX's save_engine does."""
     _check_arch(arch)
     write_safetensors(path, engine_arrays(eng))
     manifest = {"format_version": 1, "kind": "engine", "arch": arch,
@@ -197,18 +205,47 @@ def _move(x: torch.Tensor, device) -> torch.Tensor:
     return x.to(device).contiguous()
 
 
+def _span_params_from_arrays(cls, layer_cls, lins, tensors: Mapping[str, object], device):
+    """``cls`` (a span-only engine's params: OPT, BLOOM, MPT) from arrays
+    (numpy or torch) under save_engine's keys; the linears ``lins`` keep
+    their span-only storage, as JAX loads them."""
+    t = {k: _to_tensor(v) for k, v in tensors.items()}
+    layers = layer_cls(**{
+        name: _stored_linear(t, f"layers/{name}") if name in lins else t[f"layers/{name}"]
+        for name in layer_cls._fields})
+    top = {f.name: _move(t[f.name], device) for f in dataclasses.fields(cls)
+           if f.name != "layers"}
+    return cls(layers=map_tensors(lambda x: _move(x, device), layers), **top)
+
+
 def opt_engine_params_from_arrays(tensors: Mapping[str, object],
                                   device="cuda") -> OPTEngineParams:
-    """OPTEngineParams from arrays (numpy or torch) under save_engine's keys;
-    the linears keep their span-only storage, as JAX loads them."""
-    t = {k: _to_tensor(v) for k, v in tensors.items()}
-    lins = ("qkv_proj", "out_proj", "fc1", "fc2")
-    layers = OPTEngineLayer(**{
-        name: _stored_linear(t, f"layers/{name}") if name in lins else t[f"layers/{name}"]
-        for name in OPTEngineLayer._fields})
-    top = {f.name: _move(t[f.name], device) for f in dataclasses.fields(OPTEngineParams)
-           if f.name != "layers"}
-    return OPTEngineParams(layers=map_tensors(lambda x: _move(x, device), layers), **top)
+    """OPTEngineParams from arrays (numpy or torch) under save_engine's keys."""
+    return _span_params_from_arrays(OPTEngineParams, OPTEngineLayer,
+                                    ("qkv_proj", "out_proj", "fc1", "fc2"), tensors, device)
+
+
+def bloom_engine_params_from_arrays(tensors: Mapping[str, object],
+                                    device="cuda") -> BloomEngineParams:
+    """BloomEngineParams from arrays (numpy or torch) under save_engine's
+    keys, e.g. JAX's ``BloomEngineParams`` flattened as its save_engine
+    names them."""
+    return _span_params_from_arrays(BloomEngineParams, BloomEngineLayer,
+                                    ("qkv_proj", "dense", "fc1", "fc2"), tensors, device)
+
+
+def mpt_engine_params_from_arrays(tensors: Mapping[str, object],
+                                  device="cuda") -> MPTEngineParams:
+    """MPTEngineParams from arrays (numpy or torch) under save_engine's keys."""
+    return _span_params_from_arrays(MPTEngineParams, MPTEngineLayer,
+                                    ("qkv_proj", "out_proj", "up_proj", "down_proj"), tensors,
+                                    device)
+
+
+# arch -> (its config, its params from save_engine's arrays) for the span-only engines
+_SPAN_ARCHS = {"opt": (OPTConfig, opt_engine_params_from_arrays),
+               "bloom": (BloomConfig, bloom_engine_params_from_arrays),
+               "mpt": (MPTConfig, mpt_engine_params_from_arrays)}
 
 
 LINEARS = ("qkv_proj", "o_proj", "gate_up_proj", "down_proj")
@@ -229,15 +266,28 @@ def fp_scales_of(eng: EngineParams) -> bool:
 
 
 def load_engine(path: str, device="cuda"):
-    """(engine params, model config) from a save_engine checkpoint:
-    (EngineParams, LlamaConfig) or, for ``arch == "opt"``, (OPTEngineParams,
-    OPTConfig)."""
+    """(engine params, model config) from a save_engine checkpoint, the
+    family read from the manifest's ``arch``: (EngineParams, LlamaConfig),
+    (OPTEngineParams, OPTConfig), (BloomEngineParams, BloomConfig) or
+    (MPTEngineParams, MPTConfig)."""
     with open(path + ".json") as f:
         manifest = json.load(f)
     arch = manifest.get("arch", "llama")
     _check_arch(arch)
-    if arch == "opt":
-        cfg = OPTConfig(**manifest["model_config"])
-        return opt_engine_params_from_arrays(read_safetensors(path), device), cfg
+    if arch in _SPAN_ARCHS:
+        cfg_cls, from_arrays = _SPAN_ARCHS[arch]
+        return from_arrays(read_safetensors(path), device), cfg_cls(**manifest["model_config"])
     cfg = LlamaConfig(**manifest["model_config"])
     return engine_params_from_arrays(read_safetensors(path), manifest["rms_eps"], device), cfg
+
+
+def load_engine_any(path: str, device="cuda"):
+    """Engine-checkpoint loader dispatch, as JAX's: a file is a save_engine
+    checkpoint of any ported family (``load_engine``, by the manifest's
+    ``arch``); a directory is an orbax checkpoint, not ported yet."""
+    import os
+
+    if os.path.isdir(path):
+        raise NotImplementedError("orbax (sharded) engine checkpoints are not ported yet "
+                                  "(ROADMAP Queue 1 item 1); load a save_engine safetensors file")
+    return load_engine(path, device)

@@ -10,6 +10,8 @@ tests/test_kv4.py asserts for JAX's.  Weights come from dgq_tpu's synthetic
 builder and are carried across with engine_params_from_arrays; prompts are
 numpy-seeded."""
 
+from types import SimpleNamespace
+
 import jax
 import numpy as np
 import pytest
@@ -22,6 +24,7 @@ from dgq_tpu.serving.scheduler import ContinuousBatcher as JBatcher
 from dgq_tpu.serving.scheduler import Request as JRequest
 from dgq_tpu_torch.models import engine as teng
 from dgq_tpu_torch.models.llama import LlamaConfig
+from dgq_tpu_torch.serving import batch_engine as tbatch
 from dgq_tpu_torch.serving import paged as tpaged
 from dgq_tpu_torch.serving import scheduler as tsched
 from dgq_tpu_torch.serving.scheduler import ContinuousBatcher, Request
@@ -205,9 +208,18 @@ def test_unported_options_raise(engines):
     assert got == want and tb.spec_k == 2 and tb.spec_stats == jb.spec_stats
     assert tb.spec_stats["steps"] > 0
     _, tparams = engines
-    for kw in (dict(mesh=object()), dict(fns=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
-            _port(tparams, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
+        _port(tparams, mesh=object())
+    # fns is ported: the LLaMA functions handed in as a namespace give JAX's tokens (the
+    # OPT, BLOOM and MPT namespaces are in tests/test_torch_family.py)
+    fns = SimpleNamespace(**{name: getattr(tbatch, name) for name in (
+        "engine_prefill_slot", "engine_prefill_chunk", "engine_decode_batched",
+        "engine_decode_multi", "copy_prefix_into_slot", "init_batched_cache")})
+    want = _run_both(engines, prompts, 8, decode_steps=2, prefill_chunk=8)["jax"][1]
+    b = _port(tparams, fns=fns, decode_steps=2, prefill_chunk=8)
+    for i, p in enumerate(prompts):
+        b.add_request(Request(uid=i, prompt_ids=p.copy(), max_new_tokens=8))
+    assert {r.uid: r.output_ids for r in b.run()} == want and b._f is fns
     with pytest.raises(ValueError, match="does not fit"):
         _port(tparams).add_request(Request(uid=0, prompt_ids=np.zeros(64, np.int32),
                                            max_new_tokens=2))

@@ -221,12 +221,17 @@ def test_unported_configurations_raise():
     for kw in (dict(mesh=object()), dict(fns=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
             paged.PagedBatcher(teng.EngineConfig(cfg=cfg), eng, max_len=64, page_size=16, **kw)
-    with pytest.raises(NotImplementedError, match="ALiBi"):
-        s = torch.tensor(0.02)
-        tat.int8_decode_attention(torch.zeros((1, 2, 64), dtype=torch.int8),
-                                  torch.zeros((1, 2, 64, 8), dtype=torch.int8),
-                                  torch.zeros((1, 2, 8, 64), dtype=torch.int8), 1, s, s, s,
-                                  alibi_slopes=torch.ones(2))
+    # ALiBi is ported (K2, K3, K7): CPU tensors take the plain version with the
+    # bias, no launch (tests/test_torch_alibi.py holds it against JAX)
+    s = torch.tensor(0.02)
+    args = (torch.ones((1, 2, 64), dtype=torch.int8), torch.ones((1, 2, 64, 8), dtype=torch.int8),
+            torch.arange(16, dtype=torch.int8).reshape(1, 2, 8, 1).expand(1, 2, 8, 64), 8, s, s,
+            s)
+    _cuda.reset_launches()
+    got = tat.int8_decode_attention(*args, alibi_slopes=torch.ones(2))
+    assert torch.equal(got, tat.int8_decode_attention_xla(*args, alibi_slopes=torch.ones(2)))
+    assert not torch.equal(got, tat.int8_decode_attention(*args))
+    assert all(n == 0 for n in _cuda.LAUNCHES.values())
 
 
 def test_probe_wrappers_take_plain_versions_on_cpu_without_launches():

@@ -189,12 +189,13 @@ def test_unported_options_exit_with_roadmap_item(ckpt, extra, item):
 
 
 def test_unported_checkpoints_exit_with_roadmap_item(tmp_path):
+    # OPT, BLOOM and MPT checkpoints are served (tests/test_torch_family.py); Falcon's is not
     orbax = tmp_path / "orbax_ckpt"
     orbax.mkdir()
-    opt = tmp_path / "opt.safetensors"
-    opt.write_bytes(b"")
-    (tmp_path / "opt.safetensors.json").write_text(json.dumps({"arch": "opt"}))
-    for path, item in ((orbax, "Queue 1 item 1"), (opt, "Queue 1 item 5")):
+    falcon = tmp_path / "falcon.safetensors"
+    falcon.write_bytes(b"")
+    (tmp_path / "falcon.safetensors.json").write_text(json.dumps({"arch": "falcon"}))
+    for path, item in ((orbax, "Queue 1 item 1"), (falcon, "Queue 1 item 5")):
         args = tserve.build_parser().parse_args([str(path), "--paged", "--cpu"])
         with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
             tserve.build_server(args)
