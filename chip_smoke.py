@@ -79,7 +79,16 @@ It imports no JAX.  Phases, each printing one JSON line with its seconds:
    ``chunked_candidates``, each held against its plain version at K2's, K3's
    and K7's tolerances and timed beside the same kernel without ALiBi on
    the same inputs (``twin_ms``) and bf16 SDPA with the bias as an additive
-   mask.  Then
+   mask.  Then K3's and K7's split kernels (any number of query heads a kv
+   head over virtual kv heads of 4 or 8 rows, the last with its live rows):
+   K3 at K3_SPLIT_CASES (Falcon-7B's serving decode: 8 slots, 71 query heads
+   on one kv head, Dh 64, lengths 1-2048; and 48 heads on 8 at Dh 128), both
+   p @ V rules, every cluster of DECODE_CLUSTERS whose block holds the rows,
+   and K7 at K7_SPLIT_CASES (Falcon-7B's heads at 16,384 positions) under
+   every plan of ``chunked_candidates``, each held against its plain version
+   at K3's and K7's tolerances and timed beside it, bf16 SDPA on the same
+   cache and the bound (K and V counted once); their ALiBi kernels held at
+   the same shapes (timed once; no path runs them).  Then
    K12 ``fused_norm_gemv``, ``fused_requant_gemv`` and ``fused_mlp_decode``
    (which also serve K13's names) on span weights at K4-K6's shapes and row
    counts, held as K4-K6 are against their plain versions and, by their
@@ -125,17 +134,19 @@ It imports no JAX.  Phases, each printing one JSON line with its seconds:
    requests' tokens equal ``generate`` of the request alone, with the first
    token that differs.
 8. serve_kv4: the paged daemon on INT4 nibble pages (``--paged --kv-bits
-   4``) on the same 7B checkpoint with the first 12 of serve's requests (one
+   4``) on a 7B checkpoint cut to SERVE_LAYERS (16) layers, as are
+   serve_dense's, serve_spec's and serve_fpscale's (to keep the run within 1,200 s),
+   with the first 12 of serve's requests (one
    streaming request cancelled): the served tokens must equal a direct
-   ``PagedBatcher(kv_bits=4).run()``, K11 must run 32 times per decode
+   ``PagedBatcher(kv_bits=4).run()``, K11 must run once a layer per decode
    forward and K8, K3, K7 and K2 never, ``kv_bytes_per_token`` must be
-   131,072 (half the INT8 pool's), and a pool of 40 pages must preempt and
+   half the INT8 pool's, and a pool of 40 pages must preempt and
    finish every request.  Also a profiled 8-slot decode step.
 9. serve_dense: the daemon without ``--paged`` (the dense
    ``ContinuousBatcher``, CLI defaults: 8 slots, max-len 2048, admit-batch
    4, prefill-chunk 512) with the same 12 requests and the prefix: the
    served tokens must equal a direct ``ContinuousBatcher.run()`` and one
-   with ``decode_steps=4``; K3 and each of K4-K6 must run 32 times per
+   with ``decode_steps=4``; K3 and each of K4-K6 must run once a layer per
    decode forward.  Then a direct ``ContinuousBatcher`` run with INT4 KV,
    reported (not gated) against serve_kv4's tokens: K11 and the plain
    attention sum in different orders.
@@ -163,8 +174,8 @@ It imports no JAX.  Phases, each printing one JSON line with its seconds:
    ``spec_adaptive=False``, and a profiled 8-slot verify step (its plain
    attention also timed alone at the step's shapes).
 14. serve_fpscale: the dense daemon on an fp-scale checkpoint
-   (``save_engine`` of ``build_llama_engine(fp_scales=True)``, 7B width
-   and depth) with the first 4 of serve_dense's requests, all queued before
+   (``save_engine`` of ``build_llama_engine(fp_scales=True)``, 7B width,
+   SERVE_LAYERS layers) with the first 4 of serve_dense's requests, all queued before
    its first step: ``serve`` takes ``fp_scales`` from the stored scales; the
    served tokens must equal a direct ``ContinuousBatcher.run()`` with
    ``EngineConfig(fp_scales=True)``; K10 and K2 run, K3 once per layer of
@@ -228,14 +239,35 @@ It imports no JAX.  Phases, each printing one JSON line with its seconds:
 19. main_mpt: the same on ``MPTConfig()`` (MPT-7B: 32 layers, d_model 4096,
    32 heads, ffn 16384, vocab 50368), then prefill and 8 tokens in a cache
    of 16384: K7 with ALiBi at every decode step (32 x 7 launches).
-20. serve_family: the dense daemon with ``--admit-batch 1`` on a
-   ``save_engine`` checkpoint of OPT-6.7B, then one of MPT-7B (the
+20. main_falcon: ``build_falcon_engine(FalconConfig())`` (Falcon-7B: 32
+   layers, hidden 4544, 71 query heads on 1 kv head, vocab 65024;
+   groupsize 32, the largest at which hidden 4544 packs in spans; random
+   weights from seed 0), prefill of 4 x 256 tokens and 32 greedy tokens
+   through ``falcon_engine_forward`` in a cache of 2048 (plain attention at
+   every window, as the reference's engine), launches counted (K9 4 a layer
+   a forward, nothing else) and by the profiler's names, a timed replay, a
+   profiled decode step, the peak memory, the kernel path against the
+   plain path under teacher forcing (as main_bloom's); then its batched
+   serving decode (``family_batcher("falcon")``) at a cache of 16384: K7's
+   split kernel once a layer of every decode forward.
+21. main_mixtral: the same on ``MixtralConfig()`` (Mixtral-8x7B: 32 layers,
+   hidden 4096, 8 experts of ffn 14336, top 2, 32 query heads on 8 kv
+   heads, vocab 32000, rope theta 1e6; groupsize 128; ~29 GB of weights):
+   K9 18 a layer a forward (q|k|v, o_proj, each expert's w1|w3 and w2), K2
+   at the prefill, K3 at every decode step, also by the profiler's names;
+   under teacher forcing also the experts' agreement per (layer, token);
+   then two layers at full width with fp32 group scales (``fp_scales``: K10
+   for every linear, the experts' too) held against the plain path.
+22. serve_family: the dense daemon with ``--admit-batch 1`` on a
+   ``save_engine`` checkpoint of OPT-6.7B, MPT-7B, Falcon-7B, then one of
+   Mixtral-8x7B cut to SERVE_MIXTRAL_LAYERS layers at full width (the
    ``ContinuousBatcher`` over the family's ``fns``), 8 slots, serve_dense's
    12 requests and the prefix, one streaming request cancelled: the served
    tokens must equal a direct ``batcher_from_checkpoint(...).run()`` on the
-   same checkpoint; K3 (OPT) or K3 with ALiBi (MPT) once per layer of every
-   decode forward; client tok/s, TTFT and e2e p50/p95.
-21. bench: ``python -m dgq_tpu_torch.bench`` (BENCH_ARGS) in a subprocess:
+   same checkpoint; K3 (OPT, Mixtral), K3 with ALiBi (MPT) or K3's split
+   kernel (Falcon) once per layer of every decode forward; client tok/s,
+   TTFT and e2e p50/p95.
+23. bench: ``python -m dgq_tpu_torch.bench`` (BENCH_ARGS) in a subprocess:
    exactly one line on stdout, a numeric value, no ``degraded``, the card's
    name, K9 and K1 launched by its GEMM round; its launches summed over its
    stages are the bench path's.
@@ -248,6 +280,7 @@ last line.  Details go to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import functools
 import itertools
 import json
@@ -276,9 +309,13 @@ SERVE_REQUESTS, SERVE_NEW, PREFIX_LEN, TIGHT_PAGES = 24, 64, 300, 49
 # prefix's 3 and less than the 46 the first 8 requests reach
 SERVE_KV4, SERVE_DENSE, TIGHT_PAGES_KV4 = 12, 12, 41
 SPEC_K = 4  # speculative drafts per step (main_span, serve_spec)
-# serve's report of each request's tokens against ``generate`` of it alone: the first 8 (all
+# serve's report of each request's tokens against ``generate`` of it alone: the first 4 (all
 # 24 took 82 s of a run on a slow host)
-ALONE_REQUESTS = 8
+ALONE_REQUESTS = 4
+# serve_kv4, serve_dense, serve_spec and serve_fpscale run LLaMA-2-7B at full width cut to this
+# depth, and serve_family OPT-6.7B and MPT-7B: the Falcon and Mixtral phases brought the run to
+# 1,051 s of its 1,200 s limit on a slow host (serve, the paged daemon, keeps full depth)
+SERVE_LAYERS = 16
 # K1 and K9 run the shared main loop (gemm_sm90) and, when K is split, splitk_combine; each
 # instantiation names its loader
 K1_NAMES = ["RowpairLoader"]
@@ -301,10 +338,18 @@ K2_ALIBI_NAMES = ["prefill_attn_sm90<128, true>", "prefill_attn_sm90<64, true>"]
 K2_PLAIN_NAMES = ["prefill_attn_sm90<128, false>", "prefill_attn_sm90<64, false>"]
 K3_ALIBI_NAMES = ["decode_attn_alibi_cluster"]
 K7_ALIBI_NAMES = ["long_attn_alibi_cluster"]
+# K3's and K7's split kernels (any number of query heads a kv head: Falcon-7B's 71 on one),
+# with and without ALiBi
+K3_SPLIT_NAMES = ["decode_attn_split_cluster"]
+K7_SPLIT_NAMES = ["long_attn_split_cluster"]
+K3_SPLIT_ALIBI_NAMES = ["decode_attn_split_alibi_cluster"]
+K7_SPLIT_ALIBI_NAMES = ["long_attn_split_alibi_cluster"]
 # K8 and K11: K3's body over the page pool (csrc/paged_decode_attention.cu), one kernel each
 # (INT8 or nibble pages: its KV4 template argument)
 K8_NAMES = K11_NAMES = ["paged_attn_cluster"]
 K9_NAMES = ["SpanLoader"]
+K9_MAIN = [("gemm_sm90", "SpanLoader")]  # K9's main loop alone, not its split-K combine
+K10_MAIN = [("gemm_sm90", "SpanCodesLoader")]
 K10_NAMES = ["SpanCodesLoader"]  # the shared loop and its split combine, K10's loader
 FUSED_ROWS = (BATCH, 40)  # a decode step; 8 slots x a 5-token verify window
 # (N, K) of the four linears of a LLaMA-2-7B layer (F padded to 11264)
@@ -567,6 +612,8 @@ def phase_build(torch, state):
     k3_log = (_cuda.BUILD_DIR / "int8_decode_attention.log").read_text()
     ptxas["int8_decode_attention"] = _ptxas_entries(k3_log, "decode_attn_cluster")
     ptxas["int8_decode_attention_alibi"] = _ptxas_entries(k3_log, "decode_attn_alibi_cluster")
+    for marker in ("decode_attn_split_cluster", "decode_attn_split_alibi_cluster"):
+        ptxas[marker] = _ptxas_entries(k3_log, marker, bools=True)
     p5_log = (_cuda.BUILD_DIR / "quant_pv_parts_attention.log").read_text()
     ptxas["quant_pv_parts_attention"] = _ptxas_entries(p5_log, "pv_parts_cluster")
     paged_log = (_cuda.BUILD_DIR / "paged_decode_attention.log").read_text()
@@ -576,6 +623,10 @@ def phase_build(torch, state):
     long_alibi_log = (_cuda.BUILD_DIR / "long_decode_attention_alibi.log").read_text()
     ptxas["long_decode_attention_alibi"] = _ptxas_entries(long_alibi_log,
                                                           "long_attn_alibi_cluster", bools=True)
+    ptxas["long_attn_split_cluster"] = _ptxas_entries(long_log, "long_attn_split_cluster",
+                                                      bools=True)
+    ptxas["long_attn_split_alibi_cluster"] = _ptxas_entries(
+        long_alibi_log, "long_attn_split_alibi_cluster", bools=True)
     return {"nvcc_seconds": seconds, "nvcc": nvcc, "no_c7515": list(WGMMA_SOURCES),
             "igmma_kernels_pipelined": igmma_kernels, "ptxas": ptxas}
 
@@ -1889,6 +1940,139 @@ def _k7_alibi_cases(torch, timer, gen):
     return cases
 
 
+# K3's split kernels: (B, H, Hkv, Dh, lengths): Falcon-7B's serving decode (8 slots, 71 query
+# heads on one kv head, Dh 64, lengths 1 to the whole cache) and a GQA rep that is no power of
+# two (48 query heads on 8, Dh 128)
+FALCON_LENGTHS = tuple(1 + (SMAX - 1) * i // (SLOTS - 1) for i in range(SLOTS))
+K3_SPLIT_CASES = ((SLOTS, 71, 1, 64, FALCON_LENGTHS), (BATCH, 48, 8, 128, K3_ALIBI_LENGTHS))
+
+
+def _k3_split_cases(torch, timer, gen):
+    """K3's split kernel at K3_SPLIT_CASES, both p @ V rules: held against
+    its plain version within K3's gates at the plan's cluster and at every
+    cluster whose block holds the virtual heads' rows, timed beside the
+    plain version, bf16 SDPA on the same cache and the bound (K and V
+    counted once, however many virtual heads read them).  Its ALiBi kernel
+    (no path runs it) held at the same shapes and every cluster, timed
+    once.  Returns (cases, ALiBi cases)."""
+    from dgq_tpu_torch.ops import attention as att
+
+    cases, alibi = [], []
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for b, h, hk, dh, lens in K3_SPLIT_CASES:
+        q, kt, v, (qs, ks, vs) = _attn_inputs(torch, gen, b, h, hk, 1, dh, SMAX)
+        q = q[:, :, 0].contiguous()
+        lengths = torch.tensor(lens, dtype=torch.int32, device=DEV)
+        scales = att._kernel_scales(qs, ks, vs, dh, True)
+        rep = h // hk
+        split = att.decode_split(rep)
+        vrep = att.virtual_rep(rep, split)
+        fits = [c for c in att.DECODE_CLUSTERS
+                if att.decode_smem_bytes(dh, vrep, SMAX, c) <= att.DECODE_SMEM_LIMIT]
+        slopes = _alibi_slopes(h)
+        shape = {"B": b, "H": h, "Hkv": hk, "Dh": dh, "Smax": SMAX, "lengths": list(lens),
+                 "split": split, "virtual_rep": vrep,
+                 "cluster": att.decode_plan(b, hk, rep, dh, SMAX, sms), "clusters_held": fits}
+        for quant_pv in (False, True):
+            for sl, out in ((None, cases), (slopes, alibi)):
+                def kern():
+                    return att.int8_decode_attention(q, kt, v, lengths, qs, ks, vs,
+                                                     quant_pv=quant_pv, alibi_slopes=sl)
+
+                def plain():
+                    return att.int8_decode_attention_xla(q, kt, v, lengths, qs, ks, vs,
+                                                         quant_pv=quant_pv, alibi_slopes=sl)
+
+                what = f"K3 split H={h} Hkv={hk} quant_pv={quant_pv} alibi={sl is not None}"
+                out_p = plain()
+                err = _check_k3(torch, what, kern(), out_p, quant_pv)
+                for c in fits:  # every cluster the plan chooses among, held
+                    _check_k3(torch, f"{what} cluster {c}",
+                              att._decode_launch(q, kt, v, lengths, scales, quant_pv, c, sl),
+                              out_p, quant_pv)
+                case = {**shape, "quant_pv": quant_pv, "alibi": sl is not None,
+                        "max_abs_err": err}
+                if sl is None:
+                    b_ms, b_by = _decode_bound(b, h, hk, dh, sum(lens), quant_pv)
+                    case["cluster_ms"] = {c: timer.kernel(functools.partial(
+                        att._decode_launch, q, kt, v, lengths, scales, quant_pv, c),
+                        K3_SPLIT_NAMES) for c in fits}
+                    case.update({"ms": timer.kernel(kern, K3_SPLIT_NAMES),
+                                 "events_ms": timer.events(kern), "call_ms": timer(kern),
+                                 "plain_ms": timer(plain, iters=10), "bound_ms": b_ms,
+                                 "bound_by": b_by,
+                                 **_sdpa_decode_ms(torch, timer, q, kt, v, (qs, ks, vs),
+                                                   lengths)})
+                else:
+                    case["ms"] = timer.kernel(kern, K3_SPLIT_ALIBI_NAMES)
+                out.append(case)
+        del q, kt, v
+    return cases, alibi
+
+
+# K7's split kernel: (B, H, Hkv, Dh, lengths, quant_pv) at LONG_SMAX positions: Falcon-7B's
+# heads (71 on one kv head, Dh 64) at main_long's lengths, fp p @ V (the Falcon engine's) and
+# quant_pv
+K7_SPLIT_CASES = ((BATCH, 71, 1, 64, K7_LENGTHS, False), (BATCH, 71, 1, 64, K7_LENGTHS, True))
+
+
+def _k7_split_cases(torch, timer, gen):
+    """K7's split kernel at K7_SPLIT_CASES (AUTO chunks): held against its
+    plain version within 1e-5 at every plan of ``chunked_candidates``, timed
+    at ``chunked_plan``'s beside the plain version, bf16 SDPA and the bound;
+    its ALiBi kernel (no path runs it) held at every plan of the fp case and
+    timed once.  Returns (cases, ALiBi cases)."""
+    from dgq_tpu_torch.ops import attention as att
+
+    cases, alibi = [], []
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for b, h, hk, dh, lens, quant_pv in K7_SPLIT_CASES:
+        q, kt, v, (qs, ks, vs) = _attn_inputs(torch, gen, b, h, hk, 1, dh, LONG_SMAX)
+        q = q[:, :, 0].contiguous()
+        lengths = torch.tensor(lens, dtype=torch.int32, device=DEV)
+        chunk = att.auto_decode_chunk(LONG_SMAX)
+        scales = att._kernel_scales(qs, ks, vs, dh, True)
+        plans = att.chunked_candidates(hk, h // hk, dh, LONG_SMAX)
+        slopes = _alibi_slopes(h)
+        for sl in (None, slopes) if not quant_pv else (None,):
+            def kern():
+                return att.int8_decode_attention_chunked(q, kt, v, lengths, qs, ks, vs,
+                                                         chunk=chunk, quant_pv=quant_pv,
+                                                         alibi_slopes=sl)
+
+            def plain():
+                return att.int8_decode_attention_xla(q, kt, v, lengths, qs, ks, vs,
+                                                     quant_pv=quant_pv, alibi_slopes=sl)
+
+            what = f"K7 split H={h} Hkv={hk} quant_pv={quant_pv} alibi={sl is not None}"
+            out_p = plain()
+            err = _check_close(what, kern(), out_p)
+            for plan in plans:  # every plan the kernel can run this cache with, held
+                _check_close(f"{what} {plan}", att._chunked_launch(q, kt, v, lengths, scales,
+                                                                   quant_pv, plan, sl), out_p)
+            case = {"B": b, "H": h, "Hkv": hk, "Dh": dh, "Smax": LONG_SMAX, "chunk": chunk,
+                    "lengths": list(lens), "quant_pv": quant_pv, "alibi": sl is not None,
+                    "max_abs_err": err,
+                    "plan": att.chunked_plan(b, hk, h // hk, dh, LONG_SMAX, sms)._asdict(),
+                    "plans_held": [p._asdict() for p in plans]}
+            if sl is None:
+                b_ms, b_by = _decode_bound(b, h, hk, dh, sum(lens), quant_pv)
+                case["plan_ms"] = [{**plan._asdict(), "ms": timer.kernel(functools.partial(
+                    att._chunked_launch, q, kt, v, lengths, scales, quant_pv, plan),
+                    K7_SPLIT_NAMES)} for plan in plans]
+                case.update({"ms": timer.kernel(kern, K7_SPLIT_NAMES),
+                             "events_ms": timer.events(kern), "call_ms": timer(kern),
+                             "plain_ms": timer(plain, iters=5), "bound_ms": b_ms,
+                             "bound_by": b_by,
+                             **_sdpa_decode_ms(torch, timer, q, kt, v, (qs, ks, vs), lengths)})
+                cases.append(case)
+            else:
+                case["ms"] = timer.kernel(kern, K7_SPLIT_ALIBI_NAMES)
+                alibi.append(case)
+        del q, kt, v
+    return cases, alibi
+
+
 def _paged_table(lengths, npg, seed):
     """A (slots, npg) int32 table of distinct shuffled pool pages 1.. for the
     pages each length needs; the entries past them point at null page 0."""
@@ -2125,6 +2309,8 @@ def phase_kernels(torch, state):
     sweep = _fused_sweep(torch, gen)
     state["k7"] = _k7_cases(torch, timer, gen)
     state["k7_alibi"] = _k7_alibi_cases(torch, timer, gen)
+    state["k3_split"], k3_split_alibi = _k3_split_cases(torch, timer, gen)
+    state["k7_split"], k7_split_alibi = _k7_split_cases(torch, timer, gen)
     state["k8"] = _k8_cases(torch, timer, gen)
     state["k9"] = _k9_cases(torch, timer, gen)
     state["k10"] = _k10_cases(torch, timer, gen)
@@ -2136,7 +2322,9 @@ def phase_kernels(torch, state):
     torch.cuda.empty_cache()
     hold = _plan_hold(torch)
     return {**{f"k{i}": state[f"k{i}"] for i in range(1, 13)},
-            **{k: state[k] for k in ("k2_alibi", "k3_alibi", "k7_alibi")},
+            **{k: state[k] for k in ("k2_alibi", "k3_alibi", "k7_alibi", "k3_split",
+                                     "k7_split")},
+            "k3_split_alibi": k3_split_alibi, "k7_split_alibi": k7_split_alibi,
             "k2_checks": k2_extra,
             "k4_k5_checks": k45, "k6_sweep": sweep, "k12_sweep": sweep12, "plan_hold": hold,
             "k8_k11_page_checks": page_checks}
@@ -2621,6 +2809,13 @@ def _greedy(torch, forward, ecfg, eng, prompts, cache, new_tokens):
     return torch.stack(toks, dim=1), cache, finite, prefill_ms, decode_ms
 
 
+def _named(key, names) -> bool:
+    """Whether a kernel's profiler name ``key`` holds one of ``names``; a
+    tuple in ``names`` matches when it holds every part."""
+    return any(all(part in key for part in (n if isinstance(n, tuple) else (n,)))
+               for n in names)
+
+
 def _profiled_launches(torch, run, groups, want, attempts: int = 4):
     """``run()`` under torch.profiler: its result and each group's kernel
     launches by the profiler's names (``groups`` {label: names}), the most
@@ -2636,7 +2831,7 @@ def _profiled_launches(torch, run, groups, want, attempts: int = 4):
         seen = {g: 0 for g in groups}
         for e in prof.key_averages():
             for g, names in groups.items():
-                if any(n in e.key for n in names):
+                if _named(e.key, names):
                     seen[g] += e.count
         best = {g: max(best[g], seen[g]) for g in groups}
         if any(best[g] > want[g] for g in groups):
@@ -2755,6 +2950,283 @@ def _drive_family(torch, state, arch):
     del eng
     torch.cuda.empty_cache()
     state[f"launches_{arch}"] = launches
+    return out
+
+
+def _rope_family(arch, layers=None, fp_scales=False):
+    """(config, engine config, builder, forward, cache init) of the RoPE
+    family engine ``arch`` at its published widths: Falcon-7B (groupsize
+    32) or Mixtral-8x7B (groupsize 128; ``fp_scales``: fp32 group scales),
+    at ``layers`` of depth (None: the full depth)."""
+    from dgq_tpu_torch.models import falcon_engine, mixtral_engine, synthetic
+    from dgq_tpu_torch.models.falcon import FalconConfig
+    from dgq_tpu_torch.models.mixtral import MixtralConfig
+
+    if arch == "falcon":
+        cfg = FalconConfig()
+        parts = (falcon_engine.FalconEngineConfig, synthetic.build_falcon_engine,
+                 falcon_engine.falcon_engine_forward, falcon_engine.init_falcon_kv_cache)
+    else:
+        cfg = MixtralConfig()
+        parts = (functools.partial(mixtral_engine.MixtralEngineConfig, fp_scales=fp_scales),
+                 functools.partial(synthetic.build_mixtral_engine, fp_scales=fp_scales),
+                 mixtral_engine.mixtral_engine_forward, mixtral_engine.init_mixtral_kv_cache)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_hidden_layers=layers)
+    make_ecfg, build, forward, init_cache = parts
+    return cfg, make_ecfg(cfg=cfg), build, forward, init_cache
+
+
+class _Routes:
+    """Record the experts ``mixtral_engine.route_topk`` picks, call by call
+    (a layer's tokens a call), while in effect."""
+
+    def __enter__(self):
+        from dgq_tpu_torch.models import mixtral_engine
+
+        self.picks, self.saved = [], mixtral_engine.route_topk
+
+        def recorded(*a, **k):
+            w, i = self.saved(*a, **k)
+            self.picks.append(i.reshape(-1, i.shape[-1]).sort(dim=-1).values.clone())
+            return w, i
+
+        mixtral_engine.route_topk = recorded
+        return self
+
+    def __exit__(self, *exc):
+        from dgq_tpu_torch.models import mixtral_engine
+
+        mixtral_engine.route_topk = self.saved
+
+
+def _routes_agree(kernel, plain) -> dict:
+    """How often the plain path's top-k experts (as a set) equal the kernel
+    path's, per (layer, token)."""
+    if len(kernel.picks) != len(plain.picks):
+        raise AssertionError(f"{len(kernel.picks)} routings in the kernel run, "
+                             f"{len(plain.picks)} in the plain run")
+    same = sum(int((a == b).all(dim=-1).sum()) for a, b in zip(kernel.picks, plain.picks))
+    total = sum(a.shape[0] for a in kernel.picks)
+    return {"routed_tokens": total, "routes_equal": same, "routes_equal_share": same / total}
+
+
+def _rope_parity(torch, forward, init_cache, ecfg, eng, prompts, steps, routes: bool):
+    """``_parity`` of the teacher-forced run (tokens gated), and for
+    Mixtral (``routes``) the experts' agreement per (layer, token)."""
+    runs = []
+
+    def run():
+        if not routes:
+            return _family_teacher_forced(torch, forward, init_cache, ecfg, eng, prompts, steps)
+        with _Routes() as rec:
+            out = _family_teacher_forced(torch, forward, init_cache, ecfg, eng, prompts, steps)
+        runs.append(rec)
+        return out
+
+    out = _parity(torch, run, tokens=True)
+    if routes:
+        out["routing"] = _routes_agree(*runs)
+    return out
+
+
+PROFILED_STEPS = 2  # main_falcon, main_mixtral: decode steps under the profiler's count
+
+
+def _drive_rope_family(torch, state, arch):
+    """A RoPE family engine at its published width and depth (Falcon-7B or
+    Mixtral-8x7B), random weights from seed 0: prefill of BATCH x PROMPT
+    tokens and NEW_TOKENS greedy tokens in a cache of SMAX, every kernel's
+    launches counted and also taken by the profiler's names (K9's main loop
+    for every linear: Falcon 4, Mixtral 18 a layer a forward; Mixtral's K2 at
+    the prefill and K3 at every decode step; Falcon attends plainly, as
+    JAX's engine; the profiler over the prefill and PROFILED_STEPS steps),
+    a timed replay (prefill ms, decode ms a step), a profiled
+    decode step, the peak memory; then the kernel path against the plain
+    path under teacher forcing with the run's own tokens (8 steps, full
+    depth: the parity phase's code agreement, equal tokens; Mixtral also the
+    experts' agreement)."""
+    import numpy as np
+
+    from dgq_tpu_torch.ops import _cuda
+
+    cfg, ecfg, build, forward, init_cache = _rope_family(arch)
+    layers = cfg.num_hidden_layers
+    mixtral = arch == "mixtral"
+    per_layer = 2 + 2 * cfg.num_local_experts if mixtral else 4
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = build(cfg, seed=0, device=DEV)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    weights_gib = torch.cuda.memory_allocated() / 2**30
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(BATCH, PROMPT)).astype(np.int32)).to(DEV)
+
+    def run(new_tokens=NEW_TOKENS):
+        return _greedy(torch, forward, ecfg, eng, prompts, init_cache(cfg, BATCH, SMAX, DEV),
+                       new_tokens)
+
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    toks, _, finite, _, _ = run()
+    gen_s = time.perf_counter() - t0
+    launches = dict(_cuda.LAUNCHES)
+    want = {name: 0 for name in SOURCES_OF}
+    want["w4a8_matmul_packed"] = per_layer * layers * NEW_TOKENS
+    if mixtral:
+        want.update({"int8_prefill_attention": layers,
+                     "int8_decode_attention": layers * (NEW_TOKENS - 1)})
+    if launches != want:
+        raise AssertionError(f"launches {launches} != {want}")
+    # the same kernels by the profiler's names, over the prefill and PROFILED_STEPS decode
+    # steps (the profiler's hold on every host op made a whole run of Mixtral's ~6,000
+    # launches a step take ~45 s)
+    groups = {"K9": K9_MAIN}
+    want_seen = {"K9": per_layer * layers * (1 + PROFILED_STEPS)}
+    if mixtral:
+        groups.update({"K2": K2_PLAIN_NAMES, "K3": K3_NAMES})
+        want_seen.update({"K2": layers, "K3": layers * PROFILED_STEPS})
+    (short, _, short_finite, _, _), seen = _profiled_launches(
+        torch, lambda: run(1 + PROFILED_STEPS), groups, want_seen)
+    if not short_finite or not torch.equal(short, toks[:, :1 + PROFILED_STEPS]):
+        raise AssertionError("the profiled run's tokens differ from the counted run's")
+    if toks.shape != (BATCH, NEW_TOKENS) or not finite:
+        raise AssertionError(f"tokens {tuple(toks.shape)}, finite logits {finite}")
+    if not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        raise AssertionError("token out of range")
+
+    replay, cache, finite, prefill_ms, decode_ms = run()  # the same path, timed
+    if not torch.equal(replay, toks) or not finite:
+        raise AssertionError("the timed replay's tokens differ from the counted run's")
+    prof = {"tok": toks[:, -1], "cache": cache}
+
+    def step():
+        logits, prof["cache"] = forward(ecfg, eng, prof["tok"][:, None], prof["cache"])
+        prof["tok"] = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+
+    breakdown = _profile_steps(torch, step, 4, ("K3", K3_NAMES), ("K9", K9_NAMES))
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    del cache, prof
+    torch.cuda.empty_cache()
+    parity = _rope_parity(torch, forward, init_cache, ecfg, eng, prompts, toks[:, :8],
+                          routes=mixtral)
+    out = {"arch": arch, "layers": layers, "hidden": cfg.hidden_size,
+           "heads": cfg.num_attention_heads, "vocab": cfg.vocab_size, "batch": BATCH,
+           "prompt": PROMPT, "new_tokens": NEW_TOKENS, "max_len": SMAX, "launches": launches,
+           "profiler_launches": seen, "engine_build_s": build_s, "weights_gib": weights_gib,
+           "generate_s": gen_s, "prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
+           "decode_tok_per_s": BATCH * 1e3 / decode_ms, "peak_gib": peak_gb,
+           "decode_step_breakdown": breakdown, "tokens_row0": toks[0].tolist(),
+           "teacher_forced_parity": {"steps": 8, **parity}}
+    state[f"launches_{arch}"] = launches
+    if arch == "falcon":
+        out["long"] = _falcon_long(torch, state, ecfg, eng, prompts, toks)
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def _falcon_long(torch, state, ecfg, eng, prompts, toks):
+    """Falcon's batched serving decode past DECODE_SHORT_SMAX: the family
+    batcher (``family_batcher("falcon")``) with BATCH slots in a cache of
+    LONG_SMAX, the BATCH prompts and LONG_NEW tokens each: K7's split kernel
+    (71 query heads on one kv head) once a layer of every decode forward,
+    no K3; the tokens against the direct forward's (plain attention; not
+    gated: a near-tie may flip)."""
+    from dgq_tpu_torch.ops import _cuda
+    from dgq_tpu_torch.serving import family_batch_engine
+    from dgq_tpu_torch.serving.scheduler import Request
+
+    layers = ecfg.cfg.num_hidden_layers
+    calls = {"n": 0}
+    real = family_batch_engine._family_decode_batched
+
+    def counted(*a, **k):
+        calls["n"] += 1
+        return real(*a, **k)
+
+    b = family_batch_engine.family_batcher("falcon", ecfg, eng, num_slots=BATCH,
+                                           max_len=LONG_SMAX, prefill_pad=PROMPT)
+    for uid, p in enumerate(prompts.cpu().numpy()):
+        b.add_request(Request(uid=uid, prompt_ids=p, max_new_tokens=LONG_NEW))
+    family_batch_engine._family_decode_batched = counted
+    try:
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        got = {r.uid: r.output_ids for r in b.run()}
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(_cuda.LAUNCHES)
+    finally:
+        family_batch_engine._family_decode_batched = real
+    del b
+    torch.cuda.empty_cache()
+    want = {name: 0 for name in SOURCES_OF}
+    want.update({"w4a8_matmul_packed": launches["w4a8_matmul_packed"],
+                 "int8_decode_attention_chunked_split": layers * calls["n"]})
+    if launches != want or not launches["w4a8_matmul_packed"] or not calls["n"]:
+        raise AssertionError(f"Falcon at {LONG_SMAX}: launches {launches} != {want}")
+    if any(len(t) != LONG_NEW for t in got.values()):
+        raise AssertionError(f"Falcon at {LONG_SMAX}: {[len(t) for t in got.values()]} tokens")
+    state["launches_falcon_long"] = launches
+    direct = toks[:, :LONG_NEW].tolist()
+    return {"max_len": LONG_SMAX, "new_tokens": LONG_NEW, "decode_forwards": calls["n"],
+            "launches": launches, "seconds": seconds,
+            "tokens_equal_direct": sum(got[i] == direct[i] for i in range(len(direct))),
+            "requests": len(direct)}
+
+
+def phase_main_falcon(torch, state):
+    """Falcon-7B (``FalconConfig()``: 32 layers, hidden 4544, 71 query heads
+    on 1 kv head, vocab 65024; groupsize 32) at full width and depth:
+    ``_drive_rope_family``, then its batched serving decode at a cache of
+    LONG_SMAX (K7's split kernel)."""
+    return _drive_rope_family(torch, state, "falcon")
+
+
+# main_mixtral's fp-scale engine: two layers of Mixtral-8x7B at full width with fp32 group
+# scales (every linear on K10)
+FPSCALE_MIXTRAL_LAYERS = 2
+
+
+def phase_main_mixtral(torch, state):
+    """Mixtral-8x7B (``MixtralConfig()``: 32 layers, hidden 4096, 8 experts
+    of ffn 14336, top 2, 32 query heads on 8 kv heads, vocab 32000, rope
+    theta 1e6; groupsize 128) at full width and depth: ``_drive_rope_family``;
+    then FPSCALE_MIXTRAL_LAYERS layers at full width with fp32 group scales
+    (``fp_scales``: K10 for every linear, 18 a layer a forward, the experts
+    included) held against the plain path under teacher forcing."""
+    import numpy as np
+
+    from dgq_tpu_torch.ops import _cuda
+
+    out = _drive_rope_family(torch, state, "mixtral")
+    cfg, ecfg, build, forward, init_cache = _rope_family("mixtral", FPSCALE_MIXTRAL_LAYERS,
+                                                         fp_scales=True)
+    eng = build(cfg, seed=1, device=DEV)
+    prompts = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, size=(BATCH, PROMPT)).astype(np.int32)).to(DEV)
+    _cuda.reset_launches()
+    toks, cache, finite, prefill_ms, decode_ms = _greedy(
+        torch, forward, ecfg, eng, prompts, init_cache(cfg, BATCH, SMAX, DEV), 9)
+    launches = dict(_cuda.LAUNCHES)
+    per_forward = (2 + 2 * cfg.num_local_experts) * cfg.num_hidden_layers
+    want = {name: 0 for name in SOURCES_OF}
+    want.update({"w4a8_fpscale_matmul_packed": per_forward * 9,
+                 "int8_prefill_attention": cfg.num_hidden_layers,
+                 "int8_decode_attention": cfg.num_hidden_layers * 8})
+    if launches != want or not finite:
+        raise AssertionError(f"fp-scale Mixtral: launches {launches} != {want}, finite {finite}")
+    del cache
+    parity = _rope_parity(torch, forward, init_cache, ecfg, eng, prompts, toks[:, :8],
+                          routes=True)
+    del eng
+    torch.cuda.empty_cache()
+    out["fp_scales"] = {"layers": cfg.num_hidden_layers, "launches": launches,
+                        "prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
+                        "teacher_forced_parity": {"steps": 8, **parity}}
     return out
 
 
@@ -2970,7 +3442,10 @@ def _check_attention_launches(launches, name, per_forward):
         raise AssertionError(f"{name} launches {launches[name]} != {per_forward}")
     for other in ("int8_decode_attention", "int8_decode_attention_chunked",
                   "int8_paged_decode_attention", "int4_paged_decode_attention",
-                  "int8_decode_attention_alibi", "int8_decode_attention_chunked_alibi"):
+                  "int8_decode_attention_alibi", "int8_decode_attention_chunked_alibi",
+                  "int8_decode_attention_split", "int8_decode_attention_chunked_split",
+                  "int8_decode_attention_split_alibi",
+                  "int8_decode_attention_chunked_split_alibi"):
         if other != name and launches[other]:
             raise AssertionError(f"{other} launched {launches[other]} times beside {name}")
 
@@ -3085,14 +3560,14 @@ def phase_serve(torch, state):
 
 def phase_serve_kv4(torch, state):
     """The paged daemon on INT4 nibble pages (``--paged --kv-bits 4``) at
-    full 7B width and depth, over a socket with the first SERVE_KV4 of phase
-    serve's requests: K11 at every decode forward, no other decode attention
+    full 7B width and SERVE_LAYERS layers, over a socket with the first
+    SERVE_KV4 of phase serve's requests: K11 at every decode forward, no other decode attention
     and no K2 (INT4 KV prefills with the plain attention); half the INT8
     pool's bytes per token."""
     from dgq_tpu_torch.models.llama import LlamaConfig
     from dgq_tpu_torch.serving import paged
 
-    cfg = LlamaConfig()
+    cfg = dataclasses.replace(LlamaConfig(), num_hidden_layers=SERVE_LAYERS)
     prefix, reqs = _serve_requests(cfg)
     reqs = reqs[:SERVE_KV4]
     args, batcher, served, _, rec = _serve_daemon(
@@ -3122,7 +3597,7 @@ def phase_serve_kv4(torch, state):
 def phase_serve_dense(torch, state):
     """The dense daemon (``serve`` without ``--paged``: the ContinuousBatcher
     with the CLI's defaults, 8 slots, max-len 2048, admit-batch 4,
-    prefill-chunk 512) at full 7B width and depth over a socket with the
+    prefill-chunk 512) at full 7B width and SERVE_LAYERS layers over a socket with the
     first SERVE_DENSE of phase serve's requests: K3 and K4-K6 once per layer
     at every decode forward.  The served tokens must equal a direct
     ContinuousBatcher.run() and one with decode_steps=4.  Then (not gated) a
@@ -3131,7 +3606,7 @@ def phase_serve_dense(torch, state):
     from dgq_tpu_torch.models.llama import LlamaConfig
     from dgq_tpu_torch.serving import scheduler
 
-    cfg = LlamaConfig()
+    cfg = dataclasses.replace(LlamaConfig(), num_hidden_layers=SERVE_LAYERS)
     prefix, reqs = _serve_requests(cfg)
     reqs = reqs[:SERVE_DENSE]
     args, batcher, served, _, rec = _serve_daemon(
@@ -3195,7 +3670,7 @@ SERVE_FPSCALE = 4  # serve_fpscale: the first 4 of serve_dense's requests
 
 def phase_serve_fpscale(torch, state):
     """The dense daemon on an fp-scale checkpoint (fp32 group scales, the
-    w4w8-fallback representation) at full 7B width and depth: ``serve``
+    w4w8-fallback representation) at full 7B width and SERVE_LAYERS layers: ``serve``
     takes ``fp_scales`` from the stored scales, so every linear runs K10, K2
     at prefill and K3 at every decode forward, and no K1 or K4-K6.  The first
     SERVE_FPSCALE of serve_dense's requests, all queued before the daemon's
@@ -3205,7 +3680,7 @@ def phase_serve_fpscale(torch, state):
     from dgq_tpu_torch.models.llama import LlamaConfig
     from dgq_tpu_torch.serving import scheduler
 
-    cfg = LlamaConfig()
+    cfg = dataclasses.replace(LlamaConfig(), num_hidden_layers=SERVE_LAYERS)
     prefix, reqs = _serve_requests(cfg)
     reqs = reqs[:SERVE_FPSCALE]
     args, batcher, served, _, rec = _serve_daemon(
@@ -3236,27 +3711,44 @@ def phase_serve_fpscale(torch, state):
     return {**rec, "direct_run_s": direct_s, "served_equal_direct": True}
 
 
+# serve_family's Mixtral-8x7B checkpoint: full width, cut to this depth (the full 29 GB file,
+# written once and read twice, would press on the run's time)
+SERVE_MIXTRAL_LAYERS = 8
+
+
 def phase_serve_family(torch, state):
-    """The dense daemon (``serve`` with ``--admit-batch 1``: OPT's and the
-    ALiBi families' batchers take one prompt a prefill, as JAX's) on a
-    ``save_engine`` checkpoint of OPT-6.7B, then of MPT-7B, at full width
-    and depth: 8 slots, the first SERVE_DENSE of phase serve's requests, the
-    registered prefix, one streaming request cancelled.  The served tokens
-    must equal a direct ``batcher_from_checkpoint(...).run()`` of the same
-    requests on the same checkpoint; the decode attention (K3 for OPT, K3
-    with ALiBi for MPT) runs once per layer of every decode forward, K9 for
-    every linear, K2 with ALiBi at MPT's prefill chunks."""
+    """The dense daemon (``serve`` with ``--admit-batch 1``: the other
+    families' batchers take one prompt a prefill, as JAX's) on a
+    ``save_engine`` checkpoint of OPT-6.7B and MPT-7B at full width and
+    SERVE_LAYERS layers, Falcon-7B at full width and depth, then of
+    Mixtral-8x7B at full width and SERVE_MIXTRAL_LAYERS layers: 8 slots,
+    the first SERVE_DENSE of phase serve's requests, the registered prefix,
+    one streaming request cancelled.  The served tokens must equal a direct
+    ``batcher_from_checkpoint(...).run()`` of the same requests on the same
+    checkpoint; the decode attention (K3 for OPT and Mixtral, K3 with ALiBi
+    for MPT, K3's split kernel for Falcon's 71 query heads on one kv head)
+    runs once per layer of every decode forward, K9 for every linear, K2
+    (with ALiBi for MPT) at MPT's and Mixtral's prefill chunks."""
+    from dgq_tpu_torch.models.falcon import FalconConfig
+    from dgq_tpu_torch.models.mixtral import MixtralConfig
     from dgq_tpu_torch.models.mpt import MPTConfig
     from dgq_tpu_torch.models.opt import OPTConfig
-    from dgq_tpu_torch.models.synthetic import build_mpt_engine, build_opt_engine
+    from dgq_tpu_torch.models.synthetic import build_falcon_engine, build_mixtral_engine, \
+        build_mpt_engine, build_opt_engine
     from dgq_tpu_torch.serving import family_batch_engine, opt_batch_engine
 
+    family_decode = (family_batch_engine, "_family_decode_batched")
     out, total = {}, {name: 0 for name in SOURCES_OF}
-    for arch, cfg, build, forward, attn in (
-            ("opt", OPTConfig(), build_opt_engine, (opt_batch_engine, "opt_decode_batched"),
-             "int8_decode_attention"),
-            ("mpt", MPTConfig(), build_mpt_engine,
-             (family_batch_engine, "_family_decode_batched"), "int8_decode_attention_alibi")):
+    for arch, cfg, build, forward, attn, prefill in (
+            ("opt", OPTConfig(num_hidden_layers=SERVE_LAYERS), build_opt_engine,
+             (opt_batch_engine, "opt_decode_batched"), "int8_decode_attention", None),
+            ("mpt", MPTConfig(n_layers=SERVE_LAYERS), build_mpt_engine, family_decode,
+             "int8_decode_attention_alibi", "int8_prefill_attention_alibi"),
+            ("falcon", FalconConfig(), build_falcon_engine, family_decode,
+             "int8_decode_attention_split", None),
+            ("mixtral", MixtralConfig(num_hidden_layers=SERVE_MIXTRAL_LAYERS),
+             build_mixtral_engine, family_decode, "int8_decode_attention",
+             "int8_prefill_attention")):
         prefix, reqs = _serve_requests(cfg)
         reqs = reqs[:SERVE_DENSE]
 
@@ -3283,10 +3775,10 @@ def phase_serve_family(torch, state):
         _check_equal(f"a direct batcher_from_checkpoint(...).run() of {arch}", served, want)
         launches = rec["launches"]
         _check_attention_launches(launches, attn, cfg.num_hidden_layers * rec["decode_forwards"])
-        prefill_k2 = launches["int8_prefill_attention_alibi"]
-        if not launches["w4a8_matmul_packed"] or (prefill_k2 > 0) != (arch == "mpt") or any(
-                launches[n] for n in ("int8_prefill_attention", "w4a8_matmul_rp_pipe",
-                                      *ROWPAIR_FUSED, *K12_NAMES)):
+        k2s = ("int8_prefill_attention", "int8_prefill_attention_alibi")
+        if not launches["w4a8_matmul_packed"] or (prefill and not launches[prefill]) or any(
+                launches[n] for n in (*k2s, "w4a8_matmul_rp_pipe", "w4a8_fpscale_matmul_packed",
+                                      *ROWPAIR_FUSED, *K12_NAMES) if n != prefill):
             raise AssertionError(f"the {arch} daemon's launches: {launches}")
         for name, n in launches.items():
             total[name] += n
@@ -3297,7 +3789,7 @@ def phase_serve_family(torch, state):
 
 def phase_serve_spec(torch, state):
     """The dense daemon with ``--spec-k SPEC_K`` (speculative decoding in the
-    ContinuousBatcher, CLI defaults otherwise) at full 7B width and depth on
+    ContinuousBatcher, CLI defaults otherwise) at full 7B width and SERVE_LAYERS layers on
     serve_dense's checkpoint, requests and prefix, all queued before the
     daemon's first step: verify windows of 8 slots x 5 tokens through K4-K6
     with plain attention, K3 on plain steps.  The served tokens must equal a
@@ -3310,7 +3802,7 @@ def phase_serve_spec(torch, state):
     from dgq_tpu_torch.models.llama import LlamaConfig
     from dgq_tpu_torch.serving import scheduler
 
-    cfg = LlamaConfig()
+    cfg = dataclasses.replace(LlamaConfig(), num_hidden_layers=SERVE_LAYERS)
     prefix, reqs = _serve_requests(cfg)
     reqs = reqs[:SERVE_DENSE]
     args, batcher, served, _, rec = _serve_daemon(
@@ -3492,18 +3984,23 @@ class _CodeRecorder:
     def __enter__(self):
         import torch
 
-        from dgq_tpu_torch.models import bloom_engine, engine, mpt_engine, opt_engine
+        from dgq_tpu_torch.models import bloom_engine, engine, falcon_engine, mixtral_engine, \
+            mpt_engine, opt_engine
         from dgq_tpu_torch.ops import fused_decode
         from dgq_tpu_torch.serving import paged
 
         # the paged decode block requantises q/k/v (or quantises k/v to int4)
         # through its own bindings; the OPT block makes codes in LayerNormQ,
-        # in K9's int8 epilogue (q|k|v) and in its requants
+        # in K9's int8 epilogue (q|k|v) and in its requants; Falcon's in its
+        # requants, Mixtral's in RMSNormQ and its requants
         self.saved = [(engine, n, getattr(engine, n))
                       for n in ("_rms_norm_q", "_requant", "quantize_kv4")]
         self.saved += [(paged, n, getattr(paged, n)) for n in ("_requant", "quantize_kv4")]
         self.saved += [(mod, n, getattr(mod, n)) for mod in (opt_engine, bloom_engine, mpt_engine)
                        for n in ("_layer_norm_q", "_linear_s8_int8out", "_requant")]
+        self.saved += [(falcon_engine, "_requant", falcon_engine._requant)]
+        self.saved += [(mixtral_engine, n, getattr(mixtral_engine, n))
+                       for n in ("_rms_norm_q", "_requant")]
         if self.force is None:
             self.saved += [(engine, n, getattr(engine, n)) for n in self.FUSED_CODES]
         else:  # the plain versions' code makers
@@ -3552,7 +4049,7 @@ class _PlainPath:
     exit."""
 
     def __enter__(self):
-        from dgq_tpu_torch.models import bloom_engine, engine, opt_engine
+        from dgq_tpu_torch.models import bloom_engine, engine, mixtral_engine, opt_engine
         from dgq_tpu_torch.ops import attention, fused_decode, quant_matmul
         from dgq_tpu_torch.serving import paged
 
@@ -3567,10 +4064,10 @@ class _PlainPath:
         self.saved += [(opt_engine, n, getattr(opt_engine, n)) for n in
                        ("w4a8_matmul_packed", "int8_decode_attention",
                         "int8_decode_attention_chunked")]
-        # the ALiBi engines' attention (MPT's runs through bloom_engine's)
-        self.saved += [(bloom_engine, n, getattr(bloom_engine, n)) for n in
-                       ("int8_prefill_attention", "int8_decode_attention",
-                        "int8_decode_attention_chunked")]
+        # the ALiBi engines' attention (MPT's runs through bloom_engine's) and Mixtral's
+        self.saved += [(mod, n, getattr(mod, n)) for mod in (bloom_engine, mixtral_engine)
+                       for n in ("int8_prefill_attention", "int8_decode_attention",
+                                 "int8_decode_attention_chunked")]
 
         def k1(x, qw, ws, wz, alpha, beta=None, *, groupsize, scales_replicated):
             step = 8 if scales_replicated else 1
@@ -3609,9 +4106,10 @@ class _PlainPath:
         engine.fused_requant_gemv = fused_decode.fused_requant_gemv_xla
         engine.fused_mlp_decode = k12_mlp
         engine.int8_decode_attention_chunked = opt_engine.int8_decode_attention_chunked = k7
-        bloom_engine.int8_prefill_attention = attention.int8_prefill_attention_xla
-        bloom_engine.int8_decode_attention = attention.int8_decode_attention_xla
-        bloom_engine.int8_decode_attention_chunked = k7
+        for mod in (bloom_engine, mixtral_engine):
+            mod.int8_prefill_attention = attention.int8_prefill_attention_xla
+            mod.int8_decode_attention = attention.int8_decode_attention_xla
+            mod.int8_decode_attention_chunked = k7
         paged.int8_paged_decode_attention = attention.int8_paged_decode_attention_xla
         paged.int4_paged_decode_attention = attention.int4_paged_decode_attention_xla
         return self
@@ -4221,6 +4719,15 @@ SOURCES_OF = {
                                     "dgq_tpu/ops/attention.py:179"),
     "int8_decode_attention_chunked_alibi": (
         "dgq_tpu_torch/csrc/long_decode_attention_alibi.cu", "dgq_tpu/ops/attention.py:542"),
+    # K3's and K7's split kernels (the TPU kernels at any rep = H / Hkv), with and without ALiBi
+    "int8_decode_attention_split": ("dgq_tpu_torch/csrc/int8_decode_attention.cu",
+                                    "dgq_tpu/ops/attention.py:179"),
+    "int8_decode_attention_chunked_split": ("dgq_tpu_torch/csrc/long_decode_attention.cu",
+                                            "dgq_tpu/ops/attention.py:542"),
+    "int8_decode_attention_split_alibi": ("dgq_tpu_torch/csrc/int8_decode_attention.cu",
+                                          "dgq_tpu/ops/attention.py:179"),
+    "int8_decode_attention_chunked_split_alibi": (
+        "dgq_tpu_torch/csrc/long_decode_attention_alibi.cu", "dgq_tpu/ops/attention.py:542"),
     "fused_norm_gemv_rp": ("dgq_tpu_torch/csrc/fused_norm_gemv_rp.cu",
                            "dgq_tpu/ops/fused_decode.py:605"),
     "fused_requant_gemv_rp": ("dgq_tpu_torch/csrc/fused_requant_gemv_rp.cu",
@@ -4269,8 +4776,11 @@ ALSO_REPLACES = {"w4a8_matmul_packed": ["dgq_tpu/ops/quant_matmul.py:305",
 # fp-scale LLaMA engine, K11 on paged serving with INT4 KV, K12 on span-only
 # storage, the probes' kernels on the probes' mains; K2's and K3's ALiBi
 # instantiations on BLOOM (main_bloom), K7's on MPT's cache of LONG_SMAX
-# (main_mpt)
+# (main_mpt); K3's split kernel on Falcon-7B's serving (serve_family), K7's
+# on its batched decode at LONG_SMAX (main_falcon)
 PATH_OF = {"int8_decode_attention_chunked": "launches_long",
+           "int8_decode_attention_split": "launches_serve_family",
+           "int8_decode_attention_chunked_split": "launches_falcon_long",
            "int8_prefill_attention_alibi": "launches_bloom",
            "int8_decode_attention_alibi": "launches_bloom",
            "int8_decode_attention_chunked_alibi": "launches_mpt_long",
@@ -4286,8 +4796,12 @@ PATHS = {"main": "launches", "main_long": "launches_long", "serve": "launches_se
          "main_span": "launches_span", "serve_spec": "launches_serve_spec",
          "serve_fpscale": "launches_serve_fpscale", "probes": "launches_probes",
          "bench": "launches_bench", "main_bloom": "launches_bloom", "main_mpt": "launches_mpt",
-         "serve_family": "launches_serve_family"}
+         "serve_family": "launches_serve_family", "main_falcon": "launches_falcon",
+         "main_mixtral": "launches_mixtral"}
 LINE_PHASES = {"kernels", *PATHS}
+# the split kernels' ALiBi instantiations: held in the kernels phase, run by no path (no
+# ALiBi family groups its query heads), so not listed
+UNLISTED = {"int8_decode_attention_split_alibi", "int8_decode_attention_chunked_split_alibi"}
 
 
 def kernels_line(state):
@@ -4304,7 +4818,11 @@ def kernels_line(state):
     under their own names (``<name>_alibi``): BLOOM-7B1's prefill, K3 and K7
     MHA with fp p @ V, each with ``twin_ms``, the kernel without ALiBi on
     the same inputs; their launches over main_bloom (K2, K3) and main_mpt's
-    cache of LONG_SMAX (K7).  Every case is listed under ``cases``."""
+    cache of LONG_SMAX (K7).  K3's and K7's split kernels under their own
+    names (``<name>_split``): Falcon-7B's 71 query heads on one kv head with
+    fp p @ V (K3 at its serving decode, K7 at LONG_SMAX); their launches
+    over serve_family (K3) and main_falcon's batched decode at LONG_SMAX
+    (K7).  Every case is listed under ``cases``."""
     cases = {"w4a8_matmul_rp_pipe": state["k1"], "int8_prefill_attention": state["k2"],
              "int8_decode_attention": state["k3"], "fused_norm_gemv_rp": state["k4"],
              "fused_requant_gemv_rp": state["k5"], "fused_mlp_decode_rp": state["k6"],
@@ -4314,7 +4832,9 @@ def kernels_line(state):
              "int4_paged_decode_attention": state["k11"], **state["k12"], **state["probes"],
              "int8_prefill_attention_alibi": state["k2_alibi"],
              "int8_decode_attention_alibi": state["k3_alibi"],
-             "int8_decode_attention_chunked_alibi": state["k7_alibi"]}
+             "int8_decode_attention_chunked_alibi": state["k7_alibi"],
+             "int8_decode_attention_split": state["k3_split"],
+             "int8_decode_attention_chunked_split": state["k7_split"]}
     head = {
         "int8_prefill_attention": state["k2"][0],
         "int8_decode_attention": state["k3"][0],
@@ -4325,6 +4845,9 @@ def kernels_line(state):
         "int8_prefill_attention_alibi": state["k2_alibi"][0],
         "int8_decode_attention_alibi": state["k3_alibi"][0],
         "int8_decode_attention_chunked_alibi": state["k7_alibi"][0],
+        # Falcon-7B's heads, fp p @ V: K3 at its serving decode, K7 at LONG_SMAX
+        "int8_decode_attention_split": state["k3_split"][0],
+        "int8_decode_attention_chunked_split": state["k7_split"][0],
     }
     for name in ("w4a8_matmul_rp_pipe", "w4a8_matmul_packed", "w4a8_fpscale_matmul_packed"):
         pre = [c for c in cases[name] if c["M"] == BATCH * PROMPT and not c.get("extra")]
@@ -4339,6 +4862,8 @@ def kernels_line(state):
         head[name] = cases[name][0]
     out = []
     for name, (source, replaces) in SOURCES_OF.items():
+        if name in UNLISTED:
+            continue
         h = head[name]
         entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                  "launches": state[PATH_OF.get(name, "launches")][name],
@@ -4374,6 +4899,8 @@ PHASES = {
     "serve_fpscale": phase_serve_fpscale,
     "main_bloom": phase_main_bloom,
     "main_mpt": phase_main_mpt,
+    "main_falcon": phase_main_falcon,
+    "main_mixtral": phase_main_mixtral,
     "serve_family": phase_serve_family,
     "parity": phase_parity,
     "checkpoint": phase_checkpoint,

@@ -38,7 +38,11 @@
 //   * fp p @ V converts the V codes through the exponent bits (DenseKV's
 //     FAST), as K8 does.
 // Its ALiBi kernels, which the BLOOM and MPT engines take past 8192
-// positions, are built from long_decode_attention_alibi.cu.
+// positions, are built from long_decode_attention_alibi.cu.  A rep = H / Hkv
+// outside 1, 2, 4 and 8 (Falcon-7B's 71 query heads on one kv head) runs the
+// split kernels long_attn_split_cluster: K3's split (int8_decode_attention.cu),
+// the kv head's query heads over `split` virtual kv heads of 4 or 8 rows, the
+// last with the rows it has (the body's address policy RaggedKV).
 
 #include "decode_attention.cuh"
 
@@ -56,6 +60,47 @@ long_attn_cluster(const int8_t* __restrict__ q, const int8_t* __restrict__ kt,
   decode_attn_core<DH, REP, QPV ? PV_QUANT_FAST : PV_FP, K16, false>(
       SplitKV<DH>{{kt, v, Smax, nullptr, nullptr}, split}, q, lengths, scales, out, Hkv, Smax,
       chmax, LongScores<!SCR>{scratch});
+}
+
+// K7 at any rep: grid (C, Hkv nv, B), REP query heads a virtual kv head, the
+// kv head's rep over nv of them (RaggedKV)
+template <int DH, int REP, bool QPV, bool K16, bool SCR>
+__global__ void __launch_bounds__(NT)
+long_attn_split_cluster(const int8_t* __restrict__ q, const int8_t* __restrict__ kt,
+                        const int8_t* __restrict__ v, const int* __restrict__ lengths,
+                        const float* __restrict__ scales, float* __restrict__ out, int Hkv,
+                        int Smax, int chmax, uint8_t* __restrict__ scratch, int nv, int rep) {
+  decode_attn_core<DH, REP, QPV ? PV_QUANT_FAST : PV_FP, K16, false>(
+      RaggedKV<DH>{{kt, v, Smax, nullptr, nullptr}, nv, rep}, q, lengths, scales, out, Hkv,
+      Smax, chmax, LongScores<!SCR>{scratch});
+}
+
+template <int DH, int REP, bool QPV, bool K16, bool SCR>
+int launch_split(const Call& c, uint8_t* scratch, int nv, int rep, cudaStream_t st) {
+  static Sized sized = {};
+  return launch_cluster<DH, REP>(long_attn_split_cluster<DH, REP, QPV, K16, SCR>, sized, c, st,
+                                 scratch, nv, rep);
+}
+
+template <int DH, int REP, bool SCR>
+int split_mode(const Call& c, bool qpv, uint8_t* scratch, int nv, int rep, cudaStream_t st) {
+  const bool k16 = c.Smax % 16 == 0;
+  if (qpv)
+    return k16 ? launch_split<DH, REP, true, true, SCR>(c, scratch, nv, rep, st)
+               : launch_split<DH, REP, true, false, SCR>(c, scratch, nv, rep, st);
+  return k16 ? launch_split<DH, REP, false, true, SCR>(c, scratch, nv, rep, st)
+             : launch_split<DH, REP, false, false, SCR>(c, scratch, nv, rep, st);
+}
+
+// c.Hkv: the virtual kv heads, Hkv nv; vrep 4 or 8
+template <bool SCR>
+int dispatch_split(const Call& c, int Dh, int vrep, bool qpv, uint8_t* scratch, int nv, int rep,
+                   cudaStream_t st) {
+#define DGQ_REP(D, R) \
+  if (Dh == D && vrep == R) return split_mode<D, R, SCR>(c, qpv, scratch, nv, rep, st);
+  DGQ_REP(128, 4) DGQ_REP(128, 8) DGQ_REP(64, 4) DGQ_REP(64, 8)
+#undef DGQ_REP
+  return cudaErrorInvalidValue;
 }
 
 template <int DH, int REP, bool QPV, bool K16, bool SCR>
@@ -99,18 +144,31 @@ extern "C" {
 // head); split (1, 2, 4 or 8, dividing H / Hkv) virtual kv heads a kv head;
 // scratch null, or (B, Hkv split, cluster, 5 (H / Hkv / split) chmax) bytes
 // for the ranks' scores and codes, chmax = ceil(ceil(Smax / cluster) / 64) 64.
+// H / Hkv outside (1, 2, 4, 8): the split kernels, over split virtual kv heads
+// a kv head of vrep = 4 rows where split of them cover H / Hkv, else 8, and a
+// scratch of 5 vrep chmax bytes a rank.
 int int8_decode_attention_chunked(const void* q, const void* kt, const void* v,
                                   const void* lengths, const void* scales, void* out,
                                   void* scratch, int B, int H, int Hkv, int Dh, int Smax,
                                   int quant_pv, int cluster, int split, void* stream) {
   Call c;
+  auto sp = static_cast<uint8_t*>(scratch);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (Hkv > 0 && H % Hkv == 0 && !whole_rep(H / Hkv)) {
+    const int rep = H / Hkv, vrep = split > 0 ? split_vrep(rep, split) : 0;
+    // the virtual kv heads stand for H's check, which the head map replaces
+    if (!vrep || !make_call(c, q, kt, v, lengths, scales, out, B, Hkv * split, Hkv * split,
+                            Smax, cluster))
+      return cudaErrorInvalidValue;
+    c.scratch = scratch != nullptr;
+    return c.scratch ? dispatch_split<true>(c, Dh, vrep, quant_pv != 0, sp, split, rep, st)
+                     : dispatch_split<false>(c, Dh, vrep, quant_pv != 0, sp, split, rep, st);
+  }
   if (Hkv <= 0 || H % Hkv || (split != 1 && split != 2 && split != 4 && split != 8) ||
       (H / Hkv) % split ||
       !make_call(c, q, kt, v, lengths, scales, out, B, H, Hkv * split, Smax, cluster))
     return cudaErrorInvalidValue;
   c.scratch = scratch != nullptr;
-  auto sp = static_cast<uint8_t*>(scratch);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   return c.scratch ? dispatch<true>(c, H, Dh, quant_pv != 0, sp, split, st)
                    : dispatch<false>(c, H, Dh, quant_pv != 0, sp, split, st);
 }

@@ -117,11 +117,12 @@ class BloomEngineConfig:
         check_family_config(self.kv_bits, self.tp_axis)
 
 
-def check_family_config(kv_bits: int, tp_axis) -> None:
-    """The ALiBi engines keep an INT8 cache and run on one card."""
+def check_family_config(kv_bits: int, tp_axis, family: str = "the BLOOM and MPT engines"
+                        ) -> None:
+    """The family engines (``family``) keep an INT8 cache and run on one
+    card."""
     if kv_bits != 8:
-        raise NotImplementedError("the BLOOM and MPT engines keep an INT8 KV cache "
-                                  "(kv_bits=8), as JAX's")
+        raise NotImplementedError(f"{family}: an INT8 KV cache only (kv_bits=8), as JAX's")
     if tp_axis is not None:
         raise NotImplementedError("tensor parallelism (tp_axis) is not ported yet "
                                   "(ROADMAP Queue 1 item 7)")

@@ -7,7 +7,10 @@ from them) and of ``build_opt_engine`` in ``scripts/bench_decode_opt.py:27-75``
 fp-scale LLaMA engine (span storage, fp32 group scales and zeros, the
 w4w8-fallback representation) and the BLOOM and MPT engines (span-only
 storage as OPT's, their fused q|k|v's alpha carrying each part's own output
-scale as ``from_ptq_bloom``/``from_ptq_mpt`` fold it).  Every layer is drawn on its own from a
+scale as ``from_ptq_bloom``/``from_ptq_mpt`` fold it), and the Falcon and
+Mixtral engines (span-only storage, the Mixtral experts' linears stacked on
+(L, E), drawn into tensors made once: Mixtral-8x7B's 29 GB would not stand
+a stacking copy).  Every layer is drawn on its own from a
 ``torch.Generator`` on the target device (so the bits differ from JAX's).
 Scales are drawn from [1, 4) and zeros from [4, 12), so (c - z) * s fits
 int8 by construction; the fp-scale engine multiplies the integer scale by a
@@ -16,12 +19,18 @@ per-channel fp32 factor in [0.5, 1), so |(c - z) * s| stays below 128.
 
 from __future__ import annotations
 
+import itertools
+
 import torch
 
 from dgq_tpu_torch.models.engine import EngineLayer, EngineLinear, EngineParams
 from dgq_tpu_torch.models.bloom import BloomConfig
 from dgq_tpu_torch.models.bloom_engine import BloomEngineLayer, BloomEngineParams
+from dgq_tpu_torch.models.falcon import FalconConfig
+from dgq_tpu_torch.models.falcon_engine import FalconEngineLayer, FalconEngineParams
 from dgq_tpu_torch.models.llama import LlamaConfig
+from dgq_tpu_torch.models.mixtral import MixtralConfig
+from dgq_tpu_torch.models.mixtral_engine import MixtralEngineLayer, MixtralEngineParams
 from dgq_tpu_torch.models.mpt import MPTConfig
 from dgq_tpu_torch.models.mpt_engine import MPTEngineLayer, MPTEngineParams
 from dgq_tpu_torch.models.opt import OPTConfig
@@ -241,6 +250,93 @@ def build_mpt_engine(cfg: MPTConfig, seed: int = 0, device="cuda") -> MPTEngineP
         norm_f_weight=ones, norm_f_bias=torch.zeros_like(ones),
         lm_head=_normal(gen, (cfg.vocab_size, d), device),
     )
+
+
+def span_stack(gen: torch.Generator, lead: tuple, n_out: int, n_in: int, g: int = 128,
+               device="cuda", fp_scales: bool = False) -> EngineLinear:
+    """Span-only linears stacked on the leading dims ``lead`` (e.g. (L, E)),
+    each drawn as ``random_span_linear`` draws one, into tensors made once."""
+    dt = torch.float32 if fp_scales else torch.int8
+    qweight = torch.empty((*lead, n_in // 2, n_out), dtype=torch.int8, device=device)
+    wscales = torch.empty((*lead, 8 * (n_in // g), n_out), dtype=dt, device=device)
+    wzeros = torch.empty_like(wscales)
+    for idx in itertools.product(*(range(n) for n in lead)):
+        lin = random_span_linear(gen, n_out, n_in, g, device, fp_scales)
+        qweight[idx].copy_(lin.qweight)
+        wscales[idx].copy_(lin.wscales)
+        wzeros[idx].copy_(lin.wzeros)
+        del lin
+    return EngineLinear(qweight=qweight, wscales=wscales, wzeros=wzeros,
+                        alpha=torch.full((*lead, n_out), 1e-4, dtype=torch.float32,
+                                         device=device), bias=None)
+
+
+def _full(shape, v, device):
+    return torch.full(shape, v, dtype=torch.float32, device=device)
+
+
+def build_falcon_engine(cfg: FalconConfig, seed: int = 0, device="cuda",
+                        groupsize: int = 32) -> FalconEngineParams:
+    """Random Falcon engine params at cfg's exact shapes (the MLP 4 x hidden):
+    bias-free span linears query_key_value, dense, dense_h_to_4h and
+    dense_4h_to_h at ``groupsize`` (32 at Falcon-7B's hidden 4544 = 71 x 64:
+    the span layout needs K % (2 groupsize) == 0), a unit LayerNorm with zero
+    bias that both branches requantise at 0.1, static scales 0.05, bf16
+    embeddings and lm_head."""
+    d, n = cfg.hidden_size, cfg.num_hidden_layers
+    nqkv = (cfg.num_attention_heads + 2 * cfg.num_kv_heads) * cfg.head_dim
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def lin(n_out, n_in):
+        return span_stack(gen, (n,), n_out, n_in, groupsize, device)
+
+    layers = FalconEngineLayer(
+        ln_weight=_full((n, d), 1.0, device), ln_bias=_full((n, d), 0.0, device),
+        qkv_proj=lin(nqkv, d), dense=lin(d, d), fc1=lin(4 * d, d), fc2=lin(d, 4 * d),
+        attn_input_scale=_full((n,), 0.1, device), fc1_input_scale=_full((n,), 0.1, device),
+        q_scale=_full((n,), 0.05, device), k_scale=_full((n,), 0.05, device),
+        v_scale=_full((n,), 0.05, device), dense_input_scale=_full((n,), 0.05, device),
+        fc2_input_scale=_full((n,), 0.05, device))
+    ones = torch.ones((d,), dtype=torch.float32, device=device)
+    return FalconEngineParams(
+        embed_tokens=_normal(gen, (cfg.vocab_size, d), device), layers=layers,
+        ln_f_weight=ones, ln_f_bias=torch.zeros_like(ones),
+        lm_head=_normal(gen, (cfg.vocab_size, d), device))
+
+
+def build_mixtral_engine(cfg: MixtralConfig, seed: int = 0, device="cuda",
+                         fp_scales: bool = False) -> MixtralEngineParams:
+    """Random Mixtral engine params at cfg's exact shapes, groupsize 128:
+    the fused q|k|v and o_proj, each layer's E experts' fused w1|w3 and w2
+    stacked on (L, E) (int8 group scales, or fp32 ones for ``fp_scales``,
+    run with ``MixtralEngineConfig(fp_scales=True)``), the RMSNorms
+    pre-scaled by 10, a router ``gate_weight`` (E, D) f32 drawn at 0.02, the
+    router input scale 0.1, per-expert w2 requant scales spread over [0.04,
+    0.06], static scales 0.05, bf16 embeddings and lm_head."""
+    d, f, n, e = (cfg.hidden_size, cfg.intermediate_size, cfg.num_hidden_layers,
+                  cfg.num_local_experts)
+    nq = cfg.num_attention_heads * cfg.head_dim
+    nkv = cfg.num_key_value_heads * cfg.head_dim
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def lin(lead, n_out, n_in):
+        return span_stack(gen, lead, n_out, n_in, 128, device, fp_scales)
+
+    layers = MixtralEngineLayer(
+        ln1_weight=_full((n, d), 10.0, device), ln1_bias=None,
+        ln2_weight=_full((n, d), 10.0, device), ln2_bias=None,
+        qkv_proj=lin((n,), nq + 2 * nkv, d), o_proj=lin((n,), d, nq),
+        gate_weight=torch.randn((n, e, d), generator=gen, dtype=torch.float32,
+                                device=device) * 0.02,
+        gate_bias=None, w13=lin((n, e), 2 * f, d), w2=lin((n, e), d, f),
+        q_scale=_full((n,), 0.05, device), k_scale=_full((n,), 0.05, device),
+        v_scale=_full((n,), 0.05, device), out_input_scale=_full((n,), 0.05, device),
+        moe_input_scale=_full((n,), 0.1, device),
+        w2_input_scale=torch.linspace(0.04, 0.06, e, device=device).repeat(n, 1))
+    return MixtralEngineParams(
+        embed_tokens=_normal(gen, (cfg.vocab_size, d), device), layers=layers,
+        norm_weight=torch.ones((d,), dtype=torch.float32, device=device),
+        lm_head=_normal(gen, (cfg.vocab_size, d), device))
 
 
 def _stack(trees):

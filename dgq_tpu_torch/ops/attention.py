@@ -32,6 +32,13 @@ slope x key position is added to the scaled scores before the mask, as
 JAX's kernels add it (``dgq_tpu/ops/attention.py:92-102``, ``:286-287``);
 those launches count under ``<name>_alibi``.
 
+K3 and K7 take any number of query heads a kv head, as JAX's do (Falcon-7B:
+71 on one).  Their whole kernels are compiled for rep = H / Hkv in
+DECODE_REPS; any other rep runs their split kernels, which serve a kv head's
+query heads as ``split`` virtual kv heads of ``virtual_rep`` rows (4 or 8),
+the last with the rows it has, each over the same K and V; those launches
+count under ``<name>_split`` (and ``<name>_split_alibi``).
+
 Every scalar handed to a kernel is a float32 tensor computed in JAX's order,
 e.g. ``(q_scale * k_scale) / sqrt(Dh)`` with the divisor a float32 tensor: a
 Python float divisor would take other bits (CUDA turns division by a host
@@ -54,6 +61,7 @@ PREFILL = "int8_prefill_attention"
 DECODE = "int8_decode_attention"
 CHUNKED = "int8_decode_attention_chunked"
 ALIBI = "_alibi"  # the launch count of a kernel's ALiBi instantiation: its name + ALIBI
+SPLIT = "_split"  # K3's and K7's split kernels (any rep): the name + SPLIT (+ ALIBI)
 PAGED = "int8_paged_decode_attention"
 PAGED_KV4 = "int4_paged_decode_attention"
 _PAGED_SIGNATURES = {  # one library, two entry points
@@ -62,7 +70,7 @@ _PAGED_SIGNATURES = {  # one library, two entry points
 }
 _SIGNATURES = {
     PREFILL: {PREFILL: [_cuda.VP] * 6 + [_cuda.INT] * 8 + [_cuda.VP]},
-    DECODE: {DECODE: [_cuda.VP] * 7 + [_cuda.INT] * 7 + [_cuda.VP]},
+    DECODE: {DECODE: [_cuda.VP] * 7 + [_cuda.INT] * 8 + [_cuda.VP]},
     CHUNKED: {CHUNKED: [_cuda.VP] * 7 + [_cuda.INT] * 8 + [_cuda.VP]},
     CHUNKED + ALIBI: {CHUNKED + ALIBI: [_cuda.VP] * 8 + [_cuda.INT] * 8 + [_cuda.VP]},
     PAGED: _PAGED_SIGNATURES,
@@ -82,6 +90,10 @@ DECODE_SM_SMEM = 233472  # an H100 SM's (228 KB)
 CHUNKED_BLOCKS_PER_SM = 3  # K7's aim for its head split: blocks an SM at clusters of 16
 DECODE_BLOCKS_PER_SM = 2  # the cluster plan's aim: a wave of at most two blocks an SM
 DECODE_SHORT_SMAX = 8192  # the caches K3 takes (auto_decode_chunk), and K7 with K3's plan
+# rep = H / Hkv of K3's and K7's whole kernels; any other rep runs their split kernels over
+# virtual kv heads of SPLIT_REPS[i] query heads
+DECODE_REPS = (1, 2, 4, 8)
+SPLIT_REPS = (4, 8)
 
 NEG = torch.finfo(torch.float32).min
 
@@ -263,8 +275,32 @@ def decode_chmax(smax: int, cluster: int) -> int:
     return -(-(-(-smax // cluster)) // DECODE_TILE) * DECODE_TILE
 
 
+def virtual_rep(rep: int, split: int) -> int:
+    """The query heads of a virtual kv head when a kv head's ``rep`` are
+    served as ``split`` of them: rep / split on the whole kernels (rep in
+    DECODE_REPS, K7's split dividing it), else the split kernels' rows, the
+    smallest of SPLIT_REPS whose ``split`` heads cover rep (the last head
+    runs the rows it has)."""
+    if rep in DECODE_REPS:
+        return rep // split
+    vrep = next((r for r in SPLIT_REPS if r * split >= rep), 0)
+    if not vrep or vrep * (split - 1) >= rep:
+        raise ValueError(f"{split} virtual kv heads of {SPLIT_REPS} rows do not serve {rep} "
+                         "query heads a kv head")
+    return vrep
+
+
+def decode_split(rep: int) -> int:
+    """K3's virtual kv heads a kv head: 1 for rep in DECODE_REPS (the whole
+    kernel), else ceil(rep / 8), each a cluster of its own over the same K
+    and V (the fewest reads of K and V that the split kernels' rows allow;
+    Falcon-7B's 71 query heads: 9 heads of 8, the last with 7)."""
+    return 1 if rep in DECODE_REPS else -(-rep // SPLIT_REPS[-1])
+
+
 def decode_smem_bytes(dh: int, rep: int, smax: int, cluster: int, scratch: bool = False) -> int:
-    """K3's dynamic shared memory a block (the kernel's ``Layout``): the ring
+    """K3's dynamic shared memory a block (the kernel's ``Layout``) at ``rep``
+    query heads a (virtual) kv head: the ring
     of tiles, the scores and codes of the most positions a rank can take
     (none with ``scratch``: K7's device-memory scores), rank 0's gathering
     area of every rank's sums, the q.k partial sums."""
@@ -282,12 +318,25 @@ def decode_plan(b: int, hk: int, rep: int, dh: int, smax: int, sms: int) -> int:
     would not fit a block.  Fitted on an H100
     (``python -m dgq_tpu_torch.scripts.decode_plan_sweep``, ``PERF.md``): a
     call is a few microseconds of serial steps, so more blocks than the card
-    runs at once only add waves."""
-    fits = [c for c in DECODE_CLUSTERS if decode_smem_bytes(dh, rep, smax, c) <= DECODE_SMEM_LIMIT]
+    runs at once only add waves.  A rep outside DECODE_REPS runs the split
+    kernel over ``decode_split(rep)`` virtual kv heads of ``virtual_rep``
+    rows: the largest cluster whose blocks all run at once, as many an SM
+    as their shared memory lets share it (``_blocks_per_sm``), else the
+    smallest (chip_smoke.py's kernels phase on an "NVIDIA H100 80GB HBM3,
+    700.00 W" at Falcon-7B's 71:1, 8 slots: clusters of 2 / 4 / 8 0.0335 /
+    0.0223 / 0.0232 ms; the whole kernels' rule took 2)."""
+    split = decode_split(rep)
+    vrep = virtual_rep(rep, split)
+    fits = [c for c in DECODE_CLUSTERS
+            if decode_smem_bytes(dh, vrep, smax, c) <= DECODE_SMEM_LIMIT]
     if not fits:
         raise ValueError(f"K3: Smax {smax} at Dh {dh} and rep {rep} fits no cluster of "
                          f"{DECODE_CLUSTERS}")
-    return _wave_cluster(b, hk, sms, fits)
+    if rep in DECODE_REPS:
+        return _wave_cluster(b, hk, sms, fits)
+    wave = [c for c in fits if b * hk * split * c
+            <= _blocks_per_sm(decode_smem_bytes(dh, vrep, smax, c)) * sms]
+    return max(wave) if wave else fits[0]
 
 
 def _wave_cluster(b: int, hk: int, sms: int, fits) -> int:
@@ -299,10 +348,10 @@ def _wave_cluster(b: int, hk: int, sms: int, fits) -> int:
 
 class ChunkedPlan(NamedTuple):
     """How K7 runs: each kv head's query heads in ``split`` groups (virtual
-    kv heads of rep / split query heads each, reading the same K and V),
-    clusters of ``cluster`` blocks a (slot, virtual kv head), each rank's
-    scores and codes in its block's shared memory, or (``scratch``) in a
-    device-memory scratch of the wrapper's."""
+    kv heads of ``virtual_rep(rep, split)`` query heads each, reading the
+    same K and V), clusters of ``cluster`` blocks a (slot, virtual kv head),
+    each rank's scores and codes in its block's shared memory, or
+    (``scratch``) in a device-memory scratch of the wrapper's."""
     cluster: int
     scratch: bool
     split: int = 1
@@ -316,14 +365,23 @@ def decode_static_bytes(dh: int, rep: int) -> int:
     return 4 * rep * (dh // 4) + 4 * (DECODE_THREADS // 32) * rep + 3 * 4 * rep + 4
 
 
+def chunked_splits(rep: int) -> list:
+    """K7's head splits, fewest virtual kv heads first: those of
+    CHUNKED_SPLITS that divide rep (the whole kernels, rep in DECODE_REPS),
+    else the split kernels' ceil(rep / r) for r in SPLIT_REPS."""
+    if rep in DECODE_REPS:
+        return [s for s in CHUNKED_SPLITS if rep % s == 0]
+    return sorted({-(-rep // r) for r in SPLIT_REPS})
+
+
 def chunked_candidates(hk: int, rep: int, dh: int, smax: int) -> list:
     """Every plan K7 can run a (Hkv, rep, Dh, Smax) cache with: for each
-    split of CHUNKED_SPLITS that divides rep, each cluster of
-    CHUNKED_CLUSTERS whose block holds its rank's scores, then each whose
-    block fits with the scores in the scratch."""
+    split of ``chunked_splits(rep)``, each cluster of CHUNKED_CLUSTERS whose
+    block holds its rank's scores, then each whose block fits with the
+    scores in the scratch."""
     plans = []
-    for split in (s for s in CHUNKED_SPLITS if rep % s == 0):
-        r = rep // split
+    for split in chunked_splits(rep):
+        r = virtual_rep(rep, split)
         room = DECODE_SMEM_LIMIT - decode_static_bytes(dh, r)
         plans += [ChunkedPlan(c, False, split) for c in CHUNKED_CLUSTERS
                   if decode_smem_bytes(dh, r, smax, c) <= room]
@@ -353,20 +411,25 @@ def chunked_plan(b: int, hk: int, rep: int, dh: int, smax: int, sms: int) -> Chu
       unless the block serves several query heads and the scratch lets more
       blocks share an SM (with one query head a block, the scratch's
       latency in the rank's serial loops cost more than a block an SM
-      saved)."""
+      saved; the split kernels, a rep outside DECODE_REPS, keep them in
+      shared memory wherever it holds them)."""
     if smax <= DECODE_SHORT_SMAX:
-        return ChunkedPlan(decode_plan(b, hk, rep, dh, smax, sms), False)
+        return ChunkedPlan(decode_plan(b, hk, rep, dh, smax, sms), False, decode_split(rep))
     plans = chunked_candidates(hk, rep, dh, smax)
     if not plans:
         raise ValueError(f"K7: Dh {dh} at rep {rep} fits no block")
-    split = next((s for s in CHUNKED_SPLITS if rep % s == 0
-                  and b * hk * s * CHUNKED_CLUSTERS[-1] >= CHUNKED_BLOCKS_PER_SM * sms), rep)
+    splits = chunked_splits(rep)
+    split = next((s for s in splits
+                  if b * hk * s * CHUNKED_CLUSTERS[-1] >= CHUNKED_BLOCKS_PER_SM * sms), splits[-1])
     c = max(p.cluster for p in plans if p.split == split)
-    r = rep // split
+    r = virtual_rep(rep, split)
     held = ChunkedPlan(c, False, split) in plans
     more = (_blocks_per_sm(decode_smem_bytes(dh, r, smax, c, True))
             > _blocks_per_sm(decode_smem_bytes(dh, r, smax, c)))
-    return ChunkedPlan(c, not held or (r > 1 and more), split)
+    # the split kernels keep the scores in shared memory where it holds them: at Falcon-7B's
+    # 71:1 (16,384 positions, 4 slots, 9 heads of 8) 0.0797 ms against the scratch's 0.0865
+    # (chip_smoke.py's kernels phase, "NVIDIA H100 80GB HBM3, 700.00 W")
+    return ChunkedPlan(c, not held or (r > 1 and more and rep in DECODE_REPS), split)
 
 
 def int8_decode_attention(q_s8: torch.Tensor, kt_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -386,8 +449,8 @@ def int8_decode_attention(q_s8: torch.Tensor, kt_cache: torch.Tensor, v_cache: t
     dev = q_s8.device
     _cuda.require(q_s8, "q_s8", torch.int8, (b, h, dh), dev, align=4)
     hk, smax = _check_cache(kt_cache, v_cache, b, dh, dev)
-    if h % hk or (h // hk) not in (1, 2, 4, 8) or smax % 4 or dh not in (64, 128):
-        raise ValueError(f"K3 needs H / Hkv in (1, 2, 4, 8), Smax % 4 == 0, Dh in (64, 128); "
+    if h % hk or smax % 4 or dh not in (64, 128):
+        raise ValueError(f"K3 needs H % Hkv == 0, Smax % 4 == 0, Dh in (64, 128); "
                          f"got H={h}, Hkv={hk}, Smax={smax}, Dh={dh}")
     lengths = _lengths(length, b, dev)
     scales = _kernel_scales(q_scale, k_scale, v_scale, dh, apply_sqrt_dh)
@@ -401,34 +464,44 @@ def _decode_launch(q_s8, kt_cache, v_cache, lengths, scales, quant_pv: bool,
                    cluster: int, slopes: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch K3 in clusters of ``cluster`` blocks on checked operands
     (``lengths`` (B,) int32, the kernel's scales and, for ALiBi, the (H,)
-    slopes on the card)."""
+    slopes on the card); a rep outside DECODE_REPS runs the split kernel
+    over ``decode_split(rep)`` virtual kv heads a kv head."""
     b, h, dh = q_s8.shape
     hk, smax = kt_cache.shape[1], kt_cache.shape[3]
     dev = q_s8.device
+    split = decode_split(h // hk)
     out = torch.empty((b, h, dh), dtype=torch.float32, device=dev)
     lib = _cuda.library(_cuda.SOURCES[DECODE], _SIGNATURES[DECODE])
     rc = lib.int8_decode_attention(
         _cuda.ptr(q_s8), _cuda.ptr(kt_cache), _cuda.ptr(v_cache), _cuda.ptr(lengths),
         _cuda.ptr(scales), _cuda.ptr(slopes), _cuda.ptr(out), b, h, hk, dh, smax,
-        int(quant_pv), cluster, _cuda.stream(dev))
+        int(quant_pv), cluster, split, _cuda.stream(dev))
     _cuda.check(rc, DECODE)
-    _cuda.count_launch(DECODE if slopes is None else DECODE + ALIBI)
+    _cuda.count_launch(_launch_name(DECODE, h // hk, slopes))
     return out
+
+
+def _launch_name(name: str, rep: int, slopes) -> str:
+    """The launch count of K3 or K7 (``name``) at ``rep``: the whole kernels,
+    or (rep outside DECODE_REPS) the split kernels, with or without ALiBi."""
+    return (name + ("" if rep in DECODE_REPS else SPLIT)
+            + ("" if slopes is None else ALIBI))
 
 
 def _chunked_launch(q_s8, kt_cache, v_cache, lengths, scales, quant_pv: bool,
                     plan: ChunkedPlan, slopes: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch K7 under ``plan`` on checked operands (``lengths`` (B,) int32,
     the kernel's scales and, for ALiBi, the (H,) slopes on the card), with
-    the ranks' scratch of (B, Hkv split, cluster, 5 (rep / split) chmax)
-    bytes where the plan keeps the scores there."""
+    the ranks' scratch of (B, Hkv split, cluster, 5 vrep chmax) bytes (vrep
+    = ``virtual_rep(rep, split)``) where the plan keeps the scores there."""
     b, h, dh = q_s8.shape
     hk, smax = kt_cache.shape[1], kt_cache.shape[3]
     dev = q_s8.device
     out = torch.empty((b, h, dh), dtype=torch.float32, device=dev)
     scratch = None
-    if plan.scratch:  # B Hkv split cluster runs of 5 (rep / split) chmax bytes
-        scratch = torch.empty((b * hk * plan.cluster * 5 * (h // hk)
+    if plan.scratch:  # B Hkv split cluster runs of 5 vrep chmax bytes
+        vrep = virtual_rep(h // hk, plan.split)
+        scratch = torch.empty((b * hk * plan.split * plan.cluster * 5 * vrep
                                * decode_chmax(smax, plan.cluster),), dtype=torch.uint8, device=dev)
     name = CHUNKED if slopes is None else CHUNKED + ALIBI
     lib = _cuda.library(_cuda.SOURCES[name], _SIGNATURES[name])
@@ -441,7 +514,7 @@ def _chunked_launch(q_s8, kt_cache, v_cache, lengths, scales, quant_pv: bool,
     else:
         rc = lib.int8_decode_attention_chunked_alibi(*head, _cuda.ptr(slopes), *tail)
     _cuda.check(rc, name)
-    _cuda.count_launch(name)
+    _cuda.count_launch(_launch_name(CHUNKED, h // hk, slopes))
     return out
 
 
@@ -466,9 +539,12 @@ def int8_paged_decode_attention_xla(q_s8, kt_pool, v_pool, table, length, q_scal
                                      apply_sqrt_dh=apply_sqrt_dh, quant_pv=quant_pv)
 
 
-def _check_heads(what: str, h: int, hk: int, dh: int) -> None:
-    if h % hk or (h // hk) not in (1, 2, 4, 8) or dh not in (64, 128):
-        raise ValueError(f"{what} needs H / Hkv in (1, 2, 4, 8) and Dh in (64, 128); "
+def _check_heads(what: str, h: int, hk: int, dh: int, any_rep: bool = False) -> None:
+    """K7 (``any_rep``) takes any H % Hkv == 0; K8 and K11 H / Hkv in
+    DECODE_REPS (their page address has no split kernels)."""
+    if h % hk or (not any_rep and (h // hk) not in DECODE_REPS) or dh not in (64, 128):
+        reps = "H % Hkv == 0" if any_rep else f"H / Hkv in {DECODE_REPS}"
+        raise ValueError(f"{what} needs {reps} and Dh in (64, 128); "
                          f"got H={h}, Hkv={hk}, Dh={dh}")
 
 
@@ -497,7 +573,7 @@ def int8_decode_attention_chunked(q_s8: torch.Tensor, kt_cache: torch.Tensor,
     dev = q_s8.device
     _cuda.require(q_s8, "q_s8", torch.int8, (b, h, dh), dev, align=4)
     _check_cache(kt_cache, v_cache, b, dh, dev)
-    _check_heads("K7", h, hk, dh)
+    _check_heads("K7", h, hk, dh, any_rep=True)
     if smax % 4:
         raise ValueError(f"K7 needs Smax % 4 == 0; got Smax={smax}")
     lengths = _lengths(length, b, dev)

@@ -6,14 +6,13 @@ Port of ``dgq_tpu/serve.py``: the JSON-lines TCP server
 (``serving/paged.py``), loaded straight from a ``save_engine`` checkpoint
 (the port's or ``dgq_tpu``'s: the files are the same).  ``--kv-bits 4``
 serves either on the INT4 cache; ``--spec-k`` > 0 turns on prompt-lookup
-speculative decoding in the dense batcher.  OPT, BLOOM and MPT checkpoints
-are served by the dense batcher over their family's device functions
-(``serving/family_batch_engine.batcher_from_checkpoint``); ``--paged``,
-``--tp``/``--pp``/``--dp`` > 1, ``--spec-k``, ``--admit-batch`` > 1 and
-``--kv-bits 4`` are LLaMA's and exit for them.  The flags are
+speculative decoding in the dense batcher.  OPT, BLOOM, MPT, Falcon and
+Mixtral checkpoints are served by the dense batcher over their family's
+device functions (``serving/family_batch_engine.batcher_from_checkpoint``);
+``--paged``, ``--tp``/``--pp``/``--dp`` > 1, ``--spec-k``, ``--admit-batch``
+> 1 and ``--kv-bits 4`` are LLaMA's and exit for them.  The flags are
 ``dgq_tpu.serve``'s; those of paths not ported yet (``--tp``/``--pp``/``--dp``
-> 1, Falcon and Mixtral checkpoints, orbax directories) exit with a message
-naming the ROADMAP item.  As with JAX's ``--paged``, ``--spec-k`` and
+> 1, orbax directories) exit with a message naming the ROADMAP item.  As with JAX's ``--paged``, ``--spec-k`` and
 ``--admit-batch`` are ignored there.  Runs on the GPU; ``--cpu`` runs the
 plain versions on the CPU.
 
@@ -93,11 +92,7 @@ def _unported(args) -> str:
     if os.path.isdir(args.checkpoint):
         return ("orbax (sharded) engine checkpoints are not ported yet (ROADMAP Queue 1 item 1); "
                 "serve a save_engine safetensors file")
-    arch = _arch(args)
-    if arch in ("falcon", "mixtral"):
-        return (f"the {arch} engine is not ported yet (ROADMAP Queue 1 item 5); llama, opt, "
-                "bloom and mpt checkpoints are served")
-    if arch == "llama" and (args.tp > 1 or args.pp > 1 or args.dp > 1):
+    if _arch(args) == "llama" and (args.tp > 1 or args.pp > 1 or args.dp > 1):
         return ("--tp/--pp/--dp > 1 (parallel serving) are not ported yet "
                 "(ROADMAP Queue 1 item 7)")
     return ""
@@ -125,8 +120,9 @@ def _read_prefix(path: str):
 
 def build_server(args):
     """The BatcherServer over a ContinuousBatcher, or a PagedBatcher with
-    ``--paged``, of ``args.checkpoint``; an OPT, BLOOM or MPT checkpoint
-    over the ContinuousBatcher with its family's device functions.  Exits
+    ``--paged``, of ``args.checkpoint``; an OPT, BLOOM, MPT, Falcon or
+    Mixtral checkpoint over the ContinuousBatcher with its family's device
+    functions.  Exits
     with the ROADMAP item for options not ported yet, and for LLaMA-only
     options on another family's checkpoint."""
     from dgq_tpu_torch.models.engine import EngineConfig

@@ -1,27 +1,33 @@
-"""Continuous batching for the OPT, BLOOM and MPT INT8 engines.
+"""Continuous batching for the OPT, BLOOM, MPT, Falcon and Mixtral INT8
+engines.
 
-Port of ``dgq_tpu/serving/family_batch_engine.py`` for the two ALiBi
-families, and the slot machinery that ``serving/opt_batch_engine.py``'s OPT
-namespace runs on too: with the LLaMA path, every ported engine family is
-served by the same ``ContinuousBatcher`` (``serving/scheduler.py`` resolves
-its device functions through ``fns``).
+Port of ``dgq_tpu/serving/family_batch_engine.py``, and the slot machinery
+that ``serving/opt_batch_engine.py``'s OPT namespace runs on too: with the
+LLaMA path, every engine family is served by the same ``ContinuousBatcher``
+(``serving/scheduler.py`` resolves its device functions through ``fns``).
 
 Family specifics live here:
   * BLOOM - embedding LayerNorm, ALiBi, the interleaved (h, 3, dh) fused
     q|k|v, GELU (tanh) (``models/bloom_engine.py``);
   * MPT - plain embedding, ALiBi, the concatenated [q | k | v], GELU (erf)
-    (``models/mpt_engine.py``).
+    (``models/mpt_engine.py``);
+  * Falcon - RoPE, multi-query attention (Falcon-7B: 71 query heads on one
+    kv head), one fp LayerNorm feeding the parallel attention and MLP
+    branches at their own input scales, the parallel residual
+    (``models/falcon_engine.py``);
+  * Mixtral - RoPE, GQA, the sparse MoE tail (``models/mixtral_engine.py``).
 
 Each family provides slot prefill, chunk prefill (long prompts and prefix
-remainders), batched decode with per-slot lengths and ALiBi, multi-step
-decode and the prefix-template copy, over one generic slot machinery
-(``_make_family_fns``) and an adapter.  Prefill runs the engine's own
-block on one slot (K2 with ALiBi for windows of more than 8 tokens); a
-decode step appends each slot's K/V at its own offset and attends with K3
-(K7 past 8192 positions) with ALiBi, the per-slot lengths read on the
-device (``_alibi_decode_ctx``); every linear runs K9.  The cache is written
-in place, as in the port's other batched engines.  Falcon and Mixtral
-(``falcon``, ``mixtral``) are not ported yet (ROADMAP Queue 1 item 5).
+remainders), batched decode with per-slot lengths (and ALiBi, or RoPE at
+each slot's position), multi-step decode and the prefix-template copy, over
+one generic slot machinery (``_make_family_fns``) and an adapter.  Prefill
+runs the engine's own block on one slot (K2, with ALiBi for BLOOM and MPT,
+for windows of more than 8 tokens; Falcon's block attends plainly, as
+JAX's); a decode step appends each slot's K/V at its own offset and attends
+with K3 (K7 past 8192 positions), the per-slot lengths read on the device
+(``_decode_ctx``): Falcon-7B's through K3's split kernel; every linear runs
+K9 (K10 for a Mixtral checkpoint of fp32 group scales).  The cache is
+written in place, as in the port's other batched engines.
 """
 
 from __future__ import annotations
@@ -39,6 +45,20 @@ from dgq_tpu_torch.models.bloom_engine import (
     _bloom_tail,
     decode_ctx,
     slopes_on,
+)
+from dgq_tpu_torch.models.falcon_engine import (
+    FalconEngineConfig,
+    _falcon_block,
+    falcon_branch_codes,
+    falcon_qkv,
+    falcon_tail,
+)
+from dgq_tpu_torch.models.llama import rms_norm, rope_cos_sin
+from dgq_tpu_torch.models.mixtral_engine import (
+    MixtralEngineConfig,
+    _mixtral_block,
+    mixtral_qkv,
+    mixtral_tail,
 )
 from dgq_tpu_torch.models.opt_engine import layer_norm
 from dgq_tpu_torch.models.mpt_engine import MPTEngineConfig, _mpt_block, _mpt_qkv, _mpt_tail
@@ -82,11 +102,12 @@ def decode_multi(decode_batched, ecfg, params, tokens: Tensor, cache, active: Te
     return torch.stack(toks), cache
 
 
-def _alibi_decode_ctx(ecfg, q_s8: Tensor, k_cache: Tensor, v_cache: Tensor, lengths: Tensor,
-                      layer, slopes: Tensor) -> Tensor:
-    """Per-slot decode attention with ALiBi: q_s8 (B, H, 1, Dh) -> (B, 1,
-    H * Dh) f32.  K3 (K7 past DECODE_SHORT_SMAX positions) over each slot's
-    length plus the new token."""
+def _decode_ctx(ecfg, q_s8: Tensor, k_cache: Tensor, v_cache: Tensor, lengths: Tensor, layer,
+                slopes: Optional[Tensor]) -> Tensor:
+    """Per-slot decode attention, with ALiBi ``slopes`` or without (None):
+    q_s8 (B, H, 1, Dh) -> (B, 1, H * Dh) f32.  K3 (K7 past
+    DECODE_SHORT_SMAX positions; either's split kernel at a rep outside 1,
+    2, 4 and 8) over each slot's length plus the new token, fp p @ V."""
     b, h, _, dh = q_s8.shape
     return decode_ctx(q_s8[:, :, 0, :].contiguous(), k_cache, v_cache, lengths.long() + 1,
                       layer.q_scale, layer.k_scale, layer.v_scale, slopes).reshape(b, 1, h * dh)
@@ -199,7 +220,7 @@ def _bloom_decode_block_batched(ecfg: BloomEngineConfig, layer, x: Tensor, k_cac
     """``_bloom_block`` at one token a slot with per-slot append and length."""
     q, k, v = _bloom_qkv(ecfg, layer, x)
     append_kv(k_cache, v_cache, k, v, lengths)
-    ctx = _alibi_decode_ctx(ecfg, q, k_cache, v_cache, lengths, layer, _slopes(ecfg, x))
+    ctx = _decode_ctx(ecfg, q, k_cache, v_cache, lengths, layer, _slopes(ecfg, x))
     return _bloom_tail(ecfg, layer, x, ctx)
 
 
@@ -224,7 +245,7 @@ def _mpt_decode_block_batched(ecfg: MPTEngineConfig, layer, x: Tensor, k_cache: 
     """``_mpt_block`` at one token a slot with per-slot append and length."""
     q, k, v = _mpt_qkv(ecfg, layer, x)
     append_kv(k_cache, v_cache, k, v, lengths)
-    ctx = _alibi_decode_ctx(ecfg, q, k_cache, v_cache, lengths, layer, _slopes(ecfg, x))
+    ctx = _decode_ctx(ecfg, q, k_cache, v_cache, lengths, layer, _slopes(ecfg, x))
     return _mpt_tail(ecfg, layer, x, ctx)
 
 
@@ -241,15 +262,82 @@ def mpt_serving_fns() -> SimpleNamespace:
     ))
 
 
-_FAMILY_FNS = {"bloom": bloom_serving_fns, "mpt": mpt_serving_fns}
-_UNPORTED = ("falcon", "mixtral")
+# -- Falcon and Mixtral (RoPE) -------------------------------------------------
+
+
+def _slot_rope(cfg, lengths: Tensor):
+    """cos, sin (B, 1, 1, Dh) at each slot's position ``lengths`` (B,)."""
+    cos, sin = rope_cos_sin(lengths, cfg.head_dim, cfg.rope_theta)
+    return cos[:, None, None], sin[:, None, None]
+
+
+def _window_rope(cfg, start: int, x: Tensor):
+    """cos, sin (S, Dh) of the (B, S, D) window ``x`` at position ``start``."""
+    return rope_cos_sin(start + torch.arange(x.shape[1], device=x.device), cfg.head_dim,
+                        cfg.rope_theta)
+
+
+def _falcon_decode_block_batched(ecfg: FalconEngineConfig, layer, x: Tensor, k_cache: Tensor,
+                                 v_cache: Tensor, lengths: Tensor) -> Tensor:
+    """``_falcon_block`` at one token a slot with per-slot RoPE, append and
+    length; the attention K3 (Falcon-7B: its split kernel at 71 query heads
+    a kv head), as JAX's batched decode attends."""
+    x_attn_s8, x_fc1_s8 = falcon_branch_codes(ecfg, layer, x)
+    q, k, v = falcon_qkv(ecfg, layer, x_attn_s8, *_slot_rope(ecfg.cfg, lengths))
+    append_kv(k_cache, v_cache, k, v, lengths)
+    ctx = _decode_ctx(ecfg, q, k_cache, v_cache, lengths, layer, None)
+    return falcon_tail(ecfg, layer, x, ctx, x_fc1_s8)
+
+
+def falcon_serving_fns() -> SimpleNamespace:
+    def block_prefill(ecfg, layer, x, k, v, start, mask):
+        return _falcon_block(ecfg, layer, x, k, v, start, mask, *_window_rope(ecfg.cfg, start, x))
+
+    return _make_family_fns(SimpleNamespace(
+        hk_dh=lambda cfg: (cfg.num_kv_heads, cfg.head_dim),
+        embed=lambda ecfg, params, ids, positions: params.embed_tokens[ids.long()].to(
+            torch.float32),
+        block_prefill=block_prefill,
+        block_decode=_falcon_decode_block_batched,
+        final=lambda params, x, eps: layer_norm(x, params.ln_f_weight, params.ln_f_bias, eps),
+    ))
+
+
+def _mixtral_decode_block_batched(ecfg: MixtralEngineConfig, layer, x: Tensor,
+                                  k_cache: Tensor, v_cache: Tensor, lengths: Tensor) -> Tensor:
+    """``_mixtral_block`` at one token a slot with per-slot RoPE, append and
+    length: K3 (K7 past DECODE_SHORT_SMAX positions), then the sparse MoE
+    tail, which is position-independent."""
+    q, k, v = mixtral_qkv(ecfg, layer, x, *_slot_rope(ecfg.cfg, lengths))
+    append_kv(k_cache, v_cache, k, v, lengths)
+    ctx = _decode_ctx(ecfg, q, k_cache, v_cache, lengths, layer, None)
+    return mixtral_tail(ecfg, layer, x, ctx)
+
+
+def mixtral_serving_fns() -> SimpleNamespace:
+    def block_prefill(ecfg, layer, x, k, v, start, mask):
+        return _mixtral_block(ecfg, layer, x, k, v, start, *_window_rope(ecfg.cfg, start, x),
+                              mask)
+
+    return _make_family_fns(SimpleNamespace(
+        hk_dh=lambda cfg: (cfg.num_key_value_heads, cfg.head_dim),
+        embed=lambda ecfg, params, ids, positions: params.embed_tokens[ids.long()].to(
+            torch.float32),
+        block_prefill=block_prefill,
+        block_decode=_mixtral_decode_block_batched,
+        final=lambda params, x, eps: rms_norm(x, params.norm_weight.to(x.dtype), eps),
+    ))
+
+
+_FAMILY_FNS = {"bloom": bloom_serving_fns, "mpt": mpt_serving_fns,
+               "falcon": falcon_serving_fns, "mixtral": mixtral_serving_fns}
 
 
 def family_batcher(arch: str, ecfg, params, **kw):
-    """Continuous batching for any ported engine family: llama -> the
+    """Continuous batching for any engine family: llama -> the
     ContinuousBatcher on its own functions; opt -> ``opt_batcher``; bloom,
-    mpt -> the ContinuousBatcher over their ``fns`` (admit_batch=1,
-    spec_k=0, as JAX's)."""
+    mpt, falcon, mixtral -> the ContinuousBatcher over their ``fns``
+    (admit_batch=1, spec_k=0, as JAX's)."""
     from dgq_tpu_torch.serving.scheduler import ContinuousBatcher
 
     if arch == "opt":
@@ -258,9 +346,6 @@ def family_batcher(arch: str, ecfg, params, **kw):
         return opt_batcher(ecfg, params, **kw)
     if arch == "llama":
         return ContinuousBatcher(ecfg, params, **kw)
-    if arch in _UNPORTED:
-        raise NotImplementedError(f"serving the {arch} engine is not ported yet "
-                                  "(ROADMAP Queue 1 item 5)")
     if arch not in _FAMILY_FNS:
         raise ValueError(f"unknown engine family {arch!r}")
     if kw.get("admit_batch", 1) > 1 or kw.get("spec_k", 0) > 0:
@@ -269,11 +354,13 @@ def family_batcher(arch: str, ecfg, params, **kw):
 
 
 def batcher_from_checkpoint(path: str, *, device="cuda", **kw):
-    """Serving startup from any ported family's save_engine checkpoint: the
-    family comes from the manifest's ``arch`` and the right batcher is made
-    (llama gets the ContinuousBatcher with its full feature set, with
-    ``fp_scales`` from the stored scales; the other families the
-    ``fns``-based scheduler).  Returns (arch, batcher)."""
+    """Serving startup from any family's save_engine checkpoint: the family
+    comes from the manifest's ``arch`` and the right batcher is made (llama
+    gets the ContinuousBatcher with its full feature set; the other
+    families the ``fns``-based scheduler).  LLaMA and Mixtral take
+    ``fp_scales`` from the stored scales (JAX's omits it for Mixtral and
+    would run fp32 scales through the int8-scale path).  Returns (arch,
+    batcher)."""
     from dgq_tpu_torch.models.engine import EngineConfig
     from dgq_tpu_torch.models.opt_engine import OPTEngineConfig
     from dgq_tpu_torch.utils.checkpoint import fp_scales_of, load_engine_any
@@ -283,7 +370,9 @@ def batcher_from_checkpoint(path: str, *, device="cuda", **kw):
         arch = json.load(f).get("arch", "llama")
     if arch == "llama":
         ecfg = EngineConfig(cfg=cfg, fp_scales=fp_scales_of(eng))
+    elif arch == "mixtral":
+        ecfg = MixtralEngineConfig(cfg=cfg, fp_scales=fp_scales_of(eng))
     else:
-        ecfg = {"opt": OPTEngineConfig, "bloom": BloomEngineConfig,
-                "mpt": MPTEngineConfig}[arch](cfg=cfg)
+        ecfg = {"opt": OPTEngineConfig, "bloom": BloomEngineConfig, "mpt": MPTEngineConfig,
+                "falcon": FalconEngineConfig}[arch](cfg=cfg)
     return arch, family_batcher(arch, ecfg, eng, **kw)

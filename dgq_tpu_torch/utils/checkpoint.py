@@ -1,5 +1,5 @@
 """Engine checkpoints: ``save_engine`` / ``load_engine`` for ``arch`` "llama",
-"opt", "bloom" and "mpt", and ``load_engine_any``.
+"opt", "bloom", "mpt", "falcon" and "mixtral", and ``load_engine_any``.
 
 Port of ``dgq_tpu/utils/checkpoint.py:223-248`` and ``:402-511``: one
 safetensors file of flat ``/``-joined keys (``layers/qkv_proj/qw_rp``, ...)
@@ -22,13 +22,17 @@ import torch
 from dgq_tpu_torch.models.bloom import BloomConfig
 from dgq_tpu_torch.models.bloom_engine import BloomEngineLayer, BloomEngineParams
 from dgq_tpu_torch.models.engine import EngineLayer, EngineLinear, EngineParams, map_tensors
+from dgq_tpu_torch.models.falcon import FalconConfig
+from dgq_tpu_torch.models.falcon_engine import FalconEngineLayer, FalconEngineParams
 from dgq_tpu_torch.models.llama import LlamaConfig
+from dgq_tpu_torch.models.mixtral import MixtralConfig
+from dgq_tpu_torch.models.mixtral_engine import MixtralEngineLayer, MixtralEngineParams
 from dgq_tpu_torch.models.mpt import MPTConfig
 from dgq_tpu_torch.models.mpt_engine import MPTEngineLayer, MPTEngineParams
 from dgq_tpu_torch.models.opt import OPTConfig
 from dgq_tpu_torch.models.opt_engine import OPTEngineLayer, OPTEngineParams
 
-ARCHS = ("llama", "opt", "bloom", "mpt")
+ARCHS = ("llama", "opt", "bloom", "mpt", "falcon", "mixtral")
 
 _DTYPES = {
     "I8": torch.int8,
@@ -98,9 +102,9 @@ def _flatten(prefix: str, tree, out: Dict[str, torch.Tensor]) -> None:
 
 
 def engine_arrays(eng) -> Dict[str, torch.Tensor]:
-    """EngineParams, OPTEngineParams, BloomEngineParams or MPTEngineParams ->
-    flat ``/``-joined keys, as JAX's save_engine names them (None fields are
-    left out)."""
+    """Any family's engine params (EngineParams, OPTEngineParams, ...,
+    MixtralEngineParams) -> flat ``/``-joined keys, as JAX's save_engine
+    names them (None fields are left out)."""
     out: Dict[str, torch.Tensor] = {}
     for f in dataclasses.fields(eng):
         value = getattr(eng, f.name)
@@ -110,17 +114,15 @@ def engine_arrays(eng) -> Dict[str, torch.Tensor]:
 
 
 def _check_arch(arch: str) -> None:
-    if arch in ("falcon", "mixtral"):
-        raise NotImplementedError(f"arch {arch!r}: the falcon and mixtral engines are not "
-                                  "ported yet (ROADMAP Queue 1 item 5)")
     if arch not in ARCHS:
         raise ValueError(f"unknown arch {arch!r}")
 
 
 def save_engine(path: str, eng, cfg, arch: str = "llama") -> None:
     """Write ``eng`` (EngineParams for "llama", OPTEngineParams for "opt",
-    BloomEngineParams for "bloom", MPTEngineParams for "mpt") and its
-    ``<path>.json`` manifest, as JAX's save_engine does."""
+    BloomEngineParams for "bloom", MPTEngineParams for "mpt",
+    FalconEngineParams for "falcon", MixtralEngineParams for "mixtral") and
+    its ``<path>.json`` manifest, as JAX's save_engine does."""
     _check_arch(arch)
     write_safetensors(path, engine_arrays(eng))
     manifest = {"format_version": 1, "kind": "engine", "arch": arch,
@@ -205,13 +207,17 @@ def _move(x: torch.Tensor, device) -> torch.Tensor:
     return x.to(device).contiguous()
 
 
-def _span_params_from_arrays(cls, layer_cls, lins, tensors: Mapping[str, object], device):
-    """``cls`` (a span-only engine's params: OPT, BLOOM, MPT) from arrays
-    (numpy or torch) under save_engine's keys; the linears ``lins`` keep
-    their span-only storage, as JAX loads them."""
+def _span_params_from_arrays(cls, layer_cls, lins, tensors: Mapping[str, object], device,
+                             optional=()):
+    """``cls`` (a span-only engine's params: OPT, BLOOM, MPT, Falcon,
+    Mixtral) from arrays (numpy or torch) under save_engine's keys; the
+    linears ``lins`` keep their span-only storage, as JAX loads them (each
+    leaf with the layers' leading axes: (L, E, ...) for Mixtral's experts);
+    the fields ``optional`` are None where the arrays leave them out."""
     t = {k: _to_tensor(v) for k, v in tensors.items()}
     layers = layer_cls(**{
-        name: _stored_linear(t, f"layers/{name}") if name in lins else t[f"layers/{name}"]
+        name: (_stored_linear(t, f"layers/{name}") if name in lins
+               else t.get(f"layers/{name}") if name in optional else t[f"layers/{name}"])
         for name in layer_cls._fields})
     top = {f.name: _move(t[f.name], device) for f in dataclasses.fields(cls)
            if f.name != "layers"}
@@ -242,34 +248,56 @@ def mpt_engine_params_from_arrays(tensors: Mapping[str, object],
                                     device)
 
 
+def falcon_engine_params_from_arrays(tensors: Mapping[str, object],
+                                     device="cuda") -> FalconEngineParams:
+    """FalconEngineParams from arrays (numpy or torch) under save_engine's
+    keys, e.g. JAX's ``FalconEngineParams`` flattened as its save_engine
+    names them."""
+    return _span_params_from_arrays(FalconEngineParams, FalconEngineLayer,
+                                    ("qkv_proj", "dense", "fc1", "fc2"), tensors, device)
+
+
+def mixtral_engine_params_from_arrays(tensors: Mapping[str, object],
+                                      device="cuda") -> MixtralEngineParams:
+    """MixtralEngineParams from arrays (numpy or torch) under save_engine's
+    keys (the experts' ``layers/w13/...`` and ``layers/w2/...`` leading with
+    (L, E)); the norms' and the router's biases may be absent (None)."""
+    return _span_params_from_arrays(MixtralEngineParams, MixtralEngineLayer,
+                                    ("qkv_proj", "o_proj", "w13", "w2"), tensors, device,
+                                    optional=("ln1_bias", "ln2_bias", "gate_bias"))
+
+
 # arch -> (its config, its params from save_engine's arrays) for the span-only engines
 _SPAN_ARCHS = {"opt": (OPTConfig, opt_engine_params_from_arrays),
                "bloom": (BloomConfig, bloom_engine_params_from_arrays),
-               "mpt": (MPTConfig, mpt_engine_params_from_arrays)}
+               "mpt": (MPTConfig, mpt_engine_params_from_arrays),
+               "falcon": (FalconConfig, falcon_engine_params_from_arrays),
+               "mixtral": (MixtralConfig, mixtral_engine_params_from_arrays)}
 
 
-LINEARS = ("qkv_proj", "o_proj", "gate_up_proj", "down_proj")
-
-
-def fp_scales_of(eng: EngineParams) -> bool:
-    """``EngineConfig.fp_scales`` for a loaded LLaMA engine: True when every
+def fp_scales_of(eng) -> bool:
+    """``EngineConfig.fp_scales`` for a loaded LLaMA engine, or
+    ``MixtralEngineConfig.fp_scales`` for a Mixtral one: True when every
     linear stores fp32 group scales (the w4w8-fallback representation),
     False when every one stores int8 scales; an engine that mixes the two
     raises, naming the linears of each kind."""
-    kinds = {name: getattr(eng.layers, name).wscales.dtype == torch.float32 for name in LINEARS}
+    kinds = {name: lin.wscales.dtype == torch.float32
+             for name, lin in zip(eng.layers._fields, eng.layers)
+             if isinstance(lin, EngineLinear)}
     if len(set(kinds.values())) > 1:
         fp = [f"layers/{n}" for n, k in kinds.items() if k]
         s8 = [f"layers/{n}" for n, k in kinds.items() if not k]
         raise ValueError(f"engine mixes fp32 group scales ({', '.join(fp)}) with int8 ones "
                          f"({', '.join(s8)}): one EngineConfig(fp_scales=...) cannot run both")
-    return kinds["qkv_proj"]
+    return next(iter(kinds.values()))
 
 
 def load_engine(path: str, device="cuda"):
     """(engine params, model config) from a save_engine checkpoint, the
     family read from the manifest's ``arch``: (EngineParams, LlamaConfig),
-    (OPTEngineParams, OPTConfig), (BloomEngineParams, BloomConfig) or
-    (MPTEngineParams, MPTConfig)."""
+    (OPTEngineParams, OPTConfig), (BloomEngineParams, BloomConfig),
+    (MPTEngineParams, MPTConfig), (FalconEngineParams, FalconConfig) or
+    (MixtralEngineParams, MixtralConfig)."""
     with open(path + ".json") as f:
         manifest = json.load(f)
     arch = manifest.get("arch", "llama")

@@ -276,16 +276,31 @@ def test_family_batcher_matches_jax(engines, arch):
 
 def test_family_batcher_dispatch(engines):
     """batcher_from_checkpoint takes the family from the manifest; falcon
-    and mixtral are not ported yet; an INT4 cache is LLaMA's only."""
+    and mixtral get the ContinuousBatcher over their ``fns`` (their
+    parity: tests/test_torch_falcon.py, test_torch_mixtral.py); an INT4
+    cache is LLaMA's only."""
+    from dgq_tpu_torch.models import falcon_engine as tfe, mixtral_engine as tmx, synthetic
+    from dgq_tpu_torch.models.falcon import tiny_falcon_config
+    from dgq_tpu_torch.models.mixtral import tiny_mixtral_config
+
     for arch in ("opt", "bloom", "mpt"):
         got, b = tfam.batcher_from_checkpoint(engines[arch][3], device="cpu", num_slots=2,
                                               max_len=MAX_LEN, prefill_pad=PAD)
         assert got == arch and b._f is not None and b.cache.k.shape[-1] == MAX_LEN
     j, t, _, _ = engines["bloom"]
     cfg = FAMILIES["bloom"]["cfg"]
-    for arch in ("falcon", "mixtral"):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"):
-            tfam.family_batcher(arch, None, t)
+    fcfg, mcfg = tiny_falcon_config(), tiny_mixtral_config(hidden_size=256,
+                                                           intermediate_size=256)
+    for arch, ecfg, params in (
+            ("falcon", tfe.FalconEngineConfig(cfg=fcfg),
+             synthetic.build_falcon_engine(fcfg, device="cpu")),
+            ("mixtral", tmx.MixtralEngineConfig(cfg=mcfg),
+             synthetic.build_mixtral_engine(mcfg, device="cpu"))):
+        b = tfam.family_batcher(arch, ecfg, params, num_slots=2, max_len=MAX_LEN,
+                                prefill_pad=PAD)
+        assert type(b).__name__ == "ContinuousBatcher" and b._f is not None
+        with pytest.raises(ValueError, match="admit_batch=1, spec_k=0"):
+            tfam.family_batcher(arch, ecfg, params, admit_batch=2)
     with pytest.raises(ValueError, match="INT4 KV is implemented for the LLaMA engine only"):
         tfam.bloom_serving_fns().init_batched_cache(_port_ecfg("bloom", cfg).cfg, 1, 8,
                                                     kv_bits=4, device="cpu")

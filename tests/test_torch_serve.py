@@ -189,13 +189,25 @@ def test_unported_options_exit_with_roadmap_item(ckpt, extra, item):
 
 
 def test_unported_checkpoints_exit_with_roadmap_item(tmp_path):
-    # OPT, BLOOM and MPT checkpoints are served (tests/test_torch_family.py); Falcon's is not
+    # an orbax directory exits naming its item; every family's save_engine file is served
+    # (OPT, BLOOM, MPT: tests/test_torch_family.py), a Falcon one included
+    from dgq_tpu_torch.models.falcon import tiny_falcon_config
+    from dgq_tpu_torch.models.synthetic import build_falcon_engine
+    from dgq_tpu_torch.utils.checkpoint import save_engine as tsave_engine
+
     orbax = tmp_path / "orbax_ckpt"
     orbax.mkdir()
-    falcon = tmp_path / "falcon.safetensors"
-    falcon.write_bytes(b"")
-    (tmp_path / "falcon.safetensors.json").write_text(json.dumps({"arch": "falcon"}))
-    for path, item in ((orbax, "Queue 1 item 1"), (falcon, "Queue 1 item 5")):
-        args = tserve.build_parser().parse_args([str(path), "--paged", "--cpu"])
-        with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
-            tserve.build_server(args)
+    args = tserve.build_parser().parse_args([str(orbax), "--paged", "--cpu"])
+    with pytest.raises(SystemExit, match="ROADMAP Queue 1 item 1"):
+        tserve.build_server(args)
+    cfg = tiny_falcon_config()
+    falcon = str(tmp_path / "falcon.safetensors")
+    tsave_engine(falcon, build_falcon_engine(cfg, device="cpu"), cfg, arch="falcon")
+    args = tserve.build_parser().parse_args([falcon, "--cpu", "--port", "0", "--admit-batch",
+                                             "1", "--max-len", "64", "--prefill-pad", "8"])
+    assert tserve._unported(args) == ""
+    with tserve.build_server(args) as srv:
+        assert type(srv.batcher).__name__ == "ContinuousBatcher" and srv.batcher._f is not None
+    args = tserve.build_parser().parse_args([falcon, "--paged", "--cpu"])
+    with pytest.raises(SystemExit, match="LLaMA-only; checkpoint is falcon"):
+        tserve.build_server(args)
