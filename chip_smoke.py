@@ -80,15 +80,19 @@ It imports no JAX.  Phases, each printing one JSON line with its seconds:
    and K7's tolerances and timed beside the same kernel without ALiBi on
    the same inputs (``twin_ms``) and bf16 SDPA with the bias as an additive
    mask.  Then K3's and K7's split kernels (any number of query heads a kv
-   head over virtual kv heads of 4 or 8 rows, the last with its live rows):
-   K3 at K3_SPLIT_CASES (Falcon-7B's serving decode: 8 slots, 71 query heads
-   on one kv head, Dh 64, lengths 1-2048; and 48 heads on 8 at Dh 128), both
-   p @ V rules, every cluster of DECODE_CLUSTERS whose block holds the rows,
-   and K7 at K7_SPLIT_CASES (Falcon-7B's heads at 16,384 positions) under
-   every plan of ``chunked_candidates``, each held against its plain version
-   at K3's and K7's tolerances and timed beside it, bf16 SDPA on the same
-   cache and the bound (K and V counted once); their ALiBi kernels held at
-   the same shapes (timed once; no path runs them).  Then
+   head: one cluster a (slot, kv head), every query row of the kv head in a
+   tensor-core tile, csrc/decode_attention_rows.cu): K3 at K3_SPLIT_CASES
+   (Falcon-7B's serving decode: 8 slots, 71 query heads on one kv head, Dh
+   64, lengths 1-2048; and 48 heads on 8 at Dh 128), both p @ V rules, and
+   K7 at K7_SPLIT_CASES (Falcon-7B's heads at 16,384 positions), each under
+   every plan of ``rows_candidates`` (cluster, scores in shared memory or
+   recomputed), held against its plain version at K3's and K7's tolerances
+   and timed beside it, bf16 SDPA on the same cache and two bounds (K and V
+   counted once; fp p @ V counted on the fp32 cores, as ``_decode_bound``
+   counts it, and as the two fp16 tensor-core products the kernels run);
+   their ALiBi kernels held at the same shapes (timed once; no path runs
+   them); K3's also held at K3_SPLIT_HELD (a cache whose rows are not
+   16-byte aligned: cp.async in place of TMA).  Then
    K12 ``fused_norm_gemv``, ``fused_requant_gemv`` and ``fused_mlp_decode``
    (which also serve K13's names) on span weights at K4-K6's shapes and row
    counts, held as K4-K6 are against their plain versions and, by their
@@ -339,11 +343,9 @@ K2_PLAIN_NAMES = ["prefill_attn_sm90<128, false>", "prefill_attn_sm90<64, false>
 K3_ALIBI_NAMES = ["decode_attn_alibi_cluster"]
 K7_ALIBI_NAMES = ["long_attn_alibi_cluster"]
 # K3's and K7's split kernels (any number of query heads a kv head: Falcon-7B's 71 on one),
-# with and without ALiBi
-K3_SPLIT_NAMES = ["decode_attn_split_cluster"]
-K7_SPLIT_NAMES = ["long_attn_split_cluster"]
-K3_SPLIT_ALIBI_NAMES = ["decode_attn_split_alibi_cluster"]
-K7_SPLIT_ALIBI_NAMES = ["long_attn_split_alibi_cluster"]
+# with and without ALiBi: one kernel for both (csrc/decode_attention_rows.cu)
+K3_SPLIT_NAMES = K7_SPLIT_NAMES = ["rows_attn_cluster"]
+K3_SPLIT_ALIBI_NAMES = K7_SPLIT_ALIBI_NAMES = ["rows_attn_alibi_cluster"]
 # K8 and K11: K3's body over the page pool (csrc/paged_decode_attention.cu), one kernel each
 # (INT8 or nibble pages: its KV4 template argument)
 K8_NAMES = K11_NAMES = ["paged_attn_cluster"]
@@ -612,8 +614,6 @@ def phase_build(torch, state):
     k3_log = (_cuda.BUILD_DIR / "int8_decode_attention.log").read_text()
     ptxas["int8_decode_attention"] = _ptxas_entries(k3_log, "decode_attn_cluster")
     ptxas["int8_decode_attention_alibi"] = _ptxas_entries(k3_log, "decode_attn_alibi_cluster")
-    for marker in ("decode_attn_split_cluster", "decode_attn_split_alibi_cluster"):
-        ptxas[marker] = _ptxas_entries(k3_log, marker, bools=True)
     p5_log = (_cuda.BUILD_DIR / "quant_pv_parts_attention.log").read_text()
     ptxas["quant_pv_parts_attention"] = _ptxas_entries(p5_log, "pv_parts_cluster")
     paged_log = (_cuda.BUILD_DIR / "paged_decode_attention.log").read_text()
@@ -623,10 +623,9 @@ def phase_build(torch, state):
     long_alibi_log = (_cuda.BUILD_DIR / "long_decode_attention_alibi.log").read_text()
     ptxas["long_decode_attention_alibi"] = _ptxas_entries(long_alibi_log,
                                                           "long_attn_alibi_cluster", bools=True)
-    ptxas["long_attn_split_cluster"] = _ptxas_entries(long_log, "long_attn_split_cluster",
-                                                      bools=True)
-    ptxas["long_attn_split_alibi_cluster"] = _ptxas_entries(
-        long_alibi_log, "long_attn_split_alibi_cluster", bools=True)
+    rows_log = (_cuda.BUILD_DIR / "decode_attention_rows.log").read_text()
+    for marker in ("rows_attn_cluster", "rows_attn_alibi_cluster"):  # <Dh, quant_pv>
+        ptxas[marker] = _ptxas_entries(rows_log, marker, bools=True)
     return {"nvcc_seconds": seconds, "nvcc": nvcc, "no_c7515": list(WGMMA_SOURCES),
             "igmma_kernels_pipelined": igmma_kernels, "ptxas": ptxas}
 
@@ -1940,67 +1939,72 @@ def _k7_alibi_cases(torch, timer, gen):
     return cases
 
 
-# K3's split kernels: (B, H, Hkv, Dh, lengths): Falcon-7B's serving decode (8 slots, 71 query
-# heads on one kv head, Dh 64, lengths 1 to the whole cache) and a GQA rep that is no power of
-# two (48 query heads on 8, Dh 128)
-FALCON_LENGTHS = tuple(1 + (SMAX - 1) * i // (SLOTS - 1) for i in range(SLOTS))
-K3_SPLIT_CASES = ((SLOTS, 71, 1, 64, FALCON_LENGTHS), (BATCH, 48, 8, 128, K3_ALIBI_LENGTHS))
+def _rows_bound(b, h, hk, dh, keys, quant_pv):
+    """``_decode_bound`` with fp p @ V counted where the split kernels run
+    it: two products (p_hi, p_lo) on the 16-bit tensor cores, beside q.k on
+    the int8 ones (quant_pv: both dots int8, as ``_decode_bound``)."""
+    if quant_pv:
+        return _decode_bound(b, h, hk, dh, keys, True)
+    flops = 2.0 * dh * h * keys
+    nbytes = b * h * dh + 2 * hk * keys * dh + 4 * b + 4 * b * h * dh
+    return bound_ms(nbytes, flops / INT8_OPS_PER_S + 2 * flops / FP16_OPS_PER_S)
 
 
-def _k3_split_cases(torch, timer, gen):
-    """K3's split kernel at K3_SPLIT_CASES, both p @ V rules: held against
-    its plain version within K3's gates at the plan's cluster and at every
-    cluster whose block holds the virtual heads' rows, timed beside the
-    plain version, bf16 SDPA on the same cache and the bound (K and V
-    counted once, however many virtual heads read them).  Its ALiBi kernel
-    (no path runs it) held at the same shapes and every cluster, timed
-    once.  Returns (cases, ALiBi cases)."""
+def _split_cases(torch, timer, gen, what, name, cases_in, smax, check):
+    """K3's (``name`` DECODE) or K7's (CHUNKED) split kernels at
+    ``cases_in`` ((B, H, Hkv, Dh, lengths, quant_pv rules)) in a cache of
+    ``smax``: held against the plain version by ``check`` at the wrapper's
+    plan and at every plan of ``rows_candidates``, with and without ALiBi;
+    without it timed at every plan (CUDA events) and at the wrapper's (the
+    profiler and events), beside the plain version, bf16 SDPA on the same
+    cache and both bounds.  Returns (cases, ALiBi cases)."""
     from dgq_tpu_torch.ops import attention as att
 
     cases, alibi = [], []
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for b, h, hk, dh, lens in K3_SPLIT_CASES:
-        q, kt, v, (qs, ks, vs) = _attn_inputs(torch, gen, b, h, hk, 1, dh, SMAX)
+    wrapper = att.int8_decode_attention if name == att.DECODE else functools.partial(
+        att.int8_decode_attention_chunked, chunk=att.auto_decode_chunk(smax) or smax)
+    for b, h, hk, dh, lens, rules in cases_in:
+        q, kt, v, (qs, ks, vs) = _attn_inputs(torch, gen, b, h, hk, 1, dh, smax)
         q = q[:, :, 0].contiguous()
         lengths = torch.tensor(lens, dtype=torch.int32, device=DEV)
         scales = att._kernel_scales(qs, ks, vs, dh, True)
         rep = h // hk
-        split = att.decode_split(rep)
-        vrep = att.virtual_rep(rep, split)
-        fits = [c for c in att.DECODE_CLUSTERS
-                if att.decode_smem_bytes(dh, vrep, SMAX, c) <= att.DECODE_SMEM_LIMIT]
         slopes = _alibi_slopes(h)
-        shape = {"B": b, "H": h, "Hkv": hk, "Dh": dh, "Smax": SMAX, "lengths": list(lens),
-                 "split": split, "virtual_rep": vrep,
-                 "cluster": att.decode_plan(b, hk, rep, dh, SMAX, sms), "clusters_held": fits}
-        for quant_pv in (False, True):
+        for quant_pv in rules:
+            plans = att.rows_candidates(rep, dh, smax, quant_pv)
+            shape = {"B": b, "H": h, "Hkv": hk, "Dh": dh, "Smax": smax, "lengths": list(lens),
+                     "plan": att.rows_plan(b, hk, rep, dh, smax, sms, quant_pv)._asdict(),
+                     "plans_held": [p._asdict() for p in plans],
+                     "threads": att.rows_threads(rep)}
             for sl, out in ((None, cases), (slopes, alibi)):
                 def kern():
-                    return att.int8_decode_attention(q, kt, v, lengths, qs, ks, vs,
-                                                     quant_pv=quant_pv, alibi_slopes=sl)
+                    return wrapper(q, kt, v, lengths, qs, ks, vs, quant_pv=quant_pv,
+                                   alibi_slopes=sl)
 
                 def plain():
                     return att.int8_decode_attention_xla(q, kt, v, lengths, qs, ks, vs,
                                                          quant_pv=quant_pv, alibi_slopes=sl)
 
-                what = f"K3 split H={h} Hkv={hk} quant_pv={quant_pv} alibi={sl is not None}"
+                tag = f"{what} split H={h} Hkv={hk} quant_pv={quant_pv} alibi={sl is not None}"
                 out_p = plain()
-                err = _check_k3(torch, what, kern(), out_p, quant_pv)
-                for c in fits:  # every cluster the plan chooses among, held
-                    _check_k3(torch, f"{what} cluster {c}",
-                              att._decode_launch(q, kt, v, lengths, scales, quant_pv, c, sl),
-                              out_p, quant_pv)
+                err = check(tag, kern(), out_p, quant_pv)
+                for p in plans:  # every plan the kernels can run this cache with, held
+                    err = max(err, check(f"{tag} {p}", att._rows_launch(
+                        name, q, kt, v, lengths, scales, quant_pv, p, sl), out_p, quant_pv))
                 case = {**shape, "quant_pv": quant_pv, "alibi": sl is not None,
                         "max_abs_err": err}
                 if sl is None:
                     b_ms, b_by = _decode_bound(b, h, hk, dh, sum(lens), quant_pv)
-                    case["cluster_ms"] = {c: timer.kernel(functools.partial(
-                        att._decode_launch, q, kt, v, lengths, scales, quant_pv, c),
-                        K3_SPLIT_NAMES) for c in fits}
+                    tc_ms, tc_by = _rows_bound(b, h, hk, dh, sum(lens), quant_pv)
+                    case["plan_events_ms"] = [{**p._asdict(), "ms": timer.events(
+                        functools.partial(att._rows_launch, name, q, kt, v, lengths, scales,
+                                          quant_pv, p), iters=20)} for p in plans]
                     case.update({"ms": timer.kernel(kern, K3_SPLIT_NAMES),
                                  "events_ms": timer.events(kern), "call_ms": timer(kern),
-                                 "plain_ms": timer(plain, iters=10), "bound_ms": b_ms,
-                                 "bound_by": b_by,
+                                 "plain_ms": timer(plain, iters=5), "bound_ms": b_ms,
+                                 "bound_by": b_by, "bound_tensor_cores_ms": tc_ms,
+                                 "bound_tensor_cores_by": tc_by,
                                  **_sdpa_decode_ms(torch, timer, q, kt, v, (qs, ks, vs),
                                                    lengths)})
                 else:
@@ -2010,67 +2014,62 @@ def _k3_split_cases(torch, timer, gen):
     return cases, alibi
 
 
-# K7's split kernel: (B, H, Hkv, Dh, lengths, quant_pv) at LONG_SMAX positions: Falcon-7B's
+# K3's split kernels: (B, H, Hkv, Dh, lengths, p @ V rules): Falcon-7B's serving decode (8
+# slots, 71 query heads on one kv head, Dh 64, lengths 1 to the whole cache) and a GQA rep
+# that is no power of two (48 query heads on 8, Dh 128), fp p @ V (the engines') and quant_pv
+FALCON_LENGTHS = tuple(1 + (SMAX - 1) * i // (SLOTS - 1) for i in range(SLOTS))
+K3_SPLIT_CASES = ((SLOTS, 71, 1, 64, FALCON_LENGTHS, (False, True)),
+                  (BATCH, 48, 8, 128, K3_ALIBI_LENGTHS, (False, True)))
+
+
+# K3's split kernels held (not timed) where the cache's rows are not 16-byte aligned (Smax %
+# 16 == 4: K by 4-byte cp.async, V by 16-byte, instead of TMA): (B, H, Hkv, Dh, Smax, lengths)
+K3_SPLIT_HELD = ((2, 71, 1, 64, 2052, (2052, 77)), (2, 12, 2, 128, 2052, (5, 2052)))
+
+
+def _k3_split_cases(torch, timer, gen):
+    """K3's split kernels at K3_SPLIT_CASES within K3's gates (``_split_cases``),
+    then at K3_SPLIT_HELD under every plan, both p @ V rules, with and
+    without ALiBi (held, not timed)."""
+    from dgq_tpu_torch.ops import attention as att
+
+    cases, alibi = _split_cases(torch, timer, gen, "K3", att.DECODE, K3_SPLIT_CASES, SMAX,
+                                lambda what, got, ref, qpv: _check_k3(torch, what, got, ref, qpv))
+    for b, h, hk, dh, smax, lens in K3_SPLIT_HELD:
+        q, kt, v, (qs, ks, vs) = _attn_inputs(torch, gen, b, h, hk, 1, dh, smax)
+        q = q[:, :, 0].contiguous()
+        lengths = torch.tensor(lens, dtype=torch.int32, device=DEV)
+        scales = att._kernel_scales(qs, ks, vs, dh, True)
+        for quant_pv in (False, True):
+            for sl in (None, _alibi_slopes(h)):
+                ref = att.int8_decode_attention_xla(q, kt, v, lengths, qs, ks, vs,
+                                                    quant_pv=quant_pv, alibi_slopes=sl)
+                what = (f"K3 split H={h} Hkv={hk} Smax={smax} quant_pv={quant_pv} "
+                        f"alibi={sl is not None}")
+                plans = att.rows_candidates(h // hk, dh, smax, quant_pv)
+                err = max(_check_k3(torch, f"{what} {p}", att._rows_launch(
+                    att.DECODE, q, kt, v, lengths, scales, quant_pv, p, sl), ref, quant_pv)
+                          for p in plans)
+                (cases if sl is None else alibi).append(
+                    {"B": b, "H": h, "Hkv": hk, "Dh": dh, "Smax": smax, "lengths": list(lens),
+                     "quant_pv": quant_pv, "alibi": sl is not None, "held_only": True,
+                     "plans_held": [p._asdict() for p in plans], "max_abs_err": err})
+        del q, kt, v
+    return cases, alibi
+
+
+# K7's split kernels: (B, H, Hkv, Dh, lengths, p @ V rules) at LONG_SMAX positions: Falcon-7B's
 # heads (71 on one kv head, Dh 64) at main_long's lengths, fp p @ V (the Falcon engine's) and
 # quant_pv
-K7_SPLIT_CASES = ((BATCH, 71, 1, 64, K7_LENGTHS, False), (BATCH, 71, 1, 64, K7_LENGTHS, True))
+K7_SPLIT_CASES = ((BATCH, 71, 1, 64, K7_LENGTHS, (False, True)),)
 
 
 def _k7_split_cases(torch, timer, gen):
-    """K7's split kernel at K7_SPLIT_CASES (AUTO chunks): held against its
-    plain version within 1e-5 at every plan of ``chunked_candidates``, timed
-    at ``chunked_plan``'s beside the plain version, bf16 SDPA and the bound;
-    its ALiBi kernel (no path runs it) held at every plan of the fp case and
-    timed once.  Returns (cases, ALiBi cases)."""
+    """K7's split kernels at K7_SPLIT_CASES within 1e-5 (``_split_cases``)."""
     from dgq_tpu_torch.ops import attention as att
 
-    cases, alibi = [], []
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for b, h, hk, dh, lens, quant_pv in K7_SPLIT_CASES:
-        q, kt, v, (qs, ks, vs) = _attn_inputs(torch, gen, b, h, hk, 1, dh, LONG_SMAX)
-        q = q[:, :, 0].contiguous()
-        lengths = torch.tensor(lens, dtype=torch.int32, device=DEV)
-        chunk = att.auto_decode_chunk(LONG_SMAX)
-        scales = att._kernel_scales(qs, ks, vs, dh, True)
-        plans = att.chunked_candidates(hk, h // hk, dh, LONG_SMAX)
-        slopes = _alibi_slopes(h)
-        for sl in (None, slopes) if not quant_pv else (None,):
-            def kern():
-                return att.int8_decode_attention_chunked(q, kt, v, lengths, qs, ks, vs,
-                                                         chunk=chunk, quant_pv=quant_pv,
-                                                         alibi_slopes=sl)
-
-            def plain():
-                return att.int8_decode_attention_xla(q, kt, v, lengths, qs, ks, vs,
-                                                     quant_pv=quant_pv, alibi_slopes=sl)
-
-            what = f"K7 split H={h} Hkv={hk} quant_pv={quant_pv} alibi={sl is not None}"
-            out_p = plain()
-            err = _check_close(what, kern(), out_p)
-            for plan in plans:  # every plan the kernel can run this cache with, held
-                _check_close(f"{what} {plan}", att._chunked_launch(q, kt, v, lengths, scales,
-                                                                   quant_pv, plan, sl), out_p)
-            case = {"B": b, "H": h, "Hkv": hk, "Dh": dh, "Smax": LONG_SMAX, "chunk": chunk,
-                    "lengths": list(lens), "quant_pv": quant_pv, "alibi": sl is not None,
-                    "max_abs_err": err,
-                    "plan": att.chunked_plan(b, hk, h // hk, dh, LONG_SMAX, sms)._asdict(),
-                    "plans_held": [p._asdict() for p in plans]}
-            if sl is None:
-                b_ms, b_by = _decode_bound(b, h, hk, dh, sum(lens), quant_pv)
-                case["plan_ms"] = [{**plan._asdict(), "ms": timer.kernel(functools.partial(
-                    att._chunked_launch, q, kt, v, lengths, scales, quant_pv, plan),
-                    K7_SPLIT_NAMES)} for plan in plans]
-                case.update({"ms": timer.kernel(kern, K7_SPLIT_NAMES),
-                             "events_ms": timer.events(kern), "call_ms": timer(kern),
-                             "plain_ms": timer(plain, iters=5), "bound_ms": b_ms,
-                             "bound_by": b_by,
-                             **_sdpa_decode_ms(torch, timer, q, kt, v, (qs, ks, vs), lengths)})
-                cases.append(case)
-            else:
-                case["ms"] = timer.kernel(kern, K7_SPLIT_ALIBI_NAMES)
-                alibi.append(case)
-        del q, kt, v
-    return cases, alibi
+    return _split_cases(torch, timer, gen, "K7", att.CHUNKED, K7_SPLIT_CASES, LONG_SMAX,
+                        lambda what, got, ref, qpv: _check_close(what, got, ref))
 
 
 def _paged_table(lengths, npg, seed):
@@ -3133,8 +3132,9 @@ def _falcon_long(torch, state, ecfg, eng, prompts, toks):
     batcher (``family_batcher("falcon")``) with BATCH slots in a cache of
     LONG_SMAX, the BATCH prompts and LONG_NEW tokens each: K7's split kernel
     (71 query heads on one kv head) once a layer of every decode forward,
-    no K3; the tokens against the direct forward's (plain attention; not
-    gated: a near-tie may flip)."""
+    no K3, its device time a decode forward from the profiler over the run;
+    the tokens against the direct forward's (plain attention; not gated: a
+    near-tie may flip)."""
     from dgq_tpu_torch.ops import _cuda
     from dgq_tpu_torch.serving import family_batch_engine
     from dgq_tpu_torch.serving.scheduler import Request
@@ -3154,13 +3154,17 @@ def _falcon_long(torch, state, ecfg, eng, prompts, toks):
     family_batch_engine._family_decode_batched = counted
     try:
         _cuda.reset_launches()
-        t0 = time.perf_counter()
-        got = {r.uid: r.output_ids for r in b.run()}
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            got = {r.uid: r.output_ids for r in b.run()}
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
         launches = dict(_cuda.LAUNCHES)
     finally:
         family_batch_engine._family_decode_batched = real
+    split = [e for e in prof.key_averages() if any(n in e.key for n in K7_SPLIT_NAMES)]
+    split_ms = sum(getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0))
+                   for e in split) / 1e3
     del b
     torch.cuda.empty_cache()
     want = {name: 0 for name in SOURCES_OF}
@@ -3173,7 +3177,9 @@ def _falcon_long(torch, state, ecfg, eng, prompts, toks):
     state["launches_falcon_long"] = launches
     direct = toks[:, :LONG_NEW].tolist()
     return {"max_len": LONG_SMAX, "new_tokens": LONG_NEW, "decode_forwards": calls["n"],
-            "launches": launches, "seconds": seconds,
+            "launches": launches, "seconds_profiled": seconds,
+            "k7_split_device_ms_per_step": split_ms / calls["n"],
+            "k7_split_profiled_launches": sum(e.count for e in split),
             "tokens_equal_direct": sum(got[i] == direct[i] for i in range(len(direct))),
             "requests": len(direct)}
 
@@ -4719,15 +4725,16 @@ SOURCES_OF = {
                                     "dgq_tpu/ops/attention.py:179"),
     "int8_decode_attention_chunked_alibi": (
         "dgq_tpu_torch/csrc/long_decode_attention_alibi.cu", "dgq_tpu/ops/attention.py:542"),
-    # K3's and K7's split kernels (the TPU kernels at any rep = H / Hkv), with and without ALiBi
-    "int8_decode_attention_split": ("dgq_tpu_torch/csrc/int8_decode_attention.cu",
+    # K3's and K7's split kernels (the TPU kernels at any rep = H / Hkv), with and without
+    # ALiBi: one source
+    "int8_decode_attention_split": ("dgq_tpu_torch/csrc/decode_attention_rows.cu",
                                     "dgq_tpu/ops/attention.py:179"),
-    "int8_decode_attention_chunked_split": ("dgq_tpu_torch/csrc/long_decode_attention.cu",
+    "int8_decode_attention_chunked_split": ("dgq_tpu_torch/csrc/decode_attention_rows.cu",
                                             "dgq_tpu/ops/attention.py:542"),
-    "int8_decode_attention_split_alibi": ("dgq_tpu_torch/csrc/int8_decode_attention.cu",
+    "int8_decode_attention_split_alibi": ("dgq_tpu_torch/csrc/decode_attention_rows.cu",
                                           "dgq_tpu/ops/attention.py:179"),
     "int8_decode_attention_chunked_split_alibi": (
-        "dgq_tpu_torch/csrc/long_decode_attention_alibi.cu", "dgq_tpu/ops/attention.py:542"),
+        "dgq_tpu_torch/csrc/decode_attention_rows.cu", "dgq_tpu/ops/attention.py:542"),
     "fused_norm_gemv_rp": ("dgq_tpu_torch/csrc/fused_norm_gemv_rp.cu",
                            "dgq_tpu/ops/fused_decode.py:605"),
     "fused_requant_gemv_rp": ("dgq_tpu_torch/csrc/fused_requant_gemv_rp.cu",

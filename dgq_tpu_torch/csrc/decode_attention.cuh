@@ -6,9 +6,7 @@
 // (PagedKV), INT8 or INT4 nibble pages.  A rank keeps its scores and codes
 // in its block's shared memory, or (K7, where its plan says so) in a
 // device-memory scratch: the scores policy.  K3's and K7's ALiBi kernels
-// add slope x position to the scaled scores: the bias policy.  K3's and
-// K7's split kernels serve any number of query heads a kv head over
-// virtual kv heads of 4 or 8 (RaggedKV): the address policy's head map.
+// add slope x position to the scaled scores: the bias policy.
 //
 #pragma once
 
@@ -159,7 +157,6 @@ template <int DH, bool FAST = false>
 struct DenseKV {
   static constexpr bool PAGED = false;
   static constexpr bool NIBBLES = false;
-  static constexpr bool RAGGED = false;
   static constexpr bool FAST_FP = FAST;
   const int8_t* kt;
   const int8_t* vc;
@@ -193,7 +190,6 @@ template <int DH, bool KV4>
 struct PagedKV {
   static constexpr bool PAGED = true;
   static constexpr bool NIBBLES = KV4;
-  static constexpr bool RAGGED = false;
   static constexpr bool FAST_FP = true;
   static constexpr int ROWB = KV4 ? DH / 2 : DH;
   const int8_t* kt;
@@ -263,38 +259,11 @@ struct SplitKV : DenseKV<DH, true> {
   }
 };
 
-// K3's and K7's split kernels (any rep = H / Hkv query heads a kv head, e.g.
-// Falcon-7B's 71 on one): the dense cache, with the grid's Hkv nv virtual kv
-// heads of VREP rows each, nv = ceil(rep / VREP); virtual head g serves the
-// query heads (g / nv) rep + (g % nv) VREP .. of kv head g / nv, and the last
-// of a kv head only the rep - (nv - 1) VREP it has: its live rows.  A row
-// past them loads a zero q, so its scores are finite, and is not stored.
-// The head map is computed at run time (no padded copy of q or out).
-template <int DH>
-struct RaggedKV : DenseKV<DH, true> {
-  static constexpr bool RAGGED = true;
-  int nv, rep;
-  __device__ __forceinline__ void start(int b, int g, int Hkv, int p0, int n, uint8_t* spare) {
-    DenseKV<DH, true>::start(b, g / nv, Hkv / nv, p0, n, spare);
-  }
-  // the first query head of virtual head g, its live rows, and the query heads of the cache's
-  // Hkv / nv kv heads
-  __device__ __forceinline__ int head0(int g, int vrep) const {
-    return (g / nv) * rep + (g % nv) * vrep;
-  }
-  __device__ __forceinline__ int live(int g, int vrep) const {
-    return min(vrep, rep - (g % nv) * vrep);
-  }
-  __device__ __forceinline__ int heads(int Hkv) const { return Hkv / nv * rep; }
-};
-
 // What a rank adds to its scaled scores: nothing (NoBias: K3, K7, K8, K11,
 // P5), or ALiBi (Alibi: K3's and K7's ALiBi kernels, BLOOM and MPT), the
 // slope of query head h times the absolute position, h = g REP + r for row
 // r of (virtual) kv head g: a virtual head of K7's split serves the query
-// heads g REP .. g REP + REP - 1, as the q and out rows it reads and writes
-// (RaggedKV: h = head0(g) + r, a row past the live ones taking the last
-// live row's slope).
+// heads g REP .. g REP + REP - 1, as the q and out rows it reads and writes.
 // The product and the sum are rounded one at a time, as the plain version
 // computes them (an fma would round once), so the scores are the plain
 // version's bit for bit.
@@ -376,8 +345,7 @@ __device__ __forceinline__ int exp_code(float e) {
 // rule RULE, its tiles found through `addr` (a DenseKV or a PagedKV; Smax is
 // the slot's positions, NP * ps for pages), its scores kept and its slot
 // chosen by `sc` (a SmemScores or a LongScores), its scores' bias by `bias` (a
-// NoBias or an Alibi), its query heads by `addr` (RaggedKV's map, else g REP
-// ..); K16: K copies of 16 bytes
+// NoBias or an Alibi); K16: K copies of 16 bytes
 // (Smax % 16 == 0 dense, ps % 16 == 0 paged), else of 4.  PROBE (P5): a
 // slot's length may be 0, and then every position scores finfo.min, so
 // every e is 1 over all Smax positions, and no K is read (K3's lengths are
@@ -413,13 +381,6 @@ __device__ __forceinline__ void decode_attn_core(Addr addr, const int8_t* __rest
   const int g = blockIdx.y, tid = threadIdx.x, warp = tid >> 5;
   const int b = slot_of<Sc>(lengths);
   const int H = Hkv * REP;
-  // RaggedKV: virtual head g's first query head, its live rows, the query heads of the slot
-  int h0 = 0, live = REP, Hq = H;
-  if constexpr (Addr::RAGGED) {
-    h0 = addr.head0(g, REP);
-    live = addr.live(g, REP);
-    Hq = addr.heads(Hkv);
-  }
   const Layout lay(DH, REP, Sc::SMEM ? chmax : 0, ncl, 0, TT);
   uint8_t* ring = smem;
   float* sS;
@@ -489,14 +450,8 @@ __device__ __forceinline__ void decode_attn_core(Addr addr, const int8_t* __rest
 
 #pragma unroll
   for (int u = 0; u < RING; ++u) issue(u);
-  if constexpr (Addr::RAGGED) {  // rows past the live ones: a zero q
-    const int8_t* qg = q + ((size_t)b * Hq + h0) * DH;
-    for (int i = tid; i < REP * DQ; i += NT)
-      sQ[i / DQ][i % DQ] = i / DQ < live ? *reinterpret_cast<const uint32_t*>(qg + 4 * i) : 0u;
-  } else {
-    const int8_t* qg = q + ((size_t)b * H + g * REP) * DH;  // after the copies are in flight
-    for (int i = tid; i < REP * DQ; i += NT) sQ[i / DQ][i % DQ] = *reinterpret_cast<const uint32_t*>(qg + 4 * i);
-  }
+  const int8_t* qg = q + ((size_t)b * H + g * REP) * DH;  // after the copies are in flight
+  for (int i = tid; i < REP * DQ; i += NT) sQ[i / DQ][i % DQ] = *reinterpret_cast<const uint32_t*>(qg + 4 * i);
 
   // ---- scores of the K tiles ----
   const int pq = tid & 15, ds = tid >> 4;
@@ -547,12 +502,7 @@ __device__ __forceinline__ void decode_attn_core(Addr addr, const int8_t* __rest
         int s = 0;
 #pragma unroll
         for (int w = 0; w < NWARPS; ++w) s += sKP[(w * REP + r) * TT + j];
-        if constexpr (Bias::ON && Addr::RAGGED)
-          sS[r * chmax + t0 + j] =
-              __fadd_rn(__fmul_rn(static_cast<float>(s), qk_scale),
-                        __fmul_rn(__ldg(bias.slopes + h0 + min(r, live - 1)),
-                                  static_cast<float>(p0 + t0 + j)));
-        else if constexpr (Bias::ON)
+        if constexpr (Bias::ON)
           sS[r * chmax + t0 + j] =
               __fadd_rn(__fmul_rn(static_cast<float>(s), qk_scale),
                         __fmul_rn(__ldg(bias.slopes + g * REP + r), static_cast<float>(p0 + t0 + j)));
@@ -681,8 +631,8 @@ __device__ __forceinline__ void decode_attn_core(Addr addr, const int8_t* __rest
   cluster_sync();  // rank 0 holds every rank's sums
 
   if (rank == 0) {
-    float* og = out + (Addr::RAGGED ? (size_t)b * Hq + h0 : (size_t)b * H + g * REP) * DH;
-    for (int i = tid; i < (Addr::RAGGED ? live : REP) * DH; i += NT) {
+    float* og = out + ((size_t)b * H + g * REP) * DH;
+    for (int i = tid; i < REP * DH; i += NT) {
       const int r = i / DH, d = i % DH;
       acc_t a = 0;
       float dn = 0.f;
@@ -769,18 +719,6 @@ int launch_cluster(Kernel kernel, Sized& sized, const Call& c, cudaStream_t st,
                                            c.Hkv, c.Smax, c.chmax, extra...);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
-}
-
-// rep = H / Hkv of K3's and K7's whole kernels; any other rep runs their split
-// kernels (RaggedKV)
-inline bool whole_rep(int rep) { return rep == 1 || rep == 2 || rep == 4 || rep == 8; }
-
-// the split kernels' rows a virtual kv head: 4 where nv of 4 cover rep, else 8
-// (ops/attention.py virtual_rep); 0 when nv virtual heads of 8 do not cover rep
-// or one of them would have no live row
-inline int split_vrep(int rep, int nv) {
-  const int vrep = 4 * nv >= rep ? 4 : 8;
-  return vrep * nv >= rep && vrep * (nv - 1) < rep ? vrep : 0;
 }
 
 // The call's checks and the most positions a rank takes (a multiple of T);

@@ -12,15 +12,12 @@
 // times the position is added to query head h's scaled scores before the
 // mask, as the TPU kernel's slope_ref gathers it (h = g rep + r, right under
 // GQA): the body's bias policy Alibi.  The TPU kernel takes any rep; the
-// kernels below are compiled for rep 1, 2, 4 and 8, and any other rep (e.g.
-// Falcon-7B's 71 query heads on one kv head, whose 71 rows' scores no block
-// of a cluster holds) runs the split kernels decode_attn_split_cluster and
-// decode_attn_split_alibi_cluster: the kv head's query heads over nv =
-// ceil(rep / VREP) virtual kv heads of VREP = 4 or 8 rows (the caller's
-// plan), each a cluster of its own over the same K and V, the last with
-// the rows it has (the body's address policy RaggedKV, its head map
-// computed at run time).  Each virtual head reads the kv head's K and V
-// again, mostly from L2.
+// kernels below are compiled for rep 1, 2, 4 and 8, and any other rep
+// (Falcon-7B's 71 query heads on one kv head) runs the split kernels of
+// decode_attention_rows.cu: one cluster a (slot, kv head) with every query
+// row of the kv head in the block, both products on the tensor cores
+// (mma.sync), K and V read once a call (its header gives the bounds at
+// Falcon-7B's shapes and why the design; ops/attention.py rows_plan).
 //
 // What bounds it on this card: the valid K and V bytes, 2 * len * Dh per
 // (slot, kv head), over the 3.35 TB/s of device memory: 9.4 MB, 2.8 us, at
@@ -90,53 +87,6 @@ decode_attn_alibi_cluster(const int8_t* __restrict__ q, const int8_t* __restrict
       SmemScores{}, Alibi{slopes});
 }
 
-// K3 at any rep: grid (C, Hkv nv, B), VREP = REP query heads a virtual kv
-// head, the kv head's rep over nv of them (RaggedKV); slopes null, or (H,) f32
-template <int DH, int REP, bool QPV, bool K16>
-__global__ void __launch_bounds__(NT)
-decode_attn_split_cluster(const int8_t* __restrict__ q, const int8_t* __restrict__ kt,
-                          const int8_t* __restrict__ v, const int* __restrict__ lengths,
-                          const float* __restrict__ scales, float* __restrict__ out, int Hkv,
-                          int Smax, int chmax, int nv, int rep) {
-  decode_attn_core<DH, REP, QPV ? PV_QUANT_FAST : PV_FP, K16, false>(
-      RaggedKV<DH>{{kt, v, Smax, nullptr, nullptr}, nv, rep}, q, lengths, scales, out, Hkv, Smax,
-      chmax);
-}
-
-template <int DH, int REP, bool QPV, bool K16>
-__global__ void __launch_bounds__(NT)
-decode_attn_split_alibi_cluster(const int8_t* __restrict__ q, const int8_t* __restrict__ kt,
-                                const int8_t* __restrict__ v, const int* __restrict__ lengths,
-                                const float* __restrict__ scales, float* __restrict__ out,
-                                int Hkv, int Smax, int chmax, int nv, int rep,
-                                const float* __restrict__ slopes) {
-  decode_attn_core<DH, REP, QPV ? PV_QUANT_FAST : PV_FP, K16, false>(
-      RaggedKV<DH>{{kt, v, Smax, nullptr, nullptr}, nv, rep}, q, lengths, scales, out, Hkv, Smax,
-      chmax, SmemScores{}, Alibi{slopes});
-}
-
-template <int DH, int REP, bool QPV, bool K16>
-int launch_split(const Call& c, int nv, int rep, const float* slopes, cudaStream_t st) {
-  if (slopes) {
-    static Sized sized_alibi = {};
-    return launch_cluster<DH, REP>(decode_attn_split_alibi_cluster<DH, REP, QPV, K16>,
-                                   sized_alibi, c, st, nv, rep, slopes);
-  }
-  static Sized sized = {};
-  return launch_cluster<DH, REP>(decode_attn_split_cluster<DH, REP, QPV, K16>, sized, c, st, nv,
-                                 rep);
-}
-
-template <int DH, int REP>
-int split_mode(const Call& c, bool qpv, int nv, int rep, const float* sl, cudaStream_t st) {
-  const bool k16 = c.Smax % 16 == 0;
-  if (qpv)
-    return k16 ? launch_split<DH, REP, true, true>(c, nv, rep, sl, st)
-               : launch_split<DH, REP, true, false>(c, nv, rep, sl, st);
-  return k16 ? launch_split<DH, REP, false, true>(c, nv, rep, sl, st)
-             : launch_split<DH, REP, false, false>(c, nv, rep, sl, st);
-}
-
 template <int DH, int REP, bool QPV, bool K16>
 int launch(const Call& c, const float* slopes, cudaStream_t st) {
   if (slopes) {
@@ -167,13 +117,6 @@ int launch_rep(int rep, const Call& c, bool qpv, const float* sl, cudaStream_t s
   }
 }
 
-template <int DH>
-int launch_split_rep(int vrep, const Call& c, bool qpv, int nv, int rep, const float* sl,
-                     cudaStream_t st) {
-  if (vrep == 4) return split_mode<DH, 4>(c, qpv, nv, rep, sl, st);
-  return split_mode<DH, 8>(c, qpv, nv, rep, sl, st);
-}
-
 }  // namespace
 
 extern "C" {
@@ -182,28 +125,15 @@ extern "C" {
 // lengths (B,) int32 valid positions per slot, each in [1, Smax]; scales f32
 // [qk_scale, v_scale, v_scale / 127] on the device; slopes (H,) f32 ALiBi
 // slopes on the device, or null (no ALiBi); out (B, H, Dh) f32; cluster (2, 4
-// or 8) blocks per (slot, virtual kv head) and split, the virtual kv heads a
-// kv head: 1 for H / Hkv in (1, 2, 4, 8), else nv for the split kernels (of
-// 4 rows where nv of them cover H / Hkv, else 8), the caller's plan.
+// or 8) blocks per (slot, kv head), the caller's plan.
 int int8_decode_attention(const void* q, const void* kt, const void* v, const void* lengths,
                           const void* scales, const void* slopes, void* out, int B, int H,
-                          int Hkv, int Dh, int Smax, int quant_pv, int cluster, int split,
-                          void* stream) {
+                          int Hkv, int Dh, int Smax, int quant_pv, int cluster, void* stream) {
   Call c;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto sl = static_cast<const float*>(slopes);
-  if (Hkv > 0 && H % Hkv == 0 && !(whole_rep(H / Hkv) && split == 1)) {
-    const int rep = H / Hkv, vrep = split > 0 ? split_vrep(rep, split) : 0;
-    // the virtual kv heads stand for H's check, which the head map replaces
-    if (!vrep || !make_call(c, q, kt, v, lengths, scales, out, B, Hkv * split, Hkv * split,
-                            Smax, cluster))
-      return cudaErrorInvalidValue;
-    if (Dh == 128) return launch_split_rep<128>(vrep, c, quant_pv != 0, split, rep, sl, st);
-    if (Dh == 64) return launch_split_rep<64>(vrep, c, quant_pv != 0, split, rep, sl, st);
-    return cudaErrorInvalidValue;
-  }
   if (!make_call(c, q, kt, v, lengths, scales, out, B, H, Hkv, Smax, cluster))
     return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto sl = static_cast<const float*>(slopes);
   if (Dh == 128) return launch_rep<128>(H / Hkv, c, quant_pv != 0, sl, st);
   if (Dh == 64) return launch_rep<64>(H / Hkv, c, quant_pv != 0, sl, st);
   return cudaErrorInvalidValue;

@@ -14,10 +14,7 @@
 // r is query head g (rep / split) + r, whose slope it takes.  What bounds it
 // is K7's: the valid K and V bytes over 3.35 TB/s; ALiBi adds a load from
 // L1, a multiply and an add a score.  Its own source so that nvcc builds it
-// beside K7's, in parallel.  A rep outside 1, 2, 4 and 8 runs the split
-// kernels long_attn_split_alibi_cluster (long_decode_attention.cu's, with the
-// bias policy Alibi): row r of virtual head g takes the slope of its own
-// query head, head0(g) + r (RaggedKV).
+// beside K7's, in parallel.
 
 #include "decode_attention.cuh"
 
@@ -36,50 +33,6 @@ long_attn_alibi_cluster(const int8_t* __restrict__ q, const int8_t* __restrict__
   decode_attn_core<DH, REP, QPV ? PV_QUANT_FAST : PV_FP, K16, false>(
       SplitKV<DH>{{kt, v, Smax, nullptr, nullptr}, split}, q, lengths, scales, out, Hkv, Smax,
       chmax, LongScores<!SCR>{scratch}, Alibi{slopes});
-}
-
-// K7 with ALiBi at any rep: grid (C, Hkv nv, B), REP query heads a virtual kv
-// head, the kv head's rep over nv of them (RaggedKV)
-template <int DH, int REP, bool QPV, bool K16, bool SCR>
-__global__ void __launch_bounds__(NT)
-long_attn_split_alibi_cluster(const int8_t* __restrict__ q, const int8_t* __restrict__ kt,
-                              const int8_t* __restrict__ v, const int* __restrict__ lengths,
-                              const float* __restrict__ scales, float* __restrict__ out,
-                              int Hkv, int Smax, int chmax, uint8_t* __restrict__ scratch,
-                              int nv, int rep, const float* __restrict__ slopes) {
-  decode_attn_core<DH, REP, QPV ? PV_QUANT_FAST : PV_FP, K16, false>(
-      RaggedKV<DH>{{kt, v, Smax, nullptr, nullptr}, nv, rep}, q, lengths, scales, out, Hkv,
-      Smax, chmax, LongScores<!SCR>{scratch}, Alibi{slopes});
-}
-
-template <int DH, int REP, bool QPV, bool K16, bool SCR>
-int launch_split(const Call& c, uint8_t* scratch, int nv, int rep, const float* slopes,
-                 cudaStream_t st) {
-  static Sized sized = {};
-  return launch_cluster<DH, REP>(long_attn_split_alibi_cluster<DH, REP, QPV, K16, SCR>, sized,
-                                 c, st, scratch, nv, rep, slopes);
-}
-
-template <int DH, int REP, bool SCR>
-int split_mode(const Call& c, bool qpv, uint8_t* scratch, int nv, int rep, const float* sl,
-               cudaStream_t st) {
-  const bool k16 = c.Smax % 16 == 0;
-  if (qpv)
-    return k16 ? launch_split<DH, REP, true, true, SCR>(c, scratch, nv, rep, sl, st)
-               : launch_split<DH, REP, true, false, SCR>(c, scratch, nv, rep, sl, st);
-  return k16 ? launch_split<DH, REP, false, true, SCR>(c, scratch, nv, rep, sl, st)
-             : launch_split<DH, REP, false, false, SCR>(c, scratch, nv, rep, sl, st);
-}
-
-// c.Hkv: the virtual kv heads, Hkv nv; vrep 4 or 8
-template <bool SCR>
-int dispatch_split(const Call& c, int Dh, int vrep, bool qpv, uint8_t* scratch, int nv, int rep,
-                   const float* sl, cudaStream_t st) {
-#define DGQ_REP(D, R) \
-  if (Dh == D && vrep == R) return split_mode<D, R, SCR>(c, qpv, scratch, nv, rep, sl, st);
-  DGQ_REP(128, 4) DGQ_REP(128, 8) DGQ_REP(64, 4) DGQ_REP(64, 8)
-#undef DGQ_REP
-  return cudaErrorInvalidValue;
 }
 
 template <int DH, int REP, bool QPV, bool K16, bool SCR>
@@ -125,23 +78,14 @@ int int8_decode_attention_chunked_alibi(const void* q, const void* kt, const voi
                                         int H, int Hkv, int Dh, int Smax, int quant_pv,
                                         int cluster, int split, void* stream) {
   Call c;
-  auto sp = static_cast<uint8_t*>(scratch);
-  auto sl = static_cast<const float*>(slopes);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (slopes != nullptr && Hkv > 0 && H % Hkv == 0 && !whole_rep(H / Hkv)) {
-    const int rep = H / Hkv, vrep = split > 0 ? split_vrep(rep, split) : 0;
-    if (!vrep || !make_call(c, q, kt, v, lengths, scales, out, B, Hkv * split, Hkv * split,
-                            Smax, cluster))
-      return cudaErrorInvalidValue;
-    c.scratch = scratch != nullptr;
-    return c.scratch ? dispatch_split<true>(c, Dh, vrep, quant_pv != 0, sp, split, rep, sl, st)
-                     : dispatch_split<false>(c, Dh, vrep, quant_pv != 0, sp, split, rep, sl, st);
-  }
   if (slopes == nullptr || Hkv <= 0 || H % Hkv ||
       (split != 1 && split != 2 && split != 4 && split != 8) || (H / Hkv) % split ||
       !make_call(c, q, kt, v, lengths, scales, out, B, H, Hkv * split, Smax, cluster))
     return cudaErrorInvalidValue;
   c.scratch = scratch != nullptr;
+  auto sp = static_cast<uint8_t*>(scratch);
+  auto sl = static_cast<const float*>(slopes);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   return c.scratch ? dispatch<true>(c, H, Dh, quant_pv != 0, sp, split, sl, st)
                    : dispatch<false>(c, H, Dh, quant_pv != 0, sp, split, sl, st);
 }

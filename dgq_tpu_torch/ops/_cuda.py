@@ -39,11 +39,11 @@ SOURCES = {
     "int8_decode_attention_alibi": "int8_decode_attention",
     "int8_decode_attention_chunked_alibi": "long_decode_attention_alibi",
     # K3's and K7's split kernels (any number of query heads a kv head: Falcon-7B's 71 on one),
-    # counted apart, with and without ALiBi
-    "int8_decode_attention_split": "int8_decode_attention",
-    "int8_decode_attention_split_alibi": "int8_decode_attention",
-    "int8_decode_attention_chunked_split": "long_decode_attention",
-    "int8_decode_attention_chunked_split_alibi": "long_decode_attention_alibi",
+    # one source, counted apart, with and without ALiBi
+    "int8_decode_attention_split": "decode_attention_rows",
+    "int8_decode_attention_split_alibi": "decode_attention_rows",
+    "int8_decode_attention_chunked_split": "decode_attention_rows",
+    "int8_decode_attention_chunked_split_alibi": "decode_attention_rows",
     "fused_norm_gemv_rp": "fused_norm_gemv_rp",
     "fused_requant_gemv_rp": "fused_requant_gemv_rp",
     "fused_mlp_decode_rp": "fused_mlp_decode_rp",

@@ -34,9 +34,10 @@ those launches count under ``<name>_alibi``.
 
 K3 and K7 take any number of query heads a kv head, as JAX's do (Falcon-7B:
 71 on one).  Their whole kernels are compiled for rep = H / Hkv in
-DECODE_REPS; any other rep runs their split kernels, which serve a kv head's
-query heads as ``split`` virtual kv heads of ``virtual_rep`` rows (4 or 8),
-the last with the rows it has, each over the same K and V; those launches
+DECODE_REPS; any other rep (up to ROWS_MAX_REP) runs their split kernels
+(``csrc/decode_attention_rows.cu``): one cluster a (slot, kv head) with every
+query row of the kv head in the block, both products on the tensor cores,
+its cluster and where the scores live from ``rows_plan``; those launches
 count under ``<name>_split`` (and ``<name>_split_alibi``).
 
 Every scalar handed to a kernel is a float32 tensor computed in JAX's order,
@@ -62,6 +63,7 @@ DECODE = "int8_decode_attention"
 CHUNKED = "int8_decode_attention_chunked"
 ALIBI = "_alibi"  # the launch count of a kernel's ALiBi instantiation: its name + ALIBI
 SPLIT = "_split"  # K3's and K7's split kernels (any rep): the name + SPLIT (+ ALIBI)
+ROWS = "int8_decode_attention_rows"  # their C entry, one for both
 PAGED = "int8_paged_decode_attention"
 PAGED_KV4 = "int4_paged_decode_attention"
 _PAGED_SIGNATURES = {  # one library, two entry points
@@ -70,7 +72,8 @@ _PAGED_SIGNATURES = {  # one library, two entry points
 }
 _SIGNATURES = {
     PREFILL: {PREFILL: [_cuda.VP] * 6 + [_cuda.INT] * 8 + [_cuda.VP]},
-    DECODE: {DECODE: [_cuda.VP] * 7 + [_cuda.INT] * 8 + [_cuda.VP]},
+    DECODE: {DECODE: [_cuda.VP] * 7 + [_cuda.INT] * 7 + [_cuda.VP]},
+    ROWS: {ROWS: [_cuda.VP] * 9 + [_cuda.INT] * 9 + [_cuda.VP]},
     CHUNKED: {CHUNKED: [_cuda.VP] * 7 + [_cuda.INT] * 8 + [_cuda.VP]},
     CHUNKED + ALIBI: {CHUNKED + ALIBI: [_cuda.VP] * 8 + [_cuda.INT] * 8 + [_cuda.VP]},
     PAGED: _PAGED_SIGNATURES,
@@ -90,10 +93,20 @@ DECODE_SM_SMEM = 233472  # an H100 SM's (228 KB)
 CHUNKED_BLOCKS_PER_SM = 3  # K7's aim for its head split: blocks an SM at clusters of 16
 DECODE_BLOCKS_PER_SM = 2  # the cluster plan's aim: a wave of at most two blocks an SM
 DECODE_SHORT_SMAX = 8192  # the caches K3 takes (auto_decode_chunk), and K7 with K3's plan
-# rep = H / Hkv of K3's and K7's whole kernels; any other rep runs their split kernels over
-# virtual kv heads of SPLIT_REPS[i] query heads
+# rep = H / Hkv of K3's and K7's whole kernels; any other rep up to ROWS_MAX_REP runs their
+# split kernels (csrc/decode_attention_rows.cu): ROWS_SLOTS[i] clusters of ROWS_CLUSTERS[j]
+# blocks a (slot, kv head) (more than one without quant_pv only), two warps a 16-row tile of
+# the kv head's query rows, a ring of ROWS_RING raw tiles of DECODE_TILE positions, and the
+# body's static shared memory (row maxima and sums, the ring's barriers)
 DECODE_REPS = (1, 2, 4, 8)
-SPLIT_REPS = (4, 8)
+ROWS_CLUSTERS = (2, 4, 8, 16)
+ROWS_SLOTS = (1, 2, 4)
+ROWS_RING, ROWS_MAX_REP, ROWS_MIN_THREADS = 8, 128, 256
+# the most clusters of 16 blocks (one an SM) that rows_plan counts on running at once: more
+# of them ran in two waves on an H100 (decode_plan_sweep --rows, PERF.md)
+ROWS_WIDE_CLUSTERS = 4
+ROWS_RANK_POSITIONS = 256  # rows_plan's most positions of the cache a rank
+ROWS_STATIC_BYTES = 4 * 6 * ROWS_MAX_REP + 8 * ROWS_RING + 4
 
 NEG = torch.finfo(torch.float32).min
 
@@ -275,32 +288,9 @@ def decode_chmax(smax: int, cluster: int) -> int:
     return -(-(-(-smax // cluster)) // DECODE_TILE) * DECODE_TILE
 
 
-def virtual_rep(rep: int, split: int) -> int:
-    """The query heads of a virtual kv head when a kv head's ``rep`` are
-    served as ``split`` of them: rep / split on the whole kernels (rep in
-    DECODE_REPS, K7's split dividing it), else the split kernels' rows, the
-    smallest of SPLIT_REPS whose ``split`` heads cover rep (the last head
-    runs the rows it has)."""
-    if rep in DECODE_REPS:
-        return rep // split
-    vrep = next((r for r in SPLIT_REPS if r * split >= rep), 0)
-    if not vrep or vrep * (split - 1) >= rep:
-        raise ValueError(f"{split} virtual kv heads of {SPLIT_REPS} rows do not serve {rep} "
-                         "query heads a kv head")
-    return vrep
-
-
-def decode_split(rep: int) -> int:
-    """K3's virtual kv heads a kv head: 1 for rep in DECODE_REPS (the whole
-    kernel), else ceil(rep / 8), each a cluster of its own over the same K
-    and V (the fewest reads of K and V that the split kernels' rows allow;
-    Falcon-7B's 71 query heads: 9 heads of 8, the last with 7)."""
-    return 1 if rep in DECODE_REPS else -(-rep // SPLIT_REPS[-1])
-
-
 def decode_smem_bytes(dh: int, rep: int, smax: int, cluster: int, scratch: bool = False) -> int:
     """K3's dynamic shared memory a block (the kernel's ``Layout``) at ``rep``
-    query heads a (virtual) kv head: the ring
+    query heads a kv head (or, K7, a head split's group): the ring
     of tiles, the scores and codes of the most positions a rank can take
     (none with ``scratch``: K7's device-memory scores), rank 0's gathering
     area of every rank's sums, the q.k partial sums."""
@@ -311,32 +301,22 @@ def decode_smem_bytes(dh: int, rep: int, smax: int, cluster: int, scratch: bool 
 
 @functools.lru_cache(maxsize=1024)
 def decode_plan(b: int, hk: int, rep: int, dh: int, smax: int, sms: int) -> int:
-    """K3's cluster size: the largest in DECODE_CLUSTERS whose B x Hkv x
-    cluster blocks fit DECODE_BLOCKS_PER_SM blocks an SM, else the smallest
-    (a rank then streams at most half of a slot's positions); larger when
-    the shared memory of the positions a rank can take (Smax / cluster)
-    would not fit a block.  Fitted on an H100
-    (``python -m dgq_tpu_torch.scripts.decode_plan_sweep``, ``PERF.md``): a
-    call is a few microseconds of serial steps, so more blocks than the card
-    runs at once only add waves.  A rep outside DECODE_REPS runs the split
-    kernel over ``decode_split(rep)`` virtual kv heads of ``virtual_rep``
-    rows: the largest cluster whose blocks all run at once, as many an SM
-    as their shared memory lets share it (``_blocks_per_sm``), else the
-    smallest (chip_smoke.py's kernels phase on an "NVIDIA H100 80GB HBM3,
-    700.00 W" at Falcon-7B's 71:1, 8 slots: clusters of 2 / 4 / 8 0.0335 /
-    0.0223 / 0.0232 ms; the whole kernels' rule took 2)."""
-    split = decode_split(rep)
-    vrep = virtual_rep(rep, split)
+    """K3's cluster size (rep in DECODE_REPS; any other rep: ``rows_plan``):
+    the largest in DECODE_CLUSTERS whose B x Hkv x cluster blocks fit
+    DECODE_BLOCKS_PER_SM blocks an SM, else the smallest (a rank then streams
+    at most half of a slot's positions); larger when the shared memory of
+    the positions a rank can take (Smax / cluster) would not fit a block.
+    Fitted on an H100 (``python -m dgq_tpu_torch.scripts.decode_plan_sweep``,
+    ``PERF.md``): a call is a few microseconds of serial steps, so more
+    blocks than the card runs at once only add waves."""
+    if rep not in DECODE_REPS:
+        raise ValueError(f"K3's whole kernels take rep in {DECODE_REPS}, got {rep}: rows_plan")
     fits = [c for c in DECODE_CLUSTERS
-            if decode_smem_bytes(dh, vrep, smax, c) <= DECODE_SMEM_LIMIT]
+            if decode_smem_bytes(dh, rep, smax, c) <= DECODE_SMEM_LIMIT]
     if not fits:
         raise ValueError(f"K3: Smax {smax} at Dh {dh} and rep {rep} fits no cluster of "
                          f"{DECODE_CLUSTERS}")
-    if rep in DECODE_REPS:
-        return _wave_cluster(b, hk, sms, fits)
-    wave = [c for c in fits if b * hk * split * c
-            <= _blocks_per_sm(decode_smem_bytes(dh, vrep, smax, c)) * sms]
-    return max(wave) if wave else fits[0]
+    return _wave_cluster(b, hk, sms, fits)
 
 
 def _wave_cluster(b: int, hk: int, sms: int, fits) -> int:
@@ -347,15 +327,14 @@ def _wave_cluster(b: int, hk: int, sms: int, fits) -> int:
 
 
 class ChunkedPlan(NamedTuple):
-    """How K7 runs: each kv head's query heads in ``split`` groups (virtual
-    kv heads of ``virtual_rep(rep, split)`` query heads each, reading the
+    """How K7's whole kernels run: each kv head's query heads in ``split``
+    groups (virtual kv heads of rep / split query heads each, reading the
     same K and V), clusters of ``cluster`` blocks a (slot, virtual kv head),
     each rank's scores and codes in its block's shared memory, or
     (``scratch``) in a device-memory scratch of the wrapper's."""
     cluster: int
     scratch: bool
     split: int = 1
-
 
 
 def decode_static_bytes(dh: int, rep: int) -> int:
@@ -366,22 +345,19 @@ def decode_static_bytes(dh: int, rep: int) -> int:
 
 
 def chunked_splits(rep: int) -> list:
-    """K7's head splits, fewest virtual kv heads first: those of
-    CHUNKED_SPLITS that divide rep (the whole kernels, rep in DECODE_REPS),
-    else the split kernels' ceil(rep / r) for r in SPLIT_REPS."""
-    if rep in DECODE_REPS:
-        return [s for s in CHUNKED_SPLITS if rep % s == 0]
-    return sorted({-(-rep // r) for r in SPLIT_REPS})
+    """K7's head splits of its whole kernels (rep in DECODE_REPS), fewest
+    virtual kv heads first: those of CHUNKED_SPLITS that divide rep."""
+    return [s for s in CHUNKED_SPLITS if rep % s == 0]
 
 
 def chunked_candidates(hk: int, rep: int, dh: int, smax: int) -> list:
-    """Every plan K7 can run a (Hkv, rep, Dh, Smax) cache with: for each
-    split of ``chunked_splits(rep)``, each cluster of CHUNKED_CLUSTERS whose
-    block holds its rank's scores, then each whose block fits with the
-    scores in the scratch."""
+    """Every plan K7's whole kernels can run a (Hkv, rep, Dh, Smax) cache
+    with: for each split of ``chunked_splits(rep)``, each cluster of
+    CHUNKED_CLUSTERS whose block holds its rank's scores, then each whose
+    block fits with the scores in the scratch."""
     plans = []
     for split in chunked_splits(rep):
-        r = virtual_rep(rep, split)
+        r = rep // split
         room = DECODE_SMEM_LIMIT - decode_static_bytes(dh, r)
         plans += [ChunkedPlan(c, False, split) for c in CHUNKED_CLUSTERS
                   if decode_smem_bytes(dh, r, smax, c) <= room]
@@ -398,7 +374,8 @@ def _blocks_per_sm(smem: int) -> int:
 
 @functools.lru_cache(maxsize=1024)
 def chunked_plan(b: int, hk: int, rep: int, dh: int, smax: int, sms: int) -> ChunkedPlan:
-    """K7's plan, fitted on an H100 at K7's shapes
+    """K7's plan for its whole kernels (rep in DECODE_REPS; any other rep:
+    ``rows_plan``), fitted on an H100 at K7's shapes
     (``python -m dgq_tpu_torch.scripts.decode_plan_sweep --k7``, ``PERF.md``):
     K3's (``decode_plan``) for the caches K3 takes (up to DECODE_SHORT_SMAX
     positions), where a rank's few tiles make the launch's waves the cost;
@@ -411,25 +388,120 @@ def chunked_plan(b: int, hk: int, rep: int, dh: int, smax: int, sms: int) -> Chu
       unless the block serves several query heads and the scratch lets more
       blocks share an SM (with one query head a block, the scratch's
       latency in the rank's serial loops cost more than a block an SM
-      saved; the split kernels, a rep outside DECODE_REPS, keep them in
-      shared memory wherever it holds them)."""
+      saved)."""
+    if rep not in DECODE_REPS:
+        raise ValueError(f"K7's whole kernels take rep in {DECODE_REPS}, got {rep}: rows_plan")
     if smax <= DECODE_SHORT_SMAX:
-        return ChunkedPlan(decode_plan(b, hk, rep, dh, smax, sms), False, decode_split(rep))
+        return ChunkedPlan(decode_plan(b, hk, rep, dh, smax, sms), False)
     plans = chunked_candidates(hk, rep, dh, smax)
     if not plans:
         raise ValueError(f"K7: Dh {dh} at rep {rep} fits no block")
-    splits = chunked_splits(rep)
-    split = next((s for s in splits
-                  if b * hk * s * CHUNKED_CLUSTERS[-1] >= CHUNKED_BLOCKS_PER_SM * sms), splits[-1])
+    split = next((s for s in CHUNKED_SPLITS if rep % s == 0
+                  and b * hk * s * CHUNKED_CLUSTERS[-1] >= CHUNKED_BLOCKS_PER_SM * sms), rep)
     c = max(p.cluster for p in plans if p.split == split)
-    r = virtual_rep(rep, split)
+    r = rep // split
     held = ChunkedPlan(c, False, split) in plans
     more = (_blocks_per_sm(decode_smem_bytes(dh, r, smax, c, True))
             > _blocks_per_sm(decode_smem_bytes(dh, r, smax, c)))
-    # the split kernels keep the scores in shared memory where it holds them: at Falcon-7B's
-    # 71:1 (16,384 positions, 4 slots, 9 heads of 8) 0.0797 ms against the scratch's 0.0865
-    # (chip_smoke.py's kernels phase, "NVIDIA H100 80GB HBM3, 700.00 W")
-    return ChunkedPlan(c, not held or (r > 1 and more and rep in DECODE_REPS), split)
+    return ChunkedPlan(c, not held or (r > 1 and more), split)
+
+
+class RowsPlan(NamedTuple):
+    """How K3's and K7's split kernels (a rep outside DECODE_REPS) run a
+    call: ``slots`` clusters of ``cluster`` blocks a (slot, kv head), each
+    block with every query row of the kv head, the scores between the row
+    max and the exp kept in the block's shared memory or (``recompute``)
+    computed again from K in a second pass.  With ``slots`` > 1 (fp p @ V
+    only) each cluster takes its own part of the positions against its own
+    row max, and the last block to finish adds the parts, rescaled to the
+    global max."""
+    cluster: int
+    recompute: bool
+    slots: int = 1
+
+
+def rows_threads(rep: int) -> int:
+    """Threads a block of the split kernels: two warps a 16-row tile, and at
+    least ROWS_MIN_THREADS (the warps past the rows' only copy and turn
+    tiles)."""
+    return max(ROWS_MIN_THREADS, 64 * -(-rep // 16))
+
+
+def rows_smem_bytes(dh: int, rep: int, smax: int, cluster: int, recompute: bool = False,
+                    slots: int = 1) -> int:
+    """The split kernels' dynamic shared memory a block (the kernel's
+    ``Layout``): the ring of raw tiles, the turned K and V^T tiles, q's rows
+    padded to 16 and, unless ``recompute``, the f32 scores of the most
+    positions a rank can take (a row of ``decode_chmax`` over the slot's
+    cluster x slots ranks, + 8)."""
+    rp = 16 * -(-rep // 16)
+    base = (ROWS_RING + 3) * DECODE_TILE * dh + rp * (dh + 16)
+    return base + (0 if recompute else 4 * rp * (decode_chmax(smax, cluster * slots) + 8))
+
+
+def rows_candidates(rep: int, dh: int, smax: int, quant_pv: bool = False) -> list:
+    """Every plan the split kernels can run a (rep, Dh, Smax) cache with:
+    for each of ROWS_SLOTS (1 only with ``quant_pv``, whose codes need the
+    global max first), each cluster of ROWS_CLUSTERS whose block holds its
+    rank's scores, then each with the scores recomputed."""
+    room = DECODE_SMEM_LIMIT - ROWS_STATIC_BYTES
+    plans = []
+    for n in ROWS_SLOTS[:1] if quant_pv else ROWS_SLOTS:
+        plans += [RowsPlan(c, False, n) for c in ROWS_CLUSTERS
+                  if rows_smem_bytes(dh, rep, smax, c, False, n) <= room]
+        plans += [RowsPlan(c, True, n) for c in ROWS_CLUSTERS
+                  if rows_smem_bytes(dh, rep, smax, c, True, n) <= room]
+    return plans
+
+
+def _rows_blocks_per_sm(dh: int, rep: int, smax: int, plan: RowsPlan) -> int:
+    """Blocks of the split kernels under ``plan`` that share an SM: its 64 K
+    registers at the kernels' 128 a thread, its 2048 threads and 228 KB (the
+    body's static bytes and the 1 KB the card reserves a block)."""
+    smem = rows_smem_bytes(dh, rep, smax, plan.cluster, plan.recompute, plan.slots)
+    threads = rows_threads(rep)
+    return min(65536 // (128 * threads), 2048 // threads,
+               DECODE_SM_SMEM // (smem + ROWS_STATIC_BYTES + 1024))
+
+
+@functools.lru_cache(maxsize=1024)
+def rows_plan(b: int, hk: int, rep: int, dh: int, smax: int, sms: int,
+              quant_pv: bool = False) -> RowsPlan:
+    """The split kernels' plan, for K3 and K7 alike (so K7 takes K3's on the
+    caches K3 takes), fitted on an H100
+    (``python -m dgq_tpu_torch.scripts.decode_plan_sweep --rows``,
+    ``PERF.md``): ranks enough that a rank takes at most ROWS_RANK_POSITIONS
+    of the cache (a few serial tiles: a rank's tiles, not the bytes, set the
+    time), at most 64; for blocks of up to 16 rows, which share an SM two or
+    more at a time, clusters of 2 and the rest as clusters a slot (fp p @ V
+    only: quant_pv's codes need the slot's max first), else one cluster a
+    slot; the cluster halved while its blocks would not all run at once (or
+    more than ROWS_WIDE_CLUSTERS clusters of 16 there would be); the scores
+    in shared memory where the block holds them, else recomputed."""
+    if not 1 <= rep <= ROWS_MAX_REP:
+        raise ValueError(f"the split kernels take 1 to {ROWS_MAX_REP} query heads a kv head, "
+                         f"got {rep}")
+    room = DECODE_SMEM_LIMIT - ROWS_STATIC_BYTES
+
+    def plan(cluster, slots):
+        recompute = rows_smem_bytes(dh, rep, smax, cluster, False, slots) > room
+        if recompute and rows_smem_bytes(dh, rep, smax, cluster, True, slots) > room:
+            raise ValueError(f"the split kernels: Dh {dh} at rep {rep} fits no block")
+        return RowsPlan(cluster, recompute, slots)
+
+    ranks = min(64, max(2, 1 << (-(-smax // ROWS_RANK_POSITIONS) - 1).bit_length()))
+    shared = 65536 // (128 * rows_threads(rep)) >= 2  # two blocks' registers on an SM
+    slots = 1 if quant_pv or not shared else min(ROWS_SLOTS[-1], ranks // 2)
+    p = plan(max(2, min(16, ranks // slots)), slots)
+    while p.cluster > 2 and (b * hk * slots * p.cluster > _rows_blocks_per_sm(dh, rep, smax, p) * sms
+                             or p.cluster == 16 and b * hk * slots > ROWS_WIDE_CLUSTERS):
+        p = plan(p.cluster // 2, slots)
+    return p
+
+
+# device -> int32 zeros, the slot clusters' arrivals a (slot, kv head, rank): the kernel leaves
+# them 0, and the launches of a stream run in order
+_ROWS_COUNT = {}
 
 
 def int8_decode_attention(q_s8: torch.Tensor, kt_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -441,7 +513,9 @@ def int8_decode_attention(q_s8: torch.Tensor, kt_cache: torch.Tensor, v_cache: t
     ``length`` (int, () or (B,)) counts the valid cache positions per slot,
     the current token included; each must be at least 1.  ``alibi_slopes``
     (H,) f32 adds slope[h] x position (the kernel's ALiBi instantiation).
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    A rep = H / Hkv outside DECODE_REPS runs the split kernels under
+    ``rows_plan``.  CPU tensors take the plain version; CUDA tensors launch
+    the kernel."""
     if q_s8.device.type == "cpu":
         return int8_decode_attention_xla(q_s8, kt_cache, v_cache, length, q_scale, k_scale,
                                          v_scale, apply_sqrt_dh, quant_pv, alibi_slopes)
@@ -449,59 +523,84 @@ def int8_decode_attention(q_s8: torch.Tensor, kt_cache: torch.Tensor, v_cache: t
     dev = q_s8.device
     _cuda.require(q_s8, "q_s8", torch.int8, (b, h, dh), dev, align=4)
     hk, smax = _check_cache(kt_cache, v_cache, b, dh, dev)
-    if h % hk or smax % 4 or dh not in (64, 128):
-        raise ValueError(f"K3 needs H % Hkv == 0, Smax % 4 == 0, Dh in (64, 128); "
-                         f"got H={h}, Hkv={hk}, Smax={smax}, Dh={dh}")
+    if h % hk or smax % 4 or dh not in (64, 128) or h // hk > ROWS_MAX_REP:
+        raise ValueError(f"K3 needs H % Hkv == 0, H / Hkv <= {ROWS_MAX_REP}, Smax % 4 == 0, "
+                         f"Dh in (64, 128); got H={h}, Hkv={hk}, Smax={smax}, Dh={dh}")
     lengths = _lengths(length, b, dev)
     scales = _kernel_scales(q_scale, k_scale, v_scale, dh, apply_sqrt_dh)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    slopes = _slopes(alibi_slopes, h, dev)
+    if h // hk not in DECODE_REPS:
+        return _rows_launch(DECODE, q_s8, kt_cache, v_cache, lengths, scales, quant_pv,
+                            rows_plan(b, hk, h // hk, dh, smax, sms, quant_pv), slopes)
     return _decode_launch(q_s8, kt_cache, v_cache, lengths, scales, quant_pv,
-                          decode_plan(b, hk, h // hk, dh, smax, sms),
-                          _slopes(alibi_slopes, h, dev))
+                          decode_plan(b, hk, h // hk, dh, smax, sms), slopes)
 
 
 def _decode_launch(q_s8, kt_cache, v_cache, lengths, scales, quant_pv: bool,
                    cluster: int, slopes: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Launch K3 in clusters of ``cluster`` blocks on checked operands
-    (``lengths`` (B,) int32, the kernel's scales and, for ALiBi, the (H,)
-    slopes on the card); a rep outside DECODE_REPS runs the split kernel
-    over ``decode_split(rep)`` virtual kv heads a kv head."""
+    """Launch K3's whole kernels (rep in DECODE_REPS) in clusters of
+    ``cluster`` blocks on checked operands (``lengths`` (B,) int32, the
+    kernel's scales and, for ALiBi, the (H,) slopes on the card)."""
     b, h, dh = q_s8.shape
     hk, smax = kt_cache.shape[1], kt_cache.shape[3]
     dev = q_s8.device
-    split = decode_split(h // hk)
     out = torch.empty((b, h, dh), dtype=torch.float32, device=dev)
     lib = _cuda.library(_cuda.SOURCES[DECODE], _SIGNATURES[DECODE])
     rc = lib.int8_decode_attention(
         _cuda.ptr(q_s8), _cuda.ptr(kt_cache), _cuda.ptr(v_cache), _cuda.ptr(lengths),
         _cuda.ptr(scales), _cuda.ptr(slopes), _cuda.ptr(out), b, h, hk, dh, smax,
-        int(quant_pv), cluster, split, _cuda.stream(dev))
+        int(quant_pv), cluster, _cuda.stream(dev))
     _cuda.check(rc, DECODE)
-    _cuda.count_launch(_launch_name(DECODE, h // hk, slopes))
+    _cuda.count_launch(DECODE if slopes is None else DECODE + ALIBI)
     return out
 
 
-def _launch_name(name: str, rep: int, slopes) -> str:
-    """The launch count of K3 or K7 (``name``) at ``rep``: the whole kernels,
-    or (rep outside DECODE_REPS) the split kernels, with or without ALiBi."""
-    return (name + ("" if rep in DECODE_REPS else SPLIT)
-            + ("" if slopes is None else ALIBI))
+def _rows_launch(name: str, q_s8, kt_cache, v_cache, lengths, scales, quant_pv: bool,
+                 plan: RowsPlan, slopes: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch K3's (``name`` DECODE) or K7's (CHUNKED) split kernels under
+    ``plan`` on checked operands (``lengths`` (B,) int32, the kernel's
+    scales and, for ALiBi, the (H,) slopes on the card), with the slot
+    clusters' partials (B, Hkv, slots, rows padded to 16, Dh + 2) f32 and
+    their arrival counts where the plan has more than one cluster a slot;
+    the launch counts under ``name`` + SPLIT (+ ALIBI)."""
+    b, h, dh = q_s8.shape
+    hk, smax = kt_cache.shape[1], kt_cache.shape[3]
+    dev = q_s8.device
+    out = torch.empty((b, h, dh), dtype=torch.float32, device=dev)
+    part = count = None
+    if plan.slots > 1:
+        part = torch.empty((b * hk * plan.slots * 16 * -(-(h // hk) // 16) * (dh + 2),),
+                           dtype=torch.float32, device=dev)
+        count = _ROWS_COUNT.get(dev)
+        if count is None or count.numel() < b * hk * 16:
+            count = _ROWS_COUNT[dev] = torch.zeros((b * hk * 16,), dtype=torch.int32, device=dev)
+    count_name = name + SPLIT + ("" if slopes is None else ALIBI)
+    lib = _cuda.library(_cuda.SOURCES[count_name], _SIGNATURES[ROWS])
+    rc = lib.int8_decode_attention_rows(
+        _cuda.ptr(q_s8), _cuda.ptr(kt_cache), _cuda.ptr(v_cache), _cuda.ptr(lengths),
+        _cuda.ptr(scales), _cuda.ptr(slopes), _cuda.ptr(out), _cuda.ptr(part), _cuda.ptr(count),
+        b, h, hk, dh, smax, int(quant_pv), plan.cluster, plan.slots, int(plan.recompute),
+        _cuda.stream(dev))
+    _cuda.check(rc, count_name)
+    _cuda.count_launch(count_name)
+    return out
 
 
 def _chunked_launch(q_s8, kt_cache, v_cache, lengths, scales, quant_pv: bool,
                     plan: ChunkedPlan, slopes: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Launch K7 under ``plan`` on checked operands (``lengths`` (B,) int32,
-    the kernel's scales and, for ALiBi, the (H,) slopes on the card), with
-    the ranks' scratch of (B, Hkv split, cluster, 5 vrep chmax) bytes (vrep
-    = ``virtual_rep(rep, split)``) where the plan keeps the scores there."""
+    """Launch K7's whole kernels (rep in DECODE_REPS) under ``plan`` on
+    checked operands (``lengths`` (B,) int32, the kernel's scales and, for
+    ALiBi, the (H,) slopes on the card), with the ranks' scratch of (B, Hkv
+    split, cluster, 5 (rep / split) chmax) bytes where the plan keeps the
+    scores there."""
     b, h, dh = q_s8.shape
     hk, smax = kt_cache.shape[1], kt_cache.shape[3]
     dev = q_s8.device
     out = torch.empty((b, h, dh), dtype=torch.float32, device=dev)
     scratch = None
-    if plan.scratch:  # B Hkv split cluster runs of 5 vrep chmax bytes
-        vrep = virtual_rep(h // hk, plan.split)
-        scratch = torch.empty((b * hk * plan.split * plan.cluster * 5 * vrep
+    if plan.scratch:  # B Hkv split cluster runs of 5 (rep / split) chmax bytes
+        scratch = torch.empty((b * hk * plan.cluster * 5 * (h // hk)
                                * decode_chmax(smax, plan.cluster),), dtype=torch.uint8, device=dev)
     name = CHUNKED if slopes is None else CHUNKED + ALIBI
     lib = _cuda.library(_cuda.SOURCES[name], _SIGNATURES[name])
@@ -514,7 +613,7 @@ def _chunked_launch(q_s8, kt_cache, v_cache, lengths, scales, quant_pv: bool,
     else:
         rc = lib.int8_decode_attention_chunked_alibi(*head, _cuda.ptr(slopes), *tail)
     _cuda.check(rc, name)
-    _cuda.count_launch(_launch_name(CHUNKED, h // hk, slopes))
+    _cuda.count_launch(name)
     return out
 
 
@@ -540,10 +639,12 @@ def int8_paged_decode_attention_xla(q_s8, kt_pool, v_pool, table, length, q_scal
 
 
 def _check_heads(what: str, h: int, hk: int, dh: int, any_rep: bool = False) -> None:
-    """K7 (``any_rep``) takes any H % Hkv == 0; K8 and K11 H / Hkv in
-    DECODE_REPS (their page address has no split kernels)."""
-    if h % hk or (not any_rep and (h // hk) not in DECODE_REPS) or dh not in (64, 128):
-        reps = "H % Hkv == 0" if any_rep else f"H / Hkv in {DECODE_REPS}"
+    """K7 (``any_rep``) takes any H % Hkv == 0 up to ROWS_MAX_REP query heads
+    a kv head; K8 and K11 H / Hkv in DECODE_REPS (their page address has no
+    split kernels)."""
+    if (h % hk or (h // hk not in DECODE_REPS and not (any_rep and h // hk <= ROWS_MAX_REP))
+            or dh not in (64, 128)):
+        reps = f"H % Hkv == 0, H / Hkv <= {ROWS_MAX_REP}" if any_rep else f"H / Hkv in {DECODE_REPS}"
         raise ValueError(f"{what} needs {reps} and Dh in (64, 128); "
                          f"got H={h}, Hkv={hk}, Dh={dh}")
 
@@ -561,8 +662,10 @@ def int8_decode_attention_chunked(q_s8: torch.Tensor, kt_cache: torch.Tensor,
     kernel (K3's body under ``chunked_plan``) does not walk chunks.
     ``length`` counts the valid positions per slot (each at least 1).
     ``alibi_slopes`` (H,) f32 adds slope[h] x position, as K3's (the ALiBi
-    engines route caches past DECODE_SHORT_SMAX here, JAX's to its K3).  CPU
-    tensors take the plain version; CUDA tensors launch the kernel."""
+    engines route caches past DECODE_SHORT_SMAX here, JAX's to its K3).  A
+    rep = H / Hkv outside DECODE_REPS runs the split kernels under
+    ``rows_plan``, as K3's.  CPU tensors take the plain version; CUDA
+    tensors launch the kernel."""
     b, h, dh = q_s8.shape
     _, hk, _, smax = kt_cache.shape
     if chunk <= 0 or smax % chunk:
@@ -579,9 +682,12 @@ def int8_decode_attention_chunked(q_s8: torch.Tensor, kt_cache: torch.Tensor,
     lengths = _lengths(length, b, dev)
     scales = _kernel_scales(q_scale, k_scale, v_scale, dh, apply_sqrt_dh)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    slopes = _slopes(alibi_slopes, h, dev)
+    if h // hk not in DECODE_REPS:
+        return _rows_launch(CHUNKED, q_s8, kt_cache, v_cache, lengths, scales, quant_pv,
+                            rows_plan(b, hk, h // hk, dh, smax, sms, quant_pv), slopes)
     return _chunked_launch(q_s8, kt_cache, v_cache, lengths, scales, quant_pv,
-                           chunked_plan(b, hk, h // hk, dh, smax, sms),
-                           _slopes(alibi_slopes, h, dev))
+                           chunked_plan(b, hk, h // hk, dh, smax, sms), slopes)
 
 
 def paged_smem_bytes(dh: int, rep: int, npg: int, ps: int, cluster: int,

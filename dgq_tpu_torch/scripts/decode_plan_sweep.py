@@ -25,10 +25,24 @@ clean one (``clean_``: 128 MB read), from torch.profiler and from CUDA
 events (a plan of K7: its profiler time and its clean events time).
 ``--k7 wrapper``: the wrapper alone, so that two trees' K7 can be compared
 in one call (the script copied into the other tree).
+
+``--rows``: K3's and K7's split kernels (a rep outside 1, 2, 4 and 8) at
+ROWS_SHAPES (``chip_smoke.py``'s split cases: Falcon-7B's serving decode, 8
+slots at 71 query heads on one kv head, Dh 64; 48 heads on 8 at Dh 128;
+Falcon-7B's heads at 16,384 positions; and its batched serving decode at
+16,384 as ``chip_smoke.py``'s main_falcon runs it, 4 slots of 260
+positions), each plan of ``rows_candidates`` through ``_rows_launch``
+(``cluster``, ``recompute``, ``slots``, and whether ``rows_plan`` chose
+it; its device time from CUDA events), then the wrapper as a path calls it
+(all of the call's device time, whatever its kernels' names), each held
+against the plain version (K3's gates; K7's within 1e-5) and timed after a
+flush of zeros and after a clean one.
+``--rows wrapper``: the wrappers alone (two trees compared in one call).
 Then the card's name and power limit, as nvidia-smi gives them.
 
 Run: ``python -m dgq_tpu_torch.scripts.decode_plan_sweep [--iters 20]
-[--k7 [wrapper]]`` on the card (the kernels have no CPU version).
+[--k7 [wrapper] | --rows [wrapper]]`` on the card (the kernels have no CPU
+version).
 """
 
 from __future__ import annotations
@@ -59,6 +73,14 @@ K7_SHAPES = (("k7", 32, 32, 16384, K7_LENGTHS, True),
              ("rep8_64k", 64, 8, 65536, (65526,), True))
 K3_NAMES = ("decode_attn_cluster",)
 K7_NAMES = ("long_attn_cluster",)
+FALCON_SERVE = tuple(1 + 2047 * i // 7 for i in range(8))  # chip_smoke.py's FALCON_LENGTHS
+# (name, H, Hkv, Dh, Smax, lengths, quant_pv): K3's split cases (Smax 2048) and K7's (16,384)
+ROWS_SHAPES = (("falcon_serve", 71, 1, 64, 2048, FALCON_SERVE, False),
+               ("falcon_serve_qpv", 71, 1, 64, 2048, FALCON_SERVE, True),
+               ("gqa_48_8", 48, 8, 128, 2048, (1, 700, 1501, 2048), False),
+               ("falcon_16k", 71, 1, 64, 16384, K7_LENGTHS, False),
+               ("falcon_16k_qpv", 71, 1, 64, 16384, K7_LENGTHS, True),
+               ("falcon_long_step", 71, 1, 64, 16384, (260,) * 4, False))
 
 
 def _gate(got: torch.Tensor, ref: torch.Tensor, quant_pv: bool, what: str) -> None:
@@ -180,11 +202,62 @@ def _k7_shapes(args, sms, gen, flush, dev, emit) -> None:
         del q, kt, v
 
 
+def _rows_shapes(args, sms, gen, flush, dev, emit) -> None:
+    def ri(shape):
+        return torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+
+    for name, h, hk, dh, smax, lens, quant_pv in ROWS_SHAPES:
+        b = len(lens)
+        q, kt, v = ri((b, h, dh)), ri((b, hk, dh, smax)), ri((b, hk, smax, dh))
+        qs, ks, vs = (torch.rand((), generator=gen, device=dev) * 0.02 + 0.01 for _ in range(3))
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        ref = att.int8_decode_attention_xla(q, kt, v, lengths, qs, ks, vs, quant_pv=quant_pv)
+        what = {"shape": name, "B": b, "H": h, "Hkv": hk, "Dh": dh, "Smax": smax,
+                "lengths": list(lens), "quant_pv": quant_pv}
+        long = smax > att.DECODE_SHORT_SMAX
+
+        def held(out, what_):
+            if long:
+                err = (out - ref).abs().max().item()
+                if not err <= 1e-5:
+                    raise AssertionError(f"K7 {what_}: max abs err {err} > 1e-5")
+                return err
+            _gate(out, ref, quant_pv, f"K3 {what_}")
+            return (out - ref).abs().max().item()
+
+        if args.rows == "all":
+            scales = att._kernel_scales(qs, ks, vs, dh, True)
+            kind = att.CHUNKED if long else att.DECODE
+            chosen = att.rows_plan(b, hk, h // hk, dh, smax, sms, quant_pv)
+            for plan in att.rows_candidates(h // hk, dh, smax, quant_pv):
+                def call(plan=plan):
+                    return att._rows_launch(kind, q, kt, v, lengths, scales, quant_pv, plan)
+
+                err = held(call(), f"at {name} {plan}")
+                emit({**what, **plan._asdict(), "chosen": plan == chosen, "max_abs_err": err,
+                      "events_ms": _events_ms(call, flush, args.iters, False),
+                      "clean_events_ms": _events_ms(call, flush, args.iters, True)})
+
+        def wrapper():
+            if long:
+                return att.int8_decode_attention_chunked(q, kt, v, lengths, qs, ks, vs,
+                                                         chunk=att.auto_decode_chunk(smax),
+                                                         quant_pv=quant_pv)
+            return att.int8_decode_attention(q, kt, v, lengths, qs, ks, vs, quant_pv=quant_pv)
+
+        err = held(wrapper(), f"at {name}")
+        emit({**what, "wrapper": True, "max_abs_err": err,
+              **_times(wrapper, None, flush, args.iters)})
+        del q, kt, v
+
+
 def main(argv=None) -> list:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--k7", nargs="?", const="all", choices=("all", "wrapper"),
                     help="K7's long caches instead of K3's shapes (wrapper: K7's wrapper alone)")
+    ap.add_argument("--rows", nargs="?", const="all", choices=("all", "wrapper"),
+                    help="K3's and K7's split kernels (wrapper: the wrappers alone)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("decode_plan_sweep: no CUDA device (K3 and K7 run on the card only)")
@@ -198,7 +271,8 @@ def main(argv=None) -> list:
         print(json.dumps(row), flush=True)
         rows.append(row)
 
-    (_k7_shapes if args.k7 else _k3_shapes)(args, sms, gen, flush, dev, emit)
+    (_rows_shapes if args.rows else _k7_shapes if args.k7 else _k3_shapes)(
+        args, sms, gen, flush, dev, emit)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed")

@@ -248,3 +248,205 @@ def test_k7_wrapper_keeps_the_chunk_check_and_takes_the_plain_version_on_cpu():
         got = tatt.int8_decode_attention_chunked(*t, lengths, *sc, chunk=chunk, quant_pv=True)
         torch.testing.assert_close(got, tatt.int8_decode_attention_xla(
             *t, lengths, *sc, quant_pv=True), rtol=0, atol=0)
+
+
+# ---- K3's and K7's split kernels (csrc/decode_attention_rows.cu) ----
+
+def _word(buf, off):
+    return int(buf[off:off + 4].view("<u4")[0])
+
+
+def _put16(buf, off, words):
+    buf[off:off + 16] = np.array(words, "<u4").view(np.uint8)
+
+
+def _byte_perm(x, y, s):
+    """CUDA's __byte_perm: result byte i is byte (s >> 4i) & 7 of y:x."""
+    b = (x | y << 32).to_bytes(8, "little")
+    return sum(b[(s >> (4 * i)) & 7] << (8 * i) for i in range(4))
+
+
+def _transpose4x4(r):
+    """decode_attention.cuh's transpose4x4: rows r0..r3 -> c[e] = byte e of
+    each row, in row order."""
+    t0, t1 = _byte_perm(r[0], r[1], 0x5140), _byte_perm(r[2], r[3], 0x5140)
+    t2, t3 = _byte_perm(r[0], r[1], 0x7362), _byte_perm(r[2], r[3], 0x7362)
+    return [_byte_perm(t0, t1, 0x5410), _byte_perm(t0, t1, 0x7632),
+            _byte_perm(t2, t3, 0x5410), _byte_perm(t2, t3, 0x7632)]
+
+
+def _swz(row, off):
+    return off ^ ((off >> 3) & (0x70 if row == 128 else 0x30))
+
+
+def _turn_k(raw, dh):
+    """turn_k: K^T [dh][64] -> K [64 positions][dh], swizzled dh bytes."""
+    tk = np.zeros(64 * dh, np.uint8)
+    for pt in range(dh):
+        c, kq = pt >> 4, pt & 15
+        odd = c & 1
+        r = [_word(raw, (16 * c + (i ^ odd)) * 64 + 4 * kq) for i in range(16)]
+        tk4 = [_transpose4x4([r[(4 * m + i) ^ 1] if odd else r[4 * m + i] for i in range(4)])
+               for m in range(4)]
+        for ep in range(4):
+            e = (ep + (kq >> 1)) & 3
+            _put16(tk, _swz(dh, (4 * kq + e) * dh + 16 * c), [tk4[m][e] for m in range(4)])
+    return tk
+
+
+def _s8x2_to_h2(w, i):
+    biased = _byte_perm(w ^ 0x80808080, 0x64646464, 0x4342 if i else 0x4140)
+    h = np.array([biased], "<u4").view(np.float16) - np.float16(1152)
+    return int(h.view("<u4")[0])
+
+
+def _turn_v(raw, dh, quant_pv):
+    """turn_v_f16 / turn_v_s8: V [64][dh] -> V^T [dh][64] in fp16 (rows of
+    128 bytes) or int8 in the scores' fragment order (rows of 64 bytes)."""
+    dq_n = dh // 4
+    tv = np.zeros(128 * dh, np.uint8)
+    if not quant_pv:
+        for unit in range(8 * dq_n):
+            dq, kg = unit % dq_n, unit // dq_n
+            r = [_word(raw, (8 * kg + i) * dh + 4 * dq) for i in range(8)]
+            lo, hi = _transpose4x4(r[:4]), _transpose4x4(r[4:])
+            for ep in range(4):
+                e = (ep + (dq >> 1)) & 3
+                _put16(tv, _swz(128, (4 * dq + e) * 128 + 16 * kg),
+                       [_s8x2_to_h2(lo[e], 0), _s8x2_to_h2(lo[e], 1), _s8x2_to_h2(hi[e], 0),
+                        _s8x2_to_h2(hi[e], 1)])
+        return tv
+    for unit in range(4 * dq_n):
+        dq, kp = unit % dq_n, unit // dq_n
+        odd = kp & 1
+        r = [_word(raw, (16 * kp + (i ^ odd)) * dh + 4 * dq) for i in range(16)]
+        w = [_transpose4x4([r[(4 * m + i) ^ odd] for i in range(4)]) for m in range(4)]
+        for ep in range(4):
+            e = (ep + (dq >> 1)) & 3
+            _put16(tv, _swz(64, (4 * dq + e) * 64 + 16 * kp),
+                   [_byte_perm(w[t >> 1][e], w[2 + (t >> 1)][e], 0x7632 if t & 1 else 0x5410)
+                    for t in range(4)])
+    return tv
+
+
+def _bytes(word):
+    return np.array([word], "<u4").view(np.int8).astype(np.int64)
+
+
+@pytest.mark.parametrize("quant_pv", [False, True])
+@pytest.mark.parametrize("dh", [64, 128])
+def test_split_kernels_turns_and_fragments(dh, quant_pv):
+    """The split kernels' shared-memory turns and mma.sync fragments, byte
+    for byte as the CUDA source computes them: each warp's (wp = 0, 1)
+    m16n8k32 B fragments of the turned K tile are K^T's columns (q.k of 8
+    positions, 32 dims a step); its p @ V, with the scores' accumulator
+    layout (row gq or gq + 8, position 8j + 2t + (e & 1) of n8 tile j) taken
+    as the A fragments (int8 codes in the k order 2t, 2t + 1, 8 + 2t, 9 + 2t
+    a 16, or P's two fp16 pieces) and the turned V^T as B, is the warp's 32
+    positions' codes (or P) times V."""
+    rng = np.random.default_rng(dh + quant_pv)
+    kt = rng.integers(-128, 128, (dh, 64)).astype(np.int8)
+    v = rng.integers(-128, 128, (64, dh)).astype(np.int8)
+    tk = _turn_k(kt.view(np.uint8).reshape(-1).copy(), dh)
+    tv = _turn_v(v.view(np.uint8).reshape(-1).copy(), dh, quant_pv)
+    lanes = [(lane >> 2, lane & 3) for lane in range(32)]
+    for wp in range(2):
+        for jj in range(4):  # q.k: B[k][n] = K[dims 32 ks + k][positions 8 (4 wp + jj) + n]
+            for ks in range(dh // 32):
+                bmat = np.zeros((32, 8), np.int64)
+                for gq, t in lanes:
+                    pos = 8 * (4 * wp + jj) + gq
+                    bmat[4 * t:4 * t + 4, gq] = _bytes(_word(tk, _swz(dh, pos * dh + 32 * ks) + 4 * t))
+                    bmat[16 + 4 * t:20 + 4 * t, gq] = _bytes(
+                        _word(tk, _swz(dh, pos * dh + 32 * ks + 16) + 4 * t))
+                np.testing.assert_array_equal(
+                    bmat, kt[32 * ks:32 * ks + 32, 8 * (4 * wp + jj):8 * (4 * wp + jj) + 8])
+        # p @ V of the warp's 32 positions: x[row][position] in the scores' layout
+        x = rng.random((16, 32)).astype(np.float32)
+        x[rng.random((16, 32)) < 0.3] = 0.0
+        vw = v[32 * wp:32 * wp + 32].astype(np.float64)
+
+        def c_layout(jj, e, gq, t):  # sf[jj][e] of lane (gq, t)
+            return x[gq + 8 * (e >> 1), 8 * jj + 2 * t + (e & 1)]
+
+        for jd in range(dh // 8):
+            if quant_pv:
+                codes = (x * np.float32(127.0) + np.float32(0.5)).astype(np.int64)
+                amat, bmat = np.zeros((16, 32), np.int64), np.zeros((32, 8), np.int64)
+                for gq, t in lanes:
+                    c = [[int(c_layout(jj, e, gq, t) * np.float32(127.0) + np.float32(0.5))
+                          for e in range(4)] for jj in range(4)]
+                    pa = [c[0][0] | c[0][1] << 8 | c[1][0] << 16 | c[1][1] << 24,
+                          c[0][2] | c[0][3] << 8 | c[1][2] << 16 | c[1][3] << 24,
+                          c[2][0] | c[2][1] << 8 | c[3][0] << 16 | c[3][1] << 24,
+                          c[2][2] | c[2][3] << 8 | c[3][2] << 16 | c[3][3] << 24]
+                    for reg, (row, k0) in enumerate(((gq, 4 * t), (gq + 8, 4 * t),
+                                                     (gq, 16 + 4 * t), (gq + 8, 16 + 4 * t))):
+                        amat[row, k0:k0 + 4] = _bytes(pa[reg])
+                    d = 8 * jd + gq
+                    bmat[4 * t:4 * t + 4, gq] = _bytes(_word(tv, _swz(64, d * 64 + 32 * wp) + 4 * t))
+                    bmat[16 + 4 * t:20 + 4 * t, gq] = _bytes(
+                        _word(tv, _swz(64, d * 64 + 32 * wp + 16) + 4 * t))
+                np.testing.assert_array_equal(amat @ bmat,
+                                              codes @ vw[:, 8 * jd:8 * jd + 8].astype(np.int64))
+                continue
+            got = np.zeros((16, 8))
+            for kk in range(2):  # positions 16 kk .. of the warp's: n8 tiles 2kk, 2kk + 1
+                ahi, alo = np.zeros((16, 16)), np.zeros((16, 16))
+                bmat = np.zeros((16, 8))
+                for gq, t in lanes:
+                    for r in range(4):
+                        row, k0 = gq + 8 * (r & 1), 2 * t + 8 * (r >> 1)
+                        pair = np.array([c_layout(2 * kk + (r >> 1), 2 * (r & 1) + i, gq, t)
+                                         for i in range(2)], np.float32) * np.float32(4096.0)
+                        hi = pair.astype(np.float16)
+                        lo = (pair - hi.astype(np.float32)).astype(np.float16)
+                        ahi[row, k0:k0 + 2], alo[row, k0:k0 + 2] = hi, lo
+                    d, kb = 8 * jd + gq, 2 * (32 * wp + 16 * kk)
+                    for h, off in ((0, 0), (8, 16)):
+                        word = _word(tv, _swz(128, d * 128 + kb + off) + 4 * t)
+                        bmat[h + 2 * t:h + 2 * t + 2, gq] = np.array([word], "<u4").view(np.float16)
+                np.testing.assert_array_equal(bmat, vw[16 * kk:16 * kk + 16, 8 * jd:8 * jd + 8])
+                got += ahi @ bmat + alo @ bmat
+            want = (x.astype(np.float64) * 4096.0) @ vw[:, 8 * jd:8 * jd + 8]
+            np.testing.assert_allclose(got, want, rtol=0, atol=2.0 ** -20 * 4096 * 128 * 32)
+
+
+@pytest.mark.parametrize("rep", [3, 6, 12, 16, 71])
+@pytest.mark.parametrize("b,smax", [(8, 2048), (4, 16384)])
+def test_rows_plan_fits_and_serves_every_query_head(b, smax, rep):
+    """The split kernels' plan (one function for K3's and K7's wrappers, so
+    K7 takes K3's plan on the caches K3 takes) at Falcon-7B's serving decode
+    (8 slots at 2048) and batched decode at 16,384 (4 slots), both p @ V
+    rules: one of ``rows_candidates``, each of which fits a block's shared
+    memory with the body's static bytes; clusters a slot only without
+    quant_pv; the scores in shared memory wherever the plan's block holds
+    them (at 2048 it does); two warps a 16-row tile, at least
+    ROWS_MIN_THREADS; every query head of the kv head written once by the
+    ranks' rows r, r + C, ..; the slot's ranks cover every valid length
+    once.  The whole kernels' plans refuse such a rep."""
+    dh = 64
+    for quant_pv in (False, True):
+        plan = tatt.rows_plan(b, 1, rep, dh, smax, SMS, quant_pv)
+        plans = tatt.rows_candidates(rep, dh, smax, quant_pv)
+        assert plan in plans
+        assert {p.slots for p in plans} == ({1} if quant_pv else set(tatt.ROWS_SLOTS))
+        for p in plans:
+            assert (tatt.rows_smem_bytes(dh, rep, smax, p.cluster, p.recompute, p.slots)
+                    + tatt.ROWS_STATIC_BYTES <= tatt.DECODE_SMEM_LIMIT)
+        assert plan.recompute == (plan._replace(recompute=False) not in plans)
+        assert smax > tatt.DECODE_SHORT_SMAX or not plan.recompute
+        c, ranks = plan.cluster, plan.cluster * plan.slots
+        assert b * plan.slots * c <= SMS or c == 2
+        assert sorted(r for k in range(c) for r in range(k, rep, c)) == list(range(rep))
+        chmax = tatt.decode_chmax(smax, ranks)
+        for n in sorted({1, 17, smax // 3, smax}):
+            per = tatt.decode_rank_positions(n, ranks)
+            assert per % 16 == 0 and per <= chmax
+            spans = [(k * per, min((k + 1) * per, n)) for k in range(ranks)]
+            assert [pos for lo, hi in spans for pos in range(lo, hi)] == list(range(n))
+    threads = tatt.rows_threads(rep)
+    assert threads == max(tatt.ROWS_MIN_THREADS, 64 * -(-rep // 16)) and threads <= 512
+    for whole in (tatt.decode_plan, tatt.chunked_plan):
+        with pytest.raises(ValueError, match="rows_plan"):
+            whole(b, 1, rep, dh, smax, SMS)

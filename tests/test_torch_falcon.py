@@ -5,13 +5,21 @@ and its serving, held against dgq_tpu on the CPU.
   ``int8_decode_attention`` and ``int8_decode_attention_chunked`` in
   interpret mode at 3, 6 and 71 query heads a kv head (Dh 64, Smax 256),
   both p @ V rules, within 1e-5 of the largest output.
-* The split kernels' head map, emulated: a kv head's rep query heads served
-  as ``decode_split(rep)`` (or each of ``chunked_splits(rep)``) virtual kv
-  heads of ``virtual_rep`` rows over the same K and V, the last head's rows
-  past its live ones given a zero q and not stored, each row's query head
-  (its q row, its output row and its ALiBi slope) from the kernel's map
-  ``(g / nv) rep + (g % nv) vrep + r``; held against JAX's K3 at rep 71 with
-  and without ALiBi, both p @ V rules.  The plans at Falcon-7B's shapes.
+* The split kernels' arithmetic (``csrc/decode_attention_rows.cu``: one
+  cluster a (slot, kv head), every query row of the kv head in the block),
+  emulated: q's rows padded to 16 with zero rows (a dead row's slope 0),
+  each rank's exact int32 scores over its positions (every cluster and
+  clusters a slot of ``rows_candidates``), the row max over a cluster's
+  ranks,
+  e once a position: exp(s - m) and codes trunc(127 e + 0.5) with an int32
+  p @ V, or 2^(s log2 e - m log2 e) and P = 4096 e in two fp16 pieces
+  (p_hi, p_lo) times V in fp32,
+  v_scale / 4096 in the epilogue, the ranks' sums in rank order and
+  (several clusters a slot, fp only) the clusters' parts rescaled to the
+  global max and added in cluster order; held
+  against JAX's K3 (and, without ALiBi, its chunked K7) in interpret mode
+  at rep 3, 6 and 71, both p @ V rules, with and without ALiBi (whose
+  slope index moves the result).
 * ``falcon_engine_forward``: prefill and decode logits within 1e-4 of
   JAX's on an engine made by JAX's ``ptq`` at tiny size with one kv head,
   carried over by ``falcon_engine_params_from_arrays``; its checkpoint both
@@ -98,90 +106,111 @@ def test_decode_any_rep_plain_matches_jax(rep, hk, quant_pv):
     np.testing.assert_allclose(got7, ref7, rtol=0, atol=1e-5 * largest)
 
 
-def _head_map(rep, split):
-    """The split kernels' map (``RaggedKV``): virtual head j of a kv head ->
-    (first query head within the kv head, live rows), and the rows a head."""
-    vrep = tatt.virtual_rep(rep, split)
-    return [(j * vrep, min(vrep, rep - j * vrep)) for j in range(split)], vrep
-
-
-def _split_emulated(q, kt, v, lengths, qs, ks, vs, quant_pv, split, slopes=None):
-    """(B, H, Dh) f32 as the split kernels compute it: each virtual kv head
-    runs the whole kernel's function on vrep query rows (its live rows' q,
-    zeros past them; row r's slope that of query head h0 + min(r, live - 1))
-    over its kv head's K and V; only the live rows are stored."""
+def _rows_emulated(q, kt, v, lengths, qs, ks, vs, quant_pv, cluster, slots=1, slopes=None):
+    """(B, H, Dh) f32 as K3's and K7's split kernels compute it with
+    ``slots`` clusters of ``cluster`` blocks a (slot, kv head), rank by rank:
+    each cluster's row max over its ranks; with more than one cluster (fp
+    p @ V) each cluster's sums against its own max, added in cluster order
+    rescaled by exp(m_c - max), as the last block to finish adds them."""
     b, h, dh = q.shape
     hk = kt.shape[1]
     rep = h // hk
-    heads, vrep = _head_map(rep, split)
-    out = np.full((b, h, dh), np.nan, np.float32)
-    for g in range(hk * split):
-        kv, (first, live) = g // split, heads[g % split]
-        h0 = kv * rep + first
-        assert 1 <= live <= vrep
-        qv = np.zeros((b, vrep, dh), np.int8)
-        qv[:, :live] = q[:, h0:h0 + live]
-        sl = None if slopes is None else torch.from_numpy(
-            slopes[h0 + np.minimum(np.arange(vrep), live - 1)])
-        o = tatt.int8_decode_attention_xla(
-            torch.from_numpy(qv), torch.from_numpy(kt[:, kv:kv + 1]),
-            torch.from_numpy(v[:, kv:kv + 1]), torch.from_numpy(lengths), torch.tensor(qs),
-            torch.tensor(ks), torch.tensor(vs), quant_pv=quant_pv, alibi_slopes=sl).numpy()
-        assert np.isfinite(o).all()  # the zero rows too
-        assert np.isnan(out[:, h0:h0 + live]).all()  # each query head once
-        out[:, h0:h0 + live] = o[:, :live]
+    rp = 16 * -(-rep // 16)  # rows of the block: q padded with zero rows
+    f32 = np.float32
+    qk = f32(tatt.qk_scale(torch.tensor(qs), torch.tensor(ks), dh).item())
+    vs127, vsp = f32(f32(vs) / f32(127.0)), f32(f32(vs) * f32(1.0 / 4096))
+    log2e = f32(1.4426950408889634)
+    neg = f32(np.finfo(np.float32).min)
+    out = np.full((b, h, dh), np.nan, f32)
+    for bi in range(b):
+        n_valid = int(lengths[bi])
+        per = tatt.decode_rank_positions(n_valid, cluster * slots)
+        for g in range(hk):
+            qv = np.zeros((rp, dh), np.int64)
+            qv[:rep] = q[bi, g * rep:(g + 1) * rep]
+            sl = np.zeros(rp, f32)
+            if slopes is not None:
+                sl[:rep] = slopes[g * rep:(g + 1) * rep]
+            parts = []
+            for c in range(slots):
+                ranks = []
+                for r in range(c * cluster, (c + 1) * cluster):
+                    p0 = r * per
+                    n = max(0, min(per, n_valid - p0))
+                    s = (qv @ kt[bi, g, :, p0:p0 + n].astype(np.int64)).astype(f32) * qk
+                    if slopes is not None:  # the product, then the sum, each rounded
+                        s = s + sl[:, None] * np.arange(p0, p0 + n, dtype=f32)
+                    ranks.append((p0, n, s))
+                live = [s.max(axis=1) for _, n, s in ranks if n]
+                m = np.max(live, axis=0) if live else np.full(rp, neg, f32)
+                with np.errstate(over="ignore"):  # a cluster without positions: unused
+                    ml2 = (m * log2e).astype(f32)
+                acc, den = 0, np.zeros(rp, f32)
+                for p0, n, s in ranks:  # rank order
+                    vr = v[bi, g, p0:p0 + n]
+                    if quant_pv:  # expf, the plain version's exp
+                        e = np.exp(s - m[:, None])
+                        codes = (e * f32(127.0) + f32(0.5)).astype(np.int64)
+                        acc = acc + codes @ vr.astype(np.int64)
+                    else:  # 2^(s log2 e - m log2 e), the product and the difference rounded once
+                        e = np.exp2((s.astype(np.float64) * log2e - ml2[:, None]).astype(f32))
+                        big = e * f32(4096.0)  # exact: a power of two
+                        hi = big.astype(np.float16)
+                        lo = (big - hi.astype(f32)).astype(np.float16)
+                        part = (hi.astype(np.float64) + lo.astype(np.float64)) @ vr.astype(
+                            np.float64)
+                        acc = (acc + part.astype(f32)).astype(f32)
+                    den = den + e.sum(axis=1, dtype=f32)
+                parts.append((m, np.broadcast_to(acc, (rp, dh)).astype(f32), den))
+            if quant_pv:
+                m, acc, den = parts[0]
+                o = acc.astype(f32) * (vs127 / den)[:, None]
+            elif slots == 1:
+                m, acc, den = parts[0]
+                o = (acc * vsp) / den[:, None]
+            else:  # the last block's sum of the clusters' parts, each an fma
+                top = np.max([m for m, _, _ in parts], axis=0)
+                acc, dn = np.zeros((rp, dh), f32), np.zeros(rp, f32)
+                for m, a_c, d_c in parts:
+                    w = np.exp(m - top)
+                    acc = (w[:, None].astype(np.float64) * a_c + acc).astype(f32)
+                    dn = (w.astype(np.float64) * d_c + dn).astype(f32)
+                o = (acc * vsp) / dn[:, None]
+            assert np.isfinite(o).all()  # the dead rows too
+            out[bi, g * rep:(g + 1) * rep] = o[:rep]
     assert not np.isnan(out).any()
     return out
 
 
-@pytest.mark.parametrize("quant_pv", [False, True])
 @pytest.mark.parametrize("alibi", [False, True])
-def test_split_kernel_head_map_matches_jax(alibi, quant_pv):
-    """Falcon-7B's 71 query heads on one kv head, at K3's split (9 heads of
-    8, the last with 7 live rows) and at every split K7's plans take (18
-    heads of 4, the last with 3): JAX's K3 within 1e-5 of the largest
-    output, with ALiBi (slopes of 71 heads, scaled so that late positions
-    win) and without."""
-    rep = 71
-    arrays = _inputs(7 + 10 * alibi + quant_pv, rep, 1)
-    slopes = alibi_slopes(rep).numpy() * 8.0 if alibi else None
+@pytest.mark.parametrize("quant_pv", [False, True])
+@pytest.mark.parametrize("rep,hk", [(3, 2), (6, 2), (71, 1)])
+def test_split_kernels_emulated_match_jax(rep, hk, quant_pv, alibi):
+    """The split kernels' arithmetic at every (cluster, clusters a slot) of
+    ``rows_candidates`` against JAX's K3 (and, without ALiBi, its chunked K7)
+    in interpret mode, within 1e-5 of the largest output; ALiBi's slopes (of
+    rep hk heads, scaled so that late positions win) in the kernel's row
+    order move the result, a reversed order within the kv head does not
+    give it."""
+    arrays = _inputs(7 + rep + 10 * alibi + quant_pv, rep, hk)
+    slopes = alibi_slopes(rep * hk).numpy() * 8.0 if alibi else None
     ref = _jax_k3(*arrays, quant_pv, slopes)
+    refs = [ref] if alibi else [ref, np.asarray(jatt.int8_decode_attention_chunked(
+        *(jnp.asarray(a) for a in arrays), chunk=CHUNK, interpret=True, quant_pv=quant_pv))]
     largest = np.abs(ref).max()
-    assert tatt.decode_split(rep) == 9 and tatt.chunked_splits(rep) == [9, 18]
-    for split in tatt.chunked_splits(rep):
-        got = _split_emulated(*arrays, quant_pv, split, slopes)
-        np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5 * largest)
-    if alibi:  # the slopes move the result: the map's slope index is held
-        plain = _split_emulated(*arrays, quant_pv, 9)
-        assert np.abs(plain - ref).max() > 1e-2 * largest
-
-
-@pytest.mark.parametrize("rep", [1, 2, 3, 4, 6, 8, 12, 16, 71])
-def test_split_plans_cover_every_query_head(rep):
-    """decode_split, chunked_splits and virtual_rep: the whole kernels keep
-    rep in DECODE_REPS (K3 unsplit, K7 at splits dividing rep); any other
-    rep's virtual heads serve each query head once, none empty, at a REP the
-    split kernels are compiled for; the plans fit a block at Falcon-7B's
-    serving shape (8 slots, cache 2048) and at 16,384 positions."""
-    split = tatt.decode_split(rep)
-    if rep in tatt.DECODE_REPS:
-        assert split == 1 and tatt.virtual_rep(rep, 1) == rep
-        assert tatt.chunked_splits(rep) == [s for s in tatt.CHUNKED_SPLITS if rep % s == 0]
-    for s in ([split] if rep in tatt.DECODE_REPS else tatt.chunked_splits(rep)):
-        heads, vrep = _head_map(rep, s)
-        assert rep in tatt.DECODE_REPS or vrep in tatt.SPLIT_REPS
-        covered = [first + r for first, live in heads for r in range(live)]
-        assert covered == list(range(rep)) and all(live >= 1 for _, live in heads)
-    c = tatt.decode_plan(8, 1, rep, DH, 2048, 132)
-    assert c in tatt.DECODE_CLUSTERS
-    assert tatt.decode_smem_bytes(DH, tatt.virtual_rep(rep, split), 2048, c) \
-        <= tatt.DECODE_SMEM_LIMIT
-    plan = tatt.chunked_plan(4, 1, rep, DH, 16384, 132)
-    assert plan in tatt.chunked_candidates(1, rep, DH, 16384)
-    short = tatt.chunked_plan(8, 1, rep, DH, 2048, 132)
-    assert short == tatt.ChunkedPlan(c, False, split)
-    with pytest.raises(ValueError, match="do not serve"):
-        tatt.virtual_rep(71, 8)
+    plans = tatt.rows_candidates(rep, DH, SMAX, quant_pv)
+    assert tatt.rows_plan(len(LENGTHS), hk, rep, DH, SMAX, 132, quant_pv) in plans
+    splits = sorted({(p.cluster, p.slots) for p in plans})
+    assert {c for c, _ in splits} == set(tatt.ROWS_CLUSTERS)
+    assert {n for _, n in splits} == ({1} if quant_pv else set(tatt.ROWS_SLOTS))
+    for cluster, slots in splits:
+        got = _rows_emulated(*arrays, quant_pv, cluster, slots, slopes)
+        for want in refs:
+            np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * largest)
+    if alibi:  # the slope index is held: each kv head's slopes reversed give another result
+        wrong = slopes.reshape(hk, rep)[:, ::-1].reshape(-1).copy()
+        moved = _rows_emulated(*arrays, quant_pv, tatt.ROWS_CLUSTERS[0], 1, wrong)
+        assert np.abs(moved - ref).max() > 1e-2 * largest
 
 
 @pytest.fixture(scope="module")
