@@ -17,54 +17,61 @@
 //
 // What bounds it on this card, at the shapes chip_smoke.py times (fp p @ V):
 // Falcon-7B's serving decode (8 slots of 1-2048 positions, 71:1, Dh 64) moves
-// 1.18 MB of K and V (0.35 us at 3.35 TB/s) and does 2 x 71 x 9178 x 64 x 2
-// operations, 0.17 us of int8 and fp16 tensor-core time; at 16,384 positions
-// (4 slots of 5000-16000) 5.4 MB (1.6 us) and 0.8 us.  Either is a few
-// microseconds of serial steps: the kernel is bound by latency, and its
-// design keeps the steps few and the bytes read once:
-//   * one cluster of C blocks a (slot, kv head), grid (C, Hkv, B), the slots
-//     longest first (blockIdx.z is a slot's rank by length, as K7's):
-//     rank r streams the positions [r per, (r + 1) per) of the slot's valid
-//     length, per = ceil(len / C) rounded up to 16, so every K and V byte is
-//     read from device memory once a call (K twice where the plan recomputes
-//     the scores, the second time mostly from L2);
+// 1.36 MB (K and V, q, out: 0.41 us at 3.35 TB/s) and does 2 x 71 x 9178 x
+// 64 operations of q.k and twice that of p @ V (0.21 us on the int8 and
+// fp16 tensor cores); at 16,384 positions (4 slots of 5000-16000) 5.5 MB
+// (1.6 us) and 1.1 us.  Either is a few microseconds of serial steps a
+// rank: the kernel is bound by latency, and its design keeps the steps few
+// and the bytes read once:
+//   * one cluster of C blocks a (slot, kv head), grid (C P, Hkv, B): rank r
+//     of the slot's P C streams the positions [r per, (r + 1) per) of its
+//     valid length, per = ceil(len / (P C)) rounded up to 16, so every K and
+//     V byte is read from device memory once a call (K twice where the plan
+//     recomputes the scores, the second time mostly from L2).  P > 1 (the
+//     plan's clusters a slot, fp p @ V only: quant_pv's codes need the
+//     slot's max first) takes each cluster's row max for its own part, and
+//     the last block of a rank's P to finish adds the parts, rescaled by
+//     exp(m_c - max), in cluster order;
 //   * every query row of the kv head is in the block: rep rows padded to MT
-//     = ceil(rep / 16) m16 tiles, two warps a tile (64 MT threads), each warp
-//     taking 32 of a tile's 64 positions.  Both products run on mma.sync (not
-//     wgmma: its 64-row tiles pad 71 rows to 128, 45% dead, against 80, 11%,
-//     and a block of 64-row warpgroups would hold fewer positions a rank):
-//     q.k as m16n8k32 s8 -> s32 (exact, so the scores are the plain
-//     version's bit for bit) with q's rows as A from shared memory and the K
-//     tile as B;
-//   * s8 mma takes B K-major only, and the cache holds K^T (positions
-//     contiguous), so each K tile is turned once a block into [positions][Dh]
-//     in shared memory by 4x4 byte transposes (K2's producer turn,
-//     int8_prefill_attention.cu, swizzled Dh bytes), shared by every row's
-//     warps; V is turned into V^T [Dh][positions] the same way, in fp16 for
-//     fp p @ V (int8 codes are exact in fp16), in int8 for quant_pv;
+//     = ceil(rep / 16) m16 tiles, two warps a tile, each warp taking 32 of a
+//     tile's 64 positions (at least 256 threads: the warps past the rows'
+//     help copy the tiles).  Both products run on mma.sync (not wgmma: its
+//     64-row tiles pad 71 rows to 128, 45% dead, against 80, 11%);
+//   * K and V tiles come by TMA (one thread, an mbarrier a ring slot; 4- and
+//     16-byte cp.async where Smax % 16 != 0) into a 32 KB ring of raw tiles,
+//     and each is converted once a block to fp16 in its own layout (int8
+//     codes are exact in fp16): K^T [Dh][64] and V [64][Dh], 16-byte chunks
+//     swizzled by row.  ldmatrix (.trans) then reads the mma fragments
+//     straight from them, so no byte transposes (the first design's, K2's,
+//     took a quarter of K7's time);
+//   * q.k on m16n8k16 f16 with fp32 sums, q's rows in fp16 as A: every
+//     product and partial sum is an integer below 2^24, so exact, and the
+//     scores are the plain version's bit for bit;
 //   * p @ V on the tensor cores too, the scores' accumulator layout taken as
 //     the A operand in registers (no trip through shared memory):
 //       - quant_pv: the codes times V on m16n8k32 s8 (exact int32); the A
 //         fragment's k slots 4t .. 4t + 3 hold positions 2t, 2t + 1, 8 + 2t,
-//         9 + 2t of the 16 (the scores' n8 tiles), so V^T's positions are
-//         stored in that order;
+//         9 + 2t of the 16 (the scores' n8 tiles), so the V tile is turned
+//         into V^T int8 with its positions in that order (4x4 byte
+//         transposes);
 //       - fp: p_hi @ V + p_lo @ V on m16n8k16 f16 into a tile's fp32
 //         accumulator, added to the running sums a tile (a rank's thousands
 //         of positions: fewer large additions), p_hi = half(P), p_lo =
 //         half(P - p_hi) with P = 4096 e (exact: a power of two), v_scale /
 //         4096 in the epilogue, K2's scheme: P to a relative 2^-22, and the
-//         4096 keeps p_lo out of fp16's subnormals down to e = 2^-15;
+//         4096 keeps p_lo out of fp16's subnormals down to e = 2^-15; e =
+//         2^(s log2 e - m log2 e) on the MUFU unit (quant_pv's codes take
+//         expf, the plain version's exp to the bit);
 //   * between the max and the exp the scores stay where the plan says: in
 //     the block's shared memory (f32 [rows][chmax + 8]) where they fit (K3's
 //     caches), else recomputed from K in a second pass (K7 past 8192
 //     positions: 80 rows x 1024 positions a rank would take 330 KB); exp runs
 //     once a (row, position) either way;
-//   * a ring of RING raw tiles of 64 positions in flight by cp.async (the
-//     second pass streams a tile's K and V together), the row max over the
-//     cluster through distributed shared memory, and the sums reduced and
-//     scattered: each rank adds every rank's p @ V sums and exp sums of the
-//     rows r, r + C, .. in rank order (deterministic) and writes them.
-// One launch, no scratch in device memory.
+//   * the row max over the cluster through distributed shared memory, and
+//     the sums reduced and scattered: each rank adds every rank's p @ V sums
+//     and exp sums of the rows r, r + C, .. in rank order (deterministic)
+//     and writes them.
+// One launch, no scratch in device memory but the slot clusters' parts.
 
 #include <cuda_fp16.h>
 
@@ -76,10 +83,10 @@ namespace {
 namespace rows {
 
 constexpr int TP = 64;        // positions a tile
-constexpr int RING = 8;       // raw tiles in flight
+constexpr int RING_BYTES = 32768;  // raw tiles in flight: 8 of Dh 64, 4 of Dh 128
 constexpr int MAX_REP = 128;  // rows of the block: 8 m16 tiles
 constexpr int MAX_THREADS = 512;  // two warps a 16-row tile
-constexpr int MIN_THREADS = 256;  // and more warps to copy and turn the tiles of fewer rows
+constexpr int MIN_THREADS = 256;  // and more warps to copy the tiles of fewer rows
 constexpr int MAX_CLUSTER = 16;
 constexpr int SMEM_LIMIT = 232448;
 constexpr float NEG = -3.4028234663852886e38f;  // finfo(float32).min
@@ -169,6 +176,49 @@ __device__ __forceinline__ uint32_t ld_peer(uint32_t remote) {
   return v;
 }
 
+// four 8x8 b16 matrices from shared memory, lane l giving row l % 8 of
+// matrix l / 8; .trans: each transposed
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+// the byte offset of 16-byte chunk c of row r in an fp16 tile of ROWB-byte
+// rows, the chunk's low three bits XOR the row's (ldmatrix's 8 rows, and a
+// quarter warp's 16-byte stores, on other banks)
+template <int ROWB>
+__device__ __forceinline__ int chunk16(int r, int c) {
+  return r * ROWB + ((c ^ (r & 7)) << 4);
+}
+
+// 16 int8 codes (w) as 16 fp16 values, exactly, into chunks 2c and 2c + 1
+// of row r of an fp16 tile of ROWB-byte rows
+template <int ROWB>
+__device__ __forceinline__ void put16_h(uint8_t* tile, int r, int c, uint4 w) {
+  *reinterpret_cast<uint4*>(tile + chunk16<ROWB>(r, 2 * c)) =
+      make_uint4(s8x2_to_h2(w.x, 0), s8x2_to_h2(w.x, 1), s8x2_to_h2(w.y, 0), s8x2_to_h2(w.y, 1));
+  *reinterpret_cast<uint4*>(tile + chunk16<ROWB>(r, 2 * c + 1)) =
+      make_uint4(s8x2_to_h2(w.z, 0), s8x2_to_h2(w.z, 1), s8x2_to_h2(w.w, 0), s8x2_to_h2(w.w, 1));
+}
+
+// a raw tile of R rows of W int8 bytes (K^T [Dh][64] or V [64][Dh]) -> the
+// same layout in fp16 (int8 codes are exact in fp16), rows of 2 W bytes
+template <int R, int W>
+__device__ __forceinline__ void to_f16(const uint8_t* raw, uint8_t* tile, int tid, int nthr) {
+  for (int i = tid; i < R * (W / 16); i += nthr) {
+    const int r = i / (W / 16), c = i % (W / 16);
+    put16_h<2 * W>(tile, r, c, *reinterpret_cast<const uint4*>(raw + r * W + 16 * c));
+  }
+}
+
 // d += a b, m16n8k32, int8 in, int32 out (exact)
 __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
                                        uint32_t b1) {
@@ -194,18 +244,20 @@ __device__ __forceinline__ A from_bits(uint32_t u) {
 
 // Byte offsets of a block's dynamic shared memory (ops/attention.py
 // rows_smem_bytes): the ring of raw tiles (K^T [Dh][64] or V [64][Dh]), the
-// turned K [64][Dh], the turned V^T (fp16 [Dh][64]; int8 [Dh][64] under
-// quant_pv, in the same room), q's rows [rp][Dh + 16], and the scores
-// f32 [rp][chmax + 8] unless they are recomputed.  The p @ V sums [rp][Dh + 8]
-// (f32 or int32) take the ring's and the turned tiles' room at the end.
+// K tile in fp16 (K^T [Dh][64]), the V tile in fp16 ([64][Dh]; under
+// quant_pv V^T int8 [Dh][64], in the same room), q's rows in fp16 [rp][Dh],
+// and the scores f32 [rp][chmax + 8] unless they are recomputed.  The p @ V
+// sums [rp][Dh + 8] (f32 or int32) take the ring's and the tiles' room at
+// the end.
 struct Layout {
   int tk, tv, q, scores, total, rs;
   __host__ __device__ Layout(int dh, int rp, int chmax, bool recompute) {
     const int slot = TP * dh;
-    tk = RING * slot;
-    tv = tk + slot;
+    tk = RING_BYTES;
+    tv = tk + 2 * slot;
     q = tv + 2 * slot;
-    scores = q + rp * (dh + 16);
+    if (q < 4 * rp * (dh + 8)) q = 4 * rp * (dh + 8);  // the p @ V sums take the room below q
+    scores = q + 2 * rp * dh;
     rs = chmax + 8;  // a row of scores: 8 floats past the tile grid, so rows gq 0..7 take other banks
     total = scores + (recompute ? 0 : 4 * rp * rs);
   }
@@ -225,61 +277,6 @@ struct Args {
   int recompute;  // the scores recomputed from K in the second pass, else kept in shared memory
   int tma;        // Smax % 16 == 0: K and V tiles by TMA, else by 4- and 16-byte cp.async
 };
-
-// K^T tile [DH][64] (raw, rows 64 bytes) -> K [64 positions][DH], swizzled
-// DH bytes: int8_prefill_attention.cu's turn.  Unit pt takes dims [16c, 16c
-// + 16) of positions [4kq, 4kq + 4): 16 words of K^T rows (rows of odd c in
-// the other order, so that a warp's loads take all 32 banks), four 4x4
-// transposes, one 16-byte chunk a position (positions in an order that
-// spreads a quarter warp's stores over the banks).
-template <int DH>
-__device__ __forceinline__ void turn_k(const uint8_t* raw, uint8_t* tk, int tid, int nthr) {
-  for (int pt = tid; pt < DH; pt += nthr) {
-    const int c = pt >> 4, kq = pt & 15, odd = c & 1;
-    uint32_t r[16];
-#pragma unroll
-    for (int i = 0; i < 16; ++i) r[i] = lds32(raw + (16 * c + (i ^ odd)) * TP + 4 * kq);
-    uint32_t tk4[4][4];  // tk4[m][e]: position 4kq + e, dims 16c + 4m ..
-#pragma unroll
-    for (int m = 0; m < 4; ++m) {
-      uint32_t w[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) w[i] = odd ? r[(4 * m + i) ^ 1] : r[4 * m + i];
-      transpose4x4(w[0], w[1], w[2], w[3], tk4[m]);
-    }
-#pragma unroll
-    for (int ep = 0; ep < 4; ++ep) {
-      const int e = (ep + (kq >> 1)) & 3, pos = 4 * kq + e;
-      *reinterpret_cast<uint4*>(tk + swz<DH>(pos * DH + 16 * c)) =
-          make_uint4(pick(tk4[0], e), pick(tk4[1], e), pick(tk4[2], e), pick(tk4[3], e));
-    }
-  }
-}
-
-// V tile [64][DH] (raw) -> V^T [DH][64 positions] in fp16, rows of 128 bytes
-// swizzled 128 bytes: int8_prefill_attention.cu's turn.  Unit (kg, dq) takes
-// positions [8kg, 8kg + 8) of dims [4dq, 4dq + 4): two 4x4 transposes, then a
-// dim's 8 fp16 positions, one 16-byte chunk.
-template <int DH>
-__device__ __forceinline__ void turn_v_f16(const uint8_t* raw, uint8_t* tv, int tid, int nthr) {
-  constexpr int DQ = DH / 4;
-  for (int unit = tid; unit < 8 * DQ; unit += nthr) {
-    const int dq = unit % DQ, kg = unit / DQ;
-    uint32_t r[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) r[i] = lds32(raw + (8 * kg + i) * DH + 4 * dq);
-    uint32_t lo[4], hi[4];  // dim 4dq + e: positions 8kg .. + 3, 8kg + 4 .. + 7
-    transpose4x4(r[0], r[1], r[2], r[3], lo);
-    transpose4x4(r[4], r[5], r[6], r[7], hi);
-#pragma unroll
-    for (int ep = 0; ep < 4; ++ep) {
-      const int e = (ep + (dq >> 1)) & 3, d = 4 * dq + e;
-      const uint32_t wl = pick(lo, e), wh = pick(hi, e);
-      *reinterpret_cast<uint4*>(tv + swz<128>(d * 128 + 16 * kg)) = make_uint4(
-          s8x2_to_h2(wl, 0), s8x2_to_h2(wl, 1), s8x2_to_h2(wh, 0), s8x2_to_h2(wh, 1));
-    }
-  }
-}
 
 // V tile [64][DH] (raw) -> V^T [DH][64 slots] int8, rows of 64 bytes
 // swizzled 64 bytes, the positions of each 16 in the scores' fragment order:
@@ -319,7 +316,7 @@ __device__ __forceinline__ void turn_v_s8(const uint8_t* raw, uint8_t* tv, int t
 // The body: one block of the grid (C P, Hkv, B) in clusters of C along x, P
 // clusters a (slot, kv head) (cluster blockIdx.x / C takes the P-th part of
 // its positions), two warps a 16-row tile (64 MT threads, at least
-// MIN_THREADS: the warps past 2 MT only copy and turn tiles).  Warp w serves
+// MIN_THREADS: the warps past 2 MT only copy and convert tiles).  Warp w serves
 // rows 16 (w / 2) .. + 15 (m16 tile mt) at positions 32 (w % 2) .. + 31 of
 // each tile; lane (gq, t) = (lane / 4, lane % 4) holds, of its n8 tile j,
 // rows gq and gq + 8 at positions 8j + 2t, + 1.
@@ -327,21 +324,22 @@ template <int DH, bool QPV, bool ALIBI>
 __device__ __forceinline__ void core(const CUtensorMap& tm_k, const CUtensorMap& tm_v,
                                      const Args& a) {
   constexpr int SLOT = TP * DH;
+  constexpr int RING = RING_BYTES / SLOT;
   constexpr int NJD = DH / 8;  // n8 tiles of p @ V's output dims
   constexpr int DQ = DH / 4;
-  constexpr int QS = DH + 16;  // bytes a row of q: rows gq 0..7 on other banks
+  constexpr int QS = 2 * DH;  // bytes a row of q in fp16
   constexpr int OS = DH + 8;   // elements a row of the p @ V sums
   using acc_t = typename std::conditional<QPV, int, float>::type;
   extern __shared__ __align__(128) uint8_t rows_smem[];
   uint8_t* smem = rows_smem;
   __shared__ float sMaxW[2][MAX_REP], sM[MAX_REP], sDenW[MAX_REP], sDen[MAX_REP], sDenT[MAX_REP];
-  __shared__ __align__(8) uint64_t bars[RING];
+  __shared__ __align__(8) uint64_t bars[RING_BYTES / (TP * 64)];
   __shared__ int sLast;
 
   const int tid = threadIdx.x, nthr = blockDim.x, lane = tid & 31, warp = tid >> 5;
   const int rep = a.rep, rp = 16 * ((rep + 15) >> 4);
   // warps past the 2 MT that serve rows (a block has at least MIN_THREADS)
-  // only copy and turn tiles
+  // only copy and convert tiles
   const bool rows_warp = warp < rp / 8;
   const int gq = lane >> 2, t = lane & 3, mt = rows_warp ? warp >> 1 : 0, wp = warp & 1;
   const int row0 = 16 * mt + gq, row1 = row0 + 8;
@@ -384,7 +382,7 @@ __device__ __forceinline__ void core(const CUtensorMap& tm_k, const CUtensorMap&
     const int t0 = tile * TP, nt = min(TP, n - t0);
     if (tma) {
       if (tid == 0 && u < nitems) {
-        fence_async_smem();
+        if (u >= RING) fence_async_smem();
         mbar_expect_tx(&bars[u % RING], SLOT);
         if (is_k)  // K^T box [Dh][64] at column p0 + t0 of rows bg Dh ..
           tma_load_2d(dst, &tm_k, &bars[u % RING], p0 + t0, static_cast<int>(bg * DH));
@@ -417,20 +415,16 @@ __device__ __forceinline__ void core(const CUtensorMap& tm_k, const CUtensorMap&
   };
   for (int u = 0; u < RING; ++u) issue(u);
 
-  // q's rows of the kv head, zeros past rep (the last m16 tile's dead rows)
+  // q's rows of the kv head in fp16, zeros past rep (the last m16 tile's dead rows)
   const int8_t* qg = a.q + bg * rep * DH;
-  if ((reinterpret_cast<uintptr_t>(qg) & 15) == 0) {
-    for (int i = tid; i < rp * (DH / 16); i += nthr) {
-      const int r = i / (DH / 16), c = i % (DH / 16);
-      *reinterpret_cast<uint4*>(sQ + r * QS + 16 * c) =
-          r < rep ? *reinterpret_cast<const uint4*>(qg + r * DH + 16 * c) : make_uint4(0, 0, 0, 0);
+  for (int i = tid; i < rp * (DH / 16); i += nthr) {
+    const int r = i / (DH / 16), c = i % (DH / 16);
+    uint4 w = make_uint4(0, 0, 0, 0);
+    if (r < rep) {  // q's base is 4-byte aligned
+      const uint32_t* src = reinterpret_cast<const uint32_t*>(qg + r * DH + 16 * c);
+      w = make_uint4(src[0], src[1], src[2], src[3]);
     }
-  } else {
-    for (int i = tid; i < rp * DQ; i += nthr) {
-      const int r = i / DQ, c = i % DQ;
-      *reinterpret_cast<uint32_t*>(sQ + r * QS + 4 * c) =
-          r < rep ? *reinterpret_cast<const uint32_t*>(qg + r * DH + 4 * c) : 0u;
-    }
+    put16_h<QS>(sQ, r, c, w);
   }
   const float qk_scale = a.scales[0];
   float sl[2] = {0.f, 0.f};  // ALiBi: rows gq and gq + 8's slopes (0 for a dead row)
@@ -438,39 +432,44 @@ __device__ __forceinline__ void core(const CUtensorMap& tm_k, const CUtensorMap&
     if (row0 < rep) sl[0] = __ldg(a.slopes + (size_t)g * rep + row0);
     if (row1 < rep) sl[1] = __ldg(a.slopes + (size_t)g * rep + row1);
   }
-  // the K turn on threads 0 .. DH - 1, the V turn from thread DH on (both
-  // at once in the second pass of recomputed scores)
+  // the V tile's conversion (quant_pv: turn) starts at thread DH, the K
+  // tile's at thread 0 (both in one step where the scores are recomputed)
   const int vtid = ((tid - DH) % nthr + nthr) % nthr;
-  auto turn_v = [&](const uint8_t* raw) {
+  auto prep_v = [&](const uint8_t* raw) {
     if constexpr (QPV)
       turn_v_s8<DH>(raw, tV, vtid, nthr);
     else
-      turn_v_f16<DH>(raw, tV, vtid, nthr);
+      to_f16<TP, DH>(raw, tV, vtid, nthr);
   };
 
-  // the scores of the K tile in tK at the rank's position t0: sf[jj][e] is
-  // row gq (e < 2) or gq + 8, position 32 wp + 8 jj + 2t + (e & 1)
+  // the scores of the K tile in tK (fp16 K^T) at the rank's position t0:
+  // sf[jj][e] is row gq (e < 2) or gq + 8, position 32 wp + 8 jj + 2t + (e &
+  // 1).  q.k on m16n8k16 f16 with fp32 sums: codes of at most 127 in
+  // magnitude, so every product and partial sum (below 2^24) is an exact
+  // integer, the int32 dot of the plain version
   float sf[4][4];
   auto scores = [&](int t0) {
-    int acc[4][4];
+    float acc[4][4];
 #pragma unroll
-    for (int jj = 0; jj < 4; ++jj) acc[jj][0] = acc[jj][1] = acc[jj][2] = acc[jj][3] = 0;
+    for (int jj = 0; jj < 4; ++jj) acc[jj][0] = acc[jj][1] = acc[jj][2] = acc[jj][3] = 0.f;
 #pragma unroll
-    for (int ks = 0; ks < DH / 32; ++ks) {
-      const uint8_t* qp = sQ + row0 * QS + 32 * ks + 4 * t;
-      const uint32_t qa[4] = {lds32(qp), lds32(qp + 8 * QS), lds32(qp + 16), lds32(qp + 8 * QS + 16)};
+    for (int ks = 0; ks < DH / 16; ++ks) {
+      uint32_t qa[4];  // rows 16 mt + lane % 16, dims 16 ks + 8 (lane / 16) ..
+      ldsm_x4(qa, sQ + chunk16<QS>(16 * mt + (lane & 15), 2 * ks + (lane >> 4)));
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const int pos = 32 * wp + 8 * jj + gq;
-        mma_s8(acc[jj], qa, lds32(tK + swz<DH>(pos * DH + 32 * ks) + 4 * t),
-               lds32(tK + swz<DH>(pos * DH + 32 * ks + 16) + 4 * t));
+      for (int jp = 0; jp < 2; ++jp) {  // n8 tiles 2 jp, 2 jp + 1: K^T rows 16 ks .. + 15
+        uint32_t kb[4];
+        const int d = 16 * ks + 8 * ((lane >> 3) & 1) + (lane & 7);
+        ldsm_x4_t(kb, tK + chunk16<128>(d, 4 * wp + 2 * jp + (lane >> 4)));
+        mma_f16(acc[2 * jp], qa, kb[0], kb[1]);
+        mma_f16(acc[2 * jp + 1], qa, kb[2], kb[3]);
       }
     }
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        float s = __fmul_rn(static_cast<float>(acc[jj][e]), qk_scale);
+        float s = __fmul_rn(acc[jj][e], qk_scale);
         if constexpr (ALIBI)
           s = __fadd_rn(s, __fmul_rn(sl[e >> 1], static_cast<float>(
                                                      p0 + t0 + 32 * wp + 8 * jj + 2 * t + (e & 1))));
@@ -484,7 +483,7 @@ __device__ __forceinline__ void core(const CUtensorMap& tm_k, const CUtensorMap&
   for (; u < ntile; ++u) {
     landed(u, 1);
     __syncthreads();  // tile u has landed for every thread; every warp is done with tK
-    turn_k<DH>(ring + (u % RING) * SLOT, tK, tid, nthr);
+    to_f16<DH, TP>(ring + (u % RING) * SLOT, tK, tid, nthr);
     __syncthreads();
     issue(u + RING);
     if (!rows_warp) continue;
@@ -542,8 +541,8 @@ __device__ __forceinline__ void core(const CUtensorMap& tm_k, const CUtensorMap&
     if (recompute) {  // K and V of tile i: items u, u + 1
       landed(u, 2);
       __syncthreads();
-      turn_k<DH>(ring + (u % RING) * SLOT, tK, tid, nthr);
-      turn_v(ring + ((u + 1) % RING) * SLOT);
+      to_f16<DH, TP>(ring + (u % RING) * SLOT, tK, tid, nthr);
+      prep_v(ring + ((u + 1) % RING) * SLOT);
       __syncthreads();
       issue(u + RING);
       issue(u + RING + 1);
@@ -553,7 +552,7 @@ __device__ __forceinline__ void core(const CUtensorMap& tm_k, const CUtensorMap&
     } else {  // V of tile i; its scores from shared memory
       landed(u, 1);
       __syncthreads();
-      turn_v(ring + (u % RING) * SLOT);
+      prep_v(ring + (u % RING) * SLOT);
       __syncthreads();
       issue(u + RING);
       u += 1;
@@ -620,19 +619,23 @@ __device__ __forceinline__ void core(const CUtensorMap& tm_k, const CUtensorMap&
           pl[kk][r] = *reinterpret_cast<const uint32_t*>(&lo);
         }
 #pragma unroll
-      for (int jd = 0; jd < NJD; ++jd) {  // the tile's sums, then the running ones
-        const int d = 8 * jd + gq;
-        float ot[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int jp = 0; jp < NJD / 2; ++jp) {  // dims 16 jp ..: the tile's sums, then the running ones
+        float ot[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
 #pragma unroll
-        for (int kk = 0; kk < 2; ++kk) {
-          const int kb = 2 * (32 * wp + 16 * kk);  // the 16 positions' bytes in a V^T row
-          const uint32_t b0 = lds32(tV + swz<128>(d * 128 + kb) + 4 * t);
-          const uint32_t b1 = lds32(tV + swz<128>(d * 128 + kb + 16) + 4 * t);
-          mma_f16(ot, ph[kk], b0, b1);
-          mma_f16(ot, pl[kk], b0, b1);
+        for (int kk = 0; kk < 2; ++kk) {  // V rows (positions) 32 wp + 16 kk .. + 15
+          uint32_t vb[4];
+          const int pos = 32 * wp + 16 * kk + 8 * ((lane >> 3) & 1) + (lane & 7);
+          ldsm_x4_t(vb, tV + chunk16<2 * DH>(pos, 2 * jp + (lane >> 4)));
+          mma_f16(ot[0], ph[kk], vb[0], vb[1]);
+          mma_f16(ot[0], pl[kk], vb[0], vb[1]);
+          mma_f16(ot[1], ph[kk], vb[2], vb[3]);
+          mma_f16(ot[1], pl[kk], vb[2], vb[3]);
         }
 #pragma unroll
-        for (int e = 0; e < 4; ++e) o[jd][e] += ot[e];
+        for (int e = 0; e < 4; ++e) {
+          o[2 * jp][e] += ot[0][e];
+          o[2 * jp + 1][e] += ot[1][e];
+        }
       }
     }
   }
@@ -753,8 +756,7 @@ int launch(Kernel kernel, Sized& sized, const Args& a, int B, int cluster, int n
            cudaStream_t st) {
   const int rp = 16 * ((a.rep + 15) / 16), threads = max(MIN_THREADS, 4 * rp);
   const Layout lay(dh, rp, a.chmax, a.recompute != 0);
-  if (lay.total > SMEM_LIMIT || 4 * rp * (dh + 8) > lay.q || threads > MAX_THREADS)
-    return cudaErrorInvalidValue;
+  if (lay.total > SMEM_LIMIT || threads > MAX_THREADS) return cudaErrorInvalidValue;
   CUtensorMap tk = {}, tv = {};
   if (a.tma) {  // K^T as (B Hkv Dh rows, Smax bytes), V as (B Hkv Smax rows, Dh bytes)
     int rc = tensor_map(&tk, a.kt, a.Smax, static_cast<uint64_t>(B) * a.Hkv * dh, TP, dh,

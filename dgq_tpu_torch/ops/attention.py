@@ -96,17 +96,17 @@ DECODE_SHORT_SMAX = 8192  # the caches K3 takes (auto_decode_chunk), and K7 with
 # rep = H / Hkv of K3's and K7's whole kernels; any other rep up to ROWS_MAX_REP runs their
 # split kernels (csrc/decode_attention_rows.cu): ROWS_SLOTS[i] clusters of ROWS_CLUSTERS[j]
 # blocks a (slot, kv head) (more than one without quant_pv only), two warps a 16-row tile of
-# the kv head's query rows, a ring of ROWS_RING raw tiles of DECODE_TILE positions, and the
-# body's static shared memory (row maxima and sums, the ring's barriers)
+# the kv head's query rows, a ring of ROWS_RING_BYTES of raw tiles of DECODE_TILE positions,
+# and the body's static shared memory (row maxima and sums, the ring's barriers)
 DECODE_REPS = (1, 2, 4, 8)
 ROWS_CLUSTERS = (2, 4, 8, 16)
 ROWS_SLOTS = (1, 2, 4)
-ROWS_RING, ROWS_MAX_REP, ROWS_MIN_THREADS = 8, 128, 256
+ROWS_RING_BYTES, ROWS_MAX_REP, ROWS_MIN_THREADS = 32768, 128, 256
 # the most clusters of 16 blocks (one an SM) that rows_plan counts on running at once: more
 # of them ran in two waves on an H100 (decode_plan_sweep --rows, PERF.md)
 ROWS_WIDE_CLUSTERS = 4
 ROWS_RANK_POSITIONS = 256  # rows_plan's most positions of the cache a rank
-ROWS_STATIC_BYTES = 4 * 6 * ROWS_MAX_REP + 8 * ROWS_RING + 4
+ROWS_STATIC_BYTES = 4 * 6 * ROWS_MAX_REP + 8 * 8 + 4
 
 NEG = torch.finfo(torch.float32).min
 
@@ -422,7 +422,7 @@ class RowsPlan(NamedTuple):
 
 def rows_threads(rep: int) -> int:
     """Threads a block of the split kernels: two warps a 16-row tile, and at
-    least ROWS_MIN_THREADS (the warps past the rows' only copy and turn
+    least ROWS_MIN_THREADS (the warps past the rows' only copy and convert
     tiles)."""
     return max(ROWS_MIN_THREADS, 64 * -(-rep // 16))
 
@@ -430,12 +430,12 @@ def rows_threads(rep: int) -> int:
 def rows_smem_bytes(dh: int, rep: int, smax: int, cluster: int, recompute: bool = False,
                     slots: int = 1) -> int:
     """The split kernels' dynamic shared memory a block (the kernel's
-    ``Layout``): the ring of raw tiles, the turned K and V^T tiles, q's rows
-    padded to 16 and, unless ``recompute``, the f32 scores of the most
-    positions a rank can take (a row of ``decode_chmax`` over the slot's
-    cluster x slots ranks, + 8)."""
+    ``Layout``): the ring of raw tiles, the K and V tiles in fp16, q's rows
+    padded to 16 in fp16 and, unless ``recompute``, the f32 scores of the
+    most positions a rank can take (a row of ``decode_chmax`` over the
+    slot's cluster x slots ranks, + 8)."""
     rp = 16 * -(-rep // 16)
-    base = (ROWS_RING + 3) * DECODE_TILE * dh + rp * (dh + 16)
+    base = max(ROWS_RING_BYTES + 4 * DECODE_TILE * dh, 4 * rp * (dh + 8)) + 2 * rp * dh
     return base + (0 if recompute else 4 * rp * (decode_chmax(smax, cluster * slots) + 8))
 
 

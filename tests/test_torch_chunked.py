@@ -279,43 +279,50 @@ def _swz(row, off):
     return off ^ ((off >> 3) & (0x70 if row == 128 else 0x30))
 
 
-def _turn_k(raw, dh):
-    """turn_k: K^T [dh][64] -> K [64 positions][dh], swizzled dh bytes."""
-    tk = np.zeros(64 * dh, np.uint8)
-    for pt in range(dh):
-        c, kq = pt >> 4, pt & 15
-        odd = c & 1
-        r = [_word(raw, (16 * c + (i ^ odd)) * 64 + 4 * kq) for i in range(16)]
-        tk4 = [_transpose4x4([r[(4 * m + i) ^ 1] if odd else r[4 * m + i] for i in range(4)])
-               for m in range(4)]
-        for ep in range(4):
-            e = (ep + (kq >> 1)) & 3
-            _put16(tk, _swz(dh, (4 * kq + e) * dh + 16 * c), [tk4[m][e] for m in range(4)])
-    return tk
-
-
 def _s8x2_to_h2(w, i):
     biased = _byte_perm(w ^ 0x80808080, 0x64646464, 0x4342 if i else 0x4140)
     h = np.array([biased], "<u4").view(np.float16) - np.float16(1152)
     return int(h.view("<u4")[0])
 
 
-def _turn_v(raw, dh, quant_pv):
-    """turn_v_f16 / turn_v_s8: V [64][dh] -> V^T [dh][64] in fp16 (rows of
-    128 bytes) or int8 in the scores' fragment order (rows of 64 bytes)."""
+def _chunk16(rowb, r, c):
+    """chunk16<ROWB>: 16-byte chunk c of row r, its low three bits XOR the row's."""
+    return r * rowb + ((c ^ (r & 7)) << 4)
+
+
+def _to_f16(raw, rows, width):
+    """to_f16<R, W>: a raw tile of ``rows`` rows of ``width`` int8 bytes ->
+    the same layout in fp16 (rows of 2 width bytes, chunks swizzled)."""
+    tile = np.zeros(rows * 2 * width, np.uint8)
+    for i in range(rows * (width // 16)):
+        r, c = divmod(i, width // 16)
+        w = [_word(raw, r * width + 16 * c + 4 * k) for k in range(4)]
+        for half in range(2):
+            _put16(tile, _chunk16(2 * width, r, 2 * c + half),
+                   [_s8x2_to_h2(w[2 * half + k // 2], k % 2) for k in range(4)])
+    return tile
+
+
+def _ldsm(buf, addrs, trans):
+    """ldmatrix .x4 (.trans): lane l gives row l % 8 of matrix l // 8 (8 b16
+    at addrs[l]); returns regs[lane][matrix] as fp16 pairs (low, high)."""
+    mats = [np.stack([buf[addrs[8 * m + r]:addrs[8 * m + r] + 16].view(np.float16)
+                      for r in range(8)]) for m in range(4)]
+    regs = np.zeros((32, 4, 2), np.float16)
+    for j in range(32):
+        for m in range(4):
+            if trans:
+                regs[j, m] = mats[m][2 * (j % 4):2 * (j % 4) + 2, j // 4]
+            else:
+                regs[j, m] = mats[m][j // 4, 2 * (j % 4):2 * (j % 4) + 2]
+    return regs
+
+
+def _turn_v_s8(raw, dh):
+    """turn_v_s8: V [64][dh] -> V^T [dh][64 slots] int8 in the scores'
+    fragment order (rows of 64 bytes, swizzled 64 bytes)."""
     dq_n = dh // 4
-    tv = np.zeros(128 * dh, np.uint8)
-    if not quant_pv:
-        for unit in range(8 * dq_n):
-            dq, kg = unit % dq_n, unit // dq_n
-            r = [_word(raw, (8 * kg + i) * dh + 4 * dq) for i in range(8)]
-            lo, hi = _transpose4x4(r[:4]), _transpose4x4(r[4:])
-            for ep in range(4):
-                e = (ep + (dq >> 1)) & 3
-                _put16(tv, _swz(128, (4 * dq + e) * 128 + 16 * kg),
-                       [_s8x2_to_h2(lo[e], 0), _s8x2_to_h2(lo[e], 1), _s8x2_to_h2(hi[e], 0),
-                        _s8x2_to_h2(hi[e], 1)])
-        return tv
+    tv = np.zeros(64 * dh, np.uint8)
     for unit in range(4 * dq_n):
         dq, kp = unit % dq_n, unit // dq_n
         odd = kp & 1
@@ -336,31 +343,45 @@ def _bytes(word):
 @pytest.mark.parametrize("quant_pv", [False, True])
 @pytest.mark.parametrize("dh", [64, 128])
 def test_split_kernels_turns_and_fragments(dh, quant_pv):
-    """The split kernels' shared-memory turns and mma.sync fragments, byte
-    for byte as the CUDA source computes them: each warp's (wp = 0, 1)
-    m16n8k32 B fragments of the turned K tile are K^T's columns (q.k of 8
-    positions, 32 dims a step); its p @ V, with the scores' accumulator
-    layout (row gq or gq + 8, position 8j + 2t + (e & 1) of n8 tile j) taken
-    as the A fragments (int8 codes in the k order 2t, 2t + 1, 8 + 2t, 9 + 2t
-    a 16, or P's two fp16 pieces) and the turned V^T as B, is the warp's 32
-    positions' codes (or P) times V."""
+    """The split kernels' shared-memory tiles and mma.sync fragments, byte
+    for byte as the CUDA source makes them: q's rows and the K^T tile in
+    fp16 (chunks swizzled), read by ldmatrix into each warp's (wp = 0, 1)
+    m16n8k16 A and (transposed) B fragments, give q.k of its 32 positions
+    exactly; its p @ V, the scores' accumulator layout (row gq or gq + 8,
+    position 8j + 2t + (e & 1) of n8 tile j) taken as the A fragments, is
+    the warp's 32 positions' P times V: P's two fp16 pieces against the V
+    tile in fp16 through ldmatrix.trans, or (quant_pv) int8 codes in the k
+    order 2t, 2t + 1, 8 + 2t, 9 + 2t a 16 against V^T int8 (m16n8k32)."""
     rng = np.random.default_rng(dh + quant_pv)
-    kt = rng.integers(-128, 128, (dh, 64)).astype(np.int8)
-    v = rng.integers(-128, 128, (64, dh)).astype(np.int8)
-    tk = _turn_k(kt.view(np.uint8).reshape(-1).copy(), dh)
-    tv = _turn_v(v.view(np.uint8).reshape(-1).copy(), dh, quant_pv)
+    kt = rng.integers(-127, 128, (dh, 64)).astype(np.int8)
+    v = rng.integers(-127, 128, (64, dh)).astype(np.int8)
+    q = rng.integers(-127, 128, (16, dh)).astype(np.int8)  # one m16 tile of rows
+    tk = _to_f16(kt.view(np.uint8).reshape(-1).copy(), dh, 64)
+    tq = _to_f16(q.view(np.uint8).reshape(-1).copy(), 16, dh)
     lanes = [(lane >> 2, lane & 3) for lane in range(32)]
     for wp in range(2):
-        for jj in range(4):  # q.k: B[k][n] = K[dims 32 ks + k][positions 8 (4 wp + jj) + n]
-            for ks in range(dh // 32):
-                bmat = np.zeros((32, 8), np.int64)
-                for gq, t in lanes:
-                    pos = 8 * (4 * wp + jj) + gq
-                    bmat[4 * t:4 * t + 4, gq] = _bytes(_word(tk, _swz(dh, pos * dh + 32 * ks) + 4 * t))
-                    bmat[16 + 4 * t:20 + 4 * t, gq] = _bytes(
-                        _word(tk, _swz(dh, pos * dh + 32 * ks + 16) + 4 * t))
-                np.testing.assert_array_equal(
-                    bmat, kt[32 * ks:32 * ks + 32, 8 * (4 * wp + jj):8 * (4 * wp + jj) + 8])
+        for ks in range(dh // 16):  # q.k: A = q's 16 dims, B = K^T's, two n8 tiles a load
+            qa = _ldsm(tq, [_chunk16(2 * dh, lane & 15, 2 * ks + (lane >> 4))
+                            for lane in range(32)], False)
+            amat = np.zeros((16, 16))
+            for lane, (gq, t) in enumerate(lanes):
+                for reg, (row, k0) in enumerate(((gq, 2 * t), (gq + 8, 2 * t),
+                                                 (gq, 8 + 2 * t), (gq + 8, 8 + 2 * t))):
+                    amat[row, k0:k0 + 2] = qa[lane, reg]
+            np.testing.assert_array_equal(amat, q[:, 16 * ks:16 * ks + 16])
+            for jp in range(2):
+                kb = _ldsm(tk, [_chunk16(128, 16 * ks + 8 * ((lane >> 3) & 1) + (lane & 7),
+                                         4 * wp + 2 * jp + (lane >> 4)) for lane in range(32)],
+                           True)
+                for half in range(2):  # n8 tile 2 jp + half: registers 2 half, 2 half + 1
+                    bmat = np.zeros((16, 8))
+                    for lane, (gq, t) in enumerate(lanes):
+                        bmat[2 * t:2 * t + 2, gq] = kb[lane, 2 * half]
+                        bmat[8 + 2 * t:10 + 2 * t, gq] = kb[lane, 2 * half + 1]
+                    pos = 32 * wp + 8 * (2 * jp + half)
+                    np.testing.assert_array_equal(bmat, kt[16 * ks:16 * ks + 16, pos:pos + 8])
+                    np.testing.assert_array_equal(amat @ bmat, q[:, 16 * ks:16 * ks + 16].astype(
+                        np.int64) @ kt[16 * ks:16 * ks + 16, pos:pos + 8].astype(np.int64))
         # p @ V of the warp's 32 positions: x[row][position] in the scores' layout
         x = rng.random((16, 32)).astype(np.float32)
         x[rng.random((16, 32)) < 0.3] = 0.0
@@ -369,47 +390,56 @@ def test_split_kernels_turns_and_fragments(dh, quant_pv):
         def c_layout(jj, e, gq, t):  # sf[jj][e] of lane (gq, t)
             return x[gq + 8 * (e >> 1), 8 * jj + 2 * t + (e & 1)]
 
-        for jd in range(dh // 8):
-            if quant_pv:
-                codes = (x * np.float32(127.0) + np.float32(0.5)).astype(np.int64)
-                amat, bmat = np.zeros((16, 32), np.int64), np.zeros((32, 8), np.int64)
+        if quant_pv:
+            tv = _turn_v_s8(v.view(np.uint8).reshape(-1).copy(), dh)
+            codes = (x * np.float32(127.0) + np.float32(0.5)).astype(np.int64)
+            amat = np.zeros((16, 32), np.int64)
+            for gq, t in lanes:
+                c = [[int(c_layout(jj, e, gq, t) * np.float32(127.0) + np.float32(0.5))
+                      for e in range(4)] for jj in range(4)]
+                pa = [c[0][0] | c[0][1] << 8 | c[1][0] << 16 | c[1][1] << 24,
+                      c[0][2] | c[0][3] << 8 | c[1][2] << 16 | c[1][3] << 24,
+                      c[2][0] | c[2][1] << 8 | c[3][0] << 16 | c[3][1] << 24,
+                      c[2][2] | c[2][3] << 8 | c[3][2] << 16 | c[3][3] << 24]
+                for reg, (row, k0) in enumerate(((gq, 4 * t), (gq + 8, 4 * t),
+                                                 (gq, 16 + 4 * t), (gq + 8, 16 + 4 * t))):
+                    amat[row, k0:k0 + 4] = _bytes(pa[reg])
+            for jd in range(dh // 8):
+                bmat = np.zeros((32, 8), np.int64)
                 for gq, t in lanes:
-                    c = [[int(c_layout(jj, e, gq, t) * np.float32(127.0) + np.float32(0.5))
-                          for e in range(4)] for jj in range(4)]
-                    pa = [c[0][0] | c[0][1] << 8 | c[1][0] << 16 | c[1][1] << 24,
-                          c[0][2] | c[0][3] << 8 | c[1][2] << 16 | c[1][3] << 24,
-                          c[2][0] | c[2][1] << 8 | c[3][0] << 16 | c[3][1] << 24,
-                          c[2][2] | c[2][3] << 8 | c[3][2] << 16 | c[3][3] << 24]
-                    for reg, (row, k0) in enumerate(((gq, 4 * t), (gq + 8, 4 * t),
-                                                     (gq, 16 + 4 * t), (gq + 8, 16 + 4 * t))):
-                        amat[row, k0:k0 + 4] = _bytes(pa[reg])
                     d = 8 * jd + gq
                     bmat[4 * t:4 * t + 4, gq] = _bytes(_word(tv, _swz(64, d * 64 + 32 * wp) + 4 * t))
                     bmat[16 + 4 * t:20 + 4 * t, gq] = _bytes(
                         _word(tv, _swz(64, d * 64 + 32 * wp + 16) + 4 * t))
                 np.testing.assert_array_equal(amat @ bmat,
                                               codes @ vw[:, 8 * jd:8 * jd + 8].astype(np.int64))
-                continue
-            got = np.zeros((16, 8))
-            for kk in range(2):  # positions 16 kk .. of the warp's: n8 tiles 2kk, 2kk + 1
-                ahi, alo = np.zeros((16, 16)), np.zeros((16, 16))
-                bmat = np.zeros((16, 8))
-                for gq, t in lanes:
-                    for r in range(4):
-                        row, k0 = gq + 8 * (r & 1), 2 * t + 8 * (r >> 1)
-                        pair = np.array([c_layout(2 * kk + (r >> 1), 2 * (r & 1) + i, gq, t)
-                                         for i in range(2)], np.float32) * np.float32(4096.0)
-                        hi = pair.astype(np.float16)
-                        lo = (pair - hi.astype(np.float32)).astype(np.float16)
-                        ahi[row, k0:k0 + 2], alo[row, k0:k0 + 2] = hi, lo
-                    d, kb = 8 * jd + gq, 2 * (32 * wp + 16 * kk)
-                    for h, off in ((0, 0), (8, 16)):
-                        word = _word(tv, _swz(128, d * 128 + kb + off) + 4 * t)
-                        bmat[h + 2 * t:h + 2 * t + 2, gq] = np.array([word], "<u4").view(np.float16)
-                np.testing.assert_array_equal(bmat, vw[16 * kk:16 * kk + 16, 8 * jd:8 * jd + 8])
-                got += ahi @ bmat + alo @ bmat
-            want = (x.astype(np.float64) * 4096.0) @ vw[:, 8 * jd:8 * jd + 8]
-            np.testing.assert_allclose(got, want, rtol=0, atol=2.0 ** -20 * 4096 * 128 * 32)
+            continue
+        tv = _to_f16(v.view(np.uint8).reshape(-1).copy(), 64, dh)
+        got = np.zeros((16, dh))
+        for kk in range(2):  # positions 16 kk .. of the warp's: n8 tiles 2kk, 2kk + 1
+            ahi, alo = np.zeros((16, 16)), np.zeros((16, 16))
+            for gq, t in lanes:
+                for r in range(4):
+                    row, k0 = gq + 8 * (r & 1), 2 * t + 8 * (r >> 1)
+                    pair = np.array([c_layout(2 * kk + (r >> 1), 2 * (r & 1) + i, gq, t)
+                                     for i in range(2)], np.float32) * np.float32(4096.0)
+                    hi = pair.astype(np.float16)
+                    lo = (pair - hi.astype(np.float32)).astype(np.float16)
+                    ahi[row, k0:k0 + 2], alo[row, k0:k0 + 2] = hi, lo
+            for jp in range(dh // 16):
+                vb = _ldsm(tv, [_chunk16(2 * dh, 32 * wp + 16 * kk + 8 * ((lane >> 3) & 1)
+                                         + (lane & 7), 2 * jp + (lane >> 4)) for lane in range(32)],
+                           True)
+                for half in range(2):  # n8 tile (dims) 2 jp + half
+                    bmat = np.zeros((16, 8))
+                    for lane, (gq, t) in enumerate(lanes):
+                        bmat[2 * t:2 * t + 2, gq] = vb[lane, 2 * half]
+                        bmat[8 + 2 * t:10 + 2 * t, gq] = vb[lane, 2 * half + 1]
+                    d0 = 8 * (2 * jp + half)
+                    np.testing.assert_array_equal(bmat, vw[16 * kk:16 * kk + 16, d0:d0 + 8])
+                    got[:, d0:d0 + 8] += ahi @ bmat + alo @ bmat
+        want = (x.astype(np.float64) * 4096.0) @ vw
+        np.testing.assert_allclose(got, want, rtol=0, atol=2.0 ** -20 * 4096 * 128 * 32)
 
 
 @pytest.mark.parametrize("rep", [3, 6, 12, 16, 71])
