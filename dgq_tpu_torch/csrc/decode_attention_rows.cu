@@ -27,7 +27,8 @@
 //     of the slot's P C streams the positions [r per, (r + 1) per) of its
 //     valid length, per = ceil(len / (P C)) rounded up to 16, so every K and
 //     V byte is read from device memory once a call (K twice where the plan
-//     recomputes the scores, the second time mostly from L2).  P > 1 (the
+//     streams it again to recompute the scores, the second time mostly from
+//     L2).  P > 1 (the
 //     plan's clusters a slot, fp p @ V only: quant_pv's codes need the
 //     slot's max first) takes each cluster's row max for its own part, and
 //     the last block of a rank's P to finish adds the parts, rescaled by
@@ -64,9 +65,10 @@
 //         expf, the plain version's exp to the bit);
 //   * between the max and the exp the scores stay where the plan says: in
 //     the block's shared memory (f32 [rows][chmax + 8]) where they fit (K3's
-//     caches), else recomputed from K in a second pass (K7 past 8192
-//     positions: 80 rows x 1024 positions a rank would take 330 KB); exp runs
-//     once a (row, position) either way;
+//     caches), else recomputed in a second pass from the rank's K tiles kept
+//     in shared memory in fp16 (K7 past 8192 positions: 71 rows x 1024
+//     positions of scores would take 330 KB a rank, its K tiles 128 KB), else
+//     from K streamed again; exp runs once a (row, position) either way;
 //   * the row max over the cluster through distributed shared memory, and
 //     the sums reduced and scattered: each rank adds every rank's p @ V sums
 //     and exp sums of the rows r, r + C, .. in rank order (deterministic)
@@ -246,20 +248,23 @@ __device__ __forceinline__ A from_bits(uint32_t u) {
 // rows_smem_bytes): the ring of raw tiles (K^T [Dh][64] or V [64][Dh]), the
 // K tile in fp16 (K^T [Dh][64]), the V tile in fp16 ([64][Dh]; under
 // quant_pv V^T int8 [Dh][64], in the same room), q's rows in fp16 [rp][Dh],
-// and the scores f32 [rp][chmax + 8] unless they are recomputed.  The p @ V
+// and the scores f32 [rp][chmax + 8] unless they are recomputed (the K
+// tiles in fp16 then stay in shared memory where the plan says).  The p @ V
 // sums [rp][Dh + 8] (f32 or int32) take the ring's and the tiles' room at
 // the end.
 struct Layout {
   int tk, tv, q, scores, total, rs;
-  __host__ __device__ Layout(int dh, int rp, int chmax, bool recompute) {
+  // mode 0: the scores kept; 1: recomputed from K streamed again; 2:
+  // recomputed from the rank's K tiles, kept in fp16 (chmax / 64 of them)
+  __host__ __device__ Layout(int dh, int rp, int chmax, int mode) {
     const int slot = TP * dh;
     tk = RING_BYTES;
-    tv = tk + 2 * slot;
+    tv = tk + (mode == 2 ? chmax / TP : 1) * 2 * slot;
     q = tv + 2 * slot;
     if (q < 4 * rp * (dh + 8)) q = 4 * rp * (dh + 8);  // the p @ V sums take the room below q
     scores = q + 2 * rp * dh;
     rs = chmax + 8;  // a row of scores: 8 floats past the tile grid, so rows gq 0..7 take other banks
-    total = scores + (recompute ? 0 : 4 * rp * rs);
+    total = scores + (mode == 0 ? 4 * rp * rs : 0);
   }
 };
 
@@ -274,7 +279,8 @@ struct Args {
   float* part;  // slot clusters > 1 (fp p @ V): (B, Hkv, P, rp, Dh + 2) partials, else null
   int* count;   // and (B, Hkv, MAX_CLUSTER) arrivals a rank, 0 between calls
   int Hkv, rep, Smax, chmax;
-  int recompute;  // the scores recomputed from K in the second pass, else kept in shared memory
+  int recompute;  // the scores: 0 kept in shared memory, recomputed in the second pass from K
+                  // streamed again (1) or from the rank's K tiles kept in fp16 (2)
   int tma;        // Smax % 16 == 0: K and V tiles by TMA, else by 4- and 16-byte cp.async
 };
 
@@ -346,8 +352,8 @@ __device__ __forceinline__ void core(const CUtensorMap& tm_k, const CUtensorMap&
   const uint32_t rank = cluster_rank(), ncl = cluster_size();
   const int nslot = gridDim.x / ncl, cl = blockIdx.x / ncl;  // P, and this block's cluster
   const int g = blockIdx.y, b = blockIdx.z, Hkv = a.Hkv;
-  const bool recompute = a.recompute != 0, tma = a.tma != 0;
-  const Layout lay(DH, rp, a.chmax, recompute);
+  const bool recompute = a.recompute != 0, reload = a.recompute == 1, tma = a.tma != 0;
+  const Layout lay(DH, rp, a.chmax, a.recompute);
   uint8_t* ring = smem;
   uint8_t* tK = smem + lay.tk;
   uint8_t* tV = smem + lay.tv;
@@ -368,16 +374,17 @@ __device__ __forceinline__ void core(const CUtensorMap& tm_k, const CUtensorMap&
   const int8_t* kg = a.kt + bg * DH * a.Smax + p0;
   const int8_t* vg = a.v + (bg * a.Smax + p0) * DH;
   // the rank's stream: K tiles 0 .. ntile - 1 (the first pass), then (scores
-  // recomputed) K and V of tile i as items ntile + 2i and + 1, or V tile i
-  const int nitems = (recompute ? 3 : 2) * ntile;
+  // recomputed from K streamed again) K and V of tile i as items ntile + 2i
+  // and + 1, or V tile i
+  const int nitems = (reload ? 3 : 2) * ntile;
   __syncthreads();  // the barriers are initialised
   // item u into ring slot u % RING: by TMA (one thread; a slot's earlier
   // reads ordered before the async proxy's writes), else by cp.async, one
   // copy group a call (empty past the stream)
   auto issue = [&](int u) {
     const int r = u - ntile;
-    const bool is_k = u < ntile || (recompute && !(r & 1));
-    const int tile = u < ntile ? u : recompute ? r >> 1 : r;
+    const bool is_k = u < ntile || (reload && !(r & 1));
+    const int tile = u < ntile ? u : reload ? r >> 1 : r;
     uint8_t* dst = ring + (u % RING) * SLOT;
     const int t0 = tile * TP, nt = min(TP, n - t0);
     if (tma) {
@@ -433,8 +440,8 @@ __device__ __forceinline__ void core(const CUtensorMap& tm_k, const CUtensorMap&
     if (row1 < rep) sl[1] = __ldg(a.slopes + (size_t)g * rep + row1);
   }
   // the V tile's conversion (quant_pv: turn) starts at thread DH, the K
-  // tile's at thread 0 (both in one step where the scores are recomputed)
-  const int vtid = ((tid - DH) % nthr + nthr) % nthr;
+  // tile's at thread 0 (both in one step where K is streamed again)
+  const int vtid = reload ? ((tid - DH) % nthr + nthr) % nthr : tid;
   auto prep_v = [&](const uint8_t* raw) {
     if constexpr (QPV)
       turn_v_s8<DH>(raw, tV, vtid, nthr);
@@ -442,13 +449,13 @@ __device__ __forceinline__ void core(const CUtensorMap& tm_k, const CUtensorMap&
       to_f16<TP, DH>(raw, tV, vtid, nthr);
   };
 
-  // the scores of the K tile in tK (fp16 K^T) at the rank's position t0:
+  // the scores of the fp16 K^T tile at tK at the rank's position t0:
   // sf[jj][e] is row gq (e < 2) or gq + 8, position 32 wp + 8 jj + 2t + (e &
   // 1).  q.k on m16n8k16 f16 with fp32 sums: codes of at most 127 in
   // magnitude, so every product and partial sum (below 2^24) is an exact
   // integer, the int32 dot of the plain version
   float sf[4][4];
-  auto scores = [&](int t0) {
+  auto scores = [&](const uint8_t* tK, int t0) {
     float acc[4][4];
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj) acc[jj][0] = acc[jj][1] = acc[jj][2] = acc[jj][3] = 0.f;
@@ -483,12 +490,14 @@ __device__ __forceinline__ void core(const CUtensorMap& tm_k, const CUtensorMap&
   for (; u < ntile; ++u) {
     landed(u, 1);
     __syncthreads();  // tile u has landed for every thread; every warp is done with tK
-    to_f16<DH, TP>(ring + (u % RING) * SLOT, tK, tid, nthr);
+    // K tile u in fp16: the one buffer, or (mode 2) the rank's u-th
+    uint8_t* const ktile = tK + (a.recompute == 2 ? 2 * u * SLOT : 0);
+    to_f16<DH, TP>(ring + (u % RING) * SLOT, ktile, tid, nthr);
     __syncthreads();
     issue(u + RING);
     if (!rows_warp) continue;
     const int t0 = u * TP, nt = min(TP, n - t0);
-    scores(t0);
+    scores(ktile, t0);
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj) {
       const int c = 32 * wp + 8 * jj + 2 * t;
@@ -538,7 +547,7 @@ __device__ __forceinline__ void core(const CUtensorMap& tm_k, const CUtensorMap&
   float den[2] = {0.f, 0.f};
   for (int i = 0; i < ntile; ++i) {
     const int t0 = i * TP, nt = min(TP, n - t0);
-    if (recompute) {  // K and V of tile i: items u, u + 1
+    if (reload) {  // K and V of tile i: items u, u + 1
       landed(u, 2);
       __syncthreads();
       to_f16<DH, TP>(ring + (u % RING) * SLOT, tK, tid, nthr);
@@ -548,8 +557,8 @@ __device__ __forceinline__ void core(const CUtensorMap& tm_k, const CUtensorMap&
       issue(u + RING + 1);
       u += 2;
       if (!rows_warp) continue;
-      scores(t0);
-    } else {  // V of tile i; its scores from shared memory
+      scores(tK, t0);
+    } else {  // V of tile i; its scores from the kept K tile i, or from shared memory
       landed(u, 1);
       __syncthreads();
       prep_v(ring + (u % RING) * SLOT);
@@ -557,15 +566,19 @@ __device__ __forceinline__ void core(const CUtensorMap& tm_k, const CUtensorMap&
       issue(u + RING);
       u += 1;
       if (!rows_warp) continue;
+      if (recompute) {
+        scores(tK + 2 * i * SLOT, t0);
+      } else {
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const int c = 32 * wp + 8 * jj + 2 * t;
-        const float2 s0 = *reinterpret_cast<const float2*>(sS + row0 * lay.rs + t0 + c);
-        const float2 s1 = *reinterpret_cast<const float2*>(sS + row1 * lay.rs + t0 + c);
-        sf[jj][0] = s0.x;
-        sf[jj][1] = s0.y;
-        sf[jj][2] = s1.x;
-        sf[jj][3] = s1.y;
+        for (int jj = 0; jj < 4; ++jj) {
+          const int c = 32 * wp + 8 * jj + 2 * t;
+          const float2 s0 = *reinterpret_cast<const float2*>(sS + row0 * lay.rs + t0 + c);
+          const float2 s1 = *reinterpret_cast<const float2*>(sS + row1 * lay.rs + t0 + c);
+          sf[jj][0] = s0.x;
+          sf[jj][1] = s0.y;
+          sf[jj][2] = s1.x;
+          sf[jj][3] = s1.y;
+        }
       }
     }
     // e = exp(s - m) at the valid positions, 0 past them; the tile's exp
@@ -755,7 +768,7 @@ template <class Kernel>
 int launch(Kernel kernel, Sized& sized, const Args& a, int B, int cluster, int nslot, int dh,
            cudaStream_t st) {
   const int rp = 16 * ((a.rep + 15) / 16), threads = max(MIN_THREADS, 4 * rp);
-  const Layout lay(dh, rp, a.chmax, a.recompute != 0);
+  const Layout lay(dh, rp, a.chmax, a.recompute);
   if (lay.total > SMEM_LIMIT || threads > MAX_THREADS) return cudaErrorInvalidValue;
   CUtensorMap tk = {}, tv = {};
   if (a.tma) {  // K^T as (B Hkv Dh rows, Smax bytes), V as (B Hkv Smax rows, Dh bytes)
@@ -832,17 +845,19 @@ extern "C" {
 // slopes on the device, or null; out (B, H, Dh) f32.  Any H / Hkv up to 128.
 // The caller's plan (ops/attention.py rows_plan): cluster (2, 4, 8 or 16)
 // blocks a cluster, nslot (1, 2 or 4; more than 1 without quant_pv only)
-// clusters a (slot, kv head), and recompute (the scores recomputed from K in
-// a second pass, else kept in shared memory); with nslot > 1, part (B, Hkv,
-// nslot, 16 ceil(H / Hkv / 16), Dh + 2) f32 for the clusters' partials and
-// count (B, Hkv, 16) int32, zero (the kernel leaves it zero).
+// clusters a (slot, kv head), and recompute (the scores: 0 kept in shared
+// memory; recomputed in a second pass from K streamed again, 1, or from the
+// rank's K tiles kept in shared memory in fp16, 2); with nslot > 1, part (B,
+// Hkv, nslot, 16 ceil(H / Hkv / 16), Dh + 2) f32 for the clusters' partials
+// and count (B, Hkv, 16) int32, zero (the kernel leaves it zero).
 int int8_decode_attention_rows(const void* q, const void* kt, const void* v, const void* lengths,
                                const void* scales, const void* slopes, void* out, void* part,
                                void* count, int B, int H, int Hkv, int Dh, int Smax, int quant_pv,
                                int cluster, int nslot, int recompute, void* stream) {
   if (B <= 0 || Hkv <= 0 || H % Hkv || H / Hkv > rows::MAX_REP || Smax <= 0 || Smax % 4 ||
       (cluster != 2 && cluster != 4 && cluster != 8 && cluster != 16) || (Dh != 64 && Dh != 128) ||
-      (nslot != 1 && nslot != 2 && nslot != 4) || (nslot > 1 && (quant_pv || !part || !count)))
+      (nslot != 1 && nslot != 2 && nslot != 4) || (nslot > 1 && (quant_pv || !part || !count)) ||
+      recompute < 0 || recompute > 2)
     return cudaErrorInvalidValue;
   const int ranks = cluster * nslot;
   rows::Args a{static_cast<const int8_t*>(q), static_cast<const int8_t*>(kt),
@@ -851,7 +866,7 @@ int int8_decode_attention_rows(const void* q, const void* kt, const void* v, con
                static_cast<float*>(out), static_cast<float*>(part), static_cast<int*>(count),
                Hkv, H / Hkv, Smax,
                ((Smax + ranks - 1) / ranks + rows::TP - 1) / rows::TP * rows::TP,
-               recompute != 0, Smax % 16 == 0};
+               recompute, Smax % 16 == 0};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (Dh == 64)
     return quant_pv ? launch_mode<64, true>(a, B, cluster, nslot, st)

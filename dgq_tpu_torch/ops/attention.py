@@ -411,13 +411,15 @@ class RowsPlan(NamedTuple):
     call: ``slots`` clusters of ``cluster`` blocks a (slot, kv head), each
     block with every query row of the kv head, the scores between the row
     max and the exp kept in the block's shared memory or (``recompute``)
-    computed again from K in a second pass.  With ``slots`` > 1 (fp p @ V
-    only) each cluster takes its own part of the positions against its own
-    row max, and the last block to finish adds the parts, rescaled to the
-    global max."""
+    computed again in a second pass, from the rank's K tiles kept in shared
+    memory in fp16 (``keep_k``) or from K streamed again.  With ``slots`` >
+    1 (fp p @ V only) each cluster takes its own part of the positions
+    against its own row max, and the last block to finish adds the parts,
+    rescaled to the global max."""
     cluster: int
     recompute: bool
     slots: int = 1
+    keep_k: bool = False
 
 
 def rows_threads(rep: int) -> int:
@@ -428,29 +430,32 @@ def rows_threads(rep: int) -> int:
 
 
 def rows_smem_bytes(dh: int, rep: int, smax: int, cluster: int, recompute: bool = False,
-                    slots: int = 1) -> int:
+                    slots: int = 1, keep_k: bool = False) -> int:
     """The split kernels' dynamic shared memory a block (the kernel's
-    ``Layout``): the ring of raw tiles, the K and V tiles in fp16, q's rows
+    ``Layout``): the ring of raw tiles, the K tile (``recompute`` and
+    ``keep_k``: all the rank's K tiles) and the V tile in fp16, q's rows
     padded to 16 in fp16 and, unless ``recompute``, the f32 scores of the
     most positions a rank can take (a row of ``decode_chmax`` over the
     slot's cluster x slots ranks, + 8)."""
     rp = 16 * -(-rep // 16)
-    base = max(ROWS_RING_BYTES + 4 * DECODE_TILE * dh, 4 * rp * (dh + 8)) + 2 * rp * dh
-    return base + (0 if recompute else 4 * rp * (decode_chmax(smax, cluster * slots) + 8))
+    chmax = decode_chmax(smax, cluster * slots)
+    ktiles = chmax // DECODE_TILE if recompute and keep_k else 1
+    base = max(ROWS_RING_BYTES + (2 * ktiles + 2) * DECODE_TILE * dh, 4 * rp * (dh + 8))
+    return base + 2 * rp * dh + (0 if recompute else 4 * rp * (chmax + 8))
 
 
 def rows_candidates(rep: int, dh: int, smax: int, quant_pv: bool = False) -> list:
     """Every plan the split kernels can run a (rep, Dh, Smax) cache with:
     for each of ROWS_SLOTS (1 only with ``quant_pv``, whose codes need the
     global max first), each cluster of ROWS_CLUSTERS whose block holds its
-    rank's scores, then each with the scores recomputed."""
+    rank's scores, then each whose block holds its rank's K tiles, then each
+    with K streamed again."""
     room = DECODE_SMEM_LIMIT - ROWS_STATIC_BYTES
     plans = []
     for n in ROWS_SLOTS[:1] if quant_pv else ROWS_SLOTS:
-        plans += [RowsPlan(c, False, n) for c in ROWS_CLUSTERS
-                  if rows_smem_bytes(dh, rep, smax, c, False, n) <= room]
-        plans += [RowsPlan(c, True, n) for c in ROWS_CLUSTERS
-                  if rows_smem_bytes(dh, rep, smax, c, True, n) <= room]
+        for recompute, keep_k in ((False, False), (True, True), (True, False)):
+            plans += [RowsPlan(c, recompute, n, keep_k) for c in ROWS_CLUSTERS
+                      if rows_smem_bytes(dh, rep, smax, c, recompute, n, keep_k) <= room]
     return plans
 
 
@@ -458,7 +463,7 @@ def _rows_blocks_per_sm(dh: int, rep: int, smax: int, plan: RowsPlan) -> int:
     """Blocks of the split kernels under ``plan`` that share an SM: its 64 K
     registers at the kernels' 128 a thread, its 2048 threads and 228 KB (the
     body's static bytes and the 1 KB the card reserves a block)."""
-    smem = rows_smem_bytes(dh, rep, smax, plan.cluster, plan.recompute, plan.slots)
+    smem = rows_smem_bytes(dh, rep, smax, plan.cluster, plan.recompute, plan.slots, plan.keep_k)
     threads = rows_threads(rep)
     return min(65536 // (128 * threads), 2048 // threads,
                DECODE_SM_SMEM // (smem + ROWS_STATIC_BYTES + 1024))
@@ -477,17 +482,18 @@ def rows_plan(b: int, hk: int, rep: int, dh: int, smax: int, sms: int,
     only: quant_pv's codes need the slot's max first), else one cluster a
     slot; the cluster halved while its blocks would not all run at once (or
     more than ROWS_WIDE_CLUSTERS clusters of 16 there would be); the scores
-    in shared memory where the block holds them, else recomputed."""
+    in shared memory where the block holds them, else recomputed from the
+    rank's K tiles kept there, else from K streamed again."""
     if not 1 <= rep <= ROWS_MAX_REP:
         raise ValueError(f"the split kernels take 1 to {ROWS_MAX_REP} query heads a kv head, "
                          f"got {rep}")
     room = DECODE_SMEM_LIMIT - ROWS_STATIC_BYTES
 
     def plan(cluster, slots):
-        recompute = rows_smem_bytes(dh, rep, smax, cluster, False, slots) > room
-        if recompute and rows_smem_bytes(dh, rep, smax, cluster, True, slots) > room:
-            raise ValueError(f"the split kernels: Dh {dh} at rep {rep} fits no block")
-        return RowsPlan(cluster, recompute, slots)
+        for recompute, keep_k in ((False, False), (True, True), (True, False)):
+            if rows_smem_bytes(dh, rep, smax, cluster, recompute, slots, keep_k) <= room:
+                return RowsPlan(cluster, recompute, slots, keep_k)
+        raise ValueError(f"the split kernels: Dh {dh} at rep {rep} fits no block")
 
     ranks = min(64, max(2, 1 << (-(-smax // ROWS_RANK_POSITIONS) - 1).bit_length()))
     shared = 65536 // (128 * rows_threads(rep)) >= 2  # two blocks' registers on an SM
@@ -580,8 +586,8 @@ def _rows_launch(name: str, q_s8, kt_cache, v_cache, lengths, scales, quant_pv: 
     rc = lib.int8_decode_attention_rows(
         _cuda.ptr(q_s8), _cuda.ptr(kt_cache), _cuda.ptr(v_cache), _cuda.ptr(lengths),
         _cuda.ptr(scales), _cuda.ptr(slopes), _cuda.ptr(out), _cuda.ptr(part), _cuda.ptr(count),
-        b, h, hk, dh, smax, int(quant_pv), plan.cluster, plan.slots, int(plan.recompute),
-        _cuda.stream(dev))
+        b, h, hk, dh, smax, int(quant_pv), plan.cluster, plan.slots,
+        int(plan.recompute) + int(plan.recompute and plan.keep_k), _cuda.stream(dev))
     _cuda.check(rc, count_name)
     _cuda.count_launch(count_name)
     return out

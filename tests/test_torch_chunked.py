@@ -442,6 +442,19 @@ def test_split_kernels_turns_and_fragments(dh, quant_pv):
         np.testing.assert_allclose(got, want, rtol=0, atol=2.0 ** -20 * 4096 * 128 * 32)
 
 
+def _rows_layout_total(dh, rep, smax, plan):
+    """csrc/decode_attention_rows.cu's Layout(dh, rp, chmax, mode).total,
+    with chmax and the mode as its C entry computes them."""
+    ranks = plan.cluster * plan.slots
+    chmax = -(-(-(-smax // ranks)) // 64) * 64
+    mode = 0 if not plan.recompute else 2 if plan.keep_k else 1
+    rp, slot = 16 * -(-rep // 16), 64 * dh
+    tv = 32768 + (chmax // 64 if mode == 2 else 1) * 2 * slot
+    q = max(tv + 2 * slot, 4 * rp * (dh + 8))
+    scores = q + 2 * rp * dh
+    return scores + (4 * rp * (chmax + 8) if mode == 0 else 0)
+
+
 @pytest.mark.parametrize("rep", [3, 6, 12, 16, 71])
 @pytest.mark.parametrize("b,smax", [(8, 2048), (4, 16384)])
 def test_rows_plan_fits_and_serves_every_query_head(b, smax, rep):
@@ -449,7 +462,8 @@ def test_rows_plan_fits_and_serves_every_query_head(b, smax, rep):
     K7 takes K3's plan on the caches K3 takes) at Falcon-7B's serving decode
     (8 slots at 2048) and batched decode at 16,384 (4 slots), both p @ V
     rules: one of ``rows_candidates``, each of which fits a block's shared
-    memory with the body's static bytes; clusters a slot only without
+    memory with the body's static bytes, as the kernel's ``Layout`` counts
+    it; clusters a slot only without
     quant_pv; the scores in shared memory wherever the plan's block holds
     them (at 2048 it does); two warps a 16-row tile, at least
     ROWS_MIN_THREADS; every query head of the kv head written once by the
@@ -462,9 +476,13 @@ def test_rows_plan_fits_and_serves_every_query_head(b, smax, rep):
         assert plan in plans
         assert {p.slots for p in plans} == ({1} if quant_pv else set(tatt.ROWS_SLOTS))
         for p in plans:
-            assert (tatt.rows_smem_bytes(dh, rep, smax, p.cluster, p.recompute, p.slots)
-                    + tatt.ROWS_STATIC_BYTES <= tatt.DECODE_SMEM_LIMIT)
-        assert plan.recompute == (plan._replace(recompute=False) not in plans)
+            smem = tatt.rows_smem_bytes(dh, rep, smax, p.cluster, p.recompute, p.slots, p.keep_k)
+            assert smem + tatt.ROWS_STATIC_BYTES <= tatt.DECODE_SMEM_LIMIT
+            assert smem == _rows_layout_total(dh, rep, smax, p)
+        # the scores kept where they fit, else the K tiles, else K streamed again
+        kept = plan._replace(recompute=False, keep_k=False) in plans
+        assert plan.recompute == (not kept)
+        assert plan.keep_k == (plan.recompute and plan._replace(keep_k=True) in plans)
         assert smax > tatt.DECODE_SHORT_SMAX or not plan.recompute
         c, ranks = plan.cluster, plan.cluster * plan.slots
         assert b * plan.slots * c <= SMS or c == 2
