@@ -63,12 +63,19 @@
 //         4096 keeps p_lo out of fp16's subnormals down to e = 2^-15; e =
 //         2^(s log2 e - m log2 e) on the MUFU unit (quant_pv's codes take
 //         expf, the plain version's exp to the bit);
-//   * between the max and the exp the scores stay where the plan says: in
-//     the block's shared memory (f32 [rows][chmax + 8]) where they fit (K3's
-//     caches), else recomputed in a second pass from the rank's K tiles kept
-//     in shared memory in fp16 (K7 past 8192 positions: 71 rows x 1024
-//     positions of scores would take 330 KB a rank, its K tiles 128 KB), else
-//     from K streamed again; exp runs once a (row, position) either way;
+//   * fp p @ V runs in one pass over K and V (the plan's scores mode 3):
+//     each warp keeps a running max of its rows over its positions, and
+//     rescales its sums when a tile raises it; the two warps of a row tile,
+//     then the ranks, are added rescaled to the larger max (2^(m_k log2 e -
+//     m log2 e)), so no cluster barrier sits between the max and the exp;
+//   * quant_pv's codes need the slot's max before any exp: a first pass
+//     takes it, and between the max and the exp the scores stay where the
+//     plan says: in the block's shared memory (f32 [rows][chmax + 8]) where
+//     they fit (K3's caches), else recomputed in a second pass from the
+//     rank's K tiles kept in shared memory in fp16 (K7 past 8192 positions:
+//     71 rows x 1024 positions of scores would take 330 KB a rank, its K
+//     tiles 128 KB), else from K streamed again; exp runs once a (row,
+//     position) either way;
 //   * the row max over the cluster through distributed shared memory, and
 //     the sums reduced and scattered: each rank adds every rank's p @ V sums
 //     and exp sums of the rows r, r + C, .. in rank order (deterministic)
@@ -255,7 +262,8 @@ __device__ __forceinline__ A from_bits(uint32_t u) {
 struct Layout {
   int tk, tv, q, scores, total, rs;
   // mode 0: the scores kept; 1: recomputed from K streamed again; 2:
-  // recomputed from the rank's K tiles, kept in fp16 (chmax / 64 of them)
+  // recomputed from the rank's K tiles, kept in fp16 (chmax / 64 of them);
+  // 3: one pass with a running max (fp p @ V)
   __host__ __device__ Layout(int dh, int rp, int chmax, int mode) {
     const int slot = TP * dh;
     tk = RING_BYTES;
@@ -280,7 +288,8 @@ struct Args {
   int* count;   // and (B, Hkv, MAX_CLUSTER) arrivals a rank, 0 between calls
   int Hkv, rep, Smax, chmax;
   int recompute;  // the scores: 0 kept in shared memory, recomputed in the second pass from K
-                  // streamed again (1) or from the rank's K tiles kept in fp16 (2)
+                  // streamed again (1) or from the rank's K tiles kept in fp16 (2); 3: one
+                  // pass against a running max (fp p @ V)
   int tma;        // Smax % 16 == 0: K and V tiles by TMA, else by 4- and 16-byte cp.async
 };
 
@@ -339,6 +348,8 @@ __device__ __forceinline__ void core(const CUtensorMap& tm_k, const CUtensorMap&
   extern __shared__ __align__(128) uint8_t rows_smem[];
   uint8_t* smem = rows_smem;
   __shared__ float sMaxW[2][MAX_REP], sM[MAX_REP], sDenW[MAX_REP], sDen[MAX_REP], sDenT[MAX_REP];
+  // online: the weights exp(m_k - m) of rank k's sums of this rank's row j, and m
+  __shared__ float sWt[MAX_REP / 2][MAX_CLUSTER], sMaxT[MAX_REP / 2];
   __shared__ __align__(8) uint64_t bars[RING_BYTES / (TP * 64)];
   __shared__ int sLast;
 
@@ -352,7 +363,9 @@ __device__ __forceinline__ void core(const CUtensorMap& tm_k, const CUtensorMap&
   const uint32_t rank = cluster_rank(), ncl = cluster_size();
   const int nslot = gridDim.x / ncl, cl = blockIdx.x / ncl;  // P, and this block's cluster
   const int g = blockIdx.y, b = blockIdx.z, Hkv = a.Hkv;
-  const bool recompute = a.recompute != 0, reload = a.recompute == 1, tma = a.tma != 0;
+  const bool online = !QPV && a.recompute == 3;
+  const bool recompute = a.recompute != 0 && !online, reload = a.recompute == 1, tma = a.tma != 0;
+  const bool paired = reload || online;  // a tile's K and V streamed in one step
   const Layout lay(DH, rp, a.chmax, a.recompute);
   uint8_t* ring = smem;
   uint8_t* tK = smem + lay.tk;
@@ -376,15 +389,16 @@ __device__ __forceinline__ void core(const CUtensorMap& tm_k, const CUtensorMap&
   // the rank's stream: K tiles 0 .. ntile - 1 (the first pass), then (scores
   // recomputed from K streamed again) K and V of tile i as items ntile + 2i
   // and + 1, or V tile i
+  const int np1 = online ? 0 : ntile;  // the first pass's items
   const int nitems = (reload ? 3 : 2) * ntile;
   __syncthreads();  // the barriers are initialised
   // item u into ring slot u % RING: by TMA (one thread; a slot's earlier
   // reads ordered before the async proxy's writes), else by cp.async, one
   // copy group a call (empty past the stream)
   auto issue = [&](int u) {
-    const int r = u - ntile;
-    const bool is_k = u < ntile || (reload && !(r & 1));
-    const int tile = u < ntile ? u : reload ? r >> 1 : r;
+    const int r = u - np1;
+    const bool is_k = u < np1 || (paired && !(r & 1));
+    const int tile = u < np1 ? u : paired ? r >> 1 : r;
     uint8_t* dst = ring + (u % RING) * SLOT;
     const int t0 = tile * TP, nt = min(TP, n - t0);
     if (tma) {
@@ -441,7 +455,7 @@ __device__ __forceinline__ void core(const CUtensorMap& tm_k, const CUtensorMap&
   }
   // the V tile's conversion (quant_pv: turn) starts at thread DH, the K
   // tile's at thread 0 (both in one step where K is streamed again)
-  const int vtid = reload ? ((tid - DH) % nthr + nthr) % nthr : tid;
+  const int vtid = paired ? ((tid - DH) % nthr + nthr) % nthr : tid;
   auto prep_v = [&](const uint8_t* raw) {
     if constexpr (QPV)
       turn_v_s8<DH>(raw, tV, vtid, nthr);
@@ -487,7 +501,7 @@ __device__ __forceinline__ void core(const CUtensorMap& tm_k, const CUtensorMap&
   // ---- first pass: the scores and the row max ----
   float mx[2] = {NEG, NEG};
   int u = 0;
-  for (; u < ntile; ++u) {
+  for (; u < np1; ++u) {
     landed(u, 1);
     __syncthreads();  // tile u has landed for every thread; every warp is done with tK
     // K tile u in fp16: the one buffer, or (mode 2) the rank's u-th
@@ -522,8 +536,8 @@ __device__ __forceinline__ void core(const CUtensorMap& tm_k, const CUtensorMap&
     sMaxW[wp][row0] = mx[0];
     sMaxW[wp][row1] = mx[1];
   }
-  cluster_sync();  // every block's maxima are written (and every block has started)
-  if (tid < rp) {
+  if (!online) cluster_sync();  // every block's maxima are written (and every block has started)
+  if (tid < rp && !online) {
     uint32_t pm[2 * MAX_CLUSTER];
 #pragma unroll
     for (int k = 0; k < 2 * MAX_CLUSTER; ++k)
@@ -535,10 +549,12 @@ __device__ __forceinline__ void core(const CUtensorMap& tm_k, const CUtensorMap&
     sM[tid] = m;
   }
   __syncthreads();
-  const float m[2] = {sM[row0], sM[row1]};
+  // the rows' max: the cluster's, or (online) this warp's running one over
+  // its positions so far, NEG before any
+  float m[2] = {online ? NEG : sM[row0], online ? NEG : sM[row1]};
   // fp p @ V: e = 2^(s log2 e - m log2 e) on the MUFU unit (relative 2^-22);
   // the codes of quant_pv take expf, the plain version's exp to the bit
-  const float ml2[2] = {__fmul_rn(m[0], LOG2E), __fmul_rn(m[1], LOG2E)};
+  float ml2[2] = {__fmul_rn(m[0], LOG2E), __fmul_rn(m[1], LOG2E)};
 
   // ---- second pass: exp-weights once a (row, position), p @ V on the tensor cores ----
   acc_t o[NJD][4];
@@ -547,7 +563,7 @@ __device__ __forceinline__ void core(const CUtensorMap& tm_k, const CUtensorMap&
   float den[2] = {0.f, 0.f};
   for (int i = 0; i < ntile; ++i) {
     const int t0 = i * TP, nt = min(TP, n - t0);
-    if (reload) {  // K and V of tile i: items u, u + 1
+    if (paired) {  // K and V of tile i: items u, u + 1
       landed(u, 2);
       __syncthreads();
       to_f16<DH, TP>(ring + (u % RING) * SLOT, tK, tid, nthr);
@@ -578,6 +594,31 @@ __device__ __forceinline__ void core(const CUtensorMap& tm_k, const CUtensorMap&
           sf[jj][1] = s0.y;
           sf[jj][2] = s1.x;
           sf[jj][3] = s1.y;
+        }
+      }
+    }
+    if (online) {  // the running max takes the tile's; the sums so far are rescaled to it
+      float tm[2] = {NEG, NEG};
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (32 * wp + 8 * jj + 2 * t + (e & 1) < nt) tm[e >> 1] = fmaxf(tm[e >> 1], sf[jj][e]);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        tm[h] = fmaxf(tm[h], __shfl_xor_sync(0xffffffffu, tm[h], 1));
+        tm[h] = fmaxf(tm[h], __shfl_xor_sync(0xffffffffu, tm[h], 2));
+        if (tm[h] > m[h]) {
+          const float ml2n = __fmul_rn(tm[h], LOG2E);
+          const float alpha = m[h] == NEG ? 0.f : ex2(__fsub_rn(ml2[h], ml2n));
+          den[h] *= alpha;
+#pragma unroll
+          for (int jd = 0; jd < NJD; ++jd) {
+            o[jd][2 * h] *= alpha;
+            o[jd][2 * h + 1] *= alpha;
+          }
+          m[h] = tm[h];
+          ml2[h] = ml2n;
         }
       }
     }
@@ -670,17 +711,38 @@ __device__ __forceinline__ void core(const CUtensorMap& tm_k, const CUtensorMap&
     if (t == 0) {
       sDenW[row0] = den[0];
       sDenW[row1] = den[1];
+      if (online) {  // (no peer reads the maxima in this mode)
+        sMaxW[1][row0] = m[0];
+        sMaxW[1][row1] = m[1];
+      }
     }
   }
   __syncthreads();
   if (rows_warp && wp == 0) {
+    // online: both warps' sums rescaled to the larger of their running maxima
+    float w0[2] = {1.f, 1.f}, w1[2] = {1.f, 1.f};
+    if (online) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float m1 = sMaxW[1][h ? row1 : row0], mm = fmaxf(m[h], m1);
+        w0[h] = m[h] == NEG ? 0.f : ex2(__fsub_rn(ml2[h], __fmul_rn(mm, LOG2E)));
+        w1[h] = m1 == NEG ? 0.f : ex2(__fsub_rn(__fmul_rn(m1, LOG2E), __fmul_rn(mm, LOG2E)));
+        if (t == 0) sM[h ? row1 : row0] = mm;
+      }
+    }
 #pragma unroll
     for (int jd = 0; jd < NJD; ++jd)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) sO[(e < 2 ? row0 : row1) * OS + 8 * jd + 2 * t + (e & 1)] += o[jd][e];
+      for (int e = 0; e < 4; ++e) {
+        acc_t* so = sO + (e < 2 ? row0 : row1) * OS + 8 * jd + 2 * t + (e & 1);
+        if constexpr (QPV)
+          *so += o[jd][e];
+        else
+          *so = online ? fmaf(*so, w1[e >> 1], o[jd][e] * w0[e >> 1]) : *so + o[jd][e];
+      }
     if (t == 0) {
-      sDen[row0] = __fadd_rn(den[0], sDenW[row0]);
-      sDen[row1] = __fadd_rn(den[1], sDenW[row1]);
+      sDen[row0] = online ? __fadd_rn(den[0] * w0[0], sDenW[row0] * w1[0]) : __fadd_rn(den[0], sDenW[row0]);
+      sDen[row1] = online ? __fadd_rn(den[1] * w0[1], sDenW[row1] * w1[1]) : __fadd_rn(den[1], sDenW[row1]);
     }
   }
   cluster_sync();  // every rank's sums are written
@@ -688,14 +750,26 @@ __device__ __forceinline__ void core(const CUtensorMap& tm_k, const CUtensorMap&
   // ---- rank r: rows r, r + C, ..: every rank's sums in rank order ----
   const int mine = rep > static_cast<int>(rank) ? (rep - 1 - static_cast<int>(rank)) / ncl + 1 : 0;
   if (tid < mine) {  // the rows' exp sums, every rank's loads issued first
-    uint32_t pd[MAX_CLUSTER];
+    const int row = rank + ncl * tid;
+    uint32_t pd[MAX_CLUSTER], pm[MAX_CLUSTER];
 #pragma unroll
-    for (int k = 0; k < MAX_CLUSTER; ++k)
-      pd[k] = k < static_cast<int>(ncl) ? ld_peer(peer_addr(&sDen[rank + ncl * tid], k)) : 0u;
-    float dn = 0.f;
+    for (int k = 0; k < MAX_CLUSTER; ++k) {
+      pd[k] = k < static_cast<int>(ncl) ? ld_peer(peer_addr(&sDen[row], k)) : 0u;
+      pm[k] = k < static_cast<int>(ncl) && online ? ld_peer(peer_addr(&sM[row], k))
+                                                   : __float_as_uint(NEG);
+    }
+    float mm = online ? NEG : sM[row], dn = 0.f;
 #pragma unroll
-    for (int k = 0; k < MAX_CLUSTER; ++k) dn = __fadd_rn(dn, __uint_as_float(pd[k]));
+    for (int k = 0; k < MAX_CLUSTER; ++k) mm = fmaxf(mm, __uint_as_float(pm[k]));
+#pragma unroll
+    for (int k = 0; k < MAX_CLUSTER; ++k) {  // online: rank k's sums rescaled to the slot's max
+      const float mk = __uint_as_float(pm[k]);
+      const float w = !online ? 1.f : mk == NEG ? 0.f : ex2(__fsub_rn(__fmul_rn(mk, LOG2E), __fmul_rn(mm, LOG2E)));
+      if (k < MAX_CLUSTER) sWt[tid][k] = w;
+      dn = online ? fmaf(w, __uint_as_float(pd[k]), dn) : __fadd_rn(dn, __uint_as_float(pd[k]));
+    }
     sDenT[tid] = dn;
+    sMaxT[tid] = mm;
   }
   __syncthreads();
   const float vs127 = a.scales[2], vsp = __fmul_rn(a.scales[1], 1.f / PSCALE);
@@ -709,13 +783,21 @@ __device__ __forceinline__ void core(const CUtensorMap& tm_k, const CUtensorMap&
     for (int k = 0; k < MAX_CLUSTER; ++k)
       ps[k] = k < static_cast<int>(ncl) ? ld_peer(peer_addr(sO + row * OS + d, k)) : 0u;
     acc_t s = 0;
+    if constexpr (!QPV) {
+      if (online) {
 #pragma unroll
-    for (int k = 0; k < MAX_CLUSTER; ++k) s += from_bits<acc_t>(ps[k]);
+        for (int k = 0; k < MAX_CLUSTER; ++k) s = fmaf(sWt[j][k], from_bits<float>(ps[k]), s);
+      }
+    }
+    if (!online) {
+#pragma unroll
+      for (int k = 0; k < MAX_CLUSTER; ++k) s += from_bits<acc_t>(ps[k]);
+    }
     if (pg) {
       pg[row * (DH + 2) + d] = static_cast<float>(s);
       if (d == 0) {
         pg[row * (DH + 2) + DH] = sDenT[j];
-        pg[row * (DH + 2) + DH + 1] = sM[row];
+        pg[row * (DH + 2) + DH + 1] = sMaxT[j];
       }
     } else {
       og[row * DH + d] = QPV ? __fmul_rn(static_cast<float>(s), __fdiv_rn(vs127, sDenT[j]))
@@ -847,7 +929,8 @@ extern "C" {
 // blocks a cluster, nslot (1, 2 or 4; more than 1 without quant_pv only)
 // clusters a (slot, kv head), and recompute (the scores: 0 kept in shared
 // memory; recomputed in a second pass from K streamed again, 1, or from the
-// rank's K tiles kept in shared memory in fp16, 2); with nslot > 1, part (B,
+// rank's K tiles kept in shared memory in fp16, 2; 3, fp p @ V only: one pass
+// against a running max); with nslot > 1, part (B,
 // Hkv, nslot, 16 ceil(H / Hkv / 16), Dh + 2) f32 for the clusters' partials
 // and count (B, Hkv, 16) int32, zero (the kernel leaves it zero).
 int int8_decode_attention_rows(const void* q, const void* kt, const void* v, const void* lengths,
@@ -857,7 +940,7 @@ int int8_decode_attention_rows(const void* q, const void* kt, const void* v, con
   if (B <= 0 || Hkv <= 0 || H % Hkv || H / Hkv > rows::MAX_REP || Smax <= 0 || Smax % 4 ||
       (cluster != 2 && cluster != 4 && cluster != 8 && cluster != 16) || (Dh != 64 && Dh != 128) ||
       (nslot != 1 && nslot != 2 && nslot != 4) || (nslot > 1 && (quant_pv || !part || !count)) ||
-      recompute < 0 || recompute > 2)
+      recompute < 0 || recompute > 3 || (recompute == 3 && quant_pv))
     return cudaErrorInvalidValue;
   const int ranks = cluster * nslot;
   rows::Args a{static_cast<const int8_t*>(q), static_cast<const int8_t*>(kt),

@@ -106,7 +106,7 @@ ROWS_RING_BYTES, ROWS_MAX_REP, ROWS_MIN_THREADS = 32768, 128, 256
 # of them ran in two waves on an H100 (decode_plan_sweep --rows, PERF.md)
 ROWS_WIDE_CLUSTERS = 4
 ROWS_RANK_POSITIONS = 256  # rows_plan's most positions of the cache a rank
-ROWS_STATIC_BYTES = 4 * 6 * ROWS_MAX_REP + 8 * 8 + 4
+ROWS_STATIC_BYTES = 4 * (6 * ROWS_MAX_REP + ROWS_MAX_REP // 2 * 17) + 8 * 8 + 4
 
 NEG = torch.finfo(torch.float32).min
 
@@ -412,7 +412,9 @@ class RowsPlan(NamedTuple):
     block with every query row of the kv head, the scores between the row
     max and the exp kept in the block's shared memory or (``recompute``)
     computed again in a second pass, from the rank's K tiles kept in shared
-    memory in fp16 (``keep_k``) or from K streamed again.  With ``slots`` >
+    memory in fp16 (``keep_k``) or from K streamed again; or (``online``, fp
+    p @ V only) one pass over K and V against a running max, each warp's
+    and rank's sums rescaled to the largest at the end.  With ``slots`` >
     1 (fp p @ V only) each cluster takes its own part of the positions
     against its own row max, and the last block to finish adds the parts,
     rescaled to the global max."""
@@ -420,6 +422,7 @@ class RowsPlan(NamedTuple):
     recompute: bool
     slots: int = 1
     keep_k: bool = False
+    online: bool = False
 
 
 def rows_threads(rep: int) -> int:
@@ -430,7 +433,7 @@ def rows_threads(rep: int) -> int:
 
 
 def rows_smem_bytes(dh: int, rep: int, smax: int, cluster: int, recompute: bool = False,
-                    slots: int = 1, keep_k: bool = False) -> int:
+                    slots: int = 1, keep_k: bool = False, online: bool = False) -> int:
     """The split kernels' dynamic shared memory a block (the kernel's
     ``Layout``): the ring of raw tiles, the K tile (``recompute`` and
     ``keep_k``: all the rank's K tiles) and the V tile in fp16, q's rows
@@ -441,7 +444,7 @@ def rows_smem_bytes(dh: int, rep: int, smax: int, cluster: int, recompute: bool 
     chmax = decode_chmax(smax, cluster * slots)
     ktiles = chmax // DECODE_TILE if recompute and keep_k else 1
     base = max(ROWS_RING_BYTES + (2 * ktiles + 2) * DECODE_TILE * dh, 4 * rp * (dh + 8))
-    return base + 2 * rp * dh + (0 if recompute else 4 * rp * (chmax + 8))
+    return base + 2 * rp * dh + (0 if recompute or online else 4 * rp * (chmax + 8))
 
 
 def rows_candidates(rep: int, dh: int, smax: int, quant_pv: bool = False) -> list:
@@ -456,6 +459,9 @@ def rows_candidates(rep: int, dh: int, smax: int, quant_pv: bool = False) -> lis
         for recompute, keep_k in ((False, False), (True, True), (True, False)):
             plans += [RowsPlan(c, recompute, n, keep_k) for c in ROWS_CLUSTERS
                       if rows_smem_bytes(dh, rep, smax, c, recompute, n, keep_k) <= room]
+        if not quant_pv:  # one pass against a running max
+            plans += [RowsPlan(c, False, n, False, True) for c in ROWS_CLUSTERS
+                      if rows_smem_bytes(dh, rep, smax, c, False, n, False, True) <= room]
     return plans
 
 
@@ -463,7 +469,8 @@ def _rows_blocks_per_sm(dh: int, rep: int, smax: int, plan: RowsPlan) -> int:
     """Blocks of the split kernels under ``plan`` that share an SM: its 64 K
     registers at the kernels' 128 a thread, its 2048 threads and 228 KB (the
     body's static bytes and the 1 KB the card reserves a block)."""
-    smem = rows_smem_bytes(dh, rep, smax, plan.cluster, plan.recompute, plan.slots, plan.keep_k)
+    smem = rows_smem_bytes(dh, rep, smax, plan.cluster, plan.recompute, plan.slots, plan.keep_k,
+                           plan.online)
     threads = rows_threads(rep)
     return min(65536 // (128 * threads), 2048 // threads,
                DECODE_SM_SMEM // (smem + ROWS_STATIC_BYTES + 1024))
@@ -481,15 +488,20 @@ def rows_plan(b: int, hk: int, rep: int, dh: int, smax: int, sms: int,
     more at a time, clusters of 2 and the rest as clusters a slot (fp p @ V
     only: quant_pv's codes need the slot's max first), else one cluster a
     slot; the cluster halved while its blocks would not all run at once (or
-    more than ROWS_WIDE_CLUSTERS clusters of 16 there would be); the scores
-    in shared memory where the block holds them, else recomputed from the
-    rank's K tiles kept there, else from K streamed again."""
+    more than ROWS_WIDE_CLUSTERS clusters of 16 there would be); fp p @ V in
+    one pass against a running max (faster than every other scores mode at
+    the sweep's shapes); quant_pv's scores in shared memory where the block
+    holds them, else recomputed from the rank's K tiles kept there, else
+    from K streamed again."""
     if not 1 <= rep <= ROWS_MAX_REP:
         raise ValueError(f"the split kernels take 1 to {ROWS_MAX_REP} query heads a kv head, "
                          f"got {rep}")
     room = DECODE_SMEM_LIMIT - ROWS_STATIC_BYTES
 
     def plan(cluster, slots):
+        if not quant_pv and rows_smem_bytes(dh, rep, smax, cluster, False, slots, False,
+                                            True) <= room:
+            return RowsPlan(cluster, False, slots, False, True)
         for recompute, keep_k in ((False, False), (True, True), (True, False)):
             if rows_smem_bytes(dh, rep, smax, cluster, recompute, slots, keep_k) <= room:
                 return RowsPlan(cluster, recompute, slots, keep_k)
@@ -587,7 +599,8 @@ def _rows_launch(name: str, q_s8, kt_cache, v_cache, lengths, scales, quant_pv: 
         _cuda.ptr(q_s8), _cuda.ptr(kt_cache), _cuda.ptr(v_cache), _cuda.ptr(lengths),
         _cuda.ptr(scales), _cuda.ptr(slopes), _cuda.ptr(out), _cuda.ptr(part), _cuda.ptr(count),
         b, h, hk, dh, smax, int(quant_pv), plan.cluster, plan.slots,
-        int(plan.recompute) + int(plan.recompute and plan.keep_k), _cuda.stream(dev))
+        3 if plan.online else int(plan.recompute) + int(plan.recompute and plan.keep_k),
+        _cuda.stream(dev))
     _cuda.check(rc, count_name)
     _cuda.count_launch(count_name)
     return out

@@ -447,7 +447,7 @@ def _rows_layout_total(dh, rep, smax, plan):
     with chmax and the mode as its C entry computes them."""
     ranks = plan.cluster * plan.slots
     chmax = -(-(-(-smax // ranks)) // 64) * 64
-    mode = 0 if not plan.recompute else 2 if plan.keep_k else 1
+    mode = 3 if plan.online else 0 if not plan.recompute else 2 if plan.keep_k else 1
     rp, slot = 16 * -(-rep // 16), 64 * dh
     tv = 32768 + (chmax // 64 if mode == 2 else 1) * 2 * slot
     q = max(tv + 2 * slot, 4 * rp * (dh + 8))
@@ -463,9 +463,9 @@ def test_rows_plan_fits_and_serves_every_query_head(b, smax, rep):
     (8 slots at 2048) and batched decode at 16,384 (4 slots), both p @ V
     rules: one of ``rows_candidates``, each of which fits a block's shared
     memory with the body's static bytes, as the kernel's ``Layout`` counts
-    it; clusters a slot only without
-    quant_pv; the scores in shared memory wherever the plan's block holds
-    them (at 2048 it does); two warps a 16-row tile, at least
+    it; clusters a slot and the one pass against a running max only
+    without quant_pv, whose scores stay in shared memory wherever the
+    plan's block holds them (at 2048 it does); two warps a 16-row tile, at least
     ROWS_MIN_THREADS; every query head of the kv head written once by the
     ranks' rows r, r + C, ..; the slot's ranks cover every valid length
     once.  The whole kernels' plans refuse such a rep."""
@@ -475,15 +475,20 @@ def test_rows_plan_fits_and_serves_every_query_head(b, smax, rep):
         plans = tatt.rows_candidates(rep, dh, smax, quant_pv)
         assert plan in plans
         assert {p.slots for p in plans} == ({1} if quant_pv else set(tatt.ROWS_SLOTS))
+        assert any(p.online for p in plans) != quant_pv
         for p in plans:
-            smem = tatt.rows_smem_bytes(dh, rep, smax, p.cluster, p.recompute, p.slots, p.keep_k)
+            smem = tatt.rows_smem_bytes(dh, rep, smax, p.cluster, p.recompute, p.slots, p.keep_k,
+                                        p.online)
             assert smem + tatt.ROWS_STATIC_BYTES <= tatt.DECODE_SMEM_LIMIT
             assert smem == _rows_layout_total(dh, rep, smax, p)
-        # the scores kept where they fit, else the K tiles, else K streamed again
-        kept = plan._replace(recompute=False, keep_k=False) in plans
-        assert plan.recompute == (not kept)
-        assert plan.keep_k == (plan.recompute and plan._replace(keep_k=True) in plans)
-        assert smax > tatt.DECODE_SHORT_SMAX or not plan.recompute
+        # fp p @ V in one pass against a running max; quant_pv's scores kept
+        # where they fit, else the K tiles, else K streamed again
+        assert plan.online != quant_pv
+        if quant_pv:
+            kept = plan._replace(recompute=False, keep_k=False) in plans
+            assert plan.recompute == (not kept)
+            assert plan.keep_k == (plan.recompute and plan._replace(keep_k=True) in plans)
+            assert smax > tatt.DECODE_SHORT_SMAX or not plan.recompute
         c, ranks = plan.cluster, plan.cluster * plan.slots
         assert b * plan.slots * c <= SMS or c == 2
         assert sorted(r for k in range(c) for r in range(k, rep, c)) == list(range(rep))

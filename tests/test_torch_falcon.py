@@ -182,12 +182,109 @@ def _rows_emulated(q, kt, v, lengths, qs, ks, vs, quant_pv, cluster, slots=1, sl
     return out
 
 
+def _rows_emulated_online(q, kt, v, lengths, qs, ks, vs, cluster, slots=1, slopes=None):
+    """(B, H, Dh) f32 as the split kernels' one pass against a running max
+    computes it (fp p @ V): each warp's half of every 64-position tile of a
+    rank keeps its own running row max, rescaling its sums when a tile
+    raises it; the two halves, then the ranks in rank order, are added
+    rescaled to the larger max; several clusters a slot as in
+    ``_rows_emulated``."""
+    b, h, dh = q.shape
+    hk = kt.shape[1]
+    rep = h // hk
+    rp = 16 * -(-rep // 16)
+    f32, f64 = np.float32, np.float64
+    qk = f32(tatt.qk_scale(torch.tensor(qs), torch.tensor(ks), dh).item())
+    vsp = f32(f32(vs) * f32(1.0 / 4096))
+    log2e = f32(1.4426950408889634)
+    neg = f32(np.finfo(np.float32).min)
+
+    def ex2(x):
+        return np.exp2(x.astype(f32)).astype(f32)
+
+    def scale(m):  # the weight of sums kept against max m, taken to max mm
+        def w(mm):
+            with np.errstate(over="ignore", invalid="ignore"):  # m = finfo.min: weight 0
+                return np.where(m == neg, f32(0), ex2((m * log2e).astype(f32)
+                                                      - (mm * log2e).astype(f32)))
+        return w
+
+    out = np.full((b, h, dh), np.nan, f32)
+    for bi in range(b):
+        n_valid = int(lengths[bi])
+        per = tatt.decode_rank_positions(n_valid, cluster * slots)
+        for g in range(hk):
+            qv = np.zeros((rp, dh), np.int64)
+            qv[:rep] = q[bi, g * rep:(g + 1) * rep]
+            sl = np.zeros(rp, f32)
+            if slopes is not None:
+                sl[:rep] = slopes[g * rep:(g + 1) * rep]
+            parts = []
+            for c in range(slots):
+                ranks = []
+                for r in range(c * cluster, (c + 1) * cluster):
+                    p0 = r * per
+                    n = max(0, min(per, n_valid - p0))
+                    halves = []
+                    for w in range(2):  # the two warps of a row tile: 32 positions of each tile
+                        m = np.full(rp, neg, f32)
+                        den, acc = np.zeros(rp, f32), np.zeros((rp, dh), f32)
+                        for t0 in range(0, n, 64):
+                            lo_, hi_ = t0 + 32 * w, min(t0 + 32 * w + 32, n)
+                            if lo_ >= hi_:
+                                continue
+                            s = (qv @ kt[bi, g, :, p0 + lo_:p0 + hi_].astype(np.int64)).astype(f32) * qk
+                            if slopes is not None:
+                                s = s + sl[:, None] * np.arange(p0 + lo_, p0 + hi_, dtype=f32)
+                            tm = s.max(axis=1)
+                            up = tm > m
+                            alpha = np.where(up, scale(m)(tm), f32(1))
+                            den = np.where(up, den * alpha, den).astype(f32)
+                            acc = np.where(up[:, None], acc * alpha[:, None], acc).astype(f32)
+                            m = np.where(up, tm, m)
+                            e = ex2(s.astype(f64) * log2e - (m * log2e).astype(f32)[:, None])
+                            big = e * f32(4096.0)
+                            hi = big.astype(np.float16)
+                            lo = (big - hi.astype(f32)).astype(np.float16)
+                            part = (hi.astype(f64) + lo.astype(f64)) @ v[bi, g, p0 + lo_:p0 + hi_]
+                            acc = (acc + part.astype(f32)).astype(f32)
+                            den = (den + e.sum(axis=1, dtype=f32)).astype(f32)
+                        halves.append((m, den, acc))
+                    (m0, d0, a0), (m1, d1, a1) = halves
+                    mm = np.maximum(m0, m1)
+                    w0, w1 = scale(m0)(mm), scale(m1)(mm)
+                    ranks.append((mm, (d0 * w0 + d1 * w1).astype(f32),
+                                  (a1 * w1[:, None] + a0 * w0[:, None]).astype(f32)))
+                top = np.max([mk for mk, _, _ in ranks], axis=0)
+                den, acc = np.zeros(rp, f32), np.zeros((rp, dh), f32)
+                for mk, dk, ak in ranks:  # rank order
+                    wk = scale(mk)(top)
+                    den = (wk * dk + den).astype(f32)
+                    acc = (wk[:, None] * ak + acc).astype(f32)
+                parts.append((top, acc, den))
+            if slots == 1:
+                m, acc, den = parts[0]
+            else:  # the last block's sum of the clusters' parts
+                top = np.max([m for m, _, _ in parts], axis=0)
+                acc, den = np.zeros((rp, dh), f32), np.zeros(rp, f32)
+                for m, a_c, d_c in parts:
+                    w = np.exp(m - top)
+                    acc = (w[:, None].astype(f64) * a_c + acc).astype(f32)
+                    den = (w.astype(f64) * d_c + den).astype(f32)
+            o = (acc * vsp) / den[:, None]
+            assert np.isfinite(o).all()
+            out[bi, g * rep:(g + 1) * rep] = o[:rep]
+    assert not np.isnan(out).any()
+    return out
+
+
 @pytest.mark.parametrize("alibi", [False, True])
 @pytest.mark.parametrize("quant_pv", [False, True])
 @pytest.mark.parametrize("rep,hk", [(3, 2), (6, 2), (71, 1)])
 def test_split_kernels_emulated_match_jax(rep, hk, quant_pv, alibi):
     """The split kernels' arithmetic at every (cluster, clusters a slot) of
-    ``rows_candidates`` against JAX's K3 (and, without ALiBi, its chunked K7)
+    ``rows_candidates``, with the scores kept or recomputed and (fp p @ V) in
+    one pass against a running max, against JAX's K3 (and, without ALiBi, its chunked K7)
     in interpret mode, within 1e-5 of the largest output; ALiBi's slopes (of
     rep hk heads, scaled so that late positions win) in the kernel's row
     order move the result, a reversed order within the kv head does not
@@ -205,6 +302,11 @@ def test_split_kernels_emulated_match_jax(rep, hk, quant_pv, alibi):
     assert {n for _, n in splits} == ({1} if quant_pv else set(tatt.ROWS_SLOTS))
     for cluster, slots in splits:
         got = _rows_emulated(*arrays, quant_pv, cluster, slots, slopes)
+        for want in refs:
+            np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * largest)
+    for cluster, slots in sorted({(p.cluster, p.slots) for p in plans if p.online}):
+        assert not quant_pv  # one pass against a running max: fp p @ V only
+        got = _rows_emulated_online(*arrays[:7], cluster, slots, slopes)
         for want in refs:
             np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * largest)
     if alibi:  # the slope index is held: each kv head's slopes reversed give another result
