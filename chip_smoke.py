@@ -85,8 +85,8 @@ It imports no JAX.  Phases, each printing one JSON line with its seconds:
    (Falcon-7B's serving decode: 8 slots, 71 query heads on one kv head, Dh
    64, lengths 1-2048; and 48 heads on 8 at Dh 128), both p @ V rules, and
    K7 at K7_SPLIT_CASES (Falcon-7B's heads at 16,384 positions), each under
-   every plan of ``rows_candidates`` (cluster, scores in shared memory or
-   recomputed), held against its plain version at K3's and K7's tolerances
+   every plan of ``rows_candidates`` (cluster; quant_pv's scores in shared
+   memory or recomputed), held against its plain version at K3's and K7's tolerances
    and timed beside it, bf16 SDPA on the same cache and two bounds (K and V
    counted once; fp p @ V counted on the fp32 cores, as ``_decode_bound``
    counts it, and as the two fp16 tensor-core products the kernels run);

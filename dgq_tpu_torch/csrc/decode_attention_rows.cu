@@ -23,16 +23,11 @@
 // (1.6 us) and 1.1 us.  Either is a few microseconds of serial steps a
 // rank: the kernel is bound by latency, and its design keeps the steps few
 // and the bytes read once:
-//   * one cluster of C blocks a (slot, kv head), grid (C P, Hkv, B): rank r
-//     of the slot's P C streams the positions [r per, (r + 1) per) of its
-//     valid length, per = ceil(len / (P C)) rounded up to 16, so every K and
-//     V byte is read from device memory once a call (K twice where the plan
-//     streams it again to recompute the scores, the second time mostly from
-//     L2).  P > 1 (the
-//     plan's clusters a slot, fp p @ V only: quant_pv's codes need the
-//     slot's max first) takes each cluster's row max for its own part, and
-//     the last block of a rank's P to finish adds the parts, rescaled by
-//     exp(m_c - max), in cluster order;
+//   * one cluster of C blocks a (slot, kv head), grid (C, Hkv, B): rank r
+//     streams the positions [r per, (r + 1) per) of the slot's valid length,
+//     per = ceil(len / C) rounded up to 16, so every K and V byte is read
+//     from device memory once a call (K twice where the plan streams it
+//     again to recompute the scores, the second time mostly from L2);
 //   * every query row of the kv head is in the block: rep rows padded to MT
 //     = ceil(rep / 16) m16 tiles, two warps a tile, each warp taking 32 of a
 //     tile's 64 positions (at least 256 threads: the warps past the rows'
@@ -63,11 +58,11 @@
 //         4096 keeps p_lo out of fp16's subnormals down to e = 2^-15; e =
 //         2^(s log2 e - m log2 e) on the MUFU unit (quant_pv's codes take
 //         expf, the plain version's exp to the bit);
-//   * fp p @ V runs in one pass over K and V (the plan's scores mode 3):
-//     each warp keeps a running max of its rows over its positions, and
-//     rescales its sums when a tile raises it; the two warps of a row tile,
-//     then the ranks, are added rescaled to the larger max (2^(m_k log2 e -
-//     m log2 e)), so no cluster barrier sits between the max and the exp;
+//   * fp p @ V runs in one pass over K and V (online): each warp keeps a
+//     running max of its rows over its positions, and rescales its sums
+//     when a tile raises it; the two warps of a row tile, then the ranks,
+//     are added rescaled to the larger max (2^(m_k log2 e - m log2 e)), so
+//     no cluster barrier sits between the max and the exp;
 //   * quant_pv's codes need the slot's max before any exp: a first pass
 //     takes it, and between the max and the exp the scores stay where the
 //     plan says: in the block's shared memory (f32 [rows][chmax + 8]) where
@@ -80,7 +75,7 @@
 //     the sums reduced and scattered: each rank adds every rank's p @ V sums
 //     and exp sums of the rows r, r + C, .. in rank order (deterministic)
 //     and writes them.
-// One launch, no scratch in device memory but the slot clusters' parts.
+// One launch, no scratch in device memory.
 
 #include <cuda_fp16.h>
 
@@ -255,24 +250,24 @@ __device__ __forceinline__ A from_bits(uint32_t u) {
 // rows_smem_bytes): the ring of raw tiles (K^T [Dh][64] or V [64][Dh]), the
 // K tile in fp16 (K^T [Dh][64]), the V tile in fp16 ([64][Dh]; under
 // quant_pv V^T int8 [Dh][64], in the same room), q's rows in fp16 [rp][Dh],
-// and the scores f32 [rp][chmax + 8] unless they are recomputed (the K
-// tiles in fp16 then stay in shared memory where the plan says).  The p @ V
-// sums [rp][Dh + 8] (f32 or int32) take the ring's and the tiles' room at
+// and quant_pv's scores f32 [rp][chmax + 8] unless they are recomputed (the
+// K tiles in fp16 then stay in shared memory where the plan says).  The p @
+// V sums [rp][Dh + 8] (f32 or int32) take the ring's and the tiles' room at
 // the end.
 struct Layout {
   int tk, tv, q, scores, total, rs;
-  // mode 0: the scores kept; 1: recomputed from K streamed again; 2:
-  // recomputed from the rank's K tiles, kept in fp16 (chmax / 64 of them);
-  // 3: one pass with a running max (fp p @ V)
-  __host__ __device__ Layout(int dh, int rp, int chmax, int mode) {
+  // recompute (quant_pv; 0 without it): 0 the scores kept; 1 recomputed
+  // from K streamed again; 2 recomputed from the rank's K tiles, kept in
+  // fp16 (chmax / 64 of them)
+  __host__ __device__ Layout(int dh, int rp, int chmax, bool qpv, int recompute) {
     const int slot = TP * dh;
     tk = RING_BYTES;
-    tv = tk + (mode == 2 ? chmax / TP : 1) * 2 * slot;
+    tv = tk + (recompute == 2 ? chmax / TP : 1) * 2 * slot;
     q = tv + 2 * slot;
     if (q < 4 * rp * (dh + 8)) q = 4 * rp * (dh + 8);  // the p @ V sums take the room below q
     scores = q + 2 * rp * dh;
     rs = chmax + 8;  // a row of scores: 8 floats past the tile grid, so rows gq 0..7 take other banks
-    total = scores + (mode == 0 ? 4 * rp * rs : 0);
+    total = scores + (qpv && recompute == 0 ? 4 * rp * rs : 0);
   }
 };
 
@@ -284,12 +279,10 @@ struct Args {
   const float* scales;  // [qk_scale, v_scale, v_scale / 127]
   const float* slopes;  // (Hkv rep,) ALiBi slopes (the ALiBi kernels), else null
   float* out;           // (B, Hkv rep, Dh)
-  float* part;  // slot clusters > 1 (fp p @ V): (B, Hkv, P, rp, Dh + 2) partials, else null
-  int* count;   // and (B, Hkv, MAX_CLUSTER) arrivals a rank, 0 between calls
   int Hkv, rep, Smax, chmax;
-  int recompute;  // the scores: 0 kept in shared memory, recomputed in the second pass from K
-                  // streamed again (1) or from the rank's K tiles kept in fp16 (2); 3: one
-                  // pass against a running max (fp p @ V)
+  int recompute;  // quant_pv's scores: 0 kept in shared memory, recomputed in the second pass
+                  // from K streamed again (1) or from the rank's K tiles kept in fp16 (2); 0
+                  // without quant_pv (one pass against a running max)
   int tma;        // Smax % 16 == 0: K and V tiles by TMA, else by 4- and 16-byte cp.async
 };
 
@@ -328,10 +321,9 @@ __device__ __forceinline__ void turn_v_s8(const uint8_t* raw, uint8_t* tv, int t
   }
 }
 
-// The body: one block of the grid (C P, Hkv, B) in clusters of C along x, P
-// clusters a (slot, kv head) (cluster blockIdx.x / C takes the P-th part of
-// its positions), two warps a 16-row tile (64 MT threads, at least
-// MIN_THREADS: the warps past 2 MT only copy and convert tiles).  Warp w serves
+// The body: one block of the grid (C, Hkv, B) in clusters of C along x, a
+// cluster a (slot, kv head), two warps a 16-row tile (64 MT threads, at
+// least MIN_THREADS: the warps past 2 MT only copy and convert tiles).  Warp w serves
 // rows 16 (w / 2) .. + 15 (m16 tile mt) at positions 32 (w % 2) .. + 31 of
 // each tile; lane (gq, t) = (lane / 4, lane % 4) holds, of its n8 tile j,
 // rows gq and gq + 8 at positions 8j + 2t, + 1.
@@ -348,10 +340,9 @@ __device__ __forceinline__ void core(const CUtensorMap& tm_k, const CUtensorMap&
   extern __shared__ __align__(128) uint8_t rows_smem[];
   uint8_t* smem = rows_smem;
   __shared__ float sMaxW[2][MAX_REP], sM[MAX_REP], sDenW[MAX_REP], sDen[MAX_REP], sDenT[MAX_REP];
-  // online: the weights exp(m_k - m) of rank k's sums of this rank's row j, and m
-  __shared__ float sWt[MAX_REP / 2][MAX_CLUSTER], sMaxT[MAX_REP / 2];
+  // online: the weights exp(m_k - m) of rank k's sums of this rank's row j
+  __shared__ float sWt[MAX_REP / 2][MAX_CLUSTER];
   __shared__ __align__(8) uint64_t bars[RING_BYTES / (TP * 64)];
-  __shared__ int sLast;
 
   const int tid = threadIdx.x, nthr = blockDim.x, lane = tid & 31, warp = tid >> 5;
   const int rep = a.rep, rp = 16 * ((rep + 15) >> 4);
@@ -361,12 +352,12 @@ __device__ __forceinline__ void core(const CUtensorMap& tm_k, const CUtensorMap&
   const int gq = lane >> 2, t = lane & 3, mt = rows_warp ? warp >> 1 : 0, wp = warp & 1;
   const int row0 = 16 * mt + gq, row1 = row0 + 8;
   const uint32_t rank = cluster_rank(), ncl = cluster_size();
-  const int nslot = gridDim.x / ncl, cl = blockIdx.x / ncl;  // P, and this block's cluster
   const int g = blockIdx.y, b = blockIdx.z, Hkv = a.Hkv;
-  const bool online = !QPV && a.recompute == 3;
-  const bool recompute = a.recompute != 0 && !online, reload = a.recompute == 1, tma = a.tma != 0;
+  constexpr bool online = !QPV;  // fp p @ V: one pass against a running max
+  const bool recompute = QPV && a.recompute != 0, reload = QPV && a.recompute == 1;
+  const bool tma = a.tma != 0;
   const bool paired = reload || online;  // a tile's K and V streamed in one step
-  const Layout lay(DH, rp, a.chmax, a.recompute);
+  const Layout lay(DH, rp, a.chmax, QPV, a.recompute);
   uint8_t* ring = smem;
   uint8_t* tK = smem + lay.tk;
   uint8_t* tV = smem + lay.tv;
@@ -378,9 +369,8 @@ __device__ __forceinline__ void core(const CUtensorMap& tm_k, const CUtensorMap&
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   const int len = min(a.lengths[b], a.Smax);
-  const int nr = nslot * ncl;                         // ranks a slot
-  const int per = ((len + nr - 1) / nr + 15) & ~15;  // positions a rank
-  const int p0 = (cl * ncl + rank) * per;
+  const int per = ((len + ncl - 1) / ncl + 15) & ~15;  // positions a rank
+  const int p0 = rank * per;
   const int n = max(0, min(per, len - p0));  // this rank's valid positions
   const int ntile = (n + TP - 1) / TP;
   const size_t bg = (size_t)b * Hkv + g;
@@ -504,7 +494,7 @@ __device__ __forceinline__ void core(const CUtensorMap& tm_k, const CUtensorMap&
   for (; u < np1; ++u) {
     landed(u, 1);
     __syncthreads();  // tile u has landed for every thread; every warp is done with tK
-    // K tile u in fp16: the one buffer, or (mode 2) the rank's u-th
+    // K tile u in fp16: the one buffer, or (recompute 2) the rank's u-th
     uint8_t* const ktile = tK + (a.recompute == 2 ? 2 * u * SLOT : 0);
     to_f16<DH, TP>(ring + (u % RING) * SLOT, ktile, tid, nthr);
     __syncthreads();
@@ -765,17 +755,14 @@ __device__ __forceinline__ void core(const CUtensorMap& tm_k, const CUtensorMap&
     for (int k = 0; k < MAX_CLUSTER; ++k) {  // online: rank k's sums rescaled to the slot's max
       const float mk = __uint_as_float(pm[k]);
       const float w = !online ? 1.f : mk == NEG ? 0.f : ex2(__fsub_rn(__fmul_rn(mk, LOG2E), __fmul_rn(mm, LOG2E)));
-      if (k < MAX_CLUSTER) sWt[tid][k] = w;
+      sWt[tid][k] = w;
       dn = online ? fmaf(w, __uint_as_float(pd[k]), dn) : __fadd_rn(dn, __uint_as_float(pd[k]));
     }
     sDenT[tid] = dn;
-    sMaxT[tid] = mm;
   }
   __syncthreads();
   const float vs127 = a.scales[2], vsp = __fmul_rn(a.scales[1], 1.f / PSCALE);
   float* og = a.out + bg * rep * DH;
-  // one cluster a slot: out; else this cluster's partials (sums, exp sums, row max)
-  float* pg = nslot > 1 ? a.part + ((bg * nslot + cl) * rp) * (DH + 2) : nullptr;
   for (int i = tid; i < mine * DH; i += nthr) {
     const int j = i / DH, row = rank + ncl * j, d = i % DH;
     uint32_t ps[MAX_CLUSTER];
@@ -783,57 +770,15 @@ __device__ __forceinline__ void core(const CUtensorMap& tm_k, const CUtensorMap&
     for (int k = 0; k < MAX_CLUSTER; ++k)
       ps[k] = k < static_cast<int>(ncl) ? ld_peer(peer_addr(sO + row * OS + d, k)) : 0u;
     acc_t s = 0;
-    if constexpr (!QPV) {
-      if (online) {
 #pragma unroll
-        for (int k = 0; k < MAX_CLUSTER; ++k) s = fmaf(sWt[j][k], from_bits<float>(ps[k]), s);
-      }
+    for (int k = 0; k < MAX_CLUSTER; ++k) {  // online: rank k's sums rescaled to the slot's max
+      if constexpr (QPV)
+        s += from_bits<acc_t>(ps[k]);
+      else
+        s = fmaf(sWt[j][k], from_bits<float>(ps[k]), s);
     }
-    if (!online) {
-#pragma unroll
-      for (int k = 0; k < MAX_CLUSTER; ++k) s += from_bits<acc_t>(ps[k]);
-    }
-    if (pg) {
-      pg[row * (DH + 2) + d] = static_cast<float>(s);
-      if (d == 0) {
-        pg[row * (DH + 2) + DH] = sDenT[j];
-        pg[row * (DH + 2) + DH + 1] = sMaxT[j];
-      }
-    } else {
-      og[row * DH + d] = QPV ? __fmul_rn(static_cast<float>(s), __fdiv_rn(vs127, sDenT[j]))
-                             : __fdiv_rn(__fmul_rn(static_cast<float>(s), vsp), sDenT[j]);
-    }
-  }
-  if (pg) {  // the last of the P blocks of this rank to arrive adds its rows' P parts in cluster order
-    __threadfence();
-    __syncthreads();
-    if (tid == 0) sLast = atomicAdd(a.count + bg * MAX_CLUSTER + rank, 1) == nslot - 1;
-    __syncthreads();
-    if (sLast) {
-      __threadfence();
-      const float* pb = a.part + bg * nslot * rp * (DH + 2);
-      for (int i = tid; i < mine * DH; i += nthr) {
-        const int row = rank + ncl * (i / DH), d = i % DH;
-        float pm[4], po[4], pd[4];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const float* r = pb + (c * rp + row) * (DH + 2);
-          pm[c] = c < nslot ? __ldcg(r + DH + 1) : NEG;
-          po[c] = c < nslot ? __ldcg(r + d) : 0.f;
-          pd[c] = c < nslot ? __ldcg(r + DH) : 0.f;
-        }
-        const float mm = fmaxf(fmaxf(pm[0], pm[1]), fmaxf(pm[2], pm[3]));
-        float acc = 0.f, dn = 0.f;
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const float w = c < nslot ? expf(__fsub_rn(pm[c], mm)) : 0.f;
-          acc = fmaf(w, po[c], acc);
-          dn = fmaf(w, pd[c], dn);
-        }
-        og[row * DH + d] = __fdiv_rn(__fmul_rn(acc, vsp), dn);
-      }
-      if (tid == 0) a.count[bg * MAX_CLUSTER + rank] = 0;
-    }
+    og[row * DH + d] = QPV ? __fmul_rn(static_cast<float>(s), __fdiv_rn(vs127, sDenT[j]))
+                           : __fdiv_rn(__fmul_rn(static_cast<float>(s), vsp), sDenT[j]);
   }
   cluster_sync();  // no block leaves while another reads its shared memory
 }
@@ -845,12 +790,12 @@ struct Sized {
   bool wide[64];
 };
 
-// The launch: grid (C P, Hkv, B) in clusters of C, max(256, 64 ceil(rep / 16)) threads.
+// The launch: grid (C, Hkv, B) in clusters of C, max(256, 64 ceil(rep / 16)) threads.
 template <class Kernel>
-int launch(Kernel kernel, Sized& sized, const Args& a, int B, int cluster, int nslot, int dh,
+int launch(Kernel kernel, Sized& sized, const Args& a, int B, int cluster, int dh, bool qpv,
            cudaStream_t st) {
   const int rp = 16 * ((a.rep + 15) / 16), threads = max(MIN_THREADS, 4 * rp);
-  const Layout lay(dh, rp, a.chmax, a.recompute);
+  const Layout lay(dh, rp, a.chmax, qpv, a.recompute);
   if (lay.total > SMEM_LIMIT || threads > MAX_THREADS) return cudaErrorInvalidValue;
   CUtensorMap tk = {}, tv = {};
   if (a.tma) {  // K^T as (B Hkv Dh rows, Smax bytes), V as (B Hkv Smax rows, Dh bytes)
@@ -874,7 +819,7 @@ int launch(Kernel kernel, Sized& sized, const Args& a, int B, int cluster, int n
     sized.wide[dev & 63] = true;
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster * nslot, a.Hkv, B);
+  cfg.gridDim = dim3(cluster, a.Hkv, B);
   cfg.blockDim = dim3(threads, 1, 1);
   cfg.dynamicSmemBytes = lay.total;
   cfg.stream = st;
@@ -908,13 +853,13 @@ rows_attn_alibi_cluster(const __grid_constant__ CUtensorMap tm_k,
 }
 
 template <int DH, bool QPV>
-int launch_mode(const rows::Args& a, int B, int cluster, int nslot, cudaStream_t st) {
+int launch_mode(const rows::Args& a, int B, int cluster, cudaStream_t st) {
   if (a.slopes) {
     static rows::Sized sized_alibi = {};
-    return rows::launch(rows_attn_alibi_cluster<DH, QPV>, sized_alibi, a, B, cluster, nslot, DH, st);
+    return rows::launch(rows_attn_alibi_cluster<DH, QPV>, sized_alibi, a, B, cluster, DH, QPV, st);
   }
   static rows::Sized sized = {};  // what its launches have set, per device
-  return rows::launch(rows_attn_cluster<DH, QPV>, sized, a, B, cluster, nslot, DH, st);
+  return rows::launch(rows_attn_cluster<DH, QPV>, sized, a, B, cluster, DH, QPV, st);
 }
 
 }  // namespace
@@ -926,36 +871,30 @@ extern "C" {
 // [qk_scale, v_scale, v_scale / 127] on the device; slopes (H,) f32 ALiBi
 // slopes on the device, or null; out (B, H, Dh) f32.  Any H / Hkv up to 128.
 // The caller's plan (ops/attention.py rows_plan): cluster (2, 4, 8 or 16)
-// blocks a cluster, nslot (1, 2 or 4; more than 1 without quant_pv only)
-// clusters a (slot, kv head), and recompute (the scores: 0 kept in shared
-// memory; recomputed in a second pass from K streamed again, 1, or from the
-// rank's K tiles kept in shared memory in fp16, 2; 3, fp p @ V only: one pass
-// against a running max); with nslot > 1, part (B,
-// Hkv, nslot, 16 ceil(H / Hkv / 16), Dh + 2) f32 for the clusters' partials
-// and count (B, Hkv, 16) int32, zero (the kernel leaves it zero).
+// blocks a (slot, kv head), and with quant_pv recompute (the scores: 0 kept
+// in shared memory; recomputed in a second pass from K streamed again, 1, or
+// from the rank's K tiles kept in shared memory in fp16, 2); without
+// quant_pv recompute is 0 (one pass against a running max).
 int int8_decode_attention_rows(const void* q, const void* kt, const void* v, const void* lengths,
-                               const void* scales, const void* slopes, void* out, void* part,
-                               void* count, int B, int H, int Hkv, int Dh, int Smax, int quant_pv,
-                               int cluster, int nslot, int recompute, void* stream) {
+                               const void* scales, const void* slopes, void* out, int B, int H,
+                               int Hkv, int Dh, int Smax, int quant_pv, int cluster, int recompute,
+                               void* stream) {
   if (B <= 0 || Hkv <= 0 || H % Hkv || H / Hkv > rows::MAX_REP || Smax <= 0 || Smax % 4 ||
       (cluster != 2 && cluster != 4 && cluster != 8 && cluster != 16) || (Dh != 64 && Dh != 128) ||
-      (nslot != 1 && nslot != 2 && nslot != 4) || (nslot > 1 && (quant_pv || !part || !count)) ||
-      recompute < 0 || recompute > 3 || (recompute == 3 && quant_pv))
+      recompute < 0 || recompute > 2 || (recompute && !quant_pv))
     return cudaErrorInvalidValue;
-  const int ranks = cluster * nslot;
   rows::Args a{static_cast<const int8_t*>(q), static_cast<const int8_t*>(kt),
                static_cast<const int8_t*>(v), static_cast<const int*>(lengths),
                static_cast<const float*>(scales), static_cast<const float*>(slopes),
-               static_cast<float*>(out), static_cast<float*>(part), static_cast<int*>(count),
-               Hkv, H / Hkv, Smax,
-               ((Smax + ranks - 1) / ranks + rows::TP - 1) / rows::TP * rows::TP,
+               static_cast<float*>(out), Hkv, H / Hkv, Smax,
+               ((Smax + cluster - 1) / cluster + rows::TP - 1) / rows::TP * rows::TP,
                recompute, Smax % 16 == 0};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (Dh == 64)
-    return quant_pv ? launch_mode<64, true>(a, B, cluster, nslot, st)
-                    : launch_mode<64, false>(a, B, cluster, nslot, st);
-  return quant_pv ? launch_mode<128, true>(a, B, cluster, nslot, st)
-                  : launch_mode<128, false>(a, B, cluster, nslot, st);
+    return quant_pv ? launch_mode<64, true>(a, B, cluster, st)
+                    : launch_mode<64, false>(a, B, cluster, st);
+  return quant_pv ? launch_mode<128, true>(a, B, cluster, st)
+                  : launch_mode<128, false>(a, B, cluster, st);
 }
 
 }  // extern "C"

@@ -42,8 +42,10 @@
 // outside 1, 2, 4 and 8 (Falcon-7B's 71 query heads on one kv head) runs
 // K3's split kernels (decode_attention_rows.cu: one cluster a (slot, kv
 // head), every query row of the kv head in an mma.sync tile for both
-// products; past 8192 positions the scores recomputed from K in a second
-// pass, since 71 rows x 1024 positions a rank fit no block).
+// products; fp p @ V in one pass against a running max; with quant_pv, past
+// 8192 positions, the scores recomputed from the rank's K tiles kept in
+// shared memory, since 71 rows x 1024 positions of scores a rank fit no
+// block).
 
 #include "decode_attention.cuh"
 

@@ -73,7 +73,7 @@ _PAGED_SIGNATURES = {  # one library, two entry points
 _SIGNATURES = {
     PREFILL: {PREFILL: [_cuda.VP] * 6 + [_cuda.INT] * 8 + [_cuda.VP]},
     DECODE: {DECODE: [_cuda.VP] * 7 + [_cuda.INT] * 7 + [_cuda.VP]},
-    ROWS: {ROWS: [_cuda.VP] * 9 + [_cuda.INT] * 9 + [_cuda.VP]},
+    ROWS: {ROWS: [_cuda.VP] * 7 + [_cuda.INT] * 8 + [_cuda.VP]},
     CHUNKED: {CHUNKED: [_cuda.VP] * 7 + [_cuda.INT] * 8 + [_cuda.VP]},
     CHUNKED + ALIBI: {CHUNKED + ALIBI: [_cuda.VP] * 8 + [_cuda.INT] * 8 + [_cuda.VP]},
     PAGED: _PAGED_SIGNATURES,
@@ -94,19 +94,15 @@ CHUNKED_BLOCKS_PER_SM = 3  # K7's aim for its head split: blocks an SM at cluste
 DECODE_BLOCKS_PER_SM = 2  # the cluster plan's aim: a wave of at most two blocks an SM
 DECODE_SHORT_SMAX = 8192  # the caches K3 takes (auto_decode_chunk), and K7 with K3's plan
 # rep = H / Hkv of K3's and K7's whole kernels; any other rep up to ROWS_MAX_REP runs their
-# split kernels (csrc/decode_attention_rows.cu): ROWS_SLOTS[i] clusters of ROWS_CLUSTERS[j]
-# blocks a (slot, kv head) (more than one without quant_pv only), two warps a 16-row tile of
-# the kv head's query rows, a ring of ROWS_RING_BYTES of raw tiles of DECODE_TILE positions,
-# and the body's static shared memory (row maxima and sums, the ring's barriers)
+# split kernels (csrc/decode_attention_rows.cu): one cluster of ROWS_CLUSTERS[i] blocks a
+# (slot, kv head), two warps a 16-row tile of the kv head's query rows, a ring of
+# ROWS_RING_BYTES of raw tiles of DECODE_TILE positions, and the body's static shared memory
+# (row maxima and sums, the ring's barriers)
 DECODE_REPS = (1, 2, 4, 8)
 ROWS_CLUSTERS = (2, 4, 8, 16)
-ROWS_SLOTS = (1, 2, 4)
 ROWS_RING_BYTES, ROWS_MAX_REP, ROWS_MIN_THREADS = 32768, 128, 256
-# the most clusters of 16 blocks (one an SM) that rows_plan counts on running at once: more
-# of them ran in two waves on an H100 (decode_plan_sweep --rows, PERF.md)
-ROWS_WIDE_CLUSTERS = 4
 ROWS_RANK_POSITIONS = 256  # rows_plan's most positions of the cache a rank
-ROWS_STATIC_BYTES = 4 * (6 * ROWS_MAX_REP + ROWS_MAX_REP // 2 * 17) + 8 * 8 + 4
+ROWS_STATIC_BYTES = 4 * (6 * ROWS_MAX_REP + ROWS_MAX_REP // 2 * 16) + 8 * 8
 
 NEG = torch.finfo(torch.float32).min
 
@@ -408,21 +404,17 @@ def chunked_plan(b: int, hk: int, rep: int, dh: int, smax: int, sms: int) -> Chu
 
 class RowsPlan(NamedTuple):
     """How K3's and K7's split kernels (a rep outside DECODE_REPS) run a
-    call: ``slots`` clusters of ``cluster`` blocks a (slot, kv head), each
-    block with every query row of the kv head, the scores between the row
-    max and the exp kept in the block's shared memory or (``recompute``)
-    computed again in a second pass, from the rank's K tiles kept in shared
-    memory in fp16 (``keep_k``) or from K streamed again; or (``online``, fp
-    p @ V only) one pass over K and V against a running max, each warp's
-    and rank's sums rescaled to the largest at the end.  With ``slots`` >
-    1 (fp p @ V only) each cluster takes its own part of the positions
-    against its own row max, and the last block to finish adds the parts,
-    rescaled to the global max."""
+    call: one cluster of ``cluster`` blocks a (slot, kv head), each block
+    with every query row of the kv head.  fp p @ V runs in one pass over K
+    and V against a running max, each warp's and rank's sums rescaled to the
+    largest at the end.  quant_pv's codes need the slot's max first: between
+    the max pass and the exp its scores stay in the block's shared memory,
+    or (``recompute``) are computed again in a second pass, from the rank's
+    K tiles kept in shared memory in fp16 (``keep_k``) or from K streamed
+    again."""
     cluster: int
-    recompute: bool
-    slots: int = 1
+    recompute: bool = False
     keep_k: bool = False
-    online: bool = False
 
 
 def rows_threads(rep: int) -> int:
@@ -432,45 +424,43 @@ def rows_threads(rep: int) -> int:
     return max(ROWS_MIN_THREADS, 64 * -(-rep // 16))
 
 
-def rows_smem_bytes(dh: int, rep: int, smax: int, cluster: int, recompute: bool = False,
-                    slots: int = 1, keep_k: bool = False, online: bool = False) -> int:
-    """The split kernels' dynamic shared memory a block (the kernel's
-    ``Layout``): the ring of raw tiles, the K tile (``recompute`` and
-    ``keep_k``: all the rank's K tiles) and the V tile in fp16, q's rows
-    padded to 16 in fp16 and, unless ``recompute``, the f32 scores of the
-    most positions a rank can take (a row of ``decode_chmax`` over the
-    slot's cluster x slots ranks, + 8)."""
+def rows_smem_bytes(dh: int, rep: int, smax: int, plan: RowsPlan, quant_pv: bool) -> int:
+    """The split kernels' dynamic shared memory a block under ``plan`` (the
+    kernel's ``Layout``): the ring of raw tiles, the K tile (``recompute``
+    and ``keep_k``: all the rank's K tiles) and the V tile in fp16, q's rows
+    padded to 16 in fp16 and, with quant_pv unless ``recompute``, the f32
+    scores of the most positions a rank can take (a row of ``decode_chmax``
+    over the cluster's ranks, + 8)."""
     rp = 16 * -(-rep // 16)
-    chmax = decode_chmax(smax, cluster * slots)
-    ktiles = chmax // DECODE_TILE if recompute and keep_k else 1
+    chmax = decode_chmax(smax, plan.cluster)
+    ktiles = chmax // DECODE_TILE if plan.recompute and plan.keep_k else 1
     base = max(ROWS_RING_BYTES + (2 * ktiles + 2) * DECODE_TILE * dh, 4 * rp * (dh + 8))
-    return base + 2 * rp * dh + (0 if recompute or online else 4 * rp * (chmax + 8))
+    kept = quant_pv and not plan.recompute
+    return base + 2 * rp * dh + (4 * rp * (chmax + 8) if kept else 0)
+
+
+def _rows_modes(quant_pv: bool) -> tuple:
+    """(recompute, keep_k) in the plan's order of preference: quant_pv's
+    scores kept, recomputed from the kept K tiles, from K streamed again;
+    fp p @ V keeps none."""
+    return ((False, False), (True, True), (True, False)) if quant_pv else ((False, False),)
 
 
 def rows_candidates(rep: int, dh: int, smax: int, quant_pv: bool = False) -> list:
     """Every plan the split kernels can run a (rep, Dh, Smax) cache with:
-    for each of ROWS_SLOTS (1 only with ``quant_pv``, whose codes need the
-    global max first), each cluster of ROWS_CLUSTERS whose block holds its
-    rank's scores, then each whose block holds its rank's K tiles, then each
-    with K streamed again."""
+    for each of ``_rows_modes``, each cluster of ROWS_CLUSTERS whose block
+    fits."""
     room = DECODE_SMEM_LIMIT - ROWS_STATIC_BYTES
-    plans = []
-    for n in ROWS_SLOTS[:1] if quant_pv else ROWS_SLOTS:
-        for recompute, keep_k in ((False, False), (True, True), (True, False)):
-            plans += [RowsPlan(c, recompute, n, keep_k) for c in ROWS_CLUSTERS
-                      if rows_smem_bytes(dh, rep, smax, c, recompute, n, keep_k) <= room]
-        if not quant_pv:  # one pass against a running max
-            plans += [RowsPlan(c, False, n, False, True) for c in ROWS_CLUSTERS
-                      if rows_smem_bytes(dh, rep, smax, c, False, n, False, True) <= room]
-    return plans
+    return [p for recompute, keep_k in _rows_modes(quant_pv)
+            for p in (RowsPlan(c, recompute, keep_k) for c in ROWS_CLUSTERS)
+            if rows_smem_bytes(dh, rep, smax, p, quant_pv) <= room]
 
 
-def _rows_blocks_per_sm(dh: int, rep: int, smax: int, plan: RowsPlan) -> int:
+def _rows_blocks_per_sm(dh: int, rep: int, smax: int, plan: RowsPlan, quant_pv: bool) -> int:
     """Blocks of the split kernels under ``plan`` that share an SM: its 64 K
     registers at the kernels' 128 a thread, its 2048 threads and 228 KB (the
     body's static bytes and the 1 KB the card reserves a block)."""
-    smem = rows_smem_bytes(dh, rep, smax, plan.cluster, plan.recompute, plan.slots, plan.keep_k,
-                           plan.online)
+    smem = rows_smem_bytes(dh, rep, smax, plan, quant_pv)
     threads = rows_threads(rep)
     return min(65536 // (128 * threads), 2048 // threads,
                DECODE_SM_SMEM // (smem + ROWS_STATIC_BYTES + 1024))
@@ -484,42 +474,28 @@ def rows_plan(b: int, hk: int, rep: int, dh: int, smax: int, sms: int,
     (``python -m dgq_tpu_torch.scripts.decode_plan_sweep --rows``,
     ``PERF.md``): ranks enough that a rank takes at most ROWS_RANK_POSITIONS
     of the cache (a few serial tiles: a rank's tiles, not the bytes, set the
-    time), at most 64; for blocks of up to 16 rows, which share an SM two or
-    more at a time, clusters of 2 and the rest as clusters a slot (fp p @ V
-    only: quant_pv's codes need the slot's max first), else one cluster a
-    slot; the cluster halved while its blocks would not all run at once (or
-    more than ROWS_WIDE_CLUSTERS clusters of 16 there would be); fp p @ V in
-    one pass against a running max (faster than every other scores mode at
-    the sweep's shapes); quant_pv's scores in shared memory where the block
-    holds them, else recomputed from the rank's K tiles kept there, else
-    from K streamed again."""
+    time), at most 16; the cluster halved while its blocks would not all
+    run at once; quant_pv's scores in shared memory where the block holds
+    them, else recomputed from the rank's K tiles kept there, else from K
+    streamed again."""
     if not 1 <= rep <= ROWS_MAX_REP:
         raise ValueError(f"the split kernels take 1 to {ROWS_MAX_REP} query heads a kv head, "
                          f"got {rep}")
     room = DECODE_SMEM_LIMIT - ROWS_STATIC_BYTES
 
-    def plan(cluster, slots):
-        if not quant_pv and rows_smem_bytes(dh, rep, smax, cluster, False, slots, False,
-                                            True) <= room:
-            return RowsPlan(cluster, False, slots, False, True)
-        for recompute, keep_k in ((False, False), (True, True), (True, False)):
-            if rows_smem_bytes(dh, rep, smax, cluster, recompute, slots, keep_k) <= room:
-                return RowsPlan(cluster, recompute, slots, keep_k)
+    def plan(cluster):
+        for recompute, keep_k in _rows_modes(quant_pv):
+            p = RowsPlan(cluster, recompute, keep_k)
+            if rows_smem_bytes(dh, rep, smax, p, quant_pv) <= room:
+                return p
         raise ValueError(f"the split kernels: Dh {dh} at rep {rep} fits no block")
 
-    ranks = min(64, max(2, 1 << (-(-smax // ROWS_RANK_POSITIONS) - 1).bit_length()))
-    shared = 65536 // (128 * rows_threads(rep)) >= 2  # two blocks' registers on an SM
-    slots = 1 if quant_pv or not shared else min(ROWS_SLOTS[-1], ranks // 2)
-    p = plan(max(2, min(16, ranks // slots)), slots)
-    while p.cluster > 2 and (b * hk * slots * p.cluster > _rows_blocks_per_sm(dh, rep, smax, p) * sms
-                             or p.cluster == 16 and b * hk * slots > ROWS_WIDE_CLUSTERS):
-        p = plan(p.cluster // 2, slots)
+    ranks = min(16, max(2, 1 << (-(-smax // ROWS_RANK_POSITIONS) - 1).bit_length()))
+    p = plan(ranks)
+    while p.cluster > 2 and b * hk * p.cluster > _rows_blocks_per_sm(dh, rep, smax, p,
+                                                                      quant_pv) * sms:
+        p = plan(p.cluster // 2)
     return p
-
-
-# device -> int32 zeros, the slot clusters' arrivals a (slot, kv head, rank): the kernel leaves
-# them 0, and the launches of a stream run in order
-_ROWS_COUNT = {}
 
 
 def int8_decode_attention(q_s8: torch.Tensor, kt_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -578,28 +554,18 @@ def _rows_launch(name: str, q_s8, kt_cache, v_cache, lengths, scales, quant_pv: 
                  plan: RowsPlan, slopes: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch K3's (``name`` DECODE) or K7's (CHUNKED) split kernels under
     ``plan`` on checked operands (``lengths`` (B,) int32, the kernel's
-    scales and, for ALiBi, the (H,) slopes on the card), with the slot
-    clusters' partials (B, Hkv, slots, rows padded to 16, Dh + 2) f32 and
-    their arrival counts where the plan has more than one cluster a slot;
-    the launch counts under ``name`` + SPLIT (+ ALIBI)."""
+    scales and, for ALiBi, the (H,) slopes on the card); the launch counts
+    under ``name`` + SPLIT (+ ALIBI)."""
     b, h, dh = q_s8.shape
     hk, smax = kt_cache.shape[1], kt_cache.shape[3]
     dev = q_s8.device
     out = torch.empty((b, h, dh), dtype=torch.float32, device=dev)
-    part = count = None
-    if plan.slots > 1:
-        part = torch.empty((b * hk * plan.slots * 16 * -(-(h // hk) // 16) * (dh + 2),),
-                           dtype=torch.float32, device=dev)
-        count = _ROWS_COUNT.get(dev)
-        if count is None or count.numel() < b * hk * 16:
-            count = _ROWS_COUNT[dev] = torch.zeros((b * hk * 16,), dtype=torch.int32, device=dev)
     count_name = name + SPLIT + ("" if slopes is None else ALIBI)
     lib = _cuda.library(_cuda.SOURCES[count_name], _SIGNATURES[ROWS])
     rc = lib.int8_decode_attention_rows(
         _cuda.ptr(q_s8), _cuda.ptr(kt_cache), _cuda.ptr(v_cache), _cuda.ptr(lengths),
-        _cuda.ptr(scales), _cuda.ptr(slopes), _cuda.ptr(out), _cuda.ptr(part), _cuda.ptr(count),
-        b, h, hk, dh, smax, int(quant_pv), plan.cluster, plan.slots,
-        3 if plan.online else int(plan.recompute) + int(plan.recompute and plan.keep_k),
+        _cuda.ptr(scales), _cuda.ptr(slopes), _cuda.ptr(out), b, h, hk, dh, smax,
+        int(quant_pv), plan.cluster, int(plan.recompute) + int(plan.recompute and plan.keep_k),
         _cuda.stream(dev))
     _cuda.check(rc, count_name)
     _cuda.count_launch(count_name)

@@ -32,7 +32,7 @@ slots at 71 query heads on one kv head, Dh 64; 48 heads on 8 at Dh 128;
 Falcon-7B's heads at 16,384 positions; and its batched serving decode at
 16,384 as ``chip_smoke.py``'s main_falcon runs it, 4 slots of 260
 positions), each plan of ``rows_candidates`` through ``_rows_launch``
-(``cluster``, ``recompute``, ``slots``, and whether ``rows_plan`` chose
+(``cluster``, ``recompute``, ``keep_k``, and whether ``rows_plan`` chose
 it; its device time from CUDA events), then the wrapper as a path calls it
 (all of the call's device time, whatever its kernels' names), each held
 against the plain version (K3's gates; K7's within 1e-5) and timed after a

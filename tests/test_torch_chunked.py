@@ -442,17 +442,16 @@ def test_split_kernels_turns_and_fragments(dh, quant_pv):
         np.testing.assert_allclose(got, want, rtol=0, atol=2.0 ** -20 * 4096 * 128 * 32)
 
 
-def _rows_layout_total(dh, rep, smax, plan):
-    """csrc/decode_attention_rows.cu's Layout(dh, rp, chmax, mode).total,
-    with chmax and the mode as its C entry computes them."""
-    ranks = plan.cluster * plan.slots
-    chmax = -(-(-(-smax // ranks)) // 64) * 64
-    mode = 3 if plan.online else 0 if not plan.recompute else 2 if plan.keep_k else 1
+def _rows_layout_total(dh, rep, smax, plan, quant_pv):
+    """csrc/decode_attention_rows.cu's Layout(dh, rp, chmax, qpv,
+    recompute).total, with chmax and recompute as its C entry takes them."""
+    chmax = -(-(-(-smax // plan.cluster)) // 64) * 64
+    recompute = 0 if not plan.recompute else 2 if plan.keep_k else 1
     rp, slot = 16 * -(-rep // 16), 64 * dh
-    tv = 32768 + (chmax // 64 if mode == 2 else 1) * 2 * slot
+    tv = 32768 + (chmax // 64 if recompute == 2 else 1) * 2 * slot
     q = max(tv + 2 * slot, 4 * rp * (dh + 8))
     scores = q + 2 * rp * dh
-    return scores + (4 * rp * (chmax + 8) if mode == 0 else 0)
+    return scores + (4 * rp * (chmax + 8) if quant_pv and recompute == 0 else 0)
 
 
 @pytest.mark.parametrize("rep", [3, 6, 12, 16, 71])
@@ -463,40 +462,36 @@ def test_rows_plan_fits_and_serves_every_query_head(b, smax, rep):
     (8 slots at 2048) and batched decode at 16,384 (4 slots), both p @ V
     rules: one of ``rows_candidates``, each of which fits a block's shared
     memory with the body's static bytes, as the kernel's ``Layout`` counts
-    it; clusters a slot and the one pass against a running max only
-    without quant_pv, whose scores stay in shared memory wherever the
-    plan's block holds them (at 2048 it does); two warps a 16-row tile, at least
-    ROWS_MIN_THREADS; every query head of the kv head written once by the
-    ranks' rows r, r + C, ..; the slot's ranks cover every valid length
-    once.  The whole kernels' plans refuse such a rep."""
+    it; fp p @ V keeps no scores (one pass against a running max); quant_pv's
+    scores stay in shared memory wherever the plan's block holds them (at
+    2048 it does); two warps a 16-row tile, at least ROWS_MIN_THREADS; every
+    query head of the kv head written once by the ranks' rows r, r + C, ..;
+    the cluster's ranks cover every valid length once.  The whole kernels'
+    plans refuse such a rep."""
     dh = 64
     for quant_pv in (False, True):
         plan = tatt.rows_plan(b, 1, rep, dh, smax, SMS, quant_pv)
         plans = tatt.rows_candidates(rep, dh, smax, quant_pv)
         assert plan in plans
-        assert {p.slots for p in plans} == ({1} if quant_pv else set(tatt.ROWS_SLOTS))
-        assert any(p.online for p in plans) != quant_pv
         for p in plans:
-            smem = tatt.rows_smem_bytes(dh, rep, smax, p.cluster, p.recompute, p.slots, p.keep_k,
-                                        p.online)
+            smem = tatt.rows_smem_bytes(dh, rep, smax, p, quant_pv)
             assert smem + tatt.ROWS_STATIC_BYTES <= tatt.DECODE_SMEM_LIMIT
-            assert smem == _rows_layout_total(dh, rep, smax, p)
-        # fp p @ V in one pass against a running max; quant_pv's scores kept
-        # where they fit, else the K tiles, else K streamed again
-        assert plan.online != quant_pv
+            assert smem == _rows_layout_total(dh, rep, smax, p, quant_pv)
+            assert quant_pv or not (p.recompute or p.keep_k)
+        # quant_pv's scores kept where they fit, else the K tiles, else K streamed again
         if quant_pv:
             kept = plan._replace(recompute=False, keep_k=False) in plans
             assert plan.recompute == (not kept)
             assert plan.keep_k == (plan.recompute and plan._replace(keep_k=True) in plans)
             assert smax > tatt.DECODE_SHORT_SMAX or not plan.recompute
-        c, ranks = plan.cluster, plan.cluster * plan.slots
-        assert b * plan.slots * c <= SMS or c == 2
+        c = plan.cluster
+        assert b * c <= SMS or c == 2
         assert sorted(r for k in range(c) for r in range(k, rep, c)) == list(range(rep))
-        chmax = tatt.decode_chmax(smax, ranks)
+        chmax = tatt.decode_chmax(smax, c)
         for n in sorted({1, 17, smax // 3, smax}):
-            per = tatt.decode_rank_positions(n, ranks)
+            per = tatt.decode_rank_positions(n, c)
             assert per % 16 == 0 and per <= chmax
-            spans = [(k * per, min((k + 1) * per, n)) for k in range(ranks)]
+            spans = [(k * per, min((k + 1) * per, n)) for k in range(c)]
             assert [pos for lo, hi in spans for pos in range(lo, hi)] == list(range(n))
     threads = tatt.rows_threads(rep)
     assert threads == max(tatt.ROWS_MIN_THREADS, 64 * -(-rep // 16)) and threads <= 512

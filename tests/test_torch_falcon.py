@@ -7,19 +7,17 @@ and its serving, held against dgq_tpu on the CPU.
   both p @ V rules, within 1e-5 of the largest output.
 * The split kernels' arithmetic (``csrc/decode_attention_rows.cu``: one
   cluster a (slot, kv head), every query row of the kv head in the block),
-  emulated: q's rows padded to 16 with zero rows (a dead row's slope 0),
-  each rank's exact int32 scores over its positions (every cluster and
-  clusters a slot of ``rows_candidates``), the row max over a cluster's
-  ranks,
-  e once a position: exp(s - m) and codes trunc(127 e + 0.5) with an int32
-  p @ V, or 2^(s log2 e - m log2 e) and P = 4096 e in two fp16 pieces
-  (p_hi, p_lo) times V in fp32,
-  v_scale / 4096 in the epilogue, the ranks' sums in rank order and
-  (several clusters a slot, fp only) the clusters' parts rescaled to the
-  global max and added in cluster order; held
-  against JAX's K3 (and, without ALiBi, its chunked K7) in interpret mode
-  at rep 3, 6 and 71, both p @ V rules, with and without ALiBi (whose
-  slope index moves the result).
+  emulated at every cluster of ``rows_candidates``: q's rows padded to 16
+  with zero rows (a dead row's slope 0), each rank's exact int32 scores
+  over its positions; with quant_pv the row max over the cluster's ranks,
+  e = exp(s - m) once a position and codes trunc(127 e + 0.5) with an int32
+  p @ V, the ranks' sums in rank order; fp p @ V in one pass, each warp's
+  running max over its half of each tile, e = 2^(s log2 e - m log2 e) and
+  P = 4096 e in two fp16 pieces (p_hi, p_lo) times V in fp32, the two
+  warps' and then the ranks' sums rescaled to the larger max, v_scale /
+  4096 in the epilogue; held against JAX's K3 (and, without ALiBi, its
+  chunked K7) in interpret mode at rep 3, 6 and 71, both p @ V rules, with
+  and without ALiBi (whose slope index moves the result).
 * ``falcon_engine_forward``: prefill and decode logits within 1e-4 of
   JAX's on an engine made by JAX's ``ptq`` at tiny size with one kv head,
   carried over by ``falcon_engine_params_from_arrays``; its checkpoint both
@@ -106,89 +104,57 @@ def test_decode_any_rep_plain_matches_jax(rep, hk, quant_pv):
     np.testing.assert_allclose(got7, ref7, rtol=0, atol=1e-5 * largest)
 
 
-def _rows_emulated(q, kt, v, lengths, qs, ks, vs, quant_pv, cluster, slots=1, slopes=None):
-    """(B, H, Dh) f32 as K3's and K7's split kernels compute it with
-    ``slots`` clusters of ``cluster`` blocks a (slot, kv head), rank by rank:
-    each cluster's row max over its ranks; with more than one cluster (fp
-    p @ V) each cluster's sums against its own max, added in cluster order
-    rescaled by exp(m_c - max), as the last block to finish adds them."""
+def _rows_emulated(q, kt, v, lengths, qs, ks, vs, cluster, slopes=None):
+    """(B, H, Dh) f32 as K3's and K7's split kernels compute it with quant_pv
+    in a cluster of ``cluster`` blocks a (slot, kv head), rank by rank: the
+    row max over the cluster's ranks, then each rank's codes times V, the
+    ranks' sums in rank order."""
     b, h, dh = q.shape
     hk = kt.shape[1]
     rep = h // hk
     rp = 16 * -(-rep // 16)  # rows of the block: q padded with zero rows
     f32 = np.float32
     qk = f32(tatt.qk_scale(torch.tensor(qs), torch.tensor(ks), dh).item())
-    vs127, vsp = f32(f32(vs) / f32(127.0)), f32(f32(vs) * f32(1.0 / 4096))
-    log2e = f32(1.4426950408889634)
-    neg = f32(np.finfo(np.float32).min)
+    vs127 = f32(f32(vs) / f32(127.0))
     out = np.full((b, h, dh), np.nan, f32)
     for bi in range(b):
         n_valid = int(lengths[bi])
-        per = tatt.decode_rank_positions(n_valid, cluster * slots)
+        per = tatt.decode_rank_positions(n_valid, cluster)
         for g in range(hk):
             qv = np.zeros((rp, dh), np.int64)
             qv[:rep] = q[bi, g * rep:(g + 1) * rep]
             sl = np.zeros(rp, f32)
             if slopes is not None:
                 sl[:rep] = slopes[g * rep:(g + 1) * rep]
-            parts = []
-            for c in range(slots):
-                ranks = []
-                for r in range(c * cluster, (c + 1) * cluster):
-                    p0 = r * per
-                    n = max(0, min(per, n_valid - p0))
-                    s = (qv @ kt[bi, g, :, p0:p0 + n].astype(np.int64)).astype(f32) * qk
-                    if slopes is not None:  # the product, then the sum, each rounded
-                        s = s + sl[:, None] * np.arange(p0, p0 + n, dtype=f32)
-                    ranks.append((p0, n, s))
-                live = [s.max(axis=1) for _, n, s in ranks if n]
-                m = np.max(live, axis=0) if live else np.full(rp, neg, f32)
-                with np.errstate(over="ignore"):  # a cluster without positions: unused
-                    ml2 = (m * log2e).astype(f32)
-                acc, den = 0, np.zeros(rp, f32)
-                for p0, n, s in ranks:  # rank order
-                    vr = v[bi, g, p0:p0 + n]
-                    if quant_pv:  # expf, the plain version's exp
-                        e = np.exp(s - m[:, None])
-                        codes = (e * f32(127.0) + f32(0.5)).astype(np.int64)
-                        acc = acc + codes @ vr.astype(np.int64)
-                    else:  # 2^(s log2 e - m log2 e), the product and the difference rounded once
-                        e = np.exp2((s.astype(np.float64) * log2e - ml2[:, None]).astype(f32))
-                        big = e * f32(4096.0)  # exact: a power of two
-                        hi = big.astype(np.float16)
-                        lo = (big - hi.astype(f32)).astype(np.float16)
-                        part = (hi.astype(np.float64) + lo.astype(np.float64)) @ vr.astype(
-                            np.float64)
-                        acc = (acc + part.astype(f32)).astype(f32)
-                    den = den + e.sum(axis=1, dtype=f32)
-                parts.append((m, np.broadcast_to(acc, (rp, dh)).astype(f32), den))
-            if quant_pv:
-                m, acc, den = parts[0]
-                o = acc.astype(f32) * (vs127 / den)[:, None]
-            elif slots == 1:
-                m, acc, den = parts[0]
-                o = (acc * vsp) / den[:, None]
-            else:  # the last block's sum of the clusters' parts, each an fma
-                top = np.max([m for m, _, _ in parts], axis=0)
-                acc, dn = np.zeros((rp, dh), f32), np.zeros(rp, f32)
-                for m, a_c, d_c in parts:
-                    w = np.exp(m - top)
-                    acc = (w[:, None].astype(np.float64) * a_c + acc).astype(f32)
-                    dn = (w.astype(np.float64) * d_c + dn).astype(f32)
-                o = (acc * vsp) / dn[:, None]
+            ranks = []
+            for r in range(cluster):
+                p0 = r * per
+                n = max(0, min(per, n_valid - p0))
+                s = (qv @ kt[bi, g, :, p0:p0 + n].astype(np.int64)).astype(f32) * qk
+                if slopes is not None:  # the product, then the sum, each rounded
+                    s = s + sl[:, None] * np.arange(p0, p0 + n, dtype=f32)
+                ranks.append((p0, n, s))
+            m = np.max([s.max(axis=1) for _, n, s in ranks if n], axis=0)
+            acc, den = 0, np.zeros(rp, f32)
+            for p0, n, s in ranks:  # rank order; expf, the plain version's exp
+                e = np.exp(s - m[:, None])
+                codes = (e * f32(127.0) + f32(0.5)).astype(np.int64)
+                acc = acc + codes @ v[bi, g, p0:p0 + n].astype(np.int64)
+                den = den + e.sum(axis=1, dtype=f32)
+            o = np.broadcast_to(acc, (rp, dh)).astype(f32) * (vs127 / den)[:, None]
             assert np.isfinite(o).all()  # the dead rows too
             out[bi, g * rep:(g + 1) * rep] = o[:rep]
     assert not np.isnan(out).any()
     return out
 
 
-def _rows_emulated_online(q, kt, v, lengths, qs, ks, vs, cluster, slots=1, slopes=None):
+def _rows_emulated_online(q, kt, v, lengths, qs, ks, vs, cluster, slopes=None):
     """(B, H, Dh) f32 as the split kernels' one pass against a running max
-    computes it (fp p @ V): each warp's half of every 64-position tile of a
-    rank keeps its own running row max, rescaling its sums when a tile
-    raises it; the two halves, then the ranks in rank order, are added
-    rescaled to the larger max; several clusters a slot as in
-    ``_rows_emulated``."""
+    computes it (fp p @ V) in a cluster of ``cluster`` blocks a (slot, kv
+    head): each warp's half of every 64-position tile of a rank keeps its
+    own running row max, rescaling its sums when a tile raises it; the two
+    halves, then the ranks in rank order, are added rescaled to the larger
+    max."""
     b, h, dh = q.shape
     hk = kt.shape[1]
     rep = h // hk
@@ -212,65 +178,53 @@ def _rows_emulated_online(q, kt, v, lengths, qs, ks, vs, cluster, slots=1, slope
     out = np.full((b, h, dh), np.nan, f32)
     for bi in range(b):
         n_valid = int(lengths[bi])
-        per = tatt.decode_rank_positions(n_valid, cluster * slots)
+        per = tatt.decode_rank_positions(n_valid, cluster)
         for g in range(hk):
             qv = np.zeros((rp, dh), np.int64)
             qv[:rep] = q[bi, g * rep:(g + 1) * rep]
             sl = np.zeros(rp, f32)
             if slopes is not None:
                 sl[:rep] = slopes[g * rep:(g + 1) * rep]
-            parts = []
-            for c in range(slots):
-                ranks = []
-                for r in range(c * cluster, (c + 1) * cluster):
-                    p0 = r * per
-                    n = max(0, min(per, n_valid - p0))
-                    halves = []
-                    for w in range(2):  # the two warps of a row tile: 32 positions of each tile
-                        m = np.full(rp, neg, f32)
-                        den, acc = np.zeros(rp, f32), np.zeros((rp, dh), f32)
-                        for t0 in range(0, n, 64):
-                            lo_, hi_ = t0 + 32 * w, min(t0 + 32 * w + 32, n)
-                            if lo_ >= hi_:
-                                continue
-                            s = (qv @ kt[bi, g, :, p0 + lo_:p0 + hi_].astype(np.int64)).astype(f32) * qk
-                            if slopes is not None:
-                                s = s + sl[:, None] * np.arange(p0 + lo_, p0 + hi_, dtype=f32)
-                            tm = s.max(axis=1)
-                            up = tm > m
-                            alpha = np.where(up, scale(m)(tm), f32(1))
-                            den = np.where(up, den * alpha, den).astype(f32)
-                            acc = np.where(up[:, None], acc * alpha[:, None], acc).astype(f32)
-                            m = np.where(up, tm, m)
-                            e = ex2(s.astype(f64) * log2e - (m * log2e).astype(f32)[:, None])
-                            big = e * f32(4096.0)
-                            hi = big.astype(np.float16)
-                            lo = (big - hi.astype(f32)).astype(np.float16)
-                            part = (hi.astype(f64) + lo.astype(f64)) @ v[bi, g, p0 + lo_:p0 + hi_]
-                            acc = (acc + part.astype(f32)).astype(f32)
-                            den = (den + e.sum(axis=1, dtype=f32)).astype(f32)
-                        halves.append((m, den, acc))
-                    (m0, d0, a0), (m1, d1, a1) = halves
-                    mm = np.maximum(m0, m1)
-                    w0, w1 = scale(m0)(mm), scale(m1)(mm)
-                    ranks.append((mm, (d0 * w0 + d1 * w1).astype(f32),
-                                  (a1 * w1[:, None] + a0 * w0[:, None]).astype(f32)))
-                top = np.max([mk for mk, _, _ in ranks], axis=0)
-                den, acc = np.zeros(rp, f32), np.zeros((rp, dh), f32)
-                for mk, dk, ak in ranks:  # rank order
-                    wk = scale(mk)(top)
-                    den = (wk * dk + den).astype(f32)
-                    acc = (wk[:, None] * ak + acc).astype(f32)
-                parts.append((top, acc, den))
-            if slots == 1:
-                m, acc, den = parts[0]
-            else:  # the last block's sum of the clusters' parts
-                top = np.max([m for m, _, _ in parts], axis=0)
-                acc, den = np.zeros((rp, dh), f32), np.zeros(rp, f32)
-                for m, a_c, d_c in parts:
-                    w = np.exp(m - top)
-                    acc = (w[:, None].astype(f64) * a_c + acc).astype(f32)
-                    den = (w.astype(f64) * d_c + den).astype(f32)
+            ranks = []
+            for r in range(cluster):
+                p0 = r * per
+                n = max(0, min(per, n_valid - p0))
+                halves = []
+                for w in range(2):  # the two warps of a row tile: 32 positions of each tile
+                    m = np.full(rp, neg, f32)
+                    den, acc = np.zeros(rp, f32), np.zeros((rp, dh), f32)
+                    for t0 in range(0, n, 64):
+                        lo_, hi_ = t0 + 32 * w, min(t0 + 32 * w + 32, n)
+                        if lo_ >= hi_:
+                            continue
+                        s = (qv @ kt[bi, g, :, p0 + lo_:p0 + hi_].astype(np.int64)).astype(f32) * qk
+                        if slopes is not None:
+                            s = s + sl[:, None] * np.arange(p0 + lo_, p0 + hi_, dtype=f32)
+                        tm = s.max(axis=1)
+                        up = tm > m
+                        alpha = np.where(up, scale(m)(tm), f32(1))
+                        den = np.where(up, den * alpha, den).astype(f32)
+                        acc = np.where(up[:, None], acc * alpha[:, None], acc).astype(f32)
+                        m = np.where(up, tm, m)
+                        e = ex2(s.astype(f64) * log2e - (m * log2e).astype(f32)[:, None])
+                        big = e * f32(4096.0)
+                        hi = big.astype(np.float16)
+                        lo = (big - hi.astype(f32)).astype(np.float16)
+                        part = (hi.astype(f64) + lo.astype(f64)) @ v[bi, g, p0 + lo_:p0 + hi_]
+                        acc = (acc + part.astype(f32)).astype(f32)
+                        den = (den + e.sum(axis=1, dtype=f32)).astype(f32)
+                    halves.append((m, den, acc))
+                (m0, d0, a0), (m1, d1, a1) = halves
+                mm = np.maximum(m0, m1)
+                w0, w1 = scale(m0)(mm), scale(m1)(mm)
+                ranks.append((mm, (d0 * w0 + d1 * w1).astype(f32),
+                              (a1 * w1[:, None] + a0 * w0[:, None]).astype(f32)))
+            top = np.max([mk for mk, _, _ in ranks], axis=0)
+            den, acc = np.zeros(rp, f32), np.zeros((rp, dh), f32)
+            for mk, dk, ak in ranks:  # rank order
+                wk = scale(mk)(top)
+                den = (wk * dk + den).astype(f32)
+                acc = (wk[:, None] * ak + acc).astype(f32)
             o = (acc * vsp) / den[:, None]
             assert np.isfinite(o).all()
             out[bi, g * rep:(g + 1) * rep] = o[:rep]
@@ -282,13 +236,13 @@ def _rows_emulated_online(q, kt, v, lengths, qs, ks, vs, cluster, slots=1, slope
 @pytest.mark.parametrize("quant_pv", [False, True])
 @pytest.mark.parametrize("rep,hk", [(3, 2), (6, 2), (71, 1)])
 def test_split_kernels_emulated_match_jax(rep, hk, quant_pv, alibi):
-    """The split kernels' arithmetic at every (cluster, clusters a slot) of
-    ``rows_candidates``, with the scores kept or recomputed and (fp p @ V) in
-    one pass against a running max, against JAX's K3 (and, without ALiBi, its chunked K7)
-    in interpret mode, within 1e-5 of the largest output; ALiBi's slopes (of
-    rep hk heads, scaled so that late positions win) in the kernel's row
-    order move the result, a reversed order within the kv head does not
-    give it."""
+    """The split kernels' arithmetic at every cluster of ``rows_candidates``
+    (quant_pv: its scores kept or recomputed give the same numbers; fp p @ V
+    in one pass against a running max) against JAX's K3 (and, without
+    ALiBi, its chunked K7) in interpret mode, within 1e-5 of the largest
+    output; ALiBi's slopes (of rep hk heads, scaled so that late positions
+    win) in the kernel's row order move the result, a reversed order within
+    the kv head does not give it."""
     arrays = _inputs(7 + rep + 10 * alibi + quant_pv, rep, hk)
     slopes = alibi_slopes(rep * hk).numpy() * 8.0 if alibi else None
     ref = _jax_k3(*arrays, quant_pv, slopes)
@@ -297,21 +251,21 @@ def test_split_kernels_emulated_match_jax(rep, hk, quant_pv, alibi):
     largest = np.abs(ref).max()
     plans = tatt.rows_candidates(rep, DH, SMAX, quant_pv)
     assert tatt.rows_plan(len(LENGTHS), hk, rep, DH, SMAX, 132, quant_pv) in plans
-    splits = sorted({(p.cluster, p.slots) for p in plans})
-    assert {c for c, _ in splits} == set(tatt.ROWS_CLUSTERS)
-    assert {n for _, n in splits} == ({1} if quant_pv else set(tatt.ROWS_SLOTS))
-    for cluster, slots in splits:
-        got = _rows_emulated(*arrays, quant_pv, cluster, slots, slopes)
-        for want in refs:
-            np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * largest)
-    for cluster, slots in sorted({(p.cluster, p.slots) for p in plans if p.online}):
-        assert not quant_pv  # one pass against a running max: fp p @ V only
-        got = _rows_emulated_online(*arrays[:7], cluster, slots, slopes)
+    clusters = sorted({p.cluster for p in plans})
+    assert clusters == list(tatt.ROWS_CLUSTERS)
+
+    def emulated(cluster, sl):
+        if quant_pv:
+            return _rows_emulated(*arrays[:7], cluster, sl)
+        return _rows_emulated_online(*arrays[:7], cluster, sl)
+
+    for cluster in clusters:
+        got = emulated(cluster, slopes)
         for want in refs:
             np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * largest)
     if alibi:  # the slope index is held: each kv head's slopes reversed give another result
         wrong = slopes.reshape(hk, rep)[:, ::-1].reshape(-1).copy()
-        moved = _rows_emulated(*arrays, quant_pv, tatt.ROWS_CLUSTERS[0], 1, wrong)
+        moved = emulated(tatt.ROWS_CLUSTERS[0], wrong)
         assert np.abs(moved - ref).max() > 1e-2 * largest
 
 
