@@ -125,7 +125,8 @@ It imports no JAX.  Phases, each printing one JSON line with its seconds:
 6. main_long: the same as main with a cache of 16384 positions and 8 new
    tokens, so every decode step attends through K7 (32 x 7 launches).
 7. serve: the paged serving daemon, the slice's main path, at full 7B width
-   and depth: ``save_engine`` then ``dgq_tpu_torch.serve.build_server`` with
+   and SERVE_LAYERS (16) layers: ``save_engine`` then
+   ``dgq_tpu_torch.serve.build_server`` with
    ``--paged`` and a registered 300-token prefix, driven over a socket with
    24 requests of 100-1500 prompt tokens and 64 new tokens (12 streaming,
    one cancelled mid-stream over a second connection, 8 under the prefix),
@@ -263,7 +264,8 @@ It imports no JAX.  Phases, each printing one JSON line with its seconds:
    then two layers at full width with fp32 group scales (``fp_scales``: K10
    for every linear, the experts' too) held against the plain path.
 22. serve_family: the dense daemon with ``--admit-batch 1`` on a
-   ``save_engine`` checkpoint of OPT-6.7B, MPT-7B, Falcon-7B, then one of
+   ``save_engine`` checkpoint of OPT-6.7B, MPT-7B, Falcon-7B (each cut to
+   SERVE_LAYERS layers), then one of
    Mixtral-8x7B cut to SERVE_MIXTRAL_LAYERS layers at full width (the
    ``ContinuousBatcher`` over the family's ``fns``), 8 slots, serve_dense's
    12 requests and the prefix, one streaming request cancelled: the served
@@ -275,6 +277,32 @@ It imports no JAX.  Phases, each printing one JSON line with its seconds:
    exactly one line on stdout, a numeric value, no ``degraded``, the card's
    name, K9 and K1 launched by its GEMM round; its launches summed over its
    stages are the bench path's.
+
+24. ptq (run after checkpoint, before bench), in a process of its own
+   (``--ptq-process``): LLaMA PTQ on the card
+   (``dgq_tpu_torch.quant.calibrate.ptq``):
+   ``LlamaConfig()`` (LLaMA-2-7B width) cut to PTQ_LAYERS layers, bf16
+   weights from ``init_llama_params`` on a seeded generator on the card,
+   PTQ_NSAMPLES synthetic windows of 2048 tokens, repro_llama7b.sh's step 1
+   (search, groupsize 128, W4A8, smoothing, w4w8, kvquant); seconds a layer
+   (passes 1-3, each linear's search and packing); one more layer with GPTQ,
+   timed; ``from_ptq``, ``save_engine`` and ``load_engine``; ``generate`` at
+   main's shapes with every launch counted (K1, K2, K3-K6 at
+   ``_want_launches(PTQ_LAYERS, True)``, and by the profiler's names over
+   the prefill and 2 steps), the kernel path against the plain path under
+   teacher forcing (``_parity`` with tokens); the engine's prefill logits
+   against the fake-quant forward of the same PTQ result (top-1 agreement
+   >= 0.8); the same PTQ on the card and on the CPU at PTQ_NARROW block by
+   block, each CPU block on the card's inputs for it with its fake-quant
+   roundings held to the card's (near ties follow the card): every block
+   >= 99.9% of codes, int8 group scales and zeros equal, amax and kv scales
+   within 1e-5 (TF32 or reduction-order drift shows here); without
+   activation fake-quant, kv fake-quant and smoothing, the whole model's
+   codes, scales and zeros all equal; last ``python -m dgq_tpu_torch.entry
+   tiny:llama synthetic ... --inference_mod --save_engine <tmp> --eval`` in
+   a subprocess, exit 0 (its output in ``chiprun_out/ptq_entry.txt``).  A
+   profiled one-layer prefill between the parts reports the K1 launches each
+   trace shows (``k1_probe``).
 
 Then the line ``{"kernels": [...]}``, the card's nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero without that
@@ -316,9 +344,10 @@ SPEC_K = 4  # speculative drafts per step (main_span, serve_spec)
 # serve's report of each request's tokens against ``generate`` of it alone: the first 4 (all
 # 24 took 82 s of a run on a slow host)
 ALONE_REQUESTS = 4
-# serve_kv4, serve_dense, serve_spec and serve_fpscale run LLaMA-2-7B at full width cut to this
-# depth, and serve_family OPT-6.7B and MPT-7B: the Falcon and Mixtral phases brought the run to
-# 1,051 s of its 1,200 s limit on a slow host (serve, the paged daemon, keeps full depth)
+# serve, serve_kv4, serve_dense, serve_spec and serve_fpscale run LLaMA-2-7B at full width cut
+# to this depth, and serve_family OPT-6.7B, MPT-7B and Falcon-7B: the Falcon and Mixtral phases
+# brought the run to 1,051 s of its 1,200 s limit on a slow host, and the ptq phase to 1,088 s
+# on another (serve and serve_family's Falcon, full depth until then, were cut to it)
 SERVE_LAYERS = 16
 # K1 and K9 run the shared main loop (gemm_sm90) and, when K is split, splitk_combine; each
 # instantiation names its loader
@@ -2828,16 +2857,18 @@ def _profiled_launches(torch, run, groups, want, attempts: int = 4):
             out = run()
             torch.cuda.synchronize()
         seen = {g: 0 for g in groups}
+        by_name = {}
         for e in prof.key_averages():
             for g, names in groups.items():
                 if _named(e.key, names):
                     seen[g] += e.count
+                    by_name[e.key[:120]] = e.count
         best = {g: max(best[g], seen[g]) for g in groups}
         if any(best[g] > want[g] for g in groups):
             break
         if best == want:
             return out, best
-    raise AssertionError(f"the profiler saw launches {best}, not {want}")
+    raise AssertionError(f"the profiler saw launches {best}, not {want} (last trace: {by_name})")
 
 
 def _family_teacher_forced(torch, forward, init_cache, ecfg, eng, prompts, steps):
@@ -3525,12 +3556,13 @@ def _paged_serve_tail(torch, cfg, args, params, prefix, reqs, served, kv_bits, t
 
 
 def phase_serve(torch, state):
-    """The paged serving daemon at full 7B width and depth, over a socket."""
+    """The paged serving daemon at full 7B width and SERVE_LAYERS layers, over
+    a socket."""
     from dgq_tpu_torch.models.engine import EngineConfig, generate
     from dgq_tpu_torch.models.llama import LlamaConfig
     from dgq_tpu_torch.serving import paged
 
-    cfg = LlamaConfig()
+    cfg = dataclasses.replace(LlamaConfig(), num_hidden_layers=SERVE_LAYERS)
     prefix, reqs = _serve_requests(cfg)
     cancel_uid = 1  # a streaming request of the first wave
     args, batcher, served, cancelled, rec = _serve_daemon(
@@ -3725,8 +3757,8 @@ SERVE_MIXTRAL_LAYERS = 8
 def phase_serve_family(torch, state):
     """The dense daemon (``serve`` with ``--admit-batch 1``: the other
     families' batchers take one prompt a prefill, as JAX's) on a
-    ``save_engine`` checkpoint of OPT-6.7B and MPT-7B at full width and
-    SERVE_LAYERS layers, Falcon-7B at full width and depth, then of
+    ``save_engine`` checkpoint of OPT-6.7B, MPT-7B and Falcon-7B at full
+    width and SERVE_LAYERS layers, then of
     Mixtral-8x7B at full width and SERVE_MIXTRAL_LAYERS layers: 8 slots,
     the first SERVE_DENSE of phase serve's requests, the registered prefix,
     one streaming request cancelled.  The served tokens must equal a direct
@@ -3750,7 +3782,8 @@ def phase_serve_family(torch, state):
              (opt_batch_engine, "opt_decode_batched"), "int8_decode_attention", None),
             ("mpt", MPTConfig(n_layers=SERVE_LAYERS), build_mpt_engine, family_decode,
              "int8_decode_attention_alibi", "int8_prefill_attention_alibi"),
-            ("falcon", FalconConfig(), build_falcon_engine, family_decode,
+            ("falcon", FalconConfig(num_hidden_layers=SERVE_LAYERS), build_falcon_engine,
+             family_decode,
              "int8_decode_attention_split", None),
             ("mixtral", MixtralConfig(num_hidden_layers=SERVE_MIXTRAL_LAYERS),
              build_mixtral_engine, family_decode, "int8_decode_attention",
@@ -4273,6 +4306,430 @@ def phase_parity(torch, state):
     del opt_eng
     torch.cuda.empty_cache()
     return out
+
+
+PTQ_LAYERS = 4  # ptq: LLaMA-2-7B at full width, cut to this depth
+PTQ_NSAMPLES = 18  # the entry CLI's default --nsamples, of 2048 tokens each
+# ptq's card-against-CPU check: hidden 1024 (8 heads of 128), F 2816 (11 spans of 256), 2
+# layers, 8 x 256 calibration tokens, fp32 weights drawn on the CPU
+PTQ_NARROW = dict(hidden_size=1024, intermediate_size=2816, num_attention_heads=8,
+                  num_key_value_heads=8, num_hidden_layers=2)
+PTQ_NARROW_SAMPLES, PTQ_NARROW_SEQ = 8, 256
+PTQ_ENTRY_TIMEOUT = 300
+
+
+def _ptq_qcfg(method="search"):
+    """repro_llama7b.sh's step 1: --wt_fun search --groupsize 128 --wbits 4
+    --abits 8 --smoothquant --w4w8 --kvquant (static activation quant)."""
+    from dgq_tpu_torch.config import ActQuantConfig, QuantConfig, WtQuantConfig
+
+    return QuantConfig(act_quant=ActQuantConfig(bits=8, method="static"),
+                       wt_quant=WtQuantConfig(bits=4, method=method, groupsize=128,
+                                              w4w8=method != "gptq"),
+                       smoothquant=True, kvquant=True, meanact=False, nsamples=PTQ_NSAMPLES)
+
+
+def _ptq_layer_seconds(timings):
+    """Per layer: pass 1, pass 2, pass 3, and the search (or GPTQ) and the
+    packing of each linear, in seconds."""
+    out = []
+    for t in timings:
+        row = {"layer": t["layer"], "pass1_s": t["pass1"], "pass2_s": t["pass2"],
+               "pass3_s": t["pass3"],
+               "search_s": {k.split(":")[1]: v for k, v in t.items() if k.startswith("search:")},
+               "pack_s": {k.split(":")[1]: v for k, v in t.items() if k.startswith("pack:")}}
+        row["total_s"] = (row["pass1_s"] + row["pass2_s"] + row["pass3_s"]
+                          + sum(row["search_s"].values()) + sum(row["pack_s"].values()))
+        out.append(row)
+    return out
+
+
+PTQ_TIE = 1e-3  # a fake-quant code that may round either way: within this many steps of x.5
+
+
+class _Roundings:
+    """The fake-quant forward's two roundings (static activation quant and
+    the kv fake-quant of ``dgq_tpu_torch.models.llama``), patched while the
+    object is entered: with ``follow=None`` each call's input, scale and
+    output are recorded (on the CPU); with ``follow`` (a recording) each
+    call is held to the recorded one, in call order: every code equal, or a
+    near tie rounded the other way (one step, both inputs within PTQ_TIE of
+    the x.5 between the codes), and the recorded output is returned, so that
+    one rounding does not move every later position.  Any other difference
+    fails."""
+
+    def __init__(self, torch, follow=None):
+        self.torch, self.follow = torch, follow
+        self.log, self.ties, self.calls = [], 0, 0
+
+    def _codes(self, x, scale, kind):
+        q = self.torch.round(x.float() / scale)
+        return q.clamp(-127, 127) if kind == "act" else (q + 128).clamp(0, 255)
+
+    def _seen(self, kind, x, scale, y):
+        self.calls += 1
+        if self.follow is None:
+            self.log.append((kind, x.cpu(), scale.cpu(), y.cpu()))
+            return y
+        rkind, xr, sr, yr = self.follow.pop(0)
+        if rkind != kind or tuple(xr.shape) != tuple(x.shape):
+            raise AssertionError(f"rounding {self.calls}: {kind} {tuple(x.shape)}, recorded "
+                                 f"{rkind} {tuple(xr.shape)}")
+        x, scale = x.cpu(), scale.cpu()
+        cr, c = self._codes(xr, sr, kind), self._codes(x, scale, kind)
+        diff = cr != c
+        if bool(diff.any()):
+            lo = self.torch.minimum(cr, c)[diff] - (128 if kind == "kv" else 0) + 0.5
+            dist = self.torch.maximum((xr.float()[diff] / sr - lo).abs(),
+                                      (x.float()[diff] / scale - lo).abs())
+            steps = (cr - c).abs()[diff]
+            if float(steps.max()) > 1 or float(dist.max()) > PTQ_TIE:
+                raise AssertionError(f"rounding {self.calls} ({kind}): {int(diff.sum())} codes "
+                                     f"differ, up to {float(steps.max())} steps, "
+                                     f"{float(dist.max()):.3e} from a tie")
+            self.ties += int(diff.sum())
+        return yr.to(y.device)
+
+    def __enter__(self):
+        from dgq_tpu_torch.models import llama as L
+
+        self._saved = (L.make_act_quant_fn, L._kv_fake_quant)
+        act, kv = self._saved
+
+        def act_fn(method, bits=8):
+            if (method, bits) != ("static", 8):
+                raise AssertionError(f"activation quant {method}/{bits}: only static 8 is held")
+            f = act(method, bits)
+            return lambda x, absmax: self._seen("act", x, absmax.float() / 127, f(x, absmax))
+
+        L.make_act_quant_fn = act_fn
+        L._kv_fake_quant = lambda x, scale: self._seen("kv", x, scale, kv(x, scale))
+        return self
+
+    def __exit__(self, *exc):
+        from dgq_tpu_torch.models import llama as L
+
+        L.make_act_quant_fn, L._kv_fake_quant = self._saved
+        return False
+
+
+def _packed_agreement(torch, layers_a, layers_b, kv_a, kv_b):
+    """Equal shares (and differing entries) of two lists of quantized
+    blocks' packed codes, int8 group scales, zeros and scale8, and the
+    largest relative difference of their amax and kv scales."""
+    from dgq_tpu_torch.quant.packing import unpack_nibbles
+
+    counts = {k: [0, 0] for k in ("codes", "wscales", "wzeros", "wscales8")}
+    rel = {"amax": 0.0, "kv": 0.0}
+
+    def rdiff(x, y):
+        x, y = x.double().cpu(), y.double().cpu()
+        return float((x - y).abs().max() / y.abs().max().clamp(min=1e-30))
+
+    for la, lb, ka, kb in zip(layers_a, layers_b, kv_a, kv_b):
+        for sub in ("self_attn", "mlp"):
+            for name in la[sub]:
+                a, b = la[sub][name], lb[sub][name]
+                pairs = {"codes": (unpack_nibbles(a.qweight, a.span),
+                                   unpack_nibbles(b.qweight, b.span)),
+                         "wscales": (a.wscales, b.wscales), "wzeros": (a.wzeros, b.wzeros),
+                         "wscales8": (a.wscales8, b.wscales8)}
+                for k, (x, y) in pairs.items():
+                    if x is None and y is None:
+                        continue
+                    counts[k][0] += int((x.cpu() == y.cpu()).sum())
+                    counts[k][1] += x.numel()
+                if a.amax is not None or b.amax is not None:
+                    rel["amax"] = max(rel["amax"], rdiff(a.amax, b.amax))
+        for x, y in zip(ka or (), kb or ()):
+            rel["kv"] = max(rel["kv"], rdiff(x, y))
+    return {"equal_share": {k: eq / n for k, (eq, n) in counts.items() if n},
+            "differing": {k: n - eq for k, (eq, n) in counts.items() if n},
+            "max_rel_diff": rel}
+
+
+def _ptq_card_vs_cpu(torch):
+    """The same PTQ on the card and on the CPU at PTQ_NARROW (fp32 weights
+    drawn on the CPU, copied to the card), block by block: the card's blocks
+    chained as ``ptq`` chains them (``calibrate_layer``), and each block
+    again on the CPU on the card's inputs for it, its fake-quant roundings
+    held to the card's (``_Roundings``: near ties follow the card's code).
+    Each block: >= 99.9% of packed codes, int8 group scales and zeros equal,
+    amax and kv scales within 1e-5 relative; TF32 in the search's GEMMs, or
+    drift in the statistics, shows here.  Then the whole ``ptq`` on both with
+    activation fake-quant, kv fake-quant and smoothing off (nothing rounds
+    between the blocks): every code, scale and zero equal."""
+    from dgq_tpu_torch.models.llama import LlamaConfig, init_llama_params, llama_embed
+    from dgq_tpu_torch.quant.calibrate import calibrate_layer, ptq, tree_to
+    from dgq_tpu_torch.utils.datautils import get_calib_samples
+
+    cfg = LlamaConfig(**PTQ_NARROW)
+    params = init_llama_params(cfg, torch.Generator().manual_seed(1), torch.float32, "cpu")
+    card_params = tree_to(params, DEV)
+    calib = get_calib_samples("synthetic", PTQ_NARROW_SAMPLES, seed=1, seqlen=PTQ_NARROW_SEQ,
+                              vocab_size=cfg.vocab_size)
+    qcfg = _ptq_qcfg()
+    out = {"by_layer": [], "card_s": 0.0, "cpu_s": 0.0, "threads": torch.get_num_threads()}
+    inps = llama_embed(card_params, torch.as_tensor(calib, dtype=torch.int64, device=DEV))
+    for li in range(cfg.num_hidden_layers):
+        t0 = time.perf_counter()
+        with _Roundings(torch) as rec:
+            card = calibrate_layer(card_params["layers"][li], inps, cfg, qcfg)
+        torch.cuda.synchronize()
+        out["card_s"] += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with _Roundings(torch, follow=rec.log) as fol:
+            cpu = calibrate_layer(params["layers"][li], inps.cpu(), cfg, qcfg)
+        out["cpu_s"] += time.perf_counter() - t0
+        if rec.log or fol.calls != rec.calls:
+            raise AssertionError(f"block {li}: the CPU made {fol.calls} roundings, the card "
+                                 f"{rec.calls}")
+        got = _packed_agreement(torch, [card.layer], [cpu.layer], [card.kv_scales],
+                                [cpu.kv_scales])
+        got.update(roundings=rec.calls, ties_followed=fol.ties)
+        out["by_layer"].append(got)
+        for k in ("codes", "wscales", "wzeros"):
+            if got["equal_share"][k] < 0.999:
+                raise AssertionError(f"ptq card against CPU: block {li}'s {k} equal share "
+                                     f"{got['equal_share'][k]:.6f} < 0.999")
+        for k, v in got["max_rel_diff"].items():
+            if v > 1e-5:
+                raise AssertionError(f"ptq card against CPU: block {li}'s {k} differs by "
+                                     f"{v:.3e}")
+        inps = card.outputs
+        del rec, fol, card, cpu
+    plain = dataclasses.replace(qcfg, act_quant=None, kvquant=False, smoothquant=False)
+    t0 = time.perf_counter()
+    card = ptq(card_params, cfg, calib, plain, verbose=False)
+    cpu = ptq(params, cfg, calib, plain, verbose=False)
+    out["no_roundings"] = _packed_agreement(torch, card.params["layers"], cpu.params["layers"],
+                                            card.kv_scales, cpu.kv_scales)
+    out["no_roundings"]["seconds"] = time.perf_counter() - t0
+    if any(out["no_roundings"]["differing"].values()):
+        raise AssertionError(f"ptq card against CPU without roundings: "
+                             f"{out['no_roundings']['differing']} entries differ")
+    return out
+
+
+def _ptq_entry_cli():
+    """``python -m dgq_tpu_torch.entry tiny:llama synthetic ...
+    --inference_mod --save_engine <tmp> --eval`` on the card in a subprocess:
+    exit 0, the engine's perplexity printed."""
+    import os
+
+    tmp = ROOT / "dgq_tpu_torch" / "_build" / "smoke_entry"
+    tmp.mkdir(parents=True, exist_ok=True)
+    cmd = [sys.executable, "-m", "dgq_tpu_torch.entry", "tiny:llama", "synthetic", "--wt_fun",
+           "search", "--groupsize", "128", "--w4w8", "--smoothquant", "--kvquant",
+           "--inference_mod", "--save_engine", str(tmp / "engine.safetensors"), "--eval"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, env=env,
+                              timeout=PTQ_ENTRY_TIMEOUT)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "ptq_entry.txt").write_text(proc.stdout + "\n--- stderr ---\n" + proc.stderr)
+    if proc.returncode != 0:
+        raise AssertionError(f"entry exited {proc.returncode}: {proc.stderr[-1500:]}")
+    ppl = [line for line in proc.stdout.splitlines() if "ppl (INT8 engine) =" in line]
+    if not ppl:
+        raise AssertionError(f"entry printed no engine perplexity: {proc.stdout[-1500:]}")
+    return {"seconds": seconds, "ppl_line": ppl[-1]}
+
+
+class _K1Probe:
+    """A profiled prefill of one LLaMA-2-7B-width layer (synthetic engine,
+    1 x 128 tokens): the K1 launches one trace shows, 4 when it loses
+    none.  Taken between the parts of the ptq phase, it shows which part
+    leaves the process's traces short (reported, not gated)."""
+
+    NAMES = [("gemm_sm90", "RowpairLoader")]
+
+    def __init__(self, torch):
+        from dgq_tpu_torch.models.engine import EngineConfig
+        from dgq_tpu_torch.models.llama import LlamaConfig
+        from dgq_tpu_torch.models.synthetic import build_llama_engine
+
+        self.torch = torch
+        self.cfg = LlamaConfig(num_hidden_layers=1)
+        self.ecfg = EngineConfig(cfg=self.cfg)
+        self.eng = build_llama_engine(self.cfg, seed=5, device=DEV)
+        self.ids = torch.zeros((1, 128), dtype=torch.int32, device=DEV)
+        self.seen = {}
+
+    def __call__(self, label):
+        from dgq_tpu_torch.models.engine import engine_forward, init_kv_cache
+
+        torch = self.torch
+        cache = init_kv_cache(self.cfg, 1, 256, device=DEV)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            engine_forward(self.ecfg, self.eng, self.ids, cache)
+            torch.cuda.synchronize()
+        self.seen[label] = sum(e.count for e in prof.key_averages() if _named(e.key, self.NAMES))
+
+
+def _ptq_run(torch):
+    """The ptq phase's work, in a process of its own (``phase_ptq``): see
+    there.  ``_K1Probe`` traces between its parts."""
+    import numpy as np
+
+    from dgq_tpu_torch.models.engine import EngineConfig, engine_forward, from_ptq, \
+        generate, init_kv_cache
+    from dgq_tpu_torch.models.llama import LlamaConfig, QuantState, init_llama_params, \
+        llama_apply
+    from dgq_tpu_torch.ops import _cuda
+    from dgq_tpu_torch.quant.calibrate import ptq
+    from dgq_tpu_torch.utils.checkpoint import engine_arrays, load_engine, save_engine
+    from dgq_tpu_torch.utils.datautils import get_calib_samples
+
+    probe = _K1Probe(torch)
+    probe("start")
+    cfg = LlamaConfig(num_hidden_layers=PTQ_LAYERS)
+    params = init_llama_params(cfg, torch.Generator(device=DEV).manual_seed(0), torch.bfloat16,
+                               DEV)
+    calib = get_calib_samples("synthetic", PTQ_NSAMPLES, seqlen=2048, vocab_size=cfg.vocab_size)
+    timings = []
+    t0 = time.perf_counter()
+    res = ptq(params, cfg, calib, _ptq_qcfg(), verbose=False, timings=timings)
+    torch.cuda.synchronize()
+    ptq_s = time.perf_counter() - t0
+    out = {"layers": PTQ_LAYERS, "nsamples": PTQ_NSAMPLES, "seqlen": 2048, "ptq_s": ptq_s,
+           "per_layer": _ptq_layer_seconds(timings)}
+    probe("after_ptq")
+
+    gptq_t = []
+    t0 = time.perf_counter()
+    ptq({**params, "layers": params["layers"][:1]}, dataclasses.replace(cfg, num_hidden_layers=1),
+        calib, _ptq_qcfg("gptq"), verbose=False, timings=gptq_t)
+    torch.cuda.synchronize()
+    out["gptq_layer_s"] = time.perf_counter() - t0
+    out["gptq_per_layer"] = _ptq_layer_seconds(gptq_t)
+    del params
+    probe("after_gptq")
+
+    eng = from_ptq(res.params, res.kv_scales, cfg)
+    ckdir = ROOT / "dgq_tpu_torch" / "_build" / "smoke_ptq"
+    ckdir.mkdir(parents=True, exist_ok=True)
+    path = str(ckdir / "engine.safetensors")
+    try:
+        save_engine(path, eng, cfg)
+        eng2, cfg2 = load_engine(path, device=DEV)
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    a, b = engine_arrays(eng), engine_arrays(eng2)
+    if cfg2 != cfg or set(a) != set(b) or any(not torch.equal(a[k], b[k]) for k in a):
+        raise AssertionError("the PTQ engine differs after save_engine / load_engine")
+    del eng, a, b
+    ecfg = EngineConfig(cfg=cfg)
+    probe("after_from_ptq_save_load")
+
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(BATCH, PROMPT)).astype(np.int32)).to(DEV)
+    _cuda.reset_launches()
+    toks = generate(ecfg, eng2, prompts, NEW_TOKENS, SMAX)
+    torch.cuda.synchronize()
+    launches = dict(_cuda.LAUNCHES)
+    want = _want_launches(PTQ_LAYERS, True)
+    if launches != want:
+        raise AssertionError(f"launches {launches} != {want}")
+    if toks.shape != (BATCH, NEW_TOKENS) or not bool(((toks >= 0)
+                                                      & (toks < cfg.vocab_size)).all()):
+        raise AssertionError(f"tokens {tuple(toks.shape)} out of shape or range")
+    out["launches"] = launches
+    probe("after_generate")
+    # the same kernels by the profiler's names (main loops, not split-K combines; K6: its
+    # two legs a call) over the prefill and PROFILED_STEPS decode steps
+    steps = PTQ_LAYERS * PROFILED_STEPS
+    groups = {"K1": [("gemm_sm90", "RowpairLoader")], "K2": K2_PLAIN_NAMES, "K3": K3_NAMES,
+              "K4": ["norm_gemv_rp_sm90"], "K5": ["requant_gemv_rp_sm90"],
+              "K6": ["mlp_gate_up_rp_sm90", "mlp_down_rp_sm90"]}
+    want_seen = {"K1": 4 * PTQ_LAYERS, "K2": PTQ_LAYERS, "K3": steps, "K4": steps, "K5": steps,
+                 "K6": 2 * steps}
+    again, out["profiled_launches"] = _profiled_launches(
+        torch, lambda: generate(ecfg, eng2, prompts, 1 + PROFILED_STEPS, SMAX), groups,
+        want_seen)
+    if not torch.equal(again, toks[:, :1 + PROFILED_STEPS]):
+        raise AssertionError("the profiled generate's tokens differ from the counted run's")
+    out["parity"] = _parity(torch, lambda: _teacher_forced(torch, ecfg, eng2, prompts,
+                                                           toks[:, :8], toks[:, 8:13]),
+                            tokens=True)
+    probe("after_parity")
+
+    cache = init_kv_cache(cfg, BATCH, SMAX, device=DEV)
+    logits, _ = engine_forward(ecfg, eng2, prompts, cache)
+    del cache
+    with torch.no_grad():
+        fq = llama_apply(res.params, prompts, cfg, QuantState(actq=True, wtq=True, kv=True),
+                         res.kv_scales).float()
+    agree = float((logits.argmax(-1) == fq.argmax(-1)).float().mean())
+    rel = float(torch.linalg.vector_norm(logits - fq) / torch.linalg.vector_norm(fq))
+    out["engine_vs_fake_quant"] = {"top1_agreement": agree, "relative_error": rel,
+                                   "finite": bool(torch.isfinite(logits).all())}
+    if not (agree >= 0.8 and out["engine_vs_fake_quant"]["finite"]):
+        raise AssertionError(f"engine against fake-quant: top-1 agreement {agree:.4f} < 0.8")
+    del logits, fq, eng2, res
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.empty_cache()
+    probe("after_fake_quant")
+
+    out["card_vs_cpu"] = _ptq_card_vs_cpu(torch)
+    probe("after_card_vs_cpu")
+    out["entry"] = _ptq_entry_cli()
+    probe("after_entry")
+    out["k1_probe"] = probe.seen
+    return out
+
+
+PTQ_TIMEOUT = 600  # seconds for the ptq phase's process
+
+
+def phase_ptq(torch, state):
+    """LLaMA PTQ on the card, in a process of its own (``--ptq-process``;
+    its traces cannot shorten the other phases'): ``LlamaConfig()``
+    (LLaMA-2-7B width) cut to PTQ_LAYERS layers, bf16 weights from
+    ``init_llama_params`` on a seeded generator on the card, calibrated on
+    PTQ_NSAMPLES synthetic windows of 2048 tokens with repro_llama7b.sh's
+    step 1 (search, groupsize 128, W4A8, smoothing, w4w8, kvquant); seconds
+    per layer (passes 1-3, the search and the packing of each linear).  Then
+    one more layer with GPTQ (Hessians of 4096^2 and 11008^2), timed.
+    ``from_ptq``, ``save_engine``, the port's ``load_engine``, ``generate``
+    at main's shapes with every launch counted (``_want_launches(PTQ_LAYERS,
+    True)``) and K1, K2, K3-K6 by the profiler's names, the kernel path
+    against the plain path under teacher forcing (``_parity``, tokens too),
+    the engine's prefill logits against the fake-quant forward (top-1
+    agreement >= 0.8), the same PTQ on the card and the CPU at PTQ_NARROW
+    block by block (``_ptq_card_vs_cpu``), and the entry CLI on
+    ``tiny:llama`` in a subprocess."""
+    torch.cuda.empty_cache()
+    path = ROOT / "chiprun_out" / "ptq_process.json"
+    path.parent.mkdir(exist_ok=True)
+    path.unlink(missing_ok=True)
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--ptq-process",
+                           str(path)], cwd=ROOT, capture_output=True, text=True,
+                          timeout=PTQ_TIMEOUT)
+    (ROOT / "chiprun_out" / "ptq_process.txt").write_text(proc.stdout + "\n--- stderr ---\n"
+                                                          + proc.stderr)
+    if proc.returncode != 0 or not path.exists():
+        raise AssertionError(f"the ptq process exited {proc.returncode}: {proc.stderr[-2000:]}")
+    out = json.loads(path.read_text())
+    state["launches_ptq"] = out["launches"]
+    return out
+
+
+def ptq_process(path) -> int:
+    """``chip_smoke.py --ptq-process PATH``: ``_ptq_run`` with TF32 off, its
+    result written to PATH as JSON; exit 1 on a failed check."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    Path(path).write_text(json.dumps(_ptq_run(torch)))
+    return 0
 
 
 def phase_checkpoint(torch, state):
@@ -4804,7 +5261,7 @@ PATHS = {"main": "launches", "main_long": "launches_long", "serve": "launches_se
          "serve_fpscale": "launches_serve_fpscale", "probes": "launches_probes",
          "bench": "launches_bench", "main_bloom": "launches_bloom", "main_mpt": "launches_mpt",
          "serve_family": "launches_serve_family", "main_falcon": "launches_falcon",
-         "main_mixtral": "launches_mixtral"}
+         "main_mixtral": "launches_mixtral", "ptq": "launches_ptq"}
 LINE_PHASES = {"kernels", *PATHS}
 # the split kernels' ALiBi instantiations: held in the kernels phase, run by no path (no
 # ALiBi family groups its query heads), so not listed
@@ -4911,6 +5368,7 @@ PHASES = {
     "serve_family": phase_serve_family,
     "parity": phase_parity,
     "checkpoint": phase_checkpoint,
+    "ptq": phase_ptq,
     "bench": phase_bench,
 }
 
@@ -4919,7 +5377,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of: " + ", ".join(PHASES))
+    ap.add_argument("--ptq-process", metavar="PATH", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.ptq_process:
+        return ptq_process(args.ptq_process)
     phases = args.phases.split(",")
     unknown = [p for p in phases if p not in PHASES]
     if unknown:

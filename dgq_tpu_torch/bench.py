@@ -464,6 +464,10 @@ def _empty_result(errors):
             "extra": {"errors": list(errors)}}
 
 
+READY_LINE = "dgq_tpu_torch.bench: signal handlers registered"
+RECORDED_LINE = "dgq_tpu_torch.bench: the rounds' result recorded"
+
+
 def _emit_now(sig=None, frame=None):
     """Print the best line so far exactly once, on the real stdout; on a
     signal also kill the running stage and exit."""
@@ -581,6 +585,8 @@ def main(argv=None) -> int:
     # importing torch may install its own handlers: ours again
     signal.signal(signal.SIGTERM, _emit_now)
     signal.signal(signal.SIGINT, _emit_now)
+    # from here on a SIGTERM prints the best line so far
+    print(READY_LINE, file=sys.stderr, flush=True)
 
     if not cpu:
         if not torch.cuda.is_available():
@@ -654,6 +660,7 @@ def main(argv=None) -> int:
         result = _empty_result(errors)
         result["extra"].update(card)
     _EMIT["result"] = result  # the headline can be harvested from here on
+    print(RECORDED_LINE, file=sys.stderr, flush=True)
     extra = result["extra"]
 
     for name, (min_needed, timeout) in STAGES.items():

@@ -52,6 +52,8 @@ from dgq_tpu_torch.ops.attention import (
     qk_scale,
 )
 from dgq_tpu_torch.ops.fused_decode import (
+    pack_rowpair_s4,
+    rowpair_cs_fold,
     fused_mlp_decode,
     fused_mlp_decode_rp,
     fused_norm_gemv,
@@ -190,6 +192,217 @@ class EngineConfig:
 
     def __post_init__(self):
         check_kv_bits(self.kv_bits)
+
+
+# ---------------------------------------------------------------------------
+# conversion from PTQ output
+# ---------------------------------------------------------------------------
+
+
+def stack_trees(trees):
+    """Stack same-shaped NamedTuple trees of tensors (None kept) along a new
+    leading axis."""
+    first = trees[0]
+    if first is None:
+        return None
+    if isinstance(first, torch.Tensor):
+        return torch.stack(trees)
+    return type(first)(*(stack_trees([t[i] for t in trees]) for i in range(len(first))))
+
+
+def _f32(x: Tensor) -> Tensor:
+    return x.to(torch.float32)
+
+
+def _engine_linear_fp(pl, input_scale: Tensor) -> EngineLinear:
+    """The fp-group-scale representation, exact for dual-grained (scale =
+    int8 scale x scale8) and plain (fp scale, the w4w8 fallback) linears
+    alike: what K10 consumes."""
+    if pl.wbits != 4:
+        raise ValueError(f"engine requires 4-bit nibble-packed weights, got wbits={pl.wbits}; "
+                         "wbits>=8 models run via the fake-quant eval path only")
+    if pl.span != 2 * pl.groupsize:
+        raise ValueError("engine requires span-packed weights (K % (2 * groupsize) == 0)")
+    fp_s = _f32(pl.wscales) * _f32(pl.wscales8)[None, :] if pl.w4w8 else _f32(pl.wscales)
+    n = fp_s.shape[-1]
+    return EngineLinear(
+        qweight=pl.qweight,
+        wscales=torch.repeat_interleave(fp_s, 8, dim=0),
+        wzeros=torch.repeat_interleave(_f32(pl.wzeros), 8, dim=0),
+        alpha=torch.ones((n,), dtype=torch.float32, device=fp_s.device) * _f32(input_scale),
+        bias=pl.bias,
+    )
+
+
+def _engine_linear(pl, input_scale: Tensor) -> EngineLinear:
+    """A dual-grained linear: span codes, scales and zeros 8x row-replicated
+    for the GEMMs, the compact plane rows (even groups hi, odd lo) for the
+    fused GEMVs, alpha = wscales8 * input_scale."""
+    if not (pl.w4w8 and pl.span == 2 * pl.groupsize):
+        raise ValueError("engine conversion needs w4w8 span-packed linears "
+                         "(quantize with --w4w8 and a groupsize, e.g. 128)")
+    return EngineLinear(
+        qweight=pl.qweight,
+        wscales=torch.repeat_interleave(pl.wscales, 8, dim=0),
+        wzeros=torch.repeat_interleave(pl.wzeros, 8, dim=0),
+        alpha=_f32(pl.wscales8) * _f32(input_scale),
+        bias=pl.bias,
+        s_hi=pl.wscales[0::2].contiguous(),
+        s_lo=pl.wscales[1::2].contiguous(),
+        z_hi=pl.wzeros[0::2].contiguous(),
+        z_lo=pl.wzeros[1::2].contiguous(),
+    )
+
+
+def _pad_cols(a: Optional[Tensor], pad: int, value=0) -> Optional[Tensor]:
+    return None if a is None else torch.nn.functional.pad(a, (0, pad), value=value)
+
+
+def _pad_rows(a: Optional[Tensor], pad: int, value=0) -> Optional[Tensor]:
+    return None if a is None else torch.nn.functional.pad(a, (0, 0, 0, pad), value=value)
+
+
+def _pad_linear_n(lin: EngineLinear, mult: int) -> EngineLinear:
+    """Pad the output dim to a multiple of ``mult`` with zero-alpha channels
+    (outputs exactly 0); skipped for dims under ``mult`` or a pad above N/8."""
+    n = lin.alpha.shape[-1]
+    pad = (-n) % mult
+    if pad == 0 or n < mult or pad > n // 8:
+        return lin
+    return EngineLinear(
+        qweight=_pad_cols(lin.qweight, pad), wscales=_pad_cols(lin.wscales, pad, 1),
+        wzeros=_pad_cols(lin.wzeros, pad), alpha=_pad_cols(lin.alpha, pad),
+        bias=_pad_cols(lin.bias, pad), s_hi=_pad_cols(lin.s_hi, pad, 1),
+        s_lo=_pad_cols(lin.s_lo, pad, 1), z_hi=_pad_cols(lin.z_hi, pad),
+        z_lo=_pad_cols(lin.z_lo, pad))
+
+
+def _pad_linear_k(lin: EngineLinear, mult: int) -> EngineLinear:
+    """Pad the input dim to a multiple of ``mult`` in whole spans (the
+    activations' padded channels are zero, so the padded weights add 0);
+    skipped for dims under ``mult``, a pad above K/8 or a partial span."""
+    k = lin.qweight.shape[0] * 2
+    groupsize = (k * 8) // lin.wscales.shape[0]
+    pad = (-k) % mult
+    if pad == 0 or k < mult or pad > k // 8 or pad % (2 * groupsize) != 0:
+        return lin
+    pad_pl = pad // (2 * groupsize)  # rows each nibble plane gains
+    return lin._replace(
+        qweight=_pad_rows(lin.qweight, pad // 2),
+        wscales=_pad_rows(lin.wscales, 8 * pad // groupsize, 1),
+        wzeros=_pad_rows(lin.wzeros, 8 * pad // groupsize),
+        s_hi=_pad_rows(lin.s_hi, pad_pl, 1), s_lo=_pad_rows(lin.s_lo, pad_pl, 1),
+        z_hi=_pad_rows(lin.z_hi, pad_pl), z_lo=_pad_rows(lin.z_lo, pad_pl))
+
+
+def _fuse_linears(lins: list) -> EngineLinear:
+    """Same-input linears concatenated along N (exact: N is every buffer's
+    last axis, alpha and bias per output channel)."""
+    if any(lin.bias is not None for lin in lins):
+        bias = torch.cat([lin.bias if lin.bias is not None else
+                          torch.zeros_like(lin.alpha) for lin in lins])
+    else:
+        bias = None
+
+    def cat(field):
+        vals = [getattr(lin, field) for lin in lins]
+        return None if any(v is None for v in vals) else torch.cat(vals, dim=-1)
+
+    return EngineLinear(qweight=cat("qweight"), wscales=cat("wscales"), wzeros=cat("wzeros"),
+                        alpha=cat("alpha"), bias=bias, s_hi=cat("s_hi"), s_lo=cat("s_lo"),
+                        z_hi=cat("z_hi"), z_lo=cat("z_lo"))
+
+
+def with_rowpair(lin: EngineLinear, drop_span: bool = False) -> EngineLinear:
+    """Attach the rowpair copy (``pack_rowpair_s4``) and ``cs_fold`` to a
+    (stacked) dual-grained linear, after padding and fusion; ``drop_span``
+    releases the span copy.  fp-scale linears (no plane rows) are left as
+    they are."""
+    if lin.s_hi is None:
+        return lin
+    if lin.qw_rp is not None:
+        return lin._replace(qweight=None) if drop_span else lin
+    span = 2 * (2 * lin.qweight.shape[-2] * 8) // lin.wscales.shape[-2]
+    return lin._replace(
+        qw_rp=pack_rowpair_s4(lin.qweight, span),
+        cs_fold=rowpair_cs_fold(lin.qweight, span, lin.s_hi, lin.s_lo),
+        qweight=None if drop_span else lin.qweight)
+
+
+LAYER_LINEARS = ("qkv_proj", "o_proj", "gate_up_proj", "down_proj")
+
+
+def add_rowpair(eng: EngineParams, drop_span: bool = False) -> EngineParams:
+    """Populate ``qw_rp``/``cs_fold`` on every layer linear; ``drop_span``
+    releases the span copies (K1 and K4-K6 read the rowpair layout only)."""
+    lay = eng.layers
+    if lay.qkv_proj.s_hi is None or (lay.qkv_proj.qw_rp is not None and not drop_span):
+        return eng
+    lay = lay._replace(**{n: with_rowpair(getattr(lay, n), drop_span) for n in LAYER_LINEARS})
+    return dataclasses.replace(eng, layers=lay)
+
+
+def _ptq_linears(params):
+    return [layer[sub][nm] for layer in params["layers"]
+            for sub, names in (("self_attn", ("q_proj", "k_proj", "v_proj", "o_proj")),
+                               ("mlp", ("gate_proj", "up_proj", "down_proj")))
+            for nm in names]
+
+
+def from_ptq(params, kv_scales, cfg: LlamaConfig, *, pad_to: int = 2048,
+             keep_span: bool = False) -> EngineParams:
+    """A PTQ result (params with PackedLinear leaves, per-layer kv scales) ->
+    stacked engine params on the params' device.  ``pad_to`` pads the MLP's
+    intermediate dim (gate/up outputs, down inputs) to a multiple of
+    ``pad_to // 2`` (F 11008 -> 11264), exactly.  A model mixing dual-grained
+    and w4w8-fallback linears converts to the fp-scale representation; run
+    it with ``EngineConfig(fp_scales=True)`` (``from_ptq_auto`` picks it).
+    ``keep_span`` keeps the span codes beside the rowpair copy."""
+    mixed = not all(pl.w4w8 for pl in _ptq_linears(params))
+    make_lin = _engine_linear_fp if mixed else _engine_linear
+
+    per_layer = []
+    for li, layer in enumerate(params["layers"]):
+        at, ml = layer["self_attn"], layer["mlp"]
+        attn_input_scale = _f32(at["q_proj"].amax) / 127.0
+        out_input_scale = _f32(at["o_proj"].amax) / 127.0
+        mlp_input_scale = _f32(ml["up_proj"].amax) / 127.0
+        down_input_scale = _f32(ml["down_proj"].amax) / 127.0
+        ln1, ln2 = layer["input_layernorm"], layer["post_attention_layernorm"]
+        kv = kv_scales[li]
+        per_layer.append(EngineLayer(
+            ln1_weight=_f32(ln1["weight"]) / attn_input_scale,
+            ln1_bias=None if ln1.get("bias") is None else _f32(ln1["bias"]) / attn_input_scale,
+            ln2_weight=_f32(ln2["weight"]) / mlp_input_scale,
+            ln2_bias=None if ln2.get("bias") is None else _f32(ln2["bias"]) / mlp_input_scale,
+            qkv_proj=_fuse_linears([make_lin(at[n], attn_input_scale)
+                                    for n in ("q_proj", "k_proj", "v_proj")]),
+            o_proj=make_lin(at["o_proj"], out_input_scale),
+            gate_up_proj=_fuse_linears([_pad_linear_n(make_lin(ml[n], mlp_input_scale),
+                                                      pad_to // 2)
+                                        for n in ("gate_proj", "up_proj")]),
+            down_proj=_pad_linear_k(make_lin(ml["down_proj"], down_input_scale), pad_to // 2),
+            q_scale=_f32(kv.q_scale), k_scale=_f32(kv.k_scale), v_scale=_f32(kv.v_scale),
+            out_input_scale=out_input_scale,
+            down_input_scale=down_input_scale,
+        ))
+    stacked = stack_trees(per_layer)
+    del per_layer
+    return add_rowpair(EngineParams(
+        embed_tokens=params["embed_tokens"],
+        layers=stacked,
+        norm_weight=_f32(params["norm"]["weight"]),
+        lm_head=params["lm_head"]["weight"],
+        rms_eps=cfg.rms_norm_eps,
+    ), drop_span=not keep_span)
+
+
+def from_ptq_auto(params, kv_scales, cfg: LlamaConfig, *, pad_to: int = 2048, **ecfg_kw):
+    """(EngineConfig, EngineParams), ``fp_scales`` chosen for models that mix
+    dual-grained and w4w8-fallback linears."""
+    mixed = not all(pl.w4w8 for pl in _ptq_linears(params))
+    eng = from_ptq(params, kv_scales, cfg, pad_to=pad_to)
+    return EngineConfig(cfg=cfg, fp_scales=mixed, **ecfg_kw), eng
 
 
 def _rms_norm_q(x: Tensor, weight_q: Tensor, eps: float, bias_q=None) -> Tensor:

@@ -23,7 +23,8 @@ import itertools
 
 import torch
 
-from dgq_tpu_torch.models.engine import EngineLayer, EngineLinear, EngineParams
+from dgq_tpu_torch.models.engine import EngineLayer, EngineLinear, EngineParams, \
+    stack_trees
 from dgq_tpu_torch.models.bloom import BloomConfig
 from dgq_tpu_torch.models.bloom_engine import BloomEngineLayer, BloomEngineParams
 from dgq_tpu_torch.models.falcon import FalconConfig
@@ -135,7 +136,7 @@ def build_llama_engine(cfg: LlamaConfig, seed: int = 0, device="cuda",
             out_input_scale=_scalar(0.05, device),
             down_input_scale=_scalar(0.05, device),
         ))
-    stacked = _stack(per_layer)
+    stacked = stack_trees(per_layer)
     del per_layer
     return EngineParams(
         embed_tokens=_normal(gen, (cfg.vocab_size, d), device),
@@ -174,7 +175,7 @@ def build_opt_engine(cfg: OPTConfig, seed: int = 0, device="cuda") -> OPTEngineP
             out_input_scale=_scalar(0.05, device),
             fc2_input_scale=_scalar(0.05, device),
         ))
-    stacked = _stack(per_layer)
+    stacked = stack_trees(per_layer)
     del per_layer
     return OPTEngineParams(
         embed_tokens=_normal(gen, (cfg.vocab_size, d), device),
@@ -225,7 +226,7 @@ def build_bloom_engine(cfg: BloomConfig, seed: int = 0, device="cuda") -> BloomE
     LayerNorms."""
     d, h, dh = cfg.hidden_size, cfg.num_attention_heads, cfg.head_dim
     gen = torch.Generator(device=device).manual_seed(seed)
-    layers = _stack([_family_layer(BloomEngineLayer, gen, d, 4 * d, h, dh, True, True, device)
+    layers = stack_trees([_family_layer(BloomEngineLayer, gen, d, 4 * d, h, dh, True, True, device)
                      for _ in range(cfg.num_hidden_layers)])
     ones = torch.ones((d,), dtype=torch.float32, device=device)
     return BloomEngineParams(
@@ -242,7 +243,7 @@ def build_mpt_engine(cfg: MPTConfig, seed: int = 0, device="cuda") -> MPTEngineP
     LayerNorm."""
     d, h, dh = cfg.d_model, cfg.n_heads, cfg.head_dim
     gen = torch.Generator(device=device).manual_seed(seed)
-    layers = _stack([_family_layer(MPTEngineLayer, gen, d, cfg.ffn_dim, h, dh, False,
+    layers = stack_trees([_family_layer(MPTEngineLayer, gen, d, cfg.ffn_dim, h, dh, False,
                                    not cfg.no_bias, device) for _ in range(cfg.n_layers)])
     ones = torch.ones((d,), dtype=torch.float32, device=device)
     return MPTEngineParams(
@@ -252,7 +253,7 @@ def build_mpt_engine(cfg: MPTConfig, seed: int = 0, device="cuda") -> MPTEngineP
     )
 
 
-def span_stack(gen: torch.Generator, lead: tuple, n_out: int, n_in: int, g: int = 128,
+def _span_stack(gen: torch.Generator, lead: tuple, n_out: int, n_in: int, g: int = 128,
                device="cuda", fp_scales: bool = False) -> EngineLinear:
     """Span-only linears stacked on the leading dims ``lead`` (e.g. (L, E)),
     each drawn as ``random_span_linear`` draws one, into tensors made once."""
@@ -288,7 +289,7 @@ def build_falcon_engine(cfg: FalconConfig, seed: int = 0, device="cuda",
     gen = torch.Generator(device=device).manual_seed(seed)
 
     def lin(n_out, n_in):
-        return span_stack(gen, (n,), n_out, n_in, groupsize, device)
+        return _span_stack(gen, (n,), n_out, n_in, groupsize, device)
 
     layers = FalconEngineLayer(
         ln_weight=_full((n, d), 1.0, device), ln_bias=_full((n, d), 0.0, device),
@@ -320,7 +321,7 @@ def build_mixtral_engine(cfg: MixtralConfig, seed: int = 0, device="cuda",
     gen = torch.Generator(device=device).manual_seed(seed)
 
     def lin(lead, n_out, n_in):
-        return span_stack(gen, lead, n_out, n_in, 128, device, fp_scales)
+        return _span_stack(gen, lead, n_out, n_in, 128, device, fp_scales)
 
     layers = MixtralEngineLayer(
         ln1_weight=_full((n, d), 10.0, device), ln1_bias=None,
@@ -339,10 +340,3 @@ def build_mixtral_engine(cfg: MixtralConfig, seed: int = 0, device="cuda",
         lm_head=_normal(gen, (cfg.vocab_size, d), device))
 
 
-def _stack(trees):
-    first = trees[0]
-    if first is None:
-        return None
-    if isinstance(first, torch.Tensor):
-        return torch.stack(trees)
-    return type(first)(*(_stack([t[i] for t in trees]) for i in range(len(first))))

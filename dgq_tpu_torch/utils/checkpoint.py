@@ -1,12 +1,18 @@
-"""Engine checkpoints: ``save_engine`` / ``load_engine`` for ``arch`` "llama",
-"opt", "bloom", "mpt", "falcon" and "mixtral", and ``load_engine_any``.
+"""Checkpoints: quantized PTQ results (``save_quantized`` /
+``load_quantized``), and engines (``save_engine`` / ``load_engine`` for
+``arch`` "llama", "opt", "bloom", "mpt", "falcon" and "mixtral", and
+``load_engine_any``).
 
-Port of ``dgq_tpu/utils/checkpoint.py:223-248`` and ``:402-511``: one
-safetensors file of flat ``/``-joined keys (``layers/qkv_proj/qw_rp``, ...)
-plus a ``<path>.json`` manifest, interchangeable with the JAX package's
-files.  The format is read and written here directly (no ``safetensors``
-package): an 8-byte little-endian header length, a JSON header naming each
-tensor's dtype, shape and byte range, then the raw little-endian bytes.
+Port of ``dgq_tpu/utils/checkpoint.py:62-248`` and ``:402-511``.  A
+quantized checkpoint is one safetensors file of flat ``.``-joined keys
+(``layers.0.self_attn.q_proj.qweight``, ``kv_scales.0.q_scale``, ...) plus a
+``<path>.json`` manifest of the model and quant configs and each packed
+linear's static fields; an engine checkpoint one file of ``/``-joined keys
+(``layers/qkv_proj/qw_rp``, ...) plus its manifest.  Both are
+interchangeable with the JAX package's files.  The format is read and
+written here directly (no ``safetensors`` package): an 8-byte
+little-endian header length, a JSON header naming each tensor's dtype,
+shape and byte range, then the raw little-endian bytes.
 """
 
 from __future__ import annotations
@@ -19,23 +25,28 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
+from dgq_tpu_torch.config import ActQuantConfig, QuantConfig, WtQuantConfig
 from dgq_tpu_torch.models.bloom import BloomConfig
 from dgq_tpu_torch.models.bloom_engine import BloomEngineLayer, BloomEngineParams
-from dgq_tpu_torch.models.engine import EngineLayer, EngineLinear, EngineParams, map_tensors
+from dgq_tpu_torch.models.engine import EngineLayer, EngineLinear, EngineParams, map_tensors, \
+    with_rowpair
 from dgq_tpu_torch.models.falcon import FalconConfig
 from dgq_tpu_torch.models.falcon_engine import FalconEngineLayer, FalconEngineParams
-from dgq_tpu_torch.models.llama import LlamaConfig
+from dgq_tpu_torch.models.llama import KVQuantState, LlamaConfig
 from dgq_tpu_torch.models.mixtral import MixtralConfig
 from dgq_tpu_torch.models.mixtral_engine import MixtralEngineLayer, MixtralEngineParams
 from dgq_tpu_torch.models.mpt import MPTConfig
 from dgq_tpu_torch.models.mpt_engine import MPTEngineLayer, MPTEngineParams
 from dgq_tpu_torch.models.opt import OPTConfig
 from dgq_tpu_torch.models.opt_engine import OPTEngineLayer, OPTEngineParams
+from dgq_tpu_torch.quant.packing import PACKED_ARRAYS, PACKED_META, PackedLinear, \
+    tensor_from_array
 
 ARCHS = ("llama", "opt", "bloom", "mpt", "falcon", "mixtral")
 
 _DTYPES = {
     "I8": torch.int8,
+    "U8": torch.uint8,
     "I32": torch.int32,
     "F32": torch.float32,
     "BF16": torch.bfloat16,
@@ -91,6 +102,142 @@ def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
     return out
 
 
+# ---------------------------------------------------------------------------
+# quantized PTQ results
+# ---------------------------------------------------------------------------
+
+
+def _flatten_quantized(tree, prefix: str, out: Dict[str, torch.Tensor], meta: dict) -> None:
+    if isinstance(tree, PackedLinear):
+        meta[prefix] = {"kind": "packed_linear",
+                        **{k: getattr(tree, k) for k in PACKED_META}}
+        for f in PACKED_ARRAYS:
+            if getattr(tree, f) is not None:
+                out[f"{prefix}.{f}"] = getattr(tree, f)
+        return
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _flatten_quantized(v, f"{prefix}.{k}" if prefix else k, out, meta)
+        return
+    if isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            _flatten_quantized(v, f"{prefix}.{i}", out, meta)
+        return
+    out[prefix] = torch.as_tensor(tree)
+
+
+def _qcfg_to_dict(qcfg: QuantConfig) -> dict:
+    return {
+        "act_quant": None if qcfg.act_quant is None else dataclasses.asdict(qcfg.act_quant),
+        "wt_quant": None if qcfg.wt_quant is None else dataclasses.asdict(qcfg.wt_quant),
+        "smoothquant": qcfg.smoothquant,
+        "meanact": qcfg.meanact,
+        "kvquant": qcfg.kvquant,
+        "nsamples": qcfg.nsamples,
+        "seqlen": qcfg.seqlen,
+    }
+
+
+def _qcfg_from_dict(d: dict) -> QuantConfig:
+    return QuantConfig(
+        act_quant=None if d["act_quant"] is None else ActQuantConfig(**d["act_quant"]),
+        wt_quant=None if d["wt_quant"] is None else WtQuantConfig(**d["wt_quant"]),
+        smoothquant=d["smoothquant"],
+        meanact=d["meanact"],
+        kvquant=d["kvquant"],
+        nsamples=d.get("nsamples", 32),
+        seqlen=d.get("seqlen", 2048),
+    )
+
+
+def save_quantized(path: str, params, cfg, qcfg: QuantConfig, kv_scales=None,
+                   arch: str = "llama") -> None:
+    """Write a PTQ result (params with PackedLinear leaves, per-layer kv
+    scales or None) and its ``<path>.json`` manifest, as JAX's
+    save_quantized does."""
+    _check_arch(arch)
+    tensors: Dict[str, torch.Tensor] = {}
+    meta: dict = {}
+    _flatten_quantized(params, "", tensors, meta)
+    for i, kv in enumerate(kv_scales or []):
+        if kv is not None:
+            for name in KVQuantState._fields:
+                tensors[f"kv_scales.{i}.{name}"] = torch.as_tensor(getattr(kv, name))
+    manifest = {"format_version": 1, "arch": arch, "model_config": dataclasses.asdict(cfg),
+                "quant_config": _qcfg_to_dict(qcfg), "packed": meta,
+                "num_layers": cfg.num_hidden_layers}
+    write_safetensors(path, tensors)
+    with open(path + ".json", "w") as f:
+        json.dump(manifest, f, indent=1)
+
+
+def _packed_prefix(key: str, packed_meta: dict):
+    parts = key.split(".")
+    for cut in range(len(parts) - 1, 0, -1):
+        prefix = ".".join(parts[:cut])
+        if prefix in packed_meta:
+            return prefix
+    return None
+
+
+def _insert(tree: dict, parts, value) -> None:
+    for p in parts[:-1]:
+        tree = tree.setdefault(p, {})
+    tree[parts[-1]] = value
+
+
+def _listify(tree):
+    """{'0': .., '1': ..} dicts back into lists."""
+    if isinstance(tree, dict):
+        keys = list(tree)
+        if keys and all(k.isdigit() for k in keys):
+            return [_listify(tree[str(i)]) for i in range(len(keys))]
+        return {k: _listify(v) for k, v in tree.items()}
+    return tree
+
+
+def load_quantized(path: str, device="cuda"):
+    """(params, cfg, qcfg, kv_scales) from a save_quantized checkpoint (the
+    port's or JAX's), every tensor on ``device``."""
+    tensors = read_safetensors(path)
+    with open(path + ".json") as f:
+        manifest = json.load(f)
+    arch = manifest.get("arch", "llama")
+    _check_arch(arch)
+    cfg_cls = LlamaConfig if arch == "llama" else _SPAN_ARCHS[arch][0]
+    cfg = cfg_cls(**manifest["model_config"])
+    qcfg = _qcfg_from_dict(manifest["quant_config"])
+    packed_meta = manifest["packed"]
+
+    nested: dict = {}
+    packed: Dict[str, dict] = {}
+    kv_raw: Dict[int, dict] = {}
+    for key, t in tensors.items():
+        t = t.to(device)
+        if key.startswith("kv_scales."):
+            _, idx, field = key.split(".")
+            kv_raw.setdefault(int(idx), {})[field] = t
+            continue
+        prefix = _packed_prefix(key, packed_meta)
+        if prefix is not None:
+            packed.setdefault(prefix, {})[key[len(prefix) + 1:]] = t
+        else:
+            _insert(nested, key.split("."), t)
+    for prefix, fields in packed.items():
+        m = packed_meta[prefix]
+        _insert(nested, prefix.split("."), PackedLinear(
+            **{f: fields.get(f) for f in PACKED_ARRAYS},
+            **{k: m[k] for k in PACKED_META if k in m}))
+    kv_scales = [KVQuantState(**kv_raw[i]) if i in kv_raw else None
+                 for i in range(manifest["num_layers"])]
+    return _listify(nested), cfg, qcfg, kv_scales
+
+
+# ---------------------------------------------------------------------------
+# engines
+# ---------------------------------------------------------------------------
+
+
 def _flatten(prefix: str, tree, out: Dict[str, torch.Tensor]) -> None:
     if tree is None:
         return
@@ -133,51 +280,37 @@ def save_engine(path: str, eng, cfg, arch: str = "llama") -> None:
         json.dump(manifest, f)
 
 
-def _to_tensor(a) -> torch.Tensor:
-    if isinstance(a, torch.Tensor):
-        return a
-    a = np.array(a)  # a writable copy
-    if a.dtype.name == "bfloat16":  # ml_dtypes bf16 from JAX: reinterpret the bits
-        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
-    return torch.from_numpy(a)
-
-
 def _stored_linear(t: Mapping[str, torch.Tensor], prefix: str) -> EngineLinear:
     """An EngineLinear as stored: missing fields (None when saved) are None."""
     return EngineLinear(*(t.get(f"{prefix}/{name}") for name in EngineLinear._fields))
 
 
 def _linear(t: Mapping[str, torch.Tensor], prefix: str) -> EngineLinear:
-    from dgq_tpu_torch.ops.fused_decode import pack_rowpair_s4, rowpair_cs_fold
-
     ws, wz = t[f"{prefix}/wscales"], t[f"{prefix}/wzeros"]
     if ws.dtype != torch.int8:  # fp-scale linear: span storage only, no plane rows
         return _stored_linear(t, prefix)
     # compact plane rows, derived from the 8x-replicated copies when absent
     # (group g at rows 8g..8g+7: even groups rows 0::16, odd groups 8::16)
-    s_hi = t.get(f"{prefix}/s_hi", ws[..., 0::16, :].contiguous())
-    s_lo = t.get(f"{prefix}/s_lo", ws[..., 8::16, :].contiguous())
-    qweight, qw_rp = t.get(f"{prefix}/qweight"), t.get(f"{prefix}/qw_rp")
-    cs_fold = t.get(f"{prefix}/cs_fold")
-    if qw_rp is None:  # span-only checkpoint: derive the rowpair layout
-        if qweight is None:
-            raise KeyError(f"{prefix}: neither qw_rp nor qweight present")
-        span = 2 * (2 * qweight.shape[-2] * 8) // ws.shape[-2]
-        qw_rp = pack_rowpair_s4(qweight, span)
-        cs_fold = rowpair_cs_fold(qweight, span, s_hi, s_lo)
-    return EngineLinear(
-        qweight=qweight, wscales=ws, wzeros=wz, alpha=t[f"{prefix}/alpha"],
-        bias=t.get(f"{prefix}/bias"), s_hi=s_hi, s_lo=s_lo,
+    lin = EngineLinear(
+        qweight=t.get(f"{prefix}/qweight"), wscales=ws, wzeros=wz, alpha=t[f"{prefix}/alpha"],
+        bias=t.get(f"{prefix}/bias"),
+        s_hi=t.get(f"{prefix}/s_hi", ws[..., 0::16, :].contiguous()),
+        s_lo=t.get(f"{prefix}/s_lo", ws[..., 8::16, :].contiguous()),
         z_hi=t.get(f"{prefix}/z_hi", wz[..., 0::16, :].contiguous()),
         z_lo=t.get(f"{prefix}/z_lo", wz[..., 8::16, :].contiguous()),
-        qw_rp=qw_rp, cs_fold=cs_fold,
+        qw_rp=t.get(f"{prefix}/qw_rp"), cs_fold=t.get(f"{prefix}/cs_fold"),
     )
+    if lin.qw_rp is None:  # span-only checkpoint: derive the rowpair layout
+        if lin.qweight is None:
+            raise KeyError(f"{prefix}: neither qw_rp nor qweight present")
+        lin = with_rowpair(lin)
+    return lin
 
 
 def engine_params_from_arrays(tensors: Mapping[str, object], rms_eps: float,
                               device="cuda") -> EngineParams:
     """EngineParams from arrays (numpy or torch) under save_engine's keys."""
-    t = {k: _to_tensor(v) for k, v in tensors.items()}
+    t = {k: tensor_from_array(v) for k, v in tensors.items()}
     layers = EngineLayer(
         ln1_weight=t["layers/ln1_weight"],
         ln1_bias=t.get("layers/ln1_bias"),
@@ -214,7 +347,7 @@ def _span_params_from_arrays(cls, layer_cls, lins, tensors: Mapping[str, object]
     linears ``lins`` keep their span-only storage, as JAX loads them (each
     leaf with the layers' leading axes: (L, E, ...) for Mixtral's experts);
     the fields ``optional`` are None where the arrays leave them out."""
-    t = {k: _to_tensor(v) for k, v in tensors.items()}
+    t = {k: tensor_from_array(v) for k, v in tensors.items()}
     layers = layer_cls(**{
         name: (_stored_linear(t, f"layers/{name}") if name in lins
                else t.get(f"layers/{name}") if name in optional else t[f"layers/{name}"])

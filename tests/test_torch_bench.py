@@ -11,9 +11,11 @@ non-zero exit."""
 import dataclasses
 import json
 import os
+import queue
 import signal
 import subprocess
 import sys
+import threading
 import time
 
 import jax.numpy as jnp
@@ -144,19 +146,36 @@ def test_bench_deadline_records_the_skipped_stages():
 
 
 def test_bench_sigterm_prints_the_best_line_so_far():
+    """The SIGTERM goes once the bench says it has registered its handlers
+    and recorded the rounds' result (stderr lines, under a deadline), while
+    its later stages run: the line printed is that result."""
     proc = subprocess.Popen([sys.executable, "-m", "dgq_tpu_torch.bench", "--cpu"], cwd=REPO,
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
                             env=_env())
-    time.sleep(6.0)  # past the handlers' registration, inside a stage
-    proc.send_signal(signal.SIGTERM)
+    lines: "queue.Queue[str]" = queue.Queue()
+    reader = threading.Thread(target=lambda: [lines.put(s) for s in proc.stderr], daemon=True)
+    reader.start()
+    deadline = time.monotonic() + 120
     try:
-        out, _ = proc.communicate(timeout=120)
-    except subprocess.TimeoutExpired:
-        proc.kill()
-        raise
+        for marker in (bench.READY_LINE, bench.RECORDED_LINE):
+            while True:
+                remaining = deadline - time.monotonic()
+                assert remaining > 0, f"no line {marker!r} within 120 s"
+                if lines.get(timeout=remaining).strip() == marker:
+                    break
+        proc.send_signal(signal.SIGTERM)
+        proc.wait(timeout=120)  # its stdout is one line: the pipe cannot fill
+        out = proc.stdout.read()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    reader.join(timeout=30)
     d = _one_line(out)
     assert d["unit"] == "fraction_of_roofline"
     assert d["extra"]["terminated_by_signal"] == signal.SIGTERM
+    assert not d.get("degraded") and d["value"] > 0 and d["extra"]["fused_tops"] > 0, d
+    assert d["extra"]["rounds_ok"] == 1, d
 
 
 def test_bench_without_a_card_exits_nonzero_naming_it():
